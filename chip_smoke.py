@@ -9,18 +9,32 @@ NVIDIA GPU.
 2. Builds the port's CUDA kernels from paddle_tpu_torch/kernels/csrc/
    (one nvcc per source, all started together).
 3. Kernel phases: each kernel against its plain PyTorch version on the
-   card at the serving path's shapes, with the tolerance stated; prints
-   one JSON line per phase with the error, the kernel's, the plain
-   version's and (where one exists) a single PyTorch call's time, and
-   the bound (bytes or operations of this input over the card's peak).
-4. End to end at GPTConfig.base() widths, seeded random weights:
-   offline greedy generate (dense and paged), teacher-forced paged
-   (kernel) vs dense (plain) decode logits, then an InferenceServer with
-   8 decode slots answering 16 requests from 8 concurrent wire clients,
-   each reply equal to offline greedy generate. Kernel launch counts are
-   zeroed just before this phase and read just after; each kernel must
-   have launched.
-5. Prints the {"kernels": [...]} line, then as the last line
+   card at the main paths' shapes, with the tolerance stated; prints one
+   JSON line per phase with the error, the kernel's, the plain version's
+   and (where one exists) a single PyTorch call's time, and the bound
+   (bytes or operations of this input over the card's peak). K1 (flash
+   forward) and K5 (paged decode) at the serving shapes; K2 (combined
+   backward) at B8 H12 S1024 D64 causal and K3/K4 (dq; dk, dv) at S2048
+   causal, on the strided q/k/v views the model makes, plus a non-causal
+   + bias and a bf16 case each.
+4. The main paths at GPTConfig.base() widths, seeded random weights, each
+   with every kernel launch count zeroed just before it and read just
+   after; each path's kernels must have launched:
+   - serving: offline greedy generate (dense and paged), teacher-forced
+     paged (kernel) vs dense (plain) decode logits, then an
+     InferenceServer with 8 decode slots answering 16 requests from 8
+     concurrent wire clients, each reply equal to offline greedy generate
+     (K1, K5);
+   - training through the Fluid surface (gpt_pretrain + AdamOptimizer +
+     Executor), fp32, dropout 0.1, 5 Adam steps at lr 1e-4 on one seeded
+     batch: B8 S2048 (K1, K3, K4) and B8 S1024 (K1, K2), all 12 layers;
+     finite losses, step 0 within 1.0 of ln(32000), step 4 below step 0;
+     ms/step, tokens/s, TFLOP/s and peak memory.
+5. Gradient check at GPT-base width, 2 layers, S1024 and S2048: every
+   param@GRAD of one step through the kernels against the same program
+   cloned with the flash_attention op's impl set to "xla" (the plain
+   composite), within 1e-3 of its max |grad|.
+6. Prints the {"kernels": [...]} line (K1-K5), then as the last line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
@@ -43,6 +57,17 @@ FA_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu"
 PA_SOURCE = "paddle_tpu_torch/kernels/csrc/paged_attention.cu"
 FA_REPLACES = "paddle_tpu/kernels/flash_attention.py:298"
 PA_REPLACES = "paddle_tpu/kernels/paged_attention.py:219"
+BWD_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention_bwd.cu"
+# wrapper name -> (TPU kernel's pallas_call site, outputs, score-sized
+# products the function needs: s, dp and dq; s, dp, dk and dv; all five)
+BWD_KERNELS = {
+    "flash_attention_bwd_single": ("paddle_tpu/kernels/flash_attention.py:482",
+                                   ("dq", "dk", "dv"), 5),
+    "flash_attention_bwd_dq": ("paddle_tpu/kernels/flash_attention.py:514",
+                               ("dq",), 3),
+    "flash_attention_bwd_dkv": ("paddle_tpu/kernels/flash_attention.py:542",
+                                ("dk", "dv"), 4),
+}
 
 
 def emit(obj):
@@ -85,13 +110,12 @@ def bound(nbytes, ops, dtype):
 
 # ------------------------------------------------------------ kernel phases
 
-def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
-                packed):
-    """``packed``: q/k/v are the strided views the model's prefill hands
-    the kernel (one ``[B, S, 3*H*D]`` qkv projection, split, viewed as
-    ``[B, S, H, D]`` and transposed to ``[B, H, S, D]``, as
-    ``models/gpt.py`` ``GPT._layer`` does); else contiguous tensors."""
-    F = torch.nn.functional
+def attention_inputs(torch, B, H, S, D, dtype, with_bias, seed, packed):
+    """Seeded q, k, v, bias (or None) and a generator on the card.
+    ``packed``: q/k/v are the strided views the model hands the kernels
+    (one ``[B, S, 3*H*D]`` qkv projection, split, viewed as ``[B, S, H,
+    D]`` and transposed to ``[B, H, S, D]``, as ``models/gpt.py`` does);
+    else contiguous tensors."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     if packed:
@@ -106,6 +130,14 @@ def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
     if with_bias:
         keep = torch.rand(B, 1, 1, S, device="cuda", generator=g) > 0.25
         bias = torch.where(keep, 0.0, -1e4).float()
+    return q, k, v, bias, g
+
+
+def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
+                packed):
+    F = torch.nn.functional
+    q, k, v, bias, _ = attention_inputs(torch, B, H, S, D, dtype, with_bias,
+                                        seed, packed)
     out, lse = fa.flash_attention_fwd(q, k, v, bias=bias, causal=causal)
     ref, ref_lse = fa.flash_attention_ref(q, k, v, bias=bias,
                                           causal=causal)
@@ -118,7 +150,7 @@ def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
         q, k, v, bias=bias, causal=causal), 20)
     plain_ms = time_ms(torch, lambda: fa.flash_attention_ref(
         q, k, v, bias=bias, causal=causal), 5)
-    mask = None if bias is None else bias.to(dt)
+    mask = None if bias is None else bias.to(q.dtype)
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=causal), 20)
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -325,6 +357,184 @@ def end_to_end(torch, np, cfg, device=None, max_len=2048, lo=64, hi=1024,
                              f"generate for requests {mismatched}")
 
 
+def event_ms(torch, fn, iters):
+    """Device time of one call of ``fn`` between two events over
+    ``iters`` back-to-back calls, after one warm-up call (for calls of a
+    millisecond or more, where the host's launch overhead is hidden)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bwd_phase(torch, fa, name, B, H, S, D, dtype, causal, with_bias, seed,
+              packed):
+    """One backward kernel (``name``: its wrapper) against
+    ``flash_attention_bwd_ref`` on the same inputs; the forward's out and
+    lse2 come from K1. Limit: max |kernel - ref| per output within 1e-4
+    (float32) or 2e-2 (bf16) of that output's max |ref|. The library time
+    is the backward of ``scaled_dot_product_attention`` alone (autograd
+    through one retained forward)."""
+    F = torch.nn.functional
+    replaces, outs, products = BWD_KERNELS[name]
+    q, k, v, bias, g = attention_inputs(torch, B, H, S, D, dtype, with_bias,
+                                        seed, packed)
+    scale = D ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, scale, causal)
+    dout = torch.randn(B, H, S, D, device="cuda", generator=g).to(q.dtype)
+    args = (q, k, v, bias, scale, causal, out, lse, dout)
+    kern = getattr(fa, name)
+    got = kern(*args)
+    got = (got,) if len(outs) == 1 else got
+    ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(*args)))
+    torch.cuda.synchronize()
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    errs, rel = {}, {}
+    for o, t in zip(outs, got):
+        r = ref[o].float()
+        errs[o] = (t.float() - r).abs().max().item()
+        rel[o] = errs[o] / r.abs().max().item()
+    ok = max(rel.values()) <= tol and all(bool(torch.isfinite(t).all())
+                                          for t in got)
+    del got, ref
+    ms = event_ms(torch, lambda: kern(*args), 10)
+    plain_ms = event_ms(torch, lambda: fa.flash_attention_bwd_ref(*args), 3)
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    mask = None if bias is None else bias.to(q.dtype)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                        is_causal=causal)
+    lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), dout, retain_graph=True), 10)
+    pairs = S * (S + 1) // 2 if causal else S * S
+    ops = 2.0 * products * B * H * pairs * D
+    nbytes = (4 + len(outs)) * B * H * S * D * q.element_size() \
+        + 2 * B * H * S * 4 + (B * S * 4 if with_bias else 0)
+    bound_ms, bound_by = bound(nbytes, ops, dtype)
+    rec = {"phase": name, "replaces": replaces, "B": B, "H": H, "S": S,
+           "D": D, "dtype": dtype, "causal": causal, "bias": with_bias,
+           "layout": "packed qkv views" if packed else "contiguous",
+           "max_abs_err": max(errs.values()), "abs_err": errs,
+           "err_over_max_ref": rel, "limit_over_max_ref": tol, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "tflops": ops / ms / 1e9, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{rec}")
+    return rec
+
+
+# ----------------------------------------------------- training (Fluid)
+
+def gpt_train_flops_per_sample(cfg, seq_len):
+    """Analytic matmul FLOPs per sample of one training step: forward x3
+    for forward + backward, causal attention counting the live half of
+    the score square (the formula of the repository's bench.py
+    ``_gpt_train_flops_per_sample``)."""
+    h, L, ffn, V = (cfg.hidden_size, cfg.num_layers, cfg.ffn_size,
+                    cfg.vocab_size)
+    per_layer = (4 * 2 * seq_len * h * h + 2 * 2 * seq_len * h * ffn
+                 + 2 * seq_len * seq_len * h)
+    return 3 * (L * per_layer + 2 * seq_len * h * V)
+
+
+def build_train(cfg, B, S):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = gpt.gpt_pretrain(cfg, B, S)
+        _, params_grads = fluid.optimizer.AdamOptimizer(1e-4).minimize(
+            out["loss"])
+    return main, startup, out["loss"], params_grads
+
+
+def train_phase(torch, np, cfg, B, S, steps, place=None, seed=0):
+    """``steps`` Adam steps of ``gpt_pretrain`` through the Fluid surface
+    on one seeded batch; ``place`` None is the GPU (a CPUPlace rehearses
+    the path at a tiny size). Returns the phase record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    main, startup, loss, _ = build_train(cfg, B, S)
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(seed))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, wall = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        wall.append((time.perf_counter() - t0) * 1e3)  # fetch syncs
+        losses.append(float(np.ravel(lv)[0]))
+    step_ms = float(np.median(wall[1:])) if steps > 1 else wall[0]
+    flops = gpt_train_flops_per_sample(cfg, S) * B
+    rec = {"phase": f"train_gpt_B{B}_S{S}", "layers": cfg.num_layers,
+           "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
+           "dropout": cfg.dropout, "steps": steps, "losses": losses,
+           "step_ms": wall, "median_step_ms_after_first": step_ms,
+           "tokens_per_s": B * S / step_ms * 1e3,
+           "analytic_flops_per_step": flops,
+           "achieved_tflops": flops / step_ms / 1e9,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if cuda else None),
+           "ln_vocab": float(np.log(cfg.vocab_size))}
+    bad = [x for x in losses if not np.isfinite(x)]
+    if bad or abs(losses[0] - np.log(cfg.vocab_size)) > 1.0 \
+            or not losses[-1] < losses[0]:
+        emit(rec)
+        raise AssertionError(f"GPT training losses are off: {losses}")
+    return rec
+
+
+def grad_check(torch, np, cfg, B, S, place=None, seed=1):
+    """Every param@GRAD of one step through the kernels against the same
+    program cloned with the flash_attention op's impl set to "xla" (the
+    plain composite), from copies of one startup scope (so dropout draws
+    the same masks); limit 1e-3 of each grad's max |value|."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    main, startup, _, params_grads = build_train(cfg, B, S)
+    plain = main.clone()
+    for op in plain.global_block().ops:
+        if op.type == "flash_attention":
+            op.attrs["impl"] = "xla"
+        elif op.type == "flash_attention_grad":
+            op.attrs["__fwd_op__"]["attrs"]["impl"] = "xla"
+    exe = fluid.Executor(place)
+    s1, s2 = fluid.Scope(), fluid.Scope()
+    exe.run(startup, scope=s1)
+    for n, v in s1.items():
+        s2.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(seed))
+    names = [g.name for _, g in params_grads]
+    kern = exe.run(main, feed=feed, fetch_list=names, scope=s1)
+    ref = exe.run(plain, feed=feed, fetch_list=names, scope=s2)
+    worst, worst_name = 0.0, None
+    for n, a, b in zip(names, kern, ref):
+        r = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) \
+            if np.isfinite(a).all() else float("inf")
+        if r >= worst:
+            worst, worst_name = r, n
+    rec = {"phase": f"grad_check_B{B}_S{S}", "layers": cfg.num_layers,
+           "grads": len(names), "worst_err_over_max_grad": worst,
+           "worst_grad": worst_name, "limit": 1e-3}
+    emit(rec)
+    if not worst <= 1e-3:
+        raise AssertionError(f"kernel grads differ from the plain "
+                             f"composite's: {rec}")
+    return rec
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -379,19 +589,69 @@ def main():
         if kv_dtype == "float32":
             main_pa = rec
 
-    fa.flash_attention_fwd.launches = 0
-    pa.paged_attention.launches = 0
-    end_to_end(torch, np, GPTConfig.base())
-    launches = {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-                "paged_attention": pa.paged_attention.launches}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"a kernel of the path never launched: "
-                             f"{launches}")
+    # K2 at the S1024 shape, K3/K4 at S2048, causal on the model's
+    # strided views; then non-causal + bias and bf16
+    main_bwd = {}
+    for name, S in (("flash_attention_bwd_single", 1024),
+                    ("flash_attention_bwd_dq", 2048),
+                    ("flash_attention_bwd_dkv", 2048)):
+        main_bwd[name] = bwd_phase(torch, fa, name, 8, 12, S, 64, "float32",
+                                   True, False, seed=S + 5, packed=True)
+        bwd_phase(torch, fa, name, 8, 12, S, 64, "float32", False, True,
+                  seed=S + 6, packed=False)
+        bwd_phase(torch, fa, name, 8, 12, S, 64, "bfloat16", True, False,
+                  seed=S + 7, packed=True)
+    # K2 off its route, at the S2048 shape of K3 + K4, for the route rule
+    bwd_phase(torch, fa, "flash_attention_bwd_single", 8, 12, 2048, 64,
+              "float32", True, False, seed=2053, packed=True)
+    torch.cuda.empty_cache()
+
+    counters = {"flash_attention_fwd": fa.flash_attention_fwd,
+                "flash_attention_bwd_single": fa.flash_attention_bwd_single,
+                "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+                "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+                "paged_attention": pa.paged_attention}
+    launches = dict.fromkeys(counters, 0)
+
+    def drive(path, needs, fn):
+        """Run one main path with every launch count zeroed just before
+        it and read just after; ``needs`` must each have launched."""
+        for c in counters.values():
+            c.launches = 0
+        rec = fn()
+        got = {n: c.launches for n, c in counters.items()}
+        emit({"phase": f"launches_{path}", "launches": got})
+        if min(got[n] for n in needs) < 1:
+            raise AssertionError(f"a kernel of the {path} path never "
+                                 f"launched: {got}")
+        for n, c in got.items():
+            launches[n] += c
+        torch.cuda.empty_cache()
+        return rec, got
+
+    drive("serving", ("flash_attention_fwd", "paged_attention"),
+          lambda: end_to_end(torch, np, GPTConfig.base()))
+    for S, needs in ((2048, ("flash_attention_fwd", "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv")),
+                     (1024, ("flash_attention_fwd",
+                             "flash_attention_bwd_single"))):
+        rec, got = drive(f"train_S{S}", needs, lambda S=S: train_phase(
+            torch, np, GPTConfig.base(), 8, S, 5))
+        rec["launches_per_step"] = {n: c / rec["steps"]
+                                    for n, c in got.items()}
+        emit(rec)
+    small = GPTConfig.base()
+    small.num_layers = 2
+    for S in (1024, 2048):
+        grad_check(torch, np, small, 8, S)
+        torch.cuda.empty_cache()
 
     kernels = []
-    for name, source, replaces, rec in (
-            ("flash_attention_fwd", FA_SOURCE, FA_REPLACES, main_fa),
-            ("paged_attention", PA_SOURCE, PA_REPLACES, main_pa)):
+    rows = [("flash_attention_fwd", FA_SOURCE, FA_REPLACES, main_fa),
+            ("paged_attention", PA_SOURCE, PA_REPLACES, main_pa)]
+    rows += [(n, BWD_SOURCE, BWD_KERNELS[n][0], main_bwd[n])
+             for n in main_bwd]
+    for name, source, replaces, rec in rows:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],

@@ -1,0 +1,163 @@
+"""Scope + Executor.
+
+Counterpart of ``paddle_tpu/framework/executor.py``. The JAX package
+compiles a whole program per feed signature; this ``Executor.run``
+interprets the block op by op on torch tensors, eagerly, on the
+executor's device (``place=None`` is the GPU and raises without one).
+Scope state the block reads comes in from the scope, persistable vars it
+writes go back to it when the run ends, and every other var is dropped
+from the env after its last reader (``lowering.last_uses``), so a
+training step holds what a compiler's buffer liveness would hold, not
+every activation and grad at once. Program passes (``framework/
+passes.py`` in the JAX package) are not ported yet: a program runs as
+built, the JAX package's ``FLAGS_program_passes="0"``.
+"""
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .core import CPUPlace, CUDAPlace, Variable, default_main_program
+from .dtype import torch_dtype
+from .lowering import (LowerCtx, analyze_block_io, last_uses, run_ops,
+                       splitmix64)
+
+RNG_STATE_NAME = "@RNG_SEED@"
+
+
+class Scope:
+    """name -> tensor table (flat, as in the JAX package)."""
+
+    def __init__(self):
+        self._vars = {}
+
+    def find_var(self, name):
+        return self._vars.get(name)
+
+    def set(self, name, value):
+        self._vars[name] = value
+
+    def keys(self):
+        return self._vars.keys()
+
+    def items(self):
+        return self._vars.items()
+
+    def __contains__(self, name):
+        return name in self._vars
+
+
+_global_scope = Scope()
+
+
+def global_scope():
+    return _global_scope
+
+
+class scope_guard:
+    def __init__(self, scope):
+        self.scope = scope
+
+    def __enter__(self):
+        global _global_scope
+        self.old = _global_scope
+        _global_scope = self.scope
+
+    def __exit__(self, *exc):
+        global _global_scope
+        _global_scope = self.old
+
+
+def scope_from_arrays(scope, arrays):
+    """Load arrays (``{name: np.ndarray}``, e.g. a JAX package scope's
+    parameters, Adam moments, beta-pows and learning rate) into
+    ``scope``, over the tensors a run of the port's startup program put
+    there: each keeps its device and dtype. Raises on a name the scope
+    does not hold, on a scope var the arrays lack, and on a shape that
+    differs."""
+    have = {n for n in scope.keys() if n != RNG_STATE_NAME}
+    unknown = sorted(set(arrays) - have)
+    missing = sorted(have - set(arrays))
+    if unknown or missing:
+        raise ValueError(f"arrays do not match the scope: unknown "
+                         f"{unknown}, missing {missing}")
+    for name, a in arrays.items():
+        old = scope.find_var(name)
+        a = np.array(a)              # a writable copy for torch
+        if tuple(a.shape) != tuple(old.shape):
+            raise ValueError(f"{name!r} has shape {tuple(a.shape)}, the "
+                             f"scope holds {tuple(old.shape)}")
+        scope.set(name, torch.from_numpy(a).to(device=old.device,
+                                               dtype=old.dtype))
+
+
+class Executor:
+    """Runs programs op by op on one device: ``place`` None (the GPU;
+    raises without one), ``CUDAPlace(i)`` or ``CPUPlace()``."""
+
+    def __init__(self, place=None):
+        if place is None or isinstance(place, CUDAPlace):
+            self.device = resolve_device(None if place is None
+                                         else place.device)
+        elif isinstance(place, CPUPlace):
+            self.device = resolve_device("cpu")
+        else:
+            raise TypeError(f"unsupported place {place!r}")
+
+    def _feed_tensor(self, block, name, val):
+        var = block.vars.get(name)
+        t = val if isinstance(val, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(val))
+        dt = torch_dtype(var.dtype) if var is not None else t.dtype
+        return t.to(device=self.device, dtype=dt)
+
+    def run(self, program=None, feed=None, fetch_list=None, scope=None,
+            return_numpy=True):
+        """Run ``program``'s global block once; returns the fetched
+        values (numpy arrays, or tensors with ``return_numpy=False``).
+        ``fetch_list`` may name any var the block computes, ``param@GRAD``
+        names included."""
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        block = program.global_block()
+        feed = {(k.name if isinstance(k, Variable) else k): v
+                for k, v in (feed or {}).items()}
+        fetch_names = [f.name if isinstance(f, Variable) else str(f)
+                       for f in (fetch_list or [])]
+
+        env = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}
+        reads, writes = analyze_block_io(program, 0, env.keys())
+        for n in reads:
+            val = scope.find_var(n)
+            if val is None:
+                raise RuntimeError(
+                    f"var {n!r} is read by the program but is not "
+                    f"initialized in the scope: run the startup program "
+                    f"first, or feed it")
+            env[n] = val
+        for n in fetch_names:
+            if n not in env and scope.find_var(n) is not None:
+                env[n] = scope.find_var(n)       # a fetch of scope state
+
+        run_seed = scope.find_var(RNG_STATE_NAME)
+        if run_seed is None:
+            run_seed = int(program.random_seed or 0)
+        ctx = LowerCtx(program, block, env, self.device, run_seed=run_seed)
+        keep = set(fetch_names) | set(writes)
+        with torch.no_grad():
+            run_ops(ctx, free_after=last_uses(block, keep))
+
+        fetches = []
+        for n in fetch_names:
+            if n not in env:
+                raise KeyError(f"fetch target {n!r} was never computed")
+            fetches.append(env[n])
+        for n in writes:
+            scope.set(n, env[n])
+        scope.set(RNG_STATE_NAME, splitmix64(run_seed))
+        if return_numpy:
+            return [f.detach().cpu().numpy() for f in fetches]
+        return fetches
+
+
+__all__ = ["CPUPlace", "CUDAPlace", "Executor", "RNG_STATE_NAME", "Scope",
+           "global_scope", "scope_from_arrays", "scope_guard"]

@@ -20,7 +20,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD_DIR = os.path.join(_ROOT, "build", "paddle_tpu_torch")
-SOURCES = ("flash_attention_fwd", "paged_attention")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -1,0 +1,72 @@
+"""Tensor layers (trimmed copy of ``paddle_tpu/layers/tensor.py``):
+``data``, ``create_global_var``, ``fill_constant``, ``reshape``,
+``transpose``, ``slice``. Shapes are python ints; shape tensors are not
+ported."""
+from ..framework import initializer as init_mod
+from ..framework.core import default_main_program
+from ..framework.dtype import convert_dtype
+from .layer_helper import LayerHelper
+
+
+def data(name, shape, dtype="float32", lod_level=0, append_batch_size=False,
+         stop_gradient=True):
+    """A feed var; stop_gradient by default, as in the reference."""
+    shape = list(shape)
+    if append_batch_size:
+        shape = [-1] + shape
+    return default_main_program().global_block().create_var(
+        name=name, shape=shape, dtype=dtype, lod_level=lod_level,
+        stop_gradient=stop_gradient, is_data=True)
+
+
+def create_global_var(shape, value, dtype, persistable=False,
+                      force_cpu=False, name=None):
+    helper = LayerHelper("global_var", name=name)
+    return helper.create_global_variable(
+        shape=shape, dtype=dtype, persistable=persistable, name=name,
+        initializer=init_mod.ConstantInitializer(value))
+
+
+def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):
+    helper = LayerHelper("fill_constant", name=name)
+    dtype = convert_dtype(dtype)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="fill_constant", outputs={"Out": [out]},
+                     attrs={"shape": [int(s) for s in shape],
+                            "dtype": dtype, "value": float(value)})
+    out.stop_gradient = True
+    return out
+
+
+def reshape(x, shape, actual_shape=None, act=None, inplace=False,
+            name=None):
+    helper = LayerHelper("reshape", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="reshape2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"shape": [int(s) for s in shape]})
+    return helper.append_activation(out, act)
+
+
+def transpose(x, perm, name=None):
+    helper = LayerHelper("transpose", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="transpose2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": list(perm)})
+    return out
+
+
+def slice(input, axes, starts, ends, name=None):
+    helper = LayerHelper("slice", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends)})
+    return out

@@ -1,31 +1,41 @@
-"""GPT-style causal language model for generation: pre-LN decoder blocks
-with a weight-tied LM head, as one ``nn.Module`` with three inference
-entry points.
+"""GPT-style causal language model: pre-LN decoder blocks with a
+weight-tied LM head.
 
-Counterpart of ``paddle_tpu/models/gpt.py``. The JAX package builds a
-static program per mode (``gpt_prefill``, ``gpt_decode_step``,
-``gpt_decode_step_paged``); here they are the methods :meth:`GPT.prefill`,
-:meth:`GPT.decode_step` and :meth:`GPT.decode_step_paged` of one module
-over one set of parameters with the JAX scope names
-(``word_embedding``, ``decoder_layer_{i}_qkv.w_0``, ...). Layer norm has
-eps 1e-5, GELU is the exact erf form, ``fc`` is ``x @ W[in, out] + b``
-and the head is ``h @ word_embedding.T``.
+Counterpart of ``paddle_tpu/models/gpt.py``, in two forms over one set
+of parameter names (``word_embedding``, ``decoder_layer_{i}_qkv.w_0``,
+...):
 
-Attention per mode: prefill runs the flash-attention kernel (causal),
-the dense decode step the plain masked read of
-:func:`ops.decode_ops.kv_cached_attention`, and the paged decode step
-the paged-attention kernel over the shared block pool.
+- Training: :func:`gpt_pretrain` builds the next-token-loss program
+  through the Fluid layers, op for op the program the JAX package
+  builds; ``fluid.Executor`` runs it. Attention is the ``flash_attention``
+  op (causal), whose forward and backward are the CUDA kernels K1-K4.
+- Generation: the JAX package builds a static program per mode
+  (``gpt_prefill``, ``gpt_decode_step``, ``gpt_decode_step_paged``); here
+  they are the methods :meth:`GPT.prefill`, :meth:`GPT.decode_step` and
+  :meth:`GPT.decode_step_paged` of one ``nn.Module``. Prefill runs the
+  flash-attention forward kernel (causal), the dense decode step the plain
+  masked read of :func:`ops.decode_ops.kv_cached_attention`, and the
+  paged decode step the paged-attention kernel over the shared block
+  pool.
+
+Layer norm has eps 1e-5, GELU is the exact erf form, ``fc`` is
+``x @ W[in, out] + b`` and the head is ``h @ word_embedding.T``.
 """
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import layers
 from ..device import resolve_device
+from ..framework import initializer as I
 from ..kernels.flash_attention import flash_attention
 from ..kernels.paged_attention import paged_attention
+from ..layers import math as M
+from ..layers import tensor as T
 from ..ops.decode_ops import (kv_cache_write, kv_cached_attention,
                               paged_kv_cache_write, row_gather)
+from ..param_attr import ParamAttr
 
 
 class GPTConfig:
@@ -54,6 +64,116 @@ class GPTConfig:
         return cls(vocab_size=128, hidden_size=32, num_layers=1,
                    num_heads=2, ffn_size=64, max_position=64, dropout=0.0)
 
+
+# ---- training program (the JAX package's static-graph builder) ----------
+
+def _param(cfg, name):
+    return ParamAttr(name=name,
+                     initializer=I.Normal(0.0, cfg.initializer_range))
+
+
+def _fc_layer(cfg, x, size, name, act=None):
+    return layers.fc(x, size, num_flatten_dims=2, act=act,
+                     param_attr=_param(cfg, f"{name}.w_0"),
+                     bias_attr=ParamAttr(name=f"{name}.b_0",
+                                         initializer=I.Constant(0.0)))
+
+
+def _ln_layer(cfg, x, name, begin_axis=2):
+    return layers.layer_norm(
+        x, begin_norm_axis=begin_axis,
+        param_attr=ParamAttr(name=f"{name}_scale",
+                             initializer=I.Constant(1.0)),
+        bias_attr=ParamAttr(name=f"{name}_bias",
+                            initializer=I.Constant(0.0)))
+
+
+def decoder_layer(cfg, x, idx, is_test):
+    """Pre-LN block: x + attn(LN(x)); x + ffn(LN(x)), with causal flash
+    attention over the full sequence."""
+    h = cfg.hidden_size
+    n_head, d_head = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    pre = f"decoder_layer_{idx}"
+
+    a = _ln_layer(cfg, x, f"{pre}_pre_att_ln")
+    qkv = _fc_layer(cfg, a, 3 * h, f"{pre}_qkv")
+    q = T.slice(qkv, axes=[2], starts=[0], ends=[h])
+    k = T.slice(qkv, axes=[2], starts=[h], ends=[2 * h])
+    v = T.slice(qkv, axes=[2], starts=[2 * h], ends=[3 * h])
+    q = T.transpose(T.reshape(q, [0, 0, n_head, d_head]), [0, 2, 1, 3])
+    k = T.transpose(T.reshape(k, [0, 0, n_head, d_head]), [0, 2, 1, 3])
+    v = T.transpose(T.reshape(v, [0, 0, n_head, d_head]), [0, 2, 1, 3])
+    ctx = layers.nn.flash_attention(q, k, v, causal=True)
+    ctx = T.reshape(T.transpose(ctx, [0, 2, 1, 3]), [0, 0, h])
+    attn_out = _fc_layer(cfg, ctx, h, f"{pre}_att_out")
+    attn_out = layers.dropout(attn_out, cfg.dropout, is_test=is_test,
+                              dropout_implementation="upscale_in_train")
+    x = M.elementwise_add(x, attn_out)
+
+    f = _ln_layer(cfg, x, f"{pre}_pre_ffn_ln")
+    ffn = _fc_layer(cfg, f, cfg.ffn_size, f"{pre}_ffn_0", act="gelu")
+    ffn = _fc_layer(cfg, ffn, h, f"{pre}_ffn_1")
+    ffn = layers.dropout(ffn, cfg.dropout, is_test=is_test,
+                         dropout_implementation="upscale_in_train")
+    return M.elementwise_add(x, ffn)
+
+
+def gpt_pretrain(cfg, batch_size, seq_len, is_test=False):
+    """Feeds -> next-token LM loss, built into the current default
+    programs. tokens [B, S] predict tokens[:, 1:] (the final position is
+    trained against the padded label). Returns ``{"feeds", "loss",
+    "checkpoints"}``."""
+    tokens = T.data("tokens", [batch_size, seq_len], dtype="int32")
+    labels = T.data("labels", [batch_size, seq_len], dtype="int32")
+    loss_mask = T.data("loss_mask", [batch_size, seq_len],
+                       dtype="float32")
+    pos_ids = T.data("pos_ids", [batch_size, seq_len], dtype="int32")
+
+    emb = layers.embedding(tokens, size=[cfg.vocab_size, cfg.hidden_size],
+                           param_attr=_param(cfg, "word_embedding"))
+    pos = layers.embedding(pos_ids, size=[cfg.max_position,
+                                          cfg.hidden_size],
+                           param_attr=_param(cfg, "pos_embedding"))
+    x = M.elementwise_add(emb, pos)
+    x = layers.dropout(x, cfg.dropout, is_test=is_test,
+                       dropout_implementation="upscale_in_train")
+    checkpoints = []
+    for i in range(cfg.num_layers):
+        x = decoder_layer(cfg, x, i, is_test)
+        checkpoints.append(x)
+    x = _ln_layer(cfg, x, "final_ln")
+
+    # weight-tied LM head over every position
+    word_emb = x.block.program.global_block().var("word_embedding")
+    flat = T.reshape(x, [-1, cfg.hidden_size])               # [B*S, H]
+    logits = layers.matmul(flat, word_emb, transpose_y=True)  # [B*S, V]
+    ce = layers.softmax_with_cross_entropy(
+        logits, T.reshape(labels, [-1, 1]))
+    w = T.reshape(loss_mask, [-1, 1])
+    loss = M.elementwise_div(
+        M.reduce_sum(M.elementwise_mul(ce, w)),
+        M.elementwise_add(M.reduce_sum(w),
+                          T.fill_constant([1], "float32", 1e-9)))
+    return {"feeds": [tokens, labels, loss_mask, pos_ids],
+            "loss": loss, "checkpoints": checkpoints}
+
+
+def random_batch(cfg, batch_size, seq_len, rng=None):
+    """A random next-token batch (numpy feeds of :func:`gpt_pretrain`)."""
+    rng = rng or np.random.default_rng()
+    toks = rng.integers(0, cfg.vocab_size,
+                        (batch_size, seq_len + 1)).astype(np.int32)
+    return {
+        "tokens": toks[:, :-1].copy(),
+        "labels": toks[:, 1:].copy(),
+        "loss_mask": np.ones((batch_size, seq_len), np.float32),
+        "pos_ids": np.broadcast_to(
+            np.arange(seq_len, dtype=np.int32),
+            (batch_size, seq_len)).copy(),
+    }
+
+
+# ---- generation module ----------------------------------------------------
 
 def param_shapes(cfg):
     """{JAX scope name: shape} of every parameter, in build order."""

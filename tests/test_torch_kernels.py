@@ -260,3 +260,98 @@ def test_row_gather_matches_jax():
                 Index=jnp.asarray(idx))["Out"]
     got = tops.row_gather(torch.from_numpy(x), torch.from_numpy(idx))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- flash-attention backward (K2-K4's plain version, autograd Function) ---
+
+@pytest.mark.parametrize("bk,causal,with_bias", [
+    (None, True, False), (None, False, True),    # nk == 1: K2's route
+    (32, True, True), (32, False, False)])       # nk == 2: K3 + K4's route
+def test_flash_bwd_ref_matches_jax_bwd_pallas(bk, causal, with_bias):
+    B, H, S, D = 2, 2, 64, 16
+    rng = np.random.default_rng(S + (bk or 0) + causal)
+    arrs = [rng.normal(size=(B, H, S, D)).astype(np.float32)
+            for _ in range(4)]
+    (q, tq), (k, tk), (v, tv), (do, tdo) = (_both(a, "float32")
+                                            for a in arrs)
+    bias = tbias = None
+    if with_bias:
+        b = np.where(rng.random((B, 1, 1, S)) < 0.25, -1e4, 0.0)
+        bias, tbias = _both(b.astype(np.float32), "float32")
+    scale = D ** -0.5
+    out, lse = jfa._fwd_pallas(q, k, v, bias, scale, causal, None, bk,
+                               True)
+    want = jfa._bwd_pallas(q, k, v, bias, scale, causal, None, bk, True,
+                           out, lse, do)
+    got = tfa.flash_attention_bwd(
+        tq, tk, tv, tbias, scale, causal, torch.from_numpy(np.array(out)),
+        torch.from_numpy(np.array(lse)), tdo)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("S,causal", [(32, True), (48, False)])
+def test_flash_attention_function_grads_match_autograd(S, causal):
+    """FlashAttention (forward K1, backward K2-K4, their plain versions on
+    the CPU) against torch autograd through flash_attention_ref; the bias
+    gets a zero gradient by contract."""
+    B, H, D = 2, 3, 16
+    gen = torch.Generator().manual_seed(S)
+    q, k, v, do = (torch.randn(B, H, S, D, generator=gen) for _ in range(4))
+    bias = torch.where(torch.rand(B, 1, 1, S, generator=gen) < 0.25,
+                       -1e4, 0.0)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, bias)]
+    out = tfa.flash_attention_train(*leaves, scale=None, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tfa.flash_attention_ref(*ref_leaves, bias=bias, causal=causal)[0]
+    want = torch.autograd.grad(ref, ref_leaves, do)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               ref.detach().numpy(), atol=1e-6)
+    for g, w in zip(got[:3], want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5)
+    assert torch.count_nonzero(got[3]) == 0
+    # the same through torch.func.vjp, as the generic grad op runs it
+    _, vjp = torch.func.vjp(lambda a, b, c: tfa.flash_attention_train(
+        a, b, c, bias, causal=causal), q, k, v)
+    for g, w in zip(vjp(do), want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("sk", [512, 1024, 2048, 2560, 4096, 8192])
+@pytest.mark.parametrize("causal", [False, True])
+def test_single_pass_rule_is_jax_block_sizes(sk, causal):
+    """K2 runs where the JAX backward has one k block (nk == 1)."""
+    _, bk = jfa._block_sizes(sk, sk, None, None, per_elem_bytes=12,
+                             causal=causal)
+    assert tfa.single_pass_backward(sk, causal) == (bk == sk)
+
+
+def test_flash_bwd_raises_instead_of_falling_back(monkeypatch):
+    """A tensor routed to the kernel never reaches the plain version: when
+    the kernel cannot be built the call raises."""
+    from paddle_tpu_torch.kernels import _build
+
+    def no_nvcc(name):
+        raise RuntimeError("nvcc not found")
+    q = torch.zeros(1, 2, 8, 16)
+    lse = torch.zeros(1, 2, 1, 8)
+    monkeypatch.setattr(tfa, "_plain", lambda t: False)
+    monkeypatch.setattr(_build, "load", no_nvcc)
+    counts = (tfa.flash_attention_bwd_single.launches,
+              tfa.flash_attention_bwd_dq.launches,
+              tfa.flash_attention_bwd_dkv.launches)
+    for causal in (False, True):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tfa.flash_attention_bwd(q, q, q, None, 0.25, causal, q, lse, q)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tfa.flash_attention_bwd_dkv(q, q, q, None, 0.25, True, q, lse, q)
+    assert counts == (tfa.flash_attention_bwd_single.launches,
+                      tfa.flash_attention_bwd_dq.launches,
+                      tfa.flash_attention_bwd_dkv.launches)
+    meta = torch.empty(1, 2, 8, 16, device="meta")
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="unsupported device"):
+        tfa.flash_attention_bwd(meta, meta, meta, None, 0.25, True, meta,
+                                lse, meta)

@@ -242,6 +242,7 @@ def _port_files():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "tools", "profile_torch_decode.py")
+    yield os.path.join(REPO, "tools", "profile_torch_train.py")
 
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
@@ -263,7 +264,9 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
 
 
 def test_import_leaves_jax_out_of_sys_modules():
-    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving; "
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
+            "paddle_tpu_torch.framework, paddle_tpu_torch.layers, "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.models.gpt; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -280,6 +283,10 @@ def test_entry_points_raise_without_cuda_instead_of_using_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KVBlockPool(slots=2, num_layers=1, num_heads=2, d_head=8,
                     max_seq_len=16, block_size=8)
+    import paddle_tpu_torch as fluid
+    for place in (None, fluid.CUDAPlace(0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fluid.Executor(place)
 
 
 def test_kernel_wrappers_take_the_plain_version_only_on_cpu():

@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Where a GPT training step's time goes in the PyTorch/CUDA port, on one
+GPU.
+
+    python3 tools/profile_torch_train.py [--batch 8] [--seq 2048]
+                                         [--layers 12] [--steps 3]
+
+Builds ``gpt_pretrain`` at GPTConfig.base() widths (``--layers`` deep,
+seeded random weights, dropout 0.1) + ``AdamOptimizer(1e-4).minimize``,
+runs the startup program and one warm-up step, times ``--steps`` steps
+with the host clock (each ends in a fetch, which synchronizes), runs
+``--steps`` more with a pair of CUDA events around every op of the
+program, and ``--steps`` more under ``torch.profiler``. Prints one JSON
+line: wall ms per step, device kernel time per step (sum of CUDA kernel
+durations in the trace), the device's idle share, kernel launches per
+step, the device span per step by op type (from each op's first to its
+last kernel on the stream, so a ``*_grad`` op's forward recompute and
+the backward kernels autograd launches from its own thread both count),
+and the kernels that take the most device time. Exits non-zero without a
+CUDA device.
+"""
+import argparse
+import json
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _kernel_times(prof, torch):
+    """{kernel name: (total device us, count)} over the trace."""
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time", None)
+        if us is None:
+            us = e.cuda_time
+        tot, n = out.get(e.name, (0.0, 0))
+        out[e.name] = (tot + float(us), n + 1)
+    return out
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=2048)
+    ap.add_argument("--layers", type=int, default=12)
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework import lowering
+    from paddle_tpu_torch.models import gpt
+    cfg = gpt.GPTConfig.base()
+    cfg.num_layers = args.layers
+    B, S = args.batch, args.seq
+    main_prog, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), \
+            fluid.program_guard(main_prog, startup):
+        out = gpt.gpt_pretrain(cfg, B, S)
+        fluid.optimizer.AdamOptimizer(1e-4).minimize(out["loss"])
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(0))
+
+    def run(n):
+        for _ in range(n):
+            exe.run(main_prog, feed=feed, fetch_list=[out["loss"]],
+                    scope=scope)
+
+    run(1)                                           # warm
+    t0 = time.perf_counter()
+    run(args.steps)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
+
+    plain_run_op = lowering.run_op
+    spans = []
+
+    def timed_run_op(ctx, op):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        plain_run_op(ctx, op)
+        b.record()
+        spans.append((op.type, a, b))
+
+    lowering.run_op = timed_run_op
+    try:
+        run(args.steps)
+    finally:
+        lowering.run_op = plain_run_op
+    torch.cuda.synchronize()
+    by_op = {}
+    for typ, a, b in spans:
+        ms, n = by_op.get(typ, (0.0, 0))
+        by_op[typ] = (ms + a.elapsed_time(b) / args.steps,
+                      n + 1 / args.steps)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(args.steps)
+        torch.cuda.synchronize()
+    kt = _kernel_times(prof, torch)
+    busy_ms = sum(t for t, _ in kt.values()) / 1e3 / args.steps
+    launches = sum(n for _, n in kt.values()) / args.steps
+    top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:12]
+    print(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}",
+          flush=True)
+    print(json.dumps({
+        "batch": B, "seq": S, "layers": cfg.num_layers,
+        "steps": args.steps, "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": busy_ms if kt else None,
+        "device_idle_share": 1 - busy_ms / wall_ms if kt else None,
+        "kernel_launches_per_step": launches,
+        "device_span_ms_per_step_by_op": {
+            k: {"ms": ms, "ops": n} for k, (ms, n) in
+            sorted(by_op.items(), key=lambda kv: -kv[1][0])},
+        "top_kernels": [{"name": n[:90], "ms_per_step":
+                         t / 1e3 / args.steps, "calls_per_step":
+                         c / args.steps} for n, (t, c) in top],
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
