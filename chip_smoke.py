@@ -7,7 +7,9 @@ NVIDIA GPU.
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; exits non-zero without a CUDA device.
 2. Builds the port's CUDA kernels from paddle_tpu_torch/kernels/csrc/
-   (one nvcc per source, all started together).
+   (one nvcc per source, all started together) and prints each kernel's
+   registers, stack and spills from ``-Xptxas -v`` and, where the toolkit
+   has ``cuobjdump``, the tensor-core (HMMA) instructions in K1-K4's SASS.
 3. Kernel phases: each kernel against its plain PyTorch version on the
    card at the main paths' shapes, with the tolerance stated; prints one
    JSON line per phase with the error, the kernel's, the plain version's
@@ -16,7 +18,10 @@ NVIDIA GPU.
    forward) and K5 (paged decode) at the serving shapes; K2 (combined
    backward) at B8 H12 S1024 D64 causal and K3/K4 (dq; dk, dv) at S2048
    causal, on the strided q/k/v views the model makes, plus a non-causal
-   + bias and a bf16 case each.
+   + bias and a bf16 case each; K1 and K2 also at the tiling's edges
+   (head dim 128 and a ragged S = 1000, float32 and bf16, causal; K1
+   non-causal + bias at D = 128). Bounds take float32 at 165 TFLOP/s
+   (3xTF32) and report the CUDA-core float32 bound beside it.
 4. The main paths at GPTConfig.base() widths, seeded random weights, each
    with every kernel launch count zeroed just before it and read just
    after; each path's kernels must have launched:
@@ -51,7 +56,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+# float32: 495 TF32 / 3, the least time a product held to float32 accuracy
+# can take on this card (3xTF32: three TF32 products per float32 product);
+# CUDA-core float32 (67 TFLOP/s) is kept beside it as "bound_ms_fp32_fma"
+PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+FP32_FMA_OPS = 67e12
 
 FA_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu"
 PA_SOURCE = "paddle_tpu_torch/kernels/csrc/paged_attention.cu"
@@ -108,6 +117,80 @@ def bound(nbytes, ops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def fma_bound(nbytes, ops, dtype):
+    """The bound of a float32 phase against the CUDA cores' float32 rate
+    (the rate of a kernel that computes in float32 FMA); None for other
+    types."""
+    if dtype != "float32":
+        return None
+    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FMA_OPS) * 1e3
+
+
+def _kernel_name(mangled):
+    """``flash_bwd_k2_kernel<float,64>`` from a mangled template kernel
+    name: its last ``<length><name>I<args>E`` component."""
+    import re
+    best = mangled
+    for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
+        start, n = m.end(), int(m.group(1))
+        name = mangled[start:start + n]
+        if name.endswith("kernel") and mangled[start + n:start + n + 1] == "I":
+            args = mangled[start + n + 1:].split("E", 1)[0]
+            args = args.replace("Li", ",").replace("13__nv_bfloat16", "bf16")
+            if args.split(",")[0] == "f":
+                args = "float" + args[1:]
+            best = f"{name}<{args}>"
+    return best
+
+
+def sass_report(nvcc, lib_path):
+    """Tensor-core instructions (HMMA opcodes) in each kernel of a built
+    library, counted in ``cuobjdump -sass`` from ``nvcc``'s toolkit; None
+    where the toolkit has no cuobjdump."""
+    import re
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    rows, cur = [], None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = {"entry": _kernel_name(m.group(1)), "hmma": {}}
+            rows.append(cur)
+            continue
+        m = re.search(r"\b(HMMA\.[\w.]+)", line)
+        if m and cur is not None:
+            cur["hmma"][m.group(1)] = cur["hmma"].get(m.group(1), 0) + 1
+    return {"phase": "sass", "library": os.path.basename(lib_path),
+            "kernels": rows}
+
+
+def ptxas_report(name, out):
+    """Registers, spills and stack of each kernel entry from the
+    ``-Xptxas -v`` build output of library ``name``."""
+    import re
+    rows, cur = [], None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": _kernel_name(m.group(1))}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return {"phase": "ptxas", "library": name, "kernels": rows}
+
+
 # ------------------------------------------------------------ kernel phases
 
 def attention_inputs(torch, B, H, S, D, dtype, with_bias, seed, packed):
@@ -160,6 +243,7 @@ def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
         + (B * S * 4 if with_bias else 0)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     rec = {"phase": "flash_attention_fwd", "B": B, "H": H, "S": S, "D": D,
+           "bound_ms_fp32_fma": fma_bound(nbytes, ops, dtype),
            "dtype": dtype, "causal": causal, "bias": with_bias,
            "layout": "packed qkv views" if packed else "contiguous",
            "max_abs_err": err, "lse2_max_abs_err": lse_err, "atol": tol,
@@ -417,6 +501,7 @@ def bwd_phase(torch, fa, name, B, H, S, D, dtype, causal, with_bias, seed,
         + 2 * B * H * S * 4 + (B * S * 4 if with_bias else 0)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     rec = {"phase": name, "replaces": replaces, "B": B, "H": H, "S": S,
+           "bound_ms_fp32_fma": fma_bound(nbytes, ops, dtype),
            "D": D, "dtype": dtype, "causal": causal, "bias": with_bias,
            "layout": "packed qkv views" if packed else "contiguous",
            "max_abs_err": max(errs.values()), "abs_err": errs,
@@ -564,8 +649,11 @@ def main():
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f}s "
           f"into {_build.BUILD_DIR}", flush=True)
     for name, out in built.items():
-        if out.strip():
-            print(f"nvcc {name}: {out.strip()[:2000]}", flush=True)
+        emit(ptxas_report(name, out))
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        rep = sass_report(_build._nvcc(), _build._paths(name)[1])
+        if rep is not None:
+            emit(rep)
     fa = sys.modules["paddle_tpu_torch.kernels.flash_attention"]
     pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
 
@@ -582,6 +670,15 @@ def main():
     flash_phase(torch, fa, 8, 12, 1024, 64, "float32", True, False, seed=2,
                 packed=False)
     flash_phase(torch, fa, 8, 12, 1024, 64, "float32", False, True, seed=1,
+                packed=False)
+    # the tiling's edges: head dim 128 (H6 keeps the width at 768) and a
+    # ragged S = 1000, both types, causal; non-causal + bias at D = 128
+    edges = ((6, 1024, 128), (12, 1000, 64), (6, 1000, 128))
+    for H, S, D in edges:
+        for dtype in ("float32", "bfloat16"):
+            flash_phase(torch, fa, 8, H, S, D, dtype, True, False,
+                        seed=S + D, packed=True)
+    flash_phase(torch, fa, 8, 6, 1024, 128, "float32", False, True, seed=3,
                 packed=False)
     main_pa = None
     for kv_dtype in ("float32", "bfloat16", "int8"):
@@ -601,6 +698,10 @@ def main():
                   seed=S + 6, packed=False)
         bwd_phase(torch, fa, name, 8, 12, S, 64, "bfloat16", True, False,
                   seed=S + 7, packed=True)
+    for H, S, D in edges:
+        for dtype in ("float32", "bfloat16"):
+            bwd_phase(torch, fa, "flash_attention_bwd_single", 8, H, S, D,
+                      dtype, True, False, seed=S + D + 1, packed=True)
     # K2 off its route, at the S2048 shape of K3 + K4, for the route rule
     bwd_phase(torch, fa, "flash_attention_bwd_single", 8, 12, 2048, 64,
               "float32", True, False, seed=2053, packed=True)

@@ -3,7 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/paddle_tpu_torch/lib<name>.so``
 at the root of the checkout, and loaded with ``ctypes``. A library is
-rebuilt when its source is newer than it. Pointers travel as
+rebuilt when its source, or any shared header ``csrc/*.cuh``, is newer
+than it. ``-Xptxas -v`` makes the compiler report each kernel's
+registers, shared memory and spills in the build output. Pointers travel as
 ``c_void_p``; every launch function returns a ``cudaError_t`` that
 :func:`check` turns into an exception.
 
@@ -11,6 +13,7 @@ Nothing here runs at import: the CPU test suite imports every module
 of the port, and this machine may have no ``nvcc``.
 """
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -22,7 +25,8 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 BUILD_DIR = os.path.join(_ROOT, "build", "paddle_tpu_torch")
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd", "paged_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs = {}
@@ -43,9 +47,13 @@ def _paths(name):
 
 
 def _stale(name):
+    """True when the library is missing or older than its source or any
+    shared header under ``csrc/``."""
     src, lib = _paths(name)
-    return not os.path.exists(lib) or \
-        os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [src, *glob.glob(os.path.join(_CSRC, "*.cuh"))]
+    return os.path.getmtime(lib) < max(map(os.path.getmtime, deps))
 
 
 def _start(name):

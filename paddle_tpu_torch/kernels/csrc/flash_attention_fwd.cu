@@ -12,221 +12,226 @@
 //
 // What bounds it on the H100: the causal forward does 2*B*H*Sq*Sk*D
 // floating-point operations (two products, half of the score square)
-// over B*H*(Sq+2*Sk)*D input elements, so it is bound by operations,
-// not bytes, at every prefill length of the serving path: float32
-// inputs against the card's float32 rate (67 TFLOP/s), bfloat16 inputs
-// against its bf16 tensor-core rate (989 TFLOP/s). This first version
-// computes in float32 on the CUDA cores (FMA) for both; moving the
-// products onto the tensor cores (wgmma + TMA) is the work of a later
-// version.
+// over B*H*(Sq+2*Sk)*D input elements, so it is bound by operations at
+// every prefill length: bf16 inputs against the tensor cores' 989
+// TFLOP/s, float32 inputs against 165 TFLOP/s (495 TF32 / 3: the three
+// TF32 products an fp32-accurate product takes).
 //
-// Design: the TPU kernel walks a sequential grid and carries the
-// online-softmax state in VMEM scratch from one k block to the next. On
-// the GPU one CUDA block owns one (b, h, 64-row q tile) and loops over
-// the k/v tiles itself, so the state (m, l, acc) stays in registers in
-// float32. One kernel covers both TPU variants (single block and
-// online). Tiles past the causal limit of the q tile are never loaded
-// (the TPU kernel's `_block_live`). Sq and Sk need not divide the tile:
-// rows past Sq are not stored and keys past Sk are masked out (the TPU
-// kernel demands divisibility). `scale * log2(e)` is folded into the q
-// tile as the TPU kernel does, so exp2 replaces exp. 256 threads form a
-// 16 x 16 grid: thread (ty, tx) owns rows ty + 16i and score columns
-// tx + 16j, so shared-memory reads are conflict-free or broadcasts, and
-// a row's 16 threads sit in one half-warp for the shuffle reductions.
-// Q, K^T, V and P tiles live in dynamic shared memory (66 KB at D = 64,
-// above the 48 KB default, hence cudaFuncSetAttribute).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design (FlashAttention-2 on mma.sync; shared pieces in attention_mma.cuh):
+// - One block of 8 warps owns one (b, h, 128-row q tile) and loops over
+//   the live 64-key tiles; each warp owns 16 q rows across the whole key
+//   tile, so the online-softmax max and sum reduce over the 4 lanes of a
+//   quad in registers and the state (m, l, O) never leaves them.
+// - S = Q K^T and O += P V run on the tensor cores: bf16 on m16n8k16,
+//   float32 as 3xTF32 on m16n8k8 (see the header). `scale * log2(e)` is
+//   applied to the float32 S accumulator, as the plain version scales
+//   in float32, and exp2 replaces exp.
+// - P goes from the S accumulators to the A operand of P V in registers
+//   (bf16: two C tiles pack into one k16 A tile; float32: a relabelled
+//   depth, see the header).
+// - K/V tiles stream through a 2-stage ring of swizzled shared memory
+//   filled with 16-byte cp.async: tile t+1 is in flight while tile t is
+//   multiplied. q/k/v may be strided views, but their base addresses and
+//   row strides must be multiples of 16 bytes (the wrapper checks).
+// - Only tiles on the causal diagonal or the ragged Sk edge evaluate the
+//   mask; a warp whose rows see none of a tile skips it; tiles past the
+//   causal limit are never loaded (the TPU kernel's `_block_live`). Sq
+//   and Sk need not divide the tiles (the TPU kernel demands it).
+// - Causal q tiles are launched heaviest first (the tile index is the
+//   slowest grid dimension, reversed), so the lightest tiles form the tail.
 #include <math.h>
-#include <stdint.h>
+
+#include "attention_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float NEG_BIG = -1e30f;
+using namespace pt_attn;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+constexpr int BQ = 128;        // q rows per block
+constexpr int BK = 64;         // keys per tile
+constexpr int NW = BQ / 16;    // warps, 16 rows each
+constexpr int NT = NW * 32;
 
-// reductions over the 16 lanes of one half-warp (one row's threads)
-__device__ __forceinline__ float half_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float half_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+struct FwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;  // [B, Sk] or null
+  void* out;          // [B, H, Sq, D] contiguous
+  float* lse;         // [B, H, Sq]
+  int H, Sq, Sk;
+  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
+  float scale2;
+  int causal;
+};
 
-template <int D>
+template <typename T, int D>
 constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         (BQ * (D + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1));
+  // Q [BQ][D], K and V [2][BK][D], bias2 [2][BK]
+  return sizeof(T) * D * (BQ + 4 * BK) + sizeof(float) * 2 * BK;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const float* __restrict__ bias,
-                     T* __restrict__ out, float* __restrict__ lse, int H,
-                     int Sq, int Sk, long long qsb, long long qsh,
-                     long long qss, long long ksb, long long ksh,
-                     long long kss, long long vsb, long long vsh,
-                     long long vss, float scale2, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int KP = BK + 1;
-  constexpr int RPT = BQ / 16;  // rows per thread
-  constexpr int CPT = BK / 16;  // score columns per thread
-  constexpr int DPT = D / 16;   // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;             // [BQ][D+1], pre-scaled by scale*log2(e)
-  float* Kt = Qs + BQ * DP;     // [D][BK+1], transposed K tile
-  float* Vs = Kt + D * KP;      // [BK][D]
-  float* Ps = Vs + BK * D;      // [BQ][BK+1], probabilities of the tile
+__global__ void __launch_bounds__(NT) flash_fwd_kernel(FwdArgs a) {
+  using M = Mma<T>;
+  constexpr int TILE = BK * D * sizeof(T);
+  constexpr int KSTEPS = D * sizeof(T) / 32;  // depth steps of Q K^T
+  constexpr int NS = BK / 8;                  // n-tiles of S
+  constexpr int NO = D / 8;                   // n-tiles of O
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t sQ = smem_u32(smem);
+  const uint32_t sK = sQ + BQ * D * sizeof(T);
+  const uint32_t sV = sK + 2 * TILE;
+  float* bias_s = reinterpret_cast<float*>(smem + sizeof(T) * D * (BQ + 4 * BK));
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const T* qb = q + b * qsb + h * qsh;
-  const T* kb = k + b * ksb + h * ksh;
-  const T* vb = v + b * vsb + h * vsh;
-  const float* bb = bias ? bias + (long long)b * Sk : nullptr;
-
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int r = e / D, d = e % D;
-    float x = 0.f;
-    if (q0 + r < Sq) x = to_f(qb[(long long)(q0 + r) * qss + d]) * scale2;
-    Qs[r * DP + d] = x;
-  }
-
-  float m[RPT], l[RPT], o[RPT][DPT];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    m[i] = NEG_BIG;
-    l[i] = 0.f;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) o[i][dd] = 0.f;
-  }
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int qw = q0 + warp * 16;  // the warp's first row
+  const T* qb = (const T*)a.q + b * a.qsb + h * a.qsh;
+  const T* kb = (const T*)a.k + b * a.ksb + h * a.ksh;
+  const T* vb = (const T*)a.v + b * a.vsb + h * a.vsh;
+  const float* bb = a.bias ? a.bias + (long long)b * a.Sk : nullptr;
 
   // keys [0, kend): a causal q tile sees nothing past its last row
-  const int kend = causal ? min(Sk, q0 + BQ) : Sk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < BK * D; e += NT) {
-      const int c = e / D, d = e % D;
-      float kx = 0.f, vx = 0.f;
-      if (k0 + c < Sk) {
-        kx = to_f(kb[(long long)(k0 + c) * kss + d]);
-        vx = to_f(vb[(long long)(k0 + c) * vss + d]);
-      }
-      Kt[d * KP + c] = kx;
-      Vs[c * D + d] = vx;
-    }
-    __syncthreads();
+  const int kend = a.causal ? min(a.Sk, q0 + BQ) : a.Sk;
+  const int nk = (kend + BK - 1) / BK;
 
-    float s[RPT][CPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kv[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) kv[j] = Kt[d * KP + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float qv = Qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) s[i][j] = fmaf(qv, kv[j], s[i][j]);
-      }
-    }
-
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int col = k0 + tx + 16 * j;
-      const float bj = (bb != nullptr && col < Sk) ? bb[col] * LOG2E : 0.f;
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = q0 + ty + 16 * i;
-        const bool ok = col < Sk && (!causal || col <= row);
-        s[i][j] = ok ? s[i][j] + bj : -INFINITY;
-      }
-    }
-
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float mx = s[i][0];
-#pragma unroll
-      for (int j = 1; j < CPT; ++j) mx = fmaxf(mx, s[i][j]);
-      const float mnew = fmaxf(m[i], half_max(mx));
-      const float corr = exp2f(m[i] - mnew);
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        const float p = exp2f(s[i][j] - mnew);  // masked: exp2(-inf) = 0
-        Ps[(ty + 16 * i) * KP + tx + 16 * j] = p;
-        ps += p;
-      }
-      l[i] = l[i] * corr + half_sum(ps);
-      m[i] = mnew;
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) o[i][dd] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float vv[DPT];
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) vv[dd] = Vs[c * D + tx + 16 * dd];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float p = Ps[(ty + 16 * i) * KP + c];
-#pragma unroll
-        for (int dd = 0; dd < DPT; ++dd) o[i][dd] = fmaf(p, vv[dd], o[i][dd]);
-      }
-    }
+  load_tile_async<T, D, BQ, NT>(sQ, qb, a.qss, q0, a.Sq);
+  if (nk > 0) {
+    load_tile_async<T, D, BK, NT>(sK, kb, a.kss, 0, a.Sk);
+    load_tile_async<T, D, BK, NT>(sV, vb, a.vss, 0, a.Sk);
   }
+  cp_async_commit();
+  if (bb != nullptr && tid < BK)
+    bias_s[tid] = tid < a.Sk ? bb[tid] * LOG2E : 0.f;
 
-  const long long bh = (long long)b * H + h;
+  float m[2] = {NEG_BIG, NEG_BIG}, l[2] = {0.f, 0.f};
+  float o[NO][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Sq) continue;
-    const float li = l[i] == 0.f ? 1.f : l[i];
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    float nb = 0.f;
+    if (it + 1 < nk) {
+      const int k1 = k0 + BK;
+      load_tile_async<T, D, BK, NT>(sK + (st ^ 1) * TILE, kb, a.kss, k1, a.Sk);
+      load_tile_async<T, D, BK, NT>(sV + (st ^ 1) * TILE, vb, a.vss, k1, a.Sk);
+      if (bb != nullptr && tid < BK && k1 + tid < a.Sk)
+        nb = bb[k1 + tid] * LOG2E;
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile it (and Q) landed for every thread
+
+    // warp-uniform: rows past Sq, or (causal) rows that see no key here
+    const bool live = qw < a.Sq && !(a.causal && k0 > qw + 15);
+    if (live) {
+      const uint32_t tK = sK + st * TILE, tV = sV + st * TILE;
+      float s[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        typename M::A qa;
+        M::template load_a<D>(qa, sQ, warp * 16, ks);
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          typename M::B b0, b1;
+          M::template load_b2<D>(b0, b1, tK, n * 8, ks);
+          M::mma(s[n], qa, b0);
+          M::mma(s[n + 1], qa, b1);
+        }
+      }
+
+      // base-2 scores; the mask only on the diagonal and ragged-edge tiles
+      const bool edge = (a.causal && k0 + BK - 1 > qw) || k0 + BK > a.Sk;
+      const float* bt = bias_s + st * BK;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1);
+          float x = s[n][e] * a.scale2;
+          if (bb != nullptr) x += bt[c];
+          if (edge) {
+            const int col = k0 + c, row = qw + g + (e >> 1) * 8;
+            if (col >= a.Sk || (a.causal && col > row)) x = -INFINITY;
+          }
+          s[n][e] = x;
+        }
+
+      // online softmax: rows g (e = 0, 1) and g + 8 (e = 2, 3)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        mx = quad_max(mx);
+        const float corr = fast_exp2(m[r] - mx);
+        float ps = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[n][e] = fast_exp2(s[n][e] - mx);  // masked: exp2(-inf) = 0
+            ps += s[n][e];
+          }
+        l[r] = l[r] * corr + ps;  // the quad's partial sums, reduced last
+        m[r] = mx;
+#pragma unroll
+        for (int i = 0; i < NO; ++i) {
+          o[i][2 * r] *= corr;
+          o[i][2 * r + 1] *= corr;
+        }
+      }
+
+      // O += P V, P from the S accumulators
+#pragma unroll
+      for (int j = 0; j < BK / M::MK; ++j) {
+        typename M::A pa;
+        M::p_frag(pa, s, j);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          typename M::B b0, b1;
+          M::template load_bt2<D>(b0, b1, tV, j * M::MK, n * 8);
+          M::mma(o[n], pa, b0);
+          M::mma(o[n + 1], pa, b1);
+        }
+      }
+    }
+    if (bb != nullptr && tid < BK && it + 1 < nk) bias_s[(st ^ 1) * BK + tid] = nb;
+    __syncthreads();  // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+
+  const long long bh_off = (long long)bh * a.Sq;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + r * 8;
+    const float lr = quad_sum(l[r]);
+    if (row >= a.Sq) continue;
+    const float li = lr == 0.f ? 1.f : lr;
     const float inv = 1.f / li;
-    T* orow = out + (bh * Sq + row) * D;
+    T* orow = (T*)a.out + (bh_off + row) * D;
 #pragma unroll
-    for (int dd = 0; dd < DPT; ++dd)
-      orow[tx + 16 * dd] = from_f<T>(o[i][dd] * inv);
-    if (tx == 0) lse[bh * Sq + row] = m[i] + log2f(li);
+    for (int i = 0; i < NO; ++i)
+      store2(orow + i * 8 + 2 * t, o[i][2 * r] * inv, o[i][2 * r + 1] * inv);
+    if (t == 0) a.lse[bh_off + row] = m[r] + log2f(li);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* bias, void* out, void* lse, int B, int H,
-                   int Sq, int Sk, const long long* st, float scale2,
-                   int causal, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
+cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
+  const size_t smem = smem_bytes<T, D>();
   auto kern = flash_fwd_kernel<T, D>;
   // raise the dynamic shared-memory cap once per instantiation (not a
   // stream operation: done before any CUDA-graph capture of a launch)
@@ -237,34 +242,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     if (e != cudaSuccess) return e;
     smem_set = true;
   }
-  dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const float*)bias, (T*)out,
-      (float*)lse, H, Sq, Sk, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], scale2, causal);
+  dim3 grid(B * a.H, (a.Sq + BQ - 1) / BQ);
+  kern<<<grid, NT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
-                       const void* bias, void* out, void* lse, int B, int H,
-                       int Sq, int Sk, const long long* st, float scale2,
-                       int causal, cudaStream_t stream) {
+cudaError_t dispatch_d(int D, const FwdArgs& a, int B, cudaStream_t stream) {
   switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, bias, out, lse, B, H, Sq, Sk, st,
-                           scale2, causal, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, bias, out, lse, B, H, Sq, Sk, st,
-                           scale2, causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, bias, out, lse, B, H, Sq, Sk, st,
-                           scale2, causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, bias, out, lse, B, H, Sq, Sk, st,
-                            scale2, causal, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return launch<T, 16>(a, B, stream);
+    case 32: return launch<T, 32>(a, B, stream);
+    case 64: return launch<T, 64>(a, B, stream);
+    case 128: return launch<T, 128>(a, B, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -278,21 +268,38 @@ const char* pt_cuda_error_string(int e) {
 
 // dtype: 0 = float32, 1 = bfloat16. strides: q (batch, head, seq),
 // k (batch, head, seq), v (batch, head, seq), in elements; the head dim
-// is contiguous. out/lse are contiguous. bias is float32 [B, Sk] or null.
+// is contiguous, base addresses and strides are multiples of 16 bytes.
+// out/lse are contiguous. bias is float32 [B, Sk] or null.
 int pt_flash_attention_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* out, void* lse, int dtype,
                            int B, int H, int Sq, int Sk, int D,
                            const long long* strides, float scale, int causal,
                            void* stream) {
-  const float scale2 = scale * LOG2E;
-  cudaStream_t s = (cudaStream_t)stream;
   if (B == 0 || H == 0 || Sq == 0) return cudaSuccess;
-  if (dtype == 0)
-    return dispatch_d<float>(D, q, k, v, bias, out, lse, B, H, Sq, Sk,
-                             strides, scale2, causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(D, q, k, v, bias, out, lse, B, H, Sq,
-                                     Sk, strides, scale2, causal, s);
+  FwdArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.bias = (const float*)bias;
+  a.out = out;
+  a.lse = (float*)lse;
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.qsb = strides[0];
+  a.qsh = strides[1];
+  a.qss = strides[2];
+  a.ksb = strides[3];
+  a.ksh = strides[4];
+  a.kss = strides[5];
+  a.vsb = strides[6];
+  a.vsh = strides[7];
+  a.vss = strides[8];
+  a.scale2 = scale * LOG2E;
+  a.causal = causal;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) return dispatch_d<float>(D, a, B, s);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16>(D, a, B, s);
   return cudaErrorInvalidValue;
 }
 

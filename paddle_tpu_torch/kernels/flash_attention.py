@@ -75,6 +75,15 @@ def _check(q, k, v, bias):
                              f"contiguous (stride 1)")
         if t.device != q.device:
             raise ValueError("flash_attention: q, k, v on different devices")
+        # the kernels copy 16-byte chunks of each row (cp.async)
+        elem = t.element_size()
+        if t.data_ptr() % 16 or any(t.stride(i) * elem % 16
+                                    for i in range(3) if t.shape[i] > 1):
+            raise ValueError(f"flash_attention: {name}'s base address and "
+                             f"batch/head/row strides must be multiples of "
+                             f"16 bytes, got address {t.data_ptr()} and "
+                             f"strides {t.stride()[:3]} of {elem}-byte "
+                             f"elements")
     if bias is not None and (tuple(bias.shape) != (B, 1, 1, k.shape[2])
                              or bias.device != q.device):
         raise ValueError(f"flash_attention kernel takes only a "
@@ -86,7 +95,8 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False):
     """Fused attention forward -> ``(out [B,H,Sq,D], lse2 [B,H,1,Sq])``.
     CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
     kernel (any Sq/Sk; head dim 16/32/64/128; q/k/v may be strided views
-    with a contiguous head dim)."""
+    with a contiguous head dim whose base addresses and strides are
+    multiples of 16 bytes)."""
     if scale is None or scale == 0.0:
         scale = q.shape[-1] ** -0.5
     if _plain(q):
