@@ -20,8 +20,12 @@ NVIDIA GPU.
    causal, on the strided q/k/v views the model makes, plus a non-causal
    + bias and a bf16 case each; K1 and K2 also at the tiling's edges
    (head dim 128 and a ragged S = 1000, float32 and bf16, causal; K1
-   non-causal + bias at D = 128). Bounds take float32 at 165 TFLOP/s
-   (3xTF32) and report the CUDA-core float32 bound beside it.
+   non-causal + bias at D = 128), K3 and K4 at head dim 128 and a ragged
+   S = 2000 (both types, causal; non-causal + bias at D = 128). Bounds
+   take float32 at 165 TFLOP/s (3xTF32). One ``bwd_pair`` line per
+   (S, type) at S2048 and S4096 causal times K3 then K4 back to back
+   beside K2 off its route and SDPA's backward, and holds the pair's
+   outputs against K2's.
 4. The main paths at GPTConfig.base() widths, seeded random weights, each
    with every kernel launch count zeroed just before it and read just
    after; each path's kernels must have launched:
@@ -57,10 +61,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # published H100 SXM peaks (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 # float32: 495 TF32 / 3, the least time a product held to float32 accuracy
-# can take on this card (3xTF32: three TF32 products per float32 product);
-# CUDA-core float32 (67 TFLOP/s) is kept beside it as "bound_ms_fp32_fma"
+# can take on this card (3xTF32: three TF32 products per float32 product)
 PEAK_OPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
-FP32_FMA_OPS = 67e12
 
 FA_SOURCE = "paddle_tpu_torch/kernels/csrc/flash_attention_fwd.cu"
 PA_SOURCE = "paddle_tpu_torch/kernels/csrc/paged_attention.cu"
@@ -115,15 +117,6 @@ def bound(nbytes, ops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def fma_bound(nbytes, ops, dtype):
-    """The bound of a float32 phase against the CUDA cores' float32 rate
-    (the rate of a kernel that computes in float32 FMA); None for other
-    types."""
-    if dtype != "float32":
-        return None
-    return max(nbytes / HBM_BYTES_PER_S, ops / FP32_FMA_OPS) * 1e3
 
 
 def _kernel_name(mangled):
@@ -243,7 +236,6 @@ def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
         + (B * S * 4 if with_bias else 0)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     rec = {"phase": "flash_attention_fwd", "B": B, "H": H, "S": S, "D": D,
-           "bound_ms_fp32_fma": fma_bound(nbytes, ops, dtype),
            "dtype": dtype, "causal": causal, "bias": with_bias,
            "layout": "packed qkv views" if packed else "contiguous",
            "max_abs_err": err, "lse2_max_abs_err": lse_err, "atol": tol,
@@ -501,7 +493,6 @@ def bwd_phase(torch, fa, name, B, H, S, D, dtype, causal, with_bias, seed,
         + 2 * B * H * S * 4 + (B * S * 4 if with_bias else 0)
     bound_ms, bound_by = bound(nbytes, ops, dtype)
     rec = {"phase": name, "replaces": replaces, "B": B, "H": H, "S": S,
-           "bound_ms_fp32_fma": fma_bound(nbytes, ops, dtype),
            "D": D, "dtype": dtype, "causal": causal, "bias": with_bias,
            "layout": "packed qkv views" if packed else "contiguous",
            "max_abs_err": max(errs.values()), "abs_err": errs,
@@ -512,6 +503,61 @@ def bwd_phase(torch, fa, name, B, H, S, D, dtype, causal, with_bias, seed,
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{rec}")
+    return rec
+
+
+def bwd_pair_phase(torch, fa, B, H, S, D, dtype, seed):
+    """The K3 + K4 route against its yardsticks on one causal input (the
+    model's strided views): K3 then K4 back to back as one timed call,
+    K2 off its route on the same input, and the backward of
+    ``scaled_dot_product_attention`` (the one library call that computes
+    dq, dk and dv). The pair's outputs are held against K2's (two
+    independent kernels; limit as in ``bwd_phase``), so no S x S plain
+    backward is materialized."""
+    F = torch.nn.functional
+    q, k, v, _, g = attention_inputs(torch, B, H, S, D, dtype, False, seed,
+                                     True)
+    scale = D ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, None, scale, True)
+    dout = torch.randn(B, H, S, D, device="cuda", generator=g).to(q.dtype)
+    args = (q, k, v, None, scale, True, out, lse, dout)
+
+    def pair():
+        return (fa.flash_attention_bwd_dq(*args),
+                *fa.flash_attention_bwd_dkv(*args))
+
+    got, want = pair(), fa.flash_attention_bwd_single(*args)
+    torch.cuda.synchronize()
+    tol = {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    rel = {o: ((a.float() - b.float()).abs().max()
+               / b.float().abs().max()).item()
+           for o, a, b in zip(("dq", "dk", "dv"), got, want)}
+    ok = max(rel.values()) <= tol and all(bool(torch.isfinite(t).all())
+                                          for t in got)
+    del got, want
+    k3_ms = event_ms(torch, lambda: fa.flash_attention_bwd_dq(*args), 10)
+    k4_ms = event_ms(torch, lambda: fa.flash_attention_bwd_dkv(*args), 10)
+    ms = event_ms(torch, pair, 10)
+    k2_ms = event_ms(torch, lambda: fa.flash_attention_bwd_single(*args), 10)
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), dout, retain_graph=True), 10)
+    pairs = S * (S + 1) // 2
+    nbytes = 7 * B * H * S * D * q.element_size() + 2 * B * H * S * 4
+    # the pair does 7 score-sized products (K3: 3, K4: 4), K2 5
+    bound_ms, bound_by = bound(nbytes, 14.0 * B * H * pairs * D, dtype)
+    k2_bound_ms = bound(nbytes, 10.0 * B * H * pairs * D, dtype)[0]
+    rec = {"phase": "bwd_pair", "B": B, "H": H, "S": S, "D": D,
+           "dtype": dtype, "causal": True, "layout": "packed qkv views",
+           "err_over_max_k2": rel, "limit_over_max_ref": tol,
+           "k3_ms": k3_ms, "k4_ms": k4_ms, "ms": ms, "k2_ms": k2_ms,
+           "library_ms": lib_ms, "bound_ms": bound_ms,
+           "k2_bound_ms": k2_bound_ms, "bound_by": bound_by,
+           "single_pass_route": fa.single_pass_backward(S, True), "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"K3 + K4 disagree with K2: {rec}")
     return rec
 
 
@@ -702,10 +748,25 @@ def main():
         for dtype in ("float32", "bfloat16"):
             bwd_phase(torch, fa, "flash_attention_bwd_single", 8, H, S, D,
                       dtype, True, False, seed=S + D + 1, packed=True)
+    # K3/K4 at their tiling's edges: head dim 128 (H6) and a ragged S =
+    # 2000, both types, causal; non-causal + bias at D = 128
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        for H, S, D in ((6, 2048, 128), (12, 2000, 64), (6, 2000, 128)):
+            for dtype in ("float32", "bfloat16"):
+                bwd_phase(torch, fa, name, 8, H, S, D, dtype, True, False,
+                          seed=S + D + 2, packed=True)
+        bwd_phase(torch, fa, name, 8, 6, 2048, 128, "float32", False, True,
+                  seed=4, packed=False)
     # K2 off its route, at the S2048 shape of K3 + K4, for the route rule
     bwd_phase(torch, fa, "flash_attention_bwd_single", 8, 12, 2048, 64,
               "float32", True, False, seed=2053, packed=True)
     torch.cuda.empty_cache()
+    # the route rule: K3 + K4 (the route of causal S2048 and S4096)
+    # against K2 off its route and SDPA's backward
+    for S in (2048, 4096):
+        for dtype in ("float32", "bfloat16"):
+            bwd_pair_phase(torch, fa, 8, 12, S, 64, dtype, seed=S + 8)
+            torch.cuda.empty_cache()
 
     counters = {"flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd_single": fa.flash_attention_bwd_single,

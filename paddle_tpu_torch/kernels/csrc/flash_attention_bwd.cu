@@ -16,49 +16,54 @@
 //   dp = dO v^T
 //   ds = p * (dp - delta) * scale, rounded to k's type
 //   dq = ds k,  dk = ds^T q,  dv = p^T dO  (p rounded to dO's type)
-// Sums are taken in float32; outputs are written in the input type.
+// Sums are taken in float32; outputs are written once, in the input type.
 //
-// What bounds it on the H100: the causal backward at GPT-base shapes does
-// about 5 (K2: s, dp, dq, dk, dv) or 7 (K3: s, dp, dq; K4: s, dp, dk, dv)
-// score-sized products, 2 * B*H*live*D operations each, against a few
-// [B,H,S,D] tensors of input and output: bound by operations at every
-// training shape (bf16 against the 989 TFLOP/s tensor cores; float32
-// against 165 TFLOP/s, the 3xTF32 rate of the K2 kernel, or the CUDA
-// cores' 67 TFLOP/s for K3 and K4, which still compute in float32 FMA).
+// What bounds them on the H100: score-sized products, 2 * B*H*live*D
+// operations each (live: the visible (query, key) pairs), against a few
+// [B,H,S,D] tensors of input and output. K2 does 5 (s, dp, dq, dk, dv),
+// K3 3 (s, dp, dq), K4 4 (s, dp, dk, dv): bound by operations at every
+// training shape, bf16 against the tensor cores' 989 TFLOP/s, float32
+// against 165 TFLOP/s (495 TF32 / 3, the three TF32 products of 3xTF32).
 //
-// K2, FlashAttention-2's backward on mma.sync (attention_mma.cuh): one
-// block of 4 warps per (b, h, 64-key tile) loops over the live q tiles
-// (bf16: 64 rows, 32 at D = 128; float32: 32, 16 at D = 128, as its
-// fragments take twice the registers). Each warp owns 16 keys, so it computes the
-// transposed scores S^T = K Q^T and dP^T = V dO^T for its keys across the
-// q tile on the tensor cores (bf16 m16n8k16, float32 as 3xTF32 m16n8k8);
-// p and ds are formed in registers (the mask only on diagonal and
-// ragged-edge tile pairs), and P^T, dS^T feed dV += P^T dO and dK += dS^T
-// Q straight from the accumulators, so dK and dV stay in registers for
-// the whole loop. dS goes once through swizzled shared memory for this
-// pair's dQ share, dS K, computed by warps split over q rows and added to
-// a zeroed float32 buffer with 16-byte vector atomics (float4 atomicAdd,
-// compute capability 9.x); a small epilogue casts it for bf16. Q/dO tiles
-// stream through a 2-stage cp.async ring (16-byte copies, zero-filled
-// past Sq), so tile t+1 loads while tile t is multiplied. k tiles are
-// launched in ascending order, which under a causal mask is heaviest
+// All three run on the tensor cores with warp-level mma.sync
+// (attention_mma.cuh: bf16 m16n8k16; float32 as 3xTF32 m16n8k8) and
+// stream their tiles through a 2-stage cp.async ring of swizzled shared
+// memory (16-byte copies, zero-filled past a ragged edge), so tile t+1
+// loads while tile t is multiplied. p and ds are formed in registers from
+// the accumulators; only tile pairs on the causal diagonal or a ragged
+// edge evaluate the mask, and dead causal tiles are never visited (the
+// TPU kernels' `_block_live`). The TPU kernels walk a sequential grid and
+// carry dq (K3) or dk/dv (K4) in VMEM scratch across grid steps; a CUDA
+// block has no such memory and blocks run in no order, so each block
+// loops over the other operand's tiles and keeps its output in registers:
+//
+// K2 and K4 (one loop, kv_loop, with and without the dQ share): one block
+// of 4 warps per (b, h, 64-key tile) loops over the live q tiles (bf16: 64
+// rows, 32 at D = 128; float32: 32, 16 at D = 128, as its fragments carry
+// a hi and a lo part). Each warp owns 16 keys and computes the transposed
+// scores S^T = K Q^T and dP^T = V dO^T across the q tile, so P^T and dS^T
+// leave the accumulators in the layout that dV += P^T dO and dK += dS^T Q
+// take as their A operand: dK and dV stay in registers for the whole
+// loop. K4 stops there (a warp whose keys the causal q tile cannot see
+// skips the tile). K2 adds the pair's dQ share: dS goes once through
+// swizzled shared memory, dS K is computed by warps split over q rows and
+// added to a zeroed float32 buffer with 16-byte vector atomics (float4
+// atomicAdd, compute capability 9.x); a small epilogue casts it for bf16.
+// k tiles are launched in ascending order, under a causal mask heaviest
 // first.
 //
-// K3 and K4 keep the first design, in float32 FMA on the CUDA cores. The
-// TPU kernels walk a sequential grid and carry dq (K3) or dk/dv (K4) in
-// VMEM scratch across grid steps; a CUDA block has no such memory and
-// blocks run in no order, so:
-//   - K3: one block per (b, h, 64-row q tile) loops over the live k tiles
-//     and keeps dq in registers; dq is written once.
-//   - K4: one block per (b, h, 64-key k tile) loops over the live q tiles
-//     and keeps dk, dv in registers; they are written once.
-// Dead causal tiles are never visited (the TPU kernels' `_block_live`).
-// Ragged Sq/Sk are masked: rows past Sq and keys past Sk load as zeros,
-// get p = 0, and are not stored. 256 threads form a 16 x 16 grid: thread
-// (ty, tx) owns tile rows ty + 16i and columns tx + 16j, so shared-memory
-// reads are conflict-free or broadcasts (the transposed tiles are padded
-// to 65 columns). Tiles live in dynamic shared memory (100 KB at D = 64,
-// 166 KB at D = 128), hence cudaFuncSetAttribute.
+// K3: K1's loop (flash_attention_fwd.cu) with a second product. One block
+// of 8 warps per (b, h, 128-row q tile), 16 rows per warp, walks the live
+// key tiles (64 keys; 32 for float32 at D = 128, for registers): S = Q K^T
+// and dP = dO V^T from the Q/dO tiles and the K/V ring, p and ds in
+// registers (lse2 and delta are given, so no online rescaling), then dQ
+// += dS K with dS taken from the accumulators as the A operand, exactly
+// K1's P V step with K in V's place. dQ stays in registers and is written
+// once. Causal q tiles are launched heaviest first.
+//
+// Left for later: `mma.sync`, not `wgmma` + TMA; in float32 every B
+// fragment a warp reads is split into TF32 hi/lo parts on the fly (3 ALU
+// instructions per element), and the "B = tile" loads are scalar.
 #include <math.h>
 
 #include "attention_mma.cuh"
@@ -66,100 +71,6 @@
 namespace {
 
 using namespace pt_attn;
-
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr int KP = BK + 1;  // padded row of a [*, BK] or transposed tile
-
-// rows [r0, r0 + 64) of a strided [S, D] matrix -> dst[r][D + 1]
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* src,
-                                          long long stride, int r0, int S) {
-  for (int e = threadIdx.x; e < 64 * D; e += NT) {
-    const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] =
-        r0 + r < S ? to_f(src[(long long)(r0 + r) * stride + d]) : 0.f;
-  }
-}
-
-// rows [r0, r0 + 64) of a strided [S, D] matrix -> dst[d][KP], transposed
-template <typename T, int D>
-__device__ __forceinline__ void load_rows_t(float* dst, const T* src,
-                                            long long stride, int r0,
-                                            int S) {
-  for (int e = threadIdx.x; e < 64 * D; e += NT) {
-    const int r = e / D, d = e % D;
-    dst[d * KP + r] =
-        r0 + r < S ? to_f(src[(long long)(r0 + r) * stride + d]) : 0.f;
-  }
-}
-
-// 64 float32 values of a [S] row (lse2 or delta) -> dst[64]
-__device__ __forceinline__ void load_vec(float* dst, const float* src,
-                                         int r0, int S) {
-  for (int r = threadIdx.x; r < 64; r += NT)
-    dst[r] = r0 + r < S ? src[r0 + r] : 0.f;
-}
-
-// acc[i][j] = sum_d A[ty + 16i][d] * Bt[d][tx + 16j] over one tile pair:
-// A is [64][D + 1] (q rows), Bt is [D][KP] (keys, transposed)
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&acc)[4][4], const float* A,
-                                         const float* Bt, int tx, int ty) {
-  constexpr int DP = D + 1;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float b[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = Bt[d * KP + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = A[(ty + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a, b[j], acc[i][j]);
-    }
-  }
-}
-
-// p and ds of one (q tile, k tile) pair from the raw scores s = q k^T and
-// dp = dO v^T; rows q0 + ty + 16i, keys k0 + tx + 16j
-template <typename T>
-__device__ __forceinline__ void p_and_ds(
-    float (&s)[4][4], float (&dp)[4][4], const float* lse_s,
-    const float* delta_s, const float* bb, int q0, int k0, int Sq, int Sk,
-    float scale, float scale2, int causal, int tx, int ty) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = k0 + tx + 16 * j;
-    const float bj = (bb != nullptr && col < Sk) ? bb[col] * LOG2E : 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int row = q0 + r;
-      const bool ok = row < Sq && col < Sk && (!causal || col <= row);
-      const float p = ok ? exp2f(s[i][j] * scale2 + bj - lse_s[r]) : 0.f;
-      dp[i][j] = round_to<T>(p * (dp[i][j] - delta_s[r]) * scale);  // ds
-      s[i][j] = round_to<T>(p);                                       // p
-    }
-  }
-}
-
-template <int D>
-constexpr size_t kv_smem_floats() {
-  // Kt, Vt [D][KP]; Qs, dOs [BQ][D+1]; Ps, dSs [BQ][KP]; lse, delta [BQ]
-  return 2 * D * KP + 2 * BQ * (D + 1) + 2 * BQ * KP + 2 * BQ;
-}
-
-template <int D>
-constexpr size_t q_smem_floats() {
-  // Qs, dOs [BQ][D+1]; Kt, Vt [D][KP]; dSs [BQ][KP]; lse, delta [BQ]
-  return 2 * BQ * (D + 1) + 2 * D * KP + BQ * KP + 2 * BQ;
-}
 
 struct Args {
   const void* q;
@@ -179,230 +90,52 @@ struct Args {
   int causal;
 };
 
-// K4: one block per (k tile, h, b)
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_kv_kernel(Args a) {
-  constexpr int DP = D + 1;
-  constexpr int DPT = D / 16;  // head-dim columns per thread
-  extern __shared__ float smem[];
-  float* Kt = smem;
-  float* Vt = Kt + D * KP;
-  float* Qs = Vt + D * KP;
-  float* dOs = Qs + BQ * DP;
-  float* Ps = dOs + BQ * DP;
-  float* dSs = Ps + BQ * KP;
-  float* lse_s = dSs + BQ * KP;
-  float* delta_s = lse_s + BQ;
+// ------------------------------------------------------------- K2, K4
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * a.H + h;
-  const T* qb = (const T*)a.q + b * a.qsb + h * a.qsh;
-  const T* kb = (const T*)a.k + b * a.ksb + h * a.ksh;
-  const T* vb = (const T*)a.v + b * a.vsb + h * a.vsh;
-  const T* dob = (const T*)a.dout + bh * a.Sq * D;
-  const float* lb = a.lse + bh * a.Sq;
-  const float* db = a.delta + bh * a.Sq;
-  const float* bb = a.bias ? a.bias + (long long)b * a.Sk : nullptr;
-
-  load_rows_t<T, D>(Kt, kb, a.kss, k0, a.Sk);
-  load_rows_t<T, D>(Vt, vb, a.vss, k0, a.Sk);
-
-  float dk[4][DPT], dv[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) dk[i][dd] = dv[i][dd] = 0.f;
-
-  // a causal k tile is seen only by the q tiles from its own start on
-  const int qstart = a.causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = qstart; q0 < a.Sq; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<T, D>(Qs, qb, a.qss, q0, a.Sq);
-    load_rows<T, D>(dOs, dob, D, q0, a.Sq);
-    load_vec(lse_s, lb, q0, a.Sq);
-    load_vec(delta_s, db, q0, a.Sq);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, Qs, Kt, tx, ty);
-    tile_dot<D>(dp, dOs, Vt, tx, ty);
-    p_and_ds<T>(s, dp, lse_s, delta_s, bb, q0, k0, a.Sq, a.Sk, a.scale,
-                a.scale2, a.causal, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        Ps[(ty + 16 * i) * KP + tx + 16 * j] = s[i][j];
-        dSs[(ty + 16 * i) * KP + tx + 16 * j] = dp[i][j];
-      }
-    __syncthreads();
-
-    // dv[key][d] += sum_q p[q][key] dO[q][d]; dk[key][d] += ds[q][key] q[q][d]
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pk[4], dsk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pk[i] = Ps[r * KP + ty + 16 * i];
-        dsk[i] = dSs[r * KP + ty + 16 * i];
-      }
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) {
-        const float o = dOs[r * DP + tx + 16 * dd];
-        const float qv = Qs[r * DP + tx + 16 * dd];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv[i][dd] = fmaf(pk[i], o, dv[i][dd]);
-          dk[i][dd] = fmaf(dsk[i], qv, dk[i][dd]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty + 16 * i;
-    if (key >= a.Sk) continue;
-    T* dkr = (T*)a.dk + (bh * a.Sk + key) * D;
-    T* dvr = (T*)a.dv + (bh * a.Sk + key) * D;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) {
-      dkr[tx + 16 * dd] = from_f<T>(dk[i][dd]);
-      dvr[tx + 16 * dd] = from_f<T>(dv[i][dd]);
-    }
-  }
-}
-
-// K3: one block per (q tile, h, b)
-template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_q_kernel(Args a) {
-  constexpr int DP = D + 1;
-  constexpr int DPT = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + BQ * DP;
-  float* Kt = dOs + BQ * DP;
-  float* Vt = Kt + D * KP;
-  float* dSs = Vt + D * KP;
-  float* lse_s = dSs + BQ * KP;
-  float* delta_s = lse_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const long long bh = (long long)b * a.H + h;
-  const T* qb = (const T*)a.q + b * a.qsb + h * a.qsh;
-  const T* kb = (const T*)a.k + b * a.ksb + h * a.ksh;
-  const T* vb = (const T*)a.v + b * a.vsb + h * a.vsh;
-  const T* dob = (const T*)a.dout + bh * a.Sq * D;
-  const float* bb = a.bias ? a.bias + (long long)b * a.Sk : nullptr;
-
-  load_rows<T, D>(Qs, qb, a.qss, q0, a.Sq);
-  load_rows<T, D>(dOs, dob, D, q0, a.Sq);
-  load_vec(lse_s, a.lse + bh * a.Sq, q0, a.Sq);
-  load_vec(delta_s, a.delta + bh * a.Sq, q0, a.Sq);
-
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) acc[i][dd] = 0.f;
-
-  // keys [0, kend): a causal q tile sees nothing past its last row
-  const int kend = a.causal ? min(a.Sk, q0 + BQ) : a.Sk;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
-    load_rows_t<T, D>(Kt, kb, a.kss, k0, a.Sk);
-    load_rows_t<T, D>(Vt, vb, a.vss, k0, a.Sk);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, Qs, Kt, tx, ty);
-    tile_dot<D>(dp, dOs, Vt, tx, ty);
-    p_and_ds<T>(s, dp, lse_s, delta_s, bb, q0, k0, a.Sq, a.Sk, a.scale,
-                a.scale2, a.causal, tx, ty);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(ty + 16 * i) * KP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float kv[DPT];
-#pragma unroll
-      for (int dd = 0; dd < DPT; ++dd) kv[dd] = Kt[(tx + 16 * dd) * KP + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = dSs[(ty + 16 * i) * KP + c];
-#pragma unroll
-        for (int dd = 0; dd < DPT; ++dd)
-          acc[i][dd] = fmaf(ds, kv[dd], acc[i][dd]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= a.Sq) continue;
-    T* dqr = (T*)a.dq + (bh * a.Sq + row) * D;
-#pragma unroll
-    for (int dd = 0; dd < DPT; ++dd) dqr[tx + 16 * dd] = from_f<T>(acc[i][dd]);
-  }
-}
-
-// ---------------------------------------------------------------- K2
-
-constexpr int K2_BK = 64;   // keys per block
-constexpr int K2_NT = 128;  // 4 warps, 16 keys each
+constexpr int KV_BK = 64;   // keys per block
+constexpr int KV_NT = 128;  // 4 warps, 16 keys each
 // q rows per tile: the S^T, dP^T, dK and dV accumulators share 255
 // registers, and float32 fragments carry a hi and a lo part
 template <typename T, int D>
-__host__ __device__ constexpr int k2_bq() {
+__host__ __device__ constexpr int kv_bq() {
   return sizeof(T) == 4 ? (D >= 128 ? 16 : 32) : (D >= 128 ? 32 : 64);
 }
 
-template <typename T, int D>
-constexpr size_t k2_smem_bytes() {
-  // K, V [BK][D]; Q, dO [2][BQ][D]; dS [BQ][BK]; lse2, delta [2][BQ]
-  return sizeof(T) * (2 * K2_BK * D + 4 * k2_bq<T, D>() * D +
-                      k2_bq<T, D>() * K2_BK) +
-         sizeof(float) * 4 * k2_bq<T, D>();
+template <typename T, int D, bool kDq>
+constexpr size_t kv_smem_bytes() {
+  // K, V [BK][D]; Q, dO [2][BQ][D]; dS [BQ][BK] (K2); lse2, delta [2][BQ]
+  constexpr int BQ = kv_bq<T, D>();
+  return sizeof(T) * (2 * KV_BK * D + 4 * BQ * D + (kDq ? BQ * KV_BK : 0)) +
+         sizeof(float) * 4 * BQ;
 }
 
-// K2: one block per (b, h, k tile); see the note at the top
-template <typename T, int D>
-__global__ void __launch_bounds__(K2_NT) flash_bwd_k2_kernel(Args a) {
+// one block per (b, h, k tile); see the note at the top
+template <typename T, int D, bool kDq>
+__device__ __forceinline__ void kv_loop(const Args& a) {
   using M = Mma<T>;
-  constexpr int BQ2 = k2_bq<T, D>();
-  constexpr int KT = K2_BK * D * sizeof(T);   // bytes of the K or V tile
-  constexpr int QT = BQ2 * D * sizeof(T);     // bytes of a Q or dO tile
+  constexpr int BQ = kv_bq<T, D>();
+  constexpr int KT = KV_BK * D * sizeof(T);   // bytes of the K or V tile
+  constexpr int QT = BQ * D * sizeof(T);      // bytes of a Q or dO tile
   constexpr int KSTEPS = D * sizeof(T) / 32;  // depth steps over D
-  constexpr int SSTEPS = K2_BK * sizeof(T) / 32;  // depth steps over keys
-  constexpr int NS = BQ2 / 8;                 // n-tiles of S^T (q cols)
+  constexpr int SSTEPS = KV_BK * sizeof(T) / 32;  // depth steps over keys
+  constexpr int NS = BQ / 8;                  // n-tiles of S^T (q cols)
   constexpr int NO = D / 8;                   // n-tiles of dK, dV
   // dQ: WM warps over rows x WN over columns (strips of 16+ columns)
-  constexpr int WM = BQ2 / 16;
+  constexpr int WM = BQ / 16;
   constexpr int WN = 4 / WM < D / 16 ? 4 / WM : D / 16;
   constexpr int DW = D / WN, NQ = DW / 8;
-  constexpr uint32_t OFF_S = 2 * KT + 4 * QT;  // dS tile
-  extern __shared__ __align__(128) unsigned char k2_smem[];
-  const uint32_t sK = smem_u32(k2_smem), sV = sK + KT, sQ = sV + KT,
+  constexpr uint32_t OFF_S = 2 * KT + 4 * QT;  // dS tile (K2)
+  constexpr uint32_t OFF_L = OFF_S + (kDq ? BQ * KV_BK * sizeof(T) : 0);
+  extern __shared__ __align__(128) unsigned char kv_smem[];
+  const uint32_t sK = smem_u32(kv_smem), sV = sK + KT, sQ = sV + KT,
                  sO = sQ + 2 * QT, sS = sK + OFF_S;
-  float* lse_s =
-      reinterpret_cast<float*>(k2_smem + OFF_S + BQ2 * K2_BK * sizeof(T));
-  float* dlt_s = lse_s + 2 * BQ2;
+  float* lse_s = reinterpret_cast<float*>(kv_smem + OFF_L);
+  float* dlt_s = lse_s + 2 * BQ;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
-  const int k0 = blockIdx.y * K2_BK;
+  const int k0 = blockIdx.y * KV_BK;
   const int kw = k0 + warp * 16;  // the warp's first key
   const T* qb = (const T*)a.q + b * a.qsb + h * a.qsh;
   const T* kb = (const T*)a.k + b * a.ksb + h * a.ksh;
@@ -413,8 +146,8 @@ __global__ void __launch_bounds__(K2_NT) flash_bwd_k2_kernel(Args a) {
   const float* bb = a.bias ? a.bias + (long long)b * a.Sk : nullptr;
 
   // a causal k tile is seen only by the q tiles from its own start on
-  const int qstart = a.causal ? (k0 / BQ2) * BQ2 : 0;
-  const int nq = qstart < a.Sq ? (a.Sq - qstart + BQ2 - 1) / BQ2 : 0;
+  const int qstart = a.causal ? (k0 / BQ) * BQ : 0;
+  const int nq = qstart < a.Sq ? (a.Sq - qstart + BQ - 1) / BQ : 0;
 
   float kbias[2];  // bias * log2(e) of the warp's rows kw + g, kw + g + 8
 #pragma unroll
@@ -423,12 +156,12 @@ __global__ void __launch_bounds__(K2_NT) flash_bwd_k2_kernel(Args a) {
     kbias[r] = (bb != nullptr && key < a.Sk) ? bb[key] * LOG2E : 0.f;
   }
 
-  load_tile_async<T, D, K2_BK, K2_NT>(sK, kb, a.kss, k0, a.Sk);
-  load_tile_async<T, D, K2_BK, K2_NT>(sV, vb, a.vss, k0, a.Sk);
+  load_tile_async<T, D, KV_BK, KV_NT>(sK, kb, a.kss, k0, a.Sk);
+  load_tile_async<T, D, KV_BK, KV_NT>(sV, vb, a.vss, k0, a.Sk);
   if (nq > 0) {
-    load_tile_async<T, D, BQ2, K2_NT>(sQ, qb, a.qss, qstart, a.Sq);
-    load_tile_async<T, D, BQ2, K2_NT>(sO, dob, D, qstart, a.Sq);
-    if (tid < BQ2) {
+    load_tile_async<T, D, BQ, KV_NT>(sQ, qb, a.qss, qstart, a.Sq);
+    load_tile_async<T, D, BQ, KV_NT>(sO, dob, D, qstart, a.Sq);
+    if (tid < BQ) {
       const int q = qstart + tid;
       lse_s[tid] = q < a.Sq ? lb[q] : 0.f;
       dlt_s[tid] = q < a.Sq ? db[q] : 0.f;
@@ -443,15 +176,14 @@ __global__ void __launch_bounds__(K2_NT) flash_bwd_k2_kernel(Args a) {
     for (int e = 0; e < 4; ++e) dk[i][e] = dv[i][e] = 0.f;
 
   for (int it = 0; it < nq; ++it) {
-    const int q0 = qstart + it * BQ2, st = it & 1;
+    const int q0 = qstart + it * BQ, st = it & 1;
     float nl = 0.f, nd = 0.f;
     if (it + 1 < nq) {
-      const int q1 = q0 + BQ2;
-      load_tile_async<T, D, BQ2, K2_NT>(sQ + (st ^ 1) * QT, qb, a.qss, q1,
-                                        a.Sq);
-      load_tile_async<T, D, BQ2, K2_NT>(sO + (st ^ 1) * QT, dob, D, q1,
-                                        a.Sq);
-      if (tid < BQ2 && q1 + tid < a.Sq) {
+      const int q1 = q0 + BQ;
+      load_tile_async<T, D, BQ, KV_NT>(sQ + (st ^ 1) * QT, qb, a.qss, q1,
+                                       a.Sq);
+      load_tile_async<T, D, BQ, KV_NT>(sO + (st ^ 1) * QT, dob, D, q1, a.Sq);
+      if (tid < BQ && q1 + tid < a.Sq) {
         nl = lb[q1 + tid];
         nd = db[q1 + tid];
       }
@@ -460,121 +192,131 @@ __global__ void __launch_bounds__(K2_NT) flash_bwd_k2_kernel(Args a) {
     cp_async_wait<1>();
     __syncthreads();  // Q/dO tile it (and K, V) landed for every thread
 
+    // K4: warp-uniform, keys past Sk or (causal) keys no row here sees;
+    // K2 computes them all, its dS tile needs their zeros
+    const bool live =
+        kDq || (kw < a.Sk && !(a.causal && kw > q0 + BQ - 1));
     const uint32_t tQ = sQ + st * QT, tO = sO + st * QT;
     float s[NS][4], dp[NS][4];
+    if (live) {
 #pragma unroll
-    for (int i = 0; i < NS; ++i)
+      for (int i = 0; i < NS; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      typename M::A ka, va;
-      M::template load_a<D>(ka, sK, warp * 16, ks);
-      M::template load_a<D>(va, sV, warp * 16, ks);
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        typename M::A ka, va;
+        M::template load_a<D>(ka, sK, warp * 16, ks);
+        M::template load_a<D>(va, sV, warp * 16, ks);
 #pragma unroll
-      for (int n = 0; n < NS; n += 2) {
-        typename M::B b0, b1;
-        M::template load_b2<D>(b0, b1, tQ, n * 8, ks);
-        M::mma(s[n], ka, b0);
-        M::mma(s[n + 1], ka, b1);
-        M::template load_b2<D>(b0, b1, tO, n * 8, ks);
-        M::mma(dp[n], va, b0);
-        M::mma(dp[n + 1], va, b1);
-      }
-    }
-
-    // p and ds (rows: keys kw + g (+8); cols: q0 + 8n + 2t (+1)); the mask
-    // only where the pair touches the diagonal or a ragged edge
-    const bool edge = (a.causal && kw + 15 > q0) || q0 + BQ2 > a.Sq ||
-                      kw + 16 > a.Sk;
-    const float* ls = lse_s + st * BQ2;
-    const float* dl = dlt_s + st * BQ2;
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1), r = e >> 1;
-        float p = fast_exp2(s[n][e] * a.scale2 + kbias[r] - ls[c]);
-        if (edge) {
-          const int q = q0 + c, key = kw + g + 8 * r;
-          if (q >= a.Sq || key >= a.Sk || (a.causal && key > q)) p = 0.f;
+        for (int n = 0; n < NS; n += 2) {
+          typename M::B b0, b1;
+          M::template load_b2<D>(b0, b1, tQ, n * 8, ks);
+          M::mma(s[n], ka, b0);
+          M::mma(s[n + 1], ka, b1);
+          M::template load_b2<D>(b0, b1, tO, n * 8, ks);
+          M::mma(dp[n], va, b0);
+          M::mma(dp[n + 1], va, b1);
         }
-        const float ds = p * (dp[n][e] - dl[c]) * a.scale;
-        s[n][e] = round_to<T>(p);
-        dp[n][e] = round_to<T>(ds);
       }
 
-    // dV += P^T dO, dK += dS^T Q (depth: the q rows of the tile)
+      // p and ds (rows: keys kw + g (+8); cols: q0 + 8n + 2t (+1)); the
+      // mask only where the pair touches the diagonal or a ragged edge
+      const bool edge = (a.causal && kw + 15 > q0) || q0 + BQ > a.Sq ||
+                        kw + 16 > a.Sk;
+      const float* ls = lse_s + st * BQ;
+      const float* dl = dlt_s + st * BQ;
 #pragma unroll
-    for (int j = 0; j < BQ2 / M::MK; ++j) {
-      typename M::A pa, da;
-      M::p_frag(pa, s, j);
-      M::p_frag(da, dp, j);
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int n = 0; n < NO; n += 2) {
-        typename M::B b0, b1;
-        M::template load_bt2<D>(b0, b1, tO, j * M::MK, n * 8);
-        M::mma(dv[n], pa, b0);
-        M::mma(dv[n + 1], pa, b1);
-        M::template load_bt2<D>(b0, b1, tQ, j * M::MK, n * 8);
-        M::mma(dk[n], da, b0);
-        M::mma(dk[n + 1], da, b1);
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1), r = e >> 1;
+          float p = fast_exp2(s[n][e] * a.scale2 + kbias[r] - ls[c]);
+          if (edge) {
+            const int q = q0 + c, key = kw + g + 8 * r;
+            if (q >= a.Sq || key >= a.Sk || (a.causal && key > q)) p = 0.f;
+          }
+          const float ds = p * (dp[n][e] - dl[c]) * a.scale;
+          s[n][e] = round_to<T>(p);
+          dp[n][e] = round_to<T>(ds);
+        }
+
+      // dV += P^T dO, dK += dS^T Q (depth: the q rows of the tile)
+#pragma unroll
+      for (int j = 0; j < BQ / M::MK; ++j) {
+        typename M::A pa, da;
+        M::p_frag(pa, s, j);
+        M::p_frag(da, dp, j);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          typename M::B b0, b1;
+          M::template load_bt2<D>(b0, b1, tO, j * M::MK, n * 8);
+          M::mma(dv[n], pa, b0);
+          M::mma(dv[n + 1], pa, b1);
+          M::template load_bt2<D>(b0, b1, tQ, j * M::MK, n * 8);
+          M::mma(dk[n], da, b0);
+          M::mma(dk[n + 1], da, b1);
+        }
       }
     }
 
-    // dS -> shared memory as [q][key] for this pair's dQ share
+    if constexpr (kDq) {
+      // dS -> shared memory as [q][key] for this pair's dQ share
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
+      for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = n * 8 + 2 * t + (e & 1);
-        const int key = warp * 16 + g + 8 * (e >> 1);
-        *reinterpret_cast<T*>(k2_smem + OFF_S +
-                              swz_elem<T, K2_BK>(c, key)) =
-            from_f<T>(dp[n][e]);
-      }
-    if (tid < BQ2 && it + 1 < nq) {
-      lse_s[(st ^ 1) * BQ2 + tid] = nl;
-      dlt_s[(st ^ 1) * BQ2 + tid] = nd;
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1);
+          const int key = warp * 16 + g + 8 * (e >> 1);
+          *reinterpret_cast<T*>(kv_smem + OFF_S +
+                                swz_elem<T, KV_BK>(c, key)) =
+              from_f<T>(dp[n][e]);
+        }
     }
-    __syncthreads();  // dS complete; every warp is done with Q/dO stage st
+    if (tid < BQ && it + 1 < nq) {
+      lse_s[(st ^ 1) * BQ + tid] = nl;
+      dlt_s[(st ^ 1) * BQ + tid] = nd;
+    }
+    __syncthreads();  // (dS complete;) every warp is done with stage st
 
-    // dQ share = dS K: warp (wm, wn) owns rows q0 + 16 wm, cols DW wn
-    if (warp >= WM * WN) continue;  // the grid has fewer cells than warps
-    const int wm = warp % WM, wn = warp / WM;
-    float acc[NQ][4];
+    // K2's dQ share = dS K: warp (wm, wn) owns rows q0 + 16 wm, cols DW wn
+    if constexpr (kDq) {
+      if (warp >= WM * WN) continue;  // the grid has fewer cells than warps
+      const int wm = warp % WM, wn = warp / WM;
+      float acc[NQ][4];
 #pragma unroll
-    for (int i = 0; i < NQ; ++i)
+      for (int i = 0; i < NQ; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 #pragma unroll
-    for (int ks = 0; ks < SSTEPS; ++ks) {
-      typename M::A sa;
-      M::template load_a<K2_BK>(sa, sS, wm * 16, ks);
+      for (int ks = 0; ks < SSTEPS; ++ks) {
+        typename M::A sa;
+        M::template load_a<KV_BK>(sa, sS, wm * 16, ks);
 #pragma unroll
-      for (int n = 0; n < NQ; n += 2) {
-        typename M::B b0, b1;
-        M::template load_bt2<D, false>(b0, b1, sK, ks * M::MK,
-                                       wn * DW + n * 8);
-        M::mma(acc[n], sa, b0);
-        M::mma(acc[n + 1], sa, b1);
+        for (int n = 0; n < NQ; n += 2) {
+          typename M::B b0, b1;
+          M::template load_bt2<D, false>(b0, b1, sK, ks * M::MK,
+                                         wn * DW + n * 8);
+          M::mma(acc[n], sa, b0);
+          M::mma(acc[n + 1], sa, b1);
+        }
       }
-    }
-    // lanes t, t ^ 1 swap halves so that each holds 4 consecutive columns
-    // of one row: even t row g, odd t row g + 8
-    const bool odd = t & 1;
-    const int row = q0 + wm * 16 + g + (odd ? 8 : 0);
-    float* dqr = a.dq_acc + ((long long)bh * a.Sq + row) * D + wn * DW +
-                 4 * (t >> 1);
+      // lanes t, t ^ 1 swap halves so that each holds 4 consecutive
+      // columns of one row: even t row g, odd t row g + 8
+      const bool odd = t & 1;
+      const int row = q0 + wm * 16 + g + (odd ? 8 : 0);
+      float* dqr = a.dq_acc + ((long long)bh * a.Sq + row) * D + wn * DW +
+                   4 * (t >> 1);
 #pragma unroll
-    for (int n = 0; n < NQ; ++n) {
-      const float x0 = odd ? acc[n][0] : acc[n][2];
-      const float x1 = odd ? acc[n][1] : acc[n][3];
-      const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
-      const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
-      const float4 v = odd ? make_float4(y0, y1, acc[n][2], acc[n][3])
-                           : make_float4(acc[n][0], acc[n][1], y0, y1);
-      if (row < a.Sq) atomicAdd(reinterpret_cast<float4*>(dqr + n * 8), v);
+      for (int n = 0; n < NQ; ++n) {
+        const float x0 = odd ? acc[n][0] : acc[n][2];
+        const float x1 = odd ? acc[n][1] : acc[n][3];
+        const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
+        const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+        const float4 v = odd ? make_float4(y0, y1, acc[n][2], acc[n][3])
+                             : make_float4(acc[n][0], acc[n][1], y0, y1);
+        if (row < a.Sq) atomicAdd(reinterpret_cast<float4*>(dqr + n * 8), v);
+      }
     }
   }
   cp_async_wait<0>();
@@ -593,6 +335,18 @@ __global__ void __launch_bounds__(K2_NT) flash_bwd_k2_kernel(Args a) {
   }
 }
 
+// K2: dk, dv and the dq shares
+template <typename T, int D>
+__global__ void __launch_bounds__(KV_NT) flash_bwd_k2_kernel(Args a) {
+  kv_loop<T, D, true>(a);
+}
+
+// K4: dk, dv
+template <typename T, int D>
+__global__ void __launch_bounds__(KV_NT) flash_bwd_kv_kernel(Args a) {
+  kv_loop<T, D, false>(a);
+}
+
 // K2's epilogue: the float32 dq buffer -> q's type
 template <typename T>
 __global__ void cast_kernel(const float* __restrict__ src, T* __restrict__ dst,
@@ -601,6 +355,175 @@ __global__ void cast_kernel(const float* __restrict__ src, T* __restrict__ dst,
        i += (long long)gridDim.x * blockDim.x)
     dst[i] = from_f<T>(src[i]);
 }
+
+// ------------------------------------------------------------------ K3
+
+constexpr int Q_BQ = 128;         // q rows per block
+constexpr int Q_NT = Q_BQ / 16 * 32;  // 8 warps, 16 rows each
+// keys per tile: the S, dP and dQ accumulators share 255 registers
+template <typename T, int D>
+__host__ __device__ constexpr int q_bk() {
+  return sizeof(T) == 4 && D >= 128 ? 32 : 64;
+}
+
+template <typename T, int D>
+constexpr size_t q_smem_bytes() {
+  // Q, dO [BQ][D]; K, V [2][BK][D]; bias2 [2][BK]
+  return sizeof(T) * D * (2 * Q_BQ + 4 * q_bk<T, D>()) +
+         sizeof(float) * 2 * q_bk<T, D>();
+}
+
+// K3: one block per (b, h, q tile); see the note at the top
+template <typename T, int D>
+__global__ void __launch_bounds__(Q_NT) flash_bwd_q_kernel(Args a) {
+  using M = Mma<T>;
+  constexpr int BK = q_bk<T, D>();
+  constexpr int TILE = BK * D * sizeof(T);    // bytes of a K or V tile
+  constexpr int QT = Q_BQ * D * sizeof(T);    // bytes of the Q or dO tile
+  constexpr int KSTEPS = D * sizeof(T) / 32;  // depth steps of Q K^T
+  constexpr int NS = BK / 8;                  // n-tiles of S, dP
+  constexpr int NO = D / 8;                   // n-tiles of dQ
+  extern __shared__ __align__(128) unsigned char q_smem[];
+  const uint32_t sQ = smem_u32(q_smem), sO = sQ + QT, sK = sO + QT,
+                 sV = sK + 2 * TILE;
+  float* bias_s = reinterpret_cast<float*>(q_smem + 2 * QT + 4 * TILE);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
+  const int qt = a.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * Q_BQ;
+  const int qw = q0 + warp * 16;  // the warp's first row
+  const T* qb = (const T*)a.q + b * a.qsb + h * a.qsh;
+  const T* kb = (const T*)a.k + b * a.ksb + h * a.ksh;
+  const T* vb = (const T*)a.v + b * a.vsb + h * a.vsh;
+  const T* dob = (const T*)a.dout + (long long)bh * a.Sq * D;
+  const float* bb = a.bias ? a.bias + (long long)b * a.Sk : nullptr;
+
+  // keys [0, kend): a causal q tile sees nothing past its last row
+  const int kend = a.causal ? min(a.Sk, q0 + Q_BQ) : a.Sk;
+  const int nk = (kend + BK - 1) / BK;
+
+  load_tile_async<T, D, Q_BQ, Q_NT>(sQ, qb, a.qss, q0, a.Sq);
+  load_tile_async<T, D, Q_BQ, Q_NT>(sO, dob, D, q0, a.Sq);
+  if (nk > 0) {
+    load_tile_async<T, D, BK, Q_NT>(sK, kb, a.kss, 0, a.Sk);
+    load_tile_async<T, D, BK, Q_NT>(sV, vb, a.vss, 0, a.Sk);
+  }
+  cp_async_commit();
+  if (bb != nullptr && tid < BK)
+    bias_s[tid] = tid < a.Sk ? bb[tid] * LOG2E : 0.f;
+
+  // lse2 and delta of the thread's rows qw + g, qw + g + 8 (rows past Sq
+  // have zero q and dO, so ds = 0 there; they are not stored)
+  float lse[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    const long long i = (long long)bh * a.Sq + row;
+    lse[r] = row < a.Sq ? a.lse[i] : 0.f;
+    dlt[r] = row < a.Sq ? a.delta[i] : 0.f;
+  }
+
+  float dq[NO][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[i][e] = 0.f;
+
+  for (int it = 0; it < nk; ++it) {
+    const int k0 = it * BK, st = it & 1;
+    float nb = 0.f;
+    if (it + 1 < nk) {
+      const int k1 = k0 + BK;
+      load_tile_async<T, D, BK, Q_NT>(sK + (st ^ 1) * TILE, kb, a.kss, k1,
+                                      a.Sk);
+      load_tile_async<T, D, BK, Q_NT>(sV + (st ^ 1) * TILE, vb, a.vss, k1,
+                                      a.Sk);
+      if (bb != nullptr && tid < BK && k1 + tid < a.Sk)
+        nb = bb[k1 + tid] * LOG2E;
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // tile it (and Q, dO) landed for every thread
+
+    // warp-uniform: rows past Sq, or (causal) rows that see no key here
+    const bool live = qw < a.Sq && !(a.causal && k0 > qw + 15);
+    if (live) {
+      const uint32_t tK = sK + st * TILE, tV = sV + st * TILE;
+      float s[NS][4], dp[NS][4];
+#pragma unroll
+      for (int i = 0; i < NS; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        typename M::A qa, oa;
+        M::template load_a<D>(qa, sQ, warp * 16, ks);
+        M::template load_a<D>(oa, sO, warp * 16, ks);
+#pragma unroll
+        for (int n = 0; n < NS; n += 2) {
+          typename M::B b0, b1;
+          M::template load_b2<D>(b0, b1, tK, n * 8, ks);
+          M::mma(s[n], qa, b0);
+          M::mma(s[n + 1], qa, b1);
+          M::template load_b2<D>(b0, b1, tV, n * 8, ks);
+          M::mma(dp[n], oa, b0);
+          M::mma(dp[n + 1], oa, b1);
+        }
+      }
+
+      // ds (rows qw + g (+8); keys k0 + 8n + 2t (+1)) into s; the mask
+      // only on the diagonal and ragged-edge tiles
+      const bool edge = (a.causal && k0 + BK - 1 > qw) || k0 + BK > a.Sk;
+      const float* bt = bias_s + st * BK;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = n * 8 + 2 * t + (e & 1), r = e >> 1;
+          float x = s[n][e] * a.scale2 - lse[r];
+          if (bb != nullptr) x += bt[c];
+          float p = fast_exp2(x);
+          if (edge) {
+            const int col = k0 + c, row = qw + g + 8 * r;
+            if (col >= a.Sk || (a.causal && col > row)) p = 0.f;
+          }
+          s[n][e] = round_to<T>(p * (dp[n][e] - dlt[r]) * a.scale);
+        }
+
+      // dQ += dS K, dS from the accumulators
+#pragma unroll
+      for (int j = 0; j < BK / M::MK; ++j) {
+        typename M::A da;
+        M::p_frag(da, s, j);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          typename M::B b0, b1;
+          M::template load_bt2<D>(b0, b1, tK, j * M::MK, n * 8);
+          M::mma(dq[n], da, b0);
+          M::mma(dq[n + 1], da, b1);
+        }
+      }
+    }
+    if (bb != nullptr && tid < BK && it + 1 < nk)
+      bias_s[(st ^ 1) * BK + tid] = nb;
+    __syncthreads();  // every warp is done with stage st
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    if (row >= a.Sq) continue;
+    T* dqr = (T*)a.dq + ((long long)bh * a.Sq + row) * D;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      store2(dqr + n * 8 + 2 * t, dq[n][2 * r], dq[n][2 * r + 1]);
+  }
+}
+
+// ------------------------------------------------------------- launch
 
 template <typename K>
 cudaError_t raise_smem(K kern, size_t bytes, bool& done) {
@@ -618,34 +541,34 @@ template <typename T, int D>
 cudaError_t launch(int kind, const Args& a, int B, cudaStream_t stream) {
   if (kind == 1) {
     static bool done = false;
-    const size_t smem = sizeof(float) * q_smem_floats<D>();
+    const size_t smem = q_smem_bytes<T, D>();
     auto kern = flash_bwd_q_kernel<T, D>;
     cudaError_t e = raise_smem(kern, smem, done);
     if (e != cudaSuccess) return e;
-    dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-    kern<<<grid, NT, smem, stream>>>(a);
+    dim3 grid(B * a.H, (a.Sq + Q_BQ - 1) / Q_BQ);
+    kern<<<grid, Q_NT, smem, stream>>>(a);
     return cudaGetLastError();
   }
+  dim3 grid(B * a.H, (a.Sk + KV_BK - 1) / KV_BK);
   if (kind == 2) {
     static bool done = false;
-    const size_t smem = sizeof(float) * kv_smem_floats<D>();
+    const size_t smem = kv_smem_bytes<T, D, false>();
     auto kern = flash_bwd_kv_kernel<T, D>;
     cudaError_t e = raise_smem(kern, smem, done);
     if (e != cudaSuccess) return e;
-    dim3 grid((a.Sk + BK - 1) / BK, a.H, B);
-    kern<<<grid, NT, smem, stream>>>(a);
+    kern<<<grid, KV_NT, smem, stream>>>(a);
     return cudaGetLastError();
   }
   static bool done = false;
-  const size_t smem = k2_smem_bytes<T, D>();
+  const size_t smem = kv_smem_bytes<T, D, true>();
   auto kern = flash_bwd_k2_kernel<T, D>;
   cudaError_t e = raise_smem(kern, smem, done);
   if (e != cudaSuccess) return e;
-  dim3 grid(B * a.H, (a.Sk + K2_BK - 1) / K2_BK);
-  kern<<<grid, K2_NT, smem, stream>>>(a);
+  kern<<<grid, KV_NT, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.dq == (void*)a.dq_acc) return e;
   const long long n = (long long)B * a.H * a.Sq * D;
+  const int NT = 256;
   const int blocks = (int)((n + NT - 1) / NT < 4096 ? (n + NT - 1) / NT : 4096);
   cast_kernel<T><<<blocks, NT, 0, stream>>>(a.dq_acc, (T*)a.dq, n);
   return cudaGetLastError();
