@@ -2,20 +2,32 @@
 """Chip smoke test of the PyTorch/CUDA port (paddle_tpu_torch) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent TREE]
 
 1. Prints the card (nvidia-smi name and power limit) and the torch/CUDA
    versions; exits non-zero without a CUDA device.
 2. Builds the port's CUDA kernels from paddle_tpu_torch/kernels/csrc/
    (one nvcc per source, all started together) and prints each kernel's
-   registers, stack and spills from ``-Xptxas -v`` and, where the toolkit
-   has ``cuobjdump``, the tensor-core (HMMA) instructions in K1-K4's SASS.
+   registers, stack and spills from ``-Xptxas -v`` (a spill in any K5
+   instantiation fails the run) and, where the toolkit has
+   ``cuobjdump``, the tensor-core (HMMA) instructions and bulk copies
+   (UBLKCP) in each kernel's SASS.
 3. Kernel phases: each kernel against its plain PyTorch version on the
    card at the main paths' shapes, with the tolerance stated; prints one
    JSON line per phase with the error, the kernel's, the plain version's
    and (where one exists) a single PyTorch call's time, and the bound
    (bytes or operations of this input over the card's peak). K1 (flash
-   forward) and K5 (paged decode) at the serving shapes; K2 (combined
+   forward) at the serving shapes. K5 (paged decode) at B8 H12 D64 bs16
+   nblk128 with pos spread over 0..2047 (float32, bf16 and int8 pools),
+   at B1 pos 32767, B64 with short rows, H6 D128 and H24 D32, block sizes
+   32 and 128, and edge rows (pos -1, a last slot on a split boundary and
+   one past it; also a bf16 q), each timed warm (one call replayed) and
+   cold (a graph walking 12 pool sets, as a decode step walks its
+   layers); then its determinism (two calls, a row alone, a wider table:
+   the same bits). With ``--parent`` (another checkout, e.g. a git
+   archive of the parent commit) that tree's paged kernel is built and
+   called through that tree's own wrapper and timed beside the port's at
+   every K5 phase, in the order parent, new, new, parent. K2 (combined
    backward) at B8 H12 S1024 D64 causal and K3/K4 (dq; dk, dv) at S2048
    causal, on the strided q/k/v views the model makes, plus a non-causal
    + bias and a bf16 case each; K1 and K2 also at the tiling's edges
@@ -33,7 +45,7 @@ NVIDIA GPU.
      paged (kernel) vs dense (plain) decode logits, then an
      InferenceServer with 8 decode slots answering 16 requests from 8
      concurrent wire clients, each reply equal to offline greedy generate
-     (K1, K5);
+     (K1, K5; K5 once per layer of every paged decode step);
    - training through the Fluid surface (gpt_pretrain + AdamOptimizer +
      Executor), fp32, dropout 0.1, 5 Adam steps at lr 1e-4 on one seeded
      batch: B8 S2048 (K1, K3, K4) and B8 S1024 (K1, K2), all 12 layers;
@@ -128,18 +140,34 @@ def _kernel_name(mangled):
         start, n = m.end(), int(m.group(1))
         name = mangled[start:start + n]
         if name.endswith("kernel") and mangled[start + n:start + n + 1] == "I":
-            args = mangled[start + n + 1:].split("E", 1)[0]
-            args = args.replace("Li", ",").replace("13__nv_bfloat16", "bf16")
-            if args.split(",")[0] == "f":
-                args = "float" + args[1:]
+            args = _template_args(mangled[start + n + 1:].split("E", 1)[0])
             best = f"{name}<{args}>"
     return best
 
 
+def _template_args(s):
+    """``float,int8,64`` from a mangled argument list (``faLi64``): f
+    float, a int8, 13__nv_bfloat16 bf16, S<n>_ a repeat of the last named
+    type (bf16 is the only one), Li<n> an int."""
+    import re
+    out, named = [], "?"
+    for tok in re.findall(r"13__nv_bfloat16|Li\d+|S\d*_|.", s):
+        if tok.startswith("Li"):
+            out.append(tok[2:])
+        elif tok.startswith("S"):
+            out.append(named)
+        else:
+            out.append({"f": "float", "a": "int8",
+                        "13__nv_bfloat16": "bf16"}.get(tok, tok))
+            named = out[-1] if tok.startswith("13") else named
+    return ",".join(out)
+
+
 def sass_report(nvcc, lib_path):
-    """Tensor-core instructions (HMMA opcodes) in each kernel of a built
-    library, counted in ``cuobjdump -sass`` from ``nvcc``'s toolkit; None
-    where the toolkit has no cuobjdump."""
+    """Tensor-core instructions (HMMA opcodes) and bulk copies (UBLKCP,
+    ``cp.async.bulk``) in each kernel of a built library, counted in
+    ``cuobjdump -sass`` from ``nvcc``'s toolkit; None where the toolkit
+    has no cuobjdump."""
     import re
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     if not os.path.exists(tool):
@@ -150,12 +178,14 @@ def sass_report(nvcc, lib_path):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = {"entry": _kernel_name(m.group(1)), "hmma": {}}
+            cur = {"entry": _kernel_name(m.group(1)), "hmma": {},
+                   "bulk_copy": {}}
             rows.append(cur)
             continue
-        m = re.search(r"\b(HMMA\.[\w.]+)", line)
+        m = re.search(r"\b(HMMA\.[\w.]+|UBLKCP[\w.]*)", line)
         if m and cur is not None:
-            cur["hmma"][m.group(1)] = cur["hmma"].get(m.group(1), 0) + 1
+            key = "hmma" if m.group(1).startswith("HMMA") else "bulk_copy"
+            cur[key][m.group(1)] = cur[key].get(m.group(1), 0) + 1
     return {"phase": "sass", "library": os.path.basename(lib_path),
             "kernels": rows}
 
@@ -249,55 +279,157 @@ def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
     return rec
 
 
-def paged_phase(torch, pa, kv_dtype, seed):
+def paged_inputs(torch, pa, B, H, D, bs, nblk, pos, kv_dtype, seed, sets,
+                 q_dtype="float32"):
+    """Seeded q [B,H,1,D], block tables [B,nblk] (a random permutation of
+    the pool's blocks, trash block 0 past each row's allocation), pos [B]
+    and ``sets`` distinct k/v pool sets of one layout (as a decoder's
+    layers hold them); returns a list of ``(q, k, v, tables, pos, k_scale,
+    v_scale)`` per set and the live slots."""
     import numpy as np
-    B, H, D, bs, nblk = 8, 12, 64, 16, 128
-    N = B * nblk + 1
+    pos = np.asarray(pos, np.int32)
+    nb = [min(int(p) // bs + 1, nblk) if p >= 0 else 0 for p in pos]
+    N = sum(nb) + 1
     rng = np.random.default_rng(seed)
-    pos = np.linspace(0, nblk * bs - 1, B).round().astype(np.int32)
     tables = np.zeros((B, nblk), np.int32)
     perm = rng.permutation(np.arange(1, N)).astype(np.int32)
     used = 0
-    for b, p in enumerate(pos):
-        n = int(p) // bs + 1
+    for b, n in enumerate(nb):
         tables[b, :n] = perm[used:used + n]
         used += n
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(B, H, 1, D, device="cuda", generator=g)
-    kf = torch.randn(N, H, bs, D, device="cuda", generator=g)
-    vf = torch.randn(N, H, bs, D, device="cuda", generator=g)
-    ks = vs = None
-    if kv_dtype == "int8":
-        (kp, ks), (vp, vs) = pa.quantize_kv(kf), pa.quantize_kv(vf)
-    else:
-        kp, vp = kf.to(getattr(torch, kv_dtype)), vf.to(
-            getattr(torch, kv_dtype))
+    q = torch.randn(B, H, 1, D, device="cuda", generator=g).to(
+        getattr(torch, q_dtype))
     t = torch.from_numpy(tables).cuda()
     p = torch.from_numpy(pos).cuda()
-    out = pa.paged_attention(q, kp, vp, t, p, k_scale=ks, v_scale=vs)
+    out = []
+    for _ in range(sets):
+        kf = torch.randn(N, H, bs, D, device="cuda", generator=g)
+        vf = torch.randn(N, H, bs, D, device="cuda", generator=g)
+        if kv_dtype == "int8":
+            (kp, ks), (vp, vs) = pa.quantize_kv(kf), pa.quantize_kv(vf)
+        else:
+            dt = getattr(torch, kv_dtype)
+            kp, vp, ks, vs = kf.to(dt), vf.to(dt), None, None
+        out.append((q, kp, vp, t, p, ks, vs))
+    return out, live_slots(pos, bs, nblk)
+
+
+def live_slots(pos, bs, nblk):
+    """Key slots the rows can see: sum of pos + 1, within the table."""
+    import numpy as np
+    return int(np.clip(np.asarray(pos, np.int64) + 1, 0, nblk * bs).sum())
+
+
+def parent_paged(tree):
+    """The paged decode wrapper of another checkout ``tree`` (e.g. a git
+    archive of the parent commit), imported from there as the module
+    ``parent_kernels.paged_attention``: it builds that tree's kernel into
+    that tree's build directory and is called as ``paged_attention``.
+    Only the kernel modules are loaded, not the tree's package (whose
+    custom ops would clash with the port's)."""
+    import importlib
+    import types
+    pkg = types.ModuleType("parent_kernels")
+    pkg.__path__ = [os.path.join(tree, "paddle_tpu_torch", "kernels")]
+    sys.modules[pkg.__name__] = pkg
+    return importlib.import_module("parent_kernels.paged_attention")
+
+
+# pool sets a cold timing walks, as GPT-base's decoder walks its layers
+# (more where their live bytes would not exceed twice the L2)
+COLD_SETS = 12
+L2_BYTES = 50e6
+
+
+def cold_sets(live, H, D, kv_dtype):
+    elem = {"float32": 4, "bfloat16": 2, "int8": 1}[kv_dtype]
+    return max(COLD_SETS, int(2 * L2_BYTES // (2 * live * H * D * elem)) + 1)
+
+
+def paged_phase(torch, pa, name, B, H, D, bs, nblk, pos, kv_dtype, seed,
+                parent=None, q_dtype="float32"):
+    """K5 against its plain version on one input, timed warm (one call
+    replayed in a CUDA graph) and cold (a graph that walks ``cold_sets``
+    distinct pool sets, more than 2x the L2's live bytes, as a decode step
+    walks its layers). Rows with nothing visible (pos < 0) must be 0, as
+    the TPU kernel gives them (the gather composite averages there).
+    Limit: max |kernel - ref| <= 1e-4 and <= 1e-4 of max |ref| (both read
+    the same stored values in float32); a bfloat16 q gives a bfloat16
+    output, held to 1e-2 of max |ref| (its rounding). ``parent``: another
+    tree's paged module (:func:`parent_paged`), checked and timed beside
+    the port's kernel in the order parent, new, new, parent where its
+    wrapper takes the input."""
+    nsets = cold_sets(live_slots(pos, bs, nblk), H, D, kv_dtype)
+    sets, live = paged_inputs(torch, pa, B, H, D, bs, nblk, pos, kv_dtype,
+                              seed, nsets, q_dtype)
+    q, kp, vp, t, p, ks, vs = sets[0]
+    kern = pa.paged_attention
+
+    def run(fn, s=sets[0]):
+        return fn(*s[:5], s[5], s[6])
+
+    out = run(kern)
     ref = pa.paged_attention_ref(q, kp, vp, t, p, k_scale=ks, v_scale=vs)
     torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
-    # both sides read the same stored values and compute in float32, so
-    # every pool type is held to the float32 limit
-    tol = 1e-4
-    ok = err <= tol and bool(torch.isfinite(out).all())
-    ms = time_ms(torch, lambda: pa.paged_attention(
-        q, kp, vp, t, p, k_scale=ks, v_scale=vs), 50)
-    plain_ms = time_ms(torch, lambda: pa.paged_attention_ref(
-        q, kp, vp, t, p, k_scale=ks, v_scale=vs), 10)
-    live = int((pos.astype(np.int64) + 1).sum())
+    dead = (p < 0)[:, None, None, None]
+    ref = torch.where(dead, torch.zeros_like(ref), ref).float()
+    err = (out.float() - ref).abs().max().item()
+    max_ref = ref.abs().max().item()
+    tol = 1e-2 * max_ref if q_dtype == "bfloat16" \
+        else 1e-4 * min(1.0, max_ref)
+    ok = err <= tol and bool(torch.isfinite(out).all()) \
+        and bool((out.float() * dead == 0).all())
+    perr = refused = None
+    if parent is not None:
+        try:
+            perr = (run(parent.paged_attention).float() - ref).abs().max() \
+                .item()
+            ok = ok and perr <= tol
+        except ValueError as e:          # its wrapper refuses this input
+            refused = str(e)
+    parent_ok = perr is not None
     nbytes = 2 * live * H * D * kp.element_size() \
         + (2 * live * H * 4 if ks is not None else 0) \
-        + 2 * B * H * D * 4 + B * nblk * 4 + B * 4
-    ops = 4.0 * live * H * D
-    bound_ms, bound_by = bound(nbytes, ops, "float32")
-    rec = {"phase": "paged_attention", "B": B, "H": H, "D": D,
-           "block_size": bs, "nblk": nblk, "pos": pos.tolist(),
-           "kv_dtype": kv_dtype, "max_abs_err": err, "atol": tol, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
-           "bound_by": bound_by, "gbytes_per_s": nbytes / ms / 1e6,
-           "ok": ok}
+        + 2 * B * H * D * q.element_size() + B * nblk * 4 + B * 4
+    cold_live = nsets * 2 * live * H * D * kp.element_size()
+
+    def warm(fn):
+        return time_ms(torch, lambda: run(fn), 50)
+
+    def cold(fn):
+        def walk():
+            for s in sets:
+                run(fn, s)
+        return time_ms(torch, walk, 10) / len(sets)
+
+    rec = {"phase": "paged_attention", "case": name, "B": B, "H": H, "D": D,
+           "block_size": bs, "nblk": nblk, "q_dtype": q_dtype,
+           "kv_dtype": kv_dtype, "live_slots": live,
+           "splits": pa.split_plan(bs, nblk), "cold_sets": nsets}
+    if B <= 8:
+        rec["pos"] = [int(x) for x in pos]
+    if parent_ok:
+        old = parent.paged_attention
+        w = [warm(old), warm(kern), warm(kern), warm(old)]
+        c = [cold(old), cold(kern), cold(kern), cold(old)]
+        rec.update(ms=(w[1] + w[2]) / 2, cold_ms=(c[1] + c[2]) / 2,
+                   parent_ms=(w[0] + w[3]) / 2,
+                   parent_cold_ms=(c[0] + c[3]) / 2, warm_pccp=w,
+                   cold_pccp=c, parent_max_abs_err=perr)
+    else:
+        rec.update(ms=warm(kern), cold_ms=cold(kern),
+                   parent_ms=None, parent_cold_ms=None)
+        if refused:
+            rec["parent_refused"] = refused
+    bound_ms, bound_by = bound(nbytes, 4.0 * live * H * D, "float32")
+    rec.update(max_abs_err=err, max_abs_ref=max_ref, limit=tol,
+               plain_ms=time_ms(torch, lambda: pa.paged_attention_ref(
+                   q, kp, vp, t, p, k_scale=ks, v_scale=vs), 10),
+               library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+               cold_live_bytes_over_l2=cold_live / L2_BYTES,
+               gbytes_per_s=nbytes / rec["ms"] / 1e6,
+               cold_gbytes_per_s=nbytes / rec["cold_ms"] / 1e6, ok=ok)
     emit(rec)
     if not ok:
         raise AssertionError(f"paged_attention disagrees with its plain "
@@ -305,18 +437,108 @@ def paged_phase(torch, pa, kv_dtype, seed):
     return rec
 
 
+def paged_determinism(torch, pa, kv_dtype, seed):
+    """Two calls give the same bits, and each row of the main shape
+    decoded alone (B = 1), and with its table padded 37 entries wider,
+    gives the bits it gets in the batch: a split's boundaries depend on
+    the block index alone."""
+    import numpy as np
+    pos = np.linspace(0, 2047, 8).round().astype(np.int32)
+    (s,), _ = paged_inputs(torch, pa, 8, 12, 64, 16, 128, pos, kv_dtype,
+                           seed, 1)
+    q, kp, vp, t, p, ks, vs = s
+    a = pa.paged_attention(q, kp, vp, t, p, k_scale=ks, v_scale=vs)
+    b = pa.paged_attention(q, kp, vp, t, p, k_scale=ks, v_scale=vs)
+    repeat = bool(torch.equal(a, b))
+    alone = wide = True
+    for r in range(len(pos)):
+        sl = slice(r, r + 1)
+        one = pa.paged_attention(q[sl], kp, vp, t[sl], p[sl], k_scale=ks,
+                                 v_scale=vs)
+        tw = torch.cat([t[sl], torch.zeros(1, 37, dtype=t.dtype,
+                                           device=t.device)], 1)
+        padded = pa.paged_attention(q[sl], kp, vp, tw, p[sl], k_scale=ks,
+                                    v_scale=vs)
+        alone = alone and bool(torch.equal(one, a[sl]))
+        wide = wide and bool(torch.equal(padded, a[sl]))
+    rec = {"phase": "paged_determinism", "kv_dtype": kv_dtype,
+           "repeat_bitwise": repeat, "row_alone_bitwise": alone,
+           "wider_table_bitwise": wide, "ok": repeat and alone and wide}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"paged_attention is not deterministic: {rec}")
+    return rec
+
+
+def paged_phases(torch, pa, parent):
+    """Every K5 phase; returns the main shape's float32 record (the
+    kernels line). Main shape: B8 H12 D64 bs16 nblk128, pos spread over
+    0..2047 (the decode shape of chip_smoke's serving rows at full
+    context)."""
+    import numpy as np
+    main_pos = np.linspace(0, 2047, 8).round().astype(np.int32)
+    main = None
+    for kv in ("float32", "bfloat16", "int8"):
+        rec = paged_phase(torch, pa, "main", 8, 12, 64, 16, 128, main_pos,
+                          kv, 3, parent)
+        main = main or rec
+    for kv in ("float32", "bfloat16", "int8"):
+        paged_phase(torch, pa, "B1_pos32767", 1, 12, 64, 16, 2048, [32767],
+                    kv, 4, parent)
+        torch.cuda.empty_cache()
+    short = np.random.default_rng(5).integers(0, 512, 64).astype(np.int32)
+    paged_phase(torch, pa, "B64_short", 64, 12, 64, 16, 128, short,
+                "float32", 5, parent)
+    for H, D in ((6, 128), (24, 32)):
+        for kv in ("float32", "int8"):
+            paged_phase(torch, pa, f"H{H}_D{D}", 8, H, D, 16, 128, main_pos,
+                        kv, 6, parent)
+    for bs in (32, 128):
+        for kv in ("float32", "int8"):
+            paged_phase(torch, pa, f"bs{bs}", 8, 12, 64, bs, 2048 // bs,
+                        main_pos, kv, 7, parent)
+    # a row with nothing visible; rows whose last live slot ends a split,
+    # and one slot past it
+    span = pa.split_plan(16, 128)[0] * 16
+    edge = [-1, 0, span - 1, span, 2 * span - 1, 2 * span, 2047, 1000]
+    for kv in ("float32", "bfloat16", "int8"):
+        paged_phase(torch, pa, "edges", 8, 12, 64, 16, 128, edge, kv, 8,
+                    parent)
+    paged_phase(torch, pa, "edges", 8, 12, 64, 16, 128, edge, "bfloat16",
+                9, parent, q_dtype="bfloat16")
+    # a block size that is no multiple of 4 (an int8 block's scales are
+    # then no whole 16-byte vector)
+    span = pa.split_plan(6, 341)[0] * 6
+    edge6 = [-1, 0, span - 1, span, 2 * span - 1, 2 * span, 2045, 1000]
+    for kv in ("float32", "int8"):
+        paged_phase(torch, pa, "edges_bs6", 8, 12, 64, 6, 341, edge6, kv, 11,
+                    parent)
+    for kv in ("float32", "bfloat16", "int8"):
+        paged_determinism(torch, pa, kv, 10)
+    torch.cuda.empty_cache()
+    return main
+
+
 # ------------------------------------------------------------- end to end
 
 def end_to_end(torch, np, cfg, device=None, max_len=2048, lo=64, hi=1024,
                new=32):
     """The main path at ``cfg``; prompts of ``lo``..``hi`` tokens and
-    ``new`` new tokens each."""
+    ``new`` new tokens each. Returns the number of paged decode steps
+    taken."""
     from paddle_tpu_torch.models import GPTGenerator, init_params
     from paddle_tpu_torch.serving import (Client, InferenceServer,
                                           KVBlockPool, ServingStats)
     t0 = time.perf_counter()
     gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
                        device=device)
+    paged_steps = [0]
+    step_paged = gen.run_decode_paged
+
+    def counted_step(*a, **k):
+        paged_steps[0] += 1
+        return step_paged(*a, **k)
+    gen.run_decode_paged = counted_step
     print(f"model: GPT {cfg.num_layers} layers h{cfg.hidden_size} "
           f"vocab {cfg.vocab_size}, params on {gen.device} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
@@ -431,6 +653,7 @@ def end_to_end(torch, np, cfg, device=None, max_len=2048, lo=64, hi=1024,
             or st["kvpool_blocks_in_use"] != 0:
         raise AssertionError(f"server replies differ from offline greedy "
                              f"generate for requests {mismatched}")
+    return {"paged_decode_steps": paged_steps[0]}
 
 
 def event_ms(torch, fn, iters):
@@ -667,6 +890,14 @@ def grad_check(torch, np, cfg, B, S, place=None, seed=1):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", metavar="TREE", help="another checkout "
+                    "(e.g. a git archive of the parent commit): each K5 "
+                    "phase then times that tree's paged kernel, called "
+                    "through its own wrapper, beside the port's, in the "
+                    "order parent, new, new, parent")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
               "(paddle_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -691,17 +922,41 @@ def main():
     from paddle_tpu_torch.kernels import _build
     from paddle_tpu_torch.models import GPTConfig
     t0 = time.perf_counter()
-    built = _build.build_all()
+    parent = parent_paged(os.path.abspath(args.parent)) if args.parent \
+        else None
+    parent_built = []
+    if parent is not None:
+        # that tree's paged kernel builds beside the port's kernels
+        import threading
+        th = threading.Thread(target=lambda: parent_built.append(
+            parent._build.build_all(("paged_attention",))))
+        th.start()
+    # a current library whose compiler report was not kept is rebuilt, so
+    # the ptxas lines and the spill check below see every kernel
+    built = _build.build_all(force=[n for n in _build.SOURCES
+                                    if _build.build_log(n) is None])
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.1f}s "
           f"into {_build.BUILD_DIR}", flush=True)
-    for name, out in built.items():
-        emit(ptxas_report(name, out))
-    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+    failures = []
+    for name in _build.SOURCES:
+        # the compiler's report of the current build, rebuilt or not
+        rep = ptxas_report(name, _build.build_log(name))
+        emit(rep)
+        spilled = [k["entry"] for k in rep["kernels"]
+                   if k.get("spill_stores") or k.get("spill_loads")]
+        if name == "paged_attention" and spilled:
+            failures.append(f"K5 instantiations spill registers: {spilled}")
+    for name in _build.SOURCES:
         rep = sass_report(_build._nvcc(), _build._paths(name)[1])
         if rep is not None:
             emit(rep)
     fa = sys.modules["paddle_tpu_torch.kernels.flash_attention"]
     pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
+    if parent is not None:
+        th.join()
+        if not parent_built:
+            raise RuntimeError(f"{args.parent}: its paged kernel did not "
+                               f"build")
 
     # causal phases take q/k/v as the prefill lays them out (strided views
     # of one qkv projection); one contiguous causal run and the
@@ -726,11 +981,7 @@ def main():
                         seed=S + D, packed=True)
     flash_phase(torch, fa, 8, 6, 1024, 128, "float32", False, True, seed=3,
                 packed=False)
-    main_pa = None
-    for kv_dtype in ("float32", "bfloat16", "int8"):
-        rec = paged_phase(torch, pa, kv_dtype, seed=3)
-        if kv_dtype == "float32":
-            main_pa = rec
+    main_pa = paged_phases(torch, pa, parent)
 
     # K2 at the S1024 shape, K3/K4 at S2048, causal on the model's
     # strided views; then non-causal + bias and bf16
@@ -791,8 +1042,17 @@ def main():
         torch.cuda.empty_cache()
         return rec, got
 
-    drive("serving", ("flash_attention_fwd", "paged_attention"),
-          lambda: end_to_end(torch, np, GPTConfig.base()))
+    cfg = GPTConfig.base()
+    rec, got = drive("serving", ("flash_attention_fwd", "paged_attention"),
+                     lambda: end_to_end(torch, np, cfg))
+    # one K5 wrapper call per layer of every paged decode step
+    steps = rec["paged_decode_steps"]
+    emit({"phase": "paged_launches_per_decode_step", "steps": steps,
+          "launches": got["paged_attention"],
+          "per_step": got["paged_attention"] / steps})
+    if got["paged_attention"] != cfg.num_layers * steps:
+        failures.append(f"K5 launched {got['paged_attention']} times in "
+                        f"{steps} paged decode steps")
     for S, needs in ((2048, ("flash_attention_fwd", "flash_attention_bwd_dq",
                              "flash_attention_bwd_dkv")),
                      (1024, ("flash_attention_fwd",
@@ -820,6 +1080,9 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"]})
+    if failures:
+        print(f"failed: {failures}", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface. It is compiled by
 at the root of the checkout, and loaded with ``ctypes``. A library is
 rebuilt when its source, or any shared header ``csrc/*.cuh``, is newer
 than it. ``-Xptxas -v`` makes the compiler report each kernel's
-registers, shared memory and spills in the build output. Pointers travel as
+registers, shared memory and spills in the build output, which is kept
+beside the library (:func:`build_log`). Pointers travel as
 ``c_void_p``; every launch function returns a ``cudaError_t`` that
 :func:`check` turns into an exception.
 
@@ -73,16 +74,32 @@ def _finish(name, proc, tmp, lib):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed to build {name}.cu "
                            f"(exit {proc.returncode}):\n{out}")
+    with open(_log_path(lib), "w") as f:
+        f.write(out)
     os.replace(tmp, lib)          # atomic: a reader never sees half a file
     return out
 
 
-def build_all(names=SOURCES):
-    """Build every stale kernel library, one ``nvcc`` per source, all
-    started together. Returns {name: compiler output} for the ones
-    built."""
+def _log_path(lib):
+    return lib[:-len(".so")] + ".log"
+
+
+def build_log(name):
+    """The compiler output of the current build of kernel ``name`` (None
+    when it is stale, not built, or was built without keeping it)."""
+    path = _log_path(_paths(name)[1])
+    if _stale(name) or not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read()
+
+
+def build_all(names=SOURCES, force=()):
+    """Build every stale kernel library, and those named in ``force``, one
+    ``nvcc`` per source, all started together. Returns {name: compiler
+    output} for the ones built."""
     with _lock:
-        started = {n: _start(n) for n in names if _stale(n)}
+        started = {n: _start(n) for n in names if n in force or _stale(n)}
         return {n: _finish(n, *p) for n, p in started.items()}
 
 

@@ -13,7 +13,10 @@ name the trash block 0 and are masked by ``pos``), pos ``[B]`` int32
 only; for CUDA tensors it launches the kernel or raises. The kernel
 decodes one query per row: S > 1 reads (chunked prefill, speculative
 verify) go through :func:`paged_attention_ref`, as the JAX entry routes
-them to its gather composite.
+them to its gather composite. It splits each row's table into runs of
+blocks (:func:`split_plan`), folds each run in its own CUDA block and
+merges a row's runs in a second small kernel; the host never reads
+``pos``.
 """
 import ctypes
 
@@ -26,7 +29,19 @@ _QMAX = 127.0
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (32, 64, 128)
-_MAX_BLOCK = 64
+# slots per split of a row's table in the kernel (see split_plan)
+SPLIT_TOKENS = 256
+
+
+def split_plan(block_size, nblk):
+    """How the kernel cuts each row's block table: ``(blocks per split,
+    splits)``. A split is a fixed run of ``max(1, SPLIT_TOKENS //
+    block_size)`` table entries, so its boundaries depend on the block
+    index alone (never on the batch, the table width or other rows) and
+    a row's result is bitwise the same in any batch; ``splits`` covers
+    ``nblk`` entries and sizes the kernel's grid."""
+    bps = max(1, SPLIT_TOKENS // block_size)
+    return bps, -(-nblk // bps)
 
 
 def quantize_kv(kv):
@@ -94,9 +109,6 @@ def _check(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
     if (Hp, Dp) != (H, D) or v_pool.shape != k_pool.shape:
         raise ValueError(f"paged_attention: pools {tuple(k_pool.shape)} "
                          f"do not match q {tuple(q.shape)}")
-    if not 1 <= bs <= _MAX_BLOCK:
-        raise ValueError(f"paged_attention kernel takes block_size <= "
-                         f"{_MAX_BLOCK}, got {bs}")
     if tables.dtype != torch.int32 or tables.dim() != 2 \
             or tables.shape[0] != B:
         raise ValueError("paged_attention: tables must be int32 [B, nblk]")
@@ -114,6 +126,14 @@ def _check(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
             raise ValueError("paged_attention: inputs on different devices")
         if not t.is_contiguous():
             raise ValueError("paged_attention: inputs must be contiguous")
+    # the kernel moves each block's K and V slice with bulk copies of
+    # whole 16-byte vectors: a row (D * elem >= 32 bytes) always
+    # qualifies, so any block size does, from a pool that starts on 16
+    # bytes (the int8 scales move 4 bytes at a time)
+    for t in (k_pool, v_pool):
+        if t.data_ptr() % 16:
+            raise ValueError("paged_attention: pools must start on a "
+                             "16-byte boundary")
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, pos, k_scale=None,
@@ -135,15 +155,21 @@ def paged_attention(q, k_pool, v_pool, block_tables, pos, k_scale=None,
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check(q, k_pool, v_pool, block_tables, pos, k_scale, v_scale)
     B, H, _, D = q.shape
+    bs, nblk = k_pool.shape[2], block_tables.shape[1]
+    bps, nsplit = split_plan(bs, nblk)
     out = torch.empty_like(q)
+    # per-split (acc[D], m, l) of rows with several live splits; every
+    # cell the merge reads is written first, so no clearing
+    part = torch.empty(B * H * nsplit * (D + 2), dtype=torch.float32,
+                       device=q.device) if nsplit > 1 else None
     lib = _lib()
     with torch.cuda.device(q.device):
         err = lib.pt_paged_attention(
             _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
             _build.ptr(k_scale), _build.ptr(v_scale),
             _build.ptr(block_tables), _build.ptr(pos), _build.ptr(out),
-            _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype], B, H, D,
-            k_pool.shape[2], block_tables.shape[1], float(scale),
+            _build.ptr(part), _Q_DTYPES[q.dtype], _KV_DTYPES[k_pool.dtype],
+            B, H, D, bs, nblk, bps, nsplit, float(scale),
             _build.stream_of(q))
     _build.check(lib, err, "paged_attention launch")
     paged_attention.launches += 1
@@ -158,10 +184,10 @@ def _lib():
     fn = lib.pt_paged_attention
     if not fn.argtypes:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 8 + [i] * 7 + [ctypes.c_float, vp]
+        fn.argtypes = [vp] * 9 + [i] * 9 + [ctypes.c_float, vp]
         fn.restype = ctypes.c_int
     return lib
 
 
 __all__ = ["paged_attention", "paged_attention_ref", "quantize_kv",
-           "dequantize_kv"]
+           "dequantize_kv", "split_plan"]

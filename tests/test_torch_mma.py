@@ -170,6 +170,26 @@ def test_header_change_makes_a_built_library_stale(tmp_path, monkeypatch):
     assert _build._stale("k")
 
 
+def test_build_log_is_read_only_for_a_current_build(tmp_path, monkeypatch):
+    """The compiler output kept beside a library is returned while the
+    library is current, and None when it was not kept or is stale."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    build.mkdir()
+    monkeypatch.setattr(_build, "_CSRC", str(csrc))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(build))
+    src, lib, log = csrc / "k.cu", build / "libk.so", build / "libk.log"
+    now = time.time()
+    for path, t in ((src, now - 30), (lib, now - 20)):
+        path.write_text("")
+        os.utime(path, (t, t))
+    assert _build.build_log("k") is None            # built, no report kept
+    log.write_text("ptxas info    : Used 48 registers")
+    assert _build.build_log("k") == "ptxas info    : Used 48 registers"
+    os.utime(src, (now, now))                       # the source is touched
+    assert _build.build_log("k") is None
+
+
 def test_build_reports_registers():
     assert ("-Xptxas", "-v") in zip(_build.NVCC_FLAGS, _build.NVCC_FLAGS[1:])
 

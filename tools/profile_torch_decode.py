@@ -7,22 +7,29 @@ Builds GPT-base (seeded random weights), prefills 8 prompts of 64..1024
 tokens, then runs ``--steps`` decode steps over the dense bank and over
 the fp32 paged pool under ``torch.profiler``. Prints one JSON line per
 mode: wall ms per step (host clock, synchronized), device kernel time per
-step (sum of CUDA kernel durations in the trace), the device's idle
-share, kernel launches per step, and the kernels that take the most
-device time. Exits non-zero without a CUDA device.
+step (the time in the trace during which some CUDA kernel runs: kernels
+that overlap, as a programmatic dependent launch overlaps the kernel
+before it while it waits for it, count once), the device's idle
+share, kernel launches per step, the kernels that take the most
+device time, and the paged decode attention kernel's (K5: every kernel
+named ``paged_*_kernel``) device microseconds and launches per step and
+its share of the device time. Exits non-zero without a CUDA device.
 """
 import argparse
 import json
 import os
+import re
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+K5 = re.compile(r"paged_\w*_kernel")
 
 
 def _kernel_times(prof, torch):
-    """{kernel name: (total device us, count)} over the trace."""
-    out = {}
+    """{kernel name: (total device us, count)} over the trace, and each
+    kernel's (start, end, name) in us."""
+    out, spans = {}, []
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -31,7 +38,18 @@ def _kernel_times(prof, torch):
             us = e.cuda_time
         tot, n = out.get(e.name, (0.0, 0))
         out[e.name] = (tot + float(us), n + 1)
-    return out
+        spans.append((e.time_range.start, e.time_range.end, e.name))
+    return out, spans
+
+
+def _covered_us(spans):
+    """Microseconds during which at least one of ``spans`` runs."""
+    total, end = 0.0, float("-inf")
+    for start, stop, _ in sorted(spans):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
 
 
 def main():
@@ -96,16 +114,21 @@ def main():
                                  ProfilerActivity.CUDA]) as prof:
             run(args.steps)
             torch.cuda.synchronize()
-        kt = _kernel_times(prof, torch)
-        busy_ms = sum(t for t, _ in kt.values()) / 1e3 / args.steps
+        kt, spans = _kernel_times(prof, torch)
+        busy_ms = _covered_us(spans) / 1e3 / args.steps
         launches = sum(n for _, n in kt.values()) / args.steps
         top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:8]
+        k5 = [sp for sp in spans if K5.search(sp[2])]
+        k5_us = _covered_us(k5) / args.steps
         print(json.dumps({
             "mode": mode, "steps": args.steps, "rows": bb,
             "wall_ms_per_step": wall_ms,
             "device_ms_per_step": busy_ms if kt else None,
             "device_idle_share": 1 - busy_ms / wall_ms if kt else None,
             "kernel_launches_per_step": launches,
+            "k5_us_per_step": k5_us,
+            "k5_launches_per_step": len(k5) / args.steps,
+            "k5_share_of_device": k5_us / 1e3 / busy_ms if kt else None,
             "top_kernels": [{"name": n[:80], "ms_per_step":
                              t / 1e3 / args.steps, "calls_per_step":
                              c / args.steps} for n, (t, c) in top],
