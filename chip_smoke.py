@@ -23,17 +23,22 @@ NVIDIA GPU.
    32 and 128, and edge rows (pos -1, a last slot on a split boundary and
    one past it; also a bf16 q), each timed warm (one call replayed) and
    cold (a graph walking 12 pool sets, as a decode step walks its
-   layers); then its determinism (two calls, a row alone, a wider table:
-   the same bits). With ``--parent`` (another checkout, e.g. a git
-   archive of the parent commit) that tree's paged kernel is built and
-   called through that tree's own wrapper and timed beside the port's at
-   every K5 phase, in the order parent, new, new, parent. K2 (combined
+   layers); also at B8 H2 D16 (GPTConfig.tiny()'s head dim); then its
+   determinism (two calls, a row alone, a wider table: the same bits).
+   With ``--parent`` (another checkout, e.g. a git archive of the parent
+   commit) that tree's paged kernel is built and called through that
+   tree's own wrapper and timed beside the port's at every K5 phase, in
+   the order parent, new, new, parent; and that tree's K2 is called and
+   timed beside the port's in the K2 determinism phase. K2 (combined
    backward) at B8 H12 S1024 D64 causal and K3/K4 (dq; dk, dv) at S2048
    causal, on the strided q/k/v views the model makes, plus a non-causal
    + bias and a bf16 case each; K1 and K2 also at the tiling's edges
    (head dim 128 and a ragged S = 1000, float32 and bf16, causal; K1
    non-causal + bias at D = 128), K3 and K4 at head dim 128 and a ragged
-   S = 2000 (both types, causal; non-causal + bias at D = 128). Bounds
+   S = 2000 (both types, causal; non-causal + bias at D = 128). K1 and
+   K2 at B4 H8 S1024 and K3/K4 at causal S2048 at head dims 80 and 96
+   (D128's tile plan), both types. K2 determinism: two calls at the main
+   S1024 shape (float32, bf16) give the same dq, dk, dv bits. Bounds
    take float32 at 165 TFLOP/s (3xTF32). One ``bwd_pair`` line per
    (S, type) at S2048 and S4096 causal times K3 then K4 back to back
    beside K2 off its route and SDPA's backward, and holds the pair's
@@ -45,16 +50,27 @@ NVIDIA GPU.
      paged (kernel) vs dense (plain) decode logits, then an
      InferenceServer with 8 decode slots answering 16 requests from 8
      concurrent wire clients, each reply equal to offline greedy generate
-     (K1, K5; K5 once per layer of every paged decode step);
+     (K1, K5; K5 once per layer of every paged decode step); then
+     GPTConfig.tiny() (head dim 16) through one paged generate;
    - training through the Fluid surface (gpt_pretrain + AdamOptimizer +
-     Executor), fp32, dropout 0.1, 5 Adam steps at lr 1e-4 on one seeded
-     batch: B8 S2048 (K1, K3, K4) and B8 S1024 (K1, K2), all 12 layers;
-     finite losses, step 0 within 1.0 of ln(32000), step 4 below step 0;
-     ms/step, tokens/s, TFLOP/s and peak memory.
+     Executor, which runs the default pass pipeline: dce, cse,
+     fuse_optimizer), dropout 0.1, 5 Adam steps at lr 1e-4 on one seeded
+     batch, all 12 layers: fp32 B8 S2048 (K1, K3, K4) and B8 S1024 (K1,
+     K2), and bf16 AMP at B8 S2048 (Adam wrapped by
+     contrib.mixed_precision.decorate at a static loss scale of 1.0, as
+     bench.py's bench_gpt_long trains; K1, K3 and K4 must launch with
+     bf16 inputs); finite losses, step 0 within 1.0 of ln(32000), step 4
+     below step 0; ms/step, tokens/s, TFLOP/s, peak memory and the
+     adam / fused_adam ops a step runs.
 5. Gradient check at GPT-base width, 2 layers, S1024 and S2048: every
    param@GRAD of one step through the kernels against the same program
    cloned with the flash_attention op's impl set to "xla" (the plain
-   composite), within 1e-3 of its max |grad|.
+   composite), within 1e-3 of its max |grad| (fp32) and 2e-2 (bf16
+   AMP). Pipeline A/B at 2 layers, B8 S1024 fp32: one step with
+   FLAGS_program_passes "0" and one with "1" from copies of one scope
+   leave every param, moment and beta-pow bitwise equal. Dynamic loss
+   scaling at 2 layers, 3 steps: finite losses, the loss scale and its
+   counters read back.
 6. Prints the {"kernels": [...]} line (K1-K5), then as the last line
    {"ok": true, "device": {...}}.
 
@@ -132,28 +148,30 @@ def bound(nbytes, ops, dtype):
 
 
 def _kernel_name(mangled):
-    """``flash_bwd_k2_kernel<float,64>`` from a mangled template kernel
-    name: its last ``<length><name>I<args>E`` component."""
+    """``flash_bwd_k2_kernel<float,128,80>`` from a mangled template
+    kernel name: its last ``<length><name>I<args>E`` component."""
     import re
     best = mangled
     for m in re.finditer(r"(\d+)(?=[A-Za-z_])", mangled):
         start, n = m.end(), int(m.group(1))
         name = mangled[start:start + n]
         if name.endswith("kernel") and mangled[start + n:start + n + 1] == "I":
-            args = _template_args(mangled[start + n + 1:].split("E", 1)[0])
-            best = f"{name}<{args}>"
+            best = f"{name}<{_template_args(mangled[start + n + 1:])}>"
     return best
 
 
 def _template_args(s):
-    """``float,int8,64`` from a mangled argument list (``faLi64``): f
-    float, a int8, 13__nv_bfloat16 bf16, S<n>_ a repeat of the last named
-    type (bf16 is the only one), Li<n> an int."""
+    """``float,int8,64`` from a mangled argument list (``faLi64E...``),
+    read up to the ``E`` that closes it: f float, a int8,
+    13__nv_bfloat16 bf16, S<n>_ a repeat of the last named type (bf16 is
+    the only one), Li<n>E an int."""
     import re
     out, named = [], "?"
-    for tok in re.findall(r"13__nv_bfloat16|Li\d+|S\d*_|.", s):
+    for tok in re.findall(r"13__nv_bfloat16|Li\d+E|S\d*_|.", s):
+        if tok == "E":
+            break
         if tok.startswith("Li"):
-            out.append(tok[2:])
+            out.append(tok[2:-1])
         elif tok.startswith("S"):
             out.append(named)
         else:
@@ -336,6 +354,21 @@ def parent_paged(tree):
     return importlib.import_module("parent_kernels.paged_attention")
 
 
+def parent_flash():
+    """The flash-attention wrappers of the tree :func:`parent_paged`
+    loaded: that tree's module registers the same torch custom op as the
+    port's, so the registration is skipped while it is imported (only
+    its kernel wrappers are called, never its autograd path)."""
+    import importlib
+    import torch
+    real = torch.library.custom_op
+    torch.library.custom_op = lambda *a, **k: (lambda fn: fn)
+    try:
+        return importlib.import_module("parent_kernels.flash_attention")
+    finally:
+        torch.library.custom_op = real
+
+
 # pool sets a cold timing walks, as GPT-base's decoder walks its layers
 # (more where their live bytes would not exceed twice the L2)
 COLD_SETS = 12
@@ -493,6 +526,10 @@ def paged_phases(torch, pa, parent):
         for kv in ("float32", "int8"):
             paged_phase(torch, pa, f"H{H}_D{D}", 8, H, D, 16, 128, main_pos,
                         kv, 6, parent)
+    # GPTConfig.tiny()'s head dim (its serving path decodes through here)
+    for kv in ("float32", "bfloat16", "int8"):
+        paged_phase(torch, pa, "H2_D16", 8, 2, 16, 16, 128, main_pos, kv,
+                    12, parent)
     for bs in (32, 128):
         for kv in ("float32", "int8"):
             paged_phase(torch, pa, f"bs{bs}", 8, 12, 64, bs, 2048 // bs,
@@ -784,6 +821,46 @@ def bwd_pair_phase(torch, fa, B, H, S, D, dtype, seed):
     return rec
 
 
+def k2_determinism(torch, fa, dtype, parent_fa=None, seed=1031):
+    """K2 called twice on the main S1024 input (B8 H12 D64 causal, the
+    model's strided views) gives the same dq, dk and dv bits: its k
+    tiles add their dq shares in a fixed order. With ``parent_fa``
+    (another tree's wrappers, :func:`parent_flash`) that tree's K2 is
+    called twice too (recorded, not held) and both are timed in the
+    order parent, new, new, parent."""
+    q, k, v, _, g = attention_inputs(torch, 8, 12, 1024, 64, dtype, False,
+                                     seed, True)
+    scale = 64 ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, None, scale, True)
+    dout = torch.randn(8, 12, 1024, 64, device="cuda", generator=g).to(
+        q.dtype)
+    args = (q, k, v, None, scale, True, out, lse, dout)
+
+    def same_bits(kern):
+        a, b = kern(*args), kern(*args)
+        return {o: bool(torch.equal(x, y))
+                for o, x, y in zip(("dq", "dk", "dv"), a, b)}
+
+    rec = {"phase": "k2_determinism", "B": 8, "H": 12, "S": 1024, "D": 64,
+           "dtype": dtype, "causal": True,
+           "bitwise": same_bits(fa.flash_attention_bwd_single)}
+    new = fa.flash_attention_bwd_single
+    if parent_fa is not None:
+        old = parent_fa.flash_attention_bwd_single
+        rec["parent_bitwise"] = same_bits(old)
+        t = [event_ms(torch, lambda f=f: f(*args), 10)
+             for f in (old, new, new, old)]
+        rec.update(ms=(t[1] + t[2]) / 2, parent_ms=(t[0] + t[3]) / 2,
+                   pccp_ms=t)
+    else:
+        rec["ms"] = event_ms(torch, lambda: new(*args), 10)
+    rec["ok"] = all(rec["bitwise"].values())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"K2 is not deterministic: {rec}")
+    return rec
+
+
 # ----------------------------------------------------- training (Fluid)
 
 def gpt_train_flops_per_sample(cfg, seq_len):
@@ -798,24 +875,43 @@ def gpt_train_flops_per_sample(cfg, seq_len):
     return 3 * (L * per_layer + 2 * seq_len * h * V)
 
 
-def build_train(cfg, B, S):
+def build_train(cfg, B, S, amp=None):
+    """``gpt_pretrain`` + ``AdamOptimizer(1e-4).minimize``; ``amp``
+    "static" wraps Adam in bf16 mixed precision at a static loss scale of
+    1.0 (bench.py's ``bench_gpt_long``), "dynamic" with dynamic loss
+    scaling (``decorate``'s defaults). Returns (main, startup, loss,
+    params_grads, optimizer)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import gpt
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         out = gpt.gpt_pretrain(cfg, B, S)
-        _, params_grads = fluid.optimizer.AdamOptimizer(1e-4).minimize(
-            out["loss"])
-    return main, startup, out["loss"], params_grads
+        opt = fluid.optimizer.AdamOptimizer(1e-4)
+        if amp is not None:
+            kw = {"static": dict(init_loss_scaling=1.0,
+                                 use_dynamic_loss_scaling=False),
+                  "dynamic": {}}[amp]
+            opt = fluid.contrib.mixed_precision.decorate(opt, **kw)
+        _, params_grads = opt.minimize(out["loss"])
+    return main, startup, out["loss"], params_grads, opt
 
 
-def train_phase(torch, np, cfg, B, S, steps, place=None, seed=0):
+def optimizer_ops(exe, program, fetch_names):
+    """{op type: count} of the optimizer update ops in the program the
+    executor runs for ``program`` (the pass pipeline's output)."""
+    ops = exe._optimize(program, fetch_names).global_block().ops
+    return {t: sum(op.type == t for op in ops)
+            for t in ("adam", "fused_adam")}
+
+
+def train_phase(torch, np, cfg, B, S, steps, place=None, seed=0, amp=None):
     """``steps`` Adam steps of ``gpt_pretrain`` through the Fluid surface
     on one seeded batch; ``place`` None is the GPU (a CPUPlace rehearses
-    the path at a tiny size). Returns the phase record."""
+    the path at a tiny size); ``amp`` as in :func:`build_train`. Returns
+    the phase record."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import gpt
-    main, startup, loss, _ = build_train(cfg, B, S)
+    main, startup, loss, _, _ = build_train(cfg, B, S, amp)
     exe = fluid.Executor(place)
     cuda = exe.device.type == "cuda"
     scope = fluid.Scope()
@@ -832,10 +928,15 @@ def train_phase(torch, np, cfg, B, S, steps, place=None, seed=0):
         losses.append(float(np.ravel(lv)[0]))
     step_ms = float(np.median(wall[1:])) if steps > 1 else wall[0]
     flops = gpt_train_flops_per_sample(cfg, S) * B
-    rec = {"phase": f"train_gpt_B{B}_S{S}", "layers": cfg.num_layers,
+    name = f"train_gpt_B{B}_S{S}" + ("" if amp is None else f"_amp_bf16")
+    rec = {"phase": name, "layers": cfg.num_layers,
            "hidden": cfg.hidden_size, "vocab": cfg.vocab_size,
-           "dropout": cfg.dropout, "steps": steps, "losses": losses,
-           "step_ms": wall, "median_step_ms_after_first": step_ms,
+           "dropout": cfg.dropout, "amp": amp, "steps": steps,
+           "program_passes": fluid.get_flags("FLAGS_program_passes")[
+               "FLAGS_program_passes"],
+           "optimizer_ops_per_step": optimizer_ops(exe, main, [loss.name]),
+           "losses": losses, "step_ms": wall,
+           "median_step_ms_after_first": step_ms,
            "tokens_per_s": B * S / step_ms * 1e3,
            "analytic_flops_per_step": flops,
            "achieved_tflops": flops / step_ms / 1e9,
@@ -850,14 +951,22 @@ def train_phase(torch, np, cfg, B, S, steps, place=None, seed=0):
     return rec
 
 
-def grad_check(torch, np, cfg, B, S, place=None, seed=1):
+def copied_scope(torch, fluid, scope):
+    new = fluid.Scope()
+    for n, v in scope.items():
+        new.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    return new
+
+
+def grad_check(torch, np, cfg, B, S, place=None, seed=1, amp=None):
     """Every param@GRAD of one step through the kernels against the same
     program cloned with the flash_attention op's impl set to "xla" (the
     plain composite), from copies of one startup scope (so dropout draws
-    the same masks); limit 1e-3 of each grad's max |value|."""
+    the same masks); limit 1e-3 of each grad's max |value|, 2e-2 under
+    bf16 AMP (``amp`` "static")."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import gpt
-    main, startup, _, params_grads = build_train(cfg, B, S)
+    main, startup, _, params_grads, _ = build_train(cfg, B, S, amp)
     plain = main.clone()
     for op in plain.global_block().ops:
         if op.type == "flash_attention":
@@ -865,27 +974,130 @@ def grad_check(torch, np, cfg, B, S, place=None, seed=1):
         elif op.type == "flash_attention_grad":
             op.attrs["__fwd_op__"]["attrs"]["impl"] = "xla"
     exe = fluid.Executor(place)
-    s1, s2 = fluid.Scope(), fluid.Scope()
+    s1 = fluid.Scope()
     exe.run(startup, scope=s1)
-    for n, v in s1.items():
-        s2.set(n, v.clone() if isinstance(v, torch.Tensor) else v)
+    s2 = copied_scope(torch, fluid, s1)
     feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(seed))
     names = [g.name for _, g in params_grads]
     kern = exe.run(main, feed=feed, fetch_list=names, scope=s1)
     ref = exe.run(plain, feed=feed, fetch_list=names, scope=s2)
     worst, worst_name = 0.0, None
     for n, a, b in zip(names, kern, ref):
+        a, b = a.astype(np.float32), b.astype(np.float32)
         r = float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) \
             if np.isfinite(a).all() else float("inf")
         if r >= worst:
             worst, worst_name = r, n
-    rec = {"phase": f"grad_check_B{B}_S{S}", "layers": cfg.num_layers,
-           "grads": len(names), "worst_err_over_max_grad": worst,
-           "worst_grad": worst_name, "limit": 1e-3}
+    limit = 1e-3 if amp is None else 2e-2
+    rec = {"phase": f"grad_check_B{B}_S{S}" + ("" if amp is None
+                                                 else "_amp_bf16"),
+           "layers": cfg.num_layers, "grads": len(names),
+           "worst_err_over_max_grad": worst, "worst_grad": worst_name,
+           "limit": limit}
     emit(rec)
-    if not worst <= 1e-3:
+    if not worst <= limit:
         raise AssertionError(f"kernel grads differ from the plain "
                              f"composite's: {rec}")
+    return rec
+
+
+def pipeline_ab(torch, np, cfg, B, S, place=None, seed=2):
+    """One step with FLAGS_program_passes "0" and one with "1" (dce, cse,
+    fuse_optimizer) from copies of one startup scope: every param,
+    moment and beta-pow bitwise equal (fused_adam is the per-param adam
+    update), the loss too. Prints the pipeline's ``stats()``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework import passes
+    from paddle_tpu_torch.models import gpt
+    main, startup, loss, _, _ = build_train(cfg, B, S)
+    exe = fluid.Executor(place)
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    s1 = copied_scope(torch, fluid, s0)
+    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(seed))
+    old = fluid.get_flags("FLAGS_program_passes")
+    try:
+        fluid.set_flags({"FLAGS_program_passes": "0"})
+        l0, = exe.run(main, feed=feed, fetch_list=[loss], scope=s0)
+        fluid.set_flags({"FLAGS_program_passes": "1"})
+        l1, = exe.run(main, feed=feed, fetch_list=[loss], scope=s1)
+        stats = passes.stats()
+        ops = optimizer_ops(exe, main, [loss.name])
+    finally:
+        fluid.set_flags(old)
+    names = [n for n, v in s0.items() if isinstance(v, torch.Tensor)]
+    differ = [n for n in names
+              if not torch.equal(s0.find_var(n), s1.find_var(n))]
+    rec = {"phase": f"pipeline_ab_B{B}_S{S}", "layers": cfg.num_layers,
+           "state_tensors": len(names), "differ": differ,
+           "loss_bitwise": bool(np.array_equal(l0, l1)),
+           "optimizer_ops_with_pipeline": ops,
+           "pass_stats": [{k: r[k] for k in ("pass", "ops_before",
+                                              "ops_after", "detail")}
+                          for r in stats["passes"]],
+           "pass_total_ms": stats["total_ms"]}
+    rec["ok"] = not differ and rec["loss_bitwise"] and ops["fused_adam"] > 0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"the pass pipeline changed the step: {rec}")
+    return rec
+
+
+def dynamic_scaling(torch, np, cfg, B, S, steps, place=None, seed=3):
+    """``steps`` bf16 AMP steps with dynamic loss scaling (initial scale
+    2^15, scale doubles after 1000 clean steps): finite, falling losses;
+    no overflow, so the scale stays 2^15, the good counter counts the
+    steps and the bad one stays 0."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    main, startup, loss, _, opt = build_train(cfg, B, S, "dynamic")
+    state = [opt.get_loss_scaling(), opt._num_good_steps,
+             opt._num_bad_steps]
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(seed))
+    losses = []
+    for _ in range(steps):
+        lv, scale, good, bad = exe.run(main, feed=feed,
+                                       fetch_list=[loss] + state,
+                                       scope=scope)
+        losses.append(float(np.ravel(lv)[0]))
+    rec = {"phase": f"dynamic_loss_scaling_B{B}_S{S}",
+           "layers": cfg.num_layers, "losses": losses,
+           "loss_scaling": float(scale[0]), "num_good_steps": float(good[0]),
+           "num_bad_steps": float(bad[0])}
+    rec["ok"] = (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                 and rec["loss_scaling"] == 2.0 ** 15
+                 and rec["num_good_steps"] == steps
+                 and rec["num_bad_steps"] == 0)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"dynamic loss scaling is off: {rec}")
+    return rec
+
+
+def tiny_generate(torch, np, device=None):
+    """GPTConfig.tiny() (head dim 16) through one paged and one dense
+    greedy generate: tokens in range, the same length. K5 runs at D16."""
+    from paddle_tpu_torch.models import GPTConfig, GPTGenerator, init_params
+    cfg = GPTConfig.tiny()
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=64,
+                       device=device)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (5, 17, 30)]
+    paged = gen.generate(prompts, max_new_tokens=12, paged=True)
+    dense = gen.generate(prompts, max_new_tokens=12, paged=False)
+    ok = all(o.shape == (12,) and o.min() >= 0 and o.max() < cfg.vocab_size
+             for o in paged + dense)
+    agree = float(np.mean([(a == b).mean() for a, b in zip(paged, dense)]))
+    rec = {"phase": "generate_tiny_paged", "d_head": cfg.d_head,
+           "rows": len(prompts), "new_tokens": 12,
+           "greedy_agreement_dense_vs_paged": agree, "ok": ok}
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"tiny paged generate is off: {rec}")
     return rec
 
 
@@ -894,9 +1106,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", metavar="TREE", help="another checkout "
                     "(e.g. a git archive of the parent commit): each K5 "
-                    "phase then times that tree's paged kernel, called "
-                    "through its own wrapper, beside the port's, in the "
-                    "order parent, new, new, parent")
+                    "phase and the K2 determinism phase then time that "
+                    "tree's kernel, called through its own wrapper, beside "
+                    "the port's, in the order parent, new, new, parent")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
@@ -924,12 +1136,14 @@ def main():
     t0 = time.perf_counter()
     parent = parent_paged(os.path.abspath(args.parent)) if args.parent \
         else None
+    parent_fa = parent_flash() if args.parent else None
     parent_built = []
     if parent is not None:
-        # that tree's paged kernel builds beside the port's kernels
+        # that tree's paged and backward kernels build beside the port's
         import threading
         th = threading.Thread(target=lambda: parent_built.append(
-            parent._build.build_all(("paged_attention",))))
+            parent._build.build_all(("paged_attention",
+                                     "flash_attention_bwd"))))
         th.start()
     # a current library whose compiler report was not kept is rebuilt, so
     # the ptxas lines and the spill check below see every kernel
@@ -981,6 +1195,11 @@ def main():
                         seed=S + D, packed=True)
     flash_phase(torch, fa, 8, 6, 1024, 128, "float32", False, True, seed=3,
                 packed=False)
+    # head dims 80 and 96 (D128's tile plan)
+    for D in (80, 96):
+        for dtype in ("float32", "bfloat16"):
+            flash_phase(torch, fa, 4, 8, 1024, D, dtype, True, False,
+                        seed=D, packed=True)
     main_pa = paged_phases(torch, pa, parent)
 
     # K2 at the S1024 shape, K3/K4 at S2048, causal on the model's
@@ -1008,9 +1227,21 @@ def main():
                           seed=S + D + 2, packed=True)
         bwd_phase(torch, fa, name, 8, 6, 2048, 128, "float32", False, True,
                   seed=4, packed=False)
+    # head dims 80 and 96 (D128's tile plan): K2 at S1024, K3/K4 at
+    # causal S2048 (D80)
+    for dtype in ("float32", "bfloat16"):
+        for D in (80, 96):
+            bwd_phase(torch, fa, "flash_attention_bwd_single", 4, 8, 1024,
+                      D, dtype, True, False, seed=D + 1, packed=True)
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            bwd_phase(torch, fa, name, 4, 8, 2048, 80, dtype, True, False,
+                      seed=83, packed=True)
     # K2 off its route, at the S2048 shape of K3 + K4, for the route rule
     bwd_phase(torch, fa, "flash_attention_bwd_single", 8, 12, 2048, 64,
               "float32", True, False, seed=2053, packed=True)
+    torch.cuda.empty_cache()
+    for dtype in ("float32", "bfloat16"):
+        k2_determinism(torch, fa, dtype, parent_fa)
     torch.cuda.empty_cache()
     # the route rule: K3 + K4 (the route of causal S2048 and S4096)
     # against K2 off its route and SDPA's backward
@@ -1031,42 +1262,72 @@ def main():
         it and read just after; ``needs`` must each have launched."""
         for c in counters.values():
             c.launches = 0
+            if hasattr(c, "bf16_launches"):
+                c.bf16_launches = 0
         rec = fn()
         got = {n: c.launches for n, c in counters.items()}
-        emit({"phase": f"launches_{path}", "launches": got})
+        bf16 = {n: c.bf16_launches for n, c in counters.items()
+                if hasattr(c, "bf16_launches")}
+        emit({"phase": f"launches_{path}", "launches": got,
+              "bf16_launches": bf16})
         if min(got[n] for n in needs) < 1:
             raise AssertionError(f"a kernel of the {path} path never "
                                  f"launched: {got}")
         for n, c in got.items():
             launches[n] += c
         torch.cuda.empty_cache()
-        return rec, got
+        return rec, got, bf16
 
     cfg = GPTConfig.base()
-    rec, got = drive("serving", ("flash_attention_fwd", "paged_attention"),
-                     lambda: end_to_end(torch, np, cfg))
+
+    def serving():
+        rec = end_to_end(torch, np, cfg)
+        rec["k5_base"] = pa.paged_attention.launches
+        tiny_generate(torch, np)
+        rec["k5_tiny"] = pa.paged_attention.launches - rec["k5_base"]
+        return rec
+
+    rec, got, _ = drive("serving", ("flash_attention_fwd",
+                                    "paged_attention"), serving)
     # one K5 wrapper call per layer of every paged decode step
     steps = rec["paged_decode_steps"]
     emit({"phase": "paged_launches_per_decode_step", "steps": steps,
-          "launches": got["paged_attention"],
-          "per_step": got["paged_attention"] / steps})
-    if got["paged_attention"] != cfg.num_layers * steps:
-        failures.append(f"K5 launched {got['paged_attention']} times in "
-                        f"{steps} paged decode steps")
-    for S, needs in ((2048, ("flash_attention_fwd", "flash_attention_bwd_dq",
-                             "flash_attention_bwd_dkv")),
-                     (1024, ("flash_attention_fwd",
-                             "flash_attention_bwd_single"))):
-        rec, got = drive(f"train_S{S}", needs, lambda S=S: train_phase(
-            torch, np, GPTConfig.base(), 8, S, 5))
+          "launches": rec["k5_base"], "per_step": rec["k5_base"] / steps,
+          "tiny_config_launches": rec["k5_tiny"]})
+    if rec["k5_base"] != cfg.num_layers * steps:
+        failures.append(f"K5 launched {rec['k5_base']} times in {steps} "
+                        f"paged decode steps")
+    if rec["k5_tiny"] < 1:
+        failures.append("the tiny config's paged generate never launched "
+                        "K5")
+    long_needs = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv")
+    for S, amp, needs in (
+            (2048, None, long_needs),
+            (1024, None, ("flash_attention_fwd",
+                          "flash_attention_bwd_single")),
+            (2048, "static", long_needs)):
+        rec, got, bf16 = drive(
+            f"train_S{S}" + ("" if amp is None else "_amp_bf16"), needs,
+            lambda S=S, amp=amp: train_phase(torch, np, GPTConfig.base(), 8,
+                                             S, 5, amp=amp))
         rec["launches_per_step"] = {n: c / rec["steps"]
                                     for n, c in got.items()}
+        rec["bf16_launches_per_step"] = {n: c / rec["steps"]
+                                         for n, c in bf16.items()}
         emit(rec)
+        if amp is not None and any(bf16[n] != got[n] for n in needs):
+            failures.append(f"the AMP step launched {needs} with other "
+                            f"than bf16 inputs: {got}, bf16 {bf16}")
     small = GPTConfig.base()
     small.num_layers = 2
     for S in (1024, 2048):
-        grad_check(torch, np, small, 8, S)
-        torch.cuda.empty_cache()
+        for amp in (None, "static"):
+            grad_check(torch, np, small, 8, S, amp=amp)
+            torch.cuda.empty_cache()
+    pipeline_ab(torch, np, small, 8, 1024)
+    dynamic_scaling(torch, np, small, 8, 1024, 3)
+    torch.cuda.empty_cache()
 
     kernels = []
     rows = [("flash_attention_fwd", FA_SOURCE, FA_REPLACES, main_fa),

@@ -6,9 +6,12 @@ Two slices are ported:
 - GPT causal training through the Fluid surface, used as
   ``import paddle_tpu_torch as fluid``: ``fluid.Program``,
   ``fluid.layers``, ``fluid.optimizer.AdamOptimizer(lr).minimize(loss)``
-  (``append_backward`` + Adam ops) and ``fluid.Executor().run``, which
-  interprets the program op by op on torch tensors
-  (``models.gpt.gpt_pretrain`` builds the program).
+  (``append_backward`` + Adam ops), bf16 mixed precision
+  (``fluid.contrib.mixed_precision.decorate``) and
+  ``fluid.Executor().run``, which runs the program through the default
+  pass pipeline (``framework.passes``: dce, cse, fuse_optimizer) and
+  interprets it op by op on torch tensors (``models.gpt.gpt_pretrain``
+  builds the program).
 - GPT generation serving: the KV-cached GPT (``models.GPT``), offline
   generation (``models.GPTGenerator``) over a dense or block-paged KV
   cache, and the continuous-batching server (``serving.InferenceServer``
@@ -24,7 +27,8 @@ The package imports torch, numpy and the standard library only — never
 JAX and never ``paddle_tpu``.
 """
 from . import flags, kernels, ops
-from . import framework, layers, optimizer
+from . import contrib, framework, layers, optimizer
+from .flags import get_flags, set_flags
 from .device import resolve_device
 from .framework import (CPUPlace, CUDAPlace, Executor, Program, Scope,
                         append_backward, default_main_program,
@@ -40,8 +44,9 @@ from .serving import (Client, GenerationEngine, InferenceServer, KVBlockPool,
 __all__ = ["CPUPlace", "CUDAPlace", "Client", "Executor", "GPT",
            "GPTConfig", "GPTGenerator", "GenerationEngine",
            "InferenceServer", "KVBlockPool", "ParamAttr", "Program", "Scope",
-           "ServingStats", "append_backward", "data", "default_main_program",
-           "default_startup_program", "flags", "framework", "global_scope",
-           "gradients", "init_params", "kernels", "layers", "ops",
-           "optimizer", "param_shapes", "params_from_jax", "program_guard",
-           "resolve_device", "scope_guard", "unique_name"]
+           "ServingStats", "append_backward", "contrib", "data",
+           "default_main_program", "default_startup_program", "flags",
+           "framework", "get_flags", "global_scope", "gradients",
+           "init_params", "kernels", "layers", "ops", "optimizer",
+           "param_shapes", "params_from_jax", "program_guard",
+           "resolve_device", "scope_guard", "set_flags", "unique_name"]

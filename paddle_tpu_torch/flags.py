@@ -1,9 +1,9 @@
 """Runtime flags of the PyTorch port: the subset of ``paddle_tpu.flags``
-that the generation and serving path reads, with the same names, the
-same defaults and the same ``FLAGS_<name>`` environment override (read
-once, at import).
+that the ported paths read, with the same names, the same defaults and
+the same ``FLAGS_<name>`` environment override (read once, at import).
 
-``flag(name)`` is the getter.
+``flag(name)`` is the getter; ``get_flags``/``set_flags`` are the
+``fluid`` ones (names with or without the ``FLAGS_`` prefix).
 """
 import os
 
@@ -30,6 +30,16 @@ _DEFS = {
     # total pool blocks incl. the trash block; 0 = dense-bank equivalent
     # (slots * ceil(max_len / block_size) + 1)
     "kv_pool_blocks": (0, int),
+    # -- program passes --
+    # the executor's pre-lowering pipeline over a clone of the program:
+    # "1" = dce,cse,fuse_optimizer; "0" = off (the program runs as
+    # built); or a comma-separated pass list, run in canonical order
+    "program_passes": ("1", str),
+    # per-pass translation validation: the verifier is not ported, so
+    # True raises NotImplementedError when a pipeline runs
+    "verify_passes": (False, bool),
+    # byte cap of one fused-optimizer bucket, in megabytes of parameters
+    "fuse_optimizer_bucket_mb": (64, int),
 }
 
 _values = {}
@@ -43,6 +53,25 @@ def _coerce(raw, typ):
 
 def flag(name):
     return _values[name]
+
+
+def _key(name):
+    key = name[6:] if name.startswith("FLAGS_") else name
+    if key not in _DEFS:
+        raise ValueError(f"unknown flag {name!r}")
+    return key
+
+
+def get_flags(flags):
+    """``{name: value}`` for one name or a list of names."""
+    names = [flags] if isinstance(flags, str) else list(flags)
+    return {n: _values[_key(n)] for n in names}
+
+
+def set_flags(flags_dict):
+    for n, v in flags_dict.items():
+        key = _key(n)
+        _values[key] = _coerce(v, _DEFS[key][1])
 
 
 for _name, (_default, _typ) in _DEFS.items():

@@ -36,6 +36,19 @@ class OpRole:
     Collective = 6
 
 
+_op_role_stack = [OpRole.Forward]
+
+
+@contextlib.contextmanager
+def op_role_guard(role):
+    """Ops created inside take ``role`` as their default op role."""
+    _op_role_stack.append(role)
+    try:
+        yield
+    finally:
+        _op_role_stack.pop()
+
+
 class VarType:
     LOD_TENSOR = "dense"
 
@@ -115,7 +128,7 @@ class Operator:
                 raise TypeError(
                     f"op {type!r} attr {k!r} contains a Variable; op "
                     f"attributes are build-time constants")
-        self.attrs.setdefault(OP_ROLE_KEY, OpRole.Forward)
+        self.attrs.setdefault(OP_ROLE_KEY, _op_role_stack[-1])
 
     def input(self, slot):
         return self.inputs.get(slot, [])
@@ -130,6 +143,11 @@ class Operator:
     @property
     def output_arg_names(self):
         return [n for ns in self.outputs.values() for n in ns]
+
+    def set_attr(self, name, val):
+        self.attrs[name] = val
+        if self.block is not None:
+            self.block.program._bump_version()
 
     def to_dict(self):
         attrs = {k: v.tolist() if isinstance(v, np.ndarray) else v
@@ -179,14 +197,24 @@ class Block:
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None,
                   infer_shape=True):
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs,
+                               infer_shape)
+
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None,
+                   infer_shape=True):
         op = Operator(self, type, inputs=_normalize_io(inputs),
                       outputs=_normalize_io(outputs), attrs=attrs)
         self._assign_rng_seed(op)
-        self.ops.append(op)
+        self.ops.insert(index, op)
+        self.program._bump_version()
         if infer_shape:
             from .registry import infer_op_shapes
             infer_op_shapes(self, op)
         return op
+
+    def _remove_op(self, index):
+        del self.ops[index]
+        self.program._bump_version()
 
     def _assign_rng_seed(self, op):
         """Every stochastic op gets a unique per-program seed; grad ops
@@ -226,15 +254,29 @@ def _normalize_io(io):
 class Program:
     """A whole computation; block 0 is global. The two-program
     convention holds: the startup program initializes persistables, the
-    main program trains."""
+    main program trains. ``_uid`` (never reused, unlike ``id()``) and
+    ``version`` (bumped by every op insertion, removal, attr set, clone
+    and pass) key the executor's memo of optimized programs."""
+
+    _uid_counter = 0
 
     def __init__(self):
+        Program._uid_counter += 1
+        self._uid = Program._uid_counter
+        self._version = 0
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self.random_seed = 0
         self._seed_counter = 0
         self._params_grads = []
         self._is_test = False
+
+    def _bump_version(self):
+        self._version += 1
+
+    @property
+    def version(self):
+        return self._version
 
     def global_block(self):
         return self.blocks[0]
@@ -273,6 +315,7 @@ class Program:
         p._is_test = for_test
         if for_test:
             p._drop_unreferenced_vars()
+        p._bump_version()
         return p
 
     def _drop_unreferenced_vars(self):

@@ -53,6 +53,11 @@ def is_float_dtype(dtype):
                                     "float64")
 
 
+def itemsize(dtype):
+    """Bytes of one element of ``dtype``."""
+    return torch_dtype(dtype).itemsize
+
+
 def torch_dtype(dtype):
     return _TORCH[convert_dtype(dtype)]
 

@@ -4,22 +4,28 @@ Counterpart of ``paddle_tpu/framework/executor.py``. The JAX package
 compiles a whole program per feed signature; this ``Executor.run``
 interprets the block op by op on torch tensors, eagerly, on the
 executor's device (``place=None`` is the GPU and raises without one).
-Scope state the block reads comes in from the scope, persistable vars it
-writes go back to it when the run ends, and every other var is dropped
-from the env after its last reader (``lowering.last_uses``), so a
-training step holds what a compiler's buffer liveness would hold, not
-every activation and grad at once. Program passes (``framework/
-passes.py`` in the JAX package) are not ported yet: a program runs as
-built, the JAX package's ``FLAGS_program_passes="0"``.
+
+Before it runs, a program goes through the ``FLAGS_program_passes``
+pipeline (``passes.optimize_program``: dce, cse, fuse_optimizer by
+default) on a clone, memoized on (program uid, program version, fetch
+names, pipeline signature); the user's program is never mutated, and
+``FLAGS_program_passes="0"`` runs it as built. Scope state the block
+reads comes in from the scope, persistable vars it writes go back to it
+when the run ends, and every other var is dropped from the env after its
+last reader (``lowering.last_uses``), so a training step holds what a
+compiler's buffer liveness would hold, not every activation and grad at
+once.
 """
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..flags import flag
 from .core import CPUPlace, CUDAPlace, Variable, default_main_program
 from .dtype import torch_dtype
 from .lowering import (LowerCtx, analyze_block_io, last_uses, run_ops,
                        splitmix64)
+from .passes import optimize_program, pipeline_signature
 
 RNG_STATE_NAME = "@RNG_SEED@"
 
@@ -102,6 +108,22 @@ class Executor:
             self.device = resolve_device("cpu")
         else:
             raise TypeError(f"unsupported place {place!r}")
+        self._opt_cache = {}
+
+    def _optimize(self, program, fetch_names):
+        """The pipeline's clone of ``program`` (``program`` itself with
+        the pipeline off), memoized: a program's version moves with every
+        edit, so an edited program is optimized again."""
+        sig = pipeline_signature()
+        if not sig:
+            return program
+        key = (program._uid, program.version, tuple(fetch_names), sig,
+               flag("verify_passes"))
+        opt = self._opt_cache.get(key)
+        if opt is None:
+            opt = self._opt_cache[key] = optimize_program(program,
+                                                          fetch_names)
+        return opt
 
     def _feed_tensor(self, block, name, val):
         var = block.vars.get(name)
@@ -123,6 +145,8 @@ class Executor:
                 for k, v in (feed or {}).items()}
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
+        program = self._optimize(program, fetch_names)
+        block = program.global_block()
 
         env = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}
         reads, writes = analyze_block_io(program, 0, env.keys())

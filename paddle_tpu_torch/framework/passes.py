@@ -1,0 +1,569 @@
+"""Program passes: the registry, ordered application and the executor's
+pre-lowering pipeline.
+
+A trimmed copy of ``paddle_tpu/framework/passes.py``. A pass is a
+callable over the Program IR; ``register_pass`` adds one,
+``apply_passes(program, [...])`` runs an ordered pipeline and
+``stats()`` reports the last run. The default pipeline
+(``FLAGS_program_passes`` "1") runs in ``Executor.run`` over a CLONE of
+the user's program (``optimize_program``), which is never mutated:
+
+- ``dce``: drop ops whose outputs no fetch target, persistable write or
+  side-effecting op needs;
+- ``cse``: merge identical pure ops of the global block (the same type,
+  attrs and inputs at the same binding version);
+- ``fuse_optimizer``: per-param ``adam`` ops of one (dtype,
+  hyperparameters, LR var, beta-pow shape) group join byte-capped
+  buckets, each one ``fused_adam`` op whose outputs equal the per-param
+  ops' bit for bit (``ops/optimizer_ops.py``).
+
+``amp_bf16`` wraps ``contrib.mixed_precision.rewrite_program``. Not
+ported: the passes ``sync_batch_norm``, ``hier_grad_sync`` and
+``quant_aware`` (their ops are not ported), the translation validation
+behind ``FLAGS_verify_passes``, and the profiler events and metric
+counters of each pass.
+"""
+import time
+
+import numpy as np
+
+from ..flags import flag as _flag
+from .analysis import has_sub_block as _has_sub_block
+from .core import OP_ROLE_KEY
+from .core import Operator as _Operator
+from .core import OpRole as _OpRole
+from .dtype import itemsize as _itemsize
+
+
+class UnknownPassError(KeyError):
+    """A pass name that is not in the registry; the message names the
+    registered passes."""
+
+    def __init__(self, name):
+        self.pass_name = name
+        super().__init__(name)
+
+    def __str__(self):
+        return (f"pass {self.pass_name!r} is not registered; "
+                f"known passes: {list_passes()}")
+
+
+class Pass:
+    """Base pass: override ``apply(program)`` and mutate in place.
+    ``name`` defaults to the registration name; attrs given at
+    construction are set on the instance. ``pipeline_order`` ranks the
+    pass in canonical order (lower runs earlier; None = by
+    registration)."""
+
+    name = None
+    pipeline_order = None
+
+    def __init__(self, **attrs):
+        for k, v in attrs.items():
+            setattr(self, k, v)
+
+    def apply(self, program):
+        raise NotImplementedError
+
+    def __call__(self, program):
+        out = self.apply(program)
+        out = program if out is None else out
+        # the executor memoizes optimized programs on (uid, version): a
+        # mutation-only pass must move the version on
+        out._bump_version()
+        return out
+
+
+_PASSES = {}
+_REG_SEQ = {}          # name -> registration index (ordering tiebreak)
+_REG_GEN = [0]         # bumped per registration: pass identity version
+_sig_memo = {}         # (flag values, reg gen) -> pipeline_signature()
+
+
+def register_pass(name):
+    """Decorator: register a Pass subclass under ``name``. Registering a
+    name again replaces the entry and changes
+    :func:`pipeline_signature`, so no program optimized by the old pass
+    is served for the new one."""
+    def deco(cls):
+        _PASSES[name] = cls
+        _REG_SEQ.setdefault(name, len(_REG_SEQ))
+        _REG_GEN[0] += 1
+        cls._reg_serial = _REG_GEN[0]
+        _sig_memo.clear()
+        if getattr(cls, "name", None) is None:
+            cls.name = name
+        return cls
+    return deco
+
+
+def get_pass(name, **attrs):
+    cls = _PASSES.get(name)
+    if cls is None:
+        raise UnknownPassError(name)
+    return cls(**attrs)
+
+
+def has_pass(name):
+    return name in _PASSES
+
+
+def list_passes():
+    return sorted(_PASSES)
+
+
+def canonical_order(names):
+    """Pipeline order for a collection of pass names: by
+    ``pipeline_order`` (dce < cse < fuse_optimizer), then by
+    registration for passes without one."""
+    def rank(n):
+        cls = _PASSES.get(n)
+        order = getattr(cls, "pipeline_order", None) if cls else None
+        return (0, order, "") if order is not None \
+            else (1, _REG_SEQ.get(n, len(_REG_SEQ)), n)
+    return sorted(names, key=rank)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline application + stats
+# ---------------------------------------------------------------------------
+
+_last_stats = {"passes": [], "total_ms": 0.0, "verify_ms": 0.0}
+
+
+def stats():
+    """Report of the LAST apply_passes run: per pass {pass, ops_before,
+    ops_after, bytes_before, bytes_after, ms, detail}, the pipeline's
+    total ms, and ``verify_ms`` (0.0: no validation is ported)."""
+    return {"passes": [dict(r) for r in _last_stats["passes"]],
+            "total_ms": _last_stats["total_ms"],
+            "verify_ms": _last_stats["verify_ms"]}
+
+
+def _program_op_count(program):
+    return sum(len(blk.ops) for blk in program.blocks)
+
+
+def _program_bytes(program):
+    """Static size of every var the program's ops touch (dims of -1 and
+    unknown shapes count 0)."""
+    seen = set()
+    total = 0
+    for blk in program.blocks:
+        for op in blk.ops:
+            for n in op.input_arg_names + op.output_arg_names:
+                if n in seen or not blk.has_var(n):
+                    continue
+                seen.add(n)
+                var = blk.var(n)
+                shape = var.shape
+                if shape is None or any(int(s) < 0 for s in shape):
+                    continue
+                total += int(np.prod(shape, dtype=np.int64)) * \
+                    _itemsize(var.dtype)
+    return total
+
+
+def apply_passes(program, names, **common_attrs):
+    """Run passes over ``program`` in order. ``names`` holds registered
+    names or Pass instances; a set is put in :func:`canonical_order`
+    first. An unknown name raises
+    :class:`UnknownPassError`. Per-pass op and byte counts and wall
+    time land in :func:`stats`."""
+    if isinstance(names, (set, frozenset)):
+        names = canonical_order(list(names))
+    rows = []
+    t_pipeline = time.perf_counter()
+    ops = _program_op_count(program)
+    nbytes = _program_bytes(program)
+    for n in names:
+        p = get_pass(n, **common_attrs) if isinstance(n, str) else n
+        pname = getattr(p, "name", None) or type(p).__name__
+        t0 = time.perf_counter()
+        program = p(program) or program
+        dt = time.perf_counter() - t0
+        ops_after = _program_op_count(program)
+        bytes_after = _program_bytes(program)
+        row = {"pass": pname, "ops_before": ops, "ops_after": ops_after,
+               "bytes_before": nbytes, "bytes_after": bytes_after,
+               "ms": dt * 1e3}
+        detail = getattr(p, "_report", None)
+        if detail:
+            row["detail"] = dict(detail)
+        rows.append(row)
+        ops, nbytes = ops_after, bytes_after
+    _last_stats["passes"] = rows
+    _last_stats["total_ms"] = (time.perf_counter() - t_pipeline) * 1e3
+    _last_stats["verify_ms"] = 0.0
+    return program
+
+
+# The executor's default pipeline (canonical order).
+DEFAULT_PIPELINE = ("dce", "cse", "fuse_optimizer")
+
+
+def resolve_pipeline(spec=None):
+    """``FLAGS_program_passes`` -> ordered tuple of pass names: "0" (or
+    off/false/none/"") is no pipeline, "1" (on/true/default) is
+    DEFAULT_PIPELINE, anything else a comma-separated pass list run in
+    canonical order."""
+    if spec is None:
+        spec = _flag("program_passes")
+    s = str(spec).strip().lower()
+    if s in ("0", "", "off", "false", "none"):
+        return ()
+    if s in ("1", "on", "true", "default"):
+        names = list(DEFAULT_PIPELINE)
+    else:
+        names = [t.strip() for t in str(spec).split(",") if t.strip()]
+    for n in names:
+        if n not in _PASSES:
+            raise UnknownPassError(n)
+    return tuple(canonical_order(names))
+
+
+def pipeline_signature(spec=None):
+    """Hashable identity of the active pass configuration: the resolved
+    pipeline, each pass's registration serial, and the attrs that change
+    a pass's output (the fusion bucket cap). Part of the executor's memo
+    key, so flipping a flag never serves a stale program."""
+    raw = (_flag("program_passes") if spec is None else spec,
+           _flag("fuse_optimizer_bucket_mb"), _REG_GEN[0])
+    sig = _sig_memo.get(raw)
+    if sig is not None:
+        return sig
+    names = resolve_pipeline(raw[0])
+    if not names:
+        sig = ()
+    else:
+        extras = []
+        if "fuse_optimizer" in names:
+            extras.append(("fuse_optimizer_bucket_mb", int(raw[1])))
+        sig = (tuple((n, _PASSES[n]._reg_serial) for n in names),
+               tuple(extras))
+    if len(_sig_memo) < 64:        # flags take few distinct values
+        _sig_memo[raw] = sig
+    return sig
+
+
+def optimize_program(program, fetch_names=(), spec=None):
+    """Run the configured pipeline over a CLONE of ``program`` and return
+    it; the caller's program is never mutated. With the pipeline off the
+    original program is returned as it is. A pass that fails raises:
+    the unoptimized program is never returned in its place."""
+    names = resolve_pipeline(spec)
+    if not names:
+        return program
+    if _flag("verify_passes"):
+        raise NotImplementedError(
+            "paddle_tpu_torch: FLAGS_verify_passes needs the program "
+            "verifier (framework/analysis.py verify_program), which is "
+            "not ported")
+    if isinstance(fetch_names, str):
+        fetch_names = (fetch_names,)    # one target, not its characters
+    opt = program.clone()
+    apply_passes(opt, [get_pass(n, fetch_names=tuple(fetch_names))
+                       for n in names])
+    return opt
+
+
+# ---------------------------------------------------------------------------
+# Built-in passes
+# ---------------------------------------------------------------------------
+
+@register_pass("amp_bf16")
+class AmpBf16Pass(Pass):
+    """bf16 mixed-precision cast insertion
+    (``contrib.mixed_precision.fp16_utils.rewrite_program``). attrs:
+    amp_lists (AutoMixedPrecisionLists), dest_dtype."""
+
+    amp_lists = None
+    dest_dtype = "bfloat16"
+
+    def apply(self, program):
+        from ..contrib.mixed_precision.fp16_lists import (
+            AutoMixedPrecisionLists)
+        from ..contrib.mixed_precision.fp16_utils import rewrite_program
+        rewrite_program(program,
+                        self.amp_lists or AutoMixedPrecisionLists(),
+                        dest_dtype=self.dest_dtype)
+
+
+def _freeze(v):
+    """Hashable form of an op attr value (nested dicts of grad ops'
+    ``__fwd_op__``, numpy arrays, lists)."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, _freeze(x)) for k, x in v.items()))
+    if isinstance(v, np.ndarray):
+        return ("__ndarray__", v.shape, str(v.dtype), v.tobytes())
+    if isinstance(v, (list, tuple)):
+        return tuple(_freeze(x) for x in v)
+    if isinstance(v, (set, frozenset)):
+        return tuple(sorted((_freeze(x) for x in v), key=repr))
+    return v
+
+
+@register_pass("dce")
+class DeadCodeEliminationPass(Pass):
+    """Drop global-block ops whose outputs no fetch target, persistable
+    write or side-effecting op needs (``analysis.live_op_ids``).
+    Control-flow ops keep their whole sub-block; only block 0 is
+    pruned. attrs: fetch_names."""
+
+    pipeline_order = 10
+    fetch_names = ()
+
+    def apply(self, program):
+        from .analysis import live_op_ids
+        block = program.global_block()
+        live = live_op_ids(program, self.fetch_names or ())
+        kept = [op for op in block.ops if id(op) in live]
+        self._report = {"removed_ops": len(block.ops) - len(kept)}
+        block.ops = kept
+
+
+@register_pass("cse")
+class CommonSubexpressionEliminationPass(Pass):
+    """Merge identical pure ops of the global block: two ops with the
+    same (type, attrs, inputs at the same binding version) compute the
+    same values, so the second is dropped and later readers read the
+    first's outputs. Never merges ops that draw random numbers, have
+    side effects or sub-blocks, or whose outputs are persistable,
+    fetched, written more than once or read inside a sub-block. attrs:
+    fetch_names."""
+
+    pipeline_order = 20
+    fetch_names = ()
+
+    def _pinned_names(self, program):
+        from .analysis import sub_block_pinned_reads
+        fetches = self.fetch_names or ()
+        if isinstance(fetches, str):
+            fetches = (fetches,)
+        return set(fetches) | sub_block_pinned_reads(program)
+
+    @staticmethod
+    def _eligible(block, op, pinned, def_count, version):
+        from .analysis import is_pure_op
+        if not is_pure_op(op):
+            return False
+        outs = op.output_arg_names
+        if not outs:
+            return False
+        for n in outs:
+            if n in pinned or n in version or def_count.get(n, 0) != 1:
+                return False       # only fresh, single-def outputs
+            if block.has_var(n) and block.var(n).persistable:
+                return False
+        return True
+
+    @staticmethod
+    def _key(op, version):
+        attrs = tuple(sorted((k, _freeze(v)) for k, v in op.attrs.items()
+                             if k != OP_ROLE_KEY))
+        ins = tuple(sorted(
+            (slot, tuple((n, version.get(n, 0)) for n in names))
+            for slot, names in op.inputs.items()))
+        out_shape = tuple(sorted((slot, len(names))
+                                 for slot, names in op.outputs.items()))
+        return (op.type, attrs, ins, out_shape)
+
+    def apply(self, program):
+        from .analysis import block_def_use
+        block = program.global_block()
+        pinned = self._pinned_names(program)
+        def_count = block_def_use(program).def_count
+        version = {}       # name -> rebind count (value identity)
+        rename = {}        # dropped output -> canonical output
+        seen = {}          # value key -> canonical op
+        kept = []
+        merged = 0
+        for op in block.ops:
+            for slot, names in op.inputs.items():
+                op.inputs[slot] = [rename.get(n, n) for n in names]
+            if self._eligible(block, op, pinned, def_count, version):
+                key = self._key(op, version)
+                prior = seen.get(key)
+                if prior is not None:
+                    for slot, names in op.outputs.items():
+                        for mine, theirs in zip(names,
+                                                prior.outputs.get(slot, ())):
+                            rename[mine] = theirs
+                    merged += 1
+                    continue       # drop the duplicate
+                seen[key] = op
+            kept.append(op)
+            for n in op.output_arg_names:
+                version[n] = version.get(n, 0) + 1
+        block.ops = kept
+        self._report = {"merged_ops": merged}
+
+
+# Fusable per-param optimizer updates: the state slots beside
+# Param/Grad/LearningRate. Only adam's fused op is ported; sgd, momentum
+# and adamw wait for their per-param ops.
+_FUSABLE_OPTIMIZERS = {
+    "adam": ("Moment1", "Moment2", "Beta1Pow", "Beta2Pow"),
+}
+# per-param scalars or param-shaped accumulators, never concatenated
+_SCALAR_STATE = frozenset({"Beta1Pow", "Beta2Pow"})
+_STATE_OUT = {"Moment1": "Moment1Out", "Moment2": "Moment2Out",
+              "Beta1Pow": "Beta1PowOut", "Beta2Pow": "Beta2PowOut"}
+
+
+@register_pass("fuse_optimizer")
+class FuseOptimizerPass(Pass):
+    """Multi-tensor optimizer fusion: per-param ``adam`` ops with the
+    same (param dtype, hyperparameters, LR var, beta-pow shape mode)
+    fuse into ``fused_adam`` ops of at most ``max_bucket_bytes`` of
+    params (default ``FLAGS_fuse_optimizer_bucket_mb``), each the
+    per-param update over lists of tensors, bitwise equal to the
+    per-param ops. Lazy-mode adam and ops that do not update their
+    param and state in place stay unfused; a param larger than the cap
+    is a bucket of one and stays a plain ``adam``. (The port has no
+    sparse grads, which the JAX pass also leaves unfused.)"""
+
+    pipeline_order = 30
+    fetch_names = ()
+    max_bucket_bytes = None
+
+    @staticmethod
+    def _candidate(block, op):
+        """(group_key, param_bytes) when ``op`` is a fusable per-param
+        update, else None."""
+        state_slots = _FUSABLE_OPTIMIZERS.get(op.type)
+        if state_slots is None or op.attrs.get("lazy_mode"):
+            return None
+        needed = ("Param", "Grad", "LearningRate") + state_slots
+        if any(len(op.inputs.get(s, ())) != 1 for s in needed):
+            return None
+        pname = op.inputs["Param"][0]
+        if op.outputs.get("ParamOut", [None])[0] != pname:
+            return None            # only the in-place update form
+        for slot in state_slots:
+            if op.outputs.get(_STATE_OUT[slot], [None])[0] != \
+                    op.inputs[slot][0]:
+                return None        # the fused op rebinds the input names
+        if not block.has_var(pname):
+            return None
+        pvar = block.var(pname)
+        shape = pvar.shape
+        if shape is None or any(int(s) < 0 for s in shape):
+            return None
+        # beta-pows come scalar-shaped or param-shaped; a bucket takes
+        # one of the two
+        pow_mode = ""
+        for slot in state_slots:
+            if not block.has_var(op.inputs[slot][0]):
+                return None
+            if slot in _SCALAR_STATE:
+                sshape = block.var(op.inputs[slot][0]).shape
+                if sshape is None:
+                    return None
+                if tuple(sshape) == tuple(shape):
+                    mode = "dense"     # wins ties for ()/(1,)-params
+                elif tuple(sshape) in ((), (1,)):
+                    mode = "scalar"
+                else:
+                    return None
+                if pow_mode and mode != pow_mode:
+                    return None
+                pow_mode = mode
+        attrs = tuple(sorted(
+            (k, _freeze(v)) for k, v in op.attrs.items()
+            if k not in (OP_ROLE_KEY, "op_device", "lazy_mode")))
+        nbytes = int(np.prod(shape, dtype=np.int64)) * _itemsize(pvar.dtype)
+        key = (op.type, str(pvar.dtype), op.inputs["LearningRate"][0],
+               attrs, pow_mode)
+        return key, nbytes
+
+    @staticmethod
+    def _op_names(block, op):
+        # a control-flow op touching an updated var only inside its
+        # sub-block must still close the bucket
+        from .analysis import op_reads, op_writes
+        if _has_sub_block(op):
+            return (op_reads(block.program, op),
+                    op_writes(block.program, op))
+        return set(op.input_arg_names), set(op.output_arg_names)
+
+    @staticmethod
+    def _build_fused(block, ops):
+        first = ops[0]
+        state_slots = _FUSABLE_OPTIMIZERS[first.type]
+        inputs = {"Param": [o.inputs["Param"][0] for o in ops],
+                  "Grad": [o.inputs["Grad"][0] for o in ops],
+                  "LearningRate": [first.inputs["LearningRate"][0]]}
+        outputs = {"ParamOut": [o.inputs["Param"][0] for o in ops]}
+        for slot in state_slots:
+            inputs[slot] = [o.inputs[slot][0] for o in ops]
+            outputs[_STATE_OUT[slot]] = [o.inputs[slot][0] for o in ops]
+        attrs = {k: v for k, v in first.attrs.items()
+                 if k not in (OP_ROLE_KEY, "op_device")}
+        attrs[OP_ROLE_KEY] = _OpRole.Optimize
+        return _Operator(block, "fused_" + first.type, inputs=inputs,
+                         outputs=outputs, attrs=attrs)
+
+    def apply(self, program):
+        block = program.global_block()
+        cap = self.max_bucket_bytes or \
+            int(_flag("fuse_optimizer_bucket_mb")) * (1 << 20)
+        # One forward walk. A fusable op joins the open bucket of its
+        # group key; the fused op is emitted where the bucket CLOSES, so
+        # members only move later, to just before the first op that
+        # observes them: an op that reads or rebinds a var a member
+        # wrote, or rebinds a var a member read, closes the bucket first.
+        new_ops = []
+        open_buckets = {}       # key -> {"ops", "bytes", reads, writes}
+        report = {"fused_buckets": 0, "fused_params": 0}
+
+        def close(key):
+            b = open_buckets.pop(key, None)
+            if b is None:
+                return
+            if len(b["ops"]) == 1:
+                new_ops.append(b["ops"][0])
+            else:
+                new_ops.append(self._build_fused(block, b["ops"]))
+                report["fused_buckets"] += 1
+                report["fused_params"] += len(b["ops"])
+
+        def conflicts(reads, writes, bucket):
+            return (writes & bucket["writes"] or reads & bucket["writes"]
+                    or writes & bucket["reads"])
+
+        for op in block.ops:
+            reads, writes = self._op_names(block, op)
+            cand = self._candidate(block, op)
+            key = cand[0] if cand else None
+            for k in [k for k, b in open_buckets.items()
+                      if k != key and conflicts(reads, writes, b)]:
+                close(k)
+            if cand is None:
+                new_ops.append(op)
+                continue
+            nbytes = cand[1]
+            bucket = open_buckets.get(key)
+            if bucket is not None and (
+                    conflicts(reads, writes, bucket)
+                    or bucket["bytes"] + nbytes > cap):
+                close(key)
+                bucket = None
+            if bucket is None:
+                bucket = {"ops": [], "bytes": 0, "reads": set(),
+                          "writes": set()}
+                open_buckets[key] = bucket
+            bucket["ops"].append(op)
+            bucket["bytes"] += nbytes
+            bucket["reads"] |= reads
+            bucket["writes"] |= writes
+        for k in list(open_buckets):
+            close(k)
+        block.ops = new_ops
+        self._report = report
+
+
+__all__ = ["DEFAULT_PIPELINE", "Pass", "UnknownPassError", "apply_passes",
+           "canonical_order", "get_pass", "has_pass", "list_passes",
+           "optimize_program", "pipeline_signature", "register_pass",
+           "resolve_pipeline", "stats"]

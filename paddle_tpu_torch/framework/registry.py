@@ -54,6 +54,10 @@ def register_grad_lower(fwd_type):
     return deco
 
 
+def has_op(type):
+    return type in OPS or (type.endswith("_grad") and type[:-5] in OPS)
+
+
 def get_op_def(type):
     opdef = OPS.get(type)
     if opdef is None:

@@ -96,18 +96,23 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// rows [r0, r0 + ROWS) of a strided [S, D] matrix of T (contiguous rows,
-// 16-byte aligned) -> a swizzled tile at shared address `dst`; rows past S
-// are zero-filled. All NT threads of the block take part.
-template <typename T, int D, int ROWS, int NT>
+// rows [r0, r0 + ROWS) of a strided [S, DV] matrix of T (contiguous rows,
+// 16-byte aligned) -> a swizzled tile of D >= DV columns at shared address
+// `dst`; rows past S and columns past DV are zero-filled. All NT threads
+// of the block take part. DV < D is a head dim that runs in a wider
+// dim's tile plan (80 and 96 in D128's): zero columns add nothing to a
+// product over the head dim, and the columns of an output past DV are
+// never stored.
+template <typename T, int D, int ROWS, int NT, int DV = D>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const T* src,
                                                 long long stride, int r0,
                                                 int S) {
   constexpr int E = 16 / sizeof(T);
   constexpr int NC = D / E;
+  static_assert(DV <= D && DV % 8 == 0, "valid head dim");
   for (int e = threadIdx.x; e < ROWS * NC; e += NT) {
     const int r = e / NC, c = e % NC;
-    const bool ok = r0 + r < S;
+    const bool ok = r0 + r < S && c * E < DV;
     const T* p = ok ? src + (long long)(r0 + r) * stride + c * E : src;
     cp_async16(dst + swz<NC>(r, c), p, ok ? 16 : 0);
   }

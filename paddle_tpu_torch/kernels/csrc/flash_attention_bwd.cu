@@ -49,8 +49,16 @@
 // swizzled shared memory, dS K is computed by warps split over q rows and
 // added to a zeroed float32 buffer with 16-byte vector atomics (float4
 // atomicAdd, compute capability 9.x); a small epilogue casts it for bf16.
-// k tiles are launched in ascending order, under a causal mask heaviest
-// first.
+// The shares of one q tile are added in ascending k-tile order, so dq is
+// the same bits from run to run: a per-(b, h, 16-row q block) semaphore
+// counts the k tiles that have added theirs, and k tile j waits (thread
+// 0, an acquire load) until it reads j before its atomics, then raises it
+// to j + 1 (a release) behind a fence and a barrier. The share is
+// computed before the wait. A q tile's contributors are exactly k tiles
+// 0, 1, ...: under a causal mask k tile j sees q tile i only if every k
+// tile before it does. k tiles are launched in ascending order (the
+// slower grid dimension), under a causal mask heaviest first, so the k
+// tile a block waits for was dispatched before it.
 //
 // K3: K1's loop (flash_attention_fwd.cu) with a second product. One block
 // of 8 warps per (b, h, 128-row q tile), 16 rows per warp, walks the live
@@ -60,6 +68,9 @@
 // += dS K with dS taken from the accumulators as the A operand, exactly
 // K1's P V step with K in V's place. dQ stays in registers and is written
 // once. Causal q tiles are launched heaviest first.
+//
+// Head dims 80 and 96 run in D128's tile plan (DV < D): their columns
+// past DV load as zeros and are never stored.
 //
 // Left for later: `mma.sync`, not `wgmma` + TMA; in float32 every B
 // fragment a warp reads is split into TF32 hi/lo parts on the fly (3 ALU
@@ -84,6 +95,7 @@ struct Args {
   void* dk;            // [B, H, Sk, D] (K2, K4)
   void* dv;
   float* dq_acc;       // [B, H, Sq, D] float32, zeroed (K2)
+  int* dq_sem;         // [B, H, ceil(Sq / 16)] int32, zeroed (K2)
   int H, Sq, Sk;
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
   float scale, scale2;
@@ -109,8 +121,27 @@ constexpr size_t kv_smem_bytes() {
          sizeof(float) * 4 * BQ;
 }
 
+// thread 0 of a block: wait until *sem reads `want` (acquire)
+__device__ __forceinline__ void sem_wait(const int* sem, int want) {
+  int v;
+  while (true) {
+    asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(sem)
+                 : "memory");
+    if (v == want) return;
+    __nanosleep(64);
+  }
+}
+
+// thread 0 of a block: *sem = v (release)
+__device__ __forceinline__ void sem_release(int* sem, int v) {
+  asm volatile("st.release.gpu.global.s32 [%0], %1;\n" ::"l"(sem), "r"(v)
+               : "memory");
+}
+
 // one block per (b, h, k tile); see the note at the top
-template <typename T, int D, bool kDq>
+template <typename T, int D, bool kDq, int DV>
 __device__ __forceinline__ void kv_loop(const Args& a) {
   using M = Mma<T>;
   constexpr int BQ = kv_bq<T, D>();
@@ -140,7 +171,7 @@ __device__ __forceinline__ void kv_loop(const Args& a) {
   const T* qb = (const T*)a.q + b * a.qsb + h * a.qsh;
   const T* kb = (const T*)a.k + b * a.ksb + h * a.ksh;
   const T* vb = (const T*)a.v + b * a.vsb + h * a.vsh;
-  const T* dob = (const T*)a.dout + (long long)bh * a.Sq * D;
+  const T* dob = (const T*)a.dout + (long long)bh * a.Sq * DV;
   const float* lb = a.lse + (long long)bh * a.Sq;
   const float* db = a.delta + (long long)bh * a.Sq;
   const float* bb = a.bias ? a.bias + (long long)b * a.Sk : nullptr;
@@ -156,11 +187,11 @@ __device__ __forceinline__ void kv_loop(const Args& a) {
     kbias[r] = (bb != nullptr && key < a.Sk) ? bb[key] * LOG2E : 0.f;
   }
 
-  load_tile_async<T, D, KV_BK, KV_NT>(sK, kb, a.kss, k0, a.Sk);
-  load_tile_async<T, D, KV_BK, KV_NT>(sV, vb, a.vss, k0, a.Sk);
+  load_tile_async<T, D, KV_BK, KV_NT, DV>(sK, kb, a.kss, k0, a.Sk);
+  load_tile_async<T, D, KV_BK, KV_NT, DV>(sV, vb, a.vss, k0, a.Sk);
   if (nq > 0) {
-    load_tile_async<T, D, BQ, KV_NT>(sQ, qb, a.qss, qstart, a.Sq);
-    load_tile_async<T, D, BQ, KV_NT>(sO, dob, D, qstart, a.Sq);
+    load_tile_async<T, D, BQ, KV_NT, DV>(sQ, qb, a.qss, qstart, a.Sq);
+    load_tile_async<T, D, BQ, KV_NT, DV>(sO, dob, DV, qstart, a.Sq);
     if (tid < BQ) {
       const int q = qstart + tid;
       lse_s[tid] = q < a.Sq ? lb[q] : 0.f;
@@ -180,9 +211,10 @@ __device__ __forceinline__ void kv_loop(const Args& a) {
     float nl = 0.f, nd = 0.f;
     if (it + 1 < nq) {
       const int q1 = q0 + BQ;
-      load_tile_async<T, D, BQ, KV_NT>(sQ + (st ^ 1) * QT, qb, a.qss, q1,
-                                       a.Sq);
-      load_tile_async<T, D, BQ, KV_NT>(sO + (st ^ 1) * QT, dob, D, q1, a.Sq);
+      load_tile_async<T, D, BQ, KV_NT, DV>(sQ + (st ^ 1) * QT, qb, a.qss,
+                                           q1, a.Sq);
+      load_tile_async<T, D, BQ, KV_NT, DV>(sO + (st ^ 1) * QT, dob, DV, q1,
+                                           a.Sq);
       if (tid < BQ && q1 + tid < a.Sq) {
         nl = lb[q1 + tid];
         nd = db[q1 + tid];
@@ -280,43 +312,56 @@ __device__ __forceinline__ void kv_loop(const Args& a) {
     __syncthreads();  // (dS complete;) every warp is done with stage st
 
     // K2's dQ share = dS K: warp (wm, wn) owns rows q0 + 16 wm, cols DW wn
+    // (the grid may have fewer cells than warps)
     if constexpr (kDq) {
-      if (warp >= WM * WN) continue;  // the grid has fewer cells than warps
+      const bool cell = warp < WM * WN;
       const int wm = warp % WM, wn = warp / WM;
       float acc[NQ][4];
 #pragma unroll
       for (int i = 0; i < NQ; ++i)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+      if (cell) {
 #pragma unroll
-      for (int ks = 0; ks < SSTEPS; ++ks) {
-        typename M::A sa;
-        M::template load_a<KV_BK>(sa, sS, wm * 16, ks);
+        for (int ks = 0; ks < SSTEPS; ++ks) {
+          typename M::A sa;
+          M::template load_a<KV_BK>(sa, sS, wm * 16, ks);
 #pragma unroll
-        for (int n = 0; n < NQ; n += 2) {
-          typename M::B b0, b1;
-          M::template load_bt2<D, false>(b0, b1, sK, ks * M::MK,
-                                         wn * DW + n * 8);
-          M::mma(acc[n], sa, b0);
-          M::mma(acc[n + 1], sa, b1);
+          for (int n = 0; n < NQ; n += 2) {
+            typename M::B b0, b1;
+            M::template load_bt2<D, false>(b0, b1, sK, ks * M::MK,
+                                           wn * DW + n * 8);
+            M::mma(acc[n], sa, b0);
+            M::mma(acc[n + 1], sa, b1);
+          }
         }
       }
-      // lanes t, t ^ 1 swap halves so that each holds 4 consecutive
-      // columns of one row: even t row g, odd t row g + 8
-      const bool odd = t & 1;
-      const int row = q0 + wm * 16 + g + (odd ? 8 : 0);
-      float* dqr = a.dq_acc + ((long long)bh * a.Sq + row) * D + wn * DW +
-                   4 * (t >> 1);
+      // the q tile's earlier k tiles have added their shares
+      int* sem = a.dq_sem + (long long)bh * ((a.Sq + 15) / 16) + q0 / 16;
+      if (tid == 0) sem_wait(sem, blockIdx.y);
+      __syncthreads();
+      if (cell) {
+        // lanes t, t ^ 1 swap halves so that each holds 4 consecutive
+        // columns of one row: even t row g, odd t row g + 8
+        const bool odd = t & 1;
+        const int row = q0 + wm * 16 + g + (odd ? 8 : 0);
+        const int col = wn * DW + 4 * (t >> 1);
+        float* dqr = a.dq_acc + ((long long)bh * a.Sq + row) * DV + col;
 #pragma unroll
-      for (int n = 0; n < NQ; ++n) {
-        const float x0 = odd ? acc[n][0] : acc[n][2];
-        const float x1 = odd ? acc[n][1] : acc[n][3];
-        const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
-        const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
-        const float4 v = odd ? make_float4(y0, y1, acc[n][2], acc[n][3])
-                             : make_float4(acc[n][0], acc[n][1], y0, y1);
-        if (row < a.Sq) atomicAdd(reinterpret_cast<float4*>(dqr + n * 8), v);
+        for (int n = 0; n < NQ; ++n) {
+          const float x0 = odd ? acc[n][0] : acc[n][2];
+          const float x1 = odd ? acc[n][1] : acc[n][3];
+          const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
+          const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+          const float4 v = odd ? make_float4(y0, y1, acc[n][2], acc[n][3])
+                               : make_float4(acc[n][0], acc[n][1], y0, y1);
+          if (row < a.Sq && col + n * 8 < DV)
+            atomicAdd(reinterpret_cast<float4*>(dqr + n * 8), v);
+        }
       }
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) sem_release(sem, blockIdx.y + 1);
     }
   }
   cp_async_wait<0>();
@@ -325,10 +370,10 @@ __device__ __forceinline__ void kv_loop(const Args& a) {
   for (int r = 0; r < 2; ++r) {
     const int key = kw + g + 8 * r;
     if (key >= a.Sk) continue;
-    T* dkr = (T*)a.dk + ((long long)bh * a.Sk + key) * D;
-    T* dvr = (T*)a.dv + ((long long)bh * a.Sk + key) * D;
+    T* dkr = (T*)a.dk + ((long long)bh * a.Sk + key) * DV;
+    T* dvr = (T*)a.dv + ((long long)bh * a.Sk + key) * DV;
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
+    for (int n = 0; n < DV / 8; ++n) {
       store2(dkr + n * 8 + 2 * t, dk[n][2 * r], dk[n][2 * r + 1]);
       store2(dvr + n * 8 + 2 * t, dv[n][2 * r], dv[n][2 * r + 1]);
     }
@@ -336,15 +381,15 @@ __device__ __forceinline__ void kv_loop(const Args& a) {
 }
 
 // K2: dk, dv and the dq shares
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(KV_NT) flash_bwd_k2_kernel(Args a) {
-  kv_loop<T, D, true>(a);
+  kv_loop<T, D, true, DV>(a);
 }
 
 // K4: dk, dv
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(KV_NT) flash_bwd_kv_kernel(Args a) {
-  kv_loop<T, D, false>(a);
+  kv_loop<T, D, false, DV>(a);
 }
 
 // K2's epilogue: the float32 dq buffer -> q's type
@@ -374,7 +419,7 @@ constexpr size_t q_smem_bytes() {
 }
 
 // K3: one block per (b, h, q tile); see the note at the top
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(Q_NT) flash_bwd_q_kernel(Args a) {
   using M = Mma<T>;
   constexpr int BK = q_bk<T, D>();
@@ -397,18 +442,18 @@ __global__ void __launch_bounds__(Q_NT) flash_bwd_q_kernel(Args a) {
   const T* qb = (const T*)a.q + b * a.qsb + h * a.qsh;
   const T* kb = (const T*)a.k + b * a.ksb + h * a.ksh;
   const T* vb = (const T*)a.v + b * a.vsb + h * a.vsh;
-  const T* dob = (const T*)a.dout + (long long)bh * a.Sq * D;
+  const T* dob = (const T*)a.dout + (long long)bh * a.Sq * DV;
   const float* bb = a.bias ? a.bias + (long long)b * a.Sk : nullptr;
 
   // keys [0, kend): a causal q tile sees nothing past its last row
   const int kend = a.causal ? min(a.Sk, q0 + Q_BQ) : a.Sk;
   const int nk = (kend + BK - 1) / BK;
 
-  load_tile_async<T, D, Q_BQ, Q_NT>(sQ, qb, a.qss, q0, a.Sq);
-  load_tile_async<T, D, Q_BQ, Q_NT>(sO, dob, D, q0, a.Sq);
+  load_tile_async<T, D, Q_BQ, Q_NT, DV>(sQ, qb, a.qss, q0, a.Sq);
+  load_tile_async<T, D, Q_BQ, Q_NT, DV>(sO, dob, DV, q0, a.Sq);
   if (nk > 0) {
-    load_tile_async<T, D, BK, Q_NT>(sK, kb, a.kss, 0, a.Sk);
-    load_tile_async<T, D, BK, Q_NT>(sV, vb, a.vss, 0, a.Sk);
+    load_tile_async<T, D, BK, Q_NT, DV>(sK, kb, a.kss, 0, a.Sk);
+    load_tile_async<T, D, BK, Q_NT, DV>(sV, vb, a.vss, 0, a.Sk);
   }
   cp_async_commit();
   if (bb != nullptr && tid < BK)
@@ -436,10 +481,10 @@ __global__ void __launch_bounds__(Q_NT) flash_bwd_q_kernel(Args a) {
     float nb = 0.f;
     if (it + 1 < nk) {
       const int k1 = k0 + BK;
-      load_tile_async<T, D, BK, Q_NT>(sK + (st ^ 1) * TILE, kb, a.kss, k1,
-                                      a.Sk);
-      load_tile_async<T, D, BK, Q_NT>(sV + (st ^ 1) * TILE, vb, a.vss, k1,
-                                      a.Sk);
+      load_tile_async<T, D, BK, Q_NT, DV>(sK + (st ^ 1) * TILE, kb, a.kss,
+                                          k1, a.Sk);
+      load_tile_async<T, D, BK, Q_NT, DV>(sV + (st ^ 1) * TILE, vb, a.vss,
+                                          k1, a.Sk);
       if (bb != nullptr && tid < BK && k1 + tid < a.Sk)
         nb = bb[k1 + tid] * LOG2E;
     }
@@ -516,9 +561,9 @@ __global__ void __launch_bounds__(Q_NT) flash_bwd_q_kernel(Args a) {
   for (int r = 0; r < 2; ++r) {
     const int row = qw + g + 8 * r;
     if (row >= a.Sq) continue;
-    T* dqr = (T*)a.dq + ((long long)bh * a.Sq + row) * D;
+    T* dqr = (T*)a.dq + ((long long)bh * a.Sq + row) * DV;
 #pragma unroll
-    for (int n = 0; n < NO; ++n)
+    for (int n = 0; n < DV / 8; ++n)
       store2(dqr + n * 8 + 2 * t, dq[n][2 * r], dq[n][2 * r + 1]);
   }
 }
@@ -537,12 +582,12 @@ cudaError_t raise_smem(K kern, size_t bytes, bool& done) {
 }
 
 // kind: 0 = K2 (dk, dv + dq through dq_acc), 1 = K3 (dq), 2 = K4 (dk, dv)
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 cudaError_t launch(int kind, const Args& a, int B, cudaStream_t stream) {
   if (kind == 1) {
     static bool done = false;
     const size_t smem = q_smem_bytes<T, D>();
-    auto kern = flash_bwd_q_kernel<T, D>;
+    auto kern = flash_bwd_q_kernel<T, D, DV>;
     cudaError_t e = raise_smem(kern, smem, done);
     if (e != cudaSuccess) return e;
     dim3 grid(B * a.H, (a.Sq + Q_BQ - 1) / Q_BQ);
@@ -553,7 +598,7 @@ cudaError_t launch(int kind, const Args& a, int B, cudaStream_t stream) {
   if (kind == 2) {
     static bool done = false;
     const size_t smem = kv_smem_bytes<T, D, false>();
-    auto kern = flash_bwd_kv_kernel<T, D>;
+    auto kern = flash_bwd_kv_kernel<T, D, DV>;
     cudaError_t e = raise_smem(kern, smem, done);
     if (e != cudaSuccess) return e;
     kern<<<grid, KV_NT, smem, stream>>>(a);
@@ -561,13 +606,13 @@ cudaError_t launch(int kind, const Args& a, int B, cudaStream_t stream) {
   }
   static bool done = false;
   const size_t smem = kv_smem_bytes<T, D, true>();
-  auto kern = flash_bwd_k2_kernel<T, D>;
+  auto kern = flash_bwd_k2_kernel<T, D, DV>;
   cudaError_t e = raise_smem(kern, smem, done);
   if (e != cudaSuccess) return e;
   kern<<<grid, KV_NT, smem, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess || a.dq == (void*)a.dq_acc) return e;
-  const long long n = (long long)B * a.H * a.Sq * D;
+  const long long n = (long long)B * a.H * a.Sq * DV;
   const int NT = 256;
   const int blocks = (int)((n + NT - 1) / NT < 4096 ? (n + NT - 1) / NT : 4096);
   cast_kernel<T><<<blocks, NT, 0, stream>>>(a.dq_acc, (T*)a.dq, n);
@@ -581,6 +626,8 @@ cudaError_t dispatch_d(int D, int kind, const Args& a, int B,
     case 16: return launch<T, 16>(kind, a, B, stream);
     case 32: return launch<T, 32>(kind, a, B, stream);
     case 64: return launch<T, 64>(kind, a, B, stream);
+    case 80: return launch<T, 128, 80>(kind, a, B, stream);
+    case 96: return launch<T, 128, 96>(kind, a, B, stream);
     case 128: return launch<T, 128>(kind, a, B, stream);
     default: return cudaErrorInvalidValue;
   }
@@ -598,16 +645,19 @@ const char* pt_cuda_error_string(int e) {
 // float32, 1 = bfloat16. strides: q, k, v (batch, head, seq) in elements;
 // the head dim is contiguous. dout, lse, delta, dq, dk, dv, dq_acc are
 // contiguous. bias is float32 [B, Sk] or null. For K2, dq_acc is a zeroed
-// float32 [B, H, Sq, D] buffer (it may be dq itself when dtype is 0).
+// float32 [B, H, Sq, D] buffer (it may be dq itself when dtype is 0) and
+// dq_sem a zeroed int32 [B, H, ceil(Sq / 16)] buffer.
 int pt_flash_attention_bwd(int kind, const void* q, const void* k,
                            const void* v, const void* bias, const void* dout,
                            const void* lse, const void* delta, void* dq,
-                           void* dk, void* dv, void* dq_acc, int dtype, int B,
+                           void* dk, void* dv, void* dq_acc, void* dq_sem,
+                           int dtype, int B,
                            int H, int Sq, int Sk, int D,
                            const long long* strides, float scale, int causal,
                            void* stream) {
   if (B == 0 || H == 0 || Sq == 0 || Sk == 0) return cudaSuccess;
-  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  if (kind < 0 || kind > 2 || (kind == 0 && dq_sem == nullptr))
+    return cudaErrorInvalidValue;
   Args a;
   a.q = q;
   a.k = k;
@@ -620,6 +670,7 @@ int pt_flash_attention_bwd(int kind, const void* q, const void* k,
   a.dk = dk;
   a.dv = dv;
   a.dq_acc = (float*)dq_acc;
+  a.dq_sem = (int*)dq_sem;
   a.H = H;
   a.Sq = Sq;
   a.Sk = Sk;

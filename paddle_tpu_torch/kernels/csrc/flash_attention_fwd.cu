@@ -39,6 +39,8 @@
 //   and Sk need not divide the tiles (the TPU kernel demands it).
 // - Causal q tiles are launched heaviest first (the tile index is the
 //   slowest grid dimension, reversed), so the lightest tiles form the tail.
+// - Head dims 80 and 96 run in D128's tile plan (DV < D): their columns
+//   past DV load as zeros and are never stored.
 #include <math.h>
 
 #include "attention_mma.cuh"
@@ -71,7 +73,7 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * D * (BQ + 4 * BK) + sizeof(float) * 2 * BK;
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(FwdArgs a) {
   using M = Mma<T>;
   constexpr int TILE = BK * D * sizeof(T);
@@ -99,10 +101,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FwdArgs a) {
   const int kend = a.causal ? min(a.Sk, q0 + BQ) : a.Sk;
   const int nk = (kend + BK - 1) / BK;
 
-  load_tile_async<T, D, BQ, NT>(sQ, qb, a.qss, q0, a.Sq);
+  load_tile_async<T, D, BQ, NT, DV>(sQ, qb, a.qss, q0, a.Sq);
   if (nk > 0) {
-    load_tile_async<T, D, BK, NT>(sK, kb, a.kss, 0, a.Sk);
-    load_tile_async<T, D, BK, NT>(sV, vb, a.vss, 0, a.Sk);
+    load_tile_async<T, D, BK, NT, DV>(sK, kb, a.kss, 0, a.Sk);
+    load_tile_async<T, D, BK, NT, DV>(sV, vb, a.vss, 0, a.Sk);
   }
   cp_async_commit();
   if (bb != nullptr && tid < BK)
@@ -120,8 +122,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FwdArgs a) {
     float nb = 0.f;
     if (it + 1 < nk) {
       const int k1 = k0 + BK;
-      load_tile_async<T, D, BK, NT>(sK + (st ^ 1) * TILE, kb, a.kss, k1, a.Sk);
-      load_tile_async<T, D, BK, NT>(sV + (st ^ 1) * TILE, vb, a.vss, k1, a.Sk);
+      load_tile_async<T, D, BK, NT, DV>(sK + (st ^ 1) * TILE, kb, a.kss, k1,
+                                        a.Sk);
+      load_tile_async<T, D, BK, NT, DV>(sV + (st ^ 1) * TILE, vb, a.vss, k1,
+                                        a.Sk);
       if (bb != nullptr && tid < BK && k1 + tid < a.Sk)
         nb = bb[k1 + tid] * LOG2E;
     }
@@ -221,18 +225,18 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FwdArgs a) {
     if (row >= a.Sq) continue;
     const float li = lr == 0.f ? 1.f : lr;
     const float inv = 1.f / li;
-    T* orow = (T*)a.out + (bh_off + row) * D;
+    T* orow = (T*)a.out + (bh_off + row) * DV;
 #pragma unroll
-    for (int i = 0; i < NO; ++i)
+    for (int i = 0; i < DV / 8; ++i)
       store2(orow + i * 8 + 2 * t, o[i][2 * r] * inv, o[i][2 * r + 1] * inv);
     if (t == 0) a.lse[bh_off + row] = m[r] + log2f(li);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DV = D>
 cudaError_t launch(const FwdArgs& a, int B, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, D>();
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<T, D, DV>;
   // raise the dynamic shared-memory cap once per instantiation (not a
   // stream operation: done before any CUDA-graph capture of a launch)
   static bool smem_set = false;
@@ -253,6 +257,8 @@ cudaError_t dispatch_d(int D, const FwdArgs& a, int B, cudaStream_t stream) {
     case 16: return launch<T, 16>(a, B, stream);
     case 32: return launch<T, 32>(a, B, stream);
     case 64: return launch<T, 64>(a, B, stream);
+    case 80: return launch<T, 128, 80>(a, B, stream);
+    case 96: return launch<T, 128, 96>(a, B, stream);
     case 128: return launch<T, 128>(a, B, stream);
     default: return cudaErrorInvalidValue;
   }

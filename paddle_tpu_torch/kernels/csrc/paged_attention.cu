@@ -73,8 +73,10 @@
 //
 // Sizes the copies cannot take: a bulk copy moves a multiple of 16 bytes
 // between 16-byte aligned addresses. A token row of K or V is D * elem >=
-// 32 bytes and a multiple of 16, so every pool (float32, bf16, int8)
-// takes any block size; the pools must start on 16 bytes.
+// 16 bytes and a multiple of 16 (D = 16, 32, 64, 128), so every pool
+// (float32, bf16, int8) takes any block size; the pools must start on
+// 16 bytes. At D = 16 a float32 row is 4 vectors and a bf16 or int8 row
+// 2, so 32 or 64 token groups fold a tile (128 or 256 slots).
 //
 // What is left: a persistent grid (one CTA per SM walking many splits,
 // so one split's merge hides the next one's first copies), clusters that
@@ -500,6 +502,8 @@ cudaError_t launch(const Args& a) {
 template <typename TQ, typename TKV>
 cudaError_t dispatch_d(const Args& a) {
   switch (a.D) {
+    case 16:
+      return launch<TQ, TKV, 16>(a);
     case 32:
       return launch<TQ, TKV, 32>(a);
     case 64:

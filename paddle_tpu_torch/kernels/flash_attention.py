@@ -11,7 +11,12 @@ log-sum-exp ``lse2 = m2 + log2(l)`` of shape ``[B, H, 1, Sq]`` that the
 backward reads.
 
 Each wrapper takes its plain version for tensors on the CPU only; for
-CUDA tensors it launches its kernel or raises, and counts the launch.
+CUDA tensors it launches its kernel or raises, and counts the launch
+(``launches``; ``bf16_launches`` those with bfloat16 inputs).
+
+Head dims: 16, 32, 64 and 128 have tile plans of their own; 80 and 96
+run in D128's plan, whose columns past D are zero-filled on load and
+never stored.
 """
 import ctypes
 from typing import Optional
@@ -23,7 +28,7 @@ from . import _build
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 
 
 def flash_attention_ref(q, k, v, bias=None, scale=None, causal=False):
@@ -68,7 +73,9 @@ def _check(q, k, v, bias):
         raise ValueError("flash_attention: q and k/v disagree on B, H or D")
     if D not in _HEAD_DIMS:
         raise ValueError(f"flash_attention kernel takes head dim in "
-                         f"{_HEAD_DIMS}, got {D}")
+                         f"{_HEAD_DIMS}, got {D}; the plain composite "
+                         f"takes any (the op's impl=\"xla\", as in the "
+                         f"JAX package)")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s head dim must be "
@@ -94,9 +101,9 @@ def _check(q, k, v, bias):
 def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False):
     """Fused attention forward -> ``(out [B,H,Sq,D], lse2 [B,H,1,Sq])``.
     CPU tensors take :func:`flash_attention_ref`; CUDA tensors launch the
-    kernel (any Sq/Sk; head dim 16/32/64/128; q/k/v may be strided views
-    with a contiguous head dim whose base addresses and strides are
-    multiples of 16 bytes)."""
+    kernel (any Sq/Sk; head dim 16/32/64/80/96/128; q/k/v may be strided
+    views with a contiguous head dim whose base addresses and strides
+    are multiples of 16 bytes)."""
     if scale is None or scale == 0.0:
         scale = q.shape[-1] ** -0.5
     if _plain(q):
@@ -119,11 +126,16 @@ def flash_attention_fwd(q, k, v, bias=None, scale=None, causal=False):
             Sk, D, strides, float(scale), int(bool(causal)),
             _build.stream_of(q))
     _build.check(lib, err, "flash_attention_fwd launch")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q)
     return out, lse
 
 
-flash_attention_fwd.launches = 0
+def _count(wrapper, q):
+    wrapper.launches += 1
+    wrapper.bf16_launches += q.dtype == torch.bfloat16
+
+
+flash_attention_fwd.launches = flash_attention_fwd.bf16_launches = 0
 
 
 def flash_attention(q, k, v, bias=None, scale=None, causal=False):
@@ -211,7 +223,7 @@ def _launch_bwd(kind, q, k, v, bias, scale, causal, out, lse2, dO):
     delta = (dO.float() * out.float()).sum(-1).contiguous()
     b32 = None if bias is None \
         else bias.reshape(B, Sk).to(torch.float32).contiguous()
-    dq = dk = dv = acc = None
+    dq = dk = dv = acc = sem = None
     if kind in (_K2, _K4):
         dk = torch.empty((B, H, Sk, D), dtype=k.dtype, device=q.device)
         dv = torch.empty((B, H, Sk, D), dtype=v.dtype, device=q.device)
@@ -220,6 +232,10 @@ def _launch_bwd(kind, q, k, v, bias, scale, causal, out, lse2, dO):
                           device=q.device)
         dq = acc if q.dtype == torch.float32 else torch.empty_like(
             acc, dtype=q.dtype)
+        # per (b, h, 16 q rows): the k tiles that have added their dq
+        # share (they add in k-tile order, so dq is deterministic)
+        sem = torch.zeros(B * H * (-(-Sq // 16)), dtype=torch.int32,
+                          device=q.device)
     elif kind == _K3:
         dq = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     strides = (ctypes.c_longlong * 9)(
@@ -230,7 +246,8 @@ def _launch_bwd(kind, q, k, v, bias, scale, causal, out, lse2, dO):
             kind, _build.ptr(q), _build.ptr(k), _build.ptr(v),
             _build.ptr(b32), _build.ptr(dO), _build.ptr(lse),
             _build.ptr(delta), _build.ptr(dq), _build.ptr(dk),
-            _build.ptr(dv), _build.ptr(acc), _DTYPES[q.dtype], B, H, Sq, Sk,
+            _build.ptr(dv), _build.ptr(acc), _build.ptr(sem),
+            _DTYPES[q.dtype], B, H, Sq, Sk,
             D, strides, float(scale), int(bool(causal)),
             _build.stream_of(q))
     _build.check(lib, err, "flash_attention_bwd launch")
@@ -243,7 +260,7 @@ def flash_attention_bwd_single(q, k, v, bias, scale, causal, out, lse2, dO):
         return flash_attention_bwd_ref(q, k, v, bias, scale, causal, out,
                                        lse2, dO)
     res = _launch_bwd(_K2, q, k, v, bias, scale, causal, out, lse2, dO)
-    flash_attention_bwd_single.launches += 1
+    _count(flash_attention_bwd_single, q)
     return res
 
 
@@ -253,7 +270,7 @@ def flash_attention_bwd_dq(q, k, v, bias, scale, causal, out, lse2, dO):
         return flash_attention_bwd_ref(q, k, v, bias, scale, causal, out,
                                        lse2, dO)[0]
     dq = _launch_bwd(_K3, q, k, v, bias, scale, causal, out, lse2, dO)[0]
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q)
     return dq
 
 
@@ -263,13 +280,13 @@ def flash_attention_bwd_dkv(q, k, v, bias, scale, causal, out, lse2, dO):
         return flash_attention_bwd_ref(q, k, v, bias, scale, causal, out,
                                        lse2, dO)[1:]
     res = _launch_bwd(_K4, q, k, v, bias, scale, causal, out, lse2, dO)[1:]
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q)
     return res
 
 
-flash_attention_bwd_single.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+for _w in (flash_attention_bwd_single, flash_attention_bwd_dq,
+           flash_attention_bwd_dkv):
+    _w.launches = _w.bf16_launches = 0
 
 
 def flash_attention_bwd(q, k, v, bias, scale, causal, out, lse2, dO):
@@ -343,8 +360,8 @@ def _lib_bwd():
     fn = lib.pt_flash_attention_bwd
     if not fn.argtypes:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i,
-                       i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
+        fn.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i,
+                       i, i, i, i, i, ctypes.POINTER(ctypes.c_longlong),
                        ctypes.c_float, i, vp]
         fn.restype = ctypes.c_int
     return lib

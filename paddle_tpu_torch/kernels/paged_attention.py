@@ -28,7 +28,7 @@ _NEG_INF = -1e30
 _QMAX = 127.0
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
 # slots per split of a row's table in the kernel (see split_plan)
 SPLIT_TOKENS = 256
 
@@ -127,7 +127,7 @@ def _check(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
         if not t.is_contiguous():
             raise ValueError("paged_attention: inputs must be contiguous")
     # the kernel moves each block's K and V slice with bulk copies of
-    # whole 16-byte vectors: a row (D * elem >= 32 bytes) always
+    # whole 16-byte vectors: a row (D * elem >= 16 bytes) always
     # qualifies, so any block size does, from a pool that starts on 16
     # bytes (the int8 scales move 4 bytes at a time)
     for t in (k_pool, v_pool):

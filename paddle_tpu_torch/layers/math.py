@@ -1,7 +1,9 @@
-"""Elementwise and reduction layers (trimmed copy of
+"""Elementwise, comparison, logical and reduction layers, and the
+``Variable`` operators ``+ - * >=`` (trimmed copy of
 ``paddle_tpu/layers/math.py``)."""
 import numpy as np
 
+from ..framework.core import Variable
 from . import tensor as tensor_layers
 from .layer_helper import LayerHelper
 
@@ -22,12 +24,50 @@ def elementwise_add(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_add", x, y, axis, act, name)
 
 
+def elementwise_sub(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_sub", x, y, axis, act, name)
+
+
 def elementwise_mul(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_mul", x, y, axis, act, name)
 
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_max(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_max", x, y, axis, act, name)
+
+
+def _cmp(op_type, x, y, cond=None):
+    helper = LayerHelper(op_type)
+    if np.isscalar(y):
+        y = tensor_layers.fill_constant([1], x.dtype, float(y))
+    if cond is None:
+        cond = helper.create_variable_for_type_inference(
+            dtype="bool", stop_gradient=True)
+    helper.append_op(type=op_type, inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [cond]})
+    return cond
+
+
+def greater_equal(x, y, cond=None):
+    return _cmp("greater_equal", x, y, cond)
+
+
+def logical_and(x, y, out=None, name=None):
+    return _cmp("logical_and", x, y, out)
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper("logical_not", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype="bool", stop_gradient=True)
+    helper.append_op(type="logical_not", inputs={"X": [x]},
+                     outputs={"Out": [out]})
+    return out
 
 
 def reduce_sum(input, dim=None, keep_dim=False, name=None):
@@ -41,3 +81,19 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     helper.append_op(type="reduce_sum", inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs=attrs)
     return out
+
+
+def _binop(op_type, reverse=False):
+    def impl(self, other):
+        return _binary(op_type, other, self) if reverse \
+            else _binary(op_type, self, other)
+    return impl
+
+
+Variable.__add__ = _binop("elementwise_add")
+Variable.__radd__ = _binop("elementwise_add", reverse=True)
+Variable.__sub__ = _binop("elementwise_sub")
+Variable.__rsub__ = _binop("elementwise_sub", reverse=True)
+Variable.__mul__ = _binop("elementwise_mul")
+Variable.__rmul__ = _binop("elementwise_mul", reverse=True)
+Variable.__ge__ = lambda self, other: _cmp("greater_equal", self, other)

@@ -1,7 +1,7 @@
 """Tensor layers (trimmed copy of ``paddle_tpu/layers/tensor.py``):
-``data``, ``create_global_var``, ``fill_constant``, ``reshape``,
-``transpose``, ``slice``. Shapes are python ints; shape tensors are not
-ported."""
+``data``, ``create_global_var``, ``cast``, ``fill_constant``,
+``assign``, ``reshape``, ``transpose``, ``slice``. Shapes are python
+ints; shape tensors and ``assign`` of numpy values are not ported."""
 from ..framework import initializer as init_mod
 from ..framework.core import default_main_program
 from ..framework.dtype import convert_dtype
@@ -25,6 +25,25 @@ def create_global_var(shape, value, dtype, persistable=False,
     return helper.create_global_variable(
         shape=shape, dtype=dtype, persistable=persistable, name=name,
         initializer=init_mod.ConstantInitializer(value))
+
+
+def cast(x, dtype):
+    helper = LayerHelper("cast")
+    dtype = convert_dtype(dtype)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
+                     attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def assign(input, output=None):
+    """Copy a Variable into ``output`` (a new var when None)."""
+    helper = LayerHelper("assign")
+    if output is None:
+        output = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="assign", inputs={"X": [input]},
+                     outputs={"Out": [output]})
+    return output
 
 
 def fill_constant(shape, dtype, value, force_cpu=False, out=None, name=None):

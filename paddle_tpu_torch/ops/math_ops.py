@@ -1,6 +1,7 @@
 """Elementwise, matmul and reduction ops in torch (counterpart of
 ``paddle_tpu/ops/math_ops.py``: ``elementwise_*``, ``sum :52``,
-``matmul :92``, ``mul :116``, ``reduce_sum``). Large products go to
+``matmul :92``, ``mul :116``, ``reduce_sum``, the comparisons, the
+logical ops and ``isfinite :268``). Large products go to
 ``torch.matmul``, as the JAX package leaves them to XLA. ``mul`` (every
 ``fc``) has a bespoke grad: the generic vjp would recompute its forward
 product, which eager torch cannot deduplicate as XLA does."""
@@ -22,8 +23,38 @@ def _ew(name, fn):
 
 
 _ew("elementwise_add", torch.add)
+_ew("elementwise_sub", torch.sub)
 _ew("elementwise_mul", torch.mul)
 _ew("elementwise_div", torch.div)
+_ew("elementwise_max", torch.maximum)
+
+
+def _cmp(name, fn):
+    @register_op(name, grad=False)
+    def _op(ctx, ins, attrs, _fn=fn):
+        x = x_of(ins)
+        return {"Out": _fn(x, bcast_y(x, x_of(ins, "Y"),
+                                      attrs.get("axis", -1)))}
+    return _op
+
+
+_cmp("greater_equal", torch.greater_equal)
+
+
+@register_op("logical_and", grad=False)
+def logical_and(ctx, ins, attrs):
+    return {"Out": torch.logical_and(x_of(ins), x_of(ins, "Y"))}
+
+
+@register_op("logical_not", grad=False)
+def logical_not(ctx, ins, attrs):
+    return {"Out": torch.logical_not(x_of(ins))}
+
+
+@register_op("isfinite", grad=False)
+def isfinite(ctx, ins, attrs):
+    """One flag: whether every element of X is finite."""
+    return {"Out": torch.isfinite(x_of(ins)).all().reshape(1)}
 
 
 @register_op("sum")

@@ -71,8 +71,9 @@ def lookup_table(ctx, ins, attrs):
 
 @register_grad_lower("lookup_table")
 def lookup_table_grad(ctx, ins, attrs):
-    """Dense W grad: the upstream rows scatter-added into a zero table
-    (``is_sparse`` row sets are not in this port yet)."""
+    """Dense W grad: the upstream rows scatter-added into a zero table,
+    deterministically (``is_sparse`` row sets are not in this port
+    yet)."""
     fattrs = attrs["__fwd_op__"]["attrs"]
     if fattrs.get("is_sparse", False):
         raise NotImplementedError("paddle_tpu_torch: is_sparse embedding "
@@ -86,8 +87,11 @@ def lookup_table_grad(ctx, ins, attrs):
     if padding_idx is not None and padding_idx >= 0:
         flat_g = torch.where((flat_ids != padding_idx)[:, None], flat_g,
                              0.0)
-    return {"W@GRAD": [torch.zeros_like(w).index_add_(0, flat_ids,
-                                                      flat_g)]}
+    # index_put_ with accumulate sums a row's duplicates in a fixed
+    # order (sorted ids) on CUDA, where index_add_ takes atomics in any
+    # order: the grad is the same bits from run to run
+    return {"W@GRAD": [torch.zeros_like(w).index_put_(
+        (flat_ids,), flat_g, accumulate=True)]}
 
 
 @register_op("softmax_with_cross_entropy")

@@ -1,9 +1,11 @@
 """Tensor creation and layout ops in torch (counterpart of
 ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant :46``,
-``gaussian_random :96``, ``reshape2 :143``, ``transpose2 :165``,
-``slice :255``). ``slice`` and ``transpose2`` return views and
-``reshape2`` one where the strides allow, so the attention kernels take
-q/k/v as strided views of the qkv projection."""
+``gaussian_random :96``, ``assign :123``, ``cast :137``, ``reshape2
+:143``, ``transpose2 :165``, ``slice :255``, ``where :424``). ``cast``
+takes the generic vjp, so ``cast_grad`` casts the cotangent back to the
+input's type, as the JAX vjp does. ``slice`` and ``transpose2`` return
+views and ``reshape2`` one where the strides allow, so the attention
+kernels take q/k/v as strided views of the qkv projection."""
 import torch
 
 from ..framework.dtype import torch_dtype
@@ -34,6 +36,22 @@ def gaussian_random(ctx, ins, attrs):
                       dtype=torch_dtype(attrs.get("dtype", "float32")),
                       device=ctx.device)
     return {"Out": out * attrs.get("std", 1.0) + attrs.get("mean", 0.0)}
+
+
+@register_op("assign")
+def assign(ctx, ins, attrs):
+    return {"Out": x_of(ins)}
+
+
+@register_op("cast")
+def cast(ctx, ins, attrs):
+    return {"Out": x_of(ins).to(torch_dtype(attrs["out_dtype"]))}
+
+
+@register_op("where")
+def where(ctx, ins, attrs):
+    return {"Out": torch.where(x_of(ins, "Condition"), x_of(ins),
+                               x_of(ins, "Y"))}
 
 
 @register_op("reshape2")

@@ -1,12 +1,13 @@
 """Optimizers as program transforms (trimmed copy of
 ``paddle_tpu/optimizer.py``): ``minimize`` = ``append_backward`` + one
 update op per parameter. Ported: ``AdamOptimizer`` (dense), without
-gradient clipping or weight-decay regularization."""
+gradient clipping or weight-decay regularization, and
+``rollback_updates_if`` (AMP's overflow skip)."""
 from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.core import (OP_ROLE_KEY, OpRole, Variable,
                              default_main_program, default_startup_program,
-                             program_guard)
+                             op_role_guard, program_guard)
 from .framework.initializer import ConstantInitializer
 
 
@@ -71,7 +72,10 @@ class Optimizer:
         return params_grads
 
     def backward(self, loss, startup_program=None, parameter_list=None,
-                 no_grad_set=None):
+                 no_grad_set=None, callbacks=None):
+        if callbacks:
+            raise NotImplementedError("paddle_tpu_torch: grad-op callbacks "
+                                      "are not ported")
         return append_backward(loss, parameter_list or self._parameter_list,
                                no_grad_set)
 
@@ -127,3 +131,36 @@ class AdamOptimizer(Optimizer):
                    "epsilon": self._epsilon, "lazy_mode": False},
             infer_shape=False)
 
+
+
+def rollback_updates_if(block, mark, cond_var):
+    """Make the optimizer ops at ``block.ops[mark:]`` conditional: every
+    persistable they write is copied (``assign``) before the update and
+    restored with ``where(cond, copy, new)`` after it. AMP's overflow
+    skip uses it."""
+    written, seen = [], set()
+    for op in block.ops[mark:]:
+        for n in op.output_arg_names:
+            if n not in seen and block.has_var(n) and \
+                    block.var(n).persistable:
+                seen.add(n)
+                written.append(block.var(n))
+    with op_role_guard(OpRole.Optimize):
+        insert_at = mark
+        backups = {}
+        for var in written:
+            bname = unique_name.generate(f"{var.name}.rollback")
+            block.create_var(name=bname, shape=var.shape, dtype=var.dtype,
+                             stop_gradient=True)
+            block._insert_op(insert_at, type="assign",
+                             inputs={"X": [var.name]},
+                             outputs={"Out": [bname]}, infer_shape=False)
+            insert_at += 1
+            backups[var.name] = bname
+        for var in written:
+            block.append_op(
+                type="where",
+                inputs={"Condition": [cond_var.name],
+                        "X": [backups[var.name]], "Y": [var.name]},
+                outputs={"Out": [var.name]}, infer_shape=False)
+    return written

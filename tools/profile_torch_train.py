@@ -3,17 +3,24 @@
 GPU.
 
     python3 tools/profile_torch_train.py [--batch 8] [--seq 2048]
-                                         [--layers 12] [--steps 3]
+                                         [--layers 12] [--steps 3] [--amp]
 
 Builds ``gpt_pretrain`` at GPTConfig.base() widths (``--layers`` deep,
-seeded random weights, dropout 0.1) + ``AdamOptimizer(1e-4).minimize``,
-runs the startup program and one warm-up step, times ``--steps`` steps
+seeded random weights, dropout 0.1) + ``AdamOptimizer(1e-4).minimize``
+(with ``--amp`` wrapped in bf16 mixed precision at a static loss scale
+of 1.0, as the repository's ``bench.py`` ``bench_gpt_long`` trains); the
+executor runs it through the default pass pipeline
+(``FLAGS_program_passes``). It runs the startup program and one warm-up
+step, times ``--steps`` steps
 with the host clock (each ends in a fetch, which synchronizes), runs
 ``--steps`` more with a pair of CUDA events around every op of the
 program, and ``--steps`` more under ``torch.profiler``. Prints one JSON
 line: wall ms per step, device kernel time per step (sum of CUDA kernel
 durations in the trace), the device's idle share, kernel launches per
-step, the device span per step by op type (from each op's first to its
+step, device kernel time per step by kind of kernel (GEMMs, the flash
+kernels, dtype casts and copies, the optimizer's multi-tensor kernels,
+other elementwise and reductions), the device span per step by op type
+(from each op's first to its
 last kernel on the stream, so a ``*_grad`` op's forward recompute and
 the backward kernels autograd launches from its own thread both count),
 and the kernels that take the most device time. Exits non-zero without a
@@ -42,12 +49,30 @@ def _kernel_times(prof, torch):
     return out
 
 
+# kind of a CUDA kernel, by the first pattern its name contains
+KINDS = (("gemm", ("gemm", "xmma", "nvjet", "cutlass")),
+         ("flash", ("flash_",)),
+         ("cast_copy", ("copy_kernel", "copy_")),
+         ("optimizer", ("multi_tensor_apply",)),
+         ("reduce_softmax", ("reduce_kernel", "SoftMax", "softmax")),
+         ("elementwise", ("elementwise", "vectorized")))
+
+
+def _kind(name):
+    for kind, pats in KINDS:
+        if any(p in name for p in pats):
+            return kind
+    return "other"
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--amp", action="store_true",
+                    help="bf16 mixed precision, static loss scale 1.0")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -67,7 +92,11 @@ def main():
     with fluid.unique_name.guard(), \
             fluid.program_guard(main_prog, startup):
         out = gpt.gpt_pretrain(cfg, B, S)
-        fluid.optimizer.AdamOptimizer(1e-4).minimize(out["loss"])
+        opt = fluid.optimizer.AdamOptimizer(1e-4)
+        if args.amp:
+            opt = fluid.contrib.mixed_precision.decorate(
+                opt, init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
+        opt.minimize(out["loss"])
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
@@ -113,14 +142,27 @@ def main():
     busy_ms = sum(t for t, _ in kt.values()) / 1e3 / args.steps
     launches = sum(n for _, n in kt.values()) / args.steps
     top = sorted(kt.items(), key=lambda kv: -kv[1][0])[:12]
-    print(f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}",
-          flush=True)
+    by_kind = {}
+    for n, (t, c) in kt.items():
+        ms, calls = by_kind.get(_kind(n), (0.0, 0))
+        by_kind[_kind(n)] = (ms + t / 1e3 / args.steps,
+                             calls + c / args.steps)
+    import subprocess
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"{smi}; torch {torch.__version__}", flush=True)
     print(json.dumps({
-        "batch": B, "seq": S, "layers": cfg.num_layers,
+        "batch": B, "seq": S, "layers": cfg.num_layers, "amp": args.amp,
+        "program_passes": fluid.get_flags("FLAGS_program_passes")[
+            "FLAGS_program_passes"],
         "steps": args.steps, "wall_ms_per_step": wall_ms,
         "device_ms_per_step": busy_ms if kt else None,
         "device_idle_share": 1 - busy_ms / wall_ms if kt else None,
         "kernel_launches_per_step": launches,
+        "kernel_ms_per_step_by_kind": {
+            k: {"ms": ms, "launches": n} for k, (ms, n) in
+            sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
         "device_span_ms_per_step_by_op": {
             k: {"ms": ms, "ops": n} for k, (ms, n) in
             sorted(by_op.items(), key=lambda kv: -kv[1][0])},
