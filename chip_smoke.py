@@ -42,7 +42,10 @@ NVIDIA GPU.
    take float32 at 165 TFLOP/s (3xTF32). One ``bwd_pair`` line per
    (S, type) at S2048 and S4096 causal times K3 then K4 back to back
    beside K2 off its route and SDPA's backward, and holds the pair's
-   outputs against K2's.
+   outputs against K2's. K1 and K2 at bench_bert_long's attention (B16
+   H12 S2048 D64, non-causal, a key bias masking each row's padded tail,
+   both types), each beside SDPA with the same mask, and a non-causal
+   ``bwd_pair`` line there.
 4. The main paths at GPTConfig.base() widths, seeded random weights, each
    with every kernel launch count zeroed just before it and read just
    after; each path's kernels must have launched:
@@ -62,6 +65,21 @@ NVIDIA GPU.
      bf16 inputs); finite losses, step 0 within 1.0 of ln(32000), step 4
      below step 0; ms/step, tokens/s, TFLOP/s, peak memory and the
      adam / fused_adam ops a step runs.
+   - BERT-base pretraining through the Fluid surface (bert_pretrain +
+     AdamOptimizer(noam_decay(768, 10000, 200.0)) wrapped by
+     contrib.mixed_precision.decorate at a static loss scale of 1.0),
+     bench.py's two BERT trainers, 5 steps each on one seeded batch:
+     bert_long (bench_bert_long: B16 S2048, 64 masked positions a row,
+     flash attention; K1 and K2 launch once per layer and step, all
+     bf16) and the flagship (main(): B64 S128 P20, einsum attention with
+     dropout, softmax on the AMP white list; no kernel launches);
+     finite losses, step 0 within 1.0 of ln(30522) + ln(2), each step's
+     learning rate read back equal to noam_decay's; ms/step, samples/s,
+     tokens/s, TFLOP/s against bench.py's _bert_train_flops_per_sample,
+     peak memory. Then __graft_entry__.entry()'s evaluation (B8 S128
+     through clone(for_test=True)) and one bert_long step with
+     FLAGS_verify_passes on (the program verified, every pass
+     validated; prints the verification's ms).
 5. Gradient check at GPT-base width, 2 layers, S1024 and S2048: every
    param@GRAD of one step through the kernels against the same program
    cloned with the flash_attention op's impl set to "xla" (the plain
@@ -70,7 +88,9 @@ NVIDIA GPU.
    FLAGS_program_passes "0" and one with "1" from copies of one scope
    leave every param, moment and beta-pow bitwise equal. Dynamic loss
    scaling at 2 layers, 3 steps: finite losses, the loss scale and its
-   counters read back.
+   counters read back. BERT-base width, 2 layers, B8 S2048, flash, bf16
+   AMP, dropout 0: every param@GRAD against the composite's within 2e-2,
+   and 5 steps at a constant lr 1e-4 whose loss falls.
 6. Prints the {"kernels": [...]} line (K1-K5), then as the last line
    {"ok": true, "device": {...}}.
 
@@ -238,8 +258,11 @@ def attention_inputs(torch, B, H, S, D, dtype, with_bias, seed, packed):
     """Seeded q, k, v, bias (or None) and a generator on the card.
     ``packed``: q/k/v are the strided views the model hands the kernels
     (one ``[B, S, 3*H*D]`` qkv projection, split, viewed as ``[B, S, H,
-    D]`` and transposed to ``[B, H, S, D]``, as ``models/gpt.py`` does);
-    else contiguous tensors."""
+    D]`` and transposed to ``[B, H, S, D]``, as ``models/gpt.py`` and
+    ``models/bert.py`` do); else contiguous tensors. ``with_bias`` True
+    masks a random quarter of the keys; "padded" masks each row's padded
+    tail (a row keeps its first S/2..S keys), as BERT's ``input_mask``
+    becomes ``(mask - 1) * 10000``."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(seed)
     if packed:
@@ -251,7 +274,12 @@ def attention_inputs(torch, B, H, S, D, dtype, with_bias, seed, packed):
         q, k, v = (torch.randn(B, H, S, D, device="cuda",
                                generator=g).to(dt) for _ in range(3))
     bias = None
-    if with_bias:
+    if with_bias == "padded":
+        lens = torch.randint(S // 2, S + 1, (B, 1, 1, 1), device="cuda",
+                             generator=g)
+        keep = torch.arange(S, device="cuda") < lens
+        bias = torch.where(keep, 0.0, -1e4).float()
+    elif with_bias:
         keep = torch.rand(B, 1, 1, S, device="cuda", generator=g) > 0.25
         bias = torch.where(keep, 0.0, -1e4).float()
     return q, k, v, bias, g
@@ -766,21 +794,22 @@ def bwd_phase(torch, fa, name, B, H, S, D, dtype, causal, with_bias, seed,
     return rec
 
 
-def bwd_pair_phase(torch, fa, B, H, S, D, dtype, seed):
-    """The K3 + K4 route against its yardsticks on one causal input (the
-    model's strided views): K3 then K4 back to back as one timed call,
-    K2 off its route on the same input, and the backward of
-    ``scaled_dot_product_attention`` (the one library call that computes
-    dq, dk and dv). The pair's outputs are held against K2's (two
-    independent kernels; limit as in ``bwd_phase``), so no S x S plain
-    backward is materialized."""
+def bwd_pair_phase(torch, fa, B, H, S, D, dtype, seed, causal=True,
+                   with_bias=False):
+    """The K3 + K4 route against its yardsticks on one input (the model's
+    strided views; causal, or non-causal with a key bias): K3 then K4
+    back to back as one timed call, K2 on the same input, and the
+    backward of ``scaled_dot_product_attention`` with the same mask (the
+    one library call that computes dq, dk and dv). The pair's outputs are
+    held against K2's (two independent kernels; limit as in
+    ``bwd_phase``), so no S x S plain backward is materialized."""
     F = torch.nn.functional
-    q, k, v, _, g = attention_inputs(torch, B, H, S, D, dtype, False, seed,
-                                     True)
+    q, k, v, bias, g = attention_inputs(torch, B, H, S, D, dtype, with_bias,
+                                        seed, True)
     scale = D ** -0.5
-    out, lse = fa.flash_attention_fwd(q, k, v, None, scale, True)
+    out, lse = fa.flash_attention_fwd(q, k, v, bias, scale, causal)
     dout = torch.randn(B, H, S, D, device="cuda", generator=g).to(q.dtype)
-    args = (q, k, v, None, scale, True, out, lse, dout)
+    args = (q, k, v, bias, scale, causal, out, lse, dout)
 
     def pair():
         return (fa.flash_attention_bwd_dq(*args),
@@ -800,21 +829,26 @@ def bwd_pair_phase(torch, fa, B, H, S, D, dtype, seed):
     ms = event_ms(torch, pair, 10)
     k2_ms = event_ms(torch, lambda: fa.flash_attention_bwd_single(*args), 10)
     lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
-    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+    mask = None if bias is None else bias.to(q.dtype)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                        is_causal=causal)
     lib_ms = event_ms(torch, lambda: torch.autograd.grad(
         lo, (lq, lk, lv), dout, retain_graph=True), 10)
-    pairs = S * (S + 1) // 2
-    nbytes = 7 * B * H * S * D * q.element_size() + 2 * B * H * S * 4
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = 7 * B * H * S * D * q.element_size() + 2 * B * H * S * 4 \
+        + (B * S * 4 if bias is not None else 0)
     # the pair does 7 score-sized products (K3: 3, K4: 4), K2 5
     bound_ms, bound_by = bound(nbytes, 14.0 * B * H * pairs * D, dtype)
     k2_bound_ms = bound(nbytes, 10.0 * B * H * pairs * D, dtype)[0]
     rec = {"phase": "bwd_pair", "B": B, "H": H, "S": S, "D": D,
-           "dtype": dtype, "causal": True, "layout": "packed qkv views",
+           "dtype": dtype, "causal": causal, "bias": with_bias,
+           "layout": "packed qkv views",
            "err_over_max_k2": rel, "limit_over_max_ref": tol,
            "k3_ms": k3_ms, "k4_ms": k4_ms, "ms": ms, "k2_ms": k2_ms,
            "library_ms": lib_ms, "bound_ms": bound_ms,
            "k2_bound_ms": k2_bound_ms, "bound_by": bound_by,
-           "single_pass_route": fa.single_pass_backward(S, True), "ok": ok}
+           "single_pass_route": fa.single_pass_backward(S, causal),
+           "ok": ok}
     emit(rec)
     if not ok:
         raise AssertionError(f"K3 + K4 disagree with K2: {rec}")
@@ -959,14 +993,27 @@ def copied_scope(torch, fluid, scope):
 
 
 def grad_check(torch, np, cfg, B, S, place=None, seed=1, amp=None):
-    """Every param@GRAD of one step through the kernels against the same
-    program cloned with the flash_attention op's impl set to "xla" (the
-    plain composite), from copies of one startup scope (so dropout draws
-    the same masks); limit 1e-3 of each grad's max |value|, 2e-2 under
-    bf16 AMP (``amp`` "static")."""
-    import paddle_tpu_torch as fluid
+    """Every param@GRAD of one ``gpt_pretrain`` step through the kernels
+    against the plain composite (:func:`grads_vs_composite`); limit 1e-3
+    of each grad's max |value|, 2e-2 under bf16 AMP (``amp``
+    "static")."""
     from paddle_tpu_torch.models import gpt
     main, startup, _, params_grads, _ = build_train(cfg, B, S, amp)
+    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(seed))
+    name = f"grad_check_B{B}_S{S}" + ("" if amp is None else "_amp_bf16")
+    return grads_vs_composite(torch, np, name, cfg, main, startup,
+                              params_grads, feed, place,
+                              1e-3 if amp is None else 2e-2)
+
+
+def grads_vs_composite(torch, np, name, cfg, main, startup, params_grads,
+                       feed, place, limit):
+    """Every param@GRAD of one step of ``main`` through the kernels
+    against the same program cloned with the flash_attention op's impl
+    set to "xla" (the plain composite), from copies of one startup scope
+    (so dropout draws the same masks); each within ``limit`` of its max
+    |value|."""
+    import paddle_tpu_torch as fluid
     plain = main.clone()
     for op in plain.global_block().ops:
         if op.type == "flash_attention":
@@ -977,7 +1024,6 @@ def grad_check(torch, np, cfg, B, S, place=None, seed=1, amp=None):
     s1 = fluid.Scope()
     exe.run(startup, scope=s1)
     s2 = copied_scope(torch, fluid, s1)
-    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(seed))
     names = [g.name for _, g in params_grads]
     kern = exe.run(main, feed=feed, fetch_list=names, scope=s1)
     ref = exe.run(plain, feed=feed, fetch_list=names, scope=s2)
@@ -988,10 +1034,7 @@ def grad_check(torch, np, cfg, B, S, place=None, seed=1, amp=None):
             if np.isfinite(a).all() else float("inf")
         if r >= worst:
             worst, worst_name = r, n
-    limit = 1e-3 if amp is None else 2e-2
-    rec = {"phase": f"grad_check_B{B}_S{S}" + ("" if amp is None
-                                                 else "_amp_bf16"),
-           "layers": cfg.num_layers, "grads": len(names),
+    rec = {"phase": name, "layers": cfg.num_layers, "grads": len(names),
            "worst_err_over_max_grad": worst, "worst_grad": worst_name,
            "limit": limit}
     emit(rec)
@@ -1098,6 +1141,236 @@ def tiny_generate(torch, np, device=None):
     emit(rec)
     if not ok:
         raise AssertionError(f"tiny paged generate is off: {rec}")
+    return rec
+
+
+# ------------------------------------------------------ BERT (Fluid)
+
+# bench.py's two BERT-base trainers: bench_bert_long (flash attention,
+# default AMP lists) and main(), the flagship (einsum attention with
+# dropout, softmax on the AMP white list; B64 is the batch main() picks
+# for a GPU)
+BERT_LONG = {"name": "bert_long", "B": 16, "S": 2048, "P": 64,
+             "mech": "flash", "white": ()}
+BERT_FLAGSHIP = {"name": "bert_flagship", "B": 64, "S": 128, "P": 20,
+                 "mech": None, "white": ("softmax",)}
+
+
+def bert_train_flops_per_sample(cfg, seq_len, max_preds):
+    """Analytic matmul FLOPs per sample of one BERT pretraining step,
+    forward x3 for forward + backward (the formula of the repository's
+    bench.py ``_bert_train_flops_per_sample``)."""
+    h, L, ffn = cfg.hidden_size, cfg.num_layers, cfg.ffn_size
+    v = cfg.vocab_size
+    per_layer = (4 * 2 * seq_len * h * h + 2 * 2 * seq_len * h * ffn
+                 + 2 * 2 * seq_len * seq_len * h)
+    heads = 2 * max_preds * h * h + 2 * max_preds * h * v + 2 * h * h
+    return 3 * (L * per_layer + heads)
+
+
+def noam_lr(np, step, d_model):
+    """The learning rate ``noam_decay(d_model, 10000, 200.0)`` gives at
+    ``step``, in the program's float32 operations and order: 200 *
+    d_model^-0.5 * min(rsqrt(step), step * 10000^-1.5). Below step 10000
+    the min is the linear term, so the value is exact IEEE float32
+    arithmetic (rsqrt's rounding does not enter)."""
+    f = np.float32
+    n = f(step)
+    return f(200.0 * d_model ** -0.5) * min(f(1) / np.sqrt(n),
+                                            n * f(10000 ** -1.5))
+
+
+def bert_config(layers=None, mech=None, dropout=None, max_position=None):
+    from paddle_tpu_torch.models import bert
+    cfg = bert.BertConfig.base()
+    cfg.attn_mechanism = mech
+    if layers is not None:
+        cfg.num_layers = layers
+    if dropout is not None:
+        cfg.hidden_dropout = cfg.attn_dropout = dropout
+    if max_position is not None:
+        cfg.max_position = max_position
+    return cfg
+
+
+def build_bert(cfg, B, S, P, white=(), lr=None):
+    """``bert_pretrain`` + ``AdamOptimizer`` at ``noam_decay(768, 10000,
+    200.0)`` (or a constant ``lr``), wrapped by ``mp.decorate`` at a
+    static loss scale of 1.0 with ``white`` on the AMP white list, as
+    bench.py trains. Returns (main, startup, outputs, lr var or value,
+    params_grads)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    mp = fluid.contrib.mixed_precision
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = bert.bert_pretrain(cfg, B, S, P)
+        if lr is None:
+            lr = fluid.layers.noam_decay(cfg.hidden_size, 10000, 200.0)
+        opt = mp.decorate(
+            fluid.optimizer.AdamOptimizer(lr),
+            amp_lists=mp.AutoMixedPrecisionLists(
+                custom_white_list=set(white)),
+            init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
+        _, params_grads = opt.minimize(out["loss"])
+    return main, startup, out, lr, params_grads
+
+
+def bert_train_phase(torch, np, run, steps, layers=None, place=None,
+                     seed=0):
+    """``steps`` steps of one of bench.py's BERT-base trainers (``run``:
+    :data:`BERT_LONG` or :data:`BERT_FLAGSHIP`) through the Fluid surface
+    on one seeded batch: finite losses, step 0 within 1.0 of ln(vocab) +
+    ln(2) (the MLM and NSP losses of a random model), and each step's
+    learning rate read back equal to :func:`noam_lr`. ``layers`` cuts the
+    depth (a CPU rehearsal). Returns the phase record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    B, S, P = run["B"], run["S"], run["P"]
+    cfg = bert_config(layers, run["mech"],
+                      max_position=max(S, 512))
+    main, startup, out, lr, _ = build_bert(cfg, B, S, P, run["white"])
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.random_batch(cfg, B, S, P, rng=np.random.default_rng(seed))
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, lrs, accs, wall = [], [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        lv, acc, lrv = exe.run(main, feed=feed, fetch_list=[
+            out["loss"], out["nsp_acc"], lr], scope=scope)
+        wall.append((time.perf_counter() - t0) * 1e3)  # fetch syncs
+        losses.append(float(np.ravel(lv)[0]))
+        accs.append(float(np.ravel(acc)[0]))
+        lrs.append(np.float32(np.ravel(lrv)[0]))
+    step_ms = float(np.median(wall[1:])) if steps > 1 else wall[0]
+    flops = bert_train_flops_per_sample(cfg, S, P) * B
+    want_lr = [noam_lr(np, i + 1, cfg.hidden_size) for i in range(steps)]
+    start = float(np.log(cfg.vocab_size) + np.log(2))
+    rec = {"phase": f"train_{run['name']}_amp_bf16", "B": B, "S": S,
+           "P": P, "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "vocab": cfg.vocab_size, "attention": run["mech"] or "einsum",
+           "amp_white_extra": list(run["white"]),
+           "dropout": cfg.hidden_dropout, "steps": steps,
+           "losses": losses, "nsp_acc": accs,
+           "lr": [float(x) for x in lrs],
+           "lr_noam": [float(x) for x in want_lr],
+           "lr_equal": [bool(a == b) for a, b in zip(lrs, want_lr)],
+           "step_ms": wall, "median_step_ms_after_first": step_ms,
+           "samples_per_s": B / step_ms * 1e3,
+           "tokens_per_s": B * S / step_ms * 1e3,
+           "analytic_flops_per_step": flops,
+           "achieved_tflops": flops / step_ms / 1e9,
+           "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                           if cuda else None),
+           "ln_vocab_plus_ln2": start}
+    bad = [x for x in losses if not np.isfinite(x)]
+    if bad or abs(losses[0] - start) > 1.0 or not all(rec["lr_equal"]):
+        emit(rec)
+        raise AssertionError(f"BERT training is off: losses {losses}, "
+                             f"lr {rec['lr']} vs {rec['lr_noam']}")
+    return rec
+
+
+def bert_verified_step(torch, np, layers=None, place=None, seed=4):
+    """One ``bert_long`` step with FLAGS_verify_passes on: the executor
+    verifies the program and validates each pass of the pipeline; raises
+    nothing. Prints the verification's and the pipeline's ms."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework import passes
+    from paddle_tpu_torch.models import bert
+    run = BERT_LONG
+    cfg = bert_config(layers, run["mech"], max_position=run["S"])
+    main, startup, out, _, _ = build_bert(cfg, run["B"], run["S"],
+                                          run["P"])
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.random_batch(cfg, run["B"], run["S"], run["P"],
+                             rng=np.random.default_rng(seed))
+    old = fluid.get_flags("FLAGS_verify_passes")
+    fluid.set_flags({"FLAGS_verify_passes": True})
+    try:
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed=feed, fetch_list=[out["loss"]],
+                      scope=scope)
+        wall = (time.perf_counter() - t0) * 1e3
+        st = passes.stats()
+    finally:
+        fluid.set_flags(old)
+    rec = {"phase": "bert_verified_step", "layers": cfg.num_layers,
+           "ops": len(main.global_block().ops),
+           "verify_ms": exe.verify_ms, "pipeline_verify_ms": st["verify_ms"],
+           "pass_total_ms": st["total_ms"], "step_ms": wall,
+           "loss": float(np.ravel(lv)[0])}
+    rec["ok"] = bool(np.isfinite(rec["loss"])) and exe.verify_ms > 0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"the verified BERT step is off: {rec}")
+    return rec
+
+
+def eval_bert_entry(torch, np, layers=None, place=None, seed=5):
+    """``__graft_entry__.entry()``'s evaluation: BERT-base at B8 S128 P20
+    through ``main.clone(for_test=True)`` (fp32, dropout as is_test): a
+    finite loss, the same on a second run."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert_config(layers)
+    B, S, P = 8, 128, 20
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = bert.bert_pretrain(cfg, B, S, P)
+    test = main.clone(for_test=True)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = bert.random_batch(cfg, B, S, P, rng=np.random.default_rng(seed))
+    runs = [float(np.ravel(exe.run(test, feed=feed,
+                                   fetch_list=[out["loss"]],
+                                   scope=scope)[0])[0]) for _ in range(2)]
+    rec = {"phase": "eval_bert_entry", "B": B, "S": S, "P": P,
+           "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "losses": runs}
+    rec["ok"] = bool(np.isfinite(runs[0])) and runs[0] == runs[1]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"BERT evaluation is off: {rec}")
+    return rec
+
+
+def bert_small(torch, np, place=None, layers=2, B=8, S=2048, P=64):
+    """BERT-base width, ``layers`` deep, flash, dropout 0, bf16 AMP:
+    ``bert_grad_check`` (every param@GRAD through the kernels against the
+    composite, within 2e-2 of its max |grad|, as GPT's AMP check) and
+    ``bert_falls`` (5 steps at a constant lr 1e-4: step 4 below step 0;
+    the bench's noam warmup, 7e-6 to 3.6e-5 over 5 steps, moves the loss
+    less than the dropout noise would)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert_config(layers, "flash", dropout=0.0, max_position=S)
+    feed = bert.random_batch(cfg, B, S, P, rng=np.random.default_rng(6))
+    main, startup, _, _, params_grads = build_bert(cfg, B, S, P)
+    grads_vs_composite(torch, np, f"bert_grad_check_B{B}_S{S}_amp_bf16",
+                       cfg, main, startup, params_grads, feed, place, 2e-2)
+    main, startup, out, _, _ = build_bert(cfg, B, S, P, lr=1e-4)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    losses = [float(np.ravel(exe.run(main, feed=feed,
+                                     fetch_list=[out["loss"]],
+                                     scope=scope)[0])[0])
+              for _ in range(5)]
+    rec = {"phase": "bert_falls", "layers": layers, "B": B, "S": S,
+           "lr": 1e-4, "losses": losses}
+    rec["ok"] = all(np.isfinite(losses)) and losses[-1] < losses[0]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"BERT's loss does not fall: {rec}")
     return rec
 
 
@@ -1249,6 +1522,21 @@ def main():
         for dtype in ("float32", "bfloat16"):
             bwd_pair_phase(torch, fa, 8, 12, S, 64, dtype, seed=S + 8)
             torch.cuda.empty_cache()
+    # K1 and K2 at bench_bert_long's attention (B16 H12 S2048 D64,
+    # non-causal, a key bias masking each row's padded tail), then K3 +
+    # K4 off their route there against K2 and SDPA's backward
+    bert_k = {}
+    for dtype in ("float32", "bfloat16"):
+        bert_k[("fwd", dtype)] = flash_phase(
+            torch, fa, 16, 12, 2048, 64, dtype, False, "padded", seed=2049,
+            packed=True)
+        bert_k[("bwd", dtype)] = bwd_phase(
+            torch, fa, "flash_attention_bwd_single", 16, 12, 2048, 64,
+            dtype, False, "padded", seed=2050, packed=True)
+        torch.cuda.empty_cache()
+        bwd_pair_phase(torch, fa, 16, 12, 2048, 64, dtype, seed=2051,
+                       causal=False, with_bias="padded")
+        torch.cuda.empty_cache()
 
     counters = {"flash_attention_fwd": fa.flash_attention_fwd,
                 "flash_attention_bwd_single": fa.flash_attention_bwd_single,
@@ -1270,7 +1558,7 @@ def main():
                 if hasattr(c, "bf16_launches")}
         emit({"phase": f"launches_{path}", "launches": got,
               "bf16_launches": bf16})
-        if min(got[n] for n in needs) < 1:
+        if needs and min(got[n] for n in needs) < 1:
             raise AssertionError(f"a kernel of the {path} path never "
                                  f"launched: {got}")
         for n, c in got.items():
@@ -1327,6 +1615,30 @@ def main():
             torch.cuda.empty_cache()
     pipeline_ab(torch, np, small, 8, 1024)
     dynamic_scaling(torch, np, small, 8, 1024, 3)
+    torch.cuda.empty_cache()
+
+    # BERT-base pretraining, bench.py's two trainers: bert_long (K1, K2 in
+    # bf16, once per layer and step each) and the flagship (einsum
+    # attention: no kernel of the port)
+    bert_needs = ("flash_attention_fwd", "flash_attention_bwd_single")
+    for run, needs in ((BERT_LONG, bert_needs), (BERT_FLAGSHIP, ())):
+        rec, got, bf16 = drive(
+            f"train_{run['name']}_amp_bf16", needs,
+            lambda run=run: bert_train_phase(torch, np, run, 5))
+        rec["launches_per_step"] = {n: c / rec["steps"]
+                                    for n, c in got.items()}
+        rec["bf16_launches_per_step"] = {n: c / rec["steps"]
+                                         for n, c in bf16.items()}
+        emit(rec)
+        want = {n: rec["layers"] * rec["steps"] if n in needs else 0
+                for n in got}
+        if got != want or any(bf16[n] != got[n] for n in needs):
+            failures.append(f"{run['name']} launched {got} (bf16 {bf16}), "
+                            f"not once per layer and step: {want}")
+    drive("eval_bert_entry", (), lambda: eval_bert_entry(torch, np))
+    drive("bert_verified_step", bert_needs,
+          lambda: bert_verified_step(torch, np))
+    bert_small(torch, np)
     torch.cuda.empty_cache()
 
     kernels = []

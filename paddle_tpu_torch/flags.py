@@ -35,8 +35,8 @@ _DEFS = {
     # "1" = dce,cse,fuse_optimizer; "0" = off (the program runs as
     # built); or a comma-separated pass list, run in canonical order
     "program_passes": ("1", str),
-    # per-pass translation validation: the verifier is not ported, so
-    # True raises NotImplementedError when a pipeline runs
+    # program verification: each executor memo miss verifies the user
+    # program and every pass's output (framework/analysis.py)
     "verify_passes": (False, bool),
     # byte cap of one fused-optimizer bucket, in megabytes of parameters
     "fuse_optimizer_bucket_mb": (64, int),

@@ -7,25 +7,30 @@ executor's device (``place=None`` is the GPU and raises without one).
 
 Before it runs, a program goes through the ``FLAGS_program_passes``
 pipeline (``passes.optimize_program``: dce, cse, fuse_optimizer by
-default) on a clone, memoized on (program uid, program version, fetch
-names, pipeline signature); the user's program is never mutated, and
-``FLAGS_program_passes="0"`` runs it as built. Scope state the block
-reads comes in from the scope, persistable vars it writes go back to it
-when the run ends, and every other var is dropped from the env after its
-last reader (``lowering.last_uses``), so a training step holds what a
-compiler's buffer liveness would hold, not every activation and grad at
-once.
+default; under ``FLAGS_verify_passes`` the program is verified first
+and each pass's output after it) on a clone, memoized on (program uid,
+program version, fetch names, pipeline signature); the user's program
+is never mutated, and ``FLAGS_program_passes="0"`` runs it as built.
+Scope state the block reads comes in from the scope, persistable vars it
+writes go back to it when the run ends, and every other var is dropped
+from the env after its last reader (``lowering.last_uses``), so a
+training step holds what a compiler's buffer liveness would hold, not
+every activation and grad at once.
 """
+import time
+
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..flags import flag
+from .analysis import verify_program
 from .core import CPUPlace, CUDAPlace, Variable, default_main_program
 from .dtype import torch_dtype
 from .lowering import (LowerCtx, analyze_block_io, last_uses, run_ops,
                        splitmix64)
 from .passes import optimize_program, pipeline_signature
+from .passes import stats as pass_stats
 
 RNG_STATE_NAME = "@RNG_SEED@"
 
@@ -109,20 +114,43 @@ class Executor:
         else:
             raise TypeError(f"unsupported place {place!r}")
         self._opt_cache = {}
+        self.verify_ms = 0.0
 
-    def _optimize(self, program, fetch_names):
+    def _optimize(self, program, fetch_names, feed_names=(), scope=None):
         """The pipeline's clone of ``program`` (``program`` itself with
         the pipeline off), memoized: a program's version moves with every
-        edit, so an edited program is optimized again."""
+        edit, so an edited program is optimized again.
+
+        Under ``FLAGS_verify_passes`` each memo miss first verifies the
+        user program (``analysis.verify_program``, with the scope's names,
+        so reads and fetches of scope state check exactly), then every
+        pass's output; a malformed program raises ``ProgramVerifyError``
+        naming the op (and the pass) before any op runs. The feed names
+        and the scope's names join the memo key then, so a clean verdict
+        under one binding is not served to another. Verification time
+        accumulates in ``verify_ms``."""
         sig = pipeline_signature()
-        if not sig:
+        verify = flag("verify_passes")
+        if not sig and not verify:
             return program
         key = (program._uid, program.version, tuple(fetch_names), sig,
-               flag("verify_passes"))
+               verify)
+        if verify:
+            scope_names = None if scope is None else \
+                frozenset(scope.keys()) - {RNG_STATE_NAME}
+            key += (frozenset(feed_names), scope_names)
         opt = self._opt_cache.get(key)
-        if opt is None:
-            opt = self._opt_cache[key] = optimize_program(program,
-                                                          fetch_names)
+        if opt is not None:
+            return opt
+        if verify:
+            t0 = time.perf_counter()
+            verify_program(program, fetch_names=fetch_names,
+                           feed_names=feed_names, scope_names=scope_names)
+            self.verify_ms += (time.perf_counter() - t0) * 1e3
+        opt = optimize_program(program, fetch_names) if sig else program
+        if verify and sig:
+            self.verify_ms += pass_stats()["verify_ms"]
+        self._opt_cache[key] = opt
         return opt
 
     def _feed_tensor(self, block, name, val):
@@ -145,7 +173,7 @@ class Executor:
                 for k, v in (feed or {}).items()}
         fetch_names = [f.name if isinstance(f, Variable) else str(f)
                        for f in (fetch_list or [])]
-        program = self._optimize(program, fetch_names)
+        program = self._optimize(program, fetch_names, feed.keys(), scope)
         block = program.global_block()
 
         env = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}

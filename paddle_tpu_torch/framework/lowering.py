@@ -24,7 +24,8 @@ def splitmix64(x):
 
 class LowerCtx:
     """State threaded through op lowerings: the env, the device, the run
-    seed."""
+    seed, the op being run (``op``) and what a forward lowering keeps
+    for its bespoke grad (:meth:`save_for_grad`)."""
 
     def __init__(self, program, block, env, device, run_seed=0,
                  abstract=False):
@@ -34,6 +35,24 @@ class LowerCtx:
         self.device = torch.device(device)
         self.run_seed = run_seed
         self.abstract = abstract
+        self.op = None
+        self.saved = {}
+        self._grad_fwd_outs = None
+
+    def save_for_grad(self, name, value):
+        """Keep ``value`` under the forward output ``name`` for a grad op
+        of this block whose forward wrote ``name`` (it takes it with
+        ``self.saved.pop(name)``); nothing is kept when no grad op will
+        read it, or while inferring shapes."""
+        if self.abstract or self.block is None:
+            return
+        if self._grad_fwd_outs is None:
+            self._grad_fwd_outs = {
+                n for op in self.block.ops if "__fwd_op__" in op.attrs
+                for ns in op.attrs["__fwd_op__"]["outputs"].values()
+                for n in ns}
+        if name in self._grad_fwd_outs:
+            self.saved[name] = value
 
     def generator(self, attrs):
         """A fresh ``torch.Generator`` on the ctx's device for one
@@ -62,6 +81,7 @@ def run_ops(ctx, free_after=None):
 
 def run_op(ctx, op):
     opdef = get_op_def(op.type)
+    ctx.op = op
     ins = {slot: [ctx.env[n] if n in ctx.env else _missing(n, op)
                   for n in names]
            for slot, names in op.inputs.items()}

@@ -17,11 +17,14 @@ the user's program (``optimize_program``), which is never mutated:
   buckets, each one ``fused_adam`` op whose outputs equal the per-param
   ops' bit for bit (``ops/optimizer_ops.py``).
 
-``amp_bf16`` wraps ``contrib.mixed_precision.rewrite_program``. Not
-ported: the passes ``sync_batch_norm``, ``hier_grad_sync`` and
-``quant_aware`` (their ops are not ported), the translation validation
-behind ``FLAGS_verify_passes``, and the profiler events and metric
-counters of each pass.
+``amp_bf16`` wraps ``contrib.mixed_precision.rewrite_program``. Under
+``FLAGS_verify_passes`` every pass's output is translation-validated
+(``analysis.PipelineValidator``): a pass that drops a live random
+stream, side effect or persistable write, or leaves a malformed program,
+raises ``analysis.ProgramVerifyError`` naming the pass. Not ported: the
+passes ``sync_batch_norm``, ``hier_grad_sync`` and ``quant_aware``
+(their ops are not ported), and the profiler events and metric counters
+of each pass.
 """
 import time
 
@@ -133,8 +136,9 @@ _last_stats = {"passes": [], "total_ms": 0.0, "verify_ms": 0.0}
 
 def stats():
     """Report of the LAST apply_passes run: per pass {pass, ops_before,
-    ops_after, bytes_before, bytes_after, ms, detail}, the pipeline's
-    total ms, and ``verify_ms`` (0.0: no validation is ported)."""
+    ops_after, bytes_before, bytes_after, ms, detail, verify_ms}, the
+    pipeline's total ms, and ``verify_ms``, the translation validation's
+    wall time (0.0 with ``FLAGS_verify_passes`` off)."""
     return {"passes": [dict(r) for r in _last_stats["passes"]],
             "total_ms": _last_stats["total_ms"],
             "verify_ms": _last_stats["verify_ms"]}
@@ -164,12 +168,14 @@ def _program_bytes(program):
     return total
 
 
-def apply_passes(program, names, **common_attrs):
+def apply_passes(program, names, _validate=None, **common_attrs):
     """Run passes over ``program`` in order. ``names`` holds registered
     names or Pass instances; a set is put in :func:`canonical_order`
     first. An unknown name raises
     :class:`UnknownPassError`. Per-pass op and byte counts and wall
-    time land in :func:`stats`."""
+    time land in :func:`stats`. ``_validate`` (an
+    ``analysis.PipelineValidator``) checks each pass's output and adds
+    its time to the pass's row as ``verify_ms``."""
     if isinstance(names, (set, frozenset)):
         names = canonical_order(list(names))
     rows = []
@@ -190,11 +196,15 @@ def apply_passes(program, names, **common_attrs):
         detail = getattr(p, "_report", None)
         if detail:
             row["detail"] = dict(detail)
+        if _validate is not None:
+            _validate.after_pass(program, pname)
+            row["verify_ms"] = _validate.last_pass_ms
         rows.append(row)
         ops, nbytes = ops_after, bytes_after
     _last_stats["passes"] = rows
     _last_stats["total_ms"] = (time.perf_counter() - t_pipeline) * 1e3
-    _last_stats["verify_ms"] = 0.0
+    _last_stats["verify_ms"] = (_validate.verify_ms
+                                if _validate is not None else 0.0)
     return program
 
 
@@ -250,20 +260,31 @@ def optimize_program(program, fetch_names=(), spec=None):
     """Run the configured pipeline over a CLONE of ``program`` and return
     it; the caller's program is never mutated. With the pipeline off the
     original program is returned as it is. A pass that fails raises:
-    the unoptimized program is never returned in its place."""
+    the unoptimized program is never returned in its place. Under
+    ``FLAGS_verify_passes`` each pass's output is validated
+    (``analysis.PipelineValidator``); a broken one raises
+    ``ProgramVerifyError`` naming the pass."""
     names = resolve_pipeline(spec)
     if not names:
         return program
-    if _flag("verify_passes"):
-        raise NotImplementedError(
-            "paddle_tpu_torch: FLAGS_verify_passes needs the program "
-            "verifier (framework/analysis.py verify_program), which is "
-            "not ported")
     if isinstance(fetch_names, str):
         fetch_names = (fetch_names,)    # one target, not its characters
+    fetch_names = tuple(fetch_names)
     opt = program.clone()
-    apply_passes(opt, [get_pass(n, fetch_names=tuple(fetch_names))
-                       for n in names])
+    pipeline = [get_pass(n, fetch_names=fetch_names) for n in names]
+    validator = None
+    if _flag("verify_passes"):
+        from .analysis import PipelineValidator
+        # on a finding, the replay names the pass that made it
+        validator = PipelineValidator(
+            opt, fetch_names,
+            replay=lambda: (program.clone(),
+                            [get_pass(n, fetch_names=fetch_names)
+                             for n in names]))
+    apply_passes(opt, pipeline, _validate=validator)
+    if validator is not None:
+        validator.finalize(opt, last_pass_name=names[-1])
+        _last_stats["verify_ms"] = validator.verify_ms
     return opt
 
 

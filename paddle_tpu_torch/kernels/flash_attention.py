@@ -346,13 +346,16 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None
 
 
-def flash_attention_train(q, k, v, bias=None, scale=None, causal=False):
+def flash_attention_train(q, k, v, bias=None, scale=None, causal=False,
+                          return_lse2=False):
     """Attention output through :class:`FlashAttention` (the training
-    op's forward)."""
+    op's forward); with ``return_lse2`` the pair ``(out, lse2)`` the
+    backward kernels read."""
     if scale is None or scale == 0.0:
         scale = q.shape[-1] ** -0.5
-    return FlashAttention.apply(q, k, v, bias, float(scale),
-                                bool(causal))[0]
+    out, lse2 = FlashAttention.apply(q, k, v, bias, float(scale),
+                                     bool(causal))
+    return (out, lse2) if return_lse2 else out
 
 
 def _lib_bwd():

@@ -1,4 +1,5 @@
-"""Elementwise, comparison, logical and reduction layers, and the
+"""Elementwise, comparison, logical and reduction layers, ``scale``
+(``:128``), ``mean`` (``:102``), ``einsum`` (``:245``), and the
 ``Variable`` operators ``+ - * >=`` (trimmed copy of
 ``paddle_tpu/layers/math.py``)."""
 import numpy as np
@@ -36,8 +37,38 @@ def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_div", x, y, axis, act, name)
 
 
+def elementwise_min(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_min", x, y, axis, act, name)
+
+
 def elementwise_max(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_max", x, y, axis, act, name)
+
+
+def mean(x, name=None):
+    helper = LayerHelper("mean", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None,
+          name=None):
+    helper = LayerHelper("scale", name=name, act=act)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="scale", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "bias": float(bias),
+                            "bias_after_scale": bias_after_scale})
+    return helper.append_activation(out, act)
+
+
+def einsum(equation, *operands, name=None):
+    helper = LayerHelper("einsum", name=name)
+    out = helper.create_variable_for_type_inference(operands[0].dtype)
+    helper.append_op(type="einsum", inputs={"Operands": list(operands)},
+                     outputs={"Out": [out]}, attrs={"equation": equation})
+    return out
 
 
 def _cmp(op_type, x, y, cond=None):

@@ -1,5 +1,7 @@
 """NN layers (trimmed copy of ``paddle_tpu/layers/nn.py``): ``fc``,
-``embedding``, ``layer_norm``, ``dropout``, ``matmul``,
+``embedding``, ``layer_norm``, ``dropout``, ``softmax`` (``:270``),
+``tanh`` (``:294``), ``rsqrt`` (``:339``), ``topk`` (``:440``),
+``accuracy`` (``:451``), ``unsqueeze`` (``:538``), ``matmul``,
 ``flash_attention`` (``:741``)."""
 import numpy as np
 
@@ -84,6 +86,68 @@ def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
         attrs={"dropout_prob": dropout_prob, "is_test": is_test,
                "seed": seed or 0,
                "dropout_implementation": dropout_implementation})
+    return out
+
+
+def softmax(input, axis=-1, use_cudnn=False, name=None):
+    helper = LayerHelper("softmax", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="softmax", inputs={"X": [input]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def _unary(op_type, x, name=None, attrs=None):
+    helper = LayerHelper(op_type, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type=op_type, inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs=attrs or {})
+    return out
+
+
+def tanh(x, name=None):
+    return _unary("tanh", x, name)
+
+
+def rsqrt(x, name=None):
+    return _unary("rsqrt", x, name)
+
+
+def topk(input, k, name=None):
+    helper = LayerHelper("top_k", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    idx = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="top_k", inputs={"X": [input]},
+                     outputs={"Out": [out], "Indices": [idx]},
+                     attrs={"k": k})
+    return out, idx
+
+
+def accuracy(input, label, k=1, correct=None, total=None):
+    helper = LayerHelper("accuracy")
+    _, idx = topk(input, k)
+    acc = helper.create_variable_for_type_inference(dtype="float32",
+                                                    stop_gradient=True)
+    correct = correct or helper.create_variable_for_type_inference(
+        dtype="int32", stop_gradient=True)
+    total = total or helper.create_variable_for_type_inference(
+        dtype="int32", stop_gradient=True)
+    helper.append_op(
+        type="accuracy",
+        inputs={"Out": [input], "Indices": [idx], "Label": [label]},
+        outputs={"Accuracy": [acc], "Correct": [correct], "Total": [total]})
+    return acc
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper("unsqueeze", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="unsqueeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes)})
     return out
 
 

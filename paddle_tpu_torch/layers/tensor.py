@@ -1,7 +1,8 @@
 """Tensor layers (trimmed copy of ``paddle_tpu/layers/tensor.py``):
 ``data``, ``create_global_var``, ``cast``, ``fill_constant``,
-``assign``, ``reshape``, ``transpose``, ``slice``. Shapes are python
-ints; shape tensors and ``assign`` of numpy values are not ported."""
+``ones_like`` (``:163``), ``assign``, ``reshape``, ``transpose``,
+``slice``, ``gather`` (``:259``). Shapes are python ints; shape tensors
+and ``assign`` of numpy values are not ported."""
 from ..framework import initializer as init_mod
 from ..framework.core import default_main_program
 from ..framework.dtype import convert_dtype
@@ -33,6 +34,15 @@ def cast(x, dtype):
     out = helper.create_variable_for_type_inference(dtype=dtype)
     helper.append_op(type="cast", inputs={"X": [x]}, outputs={"Out": [out]},
                      attrs={"in_dtype": x.dtype, "out_dtype": dtype})
+    return out
+
+
+def ones_like(x, out=None, name=None):
+    helper = LayerHelper("ones_like", name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="fill_any_like", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"value": 1.0})
     return out
 
 
@@ -88,4 +98,13 @@ def slice(input, axes, starts, ends, name=None):
                      outputs={"Out": [out]},
                      attrs={"axes": list(axes), "starts": list(starts),
                             "ends": list(ends)})
+    return out
+
+
+def gather(input, index, axis=0, name=None):
+    helper = LayerHelper("gather", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="gather",
+                     inputs={"X": [input], "Index": [index]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
     return out

@@ -1,7 +1,8 @@
 """Elementwise, matmul and reduction ops in torch (counterpart of
 ``paddle_tpu/ops/math_ops.py``: ``elementwise_*``, ``sum :52``,
-``matmul :92``, ``mul :116``, ``reduce_sum``, the comparisons, the
-logical ops and ``isfinite :268``). Large products go to
+``scale :74``, ``matmul :92``, ``mul :116``, ``reduce_sum``, ``mean
+:174``, the comparisons, the logical ops, ``isfinite :268`` and
+``einsum :328``). Large products go to
 ``torch.matmul``, as the JAX package leaves them to XLA. ``mul`` (every
 ``fc``) has a bespoke grad: the generic vjp would recompute its forward
 product, which eager torch cannot deduplicate as XLA does."""
@@ -26,6 +27,7 @@ _ew("elementwise_add", torch.add)
 _ew("elementwise_sub", torch.sub)
 _ew("elementwise_mul", torch.mul)
 _ew("elementwise_div", torch.div)
+_ew("elementwise_min", torch.minimum)
 _ew("elementwise_max", torch.maximum)
 
 
@@ -64,6 +66,23 @@ def sum_op(ctx, ins, attrs):
     for x in xs[1:]:
         out = out + x
     return {"Out": out}
+
+
+@register_op("scale")
+def scale(ctx, ins, attrs):
+    """``x * scale + bias`` (or ``(x + bias) * scale``) in x's type; the
+    scale may come as a ``ScaleTensor`` input."""
+    x = x_of(ins)
+    s = x_of(ins, "ScaleTensor")
+    s = attrs.get("scale", 1.0) if s is None else s
+    b = attrs.get("bias", 0.0)
+    if attrs.get("bias_after_scale", True):
+        out = x * s
+        if b:
+            out = out + b
+    else:
+        out = (x + b) * s
+    return {"Out": out.to(x.dtype)}
 
 
 @register_op("matmul")
@@ -118,3 +137,16 @@ def reduce_sum(ctx, ins, attrs):
     x = x_of(ins)
     axes, keep = reduce_axes(attrs, x.dim())
     return {"Out": torch.sum(x, dim=axes, keepdim=keep)}
+
+
+@register_op("mean")
+def mean(ctx, ins, attrs):
+    """Mean of every element: a 0-d tensor, as ``jnp.mean``."""
+    return {"Out": torch.mean(x_of(ins))}
+
+
+@register_op("einsum")
+def einsum(ctx, ins, attrs):
+    """Einstein summation over the ``Operands`` list. Its grad is the
+    generic vjp (which recomputes the product), as in the JAX package."""
+    return {"Out": torch.einsum(attrs["equation"], *ins["Operands"])}

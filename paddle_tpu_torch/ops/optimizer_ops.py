@@ -47,7 +47,8 @@ def fused_adam(ctx, ins, attrs):
     ps = ins["Param"]
     dt = ps[0].dtype
     gs = [g.to(dt) for g in ins["Grad"]]
-    lr = ins["LearningRate"][0].to(dt)
+    # a scheduler's LR is a [1] var; the multi-tensor ops take a 0-d one
+    lr = ins["LearningRate"][0].to(dt).reshape(())
     b1ps = [b.to(dt) for b in ins["Beta1Pow"]]
     b2ps = [b.to(dt) for b in ins["Beta2Pow"]]
     b1, b2, eps = _hyper(attrs)

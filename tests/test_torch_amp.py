@@ -10,9 +10,9 @@ the scaled loss is inf, so every grad is inf or nan) rolls back every
 persistable the optimizer writes, bit for bit, while the scale falls and
 the counters move as the JAX package's do.
 
-The session turns the JAX package's ``FLAGS_verify_passes`` on
-(tests/conftest.py); the port has no verifier yet and raises under it,
-so these tests turn it off for the port."""
+The session turns ``FLAGS_verify_passes`` on (tests/conftest.py), for
+both packages: every program the port's executor runs is verified, and
+every pass's output validated."""
 import numpy as np
 import pytest
 import torch
@@ -30,16 +30,6 @@ from paddle_tpu_torch.models import gpt as tgpt
 B, S = 4, 16
 JAX_RNG = "@RNG_KEY@"
 LOSS_RTOL = 2e-2
-
-
-@pytest.fixture(autouse=True)
-def no_port_verifier():
-    old = tfluid.get_flags("FLAGS_verify_passes")
-    tfluid.set_flags({"FLAGS_verify_passes": False})
-    try:
-        yield
-    finally:
-        tfluid.set_flags(old)
 
 
 def build(fluid, gpt, unique_name, mp, **amp):

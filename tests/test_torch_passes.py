@@ -13,9 +13,8 @@ run through the default pipeline in both packages (the counterpart of
 unoptimized), at that test's tolerances: losses rtol 1e-4, state atol
 1e-4.
 
-The session turns the JAX package's ``FLAGS_verify_passes`` on
-(tests/conftest.py); the port has no verifier yet and raises under it,
-so these tests turn it off for the port."""
+The session turns ``FLAGS_verify_passes`` on (tests/conftest.py), for
+both packages, so each pipeline here also runs validated."""
 import numpy as np
 import pytest
 import torch
@@ -37,16 +36,6 @@ from paddle_tpu_torch.models import gpt as tgpt
 B, S = 4, 16
 JAX_RNG = "@RNG_KEY@"
 MODES = ("adam", "amp_static", "amp_dynamic")
-
-
-@pytest.fixture(autouse=True)
-def no_port_verifier():
-    old = tfluid.get_flags("FLAGS_verify_passes")
-    tfluid.set_flags({"FLAGS_verify_passes": False})
-    try:
-        yield
-    finally:
-        tfluid.set_flags(old)
 
 
 def build(fluid, gpt, unique_name, mp, mode, batch=B, seq=S):
@@ -145,10 +134,19 @@ def test_unknown_pass_names_the_registry():
 
 
 def test_verify_passes_is_not_ported():
+    """The flag that raised NotImplementedError while the verifier was
+    missing now validates every pass of the pipeline."""
     _, tmain, _, tloss = port_build("adam")
+    old = tfluid.get_flags("FLAGS_verify_passes")
     tfluid.set_flags({"FLAGS_verify_passes": True})
-    with pytest.raises(NotImplementedError, match="verifier"):
-        tpasses.optimize_program(tmain, [tloss])
+    try:
+        opt = tpasses.optimize_program(tmain, [tloss])
+    finally:
+        tfluid.set_flags(old)
+    st = tpasses.stats()
+    assert st["verify_ms"] > 0
+    assert all("verify_ms" in row for row in st["passes"])
+    assert "fused_adam" in [op.type for op in opt.global_block().ops]
 
 
 # -- fused_adam against the per-param adam ops --------------------------

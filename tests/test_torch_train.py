@@ -11,9 +11,9 @@ steps through the default pipeline), the port through
 plain versions. Tolerances: losses rtol 1e-4 and state atol 1e-4 (float32
 sums in another order over 4 steps); single ops 1e-5.
 
-The test session turns the JAX package's ``FLAGS_verify_passes`` on
-(tests/conftest.py); the port has no verifier yet and raises under that
-flag, so these tests turn it off for the port."""
+The test session turns ``FLAGS_verify_passes`` on (tests/conftest.py),
+for both packages: every program the port's executor runs is verified,
+and every pass's output validated."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,16 +44,6 @@ def _build(fluid, gpt, unique_name):
             out = gpt.gpt_pretrain(cfg, B, S)
             fluid.optimizer.AdamOptimizer(1e-3).minimize(out["loss"])
     return cfg, main, startup, out["loss"].name
-
-
-@pytest.fixture(autouse=True)
-def no_port_verifier():
-    old = tfluid.get_flags("FLAGS_verify_passes")
-    tfluid.set_flags({"FLAGS_verify_passes": False})
-    try:
-        yield
-    finally:
-        tfluid.set_flags(old)
 
 
 @pytest.fixture

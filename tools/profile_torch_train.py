@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Where a GPT training step's time goes in the PyTorch/CUDA port, on one
+"""Where a training step's time goes in the PyTorch/CUDA port, on one
 GPU.
 
-    python3 tools/profile_torch_train.py [--batch 8] [--seq 2048]
+    python3 tools/profile_torch_train.py [--model gpt|bert|bert_flagship]
+                                         [--batch N] [--seq S]
                                          [--layers 12] [--steps 3] [--amp]
 
-Builds ``gpt_pretrain`` at GPTConfig.base() widths (``--layers`` deep,
-seeded random weights, dropout 0.1) + ``AdamOptimizer(1e-4).minimize``
-(with ``--amp`` wrapped in bf16 mixed precision at a static loss scale
-of 1.0, as the repository's ``bench.py`` ``bench_gpt_long`` trains); the
-executor runs it through the default pass pipeline
-(``FLAGS_program_passes``). It runs the startup program and one warm-up
-step, times ``--steps`` steps
+``--model gpt`` (default B8 S2048) builds ``gpt_pretrain`` at
+GPTConfig.base() widths + ``AdamOptimizer(1e-4).minimize``; ``--model
+bert`` (default B16 S2048, 64 masked positions a row) builds
+``bert_pretrain`` at BertConfig.base() widths with flash attention +
+``AdamOptimizer(noam_decay(768, 10000, 200.0))``: the repository's
+``bench.py`` ``bench_gpt_long`` and ``bench_bert_long``. ``--model
+bert_flagship`` is bench.py's ``main()``: the same BERT at B64 S128
+(``--seq`` ignored), 20 masked positions a row, einsum attention with
+dropout and, under ``--amp``, softmax on the AMP white list. All are
+``--layers`` deep with seeded random weights and dropout 0.1; ``--amp``
+wraps Adam in bf16 mixed precision at a static loss scale of 1.0, as
+those benches train. The executor runs the program through the default
+pass pipeline (``FLAGS_program_passes``). It runs the startup program
+and one warm-up step, times ``--steps`` steps
 with the host clock (each ends in a fetch, which synchronizes), runs
 ``--steps`` more with a pair of CUDA events around every op of the
 program, and ``--steps`` more under ``torch.profiler``. Prints one JSON
@@ -67,7 +75,10 @@ def _kind(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--model", choices=("gpt", "bert", "bert_flagship"),
+                    default="gpt")
+    ap.add_argument("--batch", type=int,
+                    help="default 8 (gpt), 16 (bert), 64 (bert_flagship)")
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--steps", type=int, default=3)
@@ -84,23 +95,42 @@ def main():
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.framework import lowering
-    from paddle_tpu_torch.models import gpt
-    cfg = gpt.GPTConfig.base()
-    cfg.num_layers = args.layers
-    B, S = args.batch, args.seq
+    from paddle_tpu_torch.models import bert, gpt
+    S = args.seq
+    rng = np.random.default_rng(0)
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), \
             fluid.program_guard(main_prog, startup):
-        out = gpt.gpt_pretrain(cfg, B, S)
-        opt = fluid.optimizer.AdamOptimizer(1e-4)
+        if args.model == "gpt":
+            B = args.batch or 8
+            cfg = gpt.GPTConfig.base()
+            cfg.num_layers = args.layers
+            out = gpt.gpt_pretrain(cfg, B, S)
+            opt = fluid.optimizer.AdamOptimizer(1e-4)
+            feed = gpt.random_batch(cfg, B, S, rng=rng)
+        else:
+            flagship = args.model == "bert_flagship"
+            B, S, P = (args.batch or 64, 128, 20) if flagship \
+                else (args.batch or 16, S, 64)
+            cfg = bert.BertConfig.base()
+            cfg.num_layers = args.layers
+            cfg.attn_mechanism = None if flagship else "flash"
+            cfg.max_position = max(S, cfg.max_position)
+            out = bert.bert_pretrain(cfg, B, S, P)
+            opt = fluid.optimizer.AdamOptimizer(
+                fluid.layers.noam_decay(cfg.hidden_size, 10000, 200.0))
+            feed = bert.random_batch(cfg, B, S, P, rng=rng)
         if args.amp:
-            opt = fluid.contrib.mixed_precision.decorate(
-                opt, init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
+            mp = fluid.contrib.mixed_precision
+            white = {"softmax"} if args.model == "bert_flagship" else set()
+            opt = mp.decorate(
+                opt, amp_lists=mp.AutoMixedPrecisionLists(
+                    custom_white_list=white),
+                init_loss_scaling=1.0, use_dynamic_loss_scaling=False)
         opt.minimize(out["loss"])
     exe = fluid.Executor()
     scope = fluid.Scope()
     exe.run(startup, scope=scope)
-    feed = gpt.random_batch(cfg, B, S, rng=np.random.default_rng(0))
 
     def run(n):
         for _ in range(n):
@@ -153,7 +183,9 @@ def main():
                          text=True, timeout=60).stdout.strip()
     print(f"{smi}; torch {torch.__version__}", flush=True)
     print(json.dumps({
-        "batch": B, "seq": S, "layers": cfg.num_layers, "amp": args.amp,
+        "model": args.model, "batch": B, "seq": S,
+        "layers": cfg.num_layers, "amp": args.amp,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "program_passes": fluid.get_flags("FLAGS_program_passes")[
             "FLAGS_program_passes"],
         "steps": args.steps, "wall_ms_per_step": wall_ms,
