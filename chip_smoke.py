@@ -91,12 +91,44 @@ NVIDIA GPU.
    counters read back. BERT-base width, 2 layers, B8 S2048, flash, bf16
    AMP, dropout 0: every param@GRAD against the composite's within 2e-2,
    and 5 steps at a constant lr 1e-4 whose loss falls.
-6. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+6. Image classification through the Fluid surface (convolutions in
+   cuDNN, GEMMs in cuBLAS: no kernel of the port runs, as the JAX
+   package computes them outside Pallas), each path driven with the
+   launch counts zeroed and read:
+   - resnet50_train: bench.py's bench_resnet50 program, ResNet-50 at
+     full depth and width, class_dim 1000, B128 3x224x224,
+     Momentum(0.1, 0.9) under bf16 AMP with batch_norm white-listed at a
+     static loss scale of 1.0, 5 steps over a two-batch seeded pool on
+     the device: finite losses, step 0 within 1.0 of ln(1000); all 53
+     conv outputs and 53 batch_norm Y bf16 (declared and on the device);
+     every moving mean and variance float32 and moved off (0, 1) in step
+     0; fused_momentum in place of the 161 momentum ops; ms/step (median
+     of steps 1-4), images/s, TFLOP/s (2 x the conv and fc multiply-adds
+     x 3, from the program's shapes) and peak memory;
+   - resnet50_eval: clone(for_test=True) of the fp32 program at B128
+     over the trained scope, loss and acc finite and repeatable, its
+     logits other than a train-mode forward's (it reads the moving
+     statistics);
+   - resnet18_tiny_trains: JAX's test_resnet18_tiny_trains (ResNet-18,
+     class_dim 4, 32x32, B8, Momentum(0.01, 0.9), 12 steps): last loss
+     below 0.7 x the first;
+   - resnet_grads: ResNet-18 32x32 B8 fp32, every param@GRAD with the
+     bespoke conv2d_grad and batch_norm_grad against the generic vjp over
+     the same lowerings, within 1e-3 of its max |grad| (cuDNN's TF32
+     setting printed);
+   - lenet_train: build_lenet_train() with Adam (lr 0.001) and SGD (lr
+     0.01) at B512, 32 Executor.run steps each over synthetic digits:
+     steps/s, samples/s, finite and falling losses;
+   - fused_optimizers: fused_sgd, fused_momentum (plain and Nesterov)
+     and fused_adamw over ResNet-50's 161 parameter shapes, bitwise
+     their per-param ops, each timed beside the 161 per-param ops.
+7. Prints the {"kernels": [...]} line (K1-K5), then as the last line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -930,12 +962,17 @@ def build_train(cfg, B, S, amp=None):
     return main, startup, out["loss"], params_grads, opt
 
 
+UPDATE_OPS = ("sgd", "momentum", "adam", "adamw")
+
+
 def optimizer_ops(exe, program, fetch_names):
-    """{op type: count} of the optimizer update ops in the program the
-    executor runs for ``program`` (the pass pipeline's output)."""
+    """{op type: count} of the optimizer update ops (per-param and
+    fused) in the program the executor runs for ``program`` (the pass
+    pipeline's output)."""
     ops = exe._optimize(program, fetch_names).global_block().ops
-    return {t: sum(op.type == t for op in ops)
-            for t in ("adam", "fused_adam")}
+    types = UPDATE_OPS + tuple("fused_" + t for t in UPDATE_OPS)
+    counts = {t: sum(op.type == t for op in ops) for t in types}
+    return {t: n for t, n in counts.items() if n}
 
 
 def train_phase(torch, np, cfg, B, S, steps, place=None, seed=0, amp=None):
@@ -1374,6 +1411,384 @@ def bert_small(torch, np, place=None, layers=2, B=8, S=2048, P=64):
     return rec
 
 
+# ------------------------------------ image classification (ResNet, LeNet)
+
+RESNET50 = {"depth": 50, "classes": 1000, "B": 128, "hw": 224}
+
+
+def build_resnet(depth, classes, B, hw, lr=0.1, amp=False):
+    """``resnet_train_program`` + ``Momentum(lr, 0.9)``; ``amp`` wraps it
+    as bench.py's ``bench_resnet50`` does (bf16, batch_norm on the AMP
+    white list, static loss scale 1.0). Returns (main, startup,
+    outputs, params_grads)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    mp = fluid.contrib.mixed_precision
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = resnet.resnet_train_program(depth=depth, class_dim=classes,
+                                          image_shape=(3, hw, hw),
+                                          batch_size=B)
+        opt = fluid.optimizer.Momentum(lr, 0.9)
+        if amp:
+            opt = mp.decorate(opt, amp_lists=mp.AutoMixedPrecisionLists(
+                custom_white_list={"batch_norm"}), init_loss_scaling=1.0,
+                use_dynamic_loss_scaling=False)
+        _, params_grads = opt.minimize(out["loss"])
+    return main, startup, out, params_grads
+
+
+def conv_fc_flops_per_step(program):
+    """Analytic FLOPs of one training step from the program's ``conv2d``
+    and ``mul`` (fc) shapes: 2 x multiply-adds of the forward, x3 for
+    the forward and the backward's two products."""
+    block = program.global_block()
+    macs = 0
+    for op in block.ops:
+        if op.type == "conv2d":
+            o = block.var(op.output("Output")[0]).shape
+            w = block.var(op.input("Filter")[0]).shape
+            macs += o[0] * o[1] * o[2] * o[3] * w[1] * w[2] * w[3]
+        elif op.type == "mul":
+            x = block.var(op.input("X")[0]).shape
+            w = block.var(op.input("Y")[0]).shape
+            macs += x[0] * w[0] * w[1]
+    return 2 * macs * 3
+
+
+def image_pool(torch, np, B, hw, classes, device, seed=0):
+    """The two-batch seeded feed pool of bench.py's ``_device_pool``
+    (normal images, uniform labels), staged on ``device``."""
+    rng = np.random.default_rng(seed)
+    return [{"image": torch.from_numpy(rng.standard_normal(
+                (B, 3, hw, hw)).astype(np.float32)).to(device),
+             "label": torch.from_numpy(rng.integers(
+                 0, classes, (B, 1)).astype(np.int64)).to(device)}
+            for _ in range(2)]
+
+
+def resnet_train_phase(torch, np, run=RESNET50, steps=5, place=None,
+                       seed=0):
+    """``bench_resnet50``'s program (Momentum(0.1, 0.9), bf16 AMP with
+    batch_norm white-listed) for ``steps`` steps over the two-batch
+    pool: finite losses, the first within 1.0 of ln(classes); every
+    conv2d output and batch_norm Y bf16 (in the program and, in one more
+    step that fetches them, on the device); the moving mean and variance
+    moved off (0, 1) in step 0 and float32; the pipeline's fused_momentum
+    in place of the per-param updates. Returns (record, main, scope,
+    executor)."""
+    import paddle_tpu_torch as fluid
+    main, startup, out, _ = build_resnet(run["depth"], run["classes"],
+                                         run["B"], run["hw"], amp=True)
+    block = main.global_block()
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    pool = image_pool(torch, np, run["B"], run["hw"], run["classes"],
+                      exe.device, seed)
+    stats = [v.name for v in block.vars.values()
+             if v.name.endswith(("_bn_mean", "_bn_variance"))]
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    losses, wall, moved = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        lv, = exe.run(main, feed=pool[i % 2], fetch_list=[out["loss"]],
+                      scope=scope)
+        wall.append((time.perf_counter() - t0) * 1e3)  # fetch syncs
+        losses.append(float(np.ravel(lv)[0]))
+        if i == 0:
+            moved = {
+                "float32": all(scope.find_var(n).dtype == torch.float32
+                               for n in stats),
+                "changed": sum(not torch.equal(
+                    scope.find_var(n), torch.zeros_like(scope.find_var(n))
+                    if n.endswith("_mean") else
+                    torch.ones_like(scope.find_var(n))) for n in stats),
+                "of": len(stats)}
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    outs = [op.output("Output" if op.type == "conv2d" else "Y")[0]
+            for op in block.ops if op.type in ("conv2d", "batch_norm")]
+    declared = {block.var(n).dtype for n in outs}
+    vals = exe.run(main, feed=pool[0], fetch_list=outs, scope=scope,
+                   return_numpy=False)
+    on_device = {str(v.dtype) for v in vals}
+    del vals
+    step_ms = float(np.median(wall[1:])) if steps > 1 else wall[0]
+    flops = conv_fc_flops_per_step(main)
+    start = float(np.log(run["classes"]))
+    rec = {"phase": f"resnet{run['depth']}_train",
+           "B": run["B"], "image": run["hw"], "classes": run["classes"],
+           "optimizer": "Momentum(0.1, 0.9)",
+           "amp": "bf16, batch_norm white-listed, static loss scale 1.0",
+           "steps": steps, "losses": losses, "step_ms": wall,
+           "median_step_ms_after_first": step_ms,
+           "images_per_s": run["B"] / step_ms * 1e3,
+           "analytic_flops_per_step": flops,
+           "analytic_flops_per_image": flops / run["B"],
+           "achieved_tflops": flops / step_ms / 1e9, "peak_mem_gb": peak,
+           "conv_ops": sum(op.type == "conv2d" for op in block.ops),
+           "conv_and_bn_outputs": len(outs),
+           "declared_dtypes": sorted(declared),
+           "device_dtypes": sorted(on_device),
+           "moving_stats_after_step0": moved,
+           "optimizer_ops_per_step": optimizer_ops(exe, main,
+                                                   [out["loss"].name]),
+           "ln_classes": start}
+    ok = (all(np.isfinite(losses)) and abs(losses[0] - start) <= 1.0
+          and declared == {"bfloat16"} and on_device == {"torch.bfloat16"}
+          and moved["float32"] and moved["changed"] == moved["of"]
+          and "momentum" not in rec["optimizer_ops_per_step"]
+          and rec["optimizer_ops_per_step"].get("fused_momentum", 0) >= 1)
+    if not ok:
+        emit(rec)
+        raise AssertionError(f"ResNet training is off: {rec}")
+    return rec, scope, exe
+
+
+def resnet_eval_phase(torch, np, scope, exe, run=RESNET50, seed=7):
+    """``clone(for_test=True)`` of the fp32 ResNet program at the run's
+    batch, over the trained scope, fetching loss and acc (and logits):
+    finite, the same on a second (timed) run, and other logits than a
+    train-mode forward (batch statistics) on the same batch gives."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = resnet.resnet_train_program(
+            depth=run["depth"], class_dim=run["classes"],
+            image_shape=(3, run["hw"], run["hw"]), batch_size=run["B"])
+    test = main.clone(for_test=True)
+    feed = image_pool(torch, np, run["B"], run["hw"], run["classes"],
+                      exe.device, seed)[0]
+    fetch = [out["loss"], out["acc"], out["logits"]]
+    loss, acc, logits = exe.run(test, feed=feed, fetch_list=fetch,
+                                scope=scope)
+    t0 = time.perf_counter()            # the second run: warm
+    again, _, _ = exe.run(test, feed=feed, fetch_list=fetch, scope=scope)
+    ms = (time.perf_counter() - t0) * 1e3
+    train_logits, = exe.run(main, feed=feed, fetch_list=[out["logits"]],
+                            scope=scope)
+    diff = float(np.abs(train_logits - logits).max())
+    rec = {"phase": f"resnet{run['depth']}_eval", "B": run["B"],
+           "dtype": "float32", "loss": float(np.ravel(loss)[0]),
+           "acc": float(np.ravel(acc)[0]), "warm_ms": ms,
+           "batch_norm_is_test": all(op.attrs["is_test"] for op in
+                                     test.global_block().ops
+                                     if op.type == "batch_norm"),
+           "max_abs_logit_diff_vs_train_forward": diff,
+           "max_abs_logit": float(np.abs(logits).max())}
+    rec["ok"] = (bool(np.isfinite(rec["loss"]))
+                 and float(np.ravel(again)[0]) == rec["loss"]
+                 and rec["batch_norm_is_test"]
+                 and diff > 1e-3 * rec["max_abs_logit"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"ResNet evaluation is off: {rec}")
+    return rec
+
+
+def tiny_feed(torch, np, device, seed=0):
+    """JAX's ``test_resnet18_tiny_trains`` batch (B8 32x32, 4 classes):
+    normal images with a class-dependent offset on one channel."""
+    rng = np.random.default_rng(seed)
+    xv = rng.standard_normal((8, 3, 32, 32)).astype(np.float32)
+    yv = rng.integers(0, 4, (8, 1)).astype(np.int64)
+    for i in range(8):
+        xv[i, yv[i, 0] % 3] += 1.5
+    return {"image": torch.from_numpy(xv).to(device),
+            "label": torch.from_numpy(yv).to(device)}
+
+
+def resnet18_tiny_trains(torch, np, place=None, steps=12):
+    """JAX's ``test_resnet18_tiny_trains``: ResNet-18, class_dim 4,
+    32x32, B8, ``MomentumOptimizer(0.01, 0.9)``, fp32, 12 steps on one
+    batch: the last loss below 0.7 x the first."""
+    import paddle_tpu_torch as fluid
+    main, startup, out, _ = build_resnet(18, 4, 8, 32, lr=0.01)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    feed = tiny_feed(torch, np, exe.device)
+    losses = [float(np.ravel(exe.run(main, feed=feed,
+                                     fetch_list=[out["loss"]],
+                                     scope=scope)[0])[0])
+              for _ in range(steps)]
+    rec = {"phase": "resnet18_tiny_trains", "losses": losses,
+           "limit": "last < 0.7 x first"}
+    rec["ok"] = all(np.isfinite(losses)) and losses[-1] < 0.7 * losses[0]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"ResNet-18 does not train: {rec}")
+    return rec
+
+
+def resnet_grads(torch, np, place=None, limit=1e-3):
+    """ResNet-18 at 32x32 B8 fp32: every param@GRAD with the bespoke
+    ``conv2d_grad`` and ``batch_norm_grad`` against the generic vjp over
+    the same lowerings (the bespoke grads switched off), each within
+    ``limit`` of the generic grad's max |value|. cuDNN's TF32 setting
+    (torch's default, not changed here) is in the record."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework.registry import OPS
+    from paddle_tpu_torch.models import resnet
+    prog, start = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, start):
+        o = resnet.resnet_train_program(depth=18, class_dim=4,
+                                        image_shape=(3, 32, 32),
+                                        batch_size=8)
+        params_grads = fluid.append_backward(o["loss"])
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(start, scope=scope)
+    feed = tiny_feed(torch, np, exe.device, seed=1)
+    names = [g.name for _, g in params_grads]
+    state = {n: v.clone() for n, v in scope.items()
+             if isinstance(v, torch.Tensor)}
+    bespoke = exe.run(prog, feed=feed, fetch_list=names, scope=scope)
+    for n, v in state.items():          # the moving statistics moved
+        scope.set(n, v)
+    saved = {t: OPS[t].custom_grad_lower for t in ("conv2d", "batch_norm")}
+    try:
+        for t in saved:
+            OPS[t].custom_grad_lower = None
+        generic = exe.run(prog.clone(), feed=feed, fetch_list=names,
+                          scope=scope)
+    finally:
+        for t, fn in saved.items():
+            OPS[t].custom_grad_lower = fn
+    errs = {n: float(np.abs(a - b).max()) / max(float(np.abs(b).max()),
+                                                 1e-30)
+            for n, a, b in zip(names, bespoke, generic)}
+    worst = max(errs, key=errs.get)
+    rec = {"phase": "resnet_grads", "model": "ResNet-18 32x32 B8 fp32",
+           "grads": len(names), "worst": worst, "worst_err": errs[worst],
+           "limit": limit,
+           "cudnn_allow_tf32": bool(torch.backends.cudnn.allow_tf32)}
+    rec["ok"] = errs[worst] <= limit
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"the bespoke grads disagree: {rec}")
+    return rec
+
+
+def synthetic_digits(np, n, seed=0):
+    """Separable 28x28 digits (the JAX package's LeNet test data): class
+    k lights up a distinct patch."""
+    rng = np.random.RandomState(seed)
+    labels = rng.randint(0, 10, size=(n, 1)).astype("int64")
+    imgs = rng.randn(n, 1, 28, 28).astype("float32") * 0.1
+    for i, k in enumerate(labels[:, 0]):
+        r, c = divmod(int(k), 5)
+        imgs[i, 0, r * 10:r * 10 + 8, c * 5:c * 5 + 4] += 1.0
+    return imgs, labels
+
+
+def lenet_train(torch, np, optimizer, lr, place=None, B=512, steps=32):
+    """``build_lenet_train`` (``optimizer`` "adam" or "sgd") at
+    bench_train_loop's on-card batch, ``steps`` ``Executor.run`` steps
+    over a two-batch pool of synthetic digits on the device: steps/s,
+    samples/s; finite losses, the last two below the first two."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.lenet import build_lenet_train
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_lenet_train(lr=lr,
+                                                      optimizer=optimizer)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    imgs, labels = synthetic_digits(np, 2 * B)
+    pool = [{"img": torch.from_numpy(imgs[i * B:(i + 1) * B]).to(exe.device),
+             "label": torch.from_numpy(labels[i * B:(i + 1) * B]).to(
+                 exe.device)} for i in range(2)]
+    exe.run(main, feed=pool[1], fetch_list=[fetches[0]], scope=scope)
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        lv, = exe.run(main, feed=pool[i % 2], fetch_list=[fetches[0]],
+                      scope=scope, return_numpy=False)
+        losses.append(lv)
+    losses = [float(v) for v in losses]         # one sync at the end
+    sec = time.perf_counter() - t0
+    rec = {"phase": f"lenet_train_{optimizer}", "B": B, "lr": lr,
+           "steps": steps, "steps_per_s": steps / sec,
+           "samples_per_s": steps * B / sec, "losses": losses,
+           "optimizer_ops_per_step": optimizer_ops(exe, main,
+                                                   [fetches[0].name])}
+    rec["ok"] = (all(np.isfinite(losses))
+                 and sum(losses[-2:]) < sum(losses[:2]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"LeNet does not train: {rec}")
+    return rec
+
+
+def fused_optimizers(torch, np, device=None, seed=0):
+    """One step of ``fused_sgd``, ``fused_momentum`` (plain and Nesterov)
+    and ``fused_adamw`` over ResNet-50's 161 parameter shapes on the
+    device, each output held bitwise to its per-param op's; the fused
+    bucket and the 161 per-param ops timed (CUDA events)."""
+    from paddle_tpu_torch.framework.lowering import LowerCtx
+    from paddle_tpu_torch.framework.registry import get_op_def
+    from paddle_tpu_torch.models import resnet
+    device = device or "cuda"
+    shapes = [s for n, s in resnet.param_shapes(50, 1000).items()
+              if not n.endswith(("_bn_mean", "_bn_variance"))]
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def t(shape, lo=False):
+        x = torch.randn(shape, generator=gen, device=device)
+        return x.abs() if lo else x
+
+    ctx = LowerCtx(None, None, {}, device)
+    cases = {"sgd": ("sgd", {}),
+             "momentum": ("momentum", {"mu": 0.9, "use_nesterov": False}),
+             "momentum_nesterov": ("momentum", {"mu": 0.9,
+                                                "use_nesterov": True}),
+             "adamw": ("adamw", {"beta1": 0.9, "beta2": 0.999,
+                                 "epsilon": 1e-8, "coeff": 0.01})}
+    recs = []
+    for case, (op, attrs) in cases.items():
+        ins = {"Param": [t(s) for s in shapes],
+               "Grad": [t(s) for s in shapes],
+               "LearningRate": [torch.tensor(0.1, device=device)]}
+        if op == "momentum":
+            ins["Velocity"] = [t(s) for s in shapes]
+        if op == "adamw":
+            ins["Moment1"] = [t(s) for s in shapes]
+            ins["Moment2"] = [t(s, lo=True) for s in shapes]
+            ins["Beta1Pow"] = [torch.tensor(0.9 ** 3, device=device)
+                               for _ in shapes]
+            ins["Beta2Pow"] = [torch.tensor(0.999 ** 3, device=device)
+                               for _ in shapes]
+        fused_fn = get_op_def("fused_" + op).lower
+        per_fn = get_op_def(op).lower
+
+        def per_param():
+            return [per_fn(ctx, {k: [v[i]] if len(v) > 1 else v
+                                 for k, v in ins.items()}, attrs)
+                    for i in range(len(shapes))]
+
+        fused = fused_fn(ctx, ins, attrs)
+        per = per_param()
+        same = all(torch.equal(fused[slot][i], one[slot])
+                   for i, one in enumerate(per) for slot in one)
+        rec = {"phase": f"fused_optimizers_{case}", "params": len(shapes),
+               "elements": sum(math.prod(s) for s in shapes),
+               "bitwise_equal": bool(same)}
+        if device != "cpu":
+            rec["fused_ms"] = event_ms(torch, lambda: fused_fn(ctx, ins,
+                                                               attrs), 5)
+            rec["per_param_ms"] = event_ms(torch, per_param, 5)
+        emit(rec)
+        recs.append(rec)
+        if not same:
+            raise AssertionError(f"fused_{op} differs from {op}: {rec}")
+    return recs
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1639,6 +2054,27 @@ def main():
     drive("bert_verified_step", bert_needs,
           lambda: bert_verified_step(torch, np))
     bert_small(torch, np)
+    torch.cuda.empty_cache()
+
+    # ResNet-50 (bench.py's bench_resnet50) and LeNet (BASELINE config 1):
+    # convolutions in cuDNN, GEMMs in cuBLAS, no kernel of the port
+    trained = {}
+
+    def resnet50():
+        rec, trained["scope"], trained["exe"] = resnet_train_phase(torch, np)
+        return rec
+
+    rec, _, _ = drive("resnet50_train", (), resnet50)
+    emit(rec)
+    drive("resnet50_eval", (), lambda: resnet_eval_phase(
+        torch, np, trained["scope"], trained["exe"]))
+    trained.clear()
+    drive("resnet18_tiny_trains", (), lambda: resnet18_tiny_trains(torch, np))
+    resnet_grads(torch, np)
+    for opt, lr in (("adam", 0.001), ("sgd", 0.01)):
+        drive(f"lenet_train_{opt}", (),
+              lambda opt=opt, lr=lr: lenet_train(torch, np, opt, lr))
+    fused_optimizers(torch, np)
     torch.cuda.empty_cache()
 
     kernels = []

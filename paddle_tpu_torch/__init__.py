@@ -1,17 +1,20 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu, for an NVIDIA
 H100.
 
-Two slices are ported:
+Ported so far:
 
-- GPT causal training through the Fluid surface, used as
-  ``import paddle_tpu_torch as fluid``: ``fluid.Program``,
-  ``fluid.layers``, ``fluid.optimizer.AdamOptimizer(lr).minimize(loss)``
-  (``append_backward`` + Adam ops), bf16 mixed precision
-  (``fluid.contrib.mixed_precision.decorate``) and
+- Training through the Fluid surface, used as ``import paddle_tpu_torch
+  as fluid``: ``fluid.Program``, ``fluid.layers``, the optimizers
+  (``SGD``, ``Momentum``, ``Adam``, ``AdamW``; ``minimize`` =
+  ``append_backward`` + update ops), the LR schedulers, bf16 mixed
+  precision (``fluid.contrib.mixed_precision.decorate``) and
   ``fluid.Executor().run``, which runs the program through the default
-  pass pipeline (``framework.passes``: dce, cse, fuse_optimizer) and
-  interprets it op by op on torch tensors (``models.gpt.gpt_pretrain``
-  builds the program).
+  pass pipeline (``framework.passes``: dce, cse, fuse_optimizer; the
+  program verifier under ``FLAGS_verify_passes``) and interprets it op
+  by op on torch tensors. The models: GPT (``models.gpt.gpt_pretrain``),
+  BERT (``models.bert.bert_pretrain``), ResNet
+  (``models.resnet.resnet_train_program``) and LeNet
+  (``models.lenet.build_lenet_train``).
 - GPT generation serving: the KV-cached GPT (``models.GPT``), offline
   generation (``models.GPTGenerator``) over a dense or block-paged KV
   cache, and the continuous-batching server (``serving.InferenceServer``
@@ -19,9 +22,10 @@ Two slices are ported:
 
 Attention runs on hand-written CUDA kernels for sm_90a, built with nvcc
 on first use: flash-attention forward and backward, and paged decode
-attention. Entry points take ``place``/``device`` None (the GPU) and
-raise without one; pass ``fluid.CPUPlace()`` / ``device="cpu"`` for the
-plain PyTorch versions.
+attention; convolutions and GEMMs run in cuDNN and cuBLAS through torch,
+as the JAX package leaves them to XLA. Entry points take
+``place``/``device`` None (the GPU) and raise without one; pass
+``fluid.CPUPlace()`` / ``device="cpu"`` for the plain PyTorch versions.
 
 The package imports torch, numpy and the standard library only — never
 JAX and never ``paddle_tpu``.

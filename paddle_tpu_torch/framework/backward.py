@@ -4,9 +4,9 @@ A trimmed copy of ``paddle_tpu/framework/backward.py``: the same grad
 ops, named and ordered as there, appended to the same program. Each
 ``T_grad`` op's lowering is the torch vjp of T's forward
 (``registry.generic_grad_lower``) unless T registered a bespoke one.
-Left out: recompute checkpoints, error clipping, grad-op callbacks, and
-the snapshots of forward names that a later op rebinds (a program that
-rebinds a name before the backward is refused instead).
+A forward value whose name the op or a later op rebinds is saved by an
+``assign`` before the op, as there. Left out: recompute checkpoints,
+error clipping and grad-op callbacks.
 """
 from collections import defaultdict
 
@@ -80,20 +80,36 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
             need.update(diff_inputs)
             emit_plan.append(op)
 
-    # grad ops read forward values by name: a name written again at or
-    # after its reader would hand the vjp the wrong primal
+    # ---- snapshot primals that get rebound ----
+    # Grad ops read forward values by name. A name the op itself or a
+    # later forward op writes again (batch_norm's MeanOut rebinding Mean)
+    # would hand the grad the newer value: an ``assign`` just before the
+    # op saves it, and the grad op reads the saved copy.
+    pos_of = {id(op): i for i, op in enumerate(fwd_ops)}
     writer_pos = defaultdict(list)
     for i, op in enumerate(fwd_ops):
         for n in op.output_arg_names:
             writer_pos[n].append(i)
+    save_map = {}           # id(op) -> {name: saved name}
+    save_plan = []          # (pos, name, saved name)
+    for op in emit_plan:
+        p = pos_of[id(op)]
+        m = {}
+        for n in dict.fromkeys(op.input_arg_names):
+            if any(q >= p for q in writer_pos.get(n, ())):
+                m[n] = f"{n}@SAVED@{p}"
+                save_plan.append((p, n, m[n]))
+        if m:
+            save_map[id(op)] = m
+    for p, n, sn in sorted(save_plan, reverse=True):
+        v = block.var(n)
+        block.create_var(name=sn, shape=v.shape, dtype=v.dtype,
+                         stop_gradient=True)
+        block._insert_op(p, type="assign", inputs={"X": [n]},
+                         outputs={"Out": [sn]},
+                         attrs={OP_ROLE_KEY: OpRole.Backward},
+                         infer_shape=False)
     emit_set = {id(op) for op in emit_plan}
-    for i, op in enumerate(fwd_ops):
-        if id(op) in emit_set and any(q >= i for n in op.input_arg_names
-                                   for q in writer_pos.get(n, ())):
-            raise NotImplementedError(
-                f"op {op.type!r} reads a var that it or a later op "
-                f"rebinds; paddle_tpu_torch's append_backward does not "
-                f"snapshot rebound forward values")
 
     # ---- seed grads ----
     grad_map = defaultdict(list)   # var name -> partial grad names
@@ -188,11 +204,14 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
                 g_outs[slot + "@GRAD"] = outs
         if not grad_inputs_req:
             continue
-        # inputs: the forward inputs (the vjp's primals) + upstream grads;
-        # the forward outputs are recomputed by the grad lowering
+        # inputs: the forward inputs (the vjp's primals; rebound names
+        # from their saved copies) + upstream grads; the forward outputs
+        # are recomputed by the grad lowering
+        sm = save_map.get(id(op), {})
         block.append_op(
             type=op.type + "_grad",
-            inputs={**{s: list(ns) for s, ns in op.inputs.items()},
+            inputs={**{s: [sm.get(n, n) for n in ns]
+                       for s, ns in op.inputs.items()},
                     **g_ins},
             outputs=g_outs,
             attrs={"__fwd_op__": op.to_dict(),

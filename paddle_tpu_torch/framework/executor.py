@@ -163,7 +163,8 @@ class Executor:
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
             return_numpy=True):
         """Run ``program``'s global block once; returns the fetched
-        values (numpy arrays, or tensors with ``return_numpy=False``).
+        values (numpy arrays, bf16 as float32, or tensors with
+        ``return_numpy=False``).
         ``fetch_list`` may name any var the block computes, ``param@GRAD``
         names included."""
         program = program if program is not None else default_main_program()
@@ -207,8 +208,17 @@ class Executor:
             scope.set(n, env[n])
         scope.set(RNG_STATE_NAME, splitmix64(run_seed))
         if return_numpy:
-            return [f.detach().cpu().numpy() for f in fetches]
+            return [_to_numpy(f) for f in fetches]
         return fetches
+
+
+def _to_numpy(t):
+    """A fetched tensor as a numpy array; bf16, which numpy lacks, comes
+    back as float32 (every bf16 value is exact in it)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
 
 
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "RNG_STATE_NAME", "Scope",

@@ -12,10 +12,11 @@ the user's program (``optimize_program``), which is never mutated:
   side-effecting op needs;
 - ``cse``: merge identical pure ops of the global block (the same type,
   attrs and inputs at the same binding version);
-- ``fuse_optimizer``: per-param ``adam`` ops of one (dtype,
-  hyperparameters, LR var, beta-pow shape) group join byte-capped
-  buckets, each one ``fused_adam`` op whose outputs equal the per-param
-  ops' bit for bit (``ops/optimizer_ops.py``).
+- ``fuse_optimizer``: per-param ``sgd``, ``momentum``, ``adam`` and
+  ``adamw`` ops of one (type, dtype, hyperparameters, LR var, beta-pow
+  shape) group join byte-capped buckets, each one ``fused_<type>`` op
+  whose outputs equal the per-param ops' bit for bit
+  (``ops/optimizer_ops.py``).
 
 ``amp_bf16`` wraps ``contrib.mixed_precision.rewrite_program``. Under
 ``FLAGS_verify_passes`` every pass's output is translation-validated
@@ -421,27 +422,31 @@ class CommonSubexpressionEliminationPass(Pass):
 
 
 # Fusable per-param optimizer updates: the state slots beside
-# Param/Grad/LearningRate. Only adam's fused op is ported; sgd, momentum
-# and adamw wait for their per-param ops.
+# Param/Grad/LearningRate.
 _FUSABLE_OPTIMIZERS = {
+    "sgd": (),
+    "momentum": ("Velocity",),
     "adam": ("Moment1", "Moment2", "Beta1Pow", "Beta2Pow"),
+    "adamw": ("Moment1", "Moment2", "Beta1Pow", "Beta2Pow"),
 }
 # per-param scalars or param-shaped accumulators, never concatenated
 _SCALAR_STATE = frozenset({"Beta1Pow", "Beta2Pow"})
-_STATE_OUT = {"Moment1": "Moment1Out", "Moment2": "Moment2Out",
-              "Beta1Pow": "Beta1PowOut", "Beta2Pow": "Beta2PowOut"}
+_STATE_OUT = {"Velocity": "VelocityOut", "Moment1": "Moment1Out",
+              "Moment2": "Moment2Out", "Beta1Pow": "Beta1PowOut",
+              "Beta2Pow": "Beta2PowOut"}
 
 
 @register_pass("fuse_optimizer")
 class FuseOptimizerPass(Pass):
-    """Multi-tensor optimizer fusion: per-param ``adam`` ops with the
-    same (param dtype, hyperparameters, LR var, beta-pow shape mode)
-    fuse into ``fused_adam`` ops of at most ``max_bucket_bytes`` of
-    params (default ``FLAGS_fuse_optimizer_bucket_mb``), each the
-    per-param update over lists of tensors, bitwise equal to the
-    per-param ops. Lazy-mode adam and ops that do not update their
-    param and state in place stay unfused; a param larger than the cap
-    is a bucket of one and stays a plain ``adam``. (The port has no
+    """Multi-tensor optimizer fusion: per-param ``sgd``, ``momentum``,
+    ``adam`` or ``adamw`` ops with the same (type, param dtype,
+    hyperparameters, LR var, beta-pow shape mode) fuse into
+    ``fused_<type>`` ops of at most ``max_bucket_bytes`` of params
+    (default ``FLAGS_fuse_optimizer_bucket_mb``), each the per-param
+    update over lists of tensors, bitwise equal to the per-param ops.
+    Lazy-mode adam and ops that do not update their param and state in
+    place stay unfused; a param larger than the cap is a bucket of one
+    and stays a plain per-param op. (The port has no
     sparse grads, which the JAX pass also leaves unfused.)"""
 
     pipeline_order = 30

@@ -1,9 +1,9 @@
 """LayerHelper: the op-emitting workhorse behind every layer function (a
 trimmed copy of ``paddle_tpu/layers/layer_helper.py``, static graph
 only)."""
+from ..framework import initializer as init_mod
 from ..framework import unique_name
 from ..framework.core import default_main_program
-from ..framework.initializer import ConstantInitializer
 from ..param_attr import ParamAttr
 
 
@@ -43,12 +43,8 @@ class LayerHelper:
             f"{self.name}.b" if is_bias else f"{self.name}.w")
         initializer = attr.initializer or default_initializer
         if initializer is None:
-            if not is_bias:
-                raise NotImplementedError(
-                    f"paddle_tpu_torch: parameter {name!r} needs an "
-                    f"explicit initializer (the default Xavier is not "
-                    f"ported)")
-            initializer = ConstantInitializer(0.0)
+            initializer = (init_mod._global_bias_initializer() if is_bias
+                           else init_mod._global_weight_initializer())
         param = self.block.create_parameter(
             name=name, shape=shape, dtype=dtype,
             initializer=initializer, regularizer=attr.regularizer,

@@ -2,6 +2,18 @@
 from .layer_helper import LayerHelper
 
 
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    """``cross_entropy`` over probabilities (e.g. a softmax's output)."""
+    helper = LayerHelper("cross_entropy")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="cross_entropy",
+                     inputs={"X": [input], "Label": [label]},
+                     outputs={"Y": [out]},
+                     attrs={"soft_label": soft_label,
+                            "ignore_index": ignore_index})
+    return out
+
+
 def softmax_with_cross_entropy(logits, label, soft_label=False,
                                ignore_index=-100, numeric_stable_mode=True,
                                return_softmax=False, axis=-1):

@@ -1,6 +1,6 @@
 """Elementwise, comparison, logical and reduction layers, ``scale``
 (``:128``), ``mean`` (``:102``), ``einsum`` (``:245``), and the
-``Variable`` operators ``+ - * >=`` (trimmed copy of
+``Variable`` operators ``+ - * / ** >=`` (trimmed copy of
 ``paddle_tpu/layers/math.py``)."""
 import numpy as np
 
@@ -35,6 +35,10 @@ def elementwise_mul(x, y, axis=-1, act=None, name=None):
 
 def elementwise_div(x, y, axis=-1, act=None, name=None):
     return _binary("elementwise_div", x, y, axis, act, name)
+
+
+def elementwise_pow(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_pow", x, y, axis, act, name)
 
 
 def elementwise_min(x, y, axis=-1, act=None, name=None):
@@ -83,6 +87,10 @@ def _cmp(op_type, x, y, cond=None):
     return cond
 
 
+def less_than(x, y, cond=None):
+    return _cmp("less_than", x, y, cond)
+
+
 def greater_equal(x, y, cond=None):
     return _cmp("greater_equal", x, y, cond)
 
@@ -127,4 +135,7 @@ Variable.__sub__ = _binop("elementwise_sub")
 Variable.__rsub__ = _binop("elementwise_sub", reverse=True)
 Variable.__mul__ = _binop("elementwise_mul")
 Variable.__rmul__ = _binop("elementwise_mul", reverse=True)
+Variable.__truediv__ = _binop("elementwise_div")
+Variable.__rtruediv__ = _binop("elementwise_div", reverse=True)
+Variable.__pow__ = _binop("elementwise_pow")
 Variable.__ge__ = lambda self, other: _cmp("greater_equal", self, other)

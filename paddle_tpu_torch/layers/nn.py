@@ -1,8 +1,10 @@
 """NN layers (trimmed copy of ``paddle_tpu/layers/nn.py``): ``fc``,
-``embedding``, ``layer_norm``, ``dropout``, ``softmax`` (``:270``),
-``tanh`` (``:294``), ``rsqrt`` (``:339``), ``topk`` (``:440``),
-``accuracy`` (``:451``), ``unsqueeze`` (``:538``), ``matmul``,
-``flash_attention`` (``:741``)."""
+``embedding``, ``conv2d`` (``:84``), ``pool2d`` (``:139``),
+``batch_norm`` (``:164``), ``layer_norm``, ``dropout``, ``softmax``
+(``:270``), ``relu`` (``:286``), ``tanh`` (``:294``), ``exp``,
+``rsqrt`` (``:339``), ``floor``, ``ceil``, ``cos``, ``pow`` (``:391``),
+``topk`` (``:440``), ``accuracy`` (``:451``), ``unsqueeze`` (``:538``),
+``flatten`` (``:560``), ``matmul``, ``flash_attention`` (``:741``)."""
 import numpy as np
 
 from ..framework import initializer as init_mod
@@ -45,6 +47,114 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         attrs={"padding_idx": padding_idx, "is_sparse": is_sparse,
                "is_distributed": is_distributed})
     return out
+
+
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
+def _conv_padding(padding):
+    if isinstance(padding, str):
+        return [0, 0], padding.upper()
+    return list(_pair(padding)), "EXPLICIT"
+
+
+def _append_channel_bias(helper, out):
+    if helper.bias_attr is False:
+        return out
+    bias = helper.create_parameter(helper.bias_attr, shape=[out.shape[1]],
+                                   dtype=out.dtype, is_bias=True)
+    tmp = helper.create_variable_for_type_inference(dtype=out.dtype)
+    helper.append_op(type="elementwise_add",
+                     inputs={"X": [out], "Y": [bias]},
+                     outputs={"Out": [tmp]}, attrs={"axis": 1})
+    return tmp
+
+
+def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
+           groups=1, param_attr=None, bias_attr=None, act=None,
+           use_cudnn=True, name=None, data_format="NCHW"):
+    """``conv2d`` (+ a per-channel bias, + activation). The filter
+    defaults to a normal of std sqrt(2 / (k_h k_w C_in))."""
+    helper = LayerHelper("conv2d", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    num_channels = input.shape[1]
+    filter_size = _pair(filter_size)
+    padding, algo = _conv_padding(padding)
+    filter_shape = [num_filters, num_channels // groups] + list(filter_size)
+    std = (2.0 / (filter_size[0] * filter_size[1] * num_channels)) ** 0.5
+    w = helper.create_parameter(
+        helper.param_attr, shape=filter_shape, dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(0.0, std))
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="conv2d",
+        inputs={"Input": [input], "Filter": [w]},
+        outputs={"Output": [out]},
+        attrs={"strides": list(_pair(stride)), "paddings": list(padding),
+               "dilations": list(_pair(dilation)), "groups": groups,
+               "padding_algorithm": algo, "data_format": data_format})
+    out = _append_channel_bias(helper, out)
+    return helper.append_activation(out, act)
+
+
+def pool2d(input, pool_size=-1, pool_type="max", pool_stride=1,
+           pool_padding=0, global_pooling=False, use_cudnn=True,
+           ceil_mode=False, exclusive=True, name=None):
+    helper = LayerHelper("pool2d", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="pool2d", inputs={"X": [input]}, outputs={"Out": [out]},
+        attrs={"pooling_type": pool_type, "ksize": list(_pair(pool_size)),
+               "strides": list(_pair(pool_stride)),
+               "paddings": list(_pair(pool_padding)),
+               "global_pooling": global_pooling, "ceil_mode": ceil_mode,
+               "exclusive": exclusive})
+    return out
+
+
+def batch_norm(input, act=None, is_test=False, momentum=0.9, epsilon=1e-5,
+               param_attr=None, bias_attr=None, data_layout="NCHW",
+               name=None, moving_mean_name=None, moving_variance_name=None,
+               use_global_stats=False, sync=False):
+    """``batch_norm`` with a scale (ones), an offset (zeros) and the
+    persistable moving mean (zeros) and variance (ones), which the op's
+    ``MeanOut``/``VarianceOut`` rebind. ``sync`` (``sync_batch_norm``)
+    is not ported."""
+    if sync:
+        raise NotImplementedError("paddle_tpu_torch: sync_batch_norm is "
+                                  "not ported")
+    helper = LayerHelper("batch_norm", param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    caxis = 1 if data_layout == "NCHW" else len(input.shape) - 1
+    c = input.shape[caxis]
+    dtype = input.dtype if input.dtype != "float16" else "float32"
+    scale = helper.create_parameter(
+        helper.param_attr, shape=[c], dtype=dtype,
+        default_initializer=init_mod.ConstantInitializer(1.0))
+    bias = helper.create_parameter(helper.bias_attr, shape=[c], dtype=dtype,
+                                   is_bias=True)
+    mean = helper.create_global_variable(
+        shape=[c], dtype=dtype, name=moving_mean_name,
+        initializer=init_mod.ConstantInitializer(0.0))
+    variance = helper.create_global_variable(
+        shape=[c], dtype=dtype, name=moving_variance_name,
+        initializer=init_mod.ConstantInitializer(1.0))
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    saved_m = helper.create_variable_for_type_inference(dtype=dtype,
+                                                        stop_gradient=True)
+    saved_v = helper.create_variable_for_type_inference(dtype=dtype,
+                                                        stop_gradient=True)
+    helper.append_op(
+        type="batch_norm",
+        inputs={"X": [input], "Scale": [scale], "Bias": [bias],
+                "Mean": [mean], "Variance": [variance]},
+        outputs={"Y": [out], "MeanOut": [mean], "VarianceOut": [variance],
+                 "SavedMean": [saved_m], "SavedVariance": [saved_v]},
+        attrs={"momentum": momentum, "epsilon": epsilon, "is_test": is_test,
+               "data_layout": data_layout,
+               "use_global_stats": use_global_stats})
+    return helper.append_activation(out, act)
 
 
 def layer_norm(input, scale=True, shift=True, begin_norm_axis=1,
@@ -105,12 +215,36 @@ def _unary(op_type, x, name=None, attrs=None):
     return out
 
 
+def relu(x, name=None):
+    return _unary("relu", x, name)
+
+
 def tanh(x, name=None):
     return _unary("tanh", x, name)
 
 
+def exp(x, name=None):
+    return _unary("exp", x, name)
+
+
 def rsqrt(x, name=None):
     return _unary("rsqrt", x, name)
+
+
+def floor(x, name=None):
+    return _unary("floor", x, name)
+
+
+def ceil(x, name=None):
+    return _unary("ceil", x, name)
+
+
+def cos(x, name=None):
+    return _unary("cos", x, name)
+
+
+def pow(x, factor=1.0, name=None):
+    return _unary("pow", x, name, {"factor": factor})
 
 
 def topk(input, k, name=None):
@@ -148,6 +282,17 @@ def unsqueeze(input, axes, name=None):
     helper.append_op(type="unsqueeze2", inputs={"X": [input]},
                      outputs={"Out": [out], "XShape": [xshape]},
                      attrs={"axes": list(axes)})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper("flatten", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="flatten2", inputs={"X": [x]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axis": axis})
     return out
 
 

@@ -23,6 +23,18 @@ def bcast_y(x, y, axis):
     return y.reshape(tuple(yshape) + (1,) * n_trail)
 
 
+def normalize_padding(paddings, n_spatial):
+    """[p], [p] * n or [lo0, hi0, lo1, hi1, ...] -> ((lo, hi), ...)."""
+    p = list(paddings)
+    if len(p) == n_spatial:
+        return tuple((q, q) for q in p)
+    if len(p) == 2 * n_spatial:
+        return tuple((p[2 * i], p[2 * i + 1]) for i in range(n_spatial))
+    if len(p) == 1:
+        return tuple((p[0], p[0]) for _ in range(n_spatial))
+    raise ValueError(f"bad paddings {paddings}")
+
+
 def reduce_axes(attrs, ndim):
     """(axes, keep_dim) of a reduce op's attrs."""
     if attrs.get("reduce_all", False):

@@ -1,8 +1,8 @@
 """Elementwise, matmul and reduction ops in torch (counterpart of
 ``paddle_tpu/ops/math_ops.py``: ``elementwise_*``, ``sum :52``,
 ``scale :74``, ``matmul :92``, ``mul :116``, ``reduce_sum``, ``mean
-:174``, the comparisons, the logical ops, ``isfinite :268`` and
-``einsum :328``). Large products go to
+:174``, the comparisons (``less_than :240``), the logical ops,
+``isfinite :268`` and ``einsum :328``). Large products go to
 ``torch.matmul``, as the JAX package leaves them to XLA. ``mul`` (every
 ``fc``) has a bespoke grad: the generic vjp would recompute its forward
 product, which eager torch cannot deduplicate as XLA does."""
@@ -29,6 +29,7 @@ _ew("elementwise_mul", torch.mul)
 _ew("elementwise_div", torch.div)
 _ew("elementwise_min", torch.minimum)
 _ew("elementwise_max", torch.maximum)
+_ew("elementwise_pow", torch.pow)
 
 
 def _cmp(name, fn):
@@ -41,6 +42,7 @@ def _cmp(name, fn):
 
 
 _cmp("greater_equal", torch.greater_equal)
+_cmp("less_than", torch.less)
 
 
 @register_op("logical_and", grad=False)

@@ -1,8 +1,18 @@
 """Optimizer update ops in torch (counterpart of
-``paddle_tpu/ops/optimizer_ops.py``: ``adam :76``, dense path, and
-``fused_adam :373``). Each op returns new param/moment tensors that
-rebind the same names in the env, as the JAX lowering does; no input is
-written in place (a rollback's ``assign`` snapshot aliases it)."""
+``paddle_tpu/ops/optimizer_ops.py``: ``sgd :23``, ``momentum :36``,
+``adam :76``, ``adamw :122``, dense paths, and ``fused_sgd :305``,
+``fused_momentum :313``, ``fused_adam :373``, ``fused_adamw :382``).
+Each op returns new param/state tensors that rebind the same names in
+the env, as the JAX lowering does; no input is written in place (a
+rollback's ``assign`` snapshot aliases it).
+
+The fused ops are a bucket of per-param updates
+(``passes.FuseOptimizerPass``) over lists of tensors with
+``torch._foreach_*``: each element takes its per-param op's operations
+in the same order, so every output equals the per-param op's bit for
+bit, while a bucket is a few multi-tensor launches instead of several
+per param. Where the JAX ops concatenate the bucket (which XLA fuses
+away), eager torch would copy every tensor twice."""
 import torch
 
 from ..framework.registry import register_op
@@ -15,6 +25,64 @@ def _hyper(attrs):
                                   "is not ported")
     return (attrs.get("beta1", 0.9), attrs.get("beta2", 0.999),
             attrs.get("epsilon", 1e-8))
+
+
+def _lr(ins, dt):
+    """A bucket's learning rate as a 0-d tensor of the params' type (a
+    scheduler's LR is a [1] var; the multi-tensor ops take a 0-d one)."""
+    return ins["LearningRate"][0].to(dt).reshape(())
+
+
+@register_op("sgd", grad=False)
+def sgd(ctx, ins, attrs):
+    p, g, lr = x_of(ins, "Param"), x_of(ins, "Grad"), \
+        x_of(ins, "LearningRate")
+    return {"ParamOut": p - lr.to(p.dtype) * g.to(p.dtype)}
+
+
+@register_op("fused_sgd", grad=False, infer_shape=False)
+def fused_sgd(ctx, ins, attrs):
+    """A bucket of :func:`sgd`: p - lr g."""
+    ps = ins["Param"]
+    dt = ps[0].dtype
+    upd = torch._foreach_mul([g.to(dt) for g in ins["Grad"]], _lr(ins, dt))
+    return {"ParamOut": torch._foreach_sub(ps, upd)}
+
+
+@register_op("momentum", grad=False)
+def momentum(ctx, ins, attrs):
+    """v = mu v + g; p - lr v, or with Nesterov p - (g + mu v) lr."""
+    p, g, lr = x_of(ins, "Param"), x_of(ins, "Grad"), \
+        x_of(ins, "LearningRate")
+    v = x_of(ins, "Velocity")
+    mu = attrs.get("mu", 0.9)
+    lr = lr.to(p.dtype)
+    g = g.to(p.dtype)
+    v_new = mu * v + g
+    if attrs.get("use_nesterov", False):
+        p_new = p - (g + mu * v_new) * lr
+    else:
+        p_new = p - lr * v_new
+    return {"ParamOut": p_new, "VelocityOut": v_new}
+
+
+@register_op("fused_momentum", grad=False, infer_shape=False)
+def fused_momentum(ctx, ins, attrs):
+    """A bucket of :func:`momentum`, in its operation order."""
+    ps = ins["Param"]
+    dt = ps[0].dtype
+    gs = [g.to(dt) for g in ins["Grad"]]
+    lr = _lr(ins, dt)
+    mu = attrs.get("mu", 0.9)
+    v_new = torch._foreach_mul(ins["Velocity"], mu)
+    torch._foreach_add_(v_new, gs)
+    if attrs.get("use_nesterov", False):
+        upd = torch._foreach_mul(v_new, mu)     # g + mu v as mu v + g
+        torch._foreach_add_(upd, gs)
+        torch._foreach_mul_(upd, lr)
+    else:
+        upd = torch._foreach_mul(v_new, lr)
+    return {"ParamOut": torch._foreach_sub(ps, upd), "VelocityOut": v_new}
 
 
 @register_op("adam", grad=False)
@@ -34,21 +102,27 @@ def adam(ctx, ins, attrs):
             "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2}
 
 
+@register_op("adamw", grad=False)
+def adamw(ctx, ins, attrs):
+    """:func:`adam`, then the decoupled decay ``- lr * coeff * p`` (of
+    the param before the update) unless ``with_decay`` is off."""
+    p, lr = x_of(ins, "Param"), x_of(ins, "LearningRate")
+    outs = adam(ctx, ins, attrs)
+    if attrs.get("with_decay", True):
+        outs["ParamOut"] = outs["ParamOut"] - \
+            lr.to(p.dtype) * attrs.get("coeff", 0.01) * p
+    return outs
+
+
 @register_op("fused_adam", grad=False, infer_shape=False)
 def fused_adam(ctx, ins, attrs):
-    """A bucket of ``adam`` updates (``passes.FuseOptimizerPass``) over
-    lists of tensors with ``torch._foreach_*``: each element takes the
-    operations of :func:`adam` in the same order, so every output equals
-    the per-param op's bit for bit, while a bucket is a few multi-tensor
-    launches instead of ~19 per param. Where the JAX op concatenates the
-    bucket (which XLA fuses away), eager torch would copy every tensor
-    twice. Beta-pows come param-shaped (elementwise, as the moments) or
-    scalar (a per-param step size broadcast over its param)."""
+    """A bucket of :func:`adam` (~19 launches a param unfused).
+    Beta-pows come param-shaped (elementwise, as the moments) or scalar
+    (a per-param step size broadcast over its param)."""
     ps = ins["Param"]
     dt = ps[0].dtype
     gs = [g.to(dt) for g in ins["Grad"]]
-    # a scheduler's LR is a [1] var; the multi-tensor ops take a 0-d one
-    lr = ins["LearningRate"][0].to(dt).reshape(())
+    lr = _lr(ins, dt)
     b1ps = [b.to(dt) for b in ins["Beta1Pow"]]
     b2ps = [b.to(dt) for b in ins["Beta2Pow"]]
     b1, b2, eps = _hyper(attrs)
@@ -83,3 +157,16 @@ def fused_adam(ctx, ins, attrs):
             "Moment2Out": m2n,
             "Beta1PowOut": torch._foreach_mul(ins["Beta1Pow"], b1),
             "Beta2PowOut": torch._foreach_mul(ins["Beta2Pow"], b2)}
+
+
+@register_op("fused_adamw", grad=False, infer_shape=False)
+def fused_adamw(ctx, ins, attrs):
+    """A bucket of :func:`adamw`: :func:`fused_adam`, then ``- (lr *
+    coeff) * p`` in that op's order."""
+    outs = fused_adam(ctx, ins, attrs)
+    if attrs.get("with_decay", True):
+        ps = ins["Param"]
+        lrc = _lr(ins, ps[0].dtype) * attrs.get("coeff", 0.01)
+        outs["ParamOut"] = torch._foreach_sub(
+            outs["ParamOut"], torch._foreach_mul(ps, lrc))
+    return outs

@@ -1,15 +1,17 @@
 """Tensor creation, layout and indexing ops in torch (counterpart of
 ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant :46``,
-``fill_any_like :79``, ``gaussian_random :96``,
+``fill_any_like :79``, ``uniform_random :86``, ``gaussian_random :96``,
 ``truncated_gaussian_random :105``, ``assign :123``, ``cast :137``,
-``reshape2 :143``, ``transpose2 :165``, ``unsqueeze2 :226``, ``slice
-:255``, ``gather :329``, ``increment :402``, ``where :424``, ``top_k
-:476``). ``cast`` takes the generic vjp, so ``cast_grad`` casts the
+``reshape2 :143``, ``transpose2 :165``, ``unsqueeze2 :226``,
+``flatten2 :235``, ``slice :255``, ``gather :329``, ``increment :402``,
+``where :424``, ``top_k :476``). ``cast`` takes the generic vjp, so ``cast_grad`` casts the
 cotangent back to the input's type, as the JAX vjp does. ``slice`` and
 ``transpose2`` return views and ``reshape2`` one where the strides
 allow, so the attention kernels take q/k/v as strided views of the qkv
 projection. ``gather`` has a bespoke grad that sums duplicate indices
 in a fixed order."""
+import math
+
 import torch
 
 from ..framework.dtype import torch_dtype
@@ -31,6 +33,16 @@ def fill_constant(ctx, ins, attrs):
                               dtype=torch_dtype(attrs.get("dtype",
                                                           "float32")),
                               device=ctx.device)}
+
+
+@register_op("uniform_random", grad=False, needs_rng=True)
+def uniform_random(ctx, ins, attrs):
+    shape = tuple(int(s) for s in attrs["shape"])
+    lo, hi = attrs.get("min", -1.0), attrs.get("max", 1.0)
+    out = torch.rand(shape, generator=ctx.generator(attrs),
+                     dtype=torch_dtype(attrs.get("dtype", "float32")),
+                     device=ctx.device)
+    return {"Out": out * (hi - lo) + lo}
 
 
 @register_op("gaussian_random", grad=False, needs_rng=True)
@@ -100,6 +112,16 @@ def unsqueeze2(ctx, ins, attrs):
     for a in sorted(attrs["axes"]):
         out = out.unsqueeze(a)
     return {"Out": out, "XShape": _xshape(x)}
+
+
+@register_op("flatten2")
+def flatten2(ctx, ins, attrs):
+    """Dims before ``axis`` fold into the first, the rest into the
+    second."""
+    x = x_of(ins)
+    axis = attrs.get("axis", 1)
+    lead = math.prod(x.shape[:axis]) if axis > 0 else 1
+    return {"Out": x.reshape(lead, -1), "XShape": _xshape(x)}
 
 
 @register_op("slice")

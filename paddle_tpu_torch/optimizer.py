@@ -1,8 +1,11 @@
 """Optimizers as program transforms (trimmed copy of
 ``paddle_tpu/optimizer.py``): ``minimize`` = ``append_backward`` + one
-update op per parameter. Ported: ``AdamOptimizer`` (dense), without
-gradient clipping or weight-decay regularization, and
-``rollback_updates_if`` (AMP's overflow skip)."""
+update op per parameter. Ported: ``SGDOptimizer`` (``:230``),
+``MomentumOptimizer`` (``:243``, with Nesterov), ``AdamOptimizer`` and
+``AdamWOptimizer`` (``:348``), dense, with the aliases ``SGD``,
+``Momentum``, ``Adam`` and ``AdamW`` (``:728-731``), without gradient
+clipping or regularization, and ``rollback_updates_if`` (AMP's overflow
+skip)."""
 from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.core import (OP_ROLE_KEY, OpRole, Variable,
@@ -92,6 +95,42 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+class SGDOptimizer(Optimizer):
+    type = "sgd"
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        return block.append_op(
+            type="sgd",
+            inputs={"Param": [p], "Grad": [g],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p]}, infer_shape=False)
+
+
+class MomentumOptimizer(Optimizer):
+    type = "momentum"
+
+    def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
+        super().__init__(learning_rate, **kw)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _create_accumulators(self, block, parameters):
+        for p in parameters:
+            self._add_accumulator("velocity", p)
+
+    def _append_optimize_op(self, block, param_and_grad):
+        p, g = param_and_grad
+        v = self._get_accumulator("velocity", p)
+        return block.append_op(
+            type="momentum",
+            inputs={"Param": [p], "Grad": [g], "Velocity": [v],
+                    "LearningRate": [self._lr_var]},
+            outputs={"ParamOut": [p], "VelocityOut": [v]},
+            attrs={"mu": self._momentum,
+                   "use_nesterov": self._use_nesterov}, infer_shape=False)
+
+
 class AdamOptimizer(Optimizer):
     type = "adam"
 
@@ -128,9 +167,31 @@ class AdamOptimizer(Optimizer):
                      "Moment2Out": [m2], "Beta1PowOut": [b1p],
                      "Beta2PowOut": [b2p]},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
-                   "epsilon": self._epsilon, "lazy_mode": False},
+                   "epsilon": self._epsilon, "lazy_mode": False,
+                   **self._extra_attrs()},
             infer_shape=False)
 
+    def _extra_attrs(self):
+        return {}
+
+
+class AdamWOptimizer(AdamOptimizer):
+    """Adam with decoupled weight decay: ``p -= lr * weight_decay * p``
+    after the Adam update (the ``adamw`` op's ``coeff``)."""
+    type = "adamw"
+
+    def __init__(self, learning_rate=0.001, weight_decay=0.01, **kw):
+        super().__init__(learning_rate, **kw)
+        self._coeff = weight_decay
+
+    def _extra_attrs(self):
+        return {"coeff": self._coeff}
+
+
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adam = AdamOptimizer
+AdamW = AdamWOptimizer
 
 
 def rollback_updates_if(block, mark, cond_var):

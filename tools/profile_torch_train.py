@@ -2,9 +2,9 @@
 """Where a training step's time goes in the PyTorch/CUDA port, on one
 GPU.
 
-    python3 tools/profile_torch_train.py [--model gpt|bert|bert_flagship]
-                                         [--batch N] [--seq S]
-                                         [--layers 12] [--steps 3] [--amp]
+    python3 tools/profile_torch_train.py
+        [--model gpt|bert|bert_flagship|resnet50] [--batch N] [--seq S]
+        [--layers 12] [--steps 3] [--amp]
 
 ``--model gpt`` (default B8 S2048) builds ``gpt_pretrain`` at
 GPTConfig.base() widths + ``AdamOptimizer(1e-4).minimize``; ``--model
@@ -17,7 +17,11 @@ bert_flagship`` is bench.py's ``main()``: the same BERT at B64 S128
 dropout and, under ``--amp``, softmax on the AMP white list. All are
 ``--layers`` deep with seeded random weights and dropout 0.1; ``--amp``
 wraps Adam in bf16 mixed precision at a static loss scale of 1.0, as
-those benches train. The executor runs the program through the default
+those benches train. ``--model resnet50`` is bench.py's
+``bench_resnet50``: ``resnet_train_program`` (ResNet-50, 1000 classes,
+3x224x224, default B128) + ``Momentum(0.1, 0.9)``, fed a two-batch
+seeded pool on the device; ``--amp`` adds batch_norm to the AMP white
+list, as that bench does (``--seq``, ``--layers`` ignored). The executor runs the program through the default
 pass pipeline (``FLAGS_program_passes``). It runs the startup program
 and one warm-up step, times ``--steps`` steps
 with the host clock (each ends in a fetch, which synchronizes), runs
@@ -25,7 +29,9 @@ with the host clock (each ends in a fetch, which synchronizes), runs
 program, and ``--steps`` more under ``torch.profiler``. Prints one JSON
 line: wall ms per step, device kernel time per step (sum of CUDA kernel
 durations in the trace), the device's idle share, kernel launches per
-step, device kernel time per step by kind of kernel (GEMMs, the flash
+step, device kernel time per step by kind of kernel (cuDNN's layout
+transposes ``nchwToNhwc``/``nhwcToNchw`` on their own line, convolutions
+(cuDNN's fprop, dgrad and wgrad kernels), batch norm, GEMMs, the flash
 kernels, dtype casts and copies, the optimizer's multi-tensor kernels,
 other elementwise and reductions), the device span per step by op type
 (from each op's first to its
@@ -58,7 +64,11 @@ def _kernel_times(prof, torch):
 
 
 # kind of a CUDA kernel, by the first pattern its name contains
-KINDS = (("gemm", ("gemm", "xmma", "nvjet", "cutlass")),
+KINDS = (("layout_transpose", ("nchwToNhwc", "nhwcToNchw")),
+         ("conv", ("fprop", "dgrad", "wgrad", "convolve", "conv2d",
+                   "implicit_gemm")),
+         ("batch_norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+         ("gemm", ("gemm", "xmma", "nvjet", "cutlass")),
          ("flash", ("flash_",)),
          ("cast_copy", ("copy_kernel", "copy_")),
          ("optimizer", ("multi_tensor_apply",)),
@@ -75,10 +85,11 @@ def _kind(name):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=("gpt", "bert", "bert_flagship"),
-                    default="gpt")
+    ap.add_argument("--model", choices=("gpt", "bert", "bert_flagship",
+                                        "resnet50"), default="gpt")
     ap.add_argument("--batch", type=int,
-                    help="default 8 (gpt), 16 (bert), 64 (bert_flagship)")
+                    help="default 8 (gpt), 16 (bert), 64 (bert_flagship), "
+                         "128 (resnet50)")
     ap.add_argument("--seq", type=int, default=2048)
     ap.add_argument("--layers", type=int, default=12)
     ap.add_argument("--steps", type=int, default=3)
@@ -95,13 +106,23 @@ def main():
 
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.framework import lowering
-    from paddle_tpu_torch.models import bert, gpt
+    from paddle_tpu_torch.models import bert, gpt, resnet
     S = args.seq
     rng = np.random.default_rng(0)
     main_prog, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), \
             fluid.program_guard(main_prog, startup):
-        if args.model == "gpt":
+        if args.model == "resnet50":
+            B, S = args.batch or 128, 224
+            out = resnet.resnet_train_program(depth=50, batch_size=B)
+            cfg = None
+            opt = fluid.optimizer.Momentum(0.1, 0.9)
+            feeds = [{"image": torch.from_numpy(rng.standard_normal(
+                          (B, 3, S, S)).astype(np.float32)).cuda(),
+                      "label": torch.from_numpy(rng.integers(
+                          0, 1000, (B, 1)).astype(np.int64)).cuda()}
+                     for _ in range(2)]
+        elif args.model == "gpt":
             B = args.batch or 8
             cfg = gpt.GPTConfig.base()
             cfg.num_layers = args.layers
@@ -120,9 +141,12 @@ def main():
             opt = fluid.optimizer.AdamOptimizer(
                 fluid.layers.noam_decay(cfg.hidden_size, 10000, 200.0))
             feed = bert.random_batch(cfg, B, S, P, rng=rng)
+        if args.model != "resnet50":
+            feeds = [feed]
         if args.amp:
             mp = fluid.contrib.mixed_precision
-            white = {"softmax"} if args.model == "bert_flagship" else set()
+            white = {"bert_flagship": {"softmax"},
+                     "resnet50": {"batch_norm"}}.get(args.model, set())
             opt = mp.decorate(
                 opt, amp_lists=mp.AutoMixedPrecisionLists(
                     custom_white_list=white),
@@ -133,9 +157,9 @@ def main():
     exe.run(startup, scope=scope)
 
     def run(n):
-        for _ in range(n):
-            exe.run(main_prog, feed=feed, fetch_list=[out["loss"]],
-                    scope=scope)
+        for i in range(n):
+            exe.run(main_prog, feed=feeds[i % len(feeds)],
+                    fetch_list=[out["loss"]], scope=scope)
 
     run(1)                                           # warm
     t0 = time.perf_counter()
@@ -184,7 +208,8 @@ def main():
     print(f"{smi}; torch {torch.__version__}", flush=True)
     print(json.dumps({
         "model": args.model, "batch": B, "seq": S,
-        "layers": cfg.num_layers, "amp": args.amp,
+        "layers": cfg.num_layers if cfg is not None else 50,
+        "amp": args.amp,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "program_passes": fluid.get_flags("FLAGS_program_passes")[
             "FLAGS_program_passes"],
