@@ -122,7 +122,38 @@ NVIDIA GPU.
    - fused_optimizers: fused_sgd, fused_momentum (plain and Nesterov)
      and fused_adamw over ResNet-50's 161 parameter shapes, bitwise
      their per-param ops, each timed beside the 161 per-param ops.
-7. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+7. Saved-model persistence and serving (``io``, ``inference``,
+   ``InferenceServer(model_dir)``), each path driven with the launch
+   counts zeroed and read:
+   - io_roundtrip: ResNet-50 at full width, ``save_persistables`` then
+     ``load_persistables`` into a fresh scope (every tensor the same
+     bits), ``save_inference_model`` then an ``AnalysisPredictor`` over
+     the directory (logits at B8 the eval clone's bits), a bf16 tensor
+     through ``save_vars``/``load_vars`` (bitwise), one flipped byte in
+     a ``.npy`` (``CheckpointCorruptError`` naming the file); save and
+     load ms and bytes;
+   - serve_resnet50 (ResNet-50, 1000 classes, 3x224x224, fp32; cuDNN,
+     no kernel of the port) and serve_bert_base (BertConfig.base() with
+     flash attention, S128, fp32: the encoder at is_test, the [CLS] row
+     through pooled_fc and next_sent_fc + softmax; K1 once per layer of
+     every executed batch): the program saved with its seeded startup,
+     then under bench.py bench_serving's traffic, for request batches
+     rb of 1, 8 and 32, a fresh server (max_batch_size 64,
+     batch_timeout_ms 2.0, warmed at the buckets of rb and 8 rb)
+     answering 8 concurrent wire clients x 8 requests. Every reply
+     within 1e-4 of max |ref| of ``AnalysisPredictor.run`` on that
+     request alone; at rb 1 a mean batch size above 1 and a cache hit;
+     per rb requests/s, samples/s, p50/p99 ms, mean batch size and
+     occupancy; per bucket one padded batch's graph replay bit for bit
+     an eager run of it, eager ms against replay ms (events) and the
+     graph's bytes; peak memory. BERT: K1 12 launches per executed
+     batch by the counters, and a profiled replay runs 12 of K1's
+     kernel;
+   - K1 at the served shape (B32 H12 S128 D64 f32, non-causal, padded
+     tail key bias) against its plain version and SDPA;
+   - capture_refuses_host_sync: a program whose op calls ``.item()``
+     raises ``GraphCaptureError`` naming the op (no eager fallback).
+8. Prints the {"kernels": [...]} line (K1-K5), then as the last line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
@@ -1789,6 +1820,415 @@ def fused_optimizers(torch, np, device=None, seed=0):
     return recs
 
 
+
+# ------------------------------------------------- saved-model serving
+
+SERVE_DIR = os.path.join(ROOT, "build", "chip_smoke_models")
+# bench.py bench_serving's traffic: a fresh server per request batch
+# size, max_batch_size 64, batch_timeout_ms 2.0, warmup of the buckets
+# (rb, 8 rb), 8 concurrent wire clients
+SERVE_TRAFFIC = {"request_batches": (1, 8, 32), "clients": 8,
+                 "requests_per_client": 8, "max_batch_size": 64,
+                 "batch_timeout_ms": 2.0}
+K1_KERNEL = "flash_fwd_kernel"
+
+
+def resnet50_serving_program(classes=1000, hw=224, depth=50):
+    """serve_resnet50's program: ``resnet_train_program(depth=50,
+    class_dim=1000, batch_size=-1)`` with its seeded startup; the saved
+    model serves ``logits`` from ``image``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = resnet.resnet_train_program(depth=depth, class_dim=classes,
+                                          image_shape=(3, hw, hw),
+                                          batch_size=-1)
+    return main, startup, ["image"], [out["logits"]]
+
+
+def bert_serving_program(cfg=None, S=128):
+    """serve_bert_base's program: ``BertConfig.base()`` with flash
+    attention, feeds ``src_ids``, ``sent_ids``, ``pos_ids`` and
+    ``input_mask`` of ``[-1, S]``, the encoder at ``is_test=True``, the
+    [CLS] row through ``pooled_fc`` (tanh) and ``next_sent_fc`` with
+    softmax under bert_pretrain's parameter names; serves ``pooled``
+    ``[B, 768]`` and the next-sentence probabilities ``[B, 2]``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    cfg = cfg or bert.BertConfig.base()
+    cfg.attn_mechanism = "flash"
+    main, startup = fluid.Program(), fluid.Program()
+    names = ["src_ids", "sent_ids", "pos_ids", "input_mask"]
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        src, sent, pos, mask = (
+            fluid.data(n, [-1, S], "float32" if n == "input_mask"
+                       else "int32") for n in names)
+        enc, _ = bert.bert_encoder(cfg, src, sent, pos, mask, is_test=True)
+        cls = fluid.layers.reshape(fluid.layers.slice(
+            enc, axes=[1], starts=[0], ends=[1]), [-1, cfg.hidden_size])
+        pooled = fluid.layers.fc(cls, cfg.hidden_size,
+                                 param_attr=bert._param(cfg, "pooled_fc.w_0"),
+                                 bias_attr=bert._zero("pooled_fc.b_0"),
+                                 act="tanh")
+        probs = fluid.layers.softmax(fluid.layers.fc(
+            pooled, 2, param_attr=bert._param(cfg, "next_sent_fc.w_0"),
+            bias_attr=bert._zero("next_sent_fc.b_0")))
+    return main, startup, names, [pooled, probs]
+
+
+def image_request(np, rows, rng, hw=224):
+    return {"image": rng.standard_normal((rows, 3, hw, hw))
+            .astype(np.float32)}
+
+
+def bert_request(np, rows, rng, S=128, vocab=30522):
+    """Seeded token ids, segment ids, positions and a mask whose padded
+    tail covers a random part of each row."""
+    lens = rng.integers(S // 4, S + 1, (rows, 1))
+    return {"src_ids": rng.integers(0, vocab, (rows, S), dtype=np.int32),
+            "sent_ids": (np.arange(S) >= lens // 2).astype(np.int32),
+            "pos_ids": np.broadcast_to(np.arange(S, dtype=np.int32),
+                                       (rows, S)).copy(),
+            "input_mask": (np.arange(S) < lens).astype(np.float32)}
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def io_roundtrip(torch, np, place=None, B=8, **model):
+    """Persistence at ResNet-50's full width (``model`` shrinks it for a
+    CPU rehearsal): ``save_persistables`` then ``load_persistables`` into
+    a fresh scope gives the same bits; ``save_inference_model`` then an
+    ``AnalysisPredictor`` over the saved directory gives the eval
+    clone's logits bit for bit at B8; a bf16 tensor round-trips bitwise;
+    one flipped byte in a ``.npy`` raises ``CheckpointCorruptError``
+    naming the file. Prints the save and load ms and the bytes."""
+    import shutil
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.resilience import CheckpointCorruptError
+    root = os.path.join(SERVE_DIR, "io_roundtrip")
+    shutil.rmtree(root, ignore_errors=True)
+    pdir, mdir, bdir = (os.path.join(root, n)
+                        for n in ("persistables", "model", "bf16"))
+    main, startup, feeds, targets = resnet50_serving_program(**model)
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    dev = exe.device
+    sync = (lambda: torch.cuda.synchronize()) if dev.type == "cuda" \
+        else (lambda: None)
+    rec = {"phase": "io_roundtrip", "model": "resnet50" if not model
+           else f"resnet{model.get('depth', 50)}"}
+    t0 = time.perf_counter()
+    fluid.save_persistables(exe, pdir, main_program=main, scope=scope)
+    rec["save_persistables_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["persistables_bytes"] = dir_bytes(pdir)
+    fresh = fluid.Scope()
+    t0 = time.perf_counter()
+    fluid.load_persistables(exe, pdir, main_program=main, scope=fresh)
+    sync()
+    rec["load_persistables_ms"] = (time.perf_counter() - t0) * 1e3
+    names = [v.name for v in main.list_vars() if v.persistable]
+    rec["vars"] = len(names)
+    rec["persistables_bitwise"] = all(
+        fresh.find_var(n).device == scope.find_var(n).device
+        and torch.equal(fresh.find_var(n), scope.find_var(n))
+        for n in names)
+
+    t0 = time.perf_counter()
+    fluid.save_inference_model(mdir, feeds, targets, exe,
+                               main_program=main, scope=scope)
+    rec["save_inference_model_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["model_bytes"] = dir_bytes(mdir)
+    cfg = inference.AnalysisConfig(mdir)
+    if dev.type == "cpu":
+        cfg.disable_gpu()
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(cfg)
+    sync()
+    rec["load_inference_model_ms"] = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(11)
+    hw = model.get("hw", 224)
+    feed = image_request(np, B, rng, hw)
+    logits, = pred.run([feed["image"]])
+    test = main.clone(for_test=True)
+    feed["label"] = np.zeros((B, 1), np.int64)
+    ref, = exe.run(test, feed=feed, fetch_list=targets, scope=scope)
+    rec["predictor_logits_bitwise"] = bool(np.array_equal(logits, ref))
+    rec["logits_shape"] = list(logits.shape)
+
+    bits = torch.from_numpy(rng.integers(-(1 << 15), 1 << 15, (64, 768),
+                                         dtype=np.int16))
+    bits[(bits & 0x7F80) == 0x7F80] = 0x3F80          # no NaN/inf
+    prog = fluid.Program()
+    prog.global_block().create_var(name="w_bf16", shape=[64, 768],
+                                   dtype="bfloat16", persistable=True)
+    bscope = fluid.Scope()
+    bscope.set("w_bf16", bits.view(torch.bfloat16).to(dev))
+    fluid.io.save_vars(exe, bdir, main_program=prog, scope=bscope,
+                       predicate=fluid.io.is_persistable)
+    back = fluid.Scope()
+    fluid.io.load_vars(exe, bdir, main_program=prog, scope=back,
+                       predicate=fluid.io.is_persistable)
+    got = back.find_var("w_bf16")
+    rec["bf16_bitwise"] = got.dtype == torch.bfloat16 and torch.equal(
+        got.view(torch.int16).cpu(), bits)
+
+    victim = os.path.join(pdir, "fc_0.w_0.npy")
+    with open(victim, "r+b") as f:
+        f.seek(-1, 2)
+        last = f.read(1)
+        f.seek(-1, 2)
+        f.write(bytes([last[0] ^ 0xFF]))
+    try:
+        fluid.load_persistables(exe, pdir, main_program=main,
+                                scope=fluid.Scope())
+        rec["corrupt_raised"] = None
+    except CheckpointCorruptError as e:
+        rec["corrupt_raised"] = os.path.basename(e.path or "")
+    shutil.rmtree(root, ignore_errors=True)
+    rec["ok"] = (rec["persistables_bitwise"]
+                 and rec["predictor_logits_bitwise"] and rec["bf16_bitwise"]
+                 and rec["corrupt_raised"] == "fc_0.w_0.npy")
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"io round trip failed: {rec}")
+    return rec
+
+
+def serve_traffic(torch, np, name, build, request, place=None,
+                  traffic=SERVE_TRAFFIC):
+    """The saved model under bench_serving's traffic: save the program
+    (seeded startup), then for each request batch size rb a fresh
+    ``InferenceServer(model_dir)`` warmed at the buckets of (rb, 8 rb)
+    answers ``clients`` concurrent wire clients, each sending
+    ``requests_per_client`` requests of its own rb rows. Returns what
+    :func:`check_served` needs; the servers are stopped, their engines
+    (and captured graphs) kept."""
+    import shutil
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import serving
+    d = os.path.join(SERVE_DIR, name)
+    shutil.rmtree(d, ignore_errors=True)
+    main, startup, feeds, targets = build()
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    exe.run(startup, scope=scope)
+    fluid.save_inference_model(d, feeds, targets, exe, main_program=main,
+                               scope=scope)
+    del scope
+    cuda = exe.device.type == "cuda"
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out = {"name": name, "dir": d, "feeds": feeds, "runs": {}}
+    for rb in traffic["request_batches"]:
+        server = serving.InferenceServer(
+            d, place=place, max_batch_size=traffic["max_batch_size"],
+            batch_timeout_ms=traffic["batch_timeout_ms"], queue_depth=1024)
+        t0 = time.perf_counter()
+        server.start(warmup_batch_sizes=(rb, 8 * rb))
+        warm_s = time.perf_counter() - t0
+        rng = np.random.default_rng(rb)
+        sent = [request(np, rb, rng) for _ in range(traffic["clients"])]
+        replies, lat, errors = {}, [], []
+
+        def client(i):
+            try:
+                with serving.Client(server.endpoint, timeout=600) as c:
+                    for j in range(traffic["requests_per_client"]):
+                        t = time.perf_counter()
+                        replies[(i, j)] = c.infer(sent[i])
+                        lat.append(time.perf_counter() - t)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(traffic["clients"])]
+        try:
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            wall = time.perf_counter() - t0
+            st = server.stats()
+        finally:
+            server.stop()
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"serve_{name} rb {rb}: clients failed: "
+                                 f"{errors}")
+        n = len(replies)
+        lat_ms = np.sort(np.array(lat)) * 1e3
+        out["runs"][rb] = {
+            "engine": server.engine, "sent": sent, "replies": replies,
+            "record": {
+                "request_batch": rb, "requests": n, "wall_s": wall,
+                "warmup_s": warm_s, "requests_per_s": n / wall,
+                "samples_per_s": n * rb / wall,
+                "p50_ms": float(np.percentile(lat_ms, 50)),
+                "p99_ms": float(np.percentile(lat_ms, 99)),
+                "server_total_p50_ms": st["total_p50_ms"],
+                "server_total_p99_ms": st["total_p99_ms"],
+                "execute_mean_ms": st["execute_mean_ms"],
+                "queue_mean_ms": st["queue_mean_ms"],
+                "mean_batch_size": st["mean_batch_size"],
+                "batch_occupancy": st["batch_occupancy"],
+                "batches": st["batches"], "compiles": st["compiles"],
+                "compile_mean_ms": st["compile_mean_ms"],
+                "cache_hits": st["cache_hits"],
+                "cache_misses": st["cache_misses"],
+                "requests_completed": st["requests_completed"],
+                "requests_failed": st["requests_failed"]}}
+    if cuda:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def check_served(torch, np, served, launches, k1_per_batch, place=None,
+                 tol=1e-4):
+    """What serve_traffic's run must show: every reply within ``tol`` of
+    max |ref| of ``AnalysisPredictor.run`` on that request alone; at
+    rb 1 a mean batch size above 1 and a cache hit; per bucket, the
+    graph replay of one padded batch equal bit for bit to an eager run
+    of it, with eager and replay ms (events) and the graph's bytes; K1
+    launched ``k1_per_batch`` times per executed batch by the counters
+    (each capture's eager pass runs the program once too) and, where it
+    should launch, in one profiled replay."""
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.serving import Request
+    cfg = inference.AnalysisConfig(served["dir"])
+    if place is not None and not hasattr(place, "device_id"):
+        cfg.disable_gpu()
+    pred = inference.create_predictor(cfg)
+    feeds = served["feeds"]
+    failures, rows, buckets = [], [], []
+    executions = 0
+    for rb, run in served["runs"].items():
+        rec = dict(run["record"])
+        worst = 0.0
+        for i, sent in enumerate(run["sent"]):
+            ref = pred.run([sent[n] for n in feeds])
+            for (ci, _), outs in run["replies"].items():
+                if ci != i:
+                    continue
+                for g, r in zip(outs, ref):
+                    if g.shape != r.shape or not np.isfinite(g).all():
+                        failures.append(f"rb {rb}: reply shape "
+                                        f"{g.shape} != {r.shape}")
+                    worst = max(worst, float(np.abs(g - r).max())
+                                / max(float(np.abs(r).max()), 1e-30))
+        rec["max_rel_err_vs_predictor"] = worst
+        rec["tol"] = tol
+        if worst > tol:
+            failures.append(f"rb {rb}: replies {worst} of max |ref| from "
+                            f"the predictor")
+        if rb == 1 and not (rec["mean_batch_size"] > 1
+                            and rec["cache_hits"] >= 1):
+            failures.append(f"rb 1: mean batch {rec['mean_batch_size']}, "
+                            f"cache hits {rec['cache_hits']}")
+        executions += rec["batches"] + rec["compiles"]
+        rows.append(rec)
+        engine = run["engine"]
+        for sig, entry in engine.cache.items():
+            bucket = dict((n, s) for n, s, _ in sig)[feeds[0]][0]
+            k = max(bucket // rb, 1)
+            reqs = [Request(run["sent"][i % len(run["sent"])])
+                    for i in range(k)]
+            feed, nrows, _ = engine.pad_batch(reqs)
+            replay = entry.run(feed)
+            eager = entry.eager(feed)
+            row = {"request_batch": rb, "bucket": bucket, "rows": nrows,
+                   "bitwise": all(np.array_equal(a, b)
+                                  for a, b in zip(replay, eager)),
+                   "graph_bytes": entry.nbytes}
+            if entry.graph is not None:
+                row["eager_ms"] = event_ms(
+                    torch, lambda e=entry: e._run_ops(e._bufs), 3)
+                row["replay_ms"] = event_ms(torch, entry.graph.replay, 10)
+                row["replay_speedup"] = row["eager_ms"] / row["replay_ms"]
+            if not row["bitwise"]:
+                failures.append(f"rb {rb} bucket {bucket}: replay differs "
+                                f"from an eager run")
+            buckets.append(row)
+    k1 = launches["flash_attention_fwd"]
+    rec = {"phase": f"serve_{served['name']}", "runs": rows,
+           "buckets": buckets, "k1_launches": k1,
+           "executions": executions,
+           "k1_per_execution": k1 / max(executions, 1),
+           "peak_bytes": served.get("peak_bytes")}
+    if k1 != k1_per_batch * executions:
+        failures.append(f"K1 launched {k1} times in {executions} executed "
+                        f"batches, not {k1_per_batch} each")
+    if k1_per_batch and served["runs"]:
+        run = next(iter(served["runs"].values()))
+        entry = next(iter(run["engine"].cache.values()))
+        if entry.graph is not None:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                entry.graph.replay()
+                torch.cuda.synchronize()
+            kernels = {e.key: e.count for e in prof.key_averages()}
+            k1_seen = sum(c for n, c in kernels.items() if K1_KERNEL in n)
+            rec["profiled_replay"] = {"kernels": len(kernels),
+                                      "k1_launches": k1_seen}
+            if k1_seen != k1_per_batch:
+                failures.append(f"a profiled replay ran {k1_seen} "
+                                f"{K1_KERNEL} launches, not {k1_per_batch}")
+    rec["ok"] = not failures
+    emit(rec)
+    for run in served["runs"].values():
+        run.clear()
+    if failures:
+        raise AssertionError(f"serve_{served['name']}: {failures}")
+    return rec
+
+
+def capture_refuses_host_sync(torch, np):
+    """A program whose op syncs the host (``.item()``) cannot be
+    captured: ``CapturedProgram`` raises ``GraphCaptureError`` naming the
+    op, and nothing runs it eagerly instead."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework.cuda_graph import (CapturedProgram,
+                                                       GraphCaptureError)
+    from paddle_tpu_torch.framework.registry import OPS, register_op
+    if "chip_smoke_host_sync" not in OPS:
+        @register_op("chip_smoke_host_sync", infer_shape=False)
+        def _host_sync(ctx, ins, attrs):
+            x = ins["X"][0]
+            return {"Out": x * float(x.sum().item())}
+    prog = fluid.Program()
+    blk = prog.global_block()
+    blk.create_var(name="x", shape=[-1, 4], dtype="float32", is_data=True)
+    blk.create_var(name="y", shape=[-1, 4], dtype="float32")
+    blk.append_op(type="relu", inputs={"X": ["x"]}, outputs={"Out": ["y"]},
+                  infer_shape=False)
+    blk.create_var(name="out", shape=[-1, 4], dtype="float32")
+    blk.append_op(type="chip_smoke_host_sync", inputs={"X": ["y"]},
+                  outputs={"Out": ["out"]}, infer_shape=False)
+    feed = {"x": np.ones((2, 4), np.float32)}
+    rec = {"phase": "capture_refuses_host_sync"}
+    try:
+        CapturedProgram(prog, feed, ["out"], fluid.Scope(), "cuda")
+        rec["raised"] = None
+    except GraphCaptureError as e:
+        rec.update(raised=type(e).__name__, op_type=e.op_type,
+                   op_index=e.op_index, message=str(e)[:300])
+    # the card still works after the refused capture
+    t = torch.ones(4, device="cuda")
+    rec["after"] = float((t * 2).sum().item())
+    rec["ok"] = rec["raised"] == "GraphCaptureError" \
+        and rec["op_type"] == "chip_smoke_host_sync" and rec["after"] == 8.0
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"a host-syncing op was captured or fell "
+                             f"back: {rec}")
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2076,6 +2516,28 @@ def main():
               lambda opt=opt, lr=lr: lenet_train(torch, np, opt, lr))
     fused_optimizers(torch, np)
     torch.cuda.empty_cache()
+
+    # saved-model persistence and serving: io at ResNet-50's width, then
+    # ResNet-50 (cuDNN, no kernel of the port) and BERT-base with flash
+    # attention (K1 once per layer of every executed batch) served from
+    # their saved directories under bench_serving's traffic, each bucket
+    # a captured CUDA graph
+    drive("io_roundtrip", (), lambda: io_roundtrip(torch, np))
+    served = {}
+    for name, build, request, needs, k1 in (
+            ("resnet50", resnet50_serving_program, image_request, (), 0),
+            ("bert_base", bert_serving_program, bert_request,
+             ("flash_attention_fwd",), 12)):
+        _, got, _ = drive(f"serve_{name}", needs, lambda b=build, r=request,
+                          n=name: served.setdefault(n, serve_traffic(
+                              torch, np, n, b, r)))
+        check_served(torch, np, served.pop(name), got, k1)
+        torch.cuda.empty_cache()
+    # K1 at the served shape: B32 H12 S128 D64 f32, non-causal, each
+    # row's padded tail masked by the key bias
+    flash_phase(torch, fa, 32, 12, 128, 64, "float32", False, "padded",
+                seed=129, packed=True)
+    capture_refuses_host_sync(torch, np)
 
     kernels = []
     rows = [("flash_attention_fwd", FA_SOURCE, FA_REPLACES, main_fa),

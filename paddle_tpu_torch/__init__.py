@@ -15,10 +15,18 @@ Ported so far:
   BERT (``models.bert.bert_pretrain``), ResNet
   (``models.resnet.resnet_train_program``) and LeNet
   (``models.lenet.build_lenet_train``).
+- Persistence (``io``: ``save``/``load``, ``save_params``,
+  ``save_persistables``, ``save_inference_model`` and their loads), in
+  the JAX package's on-disk format, so either package reads what the
+  other writes.
+- Inference: ``inference.AnalysisPredictor`` over a saved model, and
+  ``serving.InferenceServer(model_dir)``, which micro-batches requests
+  across clients into padded batches and runs each bucket as a captured
+  CUDA graph (``framework.cuda_graph``).
 - GPT generation serving: the KV-cached GPT (``models.GPT``), offline
   generation (``models.GPTGenerator``) over a dense or block-paged KV
-  cache, and the continuous-batching server (``serving.InferenceServer``
-  / ``serving.Client``).
+  cache, and the continuous-batching server (``InferenceServer(
+  generator=...)`` / ``serving.Client``).
 
 Attention runs on hand-written CUDA kernels for sm_90a, built with nvcc
 on first use: flash-attention forward and backward, and paged decode
@@ -44,6 +52,9 @@ from .models import (GPT, GPTConfig, GPTGenerator, init_params, param_shapes,
 from .param_attr import ParamAttr
 from .serving import (Client, GenerationEngine, InferenceServer, KVBlockPool,
                       ServingStats)
+from . import inference, io
+from .io import (load, load_inference_model, load_params, load_persistables,
+                 save, save_inference_model, save_params, save_persistables)
 
 __all__ = ["CPUPlace", "CUDAPlace", "Client", "Executor", "GPT",
            "GPTConfig", "GPTGenerator", "GenerationEngine",
@@ -51,6 +62,9 @@ __all__ = ["CPUPlace", "CUDAPlace", "Client", "Executor", "GPT",
            "ServingStats", "append_backward", "contrib", "data",
            "default_main_program", "default_startup_program", "flags",
            "framework", "get_flags", "global_scope", "gradients",
-           "init_params", "kernels", "layers", "ops", "optimizer",
-           "param_shapes", "params_from_jax", "program_guard",
-           "resolve_device", "scope_guard", "set_flags", "unique_name"]
+           "inference", "init_params", "io", "kernels", "layers", "load",
+           "load_inference_model", "load_params", "load_persistables",
+           "ops", "optimizer", "param_shapes", "params_from_jax",
+           "program_guard", "resolve_device", "save", "save_inference_model",
+           "save_params", "save_persistables", "scope_guard", "set_flags",
+           "unique_name"]

@@ -12,6 +12,13 @@ _DEFS = {
     # -- serving front end --
     # admission: hard pending-request cap (backpressure)
     "serving_queue_depth": (256, int),
+    # micro-batching: a group flushes at this many rows, or when its
+    # oldest request has waited batch_timeout_ms
+    "serving_max_batch_size": (32, int),
+    "serving_batch_timeout_ms": (5.0, float),
+    # captured-program cache caps (0 bytes = unbounded)
+    "serving_cache_entries": (32, int),
+    "serving_cache_bytes": (0, int),
     # -- KV-cached generation --
     # per-layer KV cache length: prompt + max_new_tokens must fit
     # (clamped to the model's max_position)

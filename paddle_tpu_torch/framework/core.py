@@ -287,6 +287,10 @@ class Program:
     def all_parameters(self):
         return self.global_block().all_parameters()
 
+    def list_vars(self):
+        for blk in self.blocks:
+            yield from blk.vars.values()
+
     def clone(self, for_test=False):
         """Deep-copy the program. With ``for_test=True`` keep only
         Forward-role ops, set ``is_test`` attrs, and drop the vars no
@@ -318,8 +322,51 @@ class Program:
         p._bump_version()
         return p
 
-    def _drop_unreferenced_vars(self):
-        referenced = set()
+    # attrs through which a control-flow op names its sub-block
+    _SUB_BLOCK_ATTRS = ("sub_block", "sub_block_true", "sub_block_false")
+
+    def _op_reads(self, op):
+        """Names ``op`` reads. Control flow is not ported, so an op that
+        carries a sub-block raises instead of having its sub-block's
+        reads walked."""
+        for attr in self._SUB_BLOCK_ATTRS:
+            if op.attrs.get(attr) is not None:
+                raise NotImplementedError(
+                    f"paddle_tpu_torch: op {op.type!r} carries a sub-block "
+                    f"({attr}); control flow is not ported, so a program "
+                    f"that keeps it cannot be pruned")
+        return set(op.input_arg_names)
+
+    def _prune(self, targets, feeds=()):
+        """Keep only the global-block ops needed to compute ``targets``
+        from ``feeds`` (used by ``io.save_inference_model``; JAX
+        ``Program._prune``): the graph is cut at the feed boundary, and
+        vars no kept op references are dropped."""
+        if not isinstance(targets, (list, tuple)):
+            targets = [targets]
+        feeds_set = {f.name if isinstance(f, Variable) else f for f in feeds}
+        needed = {t.name if isinstance(t, Variable) else t for t in targets}
+        keep = []
+        for op in reversed(self.global_block().ops):
+            if any(n in needed and n not in feeds_set
+                   for n in op.output_arg_names):
+                keep.append(op)
+                needed.update(n for n in self._op_reads(op)
+                              if n not in feeds_set)
+        kept_ids = {id(o) for o in keep}
+        p = self.clone()
+        nb = p.global_block()
+        # clone keeps op order, so ops match by position
+        nb.ops = [nop for sop, nop in zip(self.global_block().ops, nb.ops)
+                  if id(sop) in kept_ids]
+        p._drop_unreferenced_vars(extra_keep=feeds_set | needed)
+        p._bump_version()
+        return p
+
+    def _drop_unreferenced_vars(self, extra_keep=()):
+        """Remove vars no op references, keeping ``extra_keep`` (feed
+        and target names)."""
+        referenced = set(extra_keep)
         for blk in self.blocks:
             for op in blk.ops:
                 referenced.update(op.input_arg_names)

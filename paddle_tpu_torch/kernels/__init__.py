@@ -10,7 +10,12 @@ from .flash_attention import (FlashAttention, flash_attention,
 from .paged_attention import (dequantize_kv, paged_attention,
                               paged_attention_ref, quantize_kv)
 
-__all__ = ["FlashAttention", "flash_attention", "flash_attention_bwd",
+# the wrappers that count their kernel launches (``launches``; the flash
+# wrappers also ``bf16_launches``)
+COUNTED = (flash_attention_fwd, flash_attention_bwd_single,
+           flash_attention_bwd_dq, flash_attention_bwd_dkv, paged_attention)
+
+__all__ = ["COUNTED", "FlashAttention", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
            "flash_attention_bwd_ref", "flash_attention_bwd_single",
            "flash_attention_fwd", "flash_attention_ref",

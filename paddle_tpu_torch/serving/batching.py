@@ -1,14 +1,20 @@
-"""Generation requests, the admission queue and the continuous decode
-batcher.
+"""Requests, the admission queue, the micro-batcher and the continuous
+decode batcher.
 
-Counterpart of ``paddle_tpu/serving/batching.py``, cut to what the
-generation path needs: the typed serving errors, ``next_bucket``,
-``GenerationRequest``, a bounded ``RequestQueue`` (depth backpressure,
-deadline at admission, typed refusal once closed) and ``DecodeBatcher``
-— ORCA-style iteration-level scheduling over a fixed bank of decode
-slots: requests are admitted between steps, a row finishes on EOS, on
-its token budget or on its deadline and frees its slot at once, and rows
-still in flight when the loop stops fail with a typed error.
+Counterpart of ``paddle_tpu/serving/batching.py``: the typed serving
+errors, ``next_bucket``, priority classes, ``Request`` (one infer
+request: feeds with a leading example dim) and ``GenerationRequest``, a
+bounded ``RequestQueue`` (depth backpressure, deadline at admission,
+higher priority classes served first, typed refusal once closed),
+``MicroBatcher`` (requests grouped by per-example signature, a group
+flushed at ``max_batch_size`` rows at once or when its oldest member
+has waited ``batch_timeout_ms``) and ``DecodeBatcher`` — ORCA-style
+iteration-level scheduling over a fixed bank of decode slots: requests
+are admitted between steps, a row finishes on EOS, on its token budget
+or on its deadline and frees its slot at once, and rows still in flight
+when the loop stops fail with a typed error. The queue's priority
+eviction, the load-shed breaker, the batcher's restart and watchdog and
+the brownout ladder are not ported.
 """
 import threading
 import time
@@ -52,6 +58,23 @@ class BadRequestError(ServingError):
     "BadRequest"``."""
 
 
+# priority classes, highest first
+PRIORITIES = ("interactive", "batch", "best_effort")
+_PRIORITY_RANK = {p: i for i, p in enumerate(PRIORITIES)}
+
+
+def priority_rank(priority):
+    """Rank (0 = highest) of a priority-class name; None is the default
+    class."""
+    if priority is None:
+        return 0
+    try:
+        return _PRIORITY_RANK[priority]
+    except KeyError:
+        raise ValueError(f"unknown priority class {priority!r}: one of "
+                         f"{PRIORITIES}") from None
+
+
 def next_bucket(rows, min_bucket=1):
     """Smallest power-of-two >= rows (>= min_bucket): bounded padding
     waste (< 2x) and a bounded universe of shapes."""
@@ -62,26 +85,14 @@ def next_bucket(rows, min_bucket=1):
     return b
 
 
-class GenerationRequest:
-    """One generation request: a 1-D int prompt plus sampling knobs and
-    a token-level deadline (re-checked between decode steps). The reply
-    arrives through :meth:`wait`: ``[np.int32 new tokens]``, or the
-    recorded error is raised."""
+class _Lifecycle:
+    """Deadline, priority and reply bookkeeping shared by the request
+    kinds. The reply arrives through :meth:`wait`, or the recorded
+    error is raised."""
 
-    def __init__(self, prompt, max_new_tokens=32, temperature=0.0, top_k=0,
-                 eos_id=None, deadline_ms=None):
-        prompt = np.asarray(prompt, dtype=np.int32).ravel()
-        if prompt.size < 1:
-            raise ValueError("generation request has an empty prompt")
-        if int(max_new_tokens) < 1:
-            raise ValueError("max_new_tokens must be >= 1")
-        self.prompt = prompt
-        self.max_new_tokens = int(max_new_tokens)
-        self.temperature = float(temperature)
-        self.top_k = int(top_k)
-        self.eos_id = None if eos_id is None else int(eos_id)
-        self.out_tokens = []
-        self.slot = None
+    def _init_lifecycle(self, deadline_ms, priority=None):
+        self.rank = priority_rank(priority)
+        self.priority = PRIORITIES[self.rank]
         self.deadline_ms = deadline_ms
         self.t_enqueue = time.monotonic()
         self.deadline_at = (self.t_enqueue + deadline_ms / 1e3
@@ -122,11 +133,61 @@ class GenerationRequest:
         return self.result
 
 
+class Request(_Lifecycle):
+    """One prediction request: ``feeds`` is ``{name: np.ndarray}``, every
+    array with a leading example dim (``(rows, *example_shape)``), all
+    agreeing on ``rows``. Requests share a batch only when their
+    ``example_sig`` (each feed's trailing dims and dtype) matches. The
+    reply is the list of fetches (numpy arrays, this request's rows)."""
+
+    def __init__(self, feeds, deadline_ms=None, priority=None):
+        self.feeds = {n: np.ascontiguousarray(a) for n, a in feeds.items()}
+        if not self.feeds:
+            raise ValueError("request has no feeds")
+        rows = {a.shape[0] if a.ndim else 1 for a in self.feeds.values()}
+        if len(rows) != 1:
+            raise ValueError(
+                f"feeds disagree on the leading example dim: "
+                f"{ {n: a.shape for n, a in self.feeds.items()} }")
+        self.rows = rows.pop()
+        if self.rows < 1:
+            raise ValueError("request carries zero examples")
+        self.example_sig = tuple(sorted(
+            (n, tuple(a.shape[1:]), str(a.dtype))
+            for n, a in self.feeds.items()))
+        self.t_flush = None
+        self._init_lifecycle(deadline_ms, priority)
+
+
+class GenerationRequest(_Lifecycle):
+    """One generation request: a 1-D int prompt plus sampling knobs and
+    a token-level deadline (re-checked between decode steps). The reply
+    arrives through :meth:`wait`: ``[np.int32 new tokens]``, or the
+    recorded error is raised."""
+
+    def __init__(self, prompt, max_new_tokens=32, temperature=0.0, top_k=0,
+                 eos_id=None, deadline_ms=None):
+        prompt = np.asarray(prompt, dtype=np.int32).ravel()
+        if prompt.size < 1:
+            raise ValueError("generation request has an empty prompt")
+        if int(max_new_tokens) < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        self.prompt = prompt
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.eos_id = None if eos_id is None else int(eos_id)
+        self.out_tokens = []
+        self.slot = None
+        self._init_lifecycle(deadline_ms)
+
+
 class RequestQueue:
-    """Bounded FIFO with admission control: ``put`` refuses in O(1) when
+    """Bounded queue with admission control: ``put`` refuses in O(1) when
     the queue is at ``max_depth`` (:class:`ServerOverloadedError`), when
     the request's deadline already passed, or once :meth:`close` ran
-    (:class:`ServerShutdownError`). ``get`` skips and fails entries whose
+    (:class:`ServerShutdownError`). ``get`` serves the highest priority
+    class first (FIFO within a class) and skips and fails entries whose
     deadline expired while queued."""
 
     def __init__(self, max_depth=None, stats=None):
@@ -135,13 +196,16 @@ class RequestQueue:
             max_depth = flag("serving_queue_depth")
         self.max_depth = int(max_depth)
         self.stats = stats
-        self._items = deque()
+        self._items = [deque() for _ in PRIORITIES]
         self._cv = threading.Condition()
         self._closed = False
 
+    def _depth_locked(self):
+        return sum(len(q) for q in self._items)
+
     def __len__(self):
         with self._cv:
-            return len(self._items)
+            return self._depth_locked()
 
     def put(self, req):
         if req.expired():
@@ -152,34 +216,38 @@ class RequestQueue:
         with self._cv:
             if self._closed:
                 raise ServerShutdownError("server is shutting down")
-            if len(self._items) >= self.max_depth:
+            if self._depth_locked() >= self.max_depth:
                 if self.stats:
                     self.stats.bump("shed_overload")
                 raise ServerOverloadedError(
                     f"request queue at depth limit ({self.max_depth}); "
                     f"retry with backoff")
-            self._items.append(req)
+            self._items[req.rank].append(req)
             self._cv.notify()
         if self.stats:
             self.stats.bump("requests_admitted")
         return req
 
     def get(self, timeout=None):
-        """Oldest live request, or None on timeout/close."""
+        """Oldest live request of the highest populated class, or None
+        on timeout/close."""
         dead, out = [], None
         with self._cv:
-            if not self._items and not self._closed:
+            if not self._depth_locked() and not self._closed:
                 self._cv.wait(timeout)
             now = time.monotonic()
-            while self._items:
-                req = self._items.popleft()
-                if req.done():                # abandoned while queued
-                    continue
-                if req.expired(now):
-                    dead.append(req)
-                    continue
-                out = req
-                break
+            for q in self._items:
+                while q:
+                    req = q.popleft()
+                    if req.done():            # abandoned while queued
+                        continue
+                    if req.expired(now):
+                        dead.append(req)
+                        continue
+                    out = req
+                    break
+                if out is not None:
+                    break
         for req in dead:
             if self.stats:
                 self.stats.bump("shed_deadline")
@@ -194,12 +262,149 @@ class RequestQueue:
         """Stop admitting; fail whatever is still queued at once."""
         with self._cv:
             self._closed = True
-            drained = list(self._items)
-            self._items.clear()
+            drained = [r for q in self._items for r in q]
+            for q in self._items:
+                q.clear()
             self._cv.notify_all()
         for req in drained:
             req.set_error(ServerShutdownError(
                 "server shut down with the request still queued"))
+
+
+class MicroBatcher:
+    """Pulls requests off the queue, groups them by per-example
+    signature, and flushes a group to ``execute_fn(requests)`` when it
+    reaches ``max_batch_size`` rows (at once) or its oldest member has
+    waited ``batch_timeout_ms``. One execution thread: batches reach the
+    card one after another; concurrency lives in the connection
+    threads. A request still forming a batch when the loop stops fails
+    with :class:`ServerShutdownError`."""
+
+    def __init__(self, queue, execute_fn, max_batch_size=None,
+                 batch_timeout_ms=None, stats=None):
+        from ..flags import flag
+        self.queue = queue
+        self.execute_fn = execute_fn
+        self.max_batch_size = int(max_batch_size
+                                  if max_batch_size is not None
+                                  else flag("serving_max_batch_size"))
+        timeout_ms = (batch_timeout_ms if batch_timeout_ms is not None
+                      else flag("serving_batch_timeout_ms"))
+        self.batch_timeout_s = float(timeout_ms) / 1e3
+        self.stats = stats
+        self._stop = threading.Event()
+        self._thread = None
+        # sig -> {"reqs": [...], "rows": n, "flush_at": t}; the loop
+        # thread owns it
+        self._pending = {}
+
+    def start(self):
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="serving-microbatcher")
+        self._thread.start()
+        return self
+
+    def stop(self, timeout=30):
+        """Stop the loop; requests still forming a batch fail typed (the
+        loop does it on its way out). A batch inside ``execute_fn``
+        finishes and is delivered."""
+        self._stop.set()
+        self.queue.wake()
+        if self._thread is not None:
+            self._thread.join(timeout)
+            if self._thread.is_alive():
+                return
+        self._fail_pending()
+
+    def restart(self, reason=None):
+        raise NotImplementedError("paddle_tpu_torch: supervised batcher "
+                                  "restart is not ported")
+
+    def _fail_pending(self):
+        for ent in self._pending.values():
+            for req in ent["reqs"]:
+                if not req.done():
+                    req.set_error(ServerShutdownError(
+                        "server stopped while the request was batching"))
+        self._pending = {}
+
+    def _admit_to_batch(self, req, now):
+        if req.expired(now):
+            if self.stats:
+                self.stats.bump("shed_deadline")
+            req.expire(now, where="queue")
+            return
+        ent = self._pending.get(req.example_sig)
+        if ent is None:
+            ent = {"reqs": [], "rows": 0,
+                   "flush_at": now + self.batch_timeout_s}
+            self._pending[req.example_sig] = ent
+        ent["reqs"].append(req)
+        ent["rows"] += req.rows
+        # a full group flushes at once, so no group grows past
+        # max_batch_size (+ its last request's rows)
+        if ent["rows"] >= self.max_batch_size:
+            del self._pending[req.example_sig]
+            self._flush(ent["reqs"], time.monotonic())
+
+    def _flush_ready(self, now):
+        for sig in list(self._pending):
+            ent = self._pending[sig]
+            if now >= ent["flush_at"]:
+                del self._pending[sig]
+                self._flush(ent["reqs"], now)
+
+    def _flush(self, reqs, now):
+        live = []
+        for req in reqs:
+            if req.expired(now):
+                if self.stats:
+                    self.stats.bump("shed_deadline")
+                req.expire(now, where="batcher")
+            else:
+                req.t_flush = now
+                if self.stats:
+                    self.stats.hist["queue"].observe(now - req.t_enqueue)
+                live.append(req)
+        if not live:
+            return
+        try:
+            self.execute_fn(live)
+        except Exception as exc:  # noqa: BLE001 — must reach the clients
+            failed = [req for req in live if not req.done()]
+            for req in failed:
+                req.set_error(exc)
+            if self.stats:
+                self.stats.bump("engine_failures")
+                self.stats.bump("requests_failed", len(failed))
+
+    def _loop(self):
+        try:
+            while not self._stop.is_set():
+                now = time.monotonic()
+                if self._pending:
+                    wake = min(ent["flush_at"]
+                               for ent in self._pending.values())
+                    timeout = max(min(wake - now, 0.1), 0.0)
+                else:
+                    timeout = 0.1
+                req = self.queue.get(timeout=timeout)
+                if req is not None:
+                    self._admit_to_batch(req, time.monotonic())
+                    # drain what is already queued before sleeping, so a
+                    # burst coalesces; timed-out groups are flushed inside
+                    # the drain, so a busy signature cannot starve a rare
+                    # one past its batch_timeout_ms
+                    while not self._stop.is_set():
+                        nxt = self.queue.get(timeout=0)
+                        if nxt is None:
+                            break
+                        now = time.monotonic()
+                        self._admit_to_batch(nxt, now)
+                        self._flush_ready(now)
+                self._flush_ready(time.monotonic())
+        finally:
+            self._fail_pending()
 
 
 class DecodeBatcher:

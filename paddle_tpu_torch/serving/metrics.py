@@ -2,9 +2,13 @@
 
 Counterpart of ``paddle_tpu/serving/metrics.py`` (``ServingStats``,
 ``LatencyHistogram``), without the process-wide metrics registry. The
-generation stages are ``prefill`` (prompt forward), ``decode`` (one
-step over the bank), ``sample`` (next-token selection) and ``token``
-(one whole decode-loop step); ``snapshot()`` adds ``tokens_per_s``.
+infer stages are ``queue`` (enqueue to batch flush), ``pad`` (batch
+assembly), ``compile`` (capture of a new signature), ``execute`` (one
+padded batch through its captured program) and ``total`` (enqueue to
+reply); the generation stages are ``prefill``, ``decode``, ``sample``
+and ``token`` (one whole decode-loop step). ``snapshot()`` adds
+``throughput_rps``, ``mean_batch_size``, ``batch_occupancy`` (real rows
+over bucket rows), ``tokens_per_s`` and ``decode_occupancy``.
 """
 import threading
 import time
@@ -68,6 +72,7 @@ class LatencyHistogram:
 _COUNTER_KEYS = (
     "requests_admitted", "requests_completed", "requests_failed",
     "shed_overload", "shed_deadline", "engine_failures",
+    "batches", "rows", "padded_rows", "compiles",
     "generate_requests", "tokens_generated", "decode_steps",
     "decode_rows", "decode_slot_rows",
 )
@@ -78,7 +83,8 @@ class ServingStats:
     server. ``snapshot()`` is plain ints and floats, so it crosses the
     wire unchanged."""
 
-    STAGES = ("total", "prefill", "decode", "sample", "token")
+    STAGES = ("queue", "pad", "compile", "execute", "total", "prefill",
+              "decode", "sample", "token")
 
     def __init__(self):
         self.hist = {s: LatencyHistogram() for s in self.STAGES}
@@ -89,6 +95,14 @@ class ServingStats:
     def bump(self, name, n=1):
         with self._lock:
             self._c[name] += n
+
+    def observe_batch(self, rows, capacity):
+        """One executed batch: ``rows`` real rows in a bucket of
+        ``capacity``."""
+        with self._lock:
+            self._c["batches"] += 1
+            self._c["rows"] += rows
+            self._c["padded_rows"] += capacity
 
     def observe_decode_step(self, live_rows, slots):
         with self._lock:
@@ -102,6 +116,12 @@ class ServingStats:
             uptime = time.monotonic() - self._started
         out = {"uptime_s": round(uptime, 3)}
         out.update(c)
+        out["throughput_rps"] = round(
+            c["requests_completed"] / uptime, 3) if uptime > 0 else 0.0
+        out["mean_batch_size"] = round(
+            c["rows"] / c["batches"], 3) if c["batches"] else 0.0
+        out["batch_occupancy"] = round(
+            c["rows"] / c["padded_rows"], 4) if c["padded_rows"] else 0.0
         out["tokens_per_s"] = round(c["tokens_generated"] / uptime, 3) \
             if uptime > 0 else 0.0
         out["decode_occupancy"] = round(

@@ -1,19 +1,26 @@
-"""Generation service over the typed wire framing.
+"""Prediction and generation service over the typed wire framing.
 
-Counterpart of ``paddle_tpu/serving/server.py`` (``InferenceServer`` with
-``generator=``, ``Client``), cut to the generation endpoint. Connection
-threads speak the length-prefixed, HMAC-optional frames of
-``distributed/wire.py``; admission happens on the connection thread
-(backpressure is refused at once, never queued); one ``DecodeBatcher``
-thread drives the decode bank.
+Counterpart of ``paddle_tpu/serving/server.py`` (``ServingConfig``,
+``InferenceServer``, ``Client``). ``InferenceServer(model_dir)`` serves a
+saved inference model: connection threads speak the length-prefixed,
+HMAC-optional frames of ``distributed/wire.py``, admission happens on
+the connection thread (backpressure is refused at once, never queued),
+and one ``MicroBatcher`` thread feeds the ``ServingEngine`` padded
+batches of requests grouped across clients. ``generator=`` adds the
+generation endpoint: one ``DecodeBatcher`` thread drives the decode
+bank. Supervision, the load-shed breaker, brownout, hedging, request
+dedup and hot weight reload are not ported.
 
 Wire protocol:
 
+    request  {"op": "infer", "feed": {name: ndarray},
+              "deadline_ms": float|None, "priority": str|None}
+    reply    {"ok": True, "fetch": (ndarray, ...), "batched": int}
     request  {"op": "generate", "tokens": int array, "max_new_tokens": int,
               "temperature": float, "top_k": int, "eos_id": int|None,
               "deadline_ms": float|None}
     reply    {"ok": True, "tokens": int32 array, "generated": int}
-           | {"ok": False, "etype": "DeadlineExceeded"|"Overloaded"
+    error    {"ok": False, "etype": "DeadlineExceeded"|"Overloaded"
                                     |"Shutdown"|"BadRequest"|"Internal",
               "error": str}
     request  {"op": "stats"}   -> {"ok": True, "stats": {...}}
@@ -27,34 +34,85 @@ import numpy as np
 from ..distributed.wire import WireError, default_key, recv_frame, send_frame
 from .batching import (BadRequestError, DeadlineExceededError,
                        DecodeBatcher, GenerationRequest, InternalServerError,
-                       RequestQueue, ServerOverloadedError,
-                       ServerShutdownError)
-from .engine import GenerationEngine
+                       MicroBatcher, Request, RequestQueue,
+                       ServerOverloadedError, ServerShutdownError)
+from .engine import GenerationEngine, ServingEngine
 from .metrics import ServingStats
 
 
+class ServingConfig:
+    """Serving knobs, each defaulting from its ``FLAGS_serving_*`` flag:
+    ``max_batch_size``, ``batch_timeout_ms``, ``queue_depth``,
+    ``cache_entries`` and ``cache_bytes``."""
+
+    _FLAG_FIELDS = {
+        "max_batch_size": "serving_max_batch_size",
+        "batch_timeout_ms": "serving_batch_timeout_ms",
+        "queue_depth": "serving_queue_depth",
+        "cache_entries": "serving_cache_entries",
+        "cache_bytes": "serving_cache_bytes",
+    }
+
+    def __init__(self, **overrides):
+        from ..flags import flag
+        for field, fname in self._FLAG_FIELDS.items():
+            val = overrides.pop(field, None)
+            setattr(self, field, flag(fname) if val is None else val)
+        if overrides:
+            raise TypeError(f"unknown ServingConfig fields: "
+                            f"{sorted(overrides)}")
+
+
 class InferenceServer:
-    """Generation server over a ``models.generation.GPTGenerator``:
+    """Serving front end of a saved inference model and/or a generator:
+
+        server = InferenceServer(model_dir, max_batch_size=64).start()
+        out = server.infer({"x": batch})           # or submit() for async
+        fetch = Client(server.endpoint).infer({"x": batch})
 
         server = InferenceServer(generator=gen, decode_slots=8,
                                  paged=True).start()
         tokens = Client(server.endpoint).generate(prompt, 32)
 
-    ``start()`` binds a socket (default loopback, OS-assigned port).
-    Set ``PADDLE_PS_AUTH_KEY`` (or ``auth_key=``) on both ends to
+    ``place`` (None: the GPU) is where the model runs. ``start()`` binds
+    a socket (default loopback, OS-assigned port). Set
+    ``PADDLE_PS_AUTH_KEY`` (or ``auth_key=``) on both ends to
     authenticate frames; a non-loopback bind without a key is refused
     unless ``allow_insecure=True``."""
 
-    def __init__(self, *, generator, decode_slots=None, paged=None,
+    def __init__(self, model_dir=None, *, engine=None, generator=None,
+                 decode_slots=None, paged=None, config=None, place=None,
                  host="127.0.0.1", port=0, auth_key=None,
-                 allow_insecure=False):
+                 allow_insecure=False, **config_overrides):
+        self.config = config or ServingConfig(**config_overrides)
         self.stats_sink = ServingStats()
-        self.gen_engine = GenerationEngine(
-            generator, slots=decode_slots, stats=self.stats_sink,
-            paged=paged)
-        self.gen_queue = RequestQueue(stats=self.stats_sink)
-        self.decode_batcher = DecodeBatcher(self.gen_queue, self.gen_engine,
-                                            stats=self.stats_sink)
+        if engine is None and (model_dir is not None or generator is None):
+            from .cache import ExecutableCache
+            cache = ExecutableCache(max_entries=self.config.cache_entries,
+                                    max_bytes=self.config.cache_bytes)
+            engine = ServingEngine(model_dir, cache=cache,
+                                   stats=self.stats_sink, place=place)
+        elif engine is not None:
+            engine.stats = engine.stats or self.stats_sink
+        self.engine = engine          # None for a generation-only server
+        self.queue = self.batcher = None
+        if engine is not None:
+            self.queue = RequestQueue(max_depth=self.config.queue_depth,
+                                      stats=self.stats_sink)
+            self.batcher = MicroBatcher(
+                self.queue, self.engine.execute,
+                max_batch_size=self.config.max_batch_size,
+                batch_timeout_ms=self.config.batch_timeout_ms,
+                stats=self.stats_sink)
+        self.gen_engine = self.gen_queue = self.decode_batcher = None
+        if generator is not None:
+            self.gen_engine = GenerationEngine(
+                generator, slots=decode_slots, stats=self.stats_sink,
+                paged=paged)
+            self.gen_queue = RequestQueue(max_depth=self.config.queue_depth,
+                                          stats=self.stats_sink)
+            self.decode_batcher = DecodeBatcher(
+                self.gen_queue, self.gen_engine, stats=self.stats_sink)
         self.host = host
         self.port = int(port)
         self._key = auth_key if auth_key is not None else default_key()
@@ -69,34 +127,54 @@ class InferenceServer:
     def endpoint(self):
         return f"{self.host}:{self.port}"
 
-    def start(self):
-        loopback = self.host.startswith("127.") \
-            or self.host in ("localhost", "::1")
-        if not loopback and self._key is None and not self._allow_insecure:
-            raise PermissionError(
-                f"refusing to bind the inference server on non-loopback "
-                f"{self.host}:{self.port} without authentication — set "
-                f"PADDLE_PS_AUTH_KEY (both ends) or pass "
-                f"allow_insecure=True")
-        self.decode_batcher.start()
-        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._sock.bind((self.host, self.port))
-        self.port = self._sock.getsockname()[1]
-        self._sock.listen(128)
-        t = threading.Thread(target=self._accept_loop, daemon=True,
-                             name="serving-accept")
-        t.start()
-        self._threads.append(t)
+    def start(self, serve_network=True, warmup_batch_sizes=None,
+              warmup_signature_file=None):
+        """Start the batchers and (unless ``serve_network=False``) the
+        socket front end. Warmup captures the model's programs at the
+        buckets of ``warmup_batch_sizes`` (and the recorded signatures)
+        before the first request."""
+        if (warmup_batch_sizes or warmup_signature_file) \
+                and self.engine is not None:
+            self.engine.warmup(batch_sizes=warmup_batch_sizes or (),
+                               signature_file=warmup_signature_file)
+        if serve_network:
+            loopback = self.host.startswith("127.") \
+                or self.host in ("localhost", "::1")
+            if not loopback and self._key is None \
+                    and not self._allow_insecure:
+                raise PermissionError(
+                    f"refusing to bind the inference server on "
+                    f"non-loopback {self.host}:{self.port} without "
+                    f"authentication — set PADDLE_PS_AUTH_KEY (both "
+                    f"ends) or pass allow_insecure=True")
+        if self.batcher is not None:
+            self.batcher.start()
+        if self.decode_batcher is not None:
+            self.decode_batcher.start()
+        if serve_network:
+            self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            self._sock.bind((self.host, self.port))
+            self.port = self._sock.getsockname()[1]
+            self._sock.listen(128)
+            t = threading.Thread(target=self._accept_loop, daemon=True,
+                                 name="serving-accept")
+            t.start()
+            self._threads.append(t)
         return self
 
     def stop(self):
-        """Close admission (queued requests fail typed), stop the decode
-        loop (decoding rows fail typed), close the socket and every
+        """Close admission (queued requests fail typed), stop the
+        batchers (requests still batching or decoding fail typed; a batch
+        inside the engine finishes), close the socket and every
         connection, and join the threads."""
         self._stop.set()
-        self.gen_queue.close()
-        self.decode_batcher.stop()
+        for q in (self.queue, self.gen_queue):
+            if q is not None:
+                q.close()
+        for b in (self.batcher, self.decode_batcher):
+            if b is not None:
+                b.stop()
         if self._sock is not None:
             try:
                 self._sock.close()
@@ -116,13 +194,49 @@ class InferenceServer:
         for t in self._threads:
             t.join(timeout=5)
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def drain(self, *args, **kwargs):
+        raise NotImplementedError("paddle_tpu_torch: graceful drain and "
+                                  "the server lifecycle are not ported")
+
+    def reload_weights(self, *args, **kwargs):
+        raise NotImplementedError("paddle_tpu_torch: hot weight reload is "
+                                  "not ported")
+
     # -- in-process path --------------------------------------------------
+    def submit(self, feeds, deadline_ms=None, priority=None):
+        """Admit an infer request (``{name: array}`` with a leading
+        example dim); returns the Request (``.wait()`` -> the fetch
+        list). Feeds other than the model's, in another dtype or with
+        other trailing dims are refused with :class:`BadRequestError`;
+        a full queue with :class:`ServerOverloadedError`."""
+        if self.queue is None:
+            raise BadRequestError("no inference model loaded: this server "
+                                  "only serves 'generate'")
+        self.engine.check_feeds(feeds)
+        return self.queue.put(Request(
+            {n: np.asarray(feeds[n]) for n in self.engine.feed_names},
+            deadline_ms=deadline_ms, priority=priority))
+
+    def infer(self, feeds, deadline_ms=None, timeout=None, priority=None):
+        """The fetch list (numpy arrays) of one infer request."""
+        return self.submit(feeds, deadline_ms=deadline_ms,
+                           priority=priority).wait(timeout=timeout)
+
     def submit_generate(self, tokens, max_new_tokens=32, temperature=0.0,
                         top_k=0, eos_id=None, deadline_ms=None):
         """Admit a generation request; returns the GenerationRequest
         (``.wait()`` -> ``[np.int32 tokens]``). A request that could never
         run (prompt + max_new_tokens past the cache, or bigger than the
         whole pool) is refused here with :class:`BadRequestError`."""
+        if self.gen_queue is None:
+            raise BadRequestError("this server has no generator: pass "
+                                  "generator= to InferenceServer")
         ntokens = np.asarray(tokens).size
         self.gen_engine.admission_check(ntokens, max_new_tokens,
                                         static_only=True)
@@ -139,11 +253,20 @@ class InferenceServer:
             deadline_ms=deadline_ms).wait(timeout=timeout)[0]
 
     def stats(self):
-        extra = {"decode_queue_depth": len(self.gen_queue),
-                 "decode_free_slots": self.decode_batcher.free_slots()}
-        if self.gen_engine.pool is not None:
-            for k, v in self.gen_engine.pool.stats().items():
-                extra[f"kvpool_{k}"] = v
+        """One snapshot: admission counters, stage histograms, batch
+        occupancy, the captured-program cache's hits, misses and
+        evictions, queue depths."""
+        extra = {}
+        if self.queue is not None:
+            extra["queue_depth"] = len(self.queue)
+            for k, v in self.engine.cache.stats().items():
+                extra[f"cache_{k}"] = v
+        if self.gen_queue is not None:
+            extra["decode_queue_depth"] = len(self.gen_queue)
+            extra["decode_free_slots"] = self.decode_batcher.free_slots()
+            if self.gen_engine.pool is not None:
+                for k, v in self.gen_engine.pool.stats().items():
+                    extra[f"kvpool_{k}"] = v
         return self.stats_sink.snapshot(extra=extra)
 
     # -- network front end ------------------------------------------------
@@ -192,10 +315,37 @@ class InferenceServer:
             return {"ok": True}
         if op == "stats":
             return {"ok": True, "stats": self.stats()}
+        if op == "infer":
+            return self._handle_infer(msg)
         if op == "generate":
             return self._handle_generate(msg)
         return {"ok": False, "etype": "BadRequest",
                 "error": f"unknown op {op!r}"}
+
+    def _handle_infer(self, msg):
+        try:
+            feed = msg.get("feed")
+            if not isinstance(feed, dict) or not feed:
+                raise BadRequestError("'feed' must be a non-empty dict of "
+                                      "arrays")
+            req = self.submit(feed, deadline_ms=msg.get("deadline_ms"),
+                              priority=msg.get("priority"))
+        except Exception as e:  # noqa: BLE001 — typed refusal reply
+            return _error_reply(e)
+        budget = msg.get("deadline_ms")
+        wait_s = (budget / 1e3 + 60.0) if budget else 300.0
+        try:
+            outs = req.wait(timeout=wait_s)
+            return {"ok": True, "fetch": tuple(outs),
+                    "batched": int(req.rows)}
+        except TimeoutError:
+            err = DeadlineExceededError(
+                f"server-side wait budget of {wait_s:.0f}s exceeded; the "
+                f"request was abandoned")
+            req.set_error(err)
+            return _error_reply(err)
+        except Exception as e:  # noqa: BLE001 — surface, don't die
+            return _error_reply(e)
 
     def _handle_generate(self, msg):
         try:
@@ -277,6 +427,16 @@ class Client:
             return reply
         etype = _ETYPES.get(reply.get("etype"), InternalServerError)
         raise etype(reply.get("error", "serving request failed"))
+
+    def infer(self, feeds, deadline_ms=None, priority=None):
+        """The fetch list (numpy arrays) of one infer request; error
+        replies raise their typed exceptions."""
+        msg = {"op": "infer", "feed": {n: np.asarray(a)
+                                       for n, a in feeds.items()},
+               "deadline_ms": deadline_ms}
+        if priority is not None:
+            msg["priority"] = str(priority)
+        return [np.asarray(a) for a in self._call(msg)["fetch"]]
 
     def generate(self, tokens, max_new_tokens=32, temperature=0.0, top_k=0,
                  eos_id=None, deadline_ms=None):
