@@ -153,7 +153,39 @@ NVIDIA GPU.
      tail key bias) against its plain version and SDPA;
    - capture_refuses_host_sync: a program whose op calls ``.item()``
      raises ``GraphCaptureError`` naming the op (no eager fallback).
-8. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+8. The training loop (``Executor.run_steps``: K steps as replays of one
+   captured CUDA graph; the non-finite guard; ``train_from_dataset``),
+   each path driven with the launch counts zeroed and read, each line
+   naming the card and its power limit:
+   - bert_long_recompute: BERT-base at bench_bert_long's shape (B16
+     S2048 P64, flash, bf16 AMP) as ``__graft_entry__`` builds it, noam
+     Adam under RecomputeOptimizer with the 12 layer checkpoints: 4
+     eager steps and a run_steps slab of 4 from copies of one scope,
+     losses, LR and scope bitwise; the program without recompute, one
+     slab: its losses, and both slabs' peak memory (recompute must peak
+     lower); K1 24 and K2 12 launches a step with recompute, 12 and 12
+     without, eager and per replay; wall and device ms a step, idle
+     share, tokens/s, TFLOP/s;
+   - capture_names_flash_grad: a 1-layer step whose flash grad op is
+     made to call ``.item()``: run_steps raises GraphCaptureError naming
+     flash_attention_grad and leaves the scope as it was; unpatched, the
+     step captures (K2's wrapper makes no host sync);
+   - flagship_steps: bench.py main()'s flagship (B64 S128, einsum,
+     dropout 0.1): 8 eager steps against a run_steps slab of 8, losses
+     and scope bitwise (a replay draws its eager step's dropout masks);
+     wall and device ms a step both ways, idle share;
+   - train_loop_lenet: bench.py's bench_train_loop (LeNet B512, K 1, 8,
+     32, equal step counts): steps/s each, losses bitwise K=1's under
+     FLAGS_cudnn_deterministic; whether two eager runs without it agree
+     is recorded;
+   - nonfinite_steps: the bert_long_recompute program at 2 layers, an
+     8-step slab with a NaN in step 3's input_mask: check_nan_inf raises
+     NonFiniteError naming fused step 3; skip_nonfinite_steps rolls back
+     step 3 only, the scope bitwise a sequential run(skip) over the feeds;
+   - train_from_dataset: LeNet over a QueueDataset the phase writes, 3
+     slabs of 8 and a tail of 5 batches: steps_per_run 8 ends bitwise
+     where steps_per_run 1 ends (FLAGS_cudnn_deterministic on).
+9. Prints the {"kernels": [...]} line (K1-K5), then as the last line
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
@@ -1236,16 +1268,16 @@ def bert_train_flops_per_sample(cfg, seq_len, max_preds):
     return 3 * (L * per_layer + heads)
 
 
-def noam_lr(np, step, d_model):
-    """The learning rate ``noam_decay(d_model, 10000, 200.0)`` gives at
-    ``step``, in the program's float32 operations and order: 200 *
-    d_model^-0.5 * min(rsqrt(step), step * 10000^-1.5). Below step 10000
-    the min is the linear term, so the value is exact IEEE float32
-    arithmetic (rsqrt's rounding does not enter)."""
+def noam_lr(np, step, d_model, warmup=10000, scale=200.0):
+    """The learning rate ``noam_decay(d_model, warmup, scale)`` gives at
+    ``step``, in the program's float32 operations and order: scale *
+    d_model^-0.5 * min(rsqrt(step), step * warmup^-1.5). Below step
+    ``warmup`` the min is the linear term, so the value is exact IEEE
+    float32 arithmetic (rsqrt's rounding does not enter)."""
     f = np.float32
     n = f(step)
-    return f(200.0 * d_model ** -0.5) * min(f(1) / np.sqrt(n),
-                                            n * f(10000 ** -1.5))
+    return f(scale * d_model ** -0.5) * min(f(1) / np.sqrt(n),
+                                            n * f(warmup ** -1.5))
 
 
 def bert_config(layers=None, mech=None, dropout=None, max_position=None):
@@ -2229,6 +2261,606 @@ def capture_refuses_host_sync(torch, np):
     return rec
 
 
+# --------------------------- the training loop (run_steps, guard, dataset)
+
+CARD = {"card": None}     # the nvidia-smi line, set by main()
+
+
+def scope_diff(torch, a, b):
+    """Names whose values differ (bitwise) between two scopes."""
+    out = sorted(set(a.keys()) ^ set(b.keys()))
+    for n in set(a.keys()) & set(b.keys()):
+        va, vb = a.find_var(n), b.find_var(n)
+        if isinstance(va, torch.Tensor):
+            if va.shape != vb.shape or va.dtype != vb.dtype or \
+                    not torch.equal(va, vb.to(va.device)):
+                out.append(n)
+        elif va != vb:
+            out.append(n)
+    return out
+
+
+def profiled_ms(torch, fn):
+    """Device time (ms) of one call of ``fn`` from torch.profiler: the sum
+    of the CUDA kernel, copy and set durations in its trace (a graph
+    replay's kernels included); None on the CPU or when the trace holds
+    no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(e, "device_time", None)
+        us += float(e.cuda_time if t is None else t)
+    return us / 1e3 or None
+
+
+def build_bert_graft(cfg, B, S, P, recompute, white=()):
+    """BERT pretraining as ``__graft_entry__._build(with_opt=True)``
+    composes it: ``bert_pretrain`` + ``AdamOptimizer(noam_decay(h, 100,
+    learning_rate=1.0))`` under ``RecomputeOptimizer`` with the layer
+    outputs as checkpoints (``recompute`` False leaves it out), wrapped
+    by ``mp.decorate`` (bf16 AMP at a static loss scale of 1.0, as
+    bench.py's bench_bert_long trains). Returns (main, startup, outputs,
+    lr var)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    mp = fluid.contrib.mixed_precision
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = bert.bert_pretrain(cfg, B, S, P)
+        lr = fluid.layers.noam_decay(cfg.hidden_size, 100, learning_rate=1.0)
+        opt = fluid.optimizer.AdamOptimizer(learning_rate=lr)
+        if recompute:
+            opt = fluid.optimizer.RecomputeOptimizer(opt)
+            opt._set_checkpoints(out["checkpoints"])
+        mp.decorate(opt, amp_lists=mp.AutoMixedPrecisionLists(
+            custom_white_list=set(white)), init_loss_scaling=1.0,
+            use_dynamic_loss_scaling=False).minimize(out["loss"])
+    return main, startup, out, lr
+
+
+def _stack(np, feeds):
+    return {n: np.stack([f[n] for f in feeds]) for n in feeds[0]}
+
+
+def _captured(exe):
+    """The executor's newest captured step (``CapturedStep``)."""
+    return list(exe._graphs.values())[-1]
+
+
+def _sync(torch, exe):
+    if exe.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def bert_long_recompute(torch, np, fa, place=None, layers=None, B=16,
+                        S=2048, P=64, K=4, seed=11):
+    """The slice's path: BERT-base at bench_bert_long's shape (B16 S2048
+    P64, flash, bf16 AMP) as ``__graft_entry__`` builds it, noam Adam
+    under ``RecomputeOptimizer`` with the 12 layer checkpoints, from one
+    seeded startup:
+
+    (a) K eager ``Executor.run`` steps and one ``run_steps`` slab of K
+        from copies of that scope: losses, the noam LR and the final
+        scope bitwise; (b) the program without recompute, one slab from
+        another copy: its losses beside (a)'s, and the peak memory of
+        each slab (``max_memory_allocated`` over the first slab, the
+        warm-up pass and the capture included, less what was allocated
+        before it; and the graph pool's bytes); (c) K1 and K2 launches a
+        step, eager and per replay: 24 and 12 with recompute, 12 and 12
+        without; (d) wall ms a step eager and by ``run_steps`` (a second
+        slab), device ms a step (torch.profiler), the idle share, tokens/s
+        and TFLOP/s (bench.py's formula: the recomputed forward is not
+        useful work) and the LR read back against noam_decay's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    cfg = bert_config(layers, "flash", max_position=max(S, 512))
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    k1, k2 = fa.flash_attention_fwd, fa.flash_attention_bwd_single
+    rng = np.random.default_rng(seed)
+    feeds = [bert.random_batch(cfg, B, S, P, rng=rng) for _ in range(K)]
+    slab = _stack(np, feeds)
+    rec = {"phase": "bert_long_recompute", **CARD, "B": B, "S": S, "P": P,
+           "K": K, "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+           "attention": "flash", "amp": "bf16", "lr": "noam_decay(h, 100, 1.0)"}
+    failures = []
+    scope0 = None
+    runs = {}
+    for rc in (False, True):
+        main, startup, out, lr = build_bert_graft(cfg, B, S, P, rc)
+        if scope0 is None:
+            scope0 = fluid.Scope()
+            exe.run(startup, scope=scope0)
+        fetch = [out["loss"], lr]
+        key = "recompute" if rc else "no_recompute"
+        r = runs[key] = {}
+        sB = copied_scope(torch, fluid, scope0)
+        _sync(torch, exe)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        before = (k1.launches, k2.launches)
+        t0 = time.perf_counter()
+        got = exe.run_steps(main, feed=slab, fetch_list=fetch, scope=sB)
+        r["first_slab_s"] = time.perf_counter() - t0
+        entry = _captured(exe)
+        if cuda:
+            r["peak_gb_over_first_slab"] = \
+                (torch.cuda.max_memory_allocated() - base) / 1e9
+            r["graph_pool_gb"] = entry.nbytes / 1e9
+        warm = {w.__name__: n for (w, a), n in
+                entry.warmup_launches.items() if a == "launches"}
+        rep = {w.__name__: n for (w, a), n in
+               entry.replay_launches.items() if a == "launches"}
+        r["k1_per_step_slab"] = (k1.launches - before[0]
+                                 - warm.get(k1.__name__, 0)) / K
+        r["k2_per_step_slab"] = (k2.launches - before[1]
+                                 - warm.get(k2.__name__, 0)) / K
+        r["replay_launches"] = rep
+        r["losses"] = [float(x) for x in got[0]]
+        r["lr"] = [float(x) for x in np.ravel(got[1])]
+        if rc:
+            # (a) K eager steps from another copy of the same scope
+            sA = copied_scope(torch, fluid, scope0)
+            before = (k1.launches, k2.launches)
+            eager, wall = [], []
+            for f in feeds:
+                t0 = time.perf_counter()
+                eager.append(exe.run(main, feed=f, fetch_list=fetch,
+                                     scope=sA))
+                wall.append((time.perf_counter() - t0) * 1e3)
+            r["k1_per_step_eager"] = (k1.launches - before[0]) / K
+            r["k2_per_step_eager"] = (k2.launches - before[1]) / K
+            r["eager_losses"] = [float(e[0]) for e in eager]
+            r["losses_bitwise_eager"] = bool(np.array_equal(
+                got[0], np.stack([e[0] for e in eager]))) and bool(
+                np.array_equal(got[1], np.stack([e[1] for e in eager])))
+            diff = scope_diff(torch, sA, sB)
+            r["scope_bitwise_eager"] = not diff
+            r["scope_diff"] = diff[:8]
+            r["eager_ms_per_step"] = wall
+            if not (r["losses_bitwise_eager"] and not diff):
+                failures.append(f"run_steps is not its eager steps: "
+                                f"{r['losses']} vs {r['eager_losses']}, "
+                                f"scope diff {diff[:8]}")
+            want = [noam_lr(np, i + 1, cfg.hidden_size, 100, 1.0)
+                    for i in range(K)]
+            r["lr_noam"] = [float(x) for x in want]
+            if [np.float32(x) for x in r["lr"]] != want:
+                failures.append(f"noam LR {r['lr']} != {r['lr_noam']}")
+            # (d) a second slab (the captured step replayed), timed, then
+            # profiled; one eager step profiled
+            t0 = time.perf_counter()
+            exe.run_steps(main, feed=slab, fetch_list=fetch, scope=sB)
+            r["run_steps_ms_per_step"] = \
+                (time.perf_counter() - t0) * 1e3 / K
+            r["eager_ms_per_step_median"] = float(np.median(wall[1:])) \
+                if K > 1 else wall[0]
+            if cuda:
+                r["device_ms_per_step_run_steps"] = profiled_ms(
+                    torch, lambda: exe.run_steps(main, feed=slab,
+                                                 fetch_list=fetch,
+                                                 scope=sB)) / K
+                r["device_ms_per_step_eager"] = profiled_ms(
+                    torch, lambda: exe.run(main, feed=feeds[0],
+                                           fetch_list=fetch, scope=sA))
+                for how in ("run_steps", "eager"):
+                    wall_ms = r["run_steps_ms_per_step"] \
+                        if how == "run_steps" \
+                        else r["eager_ms_per_step_median"]
+                    r[f"idle_share_{how}"] = \
+                        1 - r[f"device_ms_per_step_{how}"] / wall_ms
+            flops = bert_train_flops_per_sample(cfg, S, P) * B
+            ms = r["run_steps_ms_per_step"]
+            r["tokens_per_s_run_steps"] = B * S / ms * 1e3
+            r["tflops_run_steps"] = flops / ms / 1e9
+            r["tokens_per_s_eager"] = \
+                B * S / r["eager_ms_per_step_median"] * 1e3
+            r["analytic_flops_per_step"] = flops
+            del sA
+        exe.close()
+        del sB, got
+        _sync(torch, exe)
+        if cuda:
+            torch.cuda.empty_cache()
+    a, b = runs["recompute"], runs["no_recompute"]
+    rec.update(runs)
+    rec["losses_bitwise_with_without_recompute"] = a["losses"] == b["losses"]
+    L = cfg.num_layers
+    want = {"recompute": (2 * L, L), "no_recompute": (L, L)}
+    for key, (w1, w2) in want.items() if cuda else ():
+        r = runs[key]
+        got = (r["k1_per_step_slab"], r["k2_per_step_slab"])
+        if got != (w1, w2) or (key == "recompute" and (
+                r["k1_per_step_eager"], r["k2_per_step_eager"]) != (w1, w2)):
+            failures.append(f"{key}: K1/K2 a step {got} (eager "
+                            f"{r.get('k1_per_step_eager')}, "
+                            f"{r.get('k2_per_step_eager')}), not {(w1, w2)}")
+    if cuda and not a["peak_gb_over_first_slab"] < \
+            b["peak_gb_over_first_slab"]:
+        failures.append(f"recompute peaks at {a['peak_gb_over_first_slab']}"
+                        f" GB, no lower than {b['peak_gb_over_first_slab']}")
+    if not all(np.isfinite(a["losses"])):
+        failures.append(f"non-finite losses {a['losses']}")
+    rec["ok"] = not failures
+    emit(rec)
+    if failures:
+        raise AssertionError(f"bert_long_recompute: {failures}")
+    return rec
+
+
+def capture_names_flash_grad(torch, np, B=2, S=256, P=4):
+    """A training step whose flash grad op syncs the host (``.item()``
+    slipped into its backward call) cannot be captured: ``run_steps``
+    raises ``GraphCaptureError`` naming ``flash_attention_grad``, nothing
+    runs the slab eagerly instead, and the scope keeps its state. The
+    unpatched step then captures: K2's wrapper itself makes no host
+    sync and no allocation outside the graph pool."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework.cuda_graph import GraphCaptureError
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import attention_ops
+    cfg = bert_config(1, "flash", max_position=512)
+    main, startup, out, _ = build_bert_graft(cfg, B, S, P, True)
+    exe = fluid.Executor()
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    before = copied_scope(torch, fluid, scope)
+    rng = np.random.default_rng(15)
+    slab = _stack(np, [bert.random_batch(cfg, B, S, P, rng=rng)
+                       for _ in range(2)])
+    real = attention_ops.flash_attention_bwd
+
+    def syncing(q, *a):
+        float(q.float().sum().item())
+        return real(q, *a)
+    rec = {"phase": "capture_names_flash_grad", **CARD, "raised": None}
+    attention_ops.flash_attention_bwd = syncing
+    try:
+        exe.run_steps(main, feed=slab, fetch_list=[out["loss"]],
+                      scope=scope)
+    except GraphCaptureError as e:
+        rec.update(raised=type(e).__name__, op_type=e.op_type,
+                   message=str(e)[:300])
+    finally:
+        attention_ops.flash_attention_bwd = real
+    rec["scope_untouched"] = not scope_diff(torch, scope, before)
+    got = exe.run_steps(main, feed=slab, fetch_list=[out["loss"]],
+                        scope=scope)[0]
+    rec["then_captures"] = bool(np.isfinite(got).all())
+    rec["ok"] = (rec["raised"] == "GraphCaptureError"
+                 and rec["op_type"] == "flash_attention_grad"
+                 and rec["scope_untouched"] and rec["then_captures"])
+    exe.close()
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"capture_names_flash_grad: {rec}")
+    return rec
+
+
+def flagship_steps(torch, np, place=None, layers=None, K=8, seed=12):
+    """bench.py main()'s flagship (BERT-base B64 S128 P20, einsum
+    attention, BERT's dropout 0.1, bf16 AMP with softmax white-listed,
+    noam Adam): K eager steps against one ``run_steps`` slab of K from
+    copies of one scope: losses and scope bitwise (each replay draws its
+    eager step's dropout masks); wall and device ms a step both ways, and
+    the idle share."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    run = BERT_FLAGSHIP
+    B, S, P = run["B"], run["S"], run["P"]
+    cfg = bert_config(layers, run["mech"], max_position=512)
+    main, startup, out, lr, _ = build_bert(cfg, B, S, P, run["white"])
+    exe = fluid.Executor(place)
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    rng = np.random.default_rng(seed)
+    feeds = [bert.random_batch(cfg, B, S, P, rng=rng) for _ in range(K)]
+    slab = _stack(np, feeds)
+    sA = copied_scope(torch, fluid, scope0)
+    sB = copied_scope(torch, fluid, scope0)
+    eager, wall = [], []
+    for f in feeds:
+        t0 = time.perf_counter()
+        eager.append(exe.run(main, feed=f, fetch_list=[out["loss"]],
+                             scope=sA)[0])
+        wall.append((time.perf_counter() - t0) * 1e3)
+    got = exe.run_steps(main, feed=slab, fetch_list=[out["loss"]],
+                        scope=sB)[0]
+    diff = scope_diff(torch, sA, sB)
+    rec = {"phase": "flagship_steps", **CARD, "B": B, "S": S, "P": P,
+           "K": K, "layers": cfg.num_layers, "dropout": cfg.hidden_dropout,
+           "attention": "einsum", "amp": "bf16",
+           "eager_losses": [float(x) for x in eager],
+           "run_steps_losses": [float(x) for x in got],
+           "losses_bitwise": bool(np.array_equal(got, np.stack(eager))),
+           "scope_bitwise": not diff, "scope_diff": diff[:8],
+           "eager_ms_per_step": wall,
+           "eager_ms_per_step_median": float(np.median(wall[1:]))}
+    t0 = time.perf_counter()
+    exe.run_steps(main, feed=slab, fetch_list=[out["loss"]], scope=sB)
+    rec["run_steps_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / K
+    if exe.device.type == "cuda":
+        rec["device_ms_per_step_run_steps"] = profiled_ms(
+            torch, lambda: exe.run_steps(main, feed=slab,
+                                         fetch_list=[out["loss"]],
+                                         scope=sB)) / K
+        rec["device_ms_per_step_eager"] = profiled_ms(
+            torch, lambda: exe.run(main, feed=feeds[0],
+                                   fetch_list=[out["loss"]], scope=sA))
+        rec["idle_share_eager"] = 1 - rec["device_ms_per_step_eager"] / \
+            rec["eager_ms_per_step_median"]
+        rec["idle_share_run_steps"] = \
+            1 - rec["device_ms_per_step_run_steps"] / \
+            rec["run_steps_ms_per_step"]
+        rec["graph_pool_gb"] = _captured(exe).nbytes / 1e9
+        rec["stochastic_call_sites"] = len(_captured(exe)._sites)
+    rec["samples_per_s_run_steps"] = B / rec["run_steps_ms_per_step"] * 1e3
+    rec["ok"] = rec["losses_bitwise"] and not diff and \
+        bool(np.isfinite(got).all())
+    exe.close()
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"flagship_steps: run_steps is not its eager "
+                             f"steps: {rec}")
+    return rec
+
+
+def train_loop_lenet(torch, np, place=None, B=512, warm=32, steps=128):
+    """bench.py's bench_train_loop on the port: ``build_lenet_train()``
+    (Adam 0.001) at B512 over a two-batch seeded pool staged on the
+    device (step i takes batch i % 2), K in {1, 8, 32}: K=1 is one
+    ``Executor.run`` a step, K > 1 one ``run_steps`` slab of K; equal
+    step counts (``warm`` steps, then ``steps`` timed). Steps/s and
+    samples/s for each K; the losses of every K bitwise K=1's, under
+    ``FLAGS_cudnn_deterministic``. Without the flag, two eager runs of
+    ``warm`` steps are compared and the verdict recorded (cuDNN's
+    default wgrad and dgrad may sum in another order from call to
+    call)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.lenet import build_lenet_train
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_lenet_train()
+    pool = lenet_pool(np, B)
+    runs = [eager_losses(torch, np, fluid, place, main, startup,
+                         fetches[0].name, pool, warm) for _ in range(2)]
+    with deterministic_convs(fluid):
+        rec = _train_loop_lenet(torch, np, place, B, warm, steps)
+    rec["eager_runs_bitwise_without_flag"] = bool(
+        np.array_equal(runs[0], runs[1]))
+    emit(rec)
+    return rec
+
+
+def lenet_pool(np, B):
+    rng = np.random.default_rng(0)
+    return [{"img": rng.standard_normal((B, 1, 28, 28)).astype(np.float32),
+             "label": rng.integers(0, 10, (B, 1)).astype(np.int64)}
+            for _ in range(2)]
+
+
+def eager_losses(torch, np, fluid, place, main, startup, loss, pool, n):
+    """``n`` eager LeNet steps from a fresh startup (step i takes batch
+    i % 2): the losses."""
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    rows = [{k: torch.from_numpy(v).to(exe.device) for k, v in b.items()}
+            for b in pool]
+    out = [exe.run(main, feed=rows[i % 2], fetch_list=[loss], scope=scope,
+                   return_numpy=False)[0].reshape(1) for i in range(n)]
+    return torch.cat(out).float().cpu().numpy()
+
+
+class deterministic_convs:
+    """``FLAGS_cudnn_deterministic`` on inside, as it was after."""
+
+    def __init__(self, fluid):
+        self.fluid = fluid
+
+    def __enter__(self):
+        self.old = self.fluid.get_flags("FLAGS_cudnn_deterministic")
+        self.fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+
+    def __exit__(self, *exc):
+        self.fluid.set_flags(self.old)
+
+
+def _train_loop_lenet(torch, np, place, B, warm, steps):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.lenet import build_lenet_train
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_lenet_train()
+    loss = fetches[0].name
+    pool = lenet_pool(np, B)
+    per_k, losses = {}, {}
+    for k in (1, 8, 32):
+        exe = fluid.Executor(place)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        staged = {n: torch.from_numpy(np.stack(
+            [pool[j % 2][n] for j in range(k)])).to(exe.device)
+            for n in pool[0]}
+        rows = [{n: torch.from_numpy(v).to(exe.device)
+                 for n, v in b.items()} for b in pool]
+
+        def one(k=k, exe=exe, scope=scope, staged=staged, rows=rows, i=[0]):
+            if k == 1:
+                out = exe.run(main, feed=rows[i[0] % 2], fetch_list=[loss],
+                              scope=scope, return_numpy=False)
+                i[0] += 1
+                return out[0].reshape(1)
+            return exe.run_steps(main, feed=staged, fetch_list=[loss],
+                                 scope=scope, return_numpy=False)[0]
+        outs = [one() for _ in range(warm // k)]
+        _sync(torch, exe)
+        t0 = time.perf_counter()
+        outs += [one() for _ in range(steps // k)]
+        lv = torch.cat(outs).float().cpu().numpy()      # the one sync
+        sec = time.perf_counter() - t0
+        losses[k] = lv
+        per_k[str(k)] = {"steps_per_s": steps / sec,
+                         "samples_per_s": steps * B / sec}
+        exe.close()
+    base = per_k["1"]["steps_per_s"]
+    for row in per_k.values():
+        row["speedup_vs_k1"] = row["steps_per_s"] / base
+    rec = {"phase": "train_loop_lenet", **CARD, "B": B,
+           "cudnn_deterministic": True, "warm_steps": warm,
+           "timed_steps": steps, "k": per_k,
+           "losses_bitwise_k1": {str(k): bool(np.array_equal(losses[k],
+                                                             losses[1]))
+                                 for k in (8, 32)},
+           "first_last_loss": [float(losses[1][0]), float(losses[1][-1])]}
+    rec["ok"] = all(rec["losses_bitwise_k1"].values()) and \
+        bool(np.isfinite(losses[1]).all())
+    if not rec["ok"]:
+        emit(rec)
+        raise AssertionError(f"train_loop_lenet: {rec}")
+    return rec
+
+
+def nonfinite_steps(torch, np, place=None, layers=2, B=16, S=2048, P=64,
+                    K=8, bad=3, seed=13):
+    """The slice's BERT program (:func:`build_bert_graft`, recompute) at
+    ``layers`` deep: a K-step slab with a NaN in step ``bad``'s
+    ``input_mask`` (the only float feed). ``check_nan_inf`` raises
+    ``NonFiniteError`` naming fused step ``bad``; ``skip_nonfinite_steps``
+    rolls back that step only: the scope bitwise a sequential
+    ``run(skip_nonfinite_steps=True)`` over the same K feeds."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.resilience import NonFiniteError
+    cfg = bert_config(layers, "flash", max_position=max(S, 512))
+    main, startup, out, lr = build_bert_graft(cfg, B, S, P, True)
+    exe = fluid.Executor(place)
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    rng = np.random.default_rng(seed)
+    feeds = [bert.random_batch(cfg, B, S, P, rng=rng) for _ in range(K)]
+    feeds[bad]["input_mask"] = feeds[bad]["input_mask"].copy()
+    feeds[bad]["input_mask"][0, 0] = np.nan
+    slab = _stack(np, feeds)
+    rec = {"phase": "nonfinite_steps", **CARD, "B": B, "S": S, "P": P,
+           "K": K, "layers": cfg.num_layers, "bad_step": bad}
+    try:
+        exe.run_steps(main, feed=slab, fetch_list=[out["loss"]],
+                      scope=copied_scope(torch, fluid, scope0),
+                      check_nan_inf=True)
+        rec["raised"] = None
+    except NonFiniteError as e:
+        rec.update(raised=type(e).__name__, message=str(e)[:300],
+                   var_name=e.var_name, count=e.count)
+    sA = copied_scope(torch, fluid, scope0)
+    sB = copied_scope(torch, fluid, scope0)
+    seq = [exe.run(main, feed=f, fetch_list=[out["loss"]], scope=sA,
+                   skip_nonfinite_steps=True)[0] for f in feeds]
+    got = exe.run_steps(main, feed=slab, fetch_list=[out["loss"]],
+                        scope=sB, skip_nonfinite_steps=True)[0]
+    diff = scope_diff(torch, sA, sB)
+    rec.update(losses=[float(x) for x in got],
+               losses_bitwise=bool(np.array_equal(got, np.stack(seq),
+                                                  equal_nan=True)),
+               scope_bitwise=not diff, scope_diff=diff[:8],
+               nonfinite_steps=[int(i) for i in np.flatnonzero(
+                   ~np.isfinite(got))])
+    rec["ok"] = (rec["raised"] == "NonFiniteError"
+                 and f"fused step {bad}/{K} " in rec["message"]
+                 and rec["losses_bitwise"] and not diff
+                 and rec["nonfinite_steps"] == [bad])
+    exe.close()
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"nonfinite_steps: {rec}")
+    return rec
+
+
+def train_from_dataset_phase(torch, np, place=None, B=64, K=8, slabs=3,
+                             tail=5, seed=14):
+    """``Executor.train_from_dataset`` over a ``QueueDataset`` of seeded
+    LeNet samples that the phase writes to a temp dir (``slabs`` x K
+    batches of B, then ``tail`` more): ``steps_per_run=K`` (run_steps
+    slabs, the short tail slab through ``run``) against
+    ``steps_per_run=1`` from copies of one scope: the end state and the
+    last loss bitwise (under ``FLAGS_cudnn_deterministic``)."""
+    import paddle_tpu_torch as fluid
+    with deterministic_convs(fluid):
+        return _train_from_dataset(torch, np, place, B, K, slabs, tail,
+                                   seed)
+
+
+def _train_from_dataset(torch, np, place, B, K, slabs, tail, seed):
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.lenet import build_lenet_train
+    with fluid.unique_name.guard():
+        main, startup, _, fetches = build_lenet_train()
+    exe = fluid.Executor(place)
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    n = (slabs * K + tail) * B
+    imgs, labels = synthetic_digits(np, n, seed)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dataset_")
+    try:
+        paths = []
+        for part in range(2):
+            path = os.path.join(tmp, f"part-{part}.txt")
+            with open(path, "w") as f:
+                for i in range(part, n, 2):
+                    f.write("img:" + ",".join(
+                        f"{v:.5f}" for v in imgs[i].ravel())
+                        + f" label:{int(labels[i, 0])}\n")
+            paths.append(path)
+
+        def parse(line):
+            g = dict(t.split(":", 1) for t in line.split())
+            return (np.array(g["img"].split(","), np.float32).reshape(
+                1, 28, 28), np.array([int(g["label"])], np.int64))
+        ds = fluid.DatasetFactory().create_dataset("QueueDataset")
+        ds.set_filelist(paths)
+        ds.set_batch_size(B)
+        block = main.global_block()
+        ds.set_use_var([block.var("img"), block.var("label")])
+        ds.set_line_parser(parse)
+        sA = copied_scope(torch, fluid, scope0)
+        sB = copied_scope(torch, fluid, scope0)
+        t0 = time.perf_counter()
+        fused = exe.train_from_dataset(main, ds, scope=sA,
+                                       fetch_list=[fetches[0]],
+                                       print_period=0, steps_per_run=K)
+        fused_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step = exe.train_from_dataset(main, ds, scope=sB,
+                                      fetch_list=[fetches[0]],
+                                      print_period=0, steps_per_run=1)
+        step_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    diff = scope_diff(torch, sA, sB)
+    rec = {"phase": "train_from_dataset", **CARD, "B": B,
+           "cudnn_deterministic": True,
+           "steps_per_run": K, "batches": slabs * K + tail,
+           "fused_s": fused_s, "stepwise_s": step_s,
+           "last_loss": float(step[0]),
+           "last_loss_bitwise": bool(np.array_equal(fused[0][-1], step[0])),
+           "scope_bitwise": not diff, "scope_diff": diff[:8]}
+    rec["ok"] = rec["last_loss_bitwise"] and not diff
+    exe.close()
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"train_from_dataset: {rec}")
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2254,6 +2886,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    CARD["card"] = smi
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}",
           flush=True)
@@ -2538,6 +3171,22 @@ def main():
     flash_phase(torch, fa, 32, 12, 128, 64, "float32", False, "padded",
                 seed=129, packed=True)
     capture_refuses_host_sync(torch, np)
+    torch.cuda.empty_cache()
+
+    # the training loop: run_steps (a captured step replayed), the
+    # non-finite guard and rollback, train_from_dataset; the slice's path
+    # first: BERT-base at bench_bert_long's shape under recompute, K1
+    # forward and recomputed and K2 inside a captured training graph
+    drive("bert_long_recompute", bert_needs,
+          lambda: bert_long_recompute(torch, np, fa))
+    drive("capture_names_flash_grad", bert_needs,
+          lambda: capture_names_flash_grad(torch, np))
+    drive("flagship_steps", (), lambda: flagship_steps(torch, np))
+    drive("train_loop_lenet", (), lambda: train_loop_lenet(torch, np))
+    drive("nonfinite_steps", bert_needs,
+          lambda: nonfinite_steps(torch, np))
+    drive("train_from_dataset", (),
+          lambda: train_from_dataset_phase(torch, np))
 
     kernels = []
     rows = [("flash_attention_fwd", FA_SOURCE, FA_REPLACES, main_fa),

@@ -15,6 +15,11 @@ Ported so far:
   BERT (``models.bert.bert_pretrain``), ResNet
   (``models.resnet.resnet_train_program``) and LeNet
   (``models.lenet.build_lenet_train``).
+- The training loop: ``Executor.run_steps`` (K steps as replays of one
+  captured CUDA graph), the non-finite guard (``check_nan_inf``,
+  ``skip_nonfinite_steps``), ``Executor.train_from_dataset`` over the
+  ``dataio`` datasets (``fluid.DatasetFactory``), and the
+  ``RecomputeOptimizer`` and ``GradientMergeOptimizer`` wrappers.
 - Persistence (``io``: ``save``/``load``, ``save_params``,
   ``save_persistables``, ``save_inference_model`` and their loads), in
   the JAX package's on-disk format, so either package reads what the
@@ -52,14 +57,19 @@ from .models import (GPT, GPTConfig, GPTGenerator, init_params, param_shapes,
 from .param_attr import ParamAttr
 from .serving import (Client, GenerationEngine, InferenceServer, KVBlockPool,
                       ServingStats)
-from . import inference, io
+from . import dataio, inference, io
+from .dataio import DatasetFactory
 from .io import (load, load_inference_model, load_params, load_persistables,
                  save, save_inference_model, save_params, save_persistables)
 
-__all__ = ["CPUPlace", "CUDAPlace", "Client", "Executor", "GPT",
+dataset = dataio
+
+__all__ = ["CPUPlace", "CUDAPlace", "Client", "DatasetFactory", "Executor",
+           "GPT",
            "GPTConfig", "GPTGenerator", "GenerationEngine",
            "InferenceServer", "KVBlockPool", "ParamAttr", "Program", "Scope",
-           "ServingStats", "append_backward", "contrib", "data",
+           "ServingStats", "append_backward", "contrib", "data", "dataio",
+           "dataset",
            "default_main_program", "default_startup_program", "flags",
            "framework", "get_flags", "global_scope", "gradients",
            "inference", "init_params", "io", "kernels", "layers", "load",

@@ -12,6 +12,15 @@ _DEFS = {
     # -- serving front end --
     # admission: hard pending-request cap (backpressure)
     "serving_queue_depth": (256, int),
+    # -- training loop --
+    # scan fetched outputs and updated state for nan/inf after each step
+    # and raise NonFiniteError (Executor.run / run_steps default)
+    "check_nan_inf": (False, bool),
+    # train_from_dataset: steps per run_steps slab (1 = one run a step)
+    "steps_per_run": (1, int),
+    # train_from_dataset's fused path: fetch on every N-th slab only
+    # (and on print_period slabs and the last)
+    "fetch_every_n": (1, int),
     # micro-batching: a group flushes at this many rows, or when its
     # oldest request has waited batch_timeout_ms
     "serving_max_batch_size": (32, int),
@@ -37,6 +46,11 @@ _DEFS = {
     # total pool blocks incl. the trash block; 0 = dense-bank equivalent
     # (slots * ceil(max_len / block_size) + 1)
     "kv_pool_blocks": (0, int),
+    # cuDNN convolutions (forward, dgrad, wgrad) take deterministic
+    # algorithms only: a training step is the same bits run to run, and
+    # a replayed step the bits of its eager run (the JAX package accepts
+    # it and leaves the algorithms to XLA)
+    "cudnn_deterministic": (False, bool),
     # -- program passes --
     # the executor's pre-lowering pipeline over a clone of the program:
     # "1" = dce,cse,fuse_optimizer; "0" = off (the program runs as

@@ -5,9 +5,12 @@ ops, named and ordered as there, appended to the same program. Each
 ``T_grad`` op's lowering is the torch vjp of T's forward
 (``registry.generic_grad_lower``) unless T registered a bespoke one.
 A forward value whose name the op or a later op rebinds is saved by an
-``assign`` before the op, as there. Left out: recompute checkpoints,
-error clipping and grad-op callbacks.
+``assign`` before the op, as there. Recompute (``checkpoints=``)
+re-emits each checkpoint-delimited forward segment before its grad ops,
+as there (``:214-290``). Left out: error clipping (``clip`` is not
+ported); other grad-op callbacks warn, as there.
 """
+import warnings
 from collections import defaultdict
 
 from .core import OP_ROLE_KEY, OpRole, Parameter, Variable, grad_var_name
@@ -33,17 +36,38 @@ def _is_leaf_source(block, name):
     return not var.stop_gradient
 
 
-def append_backward(loss, parameter_list=None, no_grad_set=None):
+def append_backward(loss, parameter_list=None, no_grad_set=None,
+                    callbacks=None, checkpoints=None):
     """Append grad ops computing d loss / d params; returns
-    ``[(param, grad)]``."""
+    ``[(param, grad)]``.
+
+    ``checkpoints``: Variables that turn recompute on
+    (``RecomputeOptimizer``): each checkpoint-delimited forward segment
+    but the last is re-emitted just before its grad ops, reading its
+    non-persistable inputs through one ``recompute_barrier``, so the
+    backward reads recomputed activations and only the checkpoints stay
+    live across the forward-to-backward gap. ``callbacks``: the
+    reference's per-grad-op hooks; they are not invoked and warn, and
+    error clipping raises (``clip`` is not ported)."""
+    for cb in callbacks or ():
+        if getattr(cb, "__name__", "") == "error_clip_callback":
+            raise NotImplementedError("paddle_tpu_torch: error clipping "
+                                      "(clip.error_clip_callback) is not "
+                                      "ported")
+        warnings.warn(
+            f"append_backward callback {cb!r} is not invoked: per-grad-op "
+            f"hooks have no equivalent in the whole-program emission "
+            f"model", stacklevel=2)
     return _append_backward_core([loss], [None],
                                  parameter_list=parameter_list,
-                                 no_grad_set=no_grad_set)
+                                 no_grad_set=no_grad_set,
+                                 checkpoints=checkpoints)
 
 
 def _append_backward_core(targets, target_gradients, parameter_list=None,
-                          no_grad_set=None, collect_params=True,
-                          finalize_names=None, finalize_out=None):
+                          no_grad_set=None, checkpoints=None,
+                          collect_params=True, finalize_names=None,
+                          finalize_out=None):
     loss = targets[0]
     block = loss.block
     program = block.program
@@ -52,6 +76,8 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
                          "global block")
     no_grad = {n.name if isinstance(n, Variable) else n
                for n in (no_grad_set or ())}
+    ckpt_names = [c.name if isinstance(c, Variable) else c
+                  for c in (checkpoints or [])]
 
     # ---- forward pass: which vars can carry gradient flow ----
     flows = set()
@@ -157,6 +183,71 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
         grad_map[var_name] = [out]
         return out
 
+    # ---- recompute: re-emit each checkpoint-delimited segment (but the
+    # trailing one, whose activations are still live) just before its
+    # grad ops; its non-persistable reads go through one
+    # recompute_barrier, so cse cannot merge the re-emission with the
+    # forward. Grad-op primals are rewired onto the recomputed names;
+    # grad names and accumulation stay on the original vars.
+    rc_map = {}          # original var name -> recomputed name
+    seg_of = {}          # id(op) -> segment index
+    seg_emitted = set()
+    segments = []
+    if ckpt_names:
+        ckpt_set = set(ckpt_names)
+        cur = []
+        for op in fwd_ops:
+            cur.append(op)
+            seg_of[id(op)] = len(segments)
+            if any(n in ckpt_set for n in op.output_arg_names):
+                segments.append(cur)
+                cur = []
+        segments.append(cur)
+        seg_emitted.add(len(segments) - 1)
+
+    def emit_recompute(seg_idx):
+        ops_in_seg = segments[seg_idx]
+        interior = {n for op in ops_in_seg for n in op.output_arg_names}
+        external = []
+        for op in ops_in_seg:
+            for n in op.input_arg_names:
+                if n in interior or n in rc_map or n in external \
+                        or not block.has_var(n):
+                    continue
+                if not block.var(n).persistable:
+                    external.append(n)
+        if external:
+            bnames = []
+            for n in external:
+                v = block.var(n)
+                bn = f"{n}@RC_IN@{seg_idx}"
+                block.create_var(name=bn, shape=v.shape, dtype=v.dtype,
+                                 stop_gradient=True)
+                bnames.append(bn)
+                rc_map[n] = bn
+            block.append_op(
+                type="recompute_barrier", inputs={"X": list(external)},
+                outputs={"Out": bnames},
+                attrs={OP_ROLE_KEY: OpRole.Backward}, infer_shape=False)
+        for op in ops_in_seg:
+            new_ins = {s: [rc_map.get(n, n) for n in ns]
+                       for s, ns in op.inputs.items()}
+            new_outs = {}
+            for s, ns in op.outputs.items():
+                outs = []
+                for n in ns:
+                    rn = f"{n}@RECOMPUTE"
+                    v = block.var(n)
+                    block.create_var(name=rn, shape=v.shape, dtype=v.dtype,
+                                     stop_gradient=True)
+                    rc_map[n] = rn
+                    outs.append(rn)
+                new_outs[s] = outs
+            attrs = dict(op.attrs)
+            attrs[OP_ROLE_KEY] = OpRole.Backward
+            block.append_op(type=op.type, inputs=new_ins, outputs=new_outs,
+                            attrs=attrs, infer_shape=False)
+
     finalize_set = set(finalize_names or ())
 
     def record_final(var_name, grad_name):
@@ -175,6 +266,10 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
                         record_final(n, finalize(n))
                     grad_map[n] = []
             continue
+        seg_idx = seg_of.get(id(op))
+        if seg_idx is not None and seg_idx not in seg_emitted:
+            emit_recompute(seg_idx)
+            seg_emitted.add(seg_idx)
         g_ins, out_grad_mask = {}, {}
         for slot, names in op.outputs.items():
             gs = [finalize(n) for n in names]
@@ -205,12 +300,13 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
         if not grad_inputs_req:
             continue
         # inputs: the forward inputs (the vjp's primals; rebound names
-        # from their saved copies) + upstream grads; the forward outputs
-        # are recomputed by the grad lowering
+        # from their saved copies, recomputed segments from their
+        # re-emission) + upstream grads; the forward outputs are
+        # recomputed by the grad lowering
         sm = save_map.get(id(op), {})
         block.append_op(
             type=op.type + "_grad",
-            inputs={**{s: [sm.get(n, n) for n in ns]
+            inputs={**{s: [sm.get(n) or rc_map.get(n, n) for n in ns]
                        for s, ns in op.inputs.items()},
                     **g_ins},
             outputs=g_outs,

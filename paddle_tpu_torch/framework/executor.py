@@ -16,6 +16,12 @@ writes go back to it when the run ends, and every other var is dropped
 from the env after its last reader (``lowering.last_uses``), so a
 training step holds what a compiler's buffer liveness would hold, not
 every activation and grad at once.
+
+The training loop: ``run`` and ``run_steps`` take the JAX package's
+non-finite guard (``check_nan_inf``, ``skip_nonfinite_steps``);
+``run_steps`` runs K steps as replays of one captured CUDA graph
+(``cuda_graph.CapturedStep``); ``train_from_dataset`` feeds a dataset
+(``dataio``) to either.
 """
 import time
 
@@ -24,11 +30,12 @@ import torch
 
 from ..device import resolve_device
 from ..flags import flag
+from ..resilience import NonFiniteError
 from .analysis import verify_program
 from .core import CPUPlace, CUDAPlace, Variable, default_main_program
 from .dtype import torch_dtype
-from .lowering import (LowerCtx, analyze_block_io, last_uses, run_ops,
-                       splitmix64)
+from .lowering import (LowerCtx, analyze_block_io, last_uses,
+                       nonfinite_counts, run_ops, splitmix64)
 from .passes import optimize_program, pipeline_signature
 from .passes import stats as pass_stats
 
@@ -114,6 +121,8 @@ class Executor:
         else:
             raise TypeError(f"unsupported place {place!r}")
         self._opt_cache = {}
+        self._steps = {}
+        self._graphs = {}
         self.verify_ms = 0.0
 
     def _optimize(self, program, fetch_names, feed_names=(), scope=None):
@@ -160,26 +169,352 @@ class Executor:
         dt = torch_dtype(var.dtype) if var is not None else t.dtype
         return t.to(device=self.device, dtype=dt)
 
+    @staticmethod
+    def _feed_dict(feed):
+        return {(k.name if isinstance(k, Variable) else k): v
+                for k, v in (feed or {}).items()}
+
+    @staticmethod
+    def _fetch_names(fetch_list):
+        return [f.name if isinstance(f, Variable) else str(f)
+                for f in (fetch_list or [])]
+
+    def _step(self, program, feed_names, fetch_names, scope):
+        """The pipeline's clone of ``program`` with its io analysis
+        (:class:`Step`), memoized with the clone."""
+        opt = self._optimize(program, fetch_names, feed_names, scope)
+        key = (id(opt), opt.version, frozenset(feed_names),
+               tuple(fetch_names))
+        step = self._steps.get(key)
+        if step is None or step.program is not opt:
+            step = Step(opt, feed_names, fetch_names)
+            self._steps[key] = step
+        return step
+
+    @staticmethod
+    def _run_seed(scope, program):
+        seed = scope.find_var(RNG_STATE_NAME)
+        return int(program.random_seed or 0) if seed is None else seed
+
     def run(self, program=None, feed=None, fetch_list=None, scope=None,
-            return_numpy=True):
+            return_numpy=True, use_program_cache=True, check_nan_inf=None,
+            skip_nonfinite_steps=False):
         """Run ``program``'s global block once; returns the fetched
         values (numpy arrays, bf16 as float32, or tensors with
         ``return_numpy=False``).
         ``fetch_list`` may name any var the block computes, ``param@GRAD``
-        names included."""
+        names included.
+
+        ``check_nan_inf`` (default ``FLAGS_check_nan_inf``) counts the
+        nan/inf elements of the fetches and the updated variables on the
+        device after the step (one small host read) and raises
+        :class:`NonFiniteError` naming the first offender; the step is
+        committed all the same. ``skip_nonfinite_steps`` rolls the step
+        back instead: the scope keeps its state and the (non-finite)
+        fetches are returned. The run seed advances with every executed
+        step, rolled back or not (the JAX package restores its key)."""
         program = program if program is not None else default_main_program()
         scope = scope if scope is not None else global_scope()
-        block = program.global_block()
-        feed = {(k.name if isinstance(k, Variable) else k): v
-                for k, v in (feed or {}).items()}
-        fetch_names = [f.name if isinstance(f, Variable) else str(f)
-                       for f in (fetch_list or [])]
-        program = self._optimize(program, fetch_names, feed.keys(), scope)
-        block = program.global_block()
-
+        feed = self._feed_dict(feed)
+        fetch_names = self._fetch_names(fetch_list)
+        step = self._step(program, fetch_names=fetch_names,
+                          feed_names=feed.keys(), scope=scope)
+        block = step.program.global_block()
         env = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}
-        reads, writes = analyze_block_io(program, 0, env.keys())
-        for n in reads:
+        run_seed = self._run_seed(scope, program)
+        if check_nan_inf is None:
+            check_nan_inf = flag("check_nan_inf")
+        guard = bool(check_nan_inf or skip_nonfinite_steps)
+        fetches, new, counts = step.execute(env, scope, self.device,
+                                            run_seed, guard)
+        scope.set(RNG_STATE_NAME, splitmix64(run_seed))
+        bad = None
+        if guard:
+            c = counts.cpu().numpy()            # the one host read
+            if c.any():
+                i = int(np.argmax(c > 0))
+                bad = step.slots[i] + (int(c[i]),)
+        if bad is not None and skip_nonfinite_steps:
+            kind, name, count = bad
+            print(f"[executor] skip_nonfinite_steps: {kind} {name!r} has "
+                  f"{count} non-finite value(s) — step rolled back")
+        else:
+            for n, v in new.items():
+                scope.set(n, v)
+            if bad is not None:
+                kind, name, count = bad
+                raise NonFiniteError(
+                    f"Operator output contains Inf/Nan "
+                    f"(FLAGS_check_nan_inf): {kind} {name!r} has {count} "
+                    f"non-finite value(s) in program_{program._uid}. Feed "
+                    f"data, learning rate, or loss scaling are the usual "
+                    f"suspects.", var_name=name, count=count)
+        if return_numpy:
+            return [_to_numpy(f) for f in fetches]
+        return fetches
+
+    # -- fused multi-step entry -----------------------------------------
+    def run_steps(self, program=None, feed=None, fetch_list=None,
+                  scope=None, return_numpy=True, use_program_cache=True,
+                  check_nan_inf=None, skip_nonfinite_steps=False,
+                  steps_per_run=None, unroll=None):
+        """Run K training steps, one per row of a feed slab: bitwise K
+        sequential :meth:`run` calls (the same ops, state and run seeds),
+        with the Python dispatch of a step paid once. On the GPU the step
+        is captured once into a CUDA graph
+        (``cuda_graph.CapturedStep``; cached per program version, feed
+        row signature, fetches, guard and pass pipeline) and each row is
+        a replay; the K feed rows are staged on the device in one copy
+        and the fetches come back stacked on a leading K axis in one
+        copy. On the CPU each row runs the same step eagerly.
+
+        ``feed``: a dict of arrays with a leading K axis, or a list of K
+        feed dicts (stacked here). ``check_nan_inf`` (default
+        ``FLAGS_check_nan_inf``) counts each step's nan/inf elements over
+        its fetches and updated state on the device; the host reads the
+        K counts once, after the slab, and raises
+        :class:`NonFiniteError` naming the first bad step, with every
+        step executed and committed. ``skip_nonfinite_steps`` rolls each
+        bad step back on the device instead. The run seed advances once
+        per step, rolled back or not. ``unroll`` (the JAX package's scan
+        unroll) is accepted and changes nothing: the graph holds one
+        step whatever its value."""
+        program = program if program is not None else default_main_program()
+        scope = scope if scope is not None else global_scope()
+        if isinstance(feed, (list, tuple)):
+            feed = _stack_feed_slab([self._feed_dict(f) for f in feed])
+        feed = self._feed_dict(feed)
+        if not feed:
+            raise ValueError(
+                "run_steps needs at least one fed variable: the slab's "
+                "leading axis defines the step count")
+        fetch_names = self._fetch_names(fetch_list)
+        block = program.global_block()
+        k_steps = None
+        slab = {}
+        for name, val in feed.items():
+            if np.ndim(val) == 0:
+                raise ValueError(
+                    f"feed {name!r} is a scalar — run_steps feeds need a "
+                    f"leading steps axis")
+            k = int(np.shape(val)[0])
+            if k_steps is None:
+                k_steps = k
+            elif k != k_steps:
+                raise ValueError(
+                    f"feed {name!r} has {k} steps on its leading axis, "
+                    f"other feeds have {k_steps}")
+            slab[name] = self._feed_tensor(block, name, val)
+        if steps_per_run is not None and int(steps_per_run) != k_steps:
+            raise ValueError(
+                f"steps_per_run={steps_per_run} but the fed slab carries "
+                f"{k_steps} steps on its leading axis")
+        if check_nan_inf is None:
+            check_nan_inf = flag("check_nan_inf")
+        guard = bool(check_nan_inf or skip_nonfinite_steps)
+        skip = bool(skip_nonfinite_steps)
+
+        step = self._step(program, fetch_names=fetch_names,
+                          feed_names=slab.keys(), scope=scope)
+        from .cuda_graph import CapturedStep
+        sig = tuple(sorted((n, tuple(t.shape[1:]), str(t.dtype))
+                           for n, t in slab.items()))
+        key = (program._uid, program.version, sig, tuple(fetch_names),
+               guard, skip, pipeline_signature(), id(step))
+        entry = self._graphs.get(key) if use_program_cache else None
+        if entry is None:
+            from ..kernels import COUNTED
+            entry = CapturedStep(step, slab, scope, self.device, guard=guard,
+                                 skip=skip, counters=COUNTED)
+            if use_program_cache:
+                self._graphs[key] = entry
+        fetches, viols, slots, seed = entry.run_slab(
+            slab, scope, self._run_seed(scope, program))
+        scope.set(RNG_STATE_NAME, seed)
+
+        if guard and viols.any():
+            first = int(np.argmax(viols > 0))
+            i = int(slots[first])
+            kind, name = step.slots[i] if 0 <= i < len(step.slots) \
+                else ("slot", i)
+            name = f"{kind} {name!r}"
+            if skip:
+                rolled = int((viols > 0).sum())
+                print(f"[executor] skip_nonfinite_steps: {rolled} of "
+                      f"{k_steps} fused step(s) rolled back in-graph "
+                      f"(first at slab step {first}: {int(viols[first])} "
+                      f"non-finite value(s) across outputs/state, "
+                      f"first offender {name})")
+            else:
+                raise NonFiniteError(
+                    f"Operator output contains Inf/Nan "
+                    f"(FLAGS_check_nan_inf): fused step "
+                    f"{first}/{k_steps} of program_{program._uid} "
+                    f"produced {int(viols[first])} non-finite value(s) "
+                    f"across outputs/state; first offender {name}. "
+                    f"Feed data, learning rate, or loss scaling are "
+                    f"the usual suspects.",
+                    var_name=name, count=int(viols[first]))
+        if return_numpy:
+            return [_to_numpy(f) for f in fetches]
+        return fetches
+
+    def close(self):
+        """Drop the memoized programs and the captured steps (and the
+        device memory their graphs hold)."""
+        self._opt_cache.clear()
+        self._steps.clear()
+        self._graphs.clear()
+
+    # -- dataset ingestion ----------------------------------------------
+    def train_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100,
+                           fetch_handler=None, skip_nonfinite_steps=False,
+                           steps_per_run=None, fetch_every_n=None):
+        """Train over ``dataset``'s batches. ``steps_per_run=K`` (default
+        ``FLAGS_steps_per_run``) > 1 takes the fused path: K-step slabs
+        (``batch_iterator(slab=K)``) through :meth:`run_steps`, a short
+        tail slab through K :meth:`run` calls. ``print_period`` reports
+        from the slab's fetches. ``fetch_every_n=N`` (default
+        ``FLAGS_fetch_every_n``) > 1 fetches only on slabs that hold a
+        ``print_period`` step, every N-th slab and the last. Under the
+        fused path the returned last fetches are stacked per step, with
+        a leading slab axis. ``fetch_handler`` (a monitor thread in the
+        JAX package) is not ported."""
+        if fetch_handler is not None:
+            raise NotImplementedError("paddle_tpu_torch: fetch_handler is "
+                                      "not ported")
+        assert dataset is not None, "train_from_dataset needs a dataset"
+        k_steps = int(steps_per_run if steps_per_run is not None
+                      else flag("steps_per_run"))
+        fetch_every = int(fetch_every_n if fetch_every_n is not None
+                          else flag("fetch_every_n"))
+        fetch_names = self._fetch_names(fetch_list)
+        fetch_info = fetch_info or fetch_names
+        if k_steps > 1:
+            return self._train_fused(
+                program, dataset, scope, fetch_list, fetch_names,
+                fetch_info, print_period, skip_nonfinite_steps, k_steps,
+                fetch_every)
+        return self._train_stepwise(
+            program, dataset, scope, fetch_list, fetch_names, fetch_info,
+            print_period, skip_nonfinite_steps)
+
+    def _train_stepwise(self, program, dataset, scope, fetch_list,
+                        fetch_names, fetch_info, print_period,
+                        skip_nonfinite_steps):
+        """One :meth:`run` per batch; fetches are read on the host only on
+        a reporting step (step 0, untrained, is not reported)."""
+        last = None
+        for step, feed in enumerate(dataset.batch_iterator()):
+            out = self.run(program, feed=feed, fetch_list=fetch_list,
+                           scope=scope, return_numpy=False,
+                           skip_nonfinite_steps=skip_nonfinite_steps)
+            last = out
+            if fetch_names and print_period and step \
+                    and step % print_period == 0:
+                msg = ", ".join(f"{i}={_to_numpy(v).mean():.6f}"
+                                for i, v in zip(fetch_info, out))
+                print(f"step {step}: {msg}")
+        if last is not None:
+            last = [_to_numpy(v) for v in last]
+        return last
+
+    def _train_fused(self, program, dataset, scope, fetch_list,
+                     fetch_names, fetch_info, print_period,
+                     skip_nonfinite_steps, k_steps, fetch_every):
+        """The slab loop behind ``train_from_dataset(steps_per_run=K)``:
+        full slabs through :meth:`run_steps`, a short slab (the tail, or
+        a shape change) through :meth:`run` calls, so no step is
+        captured for a shape seen once."""
+        from ..dataio.dataset import DatasetBase
+        try:
+            it = dataset.batch_iterator(slab=k_steps)
+        except TypeError:
+            it = DatasetBase._slab_batches(dataset.batch_iterator(),
+                                           k_steps)
+        last = None
+        step = slab_idx = 0
+        cur = next(it, None)
+        while cur is not None:
+            nxt = next(it, None)
+            k = int(np.shape(next(iter(cur.values())))[0])
+            hit = bool(print_period) and bool(fetch_names) and any(
+                (step + j) and (step + j) % print_period == 0
+                for j in range(k))
+            want = bool(fetch_names) and (
+                fetch_every <= 1 or hit or slab_idx % fetch_every == 0
+                or nxt is None)     # the last slab: the return is fresh
+            flist = fetch_list if want else []
+            if k == k_steps:
+                out = self.run_steps(
+                    program, feed=cur, fetch_list=flist, scope=scope,
+                    return_numpy=False,
+                    skip_nonfinite_steps=skip_nonfinite_steps)
+            else:
+                outs = [self.run(program,
+                                 feed={n: a[j] for n, a in cur.items()},
+                                 fetch_list=flist, scope=scope,
+                                 return_numpy=False,
+                                 skip_nonfinite_steps=skip_nonfinite_steps)
+                        for j in range(k)]
+                out = [torch.stack([o[i] for o in outs])
+                       for i in range(len(fetch_names))] if want else []
+            if want and out:
+                mats = [_to_numpy(v) for v in out]    # one copy a slab
+                last = mats
+                for j in range(k) if hit else ():
+                    g = step + j
+                    if g and g % print_period == 0:
+                        msg = ", ".join(f"{i}={v[j].mean():.6f}"
+                                        for i, v in zip(fetch_info, mats))
+                        print(f"step {g}: {msg}")
+            step += k
+            slab_idx += 1
+            cur = nxt
+        if last is None and not fetch_names and slab_idx:
+            last = []       # the stepwise path's no-fetch return
+        return last
+
+    def infer_from_dataset(self, program=None, dataset=None, scope=None,
+                           thread=0, debug=False, fetch_list=None,
+                           fetch_info=None, print_period=100):
+        prog = program.clone(for_test=True) if program is not None else None
+        return self.train_from_dataset(prog, dataset, scope, thread, debug,
+                                       fetch_list, fetch_info, print_period)
+
+
+class Step:
+    """One program (already through the pass pipeline) at one set of fed
+    and fetched names: the scope state it reads (``reads``, then
+    ``fetch_state``: fetched names only the scope holds), the
+    persistables it writes (``writes``), when each other var can be
+    dropped (``free``) and the guard's slot names (``slots``: fetches,
+    then written vars)."""
+
+    def __init__(self, program, feed_names, fetch_names):
+        self.program = program
+        block = program.global_block()
+        self.fetch_names = list(fetch_names)
+        self.reads, self.writes = analyze_block_io(program, 0, feed_names)
+        made = set(feed_names) | {n for op in block.ops
+                                  for n in op.output_arg_names}
+        self.fetch_state = [n for n in dict.fromkeys(self.fetch_names)
+                            if n not in made and n not in self.reads]
+        self.state_names = list(dict.fromkeys(
+            self.reads + self.fetch_state + self.writes))
+        self.free = last_uses(block, set(self.fetch_names)
+                              | set(self.writes))
+        self.slots = ([("fetched output", n) for n in self.fetch_names]
+                      + [("updated variable", n) for n in self.writes])
+
+    def execute(self, env, scope, device, run_seed, guard=False):
+        """Run the step eagerly over ``env`` (the feed tensors) and the
+        scope's state; returns (fetches, {written var: new value}, the
+        guard's per-slot nan/inf counts on the device or None). Commits
+        nothing."""
+        for n in self.reads:
             val = scope.find_var(n)
             if val is None:
                 raise RuntimeError(
@@ -187,29 +522,44 @@ class Executor:
                     f"initialized in the scope: run the startup program "
                     f"first, or feed it")
             env[n] = val
-        for n in fetch_names:
-            if n not in env and scope.find_var(n) is not None:
-                env[n] = scope.find_var(n)       # a fetch of scope state
-
-        run_seed = scope.find_var(RNG_STATE_NAME)
-        if run_seed is None:
-            run_seed = int(program.random_seed or 0)
-        ctx = LowerCtx(program, block, env, self.device, run_seed=run_seed)
-        keep = set(fetch_names) | set(writes)
+        for n in self.fetch_state:
+            if scope.find_var(n) is not None:
+                env[n] = scope.find_var(n)      # a fetch of scope state
+        ctx = LowerCtx(self.program, self.program.global_block(), env,
+                       device, run_seed=run_seed)
         with torch.no_grad():
-            run_ops(ctx, free_after=last_uses(block, keep))
-
+            run_ops(ctx, free_after=self.free)
         fetches = []
-        for n in fetch_names:
+        for n in self.fetch_names:
             if n not in env:
                 raise KeyError(f"fetch target {n!r} was never computed")
             fetches.append(env[n])
-        for n in writes:
-            scope.set(n, env[n])
-        scope.set(RNG_STATE_NAME, splitmix64(run_seed))
-        if return_numpy:
-            return [_to_numpy(f) for f in fetches]
-        return fetches
+        new = {n: env[n] for n in self.writes if n in env}
+        counts = None
+        if guard:
+            counts = nonfinite_counts(fetches + list(new.values()), device)
+        return fetches, new, counts
+
+
+def _stack_feed_slab(feeds):
+    """Stack a list of per-step feed dicts on a new leading K axis. Key
+    order may differ between steps; the variable set may not."""
+    if not feeds:
+        raise ValueError("run_steps got an empty feed list")
+    names = list(feeds[0].keys())
+    for f in feeds[1:]:
+        if set(f.keys()) != set(names):
+            raise ValueError(
+                "run_steps feed dicts must bind the same variables in "
+                f"every step: {sorted(names)} vs {sorted(f.keys())}")
+    return {n: torch.stack([_as_tensor(f[n]) for f in feeds])
+            if any(isinstance(f[n], torch.Tensor) for f in feeds)
+            else np.stack([np.asarray(f[n]) for f in feeds]) for n in names}
+
+
+def _as_tensor(v):
+    return v if isinstance(v, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(v))
 
 
 def _to_numpy(t):
@@ -222,4 +572,4 @@ def _to_numpy(t):
 
 
 __all__ = ["CPUPlace", "CUDAPlace", "Executor", "RNG_STATE_NAME", "Scope",
-           "global_scope", "scope_from_arrays", "scope_guard"]
+           "Step", "global_scope", "scope_from_arrays", "scope_guard"]

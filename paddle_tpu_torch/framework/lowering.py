@@ -38,36 +38,73 @@ class LowerCtx:
         self.op = None
         self.saved = {}
         self._grad_fwd_outs = None
+        self._written = set()
+        # set by a captured step: hands out its call-site generators
+        self.generator_hook = None
+
+    def _saved_keys(self):
+        """Names a forward output is kept under for its grad op. A grad
+        op of a recomputed segment (``append_backward(checkpoints=)``)
+        reads the recomputed op's values, so it takes what the
+        recomputed op (outputs ``<name>@RECOMPUTE``) saved, and the
+        original forward of that segment saves nothing: only
+        checkpoints stay live across the forward-to-backward gap."""
+        if self._grad_fwd_outs is None:
+            self._written = {n for op in self.block.ops
+                             for n in op.output_arg_names}
+            self._grad_fwd_outs = {
+                self._key_of(n) for op in self.block.ops
+                if "__fwd_op__" in op.attrs
+                for ns in op.attrs["__fwd_op__"]["outputs"].values()
+                for n in ns}
+        return self._grad_fwd_outs
+
+    def _key_of(self, name):
+        """``name@RECOMPUTE`` where a recomputed op of the block writes
+        it, else ``name``."""
+        rc = f"{name}@RECOMPUTE"
+        return rc if rc in self._written else name
 
     def save_for_grad(self, name, value):
         """Keep ``value`` under the forward output ``name`` for a grad op
-        of this block whose forward wrote ``name`` (it takes it with
-        ``self.saved.pop(name)``); nothing is kept when no grad op will
-        read it, or while inferring shapes."""
+        of this block that reads it (:meth:`take_saved`); nothing is
+        kept when no grad op will read it, or while inferring shapes."""
         if self.abstract or self.block is None:
             return
-        if self._grad_fwd_outs is None:
-            self._grad_fwd_outs = {
-                n for op in self.block.ops if "__fwd_op__" in op.attrs
-                for ns in op.attrs["__fwd_op__"]["outputs"].values()
-                for n in ns}
-        if name in self._grad_fwd_outs:
+        if name in self._saved_keys():
             self.saved[name] = value
+
+    def take_saved(self, name):
+        """What the forward that wrote ``name`` (the grad op's
+        ``__fwd_op__`` output) saved for this grad op, or None."""
+        if self.block is None:
+            return None
+        self._saved_keys()
+        return self.saved.pop(self._key_of(name), None)
 
     def generator(self, attrs):
         """A fresh ``torch.Generator`` on the ctx's device for one
-        stochastic op, seeded from (run seed, the op's ``__rng_seed__``),
-        or from the op's own ``seed`` attr when it has one. A grad op
+        stochastic call, seeded by :func:`generator_seed`. A grad op
         recomputing its forward passes the forward's attrs, so it draws
         the same numbers (the same dropout mask). None while inferring
-        shapes on the meta device."""
+        shapes on the meta device. Under a captured step
+        (``generator_hook``) each call site takes the generator the
+        graph registered for it."""
         if self.abstract:
             return None
-        base = attrs.get("seed", 0) or self.run_seed
+        if self.generator_hook is not None:
+            return self.generator_hook(self, attrs)
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(splitmix64((int(base) << 20)
-                                   ^ int(attrs.get("__rng_seed__", 0))))
+        gen.manual_seed(generator_seed(self.run_seed, attrs))
         return gen
+
+
+def generator_seed(run_seed, attrs):
+    """The seed of one stochastic call: (run seed, the op's
+    ``__rng_seed__``), or the op's own ``seed`` attr in place of the run
+    seed when it has one."""
+    base = attrs.get("seed", 0) or run_seed
+    return splitmix64((int(base) << 20) ^ int(attrs.get("__rng_seed__", 0)))
 
 
 def run_ops(ctx, free_after=None):
@@ -99,6 +136,28 @@ def _missing(name, op):
     raise KeyError(
         f"var {name!r} (input of op {op.type!r}) has no value: it was "
         f"neither fed, produced by an earlier op, nor found in the scope")
+
+
+def nonfinite_counts(tensors, device):
+    """int32 ``[len(tensors)]`` on ``device``: each tensor's count of
+    nan/inf elements (0 for integer and bool tensors, which stay in the
+    list so slot indices line up with slot names)."""
+    if not tensors:
+        return torch.zeros(1, dtype=torch.int32, device=device)
+    return torch.stack([
+        (~torch.isfinite(t)).sum(dtype=torch.int32)
+        if t.is_floating_point() or t.is_complex()
+        else torch.zeros((), dtype=torch.int32, device=t.device)
+        for t in tensors]).to(device)
+
+
+def first_offender(counts):
+    """(total count, index of the first nonzero slot) of a count vector,
+    as device scalars (the slot is 0 when every count is 0)."""
+    n = counts.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=counts.device)
+    first = torch.where(counts > 0, idx, torch.full_like(idx, n)).min()
+    return counts.sum(dtype=torch.int32), torch.where(first < n, first, 0)
 
 
 def analyze_block_io(program, block_idx, feed_names):

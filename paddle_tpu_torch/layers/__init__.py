@@ -11,13 +11,13 @@ from .learning_rate_scheduler import (autoincreased_step_counter,
 from .loss import cross_entropy, softmax_with_cross_entropy
 from .math import (einsum, elementwise_add, elementwise_div,
                    elementwise_max, elementwise_min, elementwise_mul,
-                   elementwise_pow, elementwise_sub, greater_equal,
+                   elementwise_pow, elementwise_sub, equal, greater_equal,
                    less_than, logical_and, logical_not, mean, reduce_sum,
                    scale)
 from .nn import (accuracy, batch_norm, ceil, conv2d, cos, dropout,
                  embedding, exp, fc, flash_attention, flatten, floor,
                  layer_norm, matmul, pool2d, pow, relu, rsqrt, softmax,
-                 tanh, topk, unsqueeze)
+                 square, tanh, topk, unsqueeze)
 from .tensor import (assign, cast, create_global_var, data, fill_constant,
                      gather, ones_like, reshape, slice, transpose)
 
@@ -26,7 +26,7 @@ __all__ = ["accuracy", "assign", "autoincreased_step_counter",
            "create_global_var", "cross_entropy", "data", "dropout",
            "einsum", "elementwise_add", "elementwise_div",
            "elementwise_max", "elementwise_min", "elementwise_mul",
-           "elementwise_pow", "elementwise_sub", "embedding", "exp",
+           "elementwise_pow", "elementwise_sub", "embedding", "equal", "exp",
            "exponential_decay", "fc", "fill_constant", "flash_attention",
            "flatten", "floor", "gather", "greater_equal",
            "inverse_time_decay", "layer_norm", "less_than",
@@ -34,5 +34,5 @@ __all__ = ["accuracy", "assign", "autoincreased_step_counter",
            "mean", "natural_exp_decay", "noam_decay", "ones_like",
            "piecewise_decay", "polynomial_decay", "pool2d", "pow",
            "reduce_sum", "relu", "reshape", "rsqrt", "scale", "slice",
-           "softmax", "softmax_with_cross_entropy", "tanh", "topk",
+           "softmax", "softmax_with_cross_entropy", "square", "tanh", "topk",
            "transpose", "unsqueeze"]

@@ -95,6 +95,10 @@ def greater_equal(x, y, cond=None):
     return _cmp("greater_equal", x, y, cond)
 
 
+def equal(x, y, cond=None):
+    return _cmp("equal", x, y, cond)
+
+
 def logical_and(x, y, out=None, name=None):
     return _cmp("logical_and", x, y, out)
 

@@ -227,6 +227,10 @@ def exp(x, name=None):
     return _unary("exp", x, name)
 
 
+def square(x, name=None):
+    return _unary("square", x, name)
+
+
 def rsqrt(x, name=None):
     return _unary("rsqrt", x, name)
 

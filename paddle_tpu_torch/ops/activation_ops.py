@@ -1,7 +1,7 @@
 """Activation ops in torch (counterpart of
 ``paddle_tpu/ops/activation_ops.py``: ``relu :23``, ``tanh :25``,
 ``exp :26``, ``rsqrt :32``, ``floor :36``, ``ceil :37``, ``cos :41``,
-``pow :81``, ``softmax :89``). Each takes the generic vjp grad, as in the
+``square :33``, ``pow :81``, ``softmax :89``). Each takes the generic vjp grad, as in the
 JAX package; ``floor`` and ``ceil`` have none."""
 import torch
 
@@ -17,6 +17,11 @@ def relu(ctx, ins, attrs):
 @register_op("exp")
 def exp(ctx, ins, attrs):
     return {"Out": torch.exp(x_of(ins))}
+
+
+@register_op("square")
+def square(ctx, ins, attrs):
+    return {"Out": torch.square(x_of(ins))}
 
 
 @register_op("floor", grad=False)

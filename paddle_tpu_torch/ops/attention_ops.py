@@ -80,7 +80,7 @@ def flash_attention_grad(ctx, ins, attrs):
     q, k, v, bias, scale, causal, impl = _route(ins, fwd["attrs"])
     if impl == "xla":
         return generic_grad_lower(ctx, ins, attrs, OPS["flash_attention"])
-    saved = ctx.saved.pop(fwd["outputs"]["Out"][0], None)
+    saved = ctx.take_saved(fwd["outputs"]["Out"][0])
     out, lse2 = saved if saved is not None \
         else flash_attention_fwd(q, k, v, bias, scale, causal)
     dO = x_of(ins, "Out@GRAD").to(q.dtype)

@@ -43,6 +43,7 @@ def _cmp(name, fn):
 
 _cmp("greater_equal", torch.greater_equal)
 _cmp("less_than", torch.less)
+_cmp("equal", torch.eq)
 
 
 @register_op("logical_and", grad=False)

@@ -10,7 +10,8 @@ them to XLA (no Pallas kernel computes one). ``conv2d`` and
 ``batch_norm`` have bespoke grads (``aten.convolution_backward``;
 ``aten.native_batch_norm_backward`` on the forward's saved statistics):
 the generic vjp would run every forward conv again in the backward.
-``pool2d`` takes the generic vjp. ``conv2d_transpose``,
+Under ``FLAGS_cudnn_deterministic`` both take cuDNN's deterministic
+algorithms only. ``pool2d`` takes the generic vjp. ``conv2d_transpose``,
 ``depthwise_conv2d`` and ``conv3d`` are not ported (unregistered: an op
 of theirs raises ``NotImplementedError``)."""
 import math
@@ -18,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..flags import flag
 from ..framework.registry import register_grad_lower, register_op
 from .common import normalize_padding, x_of
 
@@ -65,6 +67,19 @@ def _conv_args(x, w, attrs):
     return strides, dilations, int(attrs.get("groups", 1)), pads
 
 
+def _cudnn(fn):
+    """``fn()`` with cuDNN held to deterministic algorithms while
+    ``FLAGS_cudnn_deterministic`` is on (its wgrad and dgrad otherwise
+    may sum in another order from call to call)."""
+    if not flag("cudnn_deterministic") or torch.backends.cudnn.deterministic:
+        return fn()
+    torch.backends.cudnn.deterministic = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
 @register_op("conv2d")
 def conv2d(ctx, ins, attrs):
     """NCHW input, OIHW filter; EXPLICIT (2 or 4 paddings), SAME or VALID
@@ -72,8 +87,8 @@ def conv2d(ctx, ins, attrs):
     x, w = x_of(ins, "Input"), x_of(ins, "Filter")
     strides, dilations, groups, pads = _conv_args(x, w, attrs)
     xp, pad = _pad_input(x, pads)
-    return {"Output": F.conv2d(xp, w, None, strides, pad, dilations,
-                               groups)}
+    return {"Output": _cudnn(lambda: F.conv2d(xp, w, None, strides, pad,
+                                              dilations, groups))}
 
 
 @register_grad_lower("conv2d")
@@ -87,9 +102,9 @@ def conv2d_grad(ctx, ins, attrs):
         x, w, attrs["__fwd_op__"]["attrs"])
     xp, pad = _pad_input(x, pads)
     need_x, need_w = any(req.get("Input", ())), any(req.get("Filter", ()))
-    dx, dw, _ = torch.ops.aten.convolution_backward(
+    dx, dw, _ = _cudnn(lambda: torch.ops.aten.convolution_backward(
         x_of(ins, "Output@GRAD").to(x.dtype), xp, w, None, strides, pad,
-        dilations, False, [0, 0], groups, [need_x, need_w, False])
+        dilations, False, [0, 0], groups, [need_x, need_w, False]))
     out = {}
     if need_x:
         if xp is not x:         # the grad of the padding is dropped
@@ -217,7 +232,7 @@ def batch_norm_grad(ctx, ins, attrs):
     eps = fattrs.get("epsilon", 1e-5)
     caxis, axes, _ = _bn_layout(x, fattrs)
     train = _bn_train(fattrs)
-    saved = ctx.saved.pop(fwd["outputs"]["Y"][0], None) if train else None
+    saved = ctx.take_saved(fwd["outputs"]["Y"][0]) if train else None
     if train and saved is None:
         v, m = torch.var_mean(x.float(), dim=axes, correction=0)
         saved = (m, torch.rsqrt(v + eps))

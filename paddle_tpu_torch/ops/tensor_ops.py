@@ -4,7 +4,7 @@
 ``truncated_gaussian_random :105``, ``assign :123``, ``cast :137``,
 ``reshape2 :143``, ``transpose2 :165``, ``unsqueeze2 :226``,
 ``flatten2 :235``, ``slice :255``, ``gather :329``, ``increment :402``,
-``where :424``, ``top_k :476``). ``cast`` takes the generic vjp, so ``cast_grad`` casts the
+``where :424``, ``top_k :476``, ``recompute_barrier :572``). ``cast`` takes the generic vjp, so ``cast_grad`` casts the
 cotangent back to the input's type, as the JAX vjp does. ``slice`` and
 ``transpose2`` return views and ``reshape2`` one where the strides
 allow, so the attention kernels take q/k/v as strided views of the qkv
@@ -77,6 +77,16 @@ def truncated_gaussian_random(ctx, ins, attrs):
 @register_op("assign")
 def assign(ctx, ins, attrs):
     return {"Out": x_of(ins)}
+
+
+@register_op("recompute_barrier", grad=False, infer_shape=False)
+def recompute_barrier(ctx, ins, attrs):
+    """The identity. In the JAX package it is an optimization barrier
+    that keeps XLA from folding a recomputed segment into the forward;
+    here the barrier's only job is the new names it gives a recomputed
+    segment's reads, so the ``cse`` pass cannot merge the segment's ops
+    with the forward's."""
+    return {"Out": list(ins["X"])}
 
 
 @register_op("cast")

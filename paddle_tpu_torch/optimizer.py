@@ -4,8 +4,9 @@ update op per parameter. Ported: ``SGDOptimizer`` (``:230``),
 ``MomentumOptimizer`` (``:243``, with Nesterov), ``AdamOptimizer`` and
 ``AdamWOptimizer`` (``:348``), dense, with the aliases ``SGD``,
 ``Momentum``, ``Adam`` and ``AdamW`` (``:728-731``), without gradient
-clipping or regularization, and ``rollback_updates_if`` (AMP's overflow
-skip)."""
+clipping or regularization, ``rollback_updates_if`` (AMP's overflow
+skip), and the wrappers ``RecomputeOptimizer`` (``:615``) and
+``GradientMergeOptimizer`` (``:659``)."""
 from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.core import (OP_ROLE_KEY, OpRole, Variable,
@@ -76,11 +77,8 @@ class Optimizer:
 
     def backward(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None, callbacks=None):
-        if callbacks:
-            raise NotImplementedError("paddle_tpu_torch: grad-op callbacks "
-                                      "are not ported")
         return append_backward(loss, parameter_list or self._parameter_list,
-                               no_grad_set)
+                               no_grad_set, callbacks)
 
     def minimize(self, loss, startup_program=None, parameter_list=None,
                  no_grad_set=None):
@@ -188,10 +186,6 @@ class AdamWOptimizer(AdamOptimizer):
         return {"coeff": self._coeff}
 
 
-SGD = SGDOptimizer
-Momentum = MomentumOptimizer
-Adam = AdamOptimizer
-AdamW = AdamWOptimizer
 
 
 def rollback_updates_if(block, mark, cond_var):
@@ -225,3 +219,115 @@ def rollback_updates_if(block, mark, cond_var):
                         "X": [backups[var.name]], "Y": [var.name]},
                 outputs={"Out": [var.name]}, infer_shape=False)
     return written
+
+
+class RecomputeOptimizer:
+    """Activation checkpointing: the backward recomputes each
+    checkpoint-delimited forward segment instead of keeping its
+    activations (``append_backward(checkpoints=)``)."""
+
+    def __init__(self, optimizer):
+        self._optimizer = optimizer
+        self._checkpoints = None
+
+    def _set_checkpoints(self, checkpoints):
+        self._checkpoints = list(checkpoints)
+
+    def load(self, state):
+        raise NotImplementedError(
+            "RecomputeOptimizer.load is not supported (matches reference)")
+
+    def backward(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None, callbacks=None):
+        assert self._checkpoints, "call _set_checkpoints(...) first"
+        parameter_list = parameter_list or \
+            getattr(self._optimizer, "_parameter_list", None)
+        return append_backward(loss, parameter_list, no_grad_set, callbacks,
+                               checkpoints=self._checkpoints)
+
+    def apply_gradients(self, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def apply_optimize(self, loss, startup_program, params_grads):
+        return self._optimizer.apply_gradients(params_grads)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        with program_guard(loss.block.program,
+                           startup_program or default_startup_program()):
+            params_grads = self.backward(loss, startup_program,
+                                         parameter_list, no_grad_set)
+            optimize_ops = self._optimizer.apply_gradients(params_grads)
+        return optimize_ops, params_grads
+
+    def __getattr__(self, item):
+        return getattr(self._optimizer, item)
+
+
+class GradientMergeOptimizer:
+    """Gradient accumulation over ``k_steps`` steps: grads add into
+    persistable buffers every step; the inner optimizer's update applies
+    on every k-th step only, and the buffers reset. In-graph selects
+    (``where``), so a step stays one program (and one captured graph)."""
+
+    def __init__(self, inner_optimizer, k_steps=1, avg=True):
+        self._inner = inner_optimizer
+        self.k_steps = int(k_steps)
+        self.avg = avg
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        from .layers import tensor as T
+        from .layers.math import equal, logical_not
+        program = loss.block.program
+        block = program.global_block()
+        with program_guard(program,
+                           startup_program or default_startup_program()):
+            params_grads = self._inner.backward(
+                loss, startup_program, parameter_list, no_grad_set)
+            with op_role_guard(OpRole.Backward):
+                # step counter modulo k
+                ctr = T.create_global_var([1], 0.0, "float32",
+                                          persistable=True,
+                                          name=unique_name.generate(
+                                              "grad_merge_step"))
+                new_ctr = ctr + 1.0
+                kconst = T.fill_constant([1], "float32", float(self.k_steps))
+                ready = equal(new_ctr, kconst)
+                T.assign(new_ctr - T.cast(ready, "float32") * kconst,
+                         output=ctr)
+                merged, accs = [], []
+                for p, g in params_grads:
+                    acc = block.create_var(
+                        name=unique_name.generate(f"{p.name}@GradMerge"),
+                        shape=p.shape, dtype=g.dtype, persistable=True,
+                        stop_gradient=True)
+                    ConstantInitializer(0.0)(acc)
+                    summed = g + acc
+                    T.assign(summed, output=acc)
+                    use = summed / float(self.k_steps) if self.avg \
+                        else summed
+                    merged.append((p, use))
+                    accs.append(acc)
+            mark = len(block.ops)
+            optimize_ops = self._inner.apply_gradients(merged)
+            rollback_updates_if(block, mark, logical_not(ready))
+            with op_role_guard(OpRole.Optimize):
+                # reset the buffers after an applied update
+                for acc in accs:
+                    zeros = T.fill_constant(list(acc.shape), acc.dtype, 0.0)
+                    block.append_op(
+                        type="where",
+                        inputs={"Condition": [ready.name],
+                                "X": [zeros.name], "Y": [acc.name]},
+                        outputs={"Out": [acc.name]}, infer_shape=False)
+        return optimize_ops, params_grads
+
+    def __getattr__(self, item):
+        return getattr(self._inner, item)
+
+
+SGD = SGDOptimizer
+Momentum = MomentumOptimizer
+Adam = AdamOptimizer
+AdamW = AdamWOptimizer

@@ -1,9 +1,11 @@
 """Typed checkpoint failures of the port.
 
-A trimmed copy of ``paddle_tpu/resilience.py``: only the two errors that
-``io`` raises. Fault injection (``maybe_fail``), retry budgets and the
+A trimmed copy of ``paddle_tpu/resilience.py``: the two errors that
+``io`` raises and ``NonFiniteError``, which the executor's non-finite
+guard raises. Fault injection (``maybe_fail``), retry budgets and the
 circuit breaker are not ported.
 """
+from .framework.core import EnforceNotMet
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -24,3 +26,15 @@ class CheckpointIncompleteError(CheckpointCorruptError):
     def __init__(self, message, path=None, missing=None):
         super().__init__(message, path=path)
         self.missing = list(missing or [])
+
+
+class NonFiniteError(EnforceNotMet):
+    """``check_nan_inf`` tripped: a fetched output or an updated variable
+    holds nan/inf. Carries ``var_name`` (the first offender) and
+    ``count`` (its non-finite element count, or the step's count across
+    outputs and state under ``run_steps``)."""
+
+    def __init__(self, message, var_name=None, count=None):
+        super().__init__(message)
+        self.var_name = var_name
+        self.count = count
