@@ -109,6 +109,12 @@ NVIDIA GPU.
      over the trained scope, loss and acc finite and repeatable, its
      logits other than a train-mode forward's (it reads the moving
      statistics);
+   - cudnn_deterministic_ab: bench_resnet50's step with
+     FLAGS_cudnn_deterministic off and on in turns (off, on, on, off,
+     twice): device ms (torch.profiler) and wall ms each; one step from
+     two copies of one scope under each setting (bitwise or not); two
+     eager LeNet runs (B512, 16 steps) under each, bitwise under the
+     flag (the port's default);
    - resnet18_tiny_trains: JAX's test_resnet18_tiny_trains (ResNet-18,
      class_dim 4, 32x32, B8, Momentum(0.01, 0.9), 12 steps): last loss
      below 0.7 x the first;
@@ -185,8 +191,28 @@ NVIDIA GPU.
    - train_from_dataset: LeNet over a QueueDataset the phase writes, 3
      slabs of 8 and a tail of 5 batches: steps_per_run 8 ends bitwise
      where steps_per_run 1 ends (FLAGS_cudnn_deterministic on).
-9. Prints the {"kernels": [...]} line (K1-K5), then as the last line
-   {"ok": true, "device": {...}}.
+9. Wide&Deep CTR (bench.py's bench_widedeep: B4096, dense 13, 26 slots
+   over a vocab of 10000, embed 16, MLP 400x3, Adam 1e-3) with
+   SelectedRows embedding grads, seeded random weights, each path driven
+   with the launch counts zeroed and read (no kernel of the port may
+   launch: the JAX package's sparse updates are XLA scatters):
+   - widedeep_train: 8 eager steps against a run_steps slab of 8 from
+     copies of one scope (losses and scope bitwise, no
+     GraphCaptureError), a second slab from a third copy (the tables
+     bitwise run to run); falling losses from near ln 2; the 52 table
+     updates left per-param by fuse_optimizer; wall and device ms a step
+     both ways, idle share, samples/s, peak memory, op counts;
+   - widedeep_lazy_adam: the same with Adam(lazy_mode=True): the slab
+     captures (no host sync) and is bitwise its eager steps; untouched
+     rows keep their params and zero moments; the lazy adam op on one
+     table with the batch's duplicate ids against the plain dense Adam
+     of the touched rows (float64), within 1e-5 of max |ref|;
+   - widedeep_serve: the trained model's predict program saved and
+     served by InferenceServer(model_dir) at request batches 1 and 32
+     (8 wire clients x 8 requests), replies within 1e-4 of max |ref| of
+     AnalysisPredictor.run, each bucket's replay bitwise its eager run.
+10. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
 """
@@ -2032,9 +2058,10 @@ def io_roundtrip(torch, np, place=None, B=8, **model):
 
 
 def serve_traffic(torch, np, name, build, request, place=None,
-                  traffic=SERVE_TRAFFIC):
+                  traffic=SERVE_TRAFFIC, scope=None):
     """The saved model under bench_serving's traffic: save the program
-    (seeded startup), then for each request batch size rb a fresh
+    (over ``scope``, a trained model's, or else its seeded startup's),
+    then for each request batch size rb a fresh
     ``InferenceServer(model_dir)`` warmed at the buckets of (rb, 8 rb)
     answers ``clients`` concurrent wire clients, each sending
     ``requests_per_client`` requests of its own rb rows. Returns what
@@ -2046,8 +2073,10 @@ def serve_traffic(torch, np, name, build, request, place=None,
     d = os.path.join(SERVE_DIR, name)
     shutil.rmtree(d, ignore_errors=True)
     main, startup, feeds, targets = build()
-    exe, scope = fluid.Executor(place), fluid.Scope()
-    exe.run(startup, scope=scope)
+    exe = fluid.Executor(place)
+    if scope is None:
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
     fluid.save_inference_model(d, feeds, targets, exe, main_program=main,
                                scope=scope)
     del scope
@@ -2621,7 +2650,8 @@ def train_loop_lenet(torch, np, place=None, B=512, warm=32, steps=128):
     ``Executor.run`` a step, K > 1 one ``run_steps`` slab of K; equal
     step counts (``warm`` steps, then ``steps`` timed). Steps/s and
     samples/s for each K; the losses of every K bitwise K=1's, under
-    ``FLAGS_cudnn_deterministic``. Without the flag, two eager runs of
+    ``FLAGS_cudnn_deterministic`` (the port's default). With
+    the flag turned off, two eager runs of
     ``warm`` steps are compared and the verdict recorded (cuDNN's
     default wgrad and dgrad may sum in another order from call to
     call)."""
@@ -2630,8 +2660,9 @@ def train_loop_lenet(torch, np, place=None, B=512, warm=32, steps=128):
     with fluid.unique_name.guard():
         main, startup, _, fetches = build_lenet_train()
     pool = lenet_pool(np, B)
-    runs = [eager_losses(torch, np, fluid, place, main, startup,
-                         fetches[0].name, pool, warm) for _ in range(2)]
+    with deterministic_convs(fluid, False):
+        runs = [eager_losses(torch, np, fluid, place, main, startup,
+                             fetches[0].name, pool, warm) for _ in range(2)]
     with deterministic_convs(fluid):
         rec = _train_loop_lenet(torch, np, place, B, warm, steps)
     rec["eager_runs_bitwise_without_flag"] = bool(
@@ -2661,14 +2692,16 @@ def eager_losses(torch, np, fluid, place, main, startup, loss, pool, n):
 
 
 class deterministic_convs:
-    """``FLAGS_cudnn_deterministic`` on inside, as it was after."""
+    """``FLAGS_cudnn_deterministic`` set to ``on`` inside, as it was
+    after."""
 
-    def __init__(self, fluid):
+    def __init__(self, fluid, on=True):
         self.fluid = fluid
+        self.on = on
 
     def __enter__(self):
         self.old = self.fluid.get_flags("FLAGS_cudnn_deterministic")
-        self.fluid.set_flags({"FLAGS_cudnn_deterministic": True})
+        self.fluid.set_flags({"FLAGS_cudnn_deterministic": self.on})
 
     def __exit__(self, *exc):
         self.fluid.set_flags(self.old)
@@ -2858,6 +2891,413 @@ def _train_from_dataset(torch, np, place, B, K, slabs, tail, seed):
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"train_from_dataset: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# Wide&Deep CTR (bench.py's bench_widedeep) with SelectedRows grads, and
+# the FLAGS_cudnn_deterministic A/B
+# ---------------------------------------------------------------------------
+
+WIDEDEEP = {"B": 4096, "dense_dim": 13, "num_slots": 26,
+            "vocab_size": 10000, "embed_dim": 16,
+            "hidden_sizes": (400, 400, 400), "lr": 1e-3}
+
+
+def widedeep_model_kw(cfg):
+    return {k: cfg[k] for k in ("dense_dim", "num_slots", "vocab_size",
+                                "embed_dim", "hidden_sizes")}
+
+
+def widedeep_program(cfg, lazy=False):
+    """bench_widedeep's program: ``wide_deep(batch_size=B)`` +
+    ``Adam(lr)`` (``lazy_mode`` as given). Returns (main, startup,
+    outputs)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import widedeep
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = widedeep.wide_deep(batch_size=cfg["B"],
+                                 **widedeep_model_kw(cfg))
+        fluid.optimizer.Adam(cfg["lr"], lazy_mode=lazy).minimize(
+            out["loss"])
+    return main, startup, out
+
+
+def widedeep_pool(torch, np, cfg, device, seed=0):
+    """bench_widedeep's two-batch seeded pool (``random_batch`` from one
+    ``default_rng(seed)``), staged on ``device``."""
+    from paddle_tpu_torch.models import widedeep
+    rng = np.random.default_rng(seed)
+    pool = [widedeep.random_batch(cfg["B"], cfg["dense_dim"],
+                                  cfg["num_slots"], cfg["vocab_size"],
+                                  rng=rng) for _ in range(2)]
+    return [{n: torch.from_numpy(a).to(device) for n, a in b.items()}
+            for b in pool]
+
+
+def widedeep_slab(torch, pool, K):
+    """K steps over the pool (step i takes batch i % 2), stacked."""
+    return {n: torch.stack([pool[i % 2][n] for i in range(K)])
+            for n in pool[0]}
+
+
+def _peak_from(torch, cuda, base):
+    return (torch.cuda.max_memory_allocated() - base) / 1e9 if cuda \
+        else None
+
+
+def _peak_base(torch, cuda):
+    if not cuda:
+        return None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def widedeep_train(torch, np, place=None, cfg=WIDEDEEP, K=8):
+    """bench_widedeep on the port: Wide&Deep (B4096, dense 13, 26 slots
+    over a vocab of 10000, embed 16, MLP 400x3) with Adam(1e-3), non-lazy
+    (the 52 tables' SelectedRows grads densified in their per-param adam
+    ops), over the two-batch pool, from copies of one seeded startup:
+    K eager ``Executor.run`` steps against one ``run_steps`` slab of K
+    (losses and scope bitwise, no ``GraphCaptureError``), and a second
+    slab of K from a third copy (tables bitwise run to run); the losses
+    finite, the first near ln 2, step K-2 below step 0 (the same batch);
+    wall and device ms a step both ways, the idle share, samples/s, the
+    peak memory over the eager steps and over the first slab, the op
+    count of the program as built and as the pass pipeline leaves it,
+    and the adam ops left per-param (one per table). Returns (record,
+    the trained scope)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework import passes
+    from paddle_tpu_torch.framework.cuda_graph import GraphCaptureError
+    main, startup, out = widedeep_program(cfg)
+    loss = out["loss"]
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    pool = widedeep_pool(torch, np, cfg, exe.device)
+    slab = widedeep_slab(torch, pool, K)
+    B = cfg["B"]
+    sA, sB, sC = (copied_scope(torch, fluid, scope0) for _ in range(3))
+    del scope0
+    failures = []
+    base = _peak_base(torch, cuda)
+    eager, wall = [], []
+    for i in range(K):
+        t0 = time.perf_counter()
+        eager.append(exe.run(main, feed=pool[i % 2], fetch_list=[loss],
+                             scope=sA)[0])
+        wall.append((time.perf_counter() - t0) * 1e3)
+    peak_eager = _peak_from(torch, cuda, base)
+    base = _peak_base(torch, cuda)
+    try:
+        t0 = time.perf_counter()
+        got = exe.run_steps(main, feed=slab, fetch_list=[loss], scope=sB)[0]
+        first_slab_s = time.perf_counter() - t0
+    except GraphCaptureError as e:
+        raise AssertionError(f"widedeep_train: the step did not capture: "
+                             f"{e}") from e
+    peak_slab = _peak_from(torch, cuda, base)
+    again = exe.run_steps(main, feed=slab, fetch_list=[loss], scope=sC)[0]
+    diff = scope_diff(torch, sA, sB)
+    tables = [n for n in sB.keys() if "embedding_" in n and
+              n.endswith(".w")]
+    run_to_run = [n for n in scope_diff(torch, sB, sC) if n in tables]
+    opt = passes.optimize_program(main, [loss.name])
+    upd = optimizer_ops(exe, main, [loss.name])
+    ln2 = float(np.log(2.0))
+    rec = {"phase": "widedeep_train", **CARD, "B": B,
+           **widedeep_model_kw(cfg), "optimizer": f"Adam({cfg['lr']})",
+           "K": K, "eager_losses": [float(x) for x in eager],
+           "run_steps_losses": [float(x) for x in got],
+           "losses_bitwise": bool(np.array_equal(got, np.stack(eager))),
+           "scope_bitwise": not diff, "scope_diff": diff[:8],
+           "tables": len(tables),
+           "tables_bitwise_run_to_run": not run_to_run
+           and bool(np.array_equal(got, again)),
+           "ops_as_built": len(main.global_block().ops),
+           "ops_after_passes": len(opt.global_block().ops),
+           "optimizer_ops_per_step": upd,
+           "adam_unfused": upd.get("adam", 0),
+           "eager_ms_per_step": wall,
+           "eager_ms_per_step_median": float(np.median(wall[1:])),
+           "first_slab_s": first_slab_s,
+           "peak_gb_eager": peak_eager, "peak_gb_over_first_slab": peak_slab}
+    t0 = time.perf_counter()
+    exe.run_steps(main, feed=slab, fetch_list=[loss], scope=sB)
+    rec["run_steps_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / K
+    if cuda:
+        rec["device_ms_per_step_run_steps"] = profiled_ms(
+            torch, lambda: exe.run_steps(main, feed=slab, fetch_list=[loss],
+                                         scope=sB)) / K
+        rec["device_ms_per_step_eager"] = profiled_ms(
+            torch, lambda: exe.run(main, feed=pool[0], fetch_list=[loss],
+                                   scope=sA))
+        rec["idle_share_eager"] = 1 - rec["device_ms_per_step_eager"] / \
+            rec["eager_ms_per_step_median"]
+        rec["idle_share_run_steps"] = \
+            1 - rec["device_ms_per_step_run_steps"] / \
+            rec["run_steps_ms_per_step"]
+        rec["graph_pool_gb"] = _captured(exe).nbytes / 1e9
+    rec["samples_per_s_eager"] = B / rec["eager_ms_per_step_median"] * 1e3
+    rec["samples_per_s_run_steps"] = B / rec["run_steps_ms_per_step"] * 1e3
+    losses = rec["eager_losses"]
+    if not (rec["losses_bitwise"] and not diff):
+        failures.append(f"run_steps is not its eager steps: scope diff "
+                        f"{diff[:8]}")
+    if not rec["tables_bitwise_run_to_run"]:
+        failures.append(f"two slabs from one start differ: {run_to_run[:8]}")
+    if rec["adam_unfused"] != 2 * cfg["num_slots"] or \
+            rec["tables"] != 2 * cfg["num_slots"]:
+        failures.append(f"{rec['adam_unfused']} adam ops per-param for "
+                        f"{rec['tables']} tables")
+    if not (all(np.isfinite(losses)) and abs(losses[0] - ln2) < 0.1
+            and losses[K - 2] < losses[0]):
+        failures.append(f"losses {losses}")
+    rec["ok"] = not failures
+    exe.close()
+    del sA, sC
+    emit(rec)
+    if failures:
+        raise AssertionError(f"widedeep_train: {failures}")
+    return rec, sB
+
+
+def plain_lazy_adam(torch, p, m1, m2, rows, values, lr, b1p, b2p,
+                    b1=0.9, b2=0.999, eps=1e-8):
+    """The plain version of lazy Adam over one table, in float64: the
+    sparse grad summed into a dense one (``index_add_``), the dense Adam
+    update, then only the rows the grad names kept (the others as
+    they were)."""
+    d = torch.float64
+    g = torch.zeros(p.shape, dtype=d, device=p.device).index_add_(
+        0, rows, values.to(d))
+    m1n = b1 * m1.to(d) + (1 - b1) * g
+    m2n = b2 * m2.to(d) + (1 - b2) * g * g
+    lr_t = lr * math.sqrt(1 - b2p) / (1 - b1p)
+    pn = p.to(d) - lr_t * m1n / (torch.sqrt(m2n) + eps)
+    hit = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+    hit[rows] = True
+    keep = lambda new, old: torch.where(hit[:, None], new,  # noqa: E731
+                                        old.to(d))
+    return keep(pn, p), keep(m1n, m1), keep(m2n, m2)
+
+
+def widedeep_lazy_adam(torch, np, place=None, cfg=WIDEDEEP, K=8, seed=3,
+                       tol=1e-5):
+    """bench_widedeep's shape with ``lazy_mode=True``: a ``run_steps``
+    slab of K captures (no host sync in the sort and row updates of
+    ``selected_rows.coalesce``) and is bitwise K eager steps; every
+    table's rows no batch of the pool touched keep their param bits and
+    moments exactly zero, and the touched rows moved. Then the lazy
+    ``adam`` op on one trained table with the pool's duplicate ids and a
+    seeded grad against :func:`plain_lazy_adam` (param and moments within
+    ``tol`` of max |ref|, float32); wall and device ms a step by
+    ``run_steps``."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework.cuda_graph import GraphCaptureError
+    from paddle_tpu_torch.framework.lowering import LowerCtx
+    from paddle_tpu_torch.framework.registry import get_op_def
+    from paddle_tpu_torch.framework.selected_rows import SelectedRows
+    main, startup, out = widedeep_program(cfg, lazy=True)
+    loss = out["loss"]
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    pool = widedeep_pool(torch, np, cfg, exe.device)
+    slab = widedeep_slab(torch, pool, K)
+    sA, sB = (copied_scope(torch, fluid, scope0) for _ in range(2))
+    failures = []
+    try:
+        got = exe.run_steps(main, feed=slab, fetch_list=[loss], scope=sB)[0]
+    except GraphCaptureError as e:
+        raise AssertionError(f"widedeep_lazy_adam: the lazy step did not "
+                             f"capture: {e}") from e
+    eager = [exe.run(main, feed=pool[i % 2], fetch_list=[loss],
+                     scope=sA)[0] for i in range(K)]
+    diff = scope_diff(torch, sA, sB)
+    untouched_nonzero, moved, rows_untouched = [], 0, 0
+    for i in range(cfg["num_slots"]):
+        hit = torch.zeros(cfg["vocab_size"], dtype=torch.bool,
+                          device=exe.device)
+        for b in pool:
+            hit[b[f"C{i}"].reshape(-1)] = True
+        cold = ~hit
+        rows_untouched += int(cold.sum())
+        for t in (f"embedding_{i}.w", f"wide_embedding_{i}.w"):
+            m1 = sB.find_var(f"{t}_moment1_0")
+            m2 = sB.find_var(f"{t}_moment2_0")
+            same = torch.equal(sB.find_var(t)[cold], scope0.find_var(t)[cold])
+            if m1[cold].any() or m2[cold].any() or not same:
+                untouched_nonzero.append(t)
+            moved += int(bool(m1[hit].any()))
+    # the lazy adam op on one table, duplicate ids, against the plain one
+    name = "embedding_0.w"
+    p, m1, m2 = (sB.find_var(n) for n in
+                 (name, f"{name}_moment1_0", f"{name}_moment2_0"))
+    rows = pool[0]["C0"].reshape(-1)
+    gen = torch.Generator(device=exe.device).manual_seed(seed)
+    values = torch.randn((rows.shape[0], cfg["embed_dim"]), generator=gen,
+                         device=exe.device)
+    b1p, b2p = 0.9 ** (K + 1), 0.999 ** (K + 1)
+    full = lambda v: torch.full((1,), v, dtype=torch.float32,  # noqa: E731
+                                device=exe.device)
+    outs = get_op_def("adam").lower(
+        LowerCtx(None, None, {}, exe.device),
+        {"Param": [p], "Grad": [SelectedRows(rows, values)],
+         "LearningRate": [full(cfg["lr"])], "Moment1": [m1],
+         "Moment2": [m2], "Beta1Pow": [full(b1p)], "Beta2Pow": [full(b2p)]},
+        {"lazy_mode": True})
+    ref = plain_lazy_adam(torch, p, m1, m2, rows, values, cfg["lr"],
+                          float(np.float32(b1p)), float(np.float32(b2p)))
+    errs = {}
+    for key, r in zip(("ParamOut", "Moment1Out", "Moment2Out"), ref):
+        errs[key] = float((outs[key].double() - r).abs().max()
+                          / r.abs().max().clamp_min(1e-30))
+    dup = rows.shape[0] - int(torch.unique(rows).shape[0])
+    rec = {"phase": "widedeep_lazy_adam", **CARD, "B": cfg["B"],
+           **widedeep_model_kw(cfg), "K": K, "lazy_mode": True,
+           "run_steps_losses": [float(x) for x in got],
+           "losses_bitwise_eager": bool(np.array_equal(got,
+                                                       np.stack(eager))),
+           "scope_bitwise_eager": not diff, "scope_diff": diff[:8],
+           "untouched_rows": rows_untouched,
+           "tables_with_untouched_rows_changed": untouched_nonzero,
+           "tables_whose_touched_moments_moved": moved,
+           "op_check_table": name, "op_check_duplicate_ids": dup,
+           "op_check_rel_err": errs, "tol": tol}
+    t0 = time.perf_counter()
+    exe.run_steps(main, feed=slab, fetch_list=[loss], scope=sB)
+    rec["run_steps_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / K
+    if cuda:
+        rec["device_ms_per_step_run_steps"] = profiled_ms(
+            torch, lambda: exe.run_steps(main, feed=slab, fetch_list=[loss],
+                                         scope=sB)) / K
+        rec["idle_share_run_steps"] = \
+            1 - rec["device_ms_per_step_run_steps"] / \
+            rec["run_steps_ms_per_step"]
+    rec["samples_per_s_run_steps"] = \
+        cfg["B"] / rec["run_steps_ms_per_step"] * 1e3
+    if not (rec["losses_bitwise_eager"] and not diff):
+        failures.append(f"run_steps is not its eager steps: {diff[:8]}")
+    if untouched_nonzero or moved != 2 * cfg["num_slots"] \
+            or not rows_untouched:
+        failures.append(f"untouched rows changed in {untouched_nonzero[:4]}"
+                        f", {moved} tables moved, {rows_untouched} untouched")
+    if max(errs.values()) > tol or not dup:
+        failures.append(f"lazy adam vs plain: {errs} ({dup} duplicates)")
+    if not np.isfinite(got).all():
+        failures.append(f"losses {rec['run_steps_losses']}")
+    rec["ok"] = not failures
+    exe.close()
+    emit(rec)
+    if failures:
+        raise AssertionError(f"widedeep_lazy_adam: {failures}")
+    return rec
+
+
+def widedeep_serving_program(cfg=WIDEDEEP):
+    """widedeep_serve's program: ``wide_deep(batch_size=-1)`` under the
+    trained program's parameter names, ``clone(for_test=True)``; serves
+    ``predict`` (the click probability) from ``dense_input`` and the
+    slot ids."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import widedeep
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = widedeep.wide_deep(batch_size=-1, **widedeep_model_kw(cfg))
+    names = ["dense_input"] + [f"C{i}" for i in range(cfg["num_slots"])]
+    return main.clone(for_test=True), startup, names, [out["predict"]]
+
+
+def widedeep_request(np, rows, rng, cfg=WIDEDEEP):
+    req = {"dense_input": rng.standard_normal(
+        (rows, cfg["dense_dim"])).astype(np.float32)}
+    for i in range(cfg["num_slots"]):
+        req[f"C{i}"] = rng.integers(0, cfg["vocab_size"],
+                                    (rows, 1)).astype(np.int64)
+    return req
+
+
+def cudnn_deterministic_ab(torch, np, place=None, run=RESNET50, reps=2,
+                           lenet_B=512, lenet_steps=16):
+    """Queue 3's fault 3: what ``FLAGS_cudnn_deterministic`` costs and
+    buys. bench_resnet50's step (B128 bf16 AMP, Momentum) with the flag
+    off and on, in turns (off, on, on, off) x ``reps`` after a warm-up
+    of each: device ms a step (torch.profiler) and wall ms; one step from
+    two copies of one scope with the flag on and off (every state tensor
+    bitwise, or not); two eager LeNet runs of ``lenet_steps`` steps
+    under each setting, their losses bitwise or not (bitwise under the
+    flag, as train_loop_lenet finds, or the phase fails)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.lenet import build_lenet_train
+    main, startup, out, _ = build_resnet(run["depth"], run["classes"],
+                                         run["B"], run["hw"], amp=True)
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    pool = image_pool(torch, np, run["B"], run["hw"], run["classes"],
+                      exe.device)
+    loss = out["loss"]
+
+    def step(sc=scope):
+        return exe.run(main, feed=pool[0], fetch_list=[loss], scope=sc)[0]
+
+    for on in (False, True):
+        with deterministic_convs(fluid, on):
+            step()
+            step()
+    dev = {False: [], True: []}
+    wall = {False: [], True: []}
+    for on in (False, True, True, False) * reps:
+        with deterministic_convs(fluid, on):
+            if cuda:
+                dev[on].append(profiled_ms(torch, step))
+            t0 = time.perf_counter()
+            step()
+            wall[on].append((time.perf_counter() - t0) * 1e3)
+    bitwise = {}
+    for on in (False, True):
+        scopes = [copied_scope(torch, fluid, scope) for _ in range(2)]
+        with deterministic_convs(fluid, on):
+            for sc in scopes:
+                step(sc)
+        bitwise[on] = not scope_diff(torch, *scopes)
+        del scopes
+    with fluid.unique_name.guard():
+        lmain, lstart, _, fetches = build_lenet_train()
+    lpool = lenet_pool(np, lenet_B)
+    lenet = {}
+    for on in (False, True):
+        with deterministic_convs(fluid, on):
+            runs = [eager_losses(torch, np, fluid, place, lmain, lstart,
+                                 fetches[0].name, lpool, lenet_steps)
+                    for _ in range(2)]
+        lenet[on] = bool(np.array_equal(runs[0], runs[1]))
+    key = {False: "off", True: "on"}
+    rec = {"phase": "cudnn_deterministic_ab", **CARD, "B": run["B"],
+           "depth": run["depth"], "amp": "bf16", "order": "off on on off",
+           "reps": reps,
+           "wall_ms": {key[k]: v for k, v in wall.items()},
+           "resnet_step_bitwise": {key[k]: v for k, v in bitwise.items()},
+           "lenet_eager_runs_bitwise": {key[k]: v for k, v in lenet.items()},
+           "lenet_B": lenet_B, "lenet_steps": lenet_steps}
+    if cuda:
+        rec["device_ms"] = {key[k]: v for k, v in dev.items()}
+        off, on = (float(np.median(dev[k])) for k in (False, True))
+        rec["device_ms_median"] = {"off": off, "on": on}
+        rec["cost_of_flag"] = on / off - 1
+    rec["ok"] = lenet[True]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"cudnn_deterministic_ab: two LeNet runs "
+                             f"differ under the flag: {rec}")
     return rec
 
 
@@ -3142,6 +3582,10 @@ def main():
     drive("resnet50_eval", (), lambda: resnet_eval_phase(
         torch, np, trained["scope"], trained["exe"]))
     trained.clear()
+    # Queue 3's fault 3: FLAGS_cudnn_deterministic off and on at
+    # bench_resnet50's step, and LeNet run to run
+    drive("cudnn_deterministic_ab", (),
+          lambda: cudnn_deterministic_ab(torch, np))
     drive("resnet18_tiny_trains", (), lambda: resnet18_tiny_trains(torch, np))
     resnet_grads(torch, np)
     for opt, lr in (("adam", 0.001), ("sgd", 0.01)):
@@ -3187,6 +3631,32 @@ def main():
           lambda: nonfinite_steps(torch, np))
     drive("train_from_dataset", (),
           lambda: train_from_dataset_phase(torch, np))
+    torch.cuda.empty_cache()
+
+    # Wide&Deep CTR (bench.py's bench_widedeep) with SelectedRows
+    # embedding grads: trained by run and run_steps, lazy Adam captured,
+    # then the trained model served from its saved directory; no kernel
+    # of the port (the JAX package's sparse updates are XLA scatters)
+    wd = {}
+
+    def wd_train():
+        rec, wd["scope"] = widedeep_train(torch, np)
+        return rec
+
+    paths = [drive("widedeep_train", (), wd_train)[1],
+             drive("widedeep_lazy_adam", (),
+                   lambda: widedeep_lazy_adam(torch, np))[1]]
+    _, got, _ = drive("widedeep_serve", (), lambda: served.setdefault(
+        "widedeep", serve_traffic(
+            torch, np, "widedeep", widedeep_serving_program,
+            widedeep_request, traffic=dict(SERVE_TRAFFIC,
+                                           request_batches=(1, 32)),
+            scope=wd.pop("scope"))))
+    check_served(torch, np, served.pop("widedeep"), got, 0)
+    for got in paths + [got]:
+        if any(got.values()):
+            failures.append(f"a Wide&Deep path launched a kernel of the "
+                            f"port: {got}")
 
     kernels = []
     rows = [("flash_attention_fwd", FA_SOURCE, FA_REPLACES, main_fa),

@@ -3,7 +3,9 @@
 The IR keeps canonical string names ("float32", "int32", ...) as
 ``paddle_tpu/framework/dtype.py`` does; :func:`torch_dtype` converts at
 the edge where a lowering makes a tensor, :func:`dtype_name` the other
-way for build-time shape inference.
+way for build-time shape inference. Paddle's ``VarType`` enum ints (an
+op's ``dtype`` or ``out_dtype`` attr in a program from the reference)
+convert too, through the same table as the JAX package's.
 """
 import numpy as np
 import torch
@@ -34,9 +36,18 @@ _TORCH = {
 }
 _NAME = {v: k for k, v in _TORCH.items()}
 
+# Paddle VarType enum values (framework.proto:97), as the JAX package's
+_PROTO_ENUM = {
+    "bool": 0, "int16": 1, "int32": 2, "int64": 3, "float16": 4,
+    "float32": 5, "float64": 6, "uint8": 20, "int8": 21, "bfloat16": 22,
+    "uint32": 23, "complex64": 24, "complex128": 25,
+}
+_ENUM_TO_NAME = {v: k for k, v in _PROTO_ENUM.items()}
+
 
 def convert_dtype(dtype):
-    """Normalize a dtype spec (str, numpy dtype, torch dtype) to a name."""
+    """Normalize a dtype spec (str, numpy dtype, torch dtype, VarType
+    enum int) to a name."""
     if dtype is None:
         return None
     if isinstance(dtype, torch.dtype):
@@ -45,7 +56,13 @@ def convert_dtype(dtype):
         if dtype in _CANONICAL:
             return _CANONICAL[dtype]
         return str(np.dtype(dtype))
+    if isinstance(dtype, (int, np.integer)) and not isinstance(dtype, bool):
+        return _ENUM_TO_NAME[int(dtype)]
     return str(np.dtype(dtype))
+
+
+def dtype_to_proto_enum(dtype):
+    return _PROTO_ENUM[convert_dtype(dtype)]
 
 
 def is_float_dtype(dtype):

@@ -259,9 +259,10 @@ class Executor:
                   check_nan_inf=None, skip_nonfinite_steps=False,
                   steps_per_run=None, unroll=None):
         """Run K training steps, one per row of a feed slab: bitwise K
-        sequential :meth:`run` calls (the same ops, state and run seeds),
-        with the Python dispatch of a step paid once. On the GPU the step
-        is captured once into a CUDA graph
+        sequential :meth:`run` calls (the same ops, state and run seeds;
+        a conv program's under ``FLAGS_cudnn_deterministic``, on by
+        default), with the Python dispatch of a step paid once. On the
+        GPU the step is captured once into a CUDA graph
         (``cuda_graph.CapturedStep``; cached per program version, feed
         row signature, fetches, guard and pass pipeline) and each row is
         a replay; the K feed rows are staged on the device in one copy

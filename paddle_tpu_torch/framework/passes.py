@@ -444,17 +444,37 @@ class FuseOptimizerPass(Pass):
     ``fused_<type>`` ops of at most ``max_bucket_bytes`` of params
     (default ``FLAGS_fuse_optimizer_bucket_mb``), each the per-param
     update over lists of tensors, bitwise equal to the per-param ops.
-    Lazy-mode adam and ops that do not update their param and state in
-    place stay unfused; a param larger than the cap is a bucket of one
-    and stays a plain per-param op. (The port has no
-    sparse grads, which the JAX pass also leaves unfused.)"""
+    Lazy-mode adam, ops whose grad may hold a ``SelectedRows`` value
+    (:meth:`_maybe_sparse_names`: an update over its rows, or one that
+    densifies it, stays per-param as in the JAX pass) and ops that do
+    not update their param and state in place stay unfused; a param
+    larger than the cap is a bucket of one and stays a plain per-param
+    op."""
 
     pipeline_order = 30
     fetch_names = ()
     max_bucket_bytes = None
 
     @staticmethod
-    def _candidate(block, op):
+    def _maybe_sparse_names(block):
+        """Var names that may hold a ``SelectedRows`` value at run time
+        (sparsity is a property of the value, not of the IR var): the
+        outputs of an ``is_sparse`` grad op or of ``merge_selected_rows``,
+        and of every op they feed."""
+        sparse = set()
+        for op in block.ops:
+            src = op.type == "merge_selected_rows"
+            if not src and op.type.endswith("_grad"):
+                fwd = op.attrs.get("__fwd_op__")
+                src = bool(op.attrs.get("is_sparse")) or (
+                    isinstance(fwd, dict)
+                    and bool(fwd.get("attrs", {}).get("is_sparse")))
+            if src or any(n in sparse for n in op.input_arg_names):
+                sparse.update(op.output_arg_names)
+        return sparse
+
+    @staticmethod
+    def _candidate(block, op, sparse_names):
         """(group_key, param_bytes) when ``op`` is a fusable per-param
         update, else None."""
         state_slots = _FUSABLE_OPTIMIZERS.get(op.type)
@@ -463,6 +483,8 @@ class FuseOptimizerPass(Pass):
         needed = ("Param", "Grad", "LearningRate") + state_slots
         if any(len(op.inputs.get(s, ())) != 1 for s in needed):
             return None
+        if op.inputs["Grad"][0] in sparse_names:
+            return None            # a SelectedRows grad: per-param
         pname = op.inputs["Param"][0]
         if op.outputs.get("ParamOut", [None])[0] != pname:
             return None            # only the in-place update form
@@ -558,9 +580,10 @@ class FuseOptimizerPass(Pass):
             return (writes & bucket["writes"] or reads & bucket["writes"]
                     or writes & bucket["reads"])
 
+        sparse_names = self._maybe_sparse_names(block)
         for op in block.ops:
             reads, writes = self._op_names(block, op)
-            cand = self._candidate(block, op)
+            cand = self._candidate(block, op, sparse_names)
             key = cand[0] if cand else None
             for k in [k for k, b in open_buckets.items()
                       if k != key and conflicts(reads, writes, b)]:

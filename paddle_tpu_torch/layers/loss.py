@@ -1,4 +1,6 @@
-"""Loss layers (trimmed copy of ``paddle_tpu/layers/loss.py``)."""
+"""Loss layers (trimmed copy of ``paddle_tpu/layers/loss.py``):
+``cross_entropy``, ``softmax_with_cross_entropy``, ``square_error_cost``
+(``:33``) and ``sigmoid_cross_entropy_with_logits`` (``:42``)."""
 from .layer_helper import LayerHelper
 
 
@@ -29,3 +31,24 @@ def softmax_with_cross_entropy(logits, label, soft_label=False,
     if return_softmax:
         return loss, softmax
     return loss
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper("square_error_cost")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="square_error_cost",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
+                                      name=None, normalize=False):
+    helper = LayerHelper("sigmoid_cross_entropy_with_logits", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sigmoid_cross_entropy_with_logits",
+                     inputs={"X": [x], "Label": [label]},
+                     outputs={"Out": [out]},
+                     attrs={"ignore_index": ignore_index,
+                            "normalize": normalize})
+    return out

@@ -1,5 +1,6 @@
-"""Elementwise, comparison, logical and reduction layers, ``scale``
-(``:128``), ``mean`` (``:102``), ``einsum`` (``:245``), and the
+"""Elementwise, comparison, logical and reduction layers, ``sums``
+(``:118``), ``scale`` (``:128``), ``mean`` (``:102``), ``einsum``
+(``:245``), and the
 ``Variable`` operators ``+ - * / ** >=`` (trimmed copy of
 ``paddle_tpu/layers/math.py``)."""
 import numpy as np
@@ -53,6 +54,16 @@ def mean(x, name=None):
     helper = LayerHelper("mean", name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
     helper.append_op(type="mean", inputs={"X": [x]}, outputs={"Out": [out]})
+    return out
+
+
+def sums(input, out=None):
+    helper = LayerHelper("sum")
+    if out is None:
+        out = helper.create_variable_for_type_inference(
+            dtype=input[0].dtype)
+    helper.append_op(type="sum", inputs={"X": list(input)},
+                     outputs={"Out": [out]})
     return out
 
 

@@ -1,7 +1,8 @@
 """NN layers (trimmed copy of ``paddle_tpu/layers/nn.py``): ``fc``,
 ``embedding``, ``conv2d`` (``:84``), ``pool2d`` (``:139``),
 ``batch_norm`` (``:164``), ``layer_norm``, ``dropout``, ``softmax``
-(``:270``), ``relu`` (``:286``), ``tanh`` (``:294``), ``exp``,
+(``:270``), ``relu`` (``:286``), ``sigmoid`` (``:290``), ``tanh``
+(``:294``), ``exp``,
 ``rsqrt`` (``:339``), ``floor``, ``ceil``, ``cos``, ``pow`` (``:391``),
 ``topk`` (``:440``), ``accuracy`` (``:451``), ``unsqueeze`` (``:538``),
 ``flatten`` (``:560``), ``matmul``, ``flash_attention`` (``:741``)."""
@@ -217,6 +218,10 @@ def _unary(op_type, x, name=None, attrs=None):
 
 def relu(x, name=None):
     return _unary("relu", x, name)
+
+
+def sigmoid(x, name=None):
+    return _unary("sigmoid", x, name)
 
 
 def tanh(x, name=None):

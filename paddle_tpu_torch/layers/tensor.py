@@ -1,7 +1,9 @@
 """Tensor layers (trimmed copy of ``paddle_tpu/layers/tensor.py``):
 ``data``, ``create_global_var``, ``cast``, ``fill_constant``,
 ``ones_like`` (``:163``), ``assign``, ``reshape``, ``transpose``,
-``slice``, ``gather`` (``:259``). Shapes are python ints; shape tensors
+``slice``, ``gather`` (``:259``), ``concat`` (``:67``),
+``merge_selected_rows`` and ``get_tensor_from_selected_rows``
+(``:415-432``). Shapes are python ints; shape tensors
 and ``assign`` of numpy values are not ported."""
 from ..framework import initializer as init_mod
 from ..framework.core import default_main_program
@@ -107,4 +109,29 @@ def gather(input, index, axis=0, name=None):
     helper.append_op(type="gather",
                      inputs={"X": [input], "Index": [index]},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def concat(input, axis=0, name=None):
+    helper = LayerHelper("concat", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
+    helper.append_op(type="concat", inputs={"X": list(input)},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def merge_selected_rows(x, name=None):
+    helper = LayerHelper("merge_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="merge_selected_rows", inputs={"X": [x]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def get_tensor_from_selected_rows(x, name=None):
+    helper = LayerHelper("get_tensor_from_selected_rows", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="get_tensor_from_selected_rows",
+                     inputs={"X": [x]}, outputs={"Out": [out]},
+                     infer_shape=False)
     return out

@@ -20,6 +20,7 @@ from ..framework import initializer as I
 from ..layers import math as M
 from ..layers import tensor as T
 from ..param_attr import ParamAttr
+from .params import pick_params
 
 DEPTH_CFG = {
     18: ("basic", [2, 2, 2, 2]),
@@ -162,22 +163,8 @@ def params_from_jax(arrays, depth=50, class_dim=1000):
     the names of :func:`param_shapes` (other scope state, such as the
     optimizer's, is left out); raises on a missing or mis-shaped
     name."""
-    want = param_shapes(depth, class_dim)
-    missing = sorted(set(want) - set(arrays))
-    if missing:
-        raise ValueError(f"ResNet-{depth} parameters are missing: "
-                         f"{missing}")
-    out = {}
-    for name, shape in want.items():
-        a = arrays[name]
-        t = a.detach().to(torch.float32, copy=True) \
-            if isinstance(a, torch.Tensor) \
-            else torch.from_numpy(np.array(a, dtype=np.float32))
-        if tuple(t.shape) != shape:
-            raise ValueError(f"ResNet parameter {name!r} has shape "
-                             f"{tuple(t.shape)}, expected {shape}")
-        out[name] = t
-    return out
+    return pick_params(arrays, param_shapes(depth, class_dim),
+                       f"ResNet-{depth}")
 
 
 def init_params(depth=50, class_dim=1000, seed=0):

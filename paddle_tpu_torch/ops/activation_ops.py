@@ -1,5 +1,6 @@
 """Activation ops in torch (counterpart of
-``paddle_tpu/ops/activation_ops.py``: ``relu :23``, ``tanh :25``,
+``paddle_tpu/ops/activation_ops.py``: ``relu :23``, ``sigmoid :24``,
+``tanh :25``,
 ``exp :26``, ``rsqrt :32``, ``floor :36``, ``ceil :37``, ``cos :41``,
 ``square :33``, ``pow :81``, ``softmax :89``). Each takes the generic vjp grad, as in the
 JAX package; ``floor`` and ``ceil`` have none."""
@@ -12,6 +13,11 @@ from .common import x_of
 @register_op("relu")
 def relu(ctx, ins, attrs):
     return {"Out": torch.relu(x_of(ins))}
+
+
+@register_op("sigmoid")
+def sigmoid(ctx, ins, attrs):
+    return {"Out": torch.sigmoid(x_of(ins))}
 
 
 @register_op("exp")

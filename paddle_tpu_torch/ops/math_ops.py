@@ -1,7 +1,7 @@
 """Elementwise, matmul and reduction ops in torch (counterpart of
-``paddle_tpu/ops/math_ops.py``: ``elementwise_*``, ``sum :52``,
-``scale :74``, ``matmul :92``, ``mul :116``, ``reduce_sum``, ``mean
-:174``, the comparisons (``less_than :240``), the logical ops,
+``paddle_tpu/ops/math_ops.py``: ``elementwise_*``, ``sum :52`` (over
+``SelectedRows`` too), ``scale :74``, ``matmul :92``, ``mul :116``,
+``reduce_sum``, ``mean :174``, the comparisons (``less_than :240``), the logical ops,
 ``isfinite :268`` and ``einsum :328``). Large products go to
 ``torch.matmul``, as the JAX package leaves them to XLA. ``mul`` (every
 ``fc``) has a bespoke grad: the generic vjp would recompute its forward
@@ -11,6 +11,7 @@ import math
 import torch
 
 from ..framework.registry import register_grad_lower, register_op
+from ..framework.selected_rows import is_selected_rows, merge, to_dense
 from .common import bcast_y, reduce_axes, x_of
 
 
@@ -64,7 +65,15 @@ def isfinite(ctx, ins, attrs):
 
 @register_op("sum")
 def sum_op(ctx, ins, attrs):
+    """The sum of the ``X`` list. ``SelectedRows`` inputs stay sparse when
+    every input is one (``merge``); mixed with dense ones, each is
+    densified into the dense inputs' shape first."""
     xs = ins["X"]
+    if any(is_selected_rows(x) for x in xs):
+        if all(is_selected_rows(x) for x in xs):
+            return {"Out": merge(xs)}
+        shape = next(x.shape for x in xs if not is_selected_rows(x))
+        xs = [to_dense(x, shape) if is_selected_rows(x) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x

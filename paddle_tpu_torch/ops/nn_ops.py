@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from ..flags import flag
 from ..framework.registry import register_grad_lower, register_op
+from ..framework.selected_rows import SelectedRows
 from .common import normalize_padding, x_of
 
 
@@ -313,27 +314,27 @@ def lookup_table(ctx, ins, attrs):
 
 @register_grad_lower("lookup_table")
 def lookup_table_grad(ctx, ins, attrs):
-    """Dense W grad: the upstream rows scatter-added into a zero table,
-    deterministically (``is_sparse`` row sets are not in this port
-    yet)."""
+    """W's grad: with ``is_sparse`` the ``SelectedRows`` of the looked-up
+    ids and their upstream rows (no ``[vocab, dim]`` table is made);
+    else the upstream rows scatter-added into a zero table,
+    deterministically. ``padding_idx`` rows get zeros either way."""
     fattrs = attrs["__fwd_op__"]["attrs"]
-    if fattrs.get("is_sparse", False):
-        raise NotImplementedError("paddle_tpu_torch: is_sparse embedding "
-                                  "grads are not ported")
     w, ids, g = x_of(ins, "W"), x_of(ins, "Ids"), x_of(ins, "Out@GRAD")
     if ids.dim() >= 2 and ids.shape[-1] == 1 and g.dim() == ids.dim():
         ids = ids[..., 0]
     flat_ids = ids.reshape(-1).long()
-    flat_g = g.reshape(-1, w.shape[-1]).to(w.dtype)
+    flat_g = g.reshape(-1, w.shape[-1])
     padding_idx = fattrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         flat_g = torch.where((flat_ids != padding_idx)[:, None], flat_g,
                              0.0)
+    if fattrs.get("is_sparse", False):
+        return {"W@GRAD": [SelectedRows(flat_ids, flat_g)]}
     # index_put_ with accumulate sums a row's duplicates in a fixed
     # order (sorted ids) on CUDA, where index_add_ takes atomics in any
     # order: the grad is the same bits from run to run
     return {"W@GRAD": [torch.zeros_like(w).index_put_(
-        (flat_ids,), flat_g, accumulate=True)]}
+        (flat_ids,), flat_g.to(w.dtype), accumulate=True)]}
 
 
 @register_op("cross_entropy")
@@ -372,6 +373,29 @@ def softmax_with_cross_entropy(ctx, ins, attrs):
         if ignore >= 0:
             loss = torch.where(idx == ignore, 0.0, loss)
     return {"Softmax": softmax, "Loss": loss}
+
+
+@register_op("sigmoid_cross_entropy_with_logits")
+def sigmoid_cross_entropy_with_logits(ctx, ins, attrs):
+    """The stable sigmoid binary cross-entropy of logits X against
+    ``Label``: ``max(x, 0) - x label + log1p(exp(-|x|))``; 0 where the
+    label is ``ignore_index``; ``normalize`` divides by the count of
+    other labels (at least 1)."""
+    x, label = x_of(ins), x_of(ins, "Label")
+    loss = (torch.maximum(x, x.new_zeros(())) - x * label
+            + torch.log1p(torch.exp(-torch.abs(x))))
+    ignore = attrs.get("ignore_index", -100)
+    loss = torch.where(label == ignore, 0.0, loss)
+    if attrs.get("normalize", False):
+        norm = torch.clamp_min(torch.sum((label != ignore).to(x.dtype)),
+                               1.0)
+        loss = loss / norm
+    return {"Out": loss}
+
+
+@register_op("square_error_cost")
+def square_error_cost(ctx, ins, attrs):
+    return {"Out": torch.square(x_of(ins) - x_of(ins, "Y"))}
 
 
 @register_op("gelu")

@@ -1,6 +1,6 @@
 """Optimizer update ops in torch (counterpart of
 ``paddle_tpu/ops/optimizer_ops.py``: ``sgd :23``, ``momentum :36``,
-``adam :76``, ``adamw :122``, dense paths, and ``fused_sgd :305``,
+``adam :76``, ``adamw :122``, and ``fused_sgd :305``,
 ``fused_momentum :313``, ``fused_adam :373``, ``fused_adamw :382``).
 Each op returns new param/state tensors that rebind the same names in
 the env, as the JAX lowering does; no input is written in place (a
@@ -12,17 +12,23 @@ The fused ops are a bucket of per-param updates
 in the same order, so every output equals the per-param op's bit for
 bit, while a bucket is a few multi-tensor launches instead of several
 per param. Where the JAX ops concatenate the bucket (which XLA fuses
-away), eager torch would copy every tensor twice."""
+away), eager torch would copy every tensor twice.
+
+A ``SelectedRows`` grad (an ``is_sparse`` embedding's): ``sgd`` moves
+only the touched rows; ``momentum`` and ``adam`` densify it (their
+moments decay every row); ``adam`` with ``lazy_mode`` updates the
+touched rows' moments and params only, after merging duplicate ids
+(``selected_rows.coalesce``). ``fuse_optimizer`` leaves all of these
+per-param, so the fused ops see dense grads only."""
 import torch
 
 from ..framework.registry import register_op
+from ..framework.selected_rows import (coalesce, is_selected_rows,
+                                       run_heads, to_dense)
 from .common import x_of
 
 
 def _hyper(attrs):
-    if attrs.get("lazy_mode", False):
-        raise NotImplementedError("paddle_tpu_torch: lazy (sparse) adam "
-                                  "is not ported")
     return (attrs.get("beta1", 0.9), attrs.get("beta2", 0.999),
             attrs.get("epsilon", 1e-8))
 
@@ -35,8 +41,13 @@ def _lr(ins, dt):
 
 @register_op("sgd", grad=False)
 def sgd(ctx, ins, attrs):
+    """p - lr g; a sparse grad moves only its rows, duplicates summed."""
     p, g, lr = x_of(ins, "Param"), x_of(ins, "Grad"), \
         x_of(ins, "LearningRate")
+    if is_selected_rows(g):
+        return {"ParamOut": p.index_put(
+            (g.rows,), -lr.to(p.dtype) * g.values.to(p.dtype),
+            accumulate=True)}
     return {"ParamOut": p - lr.to(p.dtype) * g.to(p.dtype)}
 
 
@@ -57,6 +68,8 @@ def momentum(ctx, ins, attrs):
     v = x_of(ins, "Velocity")
     mu = attrs.get("mu", 0.9)
     lr = lr.to(p.dtype)
+    if is_selected_rows(g):
+        g = to_dense(g, p.shape, p.dtype)
     g = g.to(p.dtype)
     v_new = mu * v + g
     if attrs.get("use_nesterov", False):
@@ -92,6 +105,10 @@ def adam(ctx, ins, attrs):
     m1, m2 = x_of(ins, "Moment1"), x_of(ins, "Moment2")
     b1p, b2p = x_of(ins, "Beta1Pow"), x_of(ins, "Beta2Pow")
     b1, b2, eps = _hyper(attrs)
+    if is_selected_rows(g):
+        if attrs.get("lazy_mode", False):
+            return _lazy_adam(p, g, lr, m1, m2, b1p, b2p, b1, b2, eps)
+        g = to_dense(g, p.shape, p.dtype)
     g = g.to(p.dtype)
     m1n = b1 * m1 + (1 - b1) * g
     m2n = b2 * m2 + (1 - b2) * torch.square(g)
@@ -99,6 +116,31 @@ def adam(ctx, ins, attrs):
         (1 - b1p.to(p.dtype))
     p_new = p - lr_t * m1n / (torch.sqrt(m2n) + eps)
     return {"ParamOut": p_new, "Moment1Out": m1n, "Moment2Out": m2n,
+            "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2}
+
+
+def _lazy_adam(p, g, lr, m1, m2, b1p, b2p, b1, b2, eps):
+    """Adam on the rows of a sparse grad only (the reference's
+    ``lazy_mode``): untouched rows keep their param and moments bit for
+    bit. Duplicate ids merge first (``coalesce``), as a per-occurrence
+    update would apply twice against stale moments. Every slot of a run
+    of one id writes its run head's new values, so the unaccumulated
+    row writes agree. The beta-pows (uniform, scalar or param-shaped)
+    advance everywhere, as in the dense op."""
+    g = coalesce(g)
+    rows = g.rows
+    gv = g.values.to(p.dtype)
+    m1r = b1 * m1[rows] + (1 - b1) * gv
+    m2r = b2 * m2[rows] + (1 - b2) * torch.square(gv)
+    b1p_s = b1p.reshape(-1)[0].to(p.dtype)
+    b2p_s = b2p.reshape(-1)[0].to(p.dtype)
+    lr_t = lr.reshape(-1)[0].to(p.dtype) * torch.sqrt(1 - b2p_s) / \
+        (1 - b1p_s)
+    upd = lr_t * m1r / (torch.sqrt(m2r) + eps)
+    head = run_heads(rows)
+    return {"ParamOut": p.index_put((rows,), (p[rows] - upd)[head]),
+            "Moment1Out": m1.index_put((rows,), m1r[head]),
+            "Moment2Out": m2.index_put((rows,), m2r[head]),
             "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2}
 
 

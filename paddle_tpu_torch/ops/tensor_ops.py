@@ -2,9 +2,11 @@
 ``paddle_tpu/ops/tensor_ops.py``: ``fill_constant :46``,
 ``fill_any_like :79``, ``uniform_random :86``, ``gaussian_random :96``,
 ``truncated_gaussian_random :105``, ``assign :123``, ``cast :137``,
-``reshape2 :143``, ``transpose2 :165``, ``unsqueeze2 :226``,
-``flatten2 :235``, ``slice :255``, ``gather :329``, ``increment :402``,
-``where :424``, ``top_k :476``, ``recompute_barrier :572``). ``cast`` takes the generic vjp, so ``cast_grad`` casts the
+``reshape2 :143``, ``transpose2 :165``, ``concat :180``,
+``unsqueeze2 :226``, ``flatten2 :235``, ``slice :255`` (squeezing its
+``decrease_axis``), ``gather :329``, ``increment :402``, ``where
+:424``, ``top_k :476``, ``recompute_barrier :572``). ``cast`` takes the
+generic vjp, so ``cast_grad`` casts the
 cotangent back to the input's type, as the JAX vjp does. ``slice`` and
 ``transpose2`` return views and ``reshape2`` one where the strides
 allow, so the attention kernels take q/k/v as strided views of the qkv
@@ -16,6 +18,7 @@ import torch
 
 from ..framework.dtype import torch_dtype
 from ..framework.registry import register_grad_lower, register_op
+from ..framework.selected_rows import coalesce, is_selected_rows
 from .common import x_of
 
 
@@ -94,6 +97,27 @@ def cast(ctx, ins, attrs):
     return {"Out": x_of(ins).to(torch_dtype(attrs["out_dtype"]))}
 
 
+@register_op("concat")
+def concat(ctx, ins, attrs):
+    return {"Out": torch.cat(ins["X"], dim=attrs.get("axis", 0))}
+
+
+@register_op("merge_selected_rows", grad=False, infer_shape=False)
+def merge_selected_rows(ctx, ins, attrs):
+    """A ``SelectedRows`` with its duplicate rows merged (``coalesce``); a
+    dense input passes through."""
+    x = x_of(ins)
+    return {"Out": coalesce(x) if is_selected_rows(x) else x}
+
+
+@register_op("get_tensor_from_selected_rows", grad=False,
+             infer_shape=False)
+def get_tensor_from_selected_rows(ctx, ins, attrs):
+    """A ``SelectedRows``' value tensor; a dense input passes through."""
+    x = x_of(ins)
+    return {"Out": x.values if is_selected_rows(x) else x}
+
+
 @register_op("where")
 def where(ctx, ins, attrs):
     return {"Out": torch.where(x_of(ins, "Condition"), x_of(ins),
@@ -143,7 +167,11 @@ def slice_op(ctx, ins, attrs):
         s = max(s + dim, 0) if s < 0 else min(s, dim)
         e = max(e + dim, 0) if e < 0 else min(e, dim)
         idx[a] = slice(s, e)
-    return {"Out": x[tuple(idx)]}
+    out = x[tuple(idx)]
+    decrease = attrs.get("decrease_axis", [])
+    if decrease:
+        out = out.squeeze(tuple(decrease))
+    return {"Out": out}
 
 
 def _gather_index(ins):

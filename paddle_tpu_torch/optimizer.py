@@ -2,7 +2,8 @@
 ``paddle_tpu/optimizer.py``): ``minimize`` = ``append_backward`` + one
 update op per parameter. Ported: ``SGDOptimizer`` (``:230``),
 ``MomentumOptimizer`` (``:243``, with Nesterov), ``AdamOptimizer`` and
-``AdamWOptimizer`` (``:348``), dense, with the aliases ``SGD``,
+``AdamWOptimizer`` (``:348``; ``lazy_mode`` updates only the rows of a
+sparse grad), with the aliases ``SGD``,
 ``Momentum``, ``Adam`` and ``AdamW`` (``:728-731``), without gradient
 clipping or regularization, ``rollback_updates_if`` (AMP's overflow
 skip), and the wrappers ``RecomputeOptimizer`` (``:615``) and
@@ -134,11 +135,9 @@ class AdamOptimizer(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
-        if lazy_mode:
-            raise NotImplementedError("paddle_tpu_torch: lazy (sparse) "
-                                      "adam is not ported")
         super().__init__(learning_rate, **kw)
         self._beta1, self._beta2, self._epsilon = beta1, beta2, epsilon
+        self._lazy_mode = bool(lazy_mode)
 
     def _create_accumulators(self, block, parameters):
         for p in parameters:
@@ -165,7 +164,7 @@ class AdamOptimizer(Optimizer):
                      "Moment2Out": [m2], "Beta1PowOut": [b1p],
                      "Beta2PowOut": [b2p]},
             attrs={"beta1": self._beta1, "beta2": self._beta2,
-                   "epsilon": self._epsilon, "lazy_mode": False,
+                   "epsilon": self._epsilon, "lazy_mode": self._lazy_mode,
                    **self._extra_attrs()},
             infer_shape=False)
 

@@ -10,6 +10,15 @@
   the supported ones, and list exactly the head dims the CUDA dispatch
   switches instantiate.
 
+- ``slice`` squeezes its ``decrease_axis`` as the JAX op does
+  (``[2,3,4,5]``, axes [1], starts [1], ends [2], decrease_axis [1]
+  gives ``[2,4,5]``, the same values).
+- Paddle ``VarType`` enum ints as a dtype attr: ``cast`` (``out_dtype``
+  0, 2, 3), ``fill_constant`` (``dtype`` 0, 3, 5) and ``fill_any_like``
+  (``dtype`` 3) run and give the JAX op's values and dtype (the JAX
+  package stores int64 as int32, x64 being off; the port keeps int64),
+  and ``dtype_to_proto_enum`` inverts the table.
+
 The kernels themselves run only on the GPU (chip_smoke.py holds them
 against their plain versions there)."""
 import importlib
@@ -25,7 +34,12 @@ import torch
 from paddle_tpu.ops import ring_attention_ops  # noqa: F401  (registers)
 from paddle_tpu.framework import registry as jregistry
 
+from paddle_tpu.framework import lowering as jlowering
+from paddle_tpu.framework.dtype import dtype_to_proto_enum as jenum
+
 from paddle_tpu_torch.framework import registry as tregistry
+from paddle_tpu_torch.framework.dtype import convert_dtype, \
+    dtype_to_proto_enum
 from paddle_tpu_torch.framework.lowering import LowerCtx
 from paddle_tpu_torch.ops import attention_ops
 
@@ -177,3 +191,66 @@ def test_plain_versions_take_d80():
     for a, b in ((dq, q64), (dk, k64), (dv, v64)):
         np.testing.assert_allclose(a.numpy(), b.grad.numpy(), rtol=1e-4,
                                    atol=1e-5)
+
+
+def _both_ops(op_type, ins, attrs):
+    """(JAX output, port output) of one op's lowering on the same numpy
+    inputs, as numpy arrays."""
+    jctx = jlowering.LowerCtx(None, None, {}, jax.random.PRNGKey(0))
+    jout = jregistry.get_op_def(op_type).lower(
+        jctx, {k: [jnp.asarray(a) for a in v] for k, v in ins.items()},
+        attrs)["Out"]
+    tout = tregistry.get_op_def(op_type).lower(
+        LowerCtx(None, None, {}, "cpu"),
+        {k: [torch.from_numpy(a) for a in v] for k, v in ins.items()},
+        attrs)["Out"]
+    jout = jout[0] if isinstance(jout, list) else jout
+    tout = tout[0] if isinstance(tout, list) else tout
+    return np.asarray(jout), tout.numpy()
+
+
+def test_slice_decrease_axis_squeezes_like_jax():
+    x = np.random.default_rng(4).normal(size=(2, 3, 4, 5)).astype(np.float32)
+    attrs = {"axes": [1], "starts": [1], "ends": [2], "decrease_axis": [1]}
+    j, t = _both_ops("slice", {"Input": [x]}, attrs)
+    assert j.shape == t.shape == (2, 4, 5)
+    np.testing.assert_array_equal(t, j)
+    j, t = _both_ops("slice", {"Input": [x]}, dict(attrs, decrease_axis=[]))
+    assert j.shape == t.shape == (2, 1, 4, 5)
+
+
+# (op, its inputs, its attrs): every dtype attr a VarType enum int
+ENUM_CASES = {
+    "cast_bool": ("cast", "x", {"out_dtype": 0}),
+    "cast_int32": ("cast", "x", {"out_dtype": 2}),
+    "cast_int64": ("cast", "x", {"out_dtype": 3}),
+    "fill_constant_bool": ("fill_constant", None,
+                           {"shape": [2, 3], "dtype": 0, "value": 1.0}),
+    "fill_constant_int64": ("fill_constant", None,
+                            {"shape": [2, 3], "dtype": 3, "value": 7.0}),
+    "fill_constant_float32": ("fill_constant", None,
+                              {"shape": [4, 5], "dtype": 5, "value": 0.5}),
+    "fill_any_like_int64": ("fill_any_like", "x",
+                            {"dtype": 3, "value": 3.0}),
+}
+# the JAX package narrows int64 to int32 (x64 off); the port keeps it
+NARROWED = {"int64": "int32"}
+
+
+@pytest.mark.parametrize("case", sorted(ENUM_CASES))
+def test_vartype_enum_dtypes_run_like_jax(case):
+    op_type, inp, attrs = ENUM_CASES[case]
+    x = np.random.default_rng(5).normal(size=(2, 3)).astype(np.float32) * 3
+    j, t = _both_ops(op_type, {"X": [x]} if inp else {}, attrs)
+    key = "out_dtype" if op_type == "cast" else "dtype"
+    want = convert_dtype(attrs[key])
+    assert str(t.dtype) == want
+    assert NARROWED.get(want, want) == str(j.dtype)
+    np.testing.assert_array_equal(t, j.astype(t.dtype))
+
+
+def test_dtype_enum_table_is_jax():
+    for name in ("bool", "int16", "int32", "int64", "float16", "float32",
+                 "float64", "uint8", "int8", "bfloat16"):
+        assert dtype_to_proto_enum(name) == jenum(name)
+        assert convert_dtype(dtype_to_proto_enum(name)) == name

@@ -22,7 +22,8 @@ package, on the CPU.
 - ``train_from_dataset`` with ``steps_per_run=4`` (run_steps slabs and a
   short tail through ``run``) ends bitwise where the stepwise path ends,
   with ``fetch_every_n`` > 1 too;
-- the training loop's flags default as the JAX package's;
+- the training loop's flags default as the JAX package's, but
+  ``FLAGS_cudnn_deterministic``, on in the port;
   ``FLAGS_check_nan_inf`` turns the guard on for ``run`` and
   ``run_steps``; ``FLAGS_cudnn_deterministic`` holds cuDNN deterministic
   around the conv calls only."""
@@ -301,11 +302,17 @@ def test_train_from_dataset_fused_equals_stepwise(tmp_path, capsys,
     assert printed[:2] == printed[2:]
 
 
+# the port's own defaults: cuDNN deterministic convs cost bench_resnet50's
+# step nothing measurable on the card, and make conv training repeatable
+PORT_DEFAULTS = {"cudnn_deterministic": True}
+
+
 @pytest.mark.parametrize("name", ["check_nan_inf", "steps_per_run",
                                   "fetch_every_n", "cudnn_deterministic"])
 def test_training_loop_flags_default_as_jax(name):
-    assert tfluid.get_flags(f"FLAGS_{name}") == \
-        jfluid.get_flags(f"FLAGS_{name}")
+    want = jfluid.get_flags(f"FLAGS_{name}")[f"FLAGS_{name}"]
+    want = PORT_DEFAULTS.get(name, want)
+    assert tfluid.get_flags(f"FLAGS_{name}") == {f"FLAGS_{name}": want}
 
 
 def test_check_nan_inf_flag_turns_the_guard_on():
