@@ -158,7 +158,8 @@ NVIDIA GPU.
    - K1 at the served shape (B32 H12 S128 D64 f32, non-causal, padded
      tail key bias) against its plain version and SDPA;
    - capture_refuses_host_sync: a program whose op calls ``.item()``
-     raises ``GraphCaptureError`` naming the op (no eager fallback).
+     raises ``GraphCaptureError`` naming the op (no eager fallback), and
+     the allocator still releases cached memory after it.
 8. The training loop (``Executor.run_steps``: K steps as replays of one
    captured CUDA graph; the non-finite guard; ``train_from_dataset``),
    each path driven with the launch counts zeroed and read, each line
@@ -211,11 +212,41 @@ NVIDIA GPU.
      served by InferenceServer(model_dir) at request batches 1 and 32
      (8 wire clients x 8 requests), replies within 1e-4 of max |ref| of
      AnalysisPredictor.run, each bucket's replay bitwise its eager run.
-10. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+10. The imperative mode (``fluid.dygraph``), each path driven with the
+    launch counts zeroed and read (no kernel of the port may launch: the
+    JAX models compute attention as matmul + softmax and einsum); these
+    run first among the main paths, after the kernel phases. Every
+    ``launches_<path>`` line carries the device memory still allocated
+    and reserved after the path (garbage collected, cache emptied):
+    - dygraph_transformer: bench.py's bench_dygraph_transformer, the
+      dygraph Transformer-base (d_model 512, 8 heads, d_inner 2048, 6+6
+      layers, dropout 0.1, vocab 8000, max_len 64), Adam 1e-4, a pool of
+      4 seeded batches of B256 src 32 tgt 32 on the device, the bench's
+      step (backward, minimize, clear_gradients) under dygraph.jit_step:
+      an eager warm-up on 8 rows, 4 eager steps at B256 (wall ms, the
+      median of steps 1-3; device ms and kernel launches of one), the
+      capture at B256 (seconds, graph pool bytes) and 20 timed replays
+      (ms/step, samples/s, target tokens/s, TFLOP/s from the shapes),
+      device ms and launches of one replay, idle shares, peaks, the
+      first and last loss; every loss finite, and one replay from a
+      copied state equal to one eager step from the same state and
+      tracer key bitwise (loss, every parameter, every Adam slot, dropout
+      on);
+    - dygraph_bert_ab: tools/bench_dygraph_ab.py, BertPretrainDy(base)
+      by jit_step against the static bert_pretrain by run_steps (K 8),
+      fp32 B64 S128 P20, Adam 1e-4: ms/step, device ms and launches a
+      step each, their ratio, the eager dygraph step's ms;
+    - dygraph_capture_refusals: a jit_step step that copies host data to
+      the device without to_variable, one that reads a value back and
+      one whose to_variable data change each raise GraphCaptureError at
+      the capturing call, with no eager pass instead and every
+      parameter and Adam slot unchanged.
+11. Prints the {"kernels": [...]} line (K1-K5), then as the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
 """
+import gc
 import json
 import math
 import os
@@ -2251,7 +2282,9 @@ def check_served(torch, np, served, launches, k1_per_batch, place=None,
 def capture_refuses_host_sync(torch, np):
     """A program whose op syncs the host (``.item()``) cannot be
     captured: ``CapturedProgram`` raises ``GraphCaptureError`` naming the
-    op, and nothing runs it eagerly instead."""
+    op, and nothing runs it eagerly instead; after it, 1 GiB allocated
+    and freed on a side stream leaves no reserved memory behind
+    ``empty_cache``."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.framework.cuda_graph import (CapturedProgram,
                                                        GraphCaptureError)
@@ -2278,11 +2311,25 @@ def capture_refuses_host_sync(torch, np):
     except GraphCaptureError as e:
         rec.update(raised=type(e).__name__, op_type=e.op_type,
                    op_index=e.op_index, message=str(e)[:300])
-    # the card still works after the refused capture
+    # the card still works after the refused capture, and the caching
+    # allocator still frees what it caches (an invalidated capture that
+    # was never ended leaves it counting a capture underway: empty_cache
+    # then frees nothing, and every later path's memory stays reserved)
     t = torch.ones(4, device="cuda")
     rec["after"] = float((t * 2).sum().item())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    with torch.cuda.stream(torch.cuda.Stream()):
+        big = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    del big
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec["reserved_gb_left_of_1gib"] = \
+        (torch.cuda.memory_reserved() - base) / 1e9
     rec["ok"] = rec["raised"] == "GraphCaptureError" \
-        and rec["op_type"] == "chip_smoke_host_sync" and rec["after"] == 8.0
+        and rec["op_type"] == "chip_smoke_host_sync" and \
+        rec["after"] == 8.0 and rec["reserved_gb_left_of_1gib"] < 0.1
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"a host-syncing op was captured or fell "
@@ -2309,24 +2356,32 @@ def scope_diff(torch, a, b):
     return out
 
 
-def profiled_ms(torch, fn):
-    """Device time (ms) of one call of ``fn`` from torch.profiler: the sum
-    of the CUDA kernel, copy and set durations in its trace (a graph
-    replay's kernels included); None on the CPU or when the trace holds
-    no device time."""
+def profiled_launches(torch, fn):
+    """(device ms, kernel launches) of one call of ``fn`` from
+    torch.profiler: the CUDA kernels in its trace (a graph replay's
+    included; copies and sets add to the time, not the count)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us, kernels = 0.0, 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "device_time", None)
         us += float(e.cuda_time if t is None else t)
-    return us / 1e3 or None
+        if not e.name.startswith(("Memcpy", "Memset")):
+            kernels += 1
+    return us / 1e3, kernels
+
+
+def profiled_ms(torch, fn):
+    """Device time (ms) of one call of ``fn`` from torch.profiler (see
+    :func:`profiled_launches`); None when the trace holds no device
+    time."""
+    return profiled_launches(torch, fn)[0] or None
 
 
 def build_bert_graft(cfg, B, S, P, recompute, white=()):
@@ -3301,6 +3356,368 @@ def cudnn_deterministic_ab(torch, np, place=None, run=RESNET50, reps=2,
     return rec
 
 
+# bench.py bench_dygraph_transformer (:463-532): Transformer(8000, 8000,
+# max_len=64), Transformer-base widths, Adam(1e-4), a pool of 4 batches
+# of B256 src 32 tgt 32
+DY_TRANSFORMER = {"B": 256, "src": 32, "tgt": 32, "vocab": 8000,
+                  "d_model": 512, "heads": 8, "d_inner": 2048, "layers": 6,
+                  "max_len": 64, "dropout": 0.1, "lr": 1e-4, "pool": 4,
+                  "warm_rows": 8, "timed": 20}
+DY_TR_KEYS = ("src_ids", "src_mask", "tgt_ids", "labels", "label_mask")
+
+
+def transformer_train_flops(run):
+    """FLOP of one training step of the Transformer at ``run``'s shape,
+    counted as bench.py's ``_*_train_flops_per_sample`` helpers count:
+    3 x (2 x the multiply-adds of the forward GEMMs and attention
+    products); dropout, softmax, LayerNorm, the loss and Adam left out,
+    as are the forwards the generic grads recompute (not useful work).
+    Per source token: an encoder layer's Q, K, V, O (4 d^2) and FFN
+    (2 d d_inner); per target token: a decoder layer's self and cross
+    attention (8 d^2) and FFN, and the output projection (d x vocab);
+    per token and attention: the score and context products (2 T d)."""
+    d, di, L = run["d_model"], run["d_inner"], run["layers"]
+    src_tok, tgt_tok = run["B"] * run["src"], run["B"] * run["tgt"]
+    enc = L * (4 * d * d + 2 * d * di + 2 * run["src"] * d)
+    dec = L * (8 * d * d + 2 * d * di + 2 * run["tgt"] * d
+               + 2 * run["src"] * d) + d * run["vocab"]
+    return 3 * 2 * (src_tok * enc + tgt_tok * dec)
+
+
+def _dy_state(model, opt):
+    """Copies of every parameter and optimizer slot of a dygraph model."""
+    return ([p.value.clone() for p in model.parameters()],
+            {pn: {s: t.clone() for s, t in st.items()}
+             for pn, st in opt._eager_state.items()})
+
+
+def _dy_restore(model, opt, state):
+    params, slots = state
+    for p, v in zip(model.parameters(), params):
+        p.value = v.clone()
+    opt._eager_state = {pn: {s: t.clone() for s, t in st.items()}
+                        for pn, st in slots.items()}
+
+
+def _dy_bitwise(torch, model, opt, state):
+    """Names of the parameters and slots that differ from ``state``."""
+    params, slots = state
+    out = [p.name for p, v in zip(model.parameters(), params)
+           if not torch.equal(p.value, v)]
+    out += [f"{pn}.{s}" for pn, st in slots.items() for s, t in st.items()
+            if not torch.equal(opt._eager_state[pn][s], t)]
+    return out
+
+
+def _dy_step(fluid, dygraph, model, opt):
+    """bench.py's step function under dygraph.jit_step."""
+    @dygraph.jit_step
+    def step(*args):
+        loss = model(*args)
+        loss.backward()
+        opt.minimize(loss)
+        model.clear_gradients()
+        return loss
+    return step
+
+
+def _timed_wall(torch, cuda, fn):
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def dygraph_transformer(torch, np, place=None, run=DY_TRANSFORMER, seed=0,
+                        eager_steps=4):
+    """bench.py's bench_dygraph_transformer on the port: the dygraph
+    Transformer at ``run``'s shape under ``dygraph.guard(place)``, Adam
+    1e-4, a pool of 4 seeded batches staged on the device. One eager
+    warm-up step on ``warm_rows`` rows; ``eager_steps`` eager steps at the
+    full batch (``CompiledStep.eager``: wall ms, the median of steps 1 on,
+    device ms and kernel launches of one); the capture at the full batch
+    (its seconds, the graph pool's bytes) and its replay; ``timed``
+    replays on the host clock with one sync at the end (ms/step,
+    samples/s, target tokens/s, TFLOP/s by ``transformer_train_flops``);
+    device ms and launches of one replay; the peaks. Gates: every loss
+    finite; one replay from a copied state equals one eager step from
+    the same state and tracer key bitwise (the loss, every parameter and
+    every Adam slot; dropout on)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.models import transformer
+    rng = np.random.default_rng(seed)
+    B = run["B"]
+    with dygraph.guard(place):
+        tracer = dygraph.base._current_tracer()
+        dev = tracer.device
+        cuda = dev.type == "cuda"
+        model = transformer.Transformer(
+            run["vocab"], run["vocab"], d_model=run["d_model"],
+            n_head=run["heads"], d_inner=run["d_inner"],
+            n_layer=run["layers"], max_len=run["max_len"],
+            dropout=run["dropout"])
+        opt = fluid.optimizer.Adam(run["lr"],
+                                   parameter_list=model.parameters())
+        pool = [transformer.random_batch(B, run["src"], run["tgt"],
+                                         run["vocab"], run["vocab"], rng=rng)
+                for _ in range(run["pool"])]
+        staged = [[torch.from_numpy(b[k]).to(dev) for k in DY_TR_KEYS]
+                  for b in pool]
+        step = _dy_step(fluid, dygraph, model, opt)
+        cs = step._compiled_step
+        n_params = sum(p.value.numel() for p in model.parameters())
+        warm = [t[:run["warm_rows"]] for t in staged[0]]
+        losses = [float(step(*warm).numpy().reshape(-1)[0])]
+        base = _peak_base(torch, cuda)
+        eager_ms = []
+        for i in range(eager_steps):
+            out, ms = _timed_wall(torch, cuda,
+                                  lambda i=i: cs.eager(*staged[i % 4]))
+            losses.append(float(out.numpy().reshape(-1)[0]))
+            eager_ms.append(ms)
+        rec = {"phase": "dygraph_transformer", **CARD, "B": B,
+               "src_len": run["src"], "tgt_len": run["tgt"],
+               "vocab": run["vocab"], "d_model": run["d_model"],
+               "layers": run["layers"], "dropout": run["dropout"],
+               "params": n_params, "eager_ms_per_step": eager_ms,
+               "eager_ms_per_step_median": float(np.median(eager_ms[1:]))}
+        if cuda:
+            rec["peak_gb_eager"] = _peak_from(torch, cuda, base)
+            rec["device_ms_eager"], rec["launches_eager"] = \
+                profiled_launches(torch, lambda: cs.eager(*staged[0]))
+        base = _peak_base(torch, cuda)
+        out, first_ms = _timed_wall(torch, cuda, lambda: step(*staged[0]))
+        losses.append(float(out.numpy().reshape(-1)[0]))
+        entry = next(iter(cs._cache.values()))
+        rec.update(capture_s=entry.capture_s, first_call_ms=first_ms,
+                   graph_pool_gb=entry.nbytes / 1e9,
+                   stochastic_call_sites=len(entry._sites),
+                   staged_host_arrays=len(entry._staged),
+                   external_vars=len(entry._ext),
+                   optimizer_slots=len(entry._binding))
+        losses.append(float(step(*staged[1]).numpy().reshape(-1)[0]))
+        n = run["timed"]
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = None
+        for i in range(n):
+            last = step(*staged[i % 4])
+        losses.append(float(last.numpy().reshape(-1)[0]))   # the one sync
+        dt = time.perf_counter() - t0
+        flops = transformer_train_flops(run)
+        rec.update(timed_steps=n, jit_ms_per_step=dt / n * 1e3,
+                   samples_per_s=B * n / dt,
+                   target_tokens_per_s=B * n / dt * run["tgt"],
+                   train_flop_per_step=flops,
+                   tflops=flops / (dt / n) / 1e12)
+        if cuda:
+            rec["peak_gb_capture_and_replays"] = _peak_from(torch, cuda,
+                                                            base)
+            rec["device_ms_replay"], rec["launches_replay"] = \
+                profiled_launches(torch, lambda: step(*staged[2]))
+            rec["idle_share_eager"] = 1 - rec["device_ms_eager"] / \
+                rec["eager_ms_per_step_median"]
+            rec["idle_share_jit"] = 1 - rec["device_ms_replay"] / \
+                rec["jit_ms_per_step"]
+        # the gate: a replay from a copied state against an eager step from
+        # the same state and tracer key
+        state, key = _dy_state(model, opt), tracer._key
+        loss_r = step(*staged[3]).value.clone()
+        after = _dy_state(model, opt)
+        _dy_restore(model, opt, state)
+        tracer._key = key
+        loss_e = cs.eager(*staged[3]).value
+        diff = _dy_bitwise(torch, model, opt, after)
+        rec.update(first_loss=losses[0], last_loss=losses[-1],
+                   losses=losses,
+                   replay_equals_eager_bitwise=bool(
+                       torch.equal(loss_r, loss_e)) and not diff,
+                   bitwise_diff=diff[:8])
+    rec["ok"] = bool(np.isfinite(losses).all()) and \
+        rec["replay_equals_eager_bitwise"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"dygraph_transformer failed: {rec}")
+    return rec
+
+
+# tools/bench_dygraph_ab.py: BERT-base fp32, B64 S128 P20, Adam 1e-4,
+# dropout 0.1, a pool of 2 batches; the static side by run_steps
+DY_BERT_AB = {"B": 64, "S": 128, "P": 20, "lr": 1e-4, "K": 8,
+              "warm_rows": 4, "timed": 20}
+DY_BERT_KEYS = ("src_ids", "sent_ids", "pos_ids", "input_mask", "mask_pos",
+                "mask_label", "labels")
+
+
+def dygraph_bert_ab(torch, np, place=None, run=DY_BERT_AB, layers=None,
+                    seed=0):
+    """tools/bench_dygraph_ab.py on the port: BertPretrainDy by
+    ``jit_step`` against the static ``bert_pretrain`` of the same config
+    trained by ``Executor.run_steps`` (a slab of K), both fp32 Adam 1e-4
+    on one seeded pool: ms/step (host clock), device ms and launches of
+    one replay each (a slab / K for the static side), their ratio, and
+    the eager dygraph step's ms. Finite losses on both sides."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.models import bert, bert_dygraph
+    cfg = bert.BertConfig.base()
+    if layers is not None:
+        cfg.num_layers = layers
+    B, S, P, K = run["B"], run["S"], run["P"], run["K"]
+    rng = np.random.default_rng(seed)
+    pool = [bert.random_batch(cfg, B, S, P, rng=rng) for _ in range(2)]
+    rec = {"phase": "dygraph_bert_ab", **CARD, "B": B, "S": S, "P": P,
+           "layers": cfg.num_layers, "dtype": "float32", "K": K}
+
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = bert.bert_pretrain(cfg, B, S, P)
+        fluid.optimizer.Adam(run["lr"]).minimize(out["loss"])
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    slab = {n: torch.from_numpy(np.stack([pool[i % 2][n]
+                                          for i in range(K)])).to(exe.device)
+            for n in pool[0]}
+    got = exe.run_steps(main, feed=slab, fetch_list=[out["loss"]],
+                        scope=scope)[0]
+    static_losses = [float(x) for x in np.asarray(got).reshape(-1)]
+    _, ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+        main, feed=slab, fetch_list=[out["loss"]], scope=scope))
+    rec["static_run_steps_ms_per_step"] = ms / K
+    if cuda:
+        dms, launches = profiled_launches(torch, lambda: exe.run_steps(
+            main, feed=slab, fetch_list=[out["loss"]], scope=scope))
+        rec["static_device_ms_per_step"] = dms / K
+        rec["static_launches_per_step"] = launches / K
+    exe.close()
+    del scope, slab
+
+    with dygraph.guard(place):
+        dev = dygraph.base._current_tracer().device
+        model = bert_dygraph.BertPretrainDy(cfg)
+        opt = fluid.optimizer.Adam(run["lr"],
+                                   parameter_list=model.parameters())
+        step = _dy_step(fluid, dygraph, model, opt)
+        staged = [[torch.from_numpy(b[k]).to(dev) for k in DY_BERT_KEYS]
+                  for b in pool]
+        w = run["warm_rows"]
+        small = [t[:w] for t in staged[0]]
+        small[4] = staged[0][4][:w * P]
+        small[5] = staged[0][5][:w * P]
+        dy_losses = [float(step(*small).numpy().reshape(-1)[0])]
+        eager_ms = []
+        for i in range(3):
+            o, ms = _timed_wall(torch, cuda, lambda i=i: step._compiled_step
+                                .eager(*staged[i % 2]))
+            dy_losses.append(float(o.numpy().reshape(-1)[0]))
+            eager_ms.append(ms)
+        rec["dygraph_eager_ms_per_step"] = float(np.median(eager_ms[1:]))
+        dy_losses.append(float(step(*staged[0]).numpy().reshape(-1)[0]))
+        entry = next(iter(step._compiled_step._cache.values()))
+        rec["dygraph_capture_s"] = entry.capture_s
+        rec["dygraph_graph_pool_gb"] = entry.nbytes / 1e9
+        n = run["timed"]
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = None
+        for i in range(n):
+            last = step(*staged[i % 2])
+        dy_losses.append(float(last.numpy().reshape(-1)[0]))
+        rec["dygraph_jit_ms_per_step"] = (time.perf_counter() - t0) / n * 1e3
+        if cuda:
+            rec["dygraph_device_ms_per_step"], \
+                rec["dygraph_launches_per_step"] = profiled_launches(
+                    torch, lambda: step(*staged[1]))
+    flops = bert_train_flops_per_sample(cfg, S, P) * B
+    rec["train_flop_per_step"] = flops
+    rec["static_tflops"] = flops / rec["static_run_steps_ms_per_step"] / 1e9
+    rec["dygraph_tflops"] = flops / rec["dygraph_jit_ms_per_step"] / 1e9
+    rec["jit_over_static_ms"] = rec["dygraph_jit_ms_per_step"] / \
+        rec["static_run_steps_ms_per_step"]
+    rec["dygraph_over_static_samples_per_s"] = 1 / rec["jit_over_static_ms"]
+    rec.update(static_losses=static_losses, dygraph_losses=dy_losses)
+    rec["ok"] = bool(np.isfinite(static_losses + dy_losses).all())
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"dygraph_bert_ab failed: {rec}")
+    return rec
+
+
+def dygraph_capture_refusals(torch, np, place=None, width=64, seed=9):
+    """Nothing hides the device under ``jit_step``: a step that copies
+    host data to the device without ``to_variable`` (``h2d``), one that
+    reads a value back to the host (``d2h``) and one whose
+    ``to_variable`` data change from call to call (``unstaged``) each
+    raise ``GraphCaptureError`` at the call that captures (on the CPU,
+    where nothing is captured, only ``unstaged`` raises, at the step
+    after discovery); the step runs no eager pass instead and leaves
+    every parameter and Adam slot as it was."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import dygraph
+    from paddle_tpu_torch.framework.cuda_graph import GraphCaptureError
+    rng = np.random.default_rng(seed)
+    xv = rng.standard_normal((8, width)).astype("float32")
+    rec = {"phase": "dygraph_capture_refusals", **CARD}
+    with dygraph.guard(place):
+        cuda = dygraph.base._current_tracer().device.type == "cuda"
+        lin = dygraph.Linear(width, width)
+        opt = fluid.optimizer.Adam(1e-3, parameter_list=lin.parameters())
+        calls = []
+
+        def make(kind):
+            @dygraph.jit_step
+            def step(x):
+                h = lin(x)
+                if kind == "h2d":
+                    h = h + dygraph.VarBase(np.ones(width, np.float32))
+                if kind == "unstaged":
+                    calls.append(1)
+                    h = h + dygraph.to_variable(
+                        np.full(width, len(calls), np.float32))
+                loss = fluid.layers.mean(fluid.layers.square(h))
+                if kind == "d2h":
+                    loss.numpy()
+                loss.backward()
+                opt.minimize(loss)
+                lin.clear_gradients()
+                return loss
+            return step
+
+        x = dygraph.to_variable(xv)
+        for kind in ("h2d", "d2h", "unstaged"):
+            step = make(kind)
+            step(x)                                   # the eager warm-up
+            state = _dy_state(lin, opt)
+            err = None
+            try:
+                step(x)
+            except GraphCaptureError as e:
+                # kept as text: the exception's frames hold the entry
+                err = {"op_type": e.op_type, "message": str(e)[:160]}
+            must = cuda or kind == "unstaged"
+            rec[kind] = {
+                "raised": err is not None, **(err or {}),
+                "state_unchanged": not _dy_bitwise(torch, lin, opt, state),
+                "graphs": sum(e.graph is not None
+                              for e in step._compiled_step._cache.values())}
+            rec[kind]["ok"] = (err is not None) == must and \
+                (not must or (rec[kind]["state_unchanged"]
+                              and rec[kind]["graphs"] == 0))
+    rec["ok"] = all(rec[k]["ok"] for k in ("h2d", "d2h", "unstaged"))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"dygraph_capture_refusals: {rec}")
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3484,15 +3901,34 @@ def main():
         got = {n: c.launches for n, c in counters.items()}
         bf16 = {n: c.bf16_launches for n, c in counters.items()
                 if hasattr(c, "bf16_launches")}
+        gc.collect()       # a path's graphs that only cycles still hold
+        torch.cuda.empty_cache()
+        # what the path left on the card (a live graph keeps its pool)
         emit({"phase": f"launches_{path}", "launches": got,
-              "bf16_launches": bf16})
+              "bf16_launches": bf16,
+              "allocated_gb_after": torch.cuda.memory_allocated() / 1e9,
+              "reserved_gb_after": torch.cuda.memory_reserved() / 1e9})
         if needs and min(got[n] for n in needs) < 1:
             raise AssertionError(f"a kernel of the {path} path never "
                                  f"launched: {got}")
         for n, c in got.items():
             launches[n] += c
-        torch.cuda.empty_cache()
         return rec, got, bf16
+
+    # the dygraph paths (they need two eager B256 Transformer steps of
+    # memory, ~15 GB each): bench_dygraph_transformer by jit_step (one
+    # CUDA graph over the taped step), the dygraph-vs-static BERT A/B and
+    # the capture refusals; no kernel of the port (attention as matmul +
+    # softmax, and einsum)
+    for name, fn in (("dygraph_transformer",
+                      lambda: dygraph_transformer(torch, np)),
+                     ("dygraph_bert_ab", lambda: dygraph_bert_ab(torch, np)),
+                     ("dygraph_capture_refusals",
+                      lambda: dygraph_capture_refusals(torch, np))):
+        _, got, _ = drive(name, (), fn)
+        if any(got.values()):
+            failures.append(f"the {name} path launched a kernel of the "
+                            f"port: {got}")
 
     cfg = GPTConfig.base()
 

@@ -28,6 +28,12 @@ Ported so far:
   ``serving.InferenceServer(model_dir)``, which micro-batches requests
   across clients into padded batches and runs each bucket as a captured
   CUDA graph (``framework.cuda_graph``).
+- The imperative mode (``fluid.dygraph``): ``guard``, ``VarBase``
+  with tape autograd through the registered grad lowerings, ``Layer``
+  and its ``nn`` classes, eager ``minimize``, ``save_dygraph`` /
+  ``load_dygraph``, and ``jit_step``, a whole taped training step as
+  one CUDA graph; the dygraph Transformer (``models.transformer``) and
+  BERT (``models.bert_dygraph``).
 - GPT generation serving: the KV-cached GPT (``models.GPT``), offline
   generation (``models.GPTGenerator``) over a dense or block-paged KV
   cache, and the continuous-batching server (``InferenceServer(
@@ -57,7 +63,7 @@ from .models import (GPT, GPTConfig, GPTGenerator, init_params, param_shapes,
 from .param_attr import ParamAttr
 from .serving import (Client, GenerationEngine, InferenceServer, KVBlockPool,
                       ServingStats)
-from . import dataio, inference, io
+from . import dataio, dygraph, inference, io
 from .dataio import DatasetFactory
 from .io import (load, load_inference_model, load_params, load_persistables,
                  save, save_inference_model, save_params, save_persistables)
@@ -70,7 +76,8 @@ __all__ = ["CPUPlace", "CUDAPlace", "Client", "DatasetFactory", "Executor",
            "InferenceServer", "KVBlockPool", "ParamAttr", "Program", "Scope",
            "ServingStats", "append_backward", "contrib", "data", "dataio",
            "dataset",
-           "default_main_program", "default_startup_program", "flags",
+           "default_main_program", "default_startup_program", "dygraph",
+           "flags",
            "framework", "get_flags", "global_scope", "gradients",
            "inference", "init_params", "io", "kernels", "layers", "load",
            "load_inference_model", "load_params", "load_persistables",

@@ -183,12 +183,17 @@ def capture_graph(graph, block, fn, pool, side, counters, device):
     returns (what ``fn`` returned, the wrapper calls the capture made
     as ``{(wrapper, attr): n}``, the growth of reserved memory). The
     counters are set back (a capture launches nothing). ``fn`` puts its
-    ``LowerCtx`` in ``trace["ctx"]`` and sets ``trace["done"]`` after
-    the last op, so a failure names the op that was running: it raises
-    :class:`GraphCaptureError`, and nothing runs the program eagerly
-    instead."""
+    ``LowerCtx`` in ``trace["ctx"]`` (or, for a dygraph step with
+    ``block`` None, the last op begun in ``trace["op_type"]`` and
+    ``["op_index"]``, and ``["op_finished"]`` once it returned) and sets
+    ``trace["done"]`` after the last op, so a failure names the op that
+    was running: it raises :class:`GraphCaptureError`, and nothing runs
+    the program eagerly instead. ``pool`` None gives the graph a private
+    pool of its own."""
     before = {k: getattr(*k) for k in counters}
     prev = torch.cuda.current_stream(device)
+    if pool is None:
+        pool = torch.cuda.graph_pool_handle()
     trace = {}
     try:
         with torch.cuda.graph(graph, pool=pool, stream=side,
@@ -201,26 +206,58 @@ def capture_graph(graph, block, fn, pool, side, counters, device):
             setattr(w, attr, v)
         # a capture_end that raises leaves the side stream current
         torch.cuda.set_stream(prev)
+        _end_failed_capture(device, pool)
         if isinstance(e, GraphCaptureError):
             raise
-        ctx = trace.get("ctx")
-        op = None if trace.get("done") or ctx is None else ctx.op
-        idx = None if op is None else block.ops.index(op)
-        where = (f"op #{idx} {op.type!r}" if op is not None
+        op_type, idx = _running_op(block, trace)
+        after = "host code after " if trace.get("op_finished") else ""
+        where = (f"{after}op #{idx} {op_type!r}" if op_type is not None
                  else "the end of capture, after the last op")
         raise GraphCaptureError(
             f"CUDA graph capture failed at {where}: "
             f"{type(e).__name__}: {e}. An op that syncs the host "
             f"(.item(), .cpu(), nonzero, a data-dependent shape) "
             f"cannot be captured; nothing runs it eagerly instead",
-            op_type=None if op is None else op.type,
-            op_index=idx) from e
+            op_type=op_type, op_index=idx) from e
     launches = {k: getattr(*k) - v for k, v in before.items()
                 if getattr(*k) != v}
     for (w, attr), v in before.items():
         setattr(w, attr, v)
     nbytes = max(torch.cuda.memory_reserved(device) - reserved, 0)
     return outs, launches, nbytes
+
+
+def _end_failed_capture(device, pool):
+    """After a capture that CUDA invalidated (a host sync inside it),
+    ``capture_end`` raises before it ends the caching allocator's
+    routing of the capture stream's allocations into ``pool``. Left so,
+    the allocator counts a capture as underway for good: that stream's
+    later allocations go to the dead pool and ``empty_cache`` frees
+    nothing more. End the routing and release the pool; after a capture
+    that ended cleanly there is nothing to end (the allocator raises)."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(idx, pool)
+    except RuntimeError:
+        return
+    torch._C._cuda_releasePool(idx, pool)
+
+
+def _running_op(block, trace):
+    """(type, index) of the op a failed capture was running, or (None,
+    None) after the last op: from ``trace["ctx"].op`` of a program, or
+    from ``trace["op_type"]``/``["op_index"]`` that a dygraph step's
+    tracer writes (``block`` None)."""
+    if trace.get("done"):
+        return None, None
+    if "op_type" in trace:
+        return trace["op_type"], trace.get("op_index")
+    ctx = trace.get("ctx")
+    op = None if ctx is None else ctx.op
+    if op is None:
+        return None, None
+    return op.type, block.ops.index(op)
 
 
 class CapturedStep:

@@ -21,6 +21,7 @@ from .nn import (accuracy, batch_norm, ceil, conv2d, cos, dropout,
                  softmax, square, tanh, topk, unsqueeze)
 from .tensor import (assign, cast, concat, create_global_var, data,
                      fill_constant, gather, get_tensor_from_selected_rows,
+                     increment,
                      merge_selected_rows, ones_like, reshape, slice,
                      transpose)
 
@@ -32,6 +33,7 @@ __all__ = ["accuracy", "assign", "autoincreased_step_counter", "batch_norm",
            "elementwise_sub", "embedding", "equal", "exp", "exponential_decay",
            "fc", "fill_constant", "flash_attention", "flatten", "floor",
            "gather", "get_tensor_from_selected_rows", "greater_equal",
+           "increment",
            "inverse_time_decay", "layer_norm", "less_than", "linear_lr_warmup",
            "logical_and", "logical_not", "matmul", "mean",
            "merge_selected_rows", "natural_exp_decay", "noam_decay",

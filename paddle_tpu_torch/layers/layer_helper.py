@@ -1,10 +1,26 @@
 """LayerHelper: the op-emitting workhorse behind every layer function (a
-trimmed copy of ``paddle_tpu/layers/layer_helper.py``, static graph
-only)."""
+trimmed copy of ``paddle_tpu/layers/layer_helper.py``). In dygraph mode
+(``dygraph.guard``) ``append_op`` runs the op at once through the tracer,
+``create_variable_for_type_inference`` returns a placeholder ``VarBase``
+and ``create_parameter`` raises, as there (``:51,68,109``)."""
 from ..framework import initializer as init_mod
 from ..framework import unique_name
 from ..framework.core import default_main_program
 from ..param_attr import ParamAttr
+
+
+def _dygraph_io(io):
+    """{slot: VarBase | [VarBase]} -> {slot: [VarBase]}, dropping Nones."""
+    out = {}
+    for slot, vals in (io or {}).items():
+        if vals is None:
+            continue
+        if not isinstance(vals, (list, tuple)):
+            vals = [vals]
+        vals = [v for v in vals if v is not None]
+        if vals:
+            out[slot] = vals
+    return out
 
 
 class LayerHelper:
@@ -30,12 +46,23 @@ class LayerHelper:
         return ParamAttr._to_attr(self.kwargs.get("bias_attr"))
 
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
+        from ..dygraph import base as dy
+        if dy.enabled():
+            return dy.VarBase(
+                name=unique_name.generate(f"{self.name}.tmp"),
+                stop_gradient=stop_gradient, dtype=dtype)
         return self.block.create_var(
             name=unique_name.generate(f"{self.name}.tmp"), dtype=dtype,
             stop_gradient=stop_gradient)
 
     def create_parameter(self, attr, shape, dtype="float32", is_bias=False,
                          default_initializer=None):
+        from ..dygraph import base as dy
+        if dy.enabled():
+            raise RuntimeError(
+                f"fluid.layers.{self.layer_type} creates parameters and "
+                f"cannot run in dygraph mode — use the equivalent "
+                f"fluid.dygraph.nn Layer class instead")
         attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
@@ -68,6 +95,12 @@ class LayerHelper:
         return var
 
     def append_op(self, **kwargs):
+        from ..dygraph import base as dy
+        if dy.enabled():
+            dy._current_tracer().trace_op(
+                kwargs["type"], _dygraph_io(kwargs.get("inputs")),
+                _dygraph_io(kwargs.get("outputs")), kwargs.get("attrs"))
+            return None
         return self.block.append_op(**kwargs)
 
     def append_activation(self, out_var, act=None):

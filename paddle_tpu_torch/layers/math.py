@@ -1,10 +1,12 @@
 """Elementwise, comparison, logical and reduction layers, ``sums``
 (``:118``), ``scale`` (``:128``), ``mean`` (``:102``), ``einsum``
 (``:245``), and the
-``Variable`` operators ``+ - * / ** >=`` (trimmed copy of
+operators ``+ - * / ** - < >=`` of ``Variable`` and the eager
+``VarBase`` (``:197-242``; trimmed copy of
 ``paddle_tpu/layers/math.py``)."""
 import numpy as np
 
+from ..dygraph.base import VarBase
 from ..framework.core import Variable
 from . import tensor as tensor_layers
 from .layer_helper import LayerHelper
@@ -137,20 +139,29 @@ def reduce_sum(input, dim=None, keep_dim=False, name=None):
     return out
 
 
-def _binop(op_type, reverse=False):
-    def impl(self, other):
-        return _binary(op_type, other, self) if reverse \
-            else _binary(op_type, self, other)
-    return impl
+def _install_op_overloads(cls):
+    """The operators of the reference's ``math_op_patch``, one
+    implementation for static Variables and eager VarBases (the layer
+    functions dispatch through the dygraph-aware LayerHelper)."""
+    def binop(op_type, reverse=False):
+        def impl(self, other):
+            return _binary(op_type, other, self) if reverse \
+                else _binary(op_type, self, other)
+        return impl
+
+    cls.__add__ = binop("elementwise_add")
+    cls.__radd__ = binop("elementwise_add", reverse=True)
+    cls.__sub__ = binop("elementwise_sub")
+    cls.__rsub__ = binop("elementwise_sub", reverse=True)
+    cls.__mul__ = binop("elementwise_mul")
+    cls.__rmul__ = binop("elementwise_mul", reverse=True)
+    cls.__truediv__ = binop("elementwise_div")
+    cls.__rtruediv__ = binop("elementwise_div", reverse=True)
+    cls.__pow__ = binop("elementwise_pow")
+    cls.__neg__ = lambda self: scale(self, scale=-1.0)
+    cls.__lt__ = lambda self, other: _cmp("less_than", self, other)
+    cls.__ge__ = lambda self, other: _cmp("greater_equal", self, other)
 
 
-Variable.__add__ = _binop("elementwise_add")
-Variable.__radd__ = _binop("elementwise_add", reverse=True)
-Variable.__sub__ = _binop("elementwise_sub")
-Variable.__rsub__ = _binop("elementwise_sub", reverse=True)
-Variable.__mul__ = _binop("elementwise_mul")
-Variable.__rmul__ = _binop("elementwise_mul", reverse=True)
-Variable.__truediv__ = _binop("elementwise_div")
-Variable.__rtruediv__ = _binop("elementwise_div", reverse=True)
-Variable.__pow__ = _binop("elementwise_pow")
-Variable.__ge__ = lambda self, other: _cmp("greater_equal", self, other)
+_install_op_overloads(Variable)
+_install_op_overloads(VarBase)

@@ -1,7 +1,8 @@
 """Tensor layers (trimmed copy of ``paddle_tpu/layers/tensor.py``):
 ``data``, ``create_global_var``, ``cast``, ``fill_constant``,
 ``ones_like`` (``:163``), ``assign``, ``reshape``, ``transpose``,
-``slice``, ``gather`` (``:259``), ``concat`` (``:67``),
+``slice``, ``gather`` (``:259``), ``concat`` (``:67``), ``increment``
+(``:349``),
 ``merge_selected_rows`` and ``get_tensor_from_selected_rows``
 (``:415-432``). Shapes are python ints; shape tensors
 and ``assign`` of numpy values are not ported."""
@@ -117,6 +118,16 @@ def concat(input, axis=0, name=None):
     out = helper.create_variable_for_type_inference(dtype=input[0].dtype)
     helper.append_op(type="concat", inputs={"X": list(input)},
                      outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def increment(x, value=1.0, in_place=True):
+    """``x + value``; ``in_place`` writes it to ``x`` itself."""
+    helper = LayerHelper("increment")
+    out = x if in_place else helper.create_variable_for_type_inference(
+        dtype=x.dtype)
+    helper.append_op(type="increment", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"step": float(value)})
     return out
 
 

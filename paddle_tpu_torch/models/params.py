@@ -1,4 +1,6 @@
-"""Parameters from a JAX scope for a model of the port."""
+"""Parameters from the JAX package for a model of the port: from a JAX
+scope (``pick_params``) or a JAX dygraph ``Layer.state_dict()``
+(``layer_params_from_jax``)."""
 import numpy as np
 import torch
 
@@ -22,3 +24,32 @@ def pick_params(arrays, want, model):
                              f"{tuple(t.shape)}, expected {shape}")
         out[name] = t
     return out
+
+
+def _state_vars(layer, prefix=""):
+    """{structured name: VarBase} of a dygraph Layer's parameters and
+    buffers, as ``Layer.state_dict`` names them."""
+    out = {prefix + n: p for n, p in layer._parameters.items()
+           if p is not None}
+    out.update({prefix + n: b for n, b in layer._buffers.items()})
+    for sn, sub in layer._sub_layers.items():
+        out.update(_state_vars(sub, f"{prefix}{sn}."))
+    return out
+
+
+def layer_params_from_jax(layer, state):
+    """Load a JAX dygraph ``Layer.state_dict()`` (``{structured name:
+    numpy array}``) into the port's dygraph ``layer`` of the same model;
+    raises on a missing or mis-shaped name. Optimizer state is not
+    carried: its keys hold ``unique_name`` counters."""
+    own = _state_vars(layer)
+    missing = sorted(set(own) - set(state))
+    if missing:
+        raise ValueError(f"{type(layer).__name__} state is missing: "
+                         f"{missing}")
+    for name, v in own.items():
+        if tuple(np.shape(state[name])) != v.shape:
+            raise ValueError(f"{name!r} has shape {np.shape(state[name])}, "
+                             f"the layer holds {v.shape}")
+    layer.set_dict({name: np.asarray(state[name]) for name in own})
+    return layer

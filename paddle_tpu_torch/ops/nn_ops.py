@@ -1,8 +1,8 @@
 """NN ops in torch (counterpart of ``paddle_tpu/ops/nn_ops.py``:
 ``conv2d :24-98``, ``pool2d :206``, ``batch_norm :352``, ``layer_norm
-:406``, ``dropout :479``, ``lookup_table :513`` with the dense
-scatter-add grad of ``:850-860``, ``cross_entropy :537``,
-``softmax_with_cross_entropy :555``) and ``gelu``
+:406``, ``dropout :479``, ``lookup_table :513`` and ``lookup_table_v2
+:501`` with the dense scatter-add grad of ``:850-860``, ``cross_entropy
+:537``, ``softmax_with_cross_entropy :555``) and ``gelu``
 (``activation_ops.py``, exact erf form).
 
 Convolutions go to cuDNN through ``F.conv2d``, as the JAX package leaves
@@ -298,18 +298,26 @@ def dropout(ctx, ins, attrs):
     return {"Out": out, "Mask": keep.to(x.dtype)}
 
 
-@register_op("lookup_table")
-def lookup_table(ctx, ins, attrs):
-    """ids with a trailing ``[..., 1]`` dim are squeezed (v1 layout);
-    int32 ids index directly."""
+@register_op("lookup_table_v2")
+def lookup_table_v2(ctx, ins, attrs):
+    """Rows of ``W`` at ``Ids`` (any shape); int32 ids index directly;
+    ``padding_idx`` rows are zeros."""
     w, ids = x_of(ins, "W"), x_of(ins, "Ids")
-    if ids.dim() >= 2 and ids.shape[-1] == 1:
-        ids = ids[..., 0]
     out = F.embedding(ids, w)
     padding_idx = attrs.get("padding_idx", -1)
     if padding_idx is not None and padding_idx >= 0:
         out = torch.where((ids != padding_idx)[..., None], out, 0.0)
     return {"Out": out}
+
+
+@register_op("lookup_table")
+def lookup_table(ctx, ins, attrs):
+    """``lookup_table_v2`` with the v1 layout: ids with a trailing
+    ``[..., 1]`` dim are squeezed."""
+    ids = x_of(ins, "Ids")
+    if ids.dim() >= 2 and ids.shape[-1] == 1:
+        ins = {**ins, "Ids": [ids[..., 0]]}
+    return lookup_table_v2(ctx, ins, attrs)
 
 
 @register_grad_lower("lookup_table")
@@ -335,6 +343,9 @@ def lookup_table_grad(ctx, ins, attrs):
     # order: the grad is the same bits from run to run
     return {"W@GRAD": [torch.zeros_like(w).index_put_(
         (flat_ids,), flat_g.to(w.dtype), accumulate=True)]}
+
+
+register_grad_lower("lookup_table_v2")(lookup_table_grad)
 
 
 @register_op("cross_entropy")

@@ -7,13 +7,20 @@ sparse grad), with the aliases ``SGD``,
 ``Momentum``, ``Adam`` and ``AdamW`` (``:728-731``), without gradient
 clipping or regularization, ``rollback_updates_if`` (AMP's overflow
 skip), and the wrappers ``RecomputeOptimizer`` (``:615``) and
-``GradientMergeOptimizer`` (``:659``)."""
+``GradientMergeOptimizer`` (``:659``). In dygraph mode ``minimize``
+updates the parameters eagerly (``_dygraph_minimize``, ``:151-205``)
+through the same update lowerings, over per-parameter state in
+``_eager_state``."""
+import numpy as np
+import torch
+
 from .framework import unique_name
 from .framework.backward import append_backward
 from .framework.core import (OP_ROLE_KEY, OpRole, Variable,
                              default_main_program, default_startup_program,
                              op_role_guard, program_guard)
 from .framework.initializer import ConstantInitializer
+from .framework.registry import get_op_def
 
 
 class Optimizer:
@@ -85,7 +92,11 @@ class Optimizer:
                  no_grad_set=None):
         """Append the backward and the update ops to the program that
         owns ``loss``; returns ``(optimize ops, params_grads)`` as the
-        reference does."""
+        reference does. In dygraph mode: update the parameters now from
+        their ``.grad`` (``loss.backward()`` first)."""
+        from .dygraph import base as dy
+        if dy.enabled():
+            return self._dygraph_minimize(parameter_list)
         with program_guard(loss.block.program,
                            startup_program or default_startup_program()):
             params_grads = self.backward(loss, startup_program,
@@ -94,8 +105,93 @@ class Optimizer:
         return optimize_ops, params_grads
 
 
+    # ---- dygraph (eager) path: the update lowerings applied to VarBase
+    # params with tape-accumulated .grad ----
+    _EAGER_SLOTS = None   # [(slot, kind)], kind in zeros | beta1 | beta2
+
+    def _eager_attrs(self):
+        return {}
+
+    def _eager_lr(self, lr, like):
+        """The learning rate as a 0-d float32 tensor on ``like``'s device,
+        made once per value: a captured step (``dygraph.jit_step``) reads
+        the tensor of its capture, so its LR is frozen there."""
+        key = (lr, like.device)
+        if getattr(self, "_eager_lr_key", None) != key:
+            self._eager_lr_key = key
+            self._eager_lr_t = torch.tensor(lr, dtype=torch.float32,
+                                            device=like.device)
+        return self._eager_lr_t
+
+    def _dygraph_minimize(self, parameter_list=None):
+        params = parameter_list or self._parameter_list
+        if not params:
+            raise ValueError("in dygraph mode construct the optimizer with "
+                             "parameter_list=model.parameters()")
+        if self._EAGER_SLOTS is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no dygraph update path")
+        lr = self._learning_rate
+        lr = float(lr() if callable(lr) else lr)
+        opdef = get_op_def(self.type)
+        state = self.__dict__.setdefault("_eager_state", {})
+        attrs = self._eager_attrs()
+        for p in params:
+            if p._grad is None or not getattr(p, "trainable", True):
+                continue
+            if getattr(p, "regularizer", None) is not None:
+                raise NotImplementedError(
+                    f"paddle_tpu_torch: parameter {p.name!r} has a "
+                    f"regularizer; regularization is not ported")
+            st = state.get(p.name)
+            if st is None:
+                st = state[p.name] = {
+                    slot: torch.zeros_like(p.value) if kind == "zeros"
+                    else torch.full((1,), getattr(self, "_" + kind),
+                                    dtype=p.value.dtype,
+                                    device=p.value.device)
+                    for slot, kind in self._EAGER_SLOTS}
+            ins = {"Param": [p.value], "Grad": [p._grad],
+                   "LearningRate": [self._eager_lr(lr, p.value)]}
+            for slot, _ in self._EAGER_SLOTS:
+                ins[slot] = [st[slot]]
+            raw = opdef.lower(None, ins, attrs)
+            p.value = raw["ParamOut"]
+            for slot, _ in self._EAGER_SLOTS:
+                if raw.get(slot + "Out") is not None:
+                    st[slot] = raw[slot + "Out"]
+        return None, [(p, p._grad) for p in params if p._grad is not None]
+
+    def clear_gradients(self):
+        for p in (self._parameter_list or []):
+            p.clear_gradient()
+
+    def state_dict(self):
+        """The dygraph optimizer state (``save_dygraph`` writes it as
+        ``.pdopt``): ``<param name>.<slot>`` arrays."""
+        from .dygraph.checkpoint import OPT_STATE_KEY
+        out = {OPT_STATE_KEY: True}
+        for pname, st in getattr(self, "_eager_state", {}).items():
+            for slot, t in st.items():
+                out[f"{pname}.{slot}"] = t.detach().cpu().numpy().copy()
+        return out
+
+    def set_state_dict(self, state):
+        from .dygraph.base import _device
+        dev = {p.name: p.value.device for p in self._parameter_list or ()}
+        self._eager_state = {}
+        for k, v in state.items():
+            if "." not in k:
+                continue
+            pname, slot = k.rsplit(".", 1)
+            self._eager_state.setdefault(pname, {})[slot] = \
+                torch.from_numpy(np.array(v)).to(dev.get(pname, _device()))
+    load_state_dict = set_state_dict
+
+
 class SGDOptimizer(Optimizer):
     type = "sgd"
+    _EAGER_SLOTS = []
 
     def _append_optimize_op(self, block, param_and_grad):
         p, g = param_and_grad
@@ -108,6 +204,10 @@ class SGDOptimizer(Optimizer):
 
 class MomentumOptimizer(Optimizer):
     type = "momentum"
+    _EAGER_SLOTS = [("Velocity", "zeros")]
+
+    def _eager_attrs(self):
+        return {"mu": self._momentum, "use_nesterov": self._use_nesterov}
 
     def __init__(self, learning_rate, momentum, use_nesterov=False, **kw):
         super().__init__(learning_rate, **kw)
@@ -132,6 +232,12 @@ class MomentumOptimizer(Optimizer):
 
 class AdamOptimizer(Optimizer):
     type = "adam"
+    _EAGER_SLOTS = [("Moment1", "zeros"), ("Moment2", "zeros"),
+                    ("Beta1Pow", "beta1"), ("Beta2Pow", "beta2")]
+
+    def _eager_attrs(self):
+        return {"beta1": self._beta1, "beta2": self._beta2,
+                "epsilon": self._epsilon, **self._extra_attrs()}
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_mode=False, **kw):
