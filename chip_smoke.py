@@ -45,7 +45,10 @@ NVIDIA GPU.
    outputs against K2's. K1 and K2 at bench_bert_long's attention (B16
    H12 S2048 D64, non-causal, a key bias masking each row's padded tail,
    both types), each beside SDPA with the same mask, and a non-causal
-   ``bwd_pair`` line there.
+   ``bwd_pair`` line there. The S > 1 paged read (``gather_route``, the
+   port of the JAX gather composite) at the served verify shape (B8 S5
+   H12 D64, 128 blocks of 16, fp32) beside K5, whose counter must not
+   move on it.
 4. The main paths at GPTConfig.base() widths, seeded random weights, each
    with every kernel launch count zeroed just before it and read just
    after; each path's kernels must have launched:
@@ -53,8 +56,29 @@ NVIDIA GPU.
      paged (kernel) vs dense (plain) decode logits, then an
      InferenceServer with 8 decode slots answering 16 requests from 8
      concurrent wire clients, each reply equal to offline greedy generate
-     (K1, K5; K5 once per layer of every paged decode step); then
-     GPTConfig.tiny() (head dim 16) through one paged generate;
+     (K1, K5; K5 once per layer of every paged decode step, each step
+     a replay of a captured decode graph); then GPTConfig.tiny() (head
+     dim 16) through one paged generate;
+   - the rest of generation serving, each phase on its own line with the
+     card's name and power limit: decode_capture (every decode step of
+     PR 1's 8 prompts, dense and paged, a graph replay bitwise its eager
+     twin ``CapturedDecode.eager``, greedy and with a sampling row; wall
+     ms a step both ways, device ms, idle share, capture s, graph bytes,
+     K5 12 launches a paged replay by the counter and in the replay's
+     profiler trace; a step that reads the device on the
+     host refused with GraphCaptureError, the pool untouched);
+     bench_decode (bench.py's: prompts of 128 and 256, 64 new tokens,
+     captured decode against generate_naive, teacher-forced logits
+     within 1e-3; paged fp32, bf16, int8 rows); spec_decode (spec_k 4,
+     n-gram and 1-layer model drafters, dense and paged; verify logits
+     within 1e-3 of the sequential steps', K5 not counted on them);
+     prefix_prefill (bench.py's _bench_prefix_prefill at prompt 512);
+     chunked_prefill (chunks of 128 interleaved with the decode bank
+     against monolithic admission, tokens equal); kv_migration (the
+     prefill op on one server, generate(kv=) on another, bitwise
+     colocated serving in fp32, bf16 and int8); server_full (16
+     requests, 8 clients, 8 slots, paged + prefix cache + chunk 128 +
+     spec_k 4);
    - training through the Fluid surface (gpt_pretrain + AdamOptimizer +
      Executor, which runs the default pass pipeline: dce, cse,
      fuse_optimizer), dropout 0.1, 5 Adam steps at lr 1e-4 on one seeded
@@ -749,13 +773,6 @@ def end_to_end(torch, np, cfg, device=None, max_len=2048, lo=64, hi=1024,
     t0 = time.perf_counter()
     gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
                        device=device)
-    paged_steps = [0]
-    step_paged = gen.run_decode_paged
-
-    def counted_step(*a, **k):
-        paged_steps[0] += 1
-        return step_paged(*a, **k)
-    gen.run_decode_paged = counted_step
     print(f"model: GPT {cfg.num_layers} layers h{cfg.hidden_size} "
           f"vocab {cfg.vocab_size}, params on {gen.device} in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
@@ -870,7 +887,10 @@ def end_to_end(torch, np, cfg, device=None, max_len=2048, lo=64, hi=1024,
             or st["kvpool_blocks_in_use"] != 0:
         raise AssertionError(f"server replies differ from offline greedy "
                              f"generate for requests {mismatched}")
-    return {"paged_decode_steps": paged_steps[0]}
+    # every paged decode step (a capture's warm-up, a replay) launches
+    # K5 once per layer: the generator's and the server engine's
+    return {"paged_decode_steps": gen.decoder.steps["paged"]
+            + server.gen_engine.decoder.steps["paged"]}
 
 
 def event_ms(torch, fn, iters):
@@ -1298,6 +1318,643 @@ def tiny_generate(torch, np, device=None):
     emit(rec)
     if not ok:
         raise AssertionError(f"tiny paged generate is off: {rec}")
+    return rec
+
+
+# ------------------------------------------- generation serving (GPT)
+
+def card_line(rec):
+    """``rec`` with the card's name and power limit, printed."""
+    rec["card"] = CARD["card"]
+    emit(rec)
+    return rec
+
+
+def pr1_prompts(np, cfg, lo=64, hi=1024, n=8, seed=0):
+    """PR 1's serving prompts: ``n`` seeded prompts of ``lo``..``hi``
+    tokens."""
+    rng = np.random.default_rng(seed)
+    lens = np.linspace(lo, hi, n).round().astype(int)
+    return [rng.integers(1, cfg.vocab_size, k).astype(np.int32)
+            for k in lens]
+
+
+def prefilled(torch, np, gen, prompts, paged, kv_dtype="fp32", room=64):
+    """A fresh storage holding ``prompts``' prefill: ``(kv, first greedy
+    tokens, positions)`` (a dense bank, or a pool with ``room`` tokens of
+    blocks past each prompt)."""
+    from paddle_tpu_torch.serving import KVBlockPool
+    tokens, pos_ids, last = gen._pack_prompts(prompts)
+    bb, s = tokens.shape
+    logits, ks, vs = gen.run_prefill(tokens, pos_ids, last)
+    if paged:
+        cfg = gen.cfg
+        kv = KVBlockPool(slots=bb, num_layers=cfg.num_layers,
+                         num_heads=cfg.num_heads, d_head=cfg.d_head,
+                         max_seq_len=gen.max_len, dtype=kv_dtype,
+                         prefix_cache=False, device=gen.device)
+        for r, p in enumerate(prompts):
+            kv.alloc(r, min(p.size + room, gen.max_len))
+        kv.scatter_prefill(list(range(len(prompts))), ks, vs, s)
+    else:
+        kv = gen.new_dense_caches(bb)
+        for c, new in zip(kv[0] + kv[1], ks + vs):
+            c[:, :, :s] = new
+    pos = np.zeros(bb, np.int32)
+    pos[:len(prompts)] = [p.size for p in prompts]
+    return kv, torch.argmax(logits, -1).cpu().numpy().astype(np.int32), pos
+
+
+def _kv_tensors(kv):
+    return kv.tensors() if hasattr(kv, "tensors") else kv[0] + kv[1]
+
+
+def decode_capture(torch, np, cfg, device=None, max_len=2048, new=32,
+                   mixed_steps=8, lo=64, hi=1024):
+    """The decode step as a replayed graph against its eager twin
+    (``CapturedDecode.eager``) at PR 1's 8 prompts, dense and paged fp32:
+    tokens and logits bitwise at every one of ``new`` greedy steps and
+    ``mixed_steps`` steps with row 0 sampling (temperature 0.8, top-k 40)
+    from a reseeded generator; wall ms a step (replay and eager), device
+    ms and idle share of a replay, capture seconds, graph bytes, K5
+    launches per replay (12 paged, 0 dense). Then a decoder whose step
+    reads the device on the host: GraphCaptureError, the pool bitwise as
+    it was and no graph kept."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.framework.cuda_graph import (CapturedDecode,
+                                                       GraphCaptureError)
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
+    cuda = torch.device(device or "cuda").type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
+                       device=device)
+    prompts = pr1_prompts(np, cfg, lo, hi)
+    out = {"phase": "decode_capture", "rows": len(prompts),
+           "new_tokens": new}
+    for kind in ("dense", "paged"):
+        kv, tok, pos = prefilled(torch, np, gen, prompts, kind == "paged",
+                                 room=new + mixed_steps + 4)
+        rows = tok.shape[0]
+        dec = gen.new_decoder()
+        greedy = np.zeros(rows, np.float32)
+        topk = np.zeros(rows, np.int32)
+        worst = 0.0
+        for step in range(new + mixed_steps):
+            temp, tk = greedy, topk
+            if step >= new:            # row 0 samples, the rest greedy
+                temp = greedy.copy()
+                temp[0] = 0.8
+                tk = topk.copy()
+                tk[0] = 40
+            dec.generator.manual_seed(1000 + step)
+            a = dec.eager(tok, pos, temp, tk, kv)
+            la = dec.logits.clone()
+            dec.generator.manual_seed(1000 + step)
+            b = dec.run(tok, pos, temp, tk, kv)
+            worst = max(worst, (la - dec.logits).abs().max().item())
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{kind} step {step}: the replay drew "
+                                     f"{b}, its eager twin {a}")
+            tok, pos = b, pos + 1
+        if worst != 0.0:
+            raise AssertionError(f"{kind}: replayed logits differ from "
+                                 f"eager by {worst}")
+        walls = {}
+        for name, fn in (("replay", dec.run), ("eager", dec.eager)):
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(8):
+                tok = fn(tok, pos, greedy, topk, kv)
+            walls[name] = (time.perf_counter() - t0) * 1e3 / 8
+        rec = {"wall_ms_per_step": walls["replay"],
+               "eager_wall_ms_per_step": walls["eager"],
+               "captures": dec.captures, "capture_s": dec.capture_s,
+               "graph_bytes": dec.graph_bytes}
+        if cuda:
+            before = pa.paged_attention.launches
+            for _ in range(4):
+                dec.run(tok, pos, greedy, topk, kv)
+            rec["k5_launches_per_replay"] = \
+                (pa.paged_attention.launches - before) / 4
+            # the counter is raised from the capture's recorded wrapper
+            # calls; the trace of a replay counts K5's kernel on the card
+            ms, names = profiled_trace(
+                torch, lambda: dec.run(tok, pos, greedy, topk, kv))
+            traced = sum(n for k, n in names.items()
+                         if "paged_split_kernel" in k)
+            rec.update(device_ms_per_step=ms,
+                       kernels_per_step=sum(names.values()),
+                       k5_kernels_in_replay_trace=traced,
+                       idle_share=1 - ms / walls["replay"])
+            want = cfg.num_layers if kind == "paged" else 0
+            if rec["k5_launches_per_replay"] != want or traced != want:
+                raise AssertionError(
+                    f"{kind}: K5 counted {rec['k5_launches_per_replay']} "
+                    f"a replay and traced {traced}, not {want}")
+        out[kind] = rec
+        del kv
+    # a step that reads the device on the host cannot be captured: the
+    # capture raises and leaves the pool as it was (but the trash block
+    # 0, which the warm-up writes and nothing reads)
+    class HostRead:
+        def __init__(self, model):
+            self.model = model
+
+        def decode_step_paged(self, *args):
+            logits = self.model.decode_step_paged(*args)
+            float(logits[0, 0])
+            return logits
+    pool, tok, pos = prefilled(torch, np, gen, prompts[:2], True, room=8)
+    before = [t[1:].clone() for t in pool.tensors()]
+    bad = CapturedDecode(HostRead(gen.model), gen.device,
+                         counters=kernels.COUNTED)
+    refused = None
+    if cuda:
+        try:
+            bad.run(tok, pos, np.zeros(2, np.float32), np.zeros(2, np.int32),
+                    pool)
+        except GraphCaptureError as e:
+            refused = str(e)[:160]
+        untouched = all(torch.equal(a, b[1:])
+                        for a, b in zip(before, pool.tensors()))
+        if refused is None or not untouched or len(bad.cache):
+            raise AssertionError(f"a host read in the decode step: refused "
+                                 f"{refused!r}, pool untouched {untouched}, "
+                                 f"graphs kept {len(bad.cache)}")
+    out["host_read_refused"] = refused
+    return card_line(out)
+
+
+def teacher_forced_naive(torch, np, gen, prompt, feed):
+    """Max |logit| difference between the cached path (the prefill, then
+    a decode step per fed token) and the full recompute (``run_logits``
+    over the prompt and the tokens fed so far) at each position."""
+    tokens, pos_ids, last = gen._pack_prompts([prompt])
+    s = tokens.shape[1]
+    logits, ks, vs = gen.run_prefill(tokens, pos_ids, last)
+    bank = gen.new_dense_caches(tokens.shape[0])
+    for c, new in zip(bank[0] + bank[1], ks + vs):
+        c[:, :, :s] = new
+    del ks, vs
+    worst = 0.0
+    pos = np.array([prompt.size], np.int32)
+    for t in range(len(feed) + 1):
+        ctx = np.concatenate([prompt, feed[:t]]).astype(np.int32)
+        naive = gen.run_logits(*gen._pack_prompts([ctx]))
+        worst = max(worst, (naive[:1] - logits[:1]).abs().max().item())
+        if t < len(feed):
+            logits = gen.run_decode(np.array([feed[t]], np.int32), pos,
+                                    bank[0], bank[1])
+            pos += 1
+    return worst
+
+
+def bench_decode_phase(torch, np, cfg, device=None, seqs=(128, 256),
+                       new=64, reps=2):
+    """bench.py's bench_decode on the port: a prompt of each of ``seqs``
+    tokens, ``new`` greedy tokens by the captured KV-cached decode
+    against ``generate_naive`` (the full recompute, K1 per layer per
+    token): tokens/s, ms/token, speedup, token equality; the
+    teacher-forced logits of the two within 1e-3 at every position (hard
+    check); then the paged pool in fp32, bf16 and int8 at the longest
+    prompt: tokens/s and token agreement with the dense bank."""
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0),
+                       max_len=max(seqs) + new + 1, device=device)
+    rng = np.random.default_rng(0)
+    rec = {"phase": "bench_decode", "new_tokens": new, "seqs": {}}
+    worst = 0.0
+    for seq in seqs:
+        prompt = [rng.integers(1, cfg.vocab_size, seq).astype(np.int32)]
+        kv_out = gen.generate(prompt, max_new_tokens=new)     # warm
+        naive_out = gen.generate_naive(prompt, max_new_tokens=new)
+        times = {}
+        for name, fn in (("kv", gen.generate), ("naive", gen.generate_naive)):
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn(prompt, max_new_tokens=new)
+            times[name] = (time.perf_counter() - t0) / reps
+        err = teacher_forced_naive(torch, np, gen, prompt[0],
+                                   kv_out[0][:new - 1])
+        worst = max(worst, err)
+        rec["seqs"][str(seq)] = {
+            "tokens_per_s": new / times["kv"],
+            "ms_per_token": times["kv"] / new * 1e3,
+            "naive_tokens_per_s": new / times["naive"],
+            "naive_ms_per_token": times["naive"] / new * 1e3,
+            "speedup_vs_naive": times["naive"] / times["kv"],
+            "token_equality": float(np.mean(kv_out[0] == naive_out[0])),
+            "teacher_forced_max_abs": err}
+    dense = kv_out
+    rec["paged"] = {}
+    for kv_dtype in ("fp32", "bf16", "int8"):
+        out = gen.generate(prompt, max_new_tokens=new, paged=True,
+                           kv_dtype=kv_dtype)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            gen.generate(prompt, max_new_tokens=new, paged=True,
+                         kv_dtype=kv_dtype)
+        dt = (time.perf_counter() - t0) / reps
+        rec["paged"][kv_dtype] = {
+            "tokens_per_s": new / dt, "ms_per_token": dt / new * 1e3,
+            "agreement_with_dense": float(np.mean(out[0] == dense[0]))}
+    rec["teacher_forced_max_abs"] = worst
+    rec["atol"] = 1e-3
+    gen.release()
+    card_line(rec)
+    if worst > 1e-3:
+        raise AssertionError(f"cached decode logits differ from the full "
+                             f"recompute by {worst}")
+    return rec
+
+
+def verify_vs_sequential(torch, np, gen, prompts, span, paged):
+    """Max |logit| difference between one verify pass over ``span``
+    (``[rows, K+1]`` tokens from each row's position) and K+1 sequential
+    decode steps feeding the same tokens, from twin storages. Also
+    whether K5's counter stayed put across the verify pass."""
+    pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
+    kv_v, _, pos = prefilled(torch, np, gen, prompts, paged, room=16)
+    kv_s, _, _ = prefilled(torch, np, gen, prompts, paged, room=16)
+    S = span.shape[1]
+    span_pos = pos[:, None] + np.arange(S, dtype=np.int32)[None, :]
+    before = pa.paged_attention.launches
+    if paged:
+        logits = gen.run_verify_paged(span, span_pos, pos,
+                                      np.full(len(pos), S, np.int32), kv_v)
+    else:
+        logits = gen.run_verify(span, pos, span_pos, kv_v[0], kv_v[1])
+    k5_still = pa.paged_attention.launches == before
+    worst = 0.0
+    for i in range(S):
+        step = gen.run_decode_paged(span[:, i], pos + i, kv_s) if paged \
+            else gen.run_decode(span[:, i], pos + i, kv_s[0], kv_s[1])
+        worst = max(worst, (step - logits[:, i]).abs().max().item())
+    return worst, k5_still
+
+
+def gather_route(torch, np, pa, B=8, H=12, D=64, bs=16, nblk=128, S=5):
+    """The S > 1 paged read (``paged_attention_gather``, the port of the
+    JAX gather composite) at the served verify shape: B rows of S = K+1
+    queries over ``nblk`` blocks of ``bs`` (fp32), positions spread to
+    the table's end, timed by graph replay beside K5 on one query a row
+    over the same pool; its bound counts each row's live keys and values
+    once; K5's counter must not move across the gather calls. A kernel
+    phase: it runs outside every driven path."""
+    pos = np.linspace(0, nblk * bs - S, B).round().astype(np.int32)
+    (q1, kp, vp, t, p, _, _), = paged_inputs(torch, pa, B, H, D, bs, nblk,
+                                             pos, "float32", seed=5, sets=1)[0]
+    q = torch.randn(B, H, S, D, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(6))
+    before = pa.paged_attention.launches
+    gather_ms = time_ms(torch, lambda: pa.paged_attention_gather(
+        q, kp, vp, t, p), 20)
+    k5_still = pa.paged_attention.launches == before
+    live = int((pos.astype(np.int64) + S).sum())
+    nbytes = 2 * live * H * D * 4 + 2 * q.numel() * 4
+    bound_ms, by = bound(nbytes, 4 * H * S * live * D, "float32")
+    k5_ms = time_ms(torch, lambda: pa.paged_attention(q1, kp, vp, t, p), 20)
+    rec = card_line({
+        "phase": "gather_route",
+        "shape": f"B{B} S{S} H{H} D{D} bs{bs} nblk{nblk} fp32",
+        "gather_ms": gather_ms, "bound_ms": bound_ms, "bound_by": by,
+        "gathered_mb_per_pool": B * nblk * bs * H * D * 4 / 1e6,
+        "k5_one_query_ms": k5_ms, "k5_still": k5_still})
+    if not k5_still:
+        raise AssertionError(f"gather_route: K5 counted S > 1 reads {rec}")
+    return rec
+
+
+def spec_decode(torch, np, cfg, device=None, max_len=2048, new=32,
+                spec_k=4, lo=64, hi=1024):
+    """Speculative decoding at PR 1's 8 prompts, ``spec_k`` drafts a
+    step, with the n-gram and the 1-layer model drafter, on the dense
+    bank and the paged pool: acceptance rate, tokens/s, verify ms a step
+    and token agreement with non-speculative greedy; blocks in use back
+    to 0. Hard checks: the verify pass's logits at each
+    span position within 1e-3 of the sequential decode step's (dense and
+    paged), and K5's counter still across the S > 1 reads."""
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    from paddle_tpu_torch.serving import ServingStats
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
+                       device=device)
+    prompts = pr1_prompts(np, cfg, lo, hi)
+    rec = {"phase": "spec_decode", "rows": len(prompts), "new_tokens": new,
+           "spec_k": spec_k}
+    for paged in (False, True):
+        kind = "paged" if paged else "dense"
+        ref = gen.generate(prompts, max_new_tokens=new, paged=paged)
+        t0 = time.perf_counter()
+        gen.generate(prompts, max_new_tokens=new, paged=paged)
+        base = time.perf_counter() - t0
+        rec[f"{kind}_nonspec_tokens_per_s"] = len(prompts) * new / base
+        for mode in ("ngram", "model"):
+            gen.generate(prompts[:1], max_new_tokens=4, paged=paged,
+                         spec_k=spec_k, spec_mode=mode)       # warm
+            gen.stats = stats = ServingStats()
+            t0 = time.perf_counter()
+            out = gen.generate(prompts, max_new_tokens=new, paged=paged,
+                               spec_k=spec_k, spec_mode=mode)
+            wall = time.perf_counter() - t0
+            gen.stats = None
+            snap = stats.snapshot()
+            rec[f"{kind}_{mode}"] = {
+                "acceptance": snap["spec_accept_ratio"],
+                "spec_steps": snap["spec_steps"],
+                "tokens_per_s": len(prompts) * new / wall,
+                "verify_ms_per_step": snap["decode_mean_ms"],
+                "agreement_with_nonspec": float(np.mean(
+                    [np.mean(a == b) for a, b in zip(out, ref)]))}
+        if paged:
+            pool = next(iter(gen._paged_pools.values()))
+            rec["paged_blocks_in_use_after"] = pool.blocks_in_use()
+    span = np.stack([r[:spec_k + 1] for r in ref]).astype(np.int32)
+    checks = {}
+    for paged in (False, True):
+        checks["paged" if paged else "dense"] = verify_vs_sequential(
+            torch, np, gen, prompts, span, paged)
+    rec["verify_vs_sequential_max_abs"] = {k: v[0] for k, v in
+                                           checks.items()}
+    rec["k5_still_on_verify"] = checks["paged"][1]
+    rec["atol"] = 1e-3
+    gen.release()
+    card_line(rec)
+    worst = max(v[0] for v in checks.values())
+    if worst > 1e-3 or not rec["k5_still_on_verify"] \
+            or rec["paged_blocks_in_use_after"]:
+        raise AssertionError(f"spec_decode: verify logits off by {worst}, "
+                             f"K5 still {rec['k5_still_on_verify']}, "
+                             f"blocks left {rec['paged_blocks_in_use_after']}")
+    return rec
+
+
+def prefix_prefill(torch, np, cfg, device=None, prompt_len=512):
+    """bench.py's _bench_prefix_prefill: the same prompt admitted twice
+    through the chunked path of a prefix-caching engine (2 slots,
+    bucket_min 8); the repeat adopts the cached blocks and replays one
+    token. Cold and warm ms, warm_over_cold, reused tokens, prefix
+    entries, evictable blocks after release, leaked blocks (must be 0),
+    and the warm first-token logits within 1e-3 of the cold ones; K5's
+    counter still across the S > 1 chunk reads."""
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    from paddle_tpu_torch.serving import GenerationEngine, GenerationRequest
+    pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0),
+                       max_len=prompt_len + 32, bucket_min=8, device=device)
+    rng = np.random.default_rng(0)
+    warm_prompt = rng.integers(1, cfg.vocab_size, prompt_len).astype(np.int32)
+    prompt = rng.integers(1, cfg.vocab_size, prompt_len).astype(np.int32)
+    engine = GenerationEngine(gen, slots=2, paged=True, prefix_cache=True)
+
+    def prefill_once(slot, p):
+        t0 = time.perf_counter()
+        st = engine.start_prefill(GenerationRequest(p, max_new_tokens=4),
+                                  slot)
+        while not engine.prefill_chunk(st):
+            pass
+        engine.finish_prefill(st)
+        return (time.perf_counter() - t0) * 1e3, st
+
+    prefill_once(0, warm_prompt)
+    prefill_once(0, warm_prompt)
+    engine.release_slot(0)
+    k5 = pa.paged_attention.launches
+    cold_ms, cold = prefill_once(0, prompt)
+    warm_ms, warm = prefill_once(1, prompt)
+    err = (warm["first_logits"] - cold["first_logits"]).abs().max().item()
+    stats = engine.pool.stats()
+    engine.release_slot(0)
+    engine.release_slot(1)
+    rec = card_line({
+        "phase": "prefix_prefill", "prompt_tokens": prompt_len,
+        "cold_ms": cold_ms, "warm_ms": warm_ms,
+        "warm_over_cold": warm_ms / cold_ms,
+        "reused_tokens": int(warm["reused"]),
+        "prefix_entries": stats["prefix_entries"],
+        "evictable_blocks_after_release": engine.pool.cached_blocks(),
+        "leaked_blocks": engine.pool.blocks_in_use(),
+        "warm_vs_cold_first_logits_max_abs": err, "atol": 1e-3,
+        "k5_still_on_chunks": pa.paged_attention.launches == k5})
+    if err > 1e-3 or rec["leaked_blocks"] or rec["reused_tokens"] \
+            != prompt_len or not rec["k5_still_on_chunks"]:
+        raise AssertionError(f"prefix_prefill: {rec}")
+    return rec
+
+
+def run_requests(np, engine, prompts, new, spec_k=0):
+    """Prompts through a DecodeBatcher over ``engine``: token lists."""
+    from paddle_tpu_torch.serving import (DecodeBatcher, GenerationRequest,
+                                          RequestQueue)
+    b = DecodeBatcher(RequestQueue(max_depth=64), engine,
+                      spec_k=spec_k).start()
+    try:
+        reqs = [GenerationRequest(p, max_new_tokens=new) for p in prompts]
+        for r in reqs:
+            b.queue.put(r)
+        return [r.wait(timeout=600)[0] for r in reqs]
+    finally:
+        b.stop()
+
+
+def chunked_prefill(torch, np, cfg, device=None, max_len=2048, new=32,
+                    chunk=128, lo=64, hi=1024):
+    """An engine admitting in chunks of ``chunk`` tokens (interleaved with
+    the decode bank) against monolithic admission, at PR 1's 8 prompts:
+    first-token logits within 1e-3, every token equal through the decode
+    bank (a decode step must not write a prefilling slot's blocks),
+    blocks back to 0 in both."""
+    from paddle_tpu_torch.flags import flag, set_flags
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    from paddle_tpu_torch.serving import GenerationEngine, GenerationRequest
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
+                       device=device)
+    prompts = pr1_prompts(np, cfg, lo, hi)
+    saved = flag("prefill_chunk_tokens")
+    try:
+        mono = GenerationEngine(gen, slots=8, paged=True, prefix_cache=False)
+        t0 = time.perf_counter()
+        want = run_requests(np, mono, prompts, new)
+        mono_s = time.perf_counter() - t0
+        set_flags({"prefill_chunk_tokens": chunk})
+        chunked = GenerationEngine(gen, slots=8, paged=True,
+                                   prefix_cache=False)
+        worst = 0.0
+        for p in prompts:
+            tokens, pos_ids, last = gen._pack_prompts([p])
+            ref, _, _ = gen.run_prefill(tokens, pos_ids, last)
+            st = chunked.start_prefill(GenerationRequest(p), 0)
+            while not chunked.prefill_chunk(st):
+                pass
+            worst = max(worst, (st["first_logits"] - ref[:1]).abs().max()
+                        .item())
+            chunked.release_slot(0)
+        t0 = time.perf_counter()
+        got = run_requests(np, chunked, prompts, new)
+        chunk_s = time.perf_counter() - t0
+    finally:
+        set_flags({"prefill_chunk_tokens": saved})
+    rec = card_line({
+        "phase": "chunked_prefill", "chunk_tokens": chunk,
+        "rows": len(prompts), "new_tokens": new,
+        "first_token_logits_max_abs": worst, "atol": 1e-3,
+        "token_agreement": float(np.mean([np.mean(a == b)
+                                          for a, b in zip(got, want)])),
+        "monolithic_wall_s": mono_s, "chunked_wall_s": chunk_s,
+        "blocks_in_use_after": [mono.pool.blocks_in_use(),
+                                chunked.pool.blocks_in_use()]})
+    if worst > 1e-3 or rec["token_agreement"] != 1.0 \
+            or any(rec["blocks_in_use_after"]):
+        raise AssertionError(f"chunked_prefill: {rec}")
+    return rec
+
+
+def kv_migration(torch, np, cfg, device=None, max_len=2048, new=32,
+                 lo=64, hi=1024, n=4):
+    """Disaggregated prefill and decode between two in-process servers,
+    per pool type (fp32, bf16, int8): the ``prefill`` op on one exports a
+    prompt's KV blocks, the other decodes from them through
+    ``generate(kv=, first_token=)``; the tokens equal the first server's
+    own colocated paged serving bit for bit. Payload bytes; export and
+    import ms (a pool of the same geometry)."""
+    from paddle_tpu_torch.flags import flag, set_flags
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    from paddle_tpu_torch.serving import Client, InferenceServer, KVBlockPool
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
+                       device=device)
+    prompts = pr1_prompts(np, cfg, lo, hi, n=n)
+    saved = flag("kv_cache_dtype")
+    rec = {"phase": "kv_migration", "prompts": n, "new_tokens": new}
+    bad = []
+    try:
+        for kv_dtype in ("fp32", "bf16", "int8"):
+            set_flags({"kv_cache_dtype": kv_dtype})
+            pre = InferenceServer(generator=gen, decode_slots=2, paged=True)
+            dec = InferenceServer(generator=gen, decode_slots=2, paged=True)
+            try:
+                pre.start()
+                dec.start()
+                with Client(pre.endpoint, timeout=600) as cp, \
+                        Client(dec.endpoint, timeout=600) as cd:
+                    payloads, same = [], []
+                    for p in prompts:
+                        colo = cp.generate(p, new)
+                        kv = cp.prefill(p, new)
+                        split = cd.generate(p, new, kv=kv)
+                        payloads.append(kv)
+                        same.append(bool(np.array_equal(colo, split)))
+                st_pre, st_dec = pre.stats(), dec.stats()
+            finally:
+                pre.stop()
+                dec.stop()
+            pool = KVBlockPool(slots=1, num_layers=cfg.num_layers,
+                               num_heads=cfg.num_heads, d_head=cfg.d_head,
+                               max_seq_len=max_len, dtype=kv_dtype,
+                               prefix_cache=False, device=gen.device)
+            big = payloads[-1]
+            pool.import_slot(0, big)                    # warm
+            pool.free_slot(0)
+            t0 = time.perf_counter()
+            pool.import_slot(0, big)
+            if gen.device.type == "cuda":
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            pool.export_slot(0)
+            t2 = time.perf_counter()
+            rec[kv_dtype] = {
+                "bitwise_vs_colocated": same,
+                "payload_bytes": [KVBlockPool.payload_bytes(k)
+                                  for k in payloads],
+                "import_ms": (t1 - t0) * 1e3, "export_ms": (t2 - t1) * 1e3,
+                "payload_tokens": big["tokens"],
+                "kv_exports": st_pre["kv_exports"],
+                "kv_imports": st_dec["kv_imports"],
+                "blocks_in_use_after": [st_pre["kvpool_blocks_in_use"],
+                                        st_dec["kvpool_blocks_in_use"]]}
+            if not all(same) or any(rec[kv_dtype]["blocks_in_use_after"]) \
+                    or st_dec["kv_imports"] != n:
+                bad.append(kv_dtype)
+    finally:
+        set_flags({"kv_cache_dtype": saved})
+    card_line(rec)
+    if bad:
+        raise AssertionError(f"kv_migration differs from colocated serving "
+                             f"for {bad}")
+    return rec
+
+
+def server_full(torch, np, cfg, device=None, max_len=2048, new=32,
+                spec_k=4, chunk=128, lo=64, hi=1024):
+    """PR 1's server phase with every generation feature on: paged,
+    prefix cache, chunked prefill (``chunk``) and speculative decoding
+    (``spec_k``, n-gram drafter). 16 requests from 8 wire clients
+    through 8 slots: PR 1's 8 prompts, then 8 built to exercise the
+    prefix cache rather than taken from PR 1's traffic (request 8 + i is
+    request i's prompt up to its last whole block, the cache's
+    block-aligned entry, so a hit each, plus 24 tokens). Token p50 ms, tokens/s,
+    acceptance, prefix hits; requests_completed == 16 and
+    kvpool_blocks_in_use == 0 (hard); agreement with offline greedy
+    reported."""
+    from paddle_tpu_torch.flags import flag, set_flags
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    from paddle_tpu_torch.serving import Client, InferenceServer
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
+                       device=device)
+    rng = np.random.default_rng(1)
+    prompts = pr1_prompts(np, cfg, lo, hi)
+    bs = flag("kv_block_size")
+    prompts += [np.concatenate([p[:p.size // bs * bs], rng.integers(
+        1, cfg.vocab_size, 24).astype(np.int32)]) for p in prompts]
+    want = gen.generate(prompts[:8], max_new_tokens=new, paged=True) \
+        + gen.generate(prompts[8:], max_new_tokens=new, paged=True)
+    gen.release()
+    keys = ("kv_prefix_cache", "prefill_chunk_tokens", "decode_spec_k")
+    saved = {k: flag(k) for k in keys}
+    set_flags({"kv_prefix_cache": True, "prefill_chunk_tokens": chunk,
+               "decode_spec_k": spec_k})
+    server = InferenceServer(generator=gen, decode_slots=8, paged=True)
+    got, errors = {}, []
+
+    def client(idxs):
+        try:
+            with Client(server.endpoint, timeout=600) as c:
+                for i in idxs:
+                    got[i] = c.generate(prompts[i], new)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    try:
+        server.start()
+        threads = [threading.Thread(target=client, args=((i, i + 8),))
+                   for i in range(8)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        if any(t.is_alive() for t in threads) or errors:
+            raise AssertionError(f"server clients failed: {errors}")
+        st = server.stats()
+    finally:
+        server.stop()
+        set_flags(saved)
+    rec = card_line({
+        "phase": "server_full", "requests": 16, "clients": 8, "slots": 8,
+        "spec_k": spec_k, "chunk_tokens": chunk, "wall_s": wall,
+        "tokens_per_s": 16 * new / wall,
+        "token_p50_ms": st["token_p50_ms"],
+        "spec_accept_ratio": st["spec_accept_ratio"],
+        "spec_steps": st["spec_steps"],
+        "prefix_hits": st["kvpool_prefix_hits"],
+        "prefix_tokens_reused": st["kvpool_prefix_tokens_reused"],
+        "cow_copies": st["kvpool_prefix_cow_copies"],
+        "requests_completed": st["requests_completed"],
+        "kvpool_blocks_in_use": st["kvpool_blocks_in_use"],
+        "agreement_with_offline": float(np.mean(
+            [np.mean(got[i] == want[i]) for i in range(16)]))})
+    if rec["requests_completed"] != 16 or rec["kvpool_blocks_in_use"]:
+        raise AssertionError(f"server_full: {rec}")
     return rec
 
 
@@ -2356,25 +3013,33 @@ def scope_diff(torch, a, b):
     return out
 
 
-def profiled_launches(torch, fn):
-    """(device ms, kernel launches) of one call of ``fn`` from
+def profiled_trace(torch, fn):
+    """(device ms, {kernel name: launches}) of one call of ``fn`` from
     torch.profiler: the CUDA kernels in its trace (a graph replay's
     included; copies and sets add to the time, not the count)."""
+    from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us, kernels = 0.0, 0
+    us, names = 0.0, Counter()
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "device_time", None)
         us += float(e.cuda_time if t is None else t)
         if not e.name.startswith(("Memcpy", "Memset")):
-            kernels += 1
-    return us / 1e3, kernels
+            names[e.name] += 1
+    return us / 1e3, names
+
+
+def profiled_launches(torch, fn):
+    """(device ms, kernel launches) of one call of ``fn`` (see
+    :func:`profiled_trace`)."""
+    ms, names = profiled_trace(torch, fn)
+    return ms, sum(names.values())
 
 
 def profiled_ms(torch, fn):
@@ -3819,6 +4484,9 @@ def main():
             flash_phase(torch, fa, 4, 8, 1024, D, dtype, True, False,
                         seed=D, packed=True)
     main_pa = paged_phases(torch, pa, parent)
+    # the S > 1 paged read (speculative verify, chunked prefill) at the
+    # served verify shape (spec_k 4), beside K5
+    gather_route(torch, np, pa, S=5)
 
     # K2 at the S1024 shape, K3/K4 at S2048, causal on the model's
     # strided views; then non-causal + bias and bf16
@@ -3952,6 +4620,29 @@ def main():
     if rec["k5_tiny"] < 1:
         failures.append("the tiny config's paged generate never launched "
                         "K5")
+    # the rest of generation serving at GPT-base: the decode step as a
+    # replayed graph against its eager twin, bench_decode (cached against
+    # the full recompute, the paged rows), speculative decoding, the
+    # prefix cache, chunked prefill, KV migration between two servers,
+    # and all of them on at once behind the server
+    gen_needs = ("flash_attention_fwd", "paged_attention")
+    for name, needs, fn in (
+            ("decode_capture", gen_needs,
+             lambda: decode_capture(torch, np, cfg)),
+            ("bench_decode", gen_needs,
+             lambda: bench_decode_phase(torch, np, cfg)),
+            ("spec_decode", gen_needs, lambda: spec_decode(torch, np, cfg)),
+            ("prefix_prefill", (), lambda: prefix_prefill(torch, np, cfg)),
+            ("chunked_prefill", gen_needs,
+             lambda: chunked_prefill(torch, np, cfg)),
+            ("kv_migration", gen_needs,
+             lambda: kv_migration(torch, np, cfg)),
+            ("server_full", ("paged_attention",),
+             lambda: server_full(torch, np, cfg))):
+        _, got, _ = drive(name, needs, fn)
+        if name == "prefix_prefill" and got["paged_attention"]:
+            failures.append(f"prefix_prefill launched K5 {got}: its chunk "
+                            f"reads must take the gather route")
     long_needs = ("flash_attention_fwd", "flash_attention_bwd_dq",
                   "flash_attention_bwd_dkv")
     for S, amp, needs in (

@@ -37,6 +37,21 @@ _DEFS = {
     "decode_bucket_min": (16, int),
     # serving decode bank: generation slots stepped together
     "decode_slots": (8, int),
+    # speculative decoding: draft depth K (a drafter proposes up to K
+    # tokens per row, one verify pass scores all K+1 positions,
+    # rejection sampling keeps the model-agreed prefix); 0 = off.
+    # Greedy output is the same either way
+    "decode_spec_k": (0, int),
+    # default drafter: "ngram" (prompt lookup) or "model" (a 1-layer
+    # draft GPT over the generator's own parameters)
+    "decode_spec_mode": ("ngram", str),
+    # chunked prefill: serving admission ingests prompts in slices of at
+    # most this many tokens, one slice per decode round; 0 = monolithic
+    "prefill_chunk_tokens": (0, int),
+    # block-granular prefix cache: finished prompts deposit their KV
+    # blocks into a refcounted index; a prompt sharing a prefix adopts
+    # them (copy-on-write on divergence). Cold entries evict LRU
+    "kv_prefix_cache": (False, bool),
     # -- paged KV cache --
     # block-paged decode memory instead of the dense [slots, H, L, D] bank
     "kv_paged": (False, bool),

@@ -1,8 +1,10 @@
 """Captured programs: one feed signature of a program, run many times.
 
-Two kinds: :class:`CapturedProgram` (serving: a program that reads its
-state and never writes it) and :class:`CapturedStep` (training: a step
-that writes its state back in place, behind ``Executor.run_steps``).
+Three kinds: :class:`CapturedProgram` (serving: a program that reads its
+state and never writes it), :class:`CapturedStep` (training: a step
+that writes its state back in place, behind ``Executor.run_steps``) and
+:class:`CapturedDecode` (generation: a GPT decode step and its sample
+over a KV bank or block pool).
 
 The port's counterpart of the JAX serving engine's ahead-of-time
 ``jit(...).lower(...).compile()`` per feed signature
@@ -27,6 +29,7 @@ counters (a capture launches nothing), and adds them again on every
 replay, so ``launches`` keeps counting kernel launches.
 """
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -543,3 +546,299 @@ class CapturedStep:
             pool, side, self._counters, self.device)
         self._sites = [(g, attrs) for g, (_, attrs) in zip(gens, sites)]
         self.graph = graph
+
+
+class CapturedDecode:
+    """One GPT decode step plus its sample, captured as a CUDA graph once
+    per signature and replayed for every token: the port's counterpart of
+    the JAX generator's compiled decode executable
+    (``GPTGenerator._ensure_fn`` and ``_invoke``,
+    ``paddle_tpu/models/generation.py:430,518``), whose executables live
+    in its cache as these graphs live in an LRU (``utils.lru``).
+
+    ``model`` is a ``models.gpt.GPT``. A KV storage ``kv`` is a dense bank
+    ``(cache_k, cache_v)`` (lists of ``[rows, H, L, D]`` tensors) or a
+    ``serving.kvpool.KVBlockPool``. A signature is (rows, dense or paged,
+    kv dtype, block size, blocks per row, greedy-only or mixed sampling)
+    plus the storage's tensors: a graph holds their addresses, so an entry
+    keeps weak references to them and one whose storage was released
+    (``KVBlockPool.drop_device``/``reset``, a dropped bank) is captured
+    anew, never replayed over freed memory.
+
+    Before each replay the host writes the step's token, position,
+    temperature, top-k and (paged) block tables into pinned host buffers,
+    and the capture stream copies them into the graph's static device
+    buffers; after it the ``[rows]`` int32 tokens are the only read back
+    (:attr:`logits` keeps the step's logits on the device until the next
+    step). A greedy-only signature replays an argmax-only graph and draws
+    nothing; a mixed one draws from :attr:`generator` (registered with
+    the graph, so a replay draws what :meth:`eager` draws from the same
+    generator state). Replays keep the kernel wrappers' ``launches``
+    counters (``counters``) up to date, as :class:`CapturedStep` does.
+
+    The capture runs the step once eagerly first (with the block tables
+    pointing at the trash block, or the dense bank's written slots saved
+    and put back), so a capture that fails leaves the storage as it was
+    and raises :class:`GraphCaptureError`; nothing decodes eagerly
+    instead. :meth:`eager` runs the same body without a graph: the twin a
+    replay is held to, not a fallback. On the CPU every step is that
+    body, run over the static tensors."""
+
+    # signatures kept (a bank decodes through one or two: greedy, mixed)
+    MAX_GRAPHS = 16
+
+    def __init__(self, model, device, *, seed=0, counters=()):
+        self.model = model
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("a CUDA graph needs a CUDA device; decode "
+                               "on the CPU with device='cpu'")
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(int(seed))
+        from ..utils.lru import LRUCache
+        self.cache = LRUCache(max_entries=self.MAX_GRAPHS)
+        self._counters = _counter_attrs(counters)
+        self._lock = threading.Lock()
+        self._pool = self._stream = None
+        self.logits = None
+        # bodies run on the device per storage kind (capture warm-ups,
+        # replays and eager twins): each paged one launches K5 per layer
+        self.steps = {"dense": 0, "paged": 0}
+        self.captures = 0
+        self.capture_s = 0.0
+        self.graph_bytes = 0
+
+    # -- signatures -----------------------------------------------------
+    @staticmethod
+    def _describe(kv):
+        """(kind, kv dtype, block size, blocks per row, tensors) of a
+        storage."""
+        if hasattr(kv, "tensors"):
+            return ("paged", kv.dtype, kv.block_size, kv.blocks_per_row,
+                    kv.tensors())
+        cache_k, cache_v = kv
+        return ("dense", "fp32", 0, 0, list(cache_k) + list(cache_v))
+
+    def signature(self, rows, kv, greedy):
+        kind, dtype, bs, nblk, tensors = self._describe(kv)
+        return (int(rows), kind, dtype, bs, nblk, bool(greedy),
+                tuple(t.data_ptr() for t in tensors))
+
+    def _entry(self, key, kv, greedy, rows):
+        """The live entry of ``key``, or a new one (captured on the GPU);
+        entries whose storage is gone are dropped."""
+        e = self.cache.get(key)
+        if e is not None and e.alive():
+            return e, False
+        for k, old in self.cache.items():
+            if not old.alive():
+                self.cache.pop(k)
+        e = _DecodeEntry(self, kv, greedy, rows)
+        return e, True
+
+    # -- the step -------------------------------------------------------
+    def _body(self, e, kv, generator, tables=None):
+        """The decode step and the sample over ``e``'s static inputs:
+        ``(logits [rows, V], tokens [rows] int32)``."""
+        from ..ops.decode_ops import sample_tokens
+        if e.kind == "paged":
+            logits = self.model.decode_step_paged(
+                e.buf["token"], e.buf["pos"],
+                e.buf["tables"] if tables is None else tables, kv.layers())
+        else:
+            logits = self.model.decode_step(e.buf["token"], e.buf["pos"],
+                                            kv[0], kv[1])
+        toks = sample_tokens(logits, e.buf["temperature"], e.buf["top_k"],
+                             generator=generator, greedy=e.greedy)
+        return logits, toks
+
+    def _inputs(self, token, pos, temperature, top_k, kv, live):
+        rows = int(np.shape(token)[0])
+        arrays = {"token": np.asarray(token), "pos": np.asarray(pos),
+                  "temperature": np.asarray(temperature, np.float32),
+                  "top_k": np.asarray(top_k)}
+        if hasattr(kv, "tables"):
+            if kv.tables.shape[0] != rows:
+                raise ValueError(f"the pool has {kv.tables.shape[0]} "
+                                 f"slots, the step feeds {rows} rows")
+            arrays["tables"] = kv.tables
+            if live is not None:
+                # rows outside ``live`` write (and read) the trash block:
+                # a slot mid chunked prefill owns blocks its stale
+                # position would overwrite
+                arrays["tables"] = np.where(
+                    np.asarray(live, bool)[:, None], kv.tables, 0)
+        from ..ops.decode_ops import all_greedy
+        return rows, arrays, all_greedy(arrays["temperature"])
+
+    def run(self, token, pos, temperature, top_k, kv, live=None):
+        """One step over ``kv``: np.int32 tokens ``[rows]``. A graph
+        replay on the GPU (captured on the signature's first step), the
+        body on the CPU. ``live`` (bool ``[rows]``, None: every row)
+        picks the pool rows whose blocks the step writes; the others
+        write the trash block."""
+        rows, arrays, greedy = self._inputs(token, pos, temperature, top_k,
+                                            kv, live)
+        key = self.signature(rows, kv, greedy)
+        with self._lock:
+            e, new = self._entry(key, kv, greedy, rows)
+            if self.device.type != "cuda":
+                if new:
+                    self.cache.put(key, e)
+                e.load(arrays)
+                self.logits, toks = self._body(e, kv, self.generator)
+                self.steps[e.kind] += 1
+                return toks.numpy()
+            if new:
+                self._capture(e, kv, arrays)
+                self.cache.put(key, e, nbytes=e.nbytes)
+            return self._replay(e, arrays)
+
+    def eager(self, token, pos, temperature, top_k, kv, live=None):
+        """The same step without a graph, over the same static inputs and
+        :attr:`generator`: the A/B twin of a replay. np.int32 tokens."""
+        rows, arrays, greedy = self._inputs(token, pos, temperature, top_k,
+                                            kv, live)
+        with self._lock:
+            e, _ = self._entry(self.signature(rows, kv, greedy), kv, greedy,
+                               rows)
+            e.load(arrays)
+            self.logits, toks = self._body(e, kv, self.generator)
+            self.steps[e.kind] += 1
+            return toks.cpu().numpy()
+
+    # -- graphs ---------------------------------------------------------
+    def _capture(self, e, kv, arrays):
+        t0 = time.perf_counter()
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=self.device)
+        if not any(x.graph is not None for _, x in self.cache.items()):
+            # the allocator retires a graph pool once its last graph is
+            # gone (storage dropped, clear()) and refuses to capture into
+            # it again: the first graph of an empty cache takes a new one
+            self._pool = torch.cuda.graph_pool_handle()
+        side = self._stream
+        e.load(arrays)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            # warm-up (builds what the capture needs) that leaves the
+            # storage as it was: paged writes go to the trash block, the
+            # dense bank's written slots are put back
+            scratch = torch.Generator(device=self.device)
+            if e.kind == "paged":
+                self._body(e, kv, scratch,
+                           tables=torch.zeros_like(e.buf["tables"]))
+            else:
+                saved = _dense_slots(kv, e.buf["pos"])
+                self._body(e, kv, scratch)
+                _restore_dense_slots(kv, e.buf["pos"], saved)
+        torch.cuda.synchronize(self.device)
+        self.steps[e.kind] += 1
+        graph = torch.cuda.CUDAGraph()
+        if not e.greedy:
+            if not hasattr(graph, "register_generator_state"):
+                raise GraphCaptureError(
+                    f"this PyTorch ({torch.__version__}) has no "
+                    f"CUDAGraph.register_generator_state: a sampling "
+                    f"decode step cannot draw anew on each replay",
+                    op_type="sample_tokens")
+            graph.register_generator_state(self.generator)
+
+        def fn(trace):
+            trace["op_type"], trace["op_index"] = "decode_step", 0
+            logits, toks = self._body(e, kv, self.generator)
+            trace["done"] = True
+            return logits, toks
+
+        (e.logits, e.tokens), e.replay_launches, e.nbytes = capture_graph(
+            graph, None, fn, self._pool, side, self._counters, self.device)
+        e.graph = graph
+        e.tok_host = torch.empty(e.rows, dtype=torch.int32, pin_memory=True)
+        self.captures += 1
+        self.graph_bytes += e.nbytes
+        self.capture_s += time.perf_counter() - t0
+
+    def _replay(self, e, arrays):
+        side = self._stream
+        for n, a in arrays.items():
+            e.host[n][...] = a
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for n, b in e.buf.items():
+                b.copy_(e.pinned[n], non_blocking=True)
+            e.graph.replay()
+            e.tok_host.copy_(e.tokens, non_blocking=True)
+        side.synchronize()
+        for (w, attr), n in e.replay_launches.items():
+            setattr(w, attr, getattr(w, attr) + n)
+        self.steps[e.kind] += 1
+        self.logits = e.logits
+        return e.tok_host.numpy().copy()
+
+    def clear(self):
+        """Drop every graph (their memory returns with the last one)."""
+        with self._lock:
+            self.cache.clear()
+            self.logits = None
+
+
+def _dense_slots(kv, pos):
+    """The dense bank's vectors at each row's ``pos`` (what a decode step
+    overwrites), per layer."""
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    col = pos.long().clamp(0, kv[0][0].shape[2] - 1)
+    return [c[rows, :, col].clone() for c in list(kv[0]) + list(kv[1])]
+
+
+def _restore_dense_slots(kv, pos, saved):
+    rows = torch.arange(pos.shape[0], device=pos.device)
+    col = pos.long().clamp(0, kv[0][0].shape[2] - 1)
+    for c, s in zip(list(kv[0]) + list(kv[1]), saved):
+        c[rows, :, col] = s
+
+
+class _DecodeEntry:
+    """One signature of a :class:`CapturedDecode`: static input buffers
+    (pinned host mirrors on the GPU), weak references to the storage's
+    tensors, and the graph with its outputs."""
+
+    _DTYPES = {"token": torch.long, "pos": torch.long,
+               "temperature": torch.float32, "top_k": torch.long,
+               "tables": torch.int32}
+
+    def __init__(self, owner, kv, greedy, rows):
+        kind, _, _, nblk, tensors = owner._describe(kv)
+        self.kind, self.greedy, self.rows = kind, bool(greedy), int(rows)
+        self._refs = [(weakref.ref(t), t.data_ptr()) for t in tensors]
+        shapes = {"token": (rows,), "pos": (rows,), "temperature": (rows,),
+                  "top_k": (rows,)}
+        if kind == "paged":
+            shapes["tables"] = (rows, nblk)
+        dev = owner.device
+        self.buf = {n: torch.zeros(s, dtype=self._DTYPES[n], device=dev)
+                    for n, s in shapes.items()}
+        self.pinned = self.host = None
+        if dev.type == "cuda":
+            self.pinned = {n: torch.zeros(s, dtype=self._DTYPES[n],
+                                          pin_memory=True)
+                           for n, s in shapes.items()}
+            self.host = {n: t.numpy() for n, t in self.pinned.items()}
+        self.graph = self.logits = self.tokens = self.tok_host = None
+        self.replay_launches = {}
+        self.nbytes = 0
+
+    def alive(self):
+        """True while every storage tensor the graph holds the address of
+        still lives there."""
+        for ref, ptr in self._refs:
+            t = ref()
+            if t is None or t.data_ptr() != ptr:
+                return False
+        return True
+
+    def load(self, arrays):
+        """Write the step's inputs into the static buffers directly (the
+        eager body and the capture's warm-up)."""
+        for n, a in arrays.items():
+            self.buf[n].copy_(torch.from_numpy(np.ascontiguousarray(a)).to(
+                self._DTYPES[n]))

@@ -11,12 +11,14 @@ name the trash block 0 and are masked by ``pos``), pos ``[B]`` int32
 
 :func:`paged_attention` takes the plain version for tensors on the CPU
 only; for CUDA tensors it launches the kernel or raises. The kernel
-decodes one query per row: S > 1 reads (chunked prefill, speculative
-verify) go through :func:`paged_attention_ref`, as the JAX entry routes
-them to its gather composite. It splits each row's table into runs of
-blocks (:func:`split_plan`), folds each run in its own CUDA block and
-merges a row's runs in a second small kernel; the host never reads
-``pos``.
+decodes one query per row. S > 1 reads (chunked prefill, speculative
+verify) go through :func:`paged_attention_gather` on every device: the
+JAX entry routes every paged read with more than one query to its gather
+composite by design (``paddle_tpu/kernels/paged_attention.py:246-253``),
+which is XLA code, not a Pallas kernel, so its port is plain PyTorch.
+The kernel splits each row's table into runs of blocks
+(:func:`split_plan`), folds each run in its own CUDA block and merges a
+row's runs in a second small kernel; the host never reads ``pos``.
 """
 import ctypes
 
@@ -92,12 +94,30 @@ def paged_attention_ref(q, k_pool, v_pool, tables, pos, k_scale=None,
     return torch.matmul(probs, v).to(q.dtype)
 
 
+def paged_attention_gather(q, k_pool, v_pool, block_tables, pos,
+                           k_scale=None, v_scale=None, scale=None):
+    """Paged attention of S >= 1 queries per row (query i of row b sees
+    keys ``<= pos[b] + i``) by gathering each row's blocks: the port of
+    the JAX route ``_xla_paged_attention``, which the JAX entry takes for
+    every S > 1 read (chunked prefill, speculative verify) by design,
+    not as a fallback. Plain PyTorch on the CPU and on the card alike;
+    the decode kernel (:func:`paged_attention`) takes S == 1 only and
+    refuses the rest."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("paged_attention_gather needs BOTH k_scale and "
+                         "v_scale for a quantized pool (or neither)")
+    if k_pool.dtype == torch.int8 and k_scale is None:
+        raise ValueError("int8 KV pool needs k_scale/v_scale arrays")
+    return paged_attention_ref(q, k_pool, v_pool, block_tables, pos,
+                               k_scale, v_scale, scale)
+
+
 def _check(q, k_pool, v_pool, tables, pos, k_scale, v_scale):
     B, H, S, D = q.shape
     if S != 1:
         raise ValueError(
             f"the paged_attention kernel decodes ONE query per row (S=1), "
-            f"got S={S}; S>1 reads go through paged_attention_ref")
+            f"got S={S}; S>1 reads go through paged_attention_gather")
     if q.dtype not in _Q_DTYPES or k_pool.dtype not in _KV_DTYPES \
             or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"paged_attention: unsupported dtypes q {q.dtype}, "
@@ -189,5 +209,6 @@ def _lib():
     return lib
 
 
-__all__ = ["paged_attention", "paged_attention_ref", "quantize_kv",
+__all__ = ["paged_attention", "paged_attention_gather",
+           "paged_attention_ref", "quantize_kv",
            "dequantize_kv", "split_plan"]

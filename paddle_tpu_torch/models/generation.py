@@ -1,14 +1,25 @@
 """Autoregressive generation over the KV-cached GPT: one bucketed
 prefill over the prompts, then one decode step per token.
 
-Counterpart of ``paddle_tpu/models/generation.py`` (``GPTGenerator``).
-The same power-of-two prompt packing (``_pack_prompts``), the same
-emission rule (``_emit``) and the same two decode loops: the dense bank
+Counterpart of ``paddle_tpu/models/generation.py`` (``GPTGenerator``, the
+drafters). The same power-of-two prompt packing (``_pack_prompts``), the
+same emission rule (``_emit``) and the same decode loops: the dense bank
 (a ``[B, H, max_len, D]`` cache per layer) and the block-paged pool
-(``serving.kvpool.KVBlockPool``). Sampling is per row (greedy where
-temperature <= 0, else temperature/top-k) and draws from a
-``torch.Generator`` seeded from ``seed``; greedy output does not depend
-on it.
+(``serving.kvpool.KVBlockPool``), each optionally speculative
+(``spec_k``: a drafter proposes up to K tokens a row, one verify pass
+scores all K+1 positions, rejection sampling keeps the agreed prefix;
+greedy output is the non-speculative output). Sampling is per row
+(greedy where temperature <= 0, else temperature/top-k) and draws from
+the generator of the decoder, seeded from ``seed``; greedy output does
+not depend on it.
+
+Every decode step runs through a ``framework.cuda_graph.CapturedDecode``:
+on the GPU a replayed CUDA graph per signature (the JAX package compiles
+the step once per signature and caches the executable). The pool and
+dense bank ``generate`` decodes over are kept between calls, so their
+graphs stay valid; :meth:`GPTGenerator.release` frees them. The verify
+and chunked-prefill steps run eagerly. ``generate_naive`` recomputes the
+whole forward for every token (the reference of the KV-cached path).
 
     gen = GPTGenerator(cfg, params, max_len=512)           # on the GPU
     outs = gen.generate([prompt_ids], max_new_tokens=64, paged=True)
@@ -21,7 +32,7 @@ import torch
 
 from ..device import resolve_device
 from ..flags import flag
-from ..ops.decode_ops import sample_tokens
+from ..ops.decode_ops import all_greedy, sample_tokens, spec_accept
 from ..serving.batching import next_bucket
 from .gpt import GPT
 
@@ -30,6 +41,88 @@ def length_bucket(n, lo=1):
     """Smallest power-of-two >= n (>= lo): the prefill length and batch
     buckets, shared with the serving batcher."""
     return next_bucket(n, min_bucket=lo)
+
+
+# -- drafters ----------------------------------------------------------
+# A drafter proposes up to k continuation tokens for one row's context:
+# draft(ctx_tokens, k) -> 1-D int array of <= k proposals.
+
+class NgramDrafter:
+    """Prompt-lookup drafter: the tokens that followed the most recent
+    earlier occurrence of the context's trailing n-gram. No model, no
+    device work; strong when the output echoes its context."""
+
+    def __init__(self, max_ngram=3):
+        self.max_ngram = int(max_ngram)
+
+    def draft(self, ctx, k):
+        ctx = np.asarray(ctx, np.int32).ravel()
+        n = int(ctx.size)
+        k = int(k)
+        if k <= 0 or n < 2:
+            return np.zeros((0,), np.int32)
+        for ng in range(min(self.max_ngram, n - 1), 0, -1):
+            pat = ctx[n - ng:]
+            # windows strictly before the trailing n-gram itself
+            wins = np.lib.stride_tricks.sliding_window_view(
+                ctx[:n - 1], ng)[:n - ng]
+            hits = np.flatnonzero(np.all(wins == pat, axis=1))
+            if hits.size:
+                # the most recent hit with a full k-token continuation,
+                # else the most recent one (a cycling context's nearest
+                # hit sits one period back)
+                full = hits[hits + ng + k <= n]
+                i = int(full[-1]) if full.size else int(hits[-1])
+                cont = ctx[i + ng:i + ng + k]
+                if 0 < cont.size < k:
+                    # ran off the end of the context: extend it
+                    # periodically (a wrong guess is merely rejected)
+                    cont = np.resize(cont, k)
+                if cont.size:
+                    return cont.astype(np.int32)
+        return np.zeros((0,), np.int32)
+
+
+class ModelDrafter:
+    """Greedy continuations of a (small) :class:`GPTGenerator`.
+    :meth:`from_generator` builds the first layers of the target model
+    over the SAME parameter tensors, so drafting needs no second
+    checkpoint."""
+
+    def __init__(self, draft_gen):
+        self.gen = draft_gen
+
+    @classmethod
+    def from_generator(cls, gen, num_layers=1):
+        model = gen.model.truncated(num_layers)
+        return cls(GPTGenerator(model.cfg, model, max_len=gen.max_len,
+                                bucket_min=gen.bucket_min,
+                                device=gen.device))
+
+    def draft(self, ctx, k):
+        ctx = np.asarray(ctx, np.int32).ravel()
+        k = int(k)
+        lim = self.gen.max_len - k
+        if k <= 0 or lim < 1:
+            return np.zeros((0,), np.int32)
+        out = self.gen.generate([ctx[-lim:]], max_new_tokens=k,
+                                temperature=0.0, paged=False, spec_k=0)
+        return np.asarray(out[0], np.int32)
+
+
+def make_drafter(mode=None, generator=None):
+    """Drafter for ``FLAGS_decode_spec_mode``: ``"ngram"`` (default) or
+    ``"model"`` (a 1-layer draft GPT over ``generator``'s parameters)."""
+    mode = mode or flag("decode_spec_mode") or "ngram"
+    if mode == "ngram":
+        return NgramDrafter()
+    if mode == "model":
+        if generator is None:
+            raise ValueError("decode_spec_mode='model' needs the target "
+                             "generator to share parameters with")
+        return ModelDrafter.from_generator(generator)
+    raise ValueError(f"unknown decode_spec_mode {mode!r} — 'ngram' or "
+                     f"'model'")
 
 
 class GPTGenerator:
@@ -51,9 +144,43 @@ class GPTGenerator:
                            int(cfg.max_position))
         self.bucket_min = int(bucket_min or flag("decode_bucket_min"))
         self.stats = stats
-        # (rows, kv dtype, block size) -> KVBlockPool reused across
-        # generate(paged=True) calls; blocks are freed after every call
+        # kept between generate() calls, so their decode graphs stay
+        # valid: (rows, kv dtype, block size) -> KVBlockPool (blocks are
+        # freed after every call) and rows -> dense bank
         self._paged_pools = {}
+        self._banks = {}
+        self._drafters = {}
+        self._decoder = None
+
+    @property
+    def decoder(self):
+        """The :class:`~paddle_tpu_torch.framework.cuda_graph.CapturedDecode`
+        of ``generate``'s decode steps."""
+        if self._decoder is None:
+            self._decoder = self.new_decoder()
+        return self._decoder
+
+    def new_decoder(self, seed=0):
+        """A decode-step graph cache over this model (the serving engine
+        keeps its own)."""
+        from .. import kernels
+        from ..framework.cuda_graph import CapturedDecode
+        return CapturedDecode(self.model, self.device, seed=seed,
+                              counters=kernels.COUNTED)
+
+    def release(self):
+        """Free what ``generate`` keeps between calls: its dense bank's
+        and its pool's device memory and the decode graphs over them."""
+        if self._decoder is not None:
+            self._decoder.clear()
+        for pool in self._paged_pools.values():
+            pool.reset()
+        self._paged_pools.clear()
+        self._banks.clear()
+        for d in self._drafters.values():
+            if isinstance(d, ModelDrafter):
+                d.gen.release()
+        self._drafters.clear()
 
     # -- stage runners ----------------------------------------------------
     @contextlib.contextmanager
@@ -83,30 +210,94 @@ class GPTGenerator:
             return self.model.prefill(self._dev(tokens), self._dev(pos_ids),
                                       self._dev(last_pos))
 
-    def run_decode(self, token, pos, cache_k, cache_v):
+    def run_logits(self, tokens, pos_ids, last_pos):
+        """The full forward without a cache (``gpt_logits``): logits
+        ``[B, V]`` at each row's ``last_pos``."""
+        with self._stage("prefill"):
+            return self.model.logits(self._dev(tokens), self._dev(pos_ids),
+                                     self._dev(last_pos))
+
+    def decode(self, token, pos, temperature, top_k, kv, decoder=None,
+               live=None):
+        """One decode step and its sample over ``kv`` (a dense bank
+        ``(cache_k, cache_v)`` or a ``KVBlockPool``) through ``decoder``
+        (default :attr:`decoder`): np.int32 tokens. ``live`` (bool per
+        row, None: all) limits a pool's writes to those rows' blocks."""
         with self._stage("decode"):
-            return self.model.decode_step(self._dev(token), self._dev(pos),
-                                          cache_k, cache_v)
+            return (decoder or self.decoder).run(token, pos, temperature,
+                                                 top_k, kv, live=live)
+
+    def _decode_logits(self, token, pos, kv):
+        rows = int(np.shape(token)[0])
+        self.decode(token, pos, np.zeros(rows, np.float32),
+                    np.zeros(rows, np.int32), kv)
+        return self.decoder.logits.clone()
+
+    def run_decode(self, token, pos, cache_k, cache_v):
+        """One decode step over the dense bank (a graph replay on the
+        GPU): logits ``[B, V]`` on the device."""
+        return self._decode_logits(token, pos, (cache_k, cache_v))
 
     def run_decode_paged(self, token, pos, pool):
-        with self._stage("decode"):
-            return self.model.decode_step_paged(
-                self._dev(token), self._dev(pos), pool.device_tables(),
-                pool.layers())
+        """One decode step over the block pool (a graph replay on the
+        GPU): logits ``[B, V]`` on the device."""
+        return self._decode_logits(token, pos, pool)
 
-    def run_sample(self, logits, temperature, top_k, generator):
-        """Logits on the device -> np.int32 tokens on the host."""
+    def run_prefill_chunk(self, tokens, pos_ids, start_pos, limit, last_idx,
+                          pool, rows=None):
+        """One chunk of incremental paged prefill into ``pool``; ``rows``
+        picks the pool slots whose tables line up with the token rows
+        (None: every slot). Logits ``[B, V]`` at ``last_idx``."""
+        tables = pool.device_tables(rows)
+        with self._stage("prefill"):
+            return self.model.prefill_chunk_paged(
+                self._dev(tokens), self._dev(pos_ids), self._dev(start_pos),
+                self._dev(limit), self._dev(last_idx), tables, pool.layers())
+
+    def run_verify(self, tokens, pos, pos_ids, cache_k, cache_v):
+        """One speculative verify step over the dense bank: span logits
+        ``[B, S, V]``."""
+        with self._stage("decode"):
+            return self.model.verify_step(self._dev(tokens), self._dev(pos),
+                                          self._dev(pos_ids), cache_k,
+                                          cache_v)
+
+    def run_verify_paged(self, tokens, pos_ids, start_pos, limit, pool,
+                         rows=None):
+        """One speculative verify step over the block pool (``limit``: each
+        row's real span): span logits ``[B, S, V]``."""
+        tables = pool.device_tables(rows)
+        with self._stage("decode"):
+            return self.model.verify_step_paged(
+                self._dev(tokens), self._dev(pos_ids), self._dev(start_pos),
+                self._dev(limit), tables, pool.layers())
+
+    def run_spec_accept(self, logits, draft, temperature, top_k, num_draft,
+                        generator=None):
+        """Rejection-sampling acceptance over a verified span: np
+        ``(tokens [B, S], accepted [B])``; row b emits
+        ``tokens[b, :accepted[b] + 1]``."""
+        topk = np.asarray(top_k)
+        with self._stage("sample"):
+            out, acc = spec_accept(
+                logits, self._dev(draft), torch.as_tensor(
+                    np.asarray(temperature, np.float32)),
+                self._dev(num_draft),
+                top_k=torch.as_tensor(topk) if (topk > 0).any() else None,
+                generator=generator or self.decoder.generator)
+            return out.cpu().numpy(), acc.cpu().numpy()
+
+    def run_sample(self, logits, temperature, top_k, generator=None):
+        """Logits on the device -> np.int32 tokens on the host (the
+        prefill's first token; decode steps sample inside their graph)."""
         with self._stage("sample"):
             topk = np.asarray(top_k)
             toks = sample_tokens(
                 logits, torch.as_tensor(np.asarray(temperature, np.float32)),
                 torch.as_tensor(topk) if (topk > 0).any() else None,
-                generator=generator)
+                generator=generator or self.decoder.generator,
+                greedy=all_greedy(temperature))
             return toks.cpu().numpy()
-
-    def new_rng(self, seed):
-        return torch.Generator(device=self.device).manual_seed(
-            0 if seed is None else int(seed))
 
     # -- public API -------------------------------------------------------
     def _prep(self, prompts, max_new_tokens):
@@ -132,7 +323,7 @@ class GPTGenerator:
     def _pack_prompts(self, prompts):
         """Right-pad 1-D int32 prompts into the bucketed prefill feed:
         ``(tokens [bb, s], pos_ids [bb, s], last_pos [bb])`` — shared by
-        generate() and the serving engine."""
+        generate(), generate_naive() and the serving engine."""
         lens = [int(p.size) for p in prompts]
         bb = length_bucket(len(prompts))
         s = min(length_bucket(max(lens), self.bucket_min), self.max_len)
@@ -160,51 +351,67 @@ class GPTGenerator:
 
     def generate(self, prompts, max_new_tokens=32, temperature=0.0,
                  top_k=0, eos_id=None, seed=None, paged=None,
-                 kv_dtype=None):
+                 kv_dtype=None, spec_k=None, spec_mode=None, drafter=None):
         """KV-cached generation. ``prompts`` is a list of 1-D int token
         arrays (ragged lengths fine). Returns a list of 1-D int32 arrays
         of NEW tokens (generation stops at ``eos_id``, which is not
         included). ``paged`` (None -> ``FLAGS_kv_paged``) decodes over a
         block-paged pool instead of the dense bank, with ``kv_dtype``
         (None -> ``FLAGS_kv_cache_dtype``) as its element type; greedy
-        output is the same either way."""
+        output is the same either way. ``spec_k`` (None ->
+        ``FLAGS_decode_spec_k``; 0 off) decodes speculatively with
+        ``drafter`` (default: ``spec_mode``, None ->
+        ``FLAGS_decode_spec_mode``); greedy output is the same.
+
+        The decode storage outlives the call, since the captured decode
+        graphs hold its addresses: one dense bank and one pool, each for
+        the latest row bucket (and kv dtype, block size), are kept until
+        :meth:`release` or until a call needs another. Each costs
+        ``2 * num_layers * rows * max_len * hidden`` elements (float32:
+        1.2 GB at GPT-base, 8 rows, max_len 2048; the pool by default one
+        block more, bf16 half and int8 a quarter plus its scales), and a
+        model drafter keeps its own pair for its layers."""
         if paged is None:
             paged = bool(flag("kv_paged"))
+        if spec_k is None:
+            spec_k = int(flag("decode_spec_k"))
         prompts, lens = self._prep(prompts, max_new_tokens)
         B = len(prompts)
         tokens, pos_ids, last = self._pack_prompts(prompts)
         bb, s = tokens.shape
         temp = np.full((bb,), float(temperature), np.float32)
         topk = np.full((bb,), int(top_k), np.int32)
-        rng = self.new_rng(seed)
-        pool = self._pool(bb, kv_dtype) if paged else None
+        self.decoder.generator.manual_seed(0 if seed is None else int(seed))
+        kv = self._pool(bb, kv_dtype) if paged else self._bank(bb)
         try:
             logits, ks, vs = self.run_prefill(tokens, pos_ids, last)
             if paged:
                 for r in range(B):
-                    pool.alloc(r, lens[r])
-                pool.scatter_prefill(list(range(B)), ks, vs, s)
+                    kv.alloc(r, lens[r])
+                kv.scatter_prefill(list(range(B)), ks, vs, s)
             else:
-                cache_k, cache_v = self.new_dense_caches(bb)
-                for c, new in zip(cache_k + cache_v, ks + vs):
+                for c, new in zip(kv[0] + kv[1], ks + vs):
                     c[:, :, :s] = new
             del ks, vs
-            tok_h = self.run_sample(logits, temp, topk, rng)
+            tok_h = self.run_sample(logits, temp, topk)
             outs = [[] for _ in range(B)]
             done = np.zeros(B, bool)
             # pos[r] = cache slot the NEXT fed token lands in
             pos = np.zeros((bb,), np.int32)
             pos[:B] = np.asarray(lens, np.int32)
             self._emit(tok_h, outs, done, eos_id, max_new_tokens)
+            if int(spec_k) > 0:
+                if drafter is None:
+                    drafter = self._default_drafter(spec_mode)
+                self._spec_loop(prompts, outs, done, tok_h, pos, temp, topk,
+                                kv, int(spec_k), drafter, eos_id,
+                                max_new_tokens)
             while not done.all():
                 if paged:
                     for r in range(B):
                         if not done[r]:          # allocation-on-append
-                            pool.ensure(r, int(pos[r]))
-                    logits = self.run_decode_paged(tok_h, pos, pool)
-                else:
-                    logits = self.run_decode(tok_h, pos, cache_k, cache_v)
-                tok_h = self.run_sample(logits, temp, topk, rng)
+                            kv.ensure(r, int(pos[r]))
+                tok_h = self.decode(tok_h, pos, temp, topk, kv)
                 pos[:B] = np.where(done, pos[:B], pos[:B] + 1)
                 self._emit(tok_h, outs, done, eos_id, max_new_tokens)
                 if self.stats:
@@ -214,12 +421,113 @@ class GPTGenerator:
                                 int(sum(len(o) for o in outs)))
             return [np.asarray(o, np.int32) for o in outs]
         finally:
-            if pool is not None:
-                # keep the pool object for the next call, but free its
-                # blocks and its device memory
+            if paged:
                 for r in range(bb):
-                    pool.free_slot(r)
-                pool.drop_device()
+                    kv.free_slot(r)
+
+    def _default_drafter(self, mode):
+        mode = mode or flag("decode_spec_mode") or "ngram"
+        if mode not in self._drafters:
+            self._drafters[mode] = make_drafter(mode, generator=self)
+        return self._drafters[mode]
+
+    def _spec_loop(self, prompts, outs, done, tok_h, pos, temp, topk, kv,
+                   spec_k, drafter, eos_id, max_new_tokens):
+        """The speculative steps of ``generate``: drafts capped to each
+        row's remaining budget, one verify pass over all K+1 positions,
+        rejection sampling. The dense bank takes plain decode steps where
+        a span would run past the cache end (its fixed-span write cannot
+        route to a trash block as the pool's ``limit`` does)."""
+        B = len(prompts)
+        bb = pos.shape[0]
+        paged = not isinstance(kv, tuple)
+        S = spec_k + 1
+        while not done.all():
+            draft = np.zeros((bb, spec_k), np.int32)
+            nd = np.zeros((bb,), np.int32)
+            for r in range(B):
+                kr = min(spec_k, max_new_tokens - len(outs[r]) - 1)
+                if done[r] or kr <= 0:
+                    continue
+                ctx = np.concatenate([prompts[r],
+                                      np.asarray(outs[r], np.int32)])
+                d = np.asarray(drafter.draft(ctx, kr), np.int32).ravel()[:kr]
+                nd[r] = d.size
+                draft[r, :d.size] = d
+            if not paged and int(pos[:B][~done].max()) + S > self.max_len:
+                return                  # the plain steps finish the rows
+            feed = np.concatenate([tok_h[:, None], draft], axis=1)
+            span_pos = np.clip(pos[:, None] + np.arange(S, dtype=np.int32),
+                               0, self.cfg.max_position - 1)
+            if paged:
+                limit = np.zeros((bb,), np.int32)
+                for r in range(B):
+                    if not done[r]:
+                        limit[r] = int(nd[r]) + 1
+                        kv.alloc(r, int(pos[r]) + int(nd[r]) + 1)
+                logits = self.run_verify_paged(feed, span_pos, pos, limit,
+                                               kv)
+            else:
+                logits = self.run_verify(feed, pos, span_pos, kv[0], kv[1])
+            out, acc = self.run_spec_accept(logits, draft, temp, topk, nd)
+            for r in range(B):
+                if done[r]:
+                    continue
+                a = int(acc[r])
+                for j in range(a + 1):
+                    t = int(out[r, j])
+                    if eos_id is not None and t == int(eos_id):
+                        done[r] = True
+                        break
+                    outs[r].append(t)
+                    if len(outs[r]) >= max_new_tokens:
+                        done[r] = True
+                        break
+                pos[r] += a + 1
+                tok_h[r] = out[r, a]
+            if self.stats:
+                self.stats.bump("decode_steps")
+                self.stats.bump("spec_steps")
+                self.stats.bump("spec_drafted", int(nd.sum()))
+                self.stats.bump("spec_accepted", int(acc[:B].sum()))
+                self.stats.bump("spec_rejected", int(
+                    ((acc[:B] < nd[:B]) & (nd[:B] > 0)).sum()))
+
+    def generate_naive(self, prompts, max_new_tokens=32, temperature=0.0,
+                       top_k=0, eos_id=None, seed=None):
+        """Full recompute: every new token re-runs the whole forward
+        (``run_logits``, flash attention) at the bucketed current length,
+        no KV cache. Same bucketing and sampler as ``generate`` (greedy
+        output is the same); the reference of the KV-cached path."""
+        prompts, lens = self._prep(prompts, max_new_tokens)
+        B = len(prompts)
+        bb = length_bucket(B)
+        cur = [list(map(int, p)) for p in prompts]
+        outs = [[] for _ in range(B)]
+        done = np.zeros(B, bool)
+        temp = np.full((bb,), float(temperature), np.float32)
+        topk = np.full((bb,), int(top_k), np.int32)
+        self.decoder.generator.manual_seed(0 if seed is None else int(seed))
+        while not done.all():
+            tokens, pos_ids, last = self._pack_prompts(
+                [np.asarray(c, np.int32) for c in cur])
+            tok_h = self.run_sample(self.run_logits(tokens, pos_ids, last),
+                                    temp, topk)
+            for r in range(B):
+                if not done[r]:
+                    cur[r].append(int(tok_h[r]))
+            self._emit(tok_h, outs, done, eos_id, max_new_tokens)
+        return [np.asarray(o, np.int32) for o in outs]
+
+    def _bank(self, rows):
+        """The dense bank of ``rows`` rows ``generate`` decodes over, kept
+        for the next call (its graphs hold its addresses); the bank of
+        another row bucket is dropped first."""
+        bank = self._banks.get(rows)
+        if bank is None:
+            self._banks.clear()
+            bank = self._banks[rows] = self.new_dense_caches(rows)
+        return bank
 
     def _pool(self, rows, kv_dtype):
         from ..serving.kvpool import KVBlockPool
@@ -227,10 +535,13 @@ class GPTGenerator:
         key = (rows, kv_dtype, int(flag("kv_block_size")))
         pool = self._paged_pools.get(key)
         if pool is None:
+            for old in self._paged_pools.values():    # one pool kept
+                old.reset()
+            self._paged_pools.clear()
             pool = KVBlockPool(
                 slots=rows, num_layers=self.cfg.num_layers,
                 num_heads=self.cfg.num_heads, d_head=self.cfg.d_head,
-                max_seq_len=self.max_len, dtype=kv_dtype,
-                device=self.device)
+                max_seq_len=self.max_len, dtype=kv_dtype, name="offline",
+                prefix_cache=False, device=self.device)
             self._paged_pools[key] = pool
         return pool

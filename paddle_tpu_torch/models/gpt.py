@@ -10,17 +10,26 @@ of parameter names (``word_embedding``, ``decoder_layer_{i}_qkv.w_0``,
   builds; ``fluid.Executor`` runs it. Attention is the ``flash_attention``
   op (causal), whose forward and backward are the CUDA kernels K1-K4.
 - Generation: the JAX package builds a static program per mode
-  (``gpt_prefill``, ``gpt_decode_step``, ``gpt_decode_step_paged``); here
-  they are the methods :meth:`GPT.prefill`, :meth:`GPT.decode_step` and
-  :meth:`GPT.decode_step_paged` of one ``nn.Module``. Prefill runs the
-  flash-attention forward kernel (causal), the dense decode step the plain
-  masked read of :func:`ops.decode_ops.kv_cached_attention`, and the
-  paged decode step the paged-attention kernel over the shared block
-  pool.
+  (``gpt_logits``, ``gpt_prefill``, ``gpt_decode_step``,
+  ``gpt_decode_step_paged``, ``gpt_prefill_chunk_paged``,
+  ``gpt_verify_step``, ``gpt_verify_step_paged``); here they are the
+  methods :meth:`GPT.logits`, :meth:`GPT.prefill`,
+  :meth:`GPT.decode_step`, :meth:`GPT.decode_step_paged`,
+  :meth:`GPT.prefill_chunk_paged`, :meth:`GPT.verify_step` and
+  :meth:`GPT.verify_step_paged` of one ``nn.Module``. The full forward
+  and prefill run the flash-attention forward kernel (causal), the dense
+  decode and verify steps the plain masked read of
+  :func:`ops.decode_ops.kv_cached_attention`, the paged decode step the
+  paged-attention kernel over the shared block pool, and the paged
+  chunk and verify steps (S > 1 queries a row) the gather route
+  :func:`kernels.paged_attention.paged_attention_gather`, as the JAX
+  package routes them.
 
 Layer norm has eps 1e-5, GELU is the exact erf form, ``fc`` is
 ``x @ W[in, out] + b`` and the head is ``h @ word_embedding.T``.
 """
+import copy
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -30,7 +39,8 @@ from .. import layers
 from ..device import resolve_device
 from ..framework import initializer as I
 from ..kernels.flash_attention import flash_attention
-from ..kernels.paged_attention import paged_attention
+from ..kernels.paged_attention import (paged_attention,
+                                      paged_attention_gather)
 from ..layers import math as M
 from ..layers import tensor as T
 from ..ops.decode_ops import (kv_cache_write, kv_cached_attention,
@@ -255,6 +265,20 @@ class GPT(nn.Module):
         """Parameter by its JAX scope name."""
         return getattr(self, _attr(name))
 
+    def truncated(self, num_layers):
+        """A GPT of the first ``num_layers`` decoder layers over the SAME
+        parameter tensors (embeddings, those layers, the final norm): the
+        model drafter's draft model, with no second copy of the weights."""
+        cfg = copy.copy(self.cfg)
+        cfg.num_layers = max(1, min(int(num_layers), self.cfg.num_layers))
+        small = GPT.__new__(GPT)
+        nn.Module.__init__(small)
+        small.cfg = cfg
+        small.device = self.device
+        for name in param_shapes(cfg):
+            small.register_parameter(_attr(name), self.param(name))
+        return small
+
     # -- pieces -----------------------------------------------------------
     def _embed(self, tokens, pos_ids):
         return F.embedding(tokens, self.param("word_embedding")) \
@@ -290,7 +314,40 @@ class GPT(nn.Module):
         h = row_gather(self._ln(x, "final_ln"), last_pos)
         return torch.matmul(h, self.param("word_embedding").t())
 
+    def _span_logits(self, x):
+        """final-LN hidden [B, S, H] -> logits [B, S, V] at EVERY position
+        (the verify step scores all K+1 speculative positions)."""
+        return torch.matmul(self._ln(x, "final_ln"),
+                            self.param("word_embedding").t())
+
+    def _paged_attend(self, pools, tables, start_pos, limit, i):
+        """``attend`` of layer ``i`` over the block pool for S >= 1 fresh
+        queries a row at ``start_pos``: write the ``limit`` real keys and
+        values (the rest go to the trash block), then read through the
+        gather route."""
+        pk, pv, pks, pvs = pools[i]
+
+        def attend(q, k, v):
+            paged_kv_cache_write(pk, k, tables, start_pos, scale=pks,
+                                 limit=limit)
+            paged_kv_cache_write(pv, v, tables, start_pos, scale=pvs,
+                                 limit=limit)
+            return paged_attention_gather(q, pk, pv, tables, start_pos,
+                                          k_scale=pks, v_scale=pvs)
+        return attend
+
     # -- entry points -----------------------------------------------------
+    @torch.no_grad()
+    def logits(self, tokens, pos_ids, last_pos):
+        """Full causal forward, no KV cache (``gpt_logits``): the naive
+        generation baseline. tokens/pos_ids ``[B, S]``, last_pos ``[B]``
+        -> logits ``[B, V]`` at each row's last real position."""
+        x = self._embed(tokens, pos_ids)
+        for i in range(self.cfg.num_layers):
+            x = self._layer(i, x, lambda q, k, v: flash_attention(
+                q, k, v, causal=True))
+        return self._next_logits(x, last_pos)
+
     @torch.no_grad()
     def prefill(self, tokens, pos_ids, last_pos):
         """Causal forward over a right-padded prompt batch. tokens/pos_ids
@@ -342,3 +399,49 @@ class GPT(nn.Module):
                                        pos32, k_scale=pks, v_scale=pvs)
             x = self._layer(i, x, attend)
         return self._next_logits(x, torch.zeros_like(pos))
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, tokens, pos_ids, start_pos, limit,
+                            last_idx, tables, pools):
+        """One chunk of incremental paged prefill
+        (``gpt_prefill_chunk_paged``): up to C prompt tokens a row go
+        straight into the block pool at ``start_pos`` (``limit [B]`` real
+        ones; the rest to the trash block), each query attending over
+        everything its row already holds. tokens/pos_ids ``[B, C]`` ->
+        logits ``[B, V]`` at chunk index ``last_idx`` (meaningful only on
+        a prompt's final chunk)."""
+        x = self._embed(tokens, pos_ids)
+        for i in range(self.cfg.num_layers):
+            x = self._layer(i, x, self._paged_attend(pools, tables,
+                                                     start_pos, limit, i))
+        return self._next_logits(x, last_idx)
+
+    @torch.no_grad()
+    def verify_step(self, tokens, pos, pos_ids, cache_k, cache_v):
+        """Speculative verify over the dense bank (``gpt_verify_step``):
+        S = K+1 fed tokens a row (the current token and K drafts) written
+        at ``pos[b]..pos[b]+S-1`` and scored in one pass, query i seeing
+        keys ``<= pos[b] + i``. -> logits ``[B, S, V]``: position i is what
+        a sequential decode step would give after accepting i drafts."""
+        x = self._embed(tokens, pos_ids)
+        for i in range(self.cfg.num_layers):
+            def attend(q, k, v, i=i):
+                kv_cache_write(cache_k[i], k, pos)
+                kv_cache_write(cache_v[i], v, pos)
+                return kv_cached_attention(q, cache_k[i], cache_v[i], pos)
+            x = self._layer(i, x, attend)
+        return self._span_logits(x)
+
+    @torch.no_grad()
+    def verify_step_paged(self, tokens, pos_ids, start_pos, limit, tables,
+                          pools):
+        """Speculative verify over the block pool
+        (``gpt_verify_step_paged``): a chunked-prefill pass that returns
+        logits ``[B, S, V]`` at every position; ``limit [B]`` is each
+        row's real span (its drafts + 1), the rest writes to the trash
+        block."""
+        x = self._embed(tokens, pos_ids)
+        for i in range(self.cfg.num_layers):
+            x = self._layer(i, x, self._paged_attend(pools, tables,
+                                                     start_pos, limit, i))
+        return self._span_logits(x)

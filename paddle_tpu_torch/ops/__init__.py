@@ -4,7 +4,8 @@ functions on tensors."""
 from . import (activation_ops, attention_ops, math_ops,  # noqa: F401
                metric_ops, nn_ops, optimizer_ops, tensor_ops)
 from .decode_ops import (kv_cache_write, kv_cached_attention,
-                         paged_kv_cache_write, row_gather, sample_tokens)
+                         paged_kv_cache_write, row_gather, sample_tokens,
+                         spec_accept)
 
 __all__ = ["kv_cache_write", "kv_cached_attention", "paged_kv_cache_write",
-           "row_gather", "sample_tokens"]
+           "row_gather", "sample_tokens", "spec_accept"]

@@ -1,12 +1,13 @@
 """Incremental-decoding ops as plain functions on tensors: the KV-cache
 write and read of the dense bank, the paged-pool write, the per-row
-gather and the sampler.
+gather, the sampler and the speculative acceptance.
 
 Counterpart of ``paddle_tpu/ops/decode_ops.py``. JAX arrays are
 immutable, so the JAX ops return updated caches and the executor donates
 the inputs so that XLA appends in place; here the cache and pool writes
 update their tensors in place (``index_put_``) and return them.
 """
+import numpy as np
 import torch
 
 from ..kernels.paged_attention import quantize_kv
@@ -84,27 +85,133 @@ def row_gather(x, index):
     return x[torch.arange(x.shape[0], device=x.device), idx]
 
 
-def sample_tokens(logits, temperature, top_k=None, generator=None):
+def _top_k_mask(logits, scaled, top_k):
+    """``scaled`` with every entry below its row's ``top_k``-th highest
+    logit set to -1e30 (rows with ``top_k <= 0`` keep the whole
+    vocabulary; ties at the threshold stay eligible). ``logits`` and
+    ``scaled`` are ``[..., V]``, ``top_k`` ``[B]`` (broadcast over the
+    middle dims)."""
+    V = logits.shape[-1]
+    top_k = top_k.to(logits.device).long()
+    k = top_k.clamp(1, V).view(-1, *([1] * (logits.dim() - 1)))
+    sorted_desc = torch.sort(logits, dim=-1, descending=True).values
+    thresh = torch.gather(
+        sorted_desc, -1, (k - 1).expand(*logits.shape[:-1], 1))
+    keep_all = (top_k <= 0).view(-1, *([1] * (logits.dim() - 1)))
+    return scaled.masked_fill(~(keep_all | (logits >= thresh)), _NEG_INF)
+
+
+def draw_tokens(probs, generator=None):
+    """One index per row of ``probs [B, V]`` by inverse CDF: one uniform
+    ``u`` per row from ``generator``, the first index whose cumulative
+    probability exceeds ``u`` times the row's total (so a zero-probability
+    entry is never drawn). Unlike ``torch.multinomial``, whose argument
+    check reads the device, it can be captured into a CUDA graph.
+    Returns int64 ``[B]``."""
+    cdf = probs.cumsum(-1)
+    u = torch.rand((probs.shape[0], 1), generator=generator,
+                   device=probs.device, dtype=probs.dtype)
+    idx = torch.searchsorted(cdf, u * cdf[:, -1:], right=True)
+    return idx.clamp_(max=probs.shape[-1] - 1)[:, 0]
+
+
+def all_greedy(temperature):
+    """True when every row of the host array ``temperature`` is greedy
+    (<= 0): the sampling mode a caller decides on the host."""
+    return bool((np.asarray(temperature) <= 0).all())
+
+
+def sample_tokens(logits, temperature, top_k=None, generator=None,
+                  greedy=None):
     """Next token per row from logits ``[B, V]`` with per-row sampling
     config: rows with ``temperature <= 0`` take the argmax (first maximum
     wins); the others sample from ``softmax(logits / t)``, restricted to
     the ``top_k`` highest logits where ``top_k > 0`` (ties at the
-    threshold stay eligible). Draws come from ``generator``. Returns
-    int32 ``[B]``."""
+    threshold stay eligible). Draws come from ``generator``
+    (:func:`draw_tokens`). ``greedy`` is the sampling mode, decided by
+    the caller on the host: True takes the argmax of every row and draws
+    nothing; False runs the sampler over every row with no host
+    branch, so a CUDA graph can hold it; None decides it from
+    ``temperature``, which must then lie on the host. Returns int32
+    ``[B]``."""
     logits = logits.float()
-    greedy = torch.argmax(logits, dim=-1)
-    if bool((temperature <= 0).all()):     # host tensor: no device sync
-        return greedy.to(torch.int32)
+    if greedy is None:
+        if temperature.device.type != "cpu":
+            raise ValueError("sample_tokens: pass greedy= when the "
+                             "temperatures lie on the device")
+        greedy = all_greedy(temperature.numpy())
+    argmax = torch.argmax(logits, dim=-1)
+    if greedy:
+        return argmax.to(torch.int32)
     temperature = temperature.to(logits.device).float()
     scaled = logits / temperature.clamp_min(1e-6)[:, None]
     if top_k is not None:
-        top_k = top_k.to(logits.device).long()
-        V = logits.shape[-1]
-        k = top_k.clamp(1, V)
-        sorted_desc = torch.sort(logits, dim=-1, descending=True).values
-        thresh = torch.gather(sorted_desc, 1, (k - 1)[:, None])
-        allowed = (top_k <= 0)[:, None] | (logits >= thresh)
-        scaled = scaled.masked_fill(~allowed, _NEG_INF)
-    probs = torch.softmax(scaled, dim=-1)
-    sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
-    return torch.where(temperature <= 0, greedy, sampled).to(torch.int32)
+        scaled = _top_k_mask(logits, scaled, top_k)
+    sampled = draw_tokens(torch.softmax(scaled, dim=-1), generator)
+    return torch.where(temperature <= 0, argmax, sampled).to(torch.int32)
+
+
+def spec_accept(logits, draft, temperature, num_draft, top_k=None,
+                generator=None, greedy=None):
+    """Speculative-decoding acceptance over a verified span: rejection
+    sampling specialised to a point-mass draft (the drafters propose
+    tokens, not distributions), so the draft ``d_i`` is accepted with
+    probability ``p_i(d_i)`` and the residual on rejection is ``p`` with
+    ``d_i`` removed.
+
+    logits ``[B, S, V]`` (position i: the model's next-token scores after
+    the current token and drafts ``d_1..d_i``), draft ``[B, K]`` (K =
+    S - 1), temperature ``[B]``, num_draft ``[B]`` (each row's real draft
+    count), optional top_k ``[B]``: the same per-row sampling as
+    :func:`sample_tokens`. Greedy rows accept ``d_i`` while it equals the
+    argmax and emit argmax tokens throughout, so speculative greedy
+    output is the sequential greedy output. ``greedy`` as in
+    :func:`sample_tokens` (True draws nothing).
+
+    Returns ``(out [B, S] int32, accepted [B] int32)``: row b emits
+    ``out[b, :accepted[b] + 1]`` (accepted drafts, then the correction
+    or bonus token). Counterpart of the JAX ``spec_accept`` op."""
+    logits = logits.float()
+    B, S, V = logits.shape
+    K = S - 1
+    dev = logits.device
+    draft = draft.to(dev).long()
+    num_draft = num_draft.to(dev).long()
+    if greedy is None:
+        if temperature.device.type != "cpu":
+            raise ValueError("spec_accept: pass greedy= when the "
+                             "temperatures lie on the device")
+        greedy = all_greedy(temperature.numpy())
+    temperature = temperature.to(dev).float()
+    rows = torch.arange(B, device=dev)
+    greedy_tok = torch.argmax(logits, dim=-1)                    # [B, S]
+    steps = torch.arange(K, device=dev)[None, :]
+    if greedy:
+        accept = draft == greedy_tok[:, :K]
+    else:
+        scaled = logits / temperature.clamp_min(1e-6)[:, None, None]
+        if top_k is not None:
+            scaled = _top_k_mask(logits, scaled, top_k)
+        p = torch.softmax(scaled[:, :K], dim=-1)                 # [B, K, V]
+        p_draft = torch.gather(p, 2, draft[:, :, None])[:, :, 0]
+        u = torch.rand((B, K), generator=generator, device=dev)
+        is_greedy = (temperature <= 0)[:, None]
+        accept = torch.where(is_greedy, draft == greedy_tok[:, :K],
+                             u < p_draft)
+    accept = accept & (steps < num_draft[:, None])
+    # the leading run of accepts: a rejection stops everything after it
+    a = torch.cumprod(accept.long(), dim=1).sum(dim=1)           # [B]
+    corr = greedy_tok[rows, a]
+    if not greedy:
+        row_scaled = scaled[rows, a]                             # [B, V]
+        d_at_a = draft[rows, a.clamp(0, max(K - 1, 0))] if K > 0 \
+            else torch.zeros_like(a)
+        excl = (torch.arange(V, device=dev)[None, :] == d_at_a[:, None]) \
+            & (a < num_draft)[:, None]
+        resample = draw_tokens(torch.softmax(
+            row_scaled.masked_fill(excl, _NEG_INF), dim=-1), generator)
+        corr = torch.where(temperature <= 0, corr, resample)
+    padded = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+    out = torch.where(torch.arange(S, device=dev)[None, :] < a[:, None],
+                      padded, corr[:, None])
+    return out.to(torch.int32), a.to(torch.int32)

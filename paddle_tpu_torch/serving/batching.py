@@ -12,7 +12,9 @@ has waited ``batch_timeout_ms``) and ``DecodeBatcher`` — ORCA-style
 iteration-level scheduling over a fixed bank of decode slots: requests
 are admitted between steps, a row finishes on EOS, on its token budget
 or on its deadline and frees its slot at once, and rows still in flight
-when the loop stops fail with a typed error. The queue's priority
+when the loop stops fail with a typed error; between steps it advances
+chunked prefills, drafts for speculative steps and serves prefill-only
+(KV export) and migrated (KV import) requests. The queue's priority
 eviction, the load-shed breaker, the batcher's restart and watchdog and
 the brownout ladder are not ported.
 """
@@ -163,15 +165,30 @@ class GenerationRequest(_Lifecycle):
     """One generation request: a 1-D int prompt plus sampling knobs and
     a token-level deadline (re-checked between decode steps). The reply
     arrives through :meth:`wait`: ``[np.int32 new tokens]``, or the
-    recorded error is raised."""
+    recorded error is raised.
+
+    Disaggregated prefill and decode: with ``export_kv=True`` the request
+    is prefill-only, and its reply is ``[payload]``, the slot's KV blocks
+    (``KVBlockPool.export_slot``) with ``first_token`` and
+    ``prompt_tokens``; with ``kv=`` (such a payload) and ``first_token=``
+    it skips prefill, takes the blocks into its slot and decodes from
+    ``first_token``."""
 
     def __init__(self, prompt, max_new_tokens=32, temperature=0.0, top_k=0,
-                 eos_id=None, deadline_ms=None):
+                 eos_id=None, deadline_ms=None, export_kv=False, kv=None,
+                 first_token=None):
         prompt = np.asarray(prompt, dtype=np.int32).ravel()
         if prompt.size < 1:
             raise ValueError("generation request has an empty prompt")
         if int(max_new_tokens) < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if kv is not None and export_kv:
+            raise ValueError("a request cannot both import (kv=) and "
+                             "export (export_kv=True) KV state")
+        if (kv is None) != (first_token is None):
+            raise ValueError("kv= and first_token= come together: the "
+                             "migrated blocks are decoded FROM the token "
+                             "sampled where the prefill ran")
         self.prompt = prompt
         self.max_new_tokens = int(max_new_tokens)
         self.temperature = float(temperature)
@@ -179,6 +196,9 @@ class GenerationRequest(_Lifecycle):
         self.eos_id = None if eos_id is None else int(eos_id)
         self.out_tokens = []
         self.slot = None
+        self.export_kv = bool(export_kv)
+        self.kv = kv
+        self.first_token = None if first_token is None else int(first_token)
         self._init_lifecycle(deadline_ms)
 
 
@@ -410,19 +430,38 @@ class MicroBatcher:
 class DecodeBatcher:
     """Continuous batching over the engine's bank of decode slots: one
     thread admits queued requests into free slots (prefill + first
-    token), then steps the whole bank one token at a time. Per-row state
-    (position, current token, sampling config) lives here; the KV state
-    lives in the ``GenerationEngine``."""
+    token, a migrated KV payload, or a chunked prefill advanced one
+    chunk per round), then steps the whole bank one token at a time, or
+    one speculative span (``spec_k`` > 0, None -> ``FLAGS_decode_spec_k``;
+    paged only: each live row drafts up to K tokens, one verify pass,
+    rejection sampling). Per-row state (position, current token,
+    sampling config) lives here; the KV state lives in the
+    ``GenerationEngine``. Every 256 steps the pool is swept for blocks
+    held by slots no longer live."""
 
-    def __init__(self, queue, engine, stats=None):
+    def __init__(self, queue, engine, stats=None, spec_k=None,
+                 drafter=None):
+        from ..flags import flag
         self.queue = queue
         self.engine = engine
         self.slots = engine.slots
         self.stats = stats
+        if spec_k is None:
+            spec_k = flag("decode_spec_k")
+        self.spec_k = int(spec_k) if engine.pool is not None else 0
+        self._drafter = drafter          # lazy: make_drafter on first use
+        # the per-priority draft-depth ladder of the brownout controller
+        # (not ported): None leaves every row at the adaptive depth
+        self.brownout = None
+        self._accept_window = deque(maxlen=64)   # (accepted, proposed)
         self._stop = threading.Event()
         self._thread = None
         self._free = list(range(self.slots))
         self._active = {}                       # slot -> request
+        # chunked-prefill states (engine.start_prefill): rows that hold a
+        # slot while their prompt goes in, one chunk per round
+        self._prefilling = []
+        self._steps_since_sweep = 0
         self._tok = np.zeros((self.slots,), np.int32)
         self._pos = np.zeros((self.slots,), np.int32)
         self._temp = np.zeros((self.slots,), np.float32)
@@ -439,22 +478,37 @@ class DecodeBatcher:
         return len(self._free)
 
     def stop(self, timeout=30):
-        """Stop the loop; rows still decoding fail with
+        """Stop the loop; rows still decoding or prefilling fail with
         :class:`ServerShutdownError` (the loop does it on its way out)."""
         self._stop.set()
         self.queue.wake()
         if self._thread is not None:
             self._thread.join(timeout)
 
+    def spec_snapshot(self):
+        """The configured draft depth, the window-adapted one and the
+        windowed acceptance rate (None before any drafting)."""
+        win = list(self._accept_window)
+        proposed = sum(p for _, p in win)
+        return {"spec_k": self.spec_k,
+                "spec_k_effective": (self._adaptive_spec_k(self.spec_k)
+                                     if self.spec_k > 0 else 0),
+                "spec_accept_window": (round(sum(a for a, _ in win)
+                                             / proposed, 4)
+                                       if proposed else None)}
+
     # -- row lifecycle ----------------------------------------------------
+    def _release(self, slot):
+        self._free.append(slot)
+        self._temp[slot] = 0.0      # a stale temperature > 0 would keep
+        self._topk[slot] = 0        # the bank off its greedy graph
+        self.engine.release_slot(slot)
+
     def _finish(self, req, error=None):
         slot = req.slot
         if slot is not None and self._active.get(slot) is req:
             del self._active[slot]
-            self._free.append(slot)
-            self._temp[slot] = 0.0
-            self._topk[slot] = 0
-            self.engine.release_slot(slot)
+            self._release(slot)
         if req.done():                 # abandoned by its waiter
             return
         if error is not None:
@@ -469,15 +523,59 @@ class DecodeBatcher:
                 time.monotonic() - req.t_enqueue)
 
     def _deliver_token(self, req, tok):
-        """Record one sampled token; finish the row on EOS or budget."""
+        """Record one sampled token; finish the row on EOS or budget.
+        Returns True while the row stays live."""
         if req.eos_id is not None and tok == req.eos_id:
             self._finish(req)
-            return
+            return False
         req.out_tokens.append(tok)
         if self.stats:
             self.stats.bump("tokens_generated")
         if len(req.out_tokens) >= req.max_new_tokens:
             self._finish(req)
+            return False
+        return True
+
+    def _join_bank(self, req, slot, tok):
+        """A prefilled (or imported) row enters the decode bank, or, for
+        a prefill-only request, delivers its KV payload."""
+        if self.stats:
+            self.stats.bump("generate_requests")
+        if req.export_kv:
+            self._finish_export(req, slot, int(tok))
+            return
+        req.slot = slot
+        self._active[slot] = req
+        self._pos[slot] = req.prompt.size
+        self._temp[slot] = req.temperature
+        self._topk[slot] = req.top_k
+        self._tok[slot] = tok
+        self._deliver_token(req, int(tok))
+
+    def _finish_export(self, req, slot, tok):
+        """A prefill-only request: the slot's blocks are serialized as
+        the reply (``first_token`` and ``prompt_tokens`` inside) and the
+        slot is freed at once; the row decodes elsewhere."""
+        try:
+            payload = self.engine.export_slot(slot)
+        except Exception as exc:  # noqa: BLE001 — typed to the client
+            self._release(slot)
+            if not req.done():
+                req.set_error(exc)
+                if self.stats:
+                    self.stats.bump("requests_failed")
+            return
+        self._release(slot)
+        payload["first_token"] = tok
+        payload["prompt_tokens"] = int(req.prompt.size)
+        if req.done():
+            return
+        req.set_result([payload])
+        if self.stats:
+            self.stats.bump("kv_exports")
+            self.stats.bump("requests_completed")
+            self.stats.hist["total"].observe(
+                time.monotonic() - req.t_enqueue)
 
     def _check_deadlines(self, now):
         for req in list(self._active.values()):
@@ -490,13 +588,103 @@ class DecodeBatcher:
                     f"exceeded after {waited:.1f}ms with "
                     f"{len(req.out_tokens)} tokens generated",
                     deadline_ms=req.deadline_ms, waited_ms=waited))
+        still = []
+        for st in self._prefilling:
+            req = st["req"]
+            if not (req.done() or req.expired(now)):
+                still.append(st)
+                continue
+            if not req.done():
+                waited = (now - req.t_enqueue) * 1e3
+                if self.stats:
+                    self.stats.bump("shed_deadline")
+                req.set_error(DeadlineExceededError(
+                    f"deadline of {req.deadline_ms:.1f}ms exceeded after "
+                    f"{waited:.1f}ms mid chunked prefill",
+                    deadline_ms=req.deadline_ms, waited_ms=waited))
+            self._release(st["slot"])
+        self._prefilling[:] = still
+
+    # -- speculative decoding ---------------------------------------------
+    def _get_drafter(self):
+        if self._drafter is None:
+            from ..models.generation import make_drafter
+            self._drafter = make_drafter(generator=self.engine.gen)
+        return self._drafter
+
+    def _adaptive_spec_k(self, k):
+        """The draft depth from the windowed acceptance rate: below 50%
+        half of K, below 25% one draft (never 0, so the window keeps
+        measuring); K until 32 drafts were proposed."""
+        proposed = sum(p for _, p in self._accept_window)
+        if proposed < 32:
+            return k
+        rate = sum(a for a, _ in self._accept_window) / proposed
+        if rate >= 0.5:
+            return k
+        if rate >= 0.25:
+            return max(k // 2, 1)
+        return 1
+
+    def _propose_drafts(self, k):
+        """np int32 ``(drafts [slots, k], num_draft [slots])`` for every
+        live row: the adapted depth, capped to the row's remaining budget
+        minus one (a verify step always emits one real token)."""
+        drafts = np.zeros((self.slots, k), np.int32)
+        nd = np.zeros((self.slots,), np.int32)
+        k_eff = self._adaptive_spec_k(k)
+        for slot, req in self._active.items():
+            kr = k_eff
+            if self.brownout is not None:
+                kr = self.brownout.draft_depth(req.rank, kr)
+            kr = min(int(kr), req.max_new_tokens - len(req.out_tokens) - 1)
+            if kr <= 0:
+                continue
+            ctx = np.concatenate([req.prompt,
+                                  np.asarray(req.out_tokens, np.int32)])
+            d = np.asarray(self._get_drafter().draft(ctx, kr),
+                           np.int32).reshape(-1)[:kr]
+            drafts[slot, :d.size] = d
+            nd[slot] = d.size
+        return drafts, nd
+
+    def _deliver_spec(self, out, acc, nd):
+        """Deliver one verify step: slot s takes ``acc[s]`` drafts and the
+        correction or bonus token, stopping at EOS or budget (the rest of
+        the span is garbage past the row's position, overwritten before
+        it is ever read)."""
+        accepted = proposed = rejected = 0
+        for slot in list(self._active):
+            req = self._active[slot]
+            if req.done():
+                self._finish(req)
+                continue
+            a, n = int(acc[slot]), int(nd[slot])
+            accepted += a
+            proposed += n
+            rejected += a < n
+            alive = True
+            for j in range(a + 1):
+                alive = self._deliver_token(req, int(out[slot, j]))
+                if not alive:
+                    break
+            if alive:
+                self._pos[slot] += a + 1
+                self._tok[slot] = int(out[slot, a])
+        self._accept_window.append((accepted, proposed))
+        if self.stats:
+            self.stats.bump("spec_steps")
+            self.stats.bump("spec_drafted", proposed)
+            self.stats.bump("spec_accepted", accepted)
+            self.stats.bump("spec_rejected", rejected)
 
     # -- admission --------------------------------------------------------
     def _admit(self):
         take = []
         while len(take) < len(self._free) and not self._stop.is_set():
             # block briefly only while the bank is idle
-            timeout = 0.05 if not (self._active or take) else 0
+            timeout = 0.05 if not (self._active or self._prefilling
+                                   or take) else 0
             req = self.queue.get(timeout=timeout)
             if req is None:
                 break
@@ -517,69 +705,151 @@ class DecodeBatcher:
             take.append(req)
         if not take:
             return
-        slots = [self._free.pop() for _ in take]
-        try:
-            first = self.engine.admit(take, slots)
-        except Exception as exc:  # noqa: BLE001 — reaches the clients
-            self._free.extend(slots)
-            for req in take:
-                req.set_error(exc)
-                if self.stats:
-                    self.stats.bump("requests_failed")
+        fresh = [r for r in take if r.kv is None]
+        imported = [r for r in take if r.kv is not None]
+        if fresh and self.engine.incremental_prefill_enabled():
+            for req in fresh:
+                slot = self._free.pop()
+                try:
+                    st = self.engine.start_prefill(req, slot)
+                except Exception as exc:  # noqa: BLE001 — to the client
+                    self._release(slot)
+                    req.set_error(exc)
+                    if self.stats:
+                        self.stats.bump("requests_failed")
+                    continue
+                req.slot = slot
+                self._prefilling.append(st)
+            fresh = []
+        # fresh prompts admit as one batch; each migrated payload alone,
+        # so one refused payload fails only its own request
+        groups = ([(fresh, self.engine.admit)] if fresh else []) \
+            + [([r], self.engine.admit_imported) for r in imported]
+        for group, admit in groups:
+            slots = [self._free.pop() for _ in group]
+            try:
+                first = admit(group, slots)
+            except Exception as exc:  # noqa: BLE001 — reaches the clients
+                self._free.extend(slots)
+                for req in group:
+                    req.set_error(exc)
+                    if self.stats:
+                        self.stats.bump("requests_failed")
+                continue
+            if admit is not self.engine.admit and self.stats:
+                self.stats.bump("kv_imports", len(group))
+            for tok, req, slot in zip(first, group, slots):
+                self._join_bank(req, slot, tok)
+
+    def _advance_prefill(self):
+        """Advance the oldest chunked prefill by one chunk (round robin);
+        a finished prompt samples its first token and joins the bank."""
+        if not self._prefilling:
             return
-        for tok, req, slot in zip(first, take, slots):
+        st = self._prefilling.pop(0)
+        req, slot = st["req"], st["slot"]
+        if req.done():                  # abandoned mid-prefill
+            self._release(slot)
+            return
+        try:
+            done = self.engine.prefill_chunk(st)
+            tok = self.engine.finish_prefill(st) if done else None
+        except Exception as exc:  # noqa: BLE001 — reaches the client
+            self._release(slot)
+            req.set_error(exc)
             if self.stats:
-                self.stats.bump("generate_requests")
-            req.slot = slot
-            self._active[slot] = req
-            self._pos[slot] = req.prompt.size
-            self._temp[slot] = req.temperature
-            self._topk[slot] = req.top_k
-            self._tok[slot] = tok
-            self._deliver_token(req, int(tok))
+                self.stats.bump("shed_overload"
+                                if isinstance(exc, ServerOverloadedError)
+                                else "requests_failed")
+            return
+        if not done:
+            self._prefilling.append(st)
+            return
+        self._join_bank(req, slot, tok)
 
     # -- core loop --------------------------------------------------------
+    def _shed(self, shed):
+        for slot, exc in shed.items():
+            req = self._active.get(slot)
+            if req is None:
+                continue
+            if isinstance(exc, ServerOverloadedError):
+                if not req.done():
+                    req.set_error(exc)
+                if self.stats:
+                    self.stats.bump("shed_overload")
+                self._finish(req)
+            else:
+                self._finish(req, exc)
+
+    def _step(self):
+        """Draft (speculative rows), grow and copy-on-write the blocks the
+        step writes, run the step and deliver its tokens."""
+        drafts = nd = None
+        if self.spec_k > 0:
+            drafts, nd = self._propose_drafts(self.spec_k)
+        widths = None if nd is None else {
+            slot: int(nd[slot]) + 1 for slot in self._active}
+        self._shed(self.engine.prepare_step(
+            {slot: int(self._pos[slot]) for slot in self._active},
+            widths=widths))
+        if not self._active:
+            return
+        t0 = time.perf_counter()
+        live = np.zeros((self.slots,), bool)
+        live[list(self._active)] = True
+        try:
+            if drafts is not None:
+                out, acc = self.engine.spec_step(
+                    self._tok, self._pos, self._temp, self._topk, drafts,
+                    nd, live)
+            else:
+                toks = self.engine.step(self._tok, self._pos, self._temp,
+                                        self._topk, live)
+        except Exception as exc:  # noqa: BLE001 — fail the rows
+            if self.stats:
+                self.stats.bump("engine_failures")
+            for req in list(self._active.values()):
+                self._finish(req, exc)
+            return
+        if self.stats:
+            self.stats.hist["token"].observe(time.perf_counter() - t0)
+            self.stats.observe_decode_step(len(self._active), self.slots)
+        if drafts is not None:
+            self._deliver_spec(out, acc, nd)
+            return
+        for slot in list(self._active):
+            req = self._active[slot]
+            if req.done():            # abandoned by its waiter
+                self._finish(req)
+                continue
+            self._pos[slot] += 1
+            self._tok[slot] = toks[slot]
+            self._deliver_token(req, int(toks[slot]))
+
     def _loop(self):
         try:
             while not self._stop.is_set():
                 self._admit()
-                if not self._active:
+                if not (self._active or self._prefilling):
                     continue
                 self._check_deadlines(time.monotonic())
-                shed = self.engine.prepare_step(
-                    {slot: int(self._pos[slot]) for slot in self._active})
-                for slot, exc in shed.items():
-                    if slot in self._active:
-                        if self.stats and isinstance(
-                                exc, ServerOverloadedError):
-                            self.stats.bump("shed_overload")
-                        self._finish(self._active[slot], exc)
-                if not self._active:
-                    continue
-                t0 = time.perf_counter()
-                try:
-                    toks = self.engine.step(self._tok, self._pos,
-                                            self._temp, self._topk)
-                except Exception as exc:  # noqa: BLE001 — fail the rows
-                    if self.stats:
-                        self.stats.bump("engine_failures")
-                    for req in list(self._active.values()):
-                        self._finish(req, exc)
-                    continue
-                if self.stats:
-                    self.stats.hist["token"].observe(
-                        time.perf_counter() - t0)
-                    self.stats.observe_decode_step(len(self._active),
-                                                   self.slots)
-                for slot in list(self._active):
-                    req = self._active[slot]
-                    if req.done():            # abandoned by its waiter
-                        self._finish(req)
-                        continue
-                    self._pos[slot] += 1
-                    self._tok[slot] = toks[slot]
-                    self._deliver_token(req, int(toks[slot]))
+                self._advance_prefill()
+                if self._active:
+                    self._step()
+                self._steps_since_sweep += 1
+                if self._steps_since_sweep >= 256:
+                    self._steps_since_sweep = 0
+                    self.engine.reclaim_leaks(
+                        list(self._active)
+                        + [st["slot"] for st in self._prefilling])
         finally:
             for req in list(self._active.values()):
                 self._finish(req, ServerShutdownError(
                     "server stopped while the request was decoding"))
+            for st in self._prefilling:
+                self._release(st["slot"])
+                if not st["req"].done():
+                    st["req"].set_error(ServerShutdownError(
+                        "server stopped while the request was prefilling"))
+            self._prefilling = []

@@ -16,19 +16,10 @@ slices each request's rows back. Hot weight reload
 (``load_state_snapshot``/``swap_state``) is not ported.
 
 ``GenerationEngine`` owns a fixed bank of ``slots`` generation rows over
-a ``models.generation.GPTGenerator``: either a dense bank (one
-``[slots, H, max_len, D]`` cache per layer) or, with ``paged=True``, a
-shared ``KVBlockPool`` with per-slot block tables. The ``DecodeBatcher``
-thread is its only caller:
-
-- ``admit(requests, slot_ids)``: bucketed prefill over the new prompts,
-  sampling of their first tokens, and the write of their keys/values
-  into their slots.
-- ``prepare_step(active_pos)``: allocation-on-append before a step
-  (paged); returns the rows the pool could not grow.
-- ``step(tokens, pos, temperature, top_k)``: one decode + sample over
-  the whole bank; rows at different positions share the step.
-- ``release_slot(slot)``: a finished row returns its blocks (paged).
+a ``models.generation.GPTGenerator``: a dense bank or a shared
+``KVBlockPool``, stepped by a captured decode graph, with chunked
+prefill, the prefix cache, KV export and import and speculative steps
+(its docstring lists the calls the ``DecodeBatcher`` makes).
 """
 import os
 import threading
@@ -295,8 +286,36 @@ class ServingEngine:
 
 
 class GenerationEngine:
+    """Slot-batched decoding over a ``models.generation.GPTGenerator``: a
+    fixed bank of ``slots`` generation rows over a dense bank (one
+    ``[slots, H, max_len, D]`` cache per layer) or, with ``paged=True``,
+    a shared ``KVBlockPool`` (``kv_dtype``, ``kv_block_size``,
+    ``kv_pool_blocks``, ``pool_name``; ``prefix_cache`` None ->
+    ``FLAGS_kv_prefix_cache``). Every decode step is a replay of the
+    engine's own ``CapturedDecode`` graph (``decoder``; its generator,
+    seeded from ``seed``, draws every sample of the bank). The
+    ``DecodeBatcher`` thread is its only caller:
+
+    - ``admit(requests, slot_ids)``: bucketed prefill over the new
+      prompts, their first tokens, their keys/values into their slots
+      (and the prefix index);
+    - ``start_prefill``/``prefill_chunk``/``finish_prefill``: chunked
+      admission (``FLAGS_prefill_chunk_tokens``, or the prefix cache),
+      one chunk per decode round, after adopting a cached prefix;
+    - ``admit_imported``: migrated KV blocks in place of a prefill;
+      ``export_slot``: a slot's blocks out (paged only);
+    - ``prepare_step(active_pos, widths)``: allocation-on-append and the
+      copy-on-write barrier before a step; returns the rows the pool
+      could not grow;
+    - ``step``: one decode + sample over the whole bank; ``spec_step``:
+      one speculative verify + acceptance (paged only);
+    - ``release_slot``/``reclaim_leaks``: blocks back to the pool.
+    """
+
     def __init__(self, generator, *, slots=None, stats=None, seed=0,
-                 paged=None):
+                 paged=None, kv_dtype=None, kv_block_size=None,
+                 kv_pool_blocks=None, pool_name="serving",
+                 prefix_cache=None):
         self.gen = generator
         self.slots = int(slots or flag("decode_slots"))
         self.stats = stats if stats is not None else generator.stats
@@ -312,10 +331,15 @@ class GenerationEngine:
             self.pool = KVBlockPool(
                 slots=self.slots, num_layers=cfg.num_layers,
                 num_heads=cfg.num_heads, d_head=cfg.d_head,
-                max_seq_len=self.max_len, device=generator.device)
-        self._rng = generator.new_rng(seed)
+                max_seq_len=self.max_len, block_size=kv_block_size,
+                num_blocks=kv_pool_blocks, dtype=kv_dtype, name=pool_name,
+                prefix_cache=prefix_cache, device=generator.device)
+        self.decoder = generator.new_decoder(seed)
+        self._rng = self.decoder.generator
 
-    def _bank(self):
+    def _kv(self):
+        if self.pool is not None:
+            return self.pool
         if self._caches is None:
             self._caches = self.gen.new_dense_caches(self.slots)
         return self._caches
@@ -347,23 +371,37 @@ class GenerationEngine:
         if self.pool is not None:
             self.pool.free_slot(slot)
 
-    def prepare_step(self, active_pos):
-        """Grow each live row's blocks to cover the slot its next token
-        writes (``active_pos``: slot -> position). Returns
-        ``{slot: exc}`` for rows the pool could not grow; dense: {}."""
+    def prepare_step(self, active_pos, widths=None):
+        """Before a step: grow each live row's blocks to cover the slots
+        it writes (``active_pos``: slot -> position; ``widths``: slot ->
+        tokens written, default 1, a speculative span's K+1) and, with
+        the prefix cache, copy any shared block in that span first (even
+        for draft positions later rejected). Returns ``{slot: exc}`` for
+        rows the pool could not serve; dense: {}."""
         if self.pool is None:
             return {}
         shed = {}
         for slot, p in active_pos.items():
+            w = max(int(widths.get(slot, 1)) if widths else 1, 1)
             try:
-                self.pool.ensure(slot, int(p))
+                self.pool.ensure(slot, int(p) + w - 1)
+                if self.pool.prefix_enabled:
+                    self.pool.prepare_write(slot, int(p), int(p) + w)
             except Exception as exc:  # noqa: BLE001 — per-row shed
                 shed[slot] = exc
         return shed
 
+    def reclaim_leaks(self, live_slots):
+        """The leak sweep: free blocks held by slots not in
+        ``live_slots``; returns the blocks freed (dense: 0)."""
+        if self.pool is None:
+            return 0
+        return self.pool.reclaim_leaks(live_slots)
+
     def admit(self, requests, slot_ids):
         """Prefill the requests' prompts as one bucketed batch, sample
-        their first tokens, write their keys/values into ``slot_ids``.
+        their first tokens, write their keys/values into ``slot_ids``
+        (and, with the prefix cache, their blocks into the index).
         Returns the first tokens, np.int32 ``[len(requests)]``."""
         n = len(requests)
         tokens, pos_ids, last = self.gen._pack_prompts(
@@ -391,24 +429,158 @@ class GenerationEngine:
             if self.pool is not None:
                 self.pool.scatter_prefill(list(slot_ids), ks, vs, s)
             else:
-                cache_k, cache_v = self._bank()
+                cache_k, cache_v = self._kv()
                 for c, new in zip(cache_k + cache_v, ks + vs):
                     c[list(slot_ids), :, :s] = new[:n]
         except Exception:
             for sl in slot_ids:
                 self.release_slot(sl)
             raise
+        if self.pool is not None:
+            for req, slot in zip(requests, slot_ids):
+                self.pool.prefix_insert(req.prompt, slot)
         return toks[:n]
 
-    def step(self, tokens, pos, temperature, top_k):
-        """One decode + sample over the whole bank. Arrays of length
-        ``slots`` (free slots carry stale values whose rows nobody
-        reads). Returns np.int32 tokens ``[slots]``."""
+    # -- chunked (incremental) prefill ------------------------------------
+    def incremental_prefill_enabled(self):
+        """Chunked admission: on with the paged pool and either
+        ``FLAGS_prefill_chunk_tokens`` > 0 (long prompts stop stalling
+        the bank) or the prefix cache (what turns a cached-prefix hit
+        into skipped prefill)."""
+        return self.pool is not None and (
+            int(flag("prefill_chunk_tokens")) > 0 or self.pool.prefix_enabled)
+
+    def start_prefill(self, req, slot):
+        """Begin chunked prefill of ``req`` into ``slot``: free the stale
+        holder, adopt the longest cached prefix (block references, no
+        compute), and return the state :meth:`prefill_chunk` advances. A
+        full exact-prompt hit still replays the last token as a 1-token
+        chunk: its logits are the first token's distribution."""
+        prompt = np.asarray(req.prompt, np.int32).reshape(-1)
+        L = int(prompt.size)
+        self.pool.free_slot(slot)
+        reused = 0
+        m = self.pool.match_prefix(prompt)
+        if m is not None:
+            self.pool.adopt_prefix(slot, m)
+            reused = int(m["tokens"])
+        return {"req": req, "slot": int(slot), "prompt": prompt,
+                "next": min(reused, L - 1), "reused": reused,
+                "chunk": int(flag("prefill_chunk_tokens")),
+                "first_logits": None}
+
+    def prefill_chunk(self, state):
+        """Ingest ONE chunk of ``state``'s prompt into its slot (at most
+        the chunk budget; the whole rest without one). Pool pressure
+        (alloc, copy-on-write) raises before any device work. Returns
+        True once the prompt is in (sample via :meth:`finish_prefill`)."""
+        slot, prompt = state["slot"], state["prompt"]
+        L = int(prompt.size)
+        s = int(state["next"])
+        take = min(state["chunk"] or (L - s), L - s)
+        # a fixed width under a budget, else a bucketed one
+        C = state["chunk"] or min(
+            next_bucket(take, min_bucket=self.gen.bucket_min), self.max_len)
+        toks = np.zeros((1, C), np.int32)
+        toks[0, :take] = prompt[s:s + take]
+        pos_ids = np.clip(np.arange(s, s + C, dtype=np.int32), 0,
+                          L - 1)[None, :]
+        self.pool.alloc(slot, s + take)
+        if self.pool.prefix_enabled:
+            self.pool.prepare_write(slot, s, s + take)
+        logits = self.gen.run_prefill_chunk(
+            toks, pos_ids, np.array([s], np.int32),
+            np.array([take], np.int32), np.array([take - 1], np.int32),
+            self.pool, rows=[slot])
+        state["next"] = s + take
+        if state["next"] >= L:
+            state["first_logits"] = logits[:1]
+            return True
+        return False
+
+    def finish_prefill(self, state):
+        """Sample the first token from the last chunk's logits, put the
+        prompt's blocks into the prefix index, return the token (int)."""
+        req = state["req"]
+        toks = self.gen.run_sample(
+            state["first_logits"], np.array([req.temperature], np.float32),
+            np.array([req.top_k], np.int32), self._rng)
+        self.pool.prefix_insert(state["prompt"], state["slot"])
+        return int(toks[0])
+
+    # -- disaggregated prefill / decode (KV migration) --------------------
+    def export_slot(self, slot):
+        """``slot``'s KV blocks as a migration payload (paged only: the
+        block table is what makes a row's state a movable unit)."""
+        if self.pool is None:
+            raise BadRequestError(
+                "KV export requires the paged pool (FLAGS_kv_paged / "
+                "paged=True) — the dense bank's rows are not migratable")
+        return self.pool.export_slot(slot)
+
+    def admit_imported(self, requests, slot_ids):
+        """Admit requests whose prefill ran elsewhere: each request's
+        ``kv`` payload goes into its slot's blocks in place of a prefill.
+        Returns their ``first_token`` s (sampled where the prefill ran),
+        np.int32; on failure nothing stays allocated."""
+        if self.pool is None:
+            raise BadRequestError(
+                "KV import requires the paged pool (FLAGS_kv_paged / "
+                "paged=True) on the decode side")
+        imported = []
+        try:
+            for req, slot in zip(requests, slot_ids):
+                self.pool.free_slot(slot)
+                self.pool.import_slot(slot, req.kv)
+                imported.append(slot)
+        except Exception:
+            for sl in imported:
+                self.pool.free_slot(sl)
+            raise
+        first = np.asarray([int(req.first_token) for req in requests],
+                           np.int32)
+        for req in requests:
+            req.kv = None               # the pool holds the blocks now
+        return first
+
+    # -- steps ------------------------------------------------------------
+    def step(self, tokens, pos, temperature, top_k, live=None):
+        """One decode + sample over the whole bank (a graph replay on the
+        GPU). Arrays of length ``slots``; ``live`` (bool ``[slots]``,
+        None: all) marks the decoding slots. The others carry stale
+        values whose tokens nobody reads; in the pool their writes go to
+        the trash block, since a slot mid chunked prefill already owns
+        the blocks its stale position points into (the dense bank's
+        rows are overwritten by their next prefill). Returns np.int32
+        tokens ``[slots]``."""
+        return self.gen.decode(
+            np.ascontiguousarray(tokens, dtype=np.int32),
+            np.ascontiguousarray(pos, dtype=np.int32),
+            np.ascontiguousarray(temperature, dtype=np.float32),
+            np.ascontiguousarray(top_k, dtype=np.int32), self._kv(),
+            decoder=self.decoder, live=live)
+
+    def spec_step(self, tokens, pos, temperature, top_k, drafts, num_draft,
+                  live):
+        """One speculative verify + acceptance over the whole bank (paged
+        only). ``drafts`` np int32 ``[slots, K]``, ``num_draft [slots]``
+        the real drafts a row (0: a plain one-token step in the same
+        pass), ``live`` the occupied slots (the others' span writes go to
+        the trash block). Returns ``(out [slots, K+1], accepted
+        [slots])``: slot s emits ``out[s, :accepted[s] + 1]``."""
+        if self.pool is None:
+            raise ValueError("speculative decoding requires the paged KV "
+                             "pool (FLAGS_kv_paged / paged=True)")
         tok = np.ascontiguousarray(tokens, dtype=np.int32)
         posc = np.ascontiguousarray(pos, dtype=np.int32)
-        if self.pool is not None:
-            logits = self.gen.run_decode_paged(tok, posc, self.pool)
-        else:
-            cache_k, cache_v = self._bank()
-            logits = self.gen.run_decode(tok, posc, cache_k, cache_v)
-        return self.gen.run_sample(logits, temperature, top_k, self._rng)
+        drafts = np.ascontiguousarray(drafts, dtype=np.int32)
+        nd = np.ascontiguousarray(num_draft, dtype=np.int32)
+        S = drafts.shape[1] + 1
+        span = np.clip(posc[:, None] + np.arange(S, dtype=np.int32)[None, :],
+                       0, self.gen.cfg.max_position - 1)
+        limit = np.where(np.asarray(live, bool), nd + 1, 0).astype(np.int32)
+        logits = self.gen.run_verify_paged(
+            np.concatenate([tok[:, None], drafts], axis=1), span, posc, limit,
+            self.pool)
+        return self.gen.run_spec_accept(logits, drafts, temperature, top_k,
+                                        nd, self._rng)

@@ -1,21 +1,43 @@
 """Block-paged KV-cache pool: decode memory priced by the tokens a slot
 actually holds.
 
-Counterpart of ``paddle_tpu/serving/kvpool.py`` (``KVBlockPool``), cut to
-the allocator and the device pool: a LIFO free-list of fixed-size blocks
-shared by every slot, a per-slot block table, blocks allocated on append
-and returned when a row finishes. Block 0 is the reserved TRASH block:
-table entries past a row's allocation name it, so padded prefill
-scatters and free slots write garbage somewhere position masks never
-read. Exhaustion raises the typed :class:`KVPoolExhaustedError`
-(a ``ServerOverloadedError``: the client backs off).
+Counterpart of ``paddle_tpu/serving/kvpool.py`` (``KVBlockPool``): a
+LIFO free-list of fixed-size blocks shared by every slot, a per-slot
+block table, blocks allocated on append and returned when a row
+finishes. Block 0 is the reserved TRASH block: table entries past a
+row's allocation name it, so padded prefill scatters and free slots
+write garbage somewhere position masks never read. Exhaustion raises the
+typed :class:`KVPoolExhaustedError` (a ``ServerOverloadedError``: the
+client backs off).
+
+Blocks are refcounted, which gives two more services:
+
+- the block-granular prefix cache: a finished prompt's blocks go into a
+  hash-keyed index (:meth:`KVBlockPool.prefix_insert`, keyed by
+  :func:`prompt_prefix_key` at the exact and the block-aligned length);
+  a later prompt sharing the prefix adopts them by reference
+  (:meth:`~KVBlockPool.match_prefix`, :meth:`~KVBlockPool.adopt_prefix`)
+  and prefills only its tail. Any write into a block with more than one
+  owner is preceded by a copy-on-write (:meth:`~KVBlockPool.prepare_write`).
+  Entries only the cache holds are evictable and go LRU under pressure;
+- migration: :meth:`~KVBlockPool.export_slot` serializes a slot's blocks
+  into a wire-safe payload (``KV_WIRE_FMT``; bf16 as its ``uint16`` bit
+  pattern, int8 with its float32 scales) and :meth:`~KVBlockPool.import_slot`
+  writes one into another pool: the two halves of disaggregated prefill
+  and decode. Payloads are the JAX package's, field for field.
 
 The device side is one ``[num_blocks, H, block_size, D]`` tensor per
 layer for K and for V (float32, bfloat16, or int8 with float32 scales
-``[num_blocks, H, block_size]``), written in place by the decode step
-and by :meth:`KVBlockPool.scatter_prefill`.
+``[num_blocks, H, block_size]``), allocated once and written in place by
+the decode, chunk and verify steps, :meth:`~KVBlockPool.scatter_prefill`,
+:meth:`~KVBlockPool.import_slot` and the copy-on-write: a captured decode
+graph holds their addresses. :meth:`~KVBlockPool.drop_device` and
+:meth:`~KVBlockPool.reset` release them, and every graph over them is
+then captured anew (``framework.cuda_graph.CapturedDecode``).
 """
+import hashlib
 import threading
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -28,6 +50,28 @@ from .batching import BadRequestError, ServerOverloadedError
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
            "int8": torch.int8}
 _ELEM_BYTES = {"fp32": 4, "bf16": 2, "int8": 1}
+# the element type of a payload's block arrays (bf16 travels as its
+# uint16 bit pattern: numpy has no bfloat16 the wire accepts)
+_WIRE_NP = {"fp32": np.float32, "bf16": np.uint16, "int8": np.int8}
+
+# migration payload format tag (bumped on any layout change: an importer
+# never guesses at a payload written by another revision)
+KV_WIRE_FMT = "kvblocks1"
+
+# per-pool event counters, reported by stats()
+_COUNTERS = ("prefix_hits", "prefix_misses", "prefix_tokens_reused",
+             "prefix_evictions", "prefix_cow_copies", "leaked_blocks",
+             "blocks_exported", "blocks_imported", "alloc_failures")
+
+
+def prompt_prefix_key(tokens, length=None):
+    """Content hash of the first ``length`` tokens of a prompt (the whole
+    prompt when None): the prefix cache's key, the same bytes hashed as
+    in the JAX package (int32 tokens, blake2b-128)."""
+    a = np.ascontiguousarray(np.asarray(tokens, np.int32).reshape(-1))
+    if length is not None:
+        a = a[:int(length)]
+    return hashlib.blake2b(a.tobytes(), digest_size=16).hexdigest()
 
 
 class KVPoolExhaustedError(ServerOverloadedError):
@@ -46,19 +90,21 @@ def _ceil_div(a, b):
 
 
 class KVBlockPool:
-    """Device block pool + host free-list allocator + per-slot tables.
+    """Device block pool + host free-list allocator + per-slot tables,
+    refcounted for the prefix cache.
 
     Driven by one thread (the decode loop or an offline ``generate``);
     a lock keeps the accounting consistent for ``stats()`` readers on
     other threads. ``num_blocks`` counts the trash block, so the
     allocatable capacity is ``num_blocks - 1``; the default is the dense
     bank's footprint, ``slots * ceil(max_seq_len / block_size) + 1``.
-    ``device=None`` means the GPU and raises without one.
+    ``prefix_cache`` (None: ``FLAGS_kv_prefix_cache``) turns the prefix
+    index on. ``device=None`` means the GPU and raises without one.
     """
 
     def __init__(self, *, slots, num_layers, num_heads, d_head,
                  max_seq_len, block_size=None, num_blocks=None, dtype=None,
-                 device=None):
+                 name="serving", prefix_cache=None, device=None):
         self.slots = int(slots)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
@@ -79,12 +125,23 @@ class KVBlockPool:
         if self.num_blocks < 2:
             raise ValueError("KVBlockPool needs >= 2 blocks (block 0 is "
                              "the reserved trash block)")
+        self.name = str(name)
         self.quantized = self.dtype == "int8"
         self.device = resolve_device(device)
+        self.prefix_enabled = bool(flag("kv_prefix_cache")
+                                   if prefix_cache is None
+                                   else prefix_cache)
         self._lock = threading.Lock()
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._slot_nblocks = {}        # slot -> blocks held
         self._slot_tokens = {}         # slot -> tokens accounted
+        # a block returns to the free list when its LAST owner (a slot's
+        # table entry or a prefix entry) releases it
+        self._refs = {}                # block -> owners
+        self._cache_ref = {}           # block -> prefix-entry owners
+        # key -> {"blocks", "tokens", "hits"}; insertion order is LRU
+        self._prefix = OrderedDict()
+        self.counters = dict.fromkeys(_COUNTERS, 0)
         self.tables = np.zeros((self.slots, self.blocks_per_row), np.int32)
         self._layers = None            # lazy device pool
 
@@ -104,7 +161,17 @@ class KVBlockPool:
             n += 2 * self.num_layers * per * 4
         return n
 
+    def dense_slot_bytes(self):
+        """Device bytes ONE dense bank slot costs (fp32, max_seq_len)."""
+        return 2 * self.num_layers * self.num_heads * self.max_seq_len \
+            * self.d_head * 4
+
     # -- allocator --------------------------------------------------------
+    def _exhausted(self, message, needed, free):
+        self.counters["alloc_failures"] += 1
+        return KVPoolExhaustedError(message, needed=needed, free=free,
+                                    capacity=self.capacity_blocks)
+
     def check_fits(self, ntokens):
         """Raise :class:`BadRequestError` when ``ntokens`` could never fit
         even in an empty pool (terminal, not backpressure)."""
@@ -118,39 +185,46 @@ class KVBlockPool:
 
     def admission_check(self, ntokens, pending_tokens=()):
         """Blocks for ``ntokens`` plus every ``pending_tokens`` entry
-        (accepted this round, not yet allocated) must be free now, else
-        :class:`KVPoolExhaustedError`. Allocates nothing."""
+        (accepted this round, not yet allocated) must be free now, after
+        evicting cold prefix entries, else :class:`KVPoolExhaustedError`.
+        Allocates nothing."""
         need = self.blocks_for_tokens(ntokens)
         pending = sum(self.blocks_for_tokens(t) for t in pending_tokens)
         with self._lock:
+            if need + pending > len(self._free):
+                self._evict_cold_locked(need + pending)
             free = len(self._free)
-        if need + pending > free:
-            raise KVPoolExhaustedError(
-                f"KV pool cannot admit a request of {ntokens} tokens right "
-                f"now: {need} block(s) needed (+{pending} pending this "
-                f"round), {free} free of {self.capacity_blocks} — back off "
-                f"and retry", needed=need + pending, free=free,
-                capacity=self.capacity_blocks)
+            if need + pending > free:
+                raise self._exhausted(
+                    f"KV pool {self.name!r} cannot admit a request of "
+                    f"{ntokens} tokens right now: {need} block(s) needed "
+                    f"(+{pending} pending this round), {free} free of "
+                    f"{self.capacity_blocks} — back off and retry",
+                    need + pending, free)
 
     def alloc(self, slot, ntokens):
         """Grow ``slot``'s allocation to cover ``ntokens`` tokens (no-op
-        when it already does); returns blocks added. Raises
-        :class:`KVPoolExhaustedError` with nothing changed when the free
-        list cannot cover the growth."""
+        when it already does; cold prefix entries are evicted when the
+        free list is short); returns blocks added. Raises
+        :class:`KVPoolExhaustedError` with nothing changed when the
+        growth cannot be covered."""
         slot = int(slot)
         need = self.blocks_for_tokens(ntokens)
         with self._lock:
             have = self._slot_nblocks.get(slot, 0)
             add = need - have
             if add > len(self._free):
+                self._evict_cold_locked(add)
+            if add > len(self._free):
                 free = len(self._free)
-                raise KVPoolExhaustedError(
-                    f"KV pool exhausted: slot {slot} needs {add} more "
-                    f"block(s) for {ntokens} tokens, {free} free of "
-                    f"{self.capacity_blocks}", needed=add, free=free,
-                    capacity=self.capacity_blocks)
+                raise self._exhausted(
+                    f"KV pool {self.name!r} exhausted: slot {slot} needs "
+                    f"{add} more block(s) for {ntokens} tokens, {free} "
+                    f"free of {self.capacity_blocks}", add, free)
             for j in range(have, need):
-                self.tables[slot, j] = self._free.pop()
+                b = self._free.pop()
+                self._refs[b] = 1
+                self.tables[slot, j] = b
             if add > 0:
                 self._slot_nblocks[slot] = need
             self._slot_tokens[slot] = max(self._slot_tokens.get(slot, 0),
@@ -163,25 +237,230 @@ class KVBlockPool:
         return self.alloc(slot, int(pos) + 1)
 
     def free_slot(self, slot):
-        """Return every block ``slot`` holds; idempotent. Returns the
-        number of blocks freed."""
+        """Release every block ``slot`` holds; a block shared with the
+        prefix cache or another slot returns to the free list only with
+        its last owner. Idempotent. Returns the blocks physically
+        freed."""
         slot = int(slot)
         with self._lock:
             n = self._slot_nblocks.pop(slot, 0)
             self._slot_tokens.pop(slot, None)
-            self._free.extend(int(b) for b in self.tables[slot, :n])
+            freed = self._release_blocks_locked(
+                int(b) for b in self.tables[slot, :n])
             self.tables[slot, :] = 0
-        return n
+        return freed
+
+    def _release_blocks_locked(self, block_ids):
+        """Drop one reference per block; free it at refcount 0. Returns
+        the blocks freed."""
+        freed = 0
+        for b in block_ids:
+            left = self._refs.get(b, 1) - 1
+            if left <= 0:
+                self._refs.pop(b, None)
+                self._free.append(b)
+                freed += 1
+            else:
+                self._refs[b] = left
+        return freed
+
+    def _cached_only_locked(self):
+        return sum(1 for b, c in self._cache_ref.items()
+                   if c > 0 and self._refs.get(b, 0) == c)
 
     def blocks_in_use(self):
+        """Blocks held by slots. Blocks held only by the prefix cache are
+        evictable capital, not load (:meth:`cached_blocks`)."""
         with self._lock:
-            return self.capacity_blocks - len(self._free)
+            return self.capacity_blocks - len(self._free) \
+                - self._cached_only_locked()
+
+    def cached_blocks(self):
+        """Blocks held only by the prefix cache (evictable)."""
+        with self._lock:
+            return self._cached_only_locked()
+
+    def holders(self):
+        """``{slot: blocks held}`` for every slot holding blocks."""
+        with self._lock:
+            return dict(self._slot_nblocks)
+
+    def reclaim_leaks(self, live_slots):
+        """The leak sweep: free the blocks of every slot not in
+        ``live_slots`` (a finished slot should have freed its own).
+        Returns the blocks physically freed; shared blocks stay with
+        their other owners."""
+        live = {int(s) for s in live_slots}
+        with self._lock:
+            leaked = [s for s, n in self._slot_nblocks.items()
+                      if s not in live and n > 0]
+        total = sum(self.free_slot(s) for s in leaked)
+        self.counters["leaked_blocks"] += total
+        return total
+
+    # -- block-granular prefix cache (refcounts + copy-on-write) ----------
+    def match_prefix(self, prompt):
+        """Longest cached prefix of ``prompt``: the exact prompt first,
+        then block-aligned lengths descending. Returns ``{"key",
+        "tokens", "blocks"}`` or None; a hit refreshes its LRU place."""
+        if not self.prefix_enabled:
+            return None
+        toks = np.asarray(prompt, np.int32).reshape(-1)
+        L = int(toks.size)
+        if L < 1:
+            return None
+        bs = self.block_size
+        lengths = [L] + [n for n in range((L // bs) * bs, 0, -bs) if n != L]
+        with self._lock:
+            for n in lengths:
+                key = prompt_prefix_key(toks, n)
+                e = self._prefix.get(key)
+                if e is None or e["tokens"] != n:
+                    continue
+                self._prefix.move_to_end(key)
+                e["hits"] += 1
+                self.counters["prefix_hits"] += 1
+                return {"key": key, "tokens": n, "blocks": list(e["blocks"])}
+            self.counters["prefix_misses"] += 1
+        return None
+
+    def adopt_prefix(self, slot, match):
+        """Attach a :meth:`match_prefix` hit's blocks to the empty
+        ``slot`` by reference. The adopter owes a :meth:`prepare_write`
+        before any write into the adopted range."""
+        slot = int(slot)
+        blocks = [int(b) for b in match["blocks"]]
+        tokens = int(match["tokens"])
+        with self._lock:
+            if self._slot_nblocks.get(slot, 0):
+                raise ValueError(
+                    f"KV pool {self.name!r} slot {slot} already holds "
+                    f"blocks — free it before adopting a cached prefix")
+            for j, b in enumerate(blocks):
+                self.tables[slot, j] = b
+                self._refs[b] = self._refs.get(b, 0) + 1
+            self._slot_nblocks[slot] = len(blocks)
+            self._slot_tokens[slot] = tokens
+            self.counters["prefix_tokens_reused"] += tokens
+        return len(blocks)
+
+    def prefix_insert(self, prompt, slot):
+        """Deposit ``slot``'s prefilled prompt blocks into the index at
+        the exact length and, when distinct, the block-aligned one (the
+        cache co-owns them, so they outlive the slot until evicted).
+        Returns the entries inserted."""
+        if not self.prefix_enabled:
+            return 0
+        toks = np.asarray(prompt, np.int32).reshape(-1)
+        L = int(toks.size)
+        slot = int(slot)
+        if L < 1:
+            return 0
+        bs = self.block_size
+        lengths = [L]
+        aligned = (L // bs) * bs
+        if aligned and aligned != L:
+            lengths.append(aligned)
+        inserted = 0
+        with self._lock:
+            held = self._slot_nblocks.get(slot, 0)
+            for n in lengths:
+                nb = _ceil_div(n, bs)
+                if nb < 1 or nb > held:
+                    continue
+                key = prompt_prefix_key(toks, n)
+                if key in self._prefix:
+                    self._prefix.move_to_end(key)
+                    continue
+                blocks = [int(self.tables[slot, j]) for j in range(nb)]
+                if 0 in blocks:
+                    continue
+                for b in blocks:
+                    self._refs[b] = self._refs.get(b, 0) + 1
+                    self._cache_ref[b] = self._cache_ref.get(b, 0) + 1
+                self._prefix[key] = {"blocks": blocks, "tokens": n,
+                                     "hits": 0}
+                inserted += 1
+        return inserted
+
+    def prepare_write(self, slot, start_pos, end_pos):
+        """Copy-on-write barrier: every block covering cache positions
+        ``[start_pos, end_pos)`` of ``slot`` is made the slot's own
+        before a write lands there. Shared blocks are copied into fresh
+        ones on the device (in place, one indexed copy per pool tensor)
+        and the slot's table re-pointed; the other owners keep the
+        originals. Raises :class:`KVPoolExhaustedError`, after evicting
+        cold prefixes, with the table unchanged when no block is free
+        for a copy. Returns the blocks copied."""
+        slot = int(slot)
+        start, end = int(start_pos), int(end_pos)
+        if end <= start:
+            return 0
+        bs = self.block_size
+        j0, j1 = start // bs, _ceil_div(end, bs)
+
+        def shared():
+            return [j for j in range(j0, j1)
+                    if self.tables[slot, j] != 0
+                    and self._refs.get(int(self.tables[slot, j]), 1) > 1]
+        copies = []
+        with self._lock:
+            js = shared()
+            if len(js) > len(self._free):
+                # eviction can unshare a block too: scan again
+                self._evict_cold_locked(len(js))
+                js = shared()
+            if len(js) > len(self._free):
+                raise self._exhausted(
+                    f"KV pool {self.name!r} cannot copy-on-write {len(js)} "
+                    f"shared block(s) for slot {slot}: {len(self._free)} "
+                    f"free of {self.capacity_blocks}", len(js),
+                    len(self._free))
+            for j in js:
+                b = int(self.tables[slot, j])
+                nb = self._free.pop()
+                self._refs[b] -= 1
+                self._refs[nb] = 1
+                self.tables[slot, j] = nb
+                copies.append((b, nb))
+            self.counters["prefix_cow_copies"] += len(copies)
+        if copies:
+            self._copy_blocks([a for a, _ in copies], [b for _, b in copies])
+        return len(copies)
+
+    def _evict_cold_locked(self, need):
+        """Evict LRU prefix entries until ``need`` blocks are free or the
+        index is empty. Returns the entries evicted."""
+        evicted = 0
+        while self._prefix and len(self._free) < need:
+            _, e = self._prefix.popitem(last=False)
+            for b in e["blocks"]:
+                c = self._cache_ref.get(b, 0) - 1
+                if c <= 0:
+                    self._cache_ref.pop(b, None)
+                else:
+                    self._cache_ref[b] = c
+            self._release_blocks_locked(e["blocks"])
+            self.counters["prefix_evictions"] += 1
+            evicted += 1
+        return evicted
+
+    def _copy_blocks(self, src_ids, dst_ids):
+        """Device copy of blocks ``src_ids`` into ``dst_ids`` in every
+        pool tensor (scales included), in place."""
+        src = torch.as_tensor(src_ids, dtype=torch.long).to(self.device)
+        dst = torch.as_tensor(dst_ids, dtype=torch.long).to(self.device)
+        for layer in self.layers():
+            for t in layer:
+                if t is not None:
+                    t[dst] = t[src]
 
     # -- device pool ------------------------------------------------------
     def layers(self):
         """Per layer ``(k_pool, v_pool, k_scale, v_scale)`` (scales None
         unless int8), built as zeros on first use (scales as ones, so a
-        never-written slot dequantizes to 0)."""
+        never-written slot dequantizes to 0) and written in place from
+        then on."""
         if self._layers is None:
             shape = (self.num_blocks, self.num_heads, self.block_size,
                      self.d_head)
@@ -198,10 +477,30 @@ class KVBlockPool:
             self._layers = layers
         return self._layers
 
+    def tensors(self):
+        """Every device tensor of the pool, in one fixed order (what a
+        captured decode graph holds the addresses of)."""
+        return [t for layer in self.layers() for t in layer
+                if t is not None]
+
     def drop_device(self):
-        """Forget the device pool; the next :meth:`layers` rebuilds it.
-        Host accounting is untouched."""
+        """Release the device pool; the next :meth:`layers` builds it
+        anew (and every graph over the old one is captured again). Host
+        accounting is untouched."""
         self._layers = None
+
+    def reset(self):
+        """Free every block, clear the prefix index and release the
+        device pool."""
+        with self._lock:
+            self._free = list(range(self.num_blocks - 1, 0, -1))
+            self._slot_nblocks.clear()
+            self._slot_tokens.clear()
+            self._refs.clear()
+            self._cache_ref.clear()
+            self._prefix.clear()
+            self.tables[:] = 0
+            self._layers = None
 
     def device_tables(self, rows=None):
         """The block tables (rows ``rows``, default all) as an int32
@@ -240,15 +539,139 @@ class KVBlockPool:
                 else:
                     pool[blocks] = vals.to(pool.dtype)
 
+    # -- migration (disaggregated prefill / decode) -----------------------
+    def export_slot(self, slot):
+        """``slot``'s allocated blocks as a wire-safe payload: the
+        geometry fields and per layer ``k_i``/``v_i`` ``[nblocks, H,
+        block_size, D]`` (bf16 as uint16 bits; ``ks_i``/``vs_i`` float32
+        scales for int8). Raises ``ValueError`` when the slot holds
+        nothing."""
+        slot = int(slot)
+        with self._lock:
+            n = int(self._slot_nblocks.get(slot, 0))
+            tokens = int(self._slot_tokens.get(slot, 0))
+            ids = self.tables[slot, :n].astype(np.int64)
+        if n == 0:
+            raise ValueError(f"KV pool {self.name!r} slot {slot} holds no "
+                             f"blocks — nothing to export")
+        idx = torch.from_numpy(ids).to(self.device)
+        payload = {"fmt": KV_WIRE_FMT, "pool_dtype": self.dtype,
+                   "block_size": self.block_size,
+                   "num_layers": self.num_layers,
+                   "num_heads": self.num_heads, "d_head": self.d_head,
+                   "tokens": tokens, "nblocks": n}
+        for i, (pk, pv, pks, pvs) in enumerate(self.layers()):
+            for kind, pool, sc in (("k", pk, pks), ("v", pv, pvs)):
+                a = pool[idx]
+                if self.dtype == "bf16":
+                    a = a.view(torch.int16)
+                payload[f"{kind}_{i}"] = a.cpu().numpy().view(
+                    _WIRE_NP[self.dtype])
+                if self.quantized:
+                    payload[f"{kind}s_{i}"] = sc[idx].cpu().numpy()
+        self.counters["blocks_exported"] += n
+        return payload
+
+    @staticmethod
+    def payload_bytes(payload):
+        """Array bytes a migration payload carries."""
+        return int(sum(a.nbytes for a in payload.values()
+                       if isinstance(a, np.ndarray)))
+
+    def import_slot(self, slot, payload):
+        """Write a migrated payload into ``slot``: the geometry is checked
+        against this pool (a mismatch is a :class:`BadRequestError`:
+        retrying cannot help), the blocks are allocated (typed
+        :class:`KVPoolExhaustedError` with nothing held), then the arrays
+        are written through the fresh table entries in place. Returns the
+        blocks imported."""
+        slot = int(slot)
+        tokens, n = self._validate_payload(payload)
+        self.alloc(slot, tokens)
+        try:
+            with self._lock:
+                ids = self.tables[slot, :n].astype(np.int64)
+            idx = torch.from_numpy(ids).to(self.device)
+            for i, (pk, pv, pks, pvs) in enumerate(self.layers()):
+                for kind, pool, sc in (("k", pk, pks), ("v", pv, pvs)):
+                    a = np.ascontiguousarray(payload[f"{kind}_{i}"])
+                    t = torch.from_numpy(a.view(np.int16)).view(
+                        torch.bfloat16) if self.dtype == "bf16" \
+                        else torch.from_numpy(a)
+                    pool[idx] = t.to(self.device)
+                    if self.quantized:
+                        sc[idx] = torch.from_numpy(np.ascontiguousarray(
+                            payload[f"{kind}s_{i}"])).to(self.device)
+        except Exception:
+            self.free_slot(slot)
+            raise
+        self.counters["blocks_imported"] += n
+        return n
+
+    def _validate_payload(self, payload):
+        """Geometry, type and shape checks of a migration payload; returns
+        ``(tokens, nblocks)``. Every refusal is a :class:`BadRequestError`."""
+        if not isinstance(payload, dict) \
+                or payload.get("fmt") != KV_WIRE_FMT:
+            got = payload.get("fmt") if isinstance(payload, dict) \
+                else type(payload).__name__
+            raise BadRequestError(f"KV payload format {got!r} is not "
+                                  f"{KV_WIRE_FMT!r}")
+        for field, mine in (("pool_dtype", self.dtype),
+                            ("block_size", self.block_size),
+                            ("num_layers", self.num_layers),
+                            ("num_heads", self.num_heads),
+                            ("d_head", self.d_head)):
+            if payload.get(field) != mine:
+                raise BadRequestError(
+                    f"KV payload {field}={payload.get(field)!r} does not "
+                    f"match the receiving pool's {mine!r} — prefill and "
+                    f"decode replicas must share the cache geometry")
+        try:
+            tokens = int(payload["tokens"])
+            n = int(payload["nblocks"])
+        except (KeyError, TypeError, ValueError):
+            raise BadRequestError("KV payload lacks integer tokens/nblocks "
+                                  "fields") from None
+        if tokens < 1 or n != self.blocks_for_tokens(tokens):
+            raise BadRequestError(
+                f"KV payload claims {tokens} tokens in {n} blocks; "
+                f"{self.blocks_for_tokens(tokens)} blocks expected at "
+                f"block_size={self.block_size}")
+        if tokens > self.max_seq_len:
+            raise BadRequestError(
+                f"KV payload holds {tokens} tokens but the receiving "
+                f"pool's rows cap at max_seq_len={self.max_seq_len}")
+        shape = (n, self.num_heads, self.block_size, self.d_head)
+        want = [(f"{kind}_{i}", shape, _WIRE_NP[self.dtype])
+                for i in range(self.num_layers) for kind in ("k", "v")]
+        if self.quantized:
+            want += [(f"{kind}s_{i}", shape[:3], np.float32)
+                     for i in range(self.num_layers) for kind in ("k", "v")]
+        for key, shp, dt in want:
+            a = payload.get(key)
+            if not isinstance(a, np.ndarray) or tuple(a.shape) != shp \
+                    or a.dtype != dt:
+                raise BadRequestError(
+                    f"KV payload array {key} is "
+                    f"{getattr(a, 'shape', None)} "
+                    f"{getattr(a, 'dtype', None)}, expected {shp} "
+                    f"{np.dtype(dt)}")
+        return tokens, n
+
     # -- reporting --------------------------------------------------------
     def stats(self):
-        """Occupancy / fragmentation snapshot (plain ints and floats)."""
+        """Occupancy / fragmentation / prefix-cache snapshot (plain ints
+        and floats)."""
         with self._lock:
-            in_use = self.capacity_blocks - len(self._free)
+            cached = self._cached_only_locked()
+            in_use = self.capacity_blocks - len(self._free) - cached
             tokens = sum(self._slot_tokens.values())
             slots_held = sum(1 for n in self._slot_nblocks.values() if n)
+            entries = len(self._prefix)
+            counters = dict(self.counters)
         cap_tokens = in_use * self.block_size
-        return {
+        out = {
             "blocks": self.num_blocks,
             "block_size": self.block_size,
             "dtype": self.dtype,
@@ -261,6 +684,12 @@ class KVBlockPool:
             if cap_tokens else 0.0,
             "tokens_held": tokens,
             "slots_holding_blocks": slots_held,
-            "bytes_in_use": in_use * self.block_bytes(),
+            "prefix_entries": entries,
+            "evictable_blocks": cached,
+            "bytes_in_use": (in_use + cached) * self.block_bytes(),
             "bytes_capacity": self.capacity_blocks * self.block_bytes(),
+            "saved_vs_dense_bytes": self.slots * self.dense_slot_bytes()
+            - (in_use + cached) * self.block_bytes(),
         }
+        out.update(counters)
+        return out

@@ -6,9 +6,15 @@ infer stages are ``queue`` (enqueue to batch flush), ``pad`` (batch
 assembly), ``compile`` (capture of a new signature), ``execute`` (one
 padded batch through its captured program) and ``total`` (enqueue to
 reply); the generation stages are ``prefill``, ``decode``, ``sample``
-and ``token`` (one whole decode-loop step). ``snapshot()`` adds
-``throughput_rps``, ``mean_batch_size``, ``batch_occupancy`` (real rows
-over bucket rows), ``tokens_per_s`` and ``decode_occupancy``.
+and ``token`` (one whole decode-loop step). The generation counters
+include the speculative steps (``spec_steps``, ``spec_drafted``,
+``spec_accepted``, ``spec_rejected``: verify steps with a rejected
+draft) and the KV migrations (``kv_exports``, ``kv_imports``).
+``snapshot()`` adds ``throughput_rps``, ``mean_batch_size``,
+``batch_occupancy`` (real rows over bucket rows), ``tokens_per_s``,
+``decode_occupancy`` and ``spec_accept_ratio``; the server adds the
+pool's ``kvpool_*`` gauges (occupancy, prefix-cache hits, evictions,
+copy-on-writes, leaks) beside them.
 """
 import threading
 import time
@@ -74,7 +80,8 @@ _COUNTER_KEYS = (
     "shed_overload", "shed_deadline", "engine_failures",
     "batches", "rows", "padded_rows", "compiles",
     "generate_requests", "tokens_generated", "decode_steps",
-    "decode_rows", "decode_slot_rows",
+    "decode_rows", "decode_slot_rows", "kv_exports", "kv_imports",
+    "spec_steps", "spec_drafted", "spec_accepted", "spec_rejected",
 )
 
 
@@ -95,6 +102,10 @@ class ServingStats:
     def bump(self, name, n=1):
         with self._lock:
             self._c[name] += n
+
+    def counter(self, name):
+        with self._lock:
+            return self._c[name]
 
     def observe_batch(self, rows, capacity):
         """One executed batch: ``rows`` real rows in a bucket of
@@ -127,6 +138,9 @@ class ServingStats:
         out["decode_occupancy"] = round(
             c["decode_rows"] / c["decode_slot_rows"], 4) \
             if c["decode_slot_rows"] else 0.0
+        out["spec_accept_ratio"] = round(
+            c["spec_accepted"] / c["spec_drafted"], 4) \
+            if c["spec_drafted"] else 0.0
         for s, h in self.hist.items():
             for k, v in h.snapshot().items():
                 out[f"{s}_{k}"] = v

@@ -8,8 +8,10 @@ the connection thread (backpressure is refused at once, never queued),
 and one ``MicroBatcher`` thread feeds the ``ServingEngine`` padded
 batches of requests grouped across clients. ``generator=`` adds the
 generation endpoint: one ``DecodeBatcher`` thread drives the decode
-bank. Supervision, the load-shed breaker, brownout, hedging, request
-dedup and hot weight reload are not ported.
+bank, and the ``prefill`` op with ``generate``'s ``kv=`` split a request
+between two servers (disaggregated prefill and decode over the wire).
+Supervision, the load-shed breaker, brownout, hedging, request dedup and
+hot weight reload are not ported.
 
 Wire protocol:
 
@@ -20,6 +22,15 @@ Wire protocol:
               "temperature": float, "top_k": int, "eos_id": int|None,
               "deadline_ms": float|None}
     reply    {"ok": True, "tokens": int32 array, "generated": int}
+             (with "kv": payload and "first_token": int the request
+              decodes migrated KV blocks from that token: no prefill)
+    request  {"op": "prefill", "tokens": int array, "max_new_tokens": int,
+              "temperature": float, "top_k": int,
+              "deadline_ms": float|None}
+    reply    {"ok": True, "kv": payload, "first_token": int}
+             (the prefill half of disaggregated serving: the prompt's KV
+              blocks out of the paged pool, KVBlockPool.export_slot's
+              payload with first_token and prompt_tokens inside)
     error    {"ok": False, "etype": "DeadlineExceeded"|"Overloaded"
                                     |"Shutdown"|"BadRequest"|"Internal",
               "error": str}
@@ -229,20 +240,37 @@ class InferenceServer:
                            priority=priority).wait(timeout=timeout)
 
     def submit_generate(self, tokens, max_new_tokens=32, temperature=0.0,
-                        top_k=0, eos_id=None, deadline_ms=None):
+                        top_k=0, eos_id=None, deadline_ms=None,
+                        export_kv=False, kv=None, first_token=None):
         """Admit a generation request; returns the GenerationRequest
-        (``.wait()`` -> ``[np.int32 tokens]``). A request that could never
-        run (prompt + max_new_tokens past the cache, or bigger than the
-        whole pool) is refused here with :class:`BadRequestError`."""
+        (``.wait()`` -> ``[np.int32 tokens]``, or ``[payload]`` with
+        ``export_kv``). A request that could never run (prompt +
+        max_new_tokens past the cache, or bigger than the whole pool), a
+        migration without the paged pool, or a payload that does not
+        cover this prompt is refused here with
+        :class:`BadRequestError`."""
         if self.gen_queue is None:
             raise BadRequestError("this server has no generator: pass "
                                   "generator= to InferenceServer")
         ntokens = np.asarray(tokens).size
         self.gen_engine.admission_check(ntokens, max_new_tokens,
                                         static_only=True)
+        if (export_kv or kv is not None) and self.gen_engine.pool is None:
+            raise BadRequestError(
+                "disaggregated prefill/decode requires the paged KV pool "
+                "(paged=True / FLAGS_kv_paged) — the dense bank's rows are "
+                "not migratable")
+        if kv is not None:
+            claimed = kv.get("tokens") if isinstance(kv, dict) else None
+            if claimed != ntokens:
+                raise BadRequestError(
+                    f"migrated KV payload covers {claimed!r} tokens but "
+                    f"the prompt has {ntokens} — prefill and decode halves "
+                    f"disagree")
         return self.gen_queue.put(GenerationRequest(
             tokens, max_new_tokens=max_new_tokens, temperature=temperature,
-            top_k=top_k, eos_id=eos_id, deadline_ms=deadline_ms))
+            top_k=top_k, eos_id=eos_id, deadline_ms=deadline_ms,
+            export_kv=export_kv, kv=kv, first_token=first_token))
 
     def generate(self, tokens, max_new_tokens=32, temperature=0.0, top_k=0,
                  eos_id=None, deadline_ms=None, timeout=None):
@@ -267,6 +295,8 @@ class InferenceServer:
             if self.gen_engine.pool is not None:
                 for k, v in self.gen_engine.pool.stats().items():
                     extra[f"kvpool_{k}"] = v
+            if self.decode_batcher.spec_k > 0:
+                extra.update(self.decode_batcher.spec_snapshot())
         return self.stats_sink.snapshot(extra=extra)
 
     # -- network front end ------------------------------------------------
@@ -319,6 +349,8 @@ class InferenceServer:
             return self._handle_infer(msg)
         if op == "generate":
             return self._handle_generate(msg)
+        if op == "prefill":
+            return self._handle_generate(msg, export_kv=True)
         return {"ok": False, "etype": "BadRequest",
                 "error": f"unknown op {op!r}"}
 
@@ -347,25 +379,29 @@ class InferenceServer:
         except Exception as e:  # noqa: BLE001 — surface, don't die
             return _error_reply(e)
 
-    def _handle_generate(self, msg):
+    def _handle_generate(self, msg, export_kv=False):
+        """``generate`` (with ``kv``/``first_token``: from migrated
+        blocks) and, with ``export_kv``, ``prefill``."""
         try:
             tokens = msg.get("tokens")
             if tokens is None:
                 raise ValueError("'tokens' (1-D int prompt) is required")
+            first = msg.get("first_token")
             req = self.submit_generate(
                 np.asarray(tokens),
                 max_new_tokens=int(msg.get("max_new_tokens", 32)),
                 temperature=float(msg.get("temperature", 0.0)),
                 top_k=int(msg.get("top_k", 0)), eos_id=msg.get("eos_id"),
-                deadline_ms=msg.get("deadline_ms"))
+                deadline_ms=msg.get("deadline_ms"), export_kv=export_kv,
+                kv=None if export_kv else msg.get("kv"),
+                first_token=None if export_kv or first is None
+                else int(first))
         except Exception as e:  # noqa: BLE001 — typed refusal reply
             return _error_reply(e)
         budget = msg.get("deadline_ms")
         wait_s = (budget / 1e3 + 120.0) if budget else 600.0
         try:
             out, = req.wait(timeout=wait_s)
-            return {"ok": True, "tokens": np.asarray(out, np.int32),
-                    "generated": int(np.asarray(out).size)}
         except TimeoutError:
             # abandoned: the batcher reclaims the slot on its next step
             err = DeadlineExceededError(
@@ -375,6 +411,11 @@ class InferenceServer:
             return _error_reply(err)
         except Exception as e:  # noqa: BLE001 — surface, don't die
             return _error_reply(e)
+        if export_kv:
+            return {"ok": True, "kv": out,
+                    "first_token": int(out["first_token"])}
+        return {"ok": True, "tokens": np.asarray(out, np.int32),
+                "generated": int(np.asarray(out).size)}
 
 
 # reply etype <-> exception; subclasses before their bases
@@ -439,10 +480,13 @@ class Client:
         return [np.asarray(a) for a in self._call(msg)["fetch"]]
 
     def generate(self, tokens, max_new_tokens=32, temperature=0.0, top_k=0,
-                 eos_id=None, deadline_ms=None):
+                 eos_id=None, deadline_ms=None, kv=None, first_token=None):
         """New tokens for one prompt (1-D int) as np.int32 (EOS
-        excluded)."""
-        reply = self._call({
+        excluded). With ``kv`` (a :meth:`prefill` payload from another
+        server) the server decodes from those blocks and ``first_token``
+        (default: the payload's) with no prefill; the reply then starts
+        with that first token."""
+        msg = {
             "op": "generate",
             "tokens": np.asarray(tokens, dtype=np.int32).ravel(),
             "max_new_tokens": int(max_new_tokens),
@@ -450,8 +494,27 @@ class Client:
             "top_k": int(top_k),
             "eos_id": None if eos_id is None else int(eos_id),
             "deadline_ms": deadline_ms,
-        })
-        return np.asarray(reply["tokens"], dtype=np.int32)
+        }
+        if kv is not None:
+            msg["kv"] = dict(kv)
+            msg["first_token"] = int(kv["first_token"] if first_token is None
+                                     else first_token)
+        return np.asarray(self._call(msg)["tokens"], dtype=np.int32)
+
+    def prefill(self, tokens, max_new_tokens=32, temperature=0.0, top_k=0,
+                deadline_ms=None):
+        """The prefill half of disaggregated serving: the server (paged)
+        prefills the prompt, samples its first token and returns the KV
+        payload (``first_token`` and ``prompt_tokens`` inside), ready for
+        another server's :meth:`generate` ``kv=``."""
+        return self._call({
+            "op": "prefill",
+            "tokens": np.asarray(tokens, dtype=np.int32).ravel(),
+            "max_new_tokens": int(max_new_tokens),
+            "temperature": float(temperature),
+            "top_k": int(top_k),
+            "deadline_ms": deadline_ms,
+        })["kv"]
 
     def stats(self):
         return self._call({"op": "stats"})["stats"]

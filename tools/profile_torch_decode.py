@@ -5,7 +5,8 @@
 
 Builds GPT-base (seeded random weights), prefills 8 prompts of 64..1024
 tokens, then runs ``--steps`` decode steps over the dense bank and over
-the fp32 paged pool under ``torch.profiler``. Prints one JSON line per
+the fp32 paged pool under ``torch.profiler`` (each step a replay of its
+captured CUDA graph, ``GPTGenerator.run_decode[_paged]``). Prints one JSON line per
 mode: wall ms per step (host clock, synchronized), device kernel time per
 step (the time in the trace during which some CUDA kernel runs: kernels
 that overlap, as a programmatic dependent launch overlaps the kernel
