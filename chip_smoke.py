@@ -265,7 +265,38 @@ NVIDIA GPU.
       one whose to_variable data change each raise GraphCaptureError at
       the capturing call, with no eager pass instead and every
       parameter and Adam slot unchanged.
-11. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+11. Control flow and the sequence models, after the dygraph phases, each
+    path driven with the launch counts zeroed and read (no kernel of the
+    port may launch: the JAX package lowers them to XLA loops), each
+    line naming the card and its power limit:
+    - seq2seq_train: models.seq2seq's GRU encoder-decoder at the
+      PaddleNLP seq2seq baseline's IWSLT'15 en-vi widths (vocabularies
+      17191 / 7709, embedding and hidden 512, B128, 50 source and 50
+      target steps), Adam 1e-3, fp32, one seeded batch on the device: 8
+      eager Executor.run steps against a run_steps slab of 8 from a
+      copied start (losses, every parameter and Adam slot bitwise; every
+      loss finite, falling over the slab); eager and run_steps ms a
+      step, device ms, launches per eager step and per replay, idle
+      shares, capture seconds, graph pool bytes, peak memory, target
+      tokens/s, and the device time of the recurrent ops and of their
+      generic-vjp grads (which recompute the recurrence);
+    - seq2seq_decode: the beam decode (beam 10, 50 steps) over the
+      trained scope on 4 seeded sentences, eagerly and as a
+      CapturedProgram replay (bitwise), then saved by
+      save_inference_model (pruned through the encoder's recurrent
+      sub-block) and run by AnalysisPredictor (the executor's
+      sequences); ms a sentence both ways;
+    - control_flow: a bounded While with a grad (a run_steps slab
+      bitwise its eager steps), an unbounded While (its trip count a
+      numpy loop's), an unbounded While and a cond in a training step
+      (run_steps raises GraphCaptureError naming the op, the scope
+      unchanged), the Switch LR schedule of tests/test_control_flow.py
+      (the JAX package's values, SWITCH_LR_SCHEDULE);
+    - sequence_lstm: tests/test_book.py's sentiment LSTM (the lstm op
+      and sequence_pool "last") and its dynamic_gru encoder-decoder at
+      E512 H512 B128 T50 vocab 7709 with seeded lengths: 4 eager steps
+      and a run_steps slab of 4, bitwise each other, the losses falling.
+12. Prints the {"kernels": [...]} line (K1-K5), then as the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
@@ -4383,6 +4414,570 @@ def dygraph_capture_refusals(torch, np, place=None, width=64, seed=9):
     return rec
 
 
+# ------------------------------------- control flow and the sequence models
+
+# PaddlePaddle/models PaddleNLP/seq2seq/seq2seq (run.sh / infer.sh):
+# IWSLT'15 English->Vietnamese, hidden 512, embedding 512, vocabularies
+# 17191 / 7709, batch 128, sentences up to 50 tokens, Adam 1e-3, beam 10
+SEQ2SEQ = {"src_vocab": 17191, "tgt_vocab": 7709, "emb": 512, "hidden": 512,
+           "T_src": 50, "T_tgt": 50, "B": 128, "lr": 1e-3, "beam": 10,
+           "max_len": 50, "sentences": 4}
+# the book's sequence models at the seq2seq widths
+SEQ_BOOK = {"E": 512, "H": 512, "B": 128, "T": 50, "vocab": 7709,
+            "lr": 1e-3}
+# tests/test_control_flow.py's Switch schedule: (step, the lr the JAX
+# package's run gives, as float32), held to the JAX package on the CPU by
+# tests/test_torch_control_flow.py
+SWITCH_LR_SCHEDULE = ((50.0, 0.10000000149011612),
+                      (500.0, 0.009999999776482582),
+                      (5000.0, 0.0010000000474974513))
+BOS, EOS = 1, 2
+
+
+def seq2seq_program(cfg, decode=False):
+    """models.seq2seq's training program (+ ``Adam(lr)``) or its beam
+    decode program at ``cfg``'s widths. Returns (main, startup,
+    outputs)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import seq2seq
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 8
+    widths = (cfg["src_vocab"], cfg["tgt_vocab"], cfg["emb"], cfg["hidden"],
+              cfg["T_src"])
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        if decode:
+            out = seq2seq.seq2seq_beam_decode(
+                *widths, max_len=cfg["max_len"], beam_size=cfg["beam"],
+                bos_id=BOS, eos_id=EOS)
+        else:
+            out = seq2seq.seq2seq_train(*widths, cfg["T_tgt"], cfg["B"])
+            fluid.optimizer.Adam(cfg["lr"]).minimize(out["loss"])
+    return main, startup, out
+
+
+def seq2seq_batch(torch, np, cfg, device, seed=0):
+    """One seeded batch on ``device``: src [T_src, B], tgt_in [T_tgt, B]
+    (BOS first) and tgt_out (shifted, EOS last), ids past BOS/EOS."""
+    rng = np.random.default_rng(seed)
+    B, T = cfg["B"], cfg["T_tgt"]
+    src = rng.integers(3, cfg["src_vocab"], (cfg["T_src"], B))
+    tgt = rng.integers(3, cfg["tgt_vocab"], (T - 1, B))
+    tin = np.vstack([np.full((1, B), BOS), tgt])
+    tout = np.vstack([tgt, np.full((1, B), EOS)])
+    return {n: torch.from_numpy(a.astype(np.int64)).to(device)
+            for n, a in (("src", src), ("tgt_in", tin), ("tgt_out", tout))}
+
+
+def _op_annotations(torch, types):
+    """Patch the interpreter so each top-level op of ``types`` runs under
+    a ``torch.profiler.record_function("op::<type>")`` range. Returns the
+    undo."""
+    from paddle_tpu_torch.framework import lowering
+    plain = lowering.run_op
+
+    def run_op(ctx, op):
+        if op.type in types and ctx.block.idx == 0:
+            with torch.profiler.record_function(f"op::{op.type}"):
+                return plain(ctx, op)
+        return plain(ctx, op)
+
+    lowering.run_op = run_op
+    return lambda: setattr(lowering, "run_op", plain)
+
+
+def _range_device_ms(torch, fn, names):
+    """(device ms of one call of ``fn``, {name: device ms of the kernels
+    launched inside the ``record_function`` range ``name``}) from
+    torch.profiler. A kernel belongs to the range whose host-side span
+    holds the start of the op that launched it, on any thread: the
+    backward kernels that autograd launches from its own thread while
+    the range waits for them count, and an eager range's idle gaps on
+    the device do not."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    total = sum(float(e.cuda_time if getattr(e, "device_time", None) is None
+                      else e.device_time)
+                for e in events if e.device_type == cuda
+                and e.name not in names)
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in events if e.device_type != cuda and e.name in names]
+    ranges = dict.fromkeys(names, 0.0)
+    ranges["all launching ops"] = 0.0      # holds the attribution to total
+    for e in events:
+        if e.device_type == cuda or not e.kernels:
+            continue
+        ms = sum(k.duration for k in e.kernels) / 1e3
+        ranges["all launching ops"] += ms
+        for name, a, b in spans:
+            if a <= e.time_range.start < b:
+                ranges[name] += ms
+                break
+    return total / 1e3, {n: (v if spans else None)
+                         for n, v in ranges.items()}
+
+
+def seq2seq_train(torch, np, place=None, cfg=SEQ2SEQ, K=8, eager_timed=4):
+    """The slice's main path: the GRU seq2seq at IWSLT'15 en-vi widths
+    (``SEQ2SEQ``) trained by ``Executor.run`` and by ``run_steps``, fp32,
+    from copies of one seeded startup, on one seeded batch repeated:
+
+    - K eager steps against one ``run_steps`` slab of K (one captured
+      CUDA graph per step): losses, every parameter and Adam slot
+      bitwise; every loss finite; the loss falls over the slab;
+    - the first ``eager_timed`` eager steps' wall ms, a second slab's ms
+      a step; device ms a step both ways (torch.profiler), kernel
+      launches per eager step and per replay, idle shares, the capture
+      seconds (first slab less its replays), the graph pool's bytes, the
+      peak memory over the eager steps and over the first slab, target
+      tokens/s (B x T_tgt a step);
+    - the share of an eager step's device time in the two ``recurrent``
+      ops and in their ``recurrent_grad`` ops (the generic vjp recomputes
+      the whole recurrence: its recompute is one ``recurrent`` forward
+      again).
+
+    Returns (record, the trained scope)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework.cuda_graph import GraphCaptureError
+    main, startup, out = seq2seq_program(cfg)
+    loss = out["loss"]
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    feed = seq2seq_batch(torch, np, cfg, exe.device)
+    slab = {n: torch.stack([t] * K) for n, t in feed.items()}
+    sA, sB = (copied_scope(torch, fluid, scope0) for _ in range(2))
+    del scope0
+    failures = []
+    base = _peak_base(torch, cuda)
+    eager, wall = [], []
+    for _ in range(K):
+        l, ms = _timed_wall(torch, cuda, lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=sA)[0])
+        eager.append(l)
+        wall.append(ms)
+    peak_eager = _peak_from(torch, cuda, base)
+    base = _peak_base(torch, cuda)
+    try:
+        got, first_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            main, feed=slab, fetch_list=[loss], scope=sB)[0])
+    except GraphCaptureError as e:
+        raise AssertionError(f"seq2seq_train: the step did not capture: "
+                             f"{e}") from e
+    peak_slab = _peak_from(torch, cuda, base)
+    diff = scope_diff(torch, sA, sB)
+    tokens = cfg["B"] * cfg["T_tgt"]
+    rec = {"phase": "seq2seq_train", **CARD,
+           **{k: cfg[k] for k in ("src_vocab", "tgt_vocab", "emb", "hidden",
+                                  "T_src", "T_tgt", "B")},
+           "optimizer": f"Adam({cfg['lr']})", "dtype": "float32", "K": K,
+           "eager_losses": [float(x) for x in eager],
+           "run_steps_losses": [float(x) for x in got],
+           "losses_bitwise": bool(np.array_equal(got, np.stack(eager))),
+           "scope_bitwise": not diff, "scope_diff": diff[:8],
+           "ops_as_built": len(main.global_block().ops),
+           "eager_ms_per_step": wall[:eager_timed],
+           "eager_ms_per_step_median": float(np.median(wall[1:eager_timed])),
+           "first_slab_s": first_ms / 1e3,
+           "peak_gb_eager": peak_eager, "peak_gb_over_first_slab": peak_slab}
+    _, ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+        main, feed=slab, fetch_list=[loss], scope=sB))
+    rec["run_steps_ms_per_step"] = ms / K
+    rec["capture_s"] = (first_ms - ms) / 1e3
+    rec["target_tokens_per_s_eager"] = \
+        tokens / rec["eager_ms_per_step_median"] * 1e3
+    rec["target_tokens_per_s_run_steps"] = \
+        tokens / rec["run_steps_ms_per_step"] * 1e3
+    if cuda:
+        ms, n = profiled_launches(torch, lambda: exe.run_steps(
+            main, feed=slab, fetch_list=[loss], scope=sB))
+        rec["device_ms_per_step_run_steps"] = ms / K
+        rec["launches_per_replay"] = n / K
+        undo = _op_annotations(torch, ("recurrent", "recurrent_grad"))
+        try:
+            dev, ranges = _range_device_ms(torch, lambda: exe.run(
+                main, feed=feed, fetch_list=[loss], scope=sA),
+                ("op::recurrent", "op::recurrent_grad"))
+        finally:
+            undo()
+        rec["device_ms_per_step_eager"] = dev
+        rec["launches_per_eager_step"] = profiled_launches(
+            torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=sA))[1]
+        fwd, grad = ranges.get("op::recurrent"), \
+            ranges.get("op::recurrent_grad")
+        rec["device_ms_by_launching_op"] = ranges.get("all launching ops")
+        rec["recurrent_device_ms"] = fwd
+        rec["recurrent_grad_device_ms"] = grad
+        # the grad's recompute is the forward recurrence run again
+        rec["recompute_share_of_device_ms"] = \
+            None if fwd is None else fwd / dev
+        rec["recurrent_grad_share_of_device_ms"] = \
+            None if grad is None else grad / dev
+        rec["idle_share_eager"] = 1 - dev / rec["eager_ms_per_step_median"]
+        rec["idle_share_run_steps"] = \
+            1 - rec["device_ms_per_step_run_steps"] / \
+            rec["run_steps_ms_per_step"]
+        rec["graph_pool_gb"] = _captured(exe).nbytes / 1e9
+    losses = rec["eager_losses"]
+    if not (rec["losses_bitwise"] and not diff):
+        failures.append(f"run_steps is not its eager steps: scope diff "
+                        f"{diff[:8]}")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(
+            rec["run_steps_losses"]))):
+        failures.append(f"non-finite losses {losses}")
+    if not rec["run_steps_losses"][-1] < rec["run_steps_losses"][0]:
+        failures.append(f"the loss did not fall over the slab: "
+                        f"{rec['run_steps_losses']}")
+    rec["ok"] = not failures
+    exe.close()
+    del sA
+    emit(rec)
+    if failures:
+        raise AssertionError(f"seq2seq_train: {failures}")
+    return rec, sB
+
+
+def seq2seq_decode(torch, np, scope, place=None, cfg=SEQ2SEQ, seed=21):
+    """Beam decode (``cfg["beam"]`` beams, ``cfg["max_len"]`` steps) of
+    ``cfg["sentences"]`` seeded source sentences over the trained
+    ``scope``: eagerly (``Executor.run``), as a ``CapturedProgram``
+    replay (the sequences and scores bitwise the eager run's), then saved
+    with ``io.save_inference_model`` (pruned through the encoder's
+    ``recurrent`` sub-block) and run by ``AnalysisPredictor`` from the
+    directory (the sequences equal the executor's). Prints ms a sentence
+    eager and by replay; no kernel of the port launches."""
+    import shutil
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import inference
+    from paddle_tpu_torch.framework import passes
+    from paddle_tpu_torch.framework.cuda_graph import CapturedProgram
+    main, _, dec = seq2seq_program(cfg, decode=True)
+    fetch = [dec["sequences"].name, dec["scores"].name]
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    feeds = [{"src": rng.integers(3, cfg["src_vocab"], (cfg["T_src"], 1))
+              .astype(np.int64)} for _ in range(cfg["sentences"])]
+    eager, wall = [], []
+    for f in feeds:
+        o, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+            main, feed=f, fetch_list=fetch, scope=scope))
+        eager.append(o)
+        wall.append(ms)
+    entry = CapturedProgram(passes.optimize_program(main, fetch), feeds[0],
+                            fetch, scope, exe.device)
+    replay, rwall = [], []
+    for f in feeds:
+        o, ms = _timed_wall(torch, cuda, lambda f=f: entry.run(f))
+        replay.append(o)
+        rwall.append(ms)
+    bitwise = all(np.array_equal(a, b) for e, r in zip(eager, replay)
+                  for a, b in zip(e, r))
+    d = os.path.join(SERVE_DIR, "seq2seq_decode")
+    shutil.rmtree(d, ignore_errors=True)
+    fluid.save_inference_model(d, ["src"], [dec["sequences"],
+                                            dec["scores"]], exe,
+                               main_program=main, scope=scope)
+    icfg = inference.AnalysisConfig(d)
+    if not cuda:
+        icfg.disable_gpu()
+    pred = inference.create_predictor(icfg)
+    served = [pred.run([f["src"]]) for f in feeds]
+    pred_equal = all(np.array_equal(s[0], e[0])
+                     for s, e in zip(served, eager))
+    seqs = np.stack([e[0] for e in eager])      # [n, T, 1, beam]
+    rec = {"phase": "seq2seq_decode", **CARD, "beam": cfg["beam"],
+           "max_len": cfg["max_len"], "sentences": len(feeds),
+           "eager_ms_per_sentence": wall,
+           "eager_ms_per_sentence_median": float(np.median(wall[1:])),
+           "replay_ms_per_sentence": rwall,
+           "replay_ms_per_sentence_median": float(np.median(rwall[1:])),
+           "graph_bytes": entry.nbytes, "replay_bitwise_eager": bitwise,
+           "predictor_equals_executor": pred_equal,
+           "saved_ops": len(pred.program().global_block().ops),
+           "best_beam_first_tokens": seqs[:, :4, 0, 0].tolist(),
+           "ids_in_vocab": bool(((seqs >= 0)
+                                 & (seqs < cfg["tgt_vocab"])).all())}
+    rec["ok"] = bitwise and pred_equal and rec["ids_in_vocab"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"seq2seq_decode: {rec}")
+    return rec
+
+
+def _steps_vs_slab(torch, np, fluid, exe, main, startup, fetch, feed, K):
+    """K eager ``run`` steps and one ``run_steps`` slab of K on ``feed``
+    from copies of one startup: (eager fetches, slab fetches, each
+    stacked [K, ...] per fetch, names whose final values differ)."""
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    sA, sB = (copied_scope(torch, fluid, scope0) for _ in range(2))
+    eager = [exe.run(main, feed=feed, fetch_list=fetch, scope=sA)
+             for _ in range(K)]
+    slab = {n: np.stack([a] * K) for n, a in feed.items()}
+    got = exe.run_steps(main, feed=slab, fetch_list=fetch, scope=sB)
+    return ([np.stack([e[i] for e in eager]) for i in range(len(fetch))],
+            got, scope_diff(torch, sA, sB))
+
+
+def _refused(torch, np, fluid, exe, main, startup, fetch, feed, K=2):
+    """``run_steps`` of a program whose op needs the host: the
+    ``GraphCaptureError`` (op type, message) or None, and whether the
+    scope came out unchanged."""
+    from paddle_tpu_torch.framework.cuda_graph import GraphCaptureError
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    exe.run(main, feed=feed, fetch_list=fetch, scope=scope)   # eager: fine
+    before = copied_scope(torch, fluid, scope)
+    slab = {n: np.stack([a] * K) for n, a in feed.items()}
+    err = None
+    try:
+        exe.run_steps(main, feed=slab, fetch_list=fetch, scope=scope)
+    except GraphCaptureError as e:
+        err = {"op_type": e.op_type, "message": str(e)[:200]}
+    return err, not scope_diff(torch, before, scope)
+
+
+def control_flow(torch, np, place=None, K=4):
+    """Small programs through the sub-block ops on the card:
+
+    - a bounded ``While`` (``max_trip_count``) whose body scales a
+      trained parameter, with its grad: a ``run_steps`` slab of K is
+      bitwise K eager steps;
+    - a dropout inside a ``StaticRNN`` step of a training step: the slab
+      bitwise the eager steps, one mask for every step of a run (as the
+      JAX package's scan body draws), a new one each run;
+    - an unbounded ``While`` (a data-dependent trip count): ``run``
+      gives the count a numpy loop gives, twice;
+    - an unbounded ``While`` and a ``cond`` in a training step: on the
+      card ``run_steps`` raises ``GraphCaptureError`` naming the op at
+      the capturing call and leaves the scope as it was (on the CPU,
+      where nothing is captured, the slab runs);
+    - the ``Switch`` LR schedule of tests/test_control_flow.py: ``run``
+      gives the JAX package's values (``SWITCH_LR_SCHEDULE``) exactly."""
+    import paddle_tpu_torch as fluid
+    L = fluid.layers
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    rec = {"phase": "control_flow", **CARD}
+    rng = np.random.default_rng(31)
+    xv = rng.standard_normal((8, 16)).astype(np.float32)
+
+    def program(body):
+        """x -> tanh fc -> ``body(x, h)`` -> (objective or None, extra
+        fetch); Adam on the objective (mean(h^2) when None)."""
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 5
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = L.data("x", [8, 16], dtype="float32")
+            h = L.fc(x, 16, act="tanh")
+            loss, extra = body(x, h)
+            if loss is None:
+                loss = L.mean(L.square(h))
+            fluid.optimizer.Adam(1e-2).minimize(loss)
+        return main, startup, loss, extra
+
+    def bounded(x, h):
+        w = L.create_parameter([16], "float32", name="cf.w")
+        i = L.fill_constant([1], "int64", 0)
+        n = L.fill_constant([1], "int64", 3)
+        acc = L.assign(h)
+        cond_v = L.less_than(i, n)
+        loop = L.While(cond_v, max_trip_count=6)
+        with loop.block():
+            L.assign(L.elementwise_mul(acc, w), acc)
+            L.increment(i, value=1)
+            L.less_than(i, n, cond=cond_v)
+        return L.mean(L.square(acc)), None
+
+    main, startup, loss, _ = program(bounded)
+    (eager,), (got,), diff = _steps_vs_slab(
+        torch, np, fluid, exe, main, startup, [loss], {"x": xv}, K)
+    rec["bounded_while"] = {"losses": got.tolist(),
+                            "bitwise": bool(np.array_equal(eager, got))
+                            and not diff, "scope_diff": diff[:8]}
+
+    def step_dropout(x, h):
+        steps = L.reshape(h, [4, 2, 16])
+        rnn = L.StaticRNN()
+        with rnn.step():
+            rnn.step_output(L.dropout(rnn.step_input(steps), 0.5))
+        seq = rnn()
+        return L.mean(L.square(seq)), seq
+
+    # a dropout in a step body draws one mask for every step of a run, in
+    # a replay as eagerly (each call site its own registered generator)
+    main, startup, loss, seq = program(step_dropout)
+    eager, got, diff = _steps_vs_slab(torch, np, fluid, exe, main, startup,
+                                      [loss, seq], {"x": xv}, K)
+    masks = got[1] != 0                            # [K, T, 2, 16]
+    rec["dropout_in_step_body"] = {
+        "bitwise": all(np.array_equal(a, b) for a, b in zip(eager, got))
+        and not diff, "scope_diff": diff[:8],
+        "one_mask_per_run": bool((masks == masks[:, :1]).all()),
+        "masks_differ_run_to_run": bool((masks[1:] != masks[:1]).any())}
+
+    def count(x, h):
+        i = L.fill_constant([1], "int64", 0)
+        acc = L.reduce_sum(L.square(x))
+        limit = L.fill_constant([1], "float32", 1e6)
+        cond_v = L.less_than(acc, limit)
+        loop = L.While(cond_v)
+        with loop.block():
+            L.assign(L.scale(acc, 3.0), acc)
+            L.increment(i, value=1)
+            L.less_than(acc, limit, cond=cond_v)
+        return None, [i, acc]
+
+    main, startup, loss, (i, acc) = program(count)
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    runs = [int(exe.run(main, feed={"x": xv}, fetch_list=[i],
+                        scope=scope)[0][0]) for _ in range(2)]
+    a, want = np.sum(np.square(xv), dtype=np.float32), 0
+    while a < np.float32(1e6):
+        a, want = np.float32(a * np.float32(3.0)), want + 1
+    rec["unbounded_while"] = {"trips": runs, "numpy_trips": want,
+                              "ok": runs == [want, want]}
+    err, same = _refused(torch, np, fluid, exe, main, startup, [loss, i],
+                         {"x": xv})
+    rec["unbounded_while_capture"] = {"raised": err, "scope_unchanged": same}
+
+    def branch(x, h):
+        pred = L.greater_than(L.reduce_sum(x),
+                              L.fill_constant([1], "float32", 0.0))
+        return None, L.cond(pred, lambda: L.scale(L.reduce_sum(h), 2.0),
+                            lambda: L.scale(L.reduce_sum(h), -1.0))
+
+    main, startup, loss, out = program(branch)
+    err2, same2 = _refused(torch, np, fluid, exe, main, startup,
+                           [loss, out], {"x": xv})
+    rec["cond_capture"] = {"raised": err2, "scope_unchanged": same2}
+    for key, e, s, op in (("unbounded_while_capture", err, same, "while"),
+                          ("cond_capture", err2, same2, "cond")):
+        # on the CPU nothing is captured: the slab runs and trains
+        rec[key]["ok"] = (e is not None and e["op_type"] == op and s) \
+            if cuda else (e is None and not s)
+
+    sched = []
+    for step, want in SWITCH_LR_SCHEDULE:
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            st = L.data("step", [1], dtype="float32")
+            lr = L.fill_constant([1], "float32", 0.0)
+            b1 = L.fill_constant([1], "float32", 100.0)
+            b2 = L.fill_constant([1], "float32", 1000.0)
+            with L.Switch() as switch:
+                with switch.case(L.less_than(st, b1)):
+                    L.assign(L.fill_constant([1], "float32", 0.1), lr)
+                with switch.case(L.less_than(st, b2)):
+                    L.assign(L.fill_constant([1], "float32", 0.01), lr)
+                with switch.default():
+                    L.assign(L.fill_constant([1], "float32", 0.001), lr)
+        got = exe.run(main, feed={"step": np.array([step], np.float32)},
+                      fetch_list=[lr])[0]
+        sched.append((step, float(got[0]), float(got[0]) == want))
+    rec["switch_lr"] = sched
+    rec["ok"] = rec["bounded_while"]["bitwise"] and \
+        all(rec["dropout_in_step_body"][k] for k in (
+            "bitwise", "one_mask_per_run", "masks_differ_run_to_run")) and \
+        rec["unbounded_while"]["ok"] and \
+        rec["unbounded_while_capture"]["ok"] and rec["cond_capture"]["ok"] \
+        and all(ok for _, _, ok in sched)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"control_flow: {rec}")
+    return rec
+
+
+def sequence_lstm(torch, np, place=None, cfg=SEQ_BOOK, K=4, seed=41):
+    """tests/test_book.py's sentiment LSTM (embedding, a projection, the
+    full-sequence ``lstm`` op, ``sequence_pool`` "last" by length, a
+    2-way classifier) and its ``dynamic_gru`` encoder-decoder (teacher
+    forced, a ``vocab``-way output), at ``SEQ_BOOK``'s widths with
+    seeded lengths, Adam(lr): K eager steps and one ``run_steps`` slab of
+    K from copies of one startup, bitwise each other, the losses
+    falling; wall ms a step both ways."""
+    import paddle_tpu_torch as fluid
+    L = fluid.layers
+    E, H, B, T, V = (cfg[k] for k in ("E", "H", "B", "T", "vocab"))
+    rng = np.random.default_rng(seed)
+    words = rng.integers(1, V, (B, T)).astype(np.int64)
+    tgt = rng.integers(1, V, (B, T)).astype(np.int64)
+    feeds = {
+        "sentiment": {"words": words,
+                      "lens": rng.integers(T // 4, T + 1, (B,)).astype(
+                          np.int64),
+                      "label": (words[:, 0] % 2).astype(np.int64)[:, None]},
+        "encoder_decoder": {"s": words, "ti": tgt,
+                            "to": np.roll(tgt, -1, axis=1)}}
+
+    def sentiment():
+        w = L.data("words", [B, T], dtype="int64")
+        ln = L.data("lens", [B], dtype="int64")
+        y = L.data("label", [B, 1], dtype="int64")
+        hidden, _ = L.dynamic_lstm(
+            L.fc(L.embedding(w, size=[V, E]), 4 * H, num_flatten_dims=2),
+            4 * H, use_peepholes=False, length=ln)
+        last = L.sequence_pool(hidden, "last", length=ln)
+        return L.mean(L.softmax_with_cross_entropy(L.fc(last, 2), y))
+
+    def encoder_decoder():
+        s = L.data("s", [B, T], dtype="int64")
+        ti = L.data("ti", [B, T], dtype="int64")
+        to = L.data("to", [B, T], dtype="int64")
+        enc = L.dynamic_gru(L.fc(L.embedding(s, size=[V, E]), 3 * H,
+                                 num_flatten_dims=2), H)
+        enc_last = L.sequence_last_step(
+            enc, length=L.fill_constant([B], "int64", T))
+        dec = L.dynamic_gru(L.fc(L.embedding(ti, size=[V, E]), 3 * H,
+                                 num_flatten_dims=2), H, h_0=enc_last)
+        return L.mean(L.softmax_with_cross_entropy(
+            L.fc(dec, V, num_flatten_dims=2), L.unsqueeze(to, [2])))
+
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    rec = {"phase": "sequence_lstm", **CARD, **cfg, "K": K}
+    for name, build in (("sentiment", sentiment),
+                        ("encoder_decoder", encoder_decoder)):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 11
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            loss = build()
+            fluid.optimizer.Adam(cfg["lr"]).minimize(loss)
+        ((eager,), (got,), diff), ms = _timed_wall(torch, cuda, lambda: (
+            _steps_vs_slab(torch, np, fluid, exe, main, startup, [loss],
+                           feeds[name], K)))
+        r = {"eager_losses": eager.tolist(), "run_steps_losses": got.tolist(),
+             "bitwise": bool(np.array_equal(eager, got)) and not diff,
+             "scope_diff": diff[:8], "both_ways_s": ms / 1e3}
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        exe.run(main, feed=feeds[name], fetch_list=[loss], scope=scope)
+        _, r["eager_ms_per_step"] = _timed_wall(torch, cuda, lambda: exe.run(
+            main, feed=feeds[name], fetch_list=[loss], scope=scope))
+        slab = {n: np.stack([a] * K) for n, a in feeds[name].items()}
+        _, ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            main, feed=slab, fetch_list=[loss], scope=scope))
+        r["run_steps_ms_per_step"] = ms / K
+        r["ok"] = r["bitwise"] and bool(np.isfinite(got).all()) and \
+            bool(got[-1] < got[0])
+        rec[name] = r
+        exe.close()
+    rec["ok"] = rec["sentiment"]["ok"] and rec["encoder_decoder"]["ok"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"sequence_lstm: {rec}")
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -4593,6 +5188,27 @@ def main():
                      ("dygraph_bert_ab", lambda: dygraph_bert_ab(torch, np)),
                      ("dygraph_capture_refusals",
                       lambda: dygraph_capture_refusals(torch, np))):
+        _, got, _ = drive(name, (), fn)
+        if any(got.values()):
+            failures.append(f"the {name} path launched a kernel of the "
+                            f"port: {got}")
+
+    # control flow and the sequence models: the GRU seq2seq at IWSLT'15
+    # en-vi widths trained by run and run_steps, then beam-decoded eagerly,
+    # by replay and from its saved model; the sub-block ops on small
+    # programs (capture refusals included); the book's sequence models. No
+    # kernel of the port (the JAX package lowers them all to XLA loops)
+    s2s = {}
+
+    def s2s_train():
+        rec, s2s["scope"] = seq2seq_train(torch, np)
+        return rec
+
+    for name, fn in (("seq2seq_train", s2s_train),
+                     ("seq2seq_decode",
+                      lambda: seq2seq_decode(torch, np, s2s.pop("scope"))),
+                     ("control_flow", lambda: control_flow(torch, np)),
+                     ("sequence_lstm", lambda: sequence_lstm(torch, np))):
         _, got, _ = drive(name, (), fn)
         if any(got.values()):
             failures.append(f"the {name} path launched a kernel of the "

@@ -38,6 +38,13 @@ Ported so far:
   generation (``models.GPTGenerator``) over a dense or block-paged KV
   cache, and the continuous-batching server (``InferenceServer(
   generator=...)`` / ``serving.Client``).
+- Control flow and the sequence models: ``layers.While``, ``cond``,
+  ``Switch``, ``StaticRNN``, ``DynamicRNN`` and the tensor arrays (ops
+  over sub-blocks, run by the same op-by-op interpreter), the
+  masked-dense sequence ops and layers, the RNN ops (``lstm``, ``gru``,
+  ...), the RNN cell/decoder API (``layers.rnn``, ``dynamic_decode``,
+  ``BeamSearchDecoder``), beam search, the host LoD containers
+  (``fluid.LoDTensor``) and the GRU seq2seq (``models.seq2seq``).
 
 Attention runs on hand-written CUDA kernels for sm_90a, built with nvcc
 on first use: flash-attention forward and backward, and paged decode
@@ -53,11 +60,14 @@ from . import flags, kernels, ops
 from . import contrib, framework, layers, optimizer
 from .flags import get_flags, set_flags
 from .device import resolve_device
+from .framework import initializer
 from .framework import (CPUPlace, CUDAPlace, Executor, Program, Scope,
                         append_backward, default_main_program,
                         default_startup_program, global_scope, gradients,
                         program_guard, scope_guard, unique_name)
 from .layers import data
+from .lod import (LoDTensor, LoDTensorArray, Tensor, create_lod_tensor,
+                  create_random_int_lodtensor)
 from .models import (GPT, GPTConfig, GPTGenerator, init_params, param_shapes,
                      params_from_jax)
 from .param_attr import ParamAttr
@@ -71,7 +81,8 @@ from .io import (load, load_inference_model, load_params, load_persistables,
 dataset = dataio
 
 __all__ = ["CPUPlace", "CUDAPlace", "Client", "DatasetFactory", "Executor",
-           "GPT",
+           "GPT", "LoDTensor", "LoDTensorArray", "Tensor",
+           "create_lod_tensor", "create_random_int_lodtensor",
            "GPTConfig", "GPTGenerator", "GenerationEngine",
            "InferenceServer", "KVBlockPool", "ParamAttr", "Program", "Scope",
            "ServingStats", "append_backward", "contrib", "data", "dataio",
@@ -79,7 +90,8 @@ __all__ = ["CPUPlace", "CUDAPlace", "Client", "DatasetFactory", "Executor",
            "default_main_program", "default_startup_program", "dygraph",
            "flags",
            "framework", "get_flags", "global_scope", "gradients",
-           "inference", "init_params", "io", "kernels", "layers", "load",
+           "inference", "init_params", "initializer", "io", "kernels",
+           "layers", "load",
            "load_inference_model", "load_params", "load_persistables",
            "ops", "optimizer", "param_shapes", "params_from_jax",
            "program_guard", "resolve_device", "save", "save_inference_model",

@@ -7,7 +7,10 @@ ops, named and ordered as there, appended to the same program. Each
 A forward value whose name the op or a later op rebinds is saved by an
 ``assign`` before the op, as there. Recompute (``checkpoints=``)
 re-emits each checkpoint-delimited forward segment before its grad ops,
-as there (``:214-290``). Left out: error clipping (``clip`` is not
+as there (``:214-290``). Grads through ``cond``, ``recurrent`` and a
+bounded ``while`` take the generic vjp, which recomputes the loop; an
+unbounded ``while`` on a grad path raises, as there (``:322``). Left
+out: error clipping (``clip`` is not
 ported); other grad-op callbacks warn, as there.
 """
 import warnings
@@ -270,6 +273,13 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
         if seg_idx is not None and seg_idx not in seg_emitted:
             emit_recompute(seg_idx)
             seg_emitted.add(seg_idx)
+        if op.type == "while" and "max_trip_count" not in op.attrs:
+            raise ValueError(
+                "layers.While without max_trip_count is not "
+                "differentiable (its loop reads the predicate on the "
+                "host each iteration); build it as While(cond, "
+                "max_trip_count=N) for the bounded masked lowering, or "
+                "use StaticRNN for recurrence")
         g_ins, out_grad_mask = {}, {}
         for slot, names in op.outputs.items():
             gs = [finalize(n) for n in names]

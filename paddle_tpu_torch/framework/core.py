@@ -51,6 +51,7 @@ def op_role_guard(role):
 
 class VarType:
     LOD_TENSOR = "dense"
+    LOD_TENSOR_ARRAY = "tensor_array"
 
 
 class Variable:
@@ -160,7 +161,9 @@ class Operator:
 
 
 class Block:
-    """Ordered op list + var table."""
+    """Ordered op list + var table; a control-flow op's sub-block names
+    its enclosing block by ``parent_idx``, and a name it does not hold is
+    looked up along that chain."""
 
     def __init__(self, program, idx, parent_idx=-1):
         self.program = program
@@ -168,6 +171,12 @@ class Block:
         self.parent_idx = parent_idx
         self.vars = {}
         self.ops = []
+
+    @property
+    def parent_block(self):
+        if self.parent_idx < 0:
+            return None
+        return self.program.blocks[self.parent_idx]
 
     def create_var(self, name=None, **kwargs):
         name = name or unique_name.generate("tmp")
@@ -184,13 +193,19 @@ class Block:
 
     def var(self, name):
         v = self.vars.get(name)
-        if v is None:
-            raise ValueError(f"Variable {name!r} not found in block "
-                             f"{self.idx}")
-        return v
+        if v is not None:
+            return v
+        if self.parent_block is not None:
+            return self.parent_block.var(name)
+        raise ValueError(f"Variable {name!r} not found in block {self.idx}")
 
     def has_var(self, name):
-        return name in self.vars
+        b = self
+        while b is not None:
+            if name in b.vars:
+                return True
+            b = b.parent_block
+        return False
 
     def all_parameters(self):
         return [v for v in self.vars.values() if isinstance(v, Parameter)]
@@ -284,6 +299,21 @@ class Program:
     def current_block(self):
         return self.blocks[self.current_block_idx]
 
+    def _create_block(self, parent_idx=None):
+        """A new block under ``parent_idx`` (the current block by
+        default), made current; :meth:`_rollback` returns to its
+        parent."""
+        parent_idx = (self.current_block_idx
+                      if parent_idx is None else parent_idx)
+        b = Block(self, len(self.blocks), parent_idx=parent_idx)
+        self.blocks.append(b)
+        self.current_block_idx = b.idx
+        self._bump_version()
+        return b
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
+
     def all_parameters(self):
         return self.global_block().all_parameters()
 
@@ -316,32 +346,23 @@ class Program:
                 nb.ops.append(nop)
             p.blocks.append(nb)
         p._seed_counter = self._seed_counter
+        p.current_block_idx = 0
         p._is_test = for_test
         if for_test:
             p._drop_unreferenced_vars()
         p._bump_version()
         return p
 
-    # attrs through which a control-flow op names its sub-block
-    _SUB_BLOCK_ATTRS = ("sub_block", "sub_block_true", "sub_block_false")
-
-    def _op_reads(self, op):
-        """Names ``op`` reads. Control flow is not ported, so an op that
-        carries a sub-block raises instead of having its sub-block's
-        reads walked."""
-        for attr in self._SUB_BLOCK_ATTRS:
-            if op.attrs.get(attr) is not None:
-                raise NotImplementedError(
-                    f"paddle_tpu_torch: op {op.type!r} carries a sub-block "
-                    f"({attr}); control flow is not ported, so a program "
-                    f"that keeps it cannot be pruned")
-        return set(op.input_arg_names)
-
     def _prune(self, targets, feeds=()):
         """Keep only the global-block ops needed to compute ``targets``
         from ``feeds`` (used by ``io.save_inference_model``; JAX
-        ``Program._prune``): the graph is cut at the feed boundary, and
-        vars no kept op references are dropped."""
+        ``Program._prune``): the graph is cut at the feed boundary, a
+        kept control-flow op keeps its whole sub-block and every op
+        producing what the sub-block reads, and vars no kept op
+        references are dropped."""
+        # what an op reads through its sub-blocks; dangling or cyclic
+        # sub_block attrs are skipped (the verifier reports them)
+        from .analysis import op_reads
         if not isinstance(targets, (list, tuple)):
             targets = [targets]
         feeds_set = {f.name if isinstance(f, Variable) else f for f in feeds}
@@ -351,7 +372,7 @@ class Program:
             if any(n in needed and n not in feeds_set
                    for n in op.output_arg_names):
                 keep.append(op)
-                needed.update(n for n in self._op_reads(op)
+                needed.update(n for n in op_reads(self, op)
                               if n not in feeds_set)
         kept_ids = {id(o) for o in keep}
         p = self.clone()
@@ -366,11 +387,18 @@ class Program:
     def _drop_unreferenced_vars(self, extra_keep=()):
         """Remove vars no op references, keeping ``extra_keep`` (feed
         and target names)."""
+        from .analysis import has_sub_block
         referenced = set(extra_keep)
         for blk in self.blocks:
             for op in blk.ops:
                 referenced.update(op.input_arg_names)
                 referenced.update(op.output_arg_names)
+                if has_sub_block(op):
+                    # names a control-flow op binds inside its sub-block
+                    for m in op.attrs.get("memories", ()):
+                        referenced.update(m)
+                    referenced.update(op.attrs.get("step_input_vars", ()))
+                    referenced.update(op.attrs.get("x_names", ()))
         for blk in self.blocks:
             blk.vars = {n: v for n, v in blk.vars.items()
                         if n in referenced}

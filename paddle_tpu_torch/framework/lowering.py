@@ -4,9 +4,13 @@ Counterpart of ``paddle_tpu/framework/lowering.py``. The JAX package
 traces a block into one function that XLA compiles; here the same
 op-by-op walk runs eagerly on torch tensors, so the env holds real
 tensors and :func:`run_ops` can drop each one after its last reader.
+A control-flow op runs its sub-block through the same walk
+(:meth:`LowerCtx.lower_block_ops`) over a copy of the env.
 """
 import torch
 
+from .analysis import (SUB_BLOCK_ATTRS, has_sub_block, op_reads, op_writes,
+                       sub_block_bound_names)
 from .registry import get_op_def, normalize_outs
 
 _MASK63 = (1 << 63) - 1
@@ -41,6 +45,21 @@ class LowerCtx:
         self._written = set()
         # set by a captured step: hands out its call-site generators
         self.generator_hook = None
+
+    def sub_ctx(self, block_idx, env):
+        """A ctx over sub-block ``block_idx`` and ``env``, sharing this
+        one's device, run seed, mode and generator hook."""
+        ctx = LowerCtx(self.program, self.program.blocks[block_idx], env,
+                       self.device, run_seed=self.run_seed,
+                       abstract=self.abstract)
+        ctx.generator_hook = self.generator_hook
+        return ctx
+
+    def lower_block_ops(self, block_idx, env):
+        """Run a sub-block's ops over ``env`` (a control-flow op's
+        body); returns ``env``."""
+        run_ops(self.sub_ctx(block_idx, env))
+        return env
 
     def _saved_keys(self):
         """Names a forward output is kept under for its grad op. A grad
@@ -162,20 +181,43 @@ def first_offender(counts):
 
 def analyze_block_io(program, block_idx, feed_names):
     """Which vars a block reads from outside (scope state) and which
-    persistable vars it writes (state to store back)."""
-    block = program.blocks[block_idx]
-    defined = set(feed_names)
+    persistable vars it writes (state to store back), through the
+    sub-blocks of its control-flow ops: a name such an op binds in its
+    sub-block (a scan slice, a loop memory, a branch operand) is defined
+    there, and a persistable written inside a loop body is state too."""
     reads, writes = {}, {}          # insertion-ordered sets
-    for op in block.ops:
-        for n in op.input_arg_names:
-            if n not in defined:
-                reads[n] = None
-        for n in op.output_arg_names:
-            defined.add(n)
-            var = block.vars.get(n)
-            if var is not None and var.persistable:
-                writes[n] = None
+
+    def visit(bidx, defined, seen):
+        blk = program.blocks[bidx]
+        for op in blk.ops:
+            for n in op.input_arg_names:
+                if n not in defined:
+                    reads[n] = None
+            for attr in SUB_BLOCK_ATTRS:
+                sb = op.attrs.get(attr)
+                if isinstance(sb, int) and 0 <= sb < len(program.blocks) \
+                        and sb not in seen:
+                    visit(sb, set(defined) | sub_block_bound_names(op),
+                          seen | {sb})
+            for n in op.output_arg_names:
+                defined.add(n)
+                if blk.has_var(n) and blk.var(n).persistable:
+                    writes[n] = None
+
+    visit(block_idx, set(feed_names), {block_idx})
     return list(reads), list(writes)
+
+
+def _op_uses(program, op):
+    """Every name ``op`` touches in its block's env: its slots, what its
+    sub-blocks read and write there, and the tensor array it names by
+    its ``array_name`` attr."""
+    names = op.input_arg_names + op.output_arg_names
+    if has_sub_block(op):
+        names += sorted(op_reads(program, op) | op_writes(program, op))
+    if "array_name" in op.attrs:
+        names.append(op.attrs["array_name"])
+    return names
 
 
 def last_uses(block, keep):
@@ -183,10 +225,12 @@ def last_uses(block, keep):
     out ``keep`` (fetches, persistable state). Dropping these from the
     env as the walk passes them keeps an eager step's memory near what a
     compiler's buffer liveness would give, instead of holding every
-    activation and grad until the step ends."""
+    activation and grad until the step ends. A control-flow op counts as
+    a reader of everything its sub-blocks read, and an array op as a
+    user of its array."""
     last = {}
     for i, op in enumerate(block.ops):
-        for n in op.input_arg_names + op.output_arg_names:
+        for n in _op_uses(block.program, op):
             last[n] = i
     out = {}
     for n, i in last.items():

@@ -107,17 +107,28 @@ def generic_grad_lower(ctx, ins, attrs, fwd_def):
     fwd = attrs["__fwd_op__"]
     fwd_attrs = fwd["attrs"]
     req = attrs["__grad_inputs__"]          # {slot: [bool per index]}
-    primals = {s: ins[s] for s in fwd["inputs"]
-               if s in ins and any(req.get(s) or ())}
+    # only the entries that want a grad are primals: a slot may mix them
+    # with integer ones (a loop's counter beside its float state)
+    primals = {s: [t for t, need in zip(ins[s], req[s]) if need]
+               for s in fwd["inputs"] if s in ins and any(req.get(s) or ())}
     out_mask = attrs.get("__out_grad_mask__", {})
     wanted = [s for s in fwd["outputs"] if ins.get(s + "@GRAD")]
 
+    kept = {}       # slot -> indices of its float outputs (integer
+                    # outputs, such as a loop counter, take no cotangent)
+
     def f(p):
         full = dict(ins)
-        full.update(p)
+        for s, vals in p.items():
+            it = iter(vals)
+            full[s] = [next(it) if need else t
+                       for t, need in zip(ins[s], req[s])]
         outs = normalize_outs(fwd_def.lower(
             ctx, {s: full.get(s) for s in fwd["inputs"]}, fwd_attrs))
-        return {s: outs[s] for s in wanted}
+        for s in wanted:
+            kept[s] = [i for i, o in enumerate(outs[s])
+                       if o.is_floating_point() or o.is_complex()]
+        return {s: [outs[s][i] for i in kept[s]] for s in wanted}
 
     outs, vjp_fn = torch.func.vjp(f, primals)
     cts = {}
@@ -125,7 +136,7 @@ def generic_grad_lower(ctx, ins, attrs, fwd_def):
         it = iter(ins[slot + "@GRAD"])
         mask = out_mask.get(slot)
         lst = []
-        for i, a in enumerate(outs[slot]):
+        for i, a in zip(kept[slot], outs[slot]):
             has = mask[i] if mask is not None and i < len(mask) else True
             g = next(it, None) if has else None
             lst.append(a.new_zeros(()).expand_as(a) if g is None
@@ -138,8 +149,9 @@ def generic_grad_lower(ctx, ins, attrs, fwd_def):
         grads = gprimals.get(slot)
         if grads is None:
             continue
-        result[slot + "@GRAD"] = [g if need else None
-                                  for g, need in zip(grads, flags)]
+        it = iter(grads)
+        result[slot + "@GRAD"] = [next(it) if need else None
+                                  for need in flags]
     return result
 
 

@@ -104,6 +104,22 @@ def less_than(x, y, cond=None):
     return _cmp("less_than", x, y, cond)
 
 
+def less_equal(x, y, cond=None):
+    return _cmp("less_equal", x, y, cond)
+
+
+def greater_than(x, y, cond=None):
+    return _cmp("greater_than", x, y, cond)
+
+
+def not_equal(x, y, cond=None):
+    return _cmp("not_equal", x, y, cond)
+
+
+def logical_or(x, y, out=None, name=None):
+    return _cmp("logical_or", x, y, out)
+
+
 def greater_equal(x, y, cond=None):
     return _cmp("greater_equal", x, y, cond)
 
@@ -126,17 +142,33 @@ def logical_not(x, out=None, name=None):
     return out
 
 
-def reduce_sum(input, dim=None, keep_dim=False, name=None):
-    helper = LayerHelper("reduce_sum", name=name)
+def _reduce(op_type, input, dim, keep_dim, name):
+    helper = LayerHelper(op_type, name=name)
     out = helper.create_variable_for_type_inference(dtype=input.dtype)
     if dim is None:
         attrs = {"dim": [0], "keep_dim": keep_dim, "reduce_all": True}
     else:
         attrs = {"dim": [dim] if isinstance(dim, int) else list(dim),
                  "keep_dim": keep_dim, "reduce_all": False}
-    helper.append_op(type="reduce_sum", inputs={"X": [input]},
+    helper.append_op(type=op_type, inputs={"X": [input]},
                      outputs={"Out": [out]}, attrs=attrs)
     return out
+
+
+def reduce_sum(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_sum", input, dim, keep_dim, name)
+
+
+def reduce_mean(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_mean", input, dim, keep_dim, name)
+
+
+def reduce_max(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_max", input, dim, keep_dim, name)
+
+
+def reduce_min(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_min", input, dim, keep_dim, name)
 
 
 def _install_op_overloads(cls):

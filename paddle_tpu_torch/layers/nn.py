@@ -5,7 +5,13 @@
 (``:294``), ``exp``,
 ``rsqrt`` (``:339``), ``floor``, ``ceil``, ``cos``, ``pow`` (``:391``),
 ``topk`` (``:440``), ``accuracy`` (``:451``), ``unsqueeze`` (``:538``),
-``flatten`` (``:560``), ``matmul``, ``flash_attention`` (``:741``)."""
+``flatten`` (``:560``), ``matmul``, ``flash_attention`` (``:741``),
+``log_softmax`` (``:278``), ``log`` (``:331``), ``squeeze`` (``:549``),
+the fused recurrent steps ``lstm_unit`` and ``gru_unit`` (``:649-711``)
+and the beam-search steps ``beam_search`` and ``gather_tree``
+(``:919-960``)."""
+import copy
+
 import numpy as np
 
 from ..framework import initializer as init_mod
@@ -336,4 +342,117 @@ def flash_attention(q, k, v, attn_bias=None, scale=0.0, causal=False,
         infer_shape=False)
     out.shape = tuple(q.shape or ())
     out.dtype = q.dtype
+    return out
+
+
+def log(x, name=None):
+    return _unary("log", x, name)
+
+
+def log_softmax(input, axis=-1, name=None):
+    return _unary("log_softmax", input, name, {"axis": axis})
+
+
+def squeeze(input, axes=None, name=None):
+    helper = LayerHelper("squeeze", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    xshape = helper.create_variable_for_type_inference(dtype=input.dtype,
+                                                       stop_gradient=True)
+    helper.append_op(type="squeeze2", inputs={"X": [input]},
+                     outputs={"Out": [out], "XShape": [xshape]},
+                     attrs={"axes": list(axes or [])})
+    return out
+
+
+def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
+              param_attr=None, bias_attr=None, name=None):
+    """One LSTM step for use inside StaticRNN: the x/h projections and
+    the gate math as one ``lstm_cell_fused`` op. Returns (hidden_t,
+    cell_t)."""
+    helper = LayerHelper("lstm_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    D = int(x_t.shape[-1])
+    H = int(hidden_t_prev.shape[-1])
+    w = helper.create_parameter(helper.param_attr, shape=[D + H, 4 * H],
+                                dtype=x_t.dtype)
+    b = helper.create_parameter(helper.bias_attr, shape=[4 * H],
+                                dtype=x_t.dtype, is_bias=True)
+    h = helper.create_variable_for_type_inference(dtype=x_t.dtype)
+    c = helper.create_variable_for_type_inference(dtype=x_t.dtype)
+    helper.append_op(
+        type="lstm_cell_fused",
+        inputs={"X": [x_t], "HPrev": [hidden_t_prev],
+                "CPrev": [cell_t_prev], "W": [w], "B": [b]},
+        outputs={"H": [h], "C": [c]},
+        attrs={"forget_bias": float(forget_bias)})
+    return h, c
+
+
+def gru_unit(input, hidden, size=None, param_attr=None, bias_attr=None,
+             name=None):
+    """One GRU step for use inside StaticRNN (one ``gru_cell_fused``
+    op). A named param or bias attr names its two parts ``<name>.gate``
+    and ``<name>.cand``. Returns hidden_t."""
+    helper = LayerHelper("gru_unit", param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    D = int(input.shape[-1])
+    H = int(hidden.shape[-1])
+
+    def _suffixed(attr, suffix):
+        from ..param_attr import ParamAttr
+        attr = ParamAttr._to_attr(attr)
+        if attr and attr.name:
+            attr = copy.copy(attr)
+            attr.name = attr.name + suffix
+        return attr
+
+    wg = helper.create_parameter(_suffixed(helper.param_attr, ".gate"),
+                                 shape=[D + H, 2 * H], dtype=input.dtype)
+    bg = helper.create_parameter(_suffixed(helper.bias_attr, ".gate"),
+                                 shape=[2 * H], dtype=input.dtype,
+                                 is_bias=True)
+    wc = helper.create_parameter(_suffixed(helper.param_attr, ".cand"),
+                                 shape=[D + H, H], dtype=input.dtype)
+    bc = helper.create_parameter(_suffixed(helper.bias_attr, ".cand"),
+                                 shape=[H], dtype=input.dtype,
+                                 is_bias=True)
+    h = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="gru_cell_fused",
+        inputs={"X": [input], "HPrev": [hidden], "WGate": [wg],
+                "BGate": [bg], "WCand": [wc], "BCand": [bc]},
+        outputs={"H": [h]}, attrs={})
+    return h
+
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id=0,
+                name=None):
+    """One beam expansion step. Returns (selected_ids [B, beam] int32,
+    selected_scores [B, beam], parent_idx [B, beam] int32)."""
+    helper = LayerHelper("beam_search", name=name)
+    B = pre_ids.shape[0] if pre_ids.shape else -1
+    outs = [helper.block.create_var(name=f"{helper.name}.{suffix}",
+                                    dtype=dtype, shape=(B, beam_size))
+            for suffix, dtype in (("ids", "int32"), ("scores", "float32"),
+                                  ("parents", "int32"))]
+    helper.append_op(
+        type="beam_search",
+        inputs={"pre_ids": [pre_ids], "pre_scores": [pre_scores],
+                "scores": [scores]},
+        outputs={"selected_ids": [outs[0]], "selected_scores": [outs[1]],
+                 "parent_idx": [outs[2]]},
+        attrs={"beam_size": int(beam_size), "end_id": int(end_id)},
+        infer_shape=False)
+    return tuple(outs)
+
+
+def gather_tree(ids, parents, name=None):
+    """Back-trace beam parents into sequences; ids/parents [T, B,
+    beam]."""
+    helper = LayerHelper("gather_tree", name=name)
+    out = helper.block.create_var(name=f"{helper.name}.out", dtype="int32",
+                                  shape=tuple(ids.shape or ()))
+    helper.append_op(type="gather_tree",
+                     inputs={"Ids": [ids], "Parents": [parents]},
+                     outputs={"Out": [out]}, attrs={}, infer_shape=False)
     return out

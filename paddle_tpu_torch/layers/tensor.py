@@ -4,8 +4,14 @@
 ``slice``, ``gather`` (``:259``), ``concat`` (``:67``), ``increment``
 (``:349``),
 ``merge_selected_rows`` and ``get_tensor_from_selected_rows``
-(``:415-432``). Shapes are python ints; shape tensors
-and ``assign`` of numpy values are not ported."""
+(``:415-432``), ``create_parameter`` (``:31``), ``stack`` (``:92``),
+``expand`` (``:287``), ``argmax`` (``:320``), ``where`` (``:366``) and
+``beam_search_decode`` (``:433``). Shapes are python ints; shape
+tensors are not ported."""
+import copy
+
+import numpy as np
+
 from ..framework import initializer as init_mod
 from ..framework.core import default_main_program
 from ..framework.dtype import convert_dtype
@@ -50,8 +56,18 @@ def ones_like(x, out=None, name=None):
 
 
 def assign(input, output=None):
-    """Copy a Variable into ``output`` (a new var when None)."""
+    """Copy a Variable, or a numpy array (an ``assign_value`` constant),
+    into ``output`` (a new var when None)."""
     helper = LayerHelper("assign")
+    if isinstance(input, np.ndarray) or np.isscalar(input):
+        arr = np.asarray(input)
+        if output is None:
+            output = helper.create_variable_for_type_inference(
+                dtype=str(arr.dtype))
+        helper.append_op(type="assign_value", outputs={"Out": [output]},
+                         attrs={"shape": list(arr.shape),
+                                "dtype": str(arr.dtype), "values": arr})
+        return output
     if output is None:
         output = helper.create_variable_for_type_inference(dtype=input.dtype)
     helper.append_op(type="assign", inputs={"X": [input]},
@@ -146,3 +162,72 @@ def get_tensor_from_selected_rows(x, name=None):
                      inputs={"X": [x]}, outputs={"Out": [out]},
                      infer_shape=False)
     return out
+
+
+def create_parameter(shape, dtype, name=None, attr=None, is_bias=False,
+                     default_initializer=None):
+    from ..param_attr import ParamAttr
+    if attr is None:
+        attr = ParamAttr(name=name)
+    else:
+        attr = ParamAttr._to_attr(attr)
+        if attr is not False and name is not None and attr.name is None:
+            attr = copy.copy(attr)       # never mutate the caller's attr
+            attr.name = name
+    helper = LayerHelper("create_parameter")
+    return helper.create_parameter(attr, shape, dtype, is_bias=is_bias,
+                                   default_initializer=default_initializer)
+
+
+def stack(x, axis=0, name=None):
+    helper = LayerHelper("stack", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type="stack", inputs={"X": list(x)},
+                     outputs={"Y": [out]}, attrs={"axis": axis})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper("expand", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="expand", inputs={"X": [x]},
+                     outputs={"Out": [out]},
+                     attrs={"expand_times": list(expand_times)})
+    return out
+
+
+def argmax(x, axis=0, name=None):
+    helper = LayerHelper("arg_max", name=name)
+    out = helper.create_variable_for_type_inference(dtype="int64",
+                                                    stop_gradient=True)
+    helper.append_op(type="arg_max", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"axis": axis})
+    return out
+
+
+def where(condition, x, y, name=None):
+    helper = LayerHelper("where", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="where",
+                     inputs={"Condition": [condition], "X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def beam_search_decode(ids, scores, beam_size=None, end_id=None,
+                       parent_idx=None, name=None):
+    """Walk ParentIdx back to full sentences. Padded form: Ids/ParentIdx
+    [T, B, beam], Scores [T, B, beam]; returns (SentenceIds [B, beam,
+    T], SentenceScores [B, beam])."""
+    helper = LayerHelper("beam_search_decode", name=name)
+    sent_ids = helper.create_variable_for_type_inference(dtype=ids.dtype)
+    sent_scores = helper.create_variable_for_type_inference(
+        dtype=scores.dtype)
+    ins = {"Ids": [ids], "Scores": [scores]}
+    if parent_idx is not None:
+        ins["ParentIdx"] = [parent_idx]
+    helper.append_op(type="beam_search_decode", inputs=ins,
+                     outputs={"SentenceIds": [sent_ids],
+                              "SentenceScores": [sent_scores]},
+                     attrs={}, infer_shape=False)
+    return sent_ids, sent_scores

@@ -2,7 +2,8 @@
 ``paddle_tpu/ops/activation_ops.py``: ``relu :23``, ``sigmoid :24``,
 ``tanh :25``,
 ``exp :26``, ``rsqrt :32``, ``floor :36``, ``ceil :37``, ``cos :41``,
-``square :33``, ``pow :81``, ``softmax :89``). Each takes the generic vjp grad, as in the
+``square :33``, ``log :27``, ``pow :81``, ``softmax :89``,
+``log_softmax :95``). Each takes the generic vjp grad, as in the
 JAX package; ``floor`` and ``ceil`` have none."""
 import torch
 
@@ -23,6 +24,11 @@ def sigmoid(ctx, ins, attrs):
 @register_op("exp")
 def exp(ctx, ins, attrs):
     return {"Out": torch.exp(x_of(ins))}
+
+
+@register_op("log")
+def log(ctx, ins, attrs):
+    return {"Out": torch.log(x_of(ins))}
 
 
 @register_op("square")
@@ -66,3 +72,8 @@ def rsqrt(ctx, ins, attrs):
 @register_op("softmax")
 def softmax(ctx, ins, attrs):
     return {"Out": torch.softmax(x_of(ins), dim=attrs.get("axis", -1))}
+
+
+@register_op("log_softmax")
+def log_softmax(ctx, ins, attrs):
+    return {"Out": torch.log_softmax(x_of(ins), dim=attrs.get("axis", -1))}

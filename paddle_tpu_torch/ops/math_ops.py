@@ -1,7 +1,8 @@
 """Elementwise, matmul and reduction ops in torch (counterpart of
 ``paddle_tpu/ops/math_ops.py``: ``elementwise_*``, ``sum :52`` (over
 ``SelectedRows`` too), ``scale :74``, ``matmul :92``, ``mul :116``,
-``reduce_sum``, ``mean :174``, the comparisons (``less_than :240``), the logical ops,
+``reduce_sum``, ``reduce_mean``/``reduce_max``/``reduce_min :151``,
+``mean :174``, the comparisons (``less_than :240``), the logical ops,
 ``isfinite :268`` and ``einsum :328``). Large products go to
 ``torch.matmul``, as the JAX package leaves them to XLA. ``mul`` (every
 ``fc``) has a bespoke grad: the generic vjp would recompute its forward
@@ -43,13 +44,21 @@ def _cmp(name, fn):
 
 
 _cmp("greater_equal", torch.greater_equal)
+_cmp("greater_than", torch.greater)
 _cmp("less_than", torch.less)
+_cmp("less_equal", torch.less_equal)
 _cmp("equal", torch.eq)
+_cmp("not_equal", torch.ne)
 
 
 @register_op("logical_and", grad=False)
 def logical_and(ctx, ins, attrs):
     return {"Out": torch.logical_and(x_of(ins), x_of(ins, "Y"))}
+
+
+@register_op("logical_or", grad=False)
+def logical_or(ctx, ins, attrs):
+    return {"Out": torch.logical_or(x_of(ins), x_of(ins, "Y"))}
 
 
 @register_op("logical_not", grad=False)
@@ -149,6 +158,20 @@ def reduce_sum(ctx, ins, attrs):
     x = x_of(ins)
     axes, keep = reduce_axes(attrs, x.dim())
     return {"Out": torch.sum(x, dim=axes, keepdim=keep)}
+
+
+def _reduce(name, fn):
+    @register_op(name)
+    def _op(ctx, ins, attrs, _fn=fn):
+        x = x_of(ins)
+        axes, keep = reduce_axes(attrs, x.dim())
+        return {"Out": _fn(x, axes, keep)}
+    return _op
+
+
+_reduce("reduce_mean", lambda x, d, k: torch.mean(x, dim=d, keepdim=k))
+_reduce("reduce_max", lambda x, d, k: torch.amax(x, dim=d, keepdim=k))
+_reduce("reduce_min", lambda x, d, k: torch.amin(x, dim=d, keepdim=k))
 
 
 @register_op("mean")

@@ -2,8 +2,10 @@
 ``conv2d :24-98``, ``pool2d :206``, ``batch_norm :352``, ``layer_norm
 :406``, ``dropout :479``, ``lookup_table :513`` and ``lookup_table_v2
 :501`` with the dense scatter-add grad of ``:850-860``, ``cross_entropy
-:537``, ``softmax_with_cross_entropy :555``) and ``gelu``
-(``activation_ops.py``, exact erf form).
+:537``, ``softmax_with_cross_entropy :555``, the fused recurrent cells
+``lstm_cell_fused :793`` and ``gru_cell_fused :811``, ``bicubic_interp
+:726``, ``trilinear_interp :734`` and ``grid_sampler :742``) and
+``gelu`` (``activation_ops.py``, exact erf form).
 
 Convolutions go to cuDNN through ``F.conv2d``, as the JAX package leaves
 them to XLA (no Pallas kernel computes one). ``conv2d`` and
@@ -413,3 +415,100 @@ def square_error_cost(ctx, ins, attrs):
 def gelu(ctx, ins, attrs):
     return {"Out": F.gelu(x_of(ins), approximate="tanh"
                           if attrs.get("approximate", False) else "none")}
+
+
+@register_op("lstm_cell_fused")
+def lstm_cell_fused(ctx, ins, attrs):
+    """One LSTM step, the x/h projections fused: Gates = [X, HPrev] @ W +
+    B, split (i, f, c_hat, o) as the JAX package packs them."""
+    x, h_prev, c_prev = x_of(ins), x_of(ins, "HPrev"), x_of(ins, "CPrev")
+    gates = torch.cat([x, h_prev], dim=-1) @ x_of(ins, "W") + x_of(ins, "B")
+    i, f, c_hat, o = gates.chunk(4, dim=-1)
+    c = torch.sigmoid(f + float(attrs.get("forget_bias", 0.0))) * c_prev \
+        + torch.sigmoid(i) * torch.tanh(c_hat)
+    return {"H": torch.sigmoid(o) * torch.tanh(c), "C": c}
+
+
+@register_op("gru_cell_fused")
+def gru_cell_fused(ctx, ins, attrs):
+    """One GRU step, fused: update and reset (u, r) from [X, HPrev] @
+    WGate; the candidate from [X, r * HPrev] @ WCand. u gates the
+    candidate (``origin_mode`` False) or the previous state (True)."""
+    x, h_prev = x_of(ins), x_of(ins, "HPrev")
+    gates = torch.sigmoid(torch.cat([x, h_prev], dim=-1) @ x_of(ins, "WGate")
+                          + x_of(ins, "BGate"))
+    u, r = gates.chunk(2, dim=-1)
+    cand = torch.tanh(torch.cat([x, r * h_prev], dim=-1)
+                      @ x_of(ins, "WCand") + x_of(ins, "BCand"))
+    if attrs.get("origin_mode", False):
+        return {"H": u * h_prev + (1.0 - u) * cand}
+    return {"H": u * cand + (1.0 - u) * h_prev}
+
+
+@register_op("grid_sampler")
+def grid_sampler(ctx, ins, attrs):
+    """Bilinear sampling of x [B, C, H, W] at grid [B, Hg, Wg, 2]
+    locations in [-1, 1], corners aligned; taps outside the image read
+    zero (``F.grid_sample``'s ``align_corners=True``, zero padding)."""
+    return {"Out": F.grid_sample(x_of(ins), x_of(ins, "Grid"),
+                                 mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)}
+
+
+def _triangle(d):
+    return torch.clamp(1.0 - d, min=0.0)
+
+
+def _keys_cubic(d):
+    """Keys' cubic convolution kernel with a = -0.5."""
+    out = torch.where(d >= 1.0, ((-0.5 * d + 2.5) * d - 4.0) * d + 2.0,
+                      (1.5 * d - 2.5) * d * d + 1.0)
+    return torch.where(d >= 2.0, 0.0, out)
+
+
+def _resize_weights(n_in, n_out, kernel, dtype, device):
+    """[n_in, n_out] resampling weights of ``jax.image.resize`` (half-pixel
+    centres; antialiased when shrinking, the kernel widened by the
+    scale; each output's weights normalised; an output whose centre
+    lies outside the input gets none)."""
+    inv = n_in / n_out
+    width = max(inv, 1.0)
+    f = (torch.arange(n_out, dtype=torch.float64, device=device) + 0.5) \
+        * inv - 0.5
+    d = (f[None, :] - torch.arange(n_in, dtype=torch.float64,
+                                   device=device)[:, None]).abs() / width
+    w = kernel(d)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(torch.finfo(
+        torch.float32).eps), w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (f >= -0.5) & (f <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0).to(dtype)
+
+
+def _resize(x, sizes, kernel):
+    """x resized on its trailing len(sizes) dims, each dim whose size
+    changes by one weight-matrix product (``jax.image.resize``)."""
+    first = x.dim() - len(sizes)
+    for k, n_out in enumerate(sizes):
+        dim = first + k
+        if x.shape[dim] == n_out:
+            continue
+        w = _resize_weights(x.shape[dim], n_out, kernel, x.dtype, x.device)
+        x = torch.tensordot(x.movedim(dim, -1), w, dims=1).movedim(-1, dim)
+    return x
+
+
+@register_op("bicubic_interp")
+def bicubic_interp(ctx, ins, attrs):
+    """x [B, C, H, W] resized to (out_h, out_w) with Keys' cubic kernel,
+    as ``jax.image.resize(method="bicubic")``."""
+    return {"Out": _resize(x_of(ins), (attrs["out_h"], attrs["out_w"]),
+                           _keys_cubic)}
+
+
+@register_op("trilinear_interp")
+def trilinear_interp(ctx, ins, attrs):
+    """x [B, C, D, H, W] resized to (out_d, out_h, out_w) with the
+    triangle kernel, as ``jax.image.resize(method="trilinear")``."""
+    return {"Out": _resize(x_of(ins), (attrs["out_d"], attrs["out_h"],
+                                       attrs["out_w"]), _triangle)}

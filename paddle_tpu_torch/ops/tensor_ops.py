@@ -3,9 +3,11 @@
 ``fill_any_like :79``, ``uniform_random :86``, ``gaussian_random :96``,
 ``truncated_gaussian_random :105``, ``assign :123``, ``cast :137``,
 ``reshape2 :143``, ``transpose2 :165``, ``concat :180``,
-``unsqueeze2 :226``, ``flatten2 :235``, ``slice :255`` (squeezing its
-``decrease_axis``), ``gather :329``, ``increment :402``, ``where
-:424``, ``top_k :476``, ``recompute_barrier :572``). ``cast`` takes the
+``stack :200``, ``squeeze2 :214``, ``unsqueeze2 :226``, ``flatten2
+:235``, ``slice :255`` (squeezing its ``decrease_axis``), ``expand
+:284``, ``gather :329``, ``increment :402``, ``where :424``,
+``arg_max :430``, ``top_k :476``, ``assign_value :128``,
+``recompute_barrier :572``). ``cast`` takes the
 generic vjp, so ``cast_grad`` casts the
 cotangent back to the input's type, as the JAX vjp does. ``slice`` and
 ``transpose2`` return views and ``reshape2`` one where the strides
@@ -14,6 +16,7 @@ projection. ``gather`` has a bespoke grad that sums duplicate indices
 in a fixed order."""
 import math
 
+import numpy as np
 import torch
 
 from ..framework.dtype import torch_dtype
@@ -228,3 +231,63 @@ def top_k(ctx, ins, attrs):
     JAX package stores fluid int64 indices."""
     vals, idx = torch.topk(x_of(ins), attrs["k"], dim=-1)
     return {"Out": vals, "Indices": idx.to(torch.int32)}
+
+
+_CONSTANTS = {}
+
+
+@register_op("assign_value", grad=False)
+def assign_value(ctx, ins, attrs):
+    """A constant tensor from the ``values`` attr (``layers.assign`` of a
+    numpy array). The device copy is made once per value and device and
+    kept for the process: a host-to-device copy cannot be captured in a
+    CUDA graph, so a captured program reads the kept tensor (no op
+    writes a tensor in place)."""
+    shape = [int(s) for s in attrs.get("shape") or ()]
+    vals = np.asarray(attrs["values"], dtype=attrs["dtype"])
+    if shape:
+        vals = vals.reshape(shape)
+    key = (str(ctx.device), vals.dtype.str, vals.shape, vals.tobytes())
+    out = _CONSTANTS.get(key)
+    if out is None:
+        out = torch.from_numpy(vals.copy()).to(ctx.device)
+        if not ctx.abstract:
+            _CONSTANTS[key] = out
+    return {"Out": out}
+
+
+@register_op("stack")
+def stack(ctx, ins, attrs):
+    return {"Y": torch.stack(ins["X"], dim=attrs.get("axis", 0))}
+
+
+@register_op("squeeze2")
+def squeeze2(ctx, ins, attrs):
+    """Drop the listed size-1 dims (every size-1 dim when none are
+    listed); a listed dim that is not size 1 stays."""
+    x = x_of(ins)
+    axes = attrs.get("axes", [])
+    if axes:
+        axes = [a % x.dim() for a in axes if x.shape[a % x.dim()] == 1]
+        out = x.squeeze(tuple(axes)) if axes else x
+    else:
+        out = x.squeeze()
+    return {"Out": out, "XShape": _xshape(x)}
+
+
+@register_op("expand")
+def expand(ctx, ins, attrs):
+    """``jnp.tile(x, expand_times)``."""
+    return {"Out": x_of(ins).repeat(*[int(t)
+                                      for t in attrs["expand_times"]])}
+
+
+@register_op("arg_max", grad=False)
+def arg_max(ctx, ins, attrs):
+    """The index of the first largest element along ``axis`` (int64, as
+    the IR declares it)."""
+    x = x_of(ins)
+    axis = attrs.get("axis", -1)
+    out = torch.argmax(x, dim=axis, keepdim=bool(attrs.get("keepdims",
+                                                           False)))
+    return {"Out": out.to(torch_dtype(attrs.get("dtype", "int64")))}
