@@ -5,8 +5,8 @@ Ported so far:
 
 - Training through the Fluid surface, used as ``import paddle_tpu_torch
   as fluid``: ``fluid.Program``, ``fluid.layers``, the optimizers
-  (``SGD``, ``Momentum``, ``Adam``, ``AdamW``; ``minimize`` =
-  ``append_backward`` + update ops), the LR schedulers, bf16 mixed
+  (``minimize`` = ``append_backward`` + clip + regularization + update
+  ops), the LR schedulers, bf16 mixed
   precision (``fluid.contrib.mixed_precision.decorate``) and
   ``fluid.Executor().run``, which runs the program through the default
   pass pipeline (``framework.passes``: dce, cse, fuse_optimizer; the
@@ -23,7 +23,16 @@ Ported so far:
 - Persistence (``io``: ``save``/``load``, ``save_params``,
   ``save_persistables``, ``save_inference_model`` and their loads), in
   the JAX package's on-disk format, so either package reads what the
-  other writes.
+  other writes; exact training resume (``io.save_checkpoint`` /
+  ``load_checkpoint``, ``io.CheckpointSaver``,
+  ``train.TrainCheckpoint``).
+- The optimizer stack: gradient clipping (``fluid.clip``),
+  regularizers (``fluid.regularizer``, ``ParamAttr(regularizer=,
+  need_clip=)``), every optimizer of the JAX package (LARS, LAMB,
+  Adagrad, DecayedAdagrad, Adadelta, Adamax, RMSProp, FTRL, DP-SGD
+  beside SGD, Momentum, Adam and AdamW), ``ExponentialMovingAverage``,
+  ``ModelAverage``, ``LookaheadOptimizer``, ``DGCMomentumOptimizer``,
+  error clipping and ``contrib.extend_with_decoupled_weight_decay``.
 - Inference: ``inference.AnalysisPredictor`` over a saved model, and
   ``serving.InferenceServer(model_dir)``, which micro-batches requests
   across clients into padded batches and runs each bucket as a captured
@@ -74,26 +83,32 @@ from .param_attr import ParamAttr
 from .serving import (Client, GenerationEngine, InferenceServer, KVBlockPool,
                       ServingStats)
 from . import dataio, dygraph, inference, io
+from . import clip, regularizer, resilience, train
 from .dataio import DatasetFactory
-from .io import (load, load_inference_model, load_params, load_persistables,
-                 save, save_inference_model, save_params, save_persistables)
+from .io import (CheckpointSaver, load, load_checkpoint,
+                 load_inference_model, load_params, load_persistables, save,
+                 save_checkpoint, save_inference_model, save_params,
+                 save_persistables)
 
 dataset = dataio
 
-__all__ = ["CPUPlace", "CUDAPlace", "Client", "DatasetFactory", "Executor",
+__all__ = ["CPUPlace", "CUDAPlace", "CheckpointSaver", "Client",
+           "DatasetFactory", "Executor",
            "GPT", "LoDTensor", "LoDTensorArray", "Tensor",
            "create_lod_tensor", "create_random_int_lodtensor",
            "GPTConfig", "GPTGenerator", "GenerationEngine",
            "InferenceServer", "KVBlockPool", "ParamAttr", "Program", "Scope",
-           "ServingStats", "append_backward", "contrib", "data", "dataio",
+           "ServingStats", "append_backward", "clip", "contrib", "data",
+           "dataio",
            "dataset",
            "default_main_program", "default_startup_program", "dygraph",
            "flags",
            "framework", "get_flags", "global_scope", "gradients",
            "inference", "init_params", "initializer", "io", "kernels",
-           "layers", "load",
+           "layers", "load", "load_checkpoint",
            "load_inference_model", "load_params", "load_persistables",
            "ops", "optimizer", "param_shapes", "params_from_jax",
-           "program_guard", "resolve_device", "save", "save_inference_model",
-           "save_params", "save_persistables", "scope_guard", "set_flags",
+           "program_guard", "regularizer", "resilience", "resolve_device",
+           "save", "save_checkpoint", "save_inference_model", "save_params",
+           "save_persistables", "scope_guard", "set_flags", "train",
            "unique_name"]

@@ -9,9 +9,10 @@ A forward value whose name the op or a later op rebinds is saved by an
 re-emits each checkpoint-delimited forward segment before its grad ops,
 as there (``:214-290``). Grads through ``cond``, ``recurrent`` and a
 bounded ``while`` take the generic vjp, which recomputes the loop; an
-unbounded ``while`` on a grad path raises, as there (``:322``). Left
-out: error clipping (``clip`` is not
-ported); other grad-op callbacks warn, as there.
+unbounded ``while`` on a grad path raises, as there (``:322``). A var's
+``error_clip`` clips its grad once, when the grad is finalized, before
+earlier grad ops read it (``:183-209``); ``clip.error_clip_callback`` is
+accepted for that, and other grad-op callbacks warn, as there.
 """
 import warnings
 from collections import defaultdict
@@ -50,17 +51,19 @@ def append_backward(loss, parameter_list=None, no_grad_set=None,
     non-persistable inputs through one ``recompute_barrier``, so the
     backward reads recomputed activations and only the checkpoints stay
     live across the forward-to-backward gap. ``callbacks``: the
-    reference's per-grad-op hooks; they are not invoked and warn, and
-    error clipping raises (``clip`` is not ported)."""
+    reference's per-grad-op hooks. Error clipping (their main use,
+    ``clip.error_clip_callback``) is applied when each grad is
+    finalized, so that callback is accepted; others are not invoked and
+    warn."""
+    from ..clip import error_clip_callback
     for cb in callbacks or ():
-        if getattr(cb, "__name__", "") == "error_clip_callback":
-            raise NotImplementedError("paddle_tpu_torch: error clipping "
-                                      "(clip.error_clip_callback) is not "
-                                      "ported")
+        if cb is error_clip_callback:
+            continue
         warnings.warn(
-            f"append_backward callback {cb!r} is not invoked: per-grad-op "
-            f"hooks have no equivalent in the whole-program emission "
-            f"model", stacklevel=2)
+            f"append_backward callback {cb!r} is not invoked: error "
+            f"clipping is built in; other per-grad-op hooks have no "
+            f"equivalent in the whole-program emission model",
+            stacklevel=2)
     return _append_backward_core([loss], [None],
                                  parameter_list=parameter_list,
                                  no_grad_set=no_grad_set,
@@ -171,19 +174,32 @@ def _append_backward_core(targets, target_gradients, parameter_list=None,
         grad_map[var_name].append(name)
         return name
 
+    error_clipped = set()
+
     def finalize(var_name):
         """Collapse a var's partial grads into one grad var (a ``sum``
-        op when there are several)."""
+        op when there are several), then apply the var's ``error_clip``
+        before earlier grad ops read it."""
         partials = grad_map[var_name]
         if not partials:
             return None
         if len(partials) == 1:
-            return partials[0]
-        out = grad_var_name(var_name)
-        block.append_op(type="sum", inputs={"X": list(partials)},
-                        outputs={"Out": [out]},
-                        attrs={OP_ROLE_KEY: OpRole.Backward})
-        grad_map[var_name] = [out]
+            out = partials[0]
+        else:
+            out = grad_var_name(var_name)
+            block.append_op(type="sum", inputs={"X": list(partials)},
+                            outputs={"Out": [out]},
+                            attrs={OP_ROLE_KEY: OpRole.Backward})
+            grad_map[var_name] = [out]
+        eclip = getattr(block.vars.get(var_name), "error_clip", None)
+        if eclip is not None and out not in error_clipped:
+            # keyed by the grad name: a rebound forward name has one grad
+            # per writer and each clips; the clipped name is recorded so
+            # a repeated finalize does not clip twice
+            cname = eclip._append_clip_op(block, out)
+            error_clipped.add(cname)
+            grad_map[var_name] = [cname]
+            return cname
         return out
 
     # ---- recompute: re-emit each checkpoint-delimited segment (but the

@@ -75,6 +75,17 @@ class Variable:
         self.trainable = trainable
         self.initializer = initializer
         self.is_parameter = False
+        self.error_clip = None
+
+    def _set_error_clip(self, clip):
+        """Clip this var's backward error signal
+        (``clip.ErrorClipByValue``); ``append_backward`` applies it when
+        the grad is finalized."""
+        from ..clip import BaseErrorClipAttr
+        if not isinstance(clip, BaseErrorClipAttr):
+            raise TypeError(
+                "error_clip must be a BaseErrorClipAttr instance")
+        self.error_clip = clip
 
     def __repr__(self):
         return (f"Var(name={self.name}, shape={self.shape}, "

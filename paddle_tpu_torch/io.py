@@ -21,12 +21,28 @@ words into a seed through ``splitmix64``: a resumed run is
 deterministic, not the JAX run's stream. The JAX package ignores the
 port's extra.
 
-``save_checkpoint``/``load_checkpoint`` and ``CheckpointSaver`` are not
-ported and raise.
+The exact-resume half: :func:`save_checkpoint` writes every
+persistable (params, optimizer state, LR and step counters), the run
+seed and a ``train_state.json`` under one manifest;
+:func:`load_checkpoint` refuses a directory that lacks part of that
+state (``CheckpointIncompleteError`` naming the missing optimizer
+state) before it touches the scope. A checkpoint carries the run seed
+under ``@RNG_SEED@`` and, for the JAX package's strict load, a threefry
+key made of the seed's two 32-bit halves under ``@RNG_KEY@``; the port
+loads its own seed back, and folds a JAX checkpoint's key
+(:func:`fold_jax_key`). :class:`CheckpointSaver` keeps numbered
+checkpoints, each staged in a ``.tmp`` directory and committed by an
+atomic rename (``"io.commit"`` is its fault point), prunes to
+``max_to_keep``, and saves in the background (``save_async``): the
+scope is gathered to host copies before ``save_async`` returns, so a
+step that runs meanwhile (a captured step writes its tensors in place)
+cannot reach the snapshot.
 """
 import hashlib
 import json
 import os
+import shutil
+import threading
 
 import numpy as np
 import torch
@@ -36,19 +52,24 @@ from .framework.core import Parameter, Program, Variable
 from .framework.dtype import torch_dtype
 from .framework.executor import RNG_STATE_NAME, global_scope
 from .framework.lowering import splitmix64
-from .resilience import CheckpointCorruptError
+from .resilience import CheckpointCorruptError, CheckpointIncompleteError
+from .resilience import maybe_fail as _maybe_fail
 
 _META_FILE = "__meta__.json"
+TRAIN_STATE_FILE = "train_state.json"
 _MODEL_FILE = "__model__"
 _MANIFEST_FILE = "_manifest.json"
 # the JAX package's name for its PRNG key in the scope and the meta extras
 JAX_RNG_KEY_NAME = "@RNG_KEY@"
 _MASK64 = (1 << 64) - 1
 
-__all__ = ["CheckpointCorruptError", "is_parameter", "is_persistable", "load", "load_inference_model",
-           "load_params", "load_persistables", "load_vars", "save",
-           "save_inference_model", "save_params", "save_persistables",
-           "save_vars", "verify_checkpoint"]
+__all__ = ["CheckpointCorruptError", "CheckpointIncompleteError",
+           "CheckpointSaver", "TRAIN_STATE_FILE", "is_parameter",
+           "is_persistable", "load", "load_checkpoint",
+           "load_inference_model", "load_params", "load_persistables",
+           "load_vars", "save", "save_checkpoint", "save_inference_model",
+           "save_params", "save_persistables", "save_vars",
+           "verify_checkpoint"]
 
 
 # ---------------------------------------------------------------------------
@@ -83,13 +104,18 @@ class _Sha256Writer:
 
 def _fsync_write(path, write_fn):
     """Crash-safe file write: temp path, write, flush + fsync, atomic
-    rename. Returns the content sha256 (None if ``write_fn`` seeked)."""
+    rename. Returns the content sha256 (None if ``write_fn`` seeked).
+    ``io.fsync_write``, ``io.fsync`` and ``io.rename`` are its fault
+    points (``resilience.fault_injection``)."""
+    _maybe_fail("io.fsync_write", path=path)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         w = _Sha256Writer(f)
         write_fn(w)
         f.flush()
+        _maybe_fail("io.fsync", path=path)
         os.fsync(f.fileno())
+    _maybe_fail("io.rename", path=path)
     os.replace(tmp, path)
     return w.hexdigest()
 
@@ -208,18 +234,22 @@ def _escape(name):
     return name.replace("/", "%2F").replace(os.sep, "%2F")
 
 
-def _storable(value):
+def _storable(value, copy=False):
     """(numpy array to store, dtype tag) of a scope value. bfloat16 has
     no numpy dtype: it is stored as its uint16 view under the tag
-    ``bfloat16``, as the JAX package stores it."""
+    ``bfloat16``, as the JAX package stores it. A CPU tensor's array
+    shares its memory unless ``copy``; a device tensor's is a host copy
+    made before this returns."""
     if isinstance(value, torch.Tensor):
         t = value.detach()
+        if copy and t.device.type == "cpu":
+            t = t.clone()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).cpu().numpy().view(np.uint16), \
                 "bfloat16"
         arr = t.cpu().numpy()
     else:
-        arr = np.asarray(value)
+        arr = np.array(value, copy=True) if copy else np.asarray(value)
     return arr, str(arr.dtype)
 
 
@@ -244,9 +274,10 @@ def _device_of(executor):
     return executor.device if executor is not None else resolve_device(None)
 
 
-def _collect_arrays(scope, var_list, extra_state=None):
+def _collect_arrays(scope, var_list, extra_state=None, copy=False):
     """Scope values of ``var_list`` (+ named extra state) as
-    ``({name: storable array}, meta)``."""
+    ``({name: storable array}, meta)``; ``copy``: arrays that share no
+    memory with the scope (a snapshot)."""
     arrays, meta = {}, {"vars": {}, "extra": {}}
     for var in var_list:
         val = scope.find_var(var.name)
@@ -254,11 +285,11 @@ def _collect_arrays(scope, var_list, extra_state=None):
             raise RuntimeError(
                 f"variable {var.name!r} has no value in the scope: run the "
                 f"startup program (and any training) before saving")
-        arr, tag = _storable(val)
+        arr, tag = _storable(val, copy)
         arrays[var.name] = arr
         meta["vars"][var.name] = {"dtype": tag, "shape": list(arr.shape)}
     for name, val in (extra_state or {}).items():
-        arr, tag = _storable(val)
+        arr, tag = _storable(val, copy)
         arrays[name] = arr
         meta["extra"][name] = {"dtype": tag}
     return arrays, meta
@@ -268,6 +299,18 @@ def _rng_extra(scope):
     seed = scope.find_var(RNG_STATE_NAME)
     return {} if seed is None \
         else {RNG_STATE_NAME: np.array([int(seed)], np.int64)}
+
+
+def _checkpoint_rng_extra(scope):
+    """The run seed, and the JAX package's key for it: a threefry key
+    whose two uint32 words are the seed's high and low halves (the JAX
+    package's strict ``load_checkpoint`` requires a key)."""
+    extra = _rng_extra(scope)
+    if extra:
+        seed = int(extra[RNG_STATE_NAME][0]) & _MASK64
+        extra[JAX_RNG_KEY_NAME] = np.array(
+            [seed >> 32, seed & 0xFFFFFFFF], np.uint32)
+    return extra
 
 
 def fold_jax_key(words):
@@ -339,6 +382,24 @@ def _write_meta(dirname, meta):
                                                      indent=1).encode()))
 
 
+def _write_array_dir(dirname, arrays, meta, manifest_extra=None):
+    """One ``.npy`` per array, the meta and the manifest: the one writer
+    of ``save_vars`` and of ``CheckpointSaver``'s background save, so
+    the two cannot drift apart. ``manifest_extra``: sibling files
+    already written (``train_state.json``) that the manifest covers
+    too."""
+    meta = _merged_meta(dirname, meta)
+    digests = {}
+    for name, arr in arrays.items():
+        rel = _escape(name) + ".npy"
+        digests[rel] = _fsync_write(
+            os.path.join(dirname, rel),
+            lambda f, _a=arr: np.save(f, _a, allow_pickle=False))
+    digests[_META_FILE] = _write_meta(dirname, meta)
+    _write_manifest(dirname, list(digests) + list(manifest_extra or ()),
+                    meta, preserve_existing=True, digests=digests)
+
+
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None,
               extra_state=None, _manifest_extra=None):
@@ -349,21 +410,17 @@ def save_vars(executor, dirname, main_program=None, vars=None,
     main_program, var_list = _resolve_vars(main_program, vars, predicate)
     os.makedirs(dirname, exist_ok=True)
     arrays, meta = _collect_arrays(scope, var_list, extra_state)
-    meta = _merged_meta(dirname, meta)
     if filename is None:
-        digests = {}
-        for name, arr in arrays.items():
-            rel = _escape(name) + ".npy"
-            digests[rel] = _fsync_write(
-                os.path.join(dirname, rel),
-                lambda f, _a=arr: np.save(f, _a, allow_pickle=False))
-    else:
-        # through a file object the name stays exact (np.savez appends
-        # ".npz" to a bare path); the loader accepts both
-        digests = {filename: _fsync_write(
-            os.path.join(dirname, filename),
-            lambda f: np.savez(
-                f, **{_escape(n): a for n, a in arrays.items()}))}
+        _write_array_dir(dirname, arrays, meta,
+                         manifest_extra=_manifest_extra)
+        return
+    meta = _merged_meta(dirname, meta)
+    # through a file object the name stays exact (np.savez appends
+    # ".npz" to a bare path); the loader accepts both
+    digests = {filename: _fsync_write(
+        os.path.join(dirname, filename),
+        lambda f: np.savez(
+            f, **{_escape(n): a for n, a in arrays.items()}))}
     digests[_META_FILE] = _write_meta(dirname, meta)
     _write_manifest(dirname, list(digests) + list(_manifest_extra or ()),
                     meta, preserve_existing=True, digests=digests)
@@ -479,20 +536,324 @@ def load_persistables(executor, dirname, main_program=None, filename=None,
     _restore_rng(scope, extras)
 
 
-def save_checkpoint(*args, **kwargs):
-    raise NotImplementedError("paddle_tpu_torch: save_checkpoint (the "
-                              "train/* resume path) is not ported")
+# ---------------------------------------------------------------------------
+# the full training state (exact resume)
+# ---------------------------------------------------------------------------
+
+def save_checkpoint(executor, dirname, main_program=None, scope=None,
+                    train_state=None):
+    """The full training state into ``dirname``: every persistable
+    (params, optimizer state, LR and step counters), the run seed and,
+    when given, ``train_state`` (the dataset cursor or slab index, as
+    ``train_state.json``), all of it under the manifest, so a torn file
+    anywhere fails the load instead of diverging the resume."""
+    scope = scope or global_scope()
+    os.makedirs(dirname, exist_ok=True)
+    extra = []
+    if train_state is not None:
+        _fsync_write(os.path.join(dirname, TRAIN_STATE_FILE),
+                     lambda f: f.write(json.dumps(train_state,
+                                                  indent=1).encode()))
+        extra.append(TRAIN_STATE_FILE)
+    save_vars(executor, dirname, main_program=main_program,
+              predicate=is_persistable, scope=scope,
+              extra_state=_checkpoint_rng_extra(scope),
+              _manifest_extra=extra)
 
 
-def load_checkpoint(*args, **kwargs):
-    raise NotImplementedError("paddle_tpu_torch: load_checkpoint (the "
-                              "train/* resume path) is not ported")
+def _raise_incomplete(dirname, main_program, missing):
+    gb = main_program.global_block()
+    opt = sorted(n for n in missing
+                 if getattr(gb.vars.get(n), "is_optimizer_state", False))
+    what = (f"optimizer state for {len(opt)} variable(s) "
+            f"(e.g. {opt[0]!r})" if opt else
+            f"{len(missing)} persistable variable(s) "
+            f"(e.g. {sorted(missing)[0]!r})")
+    raise CheckpointIncompleteError(
+        f"checkpoint {dirname!r} is missing {what}: it looks like a "
+        f"params-only save, and resuming from it would silently reset "
+        f"the missing state. Use io.load_params for a params-only "
+        f"restore, or re-save with io.save_checkpoint/save_persistables "
+        f"for exact resume.", path=dirname, missing=sorted(missing))
+
+
+def load_checkpoint(executor, dirname, main_program=None, scope=None,
+                    strict=True, filename=None):
+    """Restore a :func:`save_checkpoint` (or a full
+    ``save_persistables``) directory for exact resume; returns its
+    ``train_state`` (None when it has none). ``filename`` names a
+    single-archive save. A directory without some persistable (a
+    params-only save) or, under ``strict``, without the run's RNG
+    record raises :class:`CheckpointIncompleteError` before the scope is
+    touched. The restored tensors are new scope values: a captured step
+    bound to ``scope`` copies them in on its next slab."""
+    scope = scope or global_scope()
+    main_program, var_list = _resolve_vars(main_program, None,
+                                           is_persistable)
+    if filename is None:
+        missing = [v.name for v in var_list
+                   if not os.path.exists(
+                       os.path.join(dirname, _escape(v.name) + ".npy"))]
+        if missing:
+            _raise_incomplete(dirname, main_program, missing)
+    if strict:
+        meta_path = os.path.join(dirname, _META_FILE)
+        extras = {}
+        if os.path.exists(meta_path):
+            try:
+                with open(meta_path) as f:
+                    extras = json.load(f).get("extra", {})
+            except (OSError, ValueError) as e:
+                raise CheckpointCorruptError(
+                    f"checkpoint meta {meta_path!r} is unreadable: {e}",
+                    path=meta_path)
+        if RNG_STATE_NAME not in extras and JAX_RNG_KEY_NAME not in extras:
+            raise CheckpointIncompleteError(
+                f"checkpoint {dirname!r} has no RNG stream record in its "
+                f"__meta__ extras: resuming would replay a reseeded "
+                f"random stream (dropout) and diverge from the "
+                f"uninterrupted run. Re-save with io.save_checkpoint, or "
+                f"pass strict=False to accept the divergence.",
+                path=dirname, missing=[RNG_STATE_NAME])
+    try:
+        extras = load_vars(executor, dirname, main_program=main_program,
+                           predicate=is_persistable, scope=scope,
+                           filename=filename)
+    except RuntimeError as e:
+        # load_vars checks the whole restore before it touches the scope
+        # and names every missing var
+        if "incomplete" not in str(e) or \
+                isinstance(e, CheckpointCorruptError):
+            raise
+        missing = [v.name for v in var_list if v.name in str(e)]
+        _raise_incomplete(dirname, main_program,
+                          missing or [v.name for v in var_list])
+    _restore_rng(scope, extras)
+    state_path = os.path.join(dirname, TRAIN_STATE_FILE)
+    if not os.path.exists(state_path):
+        return None
+    _verify_against_manifest(dirname, TRAIN_STATE_FILE,
+                             _read_manifest(dirname))
+    with open(state_path) as f:
+        return json.load(f)
 
 
 class CheckpointSaver:
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("paddle_tpu_torch: CheckpointSaver is "
-                                  "not ported")
+    """Numbered training checkpoints with retention and background
+    saves. Each save writes ``<dirname>/<prefix><n>`` (every persistable
+    and the run seed, manifest-checked on load) into a ``.tmp`` staging
+    directory and commits it by an atomic directory rename, so no reader
+    sees a half-written checkpoint; ``max_to_keep`` prunes the oldest
+    after each commit (None keeps all). ``save_async`` gathers the scope
+    to host copies before it returns and writes, hashes, fsyncs and
+    renames on a thread; ``wait()`` joins the pending saves and raises
+    the first failure. One saver writes a directory: numbers are
+    reserved in the process, and stale ``.tmp`` entries are removed."""
+
+    def __init__(self, dirname, max_to_keep=5,
+                 prefix="__paddle_checkpoint__"):
+        self.dirname = dirname
+        self.max_to_keep = None if max_to_keep is None else int(max_to_keep)
+        self.prefix = prefix
+        self._pending = []
+        self._errors = []
+        self._lock = threading.Lock()
+        # numbers handed out by _stage() and not committed yet: two
+        # back-to-back save_async calls must not share a staging dir
+        self._reserved = set()
+        # numbers whose in-flight save was abandoned: _commit drops them
+        self._abandoned = set()
+        self._gc_stale_temps()
+
+    # -- numbering --------------------------------------------------------
+    def checkpoint_numbers(self):
+        if not os.path.isdir(self.dirname):
+            return []
+        out = []
+        for d in os.listdir(self.dirname):
+            if not d.startswith(self.prefix) or d.endswith(".tmp"):
+                continue
+            try:
+                out.append(int(d[len(self.prefix):]))
+            except ValueError:
+                continue
+        return sorted(out)
+
+    def _path(self, no):
+        return os.path.join(self.dirname, f"{self.prefix}{no}")
+
+    def latest(self):
+        nums = self.checkpoint_numbers()
+        return (nums[-1], self._path(nums[-1])) if nums else (None, None)
+
+    # -- saving -----------------------------------------------------------
+    def save(self, executor, main_program=None, scope=None,
+             extra_files=None):
+        """A synchronous numbered save; returns its number."""
+        no, stage = self._stage()
+        self._write(no, stage, executor, main_program, scope, extra_files)
+        return no
+
+    def save_async(self, executor, main_program=None, scope=None,
+                   extra_files=None):
+        """Snapshot now (host copies of every persistable, made before
+        this returns), write in the background. Returns the checkpoint
+        number; call :meth:`wait` before relying on the files."""
+        scope = scope or global_scope()
+        main_program, var_list = _resolve_vars(main_program, None,
+                                               is_persistable)
+        arrays, meta = _collect_arrays(scope, var_list,
+                                       _checkpoint_rng_extra(scope),
+                                       copy=True)
+        no, stage = self._stage()
+
+        def _bg():
+            try:
+                self._write_arrays(no, stage, arrays, meta, extra_files)
+            except Exception as exc:  # noqa: BLE001 — raised in wait()
+                with self._lock:
+                    self._errors.append(exc)
+
+        t = threading.Thread(target=_bg, daemon=True,
+                             name=f"ckpt-save-{no}")
+        with self._lock:
+            self._pending.append(t)
+        t.start()
+        return no
+
+    def wait(self):
+        """Join the pending background saves; raise the first failure."""
+        with self._lock:
+            pending, self._pending = self._pending, []
+        for t in pending:
+            t.join()
+        with self._lock:
+            if self._errors:
+                exc = self._errors[0]
+                self._errors = []
+                raise exc
+
+    # -- restore ----------------------------------------------------------
+    def restore(self, executor, main_program=None, scope=None):
+        """Load the newest checkpoint; returns its number (None when the
+        directory holds none)."""
+        no, path = self.latest()
+        if no is None:
+            return None
+        load_persistables(executor, path, main_program=main_program,
+                          scope=scope)
+        return no
+
+    # -- internals --------------------------------------------------------
+    def _stage(self):
+        os.makedirs(self.dirname, exist_ok=True)
+        with self._lock:
+            nums = self.checkpoint_numbers()
+            floor = max(nums[-1] if nums else -1,
+                        max(self._reserved, default=-1))
+            no = floor + 1
+            self._reserved.add(no)
+        stage = self._path(no) + ".tmp"
+        if os.path.isdir(stage):
+            shutil.rmtree(stage, ignore_errors=True)
+        return no, stage
+
+    def _release(self, no):
+        with self._lock:
+            self._reserved.discard(no)
+
+    @staticmethod
+    def _write_extra_files(stage, extra_files):
+        """The side JSON files (``train_state.json``), written before the
+        arrays' manifest, which covers them. Returns their names."""
+        names = []
+        for rel, payload in (extra_files or {}).items():
+            _fsync_write(os.path.join(stage, rel),
+                         lambda f, _p=payload: f.write(
+                             json.dumps(_p).encode()))
+            names.append(rel)
+        return names
+
+    def _write(self, no, stage, executor, main_program, scope,
+               extra_files):
+        try:
+            os.makedirs(stage, exist_ok=True)
+            names = self._write_extra_files(stage, extra_files)
+            scope_ = scope or global_scope()
+            save_vars(executor, stage, main_program=main_program,
+                      predicate=is_persistable, scope=scope_,
+                      extra_state=_checkpoint_rng_extra(scope_),
+                      _manifest_extra=names)
+            self._commit(no, stage)
+        finally:
+            self._release(no)
+
+    def _write_arrays(self, no, stage, arrays, meta, extra_files):
+        try:
+            os.makedirs(stage, exist_ok=True)
+            names = self._write_extra_files(stage, extra_files)
+            _write_array_dir(stage, arrays, meta, manifest_extra=names)
+            self._commit(no, stage)
+        finally:
+            self._release(no)
+
+    def abandon_inflight(self):
+        """Mark every in-flight (reserved, uncommitted) save abandoned:
+        its commit is skipped and its staging directory removed, so a
+        save the caller gave up on is never published. Returns the
+        numbers."""
+        with self._lock:
+            nums = set(self._reserved)
+            self._abandoned |= nums
+        return nums
+
+    def _commit(self, no, stage):
+        with self._lock:
+            abandoned = no in self._abandoned
+            self._abandoned.discard(no)
+        if abandoned:
+            shutil.rmtree(stage, ignore_errors=True)
+            return
+        _maybe_fail("io.commit", path=self._path(no))
+        os.replace(stage, self._path(no))
+        _fsync_dir(self.dirname)
+        self._prune(keep_at_least=no)
+
+    def _prune(self, keep_at_least):
+        if self.max_to_keep is not None:
+            nums = self.checkpoint_numbers()
+            drop = nums[:-self.max_to_keep] if self.max_to_keep else nums
+            for n in drop:
+                if n != keep_at_least:
+                    shutil.rmtree(self._path(n), ignore_errors=True)
+        self._gc_stale_temps()
+
+    def _gc_stale_temps(self):
+        """Remove ``.tmp`` staging entries that no in-flight save of this
+        saver owns (a save killed mid-write leaves them behind)."""
+        if not os.path.isdir(self.dirname):
+            return
+        for entry in os.listdir(self.dirname):
+            if not entry.endswith(".tmp"):
+                continue
+            if entry.startswith(self.prefix):
+                try:
+                    no = int(entry[len(self.prefix):-len(".tmp")])
+                except ValueError:
+                    no = None
+                # checked at removal: a save reserves its number before
+                # its staging dir exists
+                with self._lock:
+                    if no in self._reserved:
+                        continue
+            full = os.path.join(self.dirname, entry)
+            if os.path.isdir(full):
+                shutil.rmtree(full, ignore_errors=True)
+            else:
+                try:
+                    os.remove(full)
+                except OSError:
+                    pass
 
 
 # ---------------------------------------------------------------------------

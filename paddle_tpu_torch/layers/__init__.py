@@ -35,11 +35,12 @@ from .math import (einsum, elementwise_add, elementwise_div,
                    greater_than, less_equal, less_than, logical_and,
                    logical_not, logical_or, mean, not_equal, reduce_max,
                    reduce_mean, reduce_min, reduce_sum, scale, sums)
-from .nn import (accuracy, batch_norm, beam_search, ceil, conv2d, cos,
-                 dropout, embedding, exp, fc, flash_attention, flatten,
-                 floor, gather_tree, gru_unit, layer_norm, log,
-                 log_softmax, lstm_unit, matmul, pool2d, pow, relu, rsqrt,
-                 sigmoid, softmax, square, squeeze, tanh, topk, unsqueeze)
+from .nn import (abs, accuracy, batch_norm, beam_search, ceil, clip,
+                 clip_by_norm, conv2d, cos, dropout, embedding, exp, fc,
+                 flash_attention, flatten, floor, gather_tree, gru_unit,
+                 layer_norm, log, log_softmax, lstm_unit, matmul, pool2d,
+                 pow, relu, rsqrt, sigmoid, sign, softmax, sqrt, square,
+                 squeeze, tanh, topk, unsqueeze)
 from .tensor import (argmax, assign, beam_search_decode, cast, concat,
                      create_global_var, create_parameter, data, expand,
                      fill_constant, gather, get_tensor_from_selected_rows,
@@ -49,10 +50,11 @@ from .tensor import (argmax, assign, beam_search_decode, cast, concat,
 __all__ = ["BasicDecoder", "BeamSearchDecoder", "DecodeHelper", "Decoder",
            "DynamicRNN", "GRUCell", "GreedyEmbeddingHelper", "IfElse",
            "LSTMCell", "Print", "RNNCell", "SampleEmbeddingHelper",
-           "StaticRNN", "Switch", "TrainingHelper", "While", "accuracy",
+           "StaticRNN", "Switch", "TrainingHelper", "While", "abs", "accuracy",
            "argmax", "array_length", "array_read", "array_write", "assign",
            "autoincreased_step_counter", "batch_norm", "beam_search",
-           "beam_search_decode", "case", "cast", "ceil", "concat", "cond",
+           "beam_search_decode", "case", "cast", "ceil", "clip",
+           "clip_by_norm", "concat", "cond",
            "conv2d", "cos", "cosine_decay", "create_array",
            "create_global_var", "create_parameter", "cross_entropy", "data",
            "dropout", "dynamic_decode", "dynamic_gru", "dynamic_lstm",
@@ -76,7 +78,7 @@ __all__ = ["BasicDecoder", "BeamSearchDecoder", "DecodeHelper", "Decoder",
            "sequence_pad", "sequence_pool", "sequence_reshape",
            "sequence_reverse", "sequence_scatter", "sequence_slice",
            "sequence_softmax", "sequence_unpad", "sigmoid",
-           "sigmoid_cross_entropy_with_logits", "slice", "softmax",
-           "softmax_with_cross_entropy", "square", "square_error_cost",
+           "sigmoid_cross_entropy_with_logits", "sign", "slice", "softmax",
+           "softmax_with_cross_entropy", "sqrt", "square", "square_error_cost",
            "squeeze", "stack", "sums", "switch_case", "tanh", "topk",
            "transpose", "unsqueeze", "where"]

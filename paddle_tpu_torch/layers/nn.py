@@ -246,6 +246,26 @@ def rsqrt(x, name=None):
     return _unary("rsqrt", x, name)
 
 
+def sqrt(x, name=None):
+    return _unary("sqrt", x, name)
+
+
+def abs(x, name=None):
+    return _unary("abs", x, name)
+
+
+def sign(x, name=None):
+    return _unary("sign", x, name)
+
+
+def clip(x, min, max, name=None):
+    return _unary("clip", x, name, {"min": min, "max": max})
+
+
+def clip_by_norm(x, max_norm, name=None):
+    return _unary("clip_by_norm", x, name, {"max_norm": max_norm})
+
+
 def floor(x, name=None):
     return _unary("floor", x, name)
 

@@ -3,8 +3,9 @@
 ``tanh :25``,
 ``exp :26``, ``rsqrt :32``, ``floor :36``, ``ceil :37``, ``cos :41``,
 ``square :33``, ``log :27``, ``pow :81``, ``softmax :89``,
-``log_softmax :95``). Each takes the generic vjp grad, as in the
-JAX package; ``floor`` and ``ceil`` have none."""
+``log_softmax :95``, ``sqrt :31``, ``abs :34``, ``sign :39``). Each
+takes the generic vjp grad, as in the JAX package; ``floor``, ``ceil``
+and ``sign`` have none."""
 import torch
 
 from ..framework.registry import register_op
@@ -67,6 +68,21 @@ def tanh(ctx, ins, attrs):
 @register_op("rsqrt")
 def rsqrt(ctx, ins, attrs):
     return {"Out": torch.rsqrt(x_of(ins))}
+
+
+@register_op("sqrt")
+def sqrt(ctx, ins, attrs):
+    return {"Out": torch.sqrt(x_of(ins))}
+
+
+@register_op("abs")
+def abs_op(ctx, ins, attrs):
+    return {"Out": torch.abs(x_of(ins))}
+
+
+@register_op("sign", grad=False)
+def sign(ctx, ins, attrs):
+    return {"Out": torch.sign(x_of(ins))}
 
 
 @register_op("softmax")

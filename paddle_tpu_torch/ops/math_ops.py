@@ -3,8 +3,9 @@
 ``SelectedRows`` too), ``scale :74``, ``matmul :92``, ``mul :116``,
 ``reduce_sum``, ``reduce_mean``/``reduce_max``/``reduce_min :151``,
 ``mean :174``, the comparisons (``less_than :240``), the logical ops,
-``isfinite :268`` and ``einsum :328``). Large products go to
-``torch.matmul``, as the JAX package leaves them to XLA. ``mul`` (every
+``isfinite :268``, ``einsum :328``, and the gradient clips'
+``clip :180``, ``clip_by_norm :186`` and ``squared_l2_norm :196``).
+Large products go to ``torch.matmul``, as the JAX package leaves them to XLA. ``mul`` (every
 ``fc``) has a bespoke grad: the generic vjp would recompute its forward
 product, which eager torch cannot deduplicate as XLA does."""
 import math
@@ -87,6 +88,30 @@ def sum_op(ctx, ins, attrs):
     for x in xs[1:]:
         out = out + x
     return {"Out": out}
+
+
+@register_op("clip")
+def clip(ctx, ins, attrs):
+    return {"Out": torch.clamp(x_of(ins), attrs.get("min"),
+                               attrs.get("max"))}
+
+
+@register_op("clip_by_norm")
+def clip_by_norm(ctx, ins, attrs):
+    """``x * max_norm / ||x||`` where the L2 norm exceeds ``max_norm``,
+    else ``x``; the scale stays a device tensor."""
+    x = x_of(ins)
+    max_norm = attrs["max_norm"]
+    norm = torch.sqrt(torch.sum(torch.square(x)))
+    scale = torch.where(norm > max_norm,
+                        max_norm / torch.clamp(norm, min=1e-12), 1.0)
+    return {"Out": x * scale.to(x.dtype)}
+
+
+@register_op("squared_l2_norm")
+def squared_l2_norm(ctx, ins, attrs):
+    """The sum of squares of X, a 0-d tensor."""
+    return {"Out": torch.sum(torch.square(x_of(ins)))}
 
 
 @register_op("scale")

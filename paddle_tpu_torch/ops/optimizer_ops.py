@@ -1,7 +1,10 @@
 """Optimizer update ops in torch (counterpart of
 ``paddle_tpu/ops/optimizer_ops.py``: ``sgd :23``, ``momentum :36``,
-``adam :76``, ``adamw :122``, and ``fused_sgd :305``,
-``fused_momentum :313``, ``fused_adam :373``, ``fused_adamw :382``).
+``lars_momentum :57``, ``adam :76``, ``adamw :122``, ``adagrad :134``,
+``decayed_adagrad :146``, ``adadelta :159``, ``adamax :175``,
+``rmsprop :194``, ``ftrl :220``, ``lamb :242``, ``dpsgd :271``,
+``dgc_sparsify :394``, and ``fused_sgd :305``, ``fused_momentum :313``,
+``fused_adam :373``, ``fused_adamw :382``).
 Each op returns new param/state tensors that rebind the same names in
 the env, as the JAX lowering does; no input is written in place (a
 rollback's ``assign`` snapshot aliases it).
@@ -19,7 +22,15 @@ only the touched rows; ``momentum`` and ``adam`` densify it (their
 moments decay every row); ``adam`` with ``lazy_mode`` updates the
 touched rows' moments and params only, after merging duplicate ids
 (``selected_rows.coalesce``). ``fuse_optimizer`` leaves all of these
-per-param, so the fused ops see dense grads only."""
+per-param, so the fused ops see dense grads only; it leaves every other
+update op per-param too (the JAX table fuses these four only).
+
+The layer-adaptive ops (``lars_momentum``, ``lamb``), ``dpsgd``'s clip
+and ``dgc_sparsify``'s top-k threshold keep their norms, trust ratios
+and thresholds as device tensors (``torch.where``, no host read), so a
+captured step (``run_steps``) holds them. ``dpsgd`` draws its noise from
+the op's own generator (``LowerCtx.generator``), which a captured step
+registers per call site, as it does dropout's."""
 import torch
 
 from ..framework.registry import register_op
@@ -212,3 +223,174 @@ def fused_adamw(ctx, ins, attrs):
         outs["ParamOut"] = torch._foreach_sub(
             outs["ParamOut"], torch._foreach_mul(ps, lrc))
     return outs
+
+
+def _pgl(ins):
+    """(param, grad in the param's type, lr in the param's type)."""
+    p = x_of(ins, "Param")
+    return p, x_of(ins, "Grad").to(p.dtype), \
+        x_of(ins, "LearningRate").to(p.dtype)
+
+
+def _l2(x):
+    return torch.sqrt(torch.sum(torch.square(x)))
+
+
+@register_op("lars_momentum", grad=False)
+def lars_momentum(ctx, ins, attrs):
+    """LARS: momentum at a layer-adaptive rate ``lr * coeff * ||p|| /
+    (||g|| + decay ||p|| + eps)`` (``lr`` where either norm is 0)."""
+    p, g, lr = _pgl(ins)
+    v = x_of(ins, "Velocity")
+    mu = attrs.get("mu", 0.9)
+    coeff = attrs.get("lars_coeff", 0.001)
+    decay = attrs.get("lars_weight_decay", 0.0005)
+    eps = attrs.get("epsilon", 1e-9)
+    pn, gn = _l2(p), _l2(g)
+    local_lr = torch.where((pn > 0) & (gn > 0),
+                           coeff * pn / (gn + decay * pn + eps), 1.0)
+    v_new = mu * v + lr * local_lr * (g + decay * p)
+    return {"ParamOut": p - v_new, "VelocityOut": v_new}
+
+
+@register_op("lamb", grad=False)
+def lamb(ctx, ins, attrs):
+    """LAMB: Adam's bias-corrected direction plus ``weight_decay * p``,
+    scaled by the trust ratio ``||p|| / ||r||`` (1 where either is 0).
+    The beta-pows may be param-shaped (the optimizer's layout)."""
+    p, g, lr = _pgl(ins)
+    m1, m2 = x_of(ins, "Moment1"), x_of(ins, "Moment2")
+    b1p, b2p = x_of(ins, "Beta1Pow"), x_of(ins, "Beta2Pow")
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-6)
+    wd = attrs.get("weight_decay", 0.01)
+    m1n = b1 * m1 + (1 - b1) * g
+    m2n = b2 * m2 + (1 - b2) * torch.square(g)
+    m1h = m1n / (1 - b1p.to(p.dtype))
+    m2h = m2n / (1 - b2p.to(p.dtype))
+    r = m1h / (torch.sqrt(m2h) + eps) + wd * p
+    pn, rn = _l2(p), _l2(r)
+    trust = torch.where((pn > 0) & (rn > 0), pn / rn, 1.0)
+    return {"ParamOut": p - lr * trust * r, "Moment1Out": m1n,
+            "Moment2Out": m2n, "Beta1PowOut": b1p * b1,
+            "Beta2PowOut": b2p * b2}
+
+
+@register_op("adagrad", grad=False)
+def adagrad(ctx, ins, attrs):
+    p, g, lr = _pgl(ins)
+    mom_new = x_of(ins, "Moment") + torch.square(g)
+    eps = attrs.get("epsilon", 1e-6)
+    return {"ParamOut": p - lr * g / (torch.sqrt(mom_new) + eps),
+            "MomentOut": mom_new}
+
+
+@register_op("decayed_adagrad", grad=False)
+def decayed_adagrad(ctx, ins, attrs):
+    p, g, lr = _pgl(ins)
+    decay = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mom_new = decay * x_of(ins, "Moment") + (1 - decay) * torch.square(g)
+    return {"ParamOut": p - lr * g / (torch.sqrt(mom_new) + eps),
+            "MomentOut": mom_new}
+
+
+@register_op("adadelta", grad=False)
+def adadelta(ctx, ins, attrs):
+    p = x_of(ins, "Param")
+    g = x_of(ins, "Grad").to(p.dtype)
+    avg_sq_g = x_of(ins, "AvgSquaredGrad")
+    avg_sq_u = x_of(ins, "AvgSquaredUpdate")
+    rho = attrs.get("rho", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    asg = rho * avg_sq_g + (1 - rho) * torch.square(g)
+    update = -torch.sqrt((avg_sq_u + eps) / (asg + eps)) * g
+    asu = rho * avg_sq_u + (1 - rho) * torch.square(update)
+    return {"ParamOut": p + update, "AvgSquaredGradOut": asg,
+            "AvgSquaredUpdateOut": asu}
+
+
+@register_op("adamax", grad=False)
+def adamax(ctx, ins, attrs):
+    """Adam with the infinity norm; the optimizer scales ``Beta1Pow``
+    after the updates (``AdamaxOptimizer._finish_update``)."""
+    p, g, lr = _pgl(ins)
+    b1, b2 = attrs.get("beta1", 0.9), attrs.get("beta2", 0.999)
+    eps = attrs.get("epsilon", 1e-8)
+    m_new = b1 * x_of(ins, "Moment") + (1 - b1) * g
+    inf_new = torch.maximum(b2 * x_of(ins, "InfNorm"), torch.abs(g))
+    lr_t = lr / (1 - x_of(ins, "Beta1Pow").to(p.dtype))
+    return {"ParamOut": p - lr_t * m_new / (inf_new + eps),
+            "MomentOut": m_new, "InfNormOut": inf_new}
+
+
+@register_op("rmsprop", grad=False)
+def rmsprop(ctx, ins, attrs):
+    """RMSProp with momentum; ``centered`` subtracts the square of the
+    mean grad from the mean square."""
+    p, g, lr = _pgl(ins)
+    ms, mg = x_of(ins, "MeanSquare"), x_of(ins, "MeanGrad")
+    rho = attrs.get("decay", 0.95)
+    eps = attrs.get("epsilon", 1e-6)
+    mu = attrs.get("momentum", 0.0)
+    ms_new = rho * ms + (1 - rho) * torch.square(g)
+    if attrs.get("centered", False):
+        mg_new = rho * mg + (1 - rho) * g
+        denom = ms_new - torch.square(mg_new) + eps
+    else:
+        mg_new = mg
+        denom = ms_new + eps
+    mom_new = mu * x_of(ins, "Moment") + lr * g * torch.rsqrt(denom)
+    return {"ParamOut": p - mom_new, "MeanSquareOut": ms_new,
+            "MeanGradOut": mg_new, "MomentOut": mom_new}
+
+
+@register_op("ftrl", grad=False)
+def ftrl(ctx, ins, attrs):
+    p, g, lr = _pgl(ins)
+    sq = x_of(ins, "SquaredAccumulator")
+    lin = x_of(ins, "LinearAccumulator")
+    l1, l2 = attrs.get("l1", 0.0), attrs.get("l2", 0.0)
+    power = attrs.get("lr_power", -0.5)
+    new_sq = sq + torch.square(g)
+    sigma = (torch.pow(new_sq, -power) - torch.pow(sq, -power)) / lr
+    new_lin = lin + g - sigma * p
+    x = l1 * torch.sign(new_lin) - new_lin
+    y = torch.pow(new_sq, -power) / lr + 2 * l2
+    return {"ParamOut": torch.where(torch.abs(new_lin) > l1, x / y, 0.0),
+            "SquaredAccumOut": new_sq, "LinearAccumOut": new_lin}
+
+
+@register_op("dpsgd", grad=False, needs_rng=True)
+def dpsgd(ctx, ins, attrs):
+    """Differentially private SGD: the grad clipped to norm ``clip``,
+    plus Gaussian noise of deviation ``sigma * clip`` from the op's own
+    generator."""
+    p, g, lr = _pgl(ins)
+    clip = attrs.get("clip", 10.0)
+    sigma = attrs.get("sigma", 1.0)
+    scale = torch.clamp(clip / torch.clamp(_l2(g), min=1e-12), max=1.0)
+    noise = torch.randn(g.shape, generator=ctx.generator(attrs),
+                        dtype=g.dtype, device=g.device) * sigma * clip
+    return {"ParamOut": p - lr * (g * scale + noise)}
+
+
+@register_op("dgc_sparsify", grad=False, infer_shape=False)
+def dgc_sparsify(ctx, ins, attrs):
+    """Deep Gradient Compression: momentum-correct into the local buffer
+    U; up to step ``rampup_begin_step`` the whole corrected grad goes
+    out (U acts as the velocity), after it only the entries of |U| at or
+    above the top ``1 - sparsity`` fraction's threshold (``torch.topk``
+    on the device), the rest staying in U as residual."""
+    u, g = x_of(ins, "U"), x_of(ins, "Grad")
+    s = float(attrs.get("sparsity", 0.999))
+    m = float(attrs.get("momentum", 0.9))
+    rampup = float(attrs.get("rampup_begin_step", 0))
+    u_new = m * u + g
+    flat = torch.abs(u_new).reshape(-1)
+    k = max(int(flat.shape[0] * (1.0 - s)), 1)
+    thresh = torch.topk(flat, k).values[k - 1]
+    sparse_send = torch.where(torch.abs(u_new) >= thresh, u_new, 0.0)
+    dense = x_of(ins, "Step").reshape(()) <= rampup
+    return {"Out": torch.where(dense, u_new, sparse_send),
+            "UOut": torch.where(dense, u_new, u_new - sparse_send)}

@@ -8,8 +8,8 @@ both packages; grads, outputs and losses agree within 1e-5 (rel) unless
 a case says otherwise. Also: a dygraph grad equals the port's static
 ``append_backward`` grad bitwise; ``save_dygraph`` files load across
 the packages both ways; the ten LR schedulers give the JAX package's
-rates; layers that create parameters, ``grad_clip``, ``guard()``
-without a GPU and the unported classes raise."""
+rates; layers that create parameters, ``guard()`` without a GPU and the
+unported classes raise, and an optimizer takes a ``grad_clip``."""
 import numpy as np
 import pytest
 import torch
@@ -488,14 +488,23 @@ def test_dygraph_grad_equals_static_grad_bitwise():
 
 
 def test_parameter_creating_layers_and_grad_clip_raise():
+    """``fc`` and complex data raise in dygraph mode; a ``grad_clip``
+    is taken and applied by the eager minimize (JAX's
+    ``test_dygraph_grad_clip_and_regularization``: a 1e-6 global norm
+    leaves the weight where it was)."""
     with tdy.guard(CPU):
         x = tdy.to_variable(np.ones((3, 4), np.float32))
         with pytest.raises(RuntimeError, match="cannot run in dygraph"):
             tlayers.fc(x, 8)
-        lin = tdy.Linear(4, 1)
-        with pytest.raises(NotImplementedError):
-            tfluid.optimizer.SGDOptimizer(
-                1.0, parameter_list=lin.parameters(), grad_clip=object())
+        lin = tdy.Linear(4, 1, bias_attr=False)
+        opt = tfluid.optimizer.SGDOptimizer(
+            1.0, parameter_list=lin.parameters(),
+            grad_clip=tfluid.clip.GradientClipByGlobalNorm(1e-6))
+        w0 = lin.weight.numpy().copy()
+        tlayers.reduce_sum(lin(tdy.to_variable(
+            np.ones((2, 4), np.float32)))).backward()
+        opt.minimize(None)
+        assert 0 < np.abs(lin.weight.numpy() - w0).max() < 1e-5
         with pytest.raises(NotImplementedError):
             tdy.to_variable(np.ones(2, np.complex64))
 

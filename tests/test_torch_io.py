@@ -21,8 +21,10 @@ package writes, the other reads.
   ignores it.
 - ``Program.to_dict``/``from_dict`` across the packages (the port writes
   no ``dist_attr``), ``_prune`` (the served ops only; a dangling
-  sub_block attr skipped as the JAX package skips it), and the unported
-  checkpoint entry points raise.
+  sub_block attr skipped as the JAX package skips it), and the
+  checkpoint entry points work (``tests/test_torch_checkpoint.py`` holds
+  them to the JAX package) while the supervisor side of ``train``
+  raises.
 """
 import json
 import os
@@ -381,12 +383,29 @@ def test_prune_keeps_the_served_ops_only():
 
 
 def test_unported_checkpoint_entry_points_raise(tmp_path):
-    with pytest.raises(NotImplementedError):
-        tio.save_checkpoint(None, str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        tio.load_checkpoint(None, str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        tio.CheckpointSaver(str(tmp_path))
+    """``save_checkpoint``, ``load_checkpoint`` and ``CheckpointSaver``
+    work (a round trip, every persistable bitwise, the train state and
+    the run seed back); ``train.TrainingSupervisor`` raises."""
+    main, startup, feeds, targets = M.build(T, "mlp")
+    exe, scope = cpu_exe(), T.Scope()
+    exe.run(startup, scope=scope)
+    scope.set(RNG_STATE_NAME, 12345)
+    d = str(tmp_path / "ck")
+    tio.save_checkpoint(exe, d, main_program=main, scope=scope,
+                        train_state={"slab": 3})
+    fresh = T.Scope()
+    assert tio.load_checkpoint(exe, d, main_program=main,
+                               scope=fresh) == {"slab": 3}
+    assert fresh.find_var(RNG_STATE_NAME) == 12345
+    for n in scope.keys():
+        if n != RNG_STATE_NAME:
+            assert torch.equal(fresh.find_var(n), scope.find_var(n)), n
+    saver = tio.CheckpointSaver(str(tmp_path / "s"), max_to_keep=1)
+    assert [saver.save(exe, main_program=main, scope=scope)
+            for _ in range(2)] == [0, 1]
+    assert saver.checkpoint_numbers() == [1]
+    with pytest.raises(NotImplementedError, match="Queue 1"):
+        T.train.TrainingSupervisor(exe, main, str(tmp_path))
 
 
 def test_missing_var_leaves_the_scope_untouched(tmp_path):

@@ -19,9 +19,10 @@ the CPU.
   the parameters on every second step only, and matches the JAX losses
   and parameters (rtol 1e-5, atol 1e-5: Adam's normalized step turns a
   1e-7 grad difference into 2e-6) over 4 steps;
-- ``append_backward``'s callbacks warn and error clipping raises;
-  ``RecomputeOptimizer.load`` raises, and other attributes are the
-  wrapped optimizer's."""
+- ``append_backward``'s callbacks warn but ``clip.error_clip_callback``,
+  which is accepted, and a var's error clip puts the JAX package's
+  ``clip`` op on its grad; ``RecomputeOptimizer.load`` raises, and other
+  attributes are the wrapped optimizer's."""
 import numpy as np
 import pytest
 import torch
@@ -258,24 +259,36 @@ def test_gradient_merge_applies_every_second_step_and_matches_jax():
 
 
 def test_callbacks_warn_and_error_clipping_raises():
-    from paddle_tpu_torch.framework.backward import append_backward
-
-    def error_clip_callback(block, context):
-        pass
+    """Other callbacks warn; ``error_clip_callback`` is accepted without
+    a warning, and a var's ``ErrorClipByValue`` clips its grad with the
+    ops the JAX package emits."""
+    import warnings
 
     def other(block, context):
         pass
-    for cb, expect in ((other, "warn"), (error_clip_callback, "raise")):
-        main, startup = tfluid.Program(), tfluid.Program()
-        with tfluid.program_guard(main, startup):
-            x = tfluid.data("x", [-1, 4], "float32")
-            loss = tfluid.layers.mean(tfluid.layers.fc(x, 1))
-            if expect == "warn":
-                with pytest.warns(UserWarning, match="is not invoked"):
-                    assert append_backward(loss, callbacks=[cb])
-            else:
-                with pytest.raises(NotImplementedError):
-                    append_backward(loss, callbacks=[cb])
+
+    def build(fluid, cb, error_clip):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            x = fluid.data("x", [-1, 4], "float32")
+            h = fluid.layers.fc(x, 2)
+            if error_clip:
+                h._set_error_clip(fluid.clip.ErrorClipByValue(max=1e-3))
+            loss = fluid.layers.mean(fluid.layers.fc(h, 1))
+            grads = fluid.append_backward(loss, callbacks=[cb])
+        return main, grads
+    with pytest.warns(UserWarning, match="is not invoked"):
+        build(tfluid, other, False)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        main, grads = build(tfluid, tfluid.clip.error_clip_callback, True)
+    jmain, _ = build(jfluid, jfluid.clip.error_clip_callback, True)
+    ops = [(o.type, o.inputs, o.outputs) for o in main.global_block().ops]
+    assert ops == [(o.type, o.inputs, o.outputs)
+                   for o in jmain.global_block().ops]
+    clip = next(o for o in main.global_block().ops if o.type == "clip")
+    assert (clip.attrs["min"], clip.attrs["max"]) == (-1e-3, 1e-3)
+    assert grads
     opt = tfluid.optimizer.RecomputeOptimizer(tfluid.optimizer.SGD(0.1))
     with pytest.raises(NotImplementedError):
         opt.load({})
