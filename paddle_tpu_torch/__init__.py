@@ -47,6 +47,14 @@ Ported so far:
   generation (``models.GPTGenerator``) over a dense or block-paged KV
   cache, and the continuous-batching server (``InferenceServer(
   generator=...)`` / ``serving.Client``).
+- Data parallelism across cards, one process per card over
+  ``torch.distributed`` (NCCL on the card, gloo on the CPU):
+  ``fluid.CompiledProgram(main).with_data_parallel(loss_name)``,
+  ``fluid.ParallelExecutor``, the collective ops (``c_allreduce_*``,
+  ``c_allgather``, ``c_broadcast``, ...), ``sync_batch_norm``, the Fleet
+  collective (``incubate.fleet.collective.fleet``), dygraph
+  ``DataParallel`` and the launcher (``python -m
+  paddle_tpu_torch.distributed.launch --nproc_per_node=N``).
 - Control flow and the sequence models: ``layers.While``, ``cond``,
   ``Switch``, ``StaticRNN``, ``DynamicRNN`` and the tensor arrays (ops
   over sub-blocks, run by the same op-by-op interpreter), the
@@ -84,6 +92,9 @@ from .serving import (Client, GenerationEngine, InferenceServer, KVBlockPool,
                       ServingStats)
 from . import dataio, dygraph, inference, io
 from . import clip, regularizer, resilience, train
+from . import incubate, parallel
+from .parallel import (BuildStrategy, CompiledProgram, ExecutionStrategy,
+                       ParallelExecutor)
 from .dataio import DatasetFactory
 from .io import (CheckpointSaver, load, load_checkpoint,
                  load_inference_model, load_params, load_persistables, save,
@@ -92,8 +103,26 @@ from .io import (CheckpointSaver, load, load_checkpoint,
 
 dataset = dataio
 
-__all__ = ["CPUPlace", "CUDAPlace", "CheckpointSaver", "Client",
-           "DatasetFactory", "Executor",
+
+def cuda_places(device_ids=None):
+    """This rank's cards as ``CUDAPlace``s: ``device_ids``, else
+    ``FLAGS_selected_gpus`` (the launcher's, one card a rank), else
+    every card of the machine."""
+    import os
+    if device_ids is None:
+        sel = os.environ.get("FLAGS_selected_gpus")
+        device_ids = ([int(i) for i in sel.split(",") if i] if sel
+                      else range(__import__("torch").cuda.device_count()))
+    return [CUDAPlace(i) for i in device_ids]
+
+
+def cpu_places(device_count=None):
+    return [CPUPlace() for _ in range(device_count or 1)]
+
+__all__ = ["BuildStrategy", "CPUPlace", "CUDAPlace", "CheckpointSaver",
+           "Client", "CompiledProgram", "DatasetFactory",
+           "ExecutionStrategy", "Executor", "ParallelExecutor",
+           "cpu_places", "cuda_places", "incubate", "parallel",
            "GPT", "LoDTensor", "LoDTensorArray", "Tensor",
            "create_lod_tensor", "create_random_int_lodtensor",
            "GPTConfig", "GPTGenerator", "GenerationEngine",

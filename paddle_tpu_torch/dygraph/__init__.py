@@ -1,11 +1,11 @@
 """fluid.dygraph, the imperative mode (a trimmed copy of
 ``paddle_tpu/dygraph/``, with its export list): ``guard``, ``VarBase``
 and the tape (``base``), ``Layer`` (``layers``), the ``nn`` classes, the
-containers, the LR schedulers, ``save_dygraph``/``load_dygraph`` and
-``jit_step``, one CUDA graph over a taped training step (``jit``).
-``DataParallel``, ``prepare_context`` and ``Env`` raise (multi-device is
-not ported), as do the dygraph-to-static entry points and the ``nn``
-classes whose ops the port lacks."""
+containers, the LR schedulers, ``save_dygraph``/``load_dygraph``,
+``jit_step``, one CUDA graph over a taped training step (``jit``), and
+``DataParallel`` with ``prepare_context``, ``ParallelStrategy`` and
+``Env`` (``parallel``: one process per card). The dygraph-to-static
+entry points and the ``nn`` classes whose ops the port lacks raise."""
 from .base import (  # noqa: F401
     guard, enabled, in_dygraph_mode, to_variable, no_grad, grad, VarBase,
     Tracer, _current_tracer,
@@ -33,12 +33,12 @@ from .nn import (  # noqa: F401
     GRUUnit, NCE, TreeConv,
 )
 from .jit import dygraph_to_static_func  # noqa: F401
+from .parallel import (  # noqa: F401
+    DataParallel, Env, ParallelStrategy, prepare_context,
+)
+from . import parallel  # noqa: F401
 
-
-DataParallel = not_ported("DataParallel", "multi-device")
-ParallelStrategy = not_ported("ParallelStrategy", "multi-device")
-Env = ParallelEnv = not_ported("Env", "multi-device")
-prepare_context = not_ported("prepare_context", "multi-device")
+ParallelEnv = Env
 
 
 class BackwardStrategy:

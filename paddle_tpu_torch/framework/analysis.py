@@ -28,13 +28,17 @@ from .core import EnforceNotMet
 EMPTY_VAR = "@EMPTY@"
 
 # Ops whose execution is observable beyond their outputs: DCE roots,
-# never CSE candidates. Collective "c_*" ops count the same unlisted.
+# never CSE candidates. Collective "c_*" ops count the same unlisted:
+# every rank of a data-parallel world must issue the same collectives
+# in the same order, so none is dropped, merged or reordered (the
+# sync_batch_norm ops all-reduce their statistics).
 SIDE_EFFECT_OPS = frozenset({
     "print", "py_func", "runtime_assert", "assert", "feed", "fetch",
     "send", "recv", "send_barrier", "fetch_barrier", "listen_and_serv",
     "distributed_lookup_table", "pull_sparse", "pull_sparse_v2",
     "push_sparse", "push_sparse_v2", "pull_box_sparse", "push_box_sparse",
-    "broadcast", "alltoall", "run_program",
+    "broadcast", "alltoall", "run_program", "allreduce", "sync_batch_norm",
+    "hier_allreduce",
 })
 
 # the attrs that name a control-flow op's sub-blocks

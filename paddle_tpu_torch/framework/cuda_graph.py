@@ -295,7 +295,15 @@ class CapturedStep:
     step's run seed, so a replay draws what an eager run of the step
     draws. On the CPU each row runs the same step eagerly.
     ``warmup_launches``: the kernel launches of the warm-up pass
-    (counted; replays add ``replay_launches`` each)."""
+    (counted; replays add ``replay_launches`` each).
+
+    A data-parallel step (``Step.data_parallel``) captures its NCCL
+    all-reduces with the rest: the warm-up pass issues the same
+    collectives on every rank (so each communicator exists before
+    capture), the guard's counts are all-reduced (max) inside the graph
+    before the rollback, and the rank is folded into the call sites'
+    seeds (``Step.rng_seed``). A capture that fails raises on this rank
+    and ends its process; the launcher then ends the others."""
 
     def __init__(self, step, slab, scope, device, guard=False, skip=False,
                  pool=None, stream=None, counters=()):
@@ -383,8 +391,8 @@ class CapturedStep:
                 return new
             outs = [self._own(env[n]) for n in step.fetch_names]
             if self.guard:
-                viol, slot = first_offender(nonfinite_counts(
-                    outs + list(new.values()), self.device))
+                viol, slot = first_offender(step.agree(nonfinite_counts(
+                    outs + list(new.values()), self.device)))
                 self._viol.copy_(viol)
                 self._slot.copy_(slot)
             if copy_back:
@@ -457,10 +465,10 @@ class CapturedStep:
             for k in range(k_steps):
                 for n, b in self._bufs.items():
                     b.copy_(slab[n][k])
-                self._seed = seed
+                self._seed = self.step.rng_seed(seed)
                 if self.graph is not None:
                     for gen, attrs in self._sites:
-                        gen.manual_seed(generator_seed(seed, attrs))
+                        gen.manual_seed(generator_seed(self._seed, attrs))
                     self.graph.replay()
                     for (w, attr), n in self.replay_launches.items():
                         setattr(w, attr, getattr(w, attr) + n)

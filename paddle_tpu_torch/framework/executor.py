@@ -22,6 +22,12 @@ non-finite guard (``check_nan_inf``, ``skip_nonfinite_steps``);
 ``run_steps`` runs K steps as replays of one captured CUDA graph
 (``cuda_graph.CapturedStep``); ``train_from_dataset`` feeds a dataset
 (``dataio``) to either.
+
+Each takes a ``parallel.CompiledProgram`` too: a data-parallel one runs
+its rewritten program on this rank's rows (``with_data_parallel``), its
+first run on a scope broadcasts the state it reads from rank 0, its
+stochastic ops fold the rank into their seeds and its guard's counts are
+all-reduced (max), so every rank commits or rolls back the same steps.
 """
 import time
 
@@ -34,7 +40,7 @@ from ..resilience import NonFiniteError
 from .analysis import verify_program
 from .core import CPUPlace, CUDAPlace, Variable, default_main_program
 from .dtype import torch_dtype
-from .lowering import (LowerCtx, analyze_block_io, last_uses,
+from .lowering import (LowerCtx, analyze_block_io, fold_rank, last_uses,
                        nonfinite_counts, run_ops, splitmix64)
 from .passes import optimize_program, pipeline_signature
 from .passes import stats as pass_stats
@@ -179,17 +185,30 @@ class Executor:
         return [f.name if isinstance(f, Variable) else str(f)
                 for f in (fetch_list or [])]
 
-    def _step(self, program, feed_names, fetch_names, scope):
+    def _step(self, program, feed_names, fetch_names, scope, compiled=None):
         """The pipeline's clone of ``program`` with its io analysis
-        (:class:`Step`), memoized with the clone."""
+        (:class:`Step`), memoized with the clone. ``compiled``: the
+        ``CompiledProgram`` it came from; a data-parallel one's first
+        run on ``scope`` broadcasts the state the step reads."""
         opt = self._optimize(program, fetch_names, feed_names, scope)
+        dp = bool(getattr(compiled, "_data_parallel", False))
         key = (id(opt), opt.version, frozenset(feed_names),
-               tuple(fetch_names))
+               tuple(fetch_names), dp)
         step = self._steps.get(key)
         if step is None or step.program is not opt:
-            step = Step(opt, feed_names, fetch_names)
+            step = Step(opt, feed_names, fetch_names, data_parallel=dp)
             self._steps[key] = step
+        if dp:
+            compiled._sync_once(scope, step.reads)
         return step
+
+    def _unwrap(self, program):
+        """(program, the CompiledProgram it came from or None)."""
+        if program is None:
+            return default_main_program(), None
+        if hasattr(program, "_prepare") and hasattr(program, "program"):
+            return program._prepare(self.device), program
+        return program, None
 
     @staticmethod
     def _run_seed(scope, program):
@@ -213,12 +232,13 @@ class Executor:
         back instead: the scope keeps its state and the (non-finite)
         fetches are returned. The run seed advances with every executed
         step, rolled back or not (the JAX package restores its key)."""
-        program = program if program is not None else default_main_program()
+        program, compiled = self._unwrap(program)
         scope = scope if scope is not None else global_scope()
         feed = self._feed_dict(feed)
         fetch_names = self._fetch_names(fetch_list)
         step = self._step(program, fetch_names=fetch_names,
-                          feed_names=feed.keys(), scope=scope)
+                          feed_names=feed.keys(), scope=scope,
+                          compiled=compiled)
         block = step.program.global_block()
         env = {n: self._feed_tensor(block, n, v) for n, v in feed.items()}
         run_seed = self._run_seed(scope, program)
@@ -280,7 +300,7 @@ class Executor:
         per step, rolled back or not. ``unroll`` (the JAX package's scan
         unroll) is accepted and changes nothing: the graph holds one
         step whatever its value."""
-        program = program if program is not None else default_main_program()
+        program, compiled = self._unwrap(program)
         scope = scope if scope is not None else global_scope()
         if isinstance(feed, (list, tuple)):
             feed = _stack_feed_slab([self._feed_dict(f) for f in feed])
@@ -316,7 +336,8 @@ class Executor:
         skip = bool(skip_nonfinite_steps)
 
         step = self._step(program, fetch_names=fetch_names,
-                          feed_names=slab.keys(), scope=scope)
+                          feed_names=slab.keys(), scope=scope,
+                          compiled=compiled)
         from .cuda_graph import CapturedStep
         sig = tuple(sorted((n, tuple(t.shape[1:]), str(t.dtype))
                            for n, t in slab.items()))
@@ -481,6 +502,8 @@ class Executor:
     def infer_from_dataset(self, program=None, dataset=None, scope=None,
                            thread=0, debug=False, fetch_list=None,
                            fetch_info=None, print_period=100):
+        if program is not None and hasattr(program, "_prepare"):
+            program = program.program      # a CompiledProgram's
         prog = program.clone(for_test=True) if program is not None else None
         return self.train_from_dataset(prog, dataset, scope, thread, debug,
                                        fetch_list, fetch_info, print_period)
@@ -492,10 +515,16 @@ class Step:
     ``fetch_state``: fetched names only the scope holds), the
     persistables it writes (``writes``), when each other var can be
     dropped (``free``) and the guard's slot names (``slots``: fetches,
-    then written vars)."""
+    then written vars). A ``data_parallel`` step in a launched world
+    folds the rank into its stochastic ops' seeds (:meth:`rng_seed`)
+    and all-reduces its guard's counts (:meth:`agree`)."""
 
-    def __init__(self, program, feed_names, fetch_names):
+    def __init__(self, program, feed_names, fetch_names,
+                 data_parallel=False):
+        from ..parallel import mesh
         self.program = program
+        self.data_parallel = bool(data_parallel) and mesh.is_initialized()
+        self.rank = mesh.rank() if self.data_parallel else 0
         block = program.global_block()
         self.fetch_names = list(fetch_names)
         self.reads, self.writes = analyze_block_io(program, 0, feed_names)
@@ -509,6 +538,21 @@ class Step:
                               | set(self.writes))
         self.slots = ([("fetched output", n) for n in self.fetch_names]
                       + [("updated variable", n) for n in self.writes])
+
+    def rng_seed(self, run_seed):
+        """The seed this rank's stochastic ops draw from at ``run_seed``:
+        the run seed itself on rank 0 (and outside data parallelism), a
+        rank-folded one elsewhere, so each rank's rows get their own
+        dropout masks while ``@RNG_SEED@`` stays equal on every rank."""
+        return fold_rank(run_seed, self.rank)
+
+    def agree(self, counts):
+        """The guard's per-slot counts, maxed over the ranks in a
+        data-parallel world (a NaN on one rank rolls back every rank)."""
+        if self.data_parallel and counts is not None:
+            from ..ops.collective_ops import all_reduce
+            all_reduce(counts, "max")
+        return counts
 
     def execute(self, env, scope, device, run_seed, guard=False):
         """Run the step eagerly over ``env`` (the feed tensors) and the
@@ -527,7 +571,7 @@ class Step:
             if scope.find_var(n) is not None:
                 env[n] = scope.find_var(n)      # a fetch of scope state
         ctx = LowerCtx(self.program, self.program.global_block(), env,
-                       device, run_seed=run_seed)
+                       device, run_seed=self.rng_seed(run_seed))
         with torch.no_grad():
             run_ops(ctx, free_after=self.free)
         fetches = []
@@ -538,7 +582,8 @@ class Step:
         new = {n: env[n] for n in self.writes if n in env}
         counts = None
         if guard:
-            counts = nonfinite_counts(fetches + list(new.values()), device)
+            counts = self.agree(nonfinite_counts(
+                fetches + list(new.values()), device))
         return fetches, new, counts
 
 

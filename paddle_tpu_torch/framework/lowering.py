@@ -26,6 +26,15 @@ def splitmix64(x):
     return (x ^ (x >> 31)) & _MASK63
 
 
+def fold_rank(seed, rank):
+    """``seed`` on rank 0, a rank-folded seed elsewhere: a data-parallel
+    rank's stochastic ops draw their own numbers while the run seed
+    stays equal on every rank."""
+    if not rank:
+        return seed
+    return splitmix64(seed ^ (rank * 0x9E3779B97F4A7C15 & _MASK63))
+
+
 class LowerCtx:
     """State threaded through op lowerings: the env, the device, the run
     seed, the op being run (``op``) and what a forward lowering keeps

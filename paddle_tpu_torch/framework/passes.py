@@ -18,13 +18,20 @@ the user's program (``optimize_program``), which is never mutated:
   whose outputs equal the per-param ops' bit for bit
   (``ops/optimizer_ops.py``).
 
-``amp_bf16`` wraps ``contrib.mixed_precision.rewrite_program``. Under
+``amp_bf16`` wraps ``contrib.mixed_precision.rewrite_program``.
+``sync_batch_norm`` (batch_norm -> sync_batch_norm) and the port's own
+``dp_grad_allreduce`` (each parameter grad all-reduced and scaled by 1/N
+after its last producer) make a program data-parallel;
+``CompiledProgram.with_data_parallel`` applies both to a clone. Every
+pass treats collectives as side effects (``analysis.is_side_effect_type``):
+never dropped, merged or moved past one another, since every rank must
+issue the same collectives in the same order. Under
 ``FLAGS_verify_passes`` every pass's output is translation-validated
 (``analysis.PipelineValidator``): a pass that drops a live random
 stream, side effect or persistable write, or leaves a malformed program,
 raises ``analysis.ProgramVerifyError`` naming the pass. Not ported: the
-passes ``sync_batch_norm``, ``hier_grad_sync`` and ``quant_aware``
-(their ops are not ported), and the profiler events and metric counters
+passes ``hier_grad_sync`` (ROADMAP.md Queue 1 item 7b) and
+``quant_aware`` (item 10), and the profiler events and metric counters
 of each pass.
 """
 import time
@@ -309,6 +316,107 @@ class AmpBf16Pass(Pass):
         rewrite_program(program,
                         self.amp_lists or AutoMixedPrecisionLists(),
                         dest_dtype=self.dest_dtype)
+
+
+@register_pass("sync_batch_norm")
+class SyncBatchNormPass(Pass):
+    """batch_norm -> sync_batch_norm, its grad ops included (reference
+    framework/ir/sync_batch_norm_pass.cc): the statistics of a training
+    batch norm are then taken over every rank's rows. A test-mode op
+    stays local either way (``ops/nn_ops.py``)."""
+
+    def apply(self, program):
+        for block in program.blocks:
+            for op in block.ops:
+                if op.type in ("batch_norm", "batch_norm_grad"):
+                    op.type = "sync_" + op.type
+                    fwd = op.attrs.get("__fwd_op__")
+                    if isinstance(fwd, dict) and \
+                            fwd.get("type") == "batch_norm":
+                        fwd["type"] = "sync_batch_norm"
+
+
+#: the Queue 1 entry that SelectedRows grads under data parallelism wait on
+SPARSE_DP_ITEM = ("SelectedRows grads under data parallelism are not "
+                  "ported (ROADMAP.md Queue 1 item 12)")
+
+#: the most bytes of grads one c_coalesced_allreduce_sum carries
+DP_BUCKET_BYTES = 32 << 20
+
+
+@register_pass("dp_grad_allreduce")
+class DataParallelGradAllreducePass(Pass):
+    """The gradient sync of a data-parallel program, which GSPMD inserts
+    for the JAX package (reference
+    ir/multi_devices_graph_pass/multi_devices_graph_pass.cc:456, the
+    collective transpiler's c_allreduce_sum). Every trainable
+    parameter's ``@GRAD``, after its last producer in the global block
+    and before any op that reads or writes it again (AMP's unscale and
+    finite check, clips, regularizers, the optimizer, a gradient-merge
+    accumulate), is summed over the ranks and scaled by ``1/nranks``
+    (``BuildStrategy.GradientScaleStrategy.CoeffNumDevice``). The grads
+    go in buckets of one dtype and at most ``DP_BUCKET_BYTES``, each one
+    ``c_coalesced_allreduce_sum`` issued when its last member is made,
+    in backward order. A grad that may hold ``SelectedRows`` (an
+    ``is_sparse`` embedding) raises ``NotImplementedError``. attrs:
+    nranks."""
+
+    nranks = 1
+
+    def apply(self, program):
+        block = program.global_block()
+        wanted = {p.name + "@GRAD": p for p in block.all_parameters()
+                  if getattr(p, "trainable", True)}
+        last = {}
+        for i, op in enumerate(block.ops):
+            for n in op.output_arg_names:
+                if n in wanted:
+                    last[n] = i
+        sparse = sorted(set(last) & FuseOptimizerPass._maybe_sparse_names(
+            block))
+        if sparse:
+            raise NotImplementedError(f"paddle_tpu_torch: {SPARSE_DP_ITEM}: "
+                                      f"the grads {sparse}")
+        scale = 1.0 / float(self.nranks)
+        new_ops, buckets = [], {}     # dtype -> [names, bytes]
+        report = {"allreduce_ops": 0, "grads": 0}
+
+        def flush(dtype):
+            names, _ = buckets.pop(dtype)
+            report["grads"] += len(names)
+            new_ops.append(_Operator(
+                block, "c_coalesced_allreduce_sum", inputs={"X": names},
+                outputs={"Out": names},
+                attrs={"ring_id": 0, "scale": scale,
+                       OP_ROLE_KEY: _OpRole.Backward}))
+            report["allreduce_ops"] += 1
+
+        for i, op in enumerate(block.ops):
+            touched = set(op.input_arg_names) | set(op.output_arg_names)
+            if _has_sub_block(op):
+                from .analysis import op_reads, op_writes
+                touched |= op_reads(program, op) | op_writes(program, op)
+            for dt in [dt for dt, (names, _) in buckets.items()
+                       if touched.intersection(names)]:
+                flush(dt)
+            new_ops.append(op)
+            for n in dict.fromkeys(op.output_arg_names):
+                if last.get(n) != i:
+                    continue
+                var = block.var(n)
+                dt = str(var.dtype)
+                shape = var.shape or ()
+                nbytes = int(np.prod([max(int(d), 1) for d in shape],
+                                     dtype=np.int64)) * _itemsize(var.dtype)
+                b = buckets.setdefault(dt, [[], 0])
+                b[0].append(n)
+                b[1] += nbytes
+                if b[1] >= DP_BUCKET_BYTES:
+                    flush(dt)
+        for dt in list(buckets):
+            flush(dt)
+        block.ops = new_ops
+        self._report = report
 
 
 def _freeze(v):
@@ -612,7 +720,8 @@ class FuseOptimizerPass(Pass):
         self._report = report
 
 
-__all__ = ["DEFAULT_PIPELINE", "Pass", "UnknownPassError", "apply_passes",
+__all__ = ["DEFAULT_PIPELINE", "Pass", "SPARSE_DP_ITEM", "UnknownPassError",
+           "apply_passes",
            "canonical_order", "get_pass", "has_pass", "list_passes",
            "optimize_program", "pipeline_signature", "register_pass",
            "resolve_pipeline", "stats"]

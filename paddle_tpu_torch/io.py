@@ -37,7 +37,14 @@ atomic rename (``"io.commit"`` is its fault point), prunes to
 scope is gathered to host copies before ``save_async`` returns, so a
 step that runs meanwhile (a captured step writes its tensors in place)
 cannot reach the snapshot.
+
+In a data-parallel world (``parallel.mesh``) every rank holds the same
+state, so each save writes one copy, from rank 0, and every rank waits
+for it (a rank other than 0 writes nothing; its ``CheckpointSaver.save``
+returns the number rank 0 committed, its ``save_async`` None). A save
+that fails on rank 0 raises on every rank. Every rank loads.
 """
+import functools
 import hashlib
 import json
 import os
@@ -70,6 +77,54 @@ __all__ = ["CheckpointCorruptError", "CheckpointIncompleteError",
            "load_vars", "save", "save_checkpoint", "save_inference_model",
            "save_params", "save_persistables", "save_vars",
            "verify_checkpoint"]
+
+
+# ---------------------------------------------------------------------------
+# one writer in a data-parallel world
+# ---------------------------------------------------------------------------
+
+_writing = threading.local()
+
+
+def _one_writer(follow=None):
+    """Decorator of a save: in a launched world rank 0 runs it, then every
+    rank learns whether it failed (:func:`mesh.any_failed`, which all
+    ranks reach; only the outermost save of a nested call does). A failed
+    save raises on every rank: rank 0 its own error, the others
+    ``RuntimeError``. Otherwise the other ranks return
+    ``follow(*args)`` (None by default). Outside a world the save just
+    runs."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            from .parallel import mesh
+            if getattr(_writing, "depth", 0) or not mesh.is_initialized():
+                return fn(*args, **kwargs)
+            out, err = None, None
+            _writing.depth = 1
+            try:
+                if mesh.rank() == 0:
+                    out = fn(*args, **kwargs)
+            except BaseException as e:  # noqa: BLE001 — told to all ranks
+                err = e
+            finally:
+                _writing.depth = 0
+            if mesh.any_failed(err is not None):
+                if err is not None:
+                    raise err
+                raise RuntimeError(f"{fn.__qualname__} failed on rank 0, "
+                                   f"which writes for the world: nothing "
+                                   f"was saved")
+            if mesh.rank() != 0 and follow is not None:
+                out = follow(*args, **kwargs)
+            return out
+        return wrapper
+    return deco
+
+
+def _is_writer():
+    from .parallel import mesh
+    return mesh.rank() == 0
 
 
 # ---------------------------------------------------------------------------
@@ -400,6 +455,7 @@ def _write_array_dir(dirname, arrays, meta, manifest_extra=None):
                     meta, preserve_existing=True, digests=digests)
 
 
+@_one_writer()
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, scope=None,
               extra_state=None, _manifest_extra=None):
@@ -505,6 +561,7 @@ def load_vars(executor, dirname, main_program=None, vars=None,
 # params / persistables
 # ---------------------------------------------------------------------------
 
+@_one_writer()
 def save_params(executor, dirname, main_program=None, filename=None,
                 scope=None):
     save_vars(executor, dirname, main_program=main_program,
@@ -517,6 +574,7 @@ def load_params(executor, dirname, main_program=None, filename=None,
               predicate=is_parameter, filename=filename, scope=scope)
 
 
+@_one_writer()
 def save_persistables(executor, dirname, main_program=None, filename=None,
                       scope=None):
     """Params, optimizer accumulators, LR and step counters, and the
@@ -540,6 +598,7 @@ def load_persistables(executor, dirname, main_program=None, filename=None,
 # the full training state (exact resume)
 # ---------------------------------------------------------------------------
 
+@_one_writer()
 def save_checkpoint(executor, dirname, main_program=None, scope=None,
                     train_state=None):
     """The full training state into ``dirname``: every persistable
@@ -687,6 +746,7 @@ class CheckpointSaver:
         return (nums[-1], self._path(nums[-1])) if nums else (None, None)
 
     # -- saving -----------------------------------------------------------
+    @_one_writer(follow=lambda self, *a, **k: self.latest()[0])
     def save(self, executor, main_program=None, scope=None,
              extra_files=None):
         """A synchronous numbered save; returns its number."""
@@ -694,6 +754,7 @@ class CheckpointSaver:
         self._write(no, stage, executor, main_program, scope, extra_files)
         return no
 
+    @_one_writer()
     def save_async(self, executor, main_program=None, scope=None,
                    extra_files=None):
         """Snapshot now (host copies of every persistable, made before
@@ -830,8 +891,9 @@ class CheckpointSaver:
 
     def _gc_stale_temps(self):
         """Remove ``.tmp`` staging entries that no in-flight save of this
-        saver owns (a save killed mid-write leaves them behind)."""
-        if not os.path.isdir(self.dirname):
+        saver owns (a save killed mid-write leaves them behind); only the
+        writing rank removes them."""
+        if not os.path.isdir(self.dirname) or not _is_writer():
             return
         for entry in os.listdir(self.dirname):
             if not entry.endswith(".tmp"):
@@ -860,6 +922,7 @@ class CheckpointSaver:
 # inference model
 # ---------------------------------------------------------------------------
 
+@_one_writer()
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename=None,
                          params_filename=None, export_for_deployment=True,
@@ -945,6 +1008,7 @@ def _split_persistables(program):
     return params, others
 
 
+@_one_writer()
 def save(program, model_path, scope=None):
     """Params to ``{model_path}.pdparams``, other persistables and the
     run seed to ``{model_path}.pdopt``, the program to

@@ -1,10 +1,12 @@
 """fluid.layers namespace of the port: the layer functions the GPT,
 BERT, ResNet, LeNet, Wide&Deep and seq2seq programs use, control flow,
-the sequence layers and the RNN cell/decoder API (importing it
-registers the op lowerings)."""
+the sequence layers, the RNN cell/decoder API and the collective
+wrappers (importing it registers the op lowerings)."""
 from .. import ops  # noqa: F401  (registers op lowerings)
-from . import (control_flow, learning_rate_scheduler, loss,  # noqa: F401
-               math, more, nn, rnn_api, sequence_lod, tensor)
+from . import (collective, control_flow,  # noqa: F401
+               learning_rate_scheduler, loss, math, more, nn, rnn_api,
+               sequence_lod, tensor)
+from .collective import _allgather, _allreduce, _broadcast, shard
 from .control_flow import (DynamicRNN, IfElse, Print, StaticRNN, Switch,
                            While, array_length, array_read, array_write,
                            case, cond, create_array, switch_case)

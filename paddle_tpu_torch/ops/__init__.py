@@ -2,8 +2,8 @@
 (importing this package registers them) and the decode ops as plain
 functions on tensors."""
 from . import (activation_ops, attention_ops,  # noqa: F401
-               control_flow_ops, math_ops, metric_ops, nn_ops,
-               optimizer_ops, rnn_ops, search_ops, sequence_ops,
+               collective_ops, control_flow_ops, math_ops, metric_ops,
+               nn_ops, optimizer_ops, rnn_ops, search_ops, sequence_ops,
                tensor_ops)
 from .decode_ops import (kv_cache_write, kv_cached_attention,
                          paged_kv_cache_write, row_gather, sample_tokens,

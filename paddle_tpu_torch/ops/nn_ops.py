@@ -1,5 +1,6 @@
 """NN ops in torch (counterpart of ``paddle_tpu/ops/nn_ops.py``:
-``conv2d :24-98``, ``pool2d :206``, ``batch_norm :352``, ``layer_norm
+``conv2d :24-98``, ``pool2d :206``, ``batch_norm :352``,
+``sync_batch_norm :397`` (all-reducing its statistics), ``layer_norm
 :406``, ``dropout :479``, ``lookup_table :513`` and ``lookup_table_v2
 :501`` with the dense scatter-add grad of ``:850-860``, ``cross_entropy
 :537``, ``softmax_with_cross_entropy :555``, the fused recurrent cells
@@ -251,6 +252,163 @@ def batch_norm_grad(ctx, ins, attrs):
         if need:
             out[slot + "@GRAD"] = [val.movedim(1, caxis) if slot == "X"
                                    else val]
+    return out
+
+
+def _global_stats(x, running_mean, attrs):
+    """(mean, population variance, count) of ``x`` over every rank's
+    rows, float32, from one all-reduce of the shifted per-rank sums."""
+    from .collective_ops import all_reduce
+    caxis, axes, _ = _bn_layout(x, attrs)
+    C = x.shape[caxis]
+    n = x.numel() // C
+    v, m = torch.var_mean(x.float(), dim=axes, correction=0)
+    k = running_mean.float()
+    d = m - k
+    stats = torch.cat([n * d, n * (v + d * d),
+                       torch.full((1,), float(n), device=x.device)])
+    all_reduce(stats, "sum")
+    count = stats[2 * C]
+    md = stats[:C] / count
+    return k + md, (stats[C:2 * C] / count - md * md).clamp_min(0.0), count
+
+
+def _sync_bn_world(ctx, attrs):
+    """Whether a sync_batch_norm reduces across ranks: train mode, real
+    tensors, a launched world."""
+    from ..parallel import mesh
+    return (_bn_train(attrs) and not getattr(ctx, "abstract", False)
+            and mesh.is_initialized())
+
+
+def _card_path(x, attrs):
+    """Whether a sync batch norm takes torch's fused CUDA kernels: a
+    CUDA tensor with the channels on dim 1."""
+    return x.is_cuda and _bn_layout(x, attrs)[0] == 1
+
+
+def _card_stats(x, eps):
+    """(mean, population variance, rsqrt(var + eps), per-rank counts)
+    over every rank's rows on the card: torch's ``batch_norm_stats`` per
+    rank (float32), one all-gather of (mean, invstd, count), and their
+    exact combination:
+    ``mean = sum n_r m_r / N``, ``var = sum n_r (v_r + (m_r - mean)^2) /
+    N``."""
+    from .collective_ops import all_gather
+    C = x.shape[1]
+    m, inv = torch.batch_norm_stats(x, eps)
+    n = torch.full((1,), float(x.numel() // C), device=x.device,
+                   dtype=m.dtype)
+    allst = all_gather(torch.cat([m, inv, n])[None])
+    ms, invs, counts = allst[:, :C], allst[:, C:2 * C], allst[:, 2 * C:]
+    total = counts.sum()
+    gm = (counts * ms).sum(0) / total
+    vs = invs.reciprocal().square() - eps
+    gv = ((counts * (vs + (ms - gm).square())).sum(0) / total).clamp_min(0.0)
+    return gm, gv, torch.rsqrt(gv + eps), counts.view(-1)
+
+
+@register_op("sync_batch_norm")
+def sync_batch_norm(ctx, ins, attrs):
+    """Batch norm over the global batch of a data-parallel world
+    (reference operators/sync_batch_norm_op.cu). Under GSPMD the JAX
+    package's ``batch_norm`` already takes the cross-replica mean
+    (``paddle_tpu/ops/nn_ops.py:397-403``). The statistics are float32.
+    On the CPU each rank's statistics, shifted by the running mean (the
+    same on every rank), are all-reduced in one call: ``n (m - K)``, ``n
+    (v + (m - K)^2)`` and ``n`` per channel, from which the global mean
+    and population variance follow. On the card torch's fused sync
+    batch-norm kernels do the arithmetic (:func:`_card_stats`, then
+    ``batch_norm_elemt``), with one all-gather of (mean, invstd, count)
+    per rank. The Paddle-momentum running update and the saved
+    ``rsqrt(var + eps)`` are :func:`batch_norm`'s. Test mode
+    (``is_test``, ``use_global_stats``) and a world of 1 without a
+    process group are :func:`batch_norm` itself."""
+    if not _sync_bn_world(ctx, attrs):
+        return batch_norm(ctx, ins, attrs)
+    x = x_of(ins)
+    scale, bias = x_of(ins, "Scale"), x_of(ins, "Bias")
+    mean, var = x_of(ins, "Mean"), x_of(ins, "Variance")
+    eps = attrs.get("epsilon", 1e-5)
+    momentum = attrs.get("momentum", 0.9)
+    _, _, bshape = _bn_layout(x, attrs)
+    if _card_path(x, attrs):
+        gm, gv, inv, counts = _card_stats(x, eps)
+        y = torch.batch_norm_elemt(x, scale, bias, gm, inv, eps)
+        saved = (gm, inv, counts.to(torch.int32))
+    else:
+        gm, gv, count = _global_stats(x, mean, attrs)
+        inv = torch.rsqrt(gv + eps)
+        dt = x.dtype
+        y = (x - gm.reshape(bshape).to(dt)) * inv.reshape(bshape).to(dt)
+        y = y * scale.reshape(bshape).to(dt) + bias.reshape(bshape).to(dt)
+        saved = (gm, inv, count)
+    mean_out = mean * momentum + gm.to(mean.dtype) * (1 - momentum)
+    var_out = var * momentum + gv.to(var.dtype) * (1 - momentum)
+    if ctx.op is not None and ctx.op.type == "sync_batch_norm":
+        ctx.save_for_grad(ctx.op.output("Y")[0], saved)
+    return {"Y": y, "MeanOut": mean_out, "VarianceOut": var_out,
+            "SavedMean": gm, "SavedVariance": inv}
+
+
+@register_grad_lower("sync_batch_norm")
+def sync_batch_norm_grad(ctx, ins, attrs):
+    """dX over the global batch, dScale and dBias of this rank's rows
+    (the data-parallel grad all-reduce sums them). Per channel, this
+    rank's ``sum dy`` and ``sum dy (x - mean)`` in float32 are
+    all-reduced in one call; then ``dx = scale * rsqrt(var + eps) * (dy -
+    sum dy / N - (x - mean) rsqrt(var + eps)^2 sum dy (x - mean) / N)``
+    with the global sums and count N: plain PyTorch on the CPU, torch's
+    ``batch_norm_backward_reduce`` and ``batch_norm_backward_elemt`` on
+    the card. Test mode and a world of 1 without a process group take
+    :func:`batch_norm_grad`."""
+    fattrs = attrs["__fwd_op__"]["attrs"]
+    if not _sync_bn_world(ctx, fattrs):
+        return batch_norm_grad(ctx, ins, attrs)
+    from .collective_ops import all_reduce
+    fwd = attrs["__fwd_op__"]
+    req = attrs["__grad_inputs__"]
+    x, scale = x_of(ins), x_of(ins, "Scale")
+    eps = fattrs.get("epsilon", 1e-5)
+    caxis, axes, bshape = _bn_layout(x, fattrs)
+    C = x.shape[caxis]
+    card = _card_path(x, fattrs)
+    saved = ctx.take_saved(fwd["outputs"]["Y"][0])
+    if saved is None:
+        # the forward ran in another run: its statistics again
+        if card:
+            gm, _, inv, counts = _card_stats(x, eps)
+            saved = (gm, inv, counts.to(torch.int32))
+        else:
+            gm, gv, count = _global_stats(x, x_of(ins, "Mean"), fattrs)
+            saved = (gm, torch.rsqrt(gv + eps), count)
+    need = [any(req.get(s, ())) for s in ("X", "Scale", "Bias")]
+    out = {}
+    if card:
+        gm, inv, counts = saved
+        g = x_of(ins, "Y@GRAD").to(x.dtype)
+        sum_dy, sum_dy_xmu, dscale, dbias = torch.batch_norm_backward_reduce(
+            g, x, gm, inv, scale, True, True, True)
+        if need[0]:
+            red = all_reduce(torch.cat([sum_dy, sum_dy_xmu]), "sum")
+            out["X@GRAD"] = [torch.batch_norm_backward_elemt(
+                g, x, gm, inv, scale, red[:C], red[C:], counts)]
+    else:
+        gm, inv, count = saved
+        g = x_of(ins, "Y@GRAD").float()
+        xmu = x.float() - gm.reshape(bshape)
+        sums = torch.cat([g.sum(dim=axes), (g * xmu).sum(dim=axes)])
+        dbias, dscale = sums[:C].clone(), sums[C:] * inv
+        all_reduce(sums, "sum")
+        if need[0]:
+            mdy = (sums[:C] / count).reshape(bshape)
+            k = (inv * inv * sums[C:] / count).reshape(bshape)
+            dx = (g - mdy - xmu * k) * (scale.float() * inv).reshape(bshape)
+            out["X@GRAD"] = [dx.to(x.dtype)]
+    if need[1]:
+        out["Scale@GRAD"] = [dscale.to(scale.dtype)]
+    if need[2]:
+        out["Bias@GRAD"] = [dbias.to(scale.dtype)]
     return out
 
 

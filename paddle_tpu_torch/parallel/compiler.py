@@ -1,0 +1,216 @@
+"""CompiledProgram: a program made data-parallel over the process world.
+
+Counterpart of ``paddle_tpu/parallel/compiler.py`` (reference
+python/paddle/fluid/compiler.py:158 and the C++ ParallelExecutor,
+parallel_executor.cc:442). The JAX package attaches a mesh and lets
+GSPMD insert the gradient all-reduces into one program over the global
+batch. The port runs one process per card (``parallel.mesh``):
+``with_data_parallel`` rewrites a clone of the program, never the
+user's, so that N ranks, each fed its own rows of a global batch, end
+every step with the same state the JAX package's one step over the whole
+batch computes:
+
+- every training ``batch_norm`` becomes ``sync_batch_norm`` (statistics
+  over every rank's rows: what ``jnp.mean`` over a sharded batch is under
+  GSPMD), with or without ``BuildStrategy.sync_batch_norm``;
+- every parameter grad is summed over the ranks and scaled by 1/N after
+  its last producer (pass ``dp_grad_allreduce``, in coalesced buckets),
+  before anything reads it.
+
+The executor runs such a program on each rank (``Executor.run``,
+``run_steps`` as a captured CUDA graph with the all-reduces inside,
+``train_from_dataset``): its first run on a scope broadcasts every
+persistable it reads from rank 0 (``BCastParamsToDevices``), stochastic
+ops fold the rank into their seeds, and the non-finite guard's counts
+are all-reduced so every rank commits or rolls back alike. Fetches are
+the rank's own (a loss is the mean over its rows).
+"""
+import warnings
+import weakref
+
+from .mesh import check_device, default_mesh, get_mesh, init_parallel_env
+
+
+class BuildStrategy:
+    """Reference details/build_strategy.h:37. ``sync_batch_norm`` is
+    accepted and changes nothing (a data-parallel program always
+    synchronizes its batch norms); the rest warn when changed (see
+    :meth:`CompiledProgram.with_data_parallel`)."""
+
+    class ReduceStrategy:
+        AllReduce = 0
+        Reduce = 1
+
+    class GradientScaleStrategy:
+        CoeffNumDevice = 0
+        One = 1
+        Customized = 2
+
+    def __init__(self):
+        self.reduce_strategy = BuildStrategy.ReduceStrategy.AllReduce
+        self.gradient_scale_strategy = \
+            BuildStrategy.GradientScaleStrategy.CoeffNumDevice
+        self.fuse_all_reduce_ops = True
+        self.fuse_all_optimizer_ops = False
+        self.fuse_elewise_add_act_ops = False
+        self.enable_inplace = True
+        self.memory_optimize = True
+        self.num_trainers = 1
+        self.trainer_id = 0
+        self.sync_batch_norm = False
+
+
+class ExecutionStrategy:
+    """Reference details/execution_strategy.h:22 — retained for parity."""
+
+    def __init__(self):
+        self.num_threads = 0
+        self.num_iteration_per_drop_scope = 1
+        self.use_experimental_executor = False
+
+
+# knobs the port does not honor: (default, why), warned when changed
+_NOT_HONORED = {
+    "reduce_strategy": (
+        BuildStrategy.ReduceStrategy.AllReduce,
+        "every rank all-reduces every grad; Reduce-mode parameter "
+        "placement is not ported"),
+    "fuse_all_reduce_ops": (
+        True, "the grads are always all-reduced in coalesced buckets"),
+    "fuse_all_optimizer_ops": (
+        False, "the executor's fuse_optimizer pass (FLAGS_program_passes) "
+        "fuses the optimizer ops"),
+    "fuse_elewise_add_act_ops": (
+        False, "the elementwise-add + activation fusion is not ported"),
+    "enable_inplace": (
+        True, "buffer reuse is the caching allocator's; the executor drops "
+        "each var after its last reader"),
+    "memory_optimize": (
+        True, "the executor drops each var after its last reader"),
+}
+
+
+class CompiledProgram:
+    def __init__(self, program_or_graph, build_strategy=None):
+        self.program = program_or_graph
+        self.mesh = None
+        self.build_strategy = build_strategy or BuildStrategy()
+        self.exec_strategy = None
+        self.loss_name = None
+        self._data_parallel = False
+        self._synced = weakref.WeakSet()
+
+    def with_data_parallel(self, loss_name=None, build_strategy=None,
+                           exec_strategy=None, share_vars_from=None,
+                           places=None, mesh=None):
+        """Make the program data-parallel over the process world (joined
+        here from the launcher's environment when no one joined it yet):
+        a rewritten clone, as the module docstring says. ``places`` are
+        the rank's own cards and do not size the world."""
+        from ..framework.passes import apply_passes, get_pass
+        self.loss_name = loss_name
+        if build_strategy is not None:
+            self.build_strategy = build_strategy
+        self.exec_strategy = exec_strategy
+        n = init_parallel_env()
+        self.mesh = mesh or get_mesh() or default_mesh()
+        if self.mesh.shape.get("dp") != n:
+            raise ValueError(f"{self.mesh} over a world of {n} ranks")
+        bs = self.build_strategy
+        if bs.gradient_scale_strategy != \
+                BuildStrategy.GradientScaleStrategy.CoeffNumDevice:
+            warnings.warn(
+                "gradient_scale_strategy One/Customized is not honored: "
+                "the grads are averaged over the ranks (CoeffNumDevice), "
+                "which for a batch-mean loss is the global batch's grad; "
+                "rescale the loss in the program instead", stacklevel=2)
+        for knob, (default, why) in _NOT_HONORED.items():
+            if getattr(bs, knob, default) != default:
+                warnings.warn("BuildStrategy.%s=%r has no effect: %s"
+                              % (knob, getattr(bs, knob), why),
+                              stacklevel=2)
+        prog = self.program.clone()
+        passes = []
+        if any(op.type == "batch_norm"
+               for blk in prog.blocks for op in blk.ops):
+            passes.append("sync_batch_norm")
+        passes.append(get_pass("dp_grad_allreduce", nranks=n))
+        self.program = apply_passes(prog, passes)
+        self._data_parallel = True
+        return self
+
+    def with_inference_optimize(self, config=None):
+        self.program = self.program.clone(for_test=True)
+        return self
+
+    def _compile(self, *args, **kwargs):
+        return self
+
+    def _prepare(self, device):
+        """The program to run on ``device`` (checked against the world's
+        backend for a data-parallel program)."""
+        if self._data_parallel:
+            check_device(device)
+        return self.program
+
+    def _sync_once(self, scope, names):
+        """Broadcast ``names`` (the scope state a step reads) from rank 0,
+        on the first run of this program on ``scope``; the run seed
+        too, so every rank's checkpoints agree."""
+        from .mesh import is_initialized
+        if not (self._data_parallel and is_initialized()) \
+                or scope in self._synced:
+            return
+        import torch
+        from ..framework.executor import RNG_STATE_NAME
+        from ..ops.collective_ops import broadcast_
+        for n in names:
+            val = scope.find_var(n)
+            if isinstance(val, torch.Tensor):
+                broadcast_(val, 0)
+        seed = scope.find_var(RNG_STATE_NAME)
+        if seed is not None:
+            dev = next((v.device for v in (scope.find_var(n)
+                                           for n in names)
+                        if isinstance(v, torch.Tensor)), None)
+            t = torch.tensor([int(seed)], dtype=torch.int64, device=dev)
+            scope.set(RNG_STATE_NAME, int(broadcast_(t, 0)[0]))
+        self._synced.add(scope)
+
+
+class ParallelExecutor:
+    """Legacy multi-device executor front (reference
+    parallel_executor.py ParallelExecutor, itself a wrapper over
+    CompiledProgram since 1.6): a data-parallel CompiledProgram run
+    through an internal Executor on this rank's card (the CPU with
+    ``use_cuda=False``)."""
+
+    def __init__(self, use_cuda=True, loss_name=None, main_program=None,
+                 share_vars_from=None, exec_strategy=None,
+                 build_strategy=None, num_trainers=1, trainer_id=0,
+                 scope=None):
+        from ..framework.core import CPUPlace, default_main_program
+        from ..framework.executor import Executor, global_scope
+        program = main_program or default_main_program()
+        self._compiled = CompiledProgram(
+            program, build_strategy=build_strategy).with_data_parallel(
+                loss_name=loss_name, exec_strategy=exec_strategy,
+                share_vars_from=getattr(share_vars_from, "_compiled",
+                                        share_vars_from))
+        self._exe = Executor(None if use_cuda else CPUPlace())
+        self._scope = scope or global_scope()
+
+    def run(self, fetch_list, feed=None, feed_dict=None,
+            return_numpy=True):
+        return self._exe.run(self._compiled,
+                             feed=feed if feed is not None else feed_dict,
+                             fetch_list=fetch_list, scope=self._scope,
+                             return_numpy=return_numpy)
+
+    def drop_local_exe_scopes(self):
+        """Reference ParallelExecutor.drop_local_exe_scopes: a rank has no
+        local scopes to drop."""
+
+
+__all__ = ["BuildStrategy", "CompiledProgram", "ExecutionStrategy",
+           "ParallelExecutor"]

@@ -13,7 +13,10 @@ the fused qkv bias is exactly zero in exact arithmetic: softmax ignores a
 per-query constant), so both packages' fp32 grads there are rounding
 noise, which Adam's normalised update turns into steps of up to lr in
 either direction."""
+import copy
+
 import numpy as np
+import pytest
 
 import paddle_tpu as jfluid
 from paddle_tpu import dygraph as jdy
@@ -31,6 +34,16 @@ from test_torch_transformer import _check, _run
 
 BERT_KEYS = ("src_ids", "sent_ids", "pos_ids", "input_mask", "mask_pos",
              "mask_label", "labels")
+
+
+@pytest.fixture(autouse=True)
+def _keep_init_streams():
+    """Leave both packages' dygraph init streams as they were: the
+    weights of a later test file in this worker process are drawn from
+    them."""
+    saved = [copy.deepcopy(m._init_rng) for m in (jdylayers, tdylayers)]
+    yield
+    jdylayers._init_rng, tdylayers._init_rng = saved
 
 
 def _bert(cfg_cls, mod):

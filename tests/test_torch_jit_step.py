@@ -9,18 +9,32 @@ the static binding and copy-back, the staged ``to_variable`` data, one
 cache entry per signature and the copy-in of a value rebound between
 calls. Losses at rtol 2e-4 / atol 1e-6, as ``tests/test_dygraph.py``'s
 ``test_jit_step_matches_eager``."""
+import copy
+
 import numpy as np
 import pytest
 
 import paddle_tpu as jfluid
 from paddle_tpu import dygraph as jdy
+from paddle_tpu.dygraph import layers as jdylayers
 
 import paddle_tpu_torch as tfluid
 from paddle_tpu_torch import dygraph as tdy
+from paddle_tpu_torch.dygraph import layers as tdylayers
 from paddle_tpu_torch.framework.cuda_graph import GraphCaptureError
 from paddle_tpu_torch.models import layer_params_from_jax
 
 CPU = tfluid.CPUPlace()
+
+
+@pytest.fixture(autouse=True)
+def _keep_init_streams():
+    """Leave both packages' dygraph init streams as they were: the
+    weights of a later test file in this worker process are drawn from
+    them."""
+    saved = [copy.deepcopy(m._init_rng) for m in (jdylayers, tdylayers)]
+    yield
+    jdylayers._init_rng, tdylayers._init_rng = saved
 rng = np.random.default_rng(7)
 X = rng.standard_normal((8, 6)).astype("float32")
 Y = (rng.standard_normal((8, 3)) * 0.1).astype("float32")

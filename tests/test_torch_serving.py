@@ -266,7 +266,10 @@ def test_port_imports_neither_jax_nor_paddle_tpu():
 def test_import_leaves_jax_out_of_sys_modules():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.serving, "
             "paddle_tpu_torch.framework, paddle_tpu_torch.layers, "
-            "paddle_tpu_torch.optimizer, paddle_tpu_torch.models.gpt; "
+            "paddle_tpu_torch.optimizer, paddle_tpu_torch.models.gpt, "
+            "paddle_tpu_torch.parallel, paddle_tpu_torch.distributed.launch, "
+            "paddle_tpu_torch.incubate.fleet.collective, "
+            "paddle_tpu_torch.dygraph.parallel; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

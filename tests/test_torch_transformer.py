@@ -11,6 +11,8 @@ losses are within rtol 2e-4 and every parameter within 1e-4 of its max
 steps under the same run-seed protocol bitwise, dropout on or off. The
 dygraph BERT's counterpart is ``test_torch_bert_dygraph.py`` (each
 model's first JAX eager pass compiles every op, ~20 s apiece)."""
+import copy
+
 import numpy as np
 import pytest
 
@@ -25,6 +27,16 @@ from paddle_tpu_torch.dygraph import layers as tdylayers
 from paddle_tpu_torch.models import transformer as ttr
 
 CPU = tfluid.CPUPlace()
+
+
+@pytest.fixture(autouse=True)
+def _keep_init_streams():
+    """Leave both packages' dygraph init streams as they were: the
+    weights of a later test file in this worker process are drawn from
+    them."""
+    saved = [copy.deepcopy(m._init_rng) for m in (jdylayers, tdylayers)]
+    yield
+    jdylayers._init_rng, tdylayers._init_rng = saved
 V, B, S, T = 64, 4, 8, 6
 TR_KEYS = ("src_ids", "src_mask", "tgt_ids", "labels", "label_mask")
 
