@@ -389,7 +389,41 @@ NVIDIA GPU.
     ``--only-dp`` builds, runs these paths at N = every card only (no
     N = 1 runs, no scaling line) and stops (no kernels line, no ok
     line): the data-parallel figures alone, e.g. on four cards.
-14. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+14. The core layer surface, last among the main paths:
+    - gpt_programs: GPT's generation programs built from the registered
+      decode ops (``models.gpt.gpt_prefill``, ``gpt_decode_step``,
+      ``gpt_decode_step_paged`` with fp32, bf16 and int8 pools,
+      ``gpt_verify_step_paged``) at GPTConfig.base() over the params of
+      the port's ``GPT`` module, run by the ``Executor`` for 8 rows, a
+      128-token prompt and 16 teacher-forced decode steps: logits (and
+      caches) within 1e-4 of max |ref| of the module's ``prefill``,
+      ``decode_step``, ``decode_step_paged`` and ``verify_step_paged``
+      (bf16 and int8 pools too, which both sides quantize alike); K1 12
+      launches a prefill run, K5 12 a paged decode step and 0 in the
+      verify program (its S > 1 reads take the gather route); a greedy loop over the prefill and
+      paged decode programs token for token the port's
+      ``GPTGenerator.generate``; ms a decode step through the program
+      eagerly beside the module's eager and replayed step, and the ms
+      of the clones the program's write ops make a paged step and a
+      prefill run;
+    - book_vgg16: the Fluid book's vgg16_bn_drop (chapter 3, five
+      ``nets.img_conv_group`` blocks with BN and dropout, fc 512 + BN +
+      dropout twice, fc 10 softmax into cross_entropy) on CIFAR-10's
+      3x32x32 at the book's batch of 128, Adam(1e-3), float32, seeded
+      images and labels: 4 eager steps against a run_steps slab of 4
+      from copies of one scope (losses and scope bitwise, dropout on),
+      the next slab's mean loss below the first's; ms a step both ways,
+      images/s, device ms a step,
+      idle share, kernels a replay, peak memory and capture seconds; no
+      kernel of the port (cuDNN convs);
+    - book_models: the seven tests/test_book.py programs the core
+      layers make buildable (fit_a_line, word2vec skip-gram and n-gram,
+      the two-tower recommender, recognize_digits_conv, the small VGG,
+      glu + SDPA),
+      built as those tests build them over seeded data, 3 steps on the
+      card and on the CPU from one startup: losses within 1e-4 of max
+      |ref|; ms a step on the card.
+15. Prints the {"kernels": [...]} line (K1-K5), then as the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
@@ -6519,6 +6553,455 @@ def dp_phases(torch, np, counters, name, n=None, args=None, at_one=True):
               "ms_per_step_1": one["run_steps_ms_per_step"]})
     return out
 
+# ------------------------------------------------ the core layer surface
+
+GPT_PROGRAMS = {"B": 8, "prompt": 128, "steps": 16, "span": 5, "bs": 16}
+
+
+def _program(fluid, fn, *args):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = fn(*args)
+    return main, startup, out
+
+
+def _rel(torch, got, want):
+    got, want = got.float(), want.float().to(got.device)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def _paged_pools(torch, cfg, kv_dtype, ks, vs, tables, device):
+    """Per layer (k pool, v pool, k scale, v scale) holding the prompt's
+    keys and values through ``tables`` (block 0 the trash block)."""
+    from paddle_tpu_torch.ops.decode_ops import paged_kv_cache_write
+    dt = {"fp32": torch.float32, "bf16": torch.bfloat16,
+          "int8": torch.int8}[kv_dtype]
+    nb = int(tables.max()) + 1
+    bs = GPT_PROGRAMS["bs"]
+    out = []
+    for k, v in zip(ks, vs):
+        shape = (nb, cfg.num_heads, bs, cfg.d_head)
+        pools = [torch.zeros(shape, dtype=dt, device=device)
+                 for _ in range(2)]
+        scales = [torch.zeros(shape[:3], device=device)
+                  if kv_dtype == "int8" else None for _ in range(2)]
+        zero = torch.zeros(k.shape[0], dtype=torch.int32, device=device)
+        for pool, sc, src in zip(pools, scales, (k, v)):
+            paged_kv_cache_write(pool, src, tables, zero, scale=sc)
+        out.append((pools[0], pools[1], scales[0], scales[1]))
+    return out
+
+
+def _pool_feed(pools, quantized):
+    feed = {}
+    for i, (pk, pv, pks, pvs) in enumerate(pools):
+        feed[f"cache_pk_{i}"], feed[f"cache_pv_{i}"] = pk, pv
+        if quantized:
+            feed[f"cache_pks_{i}"], feed[f"cache_pvs_{i}"] = pks, pvs
+    return feed
+
+
+def _pools_from(names, vals, quantized, L):
+    by = dict(zip(names, vals))
+    return [(by[f"cache_pk_{i}"], by[f"cache_pv_{i}"],
+             by.get(f"cache_pks_{i}"), by.get(f"cache_pvs_{i}"))
+            for i in range(L)]
+
+
+def _clone_ms(torch, cuda, tensors):
+    """ms wall of cloning ``tensors``, as a write op's clones cost: the
+    first call's (the caching allocator may grow) and the median of the
+    next 3."""
+    def once():
+        return _timed_wall(torch, cuda,
+                           lambda: [x.clone() for x in tensors])[1]
+    cold = once()
+    return cold, sorted(once() for _ in range(3))[1]
+
+
+def gpt_programs(torch, np, cfg=None, place=None, run=GPT_PROGRAMS,
+                 seed=71):
+    """GPT's generation programs (``models.gpt``'s builders, made of the
+    registered decode ops) through the ``Executor`` against the port's
+    ``GPT`` module over the same params, teacher-forced; the K1 and K5
+    launches of the program runs; a greedy loop over the prefill and
+    paged decode programs against ``GPTGenerator.generate``; ms a decode
+    step through the program beside the module's eager and replayed
+    step."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.framework.executor import scope_from_arrays
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    from paddle_tpu_torch.models import gpt as G
+    from paddle_tpu_torch.serving import KVBlockPool
+    fa = sys.modules["paddle_tpu_torch.kernels.flash_attention"]
+    pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
+    cfg = cfg or G.GPTConfig.base()
+    B, P, T, SPAN, bs = (run[k] for k in ("B", "prompt", "steps", "span",
+                                          "bs"))
+    L = cfg.num_layers
+    exe = fluid.Executor(place)
+    dev = exe.device
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    params = init_params(cfg, seed)
+    model = G.GPT(cfg, params, device=dev)
+    max_len = P + T
+    progs = {"prefill": _program(fluid, G.gpt_prefill, cfg, max_len),
+             "decode": _program(fluid, G.gpt_decode_step, cfg, max_len),
+             "verify": _program(fluid, G.gpt_verify_step_paged, cfg,
+                                "fp32")}
+    for kv in ("fp32", "bf16", "int8"):
+        progs[f"paged_{kv}"] = _program(fluid, G.gpt_decode_step_paged,
+                                        cfg, kv)
+    scope = fluid.Scope()
+    exe.run(progs["prefill"][1], scope=scope)
+    scope_from_arrays(scope, {n: t.numpy() for n, t in params.items()})
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(1, cfg.vocab_size, (B, P)).astype(np.int32)
+    pos_ids = np.broadcast_to(np.arange(P, dtype=np.int32), (B, P)).copy()
+    last = np.full(B, P - 1, np.int32)
+    forced = rng.integers(1, cfg.vocab_size, (B, T + SPAN)).astype(np.int32)
+
+    def t(a, dtype=torch.int64):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    rec = {"phase": "gpt_programs", **CARD, "rows": B, "prompt": P,
+           "decode_steps": T, "verify_span": SPAN, "block_size": bs,
+           "layers": L, "hidden": cfg.hidden_size, "errors": {}}
+    errs, fails = rec["errors"], []
+
+    def run_counted(name, feed, fetch):
+        k1, k5 = fa.flash_attention_fwd.launches, pa.paged_attention.launches
+        sync()
+        t0 = time.perf_counter()
+        vals = exe.run(progs[name][0], feed=feed, fetch_list=fetch,
+                       scope=scope, return_numpy=False)
+        sync()
+        return vals, (time.perf_counter() - t0) * 1e3, \
+            fa.flash_attention_fwd.launches - k1, \
+            pa.paged_attention.launches - k5
+
+    # prefill: the logits and the dense caches' prompt positions
+    out = progs["prefill"][2]
+    vals, _, k1, k5 = run_counted(
+        "prefill", {"tokens": tokens, "pos_ids": pos_ids, "last_pos": last},
+        [out["logits"]] + out["cache_k"] + out["cache_v"])
+    ref, ks, vs = model.prefill(t(tokens), t(pos_ids), t(last))
+    errs["prefill"] = max([_rel(torch, vals[0], ref)] + [
+        _rel(torch, c[:, :, :P], r) for c, r in zip(vals[1:], ks + vs)])
+    rec["k1_launches_per_prefill_run"] = k1
+    rec["k5_launches_per_prefill_run"] = k5
+    first = vals[0].argmax(-1)
+    # a second (warm) prefill run, and what its write ops' clones of the
+    # 2 L zero caches cost
+    _, rec["prefill_program_ms"], _, _ = run_counted(
+        "prefill", {"tokens": tokens, "pos_ids": pos_ids, "last_pos": last},
+        [out["logits"]])
+    rec["prefill_clone_cold_ms"], rec["prefill_clone_ms"] = _clone_ms(
+        torch, cuda, vals[1:])
+    rec["prefill_clone_bytes"] = sum(x.numel() * x.element_size()
+                                     for x in vals[1:])
+    if cuda and (k1 != L or k5):
+        fails.append(f"prefill launched K1 {k1}, K5 {k5} (want {L}, 0)")
+
+    # the dense decode program, teacher-forced
+    out = progs["decode"][2]
+    ck, cv = vals[1:1 + L], vals[1 + L:]
+    mk, mv = [c.clone() for c in ck], [c.clone() for c in cv]
+    worst = 0.0
+    for s in range(T):
+        pos = np.full(B, P + s, np.int32)
+        feed = {"token": forced[:, s], "pos": pos}
+        feed.update({f"cache_k_{i}": ck[i] for i in range(L)})
+        feed.update({f"cache_v_{i}": cv[i] for i in range(L)})
+        res, _, _, _ = run_counted("decode", feed, [out["logits"]]
+                                   + out["cache_k"] + out["cache_v"])
+        ck, cv = res[1:1 + L], res[1 + L:]
+        want = model.decode_step(t(forced[:, s]), t(pos), mk, mv)
+        worst = max(worst, _rel(torch, res[0], want))
+    errs["decode_step"] = worst
+    del ck, cv, mk, mv
+
+    # the paged decode programs (fp32, bf16, int8), teacher-forced
+    nblk = -(-(P + T + SPAN) // bs)
+    tables = t((1 + np.arange(B * nblk)).reshape(B, nblk), torch.int32)
+    rec["k5_launches_per_paged_step"] = {}
+    rec["program_eager_ms_per_step"] = {}
+    for kv in ("fp32", "bf16", "int8"):
+        q = kv == "int8"
+        out = progs[f"paged_{kv}"][2]
+        pools = _paged_pools(torch, cfg, kv, ks, vs, tables, dev)
+        mpools = [tuple(None if x is None else x.clone() for x in layer)
+                  for layer in pools]
+        worst, k5s, walls = 0.0, [], []
+        for s in range(T):
+            pos = np.full(B, P + s, np.int32)
+            feed = {"token": forced[:, s], "pos": pos,
+                    "block_tables": tables, **_pool_feed(pools, q)}
+            res, ms, _, k5 = run_counted(f"paged_{kv}", feed,
+                                         [out["logits"]] + out["cache_vars"])
+            pools = _pools_from(out["cache_names"], res[1:], q, L)
+            want = model.decode_step_paged(t(forced[:, s]), t(pos), tables,
+                                           mpools)
+            worst = max(worst, _rel(torch, res[0], want))
+            k5s.append(k5)
+            walls.append(ms)
+        errs[f"decode_step_paged_{kv}"] = worst
+        rec["k5_launches_per_paged_step"][kv] = k5s
+        rec["program_eager_ms_per_step"][kv] = float(np.median(walls[1:]))
+        if cuda and any(k != L for k in k5s):
+            fails.append(f"paged {kv}: K5 launched {k5s} a step, not {L}")
+        if kv == "fp32":
+            fp32_pools, fp32_mpools = pools, mpools
+            # what the write ops' clones of the fed pools cost a step
+            tensors = [x for layer in pools for x in layer[:2]]
+            rec["pool_clone_cold_ms_per_step"], \
+                rec["pool_clone_ms_per_step"] = _clone_ms(torch, cuda,
+                                                          tensors)
+            rec["pool_clone_bytes_per_step"] = sum(
+                x.numel() * x.element_size() for x in tensors)
+        del pools, mpools
+
+    # the paged verify program (S = SPAN: the gather route, no K5)
+    out = progs["verify"][2]
+    start = np.full(B, P + T, np.int32)
+    span_ids = start[:, None] + np.arange(SPAN, dtype=np.int32)
+    limit = np.full(B, SPAN, np.int32)
+    feed = {"tokens": forced[:, T:T + SPAN], "pos_ids": span_ids,
+            "start_pos": start, "limit": limit, "block_tables": tables,
+            **_pool_feed(fp32_pools, False)}
+    res, _, _, k5 = run_counted("verify", feed,
+                                [out["logits"]] + out["cache_vars"])
+    want = model.verify_step_paged(t(forced[:, T:T + SPAN]), t(span_ids),
+                                   t(start, torch.int32),
+                                   t(limit, torch.int32), tables,
+                                   fp32_mpools)
+    errs["verify_step_paged_fp32"] = _rel(torch, res[0], want)
+    rec["k5_launches_verify_program"] = k5
+    if k5:
+        fails.append(f"the verify program launched K5 {k5} times")
+    del fp32_pools, fp32_mpools, ks, vs
+
+    # a greedy loop over the prefill and paged decode programs against
+    # GPTGenerator.generate over the same params
+    gen = GPTGenerator(cfg, params, max_len=P + T + 64, device=dev)
+    prompts = [tokens[b] for b in range(B)]
+    want = gen.generate(prompts, max_new_tokens=T, paged=True)
+    pool = KVBlockPool(slots=B, num_layers=L, num_heads=cfg.num_heads,
+                       d_head=cfg.d_head, max_seq_len=gen.max_len,
+                       dtype="fp32", prefix_cache=False, device=dev)
+    out = progs["prefill"][2]
+    vals = exe.run(progs["prefill"][0], feed={
+        "tokens": tokens, "pos_ids": pos_ids, "last_pos": last},
+        fetch_list=[out["logits"]] + out["cache_k"] + out["cache_v"],
+        scope=scope, return_numpy=False)
+    for r in range(B):
+        pool.alloc(r, P + T)
+    pool.scatter_prefill(list(range(B)), [c[:, :, :P] for c in
+                                          vals[1:1 + L]],
+                         [c[:, :, :P] for c in vals[1 + L:]], P)
+    tok = vals[0].argmax(-1).to(torch.int32).cpu().numpy()
+    got = [tok]
+    out = progs["paged_fp32"][2]
+    names = [n for i in range(L) for n in (f"cache_pk_{i}",
+                                           f"cache_pv_{i}")]
+    for s in range(T - 1):
+        pos = np.full(B, P + s, np.int32)
+        for r in range(B):
+            pool.ensure(r, P + s)
+        feed = {"token": tok, "pos": pos,
+                "block_tables": pool.device_tables(),
+                **dict(zip(names, pool.tensors()))}
+        res = exe.run(progs["paged_fp32"][0], feed=feed,
+                      fetch_list=[out["logits"]] + out["cache_vars"],
+                      scope=scope, return_numpy=False)
+        by = dict(zip(out["cache_names"], res[1:]))
+        for n, dst in zip(names, pool.tensors()):
+            dst.copy_(by[n])
+        tok = res[0].argmax(-1).to(torch.int32).cpu().numpy()
+        got.append(tok)
+    got = np.stack(got, 1)
+    rec["greedy_tokens_equal_generate"] = bool(all(
+        np.array_equal(got[b], want[b]) for b in range(B)))
+    rec["greedy_token_agreement"] = float(np.mean(
+        [np.mean(got[b] == want[b]) for b in range(B)]))
+    if not rec["greedy_tokens_equal_generate"]:
+        fails.append(f"the programs' greedy tokens are not generate's "
+                     f"(agreement {rec['greedy_token_agreement']})")
+    del pool
+
+    # the module's decode step at this shape, eager and replayed
+    kv, tok, pos = prefilled(torch, np, gen, prompts, True, room=T + 8)
+    dec = gen.new_decoder()
+    rows = tok.shape[0]                          # the row bucket
+    greedy, topk = np.zeros(rows, np.float32), np.zeros(rows, np.int32)
+    dec.run(tok, pos, greedy, topk, kv)          # capture
+    for name, fn in (("module_replay_ms_per_step", dec.run),
+                     ("module_eager_ms_per_step", dec.eager)):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            fn(tok, pos, greedy, topk, kv)
+        sync()
+        rec[name] = (time.perf_counter() - t0) * 1e3 / 8
+    del kv, dec
+    gen.release()
+    for name, e in errs.items():
+        # both sides quantize a bf16/int8 pool alike and read it through
+        # K5: every pool is held at fp32's limit
+        tol = 1e-4
+        if not e <= tol:
+            fails.append(f"{name}: logits {e:.3g} of max |ref| from the "
+                         f"module's (limit {tol})")
+    rec["ok"] = not fails
+    emit(rec)
+    if fails:
+        raise AssertionError(f"gpt_programs: {fails}")
+    return rec
+
+
+BOOK_VGG = {"B": 128, "hw": 32, "classes": 10, "lr": 1e-3, "K": 4}
+
+
+def book_vgg16(torch, np, place=None, run=BOOK_VGG, seed=61):
+    """vgg16_bn_drop on CIFAR-10's shape at the book's batch: K eager
+    steps against one run_steps slab of K from copies of one scope
+    (losses and scope bitwise, dropout on), the next slab's mean loss
+    below the first's; ms a step
+    both ways, images/s, device ms a step, idle share, kernels a replay,
+    peak memory, capture seconds."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.book import vgg16_bn_drop
+    B, hw, K = run["B"], run["hw"], run["K"]
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        loss, _ = vgg16_bn_drop(fluid, B, hw, run["classes"])
+        fluid.optimizer.Adam(run["lr"]).minimize(loss)
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    rng = np.random.default_rng(seed)
+    feed = {"image": torch.from_numpy(rng.standard_normal(
+                (B, 3, hw, hw)).astype(np.float32)).to(exe.device),
+            "label": torch.from_numpy(rng.integers(
+                0, run["classes"], (B, 1)).astype(np.int64)).to(exe.device)}
+    slab = {n: torch.stack([v] * K) for n, v in feed.items()}
+    scope0 = fluid.Scope()
+    exe.run(startup, scope=scope0)
+    sA, sB = (copied_scope(torch, fluid, scope0) for _ in range(2))
+    del scope0
+    ops = main.global_block().ops
+    rec = {"phase": "book_vgg16", **CARD, "B": B, "image": hw,
+           "classes": run["classes"], "K": K, "optimizer": "Adam",
+           "lr": run["lr"], "dtype": "float32",
+           "conv2d": sum(op.type == "conv2d" for op in ops),
+           "batch_norm": sum(op.type == "batch_norm" for op in ops),
+           "dropout": sum(op.type == "dropout" for op in ops),
+           "flops_per_step": conv_fc_flops_per_step(main)}
+    base = _peak_base(torch, cuda)
+    eager, wall = [], []
+    for _ in range(K):
+        lv, ms = _timed_wall(torch, cuda, lambda: exe.run(
+            main, feed=feed, fetch_list=[loss], scope=sA)[0])
+        eager.append(lv)
+        wall.append(ms)
+    got, first = _timed_wall(torch, cuda, lambda: exe.run_steps(
+        main, feed=slab, fetch_list=[loss], scope=sB)[0])
+    diff = scope_diff(torch, sA, sB)
+    later, ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+        main, feed=slab, fetch_list=[loss], scope=sB)[0])
+    rec.update({
+        "eager_losses": [float(x) for x in eager],
+        "run_steps_losses": [float(x) for x in got],
+        "losses_bitwise": bool(np.array_equal(got, np.stack(eager))),
+        "scope_bitwise": not diff, "scope_diff": diff[:8],
+        # steps K+1..2K (the timed slab) against steps 1..K: dropout
+        # makes single steps noisy
+        "next_slab_losses": [float(x) for x in later],
+        "loss_falls": bool(np.mean(later) < np.mean(got)),
+        "eager_ms_per_step": wall,
+        "eager_ms_per_step_median": float(np.median(wall[1:])),
+        "run_steps_ms_per_step": ms / K,
+        "first_run_steps_s": first / 1e3,
+        "capture_s": (first - ms) / 1e3,
+        "peak_gb": _peak_from(torch, cuda, base)})
+    rec["images_per_s_run_steps"] = B / rec["run_steps_ms_per_step"] * 1e3
+    rec["images_per_s_eager"] = B / rec["eager_ms_per_step_median"] * 1e3
+    rec["tflops_run_steps"] = rec["flops_per_step"] / \
+        rec["run_steps_ms_per_step"] / 1e9
+    if cuda:
+        dev, n = profiled_launches(torch, lambda: exe.run_steps(
+            main, feed=slab, fetch_list=[loss], scope=sB))
+        rec["device_ms_per_step_run_steps"] = dev / K
+        rec["kernels_per_replay"] = n / K
+        rec["idle_share_run_steps"] = \
+            1 - rec["device_ms_per_step_run_steps"] / \
+            rec["run_steps_ms_per_step"]
+        rec["device_ms_per_step_eager"] = profiled_ms(
+            torch, lambda: exe.run(main, feed=feed, fetch_list=[loss],
+                                   scope=sA))
+        rec["idle_share_eager"] = 1 - rec["device_ms_per_step_eager"] / \
+            rec["eager_ms_per_step_median"]
+        rec["stochastic_call_sites"] = len(_captured(exe)._sites)
+    rec["ok"] = rec["losses_bitwise"] and not diff and rec["loss_falls"] \
+        and bool(np.isfinite(got).all())
+    del sA, sB
+    _release(torch, exe)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"book_vgg16: {rec}")
+    return rec
+
+
+def book_models(torch, np, place=None, steps=3):
+    """Each of ``models.book.BOOK_BUILDS`` 3 steps on ``place`` (the card) and on
+    the CPU from one startup (the card's scope a copy of the CPU's):
+    every step's fetches within 1e-4 of max |ref| of the CPU's; ms a
+    step on the card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.book import BOOK_BUILDS, book_feeds
+    cpu = fluid.Executor(fluid.CPUPlace())
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    rec = {"phase": "book_models", **CARD, "steps": steps, "models": {}}
+    fails = []
+    feeds = book_feeds()
+    for name, build in BOOK_BUILDS.items():
+        feed = feeds[name]
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 7
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            fetch = build(fluid)
+        sc = fluid.Scope()
+        cpu.run(startup, scope=sc)
+        sg = fluid.Scope()
+        for n, v in sc.items():
+            sg.set(n, v.to(exe.device) if isinstance(v, torch.Tensor)
+                   else v)
+        ref = [cpu.run(main, feed=feed, fetch_list=fetch, scope=sc)
+               for _ in range(steps)]
+        got, wall = [], []
+        for _ in range(steps):
+            out, ms = _timed_wall(torch, cuda, lambda: exe.run(
+                main, feed=feed, fetch_list=fetch, scope=sg))
+            got.append(out)
+            wall.append(ms)
+        err = max(float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30))
+                  for gs, rs in zip(got, ref) for g, r in zip(gs, rs))
+        rec["models"][name] = {
+            "losses": [float(g[0]) for g in got],
+            "cpu_losses": [float(r[0]) for r in ref],
+            "max_rel_err": err, "ms_per_step": wall,
+            "ms_per_step_median": float(np.median(wall[1:]))}
+        if not err <= 1e-4:
+            fails.append(f"{name}: {err:.3g} of max |ref| from the CPU's")
+    rec["ok"] = not fails
+    emit(rec)
+    if fails:
+        raise AssertionError(f"book_models: {fails}")
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7004,6 +7487,19 @@ def main():
     for got in paths + [got]:
         if any(got.values()):
             failures.append(f"a Wide&Deep path launched a kernel of the "
+                            f"port: {got}")
+
+    # the core layer surface: GPT's generation programs through the
+    # Executor (K1 in the prefill, K5 in the paged decode steps), the
+    # book's VGG16 at full width, and the seven book programs
+    drive("gpt_programs", ("flash_attention_fwd", "paged_attention"),
+          lambda: gpt_programs(torch, np, cfg))
+    torch.cuda.empty_cache()
+    for name, fn in (("book_vgg16", lambda: book_vgg16(torch, np)),
+                     ("book_models", lambda: book_models(torch, np))):
+        _, got, _ = drive(name, (), fn)
+        if any(got.values()):
+            failures.append(f"the {name} path launched a kernel of the "
                             f"port: {got}")
 
     kernels = []

@@ -55,6 +55,11 @@ Ported so far:
   collective (``incubate.fleet.collective.fleet``), dygraph
   ``DataParallel`` and the launcher (``python -m
   paddle_tpu_torch.distributed.launch --nproc_per_node=N``).
+- The core layer surface: the tensor, activation, math and loss layers
+  and their ops, ``fluid.nets`` and ``fluid.metrics``, the decode ops
+  as registered ops, and GPT's generation programs
+  (``models.gpt.gpt_prefill``, ``gpt_decode_step_paged``, ...), whose
+  Fluid programs the ``Executor`` runs on the card.
 - Control flow and the sequence models: ``layers.While``, ``cond``,
   ``Switch``, ``StaticRNN``, ``DynamicRNN`` and the tensor arrays (ops
   over sub-blocks, run by the same op-by-op interpreter), the
@@ -93,6 +98,19 @@ from .serving import (Client, GenerationEngine, InferenceServer, KVBlockPool,
 from . import dataio, dygraph, inference, io
 from . import clip, regularizer, resilience, train
 from . import incubate, parallel
+from . import metrics, nets, tensor
+from .dygraph.base import (VarBase, disable_dygraph, enable_dygraph,
+                           in_dygraph_mode)
+from .framework import backward, passes
+from .framework.core import (Block, CUDAPinnedPlace, EnforceNotMet, OpRole,
+                             Operator, Parameter, Variable, grad_var_name,
+                             name_scope, require_version,
+                             switch_main_program, switch_startup_program)
+from .framework.dtype import convert_dtype
+from .layers import learning_rate_scheduler as learning_rate_decay
+from .framework.registry import register_grad_lower, register_op
+from .input import embedding, one_hot
+from .resilience import CheckpointCorruptError, NonFiniteError
 from .parallel import (BuildStrategy, CompiledProgram, ExecutionStrategy,
                        ParallelExecutor)
 from .dataio import DatasetFactory
@@ -102,6 +120,23 @@ from .io import (CheckpointSaver, load, load_checkpoint,
                  save_persistables)
 
 dataset = dataio
+
+__version__ = "0.1.0"
+
+
+def is_compiled_with_cuda():
+    """Whether torch can reach a card (the port's default device)."""
+    import torch
+    return torch.cuda.is_available()
+
+
+def device_count():
+    import torch
+    return torch.cuda.device_count()
+
+
+def cuda_pinned_places(device_count=None):
+    return [CUDAPinnedPlace() for _ in range(device_count or 1)]
 
 
 def cuda_places(device_ids=None):
@@ -119,25 +154,30 @@ def cuda_places(device_ids=None):
 def cpu_places(device_count=None):
     return [CPUPlace() for _ in range(device_count or 1)]
 
-__all__ = ["BuildStrategy", "CPUPlace", "CUDAPlace", "CheckpointSaver",
-           "Client", "CompiledProgram", "DatasetFactory",
-           "ExecutionStrategy", "Executor", "ParallelExecutor",
-           "cpu_places", "cuda_places", "incubate", "parallel",
-           "GPT", "LoDTensor", "LoDTensorArray", "Tensor",
-           "create_lod_tensor", "create_random_int_lodtensor",
-           "GPTConfig", "GPTGenerator", "GenerationEngine",
-           "InferenceServer", "KVBlockPool", "ParamAttr", "Program", "Scope",
-           "ServingStats", "append_backward", "clip", "contrib", "data",
-           "dataio",
-           "dataset",
-           "default_main_program", "default_startup_program", "dygraph",
-           "flags",
-           "framework", "get_flags", "global_scope", "gradients",
-           "inference", "init_params", "initializer", "io", "kernels",
-           "layers", "load", "load_checkpoint",
-           "load_inference_model", "load_params", "load_persistables",
-           "ops", "optimizer", "param_shapes", "params_from_jax",
-           "program_guard", "regularizer", "resilience", "resolve_device",
-           "save", "save_checkpoint", "save_inference_model", "save_params",
-           "save_persistables", "scope_guard", "set_flags", "train",
-           "unique_name"]
+__all__ = ['Block', 'BuildStrategy', 'CPUPlace', 'CUDAPinnedPlace',
+           'CUDAPlace', 'CheckpointCorruptError', 'CheckpointSaver', 'Client',
+           'CompiledProgram', 'DatasetFactory', 'EnforceNotMet',
+           'ExecutionStrategy', 'Executor', 'GPT', 'GPTConfig',
+           'GPTGenerator', 'GenerationEngine', 'InferenceServer',
+           'KVBlockPool', 'LoDTensor', 'LoDTensorArray', 'NonFiniteError',
+           'OpRole', 'Operator', 'ParallelExecutor', 'ParamAttr', 'Parameter',
+           'Program', 'Scope', 'ServingStats', 'Tensor', 'VarBase',
+           'Variable', 'append_backward', 'backward', 'clip', 'contrib',
+           'convert_dtype', 'cpu_places', 'create_lod_tensor',
+           'create_random_int_lodtensor', 'cuda_pinned_places', 'cuda_places',
+           'data', 'dataio', 'dataset', 'default_main_program',
+           'default_startup_program', 'device_count', 'disable_dygraph',
+           'dygraph', 'embedding', 'enable_dygraph', 'flags', 'framework',
+           'get_flags', 'global_scope', 'grad_var_name', 'gradients',
+           'in_dygraph_mode', 'incubate', 'inference', 'init_params',
+           'initializer', 'io', 'is_compiled_with_cuda', 'kernels', 'layers',
+           'learning_rate_decay', 'load', 'load_checkpoint',
+           'load_inference_model', 'load_params', 'load_persistables',
+           'metrics', 'name_scope', 'nets', 'one_hot', 'ops', 'optimizer',
+           'parallel', 'param_shapes', 'params_from_jax', 'passes',
+           'program_guard', 'register_grad_lower', 'register_op',
+           'regularizer', 'require_version', 'resilience', 'resolve_device',
+           'save', 'save_checkpoint', 'save_inference_model', 'save_params',
+           'save_persistables', 'scope_guard', 'set_flags',
+           'switch_main_program', 'switch_startup_program', 'tensor', 'train',
+           'unique_name']

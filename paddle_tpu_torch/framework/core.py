@@ -513,5 +513,54 @@ class CUDAPlace:
         return f"CUDAPlace({self.device_id})"
 
 
+class CUDAPinnedPlace:
+    """A label only: pinned host staging is torch's own affair."""
+
+    def __repr__(self):
+        return "CUDAPinnedPlace"
+
+
 def grad_var_name(name):
     return name + "@GRAD"
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """A prefix for the names of the vars and ops made inside; the
+    counters stay shared with the enclosing generator, so names stay
+    unique across scopes. It changes names only, never execution."""
+    from . import unique_name as un
+    old = un.generator
+    new = un.UniqueNameGenerator(
+        f"{old.prefix}{prefix}/" if prefix else old.prefix)
+    new.ids = old.ids
+    un.generator = new
+    try:
+        yield
+    finally:
+        un.generator = old
+
+
+def require_version(min_version, max_version=None):
+    """Raise unless ``min_version <= __version__ <= max_version``."""
+    if not isinstance(min_version, str):
+        raise TypeError("min_version must be str")
+    if max_version is not None and not isinstance(max_version, str):
+        raise TypeError("max_version must be str or None")
+
+    def parse(v):
+        parts = v.split(".")
+        if not all(p.isdigit() for p in parts) or not 1 <= len(parts) <= 4:
+            raise ValueError(f"invalid version string {v!r}")
+        return tuple(int(p) for p in parts) + (0,) * (4 - len(parts))
+
+    from .. import __version__
+    installed = parse(__version__)
+    if installed < parse(min_version):
+        raise Exception(
+            f"installed version {__version__} is lower than the "
+            f"required min_version {min_version}")
+    if max_version is not None and installed > parse(max_version):
+        raise Exception(
+            f"installed version {__version__} is higher than the "
+            f"required max_version {max_version}")

@@ -6,8 +6,12 @@ the startup program (``fill_constant``, ``uniform_random``,
 with ``_fan_in_out`` (``:79``), and the global defaults (Xavier for
 weights, zeros for biases, ``:168``). The random ones draw from the
 op's own ``torch.Generator`` (``LowerCtx.generator``), seeded from the
-run seed and the op's ``__rng_seed__`` (or its ``seed``)."""
+run seed and the op's ``__rng_seed__`` (or its ``seed``). Bilinear and
+NumpyArray (``:127-158``) write a host-made array through one
+``assign_value`` op."""
 import math
+
+import numpy as np
 
 from .core import default_startup_program
 
@@ -128,12 +132,44 @@ class MSRAInitializer(Initializer):
         return NormalInitializer(0.0, std, self.seed)(var, block)
 
 
+class BilinearInitializer(Initializer):
+    """The bilinear upsampling kernel over the last two dims (for a
+    transposed conv that upsamples)."""
+
+    def __call__(self, var, block=None):
+        shape = var.shape
+        f = math.ceil(shape[-1] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        weight = np.zeros(shape, dtype="float32")
+        for i in range(int(np.prod(shape))):
+            x = i % shape[-1]
+            y = (i // shape[-1]) % shape[-2]
+            weight[np.unravel_index(i, shape)] = \
+                (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+        return NumpyArrayInitializer(weight)(var, block)
+
+
+class NumpyArrayInitializer(Initializer):
+    """The var set to a numpy array (``assign_value``)."""
+
+    def __init__(self, value):
+        self.value = np.asarray(value)
+
+    def __call__(self, var, block=None):
+        block = block if block is not None else _startup_block(var)
+        return block.append_op(
+            type="assign_value", outputs={"Out": [var.name]},
+            attrs={"shape": list(self.value.shape), "dtype": var.dtype,
+                   "values": self.value}, infer_shape=False)
+
+
 Constant = ConstantInitializer
 Uniform = UniformInitializer
 Normal = NormalInitializer
 TruncatedNormal = TruncatedNormalInitializer
 Xavier = XavierInitializer
 MSRA = MSRAInitializer
+Bilinear = BilinearInitializer
 
 
 def _global_weight_initializer():

@@ -1,6 +1,8 @@
 """Loss layers (trimmed copy of ``paddle_tpu/layers/loss.py``):
 ``cross_entropy``, ``softmax_with_cross_entropy``, ``square_error_cost``
-(``:33``) and ``sigmoid_cross_entropy_with_logits`` (``:42``)."""
+(``:33``), ``sigmoid_cross_entropy_with_logits`` (``:42``),
+``smooth_l1``, ``log_loss``, ``huber_loss``, ``kldiv_loss`` and
+``mse_loss`` (``:53-103``)."""
 from .layer_helper import LayerHelper
 
 
@@ -51,4 +53,56 @@ def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100,
                      outputs={"Out": [out]},
                      attrs={"ignore_index": ignore_index,
                             "normalize": normalize})
+    return out
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper("smooth_l1_loss")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(type="smooth_l1_loss",
+                     inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out], "Diff": [diff]},
+                     attrs={"sigma": sigma or 1.0})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper("log_loss", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="log_loss",
+                     inputs={"Predicted": [input], "Labels": [label]},
+                     outputs={"Loss": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper("huber_loss")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    residual = helper.create_variable_for_type_inference(
+        dtype=input.dtype, stop_gradient=True)
+    helper.append_op(type="huber_loss",
+                     inputs={"X": [input], "Y": [label]},
+                     outputs={"Out": [out], "Residual": [residual]},
+                     attrs={"delta": delta})
+    return out
+
+
+def kldiv_loss(x, target, reduction="mean", name=None):
+    helper = LayerHelper("kldiv_loss", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="kldiv_loss",
+                     inputs={"X": [x], "Target": [target]},
+                     outputs={"Loss": [out]},
+                     attrs={"reduction": reduction})
+    return out
+
+
+def mse_loss(input, label):
+    helper = LayerHelper("mse_loss")
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="mse_loss",
+                     inputs={"Input": [input], "Label": [label]},
+                     outputs={"Out": [out]})
     return out

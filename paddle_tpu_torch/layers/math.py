@@ -3,7 +3,9 @@
 (``:245``), and the
 operators ``+ - * / ** - < >=`` of ``Variable`` and the eager
 ``VarBase`` (``:197-242``; trimmed copy of
-``paddle_tpu/layers/math.py``)."""
+``paddle_tpu/layers/math.py``); also
+``elementwise_floordiv``, ``elementwise_mod``, ``logical_xor``,
+``reduce_prod``/``reduce_all``/``reduce_any`` and ``sum``."""
 import numpy as np
 
 from ..dygraph.base import VarBase
@@ -169,6 +171,40 @@ def reduce_max(input, dim=None, keep_dim=False, name=None):
 
 def reduce_min(input, dim=None, keep_dim=False, name=None):
     return _reduce("reduce_min", input, dim, keep_dim, name)
+
+
+def elementwise_mod(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_mod", x, y, axis, act, name)
+
+
+def elementwise_floordiv(x, y, axis=-1, act=None, name=None):
+    return _binary("elementwise_floordiv", x, y, axis, act, name)
+
+
+def logical_xor(x, y, out=None, name=None):
+    return _cmp("logical_xor", x, y, out)
+
+
+def reduce_prod(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_prod", input, dim, keep_dim, name)
+
+
+def reduce_all(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_all", input, dim, keep_dim, name)
+
+
+def reduce_any(input, dim=None, keep_dim=False, name=None):
+    return _reduce("reduce_any", input, dim, keep_dim, name)
+
+
+def sum(x):
+    """The ``sum`` op over one var or a list of them."""
+    helper = LayerHelper("sum")
+    xs = x if isinstance(x, (list, tuple)) else [x]
+    out = helper.create_variable_for_type_inference(dtype=xs[0].dtype)
+    helper.append_op(type="sum", inputs={"X": list(xs)},
+                     outputs={"Out": [out]})
+    return out
 
 
 def _install_op_overloads(cls):

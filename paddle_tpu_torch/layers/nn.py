@@ -9,7 +9,20 @@
 ``log_softmax`` (``:278``), ``log`` (``:331``), ``squeeze`` (``:549``),
 the fused recurrent steps ``lstm_unit`` and ``gru_unit`` (``:649-711``)
 and the beam-search steps ``beam_search`` and ``gather_tree``
-(``:919-960``)."""
+(``:919-960``).
+
+Also the activation layers (``gelu :298`` ... ``logsigmoid
+:387``, ``brelu``, ``selu``, ``stanh :1174-1189``, ``maxout :1111``),
+``mul``, ``bmm``, ``auc :467``, ``l2_normalize``, ``label_smooth``,
+``image_resize :518`` and ``resize_bilinear``/``resize_nearest``/
+``resize_trilinear``/``image_resize_short :1443-1487``, ``pad``,
+``pad2d``, ``strided_slice :1002``, ``unfold``, ``pixel_shuffle``,
+``expand_as``, ``space_to_depth``, ``reverse``, the random layers
+``uniform_random(_batch_size_like)`` and
+``gaussian_random(_batch_size_like)``, ``unique`` (raises, as in the
+JAX package) and the decode layers ``kv_cache_write`` ...
+``spec_accept`` (``:764-918``), whose ops ``models.gpt``'s generation
+programs are made of."""
 import copy
 
 import numpy as np
@@ -40,6 +53,15 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype="float32", name=None):
     """``lookup_table``; a negative padding_idx counts from the end,
     None is no padding (-1)."""
+    return _emit_embedding("lookup_table", input, size, is_sparse,
+                           is_distributed, padding_idx, param_attr, dtype,
+                           name)
+
+
+def _emit_embedding(op_type, input, size, is_sparse, is_distributed,
+                    padding_idx, param_attr, dtype, name=None):
+    """The body of ``embedding`` (v1 ``lookup_table``) and of
+    ``fluid.embedding`` (``lookup_table_v2``)."""
     helper = LayerHelper("embedding", param_attr=param_attr, name=name)
     if padding_idx is None:
         padding_idx = -1
@@ -49,7 +71,7 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
                                 dtype=dtype)
     out = helper.create_variable_for_type_inference(dtype=dtype)
     helper.append_op(
-        type="lookup_table", inputs={"W": [w], "Ids": [input]},
+        type=op_type, inputs={"W": [w], "Ids": [input]},
         outputs={"Out": [out]},
         attrs={"padding_idx": padding_idx, "is_sparse": is_sparse,
                "is_distributed": is_distributed})
@@ -476,3 +498,455 @@ def gather_tree(ids, parents, name=None):
                      inputs={"Ids": [ids], "Parents": [parents]},
                      outputs={"Out": [out]}, attrs={}, infer_shape=False)
     return out
+
+
+# ---- activations, shape and resize layers --------------------------------
+
+def gelu(x, approximate=False, name=None):
+    return _unary("gelu", x, name, {"approximate": approximate})
+
+
+def leaky_relu(x, alpha=0.02, name=None):
+    return _unary("leaky_relu", x, name, {"alpha": alpha})
+
+
+def relu6(x, threshold=6.0, name=None):
+    return _unary("relu6", x, name, {"threshold": threshold})
+
+
+def elu(x, alpha=1.0, name=None):
+    return _unary("elu", x, name, {"alpha": alpha})
+
+
+def swish(x, beta=1.0, name=None):
+    return _unary("swish", x, name, {"beta": beta})
+
+
+def hard_swish(x, name=None):
+    return _unary("hard_swish", x, name)
+
+
+def hard_sigmoid(x, slope=0.2, offset=0.5, name=None):
+    return _unary("hard_sigmoid", x, name, {"slope": slope,
+                                            "offset": offset})
+
+
+def round(x, name=None):
+    return _unary("round", x, name)
+
+
+def sin(x, name=None):
+    return _unary("sin", x, name)
+
+
+def erf(x, name=None):
+    return _unary("erf", x, name)
+
+
+def softplus(x, name=None):
+    return _unary("softplus", x, name)
+
+
+def softsign(x, name=None):
+    return _unary("softsign", x, name)
+
+
+def logsigmoid(x, name=None):
+    return _unary("logsigmoid", x, name)
+
+
+def brelu(x, t_min=0.0, t_max=24.0, name=None):
+    return _unary("brelu", x, name, {"t_min": float(t_min),
+                                     "t_max": float(t_max)})
+
+
+def selu(x, scale=1.0507009873554805, alpha=1.6732632423543772,
+         name=None):
+    return _unary("selu", x, name, {"scale": float(scale),
+                                    "alpha": float(alpha)})
+
+
+def stanh(x, scale_a=0.67, scale_b=1.7159, name=None):
+    return _unary("stanh", x, name, {"scale_a": float(scale_a),
+                                     "scale_b": float(scale_b)})
+
+
+def maxout(x, groups, name=None, axis=1):
+    return _unary("maxout", x, name, {"groups": int(groups),
+                                      "axis": int(axis)})
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper("mul", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(
+        type="mul", inputs={"X": [x], "Y": [y]}, outputs={"Out": [out]},
+        attrs={"x_num_col_dims": x_num_col_dims,
+               "y_num_col_dims": y_num_col_dims})
+    return out
+
+
+def bmm(x, y, name=None):
+    helper = LayerHelper("bmm", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="bmm", inputs={"X": [x], "Y": [y]},
+                     outputs={"Out": [out]})
+    return out
+
+
+def auc(input, label, curve="ROC", num_thresholds=4095, topk=1,
+        slide_steps=1):
+    """Streaming AUC; the histogram state lives in two int64 global
+    vars. Returns ``(auc, auc, [stat_pos, stat_neg])``."""
+    helper = LayerHelper("auc")
+    stat_pos = helper.create_global_variable(
+        shape=[num_thresholds + 1], dtype="int64",
+        initializer=init_mod.ConstantInitializer(0))
+    stat_neg = helper.create_global_variable(
+        shape=[num_thresholds + 1], dtype="int64",
+        initializer=init_mod.ConstantInitializer(0))
+    auc_out = helper.create_variable_for_type_inference(dtype="float32",
+                                                        stop_gradient=True)
+    helper.append_op(
+        type="auc",
+        inputs={"Predict": [input], "Label": [label],
+                "StatPos": [stat_pos], "StatNeg": [stat_neg]},
+        outputs={"AUC": [auc_out], "StatPosOut": [stat_pos],
+                 "StatNegOut": [stat_neg]},
+        attrs={"num_thresholds": num_thresholds, "curve": curve})
+    return auc_out, auc_out, [stat_pos, stat_neg]
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    helper = LayerHelper("l2_normalize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    norm = helper.create_variable_for_type_inference(dtype=x.dtype,
+                                                     stop_gradient=True)
+    helper.append_op(type="norm", inputs={"X": [x]},
+                     outputs={"Out": [out], "Norm": [norm]},
+                     attrs={"axis": axis, "epsilon": epsilon})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    helper = LayerHelper("label_smooth", name=name)
+    out = helper.create_variable_for_type_inference(dtype=label.dtype)
+    inputs = {"X": [label]}
+    if prior_dist is not None:
+        inputs["PriorDist"] = [prior_dist]
+    helper.append_op(type="label_smooth", inputs=inputs,
+                     outputs={"Out": [out]}, attrs={"epsilon": epsilon})
+    return out
+
+
+def image_resize(input, out_shape, resample="BILINEAR", name=None):
+    helper = LayerHelper("image_resize", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    op = "bilinear_interp" if resample.upper() == "BILINEAR" \
+        else "nearest_interp"
+    helper.append_op(type=op, inputs={"X": [input]}, outputs={"Out": [out]},
+                     attrs={"out_h": out_shape[0], "out_w": out_shape[1]})
+    return out
+
+
+def resize_bilinear(input, out_shape=None, scale=None, name=None,
+                    actual_shape=None, align_corners=True, align_mode=1,
+                    data_format="NCHW"):
+    if out_shape is None and scale is not None:
+        out_shape = [int(input.shape[2] * scale),
+                     int(input.shape[3] * scale)]
+    return image_resize(input, out_shape, resample="BILINEAR", name=name)
+
+
+def resize_nearest(input, out_shape=None, scale=None, name=None,
+                   actual_shape=None, align_corners=True,
+                   data_format="NCHW"):
+    if out_shape is None and scale is not None:
+        out_shape = [int(input.shape[2] * scale),
+                     int(input.shape[3] * scale)]
+    return image_resize(input, out_shape, resample="NEAREST", name=name)
+
+
+def resize_trilinear(input, out_shape=None, scale=None, name=None,
+                     actual_shape=None, align_corners=True, align_mode=1,
+                     data_format="NCDHW"):
+    if out_shape is None and scale is not None:
+        out_shape = [int(s * scale) for s in input.shape[2:]]
+    d, h, w = [int(v) for v in out_shape]
+    helper = LayerHelper("trilinear_interp", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="trilinear_interp", inputs={"X": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"out_d": d, "out_h": h, "out_w": w,
+                            "align_corners": bool(align_corners),
+                            "align_mode": int(align_mode)},
+                     infer_shape=False)
+    return out
+
+
+def image_resize_short(input, out_short_len, resample="BILINEAR"):
+    """Resize so the short side is ``out_short_len``, keeping the
+    aspect ratio."""
+    h, w = int(input.shape[2]), int(input.shape[3])
+    ratio = out_short_len / float(min(h, w))
+    out_shape = ([out_short_len, int(w * ratio)] if h < w
+                 else [int(h * ratio), out_short_len])
+    return image_resize(input, out_shape, resample=resample)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    return _unary("pad", x, name, {"paddings": list(paddings),
+                                   "pad_value": pad_value})
+
+
+def pad2d(x, paddings, mode="constant", pad_value=0.0, name=None):
+    return _unary("pad2d", x, name, {"paddings": list(paddings),
+                                     "mode": mode, "pad_value": pad_value})
+
+
+def strided_slice(input, axes, starts, ends, strides, name=None):
+    helper = LayerHelper("strided_slice", name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type="strided_slice", inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs={"axes": list(axes), "starts": list(starts),
+                            "ends": list(ends), "strides": list(strides)},
+                     infer_shape=False)
+    return out
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    helper = LayerHelper("unfold", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+
+    def _pair2(v):
+        return [v, v] if isinstance(v, int) else list(v)
+    helper.append_op(type="unfold", inputs={"X": [x]},
+                     outputs={"Y": [out]},
+                     attrs={"kernel_sizes": _pair2(kernel_sizes),
+                            "strides": _pair2(strides),
+                            "paddings": (list(paddings)
+                                         if isinstance(paddings,
+                                                       (list, tuple))
+                                         else [paddings] * 4),
+                            "dilations": _pair2(dilations)},
+                     infer_shape=False)
+    return out
+
+
+def pixel_shuffle(x, upscale_factor, name=None):
+    return _unary("pixel_shuffle", x, name,
+                  {"upscale_factor": int(upscale_factor)})
+
+
+def space_to_depth(x, blocksize, name=None):
+    return _unary("space_to_depth", x, name, {"blocksize": int(blocksize)})
+
+
+def expand_as(x, target_tensor, name=None):
+    helper = LayerHelper("expand_as", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="expand_as",
+                     inputs={"X": [x], "target_tensor": [target_tensor]},
+                     outputs={"Out": [out]}, infer_shape=False)
+    return out
+
+
+def reverse(x, axis, name=None):
+    if isinstance(axis, int):
+        axis = [axis]
+    return _unary("reverse", x, name, {"axis": list(axis)})
+
+
+def unique(x, dtype="int32"):
+    """Refused, as in the JAX package: the output shape depends on the
+    data."""
+    raise NotImplementedError(
+        "unique has a data-dependent output shape; use "
+        "layers.unique_with_counts (first-occurrence order, padded with a "
+        "Count output; Queue 1 item 10) instead")
+
+
+def uniform_random(shape, dtype="float32", min=-1.0, max=1.0, seed=0,
+                   name=None):
+    helper = LayerHelper("uniform_random", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="uniform_random", inputs={},
+                     outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "min": float(min),
+                            "max": float(max), "seed": int(seed),
+                            "dtype": dtype},
+                     infer_shape=False)
+    return out
+
+
+def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype="float32",
+                    name=None):
+    helper = LayerHelper("gaussian_random", name=name)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type="gaussian_random", inputs={},
+                     outputs={"Out": [out]},
+                     attrs={"shape": list(shape), "mean": float(mean),
+                            "std": float(std), "seed": int(seed),
+                            "dtype": dtype},
+                     infer_shape=False)
+    return out
+
+
+def _random_batch_size_like(op_type, input, shape, input_dim_idx,
+                            output_dim_idx, dtype, extra):
+    helper = LayerHelper(op_type)
+    out = helper.create_variable_for_type_inference(dtype=dtype)
+    helper.append_op(type=op_type, inputs={"Input": [input]},
+                     outputs={"Out": [out]},
+                     attrs=dict(extra, shape=list(shape),
+                                input_dim_idx=int(input_dim_idx),
+                                output_dim_idx=int(output_dim_idx),
+                                dtype=dtype),
+                     infer_shape=False)
+    return out
+
+
+def uniform_random_batch_size_like(input, shape, dtype="float32",
+                                   input_dim_idx=0, output_dim_idx=0,
+                                   min=-1.0, max=1.0, seed=0):
+    return _random_batch_size_like(
+        "uniform_random_batch_size_like", input, shape, input_dim_idx,
+        output_dim_idx, dtype,
+        {"min": float(min), "max": float(max), "seed": int(seed)})
+
+
+def gaussian_random_batch_size_like(input, shape, input_dim_idx=0,
+                                    output_dim_idx=0, mean=0.0, std=1.0,
+                                    seed=0, dtype="float32"):
+    return _random_batch_size_like(
+        "gaussian_random_batch_size_like", input, shape, input_dim_idx,
+        output_dim_idx, dtype,
+        {"mean": float(mean), "std": float(std), "seed": int(seed)})
+
+
+# ---- the decode layers ----------------------------------------------------
+
+def _decode_out(helper, like, dtype=None):
+    out = helper.create_variable_for_type_inference(
+        dtype=dtype or like.dtype)
+    out.shape = tuple(like.shape or ())
+    out.dtype = dtype or like.dtype
+    return out
+
+
+def kv_cache_write(cache, kv, pos, name=None):
+    """``kv`` [B, H, S, D] written into the dense ``cache`` [B, H, L, D]
+    at each row's ``pos`` [B] int32; returns the updated cache."""
+    helper = LayerHelper("kv_cache_write", name=name)
+    out = _decode_out(helper, cache)
+    helper.append_op(
+        type="kv_cache_write",
+        inputs={"Cache": [cache], "KV": [kv], "Pos": [pos]},
+        outputs={"Out": [out]}, attrs={}, infer_shape=False)
+    return out
+
+
+def kv_cached_attention(q, k_cache, v_cache, pos, scale=0.0, name=None):
+    """``q`` [B, H, S, D] over the caches [B, H, L, D], key j visible to
+    query i iff ``j <= pos[b] + i``."""
+    helper = LayerHelper("kv_cached_attention", name=name)
+    out = _decode_out(helper, q)
+    helper.append_op(
+        type="kv_cached_attention",
+        inputs={"Q": [q], "K": [k_cache], "V": [v_cache], "Pos": [pos]},
+        outputs={"Out": [out]}, attrs={"scale": float(scale)},
+        infer_shape=False)
+    return out
+
+
+def paged_kv_cache_write(cache, kv, tables, pos, scale=None, limit=None,
+                         name=None):
+    """``kv`` [B, H, S, D] written into the block pool ``cache``
+    [N, H, bs, D] through ``tables`` [B, nblk] at ``pos`` [B] (``limit``
+    [B]: the real vectors a row, the rest to the trash block). An int8
+    pool takes its ``scale`` [N, H, bs] and returns ``(pool, scale)``;
+    else the updated pool."""
+    helper = LayerHelper("paged_kv_cache_write", name=name)
+    out = _decode_out(helper, cache)
+    ins = {"Cache": [cache], "KV": [kv], "Tables": [tables], "Pos": [pos]}
+    if limit is not None:
+        ins["Limit"] = [limit]
+    outs = {"Out": [out]}
+    out_scale = None
+    if scale is not None:
+        ins["Scale"] = [scale]
+        out_scale = _decode_out(helper, scale)
+        outs["OutScale"] = [out_scale]
+    helper.append_op(type="paged_kv_cache_write", inputs=ins,
+                     outputs=outs, attrs={}, infer_shape=False)
+    return (out, out_scale) if out_scale is not None else out
+
+
+def paged_attention(q, k_cache, v_cache, tables, pos, k_scale=None,
+                    v_scale=None, scale=0.0, impl=None, name=None):
+    """``q`` [B, H, S, D] over the block pools through ``tables`` at
+    ``pos``: the decode kernel for S = 1, the gather route for S > 1 or
+    ``impl="xla"``."""
+    helper = LayerHelper("paged_attention", name=name)
+    out = _decode_out(helper, q)
+    ins = {"Q": [q], "K": [k_cache], "V": [v_cache], "Tables": [tables],
+           "Pos": [pos]}
+    if k_scale is not None:
+        ins["KScale"] = [k_scale]
+        ins["VScale"] = [v_scale]
+    helper.append_op(type="paged_attention", inputs=ins,
+                     outputs={"Out": [out]},
+                     attrs={"scale": float(scale), "impl": impl or ""},
+                     infer_shape=False)
+    return out
+
+
+def row_gather(x, index, name=None):
+    """``out[b] = x[b, index[b]]``."""
+    helper = LayerHelper("row_gather", name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="row_gather", inputs={"X": [x], "Index": [index]},
+                     outputs={"Out": [out]}, attrs={}, infer_shape=False)
+    out.shape = tuple(x.shape[:1] or ()) + tuple(x.shape[2:] or ())
+    out.dtype = x.dtype
+    return out
+
+
+def sample_tokens(logits, temperature, top_k=None, seed=0, name=None):
+    """Next token per row of ``logits`` [B, V]: greedy where
+    ``temperature`` <= 0, else sampled (within ``top_k`` where > 0).
+    Returns int32 [B]."""
+    helper = LayerHelper("sample_tokens", name=name)
+    out = helper.create_variable_for_type_inference(dtype="int32")
+    ins = {"X": [logits], "Temperature": [temperature]}
+    if top_k is not None:
+        ins["TopK"] = [top_k]
+    helper.append_op(type="sample_tokens", inputs=ins,
+                     outputs={"Out": [out]}, attrs={"seed": int(seed)},
+                     infer_shape=False)
+    out.shape = tuple(logits.shape[:1] or ())
+    out.dtype = "int32"
+    return out
+
+
+def spec_accept(logits, draft, temperature, num_draft, top_k=None,
+                seed=0, name=None):
+    """Speculative acceptance over a verified span: returns ``(tokens
+    [B, S] int32, accepted [B] int32)``; row b emits ``tokens[b,
+    :accepted[b] + 1]``."""
+    helper = LayerHelper("spec_accept", name=name)
+    out = helper.create_variable_for_type_inference(dtype="int32")
+    acc = helper.create_variable_for_type_inference(dtype="int32")
+    ins = {"X": [logits], "Draft": [draft], "Temperature": [temperature],
+           "NumDraft": [num_draft]}
+    if top_k is not None:
+        ins["TopK"] = [top_k]
+    helper.append_op(type="spec_accept", inputs=ins,
+                     outputs={"Out": [out], "Accepted": [acc]},
+                     attrs={"seed": int(seed)}, infer_shape=False)
+    out.shape = tuple(logits.shape[:2] or ())
+    out.dtype = "int32"
+    acc.shape = tuple(logits.shape[:1] or ())
+    acc.dtype = "int32"
+    return out, acc

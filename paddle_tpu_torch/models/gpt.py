@@ -9,11 +9,17 @@ of parameter names (``word_embedding``, ``decoder_layer_{i}_qkv.w_0``,
   through the Fluid layers, op for op the program the JAX package
   builds; ``fluid.Executor`` runs it. Attention is the ``flash_attention``
   op (causal), whose forward and backward are the CUDA kernels K1-K4.
-- Generation: the JAX package builds a static program per mode
-  (``gpt_logits``, ``gpt_prefill``, ``gpt_decode_step``,
-  ``gpt_decode_step_paged``, ``gpt_prefill_chunk_paged``,
-  ``gpt_verify_step``, ``gpt_verify_step_paged``); here they are the
-  methods :meth:`GPT.logits`, :meth:`GPT.prefill`,
+- Generation programs: :func:`gpt_logits`, :func:`gpt_prefill`,
+  :func:`gpt_decode_step`, :func:`gpt_decode_step_paged`,
+  :func:`gpt_prefill_chunk_paged`, :func:`gpt_verify_step` and
+  :func:`gpt_verify_step_paged` build the JAX package's generation
+  programs, with the same feed and fetch names, out of the registered
+  decode ops (``layers.nn.kv_cache_write`` ... ``paged_attention``); the
+  prefill's causal attention is the ``flash_attention`` op (K1 on the
+  card) and the paged decode step's read the ``paged_attention`` op
+  (K5). A fed pool is not changed in place: each write op writes a
+  clone of it (``ops.decode_ops``).
+- Generation module: the same modes as the methods :meth:`GPT.logits`, :meth:`GPT.prefill`,
   :meth:`GPT.decode_step`, :meth:`GPT.decode_step_paged`,
   :meth:`GPT.prefill_chunk_paged`, :meth:`GPT.verify_step` and
   :meth:`GPT.verify_step_paged` of one ``nn.Module``. The full forward
@@ -98,9 +104,21 @@ def _ln_layer(cfg, x, name, begin_axis=2):
                             initializer=I.Constant(0.0)))
 
 
-def decoder_layer(cfg, x, idx, is_test):
-    """Pre-LN block: x + attn(LN(x)); x + ffn(LN(x)), with causal flash
-    attention over the full sequence."""
+def decoder_layer(cfg, x, idx, is_test, kv_cache=None, pos=None):
+    """Pre-LN block: x + attn(LN(x)); x + ffn(LN(x)). Attention by
+    ``kv_cache``, as in the JAX package:
+
+    - None: causal flash attention over the full sequence;
+    - ``{"k", "v", "mode": "prefill"}`` with ``pos`` [B]: the fresh k/v
+      written into the dense caches at ``pos`` and attended by causal
+      flash attention; returns ``(x, k_cache, v_cache)``;
+    - ``mode: "decode"``: the fresh k/v written at ``pos`` and the
+      queries attending over the cache by position; returns ``(x,
+      k_cache, v_cache)``;
+    - ``mode: "paged"`` with ``tables`` [B, nblk] (and ``limit`` [B],
+      ``k_scale``/``v_scale`` for int8): the write into the block pools
+      and the ``paged_attention`` read; returns ``(x, k_pool, v_pool[,
+      k_scale, v_scale])``."""
     h = cfg.hidden_size
     n_head, d_head = cfg.num_heads, cfg.hidden_size // cfg.num_heads
     pre = f"decoder_layer_{idx}"
@@ -113,7 +131,32 @@ def decoder_layer(cfg, x, idx, is_test):
     q = T.transpose(T.reshape(q, [0, 0, n_head, d_head]), [0, 2, 1, 3])
     k = T.transpose(T.reshape(k, [0, 0, n_head, d_head]), [0, 2, 1, 3])
     v = T.transpose(T.reshape(v, [0, 0, n_head, d_head]), [0, 2, 1, 3])
-    ctx = layers.nn.flash_attention(q, k, v, causal=True)
+    caches = ()
+    mode = None if kv_cache is None else kv_cache.get("mode", "decode")
+    if mode is None:
+        ctx = layers.nn.flash_attention(q, k, v, causal=True)
+    elif mode == "paged":
+        tables, limit = kv_cache["tables"], kv_cache.get("limit")
+        k_sc, v_sc = kv_cache.get("k_scale"), kv_cache.get("v_scale")
+        new_k = layers.nn.paged_kv_cache_write(
+            kv_cache["k"], k, tables, pos, scale=k_sc, limit=limit)
+        new_v = layers.nn.paged_kv_cache_write(
+            kv_cache["v"], v, tables, pos, scale=v_sc, limit=limit)
+        new_ks = new_vs = None
+        if k_sc is not None:
+            (new_k, new_ks), (new_v, new_vs) = new_k, new_v
+        ctx = layers.nn.paged_attention(q, new_k, new_v, tables, pos,
+                                        k_scale=new_ks, v_scale=new_vs)
+        caches = (new_k, new_v) + ((new_ks, new_vs) if k_sc is not None
+                                   else ())
+    else:
+        new_k = layers.nn.kv_cache_write(kv_cache["k"], k, pos)
+        new_v = layers.nn.kv_cache_write(kv_cache["v"], v, pos)
+        if mode == "prefill":
+            ctx = layers.nn.flash_attention(q, k, v, causal=True)
+        else:
+            ctx = layers.nn.kv_cached_attention(q, new_k, new_v, pos)
+        caches = (new_k, new_v)
     ctx = T.reshape(T.transpose(ctx, [0, 2, 1, 3]), [0, 0, h])
     attn_out = _fc_layer(cfg, ctx, h, f"{pre}_att_out")
     attn_out = layers.dropout(attn_out, cfg.dropout, is_test=is_test,
@@ -125,7 +168,8 @@ def decoder_layer(cfg, x, idx, is_test):
     ffn = _fc_layer(cfg, ffn, h, f"{pre}_ffn_1")
     ffn = layers.dropout(ffn, cfg.dropout, is_test=is_test,
                          dropout_implementation="upscale_in_train")
-    return M.elementwise_add(x, ffn)
+    out = M.elementwise_add(x, ffn)
+    return out if kv_cache is None else (out,) + caches
 
 
 def gpt_pretrain(cfg, batch_size, seq_len, is_test=False):
@@ -181,6 +225,217 @@ def random_batch(cfg, batch_size, seq_len, rng=None):
             np.arange(seq_len, dtype=np.int32),
             (batch_size, seq_len)).copy(),
     }
+
+
+# ---- generation programs (the JAX package's inference graphs) -------------
+
+def _embed_layer(cfg, tokens, pos_ids):
+    emb = layers.embedding(tokens, size=[cfg.vocab_size, cfg.hidden_size],
+                           param_attr=_param(cfg, "word_embedding"))
+    pos = layers.embedding(pos_ids, size=[cfg.max_position,
+                                          cfg.hidden_size],
+                           param_attr=_param(cfg, "pos_embedding"))
+    return M.elementwise_add(emb, pos)
+
+
+def _tied_next_logits(cfg, x, last_pos):
+    """final-LN hidden [B, S, H] -> logits [B, V] at each row's
+    ``last_pos`` (the tied head)."""
+    x = _ln_layer(cfg, x, "final_ln")
+    h = layers.nn.row_gather(x, last_pos)                    # [B, H]
+    word_emb = x.block.program.global_block().var("word_embedding")
+    return layers.matmul(h, word_emb, transpose_y=True)      # [B, V]
+
+
+def _tied_span_logits(cfg, x):
+    """final-LN hidden [B, S, H] -> logits [B, S, V] at every position."""
+    x = _ln_layer(cfg, x, "final_ln")
+    word_emb = x.block.program.global_block().var("word_embedding")
+    return layers.matmul(x, word_emb, transpose_y=True)      # [B, S, V]
+
+
+def gpt_logits(cfg, batch_size=-1, seq_len=-1):
+    """Full causal forward, no KV cache. Feeds: tokens [B, S], pos_ids
+    [B, S], last_pos [B] (int32). Fetch: logits [B, V]."""
+    tokens = T.data("tokens", [batch_size, seq_len], dtype="int32")
+    pos_ids = T.data("pos_ids", [batch_size, seq_len], dtype="int32")
+    last_pos = T.data("last_pos", [batch_size], dtype="int32")
+    x = _embed_layer(cfg, tokens, pos_ids)
+    for i in range(cfg.num_layers):
+        x = decoder_layer(cfg, x, i, True)
+    return {"feed_names": ["tokens", "pos_ids", "last_pos"],
+            "logits": _tied_next_logits(cfg, x, last_pos)}
+
+
+def gpt_prefill(cfg, max_len, batch_size=-1, seq_len=-1):
+    """Prompt ingestion: the causal forward over the prompt that also
+    makes every layer's dense ``[B, H, max_len, D]`` caches (zeros, the
+    prompt's k/v written at position 0). Feeds as :func:`gpt_logits`;
+    fetches ``logits`` [B, V] and ``cache_k``/``cache_v``."""
+    tokens = T.data("tokens", [batch_size, seq_len], dtype="int32")
+    pos_ids = T.data("pos_ids", [batch_size, seq_len], dtype="int32")
+    last_pos = T.data("last_pos", [batch_size], dtype="int32")
+    x = _embed_layer(cfg, tokens, pos_ids)
+    n_head, d_head = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    zero_pos = T.fill_constant_batch_size_like(tokens, [-1], "int32", 0)
+    cache_k, cache_v = [], []
+    for i in range(cfg.num_layers):
+        zk = T.fill_constant_batch_size_like(
+            tokens, [-1, n_head, max_len, d_head], "float32", 0.0)
+        zv = T.fill_constant_batch_size_like(
+            tokens, [-1, n_head, max_len, d_head], "float32", 0.0)
+        x, ck, cv = decoder_layer(
+            cfg, x, i, True,
+            kv_cache={"k": zk, "v": zv, "mode": "prefill"}, pos=zero_pos)
+        cache_k.append(ck)
+        cache_v.append(cv)
+    return {"feed_names": ["tokens", "pos_ids", "last_pos"],
+            "logits": _tied_next_logits(cfg, x, last_pos),
+            "cache_k": cache_k, "cache_v": cache_v}
+
+
+def _dense_step(cfg, max_len, batch_size, x, pos, feed_names):
+    """The decoder layers over fed dense caches ``cache_k_<i>`` /
+    ``cache_v_<i>``; returns (x, cache_k, cache_v)."""
+    n_head, d_head = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    cache_k, cache_v = [], []
+    for i in range(cfg.num_layers):
+        ck_in = T.data(f"cache_k_{i}", [batch_size, n_head, max_len, d_head])
+        cv_in = T.data(f"cache_v_{i}", [batch_size, n_head, max_len, d_head])
+        feed_names += [f"cache_k_{i}", f"cache_v_{i}"]
+        x, ck, cv = decoder_layer(
+            cfg, x, i, True,
+            kv_cache={"k": ck_in, "v": cv_in, "mode": "decode"}, pos=pos)
+        cache_k.append(ck)
+        cache_v.append(cv)
+    return x, cache_k, cache_v
+
+
+def gpt_decode_step(cfg, max_len, batch_size=-1):
+    """One incremental step over the dense caches. Feeds: token [B], pos
+    [B] (int32), cache_k_<i>/cache_v_<i> [B, H, max_len, D]. Fetches:
+    logits [B, V] and the updated caches."""
+    token = T.data("token", [batch_size], dtype="int32")
+    pos = T.data("pos", [batch_size], dtype="int32")
+    x = T.reshape(_embed_layer(cfg, token, pos), [-1, 1, cfg.hidden_size])
+    feed_names = ["token", "pos"]
+    x, cache_k, cache_v = _dense_step(cfg, max_len, batch_size, x, pos,
+                                      feed_names)
+    zero = T.fill_constant_batch_size_like(token, [-1], "int32", 0)
+    return {"feed_names": feed_names,
+            "logits": _tied_next_logits(cfg, x, zero),
+            "cache_k": cache_k, "cache_v": cache_v}
+
+
+def _paged_step(cfg, kv_dtype, x, tables, pos, feed_names, limit=None):
+    """The decoder layers over the fed block pools ``cache_pk_<i>`` /
+    ``cache_pv_<i>`` (+ ``cache_pks_<i>``/``cache_pvs_<i>`` for int8);
+    returns (x, cache_names, cache_vars) in ``pool_feed_names`` order."""
+    from ..serving.kvpool import pool_feed_names
+    quantized = kv_dtype == "int8"
+    cache_dt = {"fp32": "float32", "bf16": "bfloat16",
+                "int8": "int8"}[kv_dtype]
+    n_head, d_head = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    by_name = {}
+    for i in range(cfg.num_layers):
+        names = [f"cache_pk_{i}", f"cache_pv_{i}"]
+        kv_cache = {"mode": "paged", "tables": tables, "limit": limit,
+                    "k": T.data(names[0], [-1, n_head, -1, d_head],
+                                dtype=cache_dt),
+                    "v": T.data(names[1], [-1, n_head, -1, d_head],
+                                dtype=cache_dt)}
+        if quantized:
+            names += [f"cache_pks_{i}", f"cache_pvs_{i}"]
+            kv_cache["k_scale"] = T.data(names[2], [-1, n_head, -1],
+                                         dtype="float32")
+            kv_cache["v_scale"] = T.data(names[3], [-1, n_head, -1],
+                                         dtype="float32")
+        feed_names += names
+        x, *outs = decoder_layer(cfg, x, i, True, kv_cache=kv_cache,
+                                 pos=pos)
+        by_name.update(zip(names, outs))
+    cache_names = pool_feed_names(cfg.num_layers, quantized)
+    return x, cache_names, [by_name[n] for n in cache_names]
+
+
+def gpt_decode_step_paged(cfg, kv_dtype="fp32", batch_size=-1):
+    """One incremental step over the shared block pools
+    (``serving.kvpool``), read by the ``paged_attention`` op. Feeds:
+    token [B], pos [B], block_tables [B, nblk] (int32), then the pools.
+    Fetches: logits [B, V], then the updated pools in
+    ``pool_feed_names`` order (``cache_names``)."""
+    token = T.data("token", [batch_size], dtype="int32")
+    pos = T.data("pos", [batch_size], dtype="int32")
+    tables = T.data("block_tables", [batch_size, -1], dtype="int32")
+    x = T.reshape(_embed_layer(cfg, token, pos), [-1, 1, cfg.hidden_size])
+    feed_names = ["token", "pos", "block_tables"]
+    x, cache_names, cache_vars = _paged_step(cfg, kv_dtype, x, tables, pos,
+                                             feed_names)
+    zero = T.fill_constant_batch_size_like(token, [-1], "int32", 0)
+    return {"feed_names": feed_names,
+            "logits": _tied_next_logits(cfg, x, zero),
+            "cache_names": cache_names, "cache_vars": cache_vars}
+
+
+def _paged_span(cfg, kv_dtype, batch_size, span_len, extra_feeds):
+    """The shared body of the chunk and verify programs: tokens/pos_ids
+    [B, S], start_pos, limit (and ``extra_feeds``) [B], block_tables,
+    then the pools."""
+    tokens = T.data("tokens", [batch_size, span_len], dtype="int32")
+    pos_ids = T.data("pos_ids", [batch_size, span_len], dtype="int32")
+    start_pos = T.data("start_pos", [batch_size], dtype="int32")
+    limit = T.data("limit", [batch_size], dtype="int32")
+    extra = [T.data(n, [batch_size], dtype="int32") for n in extra_feeds]
+    tables = T.data("block_tables", [batch_size, -1], dtype="int32")
+    x = _embed_layer(cfg, tokens, pos_ids)
+    feed_names = ["tokens", "pos_ids", "start_pos", "limit"] \
+        + list(extra_feeds) + ["block_tables"]
+    x, cache_names, cache_vars = _paged_step(
+        cfg, kv_dtype, x, tables, start_pos, feed_names, limit=limit)
+    return x, extra, feed_names, cache_names, cache_vars
+
+
+def gpt_prefill_chunk_paged(cfg, kv_dtype="fp32", batch_size=-1,
+                            chunk_len=-1):
+    """One chunk of incremental paged prefill: up to C prompt tokens a row
+    into the block pools at ``start_pos`` (``limit`` real ones), each
+    query attending over what its row holds (the gather route). Feeds:
+    tokens, pos_ids [B, C], start_pos, limit, last_idx [B],
+    block_tables, then the pools. Fetches: logits [B, V] at
+    ``last_idx``, then the updated pools."""
+    x, (last_idx,), feed_names, cache_names, cache_vars = _paged_span(
+        cfg, kv_dtype, batch_size, chunk_len, ["last_idx"])
+    return {"feed_names": feed_names,
+            "logits": _tied_next_logits(cfg, x, last_idx),
+            "cache_names": cache_names, "cache_vars": cache_vars}
+
+
+def gpt_verify_step(cfg, max_len, batch_size=-1, span_len=-1):
+    """One speculative verify step over the dense caches: S = K+1 fed
+    tokens a row written at ``pos[b]..`` and scored in one pass (query i
+    sees keys ``<= pos[b] + i``). Feeds: tokens [B, S], pos [B], pos_ids
+    [B, S], then the caches. Fetches: logits [B, S, V] and the caches."""
+    tokens = T.data("tokens", [batch_size, span_len], dtype="int32")
+    pos = T.data("pos", [batch_size], dtype="int32")
+    pos_ids = T.data("pos_ids", [batch_size, span_len], dtype="int32")
+    x = _embed_layer(cfg, tokens, pos_ids)
+    feed_names = ["tokens", "pos", "pos_ids"]
+    x, cache_k, cache_v = _dense_step(cfg, max_len, batch_size, x, pos,
+                                      feed_names)
+    return {"feed_names": feed_names, "logits": _tied_span_logits(cfg, x),
+            "cache_k": cache_k, "cache_v": cache_v}
+
+
+def gpt_verify_step_paged(cfg, kv_dtype="fp32", batch_size=-1,
+                          span_len=-1):
+    """One speculative verify step over the block pools: the chunk
+    program with logits [B, S, V] at every position (``limit``: each
+    row's drafts + 1). Feeds: tokens, pos_ids [B, S], start_pos, limit
+    [B], block_tables, then the pools."""
+    x, _, feed_names, cache_names, cache_vars = _paged_span(
+        cfg, kv_dtype, batch_size, span_len, [])
+    return {"feed_names": feed_names, "logits": _tied_span_logits(cfg, x),
+            "cache_names": cache_names, "cache_vars": cache_vars}
 
 
 # ---- generation module ----------------------------------------------------

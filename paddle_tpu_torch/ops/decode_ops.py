@@ -1,16 +1,34 @@
-"""Incremental-decoding ops as plain functions on tensors: the KV-cache
-write and read of the dense bank, the paged-pool write, the per-row
-gather, the sampler and the speculative acceptance.
+"""Incremental-decoding ops: the KV-cache write and read of the dense
+bank, the paged-pool write, the paged read, the per-row gather, the
+sampler and the speculative acceptance, as plain functions on tensors
+(what ``models.GPT`` calls) and as the registered ops of the Fluid
+programs that ``models.gpt``'s builders make.
 
 Counterpart of ``paddle_tpu/ops/decode_ops.py``. JAX arrays are
 immutable, so the JAX ops return updated caches and the executor donates
 the inputs so that XLA appends in place; here the cache and pool writes
-update their tensors in place (``index_put_``) and return them.
+update their tensors in place (``index_put_``) and return them. The
+registered write ops keep the JAX ops' values: they write a clone of
+their ``Cache`` (and ``Scale``) input, so no input (a fed or fetched
+pool, scope state, a cached constant, a view) changes behind the
+program's back.
+
+The registered ``paged_attention`` op routes as the JAX op does: one
+query a row (S = 1) takes the decode kernel (K5 on CUDA tensors, its
+plain version on CPU tensors); S > 1, or ``impl="xla"``, takes the
+gather route ``paged_attention_gather``; ``"pallas"`` and
+``"interpret"`` take the kernel. ``sample_tokens`` and ``spec_accept``
+draw from the op's seeded generator (``needs_rng``); their greedy rows
+are the argmax, bit for bit, and their sampled rows follow the JAX op's
+distribution, not its threefry draws.
 """
 import numpy as np
 import torch
 
-from ..kernels.paged_attention import quantize_kv
+from ..framework.registry import register_op
+from ..kernels.paged_attention import (paged_attention,
+                                      paged_attention_gather, quantize_kv)
+from .common import x_of
 
 _NEG_INF = -1e30
 
@@ -215,3 +233,91 @@ def spec_accept(logits, draft, temperature, num_draft, top_k=None,
     out = torch.where(torch.arange(S, device=dev)[None, :] < a[:, None],
                       padded, corr[:, None])
     return out.to(torch.int32), a.to(torch.int32)
+
+
+# ---- the registered ops ---------------------------------------------------
+
+@register_op("kv_cache_write", grad=False, infer_shape=False)
+def kv_cache_write_op(ctx, ins, attrs):
+    """Cache [B, H, L, D], KV [B, H, S, D], Pos [B] -> Out: the cache with
+    ``Out[b, :, pos[b]:pos[b]+S] = KV[b]``."""
+    return {"Out": kv_cache_write(x_of(ins, "Cache").clone(),
+                                  x_of(ins, "KV"), x_of(ins, "Pos"))}
+
+
+@register_op("kv_cached_attention", grad=False, infer_shape=False)
+def kv_cached_attention_op(ctx, ins, attrs):
+    """Q [B, H, S, D] over the K/V caches [B, H, L, D], key j visible to
+    query i iff ``j <= Pos[b] + i``."""
+    return {"Out": kv_cached_attention(
+        x_of(ins, "Q"), x_of(ins, "K"), x_of(ins, "V"), x_of(ins, "Pos"),
+        scale=float(attrs.get("scale", 0.0)) or None)}
+
+
+@register_op("paged_kv_cache_write", grad=False, infer_shape=False)
+def paged_kv_cache_write_op(ctx, ins, attrs):
+    """Cache [N, H, bs, D], KV [B, H, S, D], Tables [B, nblk], Pos [B]
+    (+ Limit [B]; + Scale [N, H, bs] for an int8 pool) -> Out (+
+    OutScale): the pool with row b's vector i at ``(Tables[b,
+    (Pos[b]+i)//bs], :, (Pos[b]+i) % bs)``, past-limit vectors in the
+    trash block 0."""
+    pool = x_of(ins, "Cache").clone()
+    scale = x_of(ins, "Scale").clone() if ins.get("Scale") else None
+    out = paged_kv_cache_write(pool, x_of(ins, "KV"), x_of(ins, "Tables"),
+                               x_of(ins, "Pos"), scale=scale,
+                               limit=x_of(ins, "Limit"))
+    if pool.dtype == torch.int8:
+        return {"Out": out[0], "OutScale": out[1]}
+    return {"Out": out}
+
+
+@register_op("paged_attention", grad=False, infer_shape=False)
+def paged_attention_op(ctx, ins, attrs):
+    """Q [B, H, S, D] over the block pools K/V [N, H, bs, D] (+ KScale/
+    VScale for int8) through Tables [B, nblk] int32 at Pos [B] int32 ->
+    Out [B, H, S, D], routed as the module docstring says."""
+    q, k, v = x_of(ins, "Q"), x_of(ins, "K"), x_of(ins, "V")
+    tables, pos = x_of(ins, "Tables"), x_of(ins, "Pos")
+    ks, vs = x_of(ins, "KScale"), x_of(ins, "VScale")
+    scale = float(attrs.get("scale", 0.0)) or None
+    impl = attrs.get("impl") or None
+    if impl is None and q.shape[2] != 1:
+        impl = "xla"
+    if impl == "xla":
+        return {"Out": paged_attention_gather(q, k, v, tables, pos,
+                                              k_scale=ks, v_scale=vs,
+                                              scale=scale)}
+    return {"Out": paged_attention(q.contiguous(), k, v, tables, pos,
+                                   k_scale=ks, v_scale=vs, scale=scale)}
+
+
+@register_op("row_gather", grad=False, infer_shape=False)
+def row_gather_op(ctx, ins, attrs):
+    """X [B, S, ...], Index [B] -> Out [B, ...] = X[b, Index[b]]."""
+    return {"Out": row_gather(x_of(ins), x_of(ins, "Index"))}
+
+
+@register_op("sample_tokens", grad=False, needs_rng=True,
+             infer_shape=False)
+def sample_tokens_op(ctx, ins, attrs):
+    """X [B, V] logits, Temperature [B] (+ TopK [B]) -> Out [B] int32:
+    argmax where the temperature is <= 0, else a draw from the op's
+    generator. The sampler runs over every row with no host branch
+    (``greedy=False``), as the JAX op does."""
+    return {"Out": sample_tokens(x_of(ins), x_of(ins, "Temperature"),
+                                 top_k=x_of(ins, "TopK"),
+                                 generator=ctx.generator(attrs),
+                                 greedy=False)}
+
+
+@register_op("spec_accept", grad=False, needs_rng=True,
+             infer_shape=False)
+def spec_accept_op(ctx, ins, attrs):
+    """X [B, S, V] span logits, Draft [B, S-1], Temperature [B],
+    NumDraft [B] (+ TopK [B]) -> Out [B, S] int32, Accepted [B] int32
+    (:func:`spec_accept`, every row through the sampler)."""
+    out, acc = spec_accept(x_of(ins), x_of(ins, "Draft"),
+                           x_of(ins, "Temperature"),
+                           x_of(ins, "NumDraft"), top_k=x_of(ins, "TopK"),
+                           generator=ctx.generator(attrs), greedy=False)
+    return {"Out": out, "Accepted": acc}

@@ -16,7 +16,23 @@ the generic vjp would run every forward conv again in the backward.
 Under ``FLAGS_cudnn_deterministic`` both take cuDNN's deterministic
 algorithms only. ``pool2d`` takes the generic vjp. ``conv2d_transpose``,
 ``depthwise_conv2d`` and ``conv3d`` are not ported (unregistered: an op
-of theirs raises ``NotImplementedError``)."""
+of theirs raises ``NotImplementedError``).
+
+Also what the core layers reach: ``embedding`` (v1,
+``:528``), the losses ``smooth_l1_loss :599``, ``huber_loss``,
+``log_loss``, ``bce_loss``, ``kldiv_loss``, ``mse_loss``,
+``margin_rank_loss`` and ``nll_loss :673``, ``label_smooth :693``,
+``pixel_shuffle :765`` and the resizes ``interp_nearest``/
+``nearest_interp`` and ``bilinear_interp :705-724`` (the sampling of
+``jax.image.resize``: half-pixel centres, antialiased bilinear when
+shrinking). The other image ops of the JAX module stay with Queue 1
+item 10: ``conv2d_transpose``, ``depthwise_conv2d(_transpose)``,
+``conv3d(_transpose)``, ``deformable_conv(_v1)``,
+``max_pool2d_with_index``, ``max_pool3d_with_index``, ``unpool``,
+``group_norm``, ``instance_norm``, ``spectral_norm``, ``prelu``,
+``affine_grid`` and ``temporal_shift``. ``unfold`` and ``space_to_depth``
+(``paddle_tpu/ops/extra_ops.py:140-174``) are here too, for the layers
+of the same names."""
 import math
 
 import torch
@@ -670,3 +686,175 @@ def trilinear_interp(ctx, ins, attrs):
     triangle kernel, as ``jax.image.resize(method="trilinear")``."""
     return {"Out": _resize(x_of(ins), (attrs["out_d"], attrs["out_h"],
                                        attrs["out_w"]), _triangle)}
+
+
+register_op("embedding")(lookup_table_v2)
+register_grad_lower("embedding")(lookup_table_grad)
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+@register_op("smooth_l1_loss")
+def smooth_l1_loss(ctx, ins, attrs):
+    """Per-row sum of the smooth L1 of ``X - Y`` (quadratic below
+    ``1 / sigma^2``); ``Diff`` is ``X - Y``."""
+    x, y = x_of(ins), x_of(ins, "Y")
+    s2 = attrs.get("sigma", 1.0) ** 2
+    diff = torch.abs(x - y)
+    loss = torch.where(diff < 1.0 / s2, 0.5 * s2 * torch.square(diff),
+                       diff - 0.5 / s2)
+    return {"Out": loss.sum(-1, keepdim=True), "Diff": x - y}
+
+
+@register_op("huber_loss")
+def huber_loss(ctx, ins, attrs):
+    x, y = x_of(ins), x_of(ins, "Y")
+    d = attrs.get("delta", 1.0)
+    r = y - x
+    return {"Out": torch.where(torch.abs(r) <= d, 0.5 * torch.square(r),
+                               d * (torch.abs(r) - 0.5 * d)),
+            "Residual": r}
+
+
+@register_op("log_loss")
+def log_loss(ctx, ins, attrs):
+    p, label = x_of(ins, "Predicted"), x_of(ins, "Labels")
+    eps = attrs.get("epsilon", 1e-4)
+    return {"Loss": -label * torch.log(p + eps)
+            - (1 - label) * torch.log(1 - p + eps)}
+
+
+@register_op("bce_loss")
+def bce_loss(ctx, ins, attrs):
+    x, label = x_of(ins), x_of(ins, "Label")
+    return {"Out": -(label * torch.log(x.clamp_min(1e-12))
+                     + (1 - label) * torch.log((1 - x).clamp_min(1e-12)))}
+
+
+@register_op("kldiv_loss")
+def kldiv_loss(ctx, ins, attrs):
+    """``target * (log(target) - x)`` reduced by ``reduction`` (mean,
+    sum, batchmean or none)."""
+    x, target = x_of(ins), x_of(ins, "Target")
+    loss = target * (torch.log(target.clamp_min(1e-12)) - x)
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        loss = loss.mean()
+    elif red == "sum":
+        loss = loss.sum()
+    elif red == "batchmean":
+        loss = loss.sum() / x.shape[0]
+    return {"Loss": loss}
+
+
+@register_op("mse_loss")
+def mse_loss(ctx, ins, attrs):
+    return {"Out": torch.square(x_of(ins, "Input") - x_of(ins, "Label"))}
+
+
+@register_op("margin_rank_loss")
+def margin_rank_loss(ctx, ins, attrs):
+    x1, x2, label = x_of(ins, "X1"), x_of(ins, "X2"), x_of(ins, "Label")
+    out = torch.clamp(-label * (x1 - x2) + attrs.get("margin", 0.0),
+                      min=0.0)
+    return {"Out": out, "Activated": (out > 0).to(x1.dtype)}
+
+
+@register_op("nll_loss")
+def nll_loss(ctx, ins, attrs):
+    """``-X[i, label[i]]`` over log-probabilities, reduced by
+    ``reduction``; ``Total_weight`` is the row count."""
+    x, label = x_of(ins), x_of(ins, "Label")
+    loss = -torch.gather(x, 1, label.long()[:, None])[:, 0]
+    red = attrs.get("reduction", "mean")
+    if red == "mean":
+        loss = loss.mean()
+    elif red == "sum":
+        loss = loss.sum()
+    return {"Out": loss, "Total_weight": torch.full(
+        (), float(x.shape[0]), dtype=x.dtype, device=x.device)}
+
+
+# --------------------------------------------------------------------------
+# Label smoothing, pixel shuffle, resizes
+# --------------------------------------------------------------------------
+
+@register_op("label_smooth")
+def label_smooth(ctx, ins, attrs):
+    """``(1 - eps) * X + eps * PriorDist`` (uniform over the last dim
+    without one)."""
+    x = x_of(ins)
+    eps = attrs.get("epsilon", 0.1)
+    dist = x_of(ins, "PriorDist")
+    return {"Out": (1 - eps) * x + (eps * dist if dist is not None
+                                    else eps / x.shape[-1])}
+
+
+@register_op("pixel_shuffle")
+def pixel_shuffle(ctx, ins, attrs):
+    """[N, C r^2, H, W] -> [N, C, H r, W r] (``F.pixel_shuffle``'s
+    channel order, the JAX op's)."""
+    return {"Out": F.pixel_shuffle(x_of(ins),
+                                   int(attrs.get("upscale_factor", 1)))}
+
+
+def _nearest(x, sizes):
+    """``jax.image.resize(method="nearest")`` on the trailing dims:
+    output i reads input ``floor((i + 0.5) * n_in / n_out)``."""
+    first = x.dim() - len(sizes)
+    for k, n_out in enumerate(sizes):
+        dim = first + k
+        n_in = x.shape[dim]
+        idx = ((torch.arange(n_out, dtype=torch.float32, device=x.device)
+                + 0.5) * n_in / n_out).floor().long()
+        x = x.index_select(dim, idx)
+    return x
+
+
+@register_op("interp_nearest")
+def interp_nearest(ctx, ins, attrs):
+    return {"Out": _nearest(x_of(ins), (attrs["out_h"], attrs["out_w"]))}
+
+
+register_op("nearest_interp")(interp_nearest)
+
+
+@register_op("bilinear_interp")
+def bilinear_interp(ctx, ins, attrs):
+    """x [B, C, H, W] resized to (out_h, out_w) with the triangle
+    kernel, as ``jax.image.resize(method="bilinear")``."""
+    return {"Out": _resize(x_of(ins), (attrs["out_h"], attrs["out_w"]),
+                           _triangle)}
+
+
+@register_op("unfold")
+def unfold(ctx, ins, attrs):
+    """im2col: [N, C, H, W] -> [N, C kh kw, L] sliding-window columns;
+    ``paddings`` is [ph, pw] or [top, left, bottom, right]."""
+    x = x_of(ins)
+    pads = list(attrs.get("paddings", [0, 0]))
+    if len(pads) == 2:
+        pads = [pads[0], pads[1], pads[0], pads[1]]
+    pt, pl, pb, pr = pads
+    if (pt, pl) == (pb, pr):
+        return {"Y": F.unfold(x, attrs["kernel_sizes"],
+                              dilation=attrs.get("dilations", [1, 1]),
+                              padding=(pt, pl),
+                              stride=attrs.get("strides", [1, 1]))}
+    return {"Y": F.unfold(F.pad(x, [pl, pr, pt, pb]),
+                          attrs["kernel_sizes"],
+                          dilation=attrs.get("dilations", [1, 1]),
+                          stride=attrs.get("strides", [1, 1]))}
+
+
+@register_op("space_to_depth")
+def space_to_depth(ctx, ins, attrs):
+    """[N, C, H, W] -> [N, C b^2, H/b, W/b], the channel order of the JAX
+    op (block offsets outermost)."""
+    x = x_of(ins)
+    b = int(attrs["blocksize"])
+    N, C, H, W = x.shape
+    out = x.reshape(N, C, H // b, b, W // b, b).permute(0, 3, 5, 1, 2, 4)
+    return {"Out": out.reshape(N, C * b * b, H // b, W // b)}

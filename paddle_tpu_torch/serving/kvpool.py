@@ -64,6 +64,19 @@ _COUNTERS = ("prefix_hits", "prefix_misses", "prefix_tokens_reused",
              "blocks_exported", "blocks_imported", "alloc_failures")
 
 
+def pool_feed_names(num_layers, quantized):
+    """Feed and fetch names of the paged programs' pool tensors
+    (``models.gpt.gpt_decode_step_paged`` and its siblings), in the one
+    order the JAX package uses: the k pools, the v pools, then (int8
+    only) the k and v scale pools."""
+    names = [f"cache_pk_{i}" for i in range(num_layers)] \
+        + [f"cache_pv_{i}" for i in range(num_layers)]
+    if quantized:
+        names += [f"cache_pks_{i}" for i in range(num_layers)] \
+            + [f"cache_pvs_{i}" for i in range(num_layers)]
+    return names
+
+
 def prompt_prefix_key(tokens, length=None):
     """Content hash of the first ``length`` tokens of a prompt (the whole
     prompt when None): the prefix cache's key, the same bytes hashed as

@@ -269,7 +269,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.optimizer, paddle_tpu_torch.models.gpt, "
             "paddle_tpu_torch.parallel, paddle_tpu_torch.distributed.launch, "
             "paddle_tpu_torch.incubate.fleet.collective, "
-            "paddle_tpu_torch.dygraph.parallel; "
+            "paddle_tpu_torch.dygraph.parallel, paddle_tpu_torch.nets, "
+            "paddle_tpu_torch.metrics; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

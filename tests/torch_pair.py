@@ -96,9 +96,11 @@ def run_op(pkg, op_type, inputs, attrs, outputs, grad_slots=(),
            grad_of=None, seed=0):
     """One ``op_type`` op over data vars fed ``inputs`` ({slot: array or
     [(name, array), ...]}), declaring ``outputs`` ({slot: (shape,
-    dtype)}). Returns ({output slot: array}, {grad slot: array}); the
-    grads are of sum(out[grad_of] * cot) for a seeded cotangent
-    (``grad_of`` defaults to the first output)."""
+    dtype)}, or a list of them for a slot of several vars). Returns
+    ({output slot: array, or a list for a listed slot}, {grad slot:
+    array}); the grads are of sum(out[grad_of] * cot) for a seeded
+    cotangent (``grad_of`` defaults to the first output; its first var
+    for a listed slot)."""
     fluid = jfluid if pkg == "jax" else tfluid
     L = fluid.layers
     main, startup = fluid.Program(), fluid.Program()
@@ -116,25 +118,31 @@ def run_op(pkg, op_type, inputs, attrs, outputs, grad_slots=(),
                 feed[name] = arr
             ins[slot] = vs
             leaves[slot] = vs[0]
-        outs = {s: block.create_var(name=f"out_{s.lower()}", shape=shape,
-                                    dtype=dt)
-                for s, (shape, dt) in outputs.items()}
+        outs = {}
+        for s, spec in outputs.items():
+            specs = spec if isinstance(spec, list) else [spec]
+            outs[s] = [block.create_var(name=f"out_{s.lower()}_{k}",
+                                        shape=shape, dtype=dt)
+                       for k, (shape, dt) in enumerate(specs)]
         block.append_op(type=op_type, inputs=ins, outputs=outs,
                         attrs=attrs, infer_shape=False)
         grads = []
         if grad_slots:
-            y = outs[grad_of or next(iter(outputs))]
+            y = outs[grad_of or next(iter(outputs))][0]
             cot = np.random.default_rng(seed + 99).standard_normal(
                 y.shape).astype(np.float32)
             c = L.data("cot", list(cot.shape), "float32")
             feed["cot"] = cot
             loss = L.reduce_sum(L.elementwise_mul(y, c))
             grads = fluid.gradients([loss], [leaves[s] for s in grad_slots])
-    vals = _exe(fluid).run(main, feed=feed,
-                           fetch_list=[outs[s] for s in outputs] + grads)
-    vals = [_np(v) for v in vals]
-    return (dict(zip(outputs, vals[:len(outputs)])),
-            dict(zip(grad_slots, vals[len(outputs):])))
+    flat = [v for s in outputs for v in outs[s]]
+    vals = [_np(v) for v in _exe(fluid).run(main, feed=feed,
+                                            fetch_list=flat + grads)]
+    got, it = {}, iter(vals[:len(flat)])
+    for s, spec in outputs.items():
+        got[s] = [next(it) for _ in spec] if isinstance(spec, list) \
+            else next(it)
+    return got, dict(zip(grad_slots, vals[len(flat):]))
 
 
 def op_pair(op_type, inputs, attrs, outputs, grad_slots=(), grad_of=None):
@@ -146,10 +154,13 @@ def op_pair(op_type, inputs, attrs, outputs, grad_slots=(), grad_of=None):
     to, tg = run_op("port", op_type, inputs, attrs, outputs, grad_slots,
                     grad_of)
     for s in outputs:
-        if jo[s].dtype.kind in "biu":
-            assert np.array_equal(to[s], jo[s]), f"{op_type} {s}"
-        else:
-            assert_close(to[s], jo[s], FWD_TOL, f"{op_type} {s}")
+        pairs = zip(to[s], jo[s]) if isinstance(outputs[s], list) \
+            else [(to[s], jo[s])]
+        for t, j in pairs:
+            if j.dtype.kind in "biu":
+                assert np.array_equal(t, j), f"{op_type} {s}"
+            else:
+                assert_close(t, j, FWD_TOL, f"{op_type} {s}")
     for s in grad_slots:
         assert_close(tg[s], jg[s], GRAD_TOL, f"{op_type} {s}@GRAD")
     return to, tg
