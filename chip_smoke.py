@@ -317,7 +317,18 @@ NVIDIA GPU.
       tokens/s, TFLOP/s, kernels per replay, the lamb ops' and the clip
       ops' device ms, the same program under Adam without a clip in the
       same run, checkpoint bytes, save, background gather and restore
-      seconds, the peak memory;
+      seconds, the peak memory; and (an ``observability_bert_gauges``
+      line) the Adam program's live gauges over 3 more slabs, each
+      between CUDA events: device_flops_total{where="train"} grows by
+      exactly K times the step's estimated cost and K1/K2 by 12 K,
+      device_compute_ms_total by the slab's device ms within 10%, the
+      train MFU gauge times 989 TFLOP/s over the slab's own TFLOP/s
+      (bench.py's formula) in [0.67, 1.5]; one eager step with
+      FLAGS_profile_ops 0 and 1 from copies of the scope (after an
+      untimed profiled step on a third), bitwise, the measured table
+      holding flash_attention and its grad, no row over 5% of its
+      total, and memory_profile's static peak beside
+      max_memory_allocated;
     - resnet_l2: bench_resnet50's program under Momentum 0.9 at a
       piecewise decay, plain, with L2Decay(1e-4) and as
       LarsMomentumOptimizer(lr, 0.9, lars_coeff 0.001, lars_weight_decay
@@ -423,7 +434,23 @@ NVIDIA GPU.
       built as those tests build them over seeded data, 3 steps on the
       card and on the CPU from one startup: losses within 1e-4 of max
       |ref|; ms a step on the card.
-15. Prints the {"kernels": [...]} line (K1-K5), then as the last line
+15. The observability core, last: GPT-base generation served over the
+    wire (paged fp32 pool, 8 slots, max_len 2048, the serving path's 8
+    prompts twice from 8 clients, 32 new tokens each) at
+    FLAGS_trace_sample_rate 1, then 16 times over (256 requests a pass)
+    at rates 0, 1, 1, 0, 0, 1 (the median and range of tokens/s and
+    decode ms a step at each: the telemetry's cost), then at rate 1
+    under profiler.profiler(state="All", trace_dir=...):
+    every request's trace holds client/send, serving/handle, queue,
+    prefill, decode and reply under one trace id, each child inside its
+    parent; the ``metrics`` op parses as Prometheus text, its token
+    counter grew by the tokens received, the decode flop counter grew,
+    the decode MFU and HBM ratios (from the counters, unclamped) and
+    gauges lie in (0, 1.05], the SLO rule states are exported; ``debug_dump`` returns events; the kvpool gauges were
+    non-zero in flight; the device trace holds one K5 and one K1 record
+    per launch the counters saw (a trace that lost records is taken
+    again, up to 3 in all); tools/timeline.py renders the span JSON.
+16. Prints the {"kernels": [...]} line (K1-K5), then as the last line
     {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero and prints no result line.
@@ -3170,7 +3197,8 @@ def scope_diff(torch, a, b):
 def profiled_trace(torch, fn):
     """(device ms, {kernel name: launches}) of one call of ``fn`` from
     torch.profiler: the CUDA kernels in its trace (a graph replay's
-    included; copies and sets add to the time, not the count)."""
+    included; copies and sets add to the time, not the count; the
+    markers of :func:`trace_markers` to neither)."""
     from collections import Counter
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3180,7 +3208,8 @@ def profiled_trace(torch, fn):
         torch.cuda.synchronize()
     us, names = 0.0, Counter()
     for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or "spin_kernel" in e.name:
             continue
         t = getattr(e, "device_time", None)
         us += float(e.cuda_time if t is None else t)
@@ -3195,12 +3224,15 @@ def traced_count(torch, fn, match, want, tries=3):
     ``want``. A trace that shows another count is taken again, up to
     ``tries`` in all, and counts as one that lost records only when it
     holds fewer kernel records in all than the trace that shows
-    ``want``; a trace never shows more than ``want``. Returns (device
-    ms, {kernel name: launches} and [[matched, kernel records]] of the
-    traces, the accepted one last) and raises AssertionError otherwise."""
+    ``want``; a trace never shows more than ``want``. Each trace opens
+    with :func:`trace_markers`, which take the loss of a trace's first
+    records late in this script. Returns (device ms, {kernel name:
+    launches} and [[matched, kernel records]] of the traces, the
+    accepted one last) and raises AssertionError otherwise."""
     seen = []
     for _ in range(tries):
-        ms, names = profiled_trace(torch, fn)
+        ms, names = profiled_trace(
+            torch, lambda: (trace_markers(torch, True), fn()))
         seen.append([sum(n for k, n in names.items() if match in k),
                      sum(names.values())])
         if seen[-1][0] >= want:
@@ -5438,7 +5470,9 @@ def bert_lamb(torch, np, fa, place=None, layers=None, B=16, S=2048, P=64,
 
 def _bert_adam_ab(torch, np, fluid, place, cfg, B, S, P, K, feed, slab):
     """bert_lamb's program under ``AdamOptimizer`` at the same rate and
-    without a clip: a captured slab, then a timed and a profiled one."""
+    without a clip: a captured slab, then a timed and a profiled one;
+    between them :func:`obs_bert_probe` reads the live gauges of this
+    executor's captured step."""
     main, startup, out, lr, _ = build_bert_lamb(cfg, B, S, P, "adam")
     fetch = [out["loss"], lr]
     exe, scope = fluid.Executor(place), fluid.Scope()
@@ -5450,6 +5484,8 @@ def _bert_adam_ab(torch, np, fluid, place, cfg, B, S, P, K, feed, slab):
     rec = {"optimizer": "AdamOptimizer(lr)", "clip": None,
            "losses": [float(x) for x in got[0]],
            "run_steps_ms_per_step": ms / K}
+    obs_bert_probe(torch, np, fluid, exe, main, slab, fetch, scope, feed,
+                   cfg, B, S, P, K)
     if cuda:
         dev, n = profiled_launches(torch, lambda: exe.run_steps(
             main, feed=slab, fetch_list=fetch, scope=scope))
@@ -7002,6 +7038,582 @@ def book_models(torch, np, place=None, steps=3):
     return rec
 
 
+# ------------------------------------------------------------- observability
+
+OBS_TRACE_DIR = os.path.join(ROOT, "build", "chip_smoke_trace")
+# the spans every traced generate request must hold
+OBS_SPANS = ("client/send", "serving/handle", "serving/queue",
+             "serving/prefill", "serving/decode", "serving/reply")
+# the most of a FLAGS_profile_ops table of BERT-base's ~1090 ops that
+# its slowest row may take: a row that paid for the caching allocator
+# taking memory from the card stands out (229 of 1131 ms on an H100
+# 80GB HBM3 with the allocator cold, 1.3-2.4% warm)
+PROFILE_OPS_TOP_SHARE = 0.05
+# the trace rates of the telemetry's cost passes, alternating so a drift
+# of the host falls on both
+COST_RATES = (0.0, 1.0, 1.0, 0.0, 0.0, 1.0)
+_PROM_LINE = None
+
+
+def parse_prometheus(text):
+    """Prometheus text exposition (format 0.0.4) as ``{name: [(labels,
+    value)]}``; raises ValueError on a line that is not a comment, a
+    blank or a sample."""
+    import re
+    global _PROM_LINE
+    if _PROM_LINE is None:
+        _PROM_LINE = re.compile(
+            r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{(.*)\})? (\S+)$')
+    label = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("# HELP ") or ln.startswith("# TYPE "):
+            continue
+        m = _PROM_LINE.match(ln)
+        if m is None:
+            raise ValueError(f"not a Prometheus sample line: {ln!r}")
+        labels = dict(label.findall(m.group(3) or ""))
+        out.setdefault(m.group(1), []).append((labels, float(m.group(4))))
+    return out
+
+
+def prom_value(parsed, name, **labels):
+    """The value of ``name`` whose labels include ``labels`` (0.0 when the
+    series is absent)."""
+    for lab, v in parsed.get(name, ()):
+        if all(lab.get(k) == v2 for k, v2 in labels.items()):
+            return v
+    return 0.0
+
+
+def obs_traffic(np, server, prompts, new, clients, sample=None):
+    """``prompts`` from ``clients`` concurrent wire clients (request i on
+    client i % clients); ``sample()`` is called every 5 ms while they
+    run. Returns ({i: tokens}, wall s)."""
+    from paddle_tpu_torch.serving import Client
+    got, errors = {}, []
+
+    def client(idxs):
+        try:
+            with Client(server.endpoint, timeout=600) as c:
+                for i in idxs:
+                    got[i] = c.generate(prompts[i], new)
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(
+        range(c, len(prompts), clients),)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    while any(t.is_alive() for t in threads):
+        if sample is not None:
+            sample()
+        time.sleep(0.005)
+        if time.perf_counter() - t0 > 900:
+            break
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or errors \
+            or len(got) != len(prompts):
+        raise AssertionError(f"observability clients failed: {errors}")
+    return got, wall
+
+
+def _stage_mean_ms(hist, before):
+    """Mean ms of ``hist``'s observations since ``before`` (its
+    ``_state()`` then)."""
+    _, n, s, _ = hist._state()
+    return (s - before[2]) / max(n - before[1], 1) * 1e3
+
+
+def trace_gates(spans, n_requests):
+    """The traced requests' spans grouped by trace: ``n_requests`` traces
+    with a ``serving/handle`` span, each holding every :data:`OBS_SPANS`
+    name, each child span inside its parent. ``serving/reply`` must start
+    inside its parent (``client/send``); its end is read by the server's
+    thread after the send returns, which can come after the client has
+    read the reply and closed its span, so how far it runs past is
+    reported, not gated. Returns (record, failures)."""
+    by_trace = {}
+    for s in spans:
+        by_trace.setdefault(s[4], []).append(s)
+    reqs = {t: ss for t, ss in by_trace.items()
+            if any(s[0] == "serving/handle" for s in ss)}
+    fails = []
+    if len(reqs) != n_requests:
+        fails.append(f"{len(reqs)} traced requests, not {n_requests}")
+    missing, outside, decode, late = [], [], [], [0.0]
+    for tid, ss in reqs.items():
+        names = {s[0] for s in ss}
+        if not set(OBS_SPANS) <= names:
+            missing.append(sorted(set(OBS_SPANS) - names))
+        decode.append(sum(s[0] == "serving/decode" for s in ss))
+        by_id = {s[5]: s for s in ss}
+        for s in ss:
+            p = by_id.get(s[6])
+            if p is None:
+                continue
+            end = s[2]
+            if s[0] == "serving/reply":
+                late.append(max(s[2] - p[2], 0.0))
+                end = s[1]
+            if not (p[1] <= s[1] and end <= p[2]):
+                outside.append((s[0], p[0]))
+    if missing:
+        fails.append(f"traces lack spans: {missing[:4]}")
+    if outside:
+        fails.append(f"child spans outside their parents: {outside[:4]}")
+    return {"traced_requests": len(reqs),
+            "spans": sum(len(ss) for ss in reqs.values()),
+            "decode_spans_per_request": [min(decode or [0]),
+                                         max(decode or [0])],
+            "children_outside_parent": len(outside),
+            "reply_end_past_client_send_max_s": max(late)}, fails
+
+
+TRACE_MARKERS = 32
+
+
+def trace_markers(torch, cuda):
+    """:data:`TRACE_MARKERS` short ``spin_kernel`` launches, then a sync:
+    one run of them opens a traced window and another closes it. After
+    many earlier traces in the process the tracer drops the first
+    records of a new one (23-27 of the 32 leading markers on an H100 late
+    in this script; none when the phase ran alone), so the leading run
+    takes that loss in place of the window's kernels, and
+    :func:`marker_records` shows how much of it there was."""
+    if cuda:
+        for _ in range(TRACE_MARKERS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+
+def marker_records(torch, prof):
+    """[markers before, markers after] the window's other kernel records
+    in a stopped ``torch.profiler`` session (each of
+    :data:`TRACE_MARKERS` when none was lost)."""
+    marks, first, last = [], None, None
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name.startswith(("Memcpy", "Memset")):
+            continue
+        t = e.time_range.start
+        if "spin_kernel" in e.name:
+            marks.append(t)
+        else:
+            first = t if first is None else min(first, t)
+            last = t if last is None else max(last, t)
+    if first is None:
+        return [len(marks), 0]
+    return [sum(t < first for t in marks), sum(t > last for t in marks)]
+
+
+def count_kernel_records(torch, prof, names):
+    """{match: kernel records whose name holds it} and the count of all
+    kernel records in a stopped ``torch.profiler`` session."""
+    got = dict.fromkeys(names, 0)
+    total = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or e.name.startswith(("Memcpy", "Memset")):
+            continue
+        total += 1
+        for m in names:
+            if m in e.name:
+                got[m] += 1
+    return got, total
+
+
+def observability_phase(torch, np, cfg, fa, pa, device=None, max_len=2048,
+                        new=32, lo=64, hi=1024, clients=8, tries=3,
+                        cost_reps=16):
+    """The observability core on GPT-base generation serving (a paged
+    fp32 pool, 8 decode slots, max_len 2048, as ``server_full`` builds
+    its server; speculative decoding, chunked prefill and the prefix
+    cache left off so each request takes the K1 prefill and K5 decode
+    steps): the serving path's 8 prompts (``pr1_prompts``) twice, 16
+    requests from ``clients`` wire clients, once at
+    ``FLAGS_trace_sample_rate`` 0 to capture the decode graphs, then:
+
+    1. at rate 1: every request's trace holds client/send,
+       serving/handle, queue, prefill, decode and reply spans under one
+       trace id, each child inside its parent; the ``metrics`` wire op
+       parses as Prometheus text, its ``serving_tokens_generated_total``
+       grew by the tokens the clients received, ``device_flops_total
+       {where="decode"}`` grew, the decode ratios over the pass (the
+       counters' FLOPs and bytes over their device ms, against the peaks:
+       not the gauges, which clamp at 1) and the gauges lie in (0, 1.05],
+       the server's SLO rule states are exported; ``debug_dump`` returns
+       events; the kvpool gauges were non-zero while requests were in
+       flight;
+    2. the telemetry's cost: the 16 requests ``cost_reps`` times over
+       (256, several seconds a pass) from the same ``clients`` clients,
+       a pass at each rate of :data:`COST_RATES` in turn; the median and
+       range at each rate of tokens/s, decode ms a step (the replay's
+       stage time) and the whole decode-loop step. No gate;
+    3. at rate 1 under ``profiler.profiler(state="All", trace_dir=...)``,
+       the traffic between two runs of :func:`trace_markers`: the device
+       trace holds one K5 (``paged_split_kernel``) record per
+       K5 launch the counter saw in the window and one K1 record per K1
+       launch (a trace that lost records is taken again, up to ``tries``
+       in all; one never shows more), and ``tools/timeline.py`` renders
+       the span JSON ``stop_profiler`` wrote."""
+    import shutil
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.flags import flag, set_flags
+    from paddle_tpu_torch.models import GPTGenerator, init_params
+    from paddle_tpu_torch.observability import (default_registry,
+                                                render_metrics)
+    from paddle_tpu_torch.observability import utilization as util
+    from paddle_tpu_torch.serving import Client, InferenceServer
+    gen = GPTGenerator(cfg, init_params(cfg, seed=0), max_len=max_len,
+                       device=device)
+    cuda = gen.device.type == "cuda"
+    prompts = pr1_prompts(np, cfg, lo, hi) * 2
+    n = len(prompts)
+    rec = {"phase": "observability", "requests": n, "clients": clients,
+           "slots": 8, "new_tokens": new, "max_len": max_len,
+           "kv": "paged fp32"}
+    fails = []
+    saved = flag("trace_sample_rate")
+    server = InferenceServer(generator=gen, decode_slots=8, paged=True)
+    hists = server.stats_sink.hist
+    fams = default_registry()._families
+    in_use = fams["kvpool_blocks_in_use_count"]
+    occ = fams["kvpool_occupancy_ratio"]
+    pool = server.gen_engine.pool.name
+    peak = {"blocks": 0.0, "occupancy": 0.0}
+
+    def sample():
+        peak["blocks"] = max(peak["blocks"], in_use.value((pool,)))
+        peak["occupancy"] = max(peak["occupancy"], occ.value((pool,)))
+
+    def run(rate, sampler=None, reqs=prompts):
+        set_flags({"trace_sample_rate": rate})
+        before = {s: hists[s]._state() for s in ("decode", "token")}
+        got, wall = obs_traffic(np, server, reqs, new, clients, sampler)
+        return got, {"rate": rate, "requests": len(reqs),
+                     "tokens_per_s": sum(len(t) for t in got.values())
+                     / wall, "wall_s": wall,
+                     "decode_ms_per_step": _stage_mean_ms(
+                         hists["decode"], before["decode"]),
+                     "loop_step_ms": _stage_mean_ms(hists["token"],
+                                                    before["token"])}
+
+    passes = []
+    try:
+        server.start()
+        obs_traffic(np, server, prompts, new, clients)      # captures
+        # -- 1: traced, scraped
+        profiler.reset_profiler()
+        util.reset_windows()
+        before = parse_prometheus(render_metrics())
+        got, _ = run(1.0, sample)
+        with Client(server.endpoint, timeout=120) as c:
+            text = c.metrics()
+            dump = c.debug_dump()
+        set_flags({"trace_sample_rate": 0.0})
+        after = parse_prometheus(text)
+        spans = [s for s in profiler._spans if len(s) >= 7]
+        trace_rec, tf = trace_gates(spans, n)
+        fails += tf
+        rec["trace"] = trace_rec
+        tokens = sum(len(t) for t in got.values())
+        grown = prom_value(after, "serving_tokens_generated_total") \
+            - prom_value(before, "serving_tokens_generated_total")
+        flops, nbytes, ms = (
+            prom_value(after, fam, where="decode")
+            - prom_value(before, fam, where="decode")
+            for fam in ("device_flops_total", "device_hbm_bytes_total",
+                        "device_compute_ms_total"))
+        mfu = prom_value(after, "device_mfu_ratio", where="decode")
+        bw = prom_value(after, "device_hbm_bw_util_ratio", where="decode")
+        pf, pb = util.peak_flops(), util.hbm_peak()
+        # the gauges clamp at 1: the counters show an overcount
+        raw = (None, None) if not (ms > 0 and pf and pb) else \
+            (flops / (ms / 1e3) / pf, nbytes / (ms / 1e3) / pb)
+        rules = [r.name for r in server.slo_monitor.rules]
+        states = {r: [v for lab, v in after.get("slo_rule_state", ())
+                      if lab.get("scope") == server.endpoint
+                      and lab.get("rule") == r] for r in rules}
+        rec.update({
+            "metrics_families": len(after), "tokens_received": tokens,
+            "tokens_generated_grew": grown,
+            "decode_flops_grew": flops, "decode_bytes_grew": nbytes,
+            "decode_compute_ms_grew": ms,
+            "decode_mfu_from_counters": raw[0],
+            "decode_hbm_bw_util_from_counters": raw[1],
+            "decode_mfu_ratio": mfu, "decode_hbm_bw_util_ratio": bw,
+            "prefill_mfu_ratio": prom_value(after, "device_mfu_ratio",
+                                            where="prefill"),
+            "peak_flops": pf, "hbm_peak": pb,
+            "slo_rule_states": states,
+            "debug_dump_events": len(dump.get("events", ())),
+            "kvpool_blocks_in_use_peak": peak["blocks"],
+            "kvpool_occupancy_peak": peak["occupancy"]})
+        if grown != tokens:
+            fails.append(f"serving_tokens_generated_total grew by {grown}, "
+                         f"the clients received {tokens}")
+        if not flops > 0:
+            fails.append("device_flops_total{where=decode} did not grow")
+        if not all(r is not None and 0 < r <= 1.05
+                   for r in (*raw, mfu, bw)):
+            fails.append(f"decode mfu {raw[0]} (gauge {mfu}), hbm bw "
+                         f"{raw[1]} (gauge {bw}) not in (0, 1.05]")
+        if not rules or any(len(v) != 1 for v in states.values()):
+            fails.append(f"SLO rule states not exported: {states}")
+        if not rec["debug_dump_events"]:
+            fails.append("debug_dump returned no events")
+        if not (peak["blocks"] > 0 and peak["occupancy"] > 0):
+            fails.append(f"kvpool gauges stayed 0 in flight: {peak}")
+        # -- 2: the telemetry's cost, rates alternating
+        for rate in COST_RATES:
+            profiler.reset_profiler()
+            passes.append(run(rate, reqs=prompts * cost_reps)[1])
+        set_flags({"trace_sample_rate": 0.0})
+        profiler.reset_profiler()
+        # -- 3: the same traffic under the device tracer
+        prof_json = os.path.join(OBS_TRACE_DIR, "spans.json")
+        shutil.rmtree(OBS_TRACE_DIR, ignore_errors=True)
+        os.makedirs(OBS_TRACE_DIR)
+        seen = []
+        for _ in range(tries):
+            k5, k1 = pa.paged_attention.launches, \
+                fa.flash_attention_fwd.launches
+            profiler.reset_profiler()
+            with profiler.profiler(state="All" if cuda else "CPU",
+                                   trace_dir=OBS_TRACE_DIR,
+                                   profile_path=prof_json):
+                trace_markers(torch, cuda)
+                run(1.0)
+                trace_markers(torch, cuda)
+            set_flags({"trace_sample_rate": 0.0})
+            k5 = pa.paged_attention.launches - k5
+            k1 = fa.flash_attention_fwd.launches - k1
+            prof = profiler.last_device_trace()["profile"]
+            got_n, total = count_kernel_records(
+                torch, prof, ("paged_split_kernel", K1_KERNEL))
+            seen.append({"k5_records": got_n["paged_split_kernel"],
+                         "k5_launches": k5, "k1_records": got_n[K1_KERNEL],
+                         "k1_launches": k1, "kernel_records": total,
+                         "markers": marker_records(torch, prof)
+                         if cuda else None})
+            s = seen[-1]
+            if (s["k5_records"], s["k1_records"]) == (k5, k1) \
+                    or s["k5_records"] > k5 or s["k1_records"] > k1:
+                break
+        rec["device_trace"] = seen
+        s = seen[-1]
+        if cuda and ((s["k5_records"], s["k1_records"]) !=
+                     (s["k5_launches"], s["k1_launches"])
+                     or not s["k5_launches"] or not s["k1_launches"]):
+            fails.append(f"device trace records vs launches: {seen}")
+        out = os.path.join(OBS_TRACE_DIR, "timeline.json")
+        r = subprocess.run([sys.executable,
+                            os.path.join(ROOT, "tools", "timeline.py"),
+                            "--profile_path", prof_json, "--timeline_path",
+                            out], capture_output=True, text=True,
+                           timeout=300)
+        events = 0
+        if r.returncode == 0:
+            with open(out) as f:
+                events = sum(e.get("ph") == "X"
+                             for e in json.load(f)["traceEvents"])
+        rec["timeline_events"] = events
+        if r.returncode or not events:
+            fails.append(f"tools/timeline.py: rc {r.returncode} "
+                         f"{r.stderr[-400:]}")
+    finally:
+        server.stop()
+        set_flags({"trace_sample_rate": saved})
+        profiler.reset_profiler()
+        gen.release()
+    rec["passes"] = passes
+    keys = ("tokens_per_s", "decode_ms_per_step", "loop_step_ms")
+    cost = {}
+    for rate in sorted(set(COST_RATES)):
+        got = {k: [p[k] for p in passes if p["rate"] == rate] for k in keys}
+        cost[f"rate{rate:g}"] = {
+            k: {"median": float(np.median(v)), "min": min(v), "max": max(v)}
+            for k, v in got.items()}
+    if {"rate0", "rate1"} <= set(cost):
+        med = {r: {k: cost[r][k]["median"] for k in keys}
+               for r in ("rate0", "rate1")}
+        cost["tokens_per_s_rate1_over_rate0"] = \
+            med["rate1"]["tokens_per_s"] / med["rate0"]["tokens_per_s"]
+        cost["tokens_per_s_rate0_range_over_median"] = \
+            (cost["rate0"]["tokens_per_s"]["max"]
+             - cost["rate0"]["tokens_per_s"]["min"]) \
+            / med["rate0"]["tokens_per_s"]
+        for k in keys[1:]:
+            cost[f"{k}_rate1_minus_rate0"] = med["rate1"][k] - med["rate0"][k]
+    rec["telemetry_cost"] = cost
+    rec["ok"] = not fails
+    card_line(rec)
+    if fails:
+        raise AssertionError(f"observability: {fails}")
+    return rec
+
+
+def obs_bert_probe(torch, np, fluid, exe, main, slab, fetch, scope, feed,
+                   cfg, B, S, P, K, slabs=3):
+    """The live gauges of a captured BERT-base step (``_bert_adam_ab``'s
+    executor: bench_bert_long's shape, flash K1/K2, bf16 AMP) and one
+    eager step under ``FLAGS_profile_ops``:
+
+    - ``slabs`` more slabs of K, each between a pair of CUDA events on
+      the stream: ``device_flops_total{where="train"}`` grows by exactly
+      K times the step's estimated cost, K1 and K2 by K per layer (the
+      replaying code counts, not the captured callable), and
+      ``device_compute_ms_total{where="train"}`` by the slab's device ms
+      within 10%; ``device_mfu_ratio{where="train"}`` times the card's
+      peak over the phase's own TFLOP/s (bench.py's formula over the
+      same device ms) lies in [0.67, 1.5];
+    - one eager ``Executor.run`` from a copy of the scope with
+      ``FLAGS_profile_ops`` 0 and another with 1: the fetches and the
+      whole scope bitwise; the measured table holds flash_attention and
+      its grad (their ranks by ms), and no row takes more than
+      :data:`PROFILE_OPS_TOP_SHARE` of its total (one untimed profiled
+      step on a third copy comes first, so the allocator holds what the
+      walk needs); its total over the captured step's device ms (the
+      walk waits for the card after each op, so the host's time per op
+      adds to the device's) and ``memory_profile``'s static peak beside
+      the step's ``max_memory_allocated`` are reported, no gate."""
+    from paddle_tpu_torch.flags import set_flags
+    from paddle_tpu_torch.observability import (default_registry,
+                                                last_op_profile)
+    from paddle_tpu_torch.observability import utilization as util
+    cuda = exe.device.type == "cuda"
+    fa_mod = sys.modules["paddle_tpu_torch.kernels.flash_attention"]
+    k1, k2 = fa_mod.flash_attention_fwd, fa_mod.flash_attention_bwd_single
+    fams = default_registry()._families
+    L = cfg.num_layers
+    rec, fails = {}, []
+    util.reset_windows()
+    rows = []
+    for _ in range(slabs):
+        before = (fams["device_flops_total"].value(("train",)),
+                  fams["device_compute_ms_total"].value(("train",)),
+                  k1.launches, k2.launches)
+        if cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record()
+        t0 = time.perf_counter()
+        exe.run_steps(main, feed=slab, fetch_list=fetch, scope=scope)
+        if cuda:
+            e1.record()
+            torch.cuda.synchronize()
+            ms = e0.elapsed_time(e1)
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        rows.append({
+            "slab_device_ms": ms,
+            "flops_grew": fams["device_flops_total"].value(("train",))
+            - before[0],
+            "compute_ms_grew": fams["device_compute_ms_total"].value(
+                ("train",)) - before[1],
+            "k1_grew": k1.launches - before[2],
+            "k2_grew": k2.launches - before[3]})
+    step_cost = [c for k, c in exe._costs.items() if c][-1]
+    rec["step_cost"] = step_cost
+    rec["slabs"] = rows
+    for r in rows:
+        if r["flops_grew"] != K * step_cost["flops"]:
+            fails.append(f"device_flops_total grew {r['flops_grew']}, not "
+                         f"{K} x {step_cost['flops']}")
+        if cuda and (r["k1_grew"], r["k2_grew"]) != (K * L, K * L):
+            fails.append(f"K1/K2 grew {(r['k1_grew'], r['k2_grew'])} in "
+                         f"a slab of {K}, not {K * L} each")
+        if cuda and not abs(r["compute_ms_grew"] - r["slab_device_ms"]) \
+                <= 0.1 * r["slab_device_ms"]:
+            fails.append(f"device_compute_ms_total grew "
+                         f"{r['compute_ms_grew']} over a slab of "
+                         f"{r['slab_device_ms']} device ms")
+    u = util.utilization("train")
+    ms_step = float(np.median([r["slab_device_ms"] for r in rows])) / K
+    formula = bert_train_flops_per_sample(cfg, S, P) * B
+    phase_flops_per_s = formula / (ms_step / 1e3)
+    peak = util.peak_flops()
+    rec.update({"train_mfu_ratio": u["mfu"],
+                "train_hbm_bw_util_ratio": u["hbm_bw_util"],
+                "device_ms_per_step": ms_step,
+                "formula_flops_per_step": formula,
+                "estimated_flops_per_step": step_cost["flops"],
+                "estimate_over_formula": step_cost["flops"] / formula,
+                "phase_tflops": phase_flops_per_s / 1e12,
+                "peak_tflops": None if peak is None else peak / 1e12})
+    if cuda:
+        ratio = None if peak is None else u["mfu"] * peak / phase_flops_per_s
+        rec["gauge_over_formula"] = ratio
+        if ratio is None or not 0.67 <= ratio <= 1.5:
+            fails.append(f"train MFU gauge {u['mfu']} x peak {peak} over "
+                         f"the phase's {phase_flops_per_s:.4g} FLOP/s = "
+                         f"{ratio}, not in [0.67, 1.5]")
+    # one eager step with FLAGS_profile_ops off and on, from copies
+    sA, sW, sB = (copied_scope(torch, fluid, scope) for _ in range(3))
+    _sync(torch, exe)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    off = exe.run(main, feed=feed, fetch_list=fetch, scope=sA)
+    _sync(torch, exe)
+    rec["eager_step_wall_ms"] = (time.perf_counter() - t0) * 1e3
+    if cuda:
+        rec["eager_step_peak_bytes"] = torch.cuda.max_memory_allocated() \
+            - base
+        rec["max_memory_allocated_bytes"] = \
+            torch.cuda.max_memory_allocated()
+    set_flags({"profile_ops": 1})
+    try:
+        exe.run(main, feed=feed, fetch_list=fetch, scope=sW)    # warm-up
+        rec["warm_up_measured_total_ms"] = last_op_profile()["total_ms"]
+        on = exe.run(main, feed=feed, fetch_list=fetch, scope=sB)
+    finally:
+        set_flags({"profile_ops": 0})
+    diff = scope_diff(torch, sA, sB)
+    rec["profile_ops_bitwise"] = all(np.array_equal(a, b)
+                                     for a, b in zip(off, on)) and not diff
+    if not rec["profile_ops_bitwise"]:
+        fails.append(f"FLAGS_profile_ops changed the step: {off} vs {on}, "
+                     f"scope diff {diff[:8]}")
+    prof = last_op_profile()
+    ranked = sorted(prof["rows"], key=lambda r: -r["ms"])
+    total = sum(r["ms"] for r in ranked)
+    rank = {}
+    for i, r in enumerate(ranked):
+        rank.setdefault(r["type"], {"rank": i, "ms": r["ms"],
+                                    "share": r["ms"] / total})
+    rec["measured_ops"] = len(ranked)
+    rec["measured_total_ms"] = prof["total_ms"]
+    rec["measured_over_step_device_ms"] = prof["total_ms"] / ms_step
+    rec["top_ops"] = [(r["type"], r["ms"]) for r in ranked[:8]]
+    rec["top_row_share"] = ranked[0]["ms"] / total
+    if cuda and not rec["top_row_share"] <= PROFILE_OPS_TOP_SHARE:
+        fails.append(f"the measured table's slowest row takes "
+                     f"{rec['top_row_share']:.3f} of its {total} ms, over "
+                     f"{PROFILE_OPS_TOP_SHARE}: {rec['top_ops']}")
+    rec["flash_attention"] = rank.get("flash_attention")
+    rec["flash_attention_grad"] = rank.get("flash_attention_grad")
+    if rec["flash_attention"] is None \
+            or rec["flash_attention_grad"] is None:
+        fails.append("the measured table lacks flash_attention or its "
+                     "grad")
+    rec["memory_profile_peak_bytes"] = prof["peak_bytes"]
+    if cuda:
+        rec["static_over_measured_peak"] = \
+            prof["peak_bytes"] / rec["eager_step_peak_bytes"]
+    del sA, sW, sB
+    rec["ok"] = not fails
+    card_line({"phase": "observability_bert_gauges", **rec})
+    if fails:
+        raise AssertionError(f"observability_bert_gauges: {fails}")
+    return rec
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -7501,6 +8113,13 @@ def main():
         if any(got.values()):
             failures.append(f"the {name} path launched a kernel of the "
                             f"port: {got}")
+
+    # the observability core: GPT-base served and traced over the wire
+    # (K1 prefills, K5 decode steps), its metrics scraped, the device
+    # trace's kernel records held to the launch counters (bert_lamb's
+    # Adam A/B read BERT-base's live gauges above)
+    drive("observability", ("flash_attention_fwd", "paged_attention"),
+          lambda: observability_phase(torch, np, cfg, fa, pa))
 
     kernels = []
     rows = [("flash_attention_fwd", FA_SOURCE, FA_REPLACES, main_fa),

@@ -60,6 +60,12 @@ Ported so far:
   as registered ops, and GPT's generation programs
   (``models.gpt.gpt_prefill``, ``gpt_decode_step_paged``, ...), whose
   Fluid programs the ``Executor`` runs on the card.
+- Telemetry: the metrics registry (``fluid.observability``, Prometheus
+  text by ``render_metrics()`` or the serving ``metrics`` wire op),
+  request tracing from ``serving.Client`` through the server's stages,
+  live MFU / HBM-bandwidth gauges, the flight recorder, the per-op and
+  memory profilers, the SLO monitor, and ``fluid.profiler`` (with
+  ``torch.profiler`` as the device tracer).
 - Control flow and the sequence models: ``layers.While``, ``cond``,
   ``Switch``, ``StaticRNN``, ``DynamicRNN`` and the tensor arrays (ops
   over sub-blocks, run by the same op-by-op interpreter), the
@@ -99,6 +105,7 @@ from . import dataio, dygraph, inference, io
 from . import clip, regularizer, resilience, train
 from . import incubate, parallel
 from . import metrics, nets, tensor
+from . import observability, profiler
 from .dygraph.base import (VarBase, disable_dygraph, enable_dygraph,
                            in_dygraph_mode)
 from .framework import backward, passes
@@ -173,8 +180,9 @@ __all__ = ['Block', 'BuildStrategy', 'CPUPlace', 'CUDAPinnedPlace',
            'initializer', 'io', 'is_compiled_with_cuda', 'kernels', 'layers',
            'learning_rate_decay', 'load', 'load_checkpoint',
            'load_inference_model', 'load_params', 'load_persistables',
-           'metrics', 'name_scope', 'nets', 'one_hot', 'ops', 'optimizer',
-           'parallel', 'param_shapes', 'params_from_jax', 'passes',
+           'metrics', 'name_scope', 'nets', 'observability', 'one_hot', 'ops',
+           'optimizer', 'parallel', 'param_shapes', 'params_from_jax',
+           'passes', 'profiler',
            'program_guard', 'register_grad_lower', 'register_op',
            'regularizer', 'require_version', 'resilience', 'resolve_device',
            'save', 'save_checkpoint', 'save_inference_model', 'save_params',

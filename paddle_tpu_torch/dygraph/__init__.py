@@ -48,3 +48,16 @@ class BackwardStrategy:
 
     def __init__(self):
         self.sort_sum_gradient = False
+
+
+def start_gperf_profiler():
+    """reference dygraph start_gperf_profiler (gperftools hooks): the
+    port's profiling surface is ``fluid.profiler``, started here for
+    every state."""
+    from .. import profiler as _p
+    _p.start_profiler("All")
+
+
+def stop_gperf_profiler():
+    from .. import profiler as _p
+    _p.stop_profiler()

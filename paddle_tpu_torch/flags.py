@@ -80,6 +80,34 @@ _DEFS = {
     "verify_passes": (False, bool),
     # byte cap of one fused-optimizer bucket, in megabytes of parameters
     "fuse_optimizer_bucket_mb": (64, int),
+    # -- observability (the metrics registry, tracing, the flight
+    # recorder, the profiler, the SLO monitor) --
+    # fraction of requests that carry a trace context, sampled at the
+    # client (serving.Client / tracing.maybe_trace): 0.0 off, 1.0 all
+    "trace_sample_rate": (0.01, float),
+    # flight recorder ring capacity (recent structured events)
+    "flight_recorder_events": (512, int),
+    # directory of automatic flight-recorder dumps (an Internal error
+    # crossing the serving wire boundary, rate-limited); "" = off
+    "flight_recorder_dir": ("", str),
+    # measured per-op profiling: 0 off; N >= 1 = every N-th
+    # Executor.run of a program also replays it op by op on copies
+    # (synced, timed), for observability.last_op_profile()
+    "profile_ops": (0, int),
+    # the default SLO monitor inside every InferenceServer
+    "slo_monitor": (True, bool),
+    "slo_poll_s": (0.25, float),
+    # default-rule thresholds (0 disables the rule): windowed p99 of the
+    # decode loop's step (ms), queue depth over the admission cap, paged
+    # pool occupancy, and the decode MFU floor
+    "slo_decode_p99_ms": (2000.0, float),
+    "slo_queue_ratio": (0.9, float),
+    "slo_kvpool_ratio": (0.95, float),
+    "slo_mfu_floor": (0.0, float),
+    # input-pipeline stall window and the consumer-wait share that flags
+    # it (observability.inputstall)
+    "dataio_stall_window_s": (1.0, float),
+    "dataio_stall_ratio": (0.5, float),
 }
 
 _values = {}

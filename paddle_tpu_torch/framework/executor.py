@@ -28,14 +28,32 @@ its rewritten program on this rank's rows (``with_data_parallel``), its
 first run on a scope broadcasts the state it reads from rank 0, its
 stochastic ops fold the rank into their seeds and its guard's counts are
 all-reduced (max), so every rank commits or rolls back the same steps.
+
+Telemetry (``observability``): ``cache_stats()`` (the memo of prepared
+steps and captured graphs, where the JAX package has its compile cache)
+feeds the ``executor_*`` families; each execution is timed by a pair of
+CUDA events on its stream (the host clock on the CPU), read once
+complete, never by a forced sync, and attached to the step's estimated
+cost (``observability.profiling.program_cost``) for the utilization
+gauges, ``where="step"`` for ``run`` and ``"train"`` for ``run_steps``
+(K times the step's cost a slab); the profiler gets the ``run/...``,
+``pass/program_...``, ``h2d/slab`` and step-time events; non-finite
+steps go to the flight recorder; ``FLAGS_profile_ops=N`` replays every
+N-th ``run`` of a program op by op on copies
+(``observability.profiling.measure_op_times``).
 """
 import time
 
 import numpy as np
 import torch
 
+from .. import profiler as _prof
 from ..device import resolve_device
 from ..flags import flag
+from ..observability import metrics as _obs_metrics
+from ..observability import utilization as _util
+from ..observability.metrics import default_registry as _registry
+from ..observability.recorder import flight_recorder as _flightrec
 from ..resilience import NonFiniteError
 from .analysis import verify_program
 from .core import CPUPlace, CUDAPlace, Variable, default_main_program
@@ -46,6 +64,48 @@ from .passes import optimize_program, pipeline_signature
 from .passes import stats as pass_stats
 
 RNG_STATE_NAME = "@RNG_SEED@"
+
+# cache_stats() key -> exported metric (name, kind): the JAX package's
+# families where the port keeps the stat. The memo of prepared steps
+# and captured graphs never evicts, and a capture has no trace/compile
+# split, so executor_cache_evictions_total and
+# executor_compile_{trace,xla}_ms_total are left out
+_CACHE_METRICS = (
+    ("hits", "executor_cache_hits_total", "counter"),
+    ("misses", "executor_cache_misses_total", "counter"),
+    ("inserts", "executor_cache_inserts_total", "counter"),
+    ("entries", "executor_cache_entries_count", "gauge"),
+    ("bytes", "executor_cache_bytes", "gauge"),
+    ("pass_ms", "executor_compile_pass_ms_total", "counter"),
+    ("verify_ms", "executor_compile_verify_ms_total", "counter"),
+    ("compiles", "executor_compiles_total", "counter"),
+)
+
+# counters bank on GC so the exported *_total stay monotonic across
+# executor churn; the gauges retire with the executor they describe
+_exec_agg = _obs_metrics.InstanceAggregator(
+    [k for k, _n, kd in _CACHE_METRICS if kd == "counter"])
+
+
+def _collect_executors():
+    """Scrape-time collector: Executor.cache_stats() summed across every
+    live executor plus the retired totals of collected ones."""
+    totals = _exec_agg.totals(
+        lambda exe: exe.cache_stats(),
+        live_only_keys=[k for k, _n, kd in _CACHE_METRICS
+                        if kd == "gauge"])
+    return [{"name": name, "kind": kind,
+             "help": f"Executor cache_stats() {key!r} (summed across "
+                     f"live executors)",
+             "labels": (), "samples": [((), totals[key])]}
+            for key, name, kind in _CACHE_METRICS]
+
+
+_registry().register_collector(
+    _collect_executors,
+    families=[{"name": name, "kind": kind,
+               "help": f"Executor cache_stats() {key!r}", "labels": ()}
+              for key, name, kind in _CACHE_METRICS])
 
 
 class Scope:
@@ -130,6 +190,119 @@ class Executor:
         self._steps = {}
         self._graphs = {}
         self.verify_ms = 0.0
+        from ..utils.lru import LRUCache
+        # cache_stats() counters; the collector's closure binds this
+        # dict, never the executor
+        self._cstats = {"hits": 0, "misses": 0, "inserts": 0,
+                        "pass_ms": 0.0, "verify_ms": 0.0, "compiles": 0}
+        # estimated step costs (False: nothing to count), the timer of
+        # pending executions, the cadence of the last observation
+        self._costs = LRUCache(max_entries=256)
+        self._timer = _util.ExecutionTimer()
+        self._last_obs = None
+        self._gap_streak = 0
+        # FLAGS_profile_ops sampling counts, per step
+        self._profile_seq = {}
+        _exec_agg.track(self, lambda cs=self._cstats: dict(cs))
+
+    def cache_stats(self):
+        """The memo of prepared steps (``run``) and captured graphs
+        (``run_steps``): ``hits``, ``misses``, ``inserts``, ``entries``,
+        ``bytes`` (the captured graphs' device memory), ``compiles``
+        (captures), ``pass_ms`` (the pass pipeline on memo misses) and
+        ``verify_ms`` (``FLAGS_verify_passes``)."""
+        out = dict(self._cstats)
+        out["entries"] = len(self._steps) + len(self._graphs)
+        out["bytes"] = sum(int(getattr(g, "nbytes", 0) or 0)
+                           for g in self._graphs.values())
+        return out
+
+    # -- utilization ----------------------------------------------------
+    def _step_cost(self, step, shapes, k_steps=1):
+        """The estimated cost of one run of ``step`` at the feed
+        ``shapes`` (``{name: shape}``), memoized per step and shapes;
+        times ``k_steps`` for a slab."""
+        from ..observability.profiling import program_cost
+        key = (id(step), step.program.version,
+               tuple(sorted(shapes.items())))
+        try:
+            cost = _util.cost_for(self._costs, key, lambda: program_cost(
+                step.program, dict(shapes)))
+        except Exception:  # noqa: BLE001 — telemetry never kills a step
+            cost = False
+        if cost and k_steps != 1:
+            cost = {"flops": cost["flops"] * k_steps,
+                    "bytes": cost["bytes"] * k_steps}
+        return key + (k_steps,), cost
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _maybe_profile_ops(self, every_n, step, program, env, scope,
+                           run_seed):
+        """The ``FLAGS_profile_ops`` sampling gate and measured replay:
+        every ``every_n``-th run of ``step``, its program runs op by op
+        once more, on copies of what it writes and at the step's run
+        seed (``observability.profiling.measure_op_times``: the per-op
+        table, the op spans and the ``hbm_live_bytes`` track), before
+        the step itself, which it leaves bitwise as it would be.
+        Failures are swallowed: profiling never breaks a step."""
+        if len(self._profile_seq) > 512:
+            self._profile_seq.clear()
+        seq = self._profile_seq.get(id(step), 0) + 1
+        self._profile_seq[id(step)] = seq
+        if (seq - 1) % max(every_n, 1):
+            return
+        try:
+            from ..observability import profiling as _opprof
+            menv = dict(env)
+            for n in step.reads + step.fetch_state:
+                val = scope.find_var(n)
+                if val is not None:
+                    menv[n] = val
+            _opprof.measure_op_times(step.program, menv,
+                                     tag=f"program_{program._uid}",
+                                     device=self.device,
+                                     run_seed=step.rng_seed(run_seed))
+        except Exception:  # noqa: BLE001 — telemetry never kills a step
+            pass
+
+    def _drain_utilization(self):
+        """Attach every timed execution that has completed to the
+        gauges. Telemetry never kills a step."""
+        try:
+            for seconds, (where, key, cost) in self._timer.poll():
+                self._observe_utilization(where, key, cost, seconds)
+        except Exception:  # noqa: BLE001 — telemetry never kills a step
+            pass
+
+    def _observe_utilization(self, where, cost_key, cost, seconds):
+        """Feed the live MFU / HBM-bandwidth gauges one measured
+        execution of ``cost_key`` that took ``seconds`` on the device.
+        The first execution of a key seeds the cadence (it may follow a
+        capture or a warm-up), and one far above the recent cadence
+        (10x) is an outlier (a host stall inside an eager run), dropped;
+        a run of three such re-seeds the cadence, so a durably slower
+        step is measured again instead of freezing the gauges."""
+        prev = self._last_obs
+        cadence = prev[1] if prev is not None and prev[0] == cost_key \
+            else None
+        measured = None
+        if cadence is None:
+            cadence = seconds
+            self._gap_streak = 0
+        elif seconds > 10.0 * cadence:
+            self._gap_streak += 1
+            if self._gap_streak >= 3:
+                cadence = seconds
+                self._gap_streak = 0
+        else:
+            cadence = measured = seconds
+            self._gap_streak = 0
+        self._last_obs = (cost_key, cadence)
+        if measured is not None and cost:
+            _util.observe_execution(where, cost, measured)
 
     def _optimize(self, program, fetch_names, feed_names=(), scope=None):
         """The pipeline's clone of ``program`` (``program`` itself with
@@ -157,14 +330,25 @@ class Executor:
         opt = self._opt_cache.get(key)
         if opt is not None:
             return opt
+        verify_ms = 0.0
         if verify:
             t0 = time.perf_counter()
             verify_program(program, fetch_names=fetch_names,
                            feed_names=feed_names, scope_names=scope_names)
-            self.verify_ms += (time.perf_counter() - t0) * 1e3
+            verify_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
         opt = optimize_program(program, fetch_names) if sig else program
-        if verify and sig:
-            self.verify_ms += pass_stats()["verify_ms"]
+        dt = time.perf_counter() - t0
+        pipeline_verify = pass_stats()["verify_ms"] if verify and sig \
+            else 0.0
+        verify_ms += pipeline_verify
+        self.verify_ms += verify_ms
+        self._cstats["verify_ms"] += verify_ms
+        if opt is not program:
+            # pass_ms and verify_ms sum to the miss's cost
+            pass_s = max(dt - pipeline_verify / 1e3, 0.0)
+            self._cstats["pass_ms"] += pass_s * 1e3
+            _prof.record_duration(f"pass/program_{program._uid}", pass_s)
         self._opt_cache[key] = opt
         return opt
 
@@ -195,9 +379,12 @@ class Executor:
         key = (id(opt), opt.version, frozenset(feed_names),
                tuple(fetch_names), dp)
         step = self._steps.get(key)
-        if step is None or step.program is not opt:
+        hit = step is not None and step.program is opt
+        self._cstats["hits" if hit else "misses"] += 1
+        if not hit:
             step = Step(opt, feed_names, fetch_names, data_parallel=dp)
             self._steps[key] = step
+            self._cstats["inserts"] += 1
         if dp:
             compiled._sync_once(scope, step.reads)
         return step
@@ -245,8 +432,22 @@ class Executor:
         if check_nan_inf is None:
             check_nan_inf = flag("check_nan_inf")
         guard = bool(check_nan_inf or skip_nonfinite_steps)
-        fetches, new, counts = step.execute(env, scope, self.device,
-                                            run_seed, guard)
+        prof_n = int(flag("profile_ops"))
+        if prof_n > 0 and not step.data_parallel:
+            self._maybe_profile_ops(prof_n, step, program, env, scope,
+                                    run_seed)
+        cost_key, cost = self._step_cost(
+            step, {n: tuple(t.shape) for n, t in env.items()})
+        start = self._timer.begin(self.device)
+        if _prof.is_profiling():
+            with _prof.record_event(f"run/program_{program._uid}"):
+                fetches, new, counts = step.execute(env, scope, self.device,
+                                                    run_seed, guard)
+                self._sync()
+        else:
+            fetches, new, counts = step.execute(env, scope, self.device,
+                                                run_seed, guard)
+        self._timer.end(start, ("step", cost_key, cost))
         scope.set(RNG_STATE_NAME, splitmix64(run_seed))
         bad = None
         if guard:
@@ -256,6 +457,9 @@ class Executor:
                 bad = step.slots[i] + (int(c[i]),)
         if bad is not None and skip_nonfinite_steps:
             kind, name, count = bad
+            _flightrec().record("nonfinite", program=program._uid,
+                                var=name, count=count, where=kind,
+                                rolled_back=True)
             print(f"[executor] skip_nonfinite_steps: {kind} {name!r} has "
                   f"{count} non-finite value(s) — step rolled back")
         else:
@@ -263,6 +467,8 @@ class Executor:
                 scope.set(n, v)
             if bad is not None:
                 kind, name, count = bad
+                _flightrec().record("nonfinite", program=program._uid,
+                                    var=name, count=count, where=kind)
                 raise NonFiniteError(
                     f"Operator output contains Inf/Nan "
                     f"(FLAGS_check_nan_inf): {kind} {name!r} has {count} "
@@ -270,7 +476,8 @@ class Executor:
                     f"data, learning rate, or loss scaling are the usual "
                     f"suspects.", var_name=name, count=count)
         if return_numpy:
-            return [_to_numpy(f) for f in fetches]
+            fetches = [_to_numpy(f) for f in fetches]
+        self._drain_utilization()
         return fetches
 
     # -- fused multi-step entry -----------------------------------------
@@ -313,6 +520,7 @@ class Executor:
         block = program.global_block()
         k_steps = None
         slab = {}
+        t_h2d = time.perf_counter()
         for name, val in feed.items():
             if np.ndim(val) == 0:
                 raise ValueError(
@@ -326,6 +534,7 @@ class Executor:
                     f"feed {name!r} has {k} steps on its leading axis, "
                     f"other feeds have {k_steps}")
             slab[name] = self._feed_tensor(block, name, val)
+        _prof.record_duration("h2d/slab", time.perf_counter() - t_h2d)
         if steps_per_run is not None and int(steps_per_run) != k_steps:
             raise ValueError(
                 f"steps_per_run={steps_per_run} but the fed slab carries "
@@ -344,14 +553,32 @@ class Executor:
         key = (program._uid, program.version, sig, tuple(fetch_names),
                guard, skip, pipeline_signature(), id(step))
         entry = self._graphs.get(key) if use_program_cache else None
+        if use_program_cache:
+            self._cstats["hits" if entry is not None else "misses"] += 1
         if entry is None:
             from ..kernels import COUNTED
             entry = CapturedStep(step, slab, scope, self.device, guard=guard,
                                  skip=skip, counters=COUNTED)
+            self._cstats["compiles"] += 1
             if use_program_cache:
                 self._graphs[key] = entry
+                self._cstats["inserts"] += 1
+        cost_key, cost = self._step_cost(
+            step, {n: tuple(t.shape[1:]) for n, t in slab.items()}, k_steps)
+        profiling = _prof.is_profiling()
+        start = self._timer.begin(self.device)
+        t0 = time.perf_counter()
         fetches, viols, slots, seed = entry.run_slab(
             slab, scope, self._run_seed(scope, program))
+        if profiling:
+            t1 = time.perf_counter()
+            self._sync()
+            span = time.perf_counter() - t0
+            tag = f"program_{program._uid}_x{k_steps}"
+            _prof.record_duration(f"dispatch/{tag}", t1 - t0)
+            _prof.record_duration(f"scan/{tag}", span)
+            _prof.record_step_time(span / k_steps, k_steps)
+        self._timer.end(start, ("train", cost_key, cost))
         scope.set(RNG_STATE_NAME, seed)
 
         if guard and viols.any():
@@ -360,6 +587,10 @@ class Executor:
             kind, name = step.slots[i] if 0 <= i < len(step.slots) \
                 else ("slot", i)
             name = f"{kind} {name!r}"
+            _flightrec().record(
+                "nonfinite", program=program._uid, var=name,
+                count=int(viols[first]), where=f"fused step {first}",
+                rolled_back=skip)
             if skip:
                 rolled = int((viols > 0).sum())
                 print(f"[executor] skip_nonfinite_steps: {rolled} of "
@@ -378,7 +609,8 @@ class Executor:
                     f"the usual suspects.",
                     var_name=name, count=int(viols[first]))
         if return_numpy:
-            return [_to_numpy(f) for f in fetches]
+            fetches = [_to_numpy(f) for f in fetches]
+        self._drain_utilization()
         return fetches
 
     def close(self):

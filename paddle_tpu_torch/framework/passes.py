@@ -29,16 +29,19 @@ issue the same collectives in the same order. Under
 ``FLAGS_verify_passes`` every pass's output is translation-validated
 (``analysis.PipelineValidator``): a pass that drops a live random
 stream, side effect or persistable write, or leaves a malformed program,
-raises ``analysis.ProgramVerifyError`` naming the pass. Not ported: the
-passes ``hier_grad_sync`` (ROADMAP.md Queue 1 item 7b) and
-``quant_aware`` (item 10), and the profiler events and metric counters
-of each pass.
+raises ``analysis.ProgramVerifyError`` naming the pass. Each pass's wall
+time lands in the profiler as ``pass/<name>`` and in the
+``program_pass_*`` registry families. Not ported: the passes
+``hier_grad_sync`` (ROADMAP.md Queue 1 item 7b) and ``quant_aware``
+(item 10).
 """
 import time
 
 import numpy as np
 
+from .. import profiler as _prof
 from ..flags import flag as _flag
+from ..observability.metrics import default_registry as _registry
 from .analysis import has_sub_block as _has_sub_block
 from .core import OP_ROLE_KEY
 from .core import Operator as _Operator
@@ -141,6 +144,18 @@ def canonical_order(names):
 
 _last_stats = {"passes": [], "total_ms": 0.0, "verify_ms": 0.0}
 
+# cumulative per-pass telemetry (stats() stays "the LAST run")
+_M_PASS_RUNS = _registry().counter(
+    "program_pass_runs_total", "pipeline pass applications",
+    labels=("pass",), max_series=32)
+_M_PASS_MS = _registry().counter(
+    "program_pass_ms_total", "wall ms spent inside each pass",
+    labels=("pass",), max_series=32)
+_M_PASS_OPS_REMOVED = _registry().counter(
+    "program_pass_ops_removed_total",
+    "ops removed by each pass (net, clamped at 0 per run)",
+    labels=("pass",), max_series=32)
+
 
 def stats():
     """Report of the LAST apply_passes run: per pass {pass, ops_before,
@@ -181,7 +196,8 @@ def apply_passes(program, names, _validate=None, **common_attrs):
     names or Pass instances; a set is put in :func:`canonical_order`
     first. An unknown name raises
     :class:`UnknownPassError`. Per-pass op and byte counts and wall
-    time land in :func:`stats`. ``_validate`` (an
+    time land in :func:`stats`, the profiler (``pass/<name>``) and the
+    ``program_pass_*`` registry families. ``_validate`` (an
     ``analysis.PipelineValidator``) checks each pass's output and adds
     its time to the pass's row as ``verify_ms``."""
     if isinstance(names, (set, frozenset)):
@@ -208,6 +224,10 @@ def apply_passes(program, names, _validate=None, **common_attrs):
             _validate.after_pass(program, pname)
             row["verify_ms"] = _validate.last_pass_ms
         rows.append(row)
+        _prof.record_duration(f"pass/{pname}", dt)
+        _M_PASS_RUNS.inc(labels=(pname,))
+        _M_PASS_MS.inc(dt * 1e3, labels=(pname,))
+        _M_PASS_OPS_REMOVED.inc(max(ops - ops_after, 0), labels=(pname,))
         ops, nbytes = ops_after, bytes_after
     _last_stats["passes"] = rows
     _last_stats["total_ms"] = (time.perf_counter() - t_pipeline) * 1e3

@@ -21,6 +21,15 @@ graphs stay valid; :meth:`GPTGenerator.release` frees them. The verify
 and chunked-prefill steps run eagerly. ``generate_naive`` recomputes the
 whole forward for every token (the reference of the KV-cached path).
 
+Telemetry: every prefill, decode and verify step is attached to its cost
+(``observability.utilization.gpt_step_cost``) for the ``prefill`` and
+``decode`` utilization gauges: a decode step by its host interval (the
+step reads its tokens back, so the host has waited for the card), a
+prefill by a pair of CUDA events read once complete. Stage times go to
+the ``stats`` sink when one is attached, else to the profiler as
+``decode/<stage>`` while it is active, and a decode graph's capture as
+``decode/compile_<kind>``.
+
     gen = GPTGenerator(cfg, params, max_len=512)           # on the GPU
     outs = gen.generate([prompt_ids], max_new_tokens=64, paged=True)
 """
@@ -30,8 +39,10 @@ import time
 import numpy as np
 import torch
 
+from .. import profiler as _prof
 from ..device import resolve_device
 from ..flags import flag
+from ..observability import utilization as _util
 from ..ops.decode_ops import all_greedy, sample_tokens, spec_accept
 from ..serving.batching import next_bucket
 from .gpt import GPT
@@ -151,6 +162,7 @@ class GPTGenerator:
         self._banks = {}
         self._drafters = {}
         self._decoder = None
+        self._timer = _util.ExecutionTimer()
 
     @property
     def decoder(self):
@@ -184,15 +196,47 @@ class GPTGenerator:
 
     # -- stage runners ----------------------------------------------------
     @contextlib.contextmanager
-    def _stage(self, stage):
-        if self.stats is None:
-            yield
-            return
+    def _stage(self, stage, cost=None, synced=False):
+        """Times one stage. ``cost``: the step's ``{"flops", "bytes"}``
+        for the ``stage`` utilization gauge, timed by the host interval
+        when the body ends with the host waiting for the card
+        (``synced``), else by a CUDA event pair read once complete. The
+        stage's time goes to the stats sink (synchronizing first), or to
+        the profiler while it is active. The body may put host seconds
+        that were no execution (a graph capture) into the yielded dict's
+        ``"excluded"``: a synced stage leaves them out of both times, as
+        the JAX package leaves compile time out."""
+        timed = self.stats is not None or _prof.is_profiling()
+        start = self._timer.begin(self.device) \
+            if cost and not synced else None
         t0 = time.perf_counter()
-        yield
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.stats.hist[stage].observe(time.perf_counter() - t0)
+        body = {"excluded": 0.0}
+        yield body
+        if cost and synced:
+            _util.observe_execution(
+                stage, cost, time.perf_counter() - t0 - body["excluded"])
+        if start is not None:
+            self._timer.end(start, (stage, cost))
+        if timed:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            dt = time.perf_counter() - t0 - body["excluded"]
+            if self.stats is not None:
+                self.stats.hist[stage].observe(dt)
+            else:
+                _prof.record_duration(f"decode/{stage}", dt)
+        for seconds, (where, c) in self._timer.poll():
+            _util.observe_execution(where, c, seconds)
+
+    def _step_cost(self, ctx_lens, new_tokens=1, logits_per_row=1, kv=None):
+        """:func:`~paddle_tpu_torch.observability.utilization.gpt_step_cost`
+        of this model over ``kv`` (a pool prices its element type)."""
+        kv_bytes = {"fp32": 4, "bf16": 2, "int8": 1}.get(
+            getattr(kv, "dtype", "fp32"), 4)
+        return _util.gpt_step_cost(
+            self.cfg, ctx_lens, new_tokens=new_tokens,
+            logits_per_row=logits_per_row, kv_itemsize=kv_bytes,
+            param_itemsize=self.model.param("word_embedding").element_size())
 
     def _dev(self, a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
@@ -206,14 +250,16 @@ class GPTGenerator:
 
     def run_prefill(self, tokens, pos_ids, last_pos):
         """Packed prompts (numpy) -> ``(logits, ks, vs)`` on the device."""
-        with self._stage("prefill"):
+        bb, s = np.shape(tokens)
+        with self._stage("prefill", self._step_cost(np.zeros(bb), s)):
             return self.model.prefill(self._dev(tokens), self._dev(pos_ids),
                                       self._dev(last_pos))
 
     def run_logits(self, tokens, pos_ids, last_pos):
         """The full forward without a cache (``gpt_logits``): logits
         ``[B, V]`` at each row's ``last_pos``."""
-        with self._stage("prefill"):
+        bb, s = np.shape(tokens)
+        with self._stage("prefill", self._step_cost(np.zeros(bb), s)):
             return self.model.logits(self._dev(tokens), self._dev(pos_ids),
                                      self._dev(last_pos))
 
@@ -223,9 +269,20 @@ class GPTGenerator:
         ``(cache_k, cache_v)`` or a ``KVBlockPool``) through ``decoder``
         (default :attr:`decoder`): np.int32 tokens. ``live`` (bool per
         row, None: all) limits a pool's writes to those rows' blocks."""
-        with self._stage("decode"):
-            return (decoder or self.decoder).run(token, pos, temperature,
-                                                 top_k, kv, live=live)
+        decoder = decoder or self.decoder
+        captures, capture_s = decoder.captures, decoder.capture_s
+        with self._stage("decode", self._step_cost(pos, 1, kv=kv),
+                         synced=True) as body:
+            toks = decoder.run(token, pos, temperature, top_k, kv,
+                               live=live)
+            body["excluded"] = decoder.capture_s - capture_s
+        if decoder.captures != captures:
+            kind = "decode" if isinstance(kv, tuple) else "decode_paged"
+            _prof.record_duration(f"decode/compile_{kind}", body["excluded"])
+            if self.stats is not None:
+                self.stats.bump("compiles")
+                self.stats.hist["compile"].observe(body["excluded"])
+        return toks
 
     def _decode_logits(self, token, pos, kv):
         rows = int(np.shape(token)[0])
@@ -249,7 +306,8 @@ class GPTGenerator:
         picks the pool slots whose tables line up with the token rows
         (None: every slot). Logits ``[B, V]`` at ``last_idx``."""
         tables = pool.device_tables(rows)
-        with self._stage("prefill"):
+        cost = self._step_cost(start_pos, np.shape(tokens)[1], kv=pool)
+        with self._stage("prefill", cost):
             return self.model.prefill_chunk_paged(
                 self._dev(tokens), self._dev(pos_ids), self._dev(start_pos),
                 self._dev(limit), self._dev(last_idx), tables, pool.layers())
@@ -257,7 +315,8 @@ class GPTGenerator:
     def run_verify(self, tokens, pos, pos_ids, cache_k, cache_v):
         """One speculative verify step over the dense bank: span logits
         ``[B, S, V]``."""
-        with self._stage("decode"):
+        S = np.shape(tokens)[1]
+        with self._stage("decode", self._step_cost(pos, S, S)):
             return self.model.verify_step(self._dev(tokens), self._dev(pos),
                                           self._dev(pos_ids), cache_k,
                                           cache_v)
@@ -267,7 +326,9 @@ class GPTGenerator:
         """One speculative verify step over the block pool (``limit``: each
         row's real span): span logits ``[B, S, V]``."""
         tables = pool.device_tables(rows)
-        with self._stage("decode"):
+        S = np.shape(tokens)[1]
+        with self._stage("decode",
+                         self._step_cost(start_pos, S, S, kv=pool)):
             return self.model.verify_step_paged(
                 self._dev(tokens), self._dev(pos_ids), self._dev(start_pos),
                 self._dev(limit), tables, pool.layers())

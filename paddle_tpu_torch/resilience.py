@@ -5,15 +5,23 @@ A trimmed copy of ``paddle_tpu/resilience.py``: the two errors that
 the training loop's ``PreemptedError`` and ``RestartBudgetExceeded``
 (``:144-192``), and fault injection (``FaultInjected``, ``maybe_fail``,
 ``fault_injection``, ``clear_faults``, ``:637-684``), which tests use
-to break ``io.CheckpointSaver``'s commit (``"io.commit"``). The metrics
-registry and flight recorder that the JAX package's faults report to,
-retry budgets, the chaos harness and the circuit breaker are not
-ported.
+to break ``io.CheckpointSaver``'s commit (``"io.commit"``). A fault that
+fires is reported as the JAX package's chaos harness reports its
+firings: a ``chaos`` flight-recorder event naming the point and
+``chaos_faults_fired_total{point}``. Retry budgets, the chaos harness
+itself and the circuit breaker are not ported.
 """
 import threading
 from contextlib import contextmanager
 
 from .framework.core import EnforceNotMet
+from .observability.metrics import default_registry as _registry
+from .observability.recorder import flight_recorder as _flightrec
+
+_CHAOS_FIRED = _registry().counter(
+    "chaos_faults_fired_total",
+    "chaos-harness faults actually injected, by armed point",
+    labels=("point",), max_series=64)
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -99,6 +107,8 @@ def maybe_fail(point, **context):
         exc = exc(point, context)
         if exc is None:
             return
+    _CHAOS_FIRED.inc(labels=(point,))
+    _flightrec().record("chaos", point=point)
     raise exc if not isinstance(exc, type) else exc(
         f"fault injected at {point}")
 

@@ -17,12 +17,25 @@ chunked prefills, drafts for speculative steps and serves prefill-only
 (KV export) and migrated (KV import) requests. The queue's priority
 eviction, the load-shed breaker, the batcher's restart and watchdog and
 the brownout ladder are not ported.
+
+Telemetry: a request keeps the trace context that was ambient when it
+was made (``observability.tracing``); the batchers record its
+``serving/queue`` span and each decode step's ``serving/decode`` span
+under it. Admission outcomes go to the flight recorder (sampled: the
+first of each outcome, then every 64th, with the running count), and
+the priority-class registry families count sheds, queue expiries and
+completions; the speculative loop exports its windowed acceptance rate.
 """
 import threading
 import time
 from collections import deque
 
 import numpy as np
+
+from ..observability import tracing as _trace
+from ..observability.recorder import flight_recorder as _flightrec
+from .metrics import (record_class_done, record_class_shed,
+                      record_expired_in_queue, record_spec_accept_ratio)
 
 
 class ServingError(RuntimeError):
@@ -77,6 +90,17 @@ def priority_rank(priority):
                          f"{PRIORITIES}") from None
 
 
+def _record_queue_span(req, now):
+    """The ``serving/queue`` span of a traced request: it ends now and
+    covers the monotonic time since enqueue, re-based onto the
+    profiler's perf_counter clock."""
+    if req.trace is None:
+        return
+    pc = time.perf_counter()
+    _trace.record_child("serving/queue", pc - (now - req.t_enqueue), pc,
+                        req.trace)
+
+
 def next_bucket(rows, min_bucket=1):
     """Smallest power-of-two >= rows (>= min_bucket): bounded padding
     waste (< 2x) and a bounded universe of shapes."""
@@ -102,6 +126,9 @@ class _Lifecycle:
         self.result = None
         self.error = None
         self._done = threading.Event()
+        # the request's trace context: the one ambient when it was made
+        # (the server's handler span); its stage spans parent here
+        self.trace = _trace.current()
 
     def expired(self, now=None):
         return self.deadline_at is not None \
@@ -219,6 +246,20 @@ class RequestQueue:
         self._items = [deque() for _ in PRIORITIES]
         self._cv = threading.Condition()
         self._closed = False
+        self._adm_lock = threading.Lock()
+        self._adm_counts = {}
+
+    def _record_admission(self, outcome, **fields):
+        """Flight-record one admission outcome, sampled per outcome (the
+        first, then every 64th, each with the running count): a shed
+        storm must not turn the ring over and evict the rare events it
+        exists to keep."""
+        with self._adm_lock:
+            n = self._adm_counts.get(outcome, 0) + 1
+            self._adm_counts[outcome] = n
+        if n == 1 or n % 64 == 0:
+            _flightrec().record("admission", outcome=outcome, n=n,
+                                **fields)
 
     def _depth_locked(self):
         return sum(len(q) for q in self._items)
@@ -231,21 +272,28 @@ class RequestQueue:
         if req.expired():
             if self.stats:
                 self.stats.bump("shed_deadline")
+            self._record_admission("shed_deadline",
+                                   deadline_ms=req.deadline_ms)
             req.expire(where="admission")
             raise req.error
         with self._cv:
             if self._closed:
                 raise ServerShutdownError("server is shutting down")
-            if self._depth_locked() >= self.max_depth:
-                if self.stats:
-                    self.stats.bump("shed_overload")
-                raise ServerOverloadedError(
-                    f"request queue at depth limit ({self.max_depth}); "
-                    f"retry with backoff")
-            self._items[req.rank].append(req)
-            self._cv.notify()
+            full = self._depth_locked() >= self.max_depth
+            if not full:
+                self._items[req.rank].append(req)
+                self._cv.notify()
+        if full:
+            if self.stats:
+                self.stats.bump("shed_overload")
+            record_class_shed(req.priority)
+            self._record_admission("shed_overload", depth=self.max_depth)
+            raise ServerOverloadedError(
+                f"request queue at depth limit ({self.max_depth}); "
+                f"retry with backoff")
         if self.stats:
             self.stats.bump("requests_admitted")
+        self._record_admission("admitted", rows=getattr(req, "rows", 1))
         return req
 
     def get(self, timeout=None):
@@ -268,6 +316,8 @@ class RequestQueue:
                     break
                 if out is not None:
                     break
+        if dead:
+            record_expired_in_queue(len(dead))
         for req in dead:
             if self.stats:
                 self.stats.bump("shed_deadline")
@@ -385,6 +435,7 @@ class MicroBatcher:
                 req.t_flush = now
                 if self.stats:
                     self.stats.hist["queue"].observe(now - req.t_enqueue)
+                _record_queue_span(req, now)
                 live.append(req)
         if not live:
             return
@@ -454,6 +505,7 @@ class DecodeBatcher:
         # (not ported): None leaves every row at the adaptive depth
         self.brownout = None
         self._accept_window = deque(maxlen=64)   # (accepted, proposed)
+        self._spec_scope = f"decode-{id(self) & 0xffffff:x}"
         self._stop = threading.Event()
         self._thread = None
         self._free = list(range(self.slots))
@@ -517,6 +569,7 @@ class DecodeBatcher:
                 self.stats.bump("requests_failed")
             return
         req.set_result([np.asarray(req.out_tokens, np.int32)])
+        record_class_done(req.priority, time.monotonic() - req.t_enqueue)
         if self.stats:
             self.stats.bump("requests_completed")
             self.stats.hist["total"].observe(
@@ -662,7 +715,10 @@ class DecodeBatcher:
             a, n = int(acc[slot]), int(nd[slot])
             accepted += a
             proposed += n
-            rejected += a < n
+            if a < n:
+                rejected += 1
+                _flightrec().record("spec_rejected", slot=slot,
+                                    proposed=n, accepted=a)
             alive = True
             for j in range(a + 1):
                 alive = self._deliver_token(req, int(out[slot, j]))
@@ -677,6 +733,11 @@ class DecodeBatcher:
             self.stats.bump("spec_drafted", proposed)
             self.stats.bump("spec_accepted", accepted)
             self.stats.bump("spec_rejected", rejected)
+        win_p = sum(p for _, p in self._accept_window)
+        if win_p:
+            record_spec_accept_ratio(
+                self._spec_scope,
+                sum(a for a, _ in self._accept_window) / win_p)
 
     # -- admission --------------------------------------------------------
     def _admit(self):
@@ -702,6 +763,7 @@ class DecodeBatcher:
                 if self.stats:
                     self.stats.bump("requests_failed")
                 continue
+            _record_queue_span(req, time.monotonic())
             take.append(req)
         if not take:
             return
@@ -795,6 +857,9 @@ class DecodeBatcher:
             widths=widths))
         if not self._active:
             return
+        # per-token spans for traced rows only (sampled at the client):
+        # untraced traffic pays one list over <= slots entries a step
+        traced = [r for r in self._active.values() if r.trace is not None]
         t0 = time.perf_counter()
         live = np.zeros((self.slots,), bool)
         live[list(self._active)] = True
@@ -812,8 +877,11 @@ class DecodeBatcher:
             for req in list(self._active.values()):
                 self._finish(req, exc)
             return
+        t1 = time.perf_counter()
+        for r in traced:
+            _trace.record_child("serving/decode", t0, t1, r.trace)
         if self.stats:
-            self.stats.hist["token"].observe(time.perf_counter() - t0)
+            self.stats.hist["token"].observe(t1 - t0)
             self.stats.observe_decode_step(len(self._active), self.slots)
         if drafts is not None:
             self._deliver_spec(out, acc, nd)

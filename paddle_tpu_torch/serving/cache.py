@@ -5,7 +5,8 @@ compiled XLA executables keyed on a feed signature; the port caches
 :class:`~paddle_tpu_torch.framework.cuda_graph.CapturedProgram` entries
 (a CUDA graph each on the GPU), capped by entry count and by bytes (each
 entry costs the graph memory pool's growth at its capture), with
-hit/miss/evict counters in ``server.stats()``. ``record`` and
+hit/miss/evict counters in ``server.stats()`` and each eviction in the
+flight recorder (an ``eviction`` event). ``record`` and
 ``load_signatures`` write and read the observed signatures, so a
 restarted server can capture yesterday's traffic before taking more.
 """
@@ -36,8 +37,18 @@ class ExecutableCache(LRUCache):
             max_entries = flag("serving_cache_entries")
         if max_bytes is None:
             max_bytes = flag("serving_cache_bytes")
+
+        def _evict_hook(key, value, _user=on_evict):
+            # every eviction lands in the flight recorder: "why did that
+            # signature capture again" is answerable
+            from ..observability.recorder import flight_recorder
+            flight_recorder().record("eviction", cache="executable",
+                                     signature=str(key)[:200])
+            if _user is not None:
+                _user(key, value)
+
         super().__init__(max_entries=max_entries, max_bytes=max_bytes,
-                         on_evict=on_evict)
+                         on_evict=_evict_hook)
 
     signature = staticmethod(feed_signature)
 

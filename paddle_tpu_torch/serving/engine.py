@@ -20,6 +20,15 @@ a ``models.generation.GPTGenerator``: a dense bank or a shared
 ``KVBlockPool``, stepped by a captured decode graph, with chunked
 prefill, the prefix cache, KV export and import and speculative steps
 (its docstring lists the calls the ``DecodeBatcher`` makes).
+
+Telemetry: a traced request's ``serving/pad``, ``serving/compile`` and
+``serving/execute`` spans (infer), ``serving/prefill``,
+``serving/prefill_chunked`` and ``serving/kv_import`` (generation); each
+executed batch feeds the ``infer`` utilization gauge with its estimated
+cost (``observability.profiling.program_cost``, once per signature) and
+its host interval (the batch's fetches are copied to the host, so the
+host has waited for the card); completions feed the priority-class
+families.
 """
 import os
 import threading
@@ -27,9 +36,13 @@ import time
 
 import numpy as np
 
+from .. import profiler as _prof
 from ..flags import flag
+from ..observability import tracing as _trace
+from ..observability import utilization as _util
 from .batching import BadRequestError, next_bucket
 from .cache import ExecutableCache, feed_signature
+from .metrics import record_class_done
 
 SIGNATURE_FILE = "_serving_signatures.json"
 
@@ -71,6 +84,8 @@ class ServingEngine:
                                               self.feed_names, scope)
         self._pool = self._stream = None      # one graph pool, one stream
         self._lock = threading.RLock()
+        from ..utils.lru import LRUCache
+        self._costs = LRUCache(max_entries=256)
         gb = program.global_block()
         # batching across requests is sound only when every feed's
         # leading dim is dynamic (-1); a static-batch model runs request
@@ -137,13 +152,35 @@ class ServingEngine:
         if self.stats:
             self.stats.bump("compiles")
             self.stats.hist["compile"].observe(dt)
+        else:
+            _prof.record_duration("serving/compile", dt)
         return entry
 
     def entry_for(self, feed):
         """The cached entry of ``feed``'s signature, captured on a miss."""
+        return self._entry_timed(feed)[0]
+
+    def _entry_timed(self, feed):
+        """(entry, capture seconds or None on a cache hit)."""
         with self._lock:
             entry = self.cache.get(feed_signature(feed))
-            return entry if entry is not None else self._compile(feed)
+            if entry is not None:
+                return entry, None
+            t0 = time.perf_counter()
+            entry = self._compile(feed)
+            return entry, time.perf_counter() - t0
+
+    def _cost(self, feed):
+        """The estimated cost of one execution at ``feed``'s signature
+        (False: nothing to count), memoized."""
+        from ..observability.profiling import program_cost
+        try:
+            return _util.cost_for(
+                self._costs, feed_signature(feed), lambda: program_cost(
+                    self._optimized,
+                    {n: tuple(a.shape) for n, a in feed.items()}))
+        except Exception:  # noqa: BLE001 — telemetry never kills a batch
+            return False
 
     def run(self, feeds):
         """One feed dict as it is (no padding, no batching across
@@ -190,14 +227,29 @@ class ServingEngine:
             return
         t0 = time.perf_counter()
         feed, total, bucket = self.pad_batch(live)
+        t_pad = time.perf_counter() - t0
         if self.stats:
-            self.stats.hist["pad"].observe(time.perf_counter() - t0)
+            self.stats.hist["pad"].observe(t_pad)
+        traced = [r for r in live if r.trace is not None]
+        for req in traced:
+            _trace.record_child("serving/pad", t0, t0 + t_pad, req.trace)
+        cost = self._cost(feed)
         with self._lock:
-            entry = self.entry_for(feed)
+            entry, compile_s = self._entry_timed(feed)
             t1 = time.perf_counter()
             outs = entry.run(feed)
+            t_exec = time.perf_counter() - t1
+        if compile_s is not None:
+            for req in traced:
+                _trace.record_child("serving/compile", t1 - compile_s, t1,
+                                    req.trace)
+        for req in traced:
+            _trace.record_child("serving/execute", t1, t1 + t_exec,
+                                req.trace)
+        if cost:
+            _util.observe_execution("infer", cost, t_exec)
         if self.stats:
-            self.stats.hist["execute"].observe(time.perf_counter() - t1)
+            self.stats.hist["execute"].observe(t_exec)
             self.stats.observe_batch(total, bucket)
         off = 0
         for req in live:
@@ -212,6 +264,7 @@ class ServingEngine:
 
     def _deliver(self, req, result):
         req.set_result(result)
+        record_class_done(req.priority, time.monotonic() - req.t_enqueue)
         if self.stats:
             self.stats.bump("requests_completed")
             self.stats.hist["total"].observe(
@@ -403,6 +456,7 @@ class GenerationEngine:
         their first tokens, write their keys/values into ``slot_ids``
         (and, with the prefix cache, their blocks into the index).
         Returns the first tokens, np.int32 ``[len(requests)]``."""
+        t0 = time.perf_counter()
         n = len(requests)
         tokens, pos_ids, last = self.gen._pack_prompts(
             [req.prompt for req in requests])
@@ -439,6 +493,10 @@ class GenerationEngine:
         if self.pool is not None:
             for req, slot in zip(requests, slot_ids):
                 self.pool.prefix_insert(req.prompt, slot)
+        t1 = time.perf_counter()
+        for req in requests:
+            if req.trace is not None:
+                _trace.record_child("serving/prefill", t0, t1, req.trace)
         return toks[:n]
 
     # -- chunked (incremental) prefill ------------------------------------
@@ -467,7 +525,7 @@ class GenerationEngine:
         return {"req": req, "slot": int(slot), "prompt": prompt,
                 "next": min(reused, L - 1), "reused": reused,
                 "chunk": int(flag("prefill_chunk_tokens")),
-                "first_logits": None}
+                "first_logits": None, "t0": time.perf_counter()}
 
     def prefill_chunk(self, state):
         """Ingest ONE chunk of ``state``'s prompt into its slot (at most
@@ -506,6 +564,9 @@ class GenerationEngine:
             state["first_logits"], np.array([req.temperature], np.float32),
             np.array([req.top_k], np.int32), self._rng)
         self.pool.prefix_insert(state["prompt"], state["slot"])
+        if req.trace is not None:
+            _trace.record_child("serving/prefill_chunked", state["t0"],
+                                time.perf_counter(), req.trace)
         return int(toks[0])
 
     # -- disaggregated prefill / decode (KV migration) --------------------
@@ -527,6 +588,7 @@ class GenerationEngine:
             raise BadRequestError(
                 "KV import requires the paged pool (FLAGS_kv_paged / "
                 "paged=True) on the decode side")
+        t0 = time.perf_counter()
         imported = []
         try:
             for req, slot in zip(requests, slot_ids):
@@ -537,9 +599,12 @@ class GenerationEngine:
             for sl in imported:
                 self.pool.free_slot(sl)
             raise
+        t1 = time.perf_counter()
         first = np.asarray([int(req.first_token) for req in requests],
                            np.int32)
         for req in requests:
+            if req.trace is not None:
+                _trace.record_child("serving/kv_import", t0, t1, req.trace)
             req.kv = None               # the pool holds the blocks now
         return first
 

@@ -34,6 +34,12 @@ the decode, chunk and verify steps, :meth:`~KVBlockPool.scatter_prefill`,
 graph holds their addresses. :meth:`~KVBlockPool.drop_device` and
 :meth:`~KVBlockPool.reset` release them, and every graph over them is
 then captured anew (``framework.cuda_graph.CapturedDecode``).
+
+Telemetry: the ``kvpool_*`` registry families (occupancy, capacity and
+blocks-in-use gauges, allocator and prefix-cache counters, labeled by
+the pool's ``name``) and the ``kv_pool_exhausted``, ``kv_block_leak`` and
+``kv_prefix_evicted`` flight-recorder events, as the JAX package reports
+them.
 """
 import hashlib
 import threading
@@ -45,6 +51,8 @@ import torch
 from ..device import resolve_device
 from ..flags import flag
 from ..kernels.paged_attention import quantize_kv
+from ..observability.metrics import default_registry
+from ..observability.recorder import flight_recorder as _flightrec
 from .batching import BadRequestError, ServerOverloadedError
 
 _DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
@@ -57,6 +65,83 @@ _WIRE_NP = {"fp32": np.float32, "bf16": np.uint16, "int8": np.int8}
 # migration payload format tag (bumped on any layout change: an importer
 # never guesses at a payload written by another revision)
 KV_WIRE_FMT = "kvblocks1"
+
+# -- metrics (native families; ``pool`` label keeps a serving pool and
+#    transient offline pools from clobbering each other's gauges) --------
+
+_BLOCKS_IN_USE = default_registry().gauge(
+    "kvpool_blocks_in_use_count",
+    "KV-pool blocks currently allocated to live slots",
+    labels=("pool",), max_series=64)
+_CAPACITY = default_registry().gauge(
+    "kvpool_capacity_blocks_count",
+    "KV-pool allocatable block capacity (trash block excluded)",
+    labels=("pool",), max_series=64)
+_OCCUPANCY = default_registry().gauge(
+    "kvpool_occupancy_ratio",
+    "allocated / allocatable KV-pool blocks",
+    labels=("pool",), max_series=64)
+_SAVED = default_registry().gauge(
+    "kvpool_saved_vs_dense_bytes",
+    "device bytes a dense [slots, H, max_len, D] fp32 bank would hold "
+    "minus the pool bytes actually allocated",
+    labels=("pool",), max_series=64)
+_ALLOC_FAIL = default_registry().counter(
+    "kvpool_alloc_failures_total",
+    "block allocations refused with KVPoolExhaustedError",
+    labels=("pool",), max_series=64)
+_ALLOCATED = default_registry().counter(
+    "kvpool_blocks_allocated_total",
+    "KV-pool blocks handed out by the free-list allocator",
+    labels=("pool",), max_series=64)
+_FREED = default_registry().counter(
+    "kvpool_blocks_freed_total",
+    "KV-pool blocks returned to the free list",
+    labels=("pool",), max_series=64)
+_LEAKED = default_registry().counter(
+    "kvpool_leaked_blocks_total",
+    "blocks found still held by finished slots and reclaimed by the "
+    "leak sweep",
+    labels=("pool",), max_series=64)
+_EXPORTED = default_registry().counter(
+    "kvpool_blocks_exported_total",
+    "KV blocks serialized out of the pool for cross-replica migration",
+    labels=("pool",), max_series=64)
+_IMPORTED = default_registry().counter(
+    "kvpool_blocks_imported_total",
+    "migrated KV blocks deserialized into the pool",
+    labels=("pool",), max_series=64)
+_PREFIX_ENTRIES = default_registry().gauge(
+    "kvpool_prefix_entries_count",
+    "prompt-prefix cache entries currently indexed",
+    labels=("pool",), max_series=64)
+_PREFIX_BLOCKS = default_registry().gauge(
+    "kvpool_prefix_cached_blocks_count",
+    "KV blocks held ONLY by the prefix cache (evictable under "
+    "pressure; not counted as slot load)",
+    labels=("pool",), max_series=64)
+_PREFIX_HITS = default_registry().counter(
+    "kvpool_prefix_hits_total",
+    "prompt admissions that adopted cached prefix blocks",
+    labels=("pool",), max_series=64)
+_PREFIX_MISSES = default_registry().counter(
+    "kvpool_prefix_misses_total",
+    "prompt admissions that found no cached prefix",
+    labels=("pool",), max_series=64)
+_PREFIX_TOKENS_REUSED = default_registry().counter(
+    "kvpool_prefix_tokens_reused_total",
+    "prompt tokens whose prefill was skipped by adopting cached "
+    "prefix blocks",
+    labels=("pool",), max_series=64)
+_PREFIX_EVICTIONS = default_registry().counter(
+    "kvpool_prefix_evictions_total",
+    "prefix-cache entries evicted LRU under pool pressure",
+    labels=("pool",), max_series=64)
+_PREFIX_COW = default_registry().counter(
+    "kvpool_prefix_cow_copies_total",
+    "shared KV blocks copy-on-write duplicated before a divergent "
+    "write",
+    labels=("pool",), max_series=64)
 
 # per-pool event counters, reported by stats()
 _COUNTERS = ("prefix_hits", "prefix_misses", "prefix_tokens_reused",
@@ -157,6 +242,8 @@ class KVBlockPool:
         self.counters = dict.fromkeys(_COUNTERS, 0)
         self.tables = np.zeros((self.slots, self.blocks_per_row), np.int32)
         self._layers = None            # lazy device pool
+        with self._lock:
+            self._update_gauges_locked()
 
     # -- sizing -----------------------------------------------------------
     def blocks_for_tokens(self, ntokens):
@@ -180,8 +267,13 @@ class KVBlockPool:
             * self.d_head * 4
 
     # -- allocator --------------------------------------------------------
-    def _exhausted(self, message, needed, free):
+    def _exhausted(self, message, needed, free, slot=None):
         self.counters["alloc_failures"] += 1
+        _ALLOC_FAIL.inc(labels=(self.name,))
+        _flightrec().record(
+            "kv_pool_exhausted", pool=self.name, slot=slot,
+            needed_blocks=needed, free_blocks=free,
+            capacity_blocks=self.capacity_blocks)
         return KVPoolExhaustedError(message, needed=needed, free=free,
                                     capacity=self.capacity_blocks)
 
@@ -233,15 +325,18 @@ class KVBlockPool:
                 raise self._exhausted(
                     f"KV pool {self.name!r} exhausted: slot {slot} needs "
                     f"{add} more block(s) for {ntokens} tokens, {free} "
-                    f"free of {self.capacity_blocks}", add, free)
+                    f"free of {self.capacity_blocks}", add, free, slot)
             for j in range(have, need):
                 b = self._free.pop()
                 self._refs[b] = 1
                 self.tables[slot, j] = b
             if add > 0:
                 self._slot_nblocks[slot] = need
+                self._update_gauges_locked()
             self._slot_tokens[slot] = max(self._slot_tokens.get(slot, 0),
                                           int(ntokens))
+        if add > 0:
+            _ALLOCATED.inc(add, labels=(self.name,))
         return max(add, 0)
 
     def ensure(self, slot, pos):
@@ -261,6 +356,10 @@ class KVBlockPool:
             freed = self._release_blocks_locked(
                 int(b) for b in self.tables[slot, :n])
             self.tables[slot, :] = 0
+            if n:
+                self._update_gauges_locked()
+        if freed:
+            _FREED.inc(freed, labels=(self.name,))
         return freed
 
     def _release_blocks_locked(self, block_ids):
@@ -305,9 +404,16 @@ class KVBlockPool:
         their other owners."""
         live = {int(s) for s in live_slots}
         with self._lock:
-            leaked = [s for s, n in self._slot_nblocks.items()
+            leaked = [(s, n) for s, n in self._slot_nblocks.items()
                       if s not in live and n > 0]
-        total = sum(self.free_slot(s) for s in leaked)
+        total = 0
+        for slot, held in leaked:
+            n = self.free_slot(slot)
+            total += n
+            _LEAKED.inc(n, labels=(self.name,))
+            # shared: table entries whose blocks another owner keeps
+            _flightrec().record("kv_block_leak", pool=self.name,
+                                slot=slot, blocks=n, shared=held - n)
         self.counters["leaked_blocks"] += total
         return total
 
@@ -333,8 +439,10 @@ class KVBlockPool:
                 self._prefix.move_to_end(key)
                 e["hits"] += 1
                 self.counters["prefix_hits"] += 1
+                _PREFIX_HITS.inc(labels=(self.name,))
                 return {"key": key, "tokens": n, "blocks": list(e["blocks"])}
             self.counters["prefix_misses"] += 1
+        _PREFIX_MISSES.inc(labels=(self.name,))
         return None
 
     def adopt_prefix(self, slot, match):
@@ -355,6 +463,8 @@ class KVBlockPool:
             self._slot_nblocks[slot] = len(blocks)
             self._slot_tokens[slot] = tokens
             self.counters["prefix_tokens_reused"] += tokens
+            self._update_gauges_locked()
+        _PREFIX_TOKENS_REUSED.inc(tokens, labels=(self.name,))
         return len(blocks)
 
     def prefix_insert(self, prompt, slot):
@@ -394,6 +504,8 @@ class KVBlockPool:
                 self._prefix[key] = {"blocks": blocks, "tokens": n,
                                      "hits": 0}
                 inserted += 1
+            if inserted:
+                self._update_gauges_locked()
         return inserted
 
     def prepare_write(self, slot, start_pos, end_pos):
@@ -428,7 +540,7 @@ class KVBlockPool:
                     f"KV pool {self.name!r} cannot copy-on-write {len(js)} "
                     f"shared block(s) for slot {slot}: {len(self._free)} "
                     f"free of {self.capacity_blocks}", len(js),
-                    len(self._free))
+                    len(self._free), slot)
             for j in js:
                 b = int(self.tables[slot, j])
                 nb = self._free.pop()
@@ -437,7 +549,10 @@ class KVBlockPool:
                 self.tables[slot, j] = nb
                 copies.append((b, nb))
             self.counters["prefix_cow_copies"] += len(copies)
+            if copies:
+                self._update_gauges_locked()
         if copies:
+            _PREFIX_COW.inc(len(copies), labels=(self.name,))
             self._copy_blocks([a for a, _ in copies], [b for _, b in copies])
         return len(copies)
 
@@ -453,9 +568,17 @@ class KVBlockPool:
                     self._cache_ref.pop(b, None)
                 else:
                     self._cache_ref[b] = c
-            self._release_blocks_locked(e["blocks"])
+            freed = self._release_blocks_locked(e["blocks"])
             self.counters["prefix_evictions"] += 1
+            if freed:
+                _FREED.inc(freed, labels=(self.name,))
+            _PREFIX_EVICTIONS.inc(labels=(self.name,))
+            _flightrec().record(
+                "kv_prefix_evicted", pool=self.name, tokens=e["tokens"],
+                blocks=len(e["blocks"]), freed=freed, hits=e["hits"])
             evicted += 1
+        if evicted:
+            self._update_gauges_locked()
         return evicted
 
     def _copy_blocks(self, src_ids, dst_ids):
@@ -514,6 +637,7 @@ class KVBlockPool:
             self._prefix.clear()
             self.tables[:] = 0
             self._layers = None
+            self._update_gauges_locked()
 
     def device_tables(self, rows=None):
         """The block tables (rows ``rows``, default all) as an int32
@@ -583,6 +707,7 @@ class KVBlockPool:
                 if self.quantized:
                     payload[f"{kind}s_{i}"] = sc[idx].cpu().numpy()
         self.counters["blocks_exported"] += n
+        _EXPORTED.inc(n, labels=(self.name,))
         return payload
 
     @staticmethod
@@ -619,6 +744,7 @@ class KVBlockPool:
             self.free_slot(slot)
             raise
         self.counters["blocks_imported"] += n
+        _IMPORTED.inc(n, labels=(self.name,))
         return n
 
     def _validate_payload(self, payload):
@@ -673,6 +799,21 @@ class KVBlockPool:
         return tokens, n
 
     # -- reporting --------------------------------------------------------
+    def _update_gauges_locked(self):
+        lab = (self.name,)
+        cached = self._cached_only_locked()
+        in_use = self.capacity_blocks - len(self._free) - cached
+        _BLOCKS_IN_USE.set(in_use, labels=lab)
+        _CAPACITY.set(self.capacity_blocks, labels=lab)
+        # occupancy counts slot load only: blocks held just by the
+        # prefix cache are evictable working capital
+        _OCCUPANCY.set(in_use / self.capacity_blocks
+                       if self.capacity_blocks else 0.0, labels=lab)
+        _SAVED.set(self.slots * self.dense_slot_bytes()
+                   - (in_use + cached) * self.block_bytes(), labels=lab)
+        _PREFIX_ENTRIES.set(len(self._prefix), labels=lab)
+        _PREFIX_BLOCKS.set(cached, labels=lab)
+
     def stats(self):
         """Occupancy / fragmentation / prefix-cache snapshot (plain ints
         and floats)."""

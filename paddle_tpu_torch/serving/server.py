@@ -10,8 +10,8 @@ batches of requests grouped across clients. ``generator=`` adds the
 generation endpoint: one ``DecodeBatcher`` thread drives the decode
 bank, and the ``prefill`` op with ``generate``'s ``kv=`` split a request
 between two servers (disaggregated prefill and decode over the wire).
-Supervision, the load-shed breaker, brownout, hedging, request dedup and
-hot weight reload are not ported.
+Supervision, the load-shed breaker, brownout, hedging, request dedup,
+hot weight reload and the ``health`` and ``cancel`` ops are not ported.
 
 Wire protocol:
 
@@ -35,14 +35,35 @@ Wire protocol:
                                     |"Shutdown"|"BadRequest"|"Internal",
               "error": str}
     request  {"op": "stats"}   -> {"ok": True, "stats": {...}}
+    request  {"op": "metrics"} -> {"ok": True, "metrics": str}
+             (Prometheus text exposition of the process metrics registry)
+    request  {"op": "debug_dump", "write": bool}
+             -> {"ok": True, "events": [...], "path": str|None}
+             (the flight recorder's events; with write, also a JSON dump
+              server-side)
     request  {"op": "ping"}    -> {"ok": True}
+
+Tracing: ``infer``, ``generate``, ``prefill``, ``stats`` and ``metrics``
+requests may carry a ``"trace"`` dict (``{"tid", "sid"}``, the JAX
+package's), minted by the ``Client`` at ``FLAGS_trace_sample_rate`` or
+taken from an ambient ``tracing.span``. The client records
+``client/send``; the server records ``serving/handle`` (or
+``serving/<op>``) around the request and ``serving/reply`` around the
+reply, and the request's stages parent under the handler span. Under
+``FLAGS_slo_monitor`` ``start()`` runs the default SLO monitor
+(``observability.slo.default_server_rules``, or ``slo_rules=``).
 """
+import contextlib
 import socket
 import threading
+import time
 
 import numpy as np
 
 from ..distributed.wire import WireError, default_key, recv_frame, send_frame
+from ..observability import tracing as _trace
+from ..observability.metrics import render_metrics
+from ..observability.recorder import flight_recorder as _flightrec
 from .batching import (BadRequestError, DeadlineExceededError,
                        DecodeBatcher, GenerationRequest, InternalServerError,
                        MicroBatcher, Request, RequestQueue,
@@ -89,12 +110,14 @@ class InferenceServer:
     a socket (default loopback, OS-assigned port). Set
     ``PADDLE_PS_AUTH_KEY`` (or ``auth_key=``) on both ends to
     authenticate frames; a non-loopback bind without a key is refused
-    unless ``allow_insecure=True``."""
+    unless ``allow_insecure=True``. ``slo_rules``: the SLO monitor's
+    rules (a list, ``[]`` for none, or a callable of the server; None:
+    ``observability.slo.default_server_rules``)."""
 
     def __init__(self, model_dir=None, *, engine=None, generator=None,
                  decode_slots=None, paged=None, config=None, place=None,
                  host="127.0.0.1", port=0, auth_key=None,
-                 allow_insecure=False, **config_overrides):
+                 allow_insecure=False, slo_rules=None, **config_overrides):
         self.config = config or ServingConfig(**config_overrides)
         self.stats_sink = ServingStats()
         if engine is None and (model_dir is not None or generator is None):
@@ -133,6 +156,8 @@ class InferenceServer:
         self._threads = []
         self._conns = set()
         self._conns_lock = threading.Lock()
+        self._slo_rules = slo_rules
+        self.slo_monitor = None
 
     @property
     def endpoint(self):
@@ -172,6 +197,20 @@ class InferenceServer:
                                  name="serving-accept")
             t.start()
             self._threads.append(t)
+        from ..flags import flag
+        if flag("slo_monitor") and self.slo_monitor is None:
+            from ..observability import slo as _slo
+            if callable(self._slo_rules):
+                rules = self._slo_rules(self)
+            elif self._slo_rules is not None:
+                rules = self._slo_rules         # [] = monitor off
+            else:
+                rules = _slo.default_server_rules(self)
+            if rules:
+                scope = self.endpoint if serve_network \
+                    else f"server-{id(self) & 0xffffff:x}"
+                self.slo_monitor = _slo.SloMonitor(rules,
+                                                   scope=scope).start()
         return self
 
     def stop(self):
@@ -179,6 +218,9 @@ class InferenceServer:
         batchers (requests still batching or decoding fail typed; a batch
         inside the engine finishes), close the socket and every
         connection, and join the threads."""
+        if self.slo_monitor is not None:
+            self.slo_monitor.stop()
+            self.slo_monitor = None
         self._stop.set()
         for q in (self.queue, self.gen_queue):
             if q is not None:
@@ -299,6 +341,13 @@ class InferenceServer:
                 extra.update(self.decode_batcher.spec_snapshot())
         return self.stats_sink.snapshot(extra=extra)
 
+    def metrics(self):
+        """Prometheus text exposition of the process metrics registry
+        (serving counters and histograms, the executor cache, the pass
+        pipeline, the kvpool, the utilization gauges, the SLO rules:
+        everything that reports into ``observability.default_registry()``)."""
+        return render_metrics()
+
     # -- network front end ------------------------------------------------
     def _accept_loop(self):
         while not self._stop.is_set():
@@ -324,10 +373,17 @@ class InferenceServer:
                     msg = recv_frame(conn, self._key)
                 except (ConnectionError, OSError, WireError):
                     return      # closed, or an unauthenticated frame
+                reply = self._handle(msg)
+                tr = msg.get("trace") if isinstance(msg, dict) else None
+                t_r0 = time.perf_counter() if tr is not None else 0.0
                 try:
-                    send_frame(conn, self._handle(msg), self._key)
+                    send_frame(conn, reply, self._key)
                 except (ConnectionError, OSError):
                     return
+                if tr is not None:
+                    _trace.record_child("serving/reply", t_r0,
+                                        time.perf_counter(),
+                                        _trace.from_wire(tr))
         finally:
             with self._conns_lock:
                 self._conns.discard(conn)
@@ -343,16 +399,37 @@ class InferenceServer:
         op = msg["op"]
         if op == "ping":
             return {"ok": True}
-        if op == "stats":
-            return {"ok": True, "stats": self.stats()}
-        if op == "infer":
-            return self._handle_infer(msg)
-        if op == "generate":
-            return self._handle_generate(msg)
-        if op == "prefill":
-            return self._handle_generate(msg, export_kv=True)
-        return {"ok": False, "etype": "BadRequest",
-                "error": f"unknown op {op!r}"}
+        if op == "debug_dump":
+            return self._handle_debug_dump(msg)
+        if op not in ("stats", "metrics", "infer", "generate", "prefill"):
+            return {"ok": False, "etype": "BadRequest",
+                    "error": f"unknown op {op!r}"}
+        # the handler span is ambient for the whole body, so a request
+        # made inside parents its stage spans under it; a None parent
+        # (untraced) costs nothing
+        name = "serving/handle" if op in ("infer", "generate", "prefill") \
+            else f"serving/{op}"
+        with _trace.span(name, parent=_trace.from_wire(msg.get("trace"))):
+            if op == "stats":
+                return {"ok": True, "stats": self.stats()}
+            if op == "metrics":
+                return {"ok": True, "metrics": self.metrics()}
+            if op == "infer":
+                return self._handle_infer(msg)
+            return self._handle_generate(msg, export_kv=op == "prefill")
+
+    def _handle_debug_dump(self, msg):
+        """The flight recorder's snapshot over the wire; ``"write":
+        True`` also dumps it to a JSON file server-side and returns the
+        path."""
+        rec = _flightrec()
+        path = None
+        if msg.get("write"):
+            try:
+                path = rec.dump(reason="debug_dump wire op")
+            except OSError as e:
+                return _error_reply(e)
+        return {"ok": True, "events": rec.snapshot(), "path": path}
 
     def _handle_infer(self, msg):
         try:
@@ -429,10 +506,35 @@ _ETYPES = {etype: cls for etype, cls in _ETYPE_MAP if isinstance(cls, type)}
 _ETYPES["BadRequest"] = BadRequestError
 
 
+_ierr_lock = threading.Lock()
+_ierr_counts = {}       # exception type name -> cumulative count
+
+
+def _record_internal_error(exc):
+    """Flight-record an internal error crossing the server boundary,
+    sampled per exception type (the first, then every 64th, each with
+    the running count): an engine failing every request must not turn
+    the ring over."""
+    key = type(exc).__name__
+    with _ierr_lock:
+        n = _ierr_counts.get(key, 0) + 1
+        _ierr_counts[key] = n
+    if n == 1 or n % 64 == 0:
+        _flightrec().record("internal_error", etype=key, n=n,
+                            error=str(exc)[:200])
+
+
 def _error_reply(exc):
+    """The typed wire reply of ``exc``. An Internal error crossing the
+    server boundary is flight-recorded and triggers an automatic dump
+    (rate-limited; only with ``FLAGS_flight_recorder_dir`` set)."""
     for etype, cls in _ETYPE_MAP:
         if isinstance(exc, cls):
             return {"ok": False, "etype": etype, "error": str(exc)}
+    _record_internal_error(exc)
+    _flightrec().auto_dump(
+        f"Internal error crossed the server boundary: "
+        f"{type(exc).__name__}: {exc}")
     return {"ok": False, "etype": "Internal",
             "error": f"{type(exc).__name__}: {exc}"}
 
@@ -469,6 +571,22 @@ class Client:
         etype = _ETYPES.get(reply.get("etype"), InternalServerError)
         raise etype(reply.get("error", "serving request failed"))
 
+    @contextlib.contextmanager
+    def _traced(self, msg):
+        """Attach the sampled (``FLAGS_trace_sample_rate``) or ambient
+        trace context to an outgoing request and record the
+        ``client/send`` span around the call."""
+        ctx = _trace.maybe_trace()
+        if ctx is not None:
+            msg["trace"] = _trace.to_wire(ctx)
+        t0 = time.perf_counter() if ctx is not None else 0.0
+        try:
+            yield
+        finally:
+            if ctx is not None:
+                _trace.record_span("client/send", t0, time.perf_counter(),
+                                   ctx)
+
     def infer(self, feeds, deadline_ms=None, priority=None):
         """The fetch list (numpy arrays) of one infer request; error
         replies raise their typed exceptions."""
@@ -477,7 +595,9 @@ class Client:
                "deadline_ms": deadline_ms}
         if priority is not None:
             msg["priority"] = str(priority)
-        return [np.asarray(a) for a in self._call(msg)["fetch"]]
+        with self._traced(msg):
+            reply = self._call(msg)
+        return [np.asarray(a) for a in reply["fetch"]]
 
     def generate(self, tokens, max_new_tokens=32, temperature=0.0, top_k=0,
                  eos_id=None, deadline_ms=None, kv=None, first_token=None):
@@ -499,7 +619,9 @@ class Client:
             msg["kv"] = dict(kv)
             msg["first_token"] = int(kv["first_token"] if first_token is None
                                      else first_token)
-        return np.asarray(self._call(msg)["tokens"], dtype=np.int32)
+        with self._traced(msg):
+            reply = self._call(msg)
+        return np.asarray(reply["tokens"], dtype=np.int32)
 
     def prefill(self, tokens, max_new_tokens=32, temperature=0.0, top_k=0,
                 deadline_ms=None):
@@ -507,17 +629,34 @@ class Client:
         prefills the prompt, samples its first token and returns the KV
         payload (``first_token`` and ``prompt_tokens`` inside), ready for
         another server's :meth:`generate` ``kv=``."""
-        return self._call({
+        msg = {
             "op": "prefill",
             "tokens": np.asarray(tokens, dtype=np.int32).ravel(),
             "max_new_tokens": int(max_new_tokens),
             "temperature": float(temperature),
             "top_k": int(top_k),
             "deadline_ms": deadline_ms,
-        })["kv"]
+        }
+        with self._traced(msg):
+            return self._call(msg)["kv"]
 
     def stats(self):
-        return self._call({"op": "stats"})["stats"]
+        msg = {"op": "stats"}
+        with self._traced(msg):
+            return self._call(msg)["stats"]
+
+    def metrics(self):
+        """Prometheus text exposition of the server process's metrics
+        registry."""
+        msg = {"op": "metrics"}
+        with self._traced(msg):
+            return self._call(msg)["metrics"]
+
+    def debug_dump(self, write=False):
+        """The server's flight recorder: ``{"ok", "events", "path"}``,
+        events oldest first; ``write=True`` also dumps them to a JSON file
+        server-side (``path``)."""
+        return self._call({"op": "debug_dump", "write": bool(write)})
 
     def ping(self):
         return bool(self._call({"op": "ping"}).get("ok"))
