@@ -8,11 +8,14 @@ MultiSlotDataFeed), or whatever a ``set_line_parser`` function reads.
 Not ported, and raising ``NotImplementedError``: the native C++ feed
 (``set_use_native(True)``), ``set_pipe_command``, ``set_hdfs_config``
 and ``global_shuffle`` (fleet). One process reads every file of the
-list (the JAX package shards the list over processes).
+list (the JAX package shards the list over processes). Each collated
+batch crosses the fault point ``dataio.producer``.
 """
 import random
 
 import numpy as np
+
+from ..resilience import maybe_fail
 
 
 class PositionedBatchIterator:
@@ -129,9 +132,11 @@ class DatasetBase:
         for s in samples:
             buf.append(s)
             if len(buf) == self.batch_size:
+                maybe_fail("dataio.producer")
                 yield self._collate(names, buf)
                 buf = []
         if buf:
+            maybe_fail("dataio.producer")
             yield self._collate(names, buf)
 
     def _positioned(self, it, slab, position):

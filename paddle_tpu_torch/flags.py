@@ -11,8 +11,47 @@ import os
 _DEFS = {
     # name: (default, type)
     # -- serving front end --
-    # admission: hard pending-request cap (backpressure)
+    # admission: hard pending-request cap (backpressure) and the default
+    # per-request deadline (0 = no deadline unless the request sets one)
     "serving_queue_depth": (256, int),
+    "serving_default_deadline_ms": (0.0, float),
+    # load-shed breaker: consecutive queue-full refusals that open it,
+    # and how long it sheds before re-probing
+    "serving_shed_failures": (8, int),
+    "serving_shed_reset_secs": (0.5, float),
+    # -- serving resilience --
+    # wall-clock budget per batcher execute / decode step (run on a
+    # resilience.WatchdogWorker, so a hung card call fails that
+    # batch's clients instead of wedging the loop) and the supervisor's
+    # stale-heartbeat threshold (twice this). Must exceed the worst-case
+    # first-shape capture; 0 disables the watchdog and the hang detector
+    "serving_loop_watchdog_s": (60.0, float),
+    # client-side hedged requests: hedge `infer` after this many ms
+    # without a reply (the observed p99 once the client has seen enough
+    # traffic; this flag is the cold-start delay). 0 = hedging off
+    "serving_hedge_ms": (0.0, float),
+    # default seed of resilience.chaos() fault-point streams
+    "chaos_seed": (0, int),
+    # brownout degradation ladder: a breached-SLO server degrades
+    # best-effort, then batch traffic (shed, capped max_new_tokens,
+    # shrunken admission) before interactive traffic, and recovers
+    # symmetrically as breaches clear
+    "serving_brownout": (True, bool),
+    # -- retries (resilience.retry_call, RetryBudget) --
+    # the retry deadline in SECONDS, extra attempts, first backoff, and
+    # the circuit breaker's failure threshold and reset
+    "rpc_deadline": (150.0, float),
+    "rpc_retry_times": (3, int),
+    "rpc_retry_base_backoff": (0.05, float),
+    "rpc_circuit_break_failures": (3, int),
+    "rpc_circuit_reset_secs": (5.0, float),
+    # process-global retry budget: every initial request deposits this
+    # many retry tokens and every retry, hedge or reconnect withdraws
+    # one, so retrying is bounded at ~ratio x the offered load and a
+    # saturated process sheds instead of amplifying itself. A small
+    # time-based reserve keeps isolated failures retryable. < 0
+    # disables the budget
+    "retry_budget_ratio": (0.1, float),
     # -- training loop --
     # scan fetched outputs and updated state for nan/inf after each step
     # and raise NonFiniteError (Executor.run / run_steps default)
@@ -22,6 +61,24 @@ _DEFS = {
     # train_from_dataset's fused path: fetch on every N-th slab only
     # (and on print_period slabs and the last)
     "fetch_every_n": (1, int),
+    # -- elastic training (train.TrainingSupervisor) --
+    # one async full-training-state checkpoint every N slabs
+    "checkpoint_every_n_slabs": (16, int),
+    # wall-clock budget of the preemption fast checkpoint; a save that
+    # misses it is abandoned and the previous verified checkpoint
+    # stands. 0 = no bound
+    "preempt_deadline_s": (30.0, float),
+    # supervised restarts (crash or hang -> reload the newest checkpoint
+    # with capped backoff) before RestartBudgetExceeded
+    "train_restart_budget": (3, int),
+    # model-health monitoring: every N-th supervised slab also fetches
+    # the loss, the global grad norm and the update ratio in-graph and
+    # evaluates the spike rules; 0 = off (no ops added)
+    "train_health_every_n": (0, int),
+    # spike rules: breach when the value exceeds this multiple of its
+    # trailing EMA
+    "train_loss_spike_ratio": (3.0, float),
+    "train_grad_spike_ratio": (10.0, float),
     # micro-batching: a group flushes at this many rows, or when its
     # oldest request has waited batch_timeout_ms
     "serving_max_batch_size": (32, int),

@@ -54,7 +54,7 @@ from ..observability import metrics as _obs_metrics
 from ..observability import utilization as _util
 from ..observability.metrics import default_registry as _registry
 from ..observability.recorder import flight_recorder as _flightrec
-from ..resilience import NonFiniteError
+from ..resilience import NonFiniteError, maybe_fail
 from .analysis import verify_program
 from .core import CPUPlace, CUDAPlace, Variable, default_main_program
 from .dtype import torch_dtype
@@ -109,10 +109,20 @@ _registry().register_collector(
 
 
 class Scope:
-    """name -> tensor table (flat, as in the JAX package)."""
+    """name -> tensor table (flat, as in the JAX package).
+
+    A supervisor that gives up on a hung step marks its scope
+    :meth:`depose` d: a training slab that reaches dispatch afterwards
+    on it (the abandoned worker waking up) raises instead of running,
+    so it can never take the captured step's lock or write state the
+    restarted run shares with it."""
 
     def __init__(self):
         self._vars = {}
+        self.deposed = None          # the reason, once deposed
+
+    def depose(self, reason="deposed"):
+        self.deposed = str(reason)
 
     def find_var(self, name):
         return self._vars.get(name)
@@ -194,7 +204,8 @@ class Executor:
         # cache_stats() counters; the collector's closure binds this
         # dict, never the executor
         self._cstats = {"hits": 0, "misses": 0, "inserts": 0,
-                        "pass_ms": 0.0, "verify_ms": 0.0, "compiles": 0}
+                        "pass_ms": 0.0, "verify_ms": 0.0, "compiles": 0,
+                        "capture_ms": 0.0}
         # estimated step costs (False: nothing to count), the timer of
         # pending executions, the cadence of the last observation
         self._costs = LRUCache(max_entries=256)
@@ -209,8 +220,11 @@ class Executor:
         """The memo of prepared steps (``run``) and captured graphs
         (``run_steps``): ``hits``, ``misses``, ``inserts``, ``entries``,
         ``bytes`` (the captured graphs' device memory), ``compiles``
-        (captures), ``pass_ms`` (the pass pipeline on memo misses) and
-        ``verify_ms`` (``FLAGS_verify_passes``)."""
+        (captures), ``pass_ms`` (the pass pipeline on memo misses),
+        ``verify_ms`` (``FLAGS_verify_passes``) and ``capture_ms`` (the
+        making of ``run_steps``' captured steps: on the GPU the warm-up
+        and the graph capture, where the JAX package traces and
+        compiles)."""
         out = dict(self._cstats)
         out["entries"] = len(self._steps) + len(self._graphs)
         out["bytes"] = sum(int(getattr(g, "nbytes", 0) or 0)
@@ -353,11 +367,7 @@ class Executor:
         return opt
 
     def _feed_tensor(self, block, name, val):
-        var = block.vars.get(name)
-        t = val if isinstance(val, torch.Tensor) \
-            else torch.from_numpy(np.ascontiguousarray(val))
-        dt = torch_dtype(var.dtype) if var is not None else t.dtype
-        return t.to(device=self.device, dtype=dt)
+        return _stage_feed(block, name, val, self.device)
 
     @staticmethod
     def _feed_dict(feed):
@@ -557,14 +567,24 @@ class Executor:
             self._cstats["hits" if entry is not None else "misses"] += 1
         if entry is None:
             from ..kernels import COUNTED
+            t_cap = time.perf_counter()
             entry = CapturedStep(step, slab, scope, self.device, guard=guard,
                                  skip=skip, counters=COUNTED)
+            self._cstats["capture_ms"] += (time.perf_counter() - t_cap) * 1e3
             self._cstats["compiles"] += 1
             if use_program_cache:
                 self._graphs[key] = entry
                 self._cstats["inserts"] += 1
         cost_key, cost = self._step_cost(
             step, {n: tuple(t.shape[1:]) for n, t in slab.items()}, k_steps)
+        # the training dispatch's fault point: before the captured
+        # entry's lock, so a stall here (a hung step) never holds the
+        # entry against the supervisor's restarted attempt; a scope
+        # deposed meanwhile refuses the slab
+        maybe_fail("train.dispatch")
+        if scope.deposed is not None:
+            raise RuntimeError(f"the scope was deposed ({scope.deposed}): "
+                               f"this slab was abandoned and does not run")
         profiling = _prof.is_profiling()
         start = self._timer.begin(self.device)
         t0 = time.perf_counter()
@@ -817,6 +837,27 @@ class Step:
             counts = self.agree(nonfinite_counts(
                 fetches + list(new.values()), device))
         return fetches, new, counts
+
+
+def device_put_slab(slab, program, device):
+    """A host feed slab (``{name: array [K, ...]}``) as tensors on
+    ``device``, each in its program var's dtype, as ``run_steps`` would
+    stage it: the training loop's prefetch of the next slab (fault point
+    ``train.h2d``)."""
+    maybe_fail("train.h2d")
+    block = program.global_block()
+    return {name: _stage_feed(block, name, val, device)
+            for name, val in slab.items()}
+
+
+def _stage_feed(block, name, val, device):
+    """One fed value (array or tensor) on ``device`` in its program
+    var's dtype (its own dtype when ``block`` has no such var)."""
+    var = block.vars.get(name)
+    t = val if isinstance(val, torch.Tensor) \
+        else torch.from_numpy(np.ascontiguousarray(val))
+    dt = torch_dtype(var.dtype) if var is not None else t.dtype
+    return t.to(device=device, dtype=dt)
 
 
 def _stack_feed_slab(feeds):

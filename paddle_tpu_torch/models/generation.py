@@ -180,6 +180,24 @@ class GPTGenerator:
         return CapturedDecode(self.model, self.device, seed=seed,
                               counters=kernels.COUNTED)
 
+    def param_tensors(self):
+        """``{JAX scope name: tensor}`` of the model's parameters: the
+        tensors every decode graph and prefill reads."""
+        from .gpt import param_shapes
+        return {n: self.model.param(n) for n in param_shapes(self.cfg)}
+
+    def swap_params(self, new_params):
+        """Hot weight swap: ``new_params`` (``{name: tensor}`` on this
+        device, every parameter at its shape and dtype; a mismatch raises
+        before any copy) copied into the model's tensors in place. The
+        JAX package rebinds its parameter snapshot; here the captured
+        decode graphs read these tensors at fixed addresses, so the copy
+        is what makes every later prefill, step and replay use the new
+        weights. The copies are ordered on the device after the work
+        already issued (a step in flight finishes on the old weights)."""
+        from ..serving.engine import copy_in_place
+        copy_in_place(self.param_tensors(), new_params)
+
     def release(self):
         """Free what ``generate`` keeps between calls: its dense bank's
         and its pool's device memory and the decode graphs over them."""

@@ -12,7 +12,8 @@ and an over-count shows as ``overcount_s``). Exports:
 - a ``goodput/<category>_s`` counter track under an active profiler,
 - :meth:`GoodputLedger.report`, the structured dict.
 
-Its caller, the training supervisor, is not ported yet.
+Its caller is ``train.TrainingSupervisor``, one ledger a supervised
+run.
 """
 import threading
 import time

@@ -14,9 +14,28 @@ are admitted between steps, a row finishes on EOS, on its token budget
 or on its deadline and frees its slot at once, and rows still in flight
 when the loop stops fail with a typed error; between steps it advances
 chunked prefills, drafts for speculative steps and serves prefill-only
-(KV export) and migrated (KV import) requests. The queue's priority
-eviction, the load-shed breaker, the batcher's restart and watchdog and
-the brownout ladder are not ported.
+(KV export) and migrated (KV import) requests.
+
+Resilience: the queue's load-shed breaker (``serving_shed_*``: a run of
+queue-full refusals opens it, and while open admission refuses at
+once), the sweep of entries whose deadline passed while queued, the
+eviction of the youngest lowest-class entry to admit a higher class
+under backpressure, the brownout ladder's shrunken per-call depth cap
+and ``quiesce`` (drain: admission closed, the queue still flowing).
+Each batcher stamps a ``heartbeat`` every iteration, runs its execute or
+decode step under the watchdog (``serving_loop_watchdog_s``) on a
+long-lived ``resilience.WatchdogWorker`` thread (replaced only after a
+trip) and is restarted by ``supervise.LoopSupervisor`` when it dies or
+hangs (``restart``: the old thread deposed by an epoch bump, its
+requests failed typed). A decode step that fails otherwise than by the watchdog
+fails its rows and ends the decode loop, so the restart resets the
+engine the failure may have left in any state. A hot
+weight swap is parked on the decode loop (``request_swap``, a
+:class:`SwapHandle`): admission pauses, rows in flight finish on the old
+weights and the swap applies between steps once the bank is empty. A
+request failed from outside (``cancel``: ``RequestCancelledError``) is
+dropped by the batcher at its next step. Fault points:
+``serving.admit`` and ``serving.queue``.
 
 Telemetry: a request keeps the trace context that was ambient when it
 was made (``observability.tracing``); the batchers record its
@@ -34,8 +53,18 @@ import numpy as np
 
 from ..observability import tracing as _trace
 from ..observability.recorder import flight_recorder as _flightrec
+from ..resilience import (CircuitBreaker, CircuitOpenError, WatchdogTimeout,
+                          WatchdogWorker, maybe_fail)
 from .metrics import (record_class_done, record_class_shed,
                       record_expired_in_queue, record_spec_accept_ratio)
+
+
+def remaining_budget_ms(budget_ms, t0, now=None):
+    """The deadline budget still unspent at ``now`` in ms (<= 0: spent):
+    the one copy of the arithmetic the client's re-sends and hedges
+    share."""
+    return float(budget_ms) \
+        - ((time.monotonic() if now is None else now) - t0) * 1e3
 
 
 class ServingError(RuntimeError):
@@ -61,6 +90,12 @@ class ServerShutdownError(ServerOverloadedError):
     """The server is stopping: admission is closed and requests still
     queued or decoding are failed with this. Wire ``etype:
     "Shutdown"``."""
+
+
+class RequestCancelledError(ServingError):
+    """The request was cancelled by its client (the losing twin of a
+    hedged pair, or an abandoned call), by request id. Wire ``etype:
+    "Cancelled"``."""
 
 
 class InternalServerError(ServingError):
@@ -203,7 +238,7 @@ class GenerationRequest(_Lifecycle):
 
     def __init__(self, prompt, max_new_tokens=32, temperature=0.0, top_k=0,
                  eos_id=None, deadline_ms=None, export_kv=False, kv=None,
-                 first_token=None):
+                 first_token=None, priority=None):
         prompt = np.asarray(prompt, dtype=np.int32).ravel()
         if prompt.size < 1:
             raise ValueError("generation request has an empty prompt")
@@ -226,28 +261,39 @@ class GenerationRequest(_Lifecycle):
         self.export_kv = bool(export_kv)
         self.kv = kv
         self.first_token = None if first_token is None else int(first_token)
-        self._init_lifecycle(deadline_ms)
+        self.rows = 1
+        self._init_lifecycle(deadline_ms, priority)
 
 
 class RequestQueue:
-    """Bounded queue with admission control: ``put`` refuses in O(1) when
-    the queue is at ``max_depth`` (:class:`ServerOverloadedError`), when
-    the request's deadline already passed, or once :meth:`close` ran
+    """Bounded priority queue with admission control. ``put`` is the one
+    gate every request passes: the load-shed breaker, the deadline, the
+    depth (backpressure, the lowest class shed first), and a typed
+    refusal once :meth:`close` or :meth:`quiesce` ran
     (:class:`ServerShutdownError`). ``get`` serves the highest priority
-    class first (FIFO within a class) and skips and fails entries whose
-    deadline expired while queued."""
+    class first (FIFO within a class) and fails entries whose deadline
+    expired while queued."""
 
-    def __init__(self, max_depth=None, stats=None):
+    def __init__(self, max_depth=None, breaker=None, stats=None):
+        from ..flags import flag
         if max_depth is None:
-            from ..flags import flag
             max_depth = flag("serving_queue_depth")
         self.max_depth = int(max_depth)
         self.stats = stats
         self._items = [deque() for _ in PRIORITIES]
         self._cv = threading.Condition()
         self._closed = False
+        self._draining = False
         self._adm_lock = threading.Lock()
         self._adm_counts = {}
+        self.expired_in_queue = 0
+        self.priority_evictions = 0
+        if breaker is None:
+            breaker = CircuitBreaker(
+                endpoint="serving-admission",
+                failure_threshold=flag("serving_shed_failures"),
+                reset_timeout=flag("serving_shed_reset_secs"))
+        self.breaker = breaker
 
     def _record_admission(self, outcome, **fields):
         """Flight-record one admission outcome, sampled per outcome (the
@@ -268,29 +314,112 @@ class RequestQueue:
         with self._cv:
             return self._depth_locked()
 
-    def put(self, req):
+    def _sweep_expired_locked(self, now):
+        """Drop every queued entry whose deadline passed (and every
+        abandoned one); returns the expired ones, which the caller fails
+        outside the lock."""
+        dead = []
+        for q in self._items:
+            live = deque()
+            for req in q:
+                if req.done():
+                    continue
+                if req.expired(now):
+                    dead.append(req)
+                else:
+                    live.append(req)
+            q.clear()
+            q.extend(live)
+        return dead
+
+    def _fail_expired(self, dead):
+        if not dead:
+            return
+        self.expired_in_queue += len(dead)
+        record_expired_in_queue(len(dead))
+        for req in dead:
+            if self.stats:
+                self.stats.bump("shed_deadline")
+            req.expire(where="queue")
+
+    def put(self, req, max_depth=None):
+        """Admit ``req`` or raise :class:`ServerOverloadedError`,
+        :class:`DeadlineExceededError` or :class:`ServerShutdownError`;
+        never blocks. At a full queue the expired entries are swept out
+        first, then the youngest entry of a strictly lower class than
+        ``req``'s is evicted (typed) to admit it; only without such a
+        victim is ``req`` refused. ``max_depth`` caps the depth for this
+        one admission (the brownout ladder shrinking a degraded class):
+        a request refused by it evicts nothing and does not count
+        against the load-shed breaker."""
+        maybe_fail("serving.admit")
+        depth_cap = self.max_depth if max_depth is None \
+            else min(int(max_depth), self.max_depth)
+        try:
+            self.breaker.before_call()
+        except CircuitOpenError as e:
+            if self.stats:
+                self.stats.bump("shed_overload")
+            record_class_shed(req.priority)
+            self._record_admission("shed_breaker")
+            raise ServerOverloadedError(f"load shedding: {e}") from e
         if req.expired():
+            self.breaker.release_probe()        # not the server's fault
             if self.stats:
                 self.stats.bump("shed_deadline")
             self._record_admission("shed_deadline",
                                    deadline_ms=req.deadline_ms)
             req.expire(where="admission")
             raise req.error
+        dead, victim, genuinely_full = [], None, False
         with self._cv:
-            if self._closed:
-                raise ServerShutdownError("server is shutting down")
-            full = self._depth_locked() >= self.max_depth
-            if not full:
+            if self._closed or self._draining:
+                self.breaker.release_probe()
+                self._record_admission("shutdown")
+                raise ServerShutdownError(
+                    "server is draining: admission closed"
+                    if self._draining and not self._closed
+                    else "server is shutting down")
+            if self._depth_locked() >= depth_cap:
+                dead = self._sweep_expired_locked(time.monotonic())
+            overloaded = False
+            if self._depth_locked() >= depth_cap:
+                genuinely_full = self._depth_locked() >= self.max_depth
+                if max_depth is None and genuinely_full:
+                    # the youngest entry of the lowest populated class
+                    # strictly below req's: the least sunk cost
+                    for r in range(len(PRIORITIES) - 1, req.rank, -1):
+                        if self._items[r]:
+                            victim = self._items[r].pop()
+                            self.priority_evictions += 1
+                            break
+                overloaded = victim is None
+            if not overloaded:
                 self._items[req.rank].append(req)
                 self._cv.notify()
-        if full:
+        self._fail_expired(dead)
+        if victim is not None:
+            if self.stats:
+                self.stats.bump("shed_overload")
+            record_class_shed(victim.priority)
+            self._record_admission("shed_evicted", victim=victim.priority)
+            victim.set_error(ServerOverloadedError(
+                f"queued {victim.priority} request shed to admit "
+                f"{req.priority} traffic under backpressure: back off "
+                f"and retry"))
+        if overloaded:
+            if genuinely_full:
+                self.breaker.record_failure()
+            else:
+                self.breaker.release_probe()    # a per-call cap refused it
             if self.stats:
                 self.stats.bump("shed_overload")
             record_class_shed(req.priority)
-            self._record_admission("shed_overload", depth=self.max_depth)
+            self._record_admission("shed_overload", depth=depth_cap)
             raise ServerOverloadedError(
-                f"request queue at depth limit ({self.max_depth}); "
-                f"retry with backoff")
+                f"request queue at depth limit ({depth_cap}); retry with "
+                f"backoff")
+        self.breaker.record_success()
         if self.stats:
             self.stats.bump("requests_admitted")
         self._record_admission("admitted", rows=getattr(req, "rows", 1))
@@ -299,6 +428,7 @@ class RequestQueue:
     def get(self, timeout=None):
         """Oldest live request of the highest populated class, or None
         on timeout/close."""
+        maybe_fail("serving.queue")
         dead, out = [], None
         with self._cv:
             if not self._depth_locked() and not self._closed:
@@ -316,17 +446,19 @@ class RequestQueue:
                     break
                 if out is not None:
                     break
-        if dead:
-            record_expired_in_queue(len(dead))
-        for req in dead:
-            if self.stats:
-                self.stats.bump("shed_deadline")
-            req.expire(where="queue")
+        self._fail_expired(dead)
         return out
 
     def wake(self):
         with self._cv:
             self._cv.notify_all()
+
+    def quiesce(self):
+        """Stop admitting (``put`` raises :class:`ServerShutdownError`)
+        while what is queued still flows to the batcher: the first half
+        of ``drain``."""
+        with self._cv:
+            self._draining = True
 
     def close(self):
         """Stop admitting; fail whatever is still queued at once."""
@@ -341,17 +473,55 @@ class RequestQueue:
                 "server shut down with the request still queued"))
 
 
+class SwapHandle:
+    """A hot weight swap parked on the decode loop
+    (:meth:`DecodeBatcher.request_swap`): :meth:`wait` returns once the
+    loop applied it between steps (the admission pause in ms, also
+    ``pause_ms``) or raises its failure."""
+
+    def __init__(self, apply_fn):
+        self.apply_fn = apply_fn
+        self.requested_at = time.monotonic()
+        self.pause_ms = None
+        self.error = None
+        self._done = threading.Event()
+
+    def apply(self):
+        try:
+            self.apply_fn()
+            self.pause_ms = (time.monotonic() - self.requested_at) * 1e3
+        except Exception as exc:  # noqa: BLE001 — relayed to the waiter
+            self.error = exc
+        self._done.set()
+
+    def fail(self, exc):
+        self.error = exc
+        self._done.set()
+
+    def wait(self, timeout=None):
+        if not self._done.wait(timeout):
+            raise TimeoutError(f"weight swap not applied within {timeout}s "
+                               f"(decode rows still draining)")
+        if self.error is not None:
+            raise self.error
+        return self.pause_ms
+
+
 class MicroBatcher:
     """Pulls requests off the queue, groups them by per-example
     signature, and flushes a group to ``execute_fn(requests)`` when it
     reaches ``max_batch_size`` rows (at once) or its oldest member has
     waited ``batch_timeout_ms``. One execution thread: batches reach the
     card one after another; concurrency lives in the connection
-    threads. A request still forming a batch when the loop stops fails
-    with :class:`ServerShutdownError`."""
+    threads. An execute runs on the batcher's ``WatchdogWorker`` under
+    its watchdog (``watchdog_s``, None -> ``FLAGS_serving_loop_watchdog_s``;
+    0: none, the loop thread runs it): a hung one
+    fails its batch with :class:`~paddle_tpu_torch.resilience.
+    WatchdogTimeout` and the loop goes on. A request still forming a
+    batch when the loop stops fails with :class:`ServerShutdownError`."""
 
     def __init__(self, queue, execute_fn, max_batch_size=None,
-                 batch_timeout_ms=None, stats=None):
+                 batch_timeout_ms=None, stats=None, watchdog_s=None):
         from ..flags import flag
         self.queue = queue
         self.execute_fn = execute_fn
@@ -361,18 +531,39 @@ class MicroBatcher:
         timeout_ms = (batch_timeout_ms if batch_timeout_ms is not None
                       else flag("serving_batch_timeout_ms"))
         self.batch_timeout_s = float(timeout_ms) / 1e3
+        self.watchdog_s = float(watchdog_s if watchdog_s is not None
+                                else flag("serving_loop_watchdog_s"))
+        self._worker = WatchdogWorker("serving-execute")
         self.stats = stats
         self._stop = threading.Event()
         self._thread = None
         # sig -> {"reqs": [...], "rows": n, "flush_at": t}; the loop
         # thread owns it
         self._pending = {}
+        # supervision: the loop stamps the heartbeat every iteration; an
+        # epoch bump (restart) deposes a hung thread, which then leaves
+        # every shared structure alone
+        self.heartbeat = time.monotonic()
+        self._epoch = 0
+        self._executing = 0           # requests inside execute_fn now
+        self._ingesting = 0           # popped, not yet in _pending
+        self.consecutive_failures = 0
 
     def start(self):
+        self.heartbeat = time.monotonic()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="serving-microbatcher")
         self._thread.start()
         return self
+
+    def alive(self):
+        return self._thread is not None and self._thread.is_alive()
+
+    def inflight(self):
+        """Requests forming a batch, being ingested or inside the engine
+        (``drain`` waits for 0)."""
+        return (sum(len(ent["reqs"]) for ent in self._pending.values())
+                + self._executing + self._ingesting)
 
     def stop(self, timeout=30):
         """Stop the loop; requests still forming a batch fail typed (the
@@ -384,11 +575,25 @@ class MicroBatcher:
             self._thread.join(timeout)
             if self._thread.is_alive():
                 return
+        self._worker.close()
         self._fail_pending()
 
-    def restart(self, reason=None):
-        raise NotImplementedError("paddle_tpu_torch: supervised batcher "
-                                  "restart is not ported")
+    def restart(self, reason="supervisor restart"):
+        """Replace a dead or hung loop thread (the supervisor's call):
+        depose the old thread, fail the batches it was forming, start a
+        fresh loop."""
+        self._epoch += 1
+        err = ServingError(f"batcher loop restarted ({reason}); the "
+                           f"request was failed mid-batch")
+        for ent in self._pending.values():
+            for req in ent["reqs"]:
+                if not req.done():
+                    req.set_error(err)
+                    if self.stats:
+                        self.stats.bump("requests_failed")
+        self._pending = {}
+        self.consecutive_failures = 0
+        self.start()
 
     def _fail_pending(self):
         for ent in self._pending.values():
@@ -439,19 +644,32 @@ class MicroBatcher:
                 live.append(req)
         if not live:
             return
+        self._executing = len(live)
         try:
-            self.execute_fn(live)
+            if self.watchdog_s > 0:
+                self._worker.call(self.execute_fn, self.watchdog_s, live,
+                                  what="serving execute")
+            else:
+                self.execute_fn(live)
+            self.consecutive_failures = 0
         except Exception as exc:  # noqa: BLE001 — must reach the clients
+            self.consecutive_failures += 1
             failed = [req for req in live if not req.done()]
             for req in failed:
                 req.set_error(exc)
             if self.stats:
                 self.stats.bump("engine_failures")
+                if isinstance(exc, WatchdogTimeout):
+                    self.stats.bump("watchdog_timeouts")
                 self.stats.bump("requests_failed", len(failed))
+        finally:
+            self._executing = 0
 
     def _loop(self):
+        epoch = self._epoch
         try:
-            while not self._stop.is_set():
+            while not self._stop.is_set() and self._epoch == epoch:
+                self.heartbeat = time.monotonic()
                 now = time.monotonic()
                 if self._pending:
                     wake = min(ent["flush_at"]
@@ -460,22 +678,41 @@ class MicroBatcher:
                 else:
                     timeout = 0.1
                 req = self.queue.get(timeout=timeout)
+                if self._epoch != epoch:
+                    # deposed while blocked: the new loop owns _pending
+                    if req is not None and not req.done():
+                        req.set_error(ServingError(
+                            "batcher loop restarted; the request was "
+                            "failed mid-ingest"))
+                        if self.stats:
+                            self.stats.bump("requests_failed")
+                    return
                 if req is not None:
+                    self._ingesting = 1
                     self._admit_to_batch(req, time.monotonic())
                     # drain what is already queued before sleeping, so a
                     # burst coalesces; timed-out groups are flushed inside
                     # the drain, so a busy signature cannot starve a rare
-                    # one past its batch_timeout_ms
-                    while not self._stop.is_set():
+                    # one past its batch_timeout_ms. The heartbeat is
+                    # stamped here too: busy is not hung
+                    while not self._stop.is_set() and self._epoch == epoch:
+                        self.heartbeat = time.monotonic()
                         nxt = self.queue.get(timeout=0)
                         if nxt is None:
                             break
                         now = time.monotonic()
                         self._admit_to_batch(nxt, now)
                         self._flush_ready(now)
+                    self._ingesting = 0
+                if self._epoch != epoch:
+                    return
                 self._flush_ready(time.monotonic())
         finally:
-            self._fail_pending()
+            self._ingesting = 0
+            # a deposed thread leaves _pending to the restarted loop
+            if self._epoch == epoch and (self._stop.is_set()
+                                         or self._pending):
+                self._fail_pending()
 
 
 class DecodeBatcher:
@@ -488,22 +725,31 @@ class DecodeBatcher:
     rejection sampling). Per-row state (position, current token,
     sampling config) lives here; the KV state lives in the
     ``GenerationEngine``. Every 256 steps the pool is swept for blocks
-    held by slots no longer live."""
+    held by slots no longer live. Each step runs under the engine's
+    watchdog (``watchdog_s``, None -> ``FLAGS_serving_loop_watchdog_s``;
+    0: none): a hung step fails the bank's rows with
+    :class:`~paddle_tpu_torch.resilience.WatchdogTimeout` and the engine
+    rebuilds its bank. ``brownout`` (a ``brownout.BrownoutController``)
+    shrinks degraded classes' draft depth."""
 
     def __init__(self, queue, engine, stats=None, spec_k=None,
-                 drafter=None):
+                 drafter=None, watchdog_s=None, brownout=None):
         from ..flags import flag
         self.queue = queue
         self.engine = engine
         self.slots = engine.slots
         self.stats = stats
+        if watchdog_s is None:
+            watchdog_s = flag("serving_loop_watchdog_s")
+        self.watchdog_s = float(watchdog_s)
         if spec_k is None:
             spec_k = flag("decode_spec_k")
-        self.spec_k = int(spec_k) if engine.pool is not None else 0
+        self.spec_k = int(spec_k) \
+            if getattr(engine, "pool", None) is not None else 0
         self._drafter = drafter          # lazy: make_drafter on first use
-        # the per-priority draft-depth ladder of the brownout controller
-        # (not ported): None leaves every row at the adaptive depth
-        self.brownout = None
+        # the brownout ladder's per-class draft depth (None: every row at
+        # the adaptive depth)
+        self.brownout = brownout
         self._accept_window = deque(maxlen=64)   # (accepted, proposed)
         self._spec_scope = f"decode-{id(self) & 0xffffff:x}"
         self._stop = threading.Event()
@@ -518,13 +764,32 @@ class DecodeBatcher:
         self._pos = np.zeros((self.slots,), np.int32)
         self._temp = np.zeros((self.slots,), np.float32)
         self._topk = np.zeros((self.slots,), np.int32)
+        # supervision: the loop stamps the heartbeat every iteration; an
+        # epoch bump (restart) deposes a hung thread, which then leaves
+        # the row state alone
+        self.heartbeat = time.monotonic()
+        self._epoch = 0
+        self.consecutive_failures = 0
+        self._swap = None                       # the parked SwapHandle
+        self._swap_lock = threading.Lock()
+        self._admitting = 0     # popped from the queue, not yet in a slot
+        self._admitting_reqs = []
 
     # -- lifecycle --------------------------------------------------------
     def start(self):
+        self.heartbeat = time.monotonic()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="serving-decode-batcher")
         self._thread.start()
         return self
+
+    def alive(self):
+        return self._thread is not None and self._thread.is_alive()
+
+    def inflight(self):
+        """Rows decoding, requests popped but not yet in a slot, and rows
+        mid chunked prefill (``drain`` waits for 0)."""
+        return len(self._active) + self._admitting + len(self._prefilling)
 
     def free_slots(self):
         return len(self._free)
@@ -536,6 +801,70 @@ class DecodeBatcher:
         self.queue.wake()
         if self._thread is not None:
             self._thread.join(timeout)
+            if self._thread.is_alive():
+                return
+        stop_worker = getattr(self.engine, "stop_worker", None)
+        if stop_worker is not None:
+            stop_worker()
+
+    def restart(self, reason="supervisor restart"):
+        """Replace a dead or hung loop thread (the supervisor's call):
+        depose the old thread, fail every row in flight, reset the bank
+        (``engine.reset``: every block freed, the device pool and its
+        decode graphs released), fail a parked swap, start a fresh
+        loop."""
+        self._epoch += 1
+        err = ServingError(f"decode loop restarted ({reason}); the "
+                           f"request's decode state was lost")
+        for req in list(self._active.values()) \
+                + [st["req"] for st in self._prefilling]:
+            if not req.done():
+                req.set_error(err)
+                if self.stats:
+                    self.stats.bump("requests_failed")
+        self._active.clear()
+        self._prefilling = []
+        self._free = list(range(self.slots))
+        self._temp[:] = 0.0
+        self._topk[:] = 0
+        self._admitting = 0
+        self.engine.reset()
+        with self._swap_lock:
+            sw, self._swap = self._swap, None
+        if sw is not None:
+            sw.fail(ServingError(f"weight swap abandoned: {reason}"))
+        self.consecutive_failures = 0
+        self.start()
+
+    def request_swap(self, apply_fn):
+        """Park ``apply_fn`` (a weight swap) on the decode loop: admission
+        pauses (new requests stay queued, not failed), the rows in flight
+        finish on the old weights, and the loop applies the swap between
+        steps once the bank is empty. Returns a :class:`SwapHandle`. With
+        no loop running the swap applies at once. A swap requested while
+        another is parked fails at once (one reload at a time)."""
+        handle = SwapHandle(apply_fn)
+        with self._swap_lock:
+            if self._swap is not None:
+                handle.fail(ServingError("another weight swap is already "
+                                         "pending: one reload at a time"))
+                return handle
+            parked = self.alive()
+            if parked:
+                self._swap = handle
+        if not parked:
+            handle.apply()
+            return handle
+        self.queue.wake()
+        # the loop may have exited between the liveness check and the
+        # store (its exit fails only a swap it saw): apply it here
+        with self._swap_lock:
+            orphaned = not self.alive() and self._swap is handle
+            if orphaned:
+                self._swap = None
+        if orphaned:
+            handle.apply()
+        return handle
 
     def spec_snapshot(self):
         """The configured draft depth, the window-adapted one and the
@@ -740,9 +1069,27 @@ class DecodeBatcher:
                 sum(a for a, _ in self._accept_window) / win_p)
 
     # -- admission --------------------------------------------------------
-    def _admit(self):
-        take = []
-        while len(take) < len(self._free) and not self._stop.is_set():
+    def _admit(self, epoch):
+        try:
+            self._admit_inner(epoch)
+        except BaseException:
+            # a crash mid-collection (a queue fault on a later pop) must
+            # not drop the requests already taken off the queue
+            for req in self._admitting_reqs:
+                if not req.done():
+                    req.set_error(ServingError(
+                        "decode loop crashed during admission"))
+                    if self.stats:
+                        self.stats.bump("requests_failed")
+            raise
+        finally:
+            self._admitting_reqs = []
+            self._admitting = 0
+
+    def _admit_inner(self, epoch):
+        take = self._admitting_reqs
+        while len(take) < len(self._free) and not self._stop.is_set() \
+                and self._epoch == epoch:
             # block briefly only while the bank is idle
             timeout = 0.05 if not (self._active or self._prefilling
                                    or take) else 0
@@ -765,7 +1112,11 @@ class DecodeBatcher:
                 continue
             _record_queue_span(req, time.monotonic())
             take.append(req)
+            self._admitting = len(take)
         if not take:
+            return
+        if self._epoch != epoch:
+            self._fail_deposed(take)
             return
         fresh = [r for r in take if r.kv is None]
         imported = [r for r in take if r.kv is not None]
@@ -792,18 +1143,62 @@ class DecodeBatcher:
             try:
                 first = admit(group, slots)
             except Exception as exc:  # noqa: BLE001 — reaches the clients
-                self._free.extend(slots)
                 for req in group:
                     req.set_error(exc)
                     if self.stats:
                         self.stats.bump("requests_failed")
+                if self._epoch != epoch:
+                    # deposed: the slot bank is the restarted loop's
+                    self._fail_deposed(take)
+                    return
+                self._free.extend(slots)
+                if isinstance(exc, BadRequestError):
+                    continue        # the request's own fault, not the card's
+                self.consecutive_failures += 1
+                if self.stats:
+                    self.stats.bump("engine_failures")
+                self._fail_active_if_bank_lost(exc)
                 continue
+            if self._epoch != epoch:
+                self._fail_deposed(take)
+                return
             if admit is not self.engine.admit and self.stats:
                 self.stats.bump("kv_imports", len(group))
             for tok, req, slot in zip(first, group, slots):
                 self._join_bank(req, slot, tok)
 
-    def _advance_prefill(self):
+    def _fail_deposed(self, take):
+        """The loop was restarted while this deposed thread held requests
+        it had popped: fail each (the restarted loop never sees them)."""
+        for req in take:
+            if not req.done():
+                req.set_error(ServingError(
+                    "decode loop restarted during admission; the "
+                    "request's prefill was discarded"))
+                if self.stats:
+                    self.stats.bump("requests_failed")
+
+    def _fail_active_if_bank_lost(self, exc):
+        """After an engine failure that cost the bank (``engine.bank_lost``:
+        a watchdog trip released the pool's device arrays), the keys and
+        values of every row decoding or mid chunked prefill are gone:
+        fail those rows rather than let them run on a fresh bank."""
+        if not getattr(self.engine, "bank_lost", False):
+            return
+        err = ServingError(f"decode slot bank lost to an engine failure "
+                           f"({type(exc).__name__}: {exc}); the row's "
+                           f"cache is unrecoverable")
+        for req in list(self._active.values()):
+            self._finish(req, err)
+        for st in self._prefilling:
+            self._release(st["slot"])
+            if not st["req"].done():
+                st["req"].set_error(err)
+                if self.stats:
+                    self.stats.bump("requests_failed")
+        self._prefilling = []
+
+    def _advance_prefill(self, epoch):
         """Advance the oldest chunked prefill by one chunk (round robin);
         a finished prompt samples its first token and joins the bank."""
         if not self._prefilling:
@@ -817,12 +1212,21 @@ class DecodeBatcher:
             done = self.engine.prefill_chunk(st)
             tok = self.engine.finish_prefill(st) if done else None
         except Exception as exc:  # noqa: BLE001 — reaches the client
+            if self._epoch != epoch:
+                return          # deposed: restart() owns the row state
             self._release(slot)
             req.set_error(exc)
+            if isinstance(exc, ServerOverloadedError):
+                if self.stats:
+                    self.stats.bump("shed_overload")
+                return
+            self.consecutive_failures += 1
             if self.stats:
-                self.stats.bump("shed_overload"
-                                if isinstance(exc, ServerOverloadedError)
-                                else "requests_failed")
+                self.stats.bump("engine_failures")
+                self.stats.bump("requests_failed")
+            self._fail_active_if_bank_lost(exc)
+            return
+        if self._epoch != epoch:
             return
         if not done:
             self._prefilling.append(st)
@@ -844,9 +1248,10 @@ class DecodeBatcher:
             else:
                 self._finish(req, exc)
 
-    def _step(self):
+    def _step(self, epoch):
         """Draft (speculative rows), grow and copy-on-write the blocks the
-        step writes, run the step and deliver its tokens."""
+        step writes, run the step under the watchdog and deliver its
+        tokens."""
         drafts = nd = None
         if self.spec_k > 0:
             drafts, nd = self._propose_drafts(self.spec_k)
@@ -863,20 +1268,36 @@ class DecodeBatcher:
         t0 = time.perf_counter()
         live = np.zeros((self.slots,), bool)
         live[list(self._active)] = True
+        budget = self.watchdog_s or None
         try:
             if drafts is not None:
                 out, acc = self.engine.spec_step(
                     self._tok, self._pos, self._temp, self._topk, drafts,
-                    nd, live)
+                    nd, live, budget=budget)
             else:
                 toks = self.engine.step(self._tok, self._pos, self._temp,
-                                        self._topk, live)
+                                        self._topk, live, budget=budget)
         except Exception as exc:  # noqa: BLE001 — fail the rows
+            if self._epoch != epoch:
+                return          # deposed mid-step: restart() owns the rows
+            self.consecutive_failures += 1
             if self.stats:
                 self.stats.bump("engine_failures")
+                if isinstance(exc, WatchdogTimeout):
+                    self.stats.bump("watchdog_timeouts")
             for req in list(self._active.values()):
                 self._finish(req, exc)
+            self._fail_active_if_bank_lost(exc)
+            if not isinstance(exc, WatchdogTimeout):
+                # a step that failed otherwise than by the watchdog (which
+                # released the bank itself) leaves the bank and its graphs
+                # in a state the loop cannot vouch for: the loop ends here
+                # and the supervisor restarts it on a reset engine
+                raise
             return
+        if self._epoch != epoch:
+            return              # deposed while blocked in the step
+        self.consecutive_failures = 0
         t1 = time.perf_counter()
         for r in traced:
             _trace.record_child("serving/decode", t0, t1, r.trace)
@@ -888,7 +1309,7 @@ class DecodeBatcher:
             return
         for slot in list(self._active):
             req = self._active[slot]
-            if req.done():            # abandoned by its waiter
+            if req.done():            # abandoned or cancelled
                 self._finish(req)
                 continue
             self._pos[slot] += 1
@@ -896,15 +1317,32 @@ class DecodeBatcher:
             self._deliver_token(req, int(toks[slot]))
 
     def _loop(self):
+        epoch = self._epoch
         try:
-            while not self._stop.is_set():
-                self._admit()
+            while not self._stop.is_set() and self._epoch == epoch:
+                self.heartbeat = time.monotonic()
+                sw = self._swap
+                if sw is not None:
+                    # a parked swap stops admission so the bank drains; the
+                    # rows in flight run on the old weights
+                    if not (self._active or self._prefilling):
+                        sw.apply()
+                        with self._swap_lock:
+                            if self._swap is sw:
+                                self._swap = None
+                        continue
+                else:
+                    self._admit(epoch)
                 if not (self._active or self._prefilling):
                     continue
                 self._check_deadlines(time.monotonic())
-                self._advance_prefill()
+                self._advance_prefill(epoch)
+                if self._epoch != epoch:
+                    return
                 if self._active:
-                    self._step()
+                    self._step(epoch)
+                    if self._epoch != epoch:
+                        return
                 self._steps_since_sweep += 1
                 if self._steps_since_sweep >= 256:
                     self._steps_since_sweep = 0
@@ -912,12 +1350,22 @@ class DecodeBatcher:
                         list(self._active)
                         + [st["slot"] for st in self._prefilling])
         finally:
-            for req in list(self._active.values()):
-                self._finish(req, ServerShutdownError(
-                    "server stopped while the request was decoding"))
-            for st in self._prefilling:
-                self._release(st["slot"])
-                if not st["req"].done():
-                    st["req"].set_error(ServerShutdownError(
-                        "server stopped while the request was prefilling"))
-            self._prefilling = []
+            # a deposed thread (restart() owns the row state) touches
+            # nothing; otherwise the rows still in flight fail typed
+            if self._epoch == epoch:
+                self._admitting = 0
+                for req in list(self._active.values()):
+                    self._finish(req, ServerShutdownError(
+                        "server stopped while the request was decoding"))
+                for st in self._prefilling:
+                    self._release(st["slot"])
+                    if not st["req"].done():
+                        st["req"].set_error(ServerShutdownError(
+                            "server stopped while the request was "
+                            "prefilling"))
+                self._prefilling = []
+                with self._swap_lock:
+                    sw, self._swap = self._swap, None
+                if sw is not None:
+                    sw.fail(ServerShutdownError(
+                        "decode loop exited with the weight swap pending"))

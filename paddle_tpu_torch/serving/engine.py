@@ -12,14 +12,38 @@ CUDA graph, all of one engine's graphs in one graph memory pool; on the
 CPU the optimized program run eagerly. ``execute(requests)`` is the
 ``MicroBatcher``'s flush target: it concatenates the requests' rows,
 pads them to the power-of-two bucket, runs that bucket's entry and
-slices each request's rows back. Hot weight reload
-(``load_state_snapshot``/``swap_state``) is not ported.
+slices each request's rows back.
+
+Hot weight reload: :func:`load_param_snapshot` reads and verifies a
+``save_params``-layout checkpoint against its manifest on the host
+(every file checked, every shape and dtype the live one's) before
+anything changes. The captured graphs read the model's tensors at fixed
+addresses, so a swap is no rebind: the new values are staged on the
+device off the serving loop (``load_state_snapshot``, ``stage_params``)
+and then copied in place, one ``copy_`` a tensor, between micro-batches
+(``swap_state``, under the engine's lock) or between decode steps
+(``apply_params``, on the decode loop): a replay in flight finishes on
+the old weights and every later one reads the new.
 
 ``GenerationEngine`` owns a fixed bank of ``slots`` generation rows over
 a ``models.generation.GPTGenerator``: a dense bank or a shared
 ``KVBlockPool``, stepped by a captured decode graph, with chunked
 prefill, the prefix cache, KV export and import and speculative steps
-(its docstring lists the calls the ``DecodeBatcher`` makes).
+(its docstring lists the calls the ``DecodeBatcher`` makes). A decode
+step runs under a watchdog (``budget``) on the engine's long-lived
+``WatchdogWorker`` thread, over a view of the bank taken when the step
+is handed out (``KVBlockPool.view``: the pool's device arrays and block
+tables as they are then). A trip releases the bank (``_drop_bank``: the
+pool's device arrays and the decode graphs over them; the next
+admission builds and captures anew), keeps the released arrays alive
+until the abandoned worker ends, and flags ``bank_lost``: a step that
+wakes up late writes only into the released arrays, never the live
+bank.
+
+Fault points: ``serving.compile``, ``serving.execute`` (infer),
+``serving.prefill``, ``serving.slot_insert`` and ``serving.decode_step``
+(generation; the last inside the watchdogged step, before the decode
+graph's lock).
 
 Telemetry: a traced request's ``serving/pad``, ``serving/compile`` and
 ``serving/execute`` spans (infer), ``serving/prefill``,
@@ -30,6 +54,7 @@ its host interval (the batch's fetches are copied to the host, so the
 host has waited for the card); completions feed the priority-class
 families.
 """
+import json
 import os
 import threading
 import time
@@ -40,11 +65,86 @@ from .. import profiler as _prof
 from ..flags import flag
 from ..observability import tracing as _trace
 from ..observability import utilization as _util
-from .batching import BadRequestError, next_bucket
+from ..resilience import (CheckpointCorruptError, WatchdogTimeout,
+                          WatchdogWorker, maybe_fail)
+from .batching import BadRequestError, ServingError, next_bucket
 from .cache import ExecutableCache, feed_signature
 from .metrics import record_class_done
 
 SIGNATURE_FILE = "_serving_signatures.json"
+
+
+def load_param_snapshot(dirname, current):
+    """New values of ``current``'s tensors (``{name: tensor}``) from a
+    ``save_params``-layout checkpoint directory (one ``.npy`` a var and
+    ``_manifest.json``), as CPU tensors: the hot-reload loader. Every
+    file is checked against the manifest first, and each array must
+    match its live tensor's shape and dtype: a corrupt or incomplete
+    checkpoint raises :class:`CheckpointCorruptError`, a mismatch
+    ``ValueError``, and nothing is returned."""
+    from .. import io as fluid_io
+    manifest = fluid_io._read_manifest(dirname)
+    if manifest is None:
+        raise CheckpointCorruptError(
+            f"checkpoint dir {dirname!r} has no _manifest.json: "
+            f"reload_weights only trusts manifest-verified checkpoints "
+            f"(save with io.save_params / save_persistables)",
+            path=dirname)
+    meta = {"vars": {}}
+    meta_path = os.path.join(dirname, fluid_io._META_FILE)
+    if os.path.exists(meta_path):
+        fluid_io._verify_against_manifest(dirname, fluid_io._META_FILE,
+                                          manifest)
+        with open(meta_path) as f:
+            meta = json.load(f)
+    out, missing = {}, []
+    for name, cur in current.items():
+        rel = fluid_io._escape(name) + ".npy"
+        path = os.path.join(dirname, rel)
+        if not os.path.exists(path):
+            missing.append(name)
+            continue
+        fluid_io._verify_against_manifest(dirname, rel, manifest)
+        try:
+            arr = np.load(path, allow_pickle=False)
+        except (OSError, ValueError) as e:
+            raise CheckpointCorruptError(
+                f"checkpoint file {rel!r} in {dirname!r} is unreadable: "
+                f"{type(e).__name__}: {e}", path=path)
+        tag = meta["vars"].get(name, {}).get("dtype", str(arr.dtype))
+        t = fluid_io._restore(arr, tag, "cpu")
+        if tuple(t.shape) != tuple(cur.shape) or t.dtype != cur.dtype:
+            raise ValueError(
+                f"checkpoint param {name!r} is {tuple(t.shape)}/{t.dtype}, "
+                f"the serving snapshot holds {tuple(cur.shape)}/"
+                f"{cur.dtype}: reload_weights only swaps like-for-like "
+                f"weights")
+        out[name] = t
+    if missing:
+        raise CheckpointCorruptError(
+            f"checkpoint at {dirname!r} is missing {len(missing)} "
+            f"serving parameter(s): {', '.join(sorted(missing))}; the old "
+            f"snapshot was left untouched", path=dirname)
+    return out
+
+
+def copy_in_place(live, staged):
+    """``live[n].copy_(staged[n])`` for every name of ``live``, after
+    checking that ``staged`` holds each name at the same shape and dtype
+    (a mismatch raises before any copy)."""
+    import torch
+    missing = sorted(n for n in live if n not in staged)
+    if missing:
+        raise ValueError(f"the weight snapshot is missing {missing}")
+    for n, t in live.items():
+        new = staged[n]
+        if tuple(new.shape) != tuple(t.shape) or new.dtype != t.dtype:
+            raise ValueError(f"weight {n!r} is {tuple(new.shape)}/"
+                             f"{new.dtype}, the live one "
+                             f"{tuple(t.shape)}/{t.dtype}")
+    with torch.no_grad():
+        for n, t in live.items():
+            t.copy_(staged[n])
 
 
 class ServingEngine:
@@ -138,6 +238,7 @@ class ServingEngine:
         """Capture the program at ``feed``'s signature and cache it."""
         from .. import kernels
         from ..framework.cuda_graph import CapturedProgram
+        maybe_fail("serving.compile")
         t0 = time.perf_counter()
         if self.device.type == "cuda" and self._pool is None:
             import torch
@@ -209,6 +310,7 @@ class ServingEngine:
         """Execute a same-signature group of requests as one padded
         batch and deliver each request its rows (the MicroBatcher's
         flush target; a batch-level failure raises to it)."""
+        maybe_fail("serving.execute")
         live = [r for r in requests if not r.done()]
         if not live:
             return
@@ -270,12 +372,33 @@ class ServingEngine:
             self.stats.hist["total"].observe(
                 time.monotonic() - req.t_enqueue)
 
-    def load_state_snapshot(self, dirname):
-        raise NotImplementedError("paddle_tpu_torch: hot weight reload "
-                                  "(load_state_snapshot/swap_state) is not "
-                                  "ported")
+    def state_tensors(self):
+        """``{name: tensor}`` of the scope state the optimized program
+        reads: what every captured program holds the addresses of."""
+        from ..framework.lowering import analyze_block_io
+        reads, _ = analyze_block_io(self._optimized, 0, self.feed_names)
+        out = {}
+        for n in sorted(reads):
+            val = self.scope.find_var(n)
+            if hasattr(val, "copy_"):
+                out[n] = val
+        return out
 
-    swap_state = load_state_snapshot
+    def load_state_snapshot(self, dirname):
+        """Verified new values of every model state tensor from a
+        manifest-carrying checkpoint directory, staged on the device.
+        Raises (``CheckpointCorruptError``, ``ValueError``) with the live
+        weights untouched; the result is for :meth:`swap_state`."""
+        host = load_param_snapshot(dirname, self.state_tensors())
+        return {n: t.to(self.device) for n, t in host.items()}
+
+    def swap_state(self, new_state):
+        """Copy a staged snapshot into the live state tensors in place,
+        between micro-batches (under the engine's lock: a batch in flight
+        finishes on the old weights, every later replay reads the
+        new)."""
+        with self._lock:
+            copy_in_place(self.state_tensors(), new_state)
 
     # -- warmup -----------------------------------------------------------
     def feed_specs(self, batch_size=None):
@@ -362,7 +485,11 @@ class GenerationEngine:
       could not grow;
     - ``step``: one decode + sample over the whole bank; ``spec_step``:
       one speculative verify + acceptance (paged only);
-    - ``release_slot``/``reclaim_leaks``: blocks back to the pool.
+    - ``release_slot``/``reclaim_leaks``: blocks back to the pool;
+    - ``reset``: a restarted loop's empty bank (every block freed, the
+      device pool and the decode graphs released);
+    - ``load_param_snapshot``/``stage_params`` off the loop, then
+      ``apply_params`` between steps: the hot reload.
     """
 
     def __init__(self, generator, *, slots=None, stats=None, seed=0,
@@ -387,8 +514,14 @@ class GenerationEngine:
                 max_seq_len=self.max_len, block_size=kv_block_size,
                 num_blocks=kv_pool_blocks, dtype=kv_dtype, name=pool_name,
                 prefix_cache=prefix_cache, device=generator.device)
+        self._seed = int(seed)
         self.decoder = generator.new_decoder(seed)
         self._rng = self.decoder.generator
+        self.bank_lost = False          # see _drop_bank
+        self._bank_epoch = 0
+        self._worker = WatchdogWorker("serving-decode-step")
+        # (abandoned worker, released arrays) until that worker ends
+        self._deposed = []
 
     def _kv(self):
         if self.pool is not None:
@@ -396,6 +529,53 @@ class GenerationEngine:
         if self._caches is None:
             self._caches = self.gen.new_dense_caches(self.slots)
         return self._caches
+
+    def _bank(self):
+        """The bank as one step sees it: a view of the pool fixed when
+        the step is handed out (``KVBlockPool.view``), or the dense
+        bank's tensors."""
+        return self.pool.view() if self.pool is not None else self._kv()
+
+    def stop_worker(self):
+        """Let the decode steps' worker thread exit (the decode loop
+        stopped); a later step starts a fresh one."""
+        self._worker.close()
+
+    def _release_bank(self):
+        """Release the bank's device memory and the decode graphs over
+        it. The decoder is replaced, not cleared: a step abandoned by the
+        watchdog may still hold the old one's lock, and it steps over its
+        own view of the old arrays, so whatever it writes late lands
+        there."""
+        self._bank_epoch += 1
+        self._caches = None
+        self.decoder = self.gen.new_decoder(self._seed)
+        self._rng = self.decoder.generator
+
+    def _drop_bank(self, worker=None):
+        """After a watchdog trip the step's ``worker`` thread may still
+        run: release the bank (the pool's device arrays; its host block
+        accounting stays, and the failed rows return their blocks as
+        they finish) and flag the loss, so the batcher fails every row
+        whose keys and values were in it. The released arrays stay
+        referenced until ``worker`` ends, so the allocator cannot hand
+        their memory to the bank built next while a late write may still
+        land in it."""
+        released = (self.pool.drop_device() if self.pool is not None
+                    else None, self._caches)
+        if worker is not None and worker.is_alive():
+            self._deposed.append((worker, released))
+        self._release_bank()
+        self.bank_lost = True
+
+    def reset(self):
+        """Forget the bank without flagging a loss: a restarted decode
+        loop starts from an empty one (its rows were already failed).
+        Every block of the pool is freed too."""
+        if self.pool is not None:
+            self.pool.reset()
+        self._release_bank()
+        self.bank_lost = False
 
     # -- admission / lifecycle --------------------------------------------
     def admission_check(self, prompt_len, max_new_tokens, pending_tokens=(),
@@ -456,6 +636,8 @@ class GenerationEngine:
         their first tokens, write their keys/values into ``slot_ids``
         (and, with the prefix cache, their blocks into the index).
         Returns the first tokens, np.int32 ``[len(requests)]``."""
+        maybe_fail("serving.prefill")
+        self.bank_lost = False
         t0 = time.perf_counter()
         n = len(requests)
         tokens, pos_ids, last = self.gen._pack_prompts(
@@ -480,6 +662,7 @@ class GenerationEngine:
         try:
             logits, ks, vs = self.gen.run_prefill(tokens, pos_ids, last)
             toks = self.gen.run_sample(logits, temp, topk, self._rng)
+            maybe_fail("serving.slot_insert")
             if self.pool is not None:
                 self.pool.scatter_prefill(list(slot_ids), ks, vs, s)
             else:
@@ -516,6 +699,7 @@ class GenerationEngine:
         chunk: its logits are the first token's distribution."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         L = int(prompt.size)
+        self.bank_lost = False
         self.pool.free_slot(slot)
         reused = 0
         m = self.pool.match_prefix(prompt)
@@ -608,25 +792,72 @@ class GenerationEngine:
             req.kv = None               # the pool holds the blocks now
         return first
 
+    # -- hot weight reload ------------------------------------------------
+    def load_param_snapshot(self, dirname):
+        """Verified new host values (CPU tensors) of every generator
+        parameter; raises with the live weights untouched."""
+        return load_param_snapshot(dirname, self.gen.param_tensors())
+
+    def stage_params(self, host_params):
+        """The verified values on the device, off the decode loop, so the
+        swap itself is device copies only."""
+        return {n: t.to(self.gen.device) for n, t in host_params.items()}
+
+    def apply_params(self, device_params):
+        """The swap: the staged values copied into the model's tensors in
+        place (``GPTGenerator.swap_params``). Run on the decode loop
+        between steps (``DecodeBatcher.request_swap``), so rows in
+        flight finish on the old weights."""
+        self.gen.swap_params(device_params)
+
     # -- steps ------------------------------------------------------------
-    def step(self, tokens, pos, temperature, top_k, live=None):
+    def _watched(self, fn, budget, what):
+        """``fn`` (the step) under the watchdog: the fault point
+        ``serving.decode_step`` fires first, on the worker, before the
+        decode graph's lock; a step reached after the bank was released
+        does not run. A trip releases the bank and raises
+        ``WatchdogTimeout``."""
+        bank = self._bank_epoch
+        if self._deposed:
+            self._deposed = [d for d in self._deposed if d[0].is_alive()]
+
+        def _work():
+            maybe_fail("serving.decode_step")
+            if self._bank_epoch != bank:
+                raise ServingError("the decode bank was released while "
+                                   "this step waited; it does not run")
+            return fn()
+
+        if not budget:
+            return _work()
+        try:
+            return self._worker.call(_work, budget, what=what)
+        except WatchdogTimeout as exc:
+            self._drop_bank(getattr(exc, "thread", None))
+            raise
+
+    def step(self, tokens, pos, temperature, top_k, live=None, budget=None):
         """One decode + sample over the whole bank (a graph replay on the
         GPU). Arrays of length ``slots``; ``live`` (bool ``[slots]``,
         None: all) marks the decoding slots. The others carry stale
         values whose tokens nobody reads; in the pool their writes go to
         the trash block, since a slot mid chunked prefill already owns
         the blocks its stale position points into (the dense bank's
-        rows are overwritten by their next prefill). Returns np.int32
-        tokens ``[slots]``."""
-        return self.gen.decode(
-            np.ascontiguousarray(tokens, dtype=np.int32),
-            np.ascontiguousarray(pos, dtype=np.int32),
-            np.ascontiguousarray(temperature, dtype=np.float32),
-            np.ascontiguousarray(top_k, dtype=np.int32), self._kv(),
-            decoder=self.decoder, live=live)
+        rows are overwritten by their next prefill). ``budget``: the
+        watchdog's seconds (None: no watchdog). Returns np.int32 tokens
+        ``[slots]``."""
+        self.bank_lost = False
+        args = (np.ascontiguousarray(tokens, dtype=np.int32),
+                np.ascontiguousarray(pos, dtype=np.int32),
+                np.ascontiguousarray(temperature, dtype=np.float32),
+                np.ascontiguousarray(top_k, dtype=np.int32), self._bank())
+        decoder = self.decoder
+        return self._watched(
+            lambda: self.gen.decode(*args, decoder=decoder, live=live),
+            budget, "serving decode step")
 
     def spec_step(self, tokens, pos, temperature, top_k, drafts, num_draft,
-                  live):
+                  live, budget=None):
         """One speculative verify + acceptance over the whole bank (paged
         only). ``drafts`` np int32 ``[slots, K]``, ``num_draft [slots]``
         the real drafts a row (0: a plain one-token step in the same
@@ -636,6 +867,15 @@ class GenerationEngine:
         if self.pool is None:
             raise ValueError("speculative decoding requires the paged KV "
                              "pool (FLAGS_kv_paged / paged=True)")
+        self.bank_lost = False
+        bank, rng = self._bank(), self._rng
+        return self._watched(
+            lambda: self._spec_step(tokens, pos, temperature, top_k,
+                                    drafts, num_draft, live, bank, rng),
+            budget, "serving spec verify step")
+
+    def _spec_step(self, tokens, pos, temperature, top_k, drafts,
+                   num_draft, live, bank, rng):
         tok = np.ascontiguousarray(tokens, dtype=np.int32)
         posc = np.ascontiguousarray(pos, dtype=np.int32)
         drafts = np.ascontiguousarray(drafts, dtype=np.int32)
@@ -646,6 +886,6 @@ class GenerationEngine:
         limit = np.where(np.asarray(live, bool), nd + 1, 0).astype(np.int32)
         logits = self.gen.run_verify_paged(
             np.concatenate([tok[:, None], drafts], axis=1), span, posc, limit,
-            self.pool)
+            bank)
         return self.gen.run_spec_accept(logits, drafts, temperature, top_k,
-                                        nd, self._rng)
+                                        nd, rng)

@@ -149,6 +149,34 @@ _COUNTERS = ("prefix_hits", "prefix_misses", "prefix_tokens_reused",
              "blocks_exported", "blocks_imported", "alloc_failures")
 
 
+class PoolView:
+    """A :class:`KVBlockPool` fixed at one moment: :meth:`layers`,
+    :meth:`tensors`, ``tables`` and :meth:`device_tables` read the device
+    arrays and a copy of the block tables taken then; anything else is
+    the pool's. A serving step runs over one, so a step that a watchdog
+    abandoned and that wakes up after the pool was released and built
+    anew still writes the released arrays, never the new ones."""
+
+    def __init__(self, pool):
+        self._pool = pool
+        self._layers = pool.layers()
+        self.tables = pool.tables.copy()
+
+    def __getattr__(self, name):
+        return getattr(self._pool, name)
+
+    def layers(self):
+        return self._layers
+
+    def tensors(self):
+        return [t for layer in self._layers for t in layer
+                if t is not None]
+
+    def device_tables(self, rows=None):
+        t = self.tables if rows is None else self.tables[list(rows)]
+        return torch.from_numpy(np.ascontiguousarray(t)).to(self.device)
+
+
 def pool_feed_names(num_layers, quantized):
     """Feed and fetch names of the paged programs' pool tensors
     (``models.gpt.gpt_decode_step_paged`` and its siblings), in the one
@@ -619,11 +647,18 @@ class KVBlockPool:
         return [t for layer in self.layers() for t in layer
                 if t is not None]
 
+    def view(self):
+        """The pool as one decode step sees it: its device arrays and
+        block tables as they are now (:class:`PoolView`)."""
+        return PoolView(self)
+
     def drop_device(self):
         """Release the device pool; the next :meth:`layers` builds it
         anew (and every graph over the old one is captured again). Host
-        accounting is untouched."""
-        self._layers = None
+        accounting is untouched. Returns the released arrays (None if
+        none were built)."""
+        released, self._layers = self._layers, None
+        return released
 
     def reset(self):
         """Free every block, clear the prefix index and release the

@@ -224,6 +224,11 @@ _COUNTER_KEYS = (
     "kv_exports",         # prefill-only requests serialized out
     "kv_imports",         # migrated requests admitted from KV blocks
     "engine_failures",    # failed execute / decode steps
+    "watchdog_timeouts",  # executes and decode steps killed by the watchdog
+    "loop_restarts",      # supervisor-restarted loop threads
+    "weight_reloads",     # successful reload_weights swaps
+    "hedge_dedup_hits",   # hedged twins joined in flight
+    "requests_cancelled",  # cancel op (hedge losers, abandoned calls)
     # -- speculative decoding (paged verify + rejection sampling) --
     "spec_steps",         # verify steps taken (vs plain decode_steps)
     "spec_drafted",       # draft tokens proposed across all rows

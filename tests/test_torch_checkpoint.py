@@ -335,9 +335,8 @@ def test_restore_latest_skips_a_corrupt_newest(tmp_path, capsys):
         got = fresh.find_var(n)
         assert torch.equal(got, v) if isinstance(v, torch.Tensor) \
             else got == v, n
-    for name in ("TrainingSupervisor", "HealthMonitor", "SliceSupervisor",
-                 "request_preemption"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
+    for name in ("SliceSupervisor", "validate_restored_widths"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
             getattr(train, name)()
     empty = train.TrainCheckpoint(str(tmp_path / "none"))
     assert empty.restore_latest(exe, program=main) == (None, None)

@@ -385,7 +385,8 @@ def test_prune_keeps_the_served_ops_only():
 def test_unported_checkpoint_entry_points_raise(tmp_path):
     """``save_checkpoint``, ``load_checkpoint`` and ``CheckpointSaver``
     work (a round trip, every persistable bitwise, the train state and
-    the run seed back); ``train.TrainingSupervisor`` raises."""
+    the run seed back); ``train.TrainingSupervisor`` builds over a
+    checkpoint directory; ``train.SliceSupervisor`` raises."""
     main, startup, feeds, targets = M.build(T, "mlp")
     exe, scope = cpu_exe(), T.Scope()
     exe.run(startup, scope=scope)
@@ -404,8 +405,10 @@ def test_unported_checkpoint_entry_points_raise(tmp_path):
     assert [saver.save(exe, main_program=main, scope=scope)
             for _ in range(2)] == [0, 1]
     assert saver.checkpoint_numbers() == [1]
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        T.train.TrainingSupervisor(exe, main, str(tmp_path))
+    assert T.train.TrainingSupervisor(exe, main, str(tmp_path)) \
+        .checkpoint.latest_no() is None
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+        T.train.SliceSupervisor(exe, main, str(tmp_path))
 
 
 def test_missing_var_leaves_the_scope_untouched(tmp_path):

@@ -165,14 +165,12 @@ def test_latency_histogram_percentile_never_exceeds_max():
 
 
 def test_serving_stats_snapshot_keys():
-    """The stats payload is the JAX package's minus the counters of
-    features the port does not have (watchdog, loop restarts, weight
-    reloads, hedging, cancel)."""
+    """The stats payload is the JAX package's, the resilience counters
+    (watchdog, loop restarts, weight reloads, hedging, cancel)
+    included."""
     jkeys = set(__import__("paddle_tpu.serving.metrics", fromlist=["x"])
                 .ServingStats().snapshot())
-    unported = {"watchdog_timeouts", "loop_restarts", "weight_reloads",
-                "hedge_dedup_hits", "requests_cancelled"}
-    assert set(ServingStats().snapshot()) == jkeys - unported
+    assert set(ServingStats().snapshot()) == jkeys
 
 
 # --------------------------------------------------- profiler span table
@@ -490,7 +488,9 @@ def test_admission_sheds_sampled_into_flight_recorder():
     rec = flight_recorder()
     seq0 = max([e["seq"] for e in rec.snapshot()] or [0])
     shed0 = _CLASS_SHED.value(labels=("batch",))
-    q = RequestQueue(max_depth=1)
+    # a breaker that never opens: every refusal is a queue-full shed
+    q = RequestQueue(max_depth=1, breaker=T.resilience.CircuitBreaker(
+        endpoint="shed-test", failure_threshold=10**9))
     q.put(Request({"x": np.zeros((1, 2), np.float32)}, priority="batch"))
     for _ in range(130):
         with pytest.raises(T.serving.ServerOverloadedError):
@@ -598,15 +598,15 @@ SUBSYSTEMS = {
                            "executor_compile_trace_ms_total",
                            "executor_compile_xla_ms_total"},
     "framework.passes": set(),
-    "serving.metrics": {f"serving_{k}_total" for k in (
-        "watchdog_timeouts", "loop_restarts", "weight_reloads",
-        "hedge_dedup_hits", "requests_cancelled")},
+    "serving.metrics": set(),
+    "serving.brownout": set(),
     "serving.kvpool": set(),
     "serving.engine": set(), "serving.batching": set(),
     "serving.server": set(), "serving.cache": set(),
     "models.generation": set(),
-    "resilience": {"serving_retry_budget_exhausted_total",
-                   "resilience_breaker_state"},
+    "resilience": set(),
+    "train.supervisor": set(),
+    "train.health": set(),
     "observability.utilization": set(),
     "observability.recorder": set(),
     "observability.tracing": set(),

@@ -247,7 +247,13 @@ def _port_files():
 
 def test_port_imports_neither_jax_nor_paddle_tpu():
     bad = []
-    for path in _port_files():
+    files = list(_port_files())
+    # the resilience layer's modules are among those scanned
+    for mod in ("resilience.py", "serving/supervise.py",
+                "serving/brownout.py", "train/supervisor.py",
+                "train/health.py", "train/preemption.py"):
+        assert os.path.join(REPO, "paddle_tpu_torch", mod) in files, mod
+    for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), filename=path)
         for node in ast.walk(tree):
@@ -270,7 +276,12 @@ def test_import_leaves_jax_out_of_sys_modules():
             "paddle_tpu_torch.parallel, paddle_tpu_torch.distributed.launch, "
             "paddle_tpu_torch.incubate.fleet.collective, "
             "paddle_tpu_torch.dygraph.parallel, paddle_tpu_torch.nets, "
-            "paddle_tpu_torch.metrics; "
+            "paddle_tpu_torch.metrics, paddle_tpu_torch.resilience, "
+            "paddle_tpu_torch.serving.supervise, "
+            "paddle_tpu_torch.serving.brownout, paddle_tpu_torch.train, "
+            "paddle_tpu_torch.train.supervisor, "
+            "paddle_tpu_torch.train.health, "
+            "paddle_tpu_torch.train.preemption; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -27,6 +27,7 @@
   CUDA without a card; a replay adds its capture's kernel launches to
   the wrappers' counters.
 """
+import os
 import threading
 import time
 
@@ -320,12 +321,25 @@ def test_replay_adds_the_captured_launches(saved):
     assert serving.feed_signature(feed) in engine.cache
 
 
-def test_unported_serving_entry_points_raise(saved):
+def test_unported_serving_entry_points_raise(saved, tmp_path):
+    """The entry points that raised NotImplementedError before the
+    resilience layer was ported now answer: a reload from a directory
+    without a manifest and a snapshot missing a tensor raise typed
+    errors, drain() drains, and a batcher restart leaves a live loop."""
     d, _ = saved("mlp")
-    server = InferenceServer(d, place=CPU)
-    for call in (lambda: server.engine.load_state_snapshot(d),
-                 lambda: server.engine.swap_state({}),
-                 lambda: server.reload_weights(d), server.drain,
-                 server.batcher.restart):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            call()
+    server = InferenceServer(d, place=CPU).start(serve_network=False)
+    try:
+        empty = str(tmp_path / "empty")
+        os.makedirs(empty)
+        with pytest.raises(T.resilience.CheckpointCorruptError,
+                           match="manifest"):
+            server.engine.load_state_snapshot(empty)
+        with pytest.raises(ValueError, match="missing"):
+            server.engine.swap_state({})
+        with pytest.raises(T.resilience.CheckpointCorruptError):
+            server.reload_weights(empty)
+        server.batcher.restart()
+        assert server.batcher.alive()
+    finally:
+        assert server.drain(timeout=10) == {"drained": True, "remaining": 0}
+    assert server.state == "stopped"
