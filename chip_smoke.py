@@ -400,6 +400,38 @@ NVIDIA GPU.
     ``--only-dp`` builds, runs these paths at N = every card only (no
     N = 1 runs, no scaling line) and stops (no kernels line, no ok
     line): the data-parallel figures alone, e.g. on four cards.
+    Then tensor parallelism, the same way (``tp_phases``; dp 2 x tp 2
+    and tp 4 on four cards, tp 2 on two, tp 1 through the same code on
+    one, where each line says that no tensor parallelism was measured
+    and tp_bert runs 2 layers), after K1/K2 at 8 rows x 6 heads S2048
+    bf16 with a key bias, K1 at 8 x 3 heads S128 float32 causal and K5
+    at 8 x 3 heads (pos 128-255) against their plain versions:
+    - tp_parity (float32): a narrow BERT (flash) annotated by
+      ``bert.apply_tp_sharding``, 3 Adam steps through
+      ``with_data_parallel(mesh=make_mesh(dp, tp))`` on each rank's rows
+      of a seeded global batch; the gathered parameters within 1e-4 of
+      the model's max |ref| of rank 0's plain run on the whole batch,
+      the tp-replicated state bitwise equal on every rank and all of it
+      across the dp ranks, a run_steps slab bitwise its eager steps, a
+      save under tp reloading on one card to the same values;
+    - tp_bert: fleet_bert's step (BERT-base, global B16 S2048 P64, flash,
+      bf16 AMP, Adam at noam_decay, dropout 0) over the mesh, run_steps
+      K 4: the slab bitwise its eager steps, the state checks above,
+      step 0's loss within rtol 2e-2 of the plain program's from the
+      same startup, K1 and K2 12 launches a step on every rank at 6
+      heads, all bf16, no other kernel of the port; ms a step, samples/s
+      and tokens/s in total, peak memory a card, the NCCL ms a step of
+      the slowest rank's profiled slab split into tp and dp;
+    - tp_generate: GPT-base (seeded weights) by ``GPTGenerator(tp=N)``
+      beside tp 1 (paged fp32, 8 rows, 128-token prompts, 128 new
+      tokens): the tokens equal, the prefill logits within 1e-4 of max
+      |ref|, K1 12 a prefill and K5 12 a decode step by replay on each
+      rank, NCCL kernels in a profiled replay, the wire bytes of a
+      decode step and a prefill under the gate's budget; tokens/s,
+      ms a token and decode ms a step at both (tp 1 timed on one rank
+      at a time while the others wait), ``speedup_vs_1``, the weight
+      bytes a card.
+    ``--only-tp`` runs these alone (no kernels line, no ok line).
 14. The core layer surface, last among the main paths:
     - gpt_programs: GPT's generation programs built from the registered
       decode ops (``models.gpt.gpt_prefill``, ``gpt_decode_step``,
@@ -5915,7 +5947,8 @@ def dp_worker(argpath):
         torch.set_num_threads(1)
         place = fluid.CPUPlace()
     fn = {"dp_parity": _dp_parity, "dp_resnet50": _dp_resnet50,
-          "fleet_bert": _fleet_bert}[args["phase"]]
+          "fleet_bert": _fleet_bert, "tp_parity": _tp_parity,
+          "tp_bert": _tp_bert, "tp_generate": _tp_generate}[args["phase"]]
     from paddle_tpu_torch import kernels
     for w in kernels.COUNTED:
         w.launches = 0
@@ -6631,6 +6664,509 @@ def dp_phases(torch, np, counters, name, n=None, args=None, at_one=True):
               "ms_per_step_N": many["run_steps_ms_per_step"],
               "ms_per_step_1": one["run_steps_ms_per_step"]})
     return out
+
+# ------------------------------------------------ tensor parallelism
+
+# tp_parity: a narrow BERT in float32 (flash: K1/K2 at its 8 heads over
+# tp), 3 Adam steps on every rank's rows of one seeded global batch
+TP_PARITY = {"cfg": {"vocab_size": 1024, "hidden_size": 256,
+                     "num_layers": 2, "num_heads": 8, "ffn_size": 1024,
+                     "max_position": 512},
+             "B": 8, "S": 128, "P": 8, "steps": 3}
+# tp_bert: bench_bert_long's step (fleet_bert's, global B16) over dp x tp
+TP_BERT = dict(DP_BERT)
+# tp_generate: GPT-base, paged fp32, 8 rows of 128-token prompts
+TP_GEN = {"rows": 8, "prompt": 128, "new": 128, "short": 8,
+          "max_len": 512, "seed": 0}
+# the ops of a tp_bert step that launch an NCCL kernel each
+TP_NCCL_OPS = ("c_identity_grad", "mp_allreduce_sum", "c_concat",
+               "c_coalesced_allreduce_sum")
+
+
+def tp_grid(n, phase):
+    """(dp, tp) of a tp phase on ``n`` cards: tp_generate at tp n, the
+    training phases at dp 2 x tp 2 on 4 cards (tp n below)."""
+    if phase != "tp_generate" and n >= 4 and n % 2 == 0:
+        return n // 2, 2
+    return 1, n
+
+
+def _tp_world(args):
+    from paddle_tpu_torch.parallel import mesh
+    return mesh.make_mesh(mesh.MeshConfig(dp=args["dp"], tp=args["tp"]))
+
+
+def _tp_rows(feed, d, b, S, P):
+    """dp coordinate ``d``'s ``b`` sequences of a BERT batch (its
+    ``mask_pos`` re-based on its first sequence)."""
+    out = {k: feed[k][d * b:(d + 1) * b]
+           for k in ("src_ids", "sent_ids", "pos_ids", "input_mask",
+                     "labels")}
+    G = feed["src_ids"].shape[0]
+    pos = feed["mask_pos"].reshape(G, P)[d * b:(d + 1) * b]
+    out["mask_pos"] = (pos - d * b * S).reshape(-1)
+    out["mask_label"] = feed["mask_label"][d * b * P:(d + 1) * b * P]
+    return out
+
+
+def _tp_digests(torch, scope, names, split):
+    """(digest of the replicated state, digest of all of it) of this
+    rank's ``names`` in ``scope`` (``split``: the tp-split names)."""
+    items = [(n, scope.find_var(n)) for n in names]
+    return (_state_digest(torch, [kv for kv in items if kv[0] not in split]),
+            _state_digest(torch, items))
+
+
+def _tp_parity(torch, np, args, rank, n, place):
+    """The contract at small width, float32: a narrow BERT (flash)
+    annotated by ``bert.apply_tp_sharding``, 3 Adam steps through
+    ``with_data_parallel(mesh=make_mesh(dp, tp))`` on this rank's rows of
+    a seeded global batch, eagerly and by a run_steps slab from copies of
+    one startup scope; a save of the tp state; rank 0 also runs the
+    plain program on the whole batch on its card from that startup and
+    loads the save on one card."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.tp import gathered
+    p = args["run"]
+    grid = _tp_world(args)
+    d = grid.coords()["dp"]
+    G, S, P = p["B"], p["S"], p["P"]
+    b = G // args["dp"]
+    cfg = bert.BertConfig(**p["cfg"], hidden_dropout=0.0, attn_dropout=0.0,
+                          attn_mechanism="flash")
+
+    def build(rows, annotate):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = 11
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            out = bert.bert_pretrain(cfg, rows, S, P)
+            if annotate:
+                bert.apply_tp_sharding(main, cfg)
+            fluid.optimizer.AdamOptimizer(1e-3).minimize(out["loss"])
+        return main, startup, out["loss"]
+
+    feeds = [bert.random_batch(cfg, G, S, P,
+                               rng=np.random.default_rng(300 + i))
+             for i in range(p["steps"])]
+    mine = [_tp_rows(f, d, b, S, P) for f in feeds]
+    main, startup, loss = build(b, True)
+    exe = fluid.Executor(place)
+    comp = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=grid)
+    s0 = fluid.Scope()
+    exe.run(startup, scope=s0)
+    sA, sB = (copied_scope(torch, fluid, s0) for _ in range(2))
+    eager = [exe.run(comp, feed=f, fetch_list=[loss], scope=sA)[0]
+             for f in mine]
+    slab = exe.run_steps(comp, feed=mine, fetch_list=[loss], scope=sB)[0]
+    diff = scope_diff(torch, sA, sB)
+    names = [v.name for v in main.list_vars() if v.persistable
+             and isinstance(sA.find_var(v.name), torch.Tensor)]
+    split = set(comp._tp_layouts)
+    rep, full = _tp_digests(torch, sA, names, split)
+    params = [q.name for q in main.all_parameters()]
+    with gathered(sA):
+        whole = {q: sA.find_var(q).detach().clone() for q in params}
+    ckpt = os.path.join(DP_DIR, f"tp_parity_ckpt.n{n}")
+    fluid.io.save_persistables(exe, ckpt, main_program=main, scope=sA)
+    rec = {"losses": [float(np.ravel(v)[0]) for v in eager],
+           "slab_losses": [float(v) for v in np.ravel(slab)],
+           "slab_bitwise": bool(np.array_equal(
+               np.stack(eager).reshape(-1), np.ravel(slab))) and not diff,
+           "scope_diff": diff[:8], "coords": grid.coords(),
+           "dp": args["dp"], "tp": args["tp"],
+           "digest_replicated": rep, "digest": full,
+           "split": sorted(split),
+           "report": getattr(comp.program, "_tp_report", {}),
+           "qkv_local": list(sA.find_var(
+               "encoder_layer_0_multi_head_att_qkv.w_0").shape)}
+    if rank == 0:
+        pmain, pstart, ploss = build(G, False)
+        sp = copied_scope(torch, fluid, s0)
+        plain = [exe.run(pmain, feed=f, fetch_list=[ploss], scope=sp)[0]
+                 for f in feeds]
+        top = max(float(sp.find_var(q).abs().max()) for q in params)
+        errs = {q: float((whole[q].float() - sp.find_var(q).float())
+                         .abs().max()) for q in params}
+        rec.update({"plain_losses": [float(np.ravel(v)[0]) for v in plain],
+                    "max_err_of_model_max": max(errs.values()) / top,
+                    "max_rel_err": max(_rel_err(
+                        np, whole[q].cpu().numpy(),
+                        sp.find_var(q).cpu().numpy()) for q in params),
+                    "worst": max(errs, key=errs.get)})
+        sl = fluid.Scope()
+        exe.run(pstart, scope=sl)
+        fluid.io.load_persistables(exe, ckpt, main_program=pmain, scope=sl)
+        rec["reload_equal"] = all(
+            torch.equal(sl.find_var(q), whole[q].to(sl.find_var(q).device))
+            for q in params)
+    _release(torch, exe)
+    return rec
+
+
+def _tp_bert(torch, np, args, rank, n, place):
+    """BERT-base at bench_bert_long's shape (flash, bf16 AMP, Adam at
+    noam_decay, dropout 0) annotated by ``bert.apply_tp_sharding``
+    through ``with_data_parallel(mesh=make_mesh(dp, tp))``: fleet_bert's
+    global batch (16 rows seeded 200) split over dp, K eager steps and
+    run_steps slabs (:func:`_dp_train`); rank 0 then runs fleet_bert's
+    program at N = 1 (the plain one) for step 0 from the same startup."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    mp = fluid.contrib.mixed_precision
+    run = args["run"]
+    grid = _tp_world(args)
+    d = grid.coords()["dp"]
+    G, S, P = run["B"], run["S"], run["P"]
+    b = G // args["dp"]
+    cfg = bert_config(args.get("layers"), "flash", dropout=0.0,
+                      max_position=max(S, 512))
+
+    def build(rows, annotate):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            out = bert.bert_pretrain(cfg, rows, S, P)
+            if annotate:
+                bert.apply_tp_sharding(main, cfg)
+            lr = fluid.layers.noam_decay(cfg.hidden_size, 10000, 200.0)
+            mp.decorate(fluid.optimizer.AdamOptimizer(lr),
+                        init_loss_scaling=1.0,
+                        use_dynamic_loss_scaling=False).minimize(out["loss"])
+        return main, startup, out["loss"]
+
+    glob = bert.random_batch(cfg, G, S, P, rng=np.random.default_rng(200))
+    main, startup, loss = build(b, True)
+    exe = fluid.Executor(place)
+    comp = fluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name, mesh=grid)
+    pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(exe.device)
+             for k, v in _tp_rows(glob, d, b, S, P).items()}]
+    rec = _dp_train(torch, np, fluid, exe, comp, startup, loss, pool,
+                    run["K"], TP_NCCL_OPS)
+    ops = comp.program.global_block().ops
+    flash = next(o for o in ops if o.type == "flash_attention")
+    rec.update({"B": G, "rows": b, "S": S, "P": P,
+                "layers": cfg.num_layers, "dp": args["dp"],
+                "tp": args["tp"], "coords": grid.coords(),
+                "heads_a_rank": comp.program.global_block().var(
+                    flash.input("Q")[0]).shape[1],
+                "report": getattr(comp.program, "_tp_report", {}),
+                "collective_axes": [
+                    "dp" if o.type == "c_coalesced_allreduce_sum" else "tp"
+                    for o in ops if o.type in TP_NCCL_OPS],
+                "analytic_flops_per_step":
+                    bert_train_flops_per_sample(cfg, S, P) * G})
+    split = set(comp._tp_layouts)
+    rec["digest_replicated"] = {k: v for k, v in rec["digest"].items()
+                                if k not in split}
+    _release(torch, exe)
+    if rank == 0:
+        pmain, pstart, ploss = build(G, False)
+        exe = fluid.Executor(place)
+        sp = fluid.Scope()
+        exe.run(pstart, scope=sp)
+        feed = {k: torch.from_numpy(np.ascontiguousarray(v)).to(exe.device)
+                for k, v in glob.items()}
+        rec["plain_step0_loss"] = float(np.ravel(exe.run(
+            pmain, feed=feed, fetch_list=[ploss], scope=sp)[0])[0])
+        del sp
+        _release(torch, exe)
+    return rec
+
+
+def _tp_generate(torch, np, args, rank, n, place):
+    """GPT-base (seeded weights) generated at tp = every rank
+    (``GPTGenerator(tp=)``, paged fp32) beside tp = 1 on this rank's
+    card: tokens, prefill logits, launches by replay, a profiled replay,
+    the wire bytes a step against the gate's budget, tokens/s (at tp 1
+    timed on one rank at a time)."""
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import GPTConfig, GPTGenerator, init_params
+    g = args["run"]
+    cfg = GPTConfig.base() if not args.get("tiny") else GPTConfig.tiny()
+    if args.get("layers"):
+        cfg.num_layers = args["layers"]
+    device = "cpu" if place is not None else None
+    params = init_params(cfg, g["seed"])
+    rng = np.random.default_rng(17)
+    prompts = [rng.integers(1, cfg.vocab_size, g["prompt"]).astype(np.int32)
+               for _ in range(g["rows"])]
+    fa = sys.modules["paddle_tpu_torch.kernels.flash_attention"]
+    pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
+    cuda = place is None
+    rec = {"tp": args["tp"], "rows": g["rows"], "prompt": g["prompt"],
+           "new": g["new"], "layers": cfg.num_layers}
+    from paddle_tpu_torch.parallel import mesh
+    out, gens = {}, {}
+    for tp in (1, args["tp"]) if args["tp"] > 1 else (1,):
+        gen = gens[tp] = GPTGenerator(cfg, params, max_len=g["max_len"],
+                                      device=device, tp=tp)
+        toks = gen.generate(prompts, max_new_tokens=g["new"], paged=True)
+        # tp 1 is timed one rank at a time (the others wait at a
+        # barrier), so its reading is one generator's, not four sharing
+        # the host; tp > 1 runs on every rank at once, as it must
+        for turn in range(n) if tp == 1 else (rank,):
+            if turn == rank:
+                k1 = fa.flash_attention_fwd.launches
+                k5 = pa.paged_attention.launches
+                _, secs = _timed_wall(torch, cuda, lambda: gen.generate(
+                    prompts, max_new_tokens=g["new"], paged=True))
+                k1 = fa.flash_attention_fwd.launches - k1
+                k5 = pa.paged_attention.launches - k5
+                _, short = _timed_wall(torch, cuda, lambda: gen.generate(
+                    prompts, max_new_tokens=g["short"], paged=True))
+            if tp == 1:
+                mesh.barrier()
+        steps = g["new"] - 1
+        tokens, pos_ids, last = gen._pack_prompts(prompts)
+        logits, _, _ = gen.run_prefill(tokens, pos_ids, last)
+        out[tp] = {"tokens": [t.tolist() for t in toks],
+                   "logits": logits.float().cpu()}
+        rec[f"tp{tp}"] = {
+            "tokens_per_sec": g["rows"] * g["new"] / (secs / 1e3),
+            "ms_per_token": secs / g["new"],
+            "decode_ms_per_step": (secs - short) / (g["new"] - g["short"]),
+            "k1_per_prefill": k1, "k5_per_decode_step": k5 / steps,
+            "weight_bytes_a_card": sum(
+                t.numel() * t.element_size()
+                for t in gen.param_tensors().values()),
+            # what the gate read on each kind's first run
+            "wire_bytes_decode_step": gen.wire_bytes.get("decode_paged", 0),
+            "wire_budget_decode_step": gen._tp_wire_budget(g["rows"],
+                                                           g["rows"]),
+            "wire_bytes_prefill": gen.wire_bytes.get("prefill", 0),
+            "wire_budget_prefill": gen._tp_wire_budget(
+                g["rows"] * tokens.shape[1], g["rows"]),
+            "heads_a_rank": gen.model.heads}
+    tp = args["tp"]
+    if tp > 1:
+        one, many = out[1], out[tp]
+        ref = one["logits"]
+        rec["tokens_equal"] = one["tokens"] == many["tokens"]
+        rec["prefill_logits_err"] = float(
+            (many["logits"] - ref).abs().max() / ref.abs().max())
+        rec["speedup_vs_1"] = rec[f"tp{tp}"]["tokens_per_sec"] \
+            / rec["tp1"]["tokens_per_sec"]
+    if cuda:
+        gen = gens[tp]
+        rows = g["rows"]
+        pool = gen._pool(rows, None)
+        for r in range(rows):
+            pool.alloc(r, g["prompt"] + 2)
+        tok = np.ones(rows, np.int32)
+        pos = np.full(rows, g["prompt"], np.int32)
+        gen.decode(tok, pos, np.zeros(rows, np.float32),
+                   np.zeros(rows, np.int32), pool)
+        _, names = profiled_trace(torch, lambda: gen.decode(
+            tok, pos, np.zeros(rows, np.float32), np.zeros(rows, np.int32),
+            pool))
+        for r in range(rows):
+            pool.free_slot(r)
+        rec["replay_nccl_kernels"] = sum(c for k, c in names.items()
+                                         if "nccl" in k.lower())
+        rec["replay_k5"] = sum(c for k, c in names.items()
+                               if "paged" in k.lower())
+    for gen in gens.values():
+        gen.release()
+    del gens
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    rec["kernels_counted"] = {w.__name__: w.launches
+                              for w in kernels.COUNTED}
+    return rec
+
+
+def _tp_failures(name, ranks):
+    """What the ranks' records say is wrong: state that should be equal
+    and is not (the replicated state across all ranks, all of it across
+    the ranks of one tp coordinate), a slab that is not its eager steps,
+    a non-finite loss."""
+    bad = []
+    if name == "tp_generate":
+        return bad
+    reps = [r["digest_replicated"] for r in ranks]
+    if any(x != reps[0] for x in reps[1:]):
+        bad.append(f"{name}: the tp-replicated state differs across ranks")
+    by_tp = {}
+    for r in ranks:
+        by_tp.setdefault(r["coords"]["tp"], []).append(r["digest"])
+    for j, ds in by_tp.items():
+        if any(x != ds[0] for x in ds[1:]):
+            bad.append(f"{name}: the state of tp rank {j} differs across "
+                       f"the dp ranks")
+    for r in ranks:
+        if not r.get("slab_bitwise", True):
+            bad.append(f"{name}: rank {r['rank']}'s run_steps is not its "
+                       f"eager steps ({r.get('scope_diff')})")
+        losses = r.get("slab_losses", [])
+        if not all(math.isfinite(x) for x in losses):
+            bad.append(f"{name}: rank {r['rank']} non-finite {losses}")
+    return bad
+
+
+def tp_phase(torch, np, name, nproc, args=None, timeout=900):
+    """One tensor-parallel phase at ``nproc`` ranks (one a card), checked
+    and printed with the card, its power limit and N. Returns the
+    record."""
+    args = dict(args or {})
+    args["dp"], args["tp"] = tp_grid(nproc, name)
+    if nproc == 1 and name == "tp_bert" and not args.get("cpu"):
+        # one card measures no tp: fleet_bert's step at 2 layers, through
+        # the same code
+        args.setdefault("layers", 2)
+    args.setdefault("run", {"tp_parity": TP_PARITY, "tp_bert": TP_BERT,
+                            "tp_generate": TP_GEN}[name])
+    ranks, launch = dp_launch(torch, name, nproc, args, timeout)
+    rec = {"phase": name, **CARD, "N": nproc, "dp": args["dp"],
+           "tp": args["tp"], "launch": launch}
+    bad = _tp_failures(name, ranks)
+    r0 = ranks[0]
+    if name == "tp_parity":
+        rec.update({k: r0[k] for k in (
+            "losses", "plain_losses", "max_err_of_model_max",
+            "max_rel_err", "worst", "reload_equal", "report", "qkv_local")})
+        rec["slab_bitwise"] = all(r["slab_bitwise"] for r in ranks)
+        rec["mean_losses"] = np.mean(
+            [r["losses"] for r in ranks if r["coords"]["tp"] == 0],
+            0).tolist()
+        if r0["max_err_of_model_max"] > 1e-4:
+            bad.append(f"tp_parity: gathered parameters off the plain run "
+                       f"by {r0['max_err_of_model_max']:.3g} of max |ref| "
+                       f"({r0['worst']})")
+        if not r0["reload_equal"]:
+            bad.append("tp_parity: the tp save reloads on one card to "
+                       "other values")
+    elif name == "tp_bert":
+        slow = max(ranks, key=lambda r: r["run_steps_ms_per_step"])
+        ms = slow["run_steps_ms_per_step"]
+        step0 = float(np.mean([r["eager_losses"][0] for r in ranks
+                               if r["coords"]["tp"] == 0]))
+        rec.update({k: r0.get(k) for k in (
+            "B", "rows", "S", "P", "layers", "K", "heads_a_rank", "report",
+            "slab_losses", "launches_per_step_run_steps",
+            "bf16_launches_per_step_run_steps", "plain_step0_loss")})
+        rec.update({
+            "step0_loss": step0,
+            "ms_per_step": ms,
+            "samples_per_s_total": r0["B"] / ms * 1e3,
+            "tokens_per_s_total": r0["B"] * r0["S"] / ms * 1e3,
+            "peak_mem_gb_a_card": max(r.get("peak_mem_gb") or 0.0
+                                      for r in ranks),
+            "nccl_kernels_per_step": r0.get("nccl_kernels_per_step"),
+            "capture_s": r0.get("capture_s")})
+        if "profile" in slow:
+            prof = slow["profile"]
+            rec["profile_slowest"] = {k: v for k, v in prof.items()
+                                      if k != "nccl_us"}
+            # the i-th NCCL kernel of a step is the step's i-th
+            # communicating collective op (the program's order)
+            axes, us = slow["collective_axes"], prof["nccl_us"]
+            K = r0["K"]
+            if len(us) == K * len(axes):
+                split = {"tp": 0.0, "dp": 0.0}
+                for i, u in enumerate(us):
+                    split[axes[i % len(axes)]] += u / 1e3 / K
+                rec["nccl_ms_a_step_replay"] = split
+            rec["idle_share_replay"] = 1 - prof["busy_ms"] / prof["wall_ms"]
+        heads = bert_config().num_heads // args["tp"]
+        if r0["heads_a_rank"] != heads:
+            bad.append(f"tp_bert: {r0['heads_a_rank']} heads a rank, not "
+                       f"{heads}")
+        for r in ranks if not args.get("cpu") else ():
+            per = r["launches_per_step_run_steps"]
+            want = r0["layers"]
+            if per["flash_attention_fwd"] != want or \
+                    per["flash_attention_bwd_single"] != want:
+                bad.append(f"tp_bert: rank {r['rank']} launched {per} a "
+                           f"step, not K1 and K2 {want} each")
+        if abs(step0 - r0["plain_step0_loss"]) > \
+                2e-2 * abs(r0["plain_step0_loss"]):
+            bad.append(f"tp_bert: step 0's loss {step0} is off fleet_bert's "
+                       f"program's {r0['plain_step0_loss']}")
+    else:
+        rec.update({k: r0[k] for k in r0 if k.startswith("tp") or k in (
+            "tokens_equal", "prefill_logits_err", "speedup_vs_1",
+            "replay_nccl_kernels", "replay_k5", "rows", "prompt", "new")})
+        # each rank's tp 1 reading, taken alone
+        rec["tp1_tokens_per_sec_by_rank"] = [r["tp1"]["tokens_per_sec"]
+                                             for r in ranks]
+        t = args["tp"]
+        for r in ranks:
+            one, many = r["tp1"], r[f"tp{t}"]
+            layers = r["layers"]
+            for tag, row in (("tp 1", one), (f"tp {t}", many)):
+                if args.get("cpu"):
+                    continue
+                if row["k1_per_prefill"] != layers or \
+                        row["k5_per_decode_step"] != layers:
+                    bad.append(f"tp_generate: rank {r['rank']} at {tag}: K1 "
+                               f"{row['k1_per_prefill']} a prefill, K5 "
+                               f"{row['k5_per_decode_step']} a decode step, "
+                               f"not {layers} each")
+            for step in ("decode_step", "prefill"):
+                if many[f"wire_bytes_{step}"] > many[f"wire_budget_{step}"]:
+                    bad.append(f"tp_generate: rank {r['rank']}'s {step} "
+                               f"moves {many[f'wire_bytes_{step}']} bytes")
+            if t > 1:
+                if not r["tokens_equal"]:
+                    bad.append(f"tp_generate: rank {r['rank']}'s tokens at "
+                               f"tp {t} differ from tp 1's")
+                if r["prefill_logits_err"] > 1e-4:
+                    bad.append(f"tp_generate: rank {r['rank']}'s prefill "
+                               f"logits off tp 1 by "
+                               f"{r['prefill_logits_err']:.3g} of max |ref|")
+                if r.get("replay_nccl_kernels", 1) < 1:
+                    bad.append(f"tp_generate: rank {r['rank']}'s profiled "
+                               f"replay holds no NCCL kernel")
+    if args["tp"] == 1:
+        rec["note"] = ("one card: tp = 1 through the same code; no tensor "
+                       "parallelism was measured")
+        print(f"{name}: {rec['note']}", flush=True)
+    rec["ranks"] = ranks
+    emit({k: v for k, v in rec.items() if k != "ranks"})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def tp_phases(torch, np, counters, name, n=None, args=None):
+    """Tensor-parallel phase ``name`` at N = n (default: every card); adds
+    the ranks' kernel launches to ``counters``."""
+    n = n or torch.cuda.device_count()
+    args = dict(args or {})
+    rec = tp_phase(torch, np, name, n, args)
+    for r in rec["ranks"]:
+        for w, c in r["launches"].items():
+            cw = counters.get(w)
+            if cw is not None:
+                cw.launches += c
+                if hasattr(cw, "bf16_launches"):
+                    cw.bf16_launches += r["bf16_launches"].get(w, 0)
+    return rec
+
+
+def tp_kernel_shapes(torch, fa, pa):
+    """K1, K2 and K5 against their plain versions at the head counts the
+    tp paths give them: K1/K2 at tp_bert's (8 rows, 6 heads, S2048, bf16,
+    a key bias), K1 at tp_generate's prefill (8 rows, 3 heads, S128,
+    float32, causal), K5 at its decode step (8 rows, 3 heads, bs16, pos
+    up to 255, float32)."""
+    import numpy as np
+    pos = np.linspace(128, 255, 8).round().astype(np.int32)
+    out = [flash_phase(torch, fa, 8, 6, 2048, 64, "bfloat16", False, True,
+                       seed=2206, packed=False),
+           bwd_phase(torch, fa, "flash_attention_bwd_single", 8, 6, 2048, 64,
+                     "bfloat16", False, True, seed=2207, packed=False),
+           flash_phase(torch, fa, 8, 3, 128, 64, "float32", True, False,
+                       seed=2208, packed=True),
+           paged_phase(torch, pa, "tp_decode_H3", 8, 3, 64, 16, 32, pos,
+                       "float32", 2209)]
+    for r in out:
+        r["tp_shape"] = True
+    return out
+
 
 # ------------------------------------------------ the core layer surface
 
@@ -8334,6 +8870,10 @@ def main():
                     "the port's, in the order parent, new, new, parent")
     ap.add_argument("--dp-worker", metavar="ARGS", help="run as one rank "
                     "of a data-parallel phase (the launcher starts these)")
+    ap.add_argument("--only-tp", action="store_true", help="build, check "
+                    "K1, K2 and K5 at the tp paths' head counts, run the "
+                    "tensor-parallel paths at N = every card and stop (no "
+                    "kernels line, no ok line)")
     ap.add_argument("--only-dp", action="store_true", help="build, run the "
                     "data-parallel paths at N = every card (no N = 1 runs "
                     "for the scaling line) and stop: a measurement of them "
@@ -8461,13 +9001,37 @@ def main():
                                 f"{bf16}): only {needs}, all bf16, may "
                                 f"launch")
 
-    if args.only_dp:
-        drive_dp()
+    def drive_tp():
+        """Tensor parallelism across cards, one rank a card through the
+        port's launcher at N = every card (dp 2 x tp 2 and tp 4 on four
+        cards, tp 2 on two, tp 1 through the same code on one): K1, K2
+        and K5 against their plain versions at the paths' head counts
+        first (not counted), then tp_parity (K1, K2 float32), tp_bert (K1
+        and K2, 12 a step each, all bf16) and tp_generate (K1, K5). The
+        ranks' launches join the counts."""
+        tp_kernel_shapes(torch, fa, pa)
+        for name, needs in (("tp_parity", DP_BERT_KERNELS),
+                            ("tp_bert", DP_BERT_KERNELS),
+                            ("tp_generate", ("flash_attention_fwd",
+                                             "paged_attention"))):
+            _, got, bf16 = drive(name, needs, lambda name=name: tp_phases(
+                torch, np, counters, name))
+            others = {k: c for k, c in got.items() if c and k not in needs}
+            if others or (name == "tp_bert" and any(
+                    bf16[k] != got[k] for k in needs)):
+                failures.append(f"the {name} path launched {got} (bf16 "
+                                f"{bf16}): only {needs} may launch"
+                                + (", all bf16" if name == "tp_bert"
+                                   else ""))
+
+    if args.only_dp or args.only_tp:
+        (drive_dp if args.only_dp else drive_tp)()
         if failures:
             print(f"failed: {failures}", file=sys.stderr)
             return 1
-        print("--only-dp: the data-parallel paths passed; no other phase "
-              "ran", flush=True)
+        print(f"--only-{'dp' if args.only_dp else 'tp'}: the "
+              f"{'data' if args.only_dp else 'tensor'}-parallel paths "
+              f"passed; no other phase ran", flush=True)
         return 0
 
     # causal phases take q/k/v as the prefill lays them out (strided views
@@ -8567,6 +9131,7 @@ def main():
         torch.cuda.empty_cache()
 
     drive_dp()
+    drive_tp()
 
     # the dygraph paths (they need two eager B256 Transformer steps of
     # memory, ~15 GB each): bench_dygraph_transformer by jit_step (one

@@ -92,7 +92,7 @@ class DataParallel(Layer):
                 tracer._key = fold_rank(tracer._key, mesh.rank())
             for p in self._layers.parameters():
                 if p.value is not None:
-                    broadcast_(p.value, 0)
+                    broadcast_(p.value, 0, None)
 
     def forward(self, *args, **kwargs):
         return self._layers(*args, **kwargs)
@@ -127,7 +127,7 @@ class DataParallel(Layer):
             groups.setdefault(g.dtype, []).append(p)
         for ps in groups.values():
             flat = torch.cat([p._grad.reshape(-1) for p in ps])
-            all_reduce(flat, "sum")
+            all_reduce(flat, "sum", None)
             off = 0
             for p in ps:
                 n = p._grad.numel()

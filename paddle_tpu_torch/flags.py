@@ -94,6 +94,13 @@ _DEFS = {
     "decode_bucket_min": (16, int),
     # serving decode bank: generation slots stepped together
     "decode_slots": (8, int),
+    # tensor-parallel generation: GPTGenerator over the world's tp axis
+    # (the Megatron split of gpt.apply_tp_sharding, each rank a pool of
+    # its heads), gated by TPCompileGateError; 0/1 = one card
+    "serving_tp": (0, int),
+    # the gate's replicated-large-param threshold: a parameter held
+    # whole on a tp rank is refused at or above this many megabytes
+    "shard_audit_replicated_mb": (16.0, float),
     # speculative decoding: draft depth K (a drafter proposes up to K
     # tokens per row, one verify pass scores all K+1 positions,
     # rejection sampling keeps the model-agreed prefix); 0 = off.

@@ -38,7 +38,7 @@ SIDE_EFFECT_OPS = frozenset({
     "distributed_lookup_table", "pull_sparse", "pull_sparse_v2",
     "push_sparse", "push_sparse_v2", "pull_box_sparse", "push_box_sparse",
     "broadcast", "alltoall", "run_program", "allreduce", "sync_batch_norm",
-    "hier_allreduce",
+    "hier_allreduce", "mp_allreduce_sum",
 })
 
 # the attrs that name a control-flow op's sub-blocks

@@ -4,8 +4,9 @@ A trimmed copy of ``paddle_tpu/framework/core.py``: the same Python
 structure and the same ``to_dict()`` form, so a program built here is
 the program the JAX package builds, op for op. What differs is what
 runs it: ``framework/executor.py`` interprets a block op by op on torch
-tensors instead of lowering it to one XLA module. Vars carry no
-sharding annotation (``dist_attr``) in this port yet.
+tensors instead of lowering it to one XLA module. A var's ``dist_attr``
+(one mesh-axis name or None per dim) is kept and round-trips through
+``to_dict``/``from_dict`` as there; pass ``tp_shard`` reads it.
 """
 import contextlib
 import copy
@@ -61,11 +62,12 @@ class Variable:
     def __init__(self, block, name, shape=None, dtype="float32",
                  persistable=False, stop_gradient=False, is_data=False,
                  type=VarType.LOD_TENSOR, lod_level=0, trainable=True,
-                 initializer=None, **kwargs):
+                 initializer=None, dist_attr=None, **kwargs):
         self.block = block
         self.name = name
         self.shape = tuple(int(s) for s in shape) if shape is not None \
             else None
+        self.dist_attr = tuple(dist_attr) if dist_attr is not None else None
         self.dtype = convert_dtype(dtype)
         self.persistable = persistable
         self.stop_gradient = stop_gradient
@@ -101,6 +103,7 @@ class Variable:
             "stop_gradient": self.stop_gradient, "is_data": self.is_data,
             "type": self.type, "lod_level": self.lod_level,
             "trainable": self.trainable,
+            "dist_attr": list(self.dist_attr) if self.dist_attr else None,
             "is_parameter": self.is_parameter,
         }
 
@@ -427,7 +430,6 @@ class Program:
             b = Block(p, bd["idx"], bd["parent_idx"])
             for name, vd in bd["vars"].items():
                 vd = dict(vd)
-                vd.pop("dist_attr", None)
                 if vd.pop("is_parameter", False):
                     vd.pop("persistable", None)
                     var = Parameter(b, vd.pop("name"), vd.pop("shape"),
@@ -435,6 +437,8 @@ class Program:
                                     trainable=vd.pop("trainable", True))
                     for k, v in vd.items():
                         setattr(var, k, v)
+                    var.dist_attr = (tuple(var.dist_attr)
+                                     if var.dist_attr else None)
                 else:
                     var = Variable(b, **vd)
                 b.vars[name] = var

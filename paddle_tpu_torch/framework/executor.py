@@ -115,11 +115,17 @@ class Scope:
     :meth:`depose` d: a training slab that reaches dispatch afterwards
     on it (the abandoned worker waking up) raises instead of running,
     so it can never take the captured step's lock or write state the
-    restarted run shares with it."""
+    restarted run shares with it.
+
+    ``tp_layouts``: ``{name: parallel.tp.Layout}`` of the values it holds
+    as tensor-parallel shards, cut for the tp axis of ``tp_mesh`` (a save
+    gathers them whole)."""
 
     def __init__(self):
         self._vars = {}
         self.deposed = None          # the reason, once deposed
+        self.tp_layouts = {}
+        self.tp_mesh = None
 
     def depose(self, reason="deposed"):
         self.deposed = str(reason)
@@ -392,11 +398,13 @@ class Executor:
         hit = step is not None and step.program is opt
         self._cstats["hits" if hit else "misses"] += 1
         if not hit:
-            step = Step(opt, feed_names, fetch_names, data_parallel=dp)
+            step = Step(opt, feed_names, fetch_names, data_parallel=dp,
+                        mesh=getattr(compiled, "mesh", None))
             self._steps[key] = step
             self._cstats["inserts"] += 1
         if dp:
             compiled._sync_once(scope, step.reads)
+            compiled._place_shards(scope, step.reads)
         return step
 
     def _unwrap(self, program):
@@ -405,6 +413,8 @@ class Executor:
             return default_main_program(), None
         if hasattr(program, "_prepare") and hasattr(program, "program"):
             return program._prepare(self.device), program
+        from ..parallel.mesh import activate
+        activate(None)         # a plain program's rings span the world
         return program, None
 
     @staticmethod
@@ -755,8 +765,10 @@ class Executor:
                            thread=0, debug=False, fetch_list=None,
                            fetch_info=None, print_period=100):
         if program is not None and hasattr(program, "_prepare"):
-            program = program.program      # a CompiledProgram's
-        prog = program.clone(for_test=True) if program is not None else None
+            prog = program._for_test()     # keeps its mesh and shards
+        else:
+            prog = program.clone(for_test=True) if program is not None \
+                else None
         return self.train_from_dataset(prog, dataset, scope, thread, debug,
                                        fetch_list, fetch_info, print_period)
 
@@ -772,11 +784,14 @@ class Step:
     and all-reduces its guard's counts (:meth:`agree`)."""
 
     def __init__(self, program, feed_names, fetch_names,
-                 data_parallel=False):
-        from ..parallel import mesh
+                 data_parallel=False, mesh=None):
+        from ..parallel import mesh as _mesh
         self.program = program
-        self.data_parallel = bool(data_parallel) and mesh.is_initialized()
-        self.rank = mesh.rank() if self.data_parallel else 0
+        self.data_parallel = bool(data_parallel) and _mesh.is_initialized()
+        # the dp coordinate on the program's own mesh: the ranks of one
+        # tp group draw alike
+        self.rank = _mesh.axis_rank("dp", mesh) if self.data_parallel \
+            else 0
         block = program.global_block()
         self.fetch_names = list(fetch_names)
         self.reads, self.writes = analyze_block_io(program, 0, feed_names)
@@ -793,17 +808,22 @@ class Step:
 
     def rng_seed(self, run_seed):
         """The seed this rank's stochastic ops draw from at ``run_seed``:
-        the run seed itself on rank 0 (and outside data parallelism), a
-        rank-folded one elsewhere, so each rank's rows get their own
-        dropout masks while ``@RNG_SEED@`` stays equal on every rank."""
+        the run seed itself at dp coordinate 0 (and outside data
+        parallelism), one folded with the dp coordinate elsewhere, so
+        each dp rank's rows get their own dropout masks while
+        ``@RNG_SEED@`` stays equal on every rank. The ranks of one tp
+        group share the fold: a replicated activation gets one mask on
+        all of them (a rank's own attention heads draw the mask of the
+        first heads of the single-card draw; a difference by design)."""
         return fold_rank(run_seed, self.rank)
 
     def agree(self, counts):
-        """The guard's per-slot counts, maxed over the ranks in a
-        data-parallel world (a NaN on one rank rolls back every rank)."""
+        """The guard's per-slot counts, maxed over the world's ranks in a
+        data-parallel world (a NaN on one rank, in its rows or in its tp
+        shard, rolls back every rank)."""
         if self.data_parallel and counts is not None:
             from ..ops.collective_ops import all_reduce
-            all_reduce(counts, "max")
+            all_reduce(counts, "max", None)
         return counts
 
     def execute(self, env, scope, device, run_seed, guard=False):

@@ -21,8 +21,11 @@ the user's program (``optimize_program``), which is never mutated:
 ``amp_bf16`` wraps ``contrib.mixed_precision.rewrite_program``.
 ``sync_batch_norm`` (batch_norm -> sync_batch_norm) and the port's own
 ``dp_grad_allreduce`` (each parameter grad all-reduced and scaled by 1/N
-after its last producer) make a program data-parallel;
-``CompiledProgram.with_data_parallel`` applies both to a clone. Every
+after its last producer) make a program data-parallel; the port's
+``tp_shard`` (``parallel.tp``: each annotated parameter cut to the
+rank's shard, Megatron's collectives around the split matmuls) makes it
+tensor-parallel, where GSPMD does that for the JAX package;
+``CompiledProgram.with_data_parallel`` applies them to a clone. Every
 pass treats collectives as side effects (``analysis.is_side_effect_type``):
 never dropped, merged or moved past one another, since every rank must
 issue the same collectives in the same order. Under
@@ -437,6 +440,25 @@ class DataParallelGradAllreducePass(Pass):
             flush(dt)
         block.ops = new_ops
         self._report = report
+
+
+@register_pass("tp_shard")
+class TensorParallelShardPass(Pass):
+    """The per-rank Megatron rewrite of a program over the ``tp`` axis of
+    ``mesh`` (``parallel.tp.tp_rewrite``), for the rank at ``tp_rank``
+    (this rank's by default): the parameters annotated on ``tp`` take
+    their shard shapes and the conjugate collectives go in around the
+    split matmuls, grad ops included. Nothing changes at tp 1. The split
+    layouts are left on ``program._tp_layouts``. attrs: mesh,
+    tp_rank."""
+
+    mesh = None
+    tp_rank = None
+
+    def apply(self, program):
+        from ..parallel.tp import tp_rewrite
+        program._tp_layouts = tp_rewrite(program, self.mesh, self.tp_rank)
+        self._report = dict(getattr(program, "_tp_report", {}))
 
 
 def _freeze(v):

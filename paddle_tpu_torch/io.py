@@ -42,10 +42,16 @@ In a data-parallel world (``parallel.mesh``) every rank holds the same
 state, so each save writes one copy, from rank 0, and every rank waits
 for it (a rank other than 0 writes nothing; its ``CheckpointSaver.save``
 returns the number rank 0 committed, its ``save_async`` None). A save
-that fails on rank 0 raises on every rank. Every rank loads.
+that fails on rank 0 raises on every rank. Every rank loads. Under
+tensor parallelism the scope holds each rank's shards: a save first
+gathers them to whole tensors on every rank (``parallel.tp.gathered``),
+so the files are the single-card format, which loads on one card and in
+the JAX package; a load puts whole values in the scope, and the next run
+of the tp program cuts each rank's shard out of them.
 """
 import functools
 import hashlib
+import inspect
 import json
 import os
 import shutil
@@ -95,16 +101,22 @@ def _one_writer(follow=None):
     ``follow(*args)`` (None by default). Outside a world the save just
     runs."""
     def deco(fn):
+        sig = inspect.signature(fn)
+
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             from .parallel import mesh
+            from .parallel.tp import gathered
             if getattr(_writing, "depth", 0) or not mesh.is_initialized():
                 return fn(*args, **kwargs)
+            scope = sig.bind(*args, **kwargs).arguments.get("scope") \
+                or global_scope()
             out, err = None, None
             _writing.depth = 1
             try:
-                if mesh.rank() == 0:
-                    out = fn(*args, **kwargs)
+                with gathered(scope):          # every rank: tp shards
+                    if mesh.rank() == 0:
+                        out = fn(*args, **kwargs)
             except BaseException as e:  # noqa: BLE001 — told to all ranks
                 err = e
             finally:

@@ -1,8 +1,10 @@
 """Collective layer wrappers (a copy of ``paddle_tpu/layers/collective.py``;
 reference python/paddle/fluid/layers/collective.py — _allreduce :16,
 _allgather, _broadcast; used by the collective transpiler and dygraph
-DataParallel). ``shard`` pins a tensor to a mesh sharding, which needs
-model parallelism: it raises (ROADMAP.md Queue 1 item 7b)."""
+DataParallel). ``shard`` pins a tensor to a mesh sharding: a
+``sharding_constraint`` op, a value identity in the port, over ``dp``
+and ``tp``; another axis (``sp`` ...) raises (ROADMAP.md Queue 1 item
+7b)."""
 from ..parallel.mesh import not_ported_7b
 from .layer_helper import LayerHelper
 
@@ -27,7 +29,20 @@ def _allgather(x, nranks, ring_id=0, use_calc_stream=False):
 
 
 def shard(x, *spec):
-    raise not_ported_7b("layers.collective.shard")
+    """Pin ``x`` to a mesh sharding, one axis name (or None) per dim, as
+    the JAX package does: a ``sharding_constraint`` op, the value itself
+    here (every rank holds whole activations). Axes other than ``dp``
+    and ``tp`` raise: item 7b."""
+    for a in spec:
+        for name in (a if isinstance(a, (tuple, list)) else (a,)):
+            if name is not None and name not in ("dp", "tp"):
+                raise not_ported_7b(f"layers.collective.shard over the "
+                                    f"{name!r} axis")
+    helper = LayerHelper("sharding_constraint")
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type="sharding_constraint", inputs={"X": [x]},
+                     outputs={"Out": [out]}, attrs={"spec": tuple(spec)})
+    return out
 
 
 def _broadcast(x, root=0, ring_id=0, use_calc_stream=False):

@@ -56,7 +56,7 @@ class LayerHelper:
             stop_gradient=stop_gradient)
 
     def create_parameter(self, attr, shape, dtype="float32", is_bias=False,
-                         default_initializer=None):
+                         default_initializer=None, dist_attr=None):
         from ..dygraph import base as dy
         if dy.enabled():
             raise RuntimeError(
@@ -79,6 +79,8 @@ class LayerHelper:
             do_model_average=attr.do_model_average,
             need_clip=attr.need_clip,
             learning_rate=attr.learning_rate)
+        if dist_attr is not None:
+            param.dist_attr = tuple(dist_attr)
         initializer(param)
         return param
 

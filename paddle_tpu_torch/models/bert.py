@@ -7,8 +7,10 @@ the MLM head weight-tied to ``word_embedding``), and ``fluid.Executor``
 runs it. Attention is the einsum composite with attention dropout
 (``attn_mechanism`` None) or the ``flash_attention`` op, non-causal
 with a ``[B, 1, 1, S]`` key bias (``"flash"``), whose forward and
-backward are the CUDA kernels K1 and K2. Sequence-parallel attention
-(``"ring"``/``"ulysses"``), ``sp_shard`` and :func:`apply_tp_sharding`
+backward are the CUDA kernels K1 and K2. :func:`apply_tp_sharding`
+annotates the Megatron split as the JAX package does; pass ``tp_shard``
+(``CompiledProgram.with_data_parallel`` over a tp mesh) carries it out.
+Sequence-parallel attention (``"ring"``/``"ulysses"``) and ``sp_shard``
 are not ported.
 
 Every weight, embedding and layer-norm scale starts from
@@ -217,8 +219,21 @@ def bert_pretrain(cfg, batch_size, seq_len, max_preds, is_test=False,
 
 
 def apply_tp_sharding(program, cfg):
-    raise NotImplementedError("paddle_tpu_torch: tensor-parallel sharding "
-                              "of BERT is not ported")
+    """Annotate the encoder weights for Megatron tensor parallelism over
+    ``tp``, as the JAX package does: QKV and FFN-in split on the output
+    dim, attention-out and FFN-out on the input dim, the word embedding
+    (and the tied MLM head) on the vocab. Call before ``minimize``, so
+    the optimizer state takes the split too."""
+    from ..parallel.mesh import set_param_dist_attr as _set
+    for i in range(cfg.num_layers):
+        pre = f"encoder_layer_{i}"
+        _set(program, f"{pre}_multi_head_att_qkv.w_0", (None, "tp"))
+        _set(program, f"{pre}_multi_head_att_qkv.b_0", ("tp",))
+        _set(program, f"{pre}_multi_head_att_output_fc.w_0", ("tp", None))
+        _set(program, f"{pre}_ffn_fc_0.w_0", (None, "tp"))
+        _set(program, f"{pre}_ffn_fc_0.b_0", ("tp",))
+        _set(program, f"{pre}_ffn_fc_1.w_0", ("tp", None))
+    _set(program, "word_embedding", ("tp", None))
 
 
 def random_batch(cfg, batch_size, seq_len, max_preds, rng=None):

@@ -32,6 +32,17 @@ the ``stats`` sink when one is attached, else to the profiler as
 
     gen = GPTGenerator(cfg, params, max_len=512)           # on the GPU
     outs = gen.generate([prompt_ids], max_new_tokens=64, paged=True)
+
+Tensor parallelism (``tp=``, default ``FLAGS_serving_tp``): every rank
+of the launched world runs the generator on the same prompts, each
+holding its shards of the Megatron split (``gpt.GPT``'s tp form over the
+world's tp axis) and a pool or bank of its ``num_heads / tp`` heads; its
+decode steps are replayed graphs with their NCCL calls inside, and
+greedy sampling over the gathered logits keeps the ranks in step. The
+first run of each step kind passes the gate of the JAX package, rebuilt
+for the port (:class:`TPCompileGateError`): no parameter of at least
+``FLAGS_shard_audit_replicated_mb`` may be whole on a rank, and the bytes
+the step's collectives move must stay under :meth:`_tp_wire_budget`.
 """
 import contextlib
 import time
@@ -46,6 +57,13 @@ from ..observability import utilization as _util
 from ..ops.decode_ops import all_greedy, sample_tokens, spec_accept
 from ..serving.batching import next_bucket
 from .gpt import GPT
+
+
+class TPCompileGateError(RuntimeError):
+    """A tensor-parallel generation step failed its gate: a large
+    parameter is whole on every rank (the split was dropped, so tokens/s
+    would not scale), or its collectives moved more bytes than the
+    analytic budget."""
 
 
 def length_bucket(n, lo=1):
@@ -146,11 +164,16 @@ class GPTGenerator:
     stage synchronizes the device before it is timed."""
 
     def __init__(self, cfg, params, *, max_len=None, bucket_min=None,
-                 device=None, stats=None):
+                 device=None, stats=None, tp=None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tp = max(int(flag("serving_tp") if tp is None else tp), 1)
+        self.mesh = self._init_tp_mesh() if self.tp > 1 else None
         self.model = params if isinstance(params, GPT) \
-            else GPT(cfg, params, device=self.device)
+            else GPT(cfg, params, device=self.device, tp=self.tp,
+                     mesh=self.mesh)
+        self._gated = set()
+        self.wire_bytes = {}    # tp step kind -> bytes a step moved
         self.max_len = min(int(max_len or flag("decode_max_len")),
                            int(cfg.max_position))
         self.bucket_min = int(bucket_min or flag("decode_bucket_min"))
@@ -163,6 +186,71 @@ class GPTGenerator:
         self._drafters = {}
         self._decoder = None
         self._timer = _util.ExecutionTimer()
+
+    # -- tensor-parallel generation ---------------------------------------
+    def _init_tp_mesh(self):
+        """The tp mesh the model's shards and collectives run over, with
+        the JAX package's checks. The generator keeps it to itself (the
+        JAX package installs it as the ambient mesh): the port's
+        collectives follow the mesh of what runs them, and a later
+        ``with_data_parallel()`` keeps the whole world on ``dp``."""
+        from ..parallel.mesh import MeshConfig, make_mesh, world_size
+        n = world_size()
+        if self.tp > n:
+            raise ValueError(
+                f"FLAGS_serving_tp={self.tp} exceeds the {n} rank(s) of the "
+                f"world (one process per card: launch "
+                f"--nproc_per_node={self.tp})")
+        if self.cfg.num_heads % self.tp:
+            raise ValueError(
+                f"serving_tp={self.tp} must divide num_heads="
+                f"{self.cfg.num_heads} (the KV pool shards on the head "
+                f"axis)")
+        return make_mesh(MeshConfig(tp=self.tp))
+
+    def _tp_wire_budget(self, ntok, rows):
+        """The JAX package's analytic ceiling on the bytes a tp step's
+        collectives move: 8x the Megatron scheme's ~2 activation
+        all-reduces a layer plus the embedding and logits pair."""
+        cfg = self.cfg
+        analytic = (2 * cfg.num_layers + 2) * ntok * cfg.hidden_size * 4 \
+            + 2 * rows * cfg.vocab_size * 4
+        return 8 * analytic
+
+    def _tp_gate(self, kind, ntok=None, rows=None):
+        """The gate of a tp step kind: before its first run (``ntok``
+        None) no parameter of at least ``FLAGS_shard_audit_replicated_mb``
+        may be whole on a rank; after it, the bytes its collectives moved
+        (``model.step_wire``) must stay under the budget. Raises
+        :class:`TPCompileGateError`."""
+        if self.tp == 1:
+            return
+        if ntok is None:
+            if kind in self._gated:
+                return
+            mb = float(flag("shard_audit_replicated_mb"))
+            bad = [(t.numel() * t.element_size(), n)
+                   for n, t in self.param_tensors().items()
+                   if n not in self.model.layouts
+                   and t.numel() * t.element_size() >= mb * 2 ** 20]
+            if bad:
+                nbytes, worst = max(bad)
+                raise TPCompileGateError(
+                    f"tp={self.tp} generation step {kind!r} has {len(bad)} "
+                    f"replicated large parameter(s) — worst {worst} at "
+                    f"{nbytes / 2 ** 20:.3f} MiB: held whole on every rank, "
+                    f"so tokens/s would not scale")
+            return
+        if kind in self._gated:
+            return
+        wire = self.wire_bytes[kind] = int(self.model.step_wire)
+        budget = self._tp_wire_budget(ntok, rows)
+        if wire > budget:
+            raise TPCompileGateError(
+                f"tp={self.tp} generation step {kind!r} moves {wire} bytes "
+                f"over the wire a step, over the analytic budget of "
+                f"{budget}")
+        self._gated.add(kind)
 
     @property
     def decoder(self):
@@ -196,7 +284,9 @@ class GPTGenerator:
         weights. The copies are ordered on the device after the work
         already issued (a step in flight finishes on the old weights)."""
         from ..serving.engine import copy_in_place
-        copy_in_place(self.param_tensors(), new_params)
+        copy_in_place(self.param_tensors(),
+                      {n: self.model.shard(n, t)
+                       for n, t in new_params.items()})
 
     def release(self):
         """Free what ``generate`` keeps between calls: its dense bank's
@@ -260,8 +350,9 @@ class GPTGenerator:
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
     def new_dense_caches(self, rows):
-        """Zeroed dense bank: per layer ``[rows, H, max_len, D]`` K and V."""
-        shape = (rows, self.cfg.num_heads, self.max_len, self.cfg.d_head)
+        """Zeroed dense bank: per layer ``[rows, H, max_len, D]`` K and V
+        (H the rank's heads under tp)."""
+        shape = (rows, self.model.heads, self.max_len, self.cfg.d_head)
         n = self.cfg.num_layers
         return ([torch.zeros(shape, device=self.device) for _ in range(n)],
                 [torch.zeros(shape, device=self.device) for _ in range(n)])
@@ -269,17 +360,23 @@ class GPTGenerator:
     def run_prefill(self, tokens, pos_ids, last_pos):
         """Packed prompts (numpy) -> ``(logits, ks, vs)`` on the device."""
         bb, s = np.shape(tokens)
+        self._tp_gate("prefill")
         with self._stage("prefill", self._step_cost(np.zeros(bb), s)):
-            return self.model.prefill(self._dev(tokens), self._dev(pos_ids),
-                                      self._dev(last_pos))
+            out = self.model.prefill(self._dev(tokens), self._dev(pos_ids),
+                                     self._dev(last_pos))
+        self._tp_gate("prefill", bb * s, bb)
+        return out
 
     def run_logits(self, tokens, pos_ids, last_pos):
         """The full forward without a cache (``gpt_logits``): logits
         ``[B, V]`` at each row's ``last_pos``."""
         bb, s = np.shape(tokens)
+        self._tp_gate("logits")
         with self._stage("prefill", self._step_cost(np.zeros(bb), s)):
-            return self.model.logits(self._dev(tokens), self._dev(pos_ids),
-                                     self._dev(last_pos))
+            out = self.model.logits(self._dev(tokens), self._dev(pos_ids),
+                                    self._dev(last_pos))
+        self._tp_gate("logits", bb * s, bb)
+        return out
 
     def decode(self, token, pos, temperature, top_k, kv, decoder=None,
                live=None):
@@ -289,13 +386,16 @@ class GPTGenerator:
         row, None: all) limits a pool's writes to those rows' blocks."""
         decoder = decoder or self.decoder
         captures, capture_s = decoder.captures, decoder.capture_s
+        kind = "decode" if isinstance(kv, tuple) else "decode_paged"
+        self._tp_gate(kind)
         with self._stage("decode", self._step_cost(pos, 1, kv=kv),
                          synced=True) as body:
             toks = decoder.run(token, pos, temperature, top_k, kv,
                                live=live)
             body["excluded"] = decoder.capture_s - capture_s
+        rows = int(np.shape(token)[0])
+        self._tp_gate(kind, rows, rows)
         if decoder.captures != captures:
-            kind = "decode" if isinstance(kv, tuple) else "decode_paged"
             _prof.record_duration(f"decode/compile_{kind}", body["excluded"])
             if self.stats is not None:
                 self.stats.bump("compiles")
@@ -621,6 +721,7 @@ class GPTGenerator:
                 slots=rows, num_layers=self.cfg.num_layers,
                 num_heads=self.cfg.num_heads, d_head=self.cfg.d_head,
                 max_seq_len=self.max_len, dtype=kv_dtype, name="offline",
-                prefix_cache=False, device=self.device)
+                prefix_cache=False, device=self.device,
+                tp=self.cfg.num_heads // self.model.heads)
             self._paged_pools[key] = pool
         return pool

@@ -33,6 +33,17 @@ of parameter names (``word_embedding``, ``decoder_layer_{i}_qkv.w_0``,
 
 Layer norm has eps 1e-5, GELU is the exact erf form, ``fc`` is
 ``x @ W[in, out] + b`` and the head is ``h @ word_embedding.T``.
+
+Tensor parallelism: :func:`apply_tp_sharding` annotates the training
+program (pass ``tp_shard`` carries it out), and the module's tp form
+(``GPT(..., tp=)``, what ``GPTGenerator(tp=)`` builds) holds this rank's
+shards of the same split (:func:`tp_layouts`): its heads' columns of q,
+k and v out of the fused ``qkv``, its rows of ``att_out`` and
+``ffn_1``, its columns of ``ffn_0`` and its vocab rows of
+``word_embedding``. A layer then takes two all-reduces over the rank's
+tp group, the embedding a masked lookup and one, and the logits an
+all-gather; the attention kernels run on the rank's ``num_heads / tp``
+heads, over a cache of those heads only.
 """
 import copy
 
@@ -210,6 +221,23 @@ def gpt_pretrain(cfg, batch_size, seq_len, is_test=False):
                           T.fill_constant([1], "float32", 1e-9)))
     return {"feeds": [tokens, labels, loss_mask, pos_ids],
             "loss": loss, "checkpoints": checkpoints}
+
+
+def apply_tp_sharding(program, cfg):
+    """The Megatron split of :func:`bert.apply_tp_sharding` over ``tp``:
+    QKV and FFN-in on the output dim, attention-out and FFN-out on the
+    input dim, the word embedding (and the tied head) on the vocab. Call
+    before ``minimize``, so the optimizer state takes the split too."""
+    from ..parallel.mesh import set_param_dist_attr as _set
+    for i in range(cfg.num_layers):
+        pre = f"decoder_layer_{i}"
+        _set(program, f"{pre}_qkv.w_0", (None, "tp"))
+        _set(program, f"{pre}_qkv.b_0", ("tp",))
+        _set(program, f"{pre}_att_out.w_0", ("tp", None))
+        _set(program, f"{pre}_ffn_0.w_0", (None, "tp"))
+        _set(program, f"{pre}_ffn_0.b_0", ("tp",))
+        _set(program, f"{pre}_ffn_1.w_0", ("tp", None))
+    _set(program, "word_embedding", ("tp", None))
 
 
 def random_batch(cfg, batch_size, seq_len, rng=None):
@@ -499,22 +527,78 @@ def init_params(cfg, seed=0):
     return out
 
 
+def tp_layouts(cfg):
+    """``{name: parallel.tp.Layout}`` of the Megatron split of
+    :func:`apply_tp_sharding`: ``qkv`` split piece by piece (q, k, v)."""
+    from ..parallel.tp import Layout
+    h, f = cfg.hidden_size, cfg.ffn_size
+    out = {"word_embedding": Layout(0, 1, (cfg.vocab_size, h))}
+    for i in range(cfg.num_layers):
+        pre = f"decoder_layer_{i}"
+        out[f"{pre}_qkv.w_0"] = Layout(1, 3, (h, 3 * h))
+        out[f"{pre}_qkv.b_0"] = Layout(0, 3, (3 * h,))
+        out[f"{pre}_att_out.w_0"] = Layout(0, 1, (h, h))
+        out[f"{pre}_ffn_0.w_0"] = Layout(1, 1, (h, f))
+        out[f"{pre}_ffn_0.b_0"] = Layout(0, 1, (f,))
+        out[f"{pre}_ffn_1.w_0"] = Layout(0, 1, (f, h))
+    return out
+
+
 def _attr(name):
     return name.replace(".", "__")
 
 
 class GPT(nn.Module):
-    """Inference GPT over ``params`` (``{JAX scope name: tensor}``) on
-    ``device`` (None -> CUDA; raises without a GPU)."""
+    """Inference GPT over ``params`` (``{JAX scope name: tensor}``, whole)
+    on ``device`` (None -> CUDA; raises without a GPU). With ``tp`` > 1
+    it holds this rank's shards of :func:`tp_layouts` on the tp axis of
+    ``mesh`` (default ``parallel.mesh.make_mesh(tp=tp)``), runs its
+    ``num_heads / tp`` heads and sums or gathers over that axis of that
+    mesh wherever the split asks for it."""
 
-    def __init__(self, cfg, params, device=None):
+    def __init__(self, cfg, params, device=None, tp=1, mesh=None):
         super().__init__()
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.tp = int(tp or 1)
+        self.mesh, self.tp_rank, self.layouts = None, 0, {}
+        if self.tp > 1:
+            from ..parallel.mesh import MeshConfig, make_mesh
+            self.mesh = mesh or make_mesh(MeshConfig(tp=self.tp))
+            self.tp_rank = self.mesh.coords()["tp"]
+            self.layouts = tp_layouts(cfg)
+        self.heads = cfg.num_heads // self.tp
+        self.step_wire = 0          # bytes the last step's collectives moved
         params = params_from_jax(cfg, params)
         for name, t in params.items():
             self.register_parameter(_attr(name), nn.Parameter(
-                t.to(self.device), requires_grad=False))
+                self.shard(name, t).to(self.device), requires_grad=False))
+
+    def shard(self, name, t):
+        """This rank's shard of the whole parameter ``t`` (``t`` itself
+        when the name is not split)."""
+        lay = self.layouts.get(name)
+        if lay is None:
+            return t
+        from ..parallel.tp import shard_tensor
+        return shard_tensor(t, lay, self.tp, self.tp_rank)
+
+    def _tp_sum(self, x):
+        """The sum of the tp ranks' partial ``x`` (in place)."""
+        if self.tp == 1:
+            return x
+        from ..ops.collective_ops import all_reduce
+        self.step_wire += x.numel() * x.element_size()
+        return all_reduce(x.contiguous(), "sum", "tp", mesh=self.mesh)
+
+    def _tp_gather(self, x):
+        """The tp ranks' vocab columns ``x`` [..., V/tp] gathered."""
+        if self.tp == 1:
+            return x
+        from ..ops.collective_ops import all_gather
+        out = all_gather(x, "tp", x.dim() - 1, mesh=self.mesh)
+        self.step_wire += out.numel() * out.element_size()
+        return out
 
     def param(self, name):
         """Parameter by its JAX scope name."""
@@ -530,14 +614,24 @@ class GPT(nn.Module):
         nn.Module.__init__(small)
         small.cfg = cfg
         small.device = self.device
+        for k in ("tp", "mesh", "layouts", "tp_rank", "heads", "step_wire"):
+            setattr(small, k, getattr(self, k))
         for name in param_shapes(cfg):
             small.register_parameter(_attr(name), self.param(name))
         return small
 
     # -- pieces -----------------------------------------------------------
     def _embed(self, tokens, pos_ids):
-        return F.embedding(tokens, self.param("word_embedding")) \
-            + F.embedding(pos_ids, self.param("pos_embedding"))
+        self.step_wire = 0
+        w = self.param("word_embedding")
+        if self.tp > 1:
+            # the rank's vocab rows, then the ranks' lookups summed
+            from ..ops.collective_ops import vocab_lookup
+            e = self._tp_sum(vocab_lookup(tokens, w,
+                                          self.tp_rank * w.shape[0]))
+        else:
+            e = F.embedding(tokens, w)
+        return e + F.embedding(pos_ids, self.param("pos_embedding"))
 
     def _ln(self, x, name):
         return F.layer_norm(x, (self.cfg.hidden_size,),
@@ -545,19 +639,23 @@ class GPT(nn.Module):
                             self.param(f"{name}_bias"), eps=1e-5)
 
     def _fc(self, x, name):
-        return torch.matmul(x, self.param(f"{name}.w_0")) \
-            + self.param(f"{name}.b_0")
+        y = torch.matmul(x, self.param(f"{name}.w_0"))
+        lay = self.layouts.get(f"{name}.w_0")
+        if lay is not None and lay.dim == 0:     # row split: partial sums
+            y = self._tp_sum(y)
+        return y + self.param(f"{name}.b_0")
 
     def _layer(self, i, x, attend):
         """Pre-LN block: x + attn(LN(x)); x + ffn(LN(x)). ``attend(q, k,
-        v)`` takes and returns ``[B, H, S, D]``."""
+        v)`` takes and returns ``[B, H, S, D]`` (the rank's heads)."""
         cfg = self.cfg
-        B, S, h = x.shape
+        B, S, _ = x.shape
+        hl = self.heads * cfg.d_head
         pre = f"decoder_layer_{i}"
         qkv = self._fc(self._ln(x, f"{pre}_pre_att_ln"), f"{pre}_qkv")
-        q, k, v = (t.view(B, S, cfg.num_heads, cfg.d_head).transpose(1, 2)
-                   for t in qkv.split(h, dim=-1))
-        ctx = attend(q, k, v).transpose(1, 2).reshape(B, S, h)
+        q, k, v = (t.view(B, S, self.heads, cfg.d_head).transpose(1, 2)
+                   for t in qkv.split(hl, dim=-1))
+        ctx = attend(q, k, v).transpose(1, 2).reshape(B, S, hl)
         x = x + self._fc(ctx, f"{pre}_att_out")
         f = self._ln(x, f"{pre}_pre_ffn_ln")
         f = F.gelu(self._fc(f, f"{pre}_ffn_0"), approximate="none")
@@ -567,13 +665,14 @@ class GPT(nn.Module):
         """final-LN hidden [B, S, H] -> logits [B, V] at each row's
         ``last_pos`` (tied head)."""
         h = row_gather(self._ln(x, "final_ln"), last_pos)
-        return torch.matmul(h, self.param("word_embedding").t())
+        return self._tp_gather(torch.matmul(
+            h, self.param("word_embedding").t()))
 
     def _span_logits(self, x):
         """final-LN hidden [B, S, H] -> logits [B, S, V] at EVERY position
         (the verify step scores all K+1 speculative positions)."""
-        return torch.matmul(self._ln(x, "final_ln"),
-                            self.param("word_embedding").t())
+        return self._tp_gather(torch.matmul(
+            self._ln(x, "final_ln"), self.param("word_embedding").t()))
 
     def _paged_attend(self, pools, tables, start_pos, limit, i):
         """``attend`` of layer ``i`` over the block pool for S >= 1 fresh

@@ -80,6 +80,11 @@ class Optimizer:
             persistable=True, stop_gradient=True)
         # io.load_checkpoint names such vars when a checkpoint lacks them
         var.is_optimizer_state = True
+        # the parameter's sharding, on an accumulator of its shape (Adam's
+        # moments split with their parameter under tp)
+        if param.dist_attr is not None and \
+                list(var.shape) == list(param.shape):
+            var.dist_attr = param.dist_attr
         ConstantInitializer(fill_value)(var)
         self._accumulators.setdefault(name, {})[param.name] = var
         return var

@@ -1,4 +1,5 @@
-"""CompiledProgram: a program made data-parallel over the process world.
+"""CompiledProgram: a program made data- and tensor-parallel over the
+process world.
 
 Counterpart of ``paddle_tpu/parallel/compiler.py`` (reference
 python/paddle/fluid/compiler.py:158 and the C++ ParallelExecutor,
@@ -17,6 +18,15 @@ batch computes:
   its last producer (pass ``dp_grad_allreduce``, in coalesced buckets),
   before anything reads it.
 
+Over a ``dp`` x ``tp`` mesh (``make_mesh(MeshConfig(dp=2, tp=2))``) the
+program is first rewritten for the rank's tp coordinate (pass
+``tp_shard``, ``parallel.tp``): each parameter annotated on ``tp`` and
+its optimizer state become the rank's shard, Megatron's collectives go
+in around the split matmuls; the grads are then summed over the rank's
+dp group only and scaled by 1/dp. The executor cuts each rank's shard
+out of a whole value before a run reads it (``_place_shards``: the
+startup's values, a load's), and a save gathers them back.
+
 The executor runs such a program on each rank (``Executor.run``,
 ``run_steps`` as a captured CUDA graph with the all-reduces inside,
 ``train_from_dataset``): its first run on a scope broadcasts every
@@ -25,10 +35,12 @@ ops fold the rank into their seeds, and the non-finite guard's counts
 are all-reduced so every rank commits or rolls back alike. Fetches are
 the rank's own (a loss is the mean over its rows).
 """
+import copy
 import warnings
 import weakref
 
-from .mesh import check_device, default_mesh, get_mesh, init_parallel_env
+from .mesh import (activate, axis_size, check_device, default_mesh,
+                   get_mesh, init_parallel_env)
 
 
 class BuildStrategy:
@@ -99,6 +111,7 @@ class CompiledProgram:
         self.loss_name = None
         self._data_parallel = False
         self._synced = weakref.WeakSet()
+        self._tp_layouts = {}
 
     def with_data_parallel(self, loss_name=None, build_strategy=None,
                            exec_strategy=None, share_vars_from=None,
@@ -114,8 +127,9 @@ class CompiledProgram:
         self.exec_strategy = exec_strategy
         n = init_parallel_env()
         self.mesh = mesh or get_mesh() or default_mesh()
-        if self.mesh.shape.get("dp") != n:
+        if self.mesh.size != n:
             raise ValueError(f"{self.mesh} over a world of {n} ranks")
+        dp, tp = axis_size(self.mesh, "dp"), axis_size(self.mesh, "tp")
         bs = self.build_strategy
         if bs.gradient_scale_strategy != \
                 BuildStrategy.GradientScaleStrategy.CoeffNumDevice:
@@ -130,12 +144,16 @@ class CompiledProgram:
                               % (knob, getattr(bs, knob), why),
                               stacklevel=2)
         prog = self.program.clone()
+        activate(self.mesh)       # the verifier sizes c_concat by it
         passes = []
+        if tp > 1:
+            passes.append(get_pass("tp_shard", mesh=self.mesh))
         if any(op.type == "batch_norm"
                for blk in prog.blocks for op in blk.ops):
             passes.append("sync_batch_norm")
-        passes.append(get_pass("dp_grad_allreduce", nranks=n))
+        passes.append(get_pass("dp_grad_allreduce", nranks=dp))
         self.program = apply_passes(prog, passes)
+        self._tp_layouts = getattr(self.program, "_tp_layouts", {})
         self._data_parallel = True
         return self
 
@@ -148,15 +166,27 @@ class CompiledProgram:
 
     def _prepare(self, device):
         """The program to run on ``device`` (checked against the world's
-        backend for a data-parallel program)."""
+        backend for a data-parallel program, whose collectives then
+        resolve their axes against its mesh)."""
         if self._data_parallel:
             check_device(device)
+        activate(self.mesh if self._data_parallel else None)
         return self.program
+
+    def _for_test(self):
+        """This program's inference clone over the same mesh, state and
+        first-run broadcast."""
+        out = copy.copy(self)
+        out.program = self.program.clone(for_test=True)
+        return out
 
     def _sync_once(self, scope, names):
         """Broadcast ``names`` (the scope state a step reads) from rank 0,
         on the first run of this program on ``scope``; the run seed
-        too, so every rank's checkpoints agree."""
+        too, so every rank's checkpoints agree. A whole value goes from
+        world rank 0 (before the ranks take their tp shards), a shard a
+        scope already holds from the first rank of the rank's dp
+        group."""
         from .mesh import is_initialized
         if not (self._data_parallel and is_initialized()) \
                 or scope in self._synced:
@@ -167,15 +197,26 @@ class CompiledProgram:
         for n in names:
             val = scope.find_var(n)
             if isinstance(val, torch.Tensor):
-                broadcast_(val, 0)
+                lay = self._tp_layouts.get(n)
+                whole = lay is None or tuple(val.shape) == \
+                    tuple(lay.full_shape)
+                broadcast_(val, 0, None if whole else "dp")
         seed = scope.find_var(RNG_STATE_NAME)
         if seed is not None:
             dev = next((v.device for v in (scope.find_var(n)
                                            for n in names)
                         if isinstance(v, torch.Tensor)), None)
             t = torch.tensor([int(seed)], dtype=torch.int64, device=dev)
-            scope.set(RNG_STATE_NAME, int(broadcast_(t, 0)[0]))
+            scope.set(RNG_STATE_NAME, int(broadcast_(t, 0, None)[0]))
         self._synced.add(scope)
+
+    def _place_shards(self, scope, names):
+        """Each whole value among ``names`` that the tp rewrite split,
+        replaced in ``scope`` by this rank's shard (every run: a load
+        puts whole values back)."""
+        if self._tp_layouts:
+            from .tp import place_shards
+            place_shards(scope, self._tp_layouts, names, self.mesh)
 
 
 class ParallelExecutor:

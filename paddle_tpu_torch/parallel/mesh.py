@@ -13,13 +13,36 @@ FLAGS_selected_gpus)`` makes ``device=None`` the rank's own card. A
 process that was not launched is a world of 1 and needs no process
 group; a launched one has a group, whatever its size.
 
-A :class:`Mesh` here is the ``dp`` axis over the world's ranks. Any
-other axis (``tp``, ``pp``, ``sp``, ``ep``, ``dcn_dp``),
-``set_param_dist_attr``, ``partition_spec`` and ``sharding_for`` raise
-``NotImplementedError``: model parallelism is ROADMAP.md Queue 1 item
-7b.
+A :class:`Mesh` lays the world's ranks out on a ``dp`` and a ``tp``
+axis, ``tp`` innermost (``AXIS_ORDER`` puts it last), so the ranks of
+one tensor-parallel group are consecutive: rank ``r`` sits at ``dp``
+coordinate ``r // tp`` and ``tp`` coordinate ``r % tp``. Building a
+mesh with ``tp > 1`` in a launched world makes one process group per
+``tp`` group and per ``dp`` group, on every rank in the same order (the
+collectives of ``ops.collective_ops`` run over them). The other axes
+(``pp``, ``sp``, ``ep``, ``dcn_dp``) raise ``NotImplementedError``: the
+rest of ROADMAP.md Queue 1 item 7b.
+
+A collective names an axis, never a mesh: the helpers below resolve it
+against the mesh they are given, else the layout :func:`activate`
+installed (:func:`world_mesh`; the whole world on ``dp`` when none is).
+Whatever runs collectives brings its own mesh: the executor activates
+a ``CompiledProgram``'s mesh for each of its runs (and the whole world
+for a plain program), a tp ``GPT`` passes its mesh to every collective
+it calls, and a scope that holds tp shards keeps the mesh they were cut
+for. So a mesh made for one purpose (a tp generator) never changes the
+groups of another (a data-parallel program).
+
+``set_param_dist_attr`` annotates a parameter, :func:`partition_spec`
+sanitises a spec as the JAX package does, and :func:`sharding_for`
+gives the sanitised spec of an annotated variable. The JAX package lets
+GSPMD split the annotated state; here pass ``tp_shard``
+(``framework.passes``) rewrites the program per rank and the executor
+holds each rank's shard (``parallel.tp``, the one place that slices a
+layout).
 """
 import inspect
+import math
 import os
 from dataclasses import dataclass
 
@@ -57,8 +80,8 @@ def rank():
 
 def dp_group():
     """The process group of the ``dp`` axis: the whole world (None, the
-    default group), or None outside a world."""
-    return None
+    default group) unless the world's layout has a ``tp`` axis."""
+    return axis_group("dp")
 
 
 def backend():
@@ -178,38 +201,152 @@ class MeshConfig:
                 "ep": self.ep, "sp": self.sp, "tp": self.tp}
 
 
-class Mesh:
-    """The ``dp`` axis over the world's ranks: ``axis_names`` ("dp",)
-    and ``shape`` {"dp": world size}, as a JAX mesh reports them."""
+class PartitionSpec(tuple):
+    """One mesh axis name (or None, or a tuple of names) per dim: the
+    port's stand-in for ``jax.sharding.PartitionSpec`` (equal specs
+    compare equal as tuples)."""
 
-    def __init__(self, dp):
-        self.axis_names = ("dp",)
-        self.shape = {"dp": int(dp)}
-        self.size = int(dp)
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
 
     def __repr__(self):
-        return f"Mesh(dp={self.size})"
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+class Mesh:
+    """The world's ranks on named axes: ``axis_names`` and ``shape``
+    ({axis: size}) as a JAX mesh reports them, the axes of size > 1 in
+    ``AXIS_ORDER`` (``("dp",)`` when there is none). ``groups`` maps an
+    axis to this rank's process group on it (None: the whole world, or
+    no world); a mesh made outside a world has none and is only a
+    shape (``partition_spec`` over it)."""
+
+    def __init__(self, dp=1, tp=1):
+        dp, tp = int(dp), int(tp)
+        used = [(a, n) for a, n in (("dp", dp), ("tp", tp)) if n > 1]
+        if not used:
+            used = [("dp", dp)]
+        self.axis_names = tuple(a for a, _ in used)
+        self.shape = dict(used)
+        self.size = dp * tp
+        self.dp, self.tp = dp, tp
+        self.groups = {}
+
+    def coords(self, r=None):
+        """``{"dp": i, "tp": j}`` of rank ``r`` (this rank by default)."""
+        r = rank() if r is None else int(r)
+        return {"dp": r // self.tp, "tp": r % self.tp}
+
+    def axis_ranks(self, axis, r=None):
+        """The world ranks of rank ``r``'s group on ``axis``, in axis
+        order."""
+        c = self.coords(r)
+        if axis == "tp":
+            return [c["dp"] * self.tp + j for j in range(self.tp)]
+        return [i * self.tp + c["tp"] for i in range(self.dp)]
+
+    def __repr__(self):
+        return "Mesh(" + ", ".join(f"{a}={n}" for a, n in
+                                   self.shape.items()) + ")"
+
+
+_built = {}            # (dp, tp) -> Mesh, groups made once per world
+_active = None         # the layout the collectives resolve axes against
+
+
+def _make_groups(mesh):
+    """One process group per tp group and per dp group, every rank
+    making them all in the same order (``new_group`` is collective)."""
+    dist = _dist()
+    r = rank()
+    for axis, count in (("tp", mesh.dp), ("dp", mesh.tp)):
+        if count == mesh.size:         # groups of one rank: no traffic
+            continue
+        for k in range(count):
+            members = mesh.axis_ranks(
+                axis, k * mesh.tp if axis == "tp" else k)
+            g = dist.new_group(members)
+            if r in members:
+                mesh.groups[axis] = g
 
 
 def make_mesh(config=None, devices=None, **axes):
-    """A ``dp``-only mesh over the world (``config.dp`` must be the
-    world size; 1 by default means the whole world). Any other axis
-    raises: item 7b."""
+    """The world's ranks on a ``dp`` x ``tp`` mesh. ``tp`` must divide
+    the world; ``dp`` 1 (the default) means the rest of it, any other
+    ``dp`` must make ``dp * tp`` the world size. Any other axis raises:
+    item 7b."""
     if config is None:
         config = MeshConfig(**{k: v for k, v in axes.items() if v})
     sizes = config.axis_sizes()
-    other = [a for a in AXIS_ORDER if a != "dp" and sizes[a] > 1]
+    other = [a for a in AXIS_ORDER if a not in ("dp", "tp")
+             and sizes[a] > 1]
     if other:
         raise not_ported_7b(f"mesh axes {other}")
     if devices is not None:
         raise not_ported_7b("a mesh over an explicit device list")
     n = world_size()
-    dp = sizes["dp"]
-    if dp not in (1, n):
-        raise ValueError(f"a dp={dp} mesh needs {dp} ranks; the world has "
-                         f"{n} (one process per card: launch "
-                         f"--nproc_per_node={dp})")
-    return Mesh(n)
+    tp = max(int(sizes["tp"]), 1)
+    dp = int(sizes["dp"])
+    if dp == 1:
+        dp = n // tp if n % tp == 0 else 0
+    if dp * tp != n:
+        want = (dp or 1) * tp
+        raise ValueError(f"a dp={sizes['dp']} tp={tp} mesh needs {want} "
+                         f"ranks; the world has {n} (one process per "
+                         f"card: launch --nproc_per_node={want})")
+    mesh = _built.get((dp, tp))
+    if mesh is None:
+        mesh = Mesh(dp, tp)
+        if tp > 1 and is_initialized():
+            _make_groups(mesh)
+        _built[(dp, tp)] = mesh
+    return mesh
+
+
+def activate(mesh):
+    """Install ``mesh`` as the layout the collectives of a running
+    program resolve their axes against (None: the whole world on
+    ``dp``); returns it. The executor calls it for each run."""
+    global _active
+    _active = mesh
+    return mesh
+
+
+def world_mesh(mesh=None):
+    """``mesh``, else the active layout, else the whole world on
+    ``dp``."""
+    if mesh is not None:
+        return mesh
+    if _active is not None:
+        return _active
+    return Mesh(world_size())
+
+
+def axis_group(axis, mesh=None):
+    """This rank's process group on ``axis`` of ``mesh`` (default: the
+    active layout; None: the default group, the whole world)."""
+    if axis not in ("dp", "tp"):
+        raise not_ported_7b(f"the {axis!r} axis")
+    return world_mesh(mesh).groups.get(axis)
+
+
+def axis_world_size(axis, mesh=None):
+    """The size of ``axis`` in ``mesh`` (default: the active layout;
+    ``tp`` is 1 without a tp mesh, ``dp`` then the world)."""
+    m = world_mesh(mesh)
+    return m.tp if axis == "tp" else m.dp
+
+
+def axis_rank(axis, mesh=None):
+    """This rank's coordinate on ``axis`` of ``mesh`` (default: the
+    active layout)."""
+    return world_mesh(mesh).coords()[axis]
+
+
+def axis_global_rank(axis, index, mesh=None):
+    """The world rank of index ``index`` of this rank's ``axis`` group
+    in ``mesh`` (default: the active layout)."""
+    return world_mesh(mesh).axis_ranks(axis)[int(index)]
 
 
 def set_mesh(mesh):
@@ -229,7 +366,7 @@ def default_mesh(n_devices=None):
     if n_devices not in (None, n):
         raise ValueError(f"{n_devices} devices asked for; the world has "
                          f"{n} ranks, one card each")
-    return Mesh(n)
+    return make_mesh(MeshConfig(dp=n))
 
 
 def axis_size(mesh, name):
@@ -238,19 +375,56 @@ def axis_size(mesh, name):
 
 
 def set_param_dist_attr(program, name, spec):
-    raise not_ported_7b("set_param_dist_attr")
+    """Annotate a program variable with a mesh-axis sharding spec (the
+    helper behind bert/gpt ``apply_tp_sharding``). Call BEFORE
+    ``optimizer.minimize()``: accumulators copy the parameter's
+    ``dist_attr`` when they are made."""
+    var = program.global_block().vars.get(name)
+    if var is not None:
+        var.dist_attr = tuple(spec)
 
 
 def partition_spec(mesh, spec, shape=None):
-    raise not_ported_7b("partition_spec")
+    """Sanitise a raw axis-name spec against ``mesh``, as the JAX
+    package does: unknown axes replicate, and (when ``shape`` is given)
+    an axis that does not divide its dim drops; a dim sharded jointly
+    over several axes keeps the known ones and must divide by the
+    product of their sizes."""
+    spec = tuple(spec or ())
+    if shape is not None:
+        spec = spec[:len(shape)] + (None,) * (len(shape) - len(spec))
+    out = []
+    for i, a in enumerate(spec):
+        if isinstance(a, (tuple, list)):
+            sub = tuple(x for x in a if x in mesh.axis_names)
+            prod = math.prod(int(mesh.shape[x]) for x in sub) if sub else 1
+            if not sub or (shape is not None and shape[i] % prod != 0):
+                out.append(None)
+            else:
+                out.append(sub if len(sub) > 1 else sub[0])
+            continue
+        if a is None or a not in mesh.axis_names:
+            out.append(None)
+        elif shape is not None and shape[i] % mesh.shape[a] != 0:
+            out.append(None)
+        else:
+            out.append(a)
+    return PartitionSpec(*out)
 
 
 def sharding_for(mesh, var):
-    raise not_ported_7b("sharding_for")
+    """The sanitised spec of ``var``'s ``dist_attr`` over ``mesh`` (all
+    None, replicated, without one)."""
+    shape = getattr(var, "shape", None)
+    if var is None or getattr(var, "dist_attr", None) is None:
+        return PartitionSpec(*([None] * len(shape or ())))
+    return partition_spec(mesh, var.dist_attr, shape)
 
 
-__all__ = ["AXIS_ORDER", "Mesh", "MeshConfig", "any_failed", "axis_size",
-           "backend", "barrier", "check_device", "default_mesh", "dp_group",
-           "get_mesh", "init_parallel_env", "is_initialized", "make_mesh",
+__all__ = ["AXIS_ORDER", "Mesh", "MeshConfig", "PartitionSpec",
+           "activate", "any_failed", "axis_global_rank", "axis_group",
+           "axis_rank", "axis_size", "axis_world_size", "backend", "barrier",
+           "check_device", "default_mesh", "dp_group", "get_mesh",
+           "init_parallel_env", "is_initialized", "make_mesh",
            "partition_spec", "rank", "set_mesh", "set_param_dist_attr",
-           "sharding_for", "world_size"]
+           "sharding_for", "world_mesh", "world_size"]

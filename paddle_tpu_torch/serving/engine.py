@@ -496,6 +496,13 @@ class GenerationEngine:
                  paged=None, kv_dtype=None, kv_block_size=None,
                  kv_pool_blocks=None, pool_name="serving",
                  prefix_cache=None):
+        if getattr(generator, "tp", 1) > 1:
+            raise NotImplementedError(
+                "paddle_tpu_torch: a GenerationEngine over a tensor-parallel "
+                "generator (tp > 1) is not ported: tp behind the batcher "
+                "and the server needs a leader rank that hands each step's "
+                "admissions to its followers (ROADMAP.md Queue 1 item 7b, "
+                "its first part)")
         self.gen = generator
         self.slots = int(slots or flag("decode_slots"))
         self.stats = stats if stats is not None else generator.stats

@@ -226,14 +226,22 @@ class KVBlockPool:
     bank's footprint, ``slots * ceil(max_seq_len / block_size) + 1``.
     ``prefix_cache`` (None: ``FLAGS_kv_prefix_cache``) turns the prefix
     index on. ``device=None`` means the GPU and raises without one.
+    ``tp`` > 1: the pool of one tensor-parallel rank, which holds its
+    ``num_heads / tp`` heads of every block (``num_heads`` is then the
+    pool's heads; the JAX package's ``apply_pool_sharding``): the cache
+    never crosses cards.
     """
 
     def __init__(self, *, slots, num_layers, num_heads, d_head,
                  max_seq_len, block_size=None, num_blocks=None, dtype=None,
-                 name="serving", prefix_cache=None, device=None):
+                 name="serving", prefix_cache=None, device=None, tp=1):
         self.slots = int(slots)
         self.num_layers = int(num_layers)
-        self.num_heads = int(num_heads)
+        self.tp = int(tp or 1)
+        if int(num_heads) % self.tp:
+            raise ValueError(f"tp={self.tp} must divide num_heads="
+                             f"{num_heads} (the pool splits on heads)")
+        self.num_heads = int(num_heads) // self.tp
         self.d_head = int(d_head)
         self.max_seq_len = int(max_seq_len)
         self.block_size = int(block_size or flag("kv_block_size"))

@@ -83,7 +83,7 @@ def jax_dict(program):
     d = program.to_dict()
     for blk in d["blocks"]:
         for v in blk["vars"].values():
-            assert v.pop("dist_attr") is None
+            assert v["dist_attr"] is None
     return d
 
 

@@ -19,8 +19,8 @@ package writes, the other reads.
   port seed deterministically (the same key, the same seed and the same
   dropout mask); the port's own seed round-trips and the JAX package
   ignores it.
-- ``Program.to_dict``/``from_dict`` across the packages (the port writes
-  no ``dist_attr``), ``_prune`` (the served ops only; a dangling
+- ``Program.to_dict``/``from_dict`` across the packages (both write
+  ``dist_attr``), ``_prune`` (the served ops only; a dangling
   sub_block attr skipped as the JAX package skips it), and the
   checkpoint entry points work (``tests/test_torch_checkpoint.py`` holds
   them to the JAX package) while the supervisor side of ``train``
@@ -56,7 +56,7 @@ def jax_dict(program):
     d = program.to_dict()
     for blk in d["blocks"]:
         for v in blk["vars"].values():
-            assert v.pop("dist_attr") is None
+            assert v["dist_attr"] is None
     return d
 
 

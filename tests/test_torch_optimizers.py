@@ -177,7 +177,7 @@ def _jax_dict(program):
     d = program.to_dict()
     for blk in d["blocks"]:
         for v in blk["vars"].values():
-            assert v.pop("dist_attr") is None
+            assert v["dist_attr"] is None
     return d
 
 

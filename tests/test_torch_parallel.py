@@ -329,11 +329,18 @@ def test_rank_raising_mid_step_ends_the_launch(tmp_path):
 
 
 def test_mesh_axes_other_than_dp_raise():
+    """The boundary of item 7b: ``tp`` builds a mesh (here, a world of 1,
+    only at tp 1; a tp 2 mesh needs 2 ranks) and ``partition_spec``
+    works; ``pp``, ``sp``, ``ep`` and ``dcn_dp`` still raise."""
     from paddle_tpu_torch.parallel import mesh
-    with pytest.raises(NotImplementedError, match="item 7b"):
+    for axis in ("pp", "sp", "ep", "dcn_dp"):
+        with pytest.raises(NotImplementedError, match="item 7b"):
+            mesh.make_mesh(mesh.MeshConfig(**{axis: 2}))
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         mesh.make_mesh(mesh.MeshConfig(tp=2))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        mesh.partition_spec(None, ("dp",))
+    assert mesh.make_mesh(mesh.MeshConfig(tp=1)).shape == {"dp": 1}
+    assert mesh.partition_spec(mesh.Mesh(2, 2), ("dp", "tp"), (4, 6)) == \
+        ("dp", "tp")
     assert mesh.make_mesh(mesh.MeshConfig(dp=1)).shape == {"dp": 1}
     with pytest.raises(ValueError, match="needs 4 ranks"):
         mesh.make_mesh(mesh.MeshConfig(dp=4))

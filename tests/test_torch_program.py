@@ -3,9 +3,8 @@
 the same ``program.to_dict()``, op for op, for the main and the startup
 program, and ``clone(for_test=True)`` prunes both alike.
 
-Left out of the comparison: each var's ``dist_attr`` key. The JAX
-package carries sharding annotations there (None for every var of these
-programs); the port has no sharded placement yet and no such key."""
+Each var's ``dist_attr`` key is compared too: None for every var of
+these programs in both packages."""
 import numpy as np
 import pytest
 
@@ -31,7 +30,7 @@ def _jax_dict(program):
     d = program.to_dict()
     for blk in d["blocks"]:
         for v in blk["vars"].values():
-            assert v.pop("dist_attr") is None
+            assert v["dist_attr"] is None
     return d
 
 

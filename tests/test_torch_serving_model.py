@@ -237,14 +237,22 @@ def test_typed_errors(saved):
     with pytest.raises(BadRequestError, match="shape"):
         server.submit({"x": np.zeros((1, 8), np.float32)})
     # the batcher is not running: the queue holds one request, then
-    # refuses; a request whose deadline passes in the queue expires
-    held = server.submit({"x": x}, deadline_ms=1.0)
+    # refuses (the held request's deadline is far off, so the full
+    # queue's sweep of expired entries cannot make room)
+    held = server.submit({"x": x}, deadline_ms=600_000.0)
     with pytest.raises(ServerOverloadedError, match="depth"):
         server.submit({"x": x})
+    # a request whose deadline passes in the queue before the batcher
+    # starts expires
+    late = InferenceServer(d, place=CPU, queue_depth=1)
+    expired = late.submit({"x": x}, deadline_ms=1.0)
     time.sleep(0.01)
-    server.start()
+    late.start(serve_network=False)
     with pytest.raises(DeadlineExceededError):
-        held.wait(timeout=10)
+        expired.wait(timeout=10)
+    late.stop()
+    server.start()
+    held.wait(timeout=30)
     with Client(server.endpoint, timeout=30) as c:
         with pytest.raises(BadRequestError, match="float64"):
             c.infer({"x": x.astype(np.float64)})
