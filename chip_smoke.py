@@ -204,7 +204,7 @@ NVIDIA GPU.
      flash_attention_grad and leaves the scope as it was; unpatched, the
      step captures (K2's wrapper makes no host sync);
    - flagship_steps: bench.py main()'s flagship (B64 S128, einsum,
-     dropout 0.1): 8 eager steps against a run_steps slab of 8, losses
+     dropout 0.1), 4 layers deep (``ONE_CARD_LAYERS``): 8 eager steps against a run_steps slab of 8, losses
      and scope bitwise (a replay draws its eager step's dropout masks);
      wall and device ms a step both ways, idle share;
    - train_loop_lenet: bench.py's bench_train_loop (LeNet B512, K 1, 8,
@@ -259,7 +259,7 @@ NVIDIA GPU.
       tracer key bitwise (loss, every parameter, every Adam slot, dropout
       on);
     - dygraph_bert_ab: tools/bench_dygraph_ab.py, BertPretrainDy(base)
-      by jit_step against the static bert_pretrain by run_steps (K 8),
+      4 layers deep (``ONE_CARD_LAYERS``) by jit_step against the static bert_pretrain by run_steps (K 8),
       fp32 B64 S128 P20, Adam 1e-4: ms/step, device ms and launches a
       step each, their ratio, the eager dygraph step's ms;
     - dygraph_capture_refusals: a jit_step step that copies host data to
@@ -389,7 +389,8 @@ NVIDIA GPU.
       all-reduce's device ms in an eager step, peak memory, capture
       seconds;
     - fleet_bert: BERT-base at bench_bert_long's shape (B16 S2048 P64,
-      flash, bf16 AMP, Adam at noam_decay, dropout 0) through the Fleet
+      flash, bf16 AMP, Adam at noam_decay, dropout 0; 2 layers deep on
+      a one-card machine, ``ONE_CARD_LAYERS``) through the Fleet
       collective (fleet.init(PaddleCloudRoleMaker(is_collective=True)),
       distributed_optimizer(opt).minimize(loss), fleet.startup_program,
       run_steps of fleet.main_program, K 4): the slab bitwise its eager
@@ -428,9 +429,28 @@ NVIDIA GPU.
       |ref|, K1 12 a prefill and K5 12 a decode step by replay on each
       rank, NCCL kernels in a profiled replay, the wire bytes of a
       decode step and a prefill under the gate's budget; tokens/s,
-      ms a token and decode ms a step at both (tp 1 timed on one rank
-      at a time while the others wait), ``speedup_vs_1``, the weight
-      bytes a card.
+      ms a token and decode ms a step at both (each the median of 5
+      calls; tp 1 timed on one rank at a time while the others wait,
+      with the spread over the ranks), ``speedup_vs_1``, the weight
+      bytes a card;
+    - tp_serving: GPT-base (seeded weights A, and B saved whole) served
+      over the wire by ``InferenceServer(generator=GPTGenerator(tp=N))``
+      on every rank (paged fp32, 8 slots; the leader serves, the others
+      run the follower loop), 4 client threads: 16 timed requests of
+      64-1024 tokens (64 new), two chunked prefills (256-token chunks),
+      two n-gram speculative requests (k 4), one cancelled mid-decode,
+      one prefill-only request whose KV payload continues on one card in
+      a tp 1 ``GenerationEngine``, a profiled window on every rank, a
+      hot reload to B with 4 requests in flight, ``drain``, then a
+      server with the prefix cache serving one prompt twice: every
+      request's tokens equal ``GPTGenerator(tp=1).generate``'s under
+      its weights, the pools' digests equal after every group, K1 12 a
+      prefill and K5 12 a paged decode step (each capture's warm-up
+      included) on every rank, NCCL and K5 kernels in every rank's
+      profiled window (tp > 1), 0 blocks held after each drain, every
+      follower ending clean; served tokens/s, decode ms a step, the
+      leader's hand-off us a step, the weight bytes a card, beside
+      tp_generate's rows of the same run.
     ``--only-tp`` runs these alone (no kernels line, no ok line).
 14. The core layer surface, last among the main paths:
     - gpt_programs: GPT's generation programs built from the registered
@@ -506,8 +526,9 @@ NVIDIA GPU.
       batch after a fault B's tokens; tokens/s before and after the
       reload, the swap pause, the reload's wall time, the ms of the
       in-place weight copy, the health snapshot;
-    - supervised_bert (K1, K2): BERT-base at bench_bert_long's shape
-      (B16 S2048 P64, flash, bf16 AMP, Adam at noam_decay, dropout 0.1)
+    - supervised_bert (K1, K2): BERT-base at bench_bert_long's shape, 2
+      layers deep (``ONE_CARD_LAYERS``; B16 S2048 P64, flash, bf16 AMP,
+      Adam at noam_decay, dropout 0.1)
       under ``train.TrainingSupervisor``, K 2 over 6 prestacked seeded
       slabs, four runs on one executor: clean (health every 3 slabs),
       crash and hang (a dispatch fault at slab 3, a stall past a 5 s
@@ -5265,6 +5286,13 @@ def sequence_lstm(torch, np, place=None, cfg=SEQ_BOOK, K=4, seed=41):
 # 0.999, epsilon 1e-6, weight decay 0.01, a linear warm-up into a
 # polynomial decay, global-norm clipping at 1.0; the warm-up is cut to 4
 # steps so that 8 steps see the rate rise and the loss fall
+# the depths these BERT-base paths train at in the one-card run, where
+# 12 layers each left the script no room inside its time limit (each
+# path's checks scale with its layers; BERT-base's width, batch and
+# sequence stay; fleet_bert's on one card only, so a four-card run's
+# scaling line compares like with like)
+ONE_CARD_LAYERS = {"supervised_bert": 2, "fleet_bert": 2,
+                   "dygraph_bert_ab": 4, "flagship_steps": 4}
 LAMB_BERT = {"peak_lr": 1e-3, "warmup_steps": 4, "decay_steps": 1000,
              "end_lr": 0.0, "power": 1.0, "weight_decay": 0.01,
              "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-6,
@@ -5948,7 +5976,8 @@ def dp_worker(argpath):
         place = fluid.CPUPlace()
     fn = {"dp_parity": _dp_parity, "dp_resnet50": _dp_resnet50,
           "fleet_bert": _fleet_bert, "tp_parity": _tp_parity,
-          "tp_bert": _tp_bert, "tp_generate": _tp_generate}[args["phase"]]
+          "tp_bert": _tp_bert, "tp_generate": _tp_generate,
+          "tp_serving": _tp_serving}[args["phase"]]
     from paddle_tpu_torch import kernels
     for w in kernels.COUNTED:
         w.launches = 0
@@ -6644,6 +6673,8 @@ def dp_phases(torch, np, counters, name, n=None, args=None, at_one=True):
         a = dict(args.get(name, {}))
         if args.get("cpu"):
             a["cpu"] = True
+        elif n == 1 and name == "fleet_bert":
+            a.setdefault("layers", ONE_CARD_LAYERS["fleet_bert"])
         a.setdefault("run", {"dp_resnet50": DP_RESNET,
                              "fleet_bert": DP_BERT}.get(name, {}))
         out[k] = rec = dp_phase(torch, np, name, k, a)
@@ -6684,9 +6715,11 @@ TP_NCCL_OPS = ("c_identity_grad", "mp_allreduce_sum", "c_concat",
 
 
 def tp_grid(n, phase):
-    """(dp, tp) of a tp phase on ``n`` cards: tp_generate at tp n, the
-    training phases at dp 2 x tp 2 on 4 cards (tp n below)."""
-    if phase != "tp_generate" and n >= 4 and n % 2 == 0:
+    """(dp, tp) of a tp phase on ``n`` cards: tp_generate and tp_serving
+    at tp n, the training phases at dp 2 x tp 2 on 4 cards (tp n
+    below)."""
+    if phase not in ("tp_generate", "tp_serving") and n >= 4 \
+            and n % 2 == 0:
         return n // 2, 2
     return 1, n
 
@@ -6905,17 +6938,23 @@ def _tp_generate(torch, np, args, rank, n, place):
         toks = gen.generate(prompts, max_new_tokens=g["new"], paged=True)
         # tp 1 is timed one rank at a time (the others wait at a
         # barrier), so its reading is one generator's, not four sharing
-        # the host; tp > 1 runs on every rank at once, as it must
+        # the host; tp > 1 runs on every rank at once, as it must. Each
+        # reading is the median of ``reps`` calls
+        reps = g.get("reps", 5)
         for turn in range(n) if tp == 1 else (rank,):
             if turn == rank:
                 k1 = fa.flash_attention_fwd.launches
                 k5 = pa.paged_attention.launches
-                _, secs = _timed_wall(torch, cuda, lambda: gen.generate(
-                    prompts, max_new_tokens=g["new"], paged=True))
-                k1 = fa.flash_attention_fwd.launches - k1
-                k5 = pa.paged_attention.launches - k5
-                _, short = _timed_wall(torch, cuda, lambda: gen.generate(
-                    prompts, max_new_tokens=g["short"], paged=True))
+                fulls = [_timed_wall(torch, cuda, lambda: gen.generate(
+                    prompts, max_new_tokens=g["new"], paged=True))[1]
+                    for _ in range(reps)]
+                k1 = (fa.flash_attention_fwd.launches - k1) / reps
+                k5 = (pa.paged_attention.launches - k5) / reps
+                shorts = [_timed_wall(torch, cuda, lambda: gen.generate(
+                    prompts, max_new_tokens=g["short"], paged=True))[1]
+                    for _ in range(reps)]
+                secs, short = float(np.median(fulls)), \
+                    float(np.median(shorts))
             if tp == 1:
                 mesh.barrier()
         steps = g["new"] - 1
@@ -6925,6 +6964,7 @@ def _tp_generate(torch, np, args, rank, n, place):
                    "logits": logits.float().cpu()}
         rec[f"tp{tp}"] = {
             "tokens_per_sec": g["rows"] * g["new"] / (secs / 1e3),
+            "generate_ms": fulls, "short_ms": shorts, "reps": reps,
             "ms_per_token": secs / g["new"],
             "decode_ms_per_step": (secs - short) / (g["new"] - g["short"]),
             "k1_per_prefill": k1, "k5_per_decode_step": k5 / steps,
@@ -6978,13 +7018,347 @@ def _tp_generate(torch, np, args, rank, n, place):
     return rec
 
 
+# tp_serving: GPT-base served over the wire by InferenceServer(generator=
+# GPTGenerator(tp=N)) on the launched ranks, paged fp32, 8 slots
+TP_SERVE = {"slots": 8, "max_len": 2048, "lo": 64, "hi": 1024, "new": 64,
+            "main": 16, "clients": 4, "chunk": 256, "spec_k": 4,
+            "spec_prompts": (128, 256), "cancel_new": 512,
+            "profile_prompt": 128, "profile_new": 16, "prefix_prompt": 320,
+            "seed": 0, "seed_b": 1}
+TPS_DIR = os.path.join(ROOT, "build", "chip_smoke_tp_serving")
+
+
+def _counting(obj, name, box):
+    """``obj.name`` replaced on the instance by a wrapper that counts its
+    calls into ``box[name]``."""
+    fn = getattr(obj, name)
+
+    def counted(*a, **kw):
+        box[name] = box.get(name, 0) + 1
+        return fn(*a, **kw)
+    setattr(obj, name, counted)
+
+
+def _hist_mean_ms(hist, before):
+    _, count, total, _ = hist._state()
+    n, t = count - before[1], total - before[2]
+    return t / n * 1e3 if n else None
+
+
+def _repeating_prompt(np, cfg, n, seed):
+    """``n`` tokens of a seeded 16-token motif repeated: an n-gram
+    drafter's proposals are accepted on it."""
+    motif = np.random.default_rng(seed).integers(1, cfg.vocab_size, 16)
+    return np.resize(motif, n).astype(np.int32)
+
+
+def _tp_serving(torch, np, args, rank, n, place):
+    """GPT-base (seeded weights A, and B written by ``io.save_params``)
+    served over the wire at tp = every rank: every rank builds
+    ``InferenceServer(generator=GPTGenerator(tp=N), decode_slots=8,
+    paged=True)``; the leader (rank 0) binds the port and drives it from
+    4 client threads, each follower runs the loop (``serving.tp``).
+    Traffic, in groups: 16 requests of ``pr1_prompts`` lengths 64-1024
+    (timed: tokens/s, decode ms a step, the hand-off a step), two
+    chunked prefills (``prefill_chunk_tokens`` 256), two n-gram
+    speculative requests (k 4), one request cancelled mid-decode, one
+    prefill-only request whose KV payload is kept, a profiled window
+    (16 tokens; every rank traces its own device), a hot reload to B
+    with 4 requests in flight and 4 after it, ``drain``; then a server
+    with the prefix cache (weights B) serving one prompt twice (a prefix
+    hit), ``drain``. The pools' digests are read after every group. The
+    leader then holds every completed request to ``GPTGenerator(tp=1)
+    .generate`` over its weights on its card, and imports the payload
+    into a tp 1 ``GenerationEngine`` to continue it."""
+    import torch.distributed as dist
+
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import GPTConfig, GPTGenerator, init_params
+    from paddle_tpu_torch.serving import (Client, GenerationEngine,
+                                          GenerationRequest, InferenceServer,
+                                          RequestCancelledError)
+    from paddle_tpu_torch.serving.batching import DecodeBatcher, RequestQueue
+    g = args["run"]
+    tp = args["tp"]
+    cfg = GPTConfig.tiny() if args.get("tiny") else GPTConfig.base()
+    L = cfg.num_layers
+    device = "cpu" if place is not None else None
+    cuda = place is None
+    fa = sys.modules["paddle_tpu_torch.kernels.flash_attention"]
+    pa = sys.modules["paddle_tpu_torch.kernels.paged_attention"]
+    k1, k5 = fa.flash_attention_fwd, pa.paged_attention
+    leader = rank == 0
+    coord = dist.new_group(backend="gloo") if n > 1 else None
+
+    def barrier():
+        if coord is not None:
+            dist.barrier(group=coord)
+    params_a = init_params(cfg, g["seed"])
+    params_b = init_params(cfg, g["seed_b"])
+    ckpt_b = os.path.join(TPS_DIR, "weights_b")
+    if leader:
+        import shutil
+        shutil.rmtree(TPS_DIR, ignore_errors=True)
+    barrier()
+    _save_gpt_params(np, cfg, params_b, ckpt_b)     # rank 0 writes
+    gen = GPTGenerator(cfg, params_a, max_len=g["max_len"], device=device,
+                       tp=tp)
+    rec = {"tp": tp, "layers": L, "heads": cfg.num_heads,
+           "slots": g["slots"], "new": g["new"],
+           "weight_bytes_a_card": sum(
+               t.numel() * t.element_size()
+               for t in gen.param_tensors().values())}
+    c0 = (k1.launches, k5.launches)
+
+    def server():
+        return InferenceServer(generator=gen, decode_slots=g["slots"],
+                               paged=True)
+
+    def window(fn):
+        """The profiled window every rank enters together."""
+        barrier()
+        if not cuda:
+            out = fn()
+            barrier()
+            return out, {}
+        _, names = profiled_trace(torch, lambda: (
+            trace_markers(torch, True), fn(), barrier()))
+        return None, names
+
+    if not leader:
+        srv = server()
+        srv.start()
+        _, names = window(lambda: None)
+        err = srv.join()
+        rec["follower_a"] = srv.tp_follower.record()
+        fluid.set_flags({"FLAGS_kv_prefix_cache": True})
+        srv2 = server()
+        fluid.set_flags({"FLAGS_kv_prefix_cache": False})
+        srv2.start()
+        err2 = srv2.join()
+        rec["follower_b"] = srv2.tp_follower.record()
+        rec["errors"] = [None if e is None else repr(e) for e in (err, err2)]
+        rec["calls"] = {k: rec["follower_a"]["calls"].get(k, 0)
+                        + rec["follower_b"]["calls"].get(k, 0)
+                        for k in ("admit", "step")}
+        rec["captures"] = sum(x.tp_follower.engine.decoder.captures
+                              for x in (srv, srv2))
+    else:
+        srv = server().start()
+        eng = srv.gen_engine
+        calls = {}
+        for m in ("admit", "step"):
+            _counting(eng, m, calls)
+        ep = srv.endpoint
+        digests = []
+
+        def check_digests(tag, server):
+            if tp > 1:
+                digests.append([tag] + server.tp_pool_digests())
+        served = {}            # key -> (prompt, weights, tokens or error)
+
+        def wire(jobs, weights):
+            """``jobs`` [(key, prompt, new)] from the client threads, each
+            thread a connection taking every ``clients``-th job."""
+            def worker(mine):
+                with Client(ep, timeout=600) as cl:
+                    for key, p, new in mine:
+                        try:
+                            served[key] = (p, weights, cl.generate(p, new))
+                        except Exception as e:  # noqa: BLE001 — judged below
+                            served[key] = (p, weights, e)
+            k = g["clients"]
+            threads = [threading.Thread(target=worker, args=(jobs[i::k],))
+                       for i in range(k)]
+            for t in threads:
+                t.start()
+            return threads
+
+        def join(threads):
+            for t in threads:
+                t.join(600)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("tp_serving: wire clients hung")
+
+        # 1. the timed group
+        prompts = pr1_prompts(np, cfg, g["lo"], g["hi"], g["main"],
+                              seed=g["seed"])
+        hist = srv.stats_sink.hist["token"]
+        h0 = hist._state()
+        hand0 = (getattr(eng, "handoff_s", 0.0), getattr(eng, "handoffs", 0))
+        t0 = time.perf_counter()
+        join(wire([(f"main{i}", p, g["new"]) for i, p in enumerate(prompts)],
+                  "a"))
+        wall = time.perf_counter() - t0
+        gen_tokens = sum(len(v[2]) for k, v in served.items()
+                         if k.startswith("main") and not isinstance(
+                             v[2], Exception))
+        rec["served_tokens_per_s"] = gen_tokens / wall
+        rec["main_wall_s"] = wall
+        rec["decode_ms_per_step"] = _hist_mean_ms(hist, h0)
+        if tp > 1:
+            dh = eng.handoffs - hand0[1]
+            rec["handoff_us_per_step"] = (eng.handoff_s - hand0[0]) / dh \
+                * 1e6 if dh else None
+        check_digests("main", srv)
+        # 2. two chunked prefills
+        fluid.set_flags({"FLAGS_prefill_chunk_tokens": g["chunk"]})
+        long_ps = pr1_prompts(np, cfg, g["hi"] // 2, g["hi"], 2,
+                              seed=g["seed"] + 1)
+        join(wire([(f"chunk{i}", p, g["new"])
+                   for i, p in enumerate(long_ps)], "a"))
+        fluid.set_flags({"FLAGS_prefill_chunk_tokens": 0})
+        check_digests("chunked", srv)
+        # 3. two n-gram speculative requests
+        srv.decode_batcher.spec_k = g["spec_k"]
+        spec_ps = [_repeating_prompt(np, cfg, m, g["seed"] + 2 + m)
+                   for m in g["spec_prompts"]]
+        join(wire([(f"spec{i}", p, g["new"])
+                   for i, p in enumerate(spec_ps)], "a"))
+        rec["spec"] = srv.decode_batcher.spec_snapshot()
+        srv.decode_batcher.spec_k = 0
+        check_digests("spec", srv)
+        # 4. one request cancelled mid-decode
+        cp = pr1_prompts(np, cfg, g["lo"], g["lo"], 1, seed=g["seed"] + 5)[0]
+        box = {}
+
+        def cancelled():
+            try:
+                with Client(ep, timeout=600) as cl:
+                    box["out"] = cl.generate(cp, g["cancel_new"],
+                                             rid="tp-cancel")
+            except Exception as e:  # noqa: BLE001 — judged below
+                box["out"] = e
+        t = threading.Thread(target=cancelled)
+        t.start()
+        _until(lambda: srv.health().get("decode_active_rows", 0) >= 1,
+               timeout=120)
+        with Client(ep) as cl:
+            rec["cancelled"] = cl.cancel("tp-cancel")
+        join([t])
+        rec["cancel_error"] = type(box.get("out")).__name__
+        check_digests("cancel", srv)
+        # 5. a prefill-only request: its payload is imported on one card
+        xp = pr1_prompts(np, cfg, g["hi"] // 4, g["hi"] // 4, 1,
+                         seed=g["seed"] + 6)[0]
+        with Client(ep, timeout=600) as cl:
+            payload = cl.prefill(xp, g["new"])
+        rec["export_heads"] = int(payload["num_heads"])
+        check_digests("export", srv)
+        # 6. the profiled window: 16 tokens served, every rank tracing
+        pp = pr1_prompts(np, cfg, g["profile_prompt"], g["profile_prompt"],
+                         1, seed=g["seed"] + 7)[0]
+        _, names = window(lambda: join(wire(
+            [("profiled", pp, g["profile_new"])], "a")))
+        # 7. a hot reload to B with 4 requests in flight, then 4 more
+        rp = pr1_prompts(np, cfg, g["lo"], g["hi"] // 2, 8,
+                         seed=g["seed"] + 8)
+        threads = wire([(f"inflight{i}", p, g["new"])
+                        for i, p in enumerate(rp[:4])], "a")
+        _until(lambda: srv.health().get("decode_active_rows", 0) >= 4,
+               timeout=120)
+        rec["reload"] = srv.reload_weights(ckpt_b)
+        join(threads)
+        join(wire([(f"after{i}", p, g["new"])
+                   for i, p in enumerate(rp[4:])], "b"))
+        check_digests("reload", srv)
+        rec["drain"] = srv.drain(timeout=120)
+        rec["blocks_in_use_after_drain"] = eng.pool.blocks_in_use()
+        if tp > 1:
+            rec["handoffs"] = eng.handoffs
+            rec["calls_leader"] = dict(eng.calls)
+            rec["broadcasts"] = eng.sends
+            rec["broadcast_us_mean"] = eng.send_s / eng.sends * 1e6
+            rec["leader_local_ms_per_call"] = {
+                k: v / eng.calls[k] * 1e3 for k, v in eng.local_s.items()
+                if eng.calls.get(k)}
+        # 8. the prefix cache: one prompt twice (weights B)
+        fluid.set_flags({"FLAGS_kv_prefix_cache": True})
+        srv2 = server()
+        fluid.set_flags({"FLAGS_kv_prefix_cache": False})
+        srv2.start()
+        for m in ("admit", "step"):
+            _counting(srv2.gen_engine, m, calls)
+        ep = srv2.endpoint
+        hp = pr1_prompts(np, cfg, g["prefix_prompt"], g["prefix_prompt"],
+                         1, seed=g["seed"] + 9)[0]
+        for i in range(2):
+            join(wire([(f"prefix{i}", hp, g["new"])], "b"))
+        rec["prefix_hits"] = srv2.gen_engine.pool.counters["prefix_hits"]
+        check_digests("prefix", srv2)
+        rec["drain_prefix"] = srv2.drain(timeout=120)
+        rec["blocks_in_use_after_drain_prefix"] = \
+            srv2.gen_engine.pool.blocks_in_use()
+        rec["calls"] = calls
+        # each decode graph's capture runs the step once eagerly first
+        rec["captures"] = sum(x.gen_engine.decoder.captures
+                              for x in (srv, srv2))
+        rec["digests"] = digests
+        rec["served"] = len(served)
+        rec["failed"] = {k: f"{type(v[2]).__name__}: {v[2]}"
+                         for k, v in served.items()
+                         if isinstance(v[2], Exception)}
+    # launches while serving (the profiled window included), per rank
+    rec["k1_launches"] = k1.launches - c0[0]
+    rec["k5_launches"] = k5.launches - c0[1]
+    rec["replay_nccl_kernels"] = sum(c for k, c in names.items()
+                                     if "nccl" in k.lower())
+    rec["replay_k5"] = sum(c for k, c in names.items()
+                           if "paged" in k.lower())
+    gen.release()
+    if leader:
+        # the references on the leader's card, tp 1, after the traffic
+        one = {w: GPTGenerator(cfg, p, max_len=g["max_len"], device=device,
+                               tp=1)
+               for w, p in (("a", params_a), ("b", params_b))}
+        bad, checked = [], 0
+        for w in ("a", "b"):
+            keys = sorted(k for k, v in served.items() if v[1] == w
+                          and not isinstance(v[2], Exception))
+            for i in range(0, len(keys), 8):
+                ks = keys[i:i + 8]
+                news = {len(served[k][2]) for k in ks}
+                for new in sorted(news):
+                    sub = [k for k in ks if len(served[k][2]) == new]
+                    want = one[w].generate([served[k][0] for k in sub],
+                                           max_new_tokens=new, paged=True)
+                    for k, ref in zip(sub, want):
+                        checked += 1
+                        if not np.array_equal(np.asarray(served[k][2]),
+                                              ref):
+                            bad.append(k)
+        rec["tokens_checked"] = checked
+        rec["tokens_unequal"] = bad
+        # the exported slot continues on one card, tp 1
+        e1 = GenerationEngine(one["a"], slots=g["slots"], paged=True,
+                              pool_name="tp_serving_import")
+        b1 = DecodeBatcher(RequestQueue(max_depth=8), e1).start()
+        try:
+            req = GenerationRequest(xp, max_new_tokens=g["new"], kv=payload,
+                                    first_token=payload["first_token"])
+            b1.queue.put(req)
+            got = req.wait(timeout=600)[0]
+        finally:
+            b1.stop()
+        want = one["a"].generate([xp], max_new_tokens=g["new"],
+                                 paged=True)[0]
+        rec["import_tp1_equal"] = bool(np.array_equal(got, want))
+        for o in one.values():
+            o.release()
+        del one, e1
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
 def _tp_failures(name, ranks):
     """What the ranks' records say is wrong: state that should be equal
     and is not (the replicated state across all ranks, all of it across
     the ranks of one tp coordinate), a slab that is not its eager steps,
     a non-finite loss."""
     bad = []
-    if name == "tp_generate":
+    if name in ("tp_generate", "tp_serving"):
         return bad
     reps = [r["digest_replicated"] for r in ranks]
     if any(x != reps[0] for x in reps[1:]):
@@ -7006,6 +7380,96 @@ def _tp_failures(name, ranks):
     return bad
 
 
+def _tp_serving_failures(rec, ranks, args):
+    """tp_serving's record from its ranks' and what is wrong with it:
+    tokens that differ from tp 1's, digests that differ, launches that
+    are not 12 a prefill and a decode step on some rank, no NCCL kernel
+    in a rank's profiled window (tp > 1), an export that does not
+    continue on one card, a drain that leaves blocks held, a follower
+    that did not end cleanly."""
+    bad = []
+    r0 = ranks[0]
+    t = args["tp"]
+    rec.update({k: r0.get(k) for k in (
+        "layers", "slots", "new", "served_tokens_per_s", "main_wall_s",
+        "decode_ms_per_step", "handoff_us_per_step", "handoffs",
+        "weight_bytes_a_card", "served", "tokens_checked", "prefix_hits",
+        "reload", "cancelled", "cancel_error", "export_heads",
+        "import_tp1_equal", "spec", "drain", "drain_prefix", "digests",
+        "calls_leader", "broadcasts", "broadcast_us_mean")})
+    rec["leader_local_ms_per_call"] = r0.get("leader_local_ms_per_call")
+    # each follower's seconds waiting for the leader and running its
+    # calls, and its ms a call by op (the first server)
+    rec["followers"] = [{
+        "recv_s": r["follower_a"]["recv_s"],
+        "handle_s": r["follower_a"]["handle_s"],
+        "ms_per_call": {k: v / r["follower_a"]["calls"][k] * 1e3
+                        for k, v in r["follower_a"]["op_s"].items()
+                        if r["follower_a"]["calls"].get(k)}}
+        for r in ranks[1:]]
+    rec["per_rank"] = [{k: r.get(k) for k in (
+        "rank", "k1_launches", "k5_launches", "calls", "captures",
+        "replay_nccl_kernels", "replay_k5", "weight_bytes_a_card")}
+        for r in ranks]
+    if r0.get("failed"):
+        bad.append(f"tp_serving: requests failed: {r0['failed']}")
+    if r0["tokens_unequal"] or not r0["tokens_checked"]:
+        bad.append(f"tp_serving: {len(r0['tokens_unequal'])} of "
+                   f"{r0['tokens_checked']} requests differ from "
+                   f"GPTGenerator(tp=1).generate: {r0['tokens_unequal']}")
+    for tag, *ds in r0["digests"]:
+        if len(set(ds)) != 1:
+            bad.append(f"tp_serving: the pools' digests differ after "
+                       f"{tag}: {ds}")
+    if t > 1 and len(r0["digests"]) < 6:
+        bad.append(f"tp_serving: {len(r0['digests'])} digest checks, not 6")
+    if not r0["import_tp1_equal"]:
+        bad.append("tp_serving: the slot exported at tp "
+                   f"{t} does not continue to generate's tokens on one card")
+    if r0["export_heads"] != r0["heads"]:
+        bad.append(f"tp_serving: the payload holds {r0['export_heads']} "
+                   f"heads, not every one")
+    if not (r0["cancelled"] and r0["cancel_error"] ==
+            "RequestCancelledError"):
+        bad.append(f"tp_serving: the cancel gave {r0['cancel_error']}")
+    if not r0["prefix_hits"]:
+        bad.append("tp_serving: the repeated prompt hit no cached prefix")
+    for d in ("drain", "drain_prefix"):
+        if not r0[d]["drained"]:
+            bad.append(f"tp_serving: {d} left {r0[d]['remaining']}")
+    for k in ("blocks_in_use_after_drain",
+              "blocks_in_use_after_drain_prefix"):
+        if r0[k]:
+            bad.append(f"tp_serving: {k} {r0[k]}")
+    for r in ranks:
+        L = r["layers"]
+        admits, steps = r["calls"]["admit"], r["calls"]["step"]
+        # a paged decode step: each replay and each capture's eager
+        # warm-up
+        steps += r["captures"]
+        if not args.get("cpu") and (
+                r["k1_launches"] != L * admits or not admits
+                or r["k5_launches"] != L * steps or not steps):
+            bad.append(f"tp_serving: rank {r['rank']} launched K1 "
+                       f"{r['k1_launches']} in {admits} prefills and K5 "
+                       f"{r['k5_launches']} in {steps} decode steps "
+                       f"(captures included), not {L} each")
+        if not args.get("cpu") and t > 1 and r["replay_nccl_kernels"] < 1:
+            bad.append(f"tp_serving: rank {r['rank']}'s profiled window "
+                       f"holds no NCCL kernel")
+        if not args.get("cpu") and r["replay_k5"] < 1:
+            bad.append(f"tp_serving: rank {r['rank']}'s profiled window "
+                       f"holds no K5")
+        if r["rank"] and (any(r["errors"]) or r["follower_a"]["error"]
+                          or r["follower_b"]["error"]):
+            bad.append(f"tp_serving: follower {r['rank']} ended with "
+                       f"{r['errors']}")
+    beside = args.get("beside")
+    if beside:
+        rec["tp_generate_beside"] = beside
+    return bad
+
+
 def tp_phase(torch, np, name, nproc, args=None, timeout=900):
     """One tensor-parallel phase at ``nproc`` ranks (one a card), checked
     and printed with the card, its power limit and N. Returns the
@@ -7017,7 +7481,8 @@ def tp_phase(torch, np, name, nproc, args=None, timeout=900):
         # the same code
         args.setdefault("layers", 2)
     args.setdefault("run", {"tp_parity": TP_PARITY, "tp_bert": TP_BERT,
-                            "tp_generate": TP_GEN}[name])
+                            "tp_generate": TP_GEN,
+                            "tp_serving": TP_SERVE}[name])
     ranks, launch = dp_launch(torch, name, nproc, args, timeout)
     rec = {"phase": name, **CARD, "N": nproc, "dp": args["dp"],
            "tp": args["tp"], "launch": launch}
@@ -7085,14 +7550,19 @@ def tp_phase(torch, np, name, nproc, args=None, timeout=900):
                 2e-2 * abs(r0["plain_step0_loss"]):
             bad.append(f"tp_bert: step 0's loss {step0} is off fleet_bert's "
                        f"program's {r0['plain_step0_loss']}")
+    elif name == "tp_serving":
+        bad += _tp_serving_failures(rec, ranks, args)
     else:
         rec.update({k: r0[k] for k in r0 if k.startswith("tp") or k in (
             "tokens_equal", "prefill_logits_err", "speedup_vs_1",
             "replay_nccl_kernels", "replay_k5", "rows", "prompt", "new")})
-        # each rank's tp 1 reading, taken alone
-        rec["tp1_tokens_per_sec_by_rank"] = [r["tp1"]["tokens_per_sec"]
-                                             for r in ranks]
+        # each rank's tp 1 reading, taken alone, and its tp N one; the
+        # spread across ranks is (max - min) / median
         t = args["tp"]
+        for tag in sorted({"tp1", f"tp{t}"}):
+            by = [r[tag]["tokens_per_sec"] for r in ranks]
+            rec[f"{tag}_tokens_per_sec_by_rank"] = by
+            rec[f"{tag}_spread"] = (max(by) - min(by)) / float(np.median(by))
         for r in ranks:
             one, many = r["tp1"], r[f"tp{t}"]
             layers = r["layers"]
@@ -7151,8 +7621,9 @@ def tp_kernel_shapes(torch, fa, pa):
     """K1, K2 and K5 against their plain versions at the head counts the
     tp paths give them: K1/K2 at tp_bert's (8 rows, 6 heads, S2048, bf16,
     a key bias), K1 at tp_generate's prefill (8 rows, 3 heads, S128,
-    float32, causal), K5 at its decode step (8 rows, 3 heads, bs16, pos
-    up to 255, float32)."""
+    float32, causal), K1 at tp_serving's largest prefill (1 row, 3
+    heads, S1024, float32, causal), K5 at their decode step (8 rows, 3
+    heads, bs16, pos up to 255, float32)."""
     import numpy as np
     pos = np.linspace(128, 255, 8).round().astype(np.int32)
     out = [flash_phase(torch, fa, 8, 6, 2048, 64, "bfloat16", False, True,
@@ -7161,6 +7632,8 @@ def tp_kernel_shapes(torch, fa, pa):
                      "bfloat16", False, True, seed=2207, packed=False),
            flash_phase(torch, fa, 8, 3, 128, 64, "float32", True, False,
                        seed=2208, packed=True),
+           flash_phase(torch, fa, 1, 3, 1024, 64, "float32", True, False,
+                       seed=2210, packed=True),
            paged_phase(torch, pa, "tp_decode_H3", 8, 3, 64, 16, 32, pos,
                        "float32", 2209)]
     for r in out:
@@ -9007,15 +9480,28 @@ def main():
         cards, tp 2 on two, tp 1 through the same code on one): K1, K2
         and K5 against their plain versions at the paths' head counts
         first (not counted), then tp_parity (K1, K2 float32), tp_bert (K1
-        and K2, 12 a step each, all bf16) and tp_generate (K1, K5). The
-        ranks' launches join the counts."""
+        and K2, 12 a step each, all bf16), tp_generate (K1, K5) and
+        tp_serving (K1, K5; its line carries tp_generate's rows of this
+        run). The ranks' launches join the counts."""
         tp_kernel_shapes(torch, fa, pa)
+        recs = {}
         for name, needs in (("tp_parity", DP_BERT_KERNELS),
                             ("tp_bert", DP_BERT_KERNELS),
                             ("tp_generate", ("flash_attention_fwd",
-                                             "paged_attention"))):
-            _, got, bf16 = drive(name, needs, lambda name=name: tp_phases(
-                torch, np, counters, name))
+                                             "paged_attention")),
+                            ("tp_serving", ("flash_attention_fwd",
+                                            "paged_attention"))):
+            beside = {}
+            if name == "tp_serving":
+                gr = recs["tp_generate"]
+                beside = {k: {m: gr[k][m] for m in (
+                    "tokens_per_sec", "decode_ms_per_step",
+                    "weight_bytes_a_card")} for k in gr
+                    if k.startswith("tp") and isinstance(gr[k], dict)}
+            recs[name], got, bf16 = drive(
+                name, needs, lambda name=name, beside=beside: tp_phases(
+                    torch, np, counters, name,
+                    args={"beside": beside} if beside else None))
             others = {k: c for k, c in got.items() if c and k not in needs}
             if others or (name == "tp_bert" and any(
                     bf16[k] != got[k] for k in needs)):
@@ -9140,7 +9626,9 @@ def main():
     # softmax, and einsum)
     for name, fn in (("dygraph_transformer",
                       lambda: dygraph_transformer(torch, np)),
-                     ("dygraph_bert_ab", lambda: dygraph_bert_ab(torch, np)),
+                     ("dygraph_bert_ab", lambda: dygraph_bert_ab(
+                         torch, np,
+                         layers=ONE_CARD_LAYERS["dygraph_bert_ab"])),
                      ("dygraph_capture_refusals",
                       lambda: dygraph_capture_refusals(torch, np))):
         _, got, _ = drive(name, (), fn)
@@ -9343,7 +9831,8 @@ def main():
           lambda: bert_long_recompute(torch, np, fa))
     drive("capture_names_flash_grad", bert_needs,
           lambda: capture_names_flash_grad(torch, np))
-    drive("flagship_steps", (), lambda: flagship_steps(torch, np))
+    drive("flagship_steps", (), lambda: flagship_steps(
+        torch, np, layers=ONE_CARD_LAYERS["flagship_steps"]))
     drive("train_loop_lenet", (), lambda: train_loop_lenet(torch, np))
     drive("nonfinite_steps", bert_needs,
           lambda: nonfinite_steps(torch, np))
@@ -9405,7 +9894,9 @@ def main():
           lambda: resilience_serving(torch, np, cfg, pa))
     torch.cuda.empty_cache()
     _, got, bf16 = drive("supervised_bert", lamb_needs,
-                         lambda: supervised_bert(torch, np, fa))
+                         lambda: supervised_bert(
+                             torch, np, fa,
+                             layers=ONE_CARD_LAYERS["supervised_bert"]))
     others = {n: c for n, c in got.items() if c and n not in lamb_needs}
     if others or any(bf16[n] != got[n] for n in lamb_needs):
         failures.append(f"the supervised_bert path launched {got} (bf16 "

@@ -12,10 +12,13 @@ Trainer i gets ``PADDLE_TRAINER_ID=i``, ``PADDLE_TRAINERS_NUM``,
 group's rendezvous: ``parallel.mesh.init_parallel_env`` dials it),
 ``PADDLE_CURRENT_ENDPOINT`` and ``FLAGS_selected_gpus=i`` (its card);
 ``--device=cpu`` sets ``PADDLE_DISTRI_BACKEND=gloo`` in place of NCCL.
-The first trainer to exit non-zero tears the rest down, and the launch
-exits with its code. The parameter-server half (``--server_num``,
-``--worker_num``) raises ``NotImplementedError``: ROADMAP.md Queue 1
-item 9.
+The first trainer to exit non-zero tears the rest down (after
+``--grace_s`` seconds in which the others may end on their own: a
+tensor-parallel server's leader then reports the lost rank and exits by
+itself), and the launch exits with that first non-zero code; every
+rank's exit code is printed to stderr (``launch: exit codes [...]``).
+The parameter-server half (``--server_num``, ``--worker_num``) raises
+``NotImplementedError``: ROADMAP.md Queue 1 item 9.
 """
 import argparse
 import os
@@ -49,6 +52,10 @@ def parse_args(argv=None):
     p.add_argument("--worker_num", type=int, default=0,
                    help="parameter-server trainers (not ported)")
     p.add_argument("--log_dir", default=None)
+    p.add_argument("--grace_s", type=float, default=0.0,
+                   help="after a trainer exits non-zero, the others get "
+                        "this long to end on their own before they are "
+                        "terminated (default 0: at once)")
     p.add_argument("--device", default=None, choices=(None, "gpu", "cpu"),
                    help="cpu: gloo ranks on the CPU (the tests' world); "
                         "default: NCCL, one card per rank")
@@ -96,8 +103,8 @@ def launch(args):
     old = {s: signal.signal(s, _terminate)
            for s in (signal.SIGINT, signal.SIGTERM)}
     try:
-        # the first nonzero exit tears the rest down: a crashed rank must
-        # not leave the others blocked in a collective
+        # the first nonzero exit tears the rest down (after the grace): a
+        # crashed rank must not leave the others blocked in a collective
         rc, live = 0, list(procs)
         while live and not rc:
             still = []
@@ -111,6 +118,10 @@ def launch(args):
             if live and not rc:
                 time.sleep(0.1)
         if rc:
+            deadline = time.monotonic() + max(args.grace_s, 0.0)
+            while time.monotonic() < deadline and any(
+                    p.poll() is None for p in procs):
+                time.sleep(0.1)
             _terminate()
             deadline = time.monotonic() + 10.0
             for p in procs:
@@ -119,6 +130,8 @@ def launch(args):
                 except subprocess.TimeoutExpired:
                     p.kill()
                     p.wait()
+        codes = [p.wait() for p in procs]
+        print(f"launch: exit codes {codes}", file=sys.stderr, flush=True)
         return rc
     finally:
         for s, h in old.items():

@@ -34,7 +34,8 @@ the ``stats`` sink when one is attached, else to the profiler as
     outs = gen.generate([prompt_ids], max_new_tokens=64, paged=True)
 
 Tensor parallelism (``tp=``, default ``FLAGS_serving_tp``): every rank
-of the launched world runs the generator on the same prompts, each
+of the tp group makes the same calls (offline: ``generate`` on the same
+prompts; served: the calls a leader rank hands out, ``serving.tp``), each
 holding its shards of the Megatron split (``gpt.GPT``'s tp form over the
 world's tp axis) and a pool or bank of its ``num_heads / tp`` heads; its
 decode steps are replayed graphs with their NCCL calls inside, and
@@ -116,14 +117,34 @@ class ModelDrafter:
     """Greedy continuations of a (small) :class:`GPTGenerator`.
     :meth:`from_generator` builds the first layers of the target model
     over the SAME parameter tensors, so drafting needs no second
-    checkpoint."""
+    checkpoint.
+
+    Its tp is ``FLAGS_serving_tp``'s, as the JAX package's draft
+    generator's (it passes no ``tp``): at the target's tp it shares the
+    target's shards (its ``generate`` then runs collectives, so every
+    rank of the group drafts); at tp 1 beside a tp > 1 target it holds
+    whole copies of the layers it uses, gathered once from the shards
+    (every rank of the group builds it; each can then draft alone)."""
 
     def __init__(self, draft_gen):
         self.gen = draft_gen
 
+    @property
+    def tp(self):
+        return self.gen.tp
+
     @classmethod
-    def from_generator(cls, gen, num_layers=1):
-        model = gen.model.truncated(num_layers)
+    def from_generator(cls, gen, num_layers=1, tp=None):
+        tp = max(int(flag("serving_tp") if tp is None else tp), 1)
+        if gen.tp > 1 and tp == 1:
+            model = gen.model.gathered_truncated(num_layers)
+        elif tp in (1, gen.tp):
+            model = gen.model.truncated(num_layers)
+        else:
+            raise ValueError(
+                f"a model drafter at FLAGS_serving_tp={tp} beside a "
+                f"tp={gen.tp} target: the drafter runs at the target's tp "
+                f"or at 1")
         return cls(GPTGenerator(model.cfg, model, max_len=gen.max_len,
                                 bucket_min=gen.bucket_min,
                                 device=gen.device))
@@ -139,9 +160,10 @@ class ModelDrafter:
         return np.asarray(out[0], np.int32)
 
 
-def make_drafter(mode=None, generator=None):
+def make_drafter(mode=None, generator=None, tp=None):
     """Drafter for ``FLAGS_decode_spec_mode``: ``"ngram"`` (default) or
-    ``"model"`` (a 1-layer draft GPT over ``generator``'s parameters)."""
+    ``"model"`` (a 1-layer draft GPT over ``generator``'s parameters, at
+    ``tp``, None: ``FLAGS_serving_tp``; see :class:`ModelDrafter`)."""
     mode = mode or flag("decode_spec_mode") or "ngram"
     if mode == "ngram":
         return NgramDrafter()
@@ -149,7 +171,7 @@ def make_drafter(mode=None, generator=None):
         if generator is None:
             raise ValueError("decode_spec_mode='model' needs the target "
                              "generator to share parameters with")
-        return ModelDrafter.from_generator(generator)
+        return ModelDrafter.from_generator(generator, tp=tp)
     raise ValueError(f"unknown decode_spec_mode {mode!r} — 'ngram' or "
                      f"'model'")
 
@@ -167,8 +189,11 @@ class GPTGenerator:
                  device=None, stats=None, tp=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.tp = max(int(flag("serving_tp") if tp is None else tp), 1)
-        self.mesh = self._init_tp_mesh() if self.tp > 1 else None
+        if isinstance(params, GPT):         # a built model brings its split
+            self.tp, self.mesh = params.tp, params.mesh
+        else:
+            self.tp = max(int(flag("serving_tp") if tp is None else tp), 1)
+            self.mesh = self._init_tp_mesh() if self.tp > 1 else None
         self.model = params if isinstance(params, GPT) \
             else GPT(cfg, params, device=self.device, tp=self.tp,
                      mesh=self.mesh)
@@ -424,32 +449,42 @@ class GPTGenerator:
         picks the pool slots whose tables line up with the token rows
         (None: every slot). Logits ``[B, V]`` at ``last_idx``."""
         tables = pool.device_tables(rows)
-        cost = self._step_cost(start_pos, np.shape(tokens)[1], kv=pool)
+        B, C = np.shape(tokens)
+        cost = self._step_cost(start_pos, C, kv=pool)
+        self._tp_gate("prefill_chunk")
         with self._stage("prefill", cost):
-            return self.model.prefill_chunk_paged(
+            out = self.model.prefill_chunk_paged(
                 self._dev(tokens), self._dev(pos_ids), self._dev(start_pos),
                 self._dev(limit), self._dev(last_idx), tables, pool.layers())
+        self._tp_gate("prefill_chunk", B * C, B)
+        return out
 
     def run_verify(self, tokens, pos, pos_ids, cache_k, cache_v):
         """One speculative verify step over the dense bank: span logits
         ``[B, S, V]``."""
-        S = np.shape(tokens)[1]
+        B, S = np.shape(tokens)
+        self._tp_gate("verify")
         with self._stage("decode", self._step_cost(pos, S, S)):
-            return self.model.verify_step(self._dev(tokens), self._dev(pos),
-                                          self._dev(pos_ids), cache_k,
-                                          cache_v)
+            out = self.model.verify_step(self._dev(tokens), self._dev(pos),
+                                         self._dev(pos_ids), cache_k,
+                                         cache_v)
+        self._tp_gate("verify", B * S, B * S)
+        return out
 
     def run_verify_paged(self, tokens, pos_ids, start_pos, limit, pool,
                          rows=None):
         """One speculative verify step over the block pool (``limit``: each
         row's real span): span logits ``[B, S, V]``."""
         tables = pool.device_tables(rows)
-        S = np.shape(tokens)[1]
+        B, S = np.shape(tokens)
+        self._tp_gate("verify_paged")
         with self._stage("decode",
                          self._step_cost(start_pos, S, S, kv=pool)):
-            return self.model.verify_step_paged(
+            out = self.model.verify_step_paged(
                 self._dev(tokens), self._dev(pos_ids), self._dev(start_pos),
                 self._dev(limit), tables, pool.layers())
+        self._tp_gate("verify_paged", B * S, B * S)
+        return out
 
     def run_spec_accept(self, logits, draft, temperature, top_k, num_draft,
                         generator=None):
@@ -722,6 +757,6 @@ class GPTGenerator:
                 num_heads=self.cfg.num_heads, d_head=self.cfg.d_head,
                 max_seq_len=self.max_len, dtype=kv_dtype, name="offline",
                 prefix_cache=False, device=self.device,
-                tp=self.cfg.num_heads // self.model.heads)
+                tp=self.cfg.num_heads // self.model.heads, mesh=self.mesh)
             self._paged_pools[key] = pool
         return pool

@@ -620,6 +620,21 @@ class GPT(nn.Module):
             small.register_parameter(_attr(name), self.param(name))
         return small
 
+    def gathered_truncated(self, num_layers):
+        """A tp-1 GPT of the first ``num_layers`` decoder layers over whole
+        copies of their parameters, gathered once from the shards over
+        the tp axis (every rank of the group calls it, in one order)."""
+        from ..parallel.tp import gather_tensor
+        cfg = copy.copy(self.cfg)
+        cfg.num_layers = max(1, min(int(num_layers), self.cfg.num_layers))
+        whole = {}
+        for name in param_shapes(cfg):
+            t = self.param(name)
+            lay = self.layouts.get(name)
+            whole[name] = t if lay is None else gather_tensor(
+                t.detach(), lay, self.mesh)
+        return GPT(cfg, whole, device=self.device)
+
     # -- pieces -----------------------------------------------------------
     def _embed(self, tokens, pos_ids):
         self.step_wire = 0

@@ -19,7 +19,10 @@ one tensor-parallel group are consecutive: rank ``r`` sits at ``dp``
 coordinate ``r // tp`` and ``tp`` coordinate ``r % tp``. Building a
 mesh with ``tp > 1`` in a launched world makes one process group per
 ``tp`` group and per ``dp`` group, on every rank in the same order (the
-collectives of ``ops.collective_ops`` run over them). The other axes
+collectives of ``ops.collective_ops`` run over them), and a gloo group
+beside each ``tp`` group for objects on the host (``axis_group("tp",
+host=True)``: the tensor-parallel server's descriptors,
+``serving.tp``). The other axes
 (``pp``, ``sp``, ``ep``, ``dcn_dp``) raise ``NotImplementedError``: the
 rest of ROADMAP.md Queue 1 item 7b.
 
@@ -45,6 +48,7 @@ import inspect
 import math
 import os
 from dataclasses import dataclass
+from datetime import timedelta
 
 import torch
 
@@ -231,6 +235,10 @@ class Mesh:
         self.size = dp * tp
         self.dp, self.tp = dp, tp
         self.groups = {}
+        # a gloo group beside each tp group: host-side objects (the
+        # serving leader's step descriptors) never wait behind device
+        # work on the NCCL one
+        self.host_groups = {}
 
     def coords(self, r=None):
         """``{"dp": i, "tp": j}`` of rank ``r`` (this rank by default)."""
@@ -255,8 +263,9 @@ _active = None         # the layout the collectives resolve axes against
 
 
 def _make_groups(mesh):
-    """One process group per tp group and per dp group, every rank
-    making them all in the same order (``new_group`` is collective)."""
+    """One process group per tp group and per dp group, and a gloo (host)
+    group beside each tp group, every rank making them all in the same
+    order (``new_group`` is collective)."""
     dist = _dist()
     r = rank()
     for axis, count in (("tp", mesh.dp), ("dp", mesh.tp)):
@@ -266,8 +275,15 @@ def _make_groups(mesh):
             members = mesh.axis_ranks(
                 axis, k * mesh.tp if axis == "tp" else k)
             g = dist.new_group(members)
+            # a follower of an idle server waits on it for as long as
+            # the server runs (a dead peer still fails it at once)
+            host = dist.new_group(members, backend="gloo",
+                                  timeout=timedelta(days=365)) \
+                if axis == "tp" else None
             if r in members:
                 mesh.groups[axis] = g
+                if host is not None:
+                    mesh.host_groups[axis] = host
 
 
 def make_mesh(config=None, devices=None, **axes):
@@ -322,12 +338,15 @@ def world_mesh(mesh=None):
     return Mesh(world_size())
 
 
-def axis_group(axis, mesh=None):
+def axis_group(axis, mesh=None, host=False):
     """This rank's process group on ``axis`` of ``mesh`` (default: the
-    active layout; None: the default group, the whole world)."""
+    active layout; None: the default group, the whole world). ``host``:
+    the gloo group beside the ``tp`` group, for objects on the host
+    (None when the mesh has no tp group)."""
     if axis not in ("dp", "tp"):
         raise not_ported_7b(f"the {axis!r} axis")
-    return world_mesh(mesh).groups.get(axis)
+    m = world_mesh(mesh)
+    return m.host_groups.get(axis) if host else m.groups.get(axis)
 
 
 def axis_world_size(axis, mesh=None):

@@ -5,7 +5,8 @@ engine), behind one wire server/client, with the resilience layer:
 supervised loops (``LoopSupervisor``), the ``BrownoutController``
 ladder, hot weight reload (``load_param_snapshot``, ``SwapHandle``),
 drain, cancel (``RequestCancelledError``), request dedup and client
-hedging."""
+hedging; and tensor-parallel generation behind all of it (``serving.tp``:
+a leader rank that hands every engine call to its followers)."""
 from .batching import (PRIORITIES, BadRequestError, DeadlineExceededError,
                        DecodeBatcher, GenerationRequest, InternalServerError,
                        MicroBatcher, Request, RequestCancelledError,
@@ -21,6 +22,8 @@ from .metrics import LatencyHistogram, ServingStats
 from .server import (CheckpointCorruptReply, Client, InferenceServer,
                      ServingConfig, WatchdogError)
 from .supervise import LoopSupervisor
+from .tp import (TPDivergedError, TPFollower, TPGroupLostError,
+                 TPLeaderEngine, check_serving_world, tp_generation_engine)
 
 __all__ = ["BadRequestError", "BrownoutController", "CheckpointCorruptReply",
            "Client",
@@ -31,6 +34,8 @@ __all__ = ["BadRequestError", "BrownoutController", "CheckpointCorruptReply",
            "PRIORITIES", "Request", "RequestCancelledError", "RequestQueue",
            "SIGNATURE_FILE", "ServerOverloadedError", "ServerShutdownError",
            "ServingConfig", "ServingEngine", "ServingError", "ServingStats",
-           "SwapHandle", "WatchdogError", "feed_signature",
+           "SwapHandle", "TPDivergedError", "TPFollower",
+           "TPGroupLostError", "TPLeaderEngine", "WatchdogError",
+           "check_serving_world", "feed_signature",
            "load_param_snapshot", "next_bucket", "priority_rank",
-           "remaining_budget_ms"]
+           "remaining_budget_ms", "tp_generation_engine"]

@@ -460,8 +460,9 @@ class RequestQueue:
         with self._cv:
             self._draining = True
 
-    def close(self):
-        """Stop admitting; fail whatever is still queued at once."""
+    def close(self, error=None):
+        """Stop admitting; fail whatever is still queued at once (with
+        ``error``, default :class:`ServerShutdownError`)."""
         with self._cv:
             self._closed = True
             drained = [r for q in self._items for r in q]
@@ -469,7 +470,7 @@ class RequestQueue:
                 q.clear()
             self._cv.notify_all()
         for req in drained:
-            req.set_error(ServerShutdownError(
+            req.set_error(error or ServerShutdownError(
                 "server shut down with the request still queued"))
 
 
@@ -794,6 +795,32 @@ class DecodeBatcher:
     def free_slots(self):
         return len(self._free)
 
+    @property
+    def fatal(self):
+        """Why the loop must not be restarted (the engine's tp group was
+        lost), else None."""
+        return getattr(self.engine, "lost", None)
+
+    def fail_inflight(self, error):
+        """Fail every request decoding or mid chunked prefill with
+        ``error`` (from another thread: the loop may be blocked in a step
+        that will never return)."""
+        for _ in range(3):      # the loop thread may resize the dicts
+            try:
+                reqs = list(self._active.values()) \
+                    + [st["req"] for st in list(self._prefilling)] \
+                    + list(self._admitting_reqs)
+                break
+            except RuntimeError:
+                continue
+        else:
+            return
+        for req in reqs:
+            if not req.done():
+                req.set_error(error)
+                if self.stats:
+                    self.stats.bump("requests_failed")
+
     def stop(self, timeout=30):
         """Stop the loop; rows still decoding or prefilling fail with
         :class:`ServerShutdownError` (the loop does it on its way out)."""
@@ -828,6 +855,9 @@ class DecodeBatcher:
         self._temp[:] = 0.0
         self._topk[:] = 0
         self._admitting = 0
+        bind = getattr(self.engine, "bind_thread", None)
+        if bind is not None:
+            bind()              # the supervisor's thread: the engine's card
         self.engine.reset()
         with self._swap_lock:
             sw, self._swap = self._swap, None
@@ -990,8 +1020,7 @@ class DecodeBatcher:
     # -- speculative decoding ---------------------------------------------
     def _get_drafter(self):
         if self._drafter is None:
-            from ..models.generation import make_drafter
-            self._drafter = make_drafter(generator=self.engine.gen)
+            self._drafter = self.engine.make_drafter()
         return self._drafter
 
     def _adaptive_spec_k(self, k):
@@ -1318,7 +1347,10 @@ class DecodeBatcher:
 
     def _loop(self):
         epoch = self._epoch
+        bind = getattr(self.engine, "bind_thread", None)
         try:
+            if bind is not None:
+                bind()                  # the engine's card, on this thread
             while not self._stop.is_set() and self._epoch == epoch:
                 self.heartbeat = time.monotonic()
                 sw = self._swap

@@ -488,21 +488,30 @@ class GenerationEngine:
     - ``release_slot``/``reclaim_leaks``: blocks back to the pool;
     - ``reset``: a restarted loop's empty bank (every block freed, the
       device pool and the decode graphs released);
-    - ``load_param_snapshot``/``stage_params`` off the loop, then
-      ``apply_params`` between steps: the hot reload.
+    - ``stage_snapshot`` (``load_param_snapshot``, ``stage_params``)
+      off the loop, then ``apply_params`` between steps: the hot reload.
+
+    Over a tensor-parallel generator (``tp`` > 1, one process a card) the
+    engine is one rank's: its pool or bank holds the rank's ``num_heads
+    / tp`` heads, its weights are the rank's shards, and every call that
+    touches the device or the pool must be made on every rank of the tp
+    group, in one order, with the same arguments. ``serving.tp`` builds
+    that: a leader engine that hands each call to the followers before it
+    runs it, and the followers' loop. The serving world is one tp group:
+    a larger world raises ``NotImplementedError`` (replicas behind a
+    router, ROADMAP.md Queue 1 item 8b). ``faults=False`` turns the
+    engine's fault points off (a tp group evaluates them on the leader,
+    before a call is handed out).
     """
 
     def __init__(self, generator, *, slots=None, stats=None, seed=0,
                  paged=None, kv_dtype=None, kv_block_size=None,
                  kv_pool_blocks=None, pool_name="serving",
-                 prefix_cache=None):
+                 prefix_cache=None, faults=True):
         if getattr(generator, "tp", 1) > 1:
-            raise NotImplementedError(
-                "paddle_tpu_torch: a GenerationEngine over a tensor-parallel "
-                "generator (tp > 1) is not ported: tp behind the batcher "
-                "and the server needs a leader rank that hands each step's "
-                "admissions to its followers (ROADMAP.md Queue 1 item 7b, "
-                "its first part)")
+            from .tp import check_serving_world
+            check_serving_world(generator.tp)
+        self._faults = bool(faults)
         self.gen = generator
         self.slots = int(slots or flag("decode_slots"))
         self.stats = stats if stats is not None else generator.stats
@@ -520,7 +529,9 @@ class GenerationEngine:
                 num_heads=cfg.num_heads, d_head=cfg.d_head,
                 max_seq_len=self.max_len, block_size=kv_block_size,
                 num_blocks=kv_pool_blocks, dtype=kv_dtype, name=pool_name,
-                prefix_cache=prefix_cache, device=generator.device)
+                prefix_cache=prefix_cache, device=generator.device,
+                tp=cfg.num_heads // generator.model.heads,
+                mesh=getattr(generator, "mesh", None))
         self._seed = int(seed)
         self.decoder = generator.new_decoder(seed)
         self._rng = self.decoder.generator
@@ -529,6 +540,20 @@ class GenerationEngine:
         self._worker = WatchdogWorker("serving-decode-step")
         # (abandoned worker, released arrays) until that worker ends
         self._deposed = []
+
+    def _fault(self, point):
+        if self._faults:
+            maybe_fail(point)
+
+    def bind_thread(self):
+        """Make the card that holds the model the calling thread's CUDA
+        device (a new thread's is card 0, and ``device="cuda"``, stream
+        and graph calls follow the thread's): every thread that drives the
+        engine calls it first. Nothing on the CPU."""
+        dev = self.gen.model.param("word_embedding").device
+        if dev.type == "cuda":
+            import torch
+            torch.cuda.set_device(dev)
 
     def _kv(self):
         if self.pool is not None:
@@ -643,7 +668,7 @@ class GenerationEngine:
         their first tokens, write their keys/values into ``slot_ids``
         (and, with the prefix cache, their blocks into the index).
         Returns the first tokens, np.int32 ``[len(requests)]``."""
-        maybe_fail("serving.prefill")
+        self._fault("serving.prefill")
         self.bank_lost = False
         t0 = time.perf_counter()
         n = len(requests)
@@ -669,7 +694,7 @@ class GenerationEngine:
         try:
             logits, ks, vs = self.gen.run_prefill(tokens, pos_ids, last)
             toks = self.gen.run_sample(logits, temp, topk, self._rng)
-            maybe_fail("serving.slot_insert")
+            self._fault("serving.slot_insert")
             if self.pool is not None:
                 self.pool.scatter_prefill(list(slot_ids), ks, vs, s)
             else:
@@ -802,20 +827,43 @@ class GenerationEngine:
     # -- hot weight reload ------------------------------------------------
     def load_param_snapshot(self, dirname):
         """Verified new host values (CPU tensors) of every generator
-        parameter; raises with the live weights untouched."""
-        return load_param_snapshot(dirname, self.gen.param_tensors())
+        parameter, whole (a checkpoint holds single-card tensors, at any
+        tp); raises with the live weights untouched."""
+        import torch
+        model = self.gen.model
+        whole = {n: torch.empty(model.layouts[n].full_shape
+                                if n in model.layouts else t.shape,
+                                dtype=t.dtype, device="meta")
+                 for n, t in self.gen.param_tensors().items()}
+        return load_param_snapshot(dirname, whole)
 
     def stage_params(self, host_params):
-        """The verified values on the device, off the decode loop, so the
-        swap itself is device copies only."""
-        return {n: t.to(self.gen.device) for n, t in host_params.items()}
+        """The verified values cut to this rank's shards (whole at tp 1)
+        and put on the device, off the decode loop, so the swap itself is
+        device copies only."""
+        model = self.gen.model
+        return {n: model.shard(n, t).to(self.gen.device)
+                for n, t in host_params.items()}
+
+    def stage_snapshot(self, dirname):
+        """:meth:`load_param_snapshot` then :meth:`stage_params`: what
+        :meth:`apply_params` takes."""
+        return self.stage_params(self.load_param_snapshot(dirname))
 
     def apply_params(self, device_params):
         """The swap: the staged values copied into the model's tensors in
-        place (``GPTGenerator.swap_params``). Run on the decode loop
-        between steps (``DecodeBatcher.request_swap``), so rows in
-        flight finish on the old weights."""
-        self.gen.swap_params(device_params)
+        place (``copy_in_place``; a name, shape or dtype off raises before
+        any copy). Run on the decode loop between steps
+        (``DecodeBatcher.request_swap``), so rows in flight finish on the
+        old weights."""
+        copy_in_place(self.gen.param_tensors(), device_params)
+
+    def make_drafter(self, mode=None, tp=None):
+        """The speculative drafter of ``mode`` (None:
+        ``FLAGS_decode_spec_mode``) over this engine's generator; a model
+        drafter's ``tp`` (None: ``FLAGS_serving_tp``)."""
+        from ..models.generation import make_drafter
+        return make_drafter(mode, generator=self.gen, tp=tp)
 
     # -- steps ------------------------------------------------------------
     def _watched(self, fn, budget, what):
@@ -829,7 +877,8 @@ class GenerationEngine:
             self._deposed = [d for d in self._deposed if d[0].is_alive()]
 
         def _work():
-            maybe_fail("serving.decode_step")
+            self.bind_thread()
+            self._fault("serving.decode_step")
             if self._bank_epoch != bank:
                 raise ServingError("the decode bank was released while "
                                    "this step waited; it does not run")

@@ -229,15 +229,21 @@ class KVBlockPool:
     ``tp`` > 1: the pool of one tensor-parallel rank, which holds its
     ``num_heads / tp`` heads of every block (``num_heads`` is then the
     pool's heads; the JAX package's ``apply_pool_sharding``): the cache
-    never crosses cards.
+    never crosses cards. Its migration payloads keep the single-card
+    layout: :meth:`export_slot` gathers every rank's heads over the tp
+    axis of ``mesh`` (every rank of the group calls it), and
+    :meth:`import_slot` takes a whole payload and writes this rank's
+    heads of it.
     """
 
     def __init__(self, *, slots, num_layers, num_heads, d_head,
                  max_seq_len, block_size=None, num_blocks=None, dtype=None,
-                 name="serving", prefix_cache=None, device=None, tp=1):
+                 name="serving", prefix_cache=None, device=None, tp=1,
+                 mesh=None):
         self.slots = int(slots)
         self.num_layers = int(num_layers)
         self.tp = int(tp or 1)
+        self.mesh = mesh
         if int(num_heads) % self.tp:
             raise ValueError(f"tp={self.tp} must divide num_heads="
                              f"{num_heads} (the pool splits on heads)")
@@ -738,20 +744,36 @@ class KVBlockPool:
         payload = {"fmt": KV_WIRE_FMT, "pool_dtype": self.dtype,
                    "block_size": self.block_size,
                    "num_layers": self.num_layers,
-                   "num_heads": self.num_heads, "d_head": self.d_head,
-                   "tokens": tokens, "nblocks": n}
+                   "num_heads": self.num_heads * self.tp,
+                   "d_head": self.d_head, "tokens": tokens, "nblocks": n}
         for i, (pk, pv, pks, pvs) in enumerate(self.layers()):
             for kind, pool, sc in (("k", pk, pks), ("v", pv, pvs)):
-                a = pool[idx]
+                a = self._whole_heads(pool[idx])
                 if self.dtype == "bf16":
                     a = a.view(torch.int16)
                 payload[f"{kind}_{i}"] = a.cpu().numpy().view(
                     _WIRE_NP[self.dtype])
                 if self.quantized:
-                    payload[f"{kind}s_{i}"] = sc[idx].cpu().numpy()
+                    payload[f"{kind}s_{i}"] = \
+                        self._whole_heads(sc[idx]).cpu().numpy()
         self.counters["blocks_exported"] += n
         _EXPORTED.inc(n, labels=(self.name,))
         return payload
+
+    def _whole_heads(self, a):
+        """``a`` (``[n, heads of this rank, ...]``) with every rank's
+        heads, in rank order (a gather over the tp axis at tp > 1)."""
+        if self.tp == 1:
+            return a
+        from ..ops.collective_ops import all_gather
+        return all_gather(a.contiguous(), "tp", 1, mesh=self.mesh)
+
+    def _my_heads(self, a):
+        """This rank's heads of a whole payload array ``a`` (dim 1)."""
+        if self.tp == 1:
+            return a
+        r = self.mesh.coords()["tp"] if self.mesh is not None else 0
+        return a[:, r * self.num_heads:(r + 1) * self.num_heads]
 
     @staticmethod
     def payload_bytes(payload):
@@ -775,14 +797,16 @@ class KVBlockPool:
             idx = torch.from_numpy(ids).to(self.device)
             for i, (pk, pv, pks, pvs) in enumerate(self.layers()):
                 for kind, pool, sc in (("k", pk, pks), ("v", pv, pvs)):
-                    a = np.ascontiguousarray(payload[f"{kind}_{i}"])
+                    a = np.ascontiguousarray(
+                        self._my_heads(payload[f"{kind}_{i}"]))
                     t = torch.from_numpy(a.view(np.int16)).view(
                         torch.bfloat16) if self.dtype == "bf16" \
                         else torch.from_numpy(a)
                     pool[idx] = t.to(self.device)
                     if self.quantized:
                         sc[idx] = torch.from_numpy(np.ascontiguousarray(
-                            payload[f"{kind}s_{i}"])).to(self.device)
+                            self._my_heads(payload[f"{kind}s_{i}"]))).to(
+                                self.device)
         except Exception:
             self.free_slot(slot)
             raise
@@ -799,10 +823,11 @@ class KVBlockPool:
                 else type(payload).__name__
             raise BadRequestError(f"KV payload format {got!r} is not "
                                   f"{KV_WIRE_FMT!r}")
+        heads = self.num_heads * self.tp        # the single-card layout
         for field, mine in (("pool_dtype", self.dtype),
                             ("block_size", self.block_size),
                             ("num_layers", self.num_layers),
-                            ("num_heads", self.num_heads),
+                            ("num_heads", heads),
                             ("d_head", self.d_head)):
             if payload.get(field) != mine:
                 raise BadRequestError(
@@ -824,7 +849,7 @@ class KVBlockPool:
             raise BadRequestError(
                 f"KV payload holds {tokens} tokens but the receiving "
                 f"pool's rows cap at max_seq_len={self.max_seq_len}")
-        shape = (n, self.num_heads, self.block_size, self.d_head)
+        shape = (n, heads, self.block_size, self.d_head)
         want = [(f"{kind}_{i}", shape, _WIRE_NP[self.dtype])
                 for i in range(self.num_layers) for kind in ("k", "v")]
         if self.quantized:
@@ -842,6 +867,25 @@ class KVBlockPool:
         return tokens, n
 
     # -- reporting --------------------------------------------------------
+    def digest(self):
+        """A hash of the host-side bookkeeping: the free list in its
+        order, the block tables, the slots' blocks and tokens, the
+        refcounts, the prefix index (keys, blocks, tokens and hits, in
+        LRU order) and the event counters. Two pools driven by the same
+        calls have the same digest (the ranks of a tp group compare
+        theirs)."""
+        with self._lock:
+            state = (self._free, self.tables.tobytes(),
+                     sorted(self._slot_nblocks.items()),
+                     sorted(self._slot_tokens.items()),
+                     sorted(self._refs.items()),
+                     sorted(self._cache_ref.items()),
+                     [(k, e["blocks"], e["tokens"], e["hits"])
+                      for k, e in self._prefix.items()],
+                     sorted(self.counters.items()))
+            raw = repr(state).encode()
+        return hashlib.blake2b(raw, digest_size=16).hexdigest()
+
     def _update_gauges_locked(self):
         lab = (self.name,)
         cached = self._cached_only_locked()

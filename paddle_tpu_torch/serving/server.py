@@ -51,7 +51,7 @@ Wire protocol:
     error    {"ok": False, "etype": "DeadlineExceeded"|"Overloaded"
                                     |"Shutdown"|"Cancelled"|"Watchdog"
                                     |"CheckpointCorrupt"|"BadRequest"
-                                    |"Internal",
+                                    |"TPGroupLost"|"Internal",
               "error": str}
     (``infer``, ``generate`` and ``prefill`` may carry "rid": str and
      "priority": str)
@@ -69,6 +69,18 @@ Wire protocol:
              (the flight recorder's events; with write, also a JSON dump
               server-side)
     request  {"op": "ping"}    -> {"ok": True}
+
+Tensor-parallel generation (``generator=GPTGenerator(tp=N)``, every rank
+of a launched world of N running the same script): the tp group's
+leader (tp index 0) builds the server above over a
+``serving.tp.TPLeaderEngine`` and alone binds the port; on every other
+rank ``start()`` runs the follower loop (``serving.tp.TPFollower``) and
+nothing else, and ``join()`` waits for the leader's ``drain``/``stop``
+to end it. ``health`` lists the ranks (``tp_ranks``) and whether the
+group is lost (``tp_group``); a lost group fails every request queued
+and in flight with ``TPGroupLostError`` (etype ``"TPGroupLost"``, a
+port-only reply) and is not restarted. A world larger than N raises:
+replicas behind a router are ROADMAP.md Queue 1 item 8b.
 
 Tracing: ``infer``, ``generate``, ``prefill``, ``stats`` and ``metrics``
 requests may carry a ``"trace"`` dict (``{"tid", "sid"}``, the JAX
@@ -106,6 +118,7 @@ from .brownout import BrownoutController
 from .engine import GenerationEngine, ServingEngine
 from .metrics import ServingStats, record_class_shed
 from .supervise import LoopSupervisor
+from .tp import TPGroupLostError
 
 
 class ServingConfig:
@@ -161,7 +174,13 @@ class InferenceServer:
                  allow_insecure=False, slo_rules=None, **config_overrides):
         self.config = config or ServingConfig(**config_overrides)
         self.stats_sink = ServingStats()
-        if engine is None and (model_dir is not None or generator is None):
+        # tensor-parallel generation (serving.tp): the tp group's leader
+        # serves, every other rank runs the follower loop and nothing else
+        tp = getattr(generator, "tp", 1) if generator is not None else 1
+        self.tp_follower = None
+        follower = tp > 1 and generator.mesh.coords()["tp"] != 0
+        if engine is None and not follower \
+                and (model_dir is not None or generator is None):
             from .cache import ExecutableCache
             cache = ExecutableCache(max_entries=self.config.cache_entries,
                                     max_bytes=self.config.cache_bytes)
@@ -180,10 +199,20 @@ class InferenceServer:
                 stats=self.stats_sink,
                 watchdog_s=self.config.loop_watchdog_s)
         self.gen_engine = self.gen_queue = self.decode_batcher = None
-        if generator is not None:
+        if tp > 1:
+            from .tp import tp_generation_engine
+            eng = tp_generation_engine(generator, slots=decode_slots,
+                                       stats=self.stats_sink, paged=paged)
+            if follower:
+                self.tp_follower = eng
+            else:
+                self.gen_engine = eng
+                eng.on_lost.append(self._on_tp_lost)
+        elif generator is not None:
             self.gen_engine = GenerationEngine(
                 generator, slots=decode_slots, stats=self.stats_sink,
                 paged=paged)
+        if self.gen_engine is not None:
             self.gen_queue = self._queue()
             self.decode_batcher = DecodeBatcher(
                 self.gen_queue, self.gen_engine, stats=self.stats_sink,
@@ -266,7 +295,13 @@ class InferenceServer:
         """Start the batchers, their supervisor and (unless
         ``serve_network=False``) the socket front end. Warmup captures
         the model's programs at the buckets of ``warmup_batch_sizes``
-        (and the recorded signatures) before the first request."""
+        (and the recorded signatures) before the first request. On a
+        tensor-parallel follower rank it starts the follower loop
+        (:meth:`join` waits for the leader to end it)."""
+        if self.tp_follower is not None:
+            self.tp_follower.start()
+            self._set_state("serving")
+            return self
         self._set_state("warming")
         if (warmup_batch_sizes or warmup_signature_file) \
                 and self.engine is not None:
@@ -314,6 +349,26 @@ class InferenceServer:
         self._set_state("serving", only_from=("warming", "created"))
         return self
 
+    def join(self, timeout=None):
+        """Wait until this rank's serving ends: a follower's loop (the
+        leader's ``drain``/``stop`` ends it; returns the error that ended
+        it otherwise), a leader's :meth:`stop`. Returns None."""
+        if self.tp_follower is not None:
+            return self.tp_follower.join(timeout)
+        self._stop.wait(timeout)
+        return None
+
+    def _on_tp_lost(self, reason):
+        """The tp group lost a rank: nothing more is admitted, and every
+        request queued or in flight fails typed (a step blocked on the
+        lost rank may never return)."""
+        self._set_state("degraded", only_from=("serving", "warming"))
+        err = TPGroupLostError(f"the serving tp group is lost: {reason}")
+        if self.gen_queue is not None:
+            self.gen_queue.close(error=err)
+        if self.decode_batcher is not None:
+            self.decode_batcher.fail_inflight(err)
+
     def _inflight(self):
         n = self._replying
         for q in (self.queue, self.gen_queue):
@@ -357,6 +412,8 @@ class InferenceServer:
         fail typed; a batch inside the engine finishes), close the socket
         and every connection, and join the threads."""
         self._set_state("stopped")
+        if self.tp_follower is not None:
+            return          # the leader's stop ends the follower loop
         if self.slo_monitor is not None:
             self.slo_monitor.stop()
             self.slo_monitor = None
@@ -368,6 +425,9 @@ class InferenceServer:
         for b in (self.batcher, self.decode_batcher):
             if b is not None:
                 b.stop()
+        shutdown = getattr(self.gen_engine, "shutdown", None)
+        if shutdown is not None:
+            shutdown()              # ends the tp followers' loops
         if self._sock is not None:
             try:
                 self._sock.close()
@@ -452,6 +512,8 @@ class InferenceServer:
         if self.gen_queue is None:
             raise BadRequestError("this server has no generator: pass "
                                   "generator= to InferenceServer")
+        if getattr(self.gen_engine, "lost", None) is not None:
+            raise self.gen_engine.lost_error()
         ntokens = np.asarray(tokens).size
         self.gen_engine.admission_check(ntokens, max_new_tokens,
                                         static_only=True)
@@ -527,6 +589,9 @@ class InferenceServer:
         age and restarts, the supervisor's breaker, the weights version,
         the brownout level, the SLO breaches and the paged pool's
         occupancy."""
+        if self.tp_follower is not None:
+            return {"state": self.state, "tp_role": "follower",
+                    "tp_loop_alive": self.tp_follower.alive()}
         h = {"state": self.state,
              "weights_version": self._weights_version,
              "uptime_s": round(time.monotonic() - self._started_at, 3),
@@ -552,7 +617,25 @@ class InferenceServer:
                 h["kvpool_occupancy"] = round(
                     pool.blocks_in_use() / cap, 4) if cap else 0.0
                 h["kvpool_evictable_blocks"] = pool.cached_blocks()
+            if hasattr(self.gen_engine, "liveness"):
+                lost = self.gen_engine.lost
+                h["tp_group"] = "lost" if lost is not None else "ok"
+                h["tp_size"] = self.gen_engine.gen.tp
+                h["tp_ranks"] = self.gen_engine.liveness()
+                if lost is not None:
+                    h["tp_lost_reason"] = lost
         return h
+
+    def tp_pool_digests(self, timeout=60.0):
+        """The tp group's ``KVBlockPool.digest`` s, the leader's first,
+        read between decode steps with the bank empty (parked on the loop
+        like a weight swap)."""
+        box = {}
+        self.decode_batcher.request_swap(
+            lambda: box.setdefault("digests",
+                                   self.gen_engine.pool_digests())
+        ).wait(timeout)
+        return box["digests"]
 
     def reload_weights(self, path, timeout=120.0):
         """Hot weight reload: read and verify a manifest-carrying
@@ -573,8 +656,7 @@ class InferenceServer:
         if self.engine is not None:
             new_state = self.engine.load_state_snapshot(path)
         if self.gen_engine is not None:
-            staged = self.gen_engine.stage_params(
-                self.gen_engine.load_param_snapshot(path))
+            staged = self.gen_engine.stage_snapshot(path)
         pause_ms = 0.0
         if new_state is not None:
             self.engine.swap_state(new_state)
@@ -842,6 +924,7 @@ class WatchdogError(WatchdogTimeout, InternalServerError):
 
 # reply etype <-> exception; subclasses before their bases
 _ETYPE_MAP = (
+    ("TPGroupLost", TPGroupLostError),
     ("Cancelled", RequestCancelledError),
     ("Shutdown", ServerShutdownError),
     ("DeadlineExceeded", DeadlineExceededError),

@@ -1,6 +1,6 @@
 """Supervised serving loops: crash and hang detection and restart.
 
-A copy of ``paddle_tpu/serving/supervise.py``. The ``MicroBatcher`` and
+Counterpart of ``paddle_tpu/serving/supervise.py``. The ``MicroBatcher`` and
 the ``DecodeBatcher`` each run one loop thread, and each stamps
 ``heartbeat`` once an iteration. :class:`LoopSupervisor` polls them: a
 dead thread (a crash) or a heartbeat older than twice
@@ -13,6 +13,10 @@ Restarts, and failure streaks inside a live loop, feed the
 server is degraded (``on_degraded``: generation sheds, ``ping``,
 ``health`` and ``stats`` answer) until a healthy period closes it
 (``on_recovered``). Restart counts and liveness are in ``health()``.
+A loop whose ``fatal`` names a reason (its engine's tensor-parallel
+group lost a rank: ``serving.tp``) is not restarted; the port's
+difference by design, the JAX package's one controller has no such
+group.
 """
 import threading
 import time
@@ -104,6 +108,8 @@ class LoopSupervisor:
                 "restarts": ent["restarts"],
                 "consecutive_failures": b.consecutive_failures,
             }
+            if ent.get("fatal"):
+                out[name]["fatal"] = ent["fatal"]
         return out
 
     # -- supervision loop --------------------------------------------------
@@ -120,6 +126,16 @@ class LoopSupervisor:
         all_healthy = True
         for name, ent in loops:
             b = ent["batcher"]
+            fatal = getattr(b, "fatal", None)
+            if fatal is not None:
+                # a loop over a lost tp group is not restarted: its
+                # communicator has lost a rank
+                all_healthy = False
+                if not ent.get("fatal"):
+                    ent["fatal"] = fatal
+                    _flightrec().record("loop_lost", loop=name,
+                                        reason=str(fatal)[:300])
+                continue
             dead = not b.alive()
             hung = (not dead and self.watchdog_s > 0
                     and now - b.heartbeat > self.hung_after_s)
