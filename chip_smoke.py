@@ -452,6 +452,34 @@ NVIDIA GPU.
       leader's hand-off us a step, the weight bytes a card, beside
       tp_generate's rows of the same run.
     ``--only-tp`` runs these alone (no kernels line, no ok line).
+13b. Sequence parallelism across cards, right after the tp phases, at
+    N = every card (sp 1 through the same code on one card, which says
+    that no sequence parallelism was measured): first
+    ``sp_kernel_shapes``, K1, K3 and K4 against their plain versions at
+    sp_bert's flash shape on four cards (the rank's 2048 queries against
+    8192 gathered keys, B2 H12 D64, float32, non-causal, a padded-tail
+    key bias) and at H6, each timed by graph replay or events beside
+    SDPA's forward or backward with the same mask, not counted; then
+    - sp_parity: tp_parity's narrow BERT (4 rows of S128) with
+      ``sp_shard=True`` under einsum attention, flash, ring, Ulysses and
+      the ring with ``causal=True`` set on the op, 3 Adam steps through
+      ``with_data_parallel(mesh=make_mesh(MeshConfig(sp=N)))`` (and tp 2
+      x sp 2 on four cards), eagerly and by a run_steps slab from
+      copies of one startup scope: the slab bitwise its eager steps,
+      the gathered parameters equal on every rank and within 1e-4 of
+      max |ref| of rank 0's plain program;
+    - sp_bert: BERT-base with ``sp_shard=True`` at S 2048 a card (8192
+      on four), B2, max_preds S/32, dropout 0, float32, Adam at 1e-4,
+      under ring, Ulysses and flash: 2 eager steps and a run_steps slab
+      of 3 (captured, the collectives inside), the captured step freed
+      before the next mechanism's; losses within ``SP_LOSS_RTOL`` of rank
+      0's one-card run of the same batches (flash, whole sequence); the
+      parameters equal on every rank; K1, K3 and K4 12 launches a step
+      on every rank under flash (K2 for K3 + K4 at one card's S 2048),
+      none under ring and Ulysses; ms a step, tokens/s, peak GB a card
+      beside the one-card run's, NCCL kernels and ms a step, idle share
+      from a profiled slab.
+    ``--only-sp`` runs these alone (no kernels line, no ok line).
 14. The core layer surface, last among the main paths:
     - gpt_programs: GPT's generation programs built from the registered
       decode ops (``models.gpt.gpt_prefill``, ``gpt_decode_step``,
@@ -5977,7 +6005,8 @@ def dp_worker(argpath):
     fn = {"dp_parity": _dp_parity, "dp_resnet50": _dp_resnet50,
           "fleet_bert": _fleet_bert, "tp_parity": _tp_parity,
           "tp_bert": _tp_bert, "tp_generate": _tp_generate,
-          "tp_serving": _tp_serving}[args["phase"]]
+          "tp_serving": _tp_serving, "sp_parity": _sp_parity,
+          "sp_bert": _sp_bert}[args["phase"]]
     from paddle_tpu_torch import kernels
     for w in kernels.COUNTED:
         w.launches = 0
@@ -7638,6 +7667,439 @@ def tp_kernel_shapes(torch, fa, pa):
                        "float32", 2209)]
     for r in out:
         r["tp_shape"] = True
+    return out
+
+
+# ------------------------------------------------ sequence parallelism
+
+# sp_parity: tp_parity's narrow BERT in float32 under each attention
+# mechanism ("ring_causal": the ring op with causal=True set on the op),
+# 3 Adam steps on one seeded global batch
+SP_PARITY = {"cfg": dict(TP_PARITY["cfg"]), "B": 4, "S": 128, "P": 8,
+             "steps": 3, "lr": 1e-3}
+SP_MECHS = (None, "flash", "ring", "ulysses", "ring_causal")
+# sp_bert: BERT-base at S = 2048 a card (8192 on four), B2, max_preds
+# S/32, dropout 0, float32, Adam at a constant 1e-4; 2 eager steps, then
+# run_steps slabs of 3
+SP_BERT = {"B": 2, "S_per_card": 2048, "eager": 2, "K": 3, "lr": 1e-4,
+           "seed": 500}
+SP_BERT_MECHS = ("ring", "ulysses", "flash")
+# the losses against the one-card flash run of the same batches: step 0
+# is a forward only (the ring's and Ulysses' float32 online softmax
+# against K1's tiles: summation order alone); later steps carry Adam's
+# first updates, whose sign follows grads that are rounding noise for
+# some weights (each such weight moves by up to 2 lr either way)
+SP_LOSS_RTOL = {"step0": 1e-4, "later": 2e-3}
+
+
+def sp_parity_grids(n):
+    """The (dp, sp, tp) meshes of sp_parity on ``n`` cards: sp n, and on
+    four cards tp 2 x sp 2 too."""
+    grids = [{"dp": 1, "sp": n, "tp": 1}]
+    if n == 4:
+        grids.append({"dp": 1, "sp": 2, "tp": 2})
+    return grids
+
+
+def _sp_world(g):
+    from paddle_tpu_torch.parallel import mesh
+    return mesh.make_mesh(mesh.MeshConfig(**g))
+
+
+def _sp_program(fluid, bert, cfg, rows, S, P, lr, sp_shard, tp=False,
+                causal=False):
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = 11
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = bert.bert_pretrain(cfg, rows, S, P, sp_shard=sp_shard)
+        if tp:
+            bert.apply_tp_sharding(main, cfg)
+        fluid.optimizer.AdamOptimizer(lr).minimize(out["loss"])
+    if causal:
+        # the op and its grad op's record of it
+        for op in main.global_block().ops:
+            if op.type == "ring_attention":
+                op.attrs["causal"] = True
+            elif op.type == "ring_attention_grad":
+                op.attrs["__fwd_op__"]["attrs"]["causal"] = True
+    return main, startup, out["loss"]
+
+
+def _sp_parity(torch, np, args, rank, n, place):
+    """The contract at small width, float32: the narrow BERT with
+    ``sp_shard=True`` under each mechanism, 3 Adam steps through
+    ``with_data_parallel(mesh=make_mesh(sp=n))`` (and tp 2 x sp 2 on four
+    cards), eagerly and by a run_steps slab from copies of one startup
+    scope; rank 0 also runs the plain program on its card from that
+    startup. Parameters are gathered over tp before the comparison."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel.tp import gathered
+    p = args["run"]
+    B, S, P = p["B"], p["S"], p["P"]
+    feeds = [bert.random_batch(bert.BertConfig(**p["cfg"]), B, S, P,
+                               rng=np.random.default_rng(310 + i))
+             for i in range(p["steps"])]
+    rec = {"cases": []}
+    exe = fluid.Executor(place)
+    for g in sp_parity_grids(n):
+        grid = _sp_world(g)
+        for mech in SP_MECHS:
+            cfg = bert.BertConfig(**p["cfg"], hidden_dropout=0.0,
+                                  attn_dropout=0.0,
+                                  attn_mechanism=(mech or "").replace(
+                                      "_causal", "") or None)
+            causal = mech == "ring_causal"
+            main, startup, loss = _sp_program(
+                fluid, bert, cfg, B, S, P, p["lr"], True, g["tp"] > 1,
+                causal)
+            comp = fluid.CompiledProgram(main).with_data_parallel(
+                loss_name=loss.name, mesh=grid)
+            s0 = fluid.Scope()
+            exe.run(startup, scope=s0)
+            sA, sB = (copied_scope(torch, fluid, s0) for _ in range(2))
+            eager = [exe.run(comp, feed=f, fetch_list=[loss], scope=sA)[0]
+                     for f in feeds]
+            slab = exe.run_steps(comp, feed=feeds, fetch_list=[loss],
+                                 scope=sB)[0]
+            diff = scope_diff(torch, sA, sB)
+            params = [q.name for q in main.all_parameters()]
+            with gathered(sA):
+                whole = {q: sA.find_var(q).detach().clone() for q in params}
+            case = {"mech": mech or "einsum", **g,
+                    "losses": [float(np.ravel(v)[0]) for v in eager],
+                    "slab_bitwise": bool(np.array_equal(
+                        np.stack(eager).reshape(-1), np.ravel(slab)))
+                    and not diff, "scope_diff": diff[:4],
+                    "report": getattr(comp.program, "_sp_report", {}),
+                    "digest": _state_digest(torch, whole.items())}
+            if rank == 0:
+                pmain, pstart, ploss = _sp_program(
+                    fluid, bert, cfg, B, S, P, p["lr"], False, False,
+                    causal)
+                sp_ = copied_scope(torch, fluid, s0)
+                plain = [exe.run(pmain, feed=f, fetch_list=[ploss],
+                                 scope=sp_)[0] for f in feeds]
+                top = max(float(sp_.find_var(q).abs().max())
+                          for q in params)
+                errs = {q: float((whole[q].float() - sp_.find_var(q)
+                                  .float()).abs().max()) for q in params}
+                case.update({
+                    "plain_losses": [float(np.ravel(v)[0]) for v in plain],
+                    "max_err_of_model_max": max(errs.values()) / top,
+                    "worst": max(errs, key=errs.get)})
+                del sp_
+            rec["cases"].append(case)
+            del s0, sA, sB
+            _release(torch, exe)
+    return rec
+
+
+def _sp_bert(torch, np, args, rank, n, place):
+    """BERT-base with ``sp_shard=True`` at S = 2048 a card, B2, float32,
+    Adam: under each of ring, Ulysses and flash, 2 eager steps, a
+    run_steps slab of 3 (captured, the collectives inside), a timed
+    slab, a profiled slab; the captured step is freed before the next
+    mechanism's. Rank 0 then runs the plain program (flash, one card,
+    the whole batch) for the same 5 steps from the same startup."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import bert
+    run = args["run"]
+    B, K, E = run["B"], run["K"], run["eager"]
+    S = run["S_per_card"] * n
+    P = S // 32
+    cuda = not args.get("cpu")
+    grid = _sp_world({"dp": 1, "sp": n, "tp": 1})
+    feeds = [bert.random_batch(bert_config(args.get("layers")), B, S, P,
+                               rng=np.random.default_rng(run["seed"] + i))
+             for i in range(E + K)]
+    exe = fluid.Executor(place)
+    dev = exe.device
+    pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in f.items()} for f in feeds]
+    slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
+    rec = {"S": S, "B": B, "P": P, "sp": n, "runs": {}}
+    for mech in SP_BERT_MECHS:
+        cfg = bert_config(args.get("layers"), mech, dropout=0.0,
+                          max_position=S)
+        main, startup, loss = _sp_program(fluid, bert, cfg, B, S, P,
+                                          run["lr"], True)
+        comp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=grid)
+        base = _peak_base(torch, cuda)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        eager, wall = [], []
+        for f in pool[:E]:
+            lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                comp, feed=f, fetch_list=[loss], scope=scope)[0])
+            eager.append(float(np.ravel(lv)[0]))
+            wall.append(ms)
+        (got,), cap_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            comp, feed=slab, fetch_list=[loss], scope=scope))
+        before = {w.__name__: w.launches for w in kernels.COUNTED}
+        _, slab_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            comp, feed=slab, fetch_list=[loss], scope=scope))
+        per_step = {w.__name__: (w.launches - before[w.__name__]) / K
+                    for w in kernels.COUNTED}
+        r = {"losses": eager + [float(v) for v in np.ravel(got)],
+             "eager_ms": wall, "first_slab_ms_with_capture": cap_ms,
+             "ms_per_step": slab_ms / K,
+             "tokens_per_s": B * S / (slab_ms / K) * 1e3,
+             "launches_per_step_run_steps": per_step,
+             "report": getattr(comp.program, "_sp_report", {})}
+        if cuda:
+            prof = kernel_profile(torch, lambda: exe.run_steps(
+                comp, feed=slab, fetch_list=[loss], scope=scope))
+            r.update({"nccl_kernels_per_step": len(prof["nccl_us"]) / K,
+                      "nccl_ms_per_step": prof["nccl_busy_ms"] / K,
+                      "compute_ms_per_step": prof["compute_busy_ms"] / K,
+                      "idle_share_replay":
+                          1 - prof["busy_ms"] / prof["wall_ms"],
+                      "peak_mem_gb": _peak_from(torch, cuda, base)})
+        params = [q.name for q in main.all_parameters()]
+        r["digest"] = _state_digest(torch, [(q, scope.find_var(q))
+                                            for q in params])
+        rec["runs"][mech] = r
+        del scope
+        _release(torch, exe)
+    if rank == 0:
+        cfg = bert_config(args.get("layers"), "flash", dropout=0.0,
+                          max_position=S)
+        main, startup, loss = _sp_program(fluid, bert, cfg, B, S, P,
+                                          run["lr"], False)
+        base = _peak_base(torch, cuda)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        plain, wall = [], []
+        for f in pool:
+            lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                main, feed=f, fetch_list=[loss], scope=scope)[0])
+            plain.append(float(np.ravel(lv)[0]))
+            wall.append(ms)
+        rec["plain"] = {"losses": plain, "eager_ms": wall,
+                        "peak_mem_gb": _peak_from(torch, cuda, base)}
+        del scope
+        _release(torch, exe)
+    rec["layers"] = bert_config(args.get("layers")).num_layers
+    return rec
+
+
+def _sp_failures(name, ranks, args):
+    bad = []
+    if name == "sp_parity":
+        for i, case in enumerate(ranks[0]["cases"]):
+            tag = f"{case['mech']} at sp {case['sp']} tp {case['tp']}"
+            for r in ranks:
+                if not r["cases"][i]["slab_bitwise"]:
+                    bad.append(f"sp_parity {tag}: rank {r['rank']}'s "
+                               f"run_steps is not its eager steps")
+                if r["cases"][i]["digest"] != case["digest"]:
+                    bad.append(f"sp_parity {tag}: rank {r['rank']}'s "
+                               f"gathered parameters differ from rank 0's")
+            if case["max_err_of_model_max"] > 1e-4:
+                bad.append(f"sp_parity {tag}: parameters off the plain run "
+                           f"by {case['max_err_of_model_max']:.3g} of max "
+                           f"|ref| ({case['worst']})")
+        return bad
+    from paddle_tpu_torch.kernels.flash_attention import \
+        single_pass_backward
+    r0 = ranks[0]
+    plain = r0["plain"]["losses"]
+    L = r0["layers"]
+    single = single_pass_backward(r0["S"], False)
+    for mech in SP_BERT_MECHS:
+        mine = r0["runs"][mech]["losses"]
+        for i, (a, b) in enumerate(zip(mine, plain)):
+            tol = SP_LOSS_RTOL["step0" if i == 0 else "later"]
+            if not math.isfinite(a) or abs(a - b) > tol * abs(b):
+                bad.append(f"sp_bert {mech}: step {i}'s loss {a} is off the "
+                           f"one-card run's {b} (rtol {tol})")
+        for r in ranks:
+            if r["runs"][mech]["digest"] != r0["runs"][mech]["digest"]:
+                bad.append(f"sp_bert {mech}: rank {r['rank']}'s parameters "
+                           f"differ from rank 0's")
+            if args.get("cpu"):
+                continue
+            per = r["runs"][mech]["launches_per_step_run_steps"]
+            want = {"flash_attention_fwd": 0, "flash_attention_bwd_single": 0,
+                    "flash_attention_bwd_dq": 0,
+                    "flash_attention_bwd_dkv": 0, "paged_attention": 0}
+            if mech == "flash":
+                want["flash_attention_fwd"] = L
+                for k in (("flash_attention_bwd_single",) if single else
+                          ("flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv")):
+                    want[k] = L
+            if {k: per.get(k, 0) for k in want} != want:
+                bad.append(f"sp_bert {mech}: rank {r['rank']} launched "
+                           f"{per} a step, not {want}")
+    return bad
+
+
+def sp_phase(torch, np, name, nproc, args=None, timeout=900):
+    """One sequence-parallel phase at ``nproc`` ranks (one a card),
+    checked and printed with the card, its power limit and N. Returns
+    the record."""
+    args = dict(args or {})
+    if nproc == 1 and name == "sp_bert" and not args.get("cpu"):
+        # one card measures no sp: 2 layers through the same code
+        args.setdefault("layers", 2)
+    args.setdefault("run", {"sp_parity": SP_PARITY,
+                            "sp_bert": SP_BERT}[name])
+    ranks, launch = dp_launch(torch, name, nproc, args, timeout)
+    rec = {"phase": name, **CARD, "N": nproc, "launch": launch}
+    bad = _sp_failures(name, ranks, args)
+    r0 = ranks[0]
+    if name == "sp_parity":
+        rec["cases"] = [{k: c.get(k) for k in (
+            "mech", "dp", "sp", "tp", "losses", "plain_losses",
+            "max_err_of_model_max", "worst", "report")}
+            for c in r0["cases"]]
+        rec["slab_bitwise"] = all(c["slab_bitwise"] for r in ranks
+                                  for c in r["cases"])
+    else:
+        rec.update({k: r0[k] for k in ("S", "B", "P", "sp", "layers")})
+        rec["plain"] = r0["plain"]
+        rec["tokens"] = r0["B"] * r0["S"]
+        rec["runs"] = {}
+        for mech, run in r0["runs"].items():
+            slow = max(ranks, key=lambda r: r["runs"][mech]["ms_per_step"])
+            row = {k: v for k, v in run.items() if k != "digest"}
+            row["ms_per_step_slowest"] = slow["runs"][mech]["ms_per_step"]
+            row["tokens_per_s_total"] = r0["B"] * r0["S"] / \
+                row["ms_per_step_slowest"] * 1e3
+            row["peak_mem_gb_a_card"] = max(
+                r["runs"][mech].get("peak_mem_gb") or 0.0 for r in ranks)
+            row["launches_per_step_by_rank"] = [
+                r["runs"][mech]["launches_per_step_run_steps"]
+                for r in ranks]
+            rec["runs"][mech] = row
+    if nproc == 1:
+        rec["note"] = ("one card: sp = 1 through the same code; no "
+                       "sequence parallelism was measured")
+        print(f"{name}: {rec['note']}", flush=True)
+    rec["ranks"] = ranks
+    emit({k: v for k, v in rec.items() if k != "ranks"})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def sp_phases(torch, np, counters, name, n=None, args=None):
+    """Sequence-parallel phase ``name`` at N = n (default: every card);
+    adds the ranks' kernel launches to ``counters``."""
+    n = n or torch.cuda.device_count()
+    rec = sp_phase(torch, np, name, n, args)
+    for r in rec["ranks"]:
+        for w, c in r["launches"].items():
+            cw = counters.get(w)
+            if cw is not None:
+                cw.launches += c
+                if hasattr(cw, "bf16_launches"):
+                    cw.bf16_launches += r["bf16_launches"].get(w, 0)
+    return rec
+
+
+def _sp_attention_inputs(torch, B, H, Sq, Sk, D, seed):
+    """Seeded q ``[B, H, Sq, D]``, k, v ``[B, H, Sk, D]`` (float32,
+    contiguous) and a key bias masking each row's padded tail (a row
+    keeps its first Sk/2..Sk keys), as sp_bert's flash op gets them: the
+    rank's queries against the gathered keys."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, H, Sq, D, device="cuda", generator=g)
+    k, v = (torch.randn(B, H, Sk, D, device="cuda", generator=g)
+            for _ in range(2))
+    lens = torch.randint(Sk // 2, Sk + 1, (B, 1, 1, 1), device="cuda",
+                         generator=g)
+    bias = torch.where(torch.arange(Sk, device="cuda") < lens, 0.0,
+                       -1e4).float()
+    return q, k, v, bias, g
+
+
+def sp_kernel_phase(torch, fa, name, B, H, Sq, Sk, D, seed):
+    """K1 (``flash_attention_fwd``), K3 or K4 at Sq != Sk (non-causal,
+    a key bias, float32) against its plain version on the same inputs
+    (limit: 1e-4 of the output's max |ref| for K3/K4, 1e-4 absolute for
+    K1), timed by graph replay beside the plain version and SDPA's
+    forward or backward with the same mask."""
+    F = torch.nn.functional
+    q, k, v, bias, g = _sp_attention_inputs(torch, B, H, Sq, Sk, D, seed)
+    scale = D ** -0.5
+    elem = q.element_size()
+    if name == "flash_attention_fwd":
+        got = fa.flash_attention_fwd(q, k, v, bias, scale, False)
+        ref = fa.flash_attention_ref(q, k, v, bias, scale, False)
+        errs = {"out": (got[0] - ref[0]).abs().max().item(),
+                "lse2": (got[1] - ref[1]).abs().max().item()}
+        ok = errs["out"] <= 1e-4 and errs["lse2"] <= 1e-3
+        rel = errs
+        del got, ref
+        ms = time_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, bias, scale, False), 20)
+        plain_ms = time_ms(torch, lambda: fa.flash_attention_ref(
+            q, k, v, bias, scale, False), 3)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=bias), 20)
+        ops = 4.0 * B * H * Sq * Sk * D
+        nbytes = (2 * Sq + 2 * Sk) * B * H * D * elem + B * H * Sq * 4 \
+            + B * Sk * 4
+        replaces = FA_REPLACES
+    else:
+        replaces, outs, products = BWD_KERNELS[name]
+        out, lse = fa.flash_attention_fwd(q, k, v, bias, scale, False)
+        dout = torch.randn(B, H, Sq, D, device="cuda", generator=g)
+        args = (q, k, v, bias, scale, False, out, lse, dout)
+        kern = getattr(fa, name)
+        got = kern(*args)
+        got = (got,) if len(outs) == 1 else got
+        ref = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_ref(*args)))
+        errs, rel = {}, {}
+        for o, t in zip(outs, got):
+            errs[o] = (t - ref[o]).abs().max().item()
+            rel[o] = errs[o] / ref[o].abs().max().item()
+        ok = max(rel.values()) <= 1e-4 and all(
+            bool(torch.isfinite(t).all()) for t in got)
+        del got, ref
+        ms = event_ms(torch, lambda: kern(*args), 10)
+        plain_ms = event_ms(torch, lambda: fa.flash_attention_bwd_ref(*args),
+                            2)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=bias)
+        lib_ms = event_ms(torch, lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), dout, retain_graph=True), 10)
+        ops = 2.0 * products * B * H * Sq * Sk * D
+        sizes = {"dq": Sq, "dk": Sk, "dv": Sk}
+        nbytes = (2 * Sq + 2 * Sk + sum(sizes[o] for o in outs)) \
+            * B * H * D * elem + 2 * B * H * Sq * 4 + B * Sk * 4
+    bound_ms, bound_by = bound(nbytes, ops, "float32")
+    rec = {"phase": f"sp_{name}", **CARD, "replaces": replaces, "B": B,
+           "H": H, "Sq": Sq, "Sk": Sk, "D": D, "dtype": "float32",
+           "causal": False, "bias": "padded", "max_abs_err":
+           max(errs.values()), "abs_err": errs, "err": rel, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops": ops / ms / 1e9, "ok": ok}
+    emit(rec)
+    torch.cuda.empty_cache()
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             f"Sq {Sq} Sk {Sk}: {rec}")
+    return rec
+
+
+def sp_kernel_shapes(torch, fa):
+    """K1, K3 and K4 against their plain versions at sp_bert's flash
+    shape on four cards (the rank's 2048 queries against the 8192
+    gathered keys: B2 H12 D64, float32, non-causal, a padded-tail key
+    bias), and at H6 (tp 2 x sp 2)."""
+    out = []
+    for H in (12, 6):
+        for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                     "flash_attention_bwd_dkv"):
+            out.append(sp_kernel_phase(torch, fa, name, 2, H, 2048, 8192,
+                                       64, seed=2212 + H))
     return out
 
 
@@ -9347,6 +9809,10 @@ def main():
                     "K1, K2 and K5 at the tp paths' head counts, run the "
                     "tensor-parallel paths at N = every card and stop (no "
                     "kernels line, no ok line)")
+    ap.add_argument("--only-sp", action="store_true", help="build, check "
+                    "K1, K3 and K4 at the sequence-parallel flash shapes, "
+                    "run the sequence-parallel paths at N = every card and "
+                    "stop (no kernels line, no ok line)")
     ap.add_argument("--only-dp", action="store_true", help="build, run the "
                     "data-parallel paths at N = every card (no N = 1 runs "
                     "for the scaling line) and stop: a measurement of them "
@@ -9510,14 +9976,42 @@ def main():
                                 + (", all bf16" if name == "tp_bert"
                                    else ""))
 
-    if args.only_dp or args.only_tp:
-        (drive_dp if args.only_dp else drive_tp)()
+    def drive_sp():
+        """Sequence parallelism across cards, one rank a card through the
+        port's launcher at N = every card (sp 4, and tp 2 x sp 2 in
+        sp_parity, on four cards; sp 1 through the same code on one): K1,
+        K3 and K4 against their plain versions at sp_bert's flash shape
+        first (not counted), then sp_parity (K1, K2 float32 under flash;
+        no kernel of the port under einsum, ring or Ulysses) and sp_bert
+        (BERT-base at S 2048 a card: K1 and K3 + K4, 12 a step each
+        under flash, K2 in their place at one card's S 2048; nothing
+        under ring and Ulysses). The ranks' launches join the counts."""
+        from paddle_tpu_torch.kernels.flash_attention import \
+            single_pass_backward
+        sp_kernel_shapes(torch, fa)
+        n = torch.cuda.device_count()
+        long = ("flash_attention_bwd_single",) if single_pass_backward(
+            SP_BERT["S_per_card"] * n, False) else (
+            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+        for name, needs in (("sp_parity", DP_BERT_KERNELS),
+                            ("sp_bert", ("flash_attention_fwd",) + long)):
+            _, got, _ = drive(name, needs, lambda name=name: sp_phases(
+                torch, np, counters, name))
+            # sp_bert's one-card reference runs the same kernels
+            others = {k: c for k, c in got.items() if c and k not in needs}
+            if others:
+                failures.append(f"the {name} path launched {got}: only "
+                                f"{needs} may launch")
+
+    if args.only_dp or args.only_tp or args.only_sp:
+        which = "dp" if args.only_dp else "tp" if args.only_tp else "sp"
+        {"dp": drive_dp, "tp": drive_tp, "sp": drive_sp}[which]()
         if failures:
             print(f"failed: {failures}", file=sys.stderr)
             return 1
-        print(f"--only-{'dp' if args.only_dp else 'tp'}: the "
-              f"{'data' if args.only_dp else 'tensor'}-parallel paths "
-              f"passed; no other phase ran", flush=True)
+        kind = {"dp": "data", "tp": "tensor", "sp": "sequence"}[which]
+        print(f"--only-{which}: the {kind}-parallel paths passed; no other "
+              f"phase ran", flush=True)
         return 0
 
     # causal phases take q/k/v as the prefill lays them out (strided views
@@ -9618,6 +10112,7 @@ def main():
 
     drive_dp()
     drive_tp()
+    drive_sp()
 
     # the dygraph paths (they need two eager B256 Transformer steps of
     # memory, ~15 GB each): bench_dygraph_transformer by jit_step (one

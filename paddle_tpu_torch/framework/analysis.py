@@ -39,6 +39,10 @@ SIDE_EFFECT_OPS = frozenset({
     "push_sparse", "push_sparse_v2", "pull_box_sparse", "push_box_sparse",
     "broadcast", "alltoall", "run_program", "allreduce", "sync_batch_norm",
     "hier_allreduce", "mp_allreduce_sum",
+    # the sequence split's collectives (pass sp_shard) and the ops that
+    # send K/V around the sp ring or all-to-all it
+    "sp_split", "sp_gather", "sp_replicate", "ring_attention",
+    "ulysses_attention",
 })
 
 # the attrs that name a control-flow op's sub-blocks

@@ -814,7 +814,10 @@ class Step:
         ``@RNG_SEED@`` stays equal on every rank. The ranks of one tp
         group share the fold: a replicated activation gets one mask on
         all of them (a rank's own attention heads draw the mask of the
-        first heads of the single-card draw; a difference by design)."""
+        first heads of the single-card draw; a difference by design).
+        So do the ranks of one sp group: a dropout inside the sequence
+        split draws the whole tensor's mask and keeps the rank's chunk
+        (``sp_chunk``, pass ``sp_shard``)."""
         return fold_rank(run_seed, self.rank)
 
     def agree(self, counts):

@@ -24,7 +24,9 @@ the user's program (``optimize_program``), which is never mutated:
 after its last producer) make a program data-parallel; the port's
 ``tp_shard`` (``parallel.tp``: each annotated parameter cut to the
 rank's shard, Megatron's collectives around the split matmuls) makes it
-tensor-parallel, where GSPMD does that for the JAX package;
+tensor-parallel and ``sp_shard`` (``parallel.sp``: the activations'
+sequence dim split per rank from the first ``sp`` constraint) makes it
+sequence-parallel, where GSPMD does both for the JAX package;
 ``CompiledProgram.with_data_parallel`` applies them to a clone. Every
 pass treats collectives as side effects (``analysis.is_side_effect_type``):
 never dropped, merged or moved past one another, since every rank must
@@ -382,9 +384,11 @@ class DataParallelGradAllreducePass(Pass):
     ``c_coalesced_allreduce_sum`` issued when its last member is made,
     in backward order. A grad that may hold ``SelectedRows`` (an
     ``is_sparse`` embedding) raises ``NotImplementedError``. attrs:
-    nranks."""
+    nranks, axis_name (the ring's axis: ``dp``, the default, or
+    ``dp_sp`` for a sequence-parallel program)."""
 
     nranks = 1
+    axis_name = None
 
     def apply(self, program):
         block = program.global_block()
@@ -411,6 +415,8 @@ class DataParallelGradAllreducePass(Pass):
                 block, "c_coalesced_allreduce_sum", inputs={"X": names},
                 outputs={"Out": names},
                 attrs={"ring_id": 0, "scale": scale,
+                       **({"axis_name": self.axis_name}
+                          if self.axis_name else {}),
                        OP_ROLE_KEY: _OpRole.Backward}))
             report["allreduce_ops"] += 1
 
@@ -459,6 +465,24 @@ class TensorParallelShardPass(Pass):
         from ..parallel.tp import tp_rewrite
         program._tp_layouts = tp_rewrite(program, self.mesh, self.tp_rank)
         self._report = dict(getattr(program, "_tp_report", {}))
+
+
+@register_pass("sp_shard")
+class SequenceParallelShardPass(Pass):
+    """The per-rank sequence split of a program over the ``sp`` axis of
+    ``mesh`` (``parallel.sp.sp_rewrite``), for the rank at ``sp_rank``
+    (this rank's by default): from the first ``sharding_constraint``
+    that names ``sp`` the activations hold the rank's chunk of the
+    sequence, gathered where an op needs it whole, grad ops included.
+    Nothing changes at sp 1. attrs: mesh, sp_rank."""
+
+    mesh = None
+    sp_rank = None
+
+    def apply(self, program):
+        from ..parallel.sp import sp_rewrite
+        self._report = sp_rewrite(program, self.mesh, self.sp_rank)
+        program._sp_report = dict(self._report)
 
 
 def _freeze(v):

@@ -2,9 +2,10 @@
 reference python/paddle/fluid/layers/collective.py — _allreduce :16,
 _allgather, _broadcast; used by the collective transpiler and dygraph
 DataParallel). ``shard`` pins a tensor to a mesh sharding: a
-``sharding_constraint`` op, a value identity in the port, over ``dp``
-and ``tp``; another axis (``sp`` ...) raises (ROADMAP.md Queue 1 item
-7b)."""
+``sharding_constraint`` op over ``dp``, ``sp`` and ``tp`` (a value
+identity, except that pass ``sp_shard`` starts the sequence split at
+the first one that names ``sp``); another axis (``pp`` ...) raises
+(ROADMAP.md Queue 1 item 7b)."""
 from ..parallel.mesh import not_ported_7b
 from .layer_helper import LayerHelper
 
@@ -31,11 +32,13 @@ def _allgather(x, nranks, ring_id=0, use_calc_stream=False):
 def shard(x, *spec):
     """Pin ``x`` to a mesh sharding, one axis name (or None) per dim, as
     the JAX package does: a ``sharding_constraint`` op, the value itself
-    here (every rank holds whole activations). Axes other than ``dp``
-    and ``tp`` raise: item 7b."""
+    (every rank holds its whole rows) until pass ``sp_shard`` makes the
+    first one that names ``sp`` take the rank's chunk of that dim
+    (``parallel.sp``). Axes other than ``dp``, ``sp`` and ``tp`` raise:
+    item 7b."""
     for a in spec:
         for name in (a if isinstance(a, (tuple, list)) else (a,)):
-            if name is not None and name not in ("dp", "tp"):
+            if name is not None and name not in ("dp", "sp", "tp"):
                 raise not_ported_7b(f"layers.collective.shard over the "
                                     f"{name!r} axis")
     helper = LayerHelper("sharding_constraint")

@@ -364,6 +364,32 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0,
     return out
 
 
+def ring_attention(q, k, v, attn_bias=None, scale=0.0, mechanism="ring",
+                   causal=False, name=None):
+    """Sequence-parallel attention for long sequences. q/k/v ``[B,
+    n_head, S, d_head]``, the sequence split over the ``sp`` axis by
+    pass ``sp_shard``. ``mechanism`` "ring" passes K/V blocks around the
+    sp ring into an online softmax (blocks above the diagonal skipped
+    under ``causal``); "ulysses" all-to-alls the split from the
+    sequence to the heads. ``attn_bias``: ``[B, 1, 1, S]``, ``[B, H, S,
+    S]`` or ``[B, 1, S, S]``. Exact attention either way; one pass
+    without an sp axis."""
+    assert mechanism in ("ring", "ulysses")
+    helper = LayerHelper(f"{mechanism}_attention", name=name)
+    out = helper.create_variable_for_type_inference(dtype=q.dtype)
+    ins = {"Q": [q], "K": [k], "V": [v]}
+    if attn_bias is not None:
+        ins["Bias"] = [attn_bias]
+    helper.append_op(
+        type=f"{mechanism}_attention", inputs=ins,
+        outputs={"Out": [out]},
+        attrs={"scale": float(scale), "causal": bool(causal)},
+        infer_shape=False)
+    out.shape = tuple(q.shape or ())
+    out.dtype = q.dtype
+    return out
+
+
 def flash_attention(q, k, v, attn_bias=None, scale=0.0, causal=False,
                     impl=None, block_q=None, block_k=None, name=None):
     """Fused attention. q/k/v ``[B, n_head, S, d_head]``; attn_bias an

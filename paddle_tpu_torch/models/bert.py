@@ -5,13 +5,16 @@ builds the masked-LM + next-sentence program through the Fluid layers,
 op for op the program the JAX package builds (post-LN encoder blocks,
 the MLM head weight-tied to ``word_embedding``), and ``fluid.Executor``
 runs it. Attention is the einsum composite with attention dropout
-(``attn_mechanism`` None) or the ``flash_attention`` op, non-causal
+(``attn_mechanism`` None), the ``flash_attention`` op, non-causal
 with a ``[B, 1, 1, S]`` key bias (``"flash"``), whose forward and
-backward are the CUDA kernels K1 and K2. :func:`apply_tp_sharding`
-annotates the Megatron split as the JAX package does; pass ``tp_shard``
-(``CompiledProgram.with_data_parallel`` over a tp mesh) carries it out.
-Sequence-parallel attention (``"ring"``/``"ulysses"``) and ``sp_shard``
-are not ported.
+backward are the CUDA kernels K1 and K2 (K3 + K4 past 4096 keys), or
+the sequence-parallel ``ring_attention``/``ulysses_attention`` ops
+(``"ring"``/``"ulysses"``, no attention dropout, as in the JAX model).
+:func:`apply_tp_sharding` annotates the Megatron split as the JAX
+package does; pass ``tp_shard`` (``CompiledProgram.with_data_parallel``
+over a tp mesh) carries it out. ``sp_shard=True`` pins the hidden state
+to ``("dp", "sp", None)`` before every block; pass ``sp_shard`` (over a
+mesh with an sp axis) splits its sequence dim there.
 
 Every weight, embedding and layer-norm scale starts from
 ``TruncatedNormal(0, initializer_range)`` (the layer-norm scales too, as
@@ -26,6 +29,7 @@ from .. import layers
 from ..framework import initializer as I
 from ..layers import math as M
 from ..layers import tensor as T
+from ..layers.collective import shard
 from ..param_attr import ParamAttr
 
 
@@ -42,7 +46,7 @@ class BertConfig:
     attn_dropout: float = 0.1
     initializer_range: float = 0.02
     # None = the einsum composite; "flash" = the flash_attention op (K1,
-    # K2); "ring"/"ulysses" (sequence parallel) are not ported
+    # K2); "ring"/"ulysses" = sequence-parallel attention over "sp"
     attn_mechanism: str = None
     # kept in the flash op for the JAX program form; the kernels pick
     # their own tiles
@@ -94,17 +98,18 @@ def encoder_layer(cfg, x, attn_bias, idx, is_test):
     k = T.slice(qkv, axes=[2], starts=[h], ends=[2 * h])
     v = T.slice(qkv, axes=[2], starts=[2 * h], ends=[3 * h])
     if cfg.attn_mechanism:
-        if cfg.attn_mechanism != "flash":
-            raise NotImplementedError(
-                f"paddle_tpu_torch: attn_mechanism "
-                f"{cfg.attn_mechanism!r} (sequence-parallel attention) is "
-                f"not ported")
-        # the flash op takes [B, nH, S, dH]
+        # the flash and sequence-parallel ops take [B, nH, S, dH]
         q, k, v = (T.transpose(T.reshape(t, [0, 0, n_head, d_head]),
                                [0, 2, 1, 3]) for t in (q, k, v))
-        ctx = layers.nn.flash_attention(q, k, v, attn_bias=attn_bias,
-                                        block_q=cfg.flash_block_q,
-                                        block_k=cfg.flash_block_k)
+        if cfg.attn_mechanism == "flash":
+            ctx = layers.nn.flash_attention(q, k, v, attn_bias=attn_bias,
+                                            block_q=cfg.flash_block_q,
+                                            block_k=cfg.flash_block_k)
+        else:
+            # the K/V ring or the Ulysses all-to-all over "sp"; exact
+            # softmax, no attention dropout
+            ctx = layers.nn.ring_attention(q, k, v, attn_bias=attn_bias,
+                                           mechanism=cfg.attn_mechanism)
         ctx = T.reshape(T.transpose(ctx, [0, 2, 1, 3]), [0, 0, h])
     else:
         # einsum keeps q/k/v in [B, S, nH, dH]
@@ -134,10 +139,8 @@ def encoder_layer(cfg, x, attn_bias, idx, is_test):
 def bert_encoder(cfg, src_ids, sent_ids, pos_ids, input_mask, is_test=False,
                  sp_shard=False):
     """Embeddings + N transformer blocks -> ([B, S, H], the blocks'
-    outputs)."""
-    if sp_shard:
-        raise NotImplementedError("paddle_tpu_torch: sp_shard (sequence-"
-                                  "parallel residency) is not ported")
+    outputs). ``sp_shard``: the hidden state pinned to ``("dp", "sp",
+    None)`` before every block (sequence-parallel residency)."""
     emb = layers.embedding(src_ids, size=[cfg.vocab_size, cfg.hidden_size],
                            param_attr=_param(cfg, "word_embedding"))
     pos_emb = layers.embedding(pos_ids, size=[cfg.max_position,
@@ -159,6 +162,8 @@ def bert_encoder(cfg, src_ids, sent_ids, pos_ids, input_mask, is_test=False,
     x = emb
     checkpoints = []
     for i in range(cfg.num_layers):
+        if sp_shard:
+            x = shard(x, "dp", "sp", None)
         x = encoder_layer(cfg, x, attn_bias, i, is_test)
         checkpoints.append(x)
     return x, checkpoints

@@ -5,17 +5,19 @@ operators/collective/c_allreduce_op.h:58, c_allgather_op.cc,
 c_reducescatter_op.cc, c_broadcast_op.cc). The JAX ops lower to XLA
 collectives over a mesh axis inside a mapped region and are identities
 outside one. Here a ring is an axis of the world's layout
-(``parallel.mesh.world_mesh``): ``dp`` or ``tp``. In a launched world
+(``parallel.mesh.world_mesh``): ``dp``, ``sp``, ``tp`` or the joint
+``dp_sp`` (the grads of a sequence-parallel program). In a launched world
 each op calls ``torch.distributed`` over the rank's process group on
 that axis (NCCL on the card, inside a captured CUDA graph too; gloo on
 the CPU), as the reference's NCCL ops do; on an axis of one rank, and in
 a world of 1 without a process group, each op is the identity. Ring 0
 is the dp axis; a ring above 0 must be bound by ``c_comm_init`` (an
 ``axis_name`` attr) or :func:`register_ring` (``register_ring(1,
-"tp")``). The other axes (``pp``, ``sp``, ``ep``, ``dcn_dp``) raise
-(ROADMAP.md Queue 1 item 7b), as do ``hier_allreduce`` and
-``alltoall``. ``sharding_constraint`` is a value identity: a layout hint
-under GSPMD, while every rank of the port holds whole activations.
+"tp")``). The other axes (``pp``, ``ep``, ``dcn_dp``) raise (ROADMAP.md
+Queue 1 item 7b), as do ``hier_allreduce`` and ``alltoall`` (parts 4
+and 5 of it). ``sharding_constraint`` is a value identity: a layout
+hint under GSPMD; where it names ``sp``, pass ``sp_shard``
+(``parallel.sp``) starts the split of the sequence there.
 
 Grads: an all-reduce sum's is an all-reduce sum, an all-gather's a
 reduce-scatter, a reduce-scatter's an all-gather and a broadcast's the
@@ -36,12 +38,21 @@ The port's own ops:
   (the vocab-split logits), its grad the rank's slice;
 - ``c_embedding``: the lookup of a vocab-split table, rows
   ``[start_index, start_index + rows)``; an id outside them looks up
-  zeros (the ``mp_allreduce_sum`` after it sums the ranks' rows).
+  zeros (the ``mp_allreduce_sum`` after it sums the ranks' rows);
+- the sequence split's three, which pass ``sp_shard`` puts in
+  (``parallel.sp`` says why their grads are scaled so): ``sp_split``
+  (a whole tensor's ``sp`` chunk of dim ``dim``; its grad, the chunks'
+  grads all-gathered and divided by the axis size), ``sp_gather`` (the
+  chunks all-gathered on ``dim``; its grad, the reduce-scatter sum)
+  and ``sp_replicate`` (a whole tensor read by a split op: the identity,
+  its grad the ranks' partial grads summed and divided by the axis
+  size).
 
 The functions :func:`all_reduce`, :func:`all_gather`,
-:func:`reduce_scatter` and :func:`broadcast_` are the same collectives
-on tensors, for the sync batch norm, dygraph ``DataParallel`` and the
-tensor-parallel GPT module.
+:func:`reduce_scatter`, :func:`broadcast_`, :func:`ring_shift` and
+:func:`all_to_all` are the same collectives on tensors, for the sync
+batch norm, dygraph ``DataParallel``, the tensor-parallel GPT module
+and the sequence-parallel attention ops.
 """
 import warnings
 
@@ -99,7 +110,7 @@ def _ring_axis(ctx, attrs):
                 f"collective_ops.register_ring({ring}, '<axis>') (the "
                 f"reference bound rings via c_comm_init, "
                 f"operators/collective/c_comm_init_op.cc)")
-    if name not in ("dp", "tp"):
+    if name not in _mesh.AXES:
         raise _mesh.not_ported_7b(f"a collective over the {name!r} axis")
     return name
 
@@ -163,19 +174,74 @@ def all_gather(t, axis="dp", dim=0, mesh=None):
     return out.movedim(0, dim) if dim else out
 
 
-def reduce_scatter(t, axis="dp"):
-    """The sum over the ranks of ``axis`` of ``t``, this rank's 1/N
-    slice of dim 0."""
-    if not _live(axis):
+def reduce_scatter(t, axis="dp", dim=0, mesh=None):
+    """The sum over the ranks of ``axis`` of ``mesh`` (default: the
+    active layout) of ``t``, this rank's 1/N slice of dim ``dim``."""
+    if not _live(axis, mesh):
         return t
-    n = _size(axis)
-    if t.shape[0] % n:
-        raise ValueError(f"reduce_scatter: dim 0 of {tuple(t.shape)} does "
-                         f"not divide by the {n} ranks")
-    t = t.contiguous()
+    n = _size(axis, mesh)
+    if t.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(t.shape)} "
+                         f"does not divide by the {n} ranks")
+    t = t.movedim(dim, 0).contiguous() if dim else t.contiguous()
     out = t.new_empty((t.shape[0] // n,) + tuple(t.shape[1:]))
-    _dist().reduce_scatter_tensor(out, t, group=_group(axis))
+    _dist().reduce_scatter_tensor(out, t, group=_group(axis, mesh))
+    return out.movedim(0, dim) if dim else out
+
+
+def ring_shift(t, axis="sp", mesh=None):
+    """``t`` sent to the next rank of ``axis`` (index ``s + 1``) and the
+    previous rank's (``s - 1``) received, around the ring: one
+    ``all_to_all_single`` whose only non-zero splits are the two
+    neighbours, which NCCL runs as one grouped send and receive on the
+    axis group's own communicator (so a CUDA graph captures it once the
+    warm-up has issued it, as it does the other collectives). A new
+    tensor; ``t`` itself outside a world or on an axis of one rank."""
+    if not _live(axis, mesh):
+        return t
+    n = _size(axis, mesh)
+    s = _mesh.axis_rank(axis, mesh)
+    t = t.contiguous()
+    rows = t.numel()
+    send = [0] * n
+    recv = [0] * n
+    send[(s + 1) % n] = rows
+    recv[(s - 1) % n] = rows
+    out = torch.empty_like(t)
+    _dist().all_to_all_single(out.view(-1), t.view(-1),
+                              output_split_sizes=recv,
+                              input_split_sizes=send,
+                              group=_group(axis, mesh))
     return out
+
+
+def all_to_all(t, split_dim, concat_dim, axis="sp", mesh=None):
+    """The tiled all-to-all of ``axis``: ``t``'s dim ``split_dim`` cut
+    into N pieces, piece ``j`` sent to index ``j``, and the pieces
+    received concatenated on ``concat_dim`` in index order (JAX's
+    ``lax.all_to_all(..., tiled=True)``). ``t`` itself outside a world
+    or on an axis of one rank."""
+    if not _live(axis, mesh):
+        return t
+    n = _size(axis, mesh)
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dim {split_dim} of "
+                         f"{tuple(t.shape)} does not divide by the {n} "
+                         f"ranks")
+    shape = list(t.shape)
+    piece = shape[split_dim] // n
+    # [..., n, piece, ...] with the n pieces leading: piece j to index j
+    v = t.reshape(shape[:split_dim] + [n, piece] + shape[split_dim + 1:])
+    v = v.movedim(split_dim, 0).contiguous()
+    out = torch.empty_like(v)
+    _dist().all_to_all_single(out, v, group=_group(axis, mesh))
+    # out[j] is index j's piece (t's dim i at i + 1): n goes just
+    # before concat_dim and merges with it, index-major
+    out = out.movedim(0, concat_dim)
+    got = list(out.shape)
+    merged = got[:concat_dim] + [got[concat_dim] * got[concat_dim + 1]] \
+        + got[concat_dim + 2:]
+    return out.reshape(merged)
 
 
 def broadcast_(t, root=0, axis="dp"):
@@ -334,8 +400,8 @@ for _name in ("hier_allreduce", "alltoall"):
 @register_op("sharding_constraint")
 def sharding_constraint(ctx, ins, attrs):
     """A layout hint (the ``spec`` attr, sanitised by
-    ``layers.collective.shard``): the value itself, since every rank of
-    the port holds whole activations."""
+    ``layers.collective.shard``): the value itself (pass ``sp_shard``
+    replaces the first one that names ``sp`` by ``sp_split``)."""
     return {"Out": x_of(ins)}
 
 
@@ -405,6 +471,90 @@ def c_concat_grad(ctx, ins, attrs):
     size = g.shape[dim] // n
     return {"X@GRAD": [g.narrow(dim, _mesh.axis_rank(axis) * size,
                                 size).contiguous()]}
+
+
+# ------------------------------------------ sequence parallelism (sp_shard)
+
+def _sp_dim(x, attrs):
+    return int(attrs.get("dim", 1)) % x.dim()
+
+
+@register_op("sp_split")
+def sp_split(ctx, ins, attrs):
+    """This rank's chunk of dim ``dim`` of the whole ``X`` on the axis
+    (``axis_name``, ``sp``); ``nranks`` sizes it in shape inference."""
+    x = x_of(ins)
+    dim = _sp_dim(x, attrs)
+    if getattr(ctx, "abstract", False):
+        shape = list(x.shape)
+        shape[dim] //= int(attrs.get("nranks") or 1)
+        return {"Out": x.new_empty(shape)}
+    axis = _in_world(ctx, attrs)
+    if not axis:
+        return {"Out": x}
+    n = _mesh.axis_world_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"sp_split: dim {dim} of {tuple(x.shape)} is not "
+                         f"divisible by the {n} ranks of {axis!r}")
+    piece = x.shape[dim] // n
+    return {"Out": x.narrow(dim, _mesh.axis_rank(axis) * piece,
+                            piece).contiguous()}
+
+
+@register_grad_lower("sp_split")
+def sp_split_grad(ctx, ins, attrs):
+    fattrs = attrs["__fwd_op__"]["attrs"]
+    g = x_of(ins, "Out@GRAD")
+    axis = _in_world(ctx, fattrs)
+    if not axis:
+        return {"X@GRAD": [g]}
+    n = _mesh.axis_world_size(axis)
+    return {"X@GRAD": [all_gather(g, axis, _sp_dim(g, fattrs)) / n]}
+
+
+@register_op("sp_gather")
+def sp_gather(ctx, ins, attrs):
+    """The axis's chunks of ``X`` all-gathered on dim ``dim`` in index
+    order (the whole tensor on every rank)."""
+    x = x_of(ins)
+    dim = _sp_dim(x, attrs)
+    if getattr(ctx, "abstract", False):
+        shape = list(x.shape)
+        shape[dim] *= int(attrs.get("nranks") or 1)
+        return {"Out": x.new_empty(shape)}
+    axis = _in_world(ctx, attrs)
+    if not axis:
+        return {"Out": x}
+    return {"Out": all_gather(x, axis, dim)}
+
+
+@register_grad_lower("sp_gather")
+def sp_gather_grad(ctx, ins, attrs):
+    fattrs = attrs["__fwd_op__"]["attrs"]
+    g = x_of(ins, "Out@GRAD")
+    axis = _in_world(ctx, fattrs)
+    if not axis:
+        return {"X@GRAD": [g]}
+    return {"X@GRAD": [reduce_scatter(g, axis, _sp_dim(g, fattrs))]}
+
+
+@register_op("sp_replicate")
+def sp_replicate(ctx, ins, attrs):
+    """A whole tensor as a split op reads it: the identity; its grad,
+    the ranks' partial grads summed over the axis and divided by its
+    size."""
+    _ring_axis(ctx, attrs)
+    return {"Out": x_of(ins)}
+
+
+@register_grad_lower("sp_replicate")
+def sp_replicate_grad(ctx, ins, attrs):
+    g = x_of(ins, "Out@GRAD")
+    axis = _in_world(ctx, attrs["__fwd_op__"]["attrs"])
+    if not axis:
+        return {"X@GRAD": [g]}
+    g = all_reduce(g.clone(), "sum", axis)
+    return {"X@GRAD": [g / _mesh.axis_world_size(axis)]}
 
 
 def _local_ids(ids, rows, start=0, padding_idx=None):
@@ -494,5 +644,5 @@ def c_comm_init_all(ctx, ins, attrs):
     return None
 
 
-__all__ = ["all_gather", "all_reduce", "broadcast_", "reduce_scatter",
-           "register_ring", "vocab_lookup"]
+__all__ = ["all_gather", "all_reduce", "all_to_all", "broadcast_",
+           "reduce_scatter", "register_ring", "ring_shift", "vocab_lookup"]

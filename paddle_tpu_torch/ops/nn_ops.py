@@ -455,7 +455,9 @@ def layer_norm(ctx, ins, attrs):
 def dropout(ctx, ins, attrs):
     """The keep mask is drawn from the op's own generator
     (``LowerCtx.generator``), so the grad op's recompute draws the same
-    mask as the forward."""
+    mask as the forward. With ``sp_chunk`` ``[dim, n, r]`` (pass
+    ``sp_shard``) ``X`` is chunk ``r`` of ``n`` of dim ``dim``: the
+    whole tensor's mask is drawn and the chunk's part kept."""
     x = x_of(ins)
     p = attrs.get("dropout_prob", 0.5)
     impl = attrs.get("dropout_implementation", "downgrade_in_infer")
@@ -464,8 +466,18 @@ def dropout(ctx, ins, attrs):
     if attrs.get("is_test", False):
         out = x if impl == "upscale_in_train" else x * (1.0 - p)
         return {"Out": out, "Mask": torch.ones_like(x)}
-    u = torch.rand(x.shape, generator=ctx.generator(attrs),
-                   dtype=torch.float32, device=x.device)
+    chunk = attrs.get("sp_chunk")
+    if chunk:
+        # the rank's chunk of the whole tensor's mask (pass sp_shard)
+        dim, n, r = (int(c) for c in chunk)
+        shape = list(x.shape)
+        shape[dim] *= n
+        u = torch.rand(shape, generator=ctx.generator(attrs),
+                       dtype=torch.float32, device=x.device).narrow(
+            dim, r * x.shape[dim], x.shape[dim])
+    else:
+        u = torch.rand(x.shape, generator=ctx.generator(attrs),
+                       dtype=torch.float32, device=x.device)
     keep = u < (1.0 - p)
     if impl == "upscale_in_train":
         out = torch.where(keep, x / (1.0 - p), 0.0).to(x.dtype)

@@ -27,6 +27,12 @@ dp group only and scaled by 1/dp. The executor cuts each rank's shard
 out of a whole value before a run reads it (``_place_shards``: the
 startup's values, a load's), and a save gathers them back.
 
+Over a mesh with an ``sp`` axis (``MeshConfig(dp=2, sp=2)``) pass
+``sp_shard`` then splits the activations' sequence dim per rank from the
+first ``sp`` constraint (``parallel.sp``); the grads are summed over the
+rank's dp x sp group (``dp_sp``, the ranks of its tp coordinate) and
+scaled by 1/(dp*sp). No state is split by sp.
+
 The executor runs such a program on each rank (``Executor.run``,
 ``run_steps`` as a captured CUDA graph with the all-reduces inside,
 ``train_from_dataset``): its first run on a scope broadcasts every
@@ -39,8 +45,8 @@ import copy
 import warnings
 import weakref
 
-from .mesh import (activate, axis_size, check_device, default_mesh,
-                   get_mesh, init_parallel_env)
+from .mesh import (GRAD_AXIS, activate, axis_size, check_device,
+                   default_mesh, get_mesh, init_parallel_env)
 
 
 class BuildStrategy:
@@ -130,6 +136,7 @@ class CompiledProgram:
         if self.mesh.size != n:
             raise ValueError(f"{self.mesh} over a world of {n} ranks")
         dp, tp = axis_size(self.mesh, "dp"), axis_size(self.mesh, "tp")
+        sp = axis_size(self.mesh, "sp")
         bs = self.build_strategy
         if bs.gradient_scale_strategy != \
                 BuildStrategy.GradientScaleStrategy.CoeffNumDevice:
@@ -148,10 +155,14 @@ class CompiledProgram:
         passes = []
         if tp > 1:
             passes.append(get_pass("tp_shard", mesh=self.mesh))
+        if sp > 1:
+            passes.append(get_pass("sp_shard", mesh=self.mesh))
         if any(op.type == "batch_norm"
                for blk in prog.blocks for op in blk.ops):
             passes.append("sync_batch_norm")
-        passes.append(get_pass("dp_grad_allreduce", nranks=dp))
+        passes.append(get_pass(
+            "dp_grad_allreduce", nranks=dp * sp,
+            axis_name=GRAD_AXIS if sp > 1 else None))
         self.program = apply_passes(prog, passes)
         self._tp_layouts = getattr(self.program, "_tp_layouts", {})
         self._data_parallel = True
@@ -185,8 +196,8 @@ class CompiledProgram:
         on the first run of this program on ``scope``; the run seed
         too, so every rank's checkpoints agree. A whole value goes from
         world rank 0 (before the ranks take their tp shards), a shard a
-        scope already holds from the first rank of the rank's dp
-        group."""
+        scope already holds from the first rank of the ranks of its tp
+        coordinate (its dp group, or its dp x sp group)."""
         from .mesh import is_initialized
         if not (self._data_parallel and is_initialized()) \
                 or scope in self._synced:
@@ -200,7 +211,8 @@ class CompiledProgram:
                 lay = self._tp_layouts.get(n)
                 whole = lay is None or tuple(val.shape) == \
                     tuple(lay.full_shape)
-                broadcast_(val, 0, None if whole else "dp")
+                broadcast_(val, 0, None if whole else (
+                    GRAD_AXIS if self.mesh.sp > 1 else "dp"))
         seed = scope.find_var(RNG_STATE_NAME)
         if seed is not None:
             dev = next((v.device for v in (scope.find_var(n)

@@ -13,18 +13,20 @@ FLAGS_selected_gpus)`` makes ``device=None`` the rank's own card. A
 process that was not launched is a world of 1 and needs no process
 group; a launched one has a group, whatever its size.
 
-A :class:`Mesh` lays the world's ranks out on a ``dp`` and a ``tp``
-axis, ``tp`` innermost (``AXIS_ORDER`` puts it last), so the ranks of
-one tensor-parallel group are consecutive: rank ``r`` sits at ``dp``
-coordinate ``r // tp`` and ``tp`` coordinate ``r % tp``. Building a
-mesh with ``tp > 1`` in a launched world makes one process group per
-``tp`` group and per ``dp`` group, on every rank in the same order (the
-collectives of ``ops.collective_ops`` run over them), and a gloo group
-beside each ``tp`` group for objects on the host (``axis_group("tp",
-host=True)``: the tensor-parallel server's descriptors,
-``serving.tp``). The other axes
-(``pp``, ``sp``, ``ep``, ``dcn_dp``) raise ``NotImplementedError``: the
-rest of ROADMAP.md Queue 1 item 7b.
+A :class:`Mesh` lays the world's ranks out on a ``dp``, an ``sp`` and
+a ``tp`` axis in ``AXIS_ORDER``: ``tp`` innermost, then ``sp``, so the
+ranks of one tensor-parallel group are consecutive and rank ``r`` sits
+at ``r = (d * sp + s) * tp + t``. Building a mesh with ``tp > 1`` or
+``sp > 1`` in a launched world makes one process group per ``tp``, per
+``sp`` and per ``dp`` group, and one per ``dp_sp`` group (the ranks of
+one ``tp`` coordinate over ``dp`` x ``sp``, where the grads of a
+sequence-parallel program are averaged), on every rank in the same
+order (the collectives of ``ops.collective_ops`` run over them), and a
+gloo group beside each ``tp`` group for objects on the host
+(``axis_group("tp", host=True)``: the tensor-parallel server's
+descriptors, ``serving.tp``). The other axes (``pp``, ``ep``,
+``dcn_dp``) raise ``NotImplementedError``: the rest of ROADMAP.md Queue
+1 item 7b.
 
 A collective names an axis, never a mesh: the helpers below resolve it
 against the mesh they are given, else the layout :func:`activate`
@@ -42,7 +44,8 @@ gives the sanitised spec of an annotated variable. The JAX package lets
 GSPMD split the annotated state; here pass ``tp_shard``
 (``framework.passes``) rewrites the program per rank and the executor
 holds each rank's shard (``parallel.tp``, the one place that slices a
-layout).
+layout), and pass ``sp_shard`` splits the activations' sequence dim
+per rank (``parallel.sp``; no state is split on ``sp``).
 """
 import inspect
 import math
@@ -53,6 +56,11 @@ from datetime import timedelta
 import torch
 
 AXIS_ORDER = ("dcn_dp", "pp", "dp", "ep", "sp", "tp")
+#: the joint axis over dp x sp, one group per tp coordinate: where the
+#: parameter grads of a sequence-parallel program are averaged
+GRAD_AXIS = "dp_sp"
+#: the axes a collective may name
+AXES = ("dp", "sp", "tp", GRAD_AXIS)
 ITEM_7B = ("model parallelism and multi-slice are not ported "
            "(ROADMAP.md Queue 1 item 7b)")
 
@@ -84,7 +92,8 @@ def rank():
 
 def dp_group():
     """The process group of the ``dp`` axis: the whole world (None, the
-    default group) unless the world's layout has a ``tp`` axis."""
+    default group) unless the world's layout has a ``tp`` or an ``sp``
+    axis."""
     return axis_group("dp")
 
 
@@ -223,17 +232,20 @@ class Mesh:
     ``AXIS_ORDER`` (``("dp",)`` when there is none). ``groups`` maps an
     axis to this rank's process group on it (None: the whole world, or
     no world); a mesh made outside a world has none and is only a
-    shape (``partition_spec`` over it)."""
+    shape (``partition_spec`` over it). Besides the named axes, the
+    joint axis ``dp_sp`` (``GRAD_AXIS``) is the ranks of one ``tp``
+    coordinate over ``dp`` x ``sp``."""
 
-    def __init__(self, dp=1, tp=1):
-        dp, tp = int(dp), int(tp)
-        used = [(a, n) for a, n in (("dp", dp), ("tp", tp)) if n > 1]
+    def __init__(self, dp=1, tp=1, sp=1):
+        dp, tp, sp = int(dp), int(tp), int(sp)
+        used = [(a, n) for a, n in (("dp", dp), ("sp", sp), ("tp", tp))
+                if n > 1]
         if not used:
             used = [("dp", dp)]
         self.axis_names = tuple(a for a, _ in used)
         self.shape = dict(used)
-        self.size = dp * tp
-        self.dp, self.tp = dp, tp
+        self.size = dp * sp * tp
+        self.dp, self.sp, self.tp = dp, sp, tp
         self.groups = {}
         # a gloo group beside each tp group: host-side objects (the
         # serving leader's step descriptors) never wait behind device
@@ -241,39 +253,66 @@ class Mesh:
         self.host_groups = {}
 
     def coords(self, r=None):
-        """``{"dp": i, "tp": j}`` of rank ``r`` (this rank by default)."""
+        """``{"dp": d, "sp": s, "tp": t, "dp_sp": d * sp + s}`` of rank
+        ``r`` (this rank by default)."""
         r = rank() if r is None else int(r)
-        return {"dp": r // self.tp, "tp": r % self.tp}
+        t, rest = r % self.tp, r // self.tp
+        s, d = rest % self.sp, rest // self.sp
+        return {"dp": d, "sp": s, "tp": t, GRAD_AXIS: d * self.sp + s}
+
+    def rank_of(self, dp, sp, tp):
+        return (int(dp) * self.sp + int(sp)) * self.tp + int(tp)
 
     def axis_ranks(self, axis, r=None):
         """The world ranks of rank ``r``'s group on ``axis``, in axis
         order."""
         c = self.coords(r)
+        d, s, t = c["dp"], c["sp"], c["tp"]
         if axis == "tp":
-            return [c["dp"] * self.tp + j for j in range(self.tp)]
-        return [i * self.tp + c["tp"] for i in range(self.dp)]
+            return [self.rank_of(d, s, j) for j in range(self.tp)]
+        if axis == "sp":
+            return [self.rank_of(d, j, t) for j in range(self.sp)]
+        if axis == GRAD_AXIS:
+            return [self.rank_of(i, j, t) for i in range(self.dp)
+                    for j in range(self.sp)]
+        return [self.rank_of(i, s, t) for i in range(self.dp)]
+
+    def axis_size(self, axis):
+        """The size of ``axis`` (``dp_sp``: dp x sp)."""
+        if axis == GRAD_AXIS:
+            return self.dp * self.sp
+        return {"dp": self.dp, "sp": self.sp, "tp": self.tp}[axis]
 
     def __repr__(self):
         return "Mesh(" + ", ".join(f"{a}={n}" for a, n in
                                    self.shape.items()) + ")"
 
 
-_built = {}            # (dp, tp) -> Mesh, groups made once per world
+_built = {}            # (dp, tp, sp) -> Mesh, groups made once per world
 _active = None         # the layout the collectives resolve axes against
 
 
 def _make_groups(mesh):
-    """One process group per tp group and per dp group, and a gloo (host)
-    group beside each tp group, every rank making them all in the same
-    order (``new_group`` is collective)."""
+    """One process group per tp, sp, dp and dp_sp group, and a gloo
+    (host) group beside each tp group, every rank making them all in the
+    same order (``new_group`` is collective)."""
     dist = _dist()
     r = rank()
-    for axis, count in (("tp", mesh.dp), ("dp", mesh.tp)):
-        if count == mesh.size:         # groups of one rank: no traffic
+    for axis in ("tp", "sp", "dp", GRAD_AXIS):
+        if mesh.axis_size(axis) == 1:     # groups of one rank: no traffic
             continue
-        for k in range(count):
-            members = mesh.axis_ranks(
-                axis, k * mesh.tp if axis == "tp" else k)
+        if axis == GRAD_AXIS and (mesh.sp == 1 or mesh.dp == 1):
+            # the same ranks as the dp (or the sp) group: that group
+            same = mesh.groups.get("dp" if mesh.sp == 1 else "sp")
+            if same is not None:
+                mesh.groups[axis] = same
+            continue
+        seen = []
+        for q in range(mesh.size):
+            members = mesh.axis_ranks(axis, q)
+            if members in seen:
+                continue
+            seen.append(members)
             g = dist.new_group(members)
             # a follower of an idle server waits on it for as long as
             # the server runs (a dead peer still fails it at once)
@@ -287,14 +326,14 @@ def _make_groups(mesh):
 
 
 def make_mesh(config=None, devices=None, **axes):
-    """The world's ranks on a ``dp`` x ``tp`` mesh. ``tp`` must divide
-    the world; ``dp`` 1 (the default) means the rest of it, any other
-    ``dp`` must make ``dp * tp`` the world size. Any other axis raises:
-    item 7b."""
+    """The world's ranks on a ``dp`` x ``sp`` x ``tp`` mesh. ``tp`` and
+    ``sp`` must divide the world; ``dp`` 1 (the default) means the rest
+    of it, any other ``dp`` must make ``dp * sp * tp`` the world size.
+    Any other axis raises: item 7b."""
     if config is None:
         config = MeshConfig(**{k: v for k, v in axes.items() if v})
     sizes = config.axis_sizes()
-    other = [a for a in AXIS_ORDER if a not in ("dp", "tp")
+    other = [a for a in AXIS_ORDER if a not in ("dp", "sp", "tp")
              and sizes[a] > 1]
     if other:
         raise not_ported_7b(f"mesh axes {other}")
@@ -302,20 +341,23 @@ def make_mesh(config=None, devices=None, **axes):
         raise not_ported_7b("a mesh over an explicit device list")
     n = world_size()
     tp = max(int(sizes["tp"]), 1)
+    sp = max(int(sizes["sp"]), 1)
     dp = int(sizes["dp"])
     if dp == 1:
-        dp = n // tp if n % tp == 0 else 0
-    if dp * tp != n:
-        want = (dp or 1) * tp
-        raise ValueError(f"a dp={sizes['dp']} tp={tp} mesh needs {want} "
+        dp = n // (tp * sp) if n % (tp * sp) == 0 else 0
+    if dp * sp * tp != n:
+        want = (dp or 1) * sp * tp
+        names = f"dp={sizes['dp']} " + (f"sp={sp} " if sp > 1 else "") + \
+            f"tp={tp}"
+        raise ValueError(f"a {names} mesh needs {want} "
                          f"ranks; the world has {n} (one process per "
                          f"card: launch --nproc_per_node={want})")
-    mesh = _built.get((dp, tp))
+    mesh = _built.get((dp, tp, sp))
     if mesh is None:
-        mesh = Mesh(dp, tp)
-        if tp > 1 and is_initialized():
+        mesh = Mesh(dp, tp, sp)
+        if (tp > 1 or sp > 1) and is_initialized():
             _make_groups(mesh)
-        _built[(dp, tp)] = mesh
+        _built[(dp, tp, sp)] = mesh
     return mesh
 
 
@@ -343,7 +385,7 @@ def axis_group(axis, mesh=None, host=False):
     active layout; None: the default group, the whole world). ``host``:
     the gloo group beside the ``tp`` group, for objects on the host
     (None when the mesh has no tp group)."""
-    if axis not in ("dp", "tp"):
+    if axis not in AXES:
         raise not_ported_7b(f"the {axis!r} axis")
     m = world_mesh(mesh)
     return m.host_groups.get(axis) if host else m.groups.get(axis)
@@ -351,9 +393,11 @@ def axis_group(axis, mesh=None, host=False):
 
 def axis_world_size(axis, mesh=None):
     """The size of ``axis`` in ``mesh`` (default: the active layout;
-    ``tp`` is 1 without a tp mesh, ``dp`` then the world)."""
-    m = world_mesh(mesh)
-    return m.tp if axis == "tp" else m.dp
+    ``tp`` and ``sp`` are 1 without a tp or sp mesh, ``dp`` then the
+    world)."""
+    if axis not in AXES:
+        raise not_ported_7b(f"the {axis!r} axis")
+    return world_mesh(mesh).axis_size(axis)
 
 
 def axis_rank(axis, mesh=None):
@@ -440,7 +484,7 @@ def sharding_for(mesh, var):
     return partition_spec(mesh, var.dist_attr, shape)
 
 
-__all__ = ["AXIS_ORDER", "Mesh", "MeshConfig", "PartitionSpec",
+__all__ = ["AXES", "AXIS_ORDER", "GRAD_AXIS", "Mesh", "MeshConfig", "PartitionSpec",
            "activate", "any_failed", "axis_global_rank", "axis_group",
            "axis_rank", "axis_size", "axis_world_size", "backend", "barrier",
            "check_device", "default_mesh", "dp_group", "get_mesh",

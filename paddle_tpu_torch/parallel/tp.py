@@ -534,17 +534,28 @@ class _Rewriter:
 
     rule_transpose = rule_transpose2
 
-    def rule_flash_attention(self, op):
+    def rule_flash_attention(self, op, any_bias=False):
         for slot in ("Q", "K", "V"):
             if self.split.get(op.input(slot)[0]) != (1, 1):
                 self.fail(op, "q, k and v must be split on their heads")
         b = op.input("Bias")
-        if b and (b[0] in self.split or self.var(b[0]).shape[1] != 1):
+        if b and (b[0] in self.split or (
+                not any_bias and self.var(b[0]).shape[1] != 1)):
             self.fail(op, "a bias that is not a [B, 1, ., S] key bias")
         out = op.output("Out")[0]
         self.out.append(op)
         self.var(out).shape = self.var(op.input("Q")[0]).shape
         self.split[out] = (1, 1)
+
+    def rule_ring_attention(self, op):
+        """The sequence-parallel ops take the rank's heads as the flash
+        op does; a mask that is per head cannot follow."""
+        b = op.input("Bias")
+        if b and self.var(b[0]).shape[1] != 1:
+            self.fail(op, "a [B, H, S, S] mask under a split of the heads")
+        self.rule_flash_attention(op, any_bias=True)
+
+    rule_ulysses_attention = rule_ring_attention
 
     def rule_einsum(self, op):
         eq = op.attrs["equation"].replace(" ", "")

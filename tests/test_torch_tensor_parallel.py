@@ -371,7 +371,10 @@ def test_sharding_constraint_is_a_value_identity():
     assert np.array_equal(got, xv)
     with pytest.raises(NotImplementedError, match="item 7b"):
         with tfluid.program_guard(main, startup):
-            tfluid.layers.collective.shard(x, "sp", None)
+            tfluid.layers.collective.shard(x, "pp", None)
+    with tfluid.program_guard(main, startup):
+        z = tfluid.layers.collective.shard(x, "sp", None)
+    assert z.block.ops[-1].attrs["spec"] == ("sp", None)
 
 
 def test_dist_attr_round_trips_with_jax():
