@@ -480,6 +480,35 @@ NVIDIA GPU.
       beside the one-card run's, NCCL kernels and ms a step, idle share
       from a profiled slab.
     ``--only-sp`` runs these alone (no kernels line, no ok line).
+13c. Pipeline parallelism across cards, right after the sp phases, at
+    N = every card (on one card a 2-stage pipeline on the sequential
+    path through the same code, which says that no pipelining was
+    measured): first ``pp_kernel_shapes``, K1, K3 and K4 against their
+    plain versions at the stage's shape (one microbatch: B1 H12 S2048
+    D64, float32, causal), each timed by graph replay or events beside
+    SDPA's forward or backward with the same mask, not counted; then
+    - pp_parity: a narrow GPT (2 decoder layers a stage, hidden 256, S
+      128) in a ``layers.Pipeline``, 3 Adam steps through
+      ``with_data_parallel(mesh=make_mesh(MeshConfig(pp=N)))`` (and pp
+      2 x dp 2 on four cards), eagerly and by a run_steps slab from
+      copies of one startup scope: the slab bitwise its eager steps,
+      the gathered parameters equal on every rank and within 1e-4 of
+      max |ref| of rank 0's plain program (the sequential path);
+    - pp_gpt: GPT-base at B8 S2048, dropout 0, float32, Adam at 1e-4,
+      its 12 decoder layers in a ``layers.Pipeline``: pp 4 (3 layers a
+      stage, M 8) and pp 2 x dp 2 (6 layers a stage, 4 rows a rank, M
+      4); 2 eager steps and a run_steps slab of 3 (captured, the
+      shifts, broadcasts and the dp all-reduce inside) bitwise an
+      all-eager twin, the captured step freed before the next grid's;
+      the mean of the dp ranks' losses within ``PP_LOSS_RTOL`` of rank
+      0's one-card run of the same program and batches (the sequential
+      path); the replicated parameters equal on every rank; each rank's
+      stage slices equal to theirs in the gathered save; K1 2 x M and
+      K3, K4 M a layer and step on every rank (``pp_launches_a_step``);
+      ms a step by replay and eagerly, tokens/s in total, peak GB a card
+      beside the one-card run's, NCCL kernels and ms a step, each
+      rank's busy ms and idle share from a profiled slab.
+    ``--only-pp`` runs these alone (no kernels line, no ok line).
 14. The core layer surface, last among the main paths:
     - gpt_programs: GPT's generation programs built from the registered
       decode ops (``models.gpt.gpt_prefill``, ``gpt_decode_step``,
@@ -5931,9 +5960,11 @@ DP_BERT_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_single")
 
 def dp_launch(torch, phase, nproc, args=None, timeout=900):
     """Run ``phase``'s worker on ``nproc`` ranks through the port's
-    launcher (``python -m paddle_tpu_torch.distributed.launch``, one
-    process a card; ``args["cpu"]`` runs gloo ranks on the CPU, a
-    rehearsal), this file being each rank's script (``--dp-worker``).
+    launcher (``paddle_tpu_torch/distributed/launch.py``, one process a
+    card; run as a script, since it needs nothing of the package and
+    ``-m`` would import the package, torch included, for nothing;
+    ``args["cpu"]`` runs gloo ranks on the CPU, a rehearsal), this file
+    being each rank's script (``--dp-worker``).
     The parent's garbage and cached blocks are released first, and its
     reserved bytes recorded beside the launch. Returns (each rank's
     record, the launch's record); raises with the ranks' output when the
@@ -5955,7 +5986,8 @@ def dp_launch(torch, phase, nproc, args=None, timeout=900):
     argpath = os.path.join(DP_DIR, f"{phase}.n{nproc}.args.json")
     with open(argpath, "w") as f:
         json.dump(args, f)
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+    cmd = [sys.executable, os.path.join(ROOT, "paddle_tpu_torch",
+                                        "distributed", "launch.py"),
            f"--nproc_per_node={nproc}"] + \
         (["--device=cpu"] if args.get("cpu") else []) + \
         [os.path.abspath(__file__), "--dp-worker", argpath]
@@ -6006,7 +6038,8 @@ def dp_worker(argpath):
           "fleet_bert": _fleet_bert, "tp_parity": _tp_parity,
           "tp_bert": _tp_bert, "tp_generate": _tp_generate,
           "tp_serving": _tp_serving, "sp_parity": _sp_parity,
-          "sp_bert": _sp_bert}[args["phase"]]
+          "sp_bert": _sp_bert, "pp_parity": _pp_parity,
+          "pp_gpt": _pp_gpt}[args["phase"]]
     from paddle_tpu_torch import kernels
     for w in kernels.COUNTED:
         w.launches = 0
@@ -8103,6 +8136,478 @@ def sp_kernel_shapes(torch, fa):
     return out
 
 
+# ------------------------------------------------ pipeline parallelism
+
+PP_DIR = os.path.join(ROOT, "build", "chip_smoke_pp")
+# pp_gpt: GPT-base at bench_gpt_long's shape (B8 S2048), dropout 0,
+# float32 (matmuls without TF32), Adam at a constant 1e-4: 2 eager
+# steps, then a run_steps slab of 3; its 12 decoder layers in a
+# layers.Pipeline
+PP_GPT = {"B": 8, "S": 2048, "eager": 2, "K": 3, "lr": 1e-4, "seed": 600}
+# the losses against rank 0's one-card run of the same program and
+# batches on the sequential path: the same math, summed in another
+# order (the dp all-reduce, the microbatches' grads)
+PP_LOSS_RTOL = 1e-4
+# pp_parity: a narrow GPT, 2 decoder layers a stage, float32, 3 Adam
+# steps; every microbatch holds 2 rows
+PP_PARITY = {"cfg": {"vocab_size": 1024, "hidden_size": 256,
+                     "num_heads": 4, "ffn_size": 1024, "max_position": 128,
+                     "dropout": 0.0},
+             "B": 8, "S": 128, "layers_a_stage": 2, "micro_rows": 2,
+             "steps": 3, "lr": 1e-3}
+
+
+def pp_grids(n):
+    """The grids of the pp phases on ``n`` cards: (tag, mesh axes,
+    num_stages, pp_gpt's microbatches of a rank's rows). Four cards: pp
+    4 (4 stages, M 8) and pp 2 x dp 2 (2 stages, 4 rows a rank, M 4);
+    two: pp 2; one: a 2-stage pipeline on the sequential path."""
+    return {4: [("pp4", {"pp": 4}, 4, 8),
+                ("pp2dp2", {"pp": 2, "dp": 2}, 2, 4)],
+            2: [("pp2", {"pp": 2}, 2, 8)]}.get(n, [("pp1", {}, 2, 8)])
+
+
+def pp_program(fluid, gpt, cfg, rows, S, stages, micro, lr, seed=11):
+    """GPT pretraining as ``gpt_pretrain`` builds it, its decoder layers
+    in a ``layers.Pipeline`` of ``stages`` uniform stages of
+    ``num_layers / stages`` layers over ``micro`` microbatches, Adam at
+    ``lr`` through ``PipelineOptimizer``: (main, startup, loss)."""
+    L = fluid.layers
+    init = fluid.initializer
+    h = cfg.hidden_size
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+
+    def normal(name):
+        return fluid.ParamAttr(name=name, initializer=init.Normal(
+            0.0, cfg.initializer_range))
+
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        tokens = L.data("tokens", [rows, S], dtype="int32")
+        labels = L.data("labels", [rows, S], dtype="int32")
+        loss_mask = L.data("loss_mask", [rows, S], dtype="float32")
+        pos_ids = L.data("pos_ids", [rows, S], dtype="int32")
+        x = L.elementwise_add(
+            L.embedding(tokens, size=[cfg.vocab_size, h],
+                        param_attr=normal("word_embedding")),
+            L.embedding(pos_ids, size=[cfg.max_position, h],
+                        param_attr=normal("pos_embedding")))
+        x = L.dropout(x, cfg.dropout,
+                      dropout_implementation="upscale_in_train")
+        pipe = L.Pipeline(num_stages=stages, num_microbatches=micro)
+        with pipe.stage():
+            y = pipe.stage_input(x)
+            for i in range(cfg.num_layers // stages):
+                y = gpt.decoder_layer(cfg, y, i, False)
+            pipe.stage_output(y)
+        x = L.layer_norm(
+            pipe(), begin_norm_axis=2,
+            param_attr=fluid.ParamAttr(name="final_ln_scale",
+                                       initializer=init.Constant(1.0)),
+            bias_attr=fluid.ParamAttr(name="final_ln_bias",
+                                      initializer=init.Constant(0.0)))
+        word_emb = main.global_block().var("word_embedding")
+        logits = L.matmul(L.reshape(x, [-1, h]), word_emb,
+                          transpose_y=True)
+        ce = L.softmax_with_cross_entropy(logits,
+                                          L.reshape(labels, [-1, 1]))
+        w = L.reshape(loss_mask, [-1, 1])
+        loss = L.elementwise_div(
+            L.reduce_sum(L.elementwise_mul(ce, w)),
+            L.elementwise_add(L.reduce_sum(w),
+                              L.fill_constant([1], "float32", 1e-9)))
+        fluid.optimizer.PipelineOptimizer(
+            fluid.optimizer.Adam(lr), num_microbatches=micro).minimize(loss)
+    return main, startup, loss
+
+
+def _pp_world(axes):
+    from paddle_tpu_torch.parallel import mesh
+    return mesh.make_mesh(mesh.MeshConfig(**axes))
+
+
+def _pp_rows(feed, d, n):
+    b = next(iter(feed.values())).shape[0] // n
+    return {k: v[d * b:(d + 1) * b] for k, v in feed.items()}
+
+
+def pp_launches_a_step(layers, micro):
+    """K1, K3 and K4 launches a step on a rank that runs ``layers``
+    decoder layers (its stage's, or all of them on the sequential path)
+    over ``micro`` microbatches: K1 once a layer and microbatch in the
+    forward and once more in the grad's recompute of the stage, K3 and
+    K4 once each in the grad (causal S 2048 takes K3 + K4)."""
+    return {"flash_attention_fwd": 2 * micro * layers,
+            "flash_attention_bwd_dq": micro * layers,
+            "flash_attention_bwd_dkv": micro * layers,
+            "flash_attention_bwd_single": 0, "paged_attention": 0}
+
+
+def _pp_parity(torch, np, args, rank, n, place):
+    """The contract at small width, float32: the narrow GPT with 2
+    decoder layers a stage through ``with_data_parallel(mesh=...)`` on
+    each grid of :func:`pp_grids`, 3 Adam steps eagerly and by a
+    run_steps slab from copies of one startup scope; rank 0 also runs
+    the plain program (the sequential path, every row) from that
+    startup. Parameters are gathered over pp before the comparison."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.tp import gathered
+    p = args["run"]
+    B, S = p["B"], p["S"]
+    rec = {"cases": []}
+    exe = fluid.Executor(place)
+    for tag, axes, stages, _ in pp_grids(n):
+        cfg = gpt.GPTConfig(**p["cfg"],
+                            num_layers=stages * p["layers_a_stage"])
+        grid = _pp_world(axes)
+        d, dp = grid.coords()["dp"], grid.dp
+        rows = B // dp
+        feeds = [gpt.random_batch(cfg, B, S,
+                                  rng=np.random.default_rng(610 + i))
+                 for i in range(p["steps"])]
+        mine = [_pp_rows(f, d, dp) for f in feeds]
+        main, startup, loss = pp_program(fluid, gpt, cfg, rows, S, stages,
+                                         rows // p["micro_rows"], p["lr"])
+        comp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=grid)
+        s0 = fluid.Scope()
+        exe.run(startup, scope=s0)
+        sA, sB = (copied_scope(torch, fluid, s0) for _ in range(2))
+        eager = [exe.run(comp, feed=f, fetch_list=[loss], scope=sA)[0]
+                 for f in mine]
+        slab = exe.run_steps(comp, feed=mine, fetch_list=[loss],
+                             scope=sB)[0]
+        diff = scope_diff(torch, sA, sB)
+        params = [q.name for q in main.all_parameters()]
+        with gathered(sA):
+            whole = {q: sA.find_var(q).detach().clone() for q in params}
+        case = {"grid": tag, **grid.coords(), "stages": stages,
+                "losses": [float(np.ravel(v)[0]) for v in eager],
+                "slab_bitwise": bool(np.array_equal(
+                    np.stack(eager).reshape(-1), np.ravel(slab)))
+                and not diff, "scope_diff": diff[:4],
+                "slices": len(getattr(comp.program, "_pp_layouts", {})),
+                "digest": _state_digest(torch, whole.items())}
+        if rank == 0:
+            pmain, _, ploss = pp_program(fluid, gpt, cfg, B, S, stages,
+                                         B // p["micro_rows"], p["lr"])
+            sp_ = copied_scope(torch, fluid, s0)
+            plain = [exe.run(pmain, feed=f, fetch_list=[ploss],
+                             scope=sp_)[0] for f in feeds]
+            top = max(float(sp_.find_var(q).abs().max()) for q in params)
+            errs = {q: float((whole[q].float() - sp_.find_var(q)
+                              .float()).abs().max()) for q in params}
+            case.update({
+                "plain_losses": [float(np.ravel(v)[0]) for v in plain],
+                "max_err_of_model_max": max(errs.values()) / top,
+                "worst": max(errs, key=errs.get)})
+            del sp_
+        rec["cases"].append(case)
+        del s0, sA, sB
+        _release(torch, exe)
+    return rec
+
+
+def _pp_gpt(torch, np, args, rank, n, place):
+    """GPT-base at B8 S2048 with its decoder layers in a
+    ``layers.Pipeline`` on each grid of :func:`pp_grids`: 2 eager steps
+    and a run_steps slab of 3 (captured, the shifts, broadcasts and the
+    dp all-reduce inside) against an all-eager twin from a copy of the
+    same start (bitwise), a timed slab, a profiled slab; the gathered
+    parameters saved and each rank's stage slices read back from the
+    files; the captured step freed before the next grid's. Rank 0 then
+    runs each grid's program on its card alone (the sequential path,
+    every row) for the same 5 steps from the same startup (2 eager, a
+    slab of 3), and a timed slab. The peaks are over the grid's run from
+    after its copies of the start were made (``peak_eager_gb``: its
+    eager steps only)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import mesh
+    run = args["run"]
+    B, S, K, E = run["B"], run["S"], run["K"], run["eager"]
+    cuda = not args.get("cpu")
+    cfg = gpt.GPTConfig(**args["cfg"]) if args.get("cfg") \
+        else gpt.GPTConfig.base()
+    cfg.dropout = 0.0
+    if args.get("layers"):
+        cfg.num_layers = args["layers"]
+    feeds = [gpt.random_batch(cfg, B, S,
+                              rng=np.random.default_rng(run["seed"] + i))
+             for i in range(E + K)]
+    exe = fluid.Executor(place)
+    dev = exe.device
+    rec = {"B": B, "S": S, "layers": cfg.num_layers, "runs": {},
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
+    starts = {}
+    for tag, axes, stages, micro in pp_grids(n):
+        grid = _pp_world(axes)
+        c = grid.coords()
+        d, dp = c["dp"], grid.dp
+        rows = B // dp
+        pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in _pp_rows(f, d, dp).items()} for f in feeds]
+        slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
+        main, startup, loss = pp_program(fluid, gpt, cfg, rows, S, stages,
+                                         micro, run["lr"])
+        comp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=grid)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if rank == 0:
+            starts[tag] = (stages, {k: v.cpu() for k, v in scope.items()
+                                    if isinstance(v, torch.Tensor)})
+        twin = copied_scope(torch, fluid, scope)
+        # the peaks leave out the copies: the twin and rank 0's start
+        base = _peak_base(torch, cuda)
+        eager, wall = [], []
+        for f in pool[:E]:
+            lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                comp, feed=f, fetch_list=[loss], scope=scope)[0])
+            eager.append(float(np.ravel(lv)[0]))
+            wall.append(ms)
+        peak_eager = _peak_from(torch, cuda, base)
+        (got,), cap_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            comp, feed=slab, fetch_list=[loss], scope=scope))
+        twin_losses, twin_ms = [], []
+        for f in pool:
+            lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                comp, feed=f, fetch_list=[loss], scope=twin)[0])
+            twin_losses.append(float(np.ravel(lv)[0]))
+            twin_ms.append(ms)
+        losses = eager + [float(v) for v in np.ravel(got)]
+        diff = scope_diff(torch, scope, twin)
+        bitwise = losses == twin_losses and not diff
+        del twin
+        before = {w.__name__: w.launches for w in kernels.COUNTED}
+        _, slab_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            comp, feed=slab, fetch_list=[loss], scope=scope))
+        per_step = {w.__name__: (w.launches - before[w.__name__]) / K
+                    for w in kernels.COUNTED}
+        pipelined = bool(getattr(comp.program, "_pp_layouts", {}))
+        here = cfg.num_layers // stages if pipelined else cfg.num_layers
+        r = {"grid": tag, "coords": c, "stages": stages, "micro": micro,
+             "rows": rows, "pipelined": pipelined, "losses": losses,
+             "slab_bitwise": bitwise, "scope_diff": diff[:4],
+             "eager_ms": wall, "eager_ms_twin": twin_ms,
+             "first_slab_ms_with_capture": cap_ms,
+             "ms_per_step": slab_ms / K,
+             "tokens_per_s_rank_rows": rows * S / (slab_ms / K) * 1e3,
+             "launches_per_step_run_steps": per_step,
+             "launches_per_step_want": pp_launches_a_step(here, micro),
+             "peak_eager_gb": peak_eager}
+        if cuda:
+            prof = kernel_profile(torch, lambda: exe.run_steps(
+                comp, feed=slab, fetch_list=[loss], scope=scope))
+            r.update({"nccl_kernels_per_step": len(prof["nccl_us"]) / K,
+                      "nccl_ms_per_step": prof["nccl_busy_ms"] / K,
+                      "compute_ms_per_step": prof["compute_busy_ms"] / K,
+                      "busy_ms_per_step": prof["busy_ms"] / K,
+                      "wall_ms_profiled_per_step": prof["wall_ms"] / K,
+                      "idle_share_replay":
+                          1 - prof["busy_ms"] / prof["wall_ms"],
+                      "peak_mem_gb": _peak_from(torch, cuda, base)})
+        params = [q.name for q in main.all_parameters()]
+        stacked = set(getattr(comp.program, "_pp_layouts", {}))
+        r["digest_replicated"] = _state_digest(torch, [
+            (q, scope.find_var(q)) for q in params if q not in stacked])
+        # the gathered save, each rank's stage slices read back from it
+        out_dir = os.path.join(PP_DIR, f"save_{tag}")
+        if stacked:
+            fluid.io.save_params(exe, out_dir, main_program=main,
+                                 scope=scope)
+        match = True
+        for q in sorted(stacked & set(params)):
+            saved = np.load(os.path.join(out_dir,
+                                         fluid.io._escape(q) + ".npy"))
+            mine = scope.find_var(q).cpu().numpy()
+            match = match and mine.shape == (1,) + saved.shape[1:] and \
+                np.array_equal(saved[c["pp"]:c["pp"] + 1], mine)
+        r["slices_match_save"] = match
+        r["stage_slices"] = len(stacked)
+        rec["runs"][tag] = r
+        mesh.barrier()
+        if rank == 0:
+            import shutil
+            shutil.rmtree(out_dir, ignore_errors=True)
+        del scope
+        _release(torch, exe)
+    if rank == 0 and n > 1:
+        rec["plain"] = {}
+        pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in f.items()} for f in feeds]
+        slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
+        for tag, (stages, start) in starts.items():
+            main, _, loss = pp_program(fluid, gpt, cfg, B, S, stages,
+                                       8, run["lr"])
+            scope = fluid.Scope()
+            for k, v in start.items():
+                scope.set(k, v.to(dev))
+            base = _peak_base(torch, cuda)
+            plain, wall = [], []
+            for f in pool[:E]:
+                lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                    main, feed=f, fetch_list=[loss], scope=scope)[0])
+                plain.append(float(np.ravel(lv)[0]))
+                wall.append(ms)
+            peak_eager = _peak_from(torch, cuda, base)
+            (got,), cap_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+                main, feed=slab, fetch_list=[loss], scope=scope))
+            _, slab_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+                main, feed=slab, fetch_list=[loss], scope=scope))
+            rec["plain"][tag] = {
+                "losses": plain + [float(v) for v in np.ravel(got)],
+                "eager_ms": wall, "first_slab_ms_with_capture": cap_ms,
+                "ms_per_step": slab_ms / K,
+                "tokens_per_s": B * S / (slab_ms / K) * 1e3,
+                "stages": stages, "micro": 8, "peak_eager_gb": peak_eager,
+                "peak_mem_gb": _peak_from(torch, cuda, base)}
+            del scope
+            _release(torch, exe)
+        starts.clear()
+    return rec
+
+
+def _pp_failures(name, ranks, args):
+    bad = []
+    if name == "pp_parity":
+        for i, case in enumerate(ranks[0]["cases"]):
+            tag = case["grid"]
+            for r in ranks:
+                if not r["cases"][i]["slab_bitwise"]:
+                    bad.append(f"pp_parity {tag}: rank {r['rank']}'s "
+                               f"run_steps is not its eager steps")
+                if r["cases"][i]["digest"] != case["digest"]:
+                    bad.append(f"pp_parity {tag}: rank {r['rank']}'s "
+                               f"gathered parameters differ from rank 0's")
+            if case["max_err_of_model_max"] > 1e-4:
+                bad.append(f"pp_parity {tag}: parameters off the plain run "
+                           f"by {case['max_err_of_model_max']:.3g} of max "
+                           f"|ref| ({case['worst']})")
+        return bad
+    r0 = ranks[0]
+    for tag in r0["runs"]:
+        per_dp = {}
+        for r in ranks:
+            run = r["runs"][tag]
+            per_dp.setdefault(run["coords"]["dp"], run["losses"])
+            if run["losses"] != per_dp[run["coords"]["dp"]]:
+                bad.append(f"pp_gpt {tag}: rank {r['rank']}'s losses differ "
+                           f"from its dp coordinate's other ranks'")
+            if not run["slab_bitwise"]:
+                bad.append(f"pp_gpt {tag}: rank {r['rank']}'s run_steps is "
+                           f"not its eager twin's steps {run['scope_diff']}")
+            if not run["slices_match_save"]:
+                bad.append(f"pp_gpt {tag}: rank {r['rank']}'s stage slices "
+                           f"differ from the gathered save")
+            if run["digest_replicated"] != \
+                    r0["runs"][tag]["digest_replicated"]:
+                bad.append(f"pp_gpt {tag}: rank {r['rank']}'s replicated "
+                           f"parameters differ from rank 0's")
+            if not args.get("cpu"):
+                per = run["launches_per_step_run_steps"]
+                want = run["launches_per_step_want"]
+                if {k: per.get(k, 0) for k in want} != want:
+                    bad.append(f"pp_gpt {tag}: rank {r['rank']} launched "
+                               f"{per} a step, not {want}")
+        mean = [sum(col) / len(col) for col in zip(*per_dp.values())]
+        plain = (r0.get("plain") or {}).get(tag)
+        if plain is not None:
+            for i, (a, b) in enumerate(zip(mean, plain["losses"])):
+                if not math.isfinite(a) or abs(a - b) > PP_LOSS_RTOL * abs(b):
+                    bad.append(f"pp_gpt {tag}: step {i}'s loss {a} is off "
+                               f"the one-card run's {b} (rtol "
+                               f"{PP_LOSS_RTOL})")
+        elif not all(math.isfinite(a) for a in mean):
+            bad.append(f"pp_gpt {tag}: a loss is not finite: {mean}")
+    return bad
+
+
+def pp_phase(torch, np, name, nproc, args=None, timeout=900):
+    """One pipeline-parallel phase at ``nproc`` ranks (one a card),
+    checked and printed with the card, its power limit and N. Returns
+    the record."""
+    args = dict(args or {})
+    if nproc == 1 and name == "pp_gpt" and not args.get("cpu"):
+        # one card pipelines nothing: 2 layers through the same code
+        args.setdefault("layers", 2)
+    args.setdefault("run", {"pp_parity": PP_PARITY,
+                            "pp_gpt": PP_GPT}[name])
+    ranks, launch = dp_launch(torch, name, nproc, args, timeout)
+    rec = {"phase": name, **CARD, "N": nproc, "launch": launch}
+    bad = _pp_failures(name, ranks, args)
+    r0 = ranks[0]
+    if name == "pp_parity":
+        rec["cases"] = [{k: c.get(k) for k in (
+            "grid", "stages", "losses", "plain_losses", "slices",
+            "max_err_of_model_max", "worst")} for c in r0["cases"]]
+        rec["slab_bitwise"] = all(c["slab_bitwise"] for r in ranks
+                                  for c in r["cases"])
+    else:
+        rec.update({k: r0[k] for k in ("B", "S", "layers", "tf32")})
+        rec["plain"] = r0.get("plain")
+        rec["runs"] = {}
+        for tag, run in r0["runs"].items():
+            slow = max(ranks, key=lambda r: r["runs"][tag]["ms_per_step"])
+            row = {k: v for k, v in run.items()
+                   if k not in ("digest_replicated", "coords")}
+            row["ms_per_step_slowest"] = slow["runs"][tag]["ms_per_step"]
+            row["tokens_per_s_total"] = r0["B"] * r0["S"] / \
+                row["ms_per_step_slowest"] * 1e3
+            for k in ("peak_mem_gb", "peak_eager_gb"):
+                row[f"{k}_a_card"] = max(r["runs"][tag].get(k) or 0.0
+                                         for r in ranks)
+            for k in ("busy_ms_per_step", "nccl_ms_per_step",
+                      "nccl_kernels_per_step", "idle_share_replay",
+                      "ms_per_step", "launches_per_step_run_steps"):
+                row[f"{k}_by_rank"] = [r["runs"][tag].get(k)
+                                       for r in ranks]
+            rec["runs"][tag] = row
+    if nproc == 1:
+        rec["note"] = ("one card: the sequential path through the same "
+                       "code; no pipelining was measured")
+        print(f"{name}: {rec['note']}", flush=True)
+    rec["ranks"] = ranks
+    emit({k: v for k, v in rec.items() if k != "ranks"})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def pp_phases(torch, np, counters, name, n=None, args=None):
+    """Pipeline-parallel phase ``name`` at N = n (default: every card);
+    adds the ranks' kernel launches to ``counters``."""
+    n = n or torch.cuda.device_count()
+    rec = pp_phase(torch, np, name, n, args)
+    for r in rec["ranks"]:
+        for w, c in r["launches"].items():
+            cw = counters.get(w)
+            if cw is not None:
+                cw.launches += c
+                if hasattr(cw, "bf16_launches"):
+                    cw.bf16_launches += r["bf16_launches"].get(w, 0)
+    return rec
+
+
+def pp_kernel_shapes(torch, fa):
+    """K1, K3 and K4 against their plain versions at pp_gpt's stage
+    shape (one microbatch: B1 H12 S2048 D64, float32, causal, the packed
+    qkv views), each timed beside SDPA's forward or backward with the
+    same causal mask; not counted."""
+    recs = [flash_phase(torch, fa, 1, 12, 2048, 64, "float32", True, False,
+                        seed=2301, packed=True)]
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        recs.append(bwd_phase(torch, fa, name, 1, 12, 2048, 64, "float32",
+                              True, False, seed=2302, packed=True))
+    emit({"phase": "pp_kernel_shapes", **CARD, "rows": [
+        {k: r[k] for k in ("phase", "ms", "plain_ms", "library_ms",
+                           "bound_ms", "bound_by", "max_abs_err", "ok")}
+        for r in recs]})
+    return recs
+
+
 # ------------------------------------------------ the core layer surface
 
 GPT_PROGRAMS = {"B": 8, "prompt": 128, "steps": 16, "span": 5, "bs": 16}
@@ -9813,6 +10318,10 @@ def main():
                     "K1, K3 and K4 at the sequence-parallel flash shapes, "
                     "run the sequence-parallel paths at N = every card and "
                     "stop (no kernels line, no ok line)")
+    ap.add_argument("--only-pp", action="store_true", help="build, check "
+                    "K1, K3 and K4 at the pipeline stage's shape, run the "
+                    "pipeline-parallel paths at N = every card and stop (no "
+                    "kernels line, no ok line)")
     ap.add_argument("--only-dp", action="store_true", help="build, run the "
                     "data-parallel paths at N = every card (no N = 1 runs "
                     "for the scaling line) and stop: a measurement of them "
@@ -10003,13 +10512,37 @@ def main():
                 failures.append(f"the {name} path launched {got}: only "
                                 f"{needs} may launch")
 
-    if args.only_dp or args.only_tp or args.only_sp:
-        which = "dp" if args.only_dp else "tp" if args.only_tp else "sp"
-        {"dp": drive_dp, "tp": drive_tp, "sp": drive_sp}[which]()
+    def drive_pp():
+        """Pipeline parallelism across cards, one rank a card through the
+        port's launcher at N = every card (pp 4 and pp 2 x dp 2 on four
+        cards, pp 2 on two, a 2-stage pipeline on the sequential path on
+        one): K1, K3 and K4 against their plain versions at the stage's
+        shape first (not counted), then pp_parity (the narrow GPT: K1 and
+        K2, float32) and pp_gpt (GPT-base at B8 S2048: K1 and K3 + K4 at
+        the schedule's count a step on every rank, rank 0's one-card
+        runs included). The ranks' launches join the counts."""
+        pp_kernel_shapes(torch, fa)
+        for name, needs in (("pp_parity", DP_BERT_KERNELS),
+                            ("pp_gpt", ("flash_attention_fwd",
+                                        "flash_attention_bwd_dq",
+                                        "flash_attention_bwd_dkv"))):
+            _, got, _ = drive(name, needs, lambda name=name: pp_phases(
+                torch, np, counters, name))
+            others = {k: c for k, c in got.items() if c and k not in needs}
+            if others:
+                failures.append(f"the {name} path launched {got}: only "
+                                f"{needs} may launch")
+
+    if args.only_dp or args.only_tp or args.only_sp or args.only_pp:
+        which = "dp" if args.only_dp else "tp" if args.only_tp else \
+            "sp" if args.only_sp else "pp"
+        {"dp": drive_dp, "tp": drive_tp, "sp": drive_sp,
+         "pp": drive_pp}[which]()
         if failures:
             print(f"failed: {failures}", file=sys.stderr)
             return 1
-        kind = {"dp": "data", "tp": "tensor", "sp": "sequence"}[which]
+        kind = {"dp": "data", "tp": "tensor", "sp": "sequence",
+                "pp": "pipeline"}[which]
         print(f"--only-{which}: the {kind}-parallel paths passed; no other "
               f"phase ran", flush=True)
         return 0
@@ -10113,6 +10646,7 @@ def main():
     drive_dp()
     drive_tp()
     drive_sp()
+    drive_pp()
 
     # the dygraph paths (they need two eager B256 Transformer steps of
     # memory, ~15 GB each): bench_dygraph_transformer by jit_step (one

@@ -43,6 +43,8 @@ SIDE_EFFECT_OPS = frozenset({
     # send K/V around the sp ring or all-to-all it
     "sp_split", "sp_gather", "sp_replicate", "ring_attention",
     "ulysses_attention",
+    # the GPipe schedule's shifts and broadcasts over pp
+    "pipeline",
 })
 
 # the attrs that name a control-flow op's sub-blocks

@@ -118,8 +118,8 @@ class Scope:
     restarted run shares with it.
 
     ``tp_layouts``: ``{name: parallel.tp.Layout}`` of the values it holds
-    as tensor-parallel shards, cut for the tp axis of ``tp_mesh`` (a save
-    gathers them whole)."""
+    as shards, cut for the tp axis of ``tp_mesh`` (or its pp axis: a
+    pipeline's stage slices); a save gathers them whole."""
 
     def __init__(self):
         self._vars = {}

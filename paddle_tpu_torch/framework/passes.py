@@ -26,7 +26,9 @@ after its last producer) make a program data-parallel; the port's
 rank's shard, Megatron's collectives around the split matmuls) makes it
 tensor-parallel and ``sp_shard`` (``parallel.sp``: the activations'
 sequence dim split per rank from the first ``sp`` constraint) makes it
-sequence-parallel, where GSPMD does both for the JAX package;
+sequence-parallel and ``pp_shard`` (``parallel.pp``: a pipeline's
+stacked stage state cut to the rank's stage slice) pipeline-parallel,
+where GSPMD does these for the JAX package;
 ``CompiledProgram.with_data_parallel`` applies them to a clone. Every
 pass treats collectives as side effects (``analysis.is_side_effect_type``):
 never dropped, merged or moved past one another, since every rank must
@@ -483,6 +485,22 @@ class SequenceParallelShardPass(Pass):
         from ..parallel.sp import sp_rewrite
         self._report = sp_rewrite(program, self.mesh, self.sp_rank)
         program._sp_report = dict(self._report)
+
+
+@register_pass("pp_shard")
+class PipelineParallelShardPass(Pass):
+    """The per-rank cut of a program's pipeline stage state over the
+    ``pp`` axis of ``mesh`` (``parallel.pp.pp_rewrite``): each stacked
+    stage parameter, its accumulators and its grad take the rank's
+    ``[1, ...]`` stage slice. Nothing changes at pp 1. The slices'
+    layouts are left on ``program._pp_layouts``. attrs: mesh."""
+
+    mesh = None
+
+    def apply(self, program):
+        from ..parallel.pp import pp_rewrite
+        program._pp_layouts = pp_rewrite(program, self.mesh)
+        self._report = dict(getattr(program, "_pp_report", {}))
 
 
 def _freeze(v):

@@ -43,11 +43,13 @@ state, so each save writes one copy, from rank 0, and every rank waits
 for it (a rank other than 0 writes nothing; its ``CheckpointSaver.save``
 returns the number rank 0 committed, its ``save_async`` None). A save
 that fails on rank 0 raises on every rank. Every rank loads. Under
-tensor parallelism the scope holds each rank's shards: a save first
-gathers them to whole tensors on every rank (``parallel.tp.gathered``),
-so the files are the single-card format, which loads on one card and in
-the JAX package; a load puts whole values in the scope, and the next run
-of the tp program cuts each rank's shard out of them.
+tensor parallelism the scope holds each rank's shards, under pipeline
+parallelism each pp rank's stage slices ``[1, ...]`` of the stacked
+stage state: a save first gathers them to whole tensors (``[S, ...]``
+for a stage slice) on every rank (``parallel.tp.gathered``), so the
+files are the single-card format, which loads on one card and in the
+JAX package; a load puts whole values in the scope, and the next run of
+the program cuts each rank's shard or slice out of them.
 """
 import functools
 import hashlib
@@ -114,7 +116,7 @@ def _one_writer(follow=None):
             out, err = None, None
             _writing.depth = 1
             try:
-                with gathered(scope):          # every rank: tp shards
+                with gathered(scope):  # every rank: shards, slices
                     if mesh.rank() == 0:
                         out = fn(*args, **kwargs)
             except BaseException as e:  # noqa: BLE001 — told to all ranks

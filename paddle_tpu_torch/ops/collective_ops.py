@@ -5,15 +5,15 @@ operators/collective/c_allreduce_op.h:58, c_allgather_op.cc,
 c_reducescatter_op.cc, c_broadcast_op.cc). The JAX ops lower to XLA
 collectives over a mesh axis inside a mapped region and are identities
 outside one. Here a ring is an axis of the world's layout
-(``parallel.mesh.world_mesh``): ``dp``, ``sp``, ``tp`` or the joint
-``dp_sp`` (the grads of a sequence-parallel program). In a launched world
+(``parallel.mesh.world_mesh``): ``dp``, ``sp``, ``tp``, ``pp`` or the
+joint ``dp_sp`` (the grads of a sequence-parallel program). In a launched world
 each op calls ``torch.distributed`` over the rank's process group on
 that axis (NCCL on the card, inside a captured CUDA graph too; gloo on
 the CPU), as the reference's NCCL ops do; on an axis of one rank, and in
 a world of 1 without a process group, each op is the identity. Ring 0
 is the dp axis; a ring above 0 must be bound by ``c_comm_init`` (an
 ``axis_name`` attr) or :func:`register_ring` (``register_ring(1,
-"tp")``). The other axes (``pp``, ``ep``, ``dcn_dp``) raise (ROADMAP.md
+"tp")``). The other axes (``ep``, ``dcn_dp``) raise (ROADMAP.md
 Queue 1 item 7b), as do ``hier_allreduce`` and ``alltoall`` (parts 4
 and 5 of it). ``sharding_constraint`` is a value identity: a layout
 hint under GSPMD; where it names ``sp``, pass ``sp_shard``
@@ -51,8 +51,10 @@ The port's own ops:
 The functions :func:`all_reduce`, :func:`all_gather`,
 :func:`reduce_scatter`, :func:`broadcast_`, :func:`ring_shift` and
 :func:`all_to_all` are the same collectives on tensors, for the sync
-batch norm, dygraph ``DataParallel``, the tensor-parallel GPT module
-and the sequence-parallel attention ops.
+batch norm, dygraph ``DataParallel``, the tensor-parallel GPT module,
+the sequence-parallel attention ops and the pipeline schedule
+(``ops.pipeline_ops``: the neighbour shifts on ``pp``, both ways, and
+the broadcasts from one stage).
 """
 import warnings
 
@@ -189,9 +191,10 @@ def reduce_scatter(t, axis="dp", dim=0, mesh=None):
     return out.movedim(0, dim) if dim else out
 
 
-def ring_shift(t, axis="sp", mesh=None):
+def ring_shift(t, axis="sp", mesh=None, reverse=False):
     """``t`` sent to the next rank of ``axis`` (index ``s + 1``) and the
-    previous rank's (``s - 1``) received, around the ring: one
+    previous rank's (``s - 1``) received, around the ring (``reverse``:
+    sent to ``s - 1``, received from ``s + 1``): one
     ``all_to_all_single`` whose only non-zero splits are the two
     neighbours, which NCCL runs as one grouped send and receive on the
     axis group's own communicator (so a CUDA graph captures it once the
@@ -205,8 +208,9 @@ def ring_shift(t, axis="sp", mesh=None):
     rows = t.numel()
     send = [0] * n
     recv = [0] * n
-    send[(s + 1) % n] = rows
-    recv[(s - 1) % n] = rows
+    step = -1 if reverse else 1
+    send[(s + step) % n] = rows
+    recv[(s - step) % n] = rows
     out = torch.empty_like(t)
     _dist().all_to_all_single(out.view(-1), t.view(-1),
                               output_split_sizes=recv,

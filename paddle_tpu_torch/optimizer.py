@@ -14,8 +14,8 @@ when a checkpoint lacks it), and the beta-pows are param-shaped, as
 there. ``rollback_updates_if`` (AMP's overflow skip) and the wrappers
 ``RecomputeOptimizer``, ``GradientMergeOptimizer``,
 ``ExponentialMovingAverage``, ``ModelAverage``, ``LookaheadOptimizer``
-and ``DGCMomentumOptimizer`` (``:615-1139``); ``PipelineOptimizer``
-needs ``layers.Pipeline`` and raises.
+and ``DGCMomentumOptimizer`` (``:615-1139``), and ``PipelineOptimizer``
+(``:743-800``) over a ``layers.Pipeline`` program.
 
 In dygraph mode ``minimize`` clips, regularizes (``_eager``) and updates
 the parameters eagerly (``_dygraph_minimize``, ``:151-205``) through the
@@ -727,13 +727,65 @@ Dpsgd = DpsgdOptimizer
 
 
 class PipelineOptimizer:
-    """Pipeline-parallel training over ``layers.Pipeline`` stages: not
-    ported (ROADMAP Queue 1 item 7, with ``layers.Pipeline``)."""
+    """Pipeline-parallel training (a copy of
+    ``paddle_tpu/optimizer.py:743-800``; reference optimizer.py:3554
+    PipelineOptimizer + the PipelineTrainer/SectionWorker runtime).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "paddle_tpu_torch: PipelineOptimizer needs layers.Pipeline, "
-            "which is not ported (ROADMAP Queue 1 item 7)")
+    The reference cuts the program at ``cut_list`` variables into
+    sections placed on ``place_list`` devices and streams microbatches
+    through scope queues between section-worker threads. Here, as in the
+    JAX package, the repeated model segment is a ``layers.Pipeline``
+    (one uniform stage sub-block, stage weights stacked over ``pp``) and
+    the ``pipeline`` op's GPipe schedule over the ``pp`` axis replaces
+    the thread/queue runtime (``ops/pipeline_ops.py``, whose grad is the
+    hand-written GPipe backward with per-microbatch accumulation), so
+    ``minimize`` is the inner optimizer's over the pipelined program.
+
+    cut_list/place_list/concurrency_list/queue_size/sync_steps/
+    start_cpu_core_id are accepted for API parity; heterogeneous
+    placement has no counterpart here, so anything but the defaults
+    warns.
+    """
+
+    def __init__(self, optimizer, cut_list=None, place_list=None,
+                 concurrency_list=None, queue_size=30, sync_steps=1,
+                 start_cpu_core_id=0, num_microbatches=None):
+        self._inner = optimizer
+        self.num_microbatches = num_microbatches
+        if cut_list or place_list or concurrency_list:
+            import warnings
+            warnings.warn(
+                "PipelineOptimizer cut_list/place_list/concurrency_list "
+                "describe heterogeneous device placement, which has no "
+                "counterpart here; build the repeated segment with "
+                "layers.Pipeline (pp-axis GPipe) instead — these "
+                "arguments are ignored", stacklevel=2)
+
+    def minimize(self, loss, startup_program=None, parameter_list=None,
+                 no_grad_set=None):
+        program = loss.block.program
+        pipe_ops = [op for blk in program.blocks for op in blk.ops
+                    if op.type == "pipeline"]
+        if not pipe_ops:
+            import warnings
+            warnings.warn(
+                "PipelineOptimizer.minimize on a program with no "
+                "layers.Pipeline stage — training proceeds unpipelined",
+                stacklevel=2)
+        elif self.num_microbatches is not None:
+            for op in pipe_ops:
+                m = int(op.attrs.get("num_microbatches", 0))
+                if m != int(self.num_microbatches):
+                    raise ValueError(
+                        f"PipelineOptimizer(num_microbatches="
+                        f"{self.num_microbatches}) does not match "
+                        f"layers.Pipeline(num_microbatches={m}); the "
+                        f"Pipeline layer's value is the one that executes")
+        return self._inner.minimize(loss, startup_program, parameter_list,
+                                    no_grad_set)
+
+    def __getattr__(self, item):
+        return getattr(self._inner, item)
 
 
 class _ScopeSwap:

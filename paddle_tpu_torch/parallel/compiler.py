@@ -1,5 +1,5 @@
-"""CompiledProgram: a program made data- and tensor-parallel over the
-process world.
+"""CompiledProgram: a program made data-, tensor-, sequence- and
+pipeline-parallel over the process world.
 
 Counterpart of ``paddle_tpu/parallel/compiler.py`` (reference
 python/paddle/fluid/compiler.py:158 and the C++ ParallelExecutor,
@@ -33,12 +33,23 @@ first ``sp`` constraint (``parallel.sp``); the grads are summed over the
 rank's dp x sp group (``dp_sp``, the ranks of its tp coordinate) and
 scaled by 1/(dp*sp). No state is split by sp.
 
+Over a mesh with a ``pp`` axis (``MeshConfig(pp=4)`` or ``pp=2, dp=2``)
+pass ``pp_shard`` gives each rank its stage's ``[1, ...]`` slice of
+every ``layers.Pipeline`` parameter and accumulator (``parallel.pp``),
+cut and gathered by the executor as tp shards are; the ``pipeline`` op
+runs the rank's stage of the GPipe schedule. Every op outside the
+pipeline runs on every pp rank alike, so the grads are summed over the
+rank's dp group only and scaled by 1/dp (the stage slices differ from
+pp rank to pp rank; the replicated grads are already equal on them).
+``pp`` with ``tp`` or ``sp`` raises ``NotImplementedError``.
+
 The executor runs such a program on each rank (``Executor.run``,
 ``run_steps`` as a captured CUDA graph with the all-reduces inside,
 ``train_from_dataset``): its first run on a scope broadcasts every
 persistable it reads from rank 0 (``BCastParamsToDevices``), stochastic
-ops fold the rank into their seeds, and the non-finite guard's counts
-are all-reduced so every rank commits or rolls back alike. Fetches are
+ops fold the rank's dp coordinate into their seeds (so the pp ranks of
+one dp coordinate draw alike), and the non-finite guard's counts are
+all-reduced over the world so every rank commits or rolls back alike. Fetches are
 the rank's own (a loss is the mean over its rows).
 """
 import copy
@@ -47,6 +58,7 @@ import weakref
 
 from .mesh import (GRAD_AXIS, activate, axis_size, check_device,
                    default_mesh, get_mesh, init_parallel_env)
+from .pp import check_mesh as check_pp_mesh
 
 
 class BuildStrategy:
@@ -136,7 +148,8 @@ class CompiledProgram:
         if self.mesh.size != n:
             raise ValueError(f"{self.mesh} over a world of {n} ranks")
         dp, tp = axis_size(self.mesh, "dp"), axis_size(self.mesh, "tp")
-        sp = axis_size(self.mesh, "sp")
+        sp, pp = axis_size(self.mesh, "sp"), axis_size(self.mesh, "pp")
+        check_pp_mesh(self.mesh)
         bs = self.build_strategy
         if bs.gradient_scale_strategy != \
                 BuildStrategy.GradientScaleStrategy.CoeffNumDevice:
@@ -157,6 +170,8 @@ class CompiledProgram:
             passes.append(get_pass("tp_shard", mesh=self.mesh))
         if sp > 1:
             passes.append(get_pass("sp_shard", mesh=self.mesh))
+        if pp > 1:
+            passes.append(get_pass("pp_shard", mesh=self.mesh))
         if any(op.type == "batch_norm"
                for blk in prog.blocks for op in blk.ops):
             passes.append("sync_batch_norm")
@@ -164,7 +179,8 @@ class CompiledProgram:
             "dp_grad_allreduce", nranks=dp * sp,
             axis_name=GRAD_AXIS if sp > 1 else None))
         self.program = apply_passes(prog, passes)
-        self._tp_layouts = getattr(self.program, "_tp_layouts", {})
+        self._tp_layouts = dict(getattr(self.program, "_tp_layouts", {}),
+                                **getattr(self.program, "_pp_layouts", {}))
         self._data_parallel = True
         return self
 
@@ -195,9 +211,10 @@ class CompiledProgram:
         """Broadcast ``names`` (the scope state a step reads) from rank 0,
         on the first run of this program on ``scope``; the run seed
         too, so every rank's checkpoints agree. A whole value goes from
-        world rank 0 (before the ranks take their tp shards), a shard a
-        scope already holds from the first rank of the ranks of its tp
-        coordinate (its dp group, or its dp x sp group)."""
+        world rank 0 (before the ranks take their tp shards and pp
+        slices), a shard a scope already holds from the first rank of
+        the ranks that hold the same one (its dp group, or its dp x sp
+        group)."""
         from .mesh import is_initialized
         if not (self._data_parallel and is_initialized()) \
                 or scope in self._synced:

@@ -13,20 +13,21 @@ FLAGS_selected_gpus)`` makes ``device=None`` the rank's own card. A
 process that was not launched is a world of 1 and needs no process
 group; a launched one has a group, whatever its size.
 
-A :class:`Mesh` lays the world's ranks out on a ``dp``, an ``sp`` and
-a ``tp`` axis in ``AXIS_ORDER``: ``tp`` innermost, then ``sp``, so the
-ranks of one tensor-parallel group are consecutive and rank ``r`` sits
-at ``r = (d * sp + s) * tp + t``. Building a mesh with ``tp > 1`` or
-``sp > 1`` in a launched world makes one process group per ``tp``, per
-``sp`` and per ``dp`` group, and one per ``dp_sp`` group (the ranks of
-one ``tp`` coordinate over ``dp`` x ``sp``, where the grads of a
-sequence-parallel program are averaged), on every rank in the same
-order (the collectives of ``ops.collective_ops`` run over them), and a
-gloo group beside each ``tp`` group for objects on the host
-(``axis_group("tp", host=True)``: the tensor-parallel server's
-descriptors, ``serving.tp``). The other axes (``pp``, ``ep``,
-``dcn_dp``) raise ``NotImplementedError``: the rest of ROADMAP.md Queue
-1 item 7b.
+A :class:`Mesh` lays the world's ranks out on a ``pp``, a ``dp``, an
+``sp`` and a ``tp`` axis in ``AXIS_ORDER``: ``tp`` innermost, then
+``sp``, then ``dp``, ``pp`` outermost, so the ranks of one
+tensor-parallel group are consecutive and rank ``r`` sits at
+``r = ((p * dp + d) * sp + s) * tp + t``. Building a mesh with ``tp``,
+``sp`` or ``pp`` above 1 in a launched world makes one process group
+per ``tp``, per ``sp``, per ``dp`` and per ``pp`` group, and one per
+``dp_sp`` group (the ranks of one ``tp`` coordinate over ``dp`` x
+``sp``, where the grads of a sequence-parallel program are averaged),
+on every rank in the same order (the collectives of
+``ops.collective_ops`` run over them), and a gloo group beside each
+``tp`` group for objects on the host (``axis_group("tp", host=True)``:
+the tensor-parallel server's descriptors, ``serving.tp``). The other
+axes (``ep``, ``dcn_dp``) raise ``NotImplementedError``: the rest of
+ROADMAP.md Queue 1 item 7b.
 
 A collective names an axis, never a mesh: the helpers below resolve it
 against the mesh they are given, else the layout :func:`activate`
@@ -44,8 +45,10 @@ gives the sanitised spec of an annotated variable. The JAX package lets
 GSPMD split the annotated state; here pass ``tp_shard``
 (``framework.passes``) rewrites the program per rank and the executor
 holds each rank's shard (``parallel.tp``, the one place that slices a
-layout), and pass ``sp_shard`` splits the activations' sequence dim
-per rank (``parallel.sp``; no state is split on ``sp``).
+layout), pass ``sp_shard`` splits the activations' sequence dim
+per rank (``parallel.sp``; no state is split on ``sp``), and pass
+``pp_shard`` gives each ``pp`` rank its stage's slice of a
+``layers.Pipeline``'s stacked parameters (``parallel.pp``).
 """
 import inspect
 import math
@@ -60,7 +63,7 @@ AXIS_ORDER = ("dcn_dp", "pp", "dp", "ep", "sp", "tp")
 #: parameter grads of a sequence-parallel program are averaged
 GRAD_AXIS = "dp_sp"
 #: the axes a collective may name
-AXES = ("dp", "sp", "tp", GRAD_AXIS)
+AXES = ("dp", "sp", "tp", "pp", GRAD_AXIS)
 ITEM_7B = ("model parallelism and multi-slice are not ported "
            "(ROADMAP.md Queue 1 item 7b)")
 
@@ -92,8 +95,8 @@ def rank():
 
 def dp_group():
     """The process group of the ``dp`` axis: the whole world (None, the
-    default group) unless the world's layout has a ``tp`` or an ``sp``
-    axis."""
+    default group) unless the world's layout has a ``tp``, an ``sp`` or
+    a ``pp`` axis."""
     return axis_group("dp")
 
 
@@ -233,19 +236,19 @@ class Mesh:
     axis to this rank's process group on it (None: the whole world, or
     no world); a mesh made outside a world has none and is only a
     shape (``partition_spec`` over it). Besides the named axes, the
-    joint axis ``dp_sp`` (``GRAD_AXIS``) is the ranks of one ``tp``
-    coordinate over ``dp`` x ``sp``."""
+    joint axis ``dp_sp`` (``GRAD_AXIS``) is the ranks of one ``pp`` and
+    ``tp`` coordinate over ``dp`` x ``sp``."""
 
-    def __init__(self, dp=1, tp=1, sp=1):
-        dp, tp, sp = int(dp), int(tp), int(sp)
-        used = [(a, n) for a, n in (("dp", dp), ("sp", sp), ("tp", tp))
-                if n > 1]
+    def __init__(self, dp=1, tp=1, sp=1, pp=1):
+        dp, tp, sp, pp = int(dp), int(tp), int(sp), int(pp)
+        used = [(a, n) for a, n in (("pp", pp), ("dp", dp), ("sp", sp),
+                                    ("tp", tp)) if n > 1]
         if not used:
             used = [("dp", dp)]
         self.axis_names = tuple(a for a, _ in used)
         self.shape = dict(used)
-        self.size = dp * sp * tp
-        self.dp, self.sp, self.tp = dp, sp, tp
+        self.size = dp * sp * tp * pp
+        self.dp, self.sp, self.tp, self.pp = dp, sp, tp, pp
         self.groups = {}
         # a gloo group beside each tp group: host-side objects (the
         # serving leader's step descriptors) never wait behind device
@@ -253,52 +256,58 @@ class Mesh:
         self.host_groups = {}
 
     def coords(self, r=None):
-        """``{"dp": d, "sp": s, "tp": t, "dp_sp": d * sp + s}`` of rank
-        ``r`` (this rank by default)."""
+        """``{"pp": p, "dp": d, "sp": s, "tp": t, "dp_sp": d * sp + s}``
+        of rank ``r`` (this rank by default)."""
         r = rank() if r is None else int(r)
         t, rest = r % self.tp, r // self.tp
-        s, d = rest % self.sp, rest // self.sp
-        return {"dp": d, "sp": s, "tp": t, GRAD_AXIS: d * self.sp + s}
+        s, rest = rest % self.sp, rest // self.sp
+        d, p = rest % self.dp, rest // self.dp
+        return {"pp": p, "dp": d, "sp": s, "tp": t,
+                GRAD_AXIS: d * self.sp + s}
 
-    def rank_of(self, dp, sp, tp):
-        return (int(dp) * self.sp + int(sp)) * self.tp + int(tp)
+    def rank_of(self, dp, sp, tp, pp=0):
+        return ((int(pp) * self.dp + int(dp)) * self.sp + int(sp)) \
+            * self.tp + int(tp)
 
     def axis_ranks(self, axis, r=None):
         """The world ranks of rank ``r``'s group on ``axis``, in axis
         order."""
         c = self.coords(r)
-        d, s, t = c["dp"], c["sp"], c["tp"]
+        p, d, s, t = c["pp"], c["dp"], c["sp"], c["tp"]
         if axis == "tp":
-            return [self.rank_of(d, s, j) for j in range(self.tp)]
+            return [self.rank_of(d, s, j, p) for j in range(self.tp)]
         if axis == "sp":
-            return [self.rank_of(d, j, t) for j in range(self.sp)]
+            return [self.rank_of(d, j, t, p) for j in range(self.sp)]
+        if axis == "pp":
+            return [self.rank_of(d, s, t, j) for j in range(self.pp)]
         if axis == GRAD_AXIS:
-            return [self.rank_of(i, j, t) for i in range(self.dp)
+            return [self.rank_of(i, j, t, p) for i in range(self.dp)
                     for j in range(self.sp)]
-        return [self.rank_of(i, s, t) for i in range(self.dp)]
+        return [self.rank_of(i, s, t, p) for i in range(self.dp)]
 
     def axis_size(self, axis):
         """The size of ``axis`` (``dp_sp``: dp x sp)."""
         if axis == GRAD_AXIS:
             return self.dp * self.sp
-        return {"dp": self.dp, "sp": self.sp, "tp": self.tp}[axis]
+        return {"dp": self.dp, "sp": self.sp, "tp": self.tp,
+                "pp": self.pp}[axis]
 
     def __repr__(self):
         return "Mesh(" + ", ".join(f"{a}={n}" for a, n in
                                    self.shape.items()) + ")"
 
 
-_built = {}            # (dp, tp, sp) -> Mesh, groups made once per world
+_built = {}            # (dp, tp, sp, pp) -> Mesh, groups made once per world
 _active = None         # the layout the collectives resolve axes against
 
 
 def _make_groups(mesh):
-    """One process group per tp, sp, dp and dp_sp group, and a gloo
+    """One process group per tp, sp, dp, dp_sp and pp group, and a gloo
     (host) group beside each tp group, every rank making them all in the
     same order (``new_group`` is collective)."""
     dist = _dist()
     r = rank()
-    for axis in ("tp", "sp", "dp", GRAD_AXIS):
+    for axis in ("tp", "sp", "dp", GRAD_AXIS, "pp"):
         if mesh.axis_size(axis) == 1:     # groups of one rank: no traffic
             continue
         if axis == GRAD_AXIS and (mesh.sp == 1 or mesh.dp == 1):
@@ -326,14 +335,15 @@ def _make_groups(mesh):
 
 
 def make_mesh(config=None, devices=None, **axes):
-    """The world's ranks on a ``dp`` x ``sp`` x ``tp`` mesh. ``tp`` and
-    ``sp`` must divide the world; ``dp`` 1 (the default) means the rest
-    of it, any other ``dp`` must make ``dp * sp * tp`` the world size.
-    Any other axis raises: item 7b."""
+    """The world's ranks on a ``pp`` x ``dp`` x ``sp`` x ``tp`` mesh.
+    ``tp``, ``sp`` and ``pp`` must divide the world; ``dp`` 1 (the
+    default) means the rest of it, any other ``dp`` must make
+    ``pp * dp * sp * tp`` the world size. Any other axis raises: item
+    7b."""
     if config is None:
         config = MeshConfig(**{k: v for k, v in axes.items() if v})
     sizes = config.axis_sizes()
-    other = [a for a in AXIS_ORDER if a not in ("dp", "sp", "tp")
+    other = [a for a in AXIS_ORDER if a not in ("dp", "sp", "tp", "pp")
              and sizes[a] > 1]
     if other:
         raise not_ported_7b(f"mesh axes {other}")
@@ -342,22 +352,24 @@ def make_mesh(config=None, devices=None, **axes):
     n = world_size()
     tp = max(int(sizes["tp"]), 1)
     sp = max(int(sizes["sp"]), 1)
+    pp = max(int(sizes["pp"]), 1)
     dp = int(sizes["dp"])
+    model = tp * sp * pp
     if dp == 1:
-        dp = n // (tp * sp) if n % (tp * sp) == 0 else 0
-    if dp * sp * tp != n:
-        want = (dp or 1) * sp * tp
-        names = f"dp={sizes['dp']} " + (f"sp={sp} " if sp > 1 else "") + \
-            f"tp={tp}"
+        dp = n // model if n % model == 0 else 0
+    if dp * model != n:
+        want = (dp or 1) * model
+        names = (f"pp={pp} " if pp > 1 else "") + f"dp={sizes['dp']} " + \
+            (f"sp={sp} " if sp > 1 else "") + f"tp={tp}"
         raise ValueError(f"a {names} mesh needs {want} "
                          f"ranks; the world has {n} (one process per "
                          f"card: launch --nproc_per_node={want})")
-    mesh = _built.get((dp, tp, sp))
+    mesh = _built.get((dp, tp, sp, pp))
     if mesh is None:
-        mesh = Mesh(dp, tp, sp)
-        if (tp > 1 or sp > 1) and is_initialized():
+        mesh = Mesh(dp, tp, sp, pp)
+        if model > 1 and is_initialized():
             _make_groups(mesh)
-        _built[(dp, tp, sp)] = mesh
+        _built[(dp, tp, sp, pp)] = mesh
     return mesh
 
 
@@ -393,7 +405,7 @@ def axis_group(axis, mesh=None, host=False):
 
 def axis_world_size(axis, mesh=None):
     """The size of ``axis`` in ``mesh`` (default: the active layout;
-    ``tp`` and ``sp`` are 1 without a tp or sp mesh, ``dp`` then the
+    ``tp``, ``sp`` and ``pp`` are 1 without such a mesh, ``dp`` then the
     world)."""
     if axis not in AXES:
         raise not_ported_7b(f"the {axis!r} axis")

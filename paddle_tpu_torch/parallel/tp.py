@@ -55,12 +55,17 @@ _ELEMENTWISE = {"elementwise_add", "elementwise_sub", "elementwise_mul",
 _ELEMENTWISE_OPT = {"sgd", "momentum", "adam", "adamw", "adamax",
                     "adagrad", "rmsprop"}
 
-Layout = collections.namedtuple("Layout", "dim segments full_shape")
+#: how a persistable is split: dim ``dim`` of the whole ``full_shape``,
+#: cut into ``segments`` equal pieces, each cut over the mesh axis
+#: ``axis`` (``tp``; ``pp`` for a pipeline's stage slices, ``parallel.pp``)
+Layout = collections.namedtuple("Layout", "dim segments full_shape axis",
+                                defaults=("tp",))
 
 
-def local_shape(layout, tp):
+def local_shape(layout, n):
+    """The shape of one of ``n`` shards of ``layout``."""
     shape = list(layout.full_shape)
-    shape[layout.dim] //= tp
+    shape[layout.dim] //= n
     return tuple(shape)
 
 
@@ -87,16 +92,17 @@ def shard_tensor(full, layout, tp, r):
 
 def gather_tensor(local, layout, mesh):
     """The whole tensor from this rank's shard ``local``: the shards of
-    the rank's tp group of ``mesh`` gathered and put back piece by piece
-    (the inverse of :func:`shard_tensor`)."""
-    tp = mesh.tp
+    the rank's group on the layout's axis of ``mesh`` gathered and put
+    back piece by piece (the inverse of :func:`shard_tensor`)."""
+    tp = mesh.axis_size(layout.axis)
     if tp == 1:
         return local
     from ..ops.collective_ops import all_gather
     d, s = layout.dim, layout.segments
     shape = tuple(local.shape)
     w = shape[d] // s
-    parts = all_gather(local.unsqueeze(0).contiguous(), "tp", mesh=mesh)
+    parts = all_gather(local.unsqueeze(0).contiguous(), layout.axis,
+                       mesh=mesh)
     v = parts.reshape((tp,) + shape[:d] + (s, w) + shape[d + 1:])
     return v.movedim(0, d + 1).reshape(layout.full_shape)
 
@@ -104,12 +110,12 @@ def gather_tensor(local, layout, mesh):
 # ------------------------------------------------------------------ scopes
 
 def place_shards(scope, layouts, names, mesh):
-    """Cut this rank's shard on the tp axis of ``mesh`` out of each whole
-    value among ``names`` that ``layouts`` splits (a value of the full
-    shape: fresh from the startup program or a load), in place in
-    ``scope``, which keeps ``mesh`` (``tp_mesh``) for its saves."""
-    tp, r = mesh.tp, mesh.coords()["tp"]
-    if tp == 1 or not layouts:
+    """Cut this rank's shard on its layout's axis of ``mesh`` (``tp``, or
+    ``pp`` for a stage slice) out of each whole value among ``names``
+    that ``layouts`` splits (a value of the full shape: fresh from the
+    startup program or a load), in place in ``scope``, which keeps
+    ``mesh`` (``tp_mesh``) for its saves."""
+    if not layouts:
         return
     held = scope.tp_layouts
     scope.tp_mesh = mesh
@@ -120,29 +126,34 @@ def place_shards(scope, layouts, names, mesh):
         val = scope.find_var(n)
         if val is None or not hasattr(val, "shape"):
             continue
+        k = mesh.axis_size(lay.axis)
+        if k == 1:
+            continue
         held[n] = lay
         if tuple(val.shape) == tuple(lay.full_shape):
-            scope.set(n, shard_tensor(val, lay, tp, r))
-        elif tuple(val.shape) != local_shape(lay, tp):
+            scope.set(n, shard_tensor(val, lay, k, mesh.coords()[lay.axis]))
+        elif tuple(val.shape) != local_shape(lay, k):
             raise ValueError(
-                f"tp: {n!r} holds shape {tuple(val.shape)}: neither the "
-                f"whole {tuple(lay.full_shape)} nor a tp={tp} shard "
-                f"{local_shape(lay, tp)}")
+                f"{lay.axis}: {n!r} holds shape {tuple(val.shape)}: "
+                f"neither the whole {tuple(lay.full_shape)} nor a "
+                f"{lay.axis}={k} shard {local_shape(lay, k)}")
 
 
 @contextlib.contextmanager
 def gathered(scope):
-    """``scope`` with every tp shard it holds replaced by the whole
-    tensor (gathered over the rank's tp group of the scope's
-    ``tp_mesh``; every rank must enter), the shards put back on exit:
-    what a save writes."""
+    """``scope`` with every shard it holds (tp shards, pp stage slices)
+    replaced by the whole tensor (gathered over the rank's group on the
+    layout's axis of the scope's ``tp_mesh``; every rank must enter),
+    the shards put back on exit: what a save writes."""
     held = getattr(scope, "tp_layouts", {})
     mesh = getattr(scope, "tp_mesh", None)
     saved = {}
     try:
         for n, lay in held.items() if mesh is not None else ():
             val = scope.find_var(n)
-            if val is None or tuple(val.shape) != local_shape(lay, mesh.tp):
+            k = mesh.axis_size(lay.axis)
+            if val is None or k == 1 or \
+                    tuple(val.shape) != local_shape(lay, k):
                 continue
             saved[n] = val
             scope.set(n, gather_tensor(val, lay, mesh))

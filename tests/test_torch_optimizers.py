@@ -28,8 +28,8 @@ package, on the CPU.
   ``dpsgd``'s noise by its distribution and its seeds; JAX
   ``test_extras.py``'s EMA, ModelAverage, Lookahead and DGC cases;
   ``fuse_optimizer`` leaving the new updates per parameter;
-  ``PipelineOptimizer`` raising; and every class driving a quadratic
-  down (``test_optimizer_classes_converge``).
+  ``PipelineOptimizer`` over a ``layers.Pipeline`` program; and every
+  class driving a quadratic down (``test_optimizer_classes_converge``).
 """
 import numpy as np
 import pytest
@@ -670,8 +670,33 @@ def test_dgc_momentum_trains():
 
 
 def test_pipeline_optimizer_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tfluid.optimizer.PipelineOptimizer(tfluid.optimizer.SGD(0.1))
+    """``PipelineOptimizer`` no longer raises: over a ``layers.Pipeline``
+    of two fc-tanh stages (4 microbatches) it trains 3 Momentum steps op
+    for op as the JAX package's does, from the JAX startup's state."""
+    def build(fluid):
+        layers = fluid.layers
+        x = layers.data("x", [8, 4], dtype="float32")
+        y = layers.data("y", [8, 1], dtype="float32")
+        pipe = layers.Pipeline(num_stages=2, num_microbatches=4)
+        with pipe.stage():
+            h = pipe.stage_input(x)
+            pipe.stage_output(layers.fc(h, 4, act="tanh"))
+        pred = layers.fc(pipe(), 1)
+        loss = layers.mean(layers.square_error_cost(pred, y))
+        fluid.optimizer.PipelineOptimizer(
+            fluid.optimizer.Momentum(0.1, 0.9),
+            num_microbatches=4).minimize(loss)
+        return [loss]
+    from torch_pair import rel_err, run_pair
+    xv, yv = _extras_data()
+    out, scopes, mains = run_pair(build, {"x": xv, "y": yv}, steps=3)
+    np.testing.assert_allclose(np.ravel(out["port"]), np.ravel(out["jax"]),
+                               rtol=1e-5, atol=1e-6)
+    assert [op.type for op in mains["port"].global_block().ops] == \
+        [op.type for op in mains["jax"].global_block().ops]
+    for p in mains["jax"].all_parameters():
+        assert rel_err(scopes["port"].find_var(p.name).numpy(),
+                       np.array(scopes["jax"].find_var(p.name))) <= 1e-5
 
 
 @pytest.mark.parametrize("name", ["Lamb", "LarsMomentum", "Adagrad",

@@ -329,20 +329,24 @@ def test_rank_raising_mid_step_ends_the_launch(tmp_path):
 
 
 def test_mesh_axes_other_than_dp_raise():
-    """The boundary of item 7b: ``tp`` and ``sp`` build a mesh (here, a
-    world of 1, only at size 1; a tp 2 or an sp 2 mesh needs 2 ranks)
-    and ``partition_spec`` works; ``pp``, ``ep`` and ``dcn_dp`` still
-    raise."""
+    """The boundary of item 7b: ``tp``, ``sp`` and ``pp`` build a mesh
+    (here, a world of 1, only at size 1; a tp 2, an sp 2 or a pp 2 mesh
+    needs 2 ranks) and ``partition_spec`` works, ``("pp",)`` included;
+    ``ep`` and ``dcn_dp`` still raise."""
     from paddle_tpu_torch.parallel import mesh
-    for axis in ("pp", "ep", "dcn_dp"):
+    for axis in ("ep", "dcn_dp"):
         with pytest.raises(NotImplementedError, match="item 7b"):
             mesh.make_mesh(mesh.MeshConfig(**{axis: 2}))
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        mesh.make_mesh(mesh.MeshConfig(tp=2))
-    with pytest.raises(ValueError, match="needs 2 ranks"):
-        mesh.make_mesh(mesh.MeshConfig(sp=2))
+    for axis in ("tp", "sp", "pp"):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            mesh.make_mesh(mesh.MeshConfig(**{axis: 2}))
     assert mesh.make_mesh(mesh.MeshConfig(sp=1)).shape == {"dp": 1}
     assert mesh.make_mesh(mesh.MeshConfig(tp=1)).shape == {"dp": 1}
+    assert mesh.make_mesh(mesh.MeshConfig(pp=1)).shape == {"dp": 1}
+    assert mesh.partition_spec(mesh.Mesh(1, pp=2), ("pp",), (2, 3)) == \
+        ("pp", None)
+    assert mesh.partition_spec(mesh.Mesh(1, pp=2), ("pp",), (3, 3)) == \
+        (None, None)
     assert mesh.partition_spec(mesh.Mesh(2, 2), ("dp", "tp"), (4, 6)) == \
         ("dp", "tp")
     assert mesh.make_mesh(mesh.MeshConfig(dp=1)).shape == {"dp": 1}

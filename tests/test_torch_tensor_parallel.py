@@ -369,9 +369,16 @@ def test_sharding_constraint_is_a_value_identity():
     got, l = exe.run(main, feed={"x": xv}, fetch_list=[y, loss],
                      scope=tfluid.Scope())
     assert np.array_equal(got, xv)
+    # a pp entry is a hint, as in the JAX package: the value itself
+    with tfluid.program_guard(main, startup):
+        w = tfluid.layers.collective.shard(x, "pp", None)
+    assert w.block.ops[-1].attrs["spec"] == ("pp", None)
+    got_w, = exe.run(main, feed={"x": xv}, fetch_list=[w],
+                     scope=tfluid.Scope())
+    assert np.array_equal(got_w, xv)
     with pytest.raises(NotImplementedError, match="item 7b"):
         with tfluid.program_guard(main, startup):
-            tfluid.layers.collective.shard(x, "pp", None)
+            tfluid.layers.collective.shard(x, "ep", None)
     with tfluid.program_guard(main, startup):
         z = tfluid.layers.collective.shard(x, "sp", None)
     assert z.block.ops[-1].attrs["spec"] == ("sp", None)
