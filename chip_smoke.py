@@ -490,14 +490,20 @@ NVIDIA GPU.
     - pp_parity: a narrow GPT (2 decoder layers a stage, hidden 256, S
       128) in a ``layers.Pipeline``, 3 Adam steps through
       ``with_data_parallel(mesh=make_mesh(MeshConfig(pp=N)))`` (and pp
-      2 x dp 2 on four cards), eagerly and by a run_steps slab from
+      2 x dp 2, pp 2 x tp 2 and pp 2 x sp 2 on four cards; beside tp or
+      sp every rank of a stage runs it whole, the word embedding split
+      on tp or the pipeline's input on the sequence outside it),
+      eagerly and by a run_steps slab from
       copies of one startup scope: the slab bitwise its eager steps,
       the gathered parameters equal on every rank and within 1e-4 of
       max |ref| of rank 0's plain program (the sequential path);
     - pp_gpt: GPT-base at B8 S2048, dropout 0, float32, Adam at 1e-4,
       its 12 decoder layers in a ``layers.Pipeline``: pp 4 (3 layers a
-      stage, M 8) and pp 2 x dp 2 (6 layers a stage, 4 rows a rank, M
-      4); 2 eager steps and a run_steps slab of 3 (captured, the
+      stage, M 8), pp 2 x dp 2 (6 layers a stage, 4 rows a rank, M 4)
+      and pp 2 x tp 2 (6 layers a stage run whole by both tp ranks, M
+      4, the word embedding and tied head split on tp, the stage slices
+      equal on the tp ranks of a stage); 2 eager steps and a run_steps
+      slab of 3 (captured, the
       shifts, broadcasts and the dp all-reduce inside) bitwise an
       all-eager twin, the captured step freed before the next grid's;
       the mean of the dp ranks' losses within ``PP_LOSS_RTOL`` of rank
@@ -509,6 +515,38 @@ NVIDIA GPU.
       beside the one-card run's, NCCL kernels and ms a step, each
       rank's busy ms and idle share from a profiled slab.
     ``--only-pp`` runs these alone (no kernels line, no ok line).
+13d. Expert parallelism across cards, right after the pp phases, at N =
+    every card (on one card ep 1 through the same code, 2 layers deep,
+    which says that no expert parallelism was measured): first
+    ``moe_kernel_shapes``, K1, K3 and K4 against their plain versions
+    at the Switch GPT's attention shapes (B4 and B8 H12 S2048 D64,
+    float32, causal), each timed beside SDPA's forward or backward, not
+    counted; then
+    - moe_parity: a narrow Switch GPT (2 layers, the second's FFN a
+      ``switch_moe`` of 4 experts; hidden 256, S 128), 3 Adam steps
+      through ``with_data_parallel(mesh=make_mesh(MeshConfig(ep=4)))``
+      and ep 2 x dp 2, eagerly and by a run_steps slab: the slab
+      bitwise its eager steps, the gathered parameters equal on every
+      rank and within 1e-4 of max |ref| of rank 0's plain program;
+    - moe_gpt: a Switch GPT-base at B8 S2048 (``MOE_GPT``: decoder
+      layers 1, 3, ..., 11 with their FFN a ``switch_moe`` of 8
+      experts, width 3072, capacity factor 1.25; the LM loss + 0.01 x
+      the mean aux loss), dropout 0, float32, Adam at 1e-4: ep 4 (2
+      experts a card) and ep 2 x dp 2 (4 experts a card, 4 rows a dp
+      rank); 2 eager steps and a run_steps slab of 3 (captured, the
+      all-to-alls, the count all-gathers and the dp all-reduce inside)
+      bitwise an all-eager twin, the captured step freed before the
+      next grid's; the mean of the dp ranks' losses within
+      ``MOE_LOSS_RTOL`` of rank 0's one-card run; the replicated
+      parameters equal on every rank; each rank's expert slices equal
+      to theirs in the gathered save; K1, K3 and K4 12 a step on every
+      rank; ms a step by replay and eagerly, tokens/s in total, peak GB
+      a card beside the one-card run's, NCCL kernels and ms a step by
+      kind, idle share from a profiled slab, and the share of tokens
+      each MoE layer dropped at step 0 (from its gate inputs).
+    ``--only-moe`` runs these alone (no kernels line, no ok line). On
+    one card each family's phases (dp, tp, sp, pp, moe) run in one
+    resident worker process (``resident``), not a process each.
 14. The core layer surface, last among the main paths:
     - gpt_programs: GPT's generation programs built from the registered
       decode ops (``models.gpt.gpt_prefill``, ``gpt_decode_step``,
@@ -5958,6 +5996,112 @@ DP_RESNET = dict(RESNET50, K=4)
 DP_BERT_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_single")
 
 
+# the one-card worker that serves every phase of a family in one process
+# (``resident``): its process, log and request count
+_RESIDENT = {}
+
+
+class resident:
+    """A context in which every phase launched at N = 1 runs in one
+    worker process (one rank through the port's launcher, started once,
+    ``--dp-serve``) instead of a process of its own: the phases of one
+    family (dp, tp, sp, pp, moe) share a process start, an ``import
+    torch`` and a CUDA context, which a one-card run otherwise pays per
+    phase. Each phase still zeroes the kernel counts before it and
+    writes its own record; the worker stops on exit."""
+
+    def __init__(self, torch, on=True, cpu=False):
+        self.torch, self.on, self.cpu = torch, on, cpu
+
+    def __enter__(self):
+        if not self.on:
+            return self
+        folder = os.path.join(DP_DIR, "resident")
+        os.makedirs(folder, exist_ok=True)
+        for f in os.listdir(folder):
+            os.remove(os.path.join(folder, f))
+        log = open(os.path.join(folder, "worker.log"), "w")
+        cmd = [sys.executable, os.path.join(
+            ROOT, "paddle_tpu_torch", "distributed", "launch.py"),
+            "--nproc_per_node=1"] + (["--device=cpu"] if self.cpu else []) \
+            + [os.path.abspath(__file__), "--dp-serve", folder]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [ROOT] + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else [])))
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log,
+                                stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+        _RESIDENT.update(proc=proc, folder=folder, log=log, k=0)
+        return self
+
+    def __exit__(self, *exc):
+        if not self.on:
+            return False
+        import signal
+        proc, folder = _RESIDENT["proc"], _RESIDENT["folder"]
+        open(os.path.join(folder, "stop"), "w").close()
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        _RESIDENT["log"].close()
+        _RESIDENT.clear()
+        return False
+
+
+def _resident_run(phase, args, timeout):
+    """``phase`` with ``args`` run by the resident worker; returns the
+    seconds it took, or raises with the worker's output when the phase
+    fails, the worker dies or ``timeout`` passes (the worker is
+    killed)."""
+    import signal
+    proc, folder = _RESIDENT["proc"], _RESIDENT["folder"]
+    k = _RESIDENT["k"]
+    _RESIDENT["k"] = k + 1
+    tmp = os.path.join(folder, f"req.{k}.tmp")
+    with open(tmp, "w") as f:
+        json.dump(args, f)
+    os.replace(tmp, os.path.join(folder, f"req.{k}.json"))
+    t0 = time.perf_counter()
+    while not os.path.exists(os.path.join(folder, f"done.{k}")):
+        dead = proc.poll() is not None
+        late = time.perf_counter() - t0 > timeout
+        if dead or late:
+            if not dead:
+                os.killpg(proc.pid, signal.SIGKILL)
+            _RESIDENT["log"].flush()
+            with open(os.path.join(folder, "worker.log")) as f:
+                print(f.read()[-6000:], file=sys.stderr)
+            raise AssertionError(
+                f"{phase} at N=1 (resident worker): "
+                + (f"outlived {timeout} s" if late else
+                   f"the worker exited {proc.returncode}"))
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def dp_serve(folder):
+    """The resident one-card worker (``--dp-serve``): joins the world of
+    1 the launcher set up once, then runs each phase request
+    ``req.<k>.json`` in turn as ``--dp-worker`` would and marks it
+    ``done.<k>``, until ``stop``. A failing phase ends the worker."""
+    sys.path.insert(0, ROOT)
+    from paddle_tpu_torch.parallel import mesh
+    mesh.init_parallel_env()
+    k = 0
+    while True:
+        req = os.path.join(folder, f"req.{k}.json")
+        if os.path.exists(req):
+            _run_phase(req)
+            open(os.path.join(folder, f"done.{k}"), "w").close()
+            k += 1
+        elif os.path.exists(os.path.join(folder, "stop")):
+            return 0
+        else:
+            time.sleep(0.05)
+
+
 def dp_launch(torch, phase, nproc, args=None, timeout=900):
     """Run ``phase``'s worker on ``nproc`` ranks through the port's
     launcher (``paddle_tpu_torch/distributed/launch.py``, one process a
@@ -5986,6 +6130,11 @@ def dp_launch(torch, phase, nproc, args=None, timeout=900):
     argpath = os.path.join(DP_DIR, f"{phase}.n{nproc}.args.json")
     with open(argpath, "w") as f:
         json.dump(args, f)
+    if nproc == 1 and _RESIDENT:
+        launch["seconds"] = _resident_run(phase, args, timeout)
+        launch["resident"] = True
+        with open(os.path.join(DP_DIR, f"{phase}.n1.r0.json")) as f:
+            return [json.load(f)], launch
     cmd = [sys.executable, os.path.join(ROOT, "paddle_tpu_torch",
                                         "distributed", "launch.py"),
            f"--nproc_per_node={nproc}"] + \
@@ -6022,12 +6171,19 @@ def dp_worker(argpath):
     world the launcher set up, runs the phase's worker and writes its
     record to ``build/chip_smoke_dp/<phase>.n<N>.r<rank>.json``."""
     sys.path.insert(0, ROOT)
+    from paddle_tpu_torch.parallel import mesh
+    mesh.init_parallel_env()
+    return _run_phase(argpath)
+
+
+def _run_phase(argpath):
+    """The phase of ``argpath``'s args on this rank of the joined world:
+    the kernel counts zeroed, its worker run, its record written."""
     import numpy as np
     import torch
     with open(argpath) as f:
         args = json.load(f)
     from paddle_tpu_torch.parallel import mesh
-    mesh.init_parallel_env()
     rank, n = mesh.rank(), mesh.world_size()
     place = None
     if args.get("cpu"):
@@ -6039,7 +6195,8 @@ def dp_worker(argpath):
           "tp_bert": _tp_bert, "tp_generate": _tp_generate,
           "tp_serving": _tp_serving, "sp_parity": _sp_parity,
           "sp_bert": _sp_bert, "pp_parity": _pp_parity,
-          "pp_gpt": _pp_gpt}[args["phase"]]
+          "pp_gpt": _pp_gpt, "moe_parity": _moe_parity,
+          "moe_gpt": _moe_gpt}[args["phase"]]
     from paddle_tpu_torch import kernels
     for w in kernels.COUNTED:
         w.launches = 0
@@ -6386,8 +6543,9 @@ def kernel_profile(torch, fn):
     set interval on any stream: time the card did something, NCCL's
     spinning included), ``kernel_sum_ms`` (their durations added over
     the streams), ``nccl_us`` (each NCCL kernel's duration in start
-    order), ``nccl_busy_ms`` (the union of those) and ``compute_busy_ms``
-    (the union of the rest)."""
+    order), ``nccl_busy_ms`` (the union of those), ``nccl_by_kind``
+    ({kernel name: [count, ms]}) and ``compute_busy_ms`` (the union of
+    the rest)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -6396,17 +6554,25 @@ def kernel_profile(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    spans, nccl, other, total = [], [], [], 0.0
+    spans, nccl, other, total, by_kind = [], [], [], 0.0, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         t = getattr(e, "device_time", None)
-        total += float(e.cuda_time if t is None else t)
+        t = float(e.cuda_time if t is None else t)
+        total += t
         span = (float(e.time_range.start), float(e.time_range.end))
         spans.append(span)
-        (nccl if "nccl" in e.name.lower() else other).append(span)
+        if "nccl" in e.name.lower():
+            nccl.append(span)
+            kind = by_kind.setdefault(e.name, [0, 0.0])
+            kind[0] += 1
+            kind[1] += t / 1e3
+        else:
+            other.append(span)
     nccl.sort()
     return {"wall_ms": wall, "busy_ms": _union_us(spans) / 1e3,
+            "nccl_by_kind": by_kind,
             "kernel_sum_ms": total / 1e3,
             "nccl_us": [b - a for a, b in nccl],
             "nccl_busy_ms": _union_us(nccl) / 1e3,
@@ -8157,21 +8323,35 @@ PP_PARITY = {"cfg": {"vocab_size": 1024, "hidden_size": 256,
              "steps": 3, "lr": 1e-3}
 
 
-def pp_grids(n):
+def pp_grids(n, parity=False):
     """The grids of the pp phases on ``n`` cards: (tag, mesh axes,
     num_stages, pp_gpt's microbatches of a rank's rows). Four cards: pp
-    4 (4 stages, M 8) and pp 2 x dp 2 (2 stages, 4 rows a rank, M 4);
-    two: pp 2; one: a 2-stage pipeline on the sequential path."""
-    return {4: [("pp4", {"pp": 4}, 4, 8),
-                ("pp2dp2", {"pp": 2, "dp": 2}, 2, 4)],
-            2: [("pp2", {"pp": 2}, 2, 8)]}.get(n, [("pp1", {}, 2, 8)])
+    4 (4 stages, M 8), pp 2 x dp 2 (2 stages, 4 rows a rank, M 4) and pp
+    2 x tp 2 (2 stages, each run whole by both tp ranks, M 4; the word
+    embedding and tied head split on tp), and for ``parity`` pp 2 x sp 2
+    too (the pipeline's input split on the sequence, gathered whole
+    before it); two: pp 2; one: a 2-stage pipeline on the sequential
+    path."""
+    grids = {4: [("pp4", {"pp": 4}, 4, 8),
+                 ("pp2dp2", {"pp": 2, "dp": 2}, 2, 4),
+                 ("pp2tp2", {"pp": 2, "tp": 2}, 2, 4)],
+             2: [("pp2", {"pp": 2}, 2, 8)]}.get(n, [("pp1", {}, 2, 8)])
+    if parity and n == 4:
+        grids.append(("pp2sp2", {"pp": 2, "sp": 2}, 2, 4))
+    return grids
 
 
-def pp_program(fluid, gpt, cfg, rows, S, stages, micro, lr, seed=11):
+def pp_program(fluid, gpt, cfg, rows, S, stages, micro, lr, seed=11,
+               axes=None):
     """GPT pretraining as ``gpt_pretrain`` builds it, its decoder layers
     in a ``layers.Pipeline`` of ``stages`` uniform stages of
     ``num_layers / stages`` layers over ``micro`` microbatches, Adam at
-    ``lr`` through ``PipelineOptimizer``: (main, startup, loss)."""
+    ``lr`` through ``PipelineOptimizer``: (main, startup, loss). With a
+    ``tp`` axis in ``axes`` the word embedding (and so the tied head) is
+    annotated ``("tp", None)`` as ``gpt.apply_tp_sharding`` annotates
+    it; with an ``sp`` axis the pipeline's input is pinned to ``("dp",
+    "sp", None)``."""
+    axes = axes or {}
     L = fluid.layers
     init = fluid.initializer
     h = cfg.hidden_size
@@ -8194,6 +8374,8 @@ def pp_program(fluid, gpt, cfg, rows, S, stages, micro, lr, seed=11):
                         param_attr=normal("pos_embedding")))
         x = L.dropout(x, cfg.dropout,
                       dropout_implementation="upscale_in_train")
+        if axes.get("sp", 1) > 1:
+            x = L.collective.shard(x, "dp", "sp", None)
         pipe = L.Pipeline(num_stages=stages, num_microbatches=micro)
         with pipe.stage():
             y = pipe.stage_input(x)
@@ -8216,6 +8398,9 @@ def pp_program(fluid, gpt, cfg, rows, S, stages, micro, lr, seed=11):
             L.reduce_sum(L.elementwise_mul(ce, w)),
             L.elementwise_add(L.reduce_sum(w),
                               L.fill_constant([1], "float32", 1e-9)))
+        if axes.get("tp", 1) > 1:
+            fluid.parallel.mesh.set_param_dist_attr(
+                main, "word_embedding", ("tp", None))
         fluid.optimizer.PipelineOptimizer(
             fluid.optimizer.Adam(lr), num_microbatches=micro).minimize(loss)
     return main, startup, loss
@@ -8257,7 +8442,7 @@ def _pp_parity(torch, np, args, rank, n, place):
     B, S = p["B"], p["S"]
     rec = {"cases": []}
     exe = fluid.Executor(place)
-    for tag, axes, stages, _ in pp_grids(n):
+    for tag, axes, stages, _ in pp_grids(n, parity=True):
         cfg = gpt.GPTConfig(**p["cfg"],
                             num_layers=stages * p["layers_a_stage"])
         grid = _pp_world(axes)
@@ -8268,7 +8453,8 @@ def _pp_parity(torch, np, args, rank, n, place):
                  for i in range(p["steps"])]
         mine = [_pp_rows(f, d, dp) for f in feeds]
         main, startup, loss = pp_program(fluid, gpt, cfg, rows, S, stages,
-                                         rows // p["micro_rows"], p["lr"])
+                                         rows // p["micro_rows"], p["lr"],
+                                         axes=axes)
         comp = fluid.CompiledProgram(main).with_data_parallel(
             loss_name=loss.name, mesh=grid)
         s0 = fluid.Scope()
@@ -8351,14 +8537,15 @@ def _pp_gpt(torch, np, args, rank, n, place):
                  for k, v in _pp_rows(f, d, dp).items()} for f in feeds]
         slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
         main, startup, loss = pp_program(fluid, gpt, cfg, rows, S, stages,
-                                         micro, run["lr"])
+                                         micro, run["lr"], axes=axes)
         comp = fluid.CompiledProgram(main).with_data_parallel(
             loss_name=loss.name, mesh=grid)
         scope = fluid.Scope()
         exe.run(startup, scope=scope)
-        if rank == 0:
-            starts[tag] = (stages, {k: v.cpu() for k, v in scope.items()
-                                    if isinstance(v, torch.Tensor)})
+        if rank == 0 and stages not in starts:
+            # one plain run a stage count: the same program and start
+            starts[stages] = {k: v.cpu() for k, v in scope.items()
+                              if isinstance(v, torch.Tensor)}
         twin = copied_scope(torch, fluid, scope)
         # the peaks leave out the copies: the twin and rank 0's start
         base = _peak_base(torch, cuda)
@@ -8411,8 +8598,13 @@ def _pp_gpt(torch, np, args, rank, n, place):
                       "peak_mem_gb": _peak_from(torch, cuda, base)})
         params = [q.name for q in main.all_parameters()]
         stacked = set(getattr(comp.program, "_pp_layouts", {}))
+        # tp shards and stage slices differ by rank; stage slices are
+        # equal across the tp ranks of a stage
         r["digest_replicated"] = _state_digest(torch, [
-            (q, scope.find_var(q)) for q in params if q not in stacked])
+            (q, scope.find_var(q)) for q in params
+            if q not in comp._tp_layouts])
+        r["digest_stage"] = _state_digest(torch, [
+            (q, scope.find_var(q)) for q in params if q in stacked])
         # the gathered save, each rank's stage slices read back from it
         out_dir = os.path.join(PP_DIR, f"save_{tag}")
         if stacked:
@@ -8439,7 +8631,8 @@ def _pp_gpt(torch, np, args, rank, n, place):
         pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                  for k, v in f.items()} for f in feeds]
         slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
-        for tag, (stages, start) in starts.items():
+        for stages, start in starts.items():
+            tag = f"stages{stages}"
             main, _, loss = pp_program(fluid, gpt, cfg, B, S, stages,
                                        8, run["lr"])
             scope = fluid.Scope()
@@ -8506,6 +8699,11 @@ def _pp_failures(name, ranks, args):
                     r0["runs"][tag]["digest_replicated"]:
                 bad.append(f"pp_gpt {tag}: rank {r['rank']}'s replicated "
                            f"parameters differ from rank 0's")
+            same = [q["runs"][tag]["digest_stage"] for q in ranks
+                    if q["runs"][tag]["coords"]["pp"] == run["coords"]["pp"]]
+            if any(dg != run["digest_stage"] for dg in same):
+                bad.append(f"pp_gpt {tag}: the ranks of stage "
+                           f"{run['coords']['pp']} hold different slices")
             if not args.get("cpu"):
                 per = run["launches_per_step_run_steps"]
                 want = run["launches_per_step_want"]
@@ -8513,7 +8711,8 @@ def _pp_failures(name, ranks, args):
                     bad.append(f"pp_gpt {tag}: rank {r['rank']} launched "
                                f"{per} a step, not {want}")
         mean = [sum(col) / len(col) for col in zip(*per_dp.values())]
-        plain = (r0.get("plain") or {}).get(tag)
+        plain = (r0.get("plain") or {}).get(
+            f"stages{r0['runs'][tag]['stages']}")
         if plain is not None:
             for i, (a, b) in enumerate(zip(mean, plain["losses"])):
                 if not math.isfinite(a) or abs(a - b) > PP_LOSS_RTOL * abs(b):
@@ -8552,7 +8751,8 @@ def pp_phase(torch, np, name, nproc, args=None, timeout=900):
         for tag, run in r0["runs"].items():
             slow = max(ranks, key=lambda r: r["runs"][tag]["ms_per_step"])
             row = {k: v for k, v in run.items()
-                   if k not in ("digest_replicated", "coords")}
+                   if k not in ("digest_replicated", "digest_stage",
+                                "coords")}
             row["ms_per_step_slowest"] = slow["runs"][tag]["ms_per_step"]
             row["tokens_per_s_total"] = r0["B"] * r0["S"] / \
                 row["ms_per_step_slowest"] * 1e3
@@ -8596,12 +8796,546 @@ def pp_kernel_shapes(torch, fa):
     shape (one microbatch: B1 H12 S2048 D64, float32, causal, the packed
     qkv views), each timed beside SDPA's forward or backward with the
     same causal mask; not counted."""
-    recs = [flash_phase(torch, fa, 1, 12, 2048, 64, "float32", True, False,
-                        seed=2301, packed=True)]
-    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-        recs.append(bwd_phase(torch, fa, name, 1, 12, 2048, 64, "float32",
-                              True, False, seed=2302, packed=True))
+    recs = []
+    # B1: pp 4 and pp 2 x dp 2's microbatch; B2: pp 2 x tp 2's
+    for B in (1, 2):
+        recs.append(flash_phase(torch, fa, B, 12, 2048, 64, "float32",
+                                True, False, seed=2301 + B, packed=True))
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            recs.append(bwd_phase(torch, fa, name, B, 12, 2048, 64,
+                                  "float32", True, False, seed=2303 + B,
+                                  packed=True))
     emit({"phase": "pp_kernel_shapes", **CARD, "rows": [
+        {k: r[k] for k in ("phase", "ms", "plain_ms", "library_ms",
+                           "bound_ms", "bound_by", "max_abs_err", "ok")}
+        for r in recs]})
+    return recs
+
+
+# ------------------------------------------------ expert parallelism
+
+MOE_DIR = os.path.join(ROOT, "build", "chip_smoke_moe")
+# moe_gpt: a Switch GPT-base at bench_gpt_long's shape (B8 S2048),
+# dropout 0, float32 (matmuls without TF32), Adam at a constant 1e-4:
+# decoder layers 1, 3, ..., 11 with their FFN a switch_moe of 8 experts
+# of width 3072 at capacity factor 1.25 over the [B*S, 768] hidden
+# states (N 16384, C 2560; Switch Transformers' placement), the loss the
+# LM loss + 0.01 x the mean of the aux losses; 2 eager steps, then a
+# run_steps slab of 3
+MOE_GPT = {"B": 8, "S": 2048, "eager": 2, "K": 3, "lr": 1e-4, "seed": 700,
+           "experts": 8, "d_hidden": 3072, "capacity_factor": 1.25,
+           "aux_w": 0.01}
+# the losses against rank 0's one-card run of the same program and
+# batches: routing is discontinuous, so a gate within rounding of a tie
+# (the chunked gate matmuls, the dp all-reduce's order) may send a token
+# to another expert or past the capacity
+MOE_LOSS_RTOL = 1e-3
+# moe_parity: a narrow Switch GPT (2 layers, the second a switch_moe of
+# 4 experts), float32, 3 Adam steps
+MOE_PARITY = {"cfg": {"vocab_size": 1024, "hidden_size": 256,
+                      "num_heads": 4, "ffn_size": 1024, "max_position": 128,
+                      "dropout": 0.0, "num_layers": 2},
+              "B": 8, "S": 128, "experts": 4, "d_hidden": 1024,
+              "capacity_factor": 1.25, "aux_w": 0.01, "steps": 3,
+              "lr": 1e-3}
+
+
+def moe_grids(n):
+    """The grids of the moe phases on ``n`` cards: (tag, mesh axes).
+    Four cards: ep 4 (2 experts a card) and ep 2 x dp 2 (4 experts a
+    card, 4 rows a dp rank); two: ep 2; one: ep 1 through the same
+    code."""
+    return {4: [("ep4", {"ep": 4}), ("ep2dp2", {"ep": 2, "dp": 2})],
+            2: [("ep2", {"ep": 2})]}.get(n, [("ep1", {})])
+
+
+def moe_program(fluid, gpt, cfg, rows, S, run, seed=13):
+    """A Switch GPT: ``gpt_pretrain``'s body with the FFN of every other
+    decoder layer (1, 3, ...) a ``switch_moe`` over the ``[rows * S,
+    hidden]`` states (the rest of ``gpt.decoder_layer``'s body as is),
+    the loss the LM loss + ``aux_w`` x the mean of the aux losses, Adam
+    at ``run["lr"]``. Takes either package's ``fluid`` and ``gpt``:
+    (main, startup, loss, the MoE layers' inputs)."""
+    L = fluid.layers
+    init = fluid.initializer
+    h, nh = cfg.hidden_size, cfg.num_heads
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+
+    def normal(name):
+        return fluid.ParamAttr(name=name, initializer=init.Normal(
+            0.0, cfg.initializer_range))
+
+    def ln(x, name):
+        return L.layer_norm(
+            x, begin_norm_axis=2,
+            param_attr=fluid.ParamAttr(name=f"{name}_scale",
+                                       initializer=init.Constant(1.0)),
+            bias_attr=fluid.ParamAttr(name=f"{name}_bias",
+                                      initializer=init.Constant(0.0)))
+
+    def fc(x, size, name, act=None):
+        return L.fc(x, size, num_flatten_dims=2, act=act,
+                    param_attr=normal(f"{name}.w_0"),
+                    bias_attr=fluid.ParamAttr(
+                        name=f"{name}.b_0", initializer=init.Constant(0.0)))
+
+    def moe_layer(x, i):
+        pre = f"decoder_layer_{i}"
+        a = ln(x, f"{pre}_pre_att_ln")
+        qkv = fc(a, 3 * h, f"{pre}_qkv")
+        heads = []
+        for j in range(3):
+            t = L.slice(qkv, axes=[2], starts=[j * h], ends=[(j + 1) * h])
+            heads.append(L.transpose(L.reshape(t, [0, 0, nh, h // nh]),
+                                     [0, 2, 1, 3]))
+        ctx = L.flash_attention(*heads, causal=True)
+        ctx = L.reshape(L.transpose(ctx, [0, 2, 1, 3]), [0, 0, h])
+        attn = L.dropout(fc(ctx, h, f"{pre}_att_out"), cfg.dropout,
+                         dropout_implementation="upscale_in_train")
+        x = L.elementwise_add(x, attn)
+        f = L.reshape(ln(x, f"{pre}_pre_ffn_ln"), [-1, h])
+        out, aux = L.switch_moe(f, num_experts=run["experts"],
+                                d_hidden=run["d_hidden"],
+                                capacity_factor=run["capacity_factor"])
+        ffn = L.dropout(L.reshape(out, [rows, S, h]), cfg.dropout,
+                        dropout_implementation="upscale_in_train")
+        return L.elementwise_add(x, ffn), aux, f
+
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        tokens = L.data("tokens", [rows, S], dtype="int32")
+        labels = L.data("labels", [rows, S], dtype="int32")
+        loss_mask = L.data("loss_mask", [rows, S], dtype="float32")
+        pos_ids = L.data("pos_ids", [rows, S], dtype="int32")
+        x = L.elementwise_add(
+            L.embedding(tokens, size=[cfg.vocab_size, h],
+                        param_attr=normal("word_embedding")),
+            L.embedding(pos_ids, size=[cfg.max_position, h],
+                        param_attr=normal("pos_embedding")))
+        x = L.dropout(x, cfg.dropout,
+                      dropout_implementation="upscale_in_train")
+        auxes, moe_in = [], []
+        for i in range(cfg.num_layers):
+            if i % 2:
+                x, aux, f = moe_layer(x, i)
+                auxes.append(aux)
+                moe_in.append(f)
+            else:
+                x = gpt.decoder_layer(cfg, x, i, False)
+        x = ln(x, "final_ln")
+        word_emb = main.global_block().var("word_embedding")
+        logits = L.matmul(L.reshape(x, [-1, h]), word_emb,
+                          transpose_y=True)
+        ce = L.softmax_with_cross_entropy(logits,
+                                          L.reshape(labels, [-1, 1]))
+        w = L.reshape(loss_mask, [-1, 1])
+        loss = L.elementwise_div(
+            L.reduce_sum(L.elementwise_mul(ce, w)),
+            L.elementwise_add(L.reduce_sum(w),
+                              L.fill_constant([1], "float32", 1e-9)))
+        if auxes:
+            loss = L.elementwise_add(loss, L.scale(
+                L.sums(auxes), run["aux_w"] / len(auxes)))
+        fluid.optimizer.Adam(run["lr"]).minimize(loss)
+    return main, startup, loss, moe_in
+
+
+def moe_launches_a_step(layers):
+    """K1, K3 and K4 launches a step of a Switch GPT of ``layers``
+    decoder layers at S 2048 (causal S 2048 takes K3 + K4): one each a
+    layer, MoE layers included (their attention is the dense layers')."""
+    return {"flash_attention_fwd": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers,
+            "flash_attention_bwd_single": 0, "paged_attention": 0}
+
+
+def moe_dropped(torch, gates_in, gate_ws, run, N):
+    """The share of tokens each MoE layer dropped, from its input rows
+    (the whole batch, in row order) and its gate weight at that step:
+    the top-1 expert's count over the capacity, over all N tokens."""
+    E = run["experts"]
+    C = max(int(run["capacity_factor"] * N / E), 1)
+    out = []
+    for x, gw in zip(gates_in, gate_ws):
+        x = torch.as_tensor(x, device=gw.device)
+        expert = torch.argmax(torch.softmax(x @ gw, dim=-1), dim=-1)
+        counts = torch.bincount(expert, minlength=E)
+        out.append(float((counts - C).clamp_min(0).sum()) / N)
+    return out
+
+
+def _moe_parity(torch, np, args, rank, n, place):
+    """The contract at small width, float32: the narrow Switch GPT
+    through ``with_data_parallel(mesh=...)`` on each grid of
+    :func:`moe_grids`, 3 Adam steps eagerly and by a run_steps slab from
+    copies of one startup scope; rank 0 also runs the plain program on
+    every row from that startup. Parameters are gathered over ep before
+    the comparison."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel.tp import gathered
+    p = args["run"]
+    B, S = p["B"], p["S"]
+    cfg = gpt.GPTConfig(**p["cfg"])
+    rec = {"cases": []}
+    exe = fluid.Executor(place)
+    feeds = [gpt.random_batch(cfg, B, S, rng=np.random.default_rng(710 + i))
+             for i in range(p["steps"])]
+    for tag, axes in moe_grids(n):
+        grid = _pp_world(axes)
+        d, dp = grid.coords()["dp"], grid.dp
+        mine = [_pp_rows(f, d, dp) for f in feeds]
+        main, startup, loss, _ = moe_program(fluid, gpt, cfg, B // dp, S, p)
+        comp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=grid)
+        s0 = fluid.Scope()
+        exe.run(startup, scope=s0)
+        sA, sB = (copied_scope(torch, fluid, s0) for _ in range(2))
+        eager = [exe.run(comp, feed=f, fetch_list=[loss], scope=sA)[0]
+                 for f in mine]
+        slab = exe.run_steps(comp, feed=mine, fetch_list=[loss],
+                             scope=sB)[0]
+        diff = scope_diff(torch, sA, sB)
+        params = [q.name for q in main.all_parameters()]
+        with gathered(sA):
+            whole = {q: sA.find_var(q).detach().clone() for q in params}
+        case = {"grid": tag, **grid.coords(),
+                "losses": [float(np.ravel(v)[0]) for v in eager],
+                "slab_bitwise": bool(np.array_equal(
+                    np.stack(eager).reshape(-1), np.ravel(slab)))
+                and not diff, "scope_diff": diff[:4],
+                "slices": len(getattr(comp.program, "_ep_layouts", {})),
+                "digest": _state_digest(torch, whole.items())}
+        if rank == 0:
+            pmain, _, ploss, _ = moe_program(fluid, gpt, cfg, B, S, p)
+            sp_ = copied_scope(torch, fluid, s0)
+            plain = [exe.run(pmain, feed=f, fetch_list=[ploss],
+                             scope=sp_)[0] for f in feeds]
+            top = max(float(sp_.find_var(q).abs().max()) for q in params)
+            errs = {q: float((whole[q].float() - sp_.find_var(q)
+                              .float()).abs().max()) for q in params}
+            case.update({
+                "plain_losses": [float(np.ravel(v)[0]) for v in plain],
+                "max_err_of_model_max": max(errs.values()) / top,
+                "worst": max(errs, key=errs.get)})
+            del sp_
+        rec["cases"].append(case)
+        del s0, sA, sB
+        _release(torch, exe)
+    return rec
+
+
+def _moe_gpt(torch, np, args, rank, n, place):
+    """The Switch GPT-base (``MOE_GPT``) on each grid of
+    :func:`moe_grids`: 2 eager steps and a run_steps slab of 3
+    (captured, the all-to-alls, the count all-gathers and the dp
+    all-reduce inside) against an all-eager twin from a copy of the same
+    start (bitwise), a timed slab, a profiled slab; the gathered
+    parameters saved and each rank's expert slices read back from the
+    files; the captured step freed before the next grid's. Rank 0 then
+    runs the program on its card alone (every row) for the same 5 steps
+    from the same startup and a timed slab, and reads each MoE layer's
+    dropped share at step 0 from its gate inputs (at N = 1 in the grid's
+    own run)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import kernels
+    from paddle_tpu_torch.models import gpt
+    from paddle_tpu_torch.parallel import mesh
+    run = args["run"]
+    B, S, K, E = run["B"], run["S"], run["K"], run["eager"]
+    cuda = not args.get("cpu")
+    cfg = gpt.GPTConfig(**args["cfg"]) if args.get("cfg") \
+        else gpt.GPTConfig.base()
+    cfg.dropout = 0.0
+    if args.get("layers"):
+        cfg.num_layers = args["layers"]
+    feeds = [gpt.random_batch(cfg, B, S,
+                              rng=np.random.default_rng(run["seed"] + i))
+             for i in range(E + K)]
+    exe = fluid.Executor(place)
+    dev = exe.device
+    rec = {"B": B, "S": S, "layers": cfg.num_layers, "runs": {},
+           "tf32": bool(torch.backends.cuda.matmul.allow_tf32)}
+    start = None
+
+    def dropped(main, moe_in, scope, feed, loss, program):
+        """Step 0 eagerly with the MoE inputs fetched: (loss, shares)."""
+        gws = [scope.find_var(op.input("GateW")[0]).detach().clone()
+               for op in main.global_block().ops if op.type == "switch_moe"]
+        got = exe.run(program, feed=feed, fetch_list=[loss] + moe_in,
+                      scope=scope)
+        return got[0], moe_dropped(torch, got[1:], gws, run, B * S)
+
+    for tag, axes in moe_grids(n):
+        grid = _pp_world(axes)
+        c = grid.coords()
+        d, dp = c["dp"], grid.dp
+        rows = B // dp
+        pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in _pp_rows(f, d, dp).items()} for f in feeds]
+        slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
+        main, startup, loss, moe_in = moe_program(fluid, gpt, cfg, rows, S,
+                                                  run)
+        comp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=grid)
+        scope = fluid.Scope()
+        exe.run(startup, scope=scope)
+        if rank == 0 and start is None:
+            start = {k: v.cpu() for k, v in scope.items()
+                     if isinstance(v, torch.Tensor)}
+        twin = copied_scope(torch, fluid, scope)
+        base = _peak_base(torch, cuda)
+        eager, wall, shares = [], [], None
+        for i, f in enumerate(pool[:E]):
+            if i == 0 and n == 1:
+                (lv, shares), ms = _timed_wall(torch, cuda, lambda f=f: (
+                    dropped(main, moe_in, scope, f, loss, comp)))
+            else:
+                lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                    comp, feed=f, fetch_list=[loss], scope=scope)[0])
+            eager.append(float(np.ravel(lv)[0]))
+            wall.append(ms)
+        peak_eager = _peak_from(torch, cuda, base)
+        (got,), cap_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            comp, feed=slab, fetch_list=[loss], scope=scope))
+        twin_losses, twin_ms = [], []
+        for f in pool:
+            lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                comp, feed=f, fetch_list=[loss], scope=twin)[0])
+            twin_losses.append(float(np.ravel(lv)[0]))
+            twin_ms.append(ms)
+        losses = eager + [float(v) for v in np.ravel(got)]
+        diff = scope_diff(torch, scope, twin)
+        bitwise = losses == twin_losses and not diff
+        del twin
+        before = {w.__name__: w.launches for w in kernels.COUNTED}
+        _, slab_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            comp, feed=slab, fetch_list=[loss], scope=scope))
+        per_step = {w.__name__: (w.launches - before[w.__name__]) / K
+                    for w in kernels.COUNTED}
+        r = {"grid": tag, "coords": c, "rows": rows, "losses": losses,
+             "slab_bitwise": bitwise, "scope_diff": diff[:4],
+             "eager_ms": wall, "eager_ms_twin": twin_ms,
+             "first_slab_ms_with_capture": cap_ms,
+             "ms_per_step": slab_ms / K,
+             "launches_per_step_run_steps": per_step,
+             "launches_per_step_want": moe_launches_a_step(cfg.num_layers),
+             "peak_eager_gb": peak_eager, "dropped_share_step0": shares}
+        if cuda:
+            prof = kernel_profile(torch, lambda: exe.run_steps(
+                comp, feed=slab, fetch_list=[loss], scope=scope))
+            r.update({"nccl_kernels_per_step": len(prof["nccl_us"]) / K,
+                      "nccl_ms_per_step": prof["nccl_busy_ms"] / K,
+                      "nccl_by_kind_per_step": {
+                          k: [v[0] / K, v[1] / K]
+                          for k, v in prof["nccl_by_kind"].items()},
+                      "compute_ms_per_step": prof["compute_busy_ms"] / K,
+                      "busy_ms_per_step": prof["busy_ms"] / K,
+                      "wall_ms_profiled_per_step": prof["wall_ms"] / K,
+                      "idle_share_replay":
+                          1 - prof["busy_ms"] / prof["wall_ms"],
+                      "peak_mem_gb": _peak_from(torch, cuda, base)})
+        params = [q.name for q in main.all_parameters()]
+        experts = set(getattr(comp.program, "_ep_layouts", {}))
+        r["digest_replicated"] = _state_digest(torch, [
+            (q, scope.find_var(q)) for q in params if q not in experts])
+        # the gathered save, each rank's expert slices read back from it
+        out_dir = os.path.join(MOE_DIR, f"save_{tag}")
+        if experts:
+            fluid.io.save_params(exe, out_dir, main_program=main,
+                                 scope=scope)
+        match = True
+        for q in sorted(experts & set(params)):
+            saved = np.load(os.path.join(out_dir,
+                                         fluid.io._escape(q) + ".npy"))
+            mine = scope.find_var(q).cpu().numpy()
+            k = mine.shape[0]
+            match = match and mine.shape[1:] == saved.shape[1:] and \
+                np.array_equal(saved[c["ep"] * k:(c["ep"] + 1) * k], mine)
+        r["slices_match_save"] = match
+        r["expert_slices"] = len(experts & set(params))
+        rec["runs"][tag] = r
+        mesh.barrier()
+        if rank == 0:
+            import shutil
+            shutil.rmtree(out_dir, ignore_errors=True)
+        del scope
+        _release(torch, exe)
+    if rank == 0 and n > 1:
+        pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in f.items()} for f in feeds]
+        slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
+        main, _, loss, moe_in = moe_program(fluid, gpt, cfg, B, S, run)
+        scope = fluid.Scope()
+        for k, v in start.items():
+            scope.set(k, v.to(dev))
+        base = _peak_base(torch, cuda)
+        plain, wall = [], []
+        for i, f in enumerate(pool[:E]):
+            if i == 0:
+                (lv, shares), ms = _timed_wall(torch, cuda, lambda f=f: (
+                    dropped(main, moe_in, scope, f, loss, main)))
+            else:
+                lv, ms = _timed_wall(torch, cuda, lambda f=f: exe.run(
+                    main, feed=f, fetch_list=[loss], scope=scope)[0])
+            plain.append(float(np.ravel(lv)[0]))
+            wall.append(ms)
+        peak_eager = _peak_from(torch, cuda, base)
+        (got,), cap_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            main, feed=slab, fetch_list=[loss], scope=scope))
+        _, slab_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+            main, feed=slab, fetch_list=[loss], scope=scope))
+        rec["plain"] = {
+            "losses": plain + [float(v) for v in np.ravel(got)],
+            "eager_ms": wall, "first_slab_ms_with_capture": cap_ms,
+            "ms_per_step": slab_ms / K,
+            "tokens_per_s": B * S / (slab_ms / K) * 1e3,
+            "peak_eager_gb": peak_eager,
+            "peak_mem_gb": _peak_from(torch, cuda, base),
+            "dropped_share_step0": shares}
+        del scope
+        _release(torch, exe)
+    return rec
+
+
+def _moe_failures(name, ranks, args):
+    bad = []
+    if name == "moe_parity":
+        for i, case in enumerate(ranks[0]["cases"]):
+            tag = case["grid"]
+            for r in ranks:
+                if not r["cases"][i]["slab_bitwise"]:
+                    bad.append(f"moe_parity {tag}: rank {r['rank']}'s "
+                               f"run_steps is not its eager steps")
+                if r["cases"][i]["digest"] != case["digest"]:
+                    bad.append(f"moe_parity {tag}: rank {r['rank']}'s "
+                               f"gathered parameters differ from rank 0's")
+            if case["max_err_of_model_max"] > 1e-4:
+                bad.append(f"moe_parity {tag}: parameters off the plain "
+                           f"run by {case['max_err_of_model_max']:.3g} of "
+                           f"max |ref| ({case['worst']})")
+        return bad
+    r0 = ranks[0]
+    for tag in r0["runs"]:
+        per_dp = {}
+        for r in ranks:
+            run = r["runs"][tag]
+            per_dp.setdefault(run["coords"]["dp"], run["losses"])
+            if run["losses"] != per_dp[run["coords"]["dp"]]:
+                bad.append(f"moe_gpt {tag}: rank {r['rank']}'s losses "
+                           f"differ from its dp coordinate's other ranks'")
+            if not run["slab_bitwise"]:
+                bad.append(f"moe_gpt {tag}: rank {r['rank']}'s run_steps "
+                           f"is not its eager twin's steps "
+                           f"{run['scope_diff']}")
+            if not run["slices_match_save"]:
+                bad.append(f"moe_gpt {tag}: rank {r['rank']}'s expert "
+                           f"slices differ from the gathered save")
+            if run["digest_replicated"] != \
+                    r0["runs"][tag]["digest_replicated"]:
+                bad.append(f"moe_gpt {tag}: rank {r['rank']}'s replicated "
+                           f"parameters differ from rank 0's")
+            if not args.get("cpu"):
+                per = run["launches_per_step_run_steps"]
+                want = run["launches_per_step_want"]
+                if {k: per.get(k, 0) for k in want} != want:
+                    bad.append(f"moe_gpt {tag}: rank {r['rank']} launched "
+                               f"{per} a step, not {want}")
+        mean = [sum(col) / len(col) for col in zip(*per_dp.values())]
+        plain = r0.get("plain")
+        if plain is not None:
+            for i, (a, b) in enumerate(zip(mean, plain["losses"])):
+                if not math.isfinite(a) or \
+                        abs(a - b) > MOE_LOSS_RTOL * abs(b):
+                    bad.append(f"moe_gpt {tag}: step {i}'s loss {a} is off "
+                               f"the one-card run's {b} (rtol "
+                               f"{MOE_LOSS_RTOL})")
+        elif not all(math.isfinite(a) for a in mean):
+            bad.append(f"moe_gpt {tag}: a loss is not finite: {mean}")
+    return bad
+
+
+def moe_phase(torch, np, name, nproc, args=None, timeout=900):
+    """One expert-parallel phase at ``nproc`` ranks (one a card), checked
+    and printed with the card, its power limit and N. Returns the
+    record."""
+    args = dict(args or {})
+    if nproc == 1 and name == "moe_gpt" and not args.get("cpu"):
+        # one card splits no experts: 2 layers (one dense, one MoE)
+        args.setdefault("layers", 2)
+    args.setdefault("run", {"moe_parity": MOE_PARITY,
+                            "moe_gpt": MOE_GPT}[name])
+    ranks, launch = dp_launch(torch, name, nproc, args, timeout)
+    rec = {"phase": name, **CARD, "N": nproc, "launch": launch}
+    bad = _moe_failures(name, ranks, args)
+    r0 = ranks[0]
+    if name == "moe_parity":
+        rec["cases"] = [{k: c.get(k) for k in (
+            "grid", "losses", "plain_losses", "slices",
+            "max_err_of_model_max", "worst")} for c in r0["cases"]]
+        rec["slab_bitwise"] = all(c["slab_bitwise"] for r in ranks
+                                  for c in r["cases"])
+    else:
+        rec.update({k: r0[k] for k in ("B", "S", "layers", "tf32")})
+        rec["plain"] = r0.get("plain")
+        rec["runs"] = {}
+        for tag, run in r0["runs"].items():
+            slow = max(ranks, key=lambda r: r["runs"][tag]["ms_per_step"])
+            row = {k: v for k, v in run.items()
+                   if k not in ("digest_replicated", "coords")}
+            row["ms_per_step_slowest"] = slow["runs"][tag]["ms_per_step"]
+            row["tokens_per_s_total"] = r0["B"] * r0["S"] / \
+                row["ms_per_step_slowest"] * 1e3
+            for k in ("peak_mem_gb", "peak_eager_gb"):
+                row[f"{k}_a_card"] = max(r["runs"][tag].get(k) or 0.0
+                                         for r in ranks)
+            for k in ("busy_ms_per_step", "nccl_ms_per_step",
+                      "nccl_kernels_per_step", "idle_share_replay",
+                      "ms_per_step", "launches_per_step_run_steps"):
+                row[f"{k}_by_rank"] = [r["runs"][tag].get(k)
+                                       for r in ranks]
+            rec["runs"][tag] = row
+    if nproc == 1:
+        rec["note"] = ("one card: ep = 1 through the same code; no expert "
+                       "parallelism was measured")
+        print(f"{name}: {rec['note']}", flush=True)
+    rec["ranks"] = ranks
+    emit({k: v for k, v in rec.items() if k != "ranks"})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def moe_phases(torch, np, counters, name, n=None, args=None):
+    """Expert-parallel phase ``name`` at N = n (default: every card);
+    adds the ranks' kernel launches to ``counters``."""
+    n = n or torch.cuda.device_count()
+    rec = moe_phase(torch, np, name, n, args)
+    for r in rec["ranks"]:
+        for w, c in r["launches"].items():
+            cw = counters.get(w)
+            if cw is not None:
+                cw.launches += c
+                if hasattr(cw, "bf16_launches"):
+                    cw.bf16_launches += r["bf16_launches"].get(w, 0)
+    return rec
+
+
+def moe_kernel_shapes(torch, fa):
+    """K1, K3 and K4 against their plain versions at moe_gpt's attention
+    shapes (B8 at ep 4, B4 at ep 2 x dp 2's rows; H12 S2048 D64, float32,
+    causal, the packed qkv views), each timed beside SDPA's forward or
+    backward with the same causal mask; not counted."""
+    recs = []
+    for B in (4, 8):
+        recs.append(flash_phase(torch, fa, B, 12, 2048, 64, "float32",
+                                True, False, seed=2401 + B, packed=True))
+        for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            recs.append(bwd_phase(torch, fa, name, B, 12, 2048, 64,
+                                  "float32", True, False, seed=2411 + B,
+                                  packed=True))
+        torch.cuda.empty_cache()
+    emit({"phase": "moe_kernel_shapes", **CARD, "rows": [
         {k: r[k] for k in ("phase", "ms", "plain_ms", "library_ms",
                            "bound_ms", "bound_by", "max_abs_err", "ok")}
         for r in recs]})
@@ -10310,6 +11044,8 @@ def main():
                     "the port's, in the order parent, new, new, parent")
     ap.add_argument("--dp-worker", metavar="ARGS", help="run as one rank "
                     "of a data-parallel phase (the launcher starts these)")
+    ap.add_argument("--dp-serve", metavar="DIR", help="run as the resident "
+                    "one-card worker, serving the phase requests put in DIR")
     ap.add_argument("--only-tp", action="store_true", help="build, check "
                     "K1, K2 and K5 at the tp paths' head counts, run the "
                     "tensor-parallel paths at N = every card and stop (no "
@@ -10322,6 +11058,10 @@ def main():
                     "K1, K3 and K4 at the pipeline stage's shape, run the "
                     "pipeline-parallel paths at N = every card and stop (no "
                     "kernels line, no ok line)")
+    ap.add_argument("--only-moe", action="store_true", help="build, check "
+                    "K1, K3 and K4 at the Switch GPT's attention shapes, run "
+                    "the expert-parallel paths at N = every card and stop "
+                    "(no kernels line, no ok line)")
     ap.add_argument("--only-dp", action="store_true", help="build, run the "
                     "data-parallel paths at N = every card (no N = 1 runs "
                     "for the scaling line) and stop: a measurement of them "
@@ -10329,6 +11069,8 @@ def main():
     args = ap.parse_args()
     if args.dp_worker:
         return dp_worker(args.dp_worker)
+    if args.dp_serve:
+        return dp_serve(args.dp_serve)
     if not os.path.isdir(os.path.join(ROOT, "paddle_tpu_torch")):
         print("chip_smoke.py must run from a checkout of the repository "
               "(paddle_tpu_torch/ not found beside it)", file=sys.stderr)
@@ -10533,16 +11275,41 @@ def main():
                 failures.append(f"the {name} path launched {got}: only "
                                 f"{needs} may launch")
 
-    if args.only_dp or args.only_tp or args.only_sp or args.only_pp:
-        which = "dp" if args.only_dp else "tp" if args.only_tp else \
-            "sp" if args.only_sp else "pp"
-        {"dp": drive_dp, "tp": drive_tp, "sp": drive_sp,
-         "pp": drive_pp}[which]()
+    def drive_moe():
+        """Expert parallelism across cards, one rank a card through the
+        port's launcher at N = every card (ep 4 and ep 2 x dp 2 on four
+        cards, ep 2 on two, ep 1 through the same code on one): K1, K3
+        and K4 against their plain versions at the Switch GPT's attention
+        shapes first (not counted), then moe_parity (the narrow Switch
+        GPT: K1 and K2, float32) and moe_gpt (the Switch GPT-base at B8
+        S2048: K1, K3 and K4 12 a step on every rank, rank 0's one-card
+        run included). The ranks' launches join the counts."""
+        moe_kernel_shapes(torch, fa)
+        for name, needs in (("moe_parity", DP_BERT_KERNELS),
+                            ("moe_gpt", ("flash_attention_fwd",
+                                         "flash_attention_bwd_dq",
+                                         "flash_attention_bwd_dkv"))):
+            _, got, _ = drive(name, needs, lambda name=name: moe_phases(
+                torch, np, counters, name))
+            others = {k: c for k, c in got.items() if c and k not in needs}
+            if others:
+                failures.append(f"the {name} path launched {got}: only "
+                                f"{needs} may launch")
+
+    # on one card each family's phases share one worker process
+    one_card = torch.cuda.device_count() == 1
+    only = [w for w in ("dp", "tp", "sp", "pp", "moe")
+            if getattr(args, f"only_{w}")]
+    if only:
+        which = only[0]
+        with resident(torch, one_card):
+            {"dp": drive_dp, "tp": drive_tp, "sp": drive_sp,
+             "pp": drive_pp, "moe": drive_moe}[which]()
         if failures:
             print(f"failed: {failures}", file=sys.stderr)
             return 1
         kind = {"dp": "data", "tp": "tensor", "sp": "sequence",
-                "pp": "pipeline"}[which]
+                "pp": "pipeline", "moe": "expert"}[which]
         print(f"--only-{which}: the {kind}-parallel paths passed; no other "
               f"phase ran", flush=True)
         return 0
@@ -10643,10 +11410,9 @@ def main():
                        causal=False, with_bias="padded")
         torch.cuda.empty_cache()
 
-    drive_dp()
-    drive_tp()
-    drive_sp()
-    drive_pp()
+    for family in (drive_dp, drive_tp, drive_sp, drive_pp, drive_moe):
+        with resident(torch, one_card):
+            family()
 
     # the dygraph paths (they need two eager B256 Transformer steps of
     # memory, ~15 GB each): bench_dygraph_transformer by jit_step (one

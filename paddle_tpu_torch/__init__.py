@@ -110,8 +110,8 @@ from .dygraph.base import (VarBase, disable_dygraph, enable_dygraph,
                            in_dygraph_mode)
 from .framework import backward, passes
 from .framework.core import (Block, CUDAPinnedPlace, EnforceNotMet, OpRole,
-                             Operator, Parameter, Variable, grad_var_name,
-                             name_scope, require_version,
+                             Operator, Parameter, Variable, device_guard,
+                             grad_var_name, name_scope, require_version,
                              switch_main_program, switch_startup_program)
 from .framework.dtype import convert_dtype
 from .layers import learning_rate_scheduler as learning_rate_decay
@@ -175,7 +175,7 @@ __all__ = ['Block', 'BuildStrategy', 'CPUPlace', 'CUDAPinnedPlace',
            'data', 'dataio', 'dataset', 'default_main_program',
            'default_startup_program', 'device_count', 'disable_dygraph',
            'dygraph', 'embedding', 'enable_dygraph', 'flags', 'framework',
-           'get_flags', 'global_scope', 'grad_var_name', 'gradients',
+           'device_guard', 'get_flags', 'global_scope', 'grad_var_name', 'gradients',
            'in_dygraph_mode', 'incubate', 'inference', 'init_params',
            'initializer', 'io', 'is_compiled_with_cuda', 'kernels', 'layers',
            'learning_rate_decay', 'load', 'load_checkpoint',

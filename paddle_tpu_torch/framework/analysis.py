@@ -45,6 +45,8 @@ SIDE_EFFECT_OPS = frozenset({
     "ulysses_attention",
     # the GPipe schedule's shifts and broadcasts over pp
     "pipeline",
+    # the token counts, dispatch and combine over dp x ep
+    "switch_moe",
 })
 
 # the attrs that name a control-flow op's sub-blocks

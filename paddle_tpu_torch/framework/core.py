@@ -144,6 +144,8 @@ class Operator:
                     f"op {type!r} attr {k!r} contains a Variable; op "
                     f"attributes are build-time constants")
         self.attrs.setdefault(OP_ROLE_KEY, _op_role_stack[-1])
+        if _device_guard_stack[-1] is not None:
+            self.attrs.setdefault("op_device", _device_guard_stack[-1])
 
     def input(self, slot):
         return self.inputs.get(slot, [])
@@ -543,6 +545,22 @@ def name_scope(prefix=None):
         yield
     finally:
         un.generator = old
+
+
+_device_guard_stack = [None]
+
+
+@contextlib.contextmanager
+def device_guard(device=None):
+    """Label the ops made inside with a target device (reference
+    framework.py:5395): the ``op_device`` attr, recorded in the IR and
+    read by nothing that runs (each rank runs its program on its own
+    card; a pipeline's stages are ``layers.Pipeline``'s)."""
+    _device_guard_stack.append(device)
+    try:
+        yield
+    finally:
+        _device_guard_stack.pop()
 
 
 def require_version(min_version, max_version=None):

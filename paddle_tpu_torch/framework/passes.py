@@ -26,9 +26,11 @@ after its last producer) make a program data-parallel; the port's
 rank's shard, Megatron's collectives around the split matmuls) makes it
 tensor-parallel and ``sp_shard`` (``parallel.sp``: the activations'
 sequence dim split per rank from the first ``sp`` constraint) makes it
-sequence-parallel and ``pp_shard`` (``parallel.pp``: a pipeline's
-stacked stage state cut to the rank's stage slice) pipeline-parallel,
-where GSPMD does these for the JAX package;
+sequence-parallel, ``pp_shard`` (``parallel.pp``: a pipeline's
+stacked stage state cut to the rank's stage slice) pipeline-parallel
+and ``ep_shard`` (``parallel.ep``: the stacked experts cut to the
+rank's slice) expert-parallel, where GSPMD does these for the JAX
+package;
 ``CompiledProgram.with_data_parallel`` applies them to a clone. Every
 pass treats collectives as side effects (``analysis.is_side_effect_type``):
 never dropped, merged or moved past one another, since every rank must
@@ -387,10 +389,14 @@ class DataParallelGradAllreducePass(Pass):
     in backward order. A grad that may hold ``SelectedRows`` (an
     ``is_sparse`` embedding) raises ``NotImplementedError``. attrs:
     nranks, axis_name (the ring's axis: ``dp``, the default, or
-    ``dp_sp`` for a sequence-parallel program)."""
+    ``dp_sp`` for a sequence-parallel program), ``stage_ring``
+    (``(axis_name, nranks)`` for the grads of the pipeline stage slices
+    that pass ``pp_shard`` cut, ``program._pp_layouts``: over ``dp``
+    alone beside ``sp``), each ring bucketed apart."""
 
     nranks = 1
     axis_name = None
+    stage_ring = None
 
     def apply(self, program):
         block = program.global_block()
@@ -406,19 +412,22 @@ class DataParallelGradAllreducePass(Pass):
         if sparse:
             raise NotImplementedError(f"paddle_tpu_torch: {SPARSE_DP_ITEM}: "
                                       f"the grads {sparse}")
-        scale = 1.0 / float(self.nranks)
-        new_ops, buckets = [], {}     # dtype -> [names, bytes]
+        ring = {n + "@GRAD": tuple(self.stage_ring)
+                for n in getattr(program, "_pp_layouts", {})} \
+            if self.stage_ring else {}
+        default = (self.axis_name, self.nranks)
+        new_ops, buckets = [], {}     # (dtype, ring) -> [names, bytes]
         report = {"allreduce_ops": 0, "grads": 0}
 
-        def flush(dtype):
-            names, _ = buckets.pop(dtype)
+        def flush(key):
+            names, _ = buckets.pop(key)
+            axis, nranks = key[1]
             report["grads"] += len(names)
             new_ops.append(_Operator(
                 block, "c_coalesced_allreduce_sum", inputs={"X": names},
                 outputs={"Out": names},
-                attrs={"ring_id": 0, "scale": scale,
-                       **({"axis_name": self.axis_name}
-                          if self.axis_name else {}),
+                attrs={"ring_id": 0, "scale": 1.0 / float(nranks),
+                       **({"axis_name": axis} if axis else {}),
                        OP_ROLE_KEY: _OpRole.Backward}))
             report["allreduce_ops"] += 1
 
@@ -427,25 +436,25 @@ class DataParallelGradAllreducePass(Pass):
             if _has_sub_block(op):
                 from .analysis import op_reads, op_writes
                 touched |= op_reads(program, op) | op_writes(program, op)
-            for dt in [dt for dt, (names, _) in buckets.items()
-                       if touched.intersection(names)]:
-                flush(dt)
+            for key in [key for key, (names, _) in buckets.items()
+                        if touched.intersection(names)]:
+                flush(key)
             new_ops.append(op)
             for n in dict.fromkeys(op.output_arg_names):
                 if last.get(n) != i:
                     continue
                 var = block.var(n)
-                dt = str(var.dtype)
+                key = (str(var.dtype), tuple(ring.get(n, default)))
                 shape = var.shape or ()
                 nbytes = int(np.prod([max(int(d), 1) for d in shape],
                                      dtype=np.int64)) * _itemsize(var.dtype)
-                b = buckets.setdefault(dt, [[], 0])
+                b = buckets.setdefault(key, [[], 0])
                 b[0].append(n)
                 b[1] += nbytes
                 if b[1] >= DP_BUCKET_BYTES:
-                    flush(dt)
-        for dt in list(buckets):
-            flush(dt)
+                    flush(key)
+        for key in list(buckets):
+            flush(key)
         block.ops = new_ops
         self._report = report
 
@@ -501,6 +510,22 @@ class PipelineParallelShardPass(Pass):
         from ..parallel.pp import pp_rewrite
         program._pp_layouts = pp_rewrite(program, self.mesh)
         self._report = dict(getattr(program, "_pp_report", {}))
+
+
+@register_pass("ep_shard")
+class ExpertParallelShardPass(Pass):
+    """The per-rank cut of a program's expert state over the ``ep`` axis
+    of ``mesh`` (``parallel.ep.ep_rewrite``): each stacked expert
+    parameter, its accumulators and its grad take the rank's ``[E / ep,
+    ...]`` slice. Nothing changes at ep 1. The slices' layouts are left
+    on ``program._ep_layouts``. attrs: mesh."""
+
+    mesh = None
+
+    def apply(self, program):
+        from ..parallel.ep import ep_rewrite
+        program._ep_layouts = ep_rewrite(program, self.mesh)
+        self._report = dict(getattr(program, "_ep_report", {}))
 
 
 def _freeze(v):

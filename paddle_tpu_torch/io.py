@@ -45,8 +45,10 @@ returns the number rank 0 committed, its ``save_async`` None). A save
 that fails on rank 0 raises on every rank. Every rank loads. Under
 tensor parallelism the scope holds each rank's shards, under pipeline
 parallelism each pp rank's stage slices ``[1, ...]`` of the stacked
-stage state: a save first gathers them to whole tensors (``[S, ...]``
-for a stage slice) on every rank (``parallel.tp.gathered``), so the
+stage state, under expert parallelism each ep rank's ``[E / ep, ...]``
+slices of the experts: a save first gathers them to whole tensors
+(``[S, ...]`` for a stage slice, ``[E, ...]`` for an expert slice) on
+every rank (``parallel.tp.gathered``), so the
 files are the single-card format, which loads on one card and in the
 JAX package; a load puts whole values in the scope, and the next run of
 the program cuts each rank's shard or slice out of them.

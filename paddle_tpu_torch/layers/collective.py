@@ -2,10 +2,10 @@
 reference python/paddle/fluid/layers/collective.py — _allreduce :16,
 _allgather, _broadcast; used by the collective transpiler and dygraph
 DataParallel). ``shard`` pins a tensor to a mesh sharding: a
-``sharding_constraint`` op over ``dp``, ``sp``, ``tp`` and ``pp`` (a
-value identity, except that pass ``sp_shard`` starts the sequence split
-at the first one that names ``sp``); another axis (``ep``, ``dcn_dp``)
-raises (ROADMAP.md Queue 1 item 7b)."""
+``sharding_constraint`` op over ``dp``, ``sp``, ``tp``, ``pp`` and
+``ep`` (a value identity, except that pass ``sp_shard`` starts the
+sequence split at the first one that names ``sp``); ``dcn_dp`` raises
+(ROADMAP.md Queue 1 item 7b)."""
 from ..parallel.mesh import not_ported_7b
 from .layer_helper import LayerHelper
 
@@ -34,12 +34,15 @@ def shard(x, *spec):
     the JAX package does: a ``sharding_constraint`` op, the value itself
     (every rank holds its whole rows) until pass ``sp_shard`` makes the
     first one that names ``sp`` take the rank's chunk of that dim
-    (``parallel.sp``). A ``pp`` entry is a hint and nothing more, as in
-    the JAX package (a pipeline's stages are ``layers.Pipeline``'s). Axes
-    other than ``dp``, ``sp``, ``tp`` and ``pp`` raise: item 7b."""
+    (``parallel.sp``). A ``pp`` or an ``ep`` entry is a hint and nothing
+    more, as in the JAX package (a pipeline's stages are
+    ``layers.Pipeline``'s, the experts' split is ``switch_moe``'s).
+    Axes other than ``dp``, ``sp``, ``tp``, ``pp`` and ``ep`` raise:
+    item 7b."""
     for a in spec:
         for name in (a if isinstance(a, (tuple, list)) else (a,)):
-            if name is not None and name not in ("dp", "sp", "tp", "pp"):
+            if name is not None and name not in ("dp", "sp", "tp", "pp",
+                                                 "ep"):
                 raise not_ported_7b(f"layers.collective.shard over the "
                                     f"{name!r} axis")
     helper = LayerHelper("sharding_constraint")

@@ -432,6 +432,49 @@ def squeeze(input, axes=None, name=None):
     return out
 
 
+def switch_moe(input, num_experts, d_hidden, capacity_factor=1.25,
+               param_attr=None, name=None):
+    """Switch-style Mixture-of-Experts FFN block (``ops/moe_ops.py``).
+    Expert weights are stacked ``[E, ...]`` and annotated ``("ep",)``
+    (pass ``ep_shard`` cuts each ``ep`` rank's ``[E / ep, ...]``
+    slice); returns (out, aux_loss), aux_loss the load-balance term to
+    add to the training loss."""
+    helper = LayerHelper("switch_moe", param_attr=param_attr, name=name)
+    d = int(input.shape[-1])
+    E, H = int(num_experts), int(d_hidden)
+    gate_w = helper.create_parameter(helper.param_attr, shape=[d, E],
+                                     dtype=input.dtype)
+    std1 = (2.0 / (d + H)) ** 0.5
+    w1 = helper.create_parameter(
+        helper.param_attr, shape=[E, d, H], dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(0.0, std1),
+        dist_attr=("ep",))
+    b1 = helper.create_parameter(helper.param_attr, shape=[E, H],
+                                 dtype=input.dtype, is_bias=True,
+                                 dist_attr=("ep",))
+    w2 = helper.create_parameter(
+        helper.param_attr, shape=[E, H, d], dtype=input.dtype,
+        default_initializer=init_mod.NormalInitializer(0.0, std1),
+        dist_attr=("ep",))
+    b2 = helper.create_parameter(helper.param_attr, shape=[E, d],
+                                 dtype=input.dtype, is_bias=True,
+                                 dist_attr=("ep",))
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    aux = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(
+        type="switch_moe",
+        inputs={"X": [input], "GateW": [gate_w], "W1": [w1], "B1": [b1],
+                "W2": [w2], "B2": [b2]},
+        outputs={"Out": [out], "AuxLoss": [aux]},
+        attrs={"capacity_factor": float(capacity_factor)},
+        infer_shape=False)
+    out.shape = tuple(input.shape or ())
+    out.dtype = input.dtype
+    aux.shape = ()
+    aux.dtype = input.dtype
+    return out, aux
+
+
 def lstm_unit(x_t, hidden_t_prev, cell_t_prev, forget_bias=0.0,
               param_attr=None, bias_attr=None, name=None):
     """One LSTM step for use inside StaticRNN: the x/h projections and

@@ -5,17 +5,19 @@ operators/collective/c_allreduce_op.h:58, c_allgather_op.cc,
 c_reducescatter_op.cc, c_broadcast_op.cc). The JAX ops lower to XLA
 collectives over a mesh axis inside a mapped region and are identities
 outside one. Here a ring is an axis of the world's layout
-(``parallel.mesh.world_mesh``): ``dp``, ``sp``, ``tp``, ``pp`` or the
-joint ``dp_sp`` (the grads of a sequence-parallel program). In a launched world
+(``parallel.mesh.world_mesh``): ``dp``, ``sp``, ``tp``, ``pp``, ``ep``,
+the joint ``dp_sp`` (the grads of a sequence-parallel program) or the
+joint ``dp_ep`` (the tokens of ``switch_moe``'s global batch). In a launched world
 each op calls ``torch.distributed`` over the rank's process group on
 that axis (NCCL on the card, inside a captured CUDA graph too; gloo on
 the CPU), as the reference's NCCL ops do; on an axis of one rank, and in
 a world of 1 without a process group, each op is the identity. Ring 0
 is the dp axis; a ring above 0 must be bound by ``c_comm_init`` (an
 ``axis_name`` attr) or :func:`register_ring` (``register_ring(1,
-"tp")``). The other axes (``ep``, ``dcn_dp``) raise (ROADMAP.md
-Queue 1 item 7b), as do ``hier_allreduce`` and ``alltoall`` (parts 4
-and 5 of it). ``sharding_constraint`` is a value identity: a layout
+"ep")``). The ``dcn_dp`` axis raises (ROADMAP.md Queue 1 item 7b), as
+does ``hier_allreduce`` (part 5 of it). ``alltoall`` is the tiled
+all-to-all of dim 0 over the ring's axis (its grad the same
+all-to-all). ``sharding_constraint`` is a value identity: a layout
 hint under GSPMD; where it names ``sp``, pass ``sp_shard``
 (``parallel.sp``) starts the split of the sequence there.
 
@@ -397,8 +399,31 @@ def _not_ported(name):
     return _impl
 
 
-for _name in ("hier_allreduce", "alltoall"):
-    _not_ported(_name)
+_not_ported("hier_allreduce")
+
+
+@register_op("alltoall")
+def alltoall(ctx, ins, attrs):
+    """``X``'s dim 0 cut into N blocks, block ``j`` sent to index ``j``
+    of the op's ring axis and the blocks received stacked in index order
+    (JAX's ``lax.all_to_all(..., split_axis=0, concat_axis=0)``): the
+    input's shape. The identity outside a world."""
+    x = x_of(ins)
+    axis = _in_world(ctx, attrs)
+    if not axis:
+        return {"Out": x}
+    return {"Out": all_to_all(x, 0, 0, axis)}
+
+
+@register_grad_lower("alltoall")
+def alltoall_grad(ctx, ins, attrs):
+    """The same all-to-all: block ``j`` of the grad goes back to the
+    index it came from."""
+    g = x_of(ins, "Out@GRAD")
+    axis = _in_world(ctx, attrs["__fwd_op__"]["attrs"])
+    if not axis:
+        return {"X@GRAD": [g]}
+    return {"X@GRAD": [all_to_all(g, 0, 0, axis)]}
 
 
 @register_op("sharding_constraint")

@@ -161,7 +161,10 @@ class _Pipe:
                 y = zeros              # a bubble: no compute, still sent
             if t < M + S - 2:
                 state = ring_shift(y, PP)
-        out = torch.stack(outs) if p == S - 1 else torch.empty_like(self.xs)
+        # a dense buffer: the microbatches of a gathered X (sp) are a
+        # strided view, and a broadcast writes the root's bytes in order
+        out = torch.stack(outs) if p == S - 1 else torch.empty_like(
+            self.xs, memory_format=torch.contiguous_format)
         broadcast_(out, S - 1, PP)
         return out.reshape(self.x.shape), kept
 
@@ -242,7 +245,8 @@ class _Pipe:
             dx = None
             if any(req.get("X") or ()):
                 dx = torch.stack(dxs) if p == 0 \
-                    else torch.empty_like(self.xs)
+                    else torch.empty_like(
+                        self.xs, memory_format=torch.contiguous_format)
                 broadcast_(dx, 0, PP)
             for g in acc_r:
                 if g is not None:

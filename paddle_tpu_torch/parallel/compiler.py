@@ -1,5 +1,5 @@
-"""CompiledProgram: a program made data-, tensor-, sequence- and
-pipeline-parallel over the process world.
+"""CompiledProgram: a program made data-, tensor-, sequence-, pipeline-
+and expert-parallel over the process world.
 
 Counterpart of ``paddle_tpu/parallel/compiler.py`` (reference
 python/paddle/fluid/compiler.py:158 and the C++ ParallelExecutor,
@@ -41,7 +41,20 @@ runs the rank's stage of the GPipe schedule. Every op outside the
 pipeline runs on every pp rank alike, so the grads are summed over the
 rank's dp group only and scaled by 1/dp (the stage slices differ from
 pp rank to pp rank; the replicated grads are already equal on them).
-``pp`` with ``tp`` or ``sp`` raises ``NotImplementedError``.
+Beside ``tp`` or ``sp`` (``MeshConfig(pp=2, tp=2)``) every tp and sp
+rank of a pp coordinate runs its stage whole, so the stage slices'
+grads are equal across tp and sp and are averaged over dp only, while
+the grads outside the pipeline follow the tp and sp rules above.
+
+Over a mesh with an ``ep`` axis (``MeshConfig(ep=4)`` or ``ep=2,
+dp=2``) pass ``ep_shard`` gives each rank its ``[E / ep, ...]`` slice of
+every ``switch_moe``'s experts and their accumulators
+(``parallel.ep``), cut and gathered by the executor as tp shards are;
+the ``switch_moe`` op routes the global batch's tokens to them
+(``ops.moe_ops``). The ep ranks of one dp coordinate are fed the same
+rows, so the grads are summed over the rank's dp group only and scaled
+by 1/dp. ``ep`` with ``tp``, ``sp`` or ``pp`` raises
+``NotImplementedError``.
 
 The executor runs such a program on each rank (``Executor.run``,
 ``run_steps`` as a captured CUDA graph with the all-reduces inside,
@@ -58,7 +71,7 @@ import weakref
 
 from .mesh import (GRAD_AXIS, activate, axis_size, check_device,
                    default_mesh, get_mesh, init_parallel_env)
-from .pp import check_mesh as check_pp_mesh
+from .ep import check_mesh as check_ep_mesh
 
 
 class BuildStrategy:
@@ -149,7 +162,7 @@ class CompiledProgram:
             raise ValueError(f"{self.mesh} over a world of {n} ranks")
         dp, tp = axis_size(self.mesh, "dp"), axis_size(self.mesh, "tp")
         sp, pp = axis_size(self.mesh, "sp"), axis_size(self.mesh, "pp")
-        check_pp_mesh(self.mesh)
+        check_ep_mesh(self.mesh)
         bs = self.build_strategy
         if bs.gradient_scale_strategy != \
                 BuildStrategy.GradientScaleStrategy.CoeffNumDevice:
@@ -172,15 +185,20 @@ class CompiledProgram:
             passes.append(get_pass("sp_shard", mesh=self.mesh))
         if pp > 1:
             passes.append(get_pass("pp_shard", mesh=self.mesh))
+        if axis_size(self.mesh, "ep") > 1:
+            passes.append(get_pass("ep_shard", mesh=self.mesh))
         if any(op.type == "batch_norm"
                for blk in prog.blocks for op in blk.ops):
             passes.append("sync_batch_norm")
+        # a stage slice's grad is equal on the sp ranks: over dp alone
         passes.append(get_pass(
             "dp_grad_allreduce", nranks=dp * sp,
-            axis_name=GRAD_AXIS if sp > 1 else None))
-        self.program = apply_passes(prog, passes)
-        self._tp_layouts = dict(getattr(self.program, "_tp_layouts", {}),
-                                **getattr(self.program, "_pp_layouts", {}))
+            axis_name=GRAD_AXIS if sp > 1 else None,
+            stage_ring=("dp", dp) if sp > 1 else None))
+        self.program = prog = apply_passes(prog, passes)
+        self._tp_layouts = dict(getattr(prog, "_tp_layouts", {}),
+                                **getattr(prog, "_pp_layouts", {}),
+                                **getattr(prog, "_ep_layouts", {}))
         self._data_parallel = True
         return self
 

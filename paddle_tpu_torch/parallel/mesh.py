@@ -14,20 +14,22 @@ process that was not launched is a world of 1 and needs no process
 group; a launched one has a group, whatever its size.
 
 A :class:`Mesh` lays the world's ranks out on a ``pp``, a ``dp``, an
-``sp`` and a ``tp`` axis in ``AXIS_ORDER``: ``tp`` innermost, then
-``sp``, then ``dp``, ``pp`` outermost, so the ranks of one
-tensor-parallel group are consecutive and rank ``r`` sits at
-``r = ((p * dp + d) * sp + s) * tp + t``. Building a mesh with ``tp``,
-``sp`` or ``pp`` above 1 in a launched world makes one process group
-per ``tp``, per ``sp``, per ``dp`` and per ``pp`` group, and one per
-``dp_sp`` group (the ranks of one ``tp`` coordinate over ``dp`` x
-``sp``, where the grads of a sequence-parallel program are averaged),
-on every rank in the same order (the collectives of
-``ops.collective_ops`` run over them), and a gloo group beside each
-``tp`` group for objects on the host (``axis_group("tp", host=True)``:
-the tensor-parallel server's descriptors, ``serving.tp``). The other
-axes (``ep``, ``dcn_dp``) raise ``NotImplementedError``: the rest of
-ROADMAP.md Queue 1 item 7b.
+``ep``, an ``sp`` and a ``tp`` axis in ``AXIS_ORDER``: ``tp``
+innermost, then ``sp``, then ``ep``, then ``dp``, ``pp`` outermost, so
+the ranks of one tensor-parallel group are consecutive and rank ``r``
+sits at ``r = (((p * dp + d) * ep + e) * sp + s) * tp + t``. Building a
+mesh with ``tp``, ``sp``, ``pp`` or ``ep`` above 1 in a launched world
+makes one process group per ``tp``, per ``sp``, per ``ep``, per ``dp``
+and per ``pp`` group, one per ``dp_sp`` group (the ranks of one ``tp``
+coordinate over ``dp`` x ``sp``, where the grads of a
+sequence-parallel program are averaged) and one per ``dp_ep`` group
+(the ranks over ``dp`` x ``ep`` in global row order, where
+``switch_moe`` counts its tokens), on every rank in the same order (the
+collectives of ``ops.collective_ops`` run over them), and a gloo group
+beside each ``tp`` group for objects on the host (``axis_group("tp",
+host=True)``: the tensor-parallel server's descriptors,
+``serving.tp``). The ``dcn_dp`` axis raises ``NotImplementedError``:
+the rest of ROADMAP.md Queue 1 item 7b.
 
 A collective names an axis, never a mesh: the helpers below resolve it
 against the mesh they are given, else the layout :func:`activate`
@@ -48,7 +50,9 @@ holds each rank's shard (``parallel.tp``, the one place that slices a
 layout), pass ``sp_shard`` splits the activations' sequence dim
 per rank (``parallel.sp``; no state is split on ``sp``), and pass
 ``pp_shard`` gives each ``pp`` rank its stage's slice of a
-``layers.Pipeline``'s stacked parameters (``parallel.pp``).
+``layers.Pipeline``'s stacked parameters (``parallel.pp``), and pass
+``ep_shard`` each ``ep`` rank its slice of the experts
+(``parallel.ep``).
 """
 import inspect
 import math
@@ -62,8 +66,11 @@ AXIS_ORDER = ("dcn_dp", "pp", "dp", "ep", "sp", "tp")
 #: the joint axis over dp x sp, one group per tp coordinate: where the
 #: parameter grads of a sequence-parallel program are averaged
 GRAD_AXIS = "dp_sp"
+#: the joint axis over dp x ep in global row order (index d * ep + e):
+#: where switch_moe counts the tokens of the global batch
+TOKEN_AXIS = "dp_ep"
 #: the axes a collective may name
-AXES = ("dp", "sp", "tp", "pp", GRAD_AXIS)
+AXES = ("dp", "sp", "tp", "pp", "ep", GRAD_AXIS, TOKEN_AXIS)
 ITEM_7B = ("model parallelism and multi-slice are not ported "
            "(ROADMAP.md Queue 1 item 7b)")
 
@@ -95,8 +102,8 @@ def rank():
 
 def dp_group():
     """The process group of the ``dp`` axis: the whole world (None, the
-    default group) unless the world's layout has a ``tp``, an ``sp`` or
-    a ``pp`` axis."""
+    default group) unless the world's layout has a ``tp``, an ``sp``, an
+    ``ep`` or a ``pp`` axis."""
     return axis_group("dp")
 
 
@@ -236,19 +243,21 @@ class Mesh:
     axis to this rank's process group on it (None: the whole world, or
     no world); a mesh made outside a world has none and is only a
     shape (``partition_spec`` over it). Besides the named axes, the
-    joint axis ``dp_sp`` (``GRAD_AXIS``) is the ranks of one ``pp`` and
-    ``tp`` coordinate over ``dp`` x ``sp``."""
+    joint axis ``dp_sp`` (``GRAD_AXIS``) is the ranks of one ``pp``,
+    ``ep`` and ``tp`` coordinate over ``dp`` x ``sp``, and ``dp_ep``
+    (``TOKEN_AXIS``) the ranks of one ``pp``, ``sp`` and ``tp``
+    coordinate over ``dp`` x ``ep``, index ``d * ep + e``."""
 
-    def __init__(self, dp=1, tp=1, sp=1, pp=1):
-        dp, tp, sp, pp = int(dp), int(tp), int(sp), int(pp)
-        used = [(a, n) for a, n in (("pp", pp), ("dp", dp), ("sp", sp),
-                                    ("tp", tp)) if n > 1]
+    def __init__(self, dp=1, tp=1, sp=1, pp=1, ep=1):
+        dp, tp, sp, pp, ep = int(dp), int(tp), int(sp), int(pp), int(ep)
+        used = [(a, n) for a, n in (("pp", pp), ("dp", dp), ("ep", ep),
+                                    ("sp", sp), ("tp", tp)) if n > 1]
         if not used:
             used = [("dp", dp)]
         self.axis_names = tuple(a for a, _ in used)
         self.shape = dict(used)
-        self.size = dp * sp * tp * pp
-        self.dp, self.sp, self.tp, self.pp = dp, sp, tp, pp
+        self.size = dp * sp * tp * pp * ep
+        self.dp, self.sp, self.tp, self.pp, self.ep = dp, sp, tp, pp, ep
         self.groups = {}
         # a gloo group beside each tp group: host-side objects (the
         # serving leader's step descriptors) never wait behind device
@@ -256,63 +265,75 @@ class Mesh:
         self.host_groups = {}
 
     def coords(self, r=None):
-        """``{"pp": p, "dp": d, "sp": s, "tp": t, "dp_sp": d * sp + s}``
-        of rank ``r`` (this rank by default)."""
+        """``{"pp": p, "dp": d, "ep": e, "sp": s, "tp": t, "dp_sp": d *
+        sp + s, "dp_ep": d * ep + e}`` of rank ``r`` (this rank by
+        default)."""
         r = rank() if r is None else int(r)
         t, rest = r % self.tp, r // self.tp
         s, rest = rest % self.sp, rest // self.sp
+        e, rest = rest % self.ep, rest // self.ep
         d, p = rest % self.dp, rest // self.dp
-        return {"pp": p, "dp": d, "sp": s, "tp": t,
-                GRAD_AXIS: d * self.sp + s}
+        return {"pp": p, "dp": d, "ep": e, "sp": s, "tp": t,
+                GRAD_AXIS: d * self.sp + s, TOKEN_AXIS: d * self.ep + e}
 
-    def rank_of(self, dp, sp, tp, pp=0):
-        return ((int(pp) * self.dp + int(dp)) * self.sp + int(sp)) \
-            * self.tp + int(tp)
+    def rank_of(self, dp, sp, tp, pp=0, ep=0):
+        return (((int(pp) * self.dp + int(dp)) * self.ep + int(ep))
+                * self.sp + int(sp)) * self.tp + int(tp)
 
     def axis_ranks(self, axis, r=None):
         """The world ranks of rank ``r``'s group on ``axis``, in axis
         order."""
         c = self.coords(r)
-        p, d, s, t = c["pp"], c["dp"], c["sp"], c["tp"]
+        p, d, e, s, t = c["pp"], c["dp"], c["ep"], c["sp"], c["tp"]
         if axis == "tp":
-            return [self.rank_of(d, s, j, p) for j in range(self.tp)]
+            return [self.rank_of(d, s, j, p, e) for j in range(self.tp)]
         if axis == "sp":
-            return [self.rank_of(d, j, t, p) for j in range(self.sp)]
+            return [self.rank_of(d, j, t, p, e) for j in range(self.sp)]
         if axis == "pp":
-            return [self.rank_of(d, s, t, j) for j in range(self.pp)]
+            return [self.rank_of(d, s, t, j, e) for j in range(self.pp)]
+        if axis == "ep":
+            return [self.rank_of(d, s, t, p, j) for j in range(self.ep)]
         if axis == GRAD_AXIS:
-            return [self.rank_of(i, j, t, p) for i in range(self.dp)
+            return [self.rank_of(i, j, t, p, e) for i in range(self.dp)
                     for j in range(self.sp)]
-        return [self.rank_of(i, s, t, p) for i in range(self.dp)]
+        if axis == TOKEN_AXIS:
+            return [self.rank_of(i, s, t, p, j) for i in range(self.dp)
+                    for j in range(self.ep)]
+        return [self.rank_of(i, s, t, p, e) for i in range(self.dp)]
 
     def axis_size(self, axis):
-        """The size of ``axis`` (``dp_sp``: dp x sp)."""
+        """The size of ``axis`` (``dp_sp``: dp x sp; ``dp_ep``: dp x
+        ep)."""
         if axis == GRAD_AXIS:
             return self.dp * self.sp
+        if axis == TOKEN_AXIS:
+            return self.dp * self.ep
         return {"dp": self.dp, "sp": self.sp, "tp": self.tp,
-                "pp": self.pp}[axis]
+                "pp": self.pp, "ep": self.ep}[axis]
 
     def __repr__(self):
         return "Mesh(" + ", ".join(f"{a}={n}" for a, n in
                                    self.shape.items()) + ")"
 
 
-_built = {}            # (dp, tp, sp, pp) -> Mesh, groups made once per world
+_built = {}            # (dp, tp, sp, pp, ep) -> Mesh, groups made once per world
 _active = None         # the layout the collectives resolve axes against
 
 
 def _make_groups(mesh):
-    """One process group per tp, sp, dp, dp_sp and pp group, and a gloo
-    (host) group beside each tp group, every rank making them all in the
-    same order (``new_group`` is collective)."""
+    """One process group per tp, sp, ep, dp, dp_sp, dp_ep and pp group,
+    and a gloo (host) group beside each tp group, every rank making them
+    all in the same order (``new_group`` is collective)."""
     dist = _dist()
     r = rank()
-    for axis in ("tp", "sp", "dp", GRAD_AXIS, "pp"):
+    for axis in ("tp", "sp", "ep", "dp", GRAD_AXIS, TOKEN_AXIS, "pp"):
         if mesh.axis_size(axis) == 1:     # groups of one rank: no traffic
             continue
-        if axis == GRAD_AXIS and (mesh.sp == 1 or mesh.dp == 1):
-            # the same ranks as the dp (or the sp) group: that group
-            same = mesh.groups.get("dp" if mesh.sp == 1 else "sp")
+        other = {GRAD_AXIS: "sp", TOKEN_AXIS: "ep"}.get(axis)
+        if other and (mesh.axis_size(other) == 1 or mesh.dp == 1):
+            # the same ranks as the dp (or the sp, or the ep) group
+            same = mesh.groups.get(
+                "dp" if mesh.axis_size(other) == 1 else other)
             if same is not None:
                 mesh.groups[axis] = same
             continue
@@ -335,15 +356,16 @@ def _make_groups(mesh):
 
 
 def make_mesh(config=None, devices=None, **axes):
-    """The world's ranks on a ``pp`` x ``dp`` x ``sp`` x ``tp`` mesh.
-    ``tp``, ``sp`` and ``pp`` must divide the world; ``dp`` 1 (the
-    default) means the rest of it, any other ``dp`` must make
-    ``pp * dp * sp * tp`` the world size. Any other axis raises: item
+    """The world's ranks on a ``pp`` x ``dp`` x ``ep`` x ``sp`` x ``tp``
+    mesh. ``tp``, ``sp``, ``ep`` and ``pp`` must divide the world; ``dp``
+    1 (the default) means the rest of it, any other ``dp`` must make
+    ``pp * dp * ep * sp * tp`` the world size. ``dcn_dp`` raises: item
     7b."""
     if config is None:
         config = MeshConfig(**{k: v for k, v in axes.items() if v})
     sizes = config.axis_sizes()
-    other = [a for a in AXIS_ORDER if a not in ("dp", "sp", "tp", "pp")
+    other = [a for a in AXIS_ORDER if a not in ("dp", "sp", "tp", "pp",
+                                                "ep")
              and sizes[a] > 1]
     if other:
         raise not_ported_7b(f"mesh axes {other}")
@@ -353,23 +375,25 @@ def make_mesh(config=None, devices=None, **axes):
     tp = max(int(sizes["tp"]), 1)
     sp = max(int(sizes["sp"]), 1)
     pp = max(int(sizes["pp"]), 1)
+    ep = max(int(sizes["ep"]), 1)
     dp = int(sizes["dp"])
-    model = tp * sp * pp
+    model = tp * sp * pp * ep
     if dp == 1:
         dp = n // model if n % model == 0 else 0
     if dp * model != n:
         want = (dp or 1) * model
         names = (f"pp={pp} " if pp > 1 else "") + f"dp={sizes['dp']} " + \
+            (f"ep={ep} " if ep > 1 else "") + \
             (f"sp={sp} " if sp > 1 else "") + f"tp={tp}"
         raise ValueError(f"a {names} mesh needs {want} "
                          f"ranks; the world has {n} (one process per "
                          f"card: launch --nproc_per_node={want})")
-    mesh = _built.get((dp, tp, sp, pp))
+    mesh = _built.get((dp, tp, sp, pp, ep))
     if mesh is None:
-        mesh = Mesh(dp, tp, sp, pp)
+        mesh = Mesh(dp, tp, sp, pp, ep)
         if model > 1 and is_initialized():
             _make_groups(mesh)
-        _built[(dp, tp, sp, pp)] = mesh
+        _built[(dp, tp, sp, pp, ep)] = mesh
     return mesh
 
 
@@ -380,6 +404,12 @@ def activate(mesh):
     global _active
     _active = mesh
     return mesh
+
+
+def active_mesh():
+    """The layout :func:`activate` installed (a data-parallel program's
+    mesh while it runs), or None."""
+    return _active
 
 
 def world_mesh(mesh=None):
@@ -405,8 +435,8 @@ def axis_group(axis, mesh=None, host=False):
 
 def axis_world_size(axis, mesh=None):
     """The size of ``axis`` in ``mesh`` (default: the active layout;
-    ``tp``, ``sp`` and ``pp`` are 1 without such a mesh, ``dp`` then the
-    world)."""
+    ``tp``, ``sp``, ``pp`` and ``ep`` are 1 without such a mesh, ``dp``
+    then the world)."""
     if axis not in AXES:
         raise not_ported_7b(f"the {axis!r} axis")
     return world_mesh(mesh).axis_size(axis)
@@ -496,8 +526,8 @@ def sharding_for(mesh, var):
     return partition_spec(mesh, var.dist_attr, shape)
 
 
-__all__ = ["AXES", "AXIS_ORDER", "GRAD_AXIS", "Mesh", "MeshConfig", "PartitionSpec",
-           "activate", "any_failed", "axis_global_rank", "axis_group",
+__all__ = ["AXES", "AXIS_ORDER", "GRAD_AXIS", "TOKEN_AXIS", "Mesh", "MeshConfig", "PartitionSpec",
+           "activate", "active_mesh", "any_failed", "axis_global_rank", "axis_group",
            "axis_rank", "axis_size", "axis_world_size", "backend", "barrier",
            "check_device", "default_mesh", "dp_group", "get_mesh",
            "init_parallel_env", "is_initialized", "make_mesh",

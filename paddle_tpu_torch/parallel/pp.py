@@ -29,7 +29,18 @@ elementwise optimizer updates (SGD, Momentum, Adam, AdamW, ...) and the
 elementwise ops of regularization. Anything else (a global-norm clip, a
 LAMB trust ratio, a stage parameter read outside the stage) raises
 ``NotImplementedError`` naming the op, rather than compute on a slice
-as on the whole; so does ``pp`` together with ``tp`` or ``sp``.
+as on the whole (:func:`cut_state`, which ``parallel.ep`` shares for
+the experts' slices).
+
+With ``tp`` or ``sp`` beside ``pp`` every tp and sp rank of a pp
+coordinate runs its stage whole, on the whole sequence, as the JAX
+op's ``shard_map`` does (``P("pp")`` for the stacked parameters,
+``P()`` for the outer reads, ``P(None, "dp")`` for the microbatches):
+the slices are cut per pp coordinate only, the ``pipeline`` op is a
+replicated region to passes ``tp_shard`` and ``sp_shard`` (an input
+split on tp or on the sequence is gathered whole before it; the stage
+is not rewritten), and only the ops outside it take the tp and sp
+layouts.
 """
 from .tp import _ELEMENTWISE, _ELEMENTWISE_OPT, Layout, local_shape
 
@@ -44,16 +55,6 @@ _SLICE_OPS = (_ELEMENTWISE | _ELEMENTWISE_OPT
 def not_ported(what):
     from .mesh import not_ported_7b
     return not_ported_7b(f"pipeline parallelism: {what}")
-
-
-def check_mesh(mesh):
-    """Raise for a pp mesh that also has a ``tp`` or ``sp`` axis (the
-    port pipelines over ``pp`` x ``dp`` only)."""
-    from .mesh import axis_size
-    if axis_size(mesh, PP) > 1:
-        other = [a for a in ("tp", "sp") if axis_size(mesh, a) > 1]
-        if other:
-            raise not_ported(f"a pp mesh with {other} (pp x dp only)")
 
 
 _BATCH_STATS = ("batch_norm", "sync_batch_norm")
@@ -85,8 +86,8 @@ def pp_rewrite(program, mesh):
     pp = axis_size(mesh, PP)
     if pp == 1:
         return {}
-    check_mesh(mesh)
-    block = program.global_block()
+    from .ep import check_mesh
+    check_mesh(mesh)            # pp x ep
     stage_params = set()
     for blk in program.blocks:
         for op in blk.ops:
@@ -100,45 +101,65 @@ def pp_rewrite(program, mesh):
                 stage_params.update(op.input("P"))
     if not stage_params:
         return {}
+    layouts = cut_state(program, PP, pp, not_ported, _pipeline_grads,
+                        ("pipeline",), lambda v: v.shape[0] == pp)
+    program._pp_report = {"stage_slices": len(layouts),
+                          "values_cut": program._cut_report}
+    return layouts
+
+
+def _pipeline_grads(op):
+    """The stage parameters' grads a ``pipeline_grad`` op writes."""
+    if op.type != "pipeline_grad":
+        return None
+    return list(zip(op.input("P"), op.output("P@GRAD")))
+
+
+def cut_state(program, axis, size, fail, grads_of, readers, whole_ok):
+    """Cut every persistable annotated ``(axis,)`` on its leading dim
+    (``whole_ok(var)`` holding) to the rank's slice, with every value
+    made of one: the grads ``grads_of(op)`` lists as (param, grad)
+    pairs, and what an elementwise op or optimizer makes of a slice (its
+    outputs of the whole shape). Only those ops and the ``readers`` may
+    read a slice; another raises ``fail(why)``. Returns ``{name:
+    Layout}`` of the persistables cut."""
+    block = program.global_block()
     layouts = {}
     for n, v in block.vars.items():
         spec = tuple(v.dist_attr or ())
-        if v.persistable and spec[:1] == (PP,) and v.shape and \
-                v.shape[0] == pp:
-            layouts[n] = Layout(0, 1, tuple(v.shape), PP)
-    # the values made of the slices: the stage grads, and what an
-    # elementwise op makes of a slice (its outputs of the whole shape)
+        if v.persistable and spec[:1] == (axis,) and v.shape and \
+                whole_ok(v):
+            layouts[n] = Layout(0, 1, tuple(v.shape), axis)
     cut = set(layouts)
     for op in block.ops:
-        if op.type == "pipeline_grad":
-            for p, g in zip(op.input("P"), op.output("P@GRAD")):
+        pairs = grads_of(op)
+        if pairs is not None:
+            for p, g in pairs:
                 if p in cut and g != "@EMPTY@":
                     cut.add(g)
             continue
         touched = [n for n in op.input_arg_names if n in cut]
-        if not touched or op.type == "pipeline":
+        if not touched or op.type in readers:
             continue
         if op.type not in _SLICE_OPS:
-            raise not_ported(f"op {op.type!r} reads the stage slices "
-                             f"{sorted(touched)[:4]}; only the pipeline "
-                             f"op, elementwise ops and the elementwise "
-                             f"optimizers may")
+            raise fail(f"op {op.type!r} reads the {axis} slices "
+                       f"{sorted(touched)[:4]}; only "
+                       f"{' and '.join(readers)}, elementwise ops and the "
+                       f"elementwise optimizers may")
         full = {tuple(block.var(n).shape) for n in touched}
         for n in op.input_arg_names:
             if n not in cut and tuple(block.var(n).shape or ()) in full:
-                raise not_ported(f"op {op.type!r} reads the stage slice "
-                                 f"{touched[0]!r} beside the whole "
-                                 f"{n!r}")
+                raise fail(f"op {op.type!r} reads the {axis} slice "
+                           f"{touched[0]!r} beside the whole {n!r}")
         for n in op.output_arg_names:
             if tuple(block.var(n).shape or ()) in full:
                 cut.add(n)
     for n in cut:
         v = block.var(n)
-        v.shape = local_shape(Layout(0, 1, tuple(v.shape), PP), pp)
+        v.shape = local_shape(Layout(0, 1, tuple(v.shape), axis), size)
     program._bump_version()
-    program._pp_report = {"stage_slices": len(layouts),
-                          "values_cut": len(cut)}
+    program._cut_report = len(cut)
     return layouts
 
 
-__all__ = ["check_mesh", "check_stage", "pp_rewrite"]
+__all__ = ["check_stage", "cut_state", "pp_rewrite"]

@@ -25,7 +25,9 @@ holds this rank's chunk of its sequence dim, and on which dim:
   against the whole keys and key bias; causal raises
   ``NotImplementedError``: the kernels take no query offset). Any op
   without a rule reads its split inputs gathered (``sp_gather``): the
-  MLM and NSP heads after the encoder, the loss.
+  MLM and NSP heads after the encoder, the loss, and a ``pipeline`` op,
+  whose stage every sp rank runs whole (``parallel.pp``; the stage
+  sub-block is not rewritten).
 - **Dropout** in the split region draws the mask of the whole tensor at
   the rank's dp fold and keeps its chunk (attr ``sp_chunk``), so an sp
   run with dropout equals the one-rank run of the same rows; in the
@@ -261,6 +263,10 @@ class _Rewriter:
         if not ins:
             self.keep(op, {})
             return
+        if t == "pipeline":
+            # a replicated region (parallel.pp): every sp rank runs the
+            # stage whole, on the whole sequence
+            return self.rule_gather(op)
         if op.attrs.get("sub_block") is not None or \
                 op.attrs.get("sub_block_true") is not None:
             self.fail(op, "a control-flow op")

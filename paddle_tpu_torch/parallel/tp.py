@@ -23,7 +23,10 @@ them and inserts the collectives. The port runs one process per card, so
   rank's head count); a ``transpose``, an elementwise op, ``einsum``,
   ``flash_attention`` (whole heads a rank) and the elementwise
   optimizers follow the split. An op it has no rule for raises
-  ``NotImplementedError`` rather than compute on a part as on a whole.
+  ``NotImplementedError`` rather than compute on a part as on a whole;
+- a ``pipeline`` op is a replicated region (``parallel.pp``): a split
+  input is gathered whole before it by ``c_concat``, its stage runs
+  whole on every tp rank and its output is whole.
 
 Every grad op is rewritten with its forward op (``__fwd_op__``), and the
 conjugate collectives' grads go in beside it. The rewritten program
@@ -184,6 +187,7 @@ class _Record:
     def __init__(self):
         self.identity_in = {}    # identity output -> (its input, the op)
         self.gathered_out = []   # (slot, local name, concat op)
+        self.gathered_in = {}    # concat output -> (its input, the op)
 
 
 class _Rewriter:
@@ -235,7 +239,9 @@ class _Rewriter:
         for name, v in block.vars.items():
             if getattr(v, "dist_attr", None) is None or not v.persistable:
                 continue
-            spec = sharding_for(self.mesh, v)
+            # a pipeline's stage slices (pp) are parallel.pp's
+            spec = tuple(None if a == "pp" else a
+                         for a in sharding_for(self.mesh, v))
             if any(a not in (None, "tp") for a in spec):
                 raise not_ported(f"{name!r} is sharded {tuple(spec)}; only "
                                  f"a tp split of parameters is ported")
@@ -568,6 +574,34 @@ class _Rewriter:
 
     rule_ulysses_attention = rule_ring_attention
 
+    def rule_pipeline(self, op):
+        """A replicated region: every tp rank runs the stage whole, as
+        the JAX op's ``shard_map`` does, so a split input is gathered
+        whole first (``c_concat``; its grad the rank's slice) and the
+        output is whole. The stage sub-block is not rewritten."""
+        ins = {}
+        for slot, names in op.inputs.items():
+            ins[slot] = list(names)
+            for i, n in enumerate(names):
+                if n not in self.split:
+                    continue
+                d, segs = self.split[n]
+                if segs != 1:
+                    self.fail(op, "a piece-wise split input")
+                y = self.new_var(n, n, "WHOLE")
+                shape = list(self.var(n).shape)
+                shape[d] *= self.tp
+                self.var(y).shape = tuple(shape)
+                concat = self.emit(
+                    "c_concat", {"X": [n]}, {"Out": [y]},
+                    dict(TP_ATTRS, axis=d, nranks=self.tp),
+                    op.attrs.get(OP_ROLE_KEY, OpRole.Forward))
+                self.report["c_concat"] += 1
+                self.record().gathered_in[y] = (n, concat)
+                ins[slot][i] = y
+        op.inputs = ins
+        self.keep(op, {})
+
     def rule_einsum(self, op):
         eq = op.attrs["equation"].replace(" ", "")
         lhs, rhs = eq.split("->")
@@ -604,13 +638,15 @@ class _Rewriter:
             op.type = new.type + "_grad"
             op.attrs["__fwd_op__"] = new.to_dict()
         idents = rec.identity_in if rec is not None else {}
+        wholes = rec.gathered_in if rec is not None else {}
         if rec is not None:
             # the grad op reads what its forward op read (the identity's
-            # output: the same values)
+            # output: the same values; a gathered input: the whole)
             fin = new.inputs
             for slot, names in op.inputs.items():
                 if slot in fin and len(fin[slot]) == len(names):
-                    op.inputs[slot] = [y if y in idents else n
+                    op.inputs[slot] = [y if y in idents or y in wholes
+                                       else n
                                        for n, y in zip(names, fin[slot])]
             for slot, local, concat in rec.gathered_out:
                 gs = op.inputs.get(slot + "@GRAD")
@@ -656,6 +692,21 @@ class _Rewriter:
                          "__out_grad_mask__": {"Out": [True]},
                          OP_ROLE_KEY: OpRole.Backward}))
                     self.split.pop(g, None)
+                elif x in wholes:
+                    # the whole grad, cut to the rank's slice
+                    src, concat = wholes[x]
+                    g_whole = self.new_var(g, x, "WHOLE")
+                    gnames[i] = g_whole
+                    after.append(Operator(
+                        self.block, "c_concat_grad",
+                        {"X": [src], "Out@GRAD": [g_whole]},
+                        {"X@GRAD": [g]},
+                        {"__fwd_op__": concat.to_dict(),
+                         "__grad_inputs__": {"X": [True]},
+                         "__out_grad_mask__": {"Out": [True]},
+                         OP_ROLE_KEY: OpRole.Backward}))
+                    self.var(g).shape = self.var(src).shape
+                    self.split[g] = self.split[src]
                 elif x in self.split:
                     self.split[g] = self.split[x]
                 else:
@@ -669,8 +720,9 @@ class _Rewriter:
         for op in list(self.block.ops):
             if op.type == "recompute_barrier":
                 raise not_ported("recompute (RecomputeOptimizer)")
-            if op.attrs.get("sub_block") is not None or \
-                    op.attrs.get("sub_block_true") is not None:
+            if op.type != "pipeline" and (
+                    op.attrs.get("sub_block") is not None or
+                    op.attrs.get("sub_block_true") is not None):
                 if any(n in self.split for n in op.input_arg_names):
                     self.fail(op, "a control-flow op")
             if "__fwd_op__" in op.attrs:

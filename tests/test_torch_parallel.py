@@ -329,20 +329,37 @@ def test_rank_raising_mid_step_ends_the_launch(tmp_path):
 
 
 def test_mesh_axes_other_than_dp_raise():
-    """The boundary of item 7b: ``tp``, ``sp`` and ``pp`` build a mesh
-    (here, a world of 1, only at size 1; a tp 2, an sp 2 or a pp 2 mesh
-    needs 2 ranks) and ``partition_spec`` works, ``("pp",)`` included;
-    ``ep`` and ``dcn_dp`` still raise."""
+    """The boundary of item 7b: ``tp``, ``sp``, ``pp`` and ``ep`` build a
+    mesh (here, a world of 1, only at size 1; a tp 2, an sp 2, a pp 2 or
+    an ep 2 mesh needs 2 ranks) and ``partition_spec`` works,
+    ``("pp",)`` and ``("ep",)`` included; ``dcn_dp`` still raises. The
+    ep axis sits between dp and sp in JAX's ``AXIS_ORDER``: rank
+    ``(((p * dp + d) * ep + e) * sp + s) * tp + t``."""
     from paddle_tpu_torch.parallel import mesh
-    for axis in ("ep", "dcn_dp"):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            mesh.make_mesh(mesh.MeshConfig(**{axis: 2}))
-    for axis in ("tp", "sp", "pp"):
+    with pytest.raises(NotImplementedError, match="item 7b"):
+        mesh.make_mesh(mesh.MeshConfig(dcn_dp=2))
+    for axis in ("tp", "sp", "pp", "ep"):
         with pytest.raises(ValueError, match="needs 2 ranks"):
             mesh.make_mesh(mesh.MeshConfig(**{axis: 2}))
     assert mesh.make_mesh(mesh.MeshConfig(sp=1)).shape == {"dp": 1}
     assert mesh.make_mesh(mesh.MeshConfig(tp=1)).shape == {"dp": 1}
     assert mesh.make_mesh(mesh.MeshConfig(pp=1)).shape == {"dp": 1}
+    assert mesh.make_mesh(mesh.MeshConfig(ep=1)).shape == {"dp": 1}
+    m = mesh.Mesh(2, ep=2)
+    assert m.axis_names == ("dp", "ep") and m.size == 4
+    assert [m.coords(r)["ep"] for r in range(4)] == [0, 1, 0, 1]
+    assert [m.coords(r)["dp"] for r in range(4)] == [0, 0, 1, 1]
+    assert m.axis_ranks("ep", 2) == [2, 3] and m.axis_ranks("dp", 1) == \
+        [1, 3]
+    assert m.axis_ranks("dp_ep", 3) == [0, 1, 2, 3]
+    assert [m.coords(r)["dp_ep"] for r in range(4)] == [0, 1, 2, 3]
+    big = mesh.Mesh(2, tp=2, sp=2, pp=2, ep=2)
+    r = big.rank_of(1, 1, 0, 1, 1)
+    assert r == (((1 * 2 + 1) * 2 + 1) * 2 + 1) * 2 + 0
+    assert {k: big.coords(r)[k] for k in ("pp", "dp", "ep", "sp", "tp")} \
+        == {"pp": 1, "dp": 1, "ep": 1, "sp": 1, "tp": 0}
+    assert mesh.partition_spec(m, ("ep",), (4, 3)) == ("ep", None)
+    assert mesh.partition_spec(m, ("ep",), (3, 3)) == (None, None)
     assert mesh.partition_spec(mesh.Mesh(1, pp=2), ("pp",), (2, 3)) == \
         ("pp", None)
     assert mesh.partition_spec(mesh.Mesh(1, pp=2), ("pp",), (3, 3)) == \

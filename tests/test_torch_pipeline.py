@@ -238,7 +238,8 @@ def test_pp_shard_cuts_the_stage_state_to_one_slice():
     """Pass ``pp_shard`` over a pp 2 mesh in a world of 1 (a look at the
     rewrite): each stacked parameter, its Adam moments and its grad take
     the ``[1, ...]`` slice, the rest stays whole; a 3-stage pipeline on
-    the pp 2 mesh keeps its state whole (the sequential path)."""
+    the pp 2 mesh keeps its state whole (the sequential path); beside
+    tp or sp the cut is the same, beside ep the pass raises."""
     from paddle_tpu_torch.framework.passes import apply_passes, get_pass
     from paddle_tpu_torch.parallel.mesh import Mesh
     main, _, _ = _build(tfluid, opt=lambda fl: fl.optimizer.Adam(0.01))
@@ -261,9 +262,19 @@ def test_pp_shard_cuts_the_stage_state_to_one_slice():
                                                  mesh=Mesh(1, pp=2))])
     assert not prog._pp_layouts
     assert prog.global_block().var("fc_0.w_0").shape == (3, D, D)
-    with pytest.raises(NotImplementedError, match="pp x dp only"):
+    # beside tp (and sp) the slices are cut per pp coordinate only: the
+    # same [1, ...] slice, the stage whole on every tp rank
+    for mesh in (Mesh(1, tp=2, pp=2), Mesh(1, sp=2, pp=2),
+                 Mesh(2, tp=2, pp=2)):
+        prog = apply_passes(main.clone(), [get_pass("pp_shard",
+                                                    mesh=mesh)])
+        assert prog._pp_layouts["fc_0.w_0"].full_shape == (S, D, D)
+        assert prog.global_block().var("fc_0.w_0").shape == (1, D, D)
+        assert prog.global_block().var("fc_1.w_0").shape == (D, 1)
+    # a pp mesh with ep is what the port leaves out
+    with pytest.raises(NotImplementedError, match="ep mesh with"):
         apply_passes(main.clone(), [get_pass("pp_shard",
-                                             mesh=Mesh(1, tp=2, pp=2))])
+                                             mesh=Mesh(1, pp=2, ep=2))])
 
 
 def test_pp_shard_refuses_batch_statistics_in_a_stage():
@@ -292,3 +303,57 @@ def test_pp_shard_refuses_batch_statistics_in_a_stage():
     got, = exe.run(main, feed={"x": np.ones((B, D), np.float32)},
                    fetch_list=[loss], scope=scope)
     assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("axis", ["tp", "sp"])
+def test_pipeline_is_a_replicated_region_to_tp_and_sp(axis):
+    """Beside tp or sp every rank of a stage runs it whole: an input of
+    the ``pipeline`` op split on tp (the output of a column-split fc) or
+    on the sequence (after an ``sp`` constraint) is gathered whole
+    before it (``c_concat``, ``sp_gather``), its grad cut back to the
+    rank's part by the conjugate grad op, the stage sub-block is left as
+    built, and the rewritten program verifies (a world of 1, a look at
+    the rewrite)."""
+    from paddle_tpu_torch.framework.analysis import verify_program
+    from paddle_tpu_torch.framework.passes import apply_passes, get_pass
+    from paddle_tpu_torch.parallel.mesh import Mesh, set_param_dist_attr
+    L = tfluid.layers
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        x = L.data("x", [B, 4, D], dtype="float32")
+        h = L.fc(x, D, num_flatten_dims=2)
+        if axis == "sp":
+            h = L.collective.shard(h, "dp", "sp", None)
+        pipe = L.Pipeline(num_stages=S, num_microbatches=M)
+        with pipe.stage():
+            pipe.stage_output(L.tanh(L.fc(pipe.stage_input(h), D,
+                                          num_flatten_dims=2)))
+        loss = L.mean(pipe())
+        if axis == "tp":
+            set_param_dist_attr(main, "fc_0.w_0", (None, "tp"))
+            set_param_dist_attr(main, "fc_0.b_0", ("tp",))
+        tfluid.optimizer.PipelineOptimizer(
+            tfluid.optimizer.SGD(0.1), num_microbatches=M).minimize(loss)
+    stage_ops = [o.type for o in main.blocks[1].ops]
+    mesh = Mesh(1, pp=2, **{axis: 2})
+    prog = apply_passes(main.clone(), [get_pass(f"{axis}_shard", mesh=mesh),
+                                       get_pass("pp_shard", mesh=mesh)])
+    gb = prog.global_block()
+    ops = gb.ops
+    pipe_op = next(o for o in ops if o.type == "pipeline")
+    gather = "c_concat" if axis == "tp" else "sp_gather"
+    made = next(o for o in ops if pipe_op.input("X")[0] in
+                o.output_arg_names)
+    assert made.type == gather
+    assert tuple(gb.var(pipe_op.input("X")[0]).shape) == (B, 4, D)
+    assert tuple(gb.var(made.input("X")[0]).shape) == \
+        ((B, 4, D // 2) if axis == "tp" else (B, 2, D))
+    pipe_grad = next(o for o in ops if o.type == "pipeline_grad")
+    whole_grad = pipe_grad.output("X@GRAD")[0]
+    back = next(o for o in ops if whole_grad in o.input_arg_names
+                and o.type == gather + "_grad")
+    assert tuple(gb.var(back.output("X@GRAD")[0]).shape) == \
+        tuple(gb.var(made.input("X")[0]).shape)
+    assert [o.type for o in prog.blocks[1].ops] == stage_ops
+    assert prog._pp_layouts
+    verify_program(prog, fetch_names=[loss.name])

@@ -5,11 +5,14 @@ its hand-written backward) against the JAX package, on the CPU.
 One launch of 4 gloo ranks (``python -m
 paddle_tpu_torch.distributed.launch --nproc_per_node=4 --device=cpu
 tests/torch_pp_runner.py``) trains a narrow 4-layer GPT with its
-decoder layers in a ``layers.Pipeline`` at pp 4, pp 2 x dp 2 and on a pp
-4 mesh under a 2-stage pipeline (the sequential path); the tests then
-read what each rank wrote, and the JAX references (the single-device
-runs of the 4- and 2-stage programs on the whole batch) are computed
-here while it runs:
+decoder layers in a ``layers.Pipeline`` at pp 4, pp 2 x dp 2, on a pp 4
+mesh under a 2-stage pipeline (the sequential path), at pp 2 x tp 2 (the
+word embedding and tied head split on tp outside the pipeline) and at
+pp 2 x sp 2 (the pipeline's input split on the sequence, gathered whole
+before it); the tests then read what each rank wrote, and the JAX
+references (the single-device runs of the 4- and 2-stage programs on
+the whole batch, and the JAX runs of the tp and sp grids' programs on
+the same meshes) are computed here while it runs:
 
 - the losses within 1e-5 relative of the JAX package's and of the
   port's one-process run (each dp rank fetches the mean over its rows;
@@ -68,6 +71,25 @@ def jax_train(stages):
     return losses, final, main
 
 
+def jax_mesh_losses(grid, n=None):
+    """The losses of the JAX package's run of ``grid``'s program on its
+    mesh (the 8-device CPU mesh), on the whole batch."""
+    from paddle_tpu.parallel.mesh import MeshConfig, make_mesh
+    main, startup, loss = R.grid_program(jfluid, jgpt, grid, R.B)
+    exe, scope = jfluid.Executor(), jfluid.Scope()
+    exe.run(startup, scope=scope)
+    comp = jfluid.CompiledProgram(main).with_data_parallel(
+        loss_name=loss.name,
+        mesh=make_mesh(MeshConfig(**R.ALL_GRIDS[grid][0])))
+    return [float(np.ravel(exe.run(comp, feed=f, fetch_list=[loss],
+                                   scope=scope)[0])[0])
+            for f in R.feeds(jgpt)]
+
+
+# the grids with tp or sp beside pp: each tp and sp rank runs its stage
+MODEL_GRIDS = ("pp2tp2", "pp2sp2")
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("pp"))
@@ -90,6 +112,7 @@ def world(tmp_path_factory):
     try:
         # the JAX references while the ranks run
         refs = {stages: jax_train(stages) for stages in (4, 2)}
+        refs["mesh"] = {g: jax_mesh_losses(g) for g in MODEL_GRIDS}
         # a mismatch in the schedule's collectives shows only as a hang
         _, err = proc.communicate(timeout=240)
     finally:
@@ -138,11 +161,18 @@ def test_stage_slices_match_jax_stacked_params(world, grid):
         assert sorted(f["stacked"]) == sorted(
             n for n in jfinal if n.startswith("decoder_layer_"))
         assert bool(f["slices"]) == pipelined
+        tp = R.GRIDS[grid][0].get("tp", 1)
         for n, want in jfinal.items():
             got = arrays[f"{grid}/local/{n}"]
             if n in f["stacked"] and pipelined:
                 assert got.shape == (1,) + want.shape[1:], (n, got.shape)
                 want = want[p:p + 1]
+            elif n == "word_embedding" and tp > 1:
+                # the rank's vocab rows (tp_shard), outside the pipeline
+                v = want.shape[0] // tp
+                t = f["coords"]["tp"]
+                assert got.shape == (v,) + want.shape[1:], got.shape
+                want = want[t * v:(t + 1) * v]
             else:
                 assert got.shape == want.shape, (grid, n, got.shape)
             err = float(np.abs(got.astype(np.float64) - want).max())
@@ -151,6 +181,27 @@ def test_stage_slices_match_jax_stacked_params(world, grid):
             np.testing.assert_array_equal(
                 arrays[f"{grid}/whole/{n}"],
                 world["ranks"][0][0][f"{grid}/whole/{n}"])
+
+
+@pytest.mark.parametrize("grid", MODEL_GRIDS)
+def test_pp_with_tp_or_sp_matches_jax_on_the_same_mesh(world, grid):
+    """pp 2 x tp 2 and pp 2 x sp 2: the losses within 1e-5 relative of
+    the JAX package's run on the same mesh, and every rank of a pp
+    coordinate holds its stage slices bit for bit alike (each runs the
+    stage whole)."""
+    per_dp = world["ranks"][0][1][grid]["losses"]
+    np.testing.assert_allclose(per_dp, world["refs"]["mesh"][grid],
+                               rtol=1e-5)
+    by_pp = {}
+    for arrays, flags in world["ranks"]:
+        f = flags[grid]
+        assert f["losses"] == per_dp
+        for n in f["stacked"]:
+            by_pp.setdefault((f["coords"]["pp"], n), []).append(
+                arrays[f"{grid}/local/{n}"])
+    for key, slices in by_pp.items():
+        assert len(slices) == 2, key
+        np.testing.assert_array_equal(slices[0], slices[1], err_msg=key)
 
 
 @pytest.mark.parametrize("grid", list(R.GRIDS))

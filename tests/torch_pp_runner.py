@@ -1,16 +1,21 @@
 """Worker of the port's pipeline-parallel CPU tests
 (``test_torch_pipeline_parallel.py``): one rank of a gloo world of 4
 started by ``python -m paddle_tpu_torch.distributed.launch
---nproc_per_node=4 --device=cpu``. It trains a narrow 4-layer GPT whose
-decoder layers sit in a ``layers.Pipeline`` on each grid of ``GRIDS``:
-pp 4 (4 stages of 1 layer), pp 2 x dp 2 (2 stages of 2 layers, ranks
-0, 1 stage 0 and ranks 2, 3 stage 1) and a pp 4 mesh under a pipeline
-of 2 stages (``num_stages`` != pp: the sequential path on every rank).
+--nproc_per_node=4 --device=cpu`` (or of 8, for ``GRIDS8``). It trains a
+narrow 4-layer GPT whose decoder layers sit in a ``layers.Pipeline`` on
+each grid of ``args["grids"]`` (default ``GRIDS``): pp 4 (4 stages of 1
+layer), pp 2 x dp 2 (2 stages of 2 layers, ranks 0, 1 stage 0 and
+ranks 2, 3 stage 1), a pp 4 mesh under a pipeline of 2 stages
+(``num_stages`` != pp: the sequential path on every rank), pp 2 x tp 2
+and pp 2 x sp 2 (every tp or sp rank of a stage runs it whole); pp 2 x
+tp 2 x dp 2 on 8 ranks.
 
     python torch_pp_runner.py <args.json>
 
-``args``: ``{"out": dir, "start": {"s4": npz, "s2": npz}}``, the JAX
-package's startup values of the 4- and 2-stage programs. Each grid
+``args``: ``{"out": dir, "start": {"s4": npz, "s2": npz}, "grids":
+[...], "plain": bool}``, the JAX package's startup values of the 4- and
+2-stage programs (the tp and sp grids' programs differ only in
+annotations). Each grid
 trains 3 Adam steps eagerly and by a ``run_steps`` slab from the same
 start; rank 0 also trains the one-process program of the whole batch
 and saves the pp 4 run's persistables (gathered whole) under
@@ -30,16 +35,27 @@ CFG = dict(vocab_size=128, hidden_size=32, num_layers=4, num_heads=2,
            ffn_size=64, max_position=64, dropout=0.0)
 B, SEQ, STEPS, LR = 8, 16, 3, 1e-3
 # grid -> (mesh axes, num_stages, microbatches of the rank's rows); each
-# microbatch holds 2 rows, as in the reference's 4 microbatches of 8
+# microbatch holds 2 rows, as in the reference's 4 microbatches of 8. A
+# tp grid annotates the word embedding ("tp", None) as
+# gpt.apply_tp_sharding does, an sp grid pins the embeddings' output to
+# ("dp", "sp", None); both stay outside the pipeline
 GRIDS = {"pp4": ({"pp": 4}, 4, 4), "pp2dp2": ({"pp": 2, "dp": 2}, 2, 2),
-         "pp4_stages2": ({"pp": 4}, 2, 4)}
+         "pp4_stages2": ({"pp": 4}, 2, 4),
+         "pp2tp2": ({"pp": 2, "tp": 2}, 2, 4),
+         "pp2sp2": ({"pp": 2, "sp": 2}, 2, 4)}
+# the grids of the 8-rank launch (test_torch_pipeline_tp.py)
+GRIDS8 = {"pp2tp2dp2": ({"pp": 2, "tp": 2, "dp": 2}, 2, 2)}
+ALL_GRIDS = dict(GRIDS, **GRIDS8)
 
 
-def gpt_pipeline(fluid, gpt, cfg, rows, seq, stages, micro, lr=LR):
+def gpt_pipeline(fluid, gpt, cfg, rows, seq, stages, micro, lr=LR,
+                 tp=False, sp=False):
     """GPT pretraining (``gpt_pretrain``'s body) with its decoder layers
     in a ``layers.Pipeline`` of ``stages`` uniform stages of
     ``num_layers / stages`` layers each, over ``micro`` microbatches;
-    Adam through ``PipelineOptimizer``. Returns the loss."""
+    Adam through ``PipelineOptimizer``. ``tp``: the word embedding (and
+    so the tied head) annotated ``("tp", None)``; ``sp``: the pipeline's
+    input pinned to ``("dp", "sp", None)``. Returns the loss."""
     L, T = fluid.layers, fluid.layers
     init = fluid.initializer
     h = cfg.hidden_size
@@ -66,6 +82,8 @@ def gpt_pipeline(fluid, gpt, cfg, rows, seq, stages, micro, lr=LR):
                       param_attr=normal("pos_embedding"))
     x = L.dropout(L.elementwise_add(emb, pos), cfg.dropout,
                   dropout_implementation="upscale_in_train")
+    if sp:
+        x = L.collective.shard(x, "dp", "sp", None)
     pipe = L.Pipeline(num_stages=stages, num_microbatches=micro)
     with pipe.stage():
         y = pipe.stage_input(x)
@@ -81,6 +99,9 @@ def gpt_pipeline(fluid, gpt, cfg, rows, seq, stages, micro, lr=LR):
         L.reduce_sum(L.elementwise_mul(ce, w)),
         L.elementwise_add(L.reduce_sum(w),
                           T.fill_constant([1], "float32", 1e-9)))
+    if tp:
+        fluid.parallel.mesh.set_param_dist_attr(
+            x.block.program, "word_embedding", ("tp", None))
     fluid.optimizer.PipelineOptimizer(
         fluid.optimizer.Adam(lr), num_microbatches=micro).minimize(loss)
     return loss
@@ -101,13 +122,21 @@ def rows(feed, d, n):
     return {k: v[d * b:(d + 1) * b] for k, v in feed.items()}
 
 
-def program(fluid, gpt, rows_, stages, micro, seed=7):
+def program(fluid, gpt, rows_, stages, micro, seed=7, tp=False,
+            sp=False):
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = seed
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         loss = gpt_pipeline(fluid, gpt, config(gpt), rows_, SEQ, stages,
-                            micro)
+                            micro, tp=tp, sp=sp)
     return main, startup, loss
+
+
+def grid_program(fluid, gpt, name, rows_):
+    """``name``'s program at ``rows_`` rows a rank."""
+    axes, stages, micro = ALL_GRIDS[name]
+    return program(fluid, gpt, rows_, stages, micro,
+                   tp=axes.get("tp", 1) > 1, sp=axes.get("sp", 1) > 1)
 
 
 # ------------------------------------------------------------- the rank
@@ -126,10 +155,10 @@ def _losses(vals):
 
 def train(c, name):
     fluid, gpt, mesh = c.fluid, c.gpt, c.mesh
-    axes, stages, micro = GRIDS[name]
+    axes, stages, _ = ALL_GRIDS[name]
     grid = mesh.make_mesh(mesh.MeshConfig(**axes))
     d, n = grid.coords()["dp"], grid.dp
-    main, startup, loss = program(fluid, gpt, B // n, stages, micro)
+    main, startup, loss = grid_program(fluid, gpt, name, B // n)
     comp = fluid.CompiledProgram(main).with_data_parallel(
         loss_name=loss.name, mesh=grid)
     exe = fluid.Executor(c.place)
@@ -201,11 +230,11 @@ def main(path):
         args = json.load(f)
     c = Ctx(args)
     arrays, flags = {}, {}
-    for name in GRIDS:
+    for name in args.get("grids", GRIDS):
         out, fl = train(c, name)
         arrays.update({f"{name}/{k}": v for k, v in out.items()})
         flags[name] = fl
-    if c.rank == 0:
+    if c.rank == 0 and args.get("plain", True):
         for stages in (4, 2):
             params, losses = plain(c, stages, 4)
             arrays.update({f"plain{stages}/{k}": v
