@@ -544,9 +544,45 @@ NVIDIA GPU.
       a card beside the one-card run's, NCCL kernels and ms a step by
       kind, idle share from a profiled slab, and the share of tokens
       each MoE layer dropped at step 0 (from its gate inputs).
+    Both phases also run ep 2 x tp 2 (``gpt.apply_tp_sharding``, the
+    experts whole on the tp ranks; K1/K3/K4 at B8 H6 in the kernel
+    shapes), and moe_parity ep 2 x sp 2 (every layer
+    a MoE layer, non-causal) and pp 2 x ep 2 (the dense layers in a
+    2-stage pipeline, one MoE layer after it).
     ``--only-moe`` runs these alone (no kernels line, no ok line). On
-    one card each family's phases (dp, tp, sp, pp, moe) run in one
-    resident worker process (``resident``), not a process each.
+    one card the phases of every family (dp, tp, sp, pp, moe, dcn) run
+    in one resident worker process (``resident``), not a process each.
+    Multi-slice data parallelism, after the moe phases, at N =
+    every card (two slices of two on four cards; at N = 1 dcn_dp 1
+    through the same code, the line saying that no multi-slice was
+    measured): first ``dcn_kernel_shapes``, K1 and K2 against their
+    plain versions at dcn_bert's attention (B4 H12 S2048 D64 bf16,
+    non-causal, key bias), beside SDPA, not counted; then
+    - dcn_bert: fleet_bert's step (BERT-base, flash, bf16 AMP, Adam at
+      noam_decay, dropout 0) over a global B16 S2048 P64 split over
+      dcn_dp x dp dcn-major, through
+      ``with_data_parallel(mesh=make_mesh(MeshConfig(dcn_dp=2,
+      dp=2)))`` with the decomposed grad sync, the same compiled
+      program with the flat one (``FLAGS_dcn_hierarchical`` off) and
+      dp 4 (at ``ONE_CARD_LAYERS`` on one card), each from one start:
+      K eager steps against a run_steps slab of 4 (bitwise), the
+      parameters equal on every rank, the rank-mean losses of the runs
+      within ``DCN_LOSS_RTOL``, the gate (``parallel.dcn``) passing the
+      decomposed run and flagging only the flat all-reduce in the flat
+      one, K1 and K2 12 a step on every rank, all bf16; ms a step and
+      tokens/s, NCCL kernels and ms a step by kind, idle share, peak
+      GB a card, the gate's bytes by group and the bytes across slices
+      of flat over decomposed; the four cards share one NVLink domain;
+    - slice_drill: a narrow BERT (2 layers, hidden 256, S128) under
+      ``train.SliceSupervisor`` over two slices (two virtual slices in
+      a world of 1 on one card), checkpoints every slab: slice 1's
+      beats dropped through ``train.slice_heartbeat``, the run shrinks
+      to dcn_dp 1 on slice 0 at the same global batch and regrows; the
+      events JAX's (slice_lost, then slice_rejoined), every slab trained
+      once, and slice 0's state at the regrow bitwise a never-failed
+      narrow run's from the shrink's checkpoint; recovery seconds split
+      into drain, checkpoint, rebuild, restore and capture.
+    ``--only-dcn`` runs these alone (no kernels line, no ok line).
 14. The core layer surface, last among the main paths:
     - gpt_programs: GPT's generation programs built from the registered
       decode ops (``models.gpt.gpt_prefill``, ``gpt_decode_step``,
@@ -6004,10 +6040,9 @@ _RESIDENT = {}
 class resident:
     """A context in which every phase launched at N = 1 runs in one
     worker process (one rank through the port's launcher, started once,
-    ``--dp-serve``) instead of a process of its own: the phases of one
-    family (dp, tp, sp, pp, moe) share a process start, an ``import
-    torch`` and a CUDA context, which a one-card run otherwise pays per
-    phase. Each phase still zeroes the kernel counts before it and
+    ``--dp-serve``) instead of a process of its own: the phases share a
+    process start, an ``import torch`` and a CUDA context, which a
+    one-card run otherwise pays per phase. Each phase still zeroes the kernel counts before it and
     writes its own record; the worker stops on exit."""
 
     def __init__(self, torch, on=True, cpu=False):
@@ -6196,7 +6231,8 @@ def _run_phase(argpath):
           "tp_serving": _tp_serving, "sp_parity": _sp_parity,
           "sp_bert": _sp_bert, "pp_parity": _pp_parity,
           "pp_gpt": _pp_gpt, "moe_parity": _moe_parity,
-          "moe_gpt": _moe_gpt}[args["phase"]]
+          "moe_gpt": _moe_gpt, "dcn_bert": _dcn_bert,
+          "slice_drill": _slice_drill}[args["phase"]]
     from paddle_tpu_torch import kernels
     for w in kernels.COUNTED:
         w.launches = 0
@@ -8840,22 +8876,44 @@ MOE_PARITY = {"cfg": {"vocab_size": 1024, "hidden_size": 256,
               "lr": 1e-3}
 
 
-def moe_grids(n):
-    """The grids of the moe phases on ``n`` cards: (tag, mesh axes).
-    Four cards: ep 4 (2 experts a card) and ep 2 x dp 2 (4 experts a
-    card, 4 rows a dp rank); two: ep 2; one: ep 1 through the same
-    code."""
-    return {4: [("ep4", {"ep": 4}), ("ep2dp2", {"ep": 2, "dp": 2})],
-            2: [("ep2", {"ep": 2})]}.get(n, [("ep1", {})])
+def moe_grids(n, name="moe_gpt"):
+    """The grids of the moe phases on ``n`` cards: (tag, mesh axes, what
+    the grid changes of the phase's run dict). Four cards: ep 4 (2
+    experts a card), ep 2 x dp 2 (4 experts a card, 4 rows a dp rank)
+    and ep 2 x tp 2 (``gpt.apply_tp_sharding``: the attention and the
+    dense FFNs split, the experts whole on the tp ranks); ``moe_parity``
+    also ep 2 x sp 2 (every layer a MoE layer, non-causal: the kernels
+    take no query offset under the sequence split) and pp 2 x ep
+    2 (the dense layers in a 2-stage pipeline of 2 microbatches, one MoE
+    layer after it); two: ep 2; one: ep 1 through the same code."""
+    grids = {4: [("ep4", {"ep": 4}, {}), ("ep2dp2", {"ep": 2, "dp": 2}, {}),
+                 ("ep2tp2", {"ep": 2, "tp": 2}, {})],
+             2: [("ep2", {"ep": 2}, {})]}.get(n, [("ep1", {}, {})])
+    if n == 4 and name == "moe_parity":
+        grids += [("ep2sp2", {"ep": 2, "sp": 2},
+                   {"moe_every": 1, "causal": False}),
+                  ("pp2ep2", {"pp": 2, "ep": 2},
+                   {"pipe_stages": 2, "micro": 2})]
+    return grids
 
 
-def moe_program(fluid, gpt, cfg, rows, S, run, seed=13):
+def moe_program(fluid, gpt, cfg, rows, S, run, seed=13, axes=None):
     """A Switch GPT: ``gpt_pretrain``'s body with the FFN of every other
-    decoder layer (1, 3, ...) a ``switch_moe`` over the ``[rows * S,
-    hidden]`` states (the rest of ``gpt.decoder_layer``'s body as is),
-    the loss the LM loss + ``aux_w`` x the mean of the aux losses, Adam
-    at ``run["lr"]``. Takes either package's ``fluid`` and ``gpt``:
-    (main, startup, loss, the MoE layers' inputs)."""
+    decoder layer (1, 3, ...; every layer at ``run["moe_every"]`` 1) a
+    ``switch_moe`` over the ``[rows * S, hidden]`` states (the rest of
+    ``gpt.decoder_layer``'s body as is; its attention non-causal at
+    ``run["causal"]`` False), the loss the LM loss + ``aux_w`` x the
+    mean of the aux losses, Adam at ``run["lr"]``. ``run["pipe_stages"]``:
+    the dense layers in a ``layers.Pipeline`` of that many stages over
+    ``run["micro"]`` microbatches (``PipelineOptimizer``), then one MoE
+    layer. ``axes``: a ``tp`` axis annotates the split as
+    ``gpt.apply_tp_sharding``, an ``sp`` one pins the embeddings' output
+    to ``("dp", "sp", None)``. Takes either package's ``fluid`` and
+    ``gpt``: (main, startup, loss, the MoE layers' inputs)."""
+    axes = axes or {}
+    every = run.get("moe_every", 2)
+    causal = run.get("causal", True)
+    stages = run.get("pipe_stages")
     L = fluid.layers
     init = fluid.initializer
     h, nh = cfg.hidden_size, cfg.num_heads
@@ -8889,7 +8947,7 @@ def moe_program(fluid, gpt, cfg, rows, S, run, seed=13):
             t = L.slice(qkv, axes=[2], starts=[j * h], ends=[(j + 1) * h])
             heads.append(L.transpose(L.reshape(t, [0, 0, nh, h // nh]),
                                      [0, 2, 1, 3]))
-        ctx = L.flash_attention(*heads, causal=True)
+        ctx = L.flash_attention(*heads, causal=causal)
         ctx = L.reshape(L.transpose(ctx, [0, 2, 1, 3]), [0, 0, h])
         attn = L.dropout(fc(ctx, h, f"{pre}_att_out"), cfg.dropout,
                          dropout_implementation="upscale_in_train")
@@ -8914,9 +8972,22 @@ def moe_program(fluid, gpt, cfg, rows, S, run, seed=13):
                         param_attr=normal("pos_embedding")))
         x = L.dropout(x, cfg.dropout,
                       dropout_implementation="upscale_in_train")
+        if axes.get("sp", 1) > 1:
+            x = L.collective.shard(x, "dp", "sp", None)
         auxes, moe_in = [], []
-        for i in range(cfg.num_layers):
-            if i % 2:
+        if stages:
+            pipe = L.Pipeline(num_stages=stages,
+                              num_microbatches=run["micro"])
+            with pipe.stage():
+                y = pipe.stage_input(x)
+                for i in range(cfg.num_layers // stages):
+                    y = gpt.decoder_layer(cfg, y, i, False)
+                pipe.stage_output(y)
+            x, aux, f = moe_layer(pipe(), cfg.num_layers)
+            auxes.append(aux)
+            moe_in.append(f)
+        for i in range(0 if stages else cfg.num_layers):
+            if i % every == every - 1:
                 x, aux, f = moe_layer(x, i)
                 auxes.append(aux)
                 moe_in.append(f)
@@ -8936,7 +9007,13 @@ def moe_program(fluid, gpt, cfg, rows, S, run, seed=13):
         if auxes:
             loss = L.elementwise_add(loss, L.scale(
                 L.sums(auxes), run["aux_w"] / len(auxes)))
-        fluid.optimizer.Adam(run["lr"]).minimize(loss)
+        if axes.get("tp", 1) > 1:
+            gpt.apply_tp_sharding(main, cfg)
+        opt = fluid.optimizer.Adam(run["lr"])
+        if stages:
+            opt = fluid.optimizer.PipelineOptimizer(
+                opt, num_microbatches=run["micro"])
+        opt.minimize(loss)
     return main, startup, loss, moe_in
 
 
@@ -8981,11 +9058,13 @@ def _moe_parity(torch, np, args, rank, n, place):
     exe = fluid.Executor(place)
     feeds = [gpt.random_batch(cfg, B, S, rng=np.random.default_rng(710 + i))
              for i in range(p["steps"])]
-    for tag, axes in moe_grids(n):
+    for tag, axes, over in moe_grids(n, "moe_parity"):
         grid = _pp_world(axes)
         d, dp = grid.coords()["dp"], grid.dp
         mine = [_pp_rows(f, d, dp) for f in feeds]
-        main, startup, loss, _ = moe_program(fluid, gpt, cfg, B // dp, S, p)
+        q = dict(p, **over)
+        main, startup, loss, _ = moe_program(fluid, gpt, cfg, B // dp, S, q,
+                                             axes=axes)
         comp = fluid.CompiledProgram(main).with_data_parallel(
             loss_name=loss.name, mesh=grid)
         s0 = fluid.Scope()
@@ -9007,7 +9086,7 @@ def _moe_parity(torch, np, args, rank, n, place):
                 "slices": len(getattr(comp.program, "_ep_layouts", {})),
                 "digest": _state_digest(torch, whole.items())}
         if rank == 0:
-            pmain, _, ploss, _ = moe_program(fluid, gpt, cfg, B, S, p)
+            pmain, _, ploss, _ = moe_program(fluid, gpt, cfg, B, S, q)
             sp_ = copied_scope(torch, fluid, s0)
             plain = [exe.run(pmain, feed=f, fetch_list=[ploss],
                              scope=sp_)[0] for f in feeds]
@@ -9066,7 +9145,7 @@ def _moe_gpt(torch, np, args, rank, n, place):
                       scope=scope)
         return got[0], moe_dropped(torch, got[1:], gws, run, B * S)
 
-    for tag, axes in moe_grids(n):
+    for tag, axes, _ in moe_grids(n):
         grid = _pp_world(axes)
         c = grid.coords()
         d, dp = c["dp"], grid.dp
@@ -9075,7 +9154,7 @@ def _moe_gpt(torch, np, args, rank, n, place):
                  for k, v in _pp_rows(f, d, dp).items()} for f in feeds]
         slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
         main, startup, loss, moe_in = moe_program(fluid, gpt, cfg, rows, S,
-                                                  run)
+                                                  run, axes=axes)
         comp = fluid.CompiledProgram(main).with_data_parallel(
             loss_name=loss.name, mesh=grid)
         scope = fluid.Scope()
@@ -9137,8 +9216,12 @@ def _moe_gpt(torch, np, args, rank, n, place):
                       "peak_mem_gb": _peak_from(torch, cuda, base)})
         params = [q.name for q in main.all_parameters()]
         experts = set(getattr(comp.program, "_ep_layouts", {}))
+        # the state no axis splits: equal on every rank, tp ranks too
+        shards = set(getattr(comp.program, "_tp_layouts", {}))
         r["digest_replicated"] = _state_digest(torch, [
-            (q, scope.find_var(q)) for q in params if q not in experts])
+            (q, scope.find_var(q)) for q in params
+            if q not in experts and q not in shards])
+        r["tp_shards"] = len(shards & set(params))
         # the gathered save, each rank's expert slices read back from it
         out_dir = os.path.join(MOE_DIR, f"save_{tag}")
         if experts:
@@ -9273,6 +9356,9 @@ def moe_phase(torch, np, name, nproc, args=None, timeout=900):
         rec["cases"] = [{k: c.get(k) for k in (
             "grid", "losses", "plain_losses", "slices",
             "max_err_of_model_max", "worst")} for c in r0["cases"]]
+        rec["rank_losses"] = {c["grid"]: [r["cases"][i]["losses"]
+                                          for r in ranks]
+                              for i, c in enumerate(r0["cases"])}
         rec["slab_bitwise"] = all(c["slab_bitwise"] for r in ranks
                                   for c in r["cases"])
     else:
@@ -9323,19 +9409,469 @@ def moe_phases(torch, np, counters, name, n=None, args=None):
 
 def moe_kernel_shapes(torch, fa):
     """K1, K3 and K4 against their plain versions at moe_gpt's attention
-    shapes (B8 at ep 4, B4 at ep 2 x dp 2's rows; H12 S2048 D64, float32,
-    causal, the packed qkv views), each timed beside SDPA's forward or
-    backward with the same causal mask; not counted."""
+    shapes (B8 H12 at ep 4, B4 H12 at ep 2 x dp 2's rows, B8 H6 at ep 2 x
+    tp 2's heads; S2048 D64, float32, causal, the packed qkv views), each
+    timed beside SDPA's forward or backward with the same causal mask;
+    not counted."""
     recs = []
-    for B in (4, 8):
-        recs.append(flash_phase(torch, fa, B, 12, 2048, 64, "float32",
-                                True, False, seed=2401 + B, packed=True))
+    for B, H in ((4, 12), (8, 12), (8, 6)):
+        recs.append(flash_phase(torch, fa, B, H, 2048, 64, "float32",
+                                True, False, seed=2401 + B + H,
+                                packed=True))
         for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
-            recs.append(bwd_phase(torch, fa, name, B, 12, 2048, 64,
-                                  "float32", True, False, seed=2411 + B,
-                                  packed=True))
+            recs.append(bwd_phase(torch, fa, name, B, H, 2048, 64,
+                                  "float32", True, False,
+                                  seed=2411 + B + H, packed=True))
         torch.cuda.empty_cache()
     emit({"phase": "moe_kernel_shapes", **CARD, "rows": [
+        {k: r[k] for k in ("phase", "B", "H", "ms", "plain_ms", "library_ms",
+                           "bound_ms", "bound_by", "max_abs_err", "ok")}
+        for r in recs]})
+    return recs
+
+
+# ------------------------------------------- multi-slice data parallelism
+
+DCN_DIR = os.path.join(ROOT, "build", "chip_smoke_dcn")
+# dcn_bert: fleet_bert's step (BERT-base, flash, bf16 AMP, Adam at
+# noam_decay, dropout 0) at bench_bert_long's S2048 P64 over a global
+# batch of 16 split over dcn_dp x dp dcn-major (4 rows a card on four
+# cards), run_steps slabs of K 4 captured with the collectives inside
+DCN_BERT = {"B": 16, "S": 2048, "P": 64, "K": 4, "seed": 250}
+# the rank-mean losses of the flat and the dp 4 runs against the
+# decomposed run's: the same program, rows and start, the grads summed
+# in another order (float32 grads, bf16 activations: a weight a last
+# ulp off can move a bf16 rounding); a bf16 tolerance, written before
+# the first run on a card
+DCN_LOSS_RTOL = 1e-2
+DCN_LABEL_OPS = ("hier_allreduce", "c_coalesced_allreduce_sum")
+# slice_drill: a narrow BERT (2 layers, hidden 256, S128 P8, flash,
+# float32, dropout 0, Adam 1e-3) under train.SliceSupervisor over two
+# slices, a global batch of 16, slabs of 2 steps, a checkpoint every
+# slab; slice 1's beats are dropped at the exchanges of rounds 2-5, so it
+# is lost after the window (round 4) and rejoins (round 7)
+SLICE_DRILL = {"cfg": {"vocab_size": 1024, "hidden_size": 256,
+                       "num_layers": 2, "num_heads": 4, "ffn_size": 1024,
+                       "max_position": 512, "hidden_dropout": 0.0,
+                       "attn_dropout": 0.0, "attn_mechanism": "flash"},
+               "B": 16, "S": 128, "P": 8, "K": 2, "slabs": 10, "lr": 1e-3,
+               "dead": [2, 6], "seed": 260}
+
+
+def dcn_grids(n):
+    """dcn_bert's runs on ``n`` cards: (tag, mesh axes,
+    ``FLAGS_dcn_hierarchical``). Four cards: two slices of two with the
+    decomposed sync, the same compiled program with the flat one, and dp
+    4; elsewhere dp over every card (dcn_dp 1 through the same code)."""
+    if n == 4:
+        return [("hier", {"dcn_dp": 2, "dp": 2}, True),
+                ("flat", {"dcn_dp": 2, "dp": 2}, False),
+                ("dp4", {"dp": 4}, True)]
+    return [(f"dp{n}", {"dp": n}, True)]
+
+
+def _dcn_bert(torch, np, args, rank, n, place):
+    """BERT-base (``DCN_BERT``) through ``with_data_parallel(mesh=...)``
+    on each run of :func:`dcn_grids`, each from the same start on the
+    same global batches: K eager steps against a run_steps slab (bitwise),
+    a timed slab, a profiled slab (NCCL kernels by kind, idle), the
+    device ms of the sync ops in an annotated eager step, the peak, and
+    the gate's report; each run's captured steps freed before the
+    next."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import mesh
+    run = args["run"]
+    B, S, P, K = run["B"], run["S"], run["P"], run["K"]
+    cfg = bert_config(args.get("layers"), "flash", dropout=0.0,
+                      max_position=max(S, 512))
+    feeds = [bert.random_batch(cfg, B, S, P,
+                               rng=np.random.default_rng(run["seed"] + i))
+             for i in range(2)]
+    exe = fluid.Executor(place)
+    rec = {"B": B, "S": S, "P": P, "K": K, "layers": cfg.num_layers,
+           "runs": {}}
+    built, start = {}, None
+    for tag, axes, hier in dcn_grids(n):
+        grid = mesh.make_mesh(mesh.MeshConfig(**axes))
+        c, nd = grid.coords()[mesh.DATA_AXIS], grid.axis_size(mesh.DATA_AXIS)
+        rows = B // nd
+        key = tuple(sorted(axes.items()))
+        if key not in built:
+            main, startup, out, _, _ = build_bert(cfg, rows, S, P)
+            built[key] = (main, startup, out, fluid.CompiledProgram(
+                main).with_data_parallel(loss_name=out["loss"].name,
+                                         mesh=grid))
+        main, startup, out, comp = built[key]
+        fluid.set_flags({"FLAGS_dcn_hierarchical": hier})
+        pool = [{k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            exe.device) for k, v in bert.split_batch(f, c, nd).items()}
+            for f in feeds]
+        scope0 = fluid.Scope()
+        exe.run(startup, scope=scope0)
+        if start is None:
+            start = {k: v.detach().clone() for k, v in scope0.items()
+                     if isinstance(v, torch.Tensor)}
+        for k, v in start.items():
+            scope0.set(k, v.detach().clone())
+        comp.hier_report = None
+        r = _dp_train(torch, np, fluid, exe, comp, startup, out["loss"],
+                      pool, K, DCN_LABEL_OPS, startup_scope=scope0)
+        ops = comp.program.global_block().ops
+        r.update({"axes": axes, "hierarchical": hier, "rows": rows,
+                  "coords": grid.coords(),
+                  "hier_ops": sum(o.type == "hier_allreduce" for o in ops),
+                  "allreduce_buckets": sum(
+                      o.type == "c_coalesced_allreduce_sum" for o in ops),
+                  "gate": getattr(comp, "hier_report", None)})
+        rec["runs"][tag] = r
+        _release(torch, exe)
+    fluid.set_flags({"FLAGS_dcn_hierarchical": True})
+    return rec
+
+
+def _drill_program(fluid, bert, cfg, rows, S, P, lr):
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        out = bert.bert_pretrain(cfg, rows, S, P)
+        fluid.optimizer.AdamOptimizer(lr).minimize(out["loss"])
+    return main, startup, out["loss"]
+
+
+def _ckpt_by_slab(ckdir):
+    """{slab: checkpoint directory} of a TrainCheckpoint directory."""
+    from paddle_tpu_torch import train
+    out = {}
+    for d in sorted(os.listdir(ckdir)):
+        st = os.path.join(ckdir, d, train.TRAIN_STATE_FILE)
+        if os.path.isfile(st):
+            with open(st) as f:
+                out[json.load(f)["slab"]] = os.path.join(ckdir, d)
+    return out
+
+
+def _same_files(a, b):
+    """Whether two checkpoint directories hold the same state files bit
+    for bit (the manifest and train state aside)."""
+    names = sorted(f for f in os.listdir(a) if f.endswith(".npy"))
+    if names != sorted(f for f in os.listdir(b) if f.endswith(".npy")):
+        return False
+    for f in names:
+        with open(os.path.join(a, f), "rb") as x, \
+                open(os.path.join(b, f), "rb") as y:
+            if x.read() != y.read():
+                return False
+    return bool(names)
+
+
+def _slice_drill(torch, np, args, rank, n, place):
+    """``train.SliceSupervisor`` over two slices of n/2 cards (one card:
+    two virtual slices in a world of 1 on a fake clock, the control loop
+    alone): the narrow BERT of ``SLICE_DRILL`` over the global slabs,
+    slice 1's beats dropped (``train.slice_heartbeat``) at the exchanges
+    of rounds ``dead``: the run shrinks to dcn_dp 1 on slice 0 and
+    regrows. Then, on slice 0, the control: the checkpoint written at the
+    shrink restored by a never-failed narrow ``TrainingSupervisor`` and
+    run to the regrow's boundary, its state files bitwise the elastic
+    run's there."""
+    import shutil
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import resilience, train
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import mesh
+    run = args["run"]
+    B, S, P, K, lr = run["B"], run["S"], run["P"], run["K"], run["lr"]
+    cfg = bert.BertConfig(**run["cfg"])
+    per = max(n // 2, 1)
+    ck = os.path.join(DCN_DIR, "drill")
+    if rank == 0:
+        shutil.rmtree(DCN_DIR, ignore_errors=True)
+        os.makedirs(DCN_DIR)
+    mesh.barrier()
+    slabs = []
+    for i in range(run["slabs"]):
+        fs = [bert.random_batch(cfg, B, S, P, rng=np.random.default_rng(
+            run["seed"] + i * K + j)) for j in range(K)]
+        slabs.append({k: np.stack([f[k] for f in fs]) for k in fs[0]})
+    _, _, loss = _drill_program(fluid, bert, cfg, B, S, P, lr)
+
+    def build(width, devices):
+        rows = B // (width * per) if n > 1 else B
+        main, startup, _ = _drill_program(fluid, bert, cfg, rows, S, P, lr)
+        grid = mesh.make_mesh(mesh.MeshConfig(dcn_dp=width if n > 1 else 1,
+                                              dp=per), devices=devices)
+        return {"executor": fluid.Executor(place),
+                "program": fluid.CompiledProgram(main).with_data_parallel(
+                    loss_name=loss.name, mesh=grid),
+                "startup_program": startup, "scope": fluid.Scope()}
+
+    dead = range(*run["dead"])
+    t = [0.0]
+    box, widths, seen, losses = [], [], [], []
+
+    def on_slab_end(slab_idx, step, fetches):
+        widths.append(box[0].width)
+        seen.append(slab_idx)
+        losses.append(float(np.ravel(fetches[0])[-1]))
+        if n == 1:         # two virtual slices: JAX's drill's beats
+            t[0] += 1.0
+            box[0].beat(0, now=t[0])
+            if slab_idx not in dead:
+                box[0].beat(1, now=t[0])
+
+    def drop(point, ctx):
+        if box[0].slice == 1 and ctx["round"] in dead:
+            return resilience.FaultInjected("slice 1 is down")
+        return None
+
+    t0 = time.perf_counter()
+    sup = train.SliceSupervisor(
+        build, ck, slices=2, heartbeat_timeout_s=1.5, window=2,
+        cooldown_s=0.0, clock=(lambda: t[0]) if n == 1
+        else (lambda: box[0].rounds if box else 0),
+        split=lambda slab, i, c: bert.split_batch(slab, i, c, axis=1),
+        steps_per_run=K, checkpoint_every_n_slabs=1, max_to_keep=64,
+        on_slab_end=on_slab_end)
+    box.append(sup)
+    with resilience.fault_injection("train.slice_heartbeat", exc=drop,
+                                    times=-1):
+        res = sup.run_slabs(slabs, fetch_list=[loss.name])
+    rec = {"B": B, "S": S, "K": K, "slabs": run["slabs"],
+           "slices": 2, "per_slice": per, "seconds": time.perf_counter() - t0,
+           "dcn_dp": res["dcn_dp"], "idle": bool(res.get("idle")),
+           "events": res["slice_events"], "widths": widths, "seen": seen,
+           "losses": losses, "rounds": sup.rounds}
+    if sup.supervisor is not None:
+        sup.supervisor.executor.close()
+    lost = [e for e in res["slice_events"] if e["event"] == "slice_lost"]
+    back = [e for e in res["slice_events"] if e["event"] == "slice_rejoined"]
+    mesh.activate(None)
+    mesh.barrier()
+    if rank < per and lost and back:
+        # the control, on slice 0: narrow from the shrink's checkpoint to
+        # the regrow's boundary
+        by_slab = _ckpt_by_slab(ck)
+        at_lost = widths.index(1) if 1 in widths else None
+        at_back = len(widths) - widths[::-1].index(1) if 1 in widths \
+            else None
+        ctl = os.path.join(DCN_DIR, "control")
+        if rank == 0:
+            shutil.rmtree(ctl, ignore_errors=True)
+            os.makedirs(ctl)
+            shutil.copytree(by_slab[at_lost], os.path.join(
+                ctl, os.path.basename(by_slab[at_lost])))
+        mesh.barrier(mesh.make_mesh(mesh.MeshConfig(dp=per),
+                                    devices=list(range(per)))
+                     if n > 1 else None)
+        narrow = build(1, list(range(per)) if n > 1 else None)
+
+        def stop(slab_idx, step, fetches):
+            if slab_idx == at_back:
+                train.request_preemption("control")
+
+        ctl_sup = train.TrainingSupervisor(
+            narrow["executor"], narrow["program"], ctl,
+            startup_program=narrow["startup_program"],
+            scope=narrow["scope"], steps_per_run=K,
+            checkpoint_every_n_slabs=1, max_to_keep=64, on_slab_end=stop)
+        resumed = ctl_sup.resume() is not None
+        m = narrow["program"].mesh
+        try:
+            ctl_sup.run_slabs([bert.split_batch(
+                s, m.coords()[mesh.DATA_AXIS], m.axis_size(mesh.DATA_AXIS),
+                axis=1) for s in slabs], fetch_list=[loss.name])
+            preempted = False
+        except train.PreemptedError:
+            preempted = True
+        train.clear_preemption()
+        narrow["executor"].close()
+        got = _ckpt_by_slab(ctl).get(at_back)
+        rec["control"] = {
+            "from_slab": at_lost, "to_slab": at_back, "resumed": resumed,
+            "preempted": preempted,
+            "bitwise": got is not None and at_back in by_slab
+            and _same_files(got, by_slab[at_back])}
+    mesh.activate(None)
+    mesh.barrier()
+    return rec
+
+
+def _dcn_failures(name, ranks, args):
+    import numpy as np
+    bad = []
+    if name == "slice_drill":
+        r0 = ranks[0]
+        events = [e["event"] for e in r0["events"]]
+        if events != ["slice_lost", "slice_rejoined"]:
+            bad.append(f"slice_drill: events {events}, not JAX's "
+                       f"slice_lost then slice_rejoined")
+        if r0["seen"] != list(range(1, r0["slabs"] + 1)):
+            bad.append(f"slice_drill: slabs {r0['seen']} dropped or "
+                       f"trained twice")
+        ctl = r0.get("control")
+        if not ctl or not (ctl["resumed"] and ctl["preempted"]
+                           and ctl["bitwise"]):
+            bad.append(f"slice_drill: the narrow run from the shrink's "
+                       f"checkpoint is not the elastic run's: {ctl}")
+        if any([e["event"] for e in r["events"]] != events for r in ranks):
+            bad.append("slice_drill: the ranks applied other changes")
+        if not all(math.isfinite(x) for x in r0["losses"]):
+            bad.append(f"slice_drill: a loss is not finite {r0['losses']}")
+        return bad
+    r0 = ranks[0]
+    want_k = r0["layers"]
+    first = next(iter(r0["runs"]))
+    ref = np.mean([r["runs"][first]["slab_losses"] for r in ranks], 0)
+    for tag in r0["runs"]:
+        runs = [r["runs"][tag] for r in ranks]
+        if any(x["digest"] != runs[0]["digest"] for x in runs):
+            bad.append(f"dcn_bert {tag}: parameters differ across ranks")
+        for r in ranks:
+            x = r["runs"][tag]
+            if not x["slab_bitwise"]:
+                bad.append(f"dcn_bert {tag}: rank {r['rank']}'s run_steps "
+                           f"is not its eager steps {x['scope_diff']}")
+            per = x["launches_per_step_run_steps"]
+            bf = x["bf16_launches_per_step_run_steps"]
+            if not args.get("cpu") and any(
+                    per[k] != want_k or bf[k] != want_k
+                    for k in DP_BERT_KERNELS):
+                bad.append(f"dcn_bert {tag}: rank {r['rank']} launched "
+                           f"{per} (bf16 {bf}) a step, not {want_k} of "
+                           f"K1 and K2, all bf16")
+        mean = np.mean([x["slab_losses"] for x in runs], 0)
+        if not np.all(np.isfinite(mean)) or np.any(
+                np.abs(mean - ref) > DCN_LOSS_RTOL * np.abs(ref)):
+            bad.append(f"dcn_bert {tag}: rank-mean losses {mean.tolist()} "
+                       f"off the {first} run's {ref.tolist()} (rtol "
+                       f"{DCN_LOSS_RTOL})")
+        gate = runs[0]["gate"]
+        if tag == "hier" and (gate is None or gate["violations"]):
+            bad.append(f"dcn_bert hier: the gate did not pass: {gate}")
+        if tag == "flat" and (gate is None or not all(
+                "shard is" in v or "do not beat" in v
+                for v in gate["violations"])):
+            bad.append(f"dcn_bert flat: the gate flagged more than the "
+                       f"flat all-reduce: {gate}")
+    return bad
+
+
+def dcn_phase(torch, np, name, nproc, args=None, timeout=900):
+    """One multi-slice phase at ``nproc`` ranks (one a card), checked and
+    printed with the card, its power limit and N. Returns the record."""
+    args = dict(args or {})
+    if nproc == 1 and name == "dcn_bert" and not args.get("cpu"):
+        args.setdefault("layers", ONE_CARD_LAYERS["fleet_bert"])
+    args.setdefault("run", {"dcn_bert": DCN_BERT,
+                            "slice_drill": SLICE_DRILL}[name])
+    # a membership protocol out of step is a hang: the drill's launch
+    # gets a short deadline
+    ranks, launch = dp_launch(torch, name, nproc, args,
+                              300 if name == "slice_drill" else timeout)
+    rec = {"phase": name, **CARD, "N": nproc, "launch": launch}
+    bad = _dcn_failures(name, ranks, args)
+    r0 = ranks[0]
+    if name == "slice_drill":
+        rec.update({k: r0[k] for k in ("B", "S", "K", "slabs", "per_slice",
+                                       "seconds", "dcn_dp", "events",
+                                       "widths", "seen", "losses",
+                                       "rounds")})
+        rec["control"] = r0.get("control")
+        rec["idle_at_end"] = [r["idle"] for r in ranks]
+        rec["recovery_split"] = [
+            {k: e.get(k) for k in ("event", "drain_s", "checkpoint_s",
+                                   "rebuild_s", "restore_s", "capture_s",
+                                   "recovery_s")} for e in r0["events"]]
+    else:
+        rec.update({k: r0[k] for k in ("B", "S", "P", "K", "layers")})
+        rec["runs"] = {}
+        for tag in r0["runs"]:
+            runs = [r["runs"][tag] for r in ranks]
+            slow = max(runs, key=lambda x: x["run_steps_ms_per_step"])
+            row = {k: runs[0].get(k) for k in (
+                "axes", "hierarchical", "rows", "hier_ops",
+                "allreduce_buckets", "slab_losses", "eager_losses",
+                "launches_per_step_run_steps",
+                "bf16_launches_per_step_run_steps", "eager_op_device_ms",
+                "eager_device_ms")}
+            row.update({
+                "rank_mean_losses": np.mean([x["slab_losses"] for x in runs],
+                                            0).tolist(),
+                "run_steps_ms_per_step": slow["run_steps_ms_per_step"],
+                "ms_per_step_by_rank": [x["run_steps_ms_per_step"]
+                                        for x in runs],
+                "tokens_per_s_total": r0["B"] * r0["S"]
+                / slow["run_steps_ms_per_step"] * 1e3,
+                "eager_ms_per_step": max(x["eager_ms_per_step_median"]
+                                         for x in runs),
+                "capture_s": max(x["capture_s"] for x in runs),
+                "peak_mem_gb_a_card": max(x.get("peak_mem_gb") or 0.0
+                                          for x in runs)})
+            if "profile" in runs[0]:
+                prof = max(runs, key=lambda x: x["profile"]["wall_ms"])
+                pr, K = prof["profile"], r0["K"]
+                row.update({
+                    "idle_share": 1.0 - pr["busy_ms"] / pr["wall_ms"],
+                    "profiled_wall_ms_per_step": pr["wall_ms"] / K,
+                    "nccl_kernels_per_step": len(pr["nccl_us"]) / K,
+                    "nccl_busy_ms_per_step": pr["nccl_busy_ms"] / K,
+                    "nccl_by_kind_per_step": {
+                        k: [v[0] / K, v[1] / K]
+                        for k, v in pr["nccl_by_kind"].items()},
+                    "compute_busy_ms_per_step": pr["compute_busy_ms"] / K})
+            gate = runs[0]["gate"]
+            if gate is not None:
+                row["gate"] = {k: gate[k] for k in (
+                    "rows", "grad_bytes", "cross_slice_wire_bytes",
+                    "flat_estimate_wire_bytes", "violations")}
+                row["gate"]["violations"] = gate["violations"][:3] + (
+                    [f"... {len(gate['violations'])} in all"]
+                    if len(gate["violations"]) > 3 else [])
+            rec["runs"][tag] = row
+        hier, flat = rec["runs"].get("hier"), rec["runs"].get("flat")
+        if hier and flat and hier.get("gate") and flat.get("gate"):
+            rec["cross_slice_bytes_flat_over_hier"] = \
+                flat["gate"]["cross_slice_wire_bytes"] / \
+                hier["gate"]["cross_slice_wire_bytes"]
+        rec["fabric"] = ("all four cards share one NVLink domain: the "
+                         "hier/flat A/B shows what the decomposition "
+                         "costs on one fabric, not what it saves across "
+                         "slices") if nproc > 1 else None
+    if nproc == 1:
+        rec["note"] = ("one card: dcn_dp 1 through the same code; no "
+                       "multi-slice was measured")
+        print(f"{name}: {rec['note']}", flush=True)
+    rec["ranks"] = ranks
+    emit({k: v for k, v in rec.items() if k != "ranks"})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def dcn_phases(torch, np, counters, name, n=None, args=None):
+    """Multi-slice phase ``name`` at N = n (default: every card); adds the
+    ranks' kernel launches to ``counters``."""
+    n = n or torch.cuda.device_count()
+    rec = dcn_phase(torch, np, name, n, args)
+    for r in rec["ranks"]:
+        for w, c in r["launches"].items():
+            cw = counters.get(w)
+            if cw is not None:
+                cw.launches += c
+                if hasattr(cw, "bf16_launches"):
+                    cw.bf16_launches += r["bf16_launches"].get(w, 0)
+    return rec
+
+
+def dcn_kernel_shapes(torch, fa):
+    """K1 and K2 against their plain versions at dcn_bert's attention on a
+    card of four (B4 H12 S2048 D64 bf16, non-causal, padded-tail key
+    bias), each timed beside SDPA's forward or backward; not counted."""
+    recs = [flash_phase(torch, fa, 4, 12, 2048, 64, "bfloat16", False, True,
+                        seed=2501, packed=False),
+            bwd_phase(torch, fa, "flash_attention_bwd_single", 4, 12, 2048,
+                      64, "bfloat16", False, True, seed=2502, packed=False)]
+    emit({"phase": "dcn_kernel_shapes", **CARD, "rows": [
         {k: r[k] for k in ("phase", "ms", "plain_ms", "library_ms",
                            "bound_ms", "bound_by", "max_abs_err", "ok")}
         for r in recs]})
@@ -11062,6 +11598,10 @@ def main():
                     "K1, K3 and K4 at the Switch GPT's attention shapes, run "
                     "the expert-parallel paths at N = every card and stop "
                     "(no kernels line, no ok line)")
+    ap.add_argument("--only-dcn", action="store_true", help="build, check "
+                    "K1 and K2 at dcn_bert's attention, run the multi-slice "
+                    "paths (dcn_bert, slice_drill) at N = every card and "
+                    "stop (no kernels line, no ok line)")
     ap.add_argument("--only-dp", action="store_true", help="build, run the "
                     "data-parallel paths at N = every card (no N = 1 runs "
                     "for the scaling line) and stop: a measurement of them "
@@ -11277,8 +11817,9 @@ def main():
 
     def drive_moe():
         """Expert parallelism across cards, one rank a card through the
-        port's launcher at N = every card (ep 4 and ep 2 x dp 2 on four
-        cards, ep 2 on two, ep 1 through the same code on one): K1, K3
+        port's launcher at N = every card (ep 4, ep 2 x dp 2 and ep 2 x
+        tp 2 on four cards, and in moe_parity ep 2 x sp 2 and pp 2 x ep
+        2; ep 2 on two, ep 1 through the same code on one): K1, K3
         and K4 against their plain versions at the Switch GPT's attention
         shapes first (not counted), then moe_parity (the narrow Switch
         GPT: K1 and K2, float32) and moe_gpt (the Switch GPT-base at B8
@@ -11296,20 +11837,45 @@ def main():
                 failures.append(f"the {name} path launched {got}: only "
                                 f"{needs} may launch")
 
+    def drive_dcn():
+        """Multi-slice data parallelism across cards, one rank a card
+        through the port's launcher at N = every card (two slices of two
+        on four cards; dcn_dp 1 through the same code elsewhere): K1 and
+        K2 against their plain versions at dcn_bert's attention first
+        (not counted), then dcn_bert (BERT-base at a global B16 S2048:
+        the decomposed sync, the flat one and dp 4; K1 and K2 12 a step
+        on every rank, all bf16) and slice_drill (a narrow BERT under
+        train.SliceSupervisor: a slice lost and regrown; K1 and K2). The
+        ranks' launches join the counts."""
+        dcn_kernel_shapes(torch, fa)
+        for name in ("dcn_bert", "slice_drill"):
+            _, got, bf16 = drive(name, DP_BERT_KERNELS,
+                                 lambda name=name: dcn_phases(
+                                     torch, np, counters, name))
+            others = {k: c for k, c in got.items()
+                      if c and k not in DP_BERT_KERNELS}
+            if others or (name == "dcn_bert" and any(
+                    bf16[k] != got[k] for k in DP_BERT_KERNELS)):
+                failures.append(f"the {name} path launched {got} (bf16 "
+                                f"{bf16}): only {DP_BERT_KERNELS} may "
+                                f"launch" + (", all bf16" if name ==
+                                             "dcn_bert" else ""))
+
     # on one card each family's phases share one worker process
     one_card = torch.cuda.device_count() == 1
-    only = [w for w in ("dp", "tp", "sp", "pp", "moe")
+    only = [w for w in ("dp", "tp", "sp", "pp", "moe", "dcn")
             if getattr(args, f"only_{w}")]
     if only:
         which = only[0]
         with resident(torch, one_card):
             {"dp": drive_dp, "tp": drive_tp, "sp": drive_sp,
-             "pp": drive_pp, "moe": drive_moe}[which]()
+             "pp": drive_pp, "moe": drive_moe, "dcn": drive_dcn}[which]()
         if failures:
             print(f"failed: {failures}", file=sys.stderr)
             return 1
         kind = {"dp": "data", "tp": "tensor", "sp": "sequence",
-                "pp": "pipeline", "moe": "expert"}[which]
+                "pp": "pipeline", "moe": "expert",
+                "dcn": "multi-slice data"}[which]
         print(f"--only-{which}: the {kind}-parallel paths passed; no other "
               f"phase ran", flush=True)
         return 0
@@ -11410,8 +11976,11 @@ def main():
                        causal=False, with_bias="padded")
         torch.cuda.empty_cache()
 
-    for family in (drive_dp, drive_tp, drive_sp, drive_pp, drive_moe):
-        with resident(torch, one_card):
+    # on one card every family's phases share one worker process (a
+    # worker's start, its import torch and CUDA context, cost ~10-15 s)
+    with resident(torch, one_card):
+        for family in (drive_dp, drive_tp, drive_sp, drive_pp, drive_moe,
+                       drive_dcn):
             family()
 
     # the dygraph paths (they need two eager B256 Transformer steps of

@@ -75,6 +75,23 @@ _DEFS = {
     # the loss, the global grad norm and the update ratio in-graph and
     # evaluates the spike rules; 0 = off (no ops added)
     "train_health_every_n": (0, int),
+    # -- multi-slice training (train/slices, passes hier_grad_sync) --
+    # hier_allreduce decomposes on a pure dcn_dp x dp mesh:
+    # reduce-scatter over dp, all-reduce of the 1/dp shard over dcn_dp,
+    # all-gather over dp. False = one all-reduce over dcn_dp x dp (the
+    # flat A/B baseline of the same program)
+    "dcn_hierarchical": (True, bool),
+    # before the first slab of a hierarchical program, check its grad
+    # sync against the mesh (parallel.dcn.check_hier_sync) and raise
+    # HierarchicalCommsError when it does not decompose or does not pay
+    "dcn_assert_hier": (True, bool),
+    # SliceSupervisor liveness: a slice whose last heartbeat is older
+    # than this many seconds counts one stale observation; membership
+    # changes after this many consecutive stale (or fresh)
+    # observations, and not within the cooldown of the last change
+    "slice_heartbeat_timeout_s": (5.0, float),
+    "slice_window": (3, int),
+    "slice_cooldown_s": (10.0, float),
     # spike rules: breach when the value exceeds this multiple of its
     # trailing EMA
     "train_loss_spike_ratio": (3.0, float),

@@ -26,8 +26,16 @@ non-finite guard (``check_nan_inf``, ``skip_nonfinite_steps``);
 Each takes a ``parallel.CompiledProgram`` too: a data-parallel one runs
 its rewritten program on this rank's rows (``with_data_parallel``), its
 first run on a scope broadcasts the state it reads from rank 0, its
-stochastic ops fold the rank into their seeds and its guard's counts are
-all-reduced (max), so every rank commits or rolls back the same steps.
+stochastic ops fold the rank's data coordinate into their seeds and its
+guard's counts are all-reduced (max), so every rank commits or rolls
+back the same steps. A multi-slice one (a ``dcn_dp`` mesh, its grads
+synced by ``hier_allreduce``) is checked before its first slab by the
+gate of ``parallel.dcn`` (``FLAGS_dcn_assert_hier``, the report kept as
+the ``CompiledProgram``'s ``hier_report``), and the fault point
+``train.allreduce_dcn`` fires before each of its slabs when the sync
+decomposes. ``run`` decomposes it too (the op does it, not the
+executor): the JAX package's single-step run goes flat and records
+``hier_single_step_flat``, the port's does not.
 
 Telemetry (``observability``): ``cache_stats()`` (the memo of prepared
 steps and captured graphs, where the JAX package has its compile cache)
@@ -570,13 +578,24 @@ class Executor:
         from .cuda_graph import CapturedStep
         sig = tuple(sorted((n, tuple(t.shape[1:]), str(t.dtype))
                            for n, t in slab.items()))
+        # a multi-slice program's grad sync: decomposed or flat
+        dcn = _dcn_mode(compiled, step.program)
         key = (program._uid, program.version, sig, tuple(fetch_names),
-               guard, skip, pipeline_signature(), id(step))
+               guard, skip, pipeline_signature(), id(step), dcn)
         entry = self._graphs.get(key) if use_program_cache else None
         if use_program_cache:
             self._cstats["hits" if entry is not None else "misses"] += 1
         if entry is None:
             from ..kernels import COUNTED
+            if dcn is not None:
+                # the pre-run gate of the multi-slice grad sync, before
+                # the first slab (parallel.dcn)
+                from ..parallel.dcn import check_hier_sync, hier_sync_report
+                where = f"fused_program_{program._uid}_x{k_steps}"
+                compiled.hier_report = check_hier_sync(
+                    step.program, compiled.mesh, where) \
+                    if dcn and flag("dcn_assert_hier") else \
+                    hier_sync_report(step.program, compiled.mesh, dcn)
             t_cap = time.perf_counter()
             entry = CapturedStep(step, slab, scope, self.device, guard=guard,
                                  skip=skip, counters=COUNTED)
@@ -592,6 +611,10 @@ class Executor:
         # entry against the supervisor's restarted attempt; a scope
         # deposed meanwhile refuses the slab
         maybe_fail("train.dispatch")
+        if dcn:
+            # the hop across slices: raising is a slice whose collective
+            # fails, delay= a straggling slice
+            maybe_fail("train.allreduce_dcn")
         if scope.deposed is not None:
             raise RuntimeError(f"the scope was deposed ({scope.deposed}): "
                                f"this slab was abandoned and does not run")
@@ -773,6 +796,20 @@ class Executor:
                                        fetch_list, fetch_info, print_period)
 
 
+def _dcn_mode(compiled, program):
+    """How the ``hier_allreduce`` ops of a data-parallel ``program`` run
+    on its mesh: True decomposed, False flat, None when the mesh has no
+    ``dcn_dp`` axis or the program no such op."""
+    mesh = getattr(compiled, "mesh", None)
+    if not getattr(compiled, "_data_parallel", False) or mesh is None \
+            or mesh.dcn_dp == 1 or not any(
+                op.type == "hier_allreduce"
+                for op in program.global_block().ops):
+        return None
+    from ..ops.collective_ops import hierarchical
+    return hierarchical(mesh)
+
+
 class Step:
     """One program (already through the pass pipeline) at one set of fed
     and fetched names: the scope state it reads (``reads``, then
@@ -788,10 +825,11 @@ class Step:
         from ..parallel import mesh as _mesh
         self.program = program
         self.data_parallel = bool(data_parallel) and _mesh.is_initialized()
-        # the dp coordinate on the program's own mesh: the ranks of one
-        # tp group draw alike
-        self.rank = _mesh.axis_rank("dp", mesh) if self.data_parallel \
-            else 0
+        # the data coordinate (c * dp + d) on the program's own mesh: the
+        # ranks of one tp group draw alike, and dcn_dp x dp draws the
+        # masks of a dp run of as many ranks
+        self.rank = _mesh.axis_rank(_mesh.DATA_AXIS, mesh) \
+            if self.data_parallel else 0
         block = program.global_block()
         self.fetch_names = list(fetch_names)
         self.reads, self.writes = analyze_block_io(program, 0, feed_names)
@@ -808,8 +846,9 @@ class Step:
 
     def rng_seed(self, run_seed):
         """The seed this rank's stochastic ops draw from at ``run_seed``:
-        the run seed itself at dp coordinate 0 (and outside data
-        parallelism), one folded with the dp coordinate elsewhere, so
+        the run seed itself at data coordinate 0 (and outside data
+        parallelism), one folded with the data coordinate ``c * dp + d``
+        elsewhere, so
         each dp rank's rows get their own dropout masks while
         ``@RNG_SEED@`` stays equal on every rank. The ranks of one tp
         group share the fold: a replicated activation gets one mask on

@@ -40,9 +40,11 @@ issue the same collectives in the same order. Under
 stream, side effect or persistable write, or leaves a malformed program,
 raises ``analysis.ProgramVerifyError`` naming the pass. Each pass's wall
 time lands in the profiler as ``pass/<name>`` and in the
-``program_pass_*`` registry families. Not ported: the passes
-``hier_grad_sync`` (ROADMAP.md Queue 1 item 7b) and ``quant_aware``
-(item 10).
+``program_pass_*`` registry families. ``hier_grad_sync`` (a copy
+of the JAX pass: one ``hier_allreduce`` after each parameter grad's last
+producer, its readers rewired to ``<grad>@HIER``) makes it multi-slice,
+and ``dp_grad_allreduce`` leaves the grads it syncs alone. Not ported:
+the pass ``quant_aware`` (item 10).
 """
 import time
 
@@ -387,7 +389,9 @@ class DataParallelGradAllreducePass(Pass):
     go in buckets of one dtype and at most ``DP_BUCKET_BYTES``, each one
     ``c_coalesced_allreduce_sum`` issued when its last member is made,
     in backward order. A grad that may hold ``SelectedRows`` (an
-    ``is_sparse`` embedding) raises ``NotImplementedError``. attrs:
+    ``is_sparse`` embedding) raises ``NotImplementedError``. A grad
+    that a ``hier_allreduce`` already syncs (pass ``hier_grad_sync``,
+    a multi-slice program) is left to it. attrs:
     nranks, axis_name (the ring's axis: ``dp``, the default, or
     ``dp_sp`` for a sequence-parallel program), ``stage_ring``
     (``(axis_name, nranks)`` for the grads of the pipeline stage slices
@@ -400,8 +404,11 @@ class DataParallelGradAllreducePass(Pass):
 
     def apply(self, program):
         block = program.global_block()
+        hier = {n for op in block.ops if op.type == "hier_allreduce"
+                for n in op.input("X")}
         wanted = {p.name + "@GRAD": p for p in block.all_parameters()
-                  if getattr(p, "trainable", True)}
+                  if getattr(p, "trainable", True)
+                  and p.name + "@GRAD" not in hier}
         last = {}
         for i, op in enumerate(block.ops):
             for n in op.output_arg_names:
@@ -457,6 +464,84 @@ class DataParallelGradAllreducePass(Pass):
             flush(key)
         block.ops = new_ops
         self._report = report
+
+
+@register_pass("hier_grad_sync")
+class HierGradSyncPass(Pass):
+    """One ``hier_allreduce`` after every parameter grad's last producer:
+    the multi-slice grad sync (a copy of the JAX pass;
+    ``CompiledProgram`` applies it when the mesh has a ``dcn_dp`` axis).
+    Each rank's grad of its rows becomes the global batch's mean grad:
+    reduce-scatter over ``dp``, all-reduce of the 1/dp shard over
+    ``dcn_dp``, all-gather over ``dp`` (``ops.collective_ops``), or one
+    all-reduce over ``dcn_dp+dp`` (the flat path). The synced value is
+    ``<grad>@HIER``, and every later reader of the grad (clips,
+    regularizers, AMP's unscale, the optimizer) is rewired to it; the
+    grads picked are the raw ``<param>@GRAD`` of each optimizer op's
+    parameter, else its Grad input. Idempotent: a grad whose ``@HIER``
+    twin exists is skipped. A rewired op gets new input lists (never a
+    mutated one: ``Operator.to_dict`` shares them). attrs: inner_axis
+    ("dp"; ``dp_sp`` for a sequence-parallel program), outer_axis
+    ("dcn_dp"), ``stage_ring`` (the inner axis of the grads of the
+    pipeline stage slices, ``program._pp_layouts``: ``dp`` beside
+    ``sp``)."""
+
+    inner_axis = "dp"
+    outer_axis = "dcn_dp"
+    stage_ring = None
+    GRAD_SUFFIX = "@GRAD"
+    SYNC_SUFFIX = "@HIER"
+
+    def apply(self, program):
+        for block in program.blocks:
+            self._apply_block(block)
+
+    def _grad_names(self, block):
+        out, seen = [], set()
+        for op in block.ops:
+            if op.attrs.get(OP_ROLE_KEY) != _OpRole.Optimize:
+                continue
+            params = op.input("Param")
+            for i, g in enumerate(op.input("Grad")):
+                if i < len(params):
+                    raw = params[i] + self.GRAD_SUFFIX
+                    if raw in block.vars:
+                        g = raw
+                if g not in seen:
+                    seen.add(g)
+                    out.append(g)
+        return out
+
+    def _apply_block(self, block):
+        rings = {n + self.GRAD_SUFFIX: self.stage_ring
+                 for n in getattr(block.program, "_pp_layouts", {})} \
+            if self.stage_ring else {}
+        for g in self._grad_names(block):
+            synced = g + self.SYNC_SUFFIX
+            if synced in block.vars:
+                continue
+            writers = [i for i, op in enumerate(block.ops)
+                       if g in op.output_arg_names
+                       and op.type != "hier_allreduce"]
+            if not writers:
+                continue
+            idx = writers[-1]
+            v = block.vars.get(g)
+            block.create_var(name=synced,
+                             shape=getattr(v, "shape", None),
+                             dtype=getattr(v, "dtype", "float32"))
+            block._insert_op(
+                idx + 1, "hier_allreduce",
+                inputs={"X": [g]}, outputs={"Out": [synced]},
+                attrs={"inner_axis": rings.get(g, self.inner_axis),
+                       "outer_axis": self.outer_axis,
+                       "mean": True,
+                       OP_ROLE_KEY: _OpRole.Backward})
+            for op in block.ops[idx + 2:]:
+                if g in op.input_arg_names:
+                    op.inputs = {slot: [synced if n == g else n
+                                        for n in names]
+                                 for slot, names in op.inputs.items()}
 
 
 @register_pass("tp_shard")

@@ -41,7 +41,9 @@ cannot reach the snapshot.
 In a data-parallel world (``parallel.mesh``) every rank holds the same
 state, so each save writes one copy, from rank 0, and every rank waits
 for it (a rank other than 0 writes nothing; its ``CheckpointSaver.save``
-returns the number rank 0 committed, its ``save_async`` None). A save
+returns the number rank 0 committed, its ``save_async`` None). Under an
+active mesh over part of the world, its first rank writes and its ranks
+wait. A save
 that fails on rank 0 raises on every rank. Every rank loads. Under
 tensor parallelism the scope holds each rank's shards, under pipeline
 parallelism each pp rank's stage slices ``[1, ...]`` of the stacked
@@ -117,30 +119,43 @@ def _one_writer(follow=None):
                 or global_scope()
             out, err = None, None
             _writing.depth = 1
+            world = _writers()
             try:
                 with gathered(scope):  # every rank: shards, slices
-                    if mesh.rank() == 0:
+                    if _is_writer():
                         out = fn(*args, **kwargs)
             except BaseException as e:  # noqa: BLE001 — told to all ranks
                 err = e
             finally:
                 _writing.depth = 0
-            if mesh.any_failed(err is not None):
+            if mesh.any_failed(err is not None, world):
                 if err is not None:
                     raise err
                 raise RuntimeError(f"{fn.__qualname__} failed on rank 0, "
                                    f"which writes for the world: nothing "
                                    f"was saved")
-            if mesh.rank() != 0 and follow is not None:
+            if not _is_writer() and follow is not None:
                 out = follow(*args, **kwargs)
             return out
         return wrapper
     return deco
 
 
+def _writers():
+    """The ranks that save together: the active mesh's when it spans part
+    of the world and holds this rank (a multi-slice run after a slice was
+    lost), else the world (None)."""
+    from .parallel import mesh
+    m = mesh.active_mesh()
+    if m is not None and m.world_group is not None and mesh.rank() in m:
+        return m
+    return None
+
+
 def _is_writer():
     from .parallel import mesh
-    return mesh.rank() == 0
+    m = _writers()
+    return mesh.rank() == (m.ranks[0] if m is not None else 0)
 
 
 # ---------------------------------------------------------------------------

@@ -36,13 +36,13 @@ def shard(x, *spec):
     first one that names ``sp`` take the rank's chunk of that dim
     (``parallel.sp``). A ``pp`` or an ``ep`` entry is a hint and nothing
     more, as in the JAX package (a pipeline's stages are
-    ``layers.Pipeline``'s, the experts' split is ``switch_moe``'s).
-    Axes other than ``dp``, ``sp``, ``tp``, ``pp`` and ``ep`` raise:
-    item 7b."""
+    ``layers.Pipeline``'s, the experts' split is ``switch_moe``'s), and
+    so is a ``dcn_dp`` one (each rank is fed its rows of the batch, split
+    over ``dcn_dp`` x ``dp``). Other axis names raise."""
     for a in spec:
         for name in (a if isinstance(a, (tuple, list)) else (a,)):
             if name is not None and name not in ("dp", "sp", "tp", "pp",
-                                                 "ep"):
+                                                 "ep", "dcn_dp"):
                 raise not_ported_7b(f"layers.collective.shard over the "
                                     f"{name!r} axis")
     helper = LayerHelper("sharding_constraint")

@@ -261,6 +261,27 @@ def random_batch(cfg, batch_size, seq_len, max_preds, rng=None):
     }
 
 
+def split_batch(feed, index, count, axis=0):
+    """Part ``index`` of ``count`` equal parts of a :func:`random_batch`
+    feed's rows (``axis``: the batch axis, 1 for a slab of steps): the
+    rows of each batch-major array, and the part's block of the
+    flattened masked positions and labels, its positions re-based onto
+    the part's own rows (``mask_pos`` indexes the flattened ``[rows,
+    seq_len]`` tokens). What a data-parallel rank of ``count`` is fed of
+    a global batch."""
+    rows = feed["src_ids"].shape[axis]
+    seq = feed["src_ids"].shape[axis + 1]
+    b = rows // count
+    out = {}
+    for k, v in feed.items():
+        n = np.shape(v)[axis] // count
+        part = np.take(v, np.arange(index * n, (index + 1) * n), axis=axis)
+        if k == "mask_pos":
+            part = part - np.int32(index * b * seq)
+        out[k] = part
+    return out
+
+
 # --------------------------------------------------------------- parameters
 
 def param_shapes(cfg):

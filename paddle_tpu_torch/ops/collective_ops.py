@@ -6,20 +6,23 @@ c_reducescatter_op.cc, c_broadcast_op.cc). The JAX ops lower to XLA
 collectives over a mesh axis inside a mapped region and are identities
 outside one. Here a ring is an axis of the world's layout
 (``parallel.mesh.world_mesh``): ``dp``, ``sp``, ``tp``, ``pp``, ``ep``,
-the joint ``dp_sp`` (the grads of a sequence-parallel program) or the
-joint ``dp_ep`` (the tokens of ``switch_moe``'s global batch). In a launched world
-each op calls ``torch.distributed`` over the rank's process group on
-that axis (NCCL on the card, inside a captured CUDA graph too; gloo on
-the CPU), as the reference's NCCL ops do; on an axis of one rank, and in
-a world of 1 without a process group, each op is the identity. Ring 0
-is the dp axis; a ring above 0 must be bound by ``c_comm_init`` (an
-``axis_name`` attr) or :func:`register_ring` (``register_ring(1,
-"ep")``). The ``dcn_dp`` axis raises (ROADMAP.md Queue 1 item 7b), as
-does ``hier_allreduce`` (part 5 of it). ``alltoall`` is the tiled
-all-to-all of dim 0 over the ring's axis (its grad the same
-all-to-all). ``sharding_constraint`` is a value identity: a layout
-hint under GSPMD; where it names ``sp``, pass ``sp_shard``
-(``parallel.sp``) starts the split of the sequence there.
+``dcn_dp``, or a joint one (``dp_sp``, the grads of a sequence-parallel
+program; ``dp_ep``, the tokens of ``switch_moe``'s global batch;
+``dcn_dp+dp`` and ``dcn_dp+dp_sp``, the flat grad sync of a multi-slice
+program). In a launched world each op calls ``torch.distributed`` over
+the rank's process group on that axis (NCCL on the card, inside a
+captured CUDA graph too; gloo on the CPU), as the reference's NCCL ops
+do; on an axis of one rank, and in a world of 1 without a process
+group, each op is the identity. Ring 0 is the dp axis; a ring above 0
+must be bound by ``c_comm_init`` (an ``axis_name`` attr) or
+:func:`register_ring` (``register_ring(1, "ep")``). ``alltoall`` is the
+tiled all-to-all of dim 0 over the ring's axis (its grad the same
+all-to-all). ``sharding_constraint`` is a value identity: a layout hint
+under GSPMD; where it names ``sp``, pass ``sp_shard`` (``parallel.sp``)
+starts the split of the sequence there. ``hier_allreduce`` is the
+multi-slice grad sync (:func:`hier_allreduce`): reduce-scatter over
+``dp``, all-reduce of the shard over ``dcn_dp``, all-gather over ``dp``,
+or one all-reduce over ``dcn_dp+dp`` (the flat path).
 
 Grads: an all-reduce sum's is an all-reduce sum, an all-gather's a
 reduce-scatter, a reduce-scatter's an all-gather and a broadcast's the
@@ -138,19 +141,19 @@ def _dist():
 
 def _live(axis, mesh=None):
     """Whether a collective over ``axis`` of ``mesh`` (default: the
-    active layout; axis None: the whole world) communicates."""
+    active layout; axis None: the mesh's ranks, the whole world by
+    default) communicates."""
     if not _mesh.is_initialized():
         return False
-    return axis is None or _mesh.axis_world_size(axis, mesh) > 1
+    return _mesh.axis_world_size(axis, mesh) > 1
 
 
 def _group(axis, mesh=None):
-    return None if axis is None else _mesh.axis_group(axis, mesh)
+    return _mesh.axis_group(axis, mesh)
 
 
 def _size(axis, mesh=None):
-    return _mesh.world_size() if axis is None \
-        else _mesh.axis_world_size(axis, mesh)
+    return _mesh.axis_world_size(axis, mesh)
 
 
 def all_reduce(t, op="sum", axis="dp", mesh=None):
@@ -250,13 +253,14 @@ def all_to_all(t, split_dim, concat_dim, axis="sp", mesh=None):
     return out.reshape(merged)
 
 
-def broadcast_(t, root=0, axis="dp"):
+def broadcast_(t, root=0, axis="dp", mesh=None):
     """``t`` overwritten in place with that of index ``root`` of this
-    rank's ``axis`` group (None: world rank ``root``); returns ``t``."""
-    if _live(axis):
-        src = int(root) if axis is None or _group(axis) is None \
-            else _mesh.axis_global_rank(axis, root)
-        _dist().broadcast(t, src=src, group=_group(axis))
+    rank's ``axis`` group of ``mesh`` (default: the active layout; axis
+    None: of the mesh's ranks, the whole world by default); returns
+    ``t``."""
+    if _live(axis, mesh):
+        _dist().broadcast(t, src=_mesh.axis_global_rank(axis, root, mesh),
+                          group=_group(axis, mesh))
     return t
 
 
@@ -392,14 +396,58 @@ def c_coalesced_allreduce_sum(ctx, ins, attrs):
     return {"Out": outs}
 
 
-def _not_ported(name):
-    @register_op(name, grad=False, infer_shape=False)
-    def _impl(ctx, ins, attrs):
-        raise _mesh.not_ported_7b(f"the {name!r} op")
-    return _impl
+def hierarchical(mesh):
+    """Whether ``hier_allreduce`` decomposes its sum on ``mesh`` (the
+    executor's hierarchical path in the JAX package): ``dcn_dp`` above 1,
+    no axis but ``dcn_dp`` and ``dp``, and ``FLAGS_dcn_hierarchical``
+    on. Elsewhere the op is one all-reduce over the joint group."""
+    from ..flags import flag
+    return mesh is not None and mesh.dcn_dp > 1 and \
+        set(mesh.axis_names) <= {"dcn_dp", "dp"} and \
+        bool(flag("dcn_hierarchical"))
 
 
-_not_ported("hier_allreduce")
+@register_op("hier_allreduce", grad=False)
+def hier_allreduce(ctx, ins, attrs):
+    """The multi-slice gradient sync of one grad (the JAX op's numbers;
+    pass ``hier_grad_sync`` puts one after each parameter grad's last
+    producer). On a mesh where :func:`hierarchical` holds: ``X``
+    flattened and padded to a multiple of the ``inner_axis`` size (dp),
+    reduce-scattered over ``inner_axis``, this rank's 1/dp shard
+    all-reduced over ``outer_axis`` (dcn_dp: the hop across slices
+    carries ``|g| / dp``), all-gathered over ``inner_axis`` and
+    un-padded. Elsewhere (``FLAGS_dcn_hierarchical`` off, the flat A/B
+    baseline of the same program, or ``tp``, ``sp``, ``pp`` or ``ep``
+    beside ``dcn_dp``) one all-reduce over the joint group
+    ``<outer_axis>+<inner_axis>``. ``mean`` (default) divides by the
+    group's size. The identity in a world of 1 and on a group of one
+    rank."""
+    x = x_of(ins)
+    inner = attrs.get("inner_axis", "dp")
+    outer = attrs.get("outer_axis", "dcn_dp")
+    if getattr(ctx, "abstract", False) or not _mesh.is_initialized():
+        return {"Out": x}
+    mesh = _mesh.world_mesh()
+    n, m = mesh.axis_size(inner), mesh.axis_size(outer)
+    group = n * m
+    if group == 1:
+        return {"Out": x}
+    if hierarchical(mesh) and inner == "dp" and outer == "dcn_dp":
+        flat = x.reshape(-1)
+        pad = (-flat.numel()) % n
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad)])
+        shard = reduce_scatter(flat, inner, 0, mesh)
+        all_reduce(shard, "sum", outer, mesh)      # the hop: |g| / dp
+        out = all_gather(shard, inner, 0, mesh)
+        if pad:
+            out = out[:x.numel()]
+        out = out.view(x.shape)
+    else:
+        out = all_reduce(x.clone(), "sum", f"{outer}+{inner}", mesh)
+    if attrs.get("mean", True) and out.is_floating_point():
+        out = out / group
+    return {"Out": out}
 
 
 @register_op("alltoall")

@@ -26,6 +26,14 @@ of the per-expert counts of the chunks before ``g`` (one all-gather of
 the ``[E]`` counts over the ``dp_ep`` group) plus their rank within the
 chunk, so the tokens kept are the JAX op's whatever the split.
 
+Beside ``tp``, ``sp`` or ``pp`` the op is a replicated region: its
+input is whole (a tp program's hidden state between the split matmuls;
+gathered by ``sp_gather`` under sp), and every tp, sp and pp rank of a
+(data, ep) coordinate routes the same tokens over the ``dp_ep`` group of
+its own (pp, sp, tp) coordinate, so they issue the same collectives in
+the same order. Over a ``dcn_dp`` axis the data replicas span ``dcn_dp``
+x ``dp`` (data coordinate ``c * dp + d``, the ``dp`` of what follows).
+
 **The dispatch.** Every rank scatters its kept tokens into a zeroed
 ``[E, C, d]`` buffer at their global slots (which no other rank uses)
 and all-to-alls it over ``ep``: rank ``j`` of the ``ep`` group gets
@@ -71,22 +79,24 @@ TOKENS = _mesh.TOKEN_AXIS
 
 
 class _World:
-    """Where one ``switch_moe`` call runs: this rank's ``dp`` and ``ep``
-    coordinates and sizes over the active data-parallel mesh (``mesh``),
+    """Where one ``switch_moe`` call runs: this rank's data (``dcn_dp``
+    x ``dp``, as ``dp``) and ``ep`` coordinates and sizes over the active
+    data-parallel mesh (``mesh``),
     or a world of one (``mesh`` None: no mesh active, a plain program,
     or ``dp`` x ``ep`` 1), where every collective below is the
     identity."""
 
     def __init__(self, E, local_experts):
         mesh = _mesh.active_mesh() if _mesh.is_initialized() else None
-        self.mesh = mesh if mesh is not None and mesh.dp * mesh.ep > 1 \
-            else None
+        self.mesh = mesh if mesh is not None and \
+            mesh.axis_size(_mesh.DATA_AXIS) * mesh.ep > 1 else None
         self.dp = self.ep = 1
         self.d = self.e = 0
         if self.mesh is not None:
+            # the data replicas span dcn_dp x dp (index c * dp + d)
             c = self.mesh.coords()
-            self.dp, self.ep, self.d, self.e = mesh.dp, mesh.ep, c["dp"], \
-                c["ep"]
+            self.dp = mesh.axis_size(_mesh.DATA_AXIS)
+            self.ep, self.d, self.e = mesh.ep, c[_mesh.DATA_AXIS], c["ep"]
         if local_experts * self.ep != E:
             raise ValueError(
                 f"switch_moe: {local_experts} experts on this rank, "

@@ -283,10 +283,15 @@ def _global_stats(x, running_mean, attrs):
     d = m - k
     stats = torch.cat([n * d, n * (v + d * d),
                        torch.full((1,), float(n), device=x.device)])
-    all_reduce(stats, "sum")
+    all_reduce(stats, "sum", _DATA)
     count = stats[2 * C]
     md = stats[:C] / count
     return k + md, (stats[C:2 * C] / count - md * md).clamp_min(0.0), count
+
+
+#: the ranks a sync batch norm's statistics span: every data replica
+#: (dcn_dp x dp; dp alone without a dcn_dp axis)
+_DATA = "dcn_dp+dp"
 
 
 def _sync_bn_world(ctx, attrs):
@@ -315,7 +320,7 @@ def _card_stats(x, eps):
     m, inv = torch.batch_norm_stats(x, eps)
     n = torch.full((1,), float(x.numel() // C), device=x.device,
                    dtype=m.dtype)
-    allst = all_gather(torch.cat([m, inv, n])[None])
+    allst = all_gather(torch.cat([m, inv, n])[None], _DATA)
     ms, invs, counts = allst[:, :C], allst[:, C:2 * C], allst[:, 2 * C:]
     total = counts.sum()
     gm = (counts * ms).sum(0) / total
@@ -406,7 +411,7 @@ def sync_batch_norm_grad(ctx, ins, attrs):
         sum_dy, sum_dy_xmu, dscale, dbias = torch.batch_norm_backward_reduce(
             g, x, gm, inv, scale, True, True, True)
         if need[0]:
-            red = all_reduce(torch.cat([sum_dy, sum_dy_xmu]), "sum")
+            red = all_reduce(torch.cat([sum_dy, sum_dy_xmu]), "sum", _DATA)
             out["X@GRAD"] = [torch.batch_norm_backward_elemt(
                 g, x, gm, inv, scale, red[:C], red[C:], counts)]
     else:
@@ -415,7 +420,7 @@ def sync_batch_norm_grad(ctx, ins, attrs):
         xmu = x.float() - gm.reshape(bshape)
         sums = torch.cat([g.sum(dim=axes), (g * xmu).sum(dim=axes)])
         dbias, dscale = sums[:C].clone(), sums[C:] * inv
-        all_reduce(sums, "sum")
+        all_reduce(sums, "sum", _DATA)
         if need[0]:
             mdy = (sums[:C] / count).reshape(bshape)
             k = (inv * inv * sums[C:] / count).reshape(bshape)

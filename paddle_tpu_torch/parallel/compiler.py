@@ -1,5 +1,5 @@
 """CompiledProgram: a program made data-, tensor-, sequence-, pipeline-
-and expert-parallel over the process world.
+and expert-parallel, and multi-slice, over the process world.
 
 Counterpart of ``paddle_tpu/parallel/compiler.py`` (reference
 python/paddle/fluid/compiler.py:158 and the C++ ParallelExecutor,
@@ -53,15 +53,37 @@ every ``switch_moe``'s experts and their accumulators
 the ``switch_moe`` op routes the global batch's tokens to them
 (``ops.moe_ops``). The ep ranks of one dp coordinate are fed the same
 rows, so the grads are summed over the rank's dp group only and scaled
-by 1/dp. ``ep`` with ``tp``, ``sp`` or ``pp`` raises
-``NotImplementedError``.
+by 1/dp. Beside ``tp``, ``sp`` or ``pp`` (``MeshConfig(ep=2, tp=2)``)
+``switch_moe`` is a replicated region: its input is whole (gathered
+under sp, as for any op without a split rule), every tp and sp rank of a
+(dp, ep) coordinate routes the same tokens over its ``dp_ep`` group, and
+the expert slices stay whole across tp, sp and pp; the other grads
+follow the tp, sp and pp rules above. A ``switch_moe`` inside a pipeline
+stage under ep raises ``NotImplementedError`` (the JAX package refuses
+it too).
+
+Over a mesh with a ``dcn_dp`` axis (``MeshConfig(dcn_dp=2, dp=2)``: two
+slices of two cards, the batch split over ``dcn_dp`` x ``dp``
+dcn-major) pass ``hier_grad_sync`` puts one ``hier_allreduce`` after
+each grad the optimizer reads, its readers rewired to ``<grad>@HIER``,
+and ``dp_grad_allreduce`` leaves those grads alone: they are averaged
+over ``dcn_dp`` x the ring they have without it (dp, dp x sp, or dp for
+the stage slices). On a pure ``dcn_dp`` x ``dp`` mesh with
+``FLAGS_dcn_hierarchical`` on the op decomposes (reduce-scatter over
+dp, all-reduce of the 1/dp shard over dcn_dp, all-gather over dp);
+beside tp, sp, pp or ep, or with the flag off, it is one all-reduce
+over ``dcn_dp`` x the ring (the flat A/B baseline of the same program).
+A mesh may span part of the world (``make_mesh(devices=...)``, the
+narrower mesh after a slice is lost): its first run broadcasts from its
+first rank over its ranks.
 
 The executor runs such a program on each rank (``Executor.run``,
 ``run_steps`` as a captured CUDA graph with the all-reduces inside,
 ``train_from_dataset``): its first run on a scope broadcasts every
 persistable it reads from rank 0 (``BCastParamsToDevices``), stochastic
-ops fold the rank's dp coordinate into their seeds (so the pp ranks of
-one dp coordinate draw alike), and the non-finite guard's counts are
+ops fold the rank's data coordinate ``c * dp + d`` into their seeds (so
+the pp ranks of one dp coordinate draw alike, and dcn_dp 2 x dp 2 draws
+dp 4's masks), and the non-finite guard's counts are
 all-reduced over the world so every rank commits or rolls back alike. Fetches are
 the rank's own (a loss is the mean over its rows).
 """
@@ -69,9 +91,9 @@ import copy
 import warnings
 import weakref
 
-from .mesh import (GRAD_AXIS, activate, axis_size, check_device,
-                   default_mesh, get_mesh, init_parallel_env)
-from .ep import check_mesh as check_ep_mesh
+from .mesh import (DATA_AXIS, DATA_GRAD_AXIS, GRAD_AXIS, activate,
+                   axis_size, check_device, default_mesh, get_mesh,
+                   init_parallel_env, rank)
 
 
 class BuildStrategy:
@@ -158,11 +180,13 @@ class CompiledProgram:
         self.exec_strategy = exec_strategy
         n = init_parallel_env()
         self.mesh = mesh or get_mesh() or default_mesh()
-        if self.mesh.size != n:
+        if not self.mesh.partial and self.mesh.size != n:
             raise ValueError(f"{self.mesh} over a world of {n} ranks")
+        if rank() not in self.mesh:
+            raise ValueError(f"rank {rank()} is not in {self.mesh}")
         dp, tp = axis_size(self.mesh, "dp"), axis_size(self.mesh, "tp")
         sp, pp = axis_size(self.mesh, "sp"), axis_size(self.mesh, "pp")
-        check_ep_mesh(self.mesh)
+        dcn = axis_size(self.mesh, "dcn_dp")
         bs = self.build_strategy
         if bs.gradient_scale_strategy != \
                 BuildStrategy.GradientScaleStrategy.CoeffNumDevice:
@@ -190,11 +214,20 @@ class CompiledProgram:
         if any(op.type == "batch_norm"
                for blk in prog.blocks for op in blk.ops):
             passes.append("sync_batch_norm")
+        if dcn > 1:
+            # the grads the optimizer reads: hier_allreduce over dcn_dp x
+            # the ring below; a stage slice's grad over dcn_dp x dp
+            passes.append(get_pass(
+                "hier_grad_sync", inner_axis=GRAD_AXIS if sp > 1 else "dp",
+                stage_ring="dp" if sp > 1 else None))
         # a stage slice's grad is equal on the sp ranks: over dp alone
+        # (and what no hier_allreduce syncs over dcn_dp x dp)
+        ring, grad_ring = ("dp", GRAD_AXIS) if dcn == 1 else \
+            (DATA_AXIS, DATA_GRAD_AXIS)
         passes.append(get_pass(
-            "dp_grad_allreduce", nranks=dp * sp,
-            axis_name=GRAD_AXIS if sp > 1 else None,
-            stage_ring=("dp", dp) if sp > 1 else None))
+            "dp_grad_allreduce", nranks=dcn * dp * sp,
+            axis_name=grad_ring if sp > 1 else (None if dcn == 1 else ring),
+            stage_ring=(ring, dcn * dp) if sp > 1 else None))
         self.program = prog = apply_passes(prog, passes)
         self._tp_layouts = dict(getattr(prog, "_tp_layouts", {}),
                                 **getattr(prog, "_pp_layouts", {}),
@@ -231,8 +264,9 @@ class CompiledProgram:
         too, so every rank's checkpoints agree. A whole value goes from
         world rank 0 (before the ranks take their tp shards and pp
         slices), a shard a scope already holds from the first rank of
-        the ranks that hold the same one (its dp group, or its dp x sp
-        group)."""
+        the ranks that hold the same one (its dcn_dp x dp group, or its
+        dcn_dp x dp x sp group). On a mesh over part of the world, from
+        the mesh's first rank over its ranks."""
         from .mesh import is_initialized
         if not (self._data_parallel and is_initialized()) \
                 or scope in self._synced:
@@ -240,21 +274,22 @@ class CompiledProgram:
         import torch
         from ..framework.executor import RNG_STATE_NAME
         from ..ops.collective_ops import broadcast_
+        same = DATA_GRAD_AXIS if self.mesh.sp > 1 else DATA_AXIS
         for n in names:
             val = scope.find_var(n)
             if isinstance(val, torch.Tensor):
                 lay = self._tp_layouts.get(n)
                 whole = lay is None or tuple(val.shape) == \
                     tuple(lay.full_shape)
-                broadcast_(val, 0, None if whole else (
-                    GRAD_AXIS if self.mesh.sp > 1 else "dp"))
+                broadcast_(val, 0, None if whole else same, self.mesh)
         seed = scope.find_var(RNG_STATE_NAME)
         if seed is not None:
             dev = next((v.device for v in (scope.find_var(n)
                                            for n in names)
                         if isinstance(v, torch.Tensor)), None)
             t = torch.tensor([int(seed)], dtype=torch.int64, device=dev)
-            scope.set(RNG_STATE_NAME, int(broadcast_(t, 0, None)[0]))
+            scope.set(RNG_STATE_NAME,
+                      int(broadcast_(t, 0, None, self.mesh)[0]))
         self._synced.add(scope)
 
     def _place_shards(self, scope, names):

@@ -22,8 +22,15 @@ ep rank alike, so the grads are averaged over ``dp`` only (an expert
 slice's grad is the rank's own; a replicated one is equal on the ep
 ranks of a dp coordinate).
 
-``ep`` together with ``tp``, ``sp`` or ``pp`` raises
-``NotImplementedError`` (:func:`check_mesh`), as does a grad of an
+Beside ``tp``, ``sp`` or ``pp`` the experts are cut per ``ep``
+coordinate only and stay whole across the other axes: ``switch_moe`` is
+a replicated region, as the ``pipeline`` op is (its input whole, every
+tp and sp rank of a (dp, ep) coordinate routing the same tokens over its
+``dp_ep`` group). Its experts carry no ``tp`` annotation, so
+``tp_shard`` splits nothing of it. A ``switch_moe`` inside a
+``layers.Pipeline`` stage or another sub-block under ep raises
+``NotImplementedError`` (:func:`check_mesh`; the JAX package's own
+``shard_ep`` fails there with a ``ValueError``), as does a grad of an
 expert slice that something other than the elementwise ops and
 optimizers reads (a global-norm clip).
 """
@@ -37,14 +44,31 @@ def not_ported(what):
     return not_ported_7b(f"expert parallelism: {what}")
 
 
-def check_mesh(mesh):
-    """Raise for an ep mesh that also has a ``tp``, ``sp`` or ``pp``
-    axis (the port splits experts over ``ep`` x ``dp`` only)."""
+#: the JAX package's own refusal of an ep-split switch_moe inside a
+#: pipeline stage (``moe_ops.shard_ep`` under the stage's shard_map)
+JAX_IN_STAGE = ("ValueError: pspec PartitionSpec('ep', None, None) "
+                "contains a manual axes ('pp', 'ep')")
+
+
+def check_mesh(mesh, program=None):
+    """Raise for a ``switch_moe`` of ``program`` that the ep split cannot
+    place: inside a ``layers.Pipeline`` stage (the JAX package refuses it
+    too: ``JAX_IN_STAGE``) or another sub-block. Nothing at ep 1."""
     from .mesh import axis_size
-    if axis_size(mesh, EP) > 1:
-        other = [a for a in ("tp", "sp", "pp") if axis_size(mesh, a) > 1]
-        if other:
-            raise not_ported(f"an ep mesh with {other} (ep x dp only)")
+    if axis_size(mesh, EP) == 1 or program is None:
+        return
+    stages = {op.attrs.get("sub_block") for blk in program.blocks
+              for op in blk.ops if op.type == "pipeline"}
+    for blk in program.blocks:
+        if blk.idx == 0 or not any(op.type == "switch_moe"
+                                   for op in blk.ops):
+            continue
+        if blk.idx in stages:
+            raise not_ported(
+                f"a switch_moe inside a layers.Pipeline stage under ep "
+                f"(the JAX package refuses it as well: {JAX_IN_STAGE} "
+                f"...); put the MoE layer outside the pipeline")
+        raise not_ported("a switch_moe inside a control-flow block")
 
 
 def _moe_grads(op):
@@ -63,11 +87,7 @@ def ep_rewrite(program, mesh):
     ep = axis_size(mesh, EP)
     if ep == 1:
         return {}
-    check_mesh(mesh)
-    for blk in program.blocks:
-        for op in blk.ops:
-            if op.type == "switch_moe" and blk.idx != 0:
-                raise not_ported("a switch_moe inside a control-flow block")
+    check_mesh(mesh, program)
 
     def divides(v):
         if v.shape[0] % ep:

@@ -13,23 +13,31 @@ FLAGS_selected_gpus)`` makes ``device=None`` the rank's own card. A
 process that was not launched is a world of 1 and needs no process
 group; a launched one has a group, whatever its size.
 
-A :class:`Mesh` lays the world's ranks out on a ``pp``, a ``dp``, an
-``ep``, an ``sp`` and a ``tp`` axis in ``AXIS_ORDER``: ``tp``
-innermost, then ``sp``, then ``ep``, then ``dp``, ``pp`` outermost, so
-the ranks of one tensor-parallel group are consecutive and rank ``r``
-sits at ``r = (((p * dp + d) * ep + e) * sp + s) * tp + t``. Building a
-mesh with ``tp``, ``sp``, ``pp`` or ``ep`` above 1 in a launched world
-makes one process group per ``tp``, per ``sp``, per ``ep``, per ``dp``
-and per ``pp`` group, one per ``dp_sp`` group (the ranks of one ``tp``
-coordinate over ``dp`` x ``sp``, where the grads of a
-sequence-parallel program are averaged) and one per ``dp_ep`` group
-(the ranks over ``dp`` x ``ep`` in global row order, where
-``switch_moe`` counts its tokens), on every rank in the same order (the
-collectives of ``ops.collective_ops`` run over them), and a gloo group
-beside each ``tp`` group for objects on the host (``axis_group("tp",
+A :class:`Mesh` lays the world's ranks out on a ``dcn_dp``, a ``pp``,
+a ``dp``, an ``ep``, an ``sp`` and a ``tp`` axis in ``AXIS_ORDER``:
+``tp`` innermost, then ``sp``, then ``ep``, then ``dp``, then ``pp``,
+``dcn_dp`` outermost, so the ranks of one tensor-parallel group are
+consecutive and mesh index ``i`` sits at ``i = ((((c * pp + p) * dp +
+d) * ep + e) * sp + s) * tp + t``. A mesh spans the whole world, or the
+world ranks ``make_mesh(devices=[...])`` names (the narrower mesh of a
+multi-slice run after a slice is lost, ``train.slices``), index ``i``
+being ``devices[i]``. ``dcn_dp`` is the data-parallel axis across
+slices: the batch is split over ``dcn_dp`` x ``dp`` jointly, dcn-major,
+so a rank's data coordinate is ``c * dp + d`` (the joint axis
+``dcn_dp+dp``, ``DATA_AXIS``). Building a mesh whose axes are not all
+``dp`` makes one process group per group of every axis that has more
+than one rank (``tp``, ``sp``, ``ep``, ``dp``, the joint ``dp_sp``, the
+ranks of one ``tp`` coordinate over ``dp`` x ``sp``, where the grads of
+a sequence-parallel program are averaged, the joint ``dp_ep``, the
+ranks over ``dcn_dp`` x ``dp`` x ``ep`` in global row order, where
+``switch_moe`` counts its tokens, ``pp``, ``dcn_dp``, ``dcn_dp+dp`` and
+``dcn_dp+dp_sp``, the flat grad sync of a multi-slice program), one
+group per set of members, on every rank in the same order (the
+collectives of ``ops.collective_ops`` run over them), one over the
+mesh's ranks when it spans part of the world, and a gloo group beside
+each ``tp`` group for objects on the host (``axis_group("tp",
 host=True)``: the tensor-parallel server's descriptors,
-``serving.tp``). The ``dcn_dp`` axis raises ``NotImplementedError``:
-the rest of ROADMAP.md Queue 1 item 7b.
+``serving.tp``).
 
 A collective names an axis, never a mesh: the helpers below resolve it
 against the mesh they are given, else the layout :func:`activate`
@@ -66,15 +74,24 @@ AXIS_ORDER = ("dcn_dp", "pp", "dp", "ep", "sp", "tp")
 #: the joint axis over dp x sp, one group per tp coordinate: where the
 #: parameter grads of a sequence-parallel program are averaged
 GRAD_AXIS = "dp_sp"
-#: the joint axis over dp x ep in global row order (index d * ep + e):
-#: where switch_moe counts the tokens of the global batch
+#: the joint axis over dcn_dp x dp x ep in global row order (index
+#: (c * dp + d) * ep + e): where switch_moe counts the tokens of the
+#: global batch
 TOKEN_AXIS = "dp_ep"
+#: the joint axis over dcn_dp x dp (index c * dp + d): every data
+#: replica of a rank's model coordinate, the feed's split and the flat
+#: grad sync of a multi-slice program
+DATA_AXIS = "dcn_dp+dp"
+#: the joint axis over dcn_dp x dp x sp: the flat grad sync of a
+#: multi-slice sequence-parallel program
+DATA_GRAD_AXIS = "dcn_dp+dp_sp"
 #: the axes a collective may name
-AXES = ("dp", "sp", "tp", "pp", "ep", GRAD_AXIS, TOKEN_AXIS)
-ITEM_7B = ("model parallelism and multi-slice are not ported "
-           "(ROADMAP.md Queue 1 item 7b)")
+AXES = ("dp", "sp", "tp", "pp", "ep", "dcn_dp", GRAD_AXIS, TOKEN_AXIS,
+        DATA_AXIS, DATA_GRAD_AXIS)
+ITEM_7B = "not ported (ROADMAP.md Queue 1 item 7b)"
 
 _current_mesh = None
+_card = [None]          # this rank's card, set by init_parallel_env
 
 
 def not_ported_7b(what):
@@ -155,6 +172,7 @@ def init_parallel_env(role_maker=None):
         idx = int(os.environ.get("FLAGS_selected_gpus",
                                  str(rk % torch.cuda.device_count())))
         torch.cuda.set_device(idx)
+        _card[0] = idx
         if "device_id" in inspect.signature(
                 dist.init_process_group).parameters:
             kwargs["device_id"] = torch.device("cuda", idx)
@@ -166,27 +184,36 @@ def init_parallel_env(role_maker=None):
     return n
 
 
-def barrier():
-    """Every rank waits here (nothing outside a world)."""
+def _own_card():
+    """This rank's card (set when it joined the world), whichever thread
+    asks."""
+    return _card[0] if _card[0] is not None else torch.cuda.current_device()
+
+
+def barrier(mesh=None):
+    """Every rank waits here (nothing outside a world); with ``mesh``,
+    every rank of ``mesh``."""
     if not is_initialized():
         return
     dist = _dist()
+    group = None if mesh is None else mesh.world_group
     if backend() == "nccl":
-        dist.barrier(device_ids=[torch.cuda.current_device()])
+        dist.barrier(group=group, device_ids=[_own_card()])
     else:
-        dist.barrier()
+        dist.barrier(group=group)
 
 
-def any_failed(failed):
-    """Whether ``failed`` holds on any rank: a max all-reduce of it, which
-    every rank must reach (so it is a barrier too). ``failed`` itself
-    outside a world."""
+def any_failed(failed, mesh=None):
+    """Whether ``failed`` holds on any rank (with ``mesh``: any rank of
+    ``mesh``): a max all-reduce of it, which every such rank must reach
+    (so it is a barrier too). ``failed`` itself outside a world."""
     if not is_initialized():
         return bool(failed)
-    dev = torch.device("cuda", torch.cuda.current_device()) \
+    dev = torch.device("cuda", _own_card()) \
         if backend() == "nccl" else torch.device("cpu")
     flag = torch.tensor([int(bool(failed))], dtype=torch.int32, device=dev)
-    _dist().all_reduce(flag, op=_dist().ReduceOp.MAX)
+    _dist().all_reduce(flag, op=_dist().ReduceOp.MAX,
+                       group=None if mesh is None else mesh.world_group)
     return bool(flag.item())
 
 
@@ -239,161 +266,215 @@ class PartitionSpec(tuple):
 class Mesh:
     """The world's ranks on named axes: ``axis_names`` and ``shape``
     ({axis: size}) as a JAX mesh reports them, the axes of size > 1 in
-    ``AXIS_ORDER`` (``("dp",)`` when there is none). ``groups`` maps an
-    axis to this rank's process group on it (None: the whole world, or
-    no world); a mesh made outside a world has none and is only a
-    shape (``partition_spec`` over it). Besides the named axes, the
-    joint axis ``dp_sp`` (``GRAD_AXIS``) is the ranks of one ``pp``,
-    ``ep`` and ``tp`` coordinate over ``dp`` x ``sp``, and ``dp_ep``
-    (``TOKEN_AXIS``) the ranks of one ``pp``, ``sp`` and ``tp``
-    coordinate over ``dp`` x ``ep``, index ``d * ep + e``."""
+    ``AXIS_ORDER`` (``("dp",)`` when there is none). ``ranks`` are the
+    world ranks it spans, index ``i`` of the mesh on ``ranks[i]`` (the
+    whole world unless ``make_mesh`` was given ``devices``). ``groups``
+    maps an axis to this rank's process group on it (None: the whole
+    world, or no world), ``world_group`` is the group of ``ranks`` (None
+    when they are the whole world); a mesh made outside a world has none
+    and is only a shape (``partition_spec`` over it). Besides the named
+    axes, the joint axes: ``dp_sp`` (``GRAD_AXIS``), the ranks of one
+    ``dcn_dp``, ``pp``, ``ep`` and ``tp`` coordinate over ``dp`` x
+    ``sp``; ``dp_ep`` (``TOKEN_AXIS``), the ranks of one ``pp``, ``sp``
+    and ``tp`` coordinate over ``dcn_dp`` x ``dp`` x ``ep``, index ``(c
+    * dp + d) * ep + e``; ``dcn_dp+dp`` (``DATA_AXIS``), index ``c * dp
+    + d``, and ``dcn_dp+dp_sp`` (``DATA_GRAD_AXIS``), index ``(c * dp +
+    d) * sp + s``."""
 
-    def __init__(self, dp=1, tp=1, sp=1, pp=1, ep=1):
+    def __init__(self, dp=1, tp=1, sp=1, pp=1, ep=1, dcn_dp=1, ranks=None):
         dp, tp, sp, pp, ep = int(dp), int(tp), int(sp), int(pp), int(ep)
-        used = [(a, n) for a, n in (("pp", pp), ("dp", dp), ("ep", ep),
-                                    ("sp", sp), ("tp", tp)) if n > 1]
+        dcn = int(dcn_dp)
+        used = [(a, n) for a, n in (("dcn_dp", dcn), ("pp", pp), ("dp", dp),
+                                    ("ep", ep), ("sp", sp), ("tp", tp))
+                if n > 1]
         if not used:
             used = [("dp", dp)]
         self.axis_names = tuple(a for a, _ in used)
         self.shape = dict(used)
-        self.size = dp * sp * tp * pp * ep
+        self.size = dcn * dp * sp * tp * pp * ep
         self.dp, self.sp, self.tp, self.pp, self.ep = dp, sp, tp, pp, ep
+        self.dcn_dp = dcn
+        #: whether the mesh spans the world ranks ``make_mesh`` was
+        #: given rather than the whole world
+        self.partial = ranks is not None
+        self.ranks = list(range(self.size)) if ranks is None \
+            else [int(r) for r in ranks]
+        if len(self.ranks) != self.size:
+            raise ValueError(f"a mesh of {self.size} ranks over the world "
+                             f"ranks {self.ranks}")
+        self._index = {r: i for i, r in enumerate(self.ranks)}
         self.groups = {}
+        self.world_group = None
         # a gloo group beside each tp group: host-side objects (the
         # serving leader's step descriptors) never wait behind device
         # work on the NCCL one
         self.host_groups = {}
 
-    def coords(self, r=None):
-        """``{"pp": p, "dp": d, "ep": e, "sp": s, "tp": t, "dp_sp": d *
-        sp + s, "dp_ep": d * ep + e}`` of rank ``r`` (this rank by
-        default)."""
-        r = rank() if r is None else int(r)
-        t, rest = r % self.tp, r // self.tp
-        s, rest = rest % self.sp, rest // self.sp
-        e, rest = rest % self.ep, rest // self.ep
-        d, p = rest % self.dp, rest // self.dp
-        return {"pp": p, "dp": d, "ep": e, "sp": s, "tp": t,
-                GRAD_AXIS: d * self.sp + s, TOKEN_AXIS: d * self.ep + e}
+    def __contains__(self, r):
+        return int(r) in self._index
 
-    def rank_of(self, dp, sp, tp, pp=0, ep=0):
-        return (((int(pp) * self.dp + int(dp)) * self.ep + int(ep))
-                * self.sp + int(sp)) * self.tp + int(tp)
+    def coords(self, r=None):
+        """``{"dcn_dp": c, "pp": p, "dp": d, "ep": e, "sp": s, "tp": t}``
+        of world rank ``r`` (this rank by default) with its indices on the
+        joint axes (``dp_sp``, ``dp_ep``, ``dcn_dp+dp``,
+        ``dcn_dp+dp_sp``)."""
+        r = rank() if r is None else int(r)
+        if r not in self._index:
+            raise ValueError(f"rank {r} is not in {self} (world ranks "
+                             f"{self.ranks})")
+        i = self._index[r]
+        t, i = i % self.tp, i // self.tp
+        s, i = i % self.sp, i // self.sp
+        e, i = i % self.ep, i // self.ep
+        d, i = i % self.dp, i // self.dp
+        p, c = i % self.pp, i // self.pp
+        data = c * self.dp + d
+        return {"dcn_dp": c, "pp": p, "dp": d, "ep": e, "sp": s, "tp": t,
+                GRAD_AXIS: d * self.sp + s, TOKEN_AXIS: data * self.ep + e,
+                DATA_AXIS: data, DATA_GRAD_AXIS: data * self.sp + s}
+
+    def rank_of(self, dp, sp, tp, pp=0, ep=0, dcn_dp=0):
+        i = ((((int(dcn_dp) * self.pp + int(pp)) * self.dp + int(dp))
+              * self.ep + int(ep)) * self.sp + int(sp)) * self.tp + int(tp)
+        return self.ranks[i]
 
     def axis_ranks(self, axis, r=None):
         """The world ranks of rank ``r``'s group on ``axis``, in axis
         order."""
         c = self.coords(r)
-        p, d, e, s, t = c["pp"], c["dp"], c["ep"], c["sp"], c["tp"]
+        k, p, d, e, s, t = (c["dcn_dp"], c["pp"], c["dp"], c["ep"], c["sp"],
+                            c["tp"])
+        at = self.rank_of
         if axis == "tp":
-            return [self.rank_of(d, s, j, p, e) for j in range(self.tp)]
+            return [at(d, s, j, p, e, k) for j in range(self.tp)]
         if axis == "sp":
-            return [self.rank_of(d, j, t, p, e) for j in range(self.sp)]
+            return [at(d, j, t, p, e, k) for j in range(self.sp)]
         if axis == "pp":
-            return [self.rank_of(d, s, t, j, e) for j in range(self.pp)]
+            return [at(d, s, t, j, e, k) for j in range(self.pp)]
         if axis == "ep":
-            return [self.rank_of(d, s, t, p, j) for j in range(self.ep)]
+            return [at(d, s, t, p, j, k) for j in range(self.ep)]
+        if axis == "dcn_dp":
+            return [at(d, s, t, p, e, j) for j in range(self.dcn_dp)]
         if axis == GRAD_AXIS:
-            return [self.rank_of(i, j, t, p, e) for i in range(self.dp)
+            return [at(i, j, t, p, e, k) for i in range(self.dp)
                     for j in range(self.sp)]
         if axis == TOKEN_AXIS:
-            return [self.rank_of(i, s, t, p, j) for i in range(self.dp)
-                    for j in range(self.ep)]
-        return [self.rank_of(i, s, t, p, e) for i in range(self.dp)]
+            return [at(i, s, t, p, j, m) for m in range(self.dcn_dp)
+                    for i in range(self.dp) for j in range(self.ep)]
+        if axis == DATA_AXIS:
+            return [at(i, s, t, p, e, m) for m in range(self.dcn_dp)
+                    for i in range(self.dp)]
+        if axis == DATA_GRAD_AXIS:
+            return [at(i, j, t, p, e, m) for m in range(self.dcn_dp)
+                    for i in range(self.dp) for j in range(self.sp)]
+        return [at(i, s, t, p, e, k) for i in range(self.dp)]
 
     def axis_size(self, axis):
-        """The size of ``axis`` (``dp_sp``: dp x sp; ``dp_ep``: dp x
-        ep)."""
-        if axis == GRAD_AXIS:
-            return self.dp * self.sp
-        if axis == TOKEN_AXIS:
-            return self.dp * self.ep
-        return {"dp": self.dp, "sp": self.sp, "tp": self.tp,
-                "pp": self.pp, "ep": self.ep}[axis]
+        """The size of ``axis`` (a joint axis: the product of its
+        parts)."""
+        return {"dp": self.dp, "sp": self.sp, "tp": self.tp, "pp": self.pp,
+                "ep": self.ep, "dcn_dp": self.dcn_dp,
+                GRAD_AXIS: self.dp * self.sp,
+                TOKEN_AXIS: self.dcn_dp * self.dp * self.ep,
+                DATA_AXIS: self.dcn_dp * self.dp,
+                DATA_GRAD_AXIS: self.dcn_dp * self.dp * self.sp}[axis]
 
     def __repr__(self):
-        return "Mesh(" + ", ".join(f"{a}={n}" for a, n in
-                                   self.shape.items()) + ")"
+        out = "Mesh(" + ", ".join(f"{a}={n}" for a, n in
+                                  self.shape.items())
+        if self.partial:
+            out += f", ranks={self.ranks}"
+        return out + ")"
 
 
-_built = {}            # (dp, tp, sp, pp, ep) -> Mesh, groups made once per world
+_built = {}            # (sizes, ranks) -> Mesh, groups made once per world
 _active = None         # the layout the collectives resolve axes against
+_GROUP_AXES = ("tp", "sp", "ep", "dp", GRAD_AXIS, TOKEN_AXIS, "pp",
+               "dcn_dp", DATA_AXIS, DATA_GRAD_AXIS)
 
 
 def _make_groups(mesh):
-    """One process group per tp, sp, ep, dp, dp_sp, dp_ep and pp group,
-    and a gloo (host) group beside each tp group, every rank making them
-    all in the same order (``new_group`` is collective)."""
+    """One process group per set of members of every axis in
+    ``_GROUP_AXES`` (an axis whose members are another's shares its
+    group), one over the mesh's ranks when they are not the whole
+    world, and a gloo (host) group beside each tp group, every world
+    rank making them all in the same order (``new_group`` is collective
+    over the world, members or not)."""
     dist = _dist()
     r = rank()
-    for axis in ("tp", "sp", "ep", "dp", GRAD_AXIS, TOKEN_AXIS, "pp"):
+    made = {}
+    for axis in _GROUP_AXES:
         if mesh.axis_size(axis) == 1:     # groups of one rank: no traffic
             continue
-        other = {GRAD_AXIS: "sp", TOKEN_AXIS: "ep"}.get(axis)
-        if other and (mesh.axis_size(other) == 1 or mesh.dp == 1):
-            # the same ranks as the dp (or the sp, or the ep) group
-            same = mesh.groups.get(
-                "dp" if mesh.axis_size(other) == 1 else other)
-            if same is not None:
-                mesh.groups[axis] = same
-            continue
-        seen = []
-        for q in range(mesh.size):
-            members = mesh.axis_ranks(axis, q)
-            if members in seen:
-                continue
-            seen.append(members)
-            g = dist.new_group(members)
-            # a follower of an idle server waits on it for as long as
-            # the server runs (a dead peer still fails it at once)
-            host = dist.new_group(members, backend="gloo",
-                                  timeout=timedelta(days=365)) \
-                if axis == "tp" else None
-            if r in members:
-                mesh.groups[axis] = g
-                if host is not None:
+        for q in mesh.ranks:
+            members = tuple(mesh.axis_ranks(axis, q))
+            if members not in made:
+                made[members] = dist.new_group(list(members))
+                # a follower of an idle server waits on it for as long
+                # as the server runs (a dead peer still fails it at once)
+                host = dist.new_group(list(members), backend="gloo",
+                                      timeout=timedelta(days=365)) \
+                    if axis == "tp" else None
+                if r in members and host is not None:
                     mesh.host_groups[axis] = host
+            if r in members:
+                mesh.groups[axis] = made[members]
+    if mesh.ranks != list(range(world_size())):
+        g = made.get(tuple(mesh.ranks)) or dist.new_group(mesh.ranks)
+        if r in mesh:
+            mesh.world_group = g
 
 
 def make_mesh(config=None, devices=None, **axes):
-    """The world's ranks on a ``pp`` x ``dp`` x ``ep`` x ``sp`` x ``tp``
-    mesh. ``tp``, ``sp``, ``ep`` and ``pp`` must divide the world; ``dp``
-    1 (the default) means the rest of it, any other ``dp`` must make
-    ``pp * dp * ep * sp * tp`` the world size. ``dcn_dp`` raises: item
-    7b."""
+    """The world's ranks on a ``dcn_dp`` x ``pp`` x ``dp`` x ``ep`` x
+    ``sp`` x ``tp`` mesh. ``devices``: the world ranks it spans (one
+    card each; default the whole world, in order), as the JAX package's
+    device list. ``dcn_dp``, ``tp``, ``sp``, ``ep`` and ``pp`` must
+    divide them; ``dp`` 1 (the default) means the rest of them, any
+    other ``dp`` must make the product of the axes their number. Every
+    world rank must make every mesh, in the same order: its process
+    groups are made then."""
     if config is None:
         config = MeshConfig(**{k: v for k, v in axes.items() if v})
     sizes = config.axis_sizes()
-    other = [a for a in AXIS_ORDER if a not in ("dp", "sp", "tp", "pp",
-                                                "ep")
-             and sizes[a] > 1]
-    if other:
-        raise not_ported_7b(f"mesh axes {other}")
-    if devices is not None:
-        raise not_ported_7b("a mesh over an explicit device list")
     n = world_size()
+    if devices is not None:
+        devices = [int(d) for d in devices]
+        if len(set(devices)) != len(devices) or \
+                any(not 0 <= d < n for d in devices):
+            raise ValueError(f"devices {devices}: distinct ranks of the "
+                             f"world of {n} (one card each)")
+        n = len(devices)
     tp = max(int(sizes["tp"]), 1)
     sp = max(int(sizes["sp"]), 1)
     pp = max(int(sizes["pp"]), 1)
     ep = max(int(sizes["ep"]), 1)
+    dcn = max(int(sizes["dcn_dp"]), 1)
     dp = int(sizes["dp"])
-    model = tp * sp * pp * ep
+    model = tp * sp * pp * ep * dcn
     if dp == 1:
         dp = n // model if n % model == 0 else 0
     if dp * model != n:
         want = (dp or 1) * model
-        names = (f"pp={pp} " if pp > 1 else "") + f"dp={sizes['dp']} " + \
+        names = (f"dcn_dp={dcn} " if dcn > 1 else "") + \
+            (f"pp={pp} " if pp > 1 else "") + f"dp={sizes['dp']} " + \
             (f"ep={ep} " if ep > 1 else "") + \
             (f"sp={sp} " if sp > 1 else "") + f"tp={tp}"
+        where = f"{n} devices given" if devices is not None else \
+            f"the world has {n}"
         raise ValueError(f"a {names} mesh needs {want} "
-                         f"ranks; the world has {n} (one process per "
+                         f"ranks; {where} (one process per "
                          f"card: launch --nproc_per_node={want})")
-    mesh = _built.get((dp, tp, sp, pp, ep))
+    ranks = tuple(devices) if devices is not None else None
+    if ranks == tuple(range(world_size())):
+        ranks = None
+    key = (dcn, dp, tp, sp, pp, ep, ranks)
+    mesh = _built.get(key)
     if mesh is None:
-        mesh = Mesh(dp, tp, sp, pp, ep)
-        if model > 1 and is_initialized():
+        mesh = Mesh(dp, tp, sp, pp, ep, dcn, ranks)
+        if is_initialized() and (model > 1 or ranks is not None):
             _make_groups(mesh)
-        _built[(dp, tp, sp, pp, ep)] = mesh
+        _built[key] = mesh
     return mesh
 
 
@@ -424,19 +505,24 @@ def world_mesh(mesh=None):
 
 def axis_group(axis, mesh=None, host=False):
     """This rank's process group on ``axis`` of ``mesh`` (default: the
-    active layout; None: the default group, the whole world). ``host``:
-    the gloo group beside the ``tp`` group, for objects on the host
-    (None when the mesh has no tp group)."""
+    active layout; None: the default group, the whole world; axis None:
+    the group of the mesh's ranks). ``host``: the gloo group beside the
+    ``tp`` group, for objects on the host (None when the mesh has no tp
+    group)."""
+    m = world_mesh(mesh)
+    if axis is None:
+        return m.world_group
     if axis not in AXES:
         raise not_ported_7b(f"the {axis!r} axis")
-    m = world_mesh(mesh)
     return m.host_groups.get(axis) if host else m.groups.get(axis)
 
 
 def axis_world_size(axis, mesh=None):
     """The size of ``axis`` in ``mesh`` (default: the active layout;
-    ``tp``, ``sp``, ``pp`` and ``ep`` are 1 without such a mesh, ``dp``
-    then the world)."""
+    ``tp``, ``sp``, ``pp``, ``ep`` and ``dcn_dp`` are 1 without such a
+    mesh, ``dp`` then the world; axis None: the mesh's ranks)."""
+    if axis is None:
+        return world_mesh(mesh).size
     if axis not in AXES:
         raise not_ported_7b(f"the {axis!r} axis")
     return world_mesh(mesh).axis_size(axis)
@@ -450,8 +536,11 @@ def axis_rank(axis, mesh=None):
 
 def axis_global_rank(axis, index, mesh=None):
     """The world rank of index ``index`` of this rank's ``axis`` group
-    in ``mesh`` (default: the active layout)."""
-    return world_mesh(mesh).axis_ranks(axis)[int(index)]
+    in ``mesh`` (default: the active layout; axis None: of the mesh's
+    ranks)."""
+    m = world_mesh(mesh)
+    return m.ranks[int(index)] if axis is None \
+        else m.axis_ranks(axis)[int(index)]
 
 
 def set_mesh(mesh):
@@ -526,7 +615,8 @@ def sharding_for(mesh, var):
     return partition_spec(mesh, var.dist_attr, shape)
 
 
-__all__ = ["AXES", "AXIS_ORDER", "GRAD_AXIS", "TOKEN_AXIS", "Mesh", "MeshConfig", "PartitionSpec",
+__all__ = ["AXES", "AXIS_ORDER", "DATA_AXIS", "DATA_GRAD_AXIS",
+           "GRAD_AXIS", "TOKEN_AXIS", "Mesh", "MeshConfig", "PartitionSpec",
            "activate", "active_mesh", "any_failed", "axis_global_rank", "axis_group",
            "axis_rank", "axis_size", "axis_world_size", "backend", "barrier",
            "check_device", "default_mesh", "dp_group", "get_mesh",

@@ -87,7 +87,7 @@ def pp_rewrite(program, mesh):
     if pp == 1:
         return {}
     from .ep import check_mesh
-    check_mesh(mesh)            # pp x ep
+    check_mesh(mesh, program)   # a switch_moe in a stage under ep
     stage_params = set()
     for blk in program.blocks:
         for op in blk.ops:

@@ -239,8 +239,9 @@ class _Rewriter:
         for name, v in block.vars.items():
             if getattr(v, "dist_attr", None) is None or not v.persistable:
                 continue
-            # a pipeline's stage slices (pp) are parallel.pp's
-            spec = tuple(None if a == "pp" else a
+            # a pipeline's stage slices (pp) are parallel.pp's, the
+            # experts' slices (ep) parallel.ep's
+            spec = tuple(None if a in ("pp", "ep") else a
                          for a in sharding_for(self.mesh, v))
             if any(a not in (None, "tp") for a in spec):
                 raise not_ported(f"{name!r} is sharded {tuple(spec)}; only "

@@ -1,10 +1,11 @@
 """Typed failures of the port, retries, breakers, watchdogs and fault
 injection.
 
-A copy of ``paddle_tpu/resilience.py`` without the multi-slice errors
-(``HierarchicalCommsError``, ``SliceWidthError``):
+A copy of ``paddle_tpu/resilience.py``:
 
-- typed errors: ``CheckpointCorruptError`` and
+- typed errors: ``HierarchicalCommsError`` (the multi-slice grad-sync
+  gate) and ``SliceWidthError`` (a restore at another ``dcn_dp``
+  width), ``CheckpointCorruptError`` and
   ``CheckpointIncompleteError`` (``io``), ``RpcDeadlineError``,
   ``CircuitOpenError``, ``RetryBudgetExhausted``, ``NonFiniteError``
   (the executor's non-finite guard), ``WatchdogTimeout``, the training
@@ -182,6 +183,36 @@ class FaultInjected(RuntimeError):
     """What an armed fault point raises by default: distinct from real
     failures, so a test can tell injected damage from a bug in the
     recovery."""
+
+
+class HierarchicalCommsError(RuntimeError):
+    """A multi-slice program FAILED the pre-run gate
+    (``parallel.dcn.check_hier_sync``, ``FLAGS_dcn_assert_hier``): a
+    grad the optimizer reads is not synced by a ``hier_allreduce`` or is
+    synced twice, a collective across slices carries more than its 1/dp
+    shard, or the bytes across slices do not beat the flat all-reduce's.
+    Raised before the first slab runs. Carries ``violations``
+    (human-readable strings) and ``ledger`` (the per-group byte table).
+    """
+
+    def __init__(self, message, violations=None, ledger=None):
+        super().__init__(message)
+        self.violations = list(violations or [])
+        self.ledger = ledger
+
+
+class SliceWidthError(RuntimeError):
+    """A checkpoint restored at a different ``dcn_dp`` width carries
+    state incompatible with the rebuilt program (a parameter or
+    optimizer state whose shape disagrees with the program's
+    declaration). Raised by ``train.slices.validate_restored_widths``.
+    Carries ``var``, ``found`` and ``expected`` shapes."""
+
+    def __init__(self, message, var=None, found=None, expected=None):
+        super().__init__(message)
+        self.var = var
+        self.found = tuple(found) if found is not None else None
+        self.expected = tuple(expected) if expected is not None else None
 
 
 _faults = {}
@@ -554,14 +585,30 @@ def watchdog(budget_secs, what="operation"):
         timer.cancel()
 
 
+def _caller_card():
+    """The calling thread's CUDA device once CUDA is in use, else None: a
+    new thread starts on card 0, and a rank of a launched world must
+    keep its own card (its collectives' tensors live there)."""
+    import sys
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_available() or \
+            not torch.cuda.is_initialized():
+        return None
+    return torch.cuda.current_device()
+
+
 def run_with_watchdog(fn, budget_secs, *args, what=None, **kwargs):
-    """``fn(*args, **kwargs)`` on a worker thread; raises
-    :class:`WatchdogTimeout` when it does not finish within
-    ``budget_secs``. Safe from any thread. An overrunning worker is left
-    to finish as a daemon and its result is dropped."""
+    """``fn(*args, **kwargs)`` on a worker thread bound to the caller's
+    CUDA device; raises :class:`WatchdogTimeout` when it does not finish
+    within ``budget_secs``. Safe from any thread. An overrunning worker
+    is left to finish as a daemon and its result is dropped."""
     box = {}
+    card = _caller_card()
 
     def _target():
+        if card is not None:
+            import torch
+            torch.cuda.set_device(card)
         try:
             box["result"] = fn(*args, **kwargs)
         except BaseException as exc:  # noqa: BLE001 — relayed to caller

@@ -1,5 +1,5 @@
-"""Elastic training (a copy of ``paddle_tpu/train`` without the
-multi-slice part): :class:`TrainingSupervisor` (a killable, exactly
+"""Elastic training (a copy of ``paddle_tpu/train``):
+:class:`TrainingSupervisor` (a killable, exactly
 resumable supervised loop: periodic checkpoints, preemption with a
 bounded-deadline fast save, watchdogged slabs and budgeted restarts from
 the newest verified checkpoint, the goodput ledger), the preemption API
@@ -7,15 +7,14 @@ the newest verified checkpoint, the goodput ledger), the preemption API
 ``preemption_reason``, ``clear_preemption``, ``signal_preemption``),
 :class:`HealthMonitor` (loss and grad-norm spike rules on in-graph
 fetches), :class:`TrainCheckpoint` (numbered full-training-state
-checkpoints) and the typed errors of the loop.
-
-Not ported, and raising ``NotImplementedError``: ``SliceSupervisor`` and
-``validate_restored_widths`` (multi-slice meshes, ROADMAP Queue 1 item
-7b).
+checkpoints), :class:`SliceSupervisor` and
+:func:`validate_restored_widths` (multi-slice training: slices lost and
+regrown at a slab boundary, ``train.slices``) and the typed errors of
+the loop.
 """
 from ..resilience import (  # noqa: F401  (typed error surface)
     CheckpointIncompleteError, PreemptedError, RestartBudgetExceeded,
-    WatchdogTimeout,
+    SliceWidthError, WatchdogTimeout,
 )
 from .checkpoint import TRAIN_STATE_FILE, TrainCheckpoint  # noqa: F401
 from .health import HealthMonitor  # noqa: F401
@@ -24,16 +23,4 @@ from .preemption import (  # noqa: F401
     request_preemption, signal_preemption,
 )
 from .supervisor import TrainingSupervisor  # noqa: F401
-
-
-def _unported(name):
-    def _raise(*args, **kwargs):
-        raise NotImplementedError(
-            f"paddle_tpu_torch: train.{name} is not ported: it needs "
-            f"multi-slice meshes (ROADMAP Queue 1 item 7b)")
-    _raise.__name__ = name
-    return _raise
-
-
-SliceSupervisor = _unported("SliceSupervisor")
-validate_restored_widths = _unported("validate_restored_widths")
+from .slices import SliceSupervisor, validate_restored_widths  # noqa: F401

@@ -335,9 +335,16 @@ def test_restore_latest_skips_a_corrupt_newest(tmp_path, capsys):
         got = fresh.find_var(n)
         assert torch.equal(got, v) if isinstance(v, torch.Tensor) \
             else got == v, n
-    for name in ("SliceSupervisor", "validate_restored_widths"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-            getattr(train, name)()
+    # the restored state has the program's shapes at any dcn_dp width;
+    # a state of another shape raises the typed error naming it
+    train.validate_restored_widths(fresh, main, width=2)
+    name = next(n for n in want if isinstance(want[n], torch.Tensor)
+                and want[n].dim() == 2)
+    fresh.set(name, torch.zeros((want[name].shape[0] + 1,)
+                                + tuple(want[name].shape[1:])))
+    with pytest.raises(train.SliceWidthError, match="dcn_dp=2") as ei:
+        train.validate_restored_widths(fresh, main, width=2)
+    assert ei.value.var == name
     empty = train.TrainCheckpoint(str(tmp_path / "none"))
     assert empty.restore_latest(exe, program=main) == (None, None)
 

@@ -259,8 +259,9 @@ def test_ep_launch_stays_short(world, record_property):
 def test_ep_shard_cuts_the_experts_and_refuses_other_axes():
     """Pass ``ep_shard`` over an ep 2 mesh in a world of 1 (a look at the
     rewrite): each expert parameter, its Adam moments and its grad take
-    the ``[E / ep, ...]`` slice, the rest stays whole; ep with tp, sp or
-    pp raises, as does an expert count the ep ranks do not divide."""
+    the ``[E / ep, ...]`` slice, the rest stays whole; beside tp, sp or
+    pp the experts are cut per ep coordinate only (the same slice); an
+    expert count the ep ranks do not divide raises."""
     from paddle_tpu_torch.framework.passes import apply_passes, get_pass
     from paddle_tpu_torch.parallel.mesh import Mesh
     main, _, _ = R.model(tfluid, R.B, 2.0)
@@ -275,9 +276,12 @@ def test_ep_shard_cuts_the_experts_and_refuses_other_axes():
     assert gb.var("fc_0.w_0").shape == (R.D, R.D)
     assert main.global_block().var(w1).shape == (R.E, R.D, R.H)
     for mesh in (Mesh(1, tp=2, ep=2), Mesh(1, sp=2, ep=2),
-                 Mesh(1, pp=2, ep=2)):
-        with pytest.raises(NotImplementedError, match="ep mesh with"):
-            apply_passes(main.clone(), [get_pass("ep_shard", mesh=mesh)])
+                 Mesh(1, pp=2, ep=2), Mesh(2, tp=2, ep=2)):
+        other = apply_passes(main.clone(), [get_pass("ep_shard",
+                                                     mesh=mesh)])
+        assert sorted(other._ep_layouts) == sorted(lay)
+        assert other.global_block().var(w1).shape == (2, R.D, R.H)
+        assert other.global_block().var("fc_0.w_0").shape == (R.D, R.D)
     with pytest.raises(ValueError, match="do not divide"):
         apply_passes(main.clone(), [get_pass("ep_shard",
                                              mesh=Mesh(1, ep=3))])

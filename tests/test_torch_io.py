@@ -386,7 +386,8 @@ def test_unported_checkpoint_entry_points_raise(tmp_path):
     """``save_checkpoint``, ``load_checkpoint`` and ``CheckpointSaver``
     work (a round trip, every persistable bitwise, the train state and
     the run seed back); ``train.TrainingSupervisor`` builds over a
-    checkpoint directory; ``train.SliceSupervisor`` raises."""
+    checkpoint directory; ``train.SliceSupervisor`` builds over a
+    build callback, at the full width with no slice lost."""
     main, startup, feeds, targets = M.build(T, "mlp")
     exe, scope = cpu_exe(), T.Scope()
     exe.run(startup, scope=scope)
@@ -407,8 +408,11 @@ def test_unported_checkpoint_entry_points_raise(tmp_path):
     assert saver.checkpoint_numbers() == [1]
     assert T.train.TrainingSupervisor(exe, main, str(tmp_path)) \
         .checkpoint.latest_no() is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        T.train.SliceSupervisor(exe, main, str(tmp_path))
+    sup = T.train.SliceSupervisor(
+        lambda width, devices: {"executor": exe, "program": main},
+        str(tmp_path / "slices"), slices=2)
+    assert sup.width == 2 and sup.active_slices == (0, 1)
+    assert sup.lost_slices == () and sup.devices() is None
 
 
 def test_missing_var_leaves_the_scope_untouched(tmp_path):

@@ -329,16 +329,14 @@ def test_rank_raising_mid_step_ends_the_launch(tmp_path):
 
 
 def test_mesh_axes_other_than_dp_raise():
-    """The boundary of item 7b: ``tp``, ``sp``, ``pp`` and ``ep`` build a
-    mesh (here, a world of 1, only at size 1; a tp 2, an sp 2, a pp 2 or
-    an ep 2 mesh needs 2 ranks) and ``partition_spec`` works,
-    ``("pp",)`` and ``("ep",)`` included; ``dcn_dp`` still raises. The
-    ep axis sits between dp and sp in JAX's ``AXIS_ORDER``: rank
-    ``(((p * dp + d) * ep + e) * sp + s) * tp + t``."""
+    """Every axis of JAX's ``AXIS_ORDER`` builds a mesh (here, a world of
+    1, only at size 1; a tp 2, an sp 2, a pp 2, an ep 2 or a dcn_dp 2
+    mesh needs 2 ranks) and ``partition_spec`` works, ``("pp",)``,
+    ``("ep",)`` and the joint ``(("dcn_dp", "dp"),)`` included. The ep
+    axis sits between dp and sp, dcn_dp outermost: rank ``((((c * pp +
+    p) * dp + d) * ep + e) * sp + s) * tp + t``."""
     from paddle_tpu_torch.parallel import mesh
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        mesh.make_mesh(mesh.MeshConfig(dcn_dp=2))
-    for axis in ("tp", "sp", "pp", "ep"):
+    for axis in ("tp", "sp", "pp", "ep", "dcn_dp"):
         with pytest.raises(ValueError, match="needs 2 ranks"):
             mesh.make_mesh(mesh.MeshConfig(**{axis: 2}))
     assert mesh.make_mesh(mesh.MeshConfig(sp=1)).shape == {"dp": 1}
@@ -369,6 +367,24 @@ def test_mesh_axes_other_than_dp_raise():
     assert mesh.make_mesh(mesh.MeshConfig(dp=1)).shape == {"dp": 1}
     with pytest.raises(ValueError, match="needs 4 ranks"):
         mesh.make_mesh(mesh.MeshConfig(dp=4))
+    assert mesh.make_mesh(mesh.MeshConfig(dcn_dp=1)).shape == {"dp": 1}
+    dcn = mesh.Mesh(2, dcn_dp=2)
+    assert dcn.axis_names == ("dcn_dp", "dp") and dcn.size == 4
+    assert [dcn.coords(r)["dcn_dp"] for r in range(4)] == [0, 0, 1, 1]
+    assert [dcn.coords(r)["dcn_dp+dp"] for r in range(4)] == [0, 1, 2, 3]
+    assert dcn.axis_ranks("dcn_dp", 1) == [1, 3]
+    assert dcn.axis_ranks("dp", 2) == [2, 3]
+    assert dcn.axis_ranks("dcn_dp+dp", 2) == [0, 1, 2, 3]
+    wide = mesh.Mesh(2, tp=2, dcn_dp=2)
+    assert wide.rank_of(1, 0, 1, dcn_dp=1) == ((1 * 2 + 1) * 2 + 1)
+    assert mesh.partition_spec(dcn, (("dcn_dp", "dp"),), (16, 4)) == \
+        (("dcn_dp", "dp"), None)
+    assert mesh.partition_spec(dcn, (("dcn_dp", "dp"),), (6, 4)) == \
+        (None, None)
+    part = mesh.Mesh(2, ranks=[2, 3])
+    assert 2 in part and 0 not in part and part.coords(3)["dp"] == 1
+    with pytest.raises(ValueError, match="is not in"):
+        part.coords(0)
 
 
 def test_rewrite_runs_on_a_clone_and_keeps_the_op_order():

@@ -271,10 +271,12 @@ def test_pp_shard_cuts_the_stage_state_to_one_slice():
         assert prog._pp_layouts["fc_0.w_0"].full_shape == (S, D, D)
         assert prog.global_block().var("fc_0.w_0").shape == (1, D, D)
         assert prog.global_block().var("fc_1.w_0").shape == (D, 1)
-    # a pp mesh with ep is what the port leaves out
-    with pytest.raises(NotImplementedError, match="ep mesh with"):
-        apply_passes(main.clone(), [get_pass("pp_shard",
-                                             mesh=Mesh(1, pp=2, ep=2))])
+    # beside ep too (a switch_moe outside the pipeline is the ep
+    # split's): the same [1, ...] slice
+    prog = apply_passes(main.clone(), [get_pass("pp_shard",
+                                                mesh=Mesh(1, pp=2, ep=2))])
+    assert prog._pp_layouts["fc_0.w_0"].full_shape == (S, D, D)
+    assert prog.global_block().var("fc_0.w_0").shape == (1, D, D)
 
 
 def test_pp_shard_refuses_batch_statistics_in_a_stage():

@@ -376,17 +376,23 @@ def test_sharding_constraint_is_a_value_identity():
     got_w, = exe.run(main, feed={"x": xv}, fetch_list=[w],
                      scope=tfluid.Scope())
     assert np.array_equal(got_w, xv)
-    # an ep entry is a hint too (the experts' split is switch_moe's);
-    # dcn_dp is item 7b's
+    # an ep entry is a hint too (the experts' split is switch_moe's), and
+    # so is a dcn_dp one (each rank is fed its rows)
     with tfluid.program_guard(main, startup):
         e = tfluid.layers.collective.shard(x, "ep", None)
     assert e.block.ops[-1].attrs["spec"] == ("ep", None)
     got_e, = exe.run(main, feed={"x": xv}, fetch_list=[e],
                      scope=tfluid.Scope())
     assert np.array_equal(got_e, xv)
+    with tfluid.program_guard(main, startup):
+        c = tfluid.layers.collective.shard(x, ("dcn_dp", "dp"), None)
+    assert c.block.ops[-1].attrs["spec"] == (("dcn_dp", "dp"), None)
+    got_c, = exe.run(main, feed={"x": xv}, fetch_list=[c],
+                     scope=tfluid.Scope())
+    assert np.array_equal(got_c, xv)
     with pytest.raises(NotImplementedError, match="item 7b"):
         with tfluid.program_guard(main, startup):
-            tfluid.layers.collective.shard(x, "dcn_dp", None)
+            tfluid.layers.collective.shard(x, "bogus", None)
     with tfluid.program_guard(main, startup):
         z = tfluid.layers.collective.shard(x, "sp", None)
     assert z.block.ops[-1].attrs["spec"] == ("sp", None)
