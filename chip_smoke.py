@@ -401,6 +401,30 @@ NVIDIA GPU.
     ``--only-dp`` builds, runs these paths at N = every card only (no
     N = 1 runs, no scaling line) and stops (no kernels line, no ok
     line): the data-parallel figures alone, e.g. on four cards.
+    Then Wide&Deep's sparse tables across cards (``widedeep_dp``, at N =
+    every card; dp 1 and its lazy twin through the same code on one,
+    which says that no data parallelism was measured): bench_widedeep's
+    program (global B4096, 26 slots, vocab 10000, embed 16, MLP 400x3,
+    Adam 1e-3) through ``with_data_parallel`` at dp 4, at dp 2 x mp 2
+    (``table_dist_attr=("mp", None)``: every table's rows and Adam state
+    over ``mp``, the port's ``tp``; the lookups ``c_embedding`` +
+    ``mp_allreduce_sum``, the sparse grads over the shard's rows), at
+    dp 4 with lazy Adam and at dcn_dp 2 x dp 2 (the dense grads'
+    ``hier_allreduce``, the sparse ones all-gathered over the joint data
+    axis; the slab behind the multi-slice gate, whose byte table is
+    kept), each data rank fed its rows of one seeded global
+    pool: K 4 eager steps against a run_steps slab (bitwise, captured,
+    one ``c_allgather_selected_rows`` a table inside), the state of each
+    tp coordinate equal across its dp ranks, the mean of the dp ranks'
+    losses within ``WD_DP_LOSS_RTOL`` of rank 0's one-card run of the
+    same global batch, the dp 2 x mp 2 save (tables gathered whole)
+    reloading on one card to the gathered values; ms a step (the
+    slowest rank) and samples/s beside that one-card run's ms and the
+    7.64-8.24 ms CHANGES.md records for bench_widedeep on one card, NCCL
+    ms a step and idle share from a profiled
+    slab, the communicating ops' device ms. No kernel of the port
+    launches (the sparse updates and all-gathers are torch and NCCL).
+    ``--only-widedeep`` runs it alone.
     Then tensor parallelism, the same way (``tp_phases``; dp 2 x tp 2
     and tp 4 on four cards, tp 2 on two, tp 1 through the same code on
     one, where each line says that no tensor parallelism was measured
@@ -450,8 +474,18 @@ NVIDIA GPU.
       profiled window (tp > 1), 0 blocks held after each drain, every
       follower ending clean; served tokens/s, decode ms a step, the
       leader's hand-off us a step, the weight bytes a card, beside
-      tp_generate's rows of the same run.
+      tp_generate's rows of the same run;
+    - tp_bert_recompute and tp_bert_lamb: tp_bert's mesh, batch and
+      checks over bert_long_recompute's program (noam Adam under
+      RecomputeOptimizer with the 12 layer checkpoints; K1 24 and K2 12
+      a step) and bert_lamb's (LAMB at the warmup-decay rate under the
+      global-norm clip, each split parameter's trust ratio over tp; K1
+      and K2 12 a step), every eager step's dp-mean loss within rtol
+      2e-2 of rank 0's plain program on one card from the same startup.
     ``--only-tp`` runs these alone (no kernels line, no ok line).
+    ``--phases a,b`` with ``--only-*`` flags (refused without one) runs
+    only the phases named (the kernel-shape checks still run); several
+    ``--only-*`` flags run their families in turn.
 13b. Sequence parallelism across cards, right after the tp phases, at
     N = every card (sp 1 through the same code on one card, which says
     that no sequence parallelism was measured): first
@@ -478,7 +512,16 @@ NVIDIA GPU.
       on every rank under flash (K2 for K3 + K4 at one card's S 2048),
       none under ring and Ulysses; ms a step, tokens/s, peak GB a card
       beside the one-card run's, NCCL kernels and ms a step, idle share
-      from a profiled slab.
+      from a profiled slab;
+    - sp_causal: sp_bert's flash run with every ``flash_attention`` op
+      causal (set before the backward is built): the rewrite reads Q, K
+      and V gathered, runs K1 and K3 + K4 on the whole sequence as on one
+      card (Sq = Sk = 8192 on four cards) and keeps the rank's chunk of
+      the output; the same checks and figures as sp_bert against rank
+      0's one-card causal run. Its kernels are first held against their
+      plain versions at that gathered shape (B2 H12 S8192 D64, float32,
+      causal, BERT's padded-tail key bias, separate Q, K and V) in
+      ``sp_kernel_shapes``.
     ``--only-sp`` runs these alone (no kernels line, no ok line).
 13c. Pipeline parallelism across cards, right after the sp phases, at
     N = every card (on one card a 2-stage pipeline on the sequential
@@ -886,7 +929,9 @@ def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
         q, k, v, bias=bias, causal=causal), 20)
     plain_ms = time_ms(torch, lambda: fa.flash_attention_ref(
         q, k, v, bias=bias, causal=causal), 5)
-    mask = None if bias is None else bias.to(q.dtype)
+    # SDPA takes no mask beside is_causal: a causal call with a bias is
+    # timed with the causal mask alone
+    mask = None if bias is None or causal else bias.to(q.dtype)
     lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, attn_mask=mask, is_causal=causal), 20)
     pairs = S * (S + 1) // 2 if causal else S * S
@@ -900,8 +945,8 @@ def flash_phase(torch, fa, B, H, S, D, dtype, causal, with_bias, seed,
            "layout": "packed qkv views" if packed else "contiguous",
            "max_abs_err": err, "lse2_max_abs_err": lse_err, "atol": tol,
            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "tflops": ops / ms / 1e9, "ok": ok}
+           "library_bias": mask is not None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "tflops": ops / ms / 1e9, "ok": ok}
     emit(rec)
     if not ok:
         raise AssertionError(f"flash_attention_fwd disagrees with its plain "
@@ -1350,7 +1395,8 @@ def bwd_phase(torch, fa, name, B, H, S, D, dtype, causal, with_bias, seed,
     ms = event_ms(torch, lambda: kern(*args), 10)
     plain_ms = event_ms(torch, lambda: fa.flash_attention_bwd_ref(*args), 3)
     lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
-    mask = None if bias is None else bias.to(q.dtype)
+    # a causal call with a bias: SDPA with the causal mask alone
+    mask = None if bias is None or causal else bias.to(q.dtype)
     lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
                                         is_causal=causal)
     lib_ms = event_ms(torch, lambda: torch.autograd.grad(
@@ -1365,7 +1411,8 @@ def bwd_phase(torch, fa, name, B, H, S, D, dtype, causal, with_bias, seed,
            "layout": "packed qkv views" if packed else "contiguous",
            "max_abs_err": max(errs.values()), "abs_err": errs,
            "err_over_max_ref": rel, "limit_over_max_ref": tol, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library_bias": mask is not None, "bound_ms": bound_ms,
            "bound_by": bound_by, "tflops": ops / ms / 1e9, "ok": ok}
     emit(rec)
     if not ok:
@@ -3488,13 +3535,14 @@ def profiled_ms(torch, fn):
     return profiled_launches(torch, fn)[0] or None
 
 
-def build_bert_graft(cfg, B, S, P, recompute, white=()):
+def build_bert_graft(cfg, B, S, P, recompute, white=(), tp=False):
     """BERT pretraining as ``__graft_entry__._build(with_opt=True)``
     composes it: ``bert_pretrain`` + ``AdamOptimizer(noam_decay(h, 100,
     learning_rate=1.0))`` under ``RecomputeOptimizer`` with the layer
     outputs as checkpoints (``recompute`` False leaves it out), wrapped
     by ``mp.decorate`` (bf16 AMP at a static loss scale of 1.0, as
-    bench.py's bench_bert_long trains). Returns (main, startup, outputs,
+    bench.py's bench_bert_long trains); ``tp`` annotates it by
+    ``bert.apply_tp_sharding`` first. Returns (main, startup, outputs,
     lr var)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
@@ -3502,6 +3550,8 @@ def build_bert_graft(cfg, B, S, P, recompute, white=()):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         out = bert.bert_pretrain(cfg, B, S, P)
+        if tp:
+            bert.apply_tp_sharding(main, cfg)
         lr = fluid.layers.noam_decay(cfg.hidden_size, 100, learning_rate=1.0)
         opt = fluid.optimizer.AdamOptimizer(learning_rate=lr)
         if recompute:
@@ -4068,15 +4118,16 @@ def widedeep_model_kw(cfg):
                                 "embed_dim", "hidden_sizes")}
 
 
-def widedeep_program(cfg, lazy=False):
+def widedeep_program(cfg, lazy=False, table_dist_attr=None):
     """bench_widedeep's program: ``wide_deep(batch_size=B)`` +
-    ``Adam(lr)`` (``lazy_mode`` as given). Returns (main, startup,
-    outputs)."""
+    ``Adam(lr)`` (``lazy_mode`` as given; the tables sharded by
+    ``table_dist_attr``). Returns (main, startup, outputs)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import widedeep
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         out = widedeep.wide_deep(batch_size=cfg["B"],
+                                 table_dist_attr=table_dist_attr,
                                  **widedeep_model_kw(cfg))
         fluid.optimizer.Adam(cfg["lr"], lazy_mode=lazy).minimize(
             out["loss"])
@@ -5452,13 +5503,15 @@ class _OpsOf:
         return getattr(self.fn, item)
 
 
-def build_bert_lamb(cfg, B, S, P, optimizer="lamb", recipe=LAMB_BERT):
+def build_bert_lamb(cfg, B, S, P, optimizer="lamb", recipe=LAMB_BERT,
+                    tp=False):
     """BERT pretraining as bench_bert_long builds it (``bert_pretrain``,
     bf16 AMP through ``mp.decorate`` at a static loss scale of 1.0) at
     ``linear_lr_warmup(polynomial_decay(...))``, under
     ``LambOptimizer(...)`` with ``GradientClipByGlobalNorm`` (the
-    recipe), or ``AdamOptimizer`` at the same rate without a clip.
-    Returns (main, startup, outputs, lr var, the clip's ``_OpsOf``)."""
+    recipe), or ``AdamOptimizer`` at the same rate without a clip;
+    ``tp`` annotates it by ``bert.apply_tp_sharding`` first. Returns
+    (main, startup, outputs, lr var, the clip's ``_OpsOf``)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
     mp = fluid.contrib.mixed_precision
@@ -5467,6 +5520,8 @@ def build_bert_lamb(cfg, B, S, P, optimizer="lamb", recipe=LAMB_BERT):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         out = bert.bert_pretrain(cfg, B, S, P)
+        if tp:
+            bert.apply_tp_sharding(main, cfg)
         lr = fluid.layers.linear_lr_warmup(
             fluid.layers.polynomial_decay(r["peak_lr"], r["decay_steps"],
                                           r["end_lr"], power=r["power"]),
@@ -6227,9 +6282,11 @@ def _run_phase(argpath):
         place = fluid.CPUPlace()
     fn = {"dp_parity": _dp_parity, "dp_resnet50": _dp_resnet50,
           "fleet_bert": _fleet_bert, "tp_parity": _tp_parity,
-          "tp_bert": _tp_bert, "tp_generate": _tp_generate,
+          "tp_bert": _tp_bert, "tp_bert_recompute": _tp_bert,
+          "tp_bert_lamb": _tp_bert, "tp_generate": _tp_generate,
           "tp_serving": _tp_serving, "sp_parity": _sp_parity,
-          "sp_bert": _sp_bert, "pp_parity": _pp_parity,
+          "sp_bert": _sp_bert, "sp_causal": _sp_bert,
+          "widedeep_dp": _widedeep_dp, "pp_parity": _pp_parity,
           "pp_gpt": _pp_gpt, "moe_parity": _moe_parity,
           "moe_gpt": _moe_gpt, "dcn_bert": _dcn_bert,
           "slice_drill": _slice_drill}[args["phase"]]
@@ -6633,12 +6690,13 @@ def nccl_wait_split(ranks):
 
 
 def _dp_train(torch, np, fluid, exe, comp, startup, loss, pool, K,
-              label_ops, startup_scope=None):
+              label_ops, startup_scope=None, keep_scope=False):
     """The shared body of dp_resnet50 and fleet_bert on one rank: K eager
     steps and a run_steps slab of K from copies of one scope (losses and
     scope bitwise), a timed slab, a profiled slab (device, NCCL and
     idle), the device ms of ``label_ops`` in an annotated eager step,
-    and the peak memory. Returns the record and the slab scope."""
+    and the peak memory. Returns the record (and, with ``keep_scope``,
+    the slab scope)."""
     cuda = exe.device.type == "cuda"
     base = _peak_base(torch, cuda)
     scope0 = startup_scope or fluid.Scope()
@@ -6695,6 +6753,8 @@ def _dp_train(torch, np, fluid, exe, comp, startup, loss, pool, K,
         rec["eager_op_device_ms"] = {k: v for k, v in ranges.items()}
         rec["peak_mem_gb"] = _peak_from(torch, cuda, base)
     rec["digest"] = _state_digest(torch, sB.items())
+    if keep_scope:
+        return rec, sB
     del sA, sB
     return rec
 
@@ -6960,6 +7020,215 @@ def dp_phases(torch, np, counters, name, n=None, args=None, at_one=True):
               "ms_per_step_1": one["run_steps_ms_per_step"]})
     return out
 
+# ------------------------------------------------ Wide&Deep over cards
+
+# widedeep_dp: bench_widedeep's program (B4096 global) through
+# with_data_parallel, K eager steps and run_steps slabs of K
+WD_DP = dict(WIDEDEEP, K=4)
+# the ops of a widedeep_dp step that communicate
+WD_DP_LABEL_OPS = ("c_allgather_selected_rows", "c_coalesced_allreduce_sum",
+                   "c_embedding", "mp_allreduce_sum")
+# the losses against the one-card run of the same global batch (the CPU
+# tests' tolerance, tests/test_torch_parallel.py)
+WD_DP_LOSS_RTOL = 3e-4
+# bench_widedeep on one card by run_steps, as CHANGES.md records it for
+# the slice that ported Wide&Deep
+WD_ONE_CARD_EARLIER_MS = (7.64, 8.24)
+WD_DIR = os.path.join(DP_DIR, "widedeep_ckpt")
+
+
+def widedeep_dp_grids(n):
+    """(tag, mesh axes, lazy Adam, table_dist_attr) of widedeep_dp on
+    ``n`` cards: dp 4, dp 2 x mp 2 (every table's rows over ``mp``, the
+    port's ``tp``), dp 4 with lazy Adam and dcn_dp 2 x dp 2 (two slices)
+    on four; dp n and its lazy twin elsewhere (dp 1 on one card: no data
+    parallelism)."""
+    if n == 4:
+        return [("dp4", {"dp": 4}, False, None),
+                ("dp2mp2", {"dp": 2, "tp": 2}, False, ("mp", None)),
+                ("dp4_lazy", {"dp": 4}, True, None),
+                ("dcn2dp2", {"dcn_dp": 2, "dp": 2}, False, None)]
+    return [(f"dp{n}", {"dp": n}, False, None),
+            (f"dp{n}_lazy", {"dp": n}, True, None)]
+
+
+def _widedeep_dp(torch, np, args, rank, n, place):
+    """bench_widedeep (Wide&Deep, global B4096, Adam 1e-3, plain or lazy)
+    through ``with_data_parallel`` on each of :func:`widedeep_dp_grids`,
+    every dp rank fed its rows of one seeded global pool: K eager steps
+    against a run_steps slab (:func:`_dp_train`: bitwise, captured with
+    the all-gathers inside; a timed and a profiled slab); at dp 2 x mp 2
+    a save (the tables gathered whole) that rank 0 loads into the plain
+    program on one card. Rank 0 runs each grid's plain program on the
+    whole global batch from the same startup: K eager steps (the
+    losses' reference) and a timed run_steps slab (the one-card ms)."""
+    import shutil
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.parallel import mesh
+    from paddle_tpu_torch.parallel.tp import gathered
+    run = args["run"]
+    K, G = run["K"], run["B"]
+    exe = fluid.Executor(place)
+    cuda = exe.device.type == "cuda"
+    glob = widedeep_pool(torch, np, run, exe.device, seed=run.get("seed", 0))
+    rec = {"B": G, "K": K, "grids": {}}
+    for tag, axes, lazy, dist in widedeep_dp_grids(n):
+        grid = mesh.make_mesh(mesh.MeshConfig(**axes))
+        # the data coordinate over dcn_dp x dp
+        d, dp = grid.coords()[mesh.DATA_AXIS], grid.dcn_dp * grid.dp
+        b = G // dp
+        main, startup, out = widedeep_program(dict(run, B=b), lazy, dist)
+        loss = out["loss"]
+        comp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=grid)
+        pool = [{k: v[d * b:(d + 1) * b].contiguous() for k, v in f.items()}
+                for f in glob]
+        r, scope = _dp_train(torch, np, fluid, exe, comp, startup, loss,
+                             pool, K, WD_DP_LABEL_OPS, keep_scope=True)
+        ops = [o.type for o in comp.program.global_block().ops]
+        r.update({"axes": axes, "lazy": lazy, "rows": b,
+                  "coords": grid.coords(),
+                  "ops": {t: ops.count(t) for t in WD_DP_LABEL_OPS},
+                  "table_local": list(scope.find_var("embedding_0.w").shape)})
+        gate = getattr(comp, "hier_report", None)
+        if gate is not None:
+            r["gate"] = {k: gate[k] for k in (
+                "violations", "rows", "grad_bytes",
+                "sparse_cross_slice_wire_bytes", "cross_slice_wire_bytes",
+                "flat_estimate_wire_bytes")}
+        if cuda:
+            r["nccl_ms_per_step"] = r["profile"]["nccl_busy_ms"] / K
+        split = set(comp._tp_layouts)
+        r["digest_replicated"] = {k: v for k, v in r["digest"].items()
+                                  if k not in split}
+        names = [v.name for v in main.list_vars() if v.persistable]
+        if dist is not None:
+            if rank == 0 and os.path.isdir(WD_DIR):
+                shutil.rmtree(WD_DIR)
+            mesh.barrier()
+            fluid.io.save_persistables(exe, WD_DIR, main_program=main,
+                                       scope=scope)
+            with gathered(scope):
+                whole = _state_digest(torch, [(q, scope.find_var(q))
+                                              for q in names])
+        del scope
+        _release(torch, exe)
+        if rank == 0:
+            pmain, pstart, pout = widedeep_program(run, lazy)
+            ps = fluid.Scope()
+            exe.run(pstart, scope=ps)
+            plain = [float(np.ravel(exe.run(
+                pmain, feed=glob[i % 2], fetch_list=[pout["loss"]],
+                scope=ps)[0])[0]) for i in range(K)]
+            slab = widedeep_slab(torch, glob, K)
+            _, cap_ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+                pmain, feed=slab, fetch_list=[pout["loss"]], scope=ps))
+            _, ms = _timed_wall(torch, cuda, lambda: exe.run_steps(
+                pmain, feed=slab, fetch_list=[pout["loss"]], scope=ps))
+            r["plain_losses"] = plain
+            r["one_card_ms_per_step"] = ms / K
+            if dist is not None:
+                # the sharded save, loaded whole on one card
+                ls = fluid.Scope()
+                exe.run(pstart, scope=ls)
+                fluid.io.load_persistables(exe, WD_DIR, main_program=pmain,
+                                           scope=ls)
+                r["reload_equal"] = _state_digest(
+                    torch, [(q, ls.find_var(q)) for q in names]) == whole
+                del ls
+            del ps
+            _release(torch, exe)
+        rec["grids"][tag] = r
+    return rec
+
+
+def widedeep_dp_phase(torch, np, nproc, args=None, timeout=900):
+    """widedeep_dp at ``nproc`` ranks (one a card), checked and printed
+    with the card, its power limit and N: each grid's slab bitwise its
+    eager steps on every rank, the state of each tp coordinate equal
+    across its dp ranks (the replicated state across all), the mean of
+    the dp ranks' losses within ``WD_DP_LOSS_RTOL`` of the one-card run
+    of the same global batch, one all-gather a table, the sharded save
+    reloading on one card to the gathered values. Returns the record."""
+    args = dict(args or {})
+    args.setdefault("run", WD_DP)
+    ranks, launch = dp_launch(torch, "widedeep_dp", nproc, args, timeout)
+    r0 = ranks[0]
+    rec = {"phase": "widedeep_dp", **CARD, "N": nproc, "launch": launch,
+           "B": r0["B"], "K": r0["K"],
+           "one_card_earlier_ms_per_step": list(WD_ONE_CARD_EARLIER_MS),
+           "kernels": "none of the port (torch and NCCL)", "grids": {}}
+    bad = []
+    slots = args["run"]["num_slots"]
+    for tag, g0 in r0["grids"].items():
+        gr = [r["grids"][tag] for r in ranks]
+        for r, g in zip(ranks, gr):
+            g["rank"] = r["rank"]
+        bad += _tp_failures(f"widedeep_dp {tag}", gr)
+        data = "dcn_dp+dp"          # the data coordinate over dcn_dp x dp
+        dps = sorted({g["coords"][data] for g in gr})
+        mean = np.mean([next(g["eager_losses"] for g in gr
+                             if g["coords"][data] == d) for d in dps], 0)
+        for i, (a, b) in enumerate(zip(mean, g0["plain_losses"])):
+            if not math.isfinite(a) or abs(a - b) > WD_DP_LOSS_RTOL * abs(b):
+                bad.append(f"widedeep_dp {tag}: step {i}'s loss {a} is off "
+                           f"the one-card run's {b}")
+        if g0["ops"]["c_allgather_selected_rows"] != 2 * slots:
+            bad.append(f"widedeep_dp {tag}: {g0['ops']} (not one "
+                       f"all-gather a table)")
+        if "reload_equal" in g0 and not g0["reload_equal"]:
+            bad.append(f"widedeep_dp {tag}: the sharded save reloads on "
+                       f"one card to other values")
+        if "dcn_dp" in g0["axes"] and (
+                "gate" not in g0 or g0["gate"]["violations"]
+                or "all-gather@dcn_dp+dp" not in g0["gate"]["rows"]):
+            bad.append(f"widedeep_dp {tag}: the multi-slice gate did not "
+                       f"pass the sparse all-gathers: {g0.get('gate')}")
+        slow = max(gr, key=lambda g: g["run_steps_ms_per_step"])
+        ms = slow["run_steps_ms_per_step"]
+        rec["grids"][tag] = {
+            "axes": g0["axes"], "lazy": g0["lazy"], "rows_a_rank":
+            g0["rows"], "table_rows_a_rank": g0["table_local"][0],
+            "ops_a_step": g0["ops"], "ms_per_step": ms,
+            "samples_per_s_total": r0["B"] / ms * 1e3,
+            "nccl_ms_per_step": slow.get("nccl_ms_per_step"),
+            "idle_share_replay": 1 - slow["profile"]["busy_ms"]
+            / slow["profile"]["wall_ms"] if "profile" in slow else None,
+            "eager_ms_per_step_median": slow["eager_ms_per_step_median"],
+            "capture_s": g0.get("capture_s"),
+            "eager_op_device_ms": g0.get("eager_op_device_ms"),
+            "peak_mem_gb_a_card": max(g.get("peak_mem_gb") or 0.0
+                                      for g in gr),
+            "mean_losses": mean.tolist(),
+            "one_card_losses": g0["plain_losses"],
+            "one_card_ms_per_step": g0["one_card_ms_per_step"],
+            "slab_bitwise": all(g["slab_bitwise"] for g in gr),
+            "reload_equal": g0.get("reload_equal"),
+            "gate": g0.get("gate")}
+    if nproc == 1:
+        rec["note"] = ("one card: dp 1 through the same code; no data "
+                       "parallelism was measured")
+        print(f"widedeep_dp: {rec['note']}", flush=True)
+    rec["ranks"] = ranks
+    emit({k: v for k, v in rec.items() if k != "ranks"})
+    if bad:
+        raise AssertionError("; ".join(bad))
+    return rec
+
+
+def widedeep_dp_phases(torch, np, counters, n=None, args=None):
+    """widedeep_dp at N = n (default: every card); adds the ranks' kernel
+    launches to ``counters``."""
+    n = n or torch.cuda.device_count()
+    rec = widedeep_dp_phase(torch, np, n, args)
+    for r in rec["ranks"]:
+        for w, c in r["launches"].items():
+            cw = counters.get(w)
+            if cw is not None:
+                cw.launches += c
+    return rec
+
+
 # ------------------------------------------------ tensor parallelism
 
 # tp_parity: a narrow BERT in float32 (flash: K1/K2 at its 8 heads over
@@ -6973,6 +7242,8 @@ TP_BERT = dict(DP_BERT)
 # tp_generate: GPT-base, paged fp32, 8 rows of 128-token prompts
 TP_GEN = {"rows": 8, "prompt": 128, "new": 128, "short": 8,
           "max_len": 512, "seed": 0}
+# tp_bert's variants: bert_long_recompute's and bert_lamb's programs
+TP_BERT_VARIANTS = {"tp_bert_recompute": "recompute", "tp_bert_lamb": "lamb"}
 # the ops of a tp_bert step that launch an NCCL kernel each
 TP_NCCL_OPS = ("c_identity_grad", "mp_allreduce_sum", "c_concat",
                "c_coalesced_allreduce_sum")
@@ -7107,12 +7378,18 @@ def _tp_bert(torch, np, args, rank, n, place):
     noam_decay, dropout 0) annotated by ``bert.apply_tp_sharding``
     through ``with_data_parallel(mesh=make_mesh(dp, tp))``: fleet_bert's
     global batch (16 rows seeded 200) split over dp, K eager steps and
-    run_steps slabs (:func:`_dp_train`); rank 0 then runs fleet_bert's
-    program at N = 1 (the plain one) for step 0 from the same startup."""
+    run_steps slabs (:func:`_dp_train`); rank 0 then runs the plain
+    program at N = 1 from the same startup (step 0; every eager step for
+    a variant). ``args["variant"]``: "recompute", bert_long_recompute's
+    program (noam Adam under ``RecomputeOptimizer`` with the layer
+    checkpoints, ``build_bert_graft``), or "lamb", bert_lamb's (LAMB
+    with the global-norm clip at the warmup-decay rate,
+    ``build_bert_lamb``)."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.models import bert
     mp = fluid.contrib.mixed_precision
     run = args["run"]
+    variant = args.get("variant")
     grid = _tp_world(args)
     d = grid.coords()["dp"]
     G, S, P = run["B"], run["S"], run["P"]
@@ -7121,6 +7398,14 @@ def _tp_bert(torch, np, args, rank, n, place):
                       max_position=max(S, 512))
 
     def build(rows, annotate):
+        if variant == "recompute":
+            main, startup, out, _ = build_bert_graft(cfg, rows, S, P, True,
+                                                     tp=annotate)
+            return main, startup, out["loss"]
+        if variant == "lamb":
+            main, startup, out, _, _ = build_bert_lamb(cfg, rows, S, P,
+                                                       tp=annotate)
+            return main, startup, out["loss"]
         main, startup = fluid.Program(), fluid.Program()
         with fluid.unique_name.guard(), fluid.program_guard(main, startup):
             out = bert.bert_pretrain(cfg, rows, S, P)
@@ -7143,12 +7428,16 @@ def _tp_bert(torch, np, args, rank, n, place):
                     run["K"], TP_NCCL_OPS)
     ops = comp.program.global_block().ops
     flash = next(o for o in ops if o.type == "flash_attention")
-    rec.update({"B": G, "rows": b, "S": S, "P": P,
+    rec.update({"B": G, "rows": b, "S": S, "P": P, "variant": variant,
                 "layers": cfg.num_layers, "dp": args["dp"],
                 "tp": args["tp"], "coords": grid.coords(),
                 "heads_a_rank": comp.program.global_block().var(
                     flash.input("Q")[0]).shape[1],
                 "report": getattr(comp.program, "_tp_report", {}),
+                "recompute_barriers": sum(o.type == "recompute_barrier"
+                                          for o in ops),
+                "norm_axes": sorted({str(o.attrs.get("norm_axis"))
+                                     for o in ops if o.type == "lamb"}),
                 "collective_axes": [
                     "dp" if o.type == "c_coalesced_allreduce_sum" else "tp"
                     for o in ops if o.type in TP_NCCL_OPS],
@@ -7165,8 +7454,12 @@ def _tp_bert(torch, np, args, rank, n, place):
         exe.run(pstart, scope=sp)
         feed = {k: torch.from_numpy(np.ascontiguousarray(v)).to(exe.device)
                 for k, v in glob.items()}
-        rec["plain_step0_loss"] = float(np.ravel(exe.run(
-            pmain, feed=feed, fetch_list=[ploss], scope=sp)[0])[0])
+        plain = [float(np.ravel(exe.run(pmain, feed=feed,
+                                        fetch_list=[ploss],
+                                        scope=sp)[0])[0])
+                 for _ in range(run["K"] if variant else 1)]
+        rec["plain_step0_loss"] = plain[0]
+        rec["plain_losses"] = plain
         del sp
         _release(torch, exe)
     return rec
@@ -7740,13 +8033,13 @@ def tp_phase(torch, np, name, nproc, args=None, timeout=900):
     record."""
     args = dict(args or {})
     args["dp"], args["tp"] = tp_grid(nproc, name)
-    if nproc == 1 and name == "tp_bert" and not args.get("cpu"):
+    if nproc == 1 and name.startswith("tp_bert") and not args.get("cpu"):
         # one card measures no tp: fleet_bert's step at 2 layers, through
         # the same code
         args.setdefault("layers", 2)
-    args.setdefault("run", {"tp_parity": TP_PARITY, "tp_bert": TP_BERT,
-                            "tp_generate": TP_GEN,
-                            "tp_serving": TP_SERVE}[name])
+    args.setdefault("variant", TP_BERT_VARIANTS.get(name))
+    args.setdefault("run", {"tp_parity": TP_PARITY, "tp_generate": TP_GEN,
+                            "tp_serving": TP_SERVE}.get(name, TP_BERT))
     ranks, launch = dp_launch(torch, name, nproc, args, timeout)
     rec = {"phase": name, **CARD, "N": nproc, "dp": args["dp"],
            "tp": args["tp"], "launch": launch}
@@ -7767,15 +8060,17 @@ def tp_phase(torch, np, name, nproc, args=None, timeout=900):
         if not r0["reload_equal"]:
             bad.append("tp_parity: the tp save reloads on one card to "
                        "other values")
-    elif name == "tp_bert":
+    elif name.startswith("tp_bert"):
         slow = max(ranks, key=lambda r: r["run_steps_ms_per_step"])
         ms = slow["run_steps_ms_per_step"]
         step0 = float(np.mean([r["eager_losses"][0] for r in ranks
                                if r["coords"]["tp"] == 0]))
         rec.update({k: r0.get(k) for k in (
             "B", "rows", "S", "P", "layers", "K", "heads_a_rank", "report",
+            "variant", "recompute_barriers", "norm_axes",
             "slab_losses", "launches_per_step_run_steps",
-            "bf16_launches_per_step_run_steps", "plain_step0_loss")})
+            "bf16_launches_per_step_run_steps", "plain_step0_loss",
+            "plain_losses")})
         rec.update({
             "step0_loss": step0,
             "ms_per_step": ms,
@@ -7801,19 +8096,36 @@ def tp_phase(torch, np, name, nproc, args=None, timeout=900):
             rec["idle_share_replay"] = 1 - prof["busy_ms"] / prof["wall_ms"]
         heads = bert_config().num_heads // args["tp"]
         if r0["heads_a_rank"] != heads:
-            bad.append(f"tp_bert: {r0['heads_a_rank']} heads a rank, not "
+            bad.append(f"{name}: {r0['heads_a_rank']} heads a rank, not "
                        f"{heads}")
+        # a recomputed segment runs each layer's K1 once more
+        k1 = 2 if args["variant"] == "recompute" else 1
         for r in ranks if not args.get("cpu") else ():
             per = r["launches_per_step_run_steps"]
             want = r0["layers"]
-            if per["flash_attention_fwd"] != want or \
+            if per["flash_attention_fwd"] != k1 * want or \
                     per["flash_attention_bwd_single"] != want:
-                bad.append(f"tp_bert: rank {r['rank']} launched {per} a "
-                           f"step, not K1 and K2 {want} each")
+                bad.append(f"{name}: rank {r['rank']} launched {per} a "
+                           f"step, not K1 {k1 * want} and K2 {want}")
         if abs(step0 - r0["plain_step0_loss"]) > \
                 2e-2 * abs(r0["plain_step0_loss"]):
-            bad.append(f"tp_bert: step 0's loss {step0} is off fleet_bert's "
+            bad.append(f"{name}: step 0's loss {step0} is off the plain "
                        f"program's {r0['plain_step0_loss']}")
+        if args["variant"]:
+            # every eager step against the plain program's on one card
+            mean = np.mean([r["eager_losses"] for r in ranks
+                            if r["coords"]["tp"] == 0], axis=0)
+            rec["mean_eager_losses"] = mean.tolist()
+            for i, (a, b) in enumerate(zip(mean, r0["plain_losses"])):
+                if abs(a - b) > 2e-2 * abs(b):
+                    bad.append(f"{name}: step {i}'s loss {a} is off the "
+                               f"plain program's {b}")
+        if args["variant"] == "recompute" and not r0["recompute_barriers"]:
+            bad.append(f"{name}: no recompute_barrier in the program")
+        if args["variant"] == "lamb" and args["tp"] > 1 and \
+                "tp" not in r0["norm_axes"]:
+            bad.append(f"{name}: no lamb op takes its norms over tp "
+                       f"({r0['norm_axes']})")
     elif name == "tp_serving":
         bad += _tp_serving_failures(rec, ranks, args)
     else:
@@ -7942,13 +8254,22 @@ def _sp_world(g):
 
 
 def _sp_program(fluid, bert, cfg, rows, S, P, lr, sp_shard, tp=False,
-                causal=False):
+                causal=False, causal_flash=False):
+    """BERT pretraining at ``rows`` x S (``sp_shard``: the hidden state
+    pinned to ("dp", "sp", None)) under Adam at ``lr``; ``causal`` sets
+    ``causal=True`` on every ``ring_attention`` op (and its grad op's
+    record of it), ``causal_flash`` on every ``flash_attention`` op
+    before the backward is built."""
     main, startup = fluid.Program(), fluid.Program()
     main.random_seed = startup.random_seed = 11
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
         out = bert.bert_pretrain(cfg, rows, S, P, sp_shard=sp_shard)
         if tp:
             bert.apply_tp_sharding(main, cfg)
+        if causal_flash:
+            for op in main.global_block().ops:
+                if op.type == "flash_attention":
+                    op.attrs["causal"] = True
         fluid.optimizer.AdamOptimizer(lr).minimize(out["loss"])
     if causal:
         # the op and its grad op's record of it
@@ -8032,10 +8353,12 @@ def _sp_parity(torch, np, args, rank, n, place):
 
 def _sp_bert(torch, np, args, rank, n, place):
     """BERT-base with ``sp_shard=True`` at S = 2048 a card, B2, float32,
-    Adam: under each of ring, Ulysses and flash, 2 eager steps, a
-    run_steps slab of 3 (captured, the collectives inside), a timed
-    slab, a profiled slab; the captured step is freed before the next
-    mechanism's. Rank 0 then runs the plain program (flash, one card,
+    Adam: under each of ``args["mechs"]`` (ring, Ulysses and flash;
+    "flash_causal": flash with every ``flash_attention`` op causal, the
+    sp_causal phase), 2 eager steps, a run_steps slab of 3 (captured,
+    the collectives inside), a timed slab, a profiled slab; the captured
+    step is freed before the next mechanism's. Rank 0 then runs the
+    plain program (flash, causal where the mechanisms are, one card,
     the whole batch) for the same 5 steps from the same startup."""
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch import kernels
@@ -8055,11 +8378,14 @@ def _sp_bert(torch, np, args, rank, n, place):
              for k, v in f.items()} for f in feeds]
     slab = {k: torch.stack([f[k] for f in pool[E:]]) for k in pool[0]}
     rec = {"S": S, "B": B, "P": P, "sp": n, "runs": {}}
-    for mech in SP_BERT_MECHS:
-        cfg = bert_config(args.get("layers"), mech, dropout=0.0,
-                          max_position=S)
+    mechs = args.get("mechs", SP_BERT_MECHS)
+    causal = mechs == ["flash_causal"]
+    for mech in mechs:
+        cfg = bert_config(args.get("layers"), mech.replace("_causal", ""),
+                          dropout=0.0, max_position=S)
         main, startup, loss = _sp_program(fluid, bert, cfg, B, S, P,
-                                          run["lr"], True)
+                                          run["lr"], True,
+                                          causal_flash=causal)
         comp = fluid.CompiledProgram(main).with_data_parallel(
             loss_name=loss.name, mesh=grid)
         base = _peak_base(torch, cuda)
@@ -8103,7 +8429,8 @@ def _sp_bert(torch, np, args, rank, n, place):
         cfg = bert_config(args.get("layers"), "flash", dropout=0.0,
                           max_position=S)
         main, startup, loss = _sp_program(fluid, bert, cfg, B, S, P,
-                                          run["lr"], False)
+                                          run["lr"], False,
+                                          causal_flash=causal)
         base = _peak_base(torch, cuda)
         scope = fluid.Scope()
         exe.run(startup, scope=scope)
@@ -8143,8 +8470,9 @@ def _sp_failures(name, ranks, args):
     r0 = ranks[0]
     plain = r0["plain"]["losses"]
     L = r0["layers"]
-    single = single_pass_backward(r0["S"], False)
-    for mech in SP_BERT_MECHS:
+    for mech in r0["runs"]:
+        # a causal flash op runs on the gathered sequence (Sq = Sk = S)
+        single = single_pass_backward(r0["S"], mech == "flash_causal")
         mine = r0["runs"][mech]["losses"]
         for i, (a, b) in enumerate(zip(mine, plain)):
             tol = SP_LOSS_RTOL["step0" if i == 0 else "later"]
@@ -8161,7 +8489,7 @@ def _sp_failures(name, ranks, args):
             want = {"flash_attention_fwd": 0, "flash_attention_bwd_single": 0,
                     "flash_attention_bwd_dq": 0,
                     "flash_attention_bwd_dkv": 0, "paged_attention": 0}
-            if mech == "flash":
+            if mech.startswith("flash"):
                 want["flash_attention_fwd"] = L
                 for k in (("flash_attention_bwd_single",) if single else
                           ("flash_attention_bwd_dq",
@@ -8178,11 +8506,12 @@ def sp_phase(torch, np, name, nproc, args=None, timeout=900):
     checked and printed with the card, its power limit and N. Returns
     the record."""
     args = dict(args or {})
-    if nproc == 1 and name == "sp_bert" and not args.get("cpu"):
+    if nproc == 1 and name != "sp_parity" and not args.get("cpu"):
         # one card measures no sp: 2 layers through the same code
         args.setdefault("layers", 2)
-    args.setdefault("run", {"sp_parity": SP_PARITY,
-                            "sp_bert": SP_BERT}[name])
+    if name == "sp_causal":
+        args.setdefault("mechs", ["flash_causal"])
+    args.setdefault("run", {"sp_parity": SP_PARITY}.get(name, SP_BERT))
     ranks, launch = dp_launch(torch, name, nproc, args, timeout)
     rec = {"phase": name, **CARD, "N": nproc, "launch": launch}
     bad = _sp_failures(name, ranks, args)
@@ -8328,14 +8657,29 @@ def sp_kernel_shapes(torch, fa):
     """K1, K3 and K4 against their plain versions at sp_bert's flash
     shape on four cards (the rank's 2048 queries against the 8192
     gathered keys: B2 H12 D64, float32, non-causal, a padded-tail key
-    bias), and at H6 (tp 2 x sp 2)."""
+    bias), and at H6 (tp 2 x sp 2); then at sp_causal's, where the
+    causal op reads the gathered sequence as the main path gives it
+    (Sq = Sk = 8192, B2 H12 D64, float32, causal, the padded-tail key
+    bias, Q, K and V separate contiguous tensors; SDPA's library time
+    with the causal mask alone, as it takes no mask beside
+    ``is_causal``)."""
     out = []
     for H in (12, 6):
         for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
                      "flash_attention_bwd_dkv"):
             out.append(sp_kernel_phase(torch, fa, name, 2, H, 2048, 8192,
                                        64, seed=2212 + H))
-    return out
+    S = SP_BERT["S_per_card"] * 4
+    causal = [flash_phase(torch, fa, 2, 12, S, 64, "float32", True,
+                          "padded", seed=2220, packed=False)]
+    torch.cuda.empty_cache()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        causal.append(bwd_phase(torch, fa, name, 2, 12, S, 64, "float32",
+                                True, "padded", seed=2221, packed=False))
+        torch.cuda.empty_cache()
+    for r in causal:
+        r["sp_causal_shape"] = True
+    return out + causal
 
 
 # ------------------------------------------------ pipeline parallelism
@@ -8882,8 +9226,7 @@ def moe_grids(n, name="moe_gpt"):
     experts a card), ep 2 x dp 2 (4 experts a card, 4 rows a dp rank)
     and ep 2 x tp 2 (``gpt.apply_tp_sharding``: the attention and the
     dense FFNs split, the experts whole on the tp ranks); ``moe_parity``
-    also ep 2 x sp 2 (every layer a MoE layer, non-causal: the kernels
-    take no query offset under the sequence split) and pp 2 x ep
+    also ep 2 x sp 2 (every layer a MoE layer, non-causal) and pp 2 x ep
     2 (the dense layers in a 2-stage pipeline of 2 microbatches, one MoE
     layer after it); two: ep 2; one: ep 1 through the same code."""
     grids = {4: [("ep4", {"ep": 4}, {}), ("ep2dp2", {"ep": 2, "dp": 2}, {}),
@@ -11606,7 +11949,22 @@ def main():
                     "data-parallel paths at N = every card (no N = 1 runs "
                     "for the scaling line) and stop: a measurement of them "
                     "alone, with no kernels line and no ok line")
+    ap.add_argument("--only-widedeep", action="store_true", help="build, "
+                    "run widedeep_dp (Wide&Deep's sparse tables over dp and "
+                    "dp x mp) at N = every card and stop (no kernels line, "
+                    "no ok line)")
+    ap.add_argument("--phases", metavar="NAMES", help="with --only-*: run "
+                    "only these comma-separated phases of the families "
+                    "named (their kernel-shape checks still run); several "
+                    "--only-* flags run their families in turn")
     args = ap.parse_args()
+    if args.phases and not any(
+            getattr(args, f"only_{w}") for w in
+            ("dp", "widedeep", "tp", "sp", "pp", "moe", "dcn")):
+        # the full run drives every path: an ok line never comes from a
+        # run that skipped some of them
+        ap.error("--phases selects phases of the --only-* families: give "
+                 "it with one or more --only-* flags")
     if args.dp_worker:
         return dp_worker(args.dp_worker)
     if args.dp_serve:
@@ -11681,6 +12039,11 @@ def main():
                 "paged_attention": pa.paged_attention}
     launches = dict.fromkeys(counters, 0)
 
+    chosen = set(args.phases.split(",")) if args.phases else None
+
+    def wanted(name):
+        return chosen is None or name in chosen
+
     def drive(path, needs, fn):
         """Run one main path with every launch count zeroed just before
         it and read just after; ``needs`` must each have launched."""
@@ -11723,6 +12086,8 @@ def main():
                                  timeout=60).stdout, flush=True)
         for name, needs in (("dp_parity", ()), ("dp_resnet50", ()),
                             ("fleet_bert", DP_BERT_KERNELS)):
+            if not wanted(name):
+                continue
             _, got, bf16 = drive(name, needs, lambda name=name: dp_phases(
                 torch, np, counters, name, at_one=not args.only_dp))
             others = {k: c for k, c in got.items() if c and k not in needs}
@@ -11744,12 +12109,16 @@ def main():
         recs = {}
         for name, needs in (("tp_parity", DP_BERT_KERNELS),
                             ("tp_bert", DP_BERT_KERNELS),
+                            ("tp_bert_recompute", DP_BERT_KERNELS),
+                            ("tp_bert_lamb", DP_BERT_KERNELS),
                             ("tp_generate", ("flash_attention_fwd",
                                              "paged_attention")),
                             ("tp_serving", ("flash_attention_fwd",
                                             "paged_attention"))):
+            if not wanted(name):
+                continue
             beside = {}
-            if name == "tp_serving":
+            if name == "tp_serving" and "tp_generate" in recs:
                 gr = recs["tp_generate"]
                 beside = {k: {m: gr[k][m] for m in (
                     "tokens_per_sec", "decode_ms_per_step",
@@ -11760,12 +12129,11 @@ def main():
                     torch, np, counters, name,
                     args={"beside": beside} if beside else None))
             others = {k: c for k, c in got.items() if c and k not in needs}
-            if others or (name == "tp_bert" and any(
-                    bf16[k] != got[k] for k in needs)):
+            amp = name.startswith("tp_bert")
+            if others or (amp and any(bf16[k] != got[k] for k in needs)):
                 failures.append(f"the {name} path launched {got} (bf16 "
                                 f"{bf16}): only {needs} may launch"
-                                + (", all bf16" if name == "tp_bert"
-                                   else ""))
+                                + (", all bf16" if amp else ""))
 
     def drive_sp():
         """Sequence parallelism across cards, one rank a card through the
@@ -11781,11 +12149,18 @@ def main():
             single_pass_backward
         sp_kernel_shapes(torch, fa)
         n = torch.cuda.device_count()
-        long = ("flash_attention_bwd_single",) if single_pass_backward(
-            SP_BERT["S_per_card"] * n, False) else (
-            "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+        def bwd(causal):
+            return ("flash_attention_bwd_single",) if single_pass_backward(
+                SP_BERT["S_per_card"] * n, causal) else (
+                "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
         for name, needs in (("sp_parity", DP_BERT_KERNELS),
-                            ("sp_bert", ("flash_attention_fwd",) + long)):
+                            ("sp_bert", ("flash_attention_fwd",)
+                             + bwd(False)),
+                            ("sp_causal", ("flash_attention_fwd",)
+                             + bwd(True))):
+            if not wanted(name):
+                continue
             _, got, _ = drive(name, needs, lambda name=name: sp_phases(
                 torch, np, counters, name))
             # sp_bert's one-card reference runs the same kernels
@@ -11808,6 +12183,8 @@ def main():
                             ("pp_gpt", ("flash_attention_fwd",
                                         "flash_attention_bwd_dq",
                                         "flash_attention_bwd_dkv"))):
+            if not wanted(name):
+                continue
             _, got, _ = drive(name, needs, lambda name=name: pp_phases(
                 torch, np, counters, name))
             others = {k: c for k, c in got.items() if c and k not in needs}
@@ -11830,6 +12207,8 @@ def main():
                             ("moe_gpt", ("flash_attention_fwd",
                                          "flash_attention_bwd_dq",
                                          "flash_attention_bwd_dkv"))):
+            if not wanted(name):
+                continue
             _, got, _ = drive(name, needs, lambda name=name: moe_phases(
                 torch, np, counters, name))
             others = {k: c for k, c in got.items() if c and k not in needs}
@@ -11849,6 +12228,8 @@ def main():
         ranks' launches join the counts."""
         dcn_kernel_shapes(torch, fa)
         for name in ("dcn_bert", "slice_drill"):
+            if not wanted(name):
+                continue
             _, got, bf16 = drive(name, DP_BERT_KERNELS,
                                  lambda name=name: dcn_phases(
                                      torch, np, counters, name))
@@ -11861,23 +12242,37 @@ def main():
                                 f"launch" + (", all bf16" if name ==
                                              "dcn_bert" else ""))
 
+    def drive_widedeep():
+        """Wide&Deep's sparse tables across cards, one rank a card through
+        the port's launcher at N = every card: widedeep_dp (bench_widedeep
+        at a global B4096 over dp 4, dp 2 x mp 2 and dp 4 lazy on four
+        cards; dp 1 through the same code on one). No kernel of the port
+        may launch: the sparse updates and the all-gathers are torch and
+        NCCL, as the JAX package's are XLA scatters."""
+        if not wanted("widedeep_dp"):
+            return
+        _, got, _ = drive("widedeep_dp", (), lambda: widedeep_dp_phases(
+            torch, np, counters))
+        if any(got.values()):
+            failures.append(f"the widedeep_dp path launched a kernel of "
+                            f"the port: {got}")
+
+    families = {"dp": drive_dp, "widedeep": drive_widedeep,
+                "tp": drive_tp, "sp": drive_sp, "pp": drive_pp,
+                "moe": drive_moe, "dcn": drive_dcn}
     # on one card each family's phases share one worker process
     one_card = torch.cuda.device_count() == 1
-    only = [w for w in ("dp", "tp", "sp", "pp", "moe", "dcn")
-            if getattr(args, f"only_{w}")]
+    only = [w for w in families if getattr(args, f"only_{w}")]
     if only:
-        which = only[0]
         with resident(torch, one_card):
-            {"dp": drive_dp, "tp": drive_tp, "sp": drive_sp,
-             "pp": drive_pp, "moe": drive_moe, "dcn": drive_dcn}[which]()
+            for which in only:
+                families[which]()
         if failures:
             print(f"failed: {failures}", file=sys.stderr)
             return 1
-        kind = {"dp": "data", "tp": "tensor", "sp": "sequence",
-                "pp": "pipeline", "moe": "expert",
-                "dcn": "multi-slice data"}[which]
-        print(f"--only-{which}: the {kind}-parallel paths passed; no other "
-              f"phase ran", flush=True)
+        print(f"--only-{' --only-'.join(only)}: the paths passed "
+              f"({args.phases or 'every phase'}); no other phase ran",
+              flush=True)
         return 0
 
     # causal phases take q/k/v as the prefill lays them out (strided views
@@ -11979,8 +12374,7 @@ def main():
     # on one card every family's phases share one worker process (a
     # worker's start, its import torch and CUDA context, cost ~10-15 s)
     with resident(torch, one_card):
-        for family in (drive_dp, drive_tp, drive_sp, drive_pp, drive_moe,
-                       drive_dcn):
+        for family in families.values():
             family()
 
     # the dygraph paths (they need two eager B256 Transformer steps of

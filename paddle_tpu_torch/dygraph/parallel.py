@@ -109,21 +109,22 @@ class DataParallel(Layer):
 
     def apply_collective_grads(self):
         """Sum every parameter grad over the ranks: one all-reduce of a
-        flat buffer per dtype. Nothing outside a world."""
+        flat buffer per dtype; a ``SelectedRows`` grad is all-gathered
+        instead (every rank's rows and values in rank order, which a
+        sparse update sums). Nothing outside a world."""
         if not mesh.is_initialized():
             return
         import torch
         from ..framework.selected_rows import SelectedRows
-        from ..framework.passes import SPARSE_DP_ITEM
-        from ..ops.collective_ops import all_reduce
+        from ..ops.collective_ops import all_gather_selected_rows, all_reduce
         groups = {}
         for p in self._layers.parameters():
             g = p._grad
             if g is None:
                 continue
             if isinstance(g, SelectedRows):
-                raise NotImplementedError(f"paddle_tpu_torch: "
-                                          f"{SPARSE_DP_ITEM}: {p.name}")
+                p._grad = all_gather_selected_rows(g, None)
+                continue
             groups.setdefault(g.dtype, []).append(p)
         for ps in groups.values():
             flat = torch.cat([p._grad.reshape(-1) for p in ps])

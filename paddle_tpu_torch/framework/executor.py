@@ -592,10 +592,12 @@ class Executor:
                 # the first slab (parallel.dcn)
                 from ..parallel.dcn import check_hier_sync, hier_sync_report
                 where = f"fused_program_{program._uid}_x{k_steps}"
+                shapes = {n: tuple(t.shape[1:]) for n, t in slab.items()}
                 compiled.hier_report = check_hier_sync(
-                    step.program, compiled.mesh, where) \
+                    step.program, compiled.mesh, where, shapes) \
                     if dcn and flag("dcn_assert_hier") else \
-                    hier_sync_report(step.program, compiled.mesh, dcn)
+                    hier_sync_report(step.program, compiled.mesh, dcn,
+                                     shapes)
             t_cap = time.perf_counter()
             entry = CapturedStep(step, slab, scope, self.device, guard=guard,
                                  skip=skip, counters=COUNTED)

@@ -24,8 +24,11 @@ class Initializer:
 def _startup_block(var):
     block = default_startup_program().global_block()
     if var.name not in block.vars:
-        block.create_var(name=var.name, shape=var.shape, dtype=var.dtype,
-                         persistable=True)
+        nv = block.create_var(name=var.name, shape=var.shape,
+                              dtype=var.dtype, persistable=True)
+        # the sharding it has by now (an optimizer accumulator's), as the
+        # JAX package's startup var keeps it
+        nv.dist_attr = getattr(var, "dist_attr", None)
     return block
 
 

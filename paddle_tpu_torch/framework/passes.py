@@ -367,10 +367,6 @@ class SyncBatchNormPass(Pass):
                         fwd["type"] = "sync_batch_norm"
 
 
-#: the Queue 1 entry that SelectedRows grads under data parallelism wait on
-SPARSE_DP_ITEM = ("SelectedRows grads under data parallelism are not "
-                  "ported (ROADMAP.md Queue 1 item 12)")
-
 #: the most bytes of grads one c_coalesced_allreduce_sum carries
 DP_BUCKET_BYTES = 32 << 20
 
@@ -389,9 +385,14 @@ class DataParallelGradAllreducePass(Pass):
     go in buckets of one dtype and at most ``DP_BUCKET_BYTES``, each one
     ``c_coalesced_allreduce_sum`` issued when its last member is made,
     in backward order. A grad that may hold ``SelectedRows`` (an
-    ``is_sparse`` embedding) raises ``NotImplementedError``. A grad
-    that a ``hier_allreduce`` already syncs (pass ``hier_grad_sync``,
-    a multi-slice program) is left to it. attrs:
+    ``is_sparse`` embedding's, :meth:`FuseOptimizerPass._maybe_sparse_names`)
+    sits outside the buckets: one ``c_allgather_selected_rows`` after its
+    last producer gathers every rank's (rows, values) over the same ring
+    in rank order, which is the global batch's order, and scales the
+    values by ``1/nranks``, so the sparse update then runs on the union
+    (a multi-slice program's sparse grads come here too, over the joint
+    data axis: ``hier_grad_sync`` leaves them). A grad that a
+    ``hier_allreduce`` already syncs is left to it. attrs:
     nranks, axis_name (the ring's axis: ``dp``, the default, or
     ``dp_sp`` for a sequence-parallel program), ``stage_ring``
     (``(axis_name, nranks)`` for the grads of the pipeline stage slices
@@ -414,17 +415,13 @@ class DataParallelGradAllreducePass(Pass):
             for n in op.output_arg_names:
                 if n in wanted:
                     last[n] = i
-        sparse = sorted(set(last) & FuseOptimizerPass._maybe_sparse_names(
-            block))
-        if sparse:
-            raise NotImplementedError(f"paddle_tpu_torch: {SPARSE_DP_ITEM}: "
-                                      f"the grads {sparse}")
+        sparse = set(last) & FuseOptimizerPass._maybe_sparse_names(block)
         ring = {n + "@GRAD": tuple(self.stage_ring)
                 for n in getattr(program, "_pp_layouts", {})} \
             if self.stage_ring else {}
         default = (self.axis_name, self.nranks)
         new_ops, buckets = [], {}     # (dtype, ring) -> [names, bytes]
-        report = {"allreduce_ops": 0, "grads": 0}
+        report = {"allreduce_ops": 0, "grads": 0, "sparse_allgather_ops": 0}
 
         def flush(key):
             names, _ = buckets.pop(key)
@@ -451,6 +448,16 @@ class DataParallelGradAllreducePass(Pass):
                 if last.get(n) != i:
                     continue
                 var = block.var(n)
+                if n in sparse:
+                    axis, nranks = ring.get(n, default)
+                    new_ops.append(_Operator(
+                        block, "c_allgather_selected_rows",
+                        inputs={"X": [n]}, outputs={"Out": [n]},
+                        attrs={"ring_id": 0, "scale": 1.0 / float(nranks),
+                               **({"axis_name": axis} if axis else {}),
+                               OP_ROLE_KEY: _OpRole.Backward}))
+                    report["sparse_allgather_ops"] += 1
+                    continue
                 key = (str(var.dtype), tuple(ring.get(n, default)))
                 shape = var.shape or ()
                 nbytes = int(np.prod([max(int(d), 1) for d in shape],
@@ -497,7 +504,9 @@ class HierGradSyncPass(Pass):
             self._apply_block(block)
 
     def _grad_names(self, block):
-        out, seen = [], set()
+        # a SelectedRows grad goes to dp_grad_allreduce's all-gather over
+        # the joint data axis
+        out, seen = [], set(FuseOptimizerPass._maybe_sparse_names(block))
         for op in block.ops:
             if op.attrs.get(OP_ROLE_KEY) != _OpRole.Optimize:
                 continue
@@ -914,7 +923,7 @@ class FuseOptimizerPass(Pass):
         self._report = report
 
 
-__all__ = ["DEFAULT_PIPELINE", "Pass", "SPARSE_DP_ITEM", "UnknownPassError",
+__all__ = ["DEFAULT_PIPELINE", "Pass", "UnknownPassError",
            "apply_passes",
            "canonical_order", "get_pass", "has_pass", "list_passes",
            "optimize_program", "pipeline_signature", "register_pass",

@@ -15,8 +15,16 @@ Duplicate rows are summed with ``index_put_(accumulate=True)``, which on
 CUDA sorts the indices and adds each row's duplicates in that order
 (``index_add_`` takes atomics in any order): the same bits from run to
 run.
+
+A grad over a shard of a table (``c_embedding`` of a row-split table,
+``parallel.tp``) names ids outside the shard too. Those slots carry
+``valid`` False (and a row id wrapped into the shard), so the shape
+stays static: every consumer drops them. A sum adds zeros for them, and
+a lazy update leaves a row that only invalid slots name as it was, so
+such a row's moments do not decay. ``valid`` None means every slot is
+valid.
 """
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,6 +32,7 @@ import torch
 class SelectedRows(NamedTuple):
     rows: torch.Tensor        # int64 [N] row ids (duplicates allowed)
     values: torch.Tensor      # [N, ...] per-row values
+    valid: Optional[torch.Tensor] = None    # bool [N]; None: all valid
 
     @property
     def dtype(self):
@@ -38,19 +47,40 @@ def is_selected_rows(v):
     return isinstance(v, SelectedRows)
 
 
+def valid_mask(sr):
+    """``sr``'s ``valid`` flags, all True where it has none."""
+    if sr.valid is not None:
+        return sr.valid
+    return torch.ones(sr.rows.shape, dtype=torch.bool,
+                      device=sr.rows.device)
+
+
+def masked_values(sr):
+    """``sr``'s values, zeros in its invalid slots."""
+    if sr.valid is None:
+        return sr.values
+    keep = sr.valid.reshape(sr.valid.shape + (1,) * (sr.values.dim() - 1))
+    return torch.where(keep, sr.values, 0.0).to(sr.values.dtype)
+
+
 def merge(grads):
     """Partial sparse grads accumulated: rows and values concatenated
     (duplicates are summed where the grad is applied)."""
+    valid = None
+    if any(g.valid is not None for g in grads):
+        valid = torch.cat([valid_mask(g) for g in grads])
     return SelectedRows(torch.cat([g.rows for g in grads]),
-                        torch.cat([g.values for g in grads]))
+                        torch.cat([g.values for g in grads]), valid)
 
 
 def to_dense(sr, dense_shape, dtype=None):
-    """The dense tensor: each row's values summed into a zero table."""
+    """The dense tensor: each valid slot's values summed into a zero
+    table."""
     dtype = dtype or sr.values.dtype
     out = torch.zeros(tuple(dense_shape), dtype=dtype,
                       device=sr.values.device)
-    return out.index_put_((sr.rows,), sr.values.to(dtype), accumulate=True)
+    return out.index_put_((sr.rows,), masked_values(sr).to(dtype),
+                          accumulate=True)
 
 
 def run_heads(rows):
@@ -74,12 +104,22 @@ def coalesce(sr):
     an out-of-range id that its scatters drop, and torch's indexing has
     no drop mode (an out-of-range index is a device assert). Summing a
     zero slot adds nothing, and a write that sets rows (lazy Adam) gives
-    each slot its run head's value, so every write to a row agrees."""
+    each slot its run head's value, so every write to a row agrees.
+
+    With ``valid`` flags, an invalid slot adds nothing to its run, and
+    every slot of a run takes the run's flag: valid where any slot of
+    the run was."""
     rows, order = torch.sort(sr.rows, stable=True)
+    head = run_heads(rows)
     merged = torch.zeros_like(sr.values).index_put_(
-        (run_heads(rows),), sr.values[order], accumulate=True)
-    return SelectedRows(rows, merged)
+        (head,), masked_values(sr)[order], accumulate=True)
+    if sr.valid is None:
+        return SelectedRows(rows, merged)
+    hit = torch.zeros(rows.shape, dtype=torch.int32,
+                      device=rows.device).index_put_(
+        (head,), sr.valid[order].to(torch.int32), accumulate=True)
+    return SelectedRows(rows, merged, (hit > 0)[head])
 
 
-__all__ = ["SelectedRows", "coalesce", "is_selected_rows", "merge",
-           "run_heads", "to_dense"]
+__all__ = ["SelectedRows", "coalesce", "is_selected_rows", "masked_values",
+           "merge", "run_heads", "to_dense", "valid_mask"]

@@ -2,10 +2,10 @@
 reference python/paddle/fluid/layers/collective.py — _allreduce :16,
 _allgather, _broadcast; used by the collective transpiler and dygraph
 DataParallel). ``shard`` pins a tensor to a mesh sharding: a
-``sharding_constraint`` op over ``dp``, ``sp``, ``tp``, ``pp`` and
-``ep`` (a value identity, except that pass ``sp_shard`` starts the
-sequence split at the first one that names ``sp``); ``dcn_dp`` raises
-(ROADMAP.md Queue 1 item 7b)."""
+``sharding_constraint`` op over ``dp``, ``sp``, ``tp``, ``pp``, ``ep``
+and ``dcn_dp`` (a value identity, except that pass ``sp_shard`` starts
+the sequence split at the first one that names ``sp``; a ``pp``, ``ep``
+or ``dcn_dp`` entry is a hint). Other axis names raise."""
 from ..parallel.mesh import not_ported_7b
 from .layer_helper import LayerHelper
 

@@ -11,6 +11,14 @@ over the dense features. The tables' grads are ``SelectedRows``
 (``framework.selected_rows``): the optimizer moves the touched rows
 (``sgd``, lazy ``adam``) or densifies them (``adam``, ``momentum``).
 
+``table_dist_attr`` (for example ``("mp", None)``) sets every table's
+``dist_attr``, as the JAX package does: under ``with_data_parallel``
+over a mesh with that axis (``mp`` is the port's ``tp``,
+``parallel.mesh.AXIS_ALIASES``) each rank holds its rows of every table
+and of its optimizer state, the lookups become ``c_embedding`` +
+``mp_allreduce_sum`` and the sparse grads are over the shard's rows
+(pass ``tp_shard``); a save gathers the tables whole.
+
 The deep tables start from ``Uniform(-1/sqrt(vocab), 1/sqrt(vocab))``,
 the wide tables from zeros, the MLP weights from ``Normal(0,
 1/sqrt(h))`` of their width, the two output weights from ``Normal(0,
@@ -30,12 +38,9 @@ def wide_deep(dense_dim=13, num_slots=26, vocab_size=10000,
               embed_dim=16, hidden_sizes=(400, 400, 400), batch_size=-1,
               table_dist_attr=None):
     """Feeds and forward of the CTR model. Returns dict(dense=,
-    sparse=[vars], label=, predict=, loss=). ``table_dist_attr`` (tables
-    sharded over a device mesh) is not ported."""
-    if table_dist_attr is not None:
-        raise NotImplementedError("paddle_tpu_torch: sharded embedding "
-                                  "tables (table_dist_attr) are not "
-                                  "ported")
+    sparse=[vars], label=, predict=, loss=). ``table_dist_attr``: the
+    tables' sharding over a device mesh (call before ``minimize``, so
+    the optimizer state takes it too)."""
     dense = T.data("dense_input", [batch_size, dense_dim], dtype="float32")
     sparse = [T.data(f"C{i}", [batch_size, 1], dtype="int64")
               for i in range(num_slots)]
@@ -84,6 +89,13 @@ def wide_deep(dense_dim=13, num_slots=26, vocab_size=10000,
     predict = layers.sigmoid(logits)
     loss = M.mean(layers.sigmoid_cross_entropy_with_logits(
         logits, T.cast(label, "float32")))
+    if table_dist_attr is not None:
+        block = dense.block.program.global_block()
+        for i in range(num_slots):
+            for prefix in ("embedding", "wide_embedding"):
+                v = block.vars.get(f"{prefix}_{i}.w")
+                if v is not None:
+                    v.dist_attr = tuple(table_dist_attr)
     return {"dense": dense, "sparse": sparse, "label": label,
             "predict": predict, "loss": loss}
 

@@ -35,6 +35,11 @@ The port's own ops:
   (``framework.passes``, pass ``dp_grad_allreduce``) puts one after
   each bucket of parameter grads; it packs them into one flat buffer,
   all-reduces it once and scales it by ``scale`` (1/N);
+- ``c_allgather_selected_rows``: the same rewrite puts one after each
+  grad that may hold ``SelectedRows`` (an ``is_sparse`` embedding's):
+  every rank's rows, values and validity flags all-gathered in rank
+  order and the values scaled by ``scale`` (1/N), so the sparse update
+  sums the global batch's mean grad;
 - Megatron's conjugate pair, which pass ``tp_shard`` puts around the
   split matmuls: ``c_identity`` (the identity forward, its grad summed
   over the axis) before a column-split weight, ``mp_allreduce_sum`` (a
@@ -43,7 +48,9 @@ The port's own ops:
   (the vocab-split logits), its grad the rank's slice;
 - ``c_embedding``: the lookup of a vocab-split table, rows
   ``[start_index, start_index + rows)``; an id outside them looks up
-  zeros (the ``mp_allreduce_sum`` after it sums the ranks' rows);
+  zeros (the ``mp_allreduce_sum`` after it sums the ranks' rows); with
+  ``is_sparse`` its grad is a ``SelectedRows`` over the shard's rows
+  whose out-of-shard slots are invalid (dropped by every consumer);
 - the sequence split's three, which pass ``sp_shard`` puts in
   (``parallel.sp`` says why their grads are scaled so): ``sp_split``
   (a whole tensor's ``sp`` chunk of dim ``dim``; its grad, the chunks'
@@ -66,6 +73,7 @@ import warnings
 import torch
 
 from ..framework.registry import register_grad_lower, register_op
+from ..framework.selected_rows import SelectedRows
 from ..parallel import mesh as _mesh
 from .common import x_of
 
@@ -396,6 +404,45 @@ def c_coalesced_allreduce_sum(ctx, ins, attrs):
     return {"Out": outs}
 
 
+def all_gather_selected_rows(sr, axis, scale=1.0, mesh=None):
+    """The ranks' ``SelectedRows`` over ``axis`` concatenated in axis order
+    (rows, values and ``valid`` flags, each one all-gather of a static
+    shape), the values times ``scale``: the union a sparse update sums.
+    ``sr`` itself (scaled) outside a world."""
+    values = sr.values * scale if scale != 1.0 else sr.values
+    if not _live(axis, mesh):
+        return SelectedRows(sr.rows, values, sr.valid)
+    valid = None
+    if sr.valid is not None:
+        valid = all_gather(sr.valid.to(torch.uint8), axis, 0, mesh).bool()
+    return SelectedRows(all_gather(sr.rows, axis, 0, mesh),
+                        all_gather(values, axis, 0, mesh), valid)
+
+
+@register_op("c_allgather_selected_rows", grad=False, infer_shape=False)
+def c_allgather_selected_rows(ctx, ins, attrs):
+    """The data-parallel sync of a sparse grad (pass ``dp_grad_allreduce``
+    puts one after each grad that may hold ``SelectedRows``): every
+    rank's (rows, values) over the op's ring gathered in rank order,
+    which is the global batch's, the values scaled by ``scale``
+    (``1/nranks``), so the update sums the global batch's mean grad. A
+    grad that is dense at run time (a table read densely too) is
+    all-reduced and scaled as the buckets do. In a world of 1 only the
+    scale applies."""
+    axis = _in_world(ctx, attrs)
+    scale = float(attrs.get("scale", 1.0))
+    outs = []
+    for x in ins["X"]:
+        if isinstance(x, SelectedRows):
+            outs.append(all_gather_selected_rows(x, axis, scale) if axis
+                        else x._replace(values=x.values * scale))
+        elif axis:
+            outs.append(all_reduce(x.clone(), "sum", axis) * scale)
+        else:
+            outs.append(x * scale if scale != 1.0 else x)
+    return {"Out": outs}
+
+
 def hierarchical(mesh):
     """Whether ``hier_allreduce`` decomposes its sum on ``mesh`` (the
     executor's hierarchical path in the JAX package): ``dcn_dp`` above 1,
@@ -636,13 +683,17 @@ def sp_replicate_grad(ctx, ins, attrs):
 
 def _local_ids(ids, rows, start=0, padding_idx=None):
     """(``ids`` made local to the rows ``[start, start + rows)`` of a
-    vocab-split table and clamped into them, the mask of the ids that
-    are in them and are not ``padding_idx``, a global id)."""
+    vocab-split table, the mask of the ids that are in them and are not
+    ``padding_idx``, a global id). An id outside the rows wraps into
+    them (modulo ``rows``): the ranks' other ids spread over the rows
+    as their own do, where a clamp would pile them onto one row, whose
+    run of duplicates CUDA's sorted ``index_put_`` accumulate walks one
+    by one."""
     local = ids.long() - int(start)
     keep = (local >= 0) & (local < rows)
     if padding_idx is not None and int(padding_idx) >= 0:
         keep = keep & (ids.long() != int(padding_idx))
-    return local.clamp(0, rows - 1), keep
+    return torch.remainder(local, rows), keep
 
 
 def vocab_lookup(ids, w, start=0, padding_idx=None):
@@ -673,16 +724,24 @@ def c_embedding(ctx, ins, attrs):
 def c_embedding_grad(ctx, ins, attrs):
     """W's grad: the upstream rows of the rank's ids summed into a zero
     table with ``index_put_`` (sorted, the same bits run to run, as
-    ``lookup_table``'s)."""
+    ``lookup_table``'s). With ``is_sparse`` it is the ``SelectedRows`` of
+    every id over the shard's local rows, in the ids' order: an id
+    outside the shard is an invalid slot (``valid`` False, its row
+    wrapped into the shard), which every sparse consumer drops, so a
+    lazy update touches exactly the shard's rows the batch names."""
     fattrs = attrs["__fwd_op__"]["attrs"]
     w, g = x_of(ins, "W"), x_of(ins, "Out@GRAD")
-    local, keep = _local_ids(_ids(ins), w.shape[0],
-                             fattrs.get("start_index", 0),
+    ids = _ids(ins)
+    local, keep = _local_ids(ids, w.shape[0], fattrs.get("start_index", 0),
                              fattrs.get("padding_idx"))
     flat_g = torch.where(keep.reshape(-1, 1),
-                         g.reshape(-1, w.shape[-1]), 0.0)
+                         g.reshape(-1, w.shape[-1]), 0.0).to(w.dtype)
+    if fattrs.get("is_sparse", False):
+        _, inside = _local_ids(ids, w.shape[0], fattrs.get("start_index", 0))
+        return {"W@GRAD": [SelectedRows(local.reshape(-1), flat_g,
+                                        inside.reshape(-1))]}
     return {"W@GRAD": [torch.zeros_like(w).index_put_(
-        (local.reshape(-1),), flat_g.to(w.dtype), accumulate=True)]}
+        (local.reshape(-1),), flat_g, accumulate=True)]}
 
 
 @register_op("c_sync_calc_stream")
@@ -721,5 +780,6 @@ def c_comm_init_all(ctx, ins, attrs):
     return None
 
 
-__all__ = ["all_gather", "all_reduce", "all_to_all", "broadcast_",
+__all__ = ["all_gather", "all_gather_selected_rows", "all_reduce",
+           "all_to_all", "broadcast_",
            "reduce_scatter", "register_ring", "ring_shift", "vocab_lookup"]

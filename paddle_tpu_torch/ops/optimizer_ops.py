@@ -28,14 +28,18 @@ update op per-param too (the JAX table fuses these four only).
 The layer-adaptive ops (``lars_momentum``, ``lamb``), ``dpsgd``'s clip
 and ``dgc_sparsify``'s top-k threshold keep their norms, trust ratios
 and thresholds as device tensors (``torch.where``, no host read), so a
-captured step (``run_steps``) holds them. ``dpsgd`` draws its noise from
-the op's own generator (``LowerCtx.generator``), which a captured step
-registers per call site, as it does dropout's."""
+captured step (``run_steps``) holds them. On a parameter split over a
+mesh axis (pass ``tp_shard`` sets attr ``norm_axis``) their sums of
+squares are summed over that axis's ranks in one all-reduce before the
+square root, so each rank's trust ratio is the whole parameter's; a
+collective inside a captured step is captured with it. ``dpsgd`` draws
+its noise from the op's own generator (``LowerCtx.generator``), which a
+captured step registers per call site, as it does dropout's."""
 import torch
 
 from ..framework.registry import register_op
 from ..framework.selected_rows import (coalesce, is_selected_rows,
-                                       run_heads, to_dense)
+                                       masked_values, run_heads, to_dense)
 from .common import x_of
 
 
@@ -57,7 +61,7 @@ def sgd(ctx, ins, attrs):
         x_of(ins, "LearningRate")
     if is_selected_rows(g):
         return {"ParamOut": p.index_put(
-            (g.rows,), -lr.to(p.dtype) * g.values.to(p.dtype),
+            (g.rows,), -lr.to(p.dtype) * masked_values(g).to(p.dtype),
             accumulate=True)}
     return {"ParamOut": p - lr.to(p.dtype) * g.to(p.dtype)}
 
@@ -137,7 +141,8 @@ def _lazy_adam(p, g, lr, m1, m2, b1p, b2p, b1, b2, eps):
     update would apply twice against stale moments. Every slot of a run
     of one id writes its run head's new values, so the unaccumulated
     row writes agree. The beta-pows (uniform, scalar or param-shaped)
-    advance everywhere, as in the dense op."""
+    advance everywhere, as in the dense op. A row that only invalid slots
+    name (ids outside a table's shard) is written back as it was."""
     g = coalesce(g)
     rows = g.rows
     gv = g.values.to(p.dtype)
@@ -149,9 +154,15 @@ def _lazy_adam(p, g, lr, m1, m2, b1p, b2p, b1, b2, eps):
         (1 - b1p_s)
     upd = lr_t * m1r / (torch.sqrt(m2r) + eps)
     head = run_heads(rows)
-    return {"ParamOut": p.index_put((rows,), (p[rows] - upd)[head]),
-            "Moment1Out": m1.index_put((rows,), m1r[head]),
-            "Moment2Out": m2.index_put((rows,), m2r[head]),
+    p_new, m1_new, m2_new = (p[rows] - upd)[head], m1r[head], m2r[head]
+    if g.valid is not None:
+        keep = g.valid.reshape(g.valid.shape + (1,) * (p.dim() - 1))
+        p_new = torch.where(keep, p_new, p[rows])
+        m1_new = torch.where(keep, m1_new, m1[rows])
+        m2_new = torch.where(keep, m2_new, m2[rows])
+    return {"ParamOut": p.index_put((rows,), p_new),
+            "Moment1Out": m1.index_put((rows,), m1_new),
+            "Moment2Out": m2.index_put((rows,), m2_new),
             "Beta1PowOut": b1p * b1, "Beta2PowOut": b2p * b2}
 
 
@@ -236,6 +247,19 @@ def _l2(x):
     return torch.sqrt(torch.sum(torch.square(x)))
 
 
+def _norms(ctx, attrs, *xs):
+    """The L2 norms of ``xs`` (one stacked tensor): of the whole tensors
+    when attr ``norm_axis`` names the axis their split runs over (the
+    ranks' sums of squares summed by one all-reduce), else of ``xs``."""
+    sq = torch.stack([torch.sum(torch.square(x)) for x in xs])
+    if attrs.get("norm_axis"):
+        from .collective_ops import _in_world, all_reduce
+        axis = _in_world(ctx, {"axis_name": attrs["norm_axis"]})
+        if axis:
+            sq = all_reduce(sq, "sum", axis)
+    return torch.sqrt(sq)
+
+
 @register_op("lars_momentum", grad=False)
 def lars_momentum(ctx, ins, attrs):
     """LARS: momentum at a layer-adaptive rate ``lr * coeff * ||p|| /
@@ -246,7 +270,7 @@ def lars_momentum(ctx, ins, attrs):
     coeff = attrs.get("lars_coeff", 0.001)
     decay = attrs.get("lars_weight_decay", 0.0005)
     eps = attrs.get("epsilon", 1e-9)
-    pn, gn = _l2(p), _l2(g)
+    pn, gn = _norms(ctx, attrs, p, g)
     local_lr = torch.where((pn > 0) & (gn > 0),
                            coeff * pn / (gn + decay * pn + eps), 1.0)
     v_new = mu * v + lr * local_lr * (g + decay * p)
@@ -269,7 +293,7 @@ def lamb(ctx, ins, attrs):
     m1h = m1n / (1 - b1p.to(p.dtype))
     m2h = m2n / (1 - b2p.to(p.dtype))
     r = m1h / (torch.sqrt(m2h) + eps) + wd * p
-    pn, rn = _l2(p), _l2(r)
+    pn, rn = _norms(ctx, attrs, p, r)
     trust = torch.where((pn > 0) & (rn > 0), pn / rn, 1.0)
     return {"ParamOut": p - lr * trust * r, "Moment1Out": m1n,
             "Moment2Out": m2n, "Beta1PowOut": b1p * b1,

@@ -43,7 +43,8 @@ import torch.nn.functional as F
 
 from ..framework.dtype import torch_dtype
 from ..framework.registry import register_grad_lower, register_op
-from ..framework.selected_rows import coalesce, is_selected_rows
+from ..framework.selected_rows import (coalesce, is_selected_rows,
+                                       masked_values)
 from .common import x_of
 
 
@@ -140,7 +141,7 @@ def merge_selected_rows(ctx, ins, attrs):
 def get_tensor_from_selected_rows(ctx, ins, attrs):
     """A ``SelectedRows``' value tensor; a dense input passes through."""
     x = x_of(ins)
-    return {"Out": x.values if is_selected_rows(x) else x}
+    return {"Out": masked_values(x) if is_selected_rows(x) else x}
 
 
 @register_op("where")

@@ -16,14 +16,21 @@ batch computes:
   GSPMD), with or without ``BuildStrategy.sync_batch_norm``;
 - every parameter grad is summed over the ranks and scaled by 1/N after
   its last producer (pass ``dp_grad_allreduce``, in coalesced buckets),
-  before anything reads it.
+  before anything reads it; a ``SelectedRows`` grad (an ``is_sparse``
+  embedding's) is all-gathered instead, every rank's rows in rank order
+  and its values scaled by 1/N, and the sparse update runs on the
+  union.
 
 Over a ``dp`` x ``tp`` mesh (``make_mesh(MeshConfig(dp=2, tp=2))``) the
 program is first rewritten for the rank's tp coordinate (pass
 ``tp_shard``, ``parallel.tp``): each parameter annotated on ``tp`` and
 its optimizer state become the rank's shard, Megatron's collectives go
 in around the split matmuls; the grads are then summed over the rank's
-dp group only and scaled by 1/dp. The executor cuts each rank's shard
+dp group only and scaled by 1/dp. A ``dist_attr`` naming ``mp`` (the JAX
+package's name for the model axis of Wide&Deep's sharded tables) names
+``tp`` (``mesh.AXIS_ALIASES``): a table's rows split over it take
+``c_embedding`` lookups and sparse grads over the shard's rows, which
+are all-gathered over the dp group only. The executor cuts each rank's shard
 out of a whole value before a run reads it (``_place_shards``: the
 startup's values, a load's), and a save gathers them back.
 

@@ -15,21 +15,32 @@ as the ring algorithm moves it, per rank and step:
   reduce-scatter of ``|g|`` (padded to a multiple of dp) over ``dp``, an
   all-reduce of ``|g| / dp`` over ``dcn_dp``, an all-gather back to
   ``|g|`` over ``dp``; a flat one one all-reduce of ``|g|`` over
-  ``dcn_dp+dp``.
+  ``dcn_dp+dp``;
+- a sparse grad's ``c_allgather_selected_rows`` (pass
+  ``dp_grad_allreduce`` puts one after each ``SelectedRows`` grad, over
+  ``dcn_dp+dp``: ``hier_grad_sync`` leaves them) is an all-gather of
+  every rank's rows (int64), values and, for a vocab-split table's,
+  ``valid`` flags (one byte each), one row per looked-up id: the ids'
+  count comes from the step's feed shapes. It moves the same bytes on
+  the flat path, so it counts as one sync on its grad's path and its
+  bytes go into both sides of condition 3 below.
 
 A group that spans more than one ``dcn_dp`` coordinate (``dcn_dp``,
 ``dcn_dp+dp``, ``dcn_dp+dp_sp``) crosses slices. :func:`check_hier_sync`
 raises ``resilience.HierarchicalCommsError`` (with ``violations`` and
 the byte table as ``ledger``) when
 
-1. a grad an optimizer op reads is not synced by a ``hier_allreduce``,
-   or is synced twice (a ``hier_allreduce`` and an all-reduce of
-   ``dp_grad_allreduce`` on one path);
+1. a grad an optimizer op reads is not synced by a ``hier_allreduce``
+   (a sparse one by its all-gather), or is synced twice (a
+   ``hier_allreduce`` and an all-reduce of ``dp_grad_allreduce`` on one
+   path);
 2. a collective across slices carries more than its 1/dp shard (the
    flat path's one all-reduce of ``|g|`` does);
 3. there is no collective across slices, or their bytes a step are not
-   below :func:`flat_allreduce_wire_bytes`, the flat all-reduce's
-   ``2 (S - 1) / S`` x the grads' bytes over ``S = dcn_dp x dp``.
+   below the flat path's: :func:`flat_allreduce_wire_bytes`, the flat
+   all-reduce's ``2 (S - 1) / S`` x the dense grads' bytes over
+   ``S = dcn_dp x dp``, plus the sparse all-gathers' (a program with no
+   dense grad to decompose passes this condition).
 """
 import math
 
@@ -40,6 +51,8 @@ from .mesh import AXES
 #: the ops that sum grads over a data-parallel ring
 SYNC_OPS = ("hier_allreduce", "c_coalesced_allreduce_sum", "c_allreduce_sum",
             "allreduce")
+#: the op that gathers a sparse grad's rows over a data-parallel ring
+SPARSE_SYNC_OPS = ("c_allgather_selected_rows",)
 #: the groups that span more than one slice
 CROSS_SLICE = ("dcn_dp", "dcn_dp+dp", "dcn_dp+dp_sp")
 
@@ -83,7 +96,7 @@ def _sync_counts(block):
             return memo[key]
         memo[key] = 0                  # a cycle counts nothing
         op = ops[i]
-        if op.type in SYNC_OPS:
+        if op.type in SYNC_OPS + SPARSE_SYNC_OPS:
             outs = op.output("Out")
             ins = op.input("X")
             src = [ins[outs.index(name)]] if name in outs and \
@@ -102,6 +115,51 @@ def _sync_counts(block):
     return {g: count(g, first_reader[g]) for g in _optimized_grads(block)}
 
 
+def _sparse_payload(block, name, before, feed_shapes):
+    """The bytes one rank's ``SelectedRows`` value of ``name`` (as the op
+    at ``before`` reads it) holds: each ``is_sparse`` grad op on its
+    path gives one row per id it looked up (int64 row, ``W``'s last dim
+    of values, and a ``valid`` byte from a vocab-split table's
+    ``c_embedding_grad``). An id dim of -1 is the feed's: its own
+    shape where the ids are fed, else the feeds' leading dim (1 with
+    no feed shapes)."""
+    feed_shapes = feed_shapes or {}
+    batch = next((int(s[0]) for s in feed_shapes.values() if len(s)), 1)
+    writers = {}
+    for i, op in enumerate(block.ops[:before]):
+        for n in op.output_arg_names:
+            writers[n] = i
+    total, seen = 0, set()
+
+    def walk(n):
+        nonlocal total
+        i = writers.get(n)
+        if i is None or i in seen:
+            return
+        seen.add(i)
+        op = block.ops[i]
+        fwd = op.attrs.get("__fwd_op__")
+        if op.type.endswith("_grad") and (op.attrs.get("is_sparse") or (
+                isinstance(fwd, dict)
+                and fwd.get("attrs", {}).get("is_sparse"))):
+            ids, w = op.input("Ids")[0], block.var(op.input("W")[0])
+            shape = feed_shapes.get(ids) or [
+                batch if int(d) < 0 else int(d)
+                for d in block.var(ids).shape]
+            rows = int(math.prod(shape))
+            if len(shape) >= 2 and int(shape[-1]) == 1:
+                rows = int(math.prod(shape[:-1]))
+            total += rows * (8 + int(w.shape[-1]) * itemsize(w.dtype))
+            if op.type == "c_embedding_grad":
+                total += rows
+            return
+        for m in op.input_arg_names:
+            walk(m)
+
+    walk(name)
+    return total
+
+
 def flat_allreduce_wire_bytes(grad_bytes, mesh):
     """What one flat all-reduce of ``grad_bytes`` over every data replica
     (``S = dcn_dp x dp``) moves a rank a step: ``2 (S - 1) / S`` x
@@ -110,13 +168,17 @@ def flat_allreduce_wire_bytes(grad_bytes, mesh):
     return _wire("all-reduce", S) * grad_bytes if S > 1 else 0.0
 
 
-def hier_sync_report(program, mesh, hierarchical=None):
+def hier_sync_report(program, mesh, hierarchical=None, feed_shapes=None):
     """The grad sync of ``program`` on ``mesh`` (``hierarchical``: how
     the ``hier_allreduce`` ops run, default as
-    ``ops.collective_ops.hierarchical`` says): a dict of ``rows``
-    ({"<kind>@<group>": count, payload and wire bytes a rank a step,
-    group size}), ``grad_bytes`` (of the grads the hier ops sync),
-    ``cross_slice_wire_bytes``, ``flat_estimate_wire_bytes`` and
+    ``ops.collective_ops.hierarchical`` says; ``feed_shapes``: {feed:
+    one rank's shape of a step}, which sizes the sparse all-gathers): a
+    dict of ``rows`` ({"<kind>@<group>": count, payload and wire bytes
+    a rank a step, group size}), ``grad_bytes`` (of the grads the hier
+    ops sync), ``sparse_cross_slice_wire_bytes`` (the sparse
+    all-gathers', the same on the flat path),
+    ``cross_slice_wire_bytes``, ``flat_estimate_wire_bytes`` (the flat
+    all-reduce of ``grad_bytes`` and the sparse all-gathers) and
     ``violations`` (empty when the gate passes)."""
     from ..ops.collective_ops import hierarchical as _hier
     if hierarchical is None:
@@ -135,9 +197,17 @@ def hier_sync_report(program, mesh, hierarchical=None):
         row["wire_bytes"] += _wire(kind, n) * payload
 
     violations = []
-    grad_bytes = 0
-    for op in block.ops:
-        if op.type == "hier_allreduce":
+    grad_bytes = sparse_cross = 0
+    for at, op in enumerate(block.ops):
+        if op.type in SPARSE_SYNC_OPS:
+            axis = op.attrs.get("axis_name") or "dp"
+            n = mesh.axis_size(axis) if axis in AXES else 1
+            for x in op.input("X"):
+                payload = n * _sparse_payload(block, x, at, feed_shapes)
+                add("all-gather", axis, n, payload)
+                if axis in CROSS_SLICE and n > 1:
+                    sparse_cross += _wire("all-gather", n) * payload
+        elif op.type == "hier_allreduce":
             inner = op.attrs.get("inner_axis", "dp")
             outer = op.attrs.get("outer_axis", "dcn_dp")
             var = block.var(op.input("X")[0])
@@ -181,25 +251,27 @@ def hier_sync_report(program, mesh, hierarchical=None):
                               f"hier_allreduce and another all-reduce)")
     cross = sum(r["wire_bytes"] for r in rows.values()
                 if r["group"] in CROSS_SLICE)
-    flat = flat_allreduce_wire_bytes(grad_bytes, mesh)
+    flat_dense = flat_allreduce_wire_bytes(grad_bytes, mesh)
+    flat = flat_dense + sparse_cross
     if not any(r["group"] in CROSS_SLICE for r in rows.values()):
         violations.append("no collective across slices: the grads of the "
                           "slices are never summed")
-    elif flat and cross >= flat:
+    elif flat_dense and cross >= flat:
         violations.append(f"the bytes across slices, {cross:.0f} a step, "
                           f"do not beat the flat all-reduce's {flat:.0f}")
     return {"mesh": repr(mesh), "hierarchical": bool(hierarchical),
             "rows": rows, "grad_bytes": grad_bytes,
+            "sparse_cross_slice_wire_bytes": sparse_cross,
             "cross_slice_wire_bytes": cross,
             "flat_estimate_wire_bytes": flat, "violations": violations}
 
 
-def check_hier_sync(program, mesh, where="train"):
+def check_hier_sync(program, mesh, where="train", feed_shapes=None):
     """:func:`hier_sync_report` of ``program`` on ``mesh``, raising
     ``HierarchicalCommsError`` when it has violations; returns the
     report."""
     from ..resilience import HierarchicalCommsError
-    rep = hier_sync_report(program, mesh)
+    rep = hier_sync_report(program, mesh, feed_shapes=feed_shapes)
     if rep["violations"]:
         raise HierarchicalCommsError(
             f"hierarchical grad-sync gate failed for {where!r} on "
@@ -208,5 +280,5 @@ def check_hier_sync(program, mesh, where="train"):
     return rep
 
 
-__all__ = ["CROSS_SLICE", "check_hier_sync", "flat_allreduce_wire_bytes",
-           "hier_sync_report"]
+__all__ = ["CROSS_SLICE", "SPARSE_SYNC_OPS", "check_hier_sync",
+           "flat_allreduce_wire_bytes", "hier_sync_report"]

@@ -89,6 +89,10 @@ DATA_GRAD_AXIS = "dcn_dp+dp_sp"
 AXES = ("dp", "sp", "tp", "pp", "ep", "dcn_dp", GRAD_AXIS, TOKEN_AXIS,
         DATA_AXIS, DATA_GRAD_AXIS)
 ITEM_7B = "not ported (ROADMAP.md Queue 1 item 7b)"
+#: names a ``dist_attr`` may give a mesh axis: ``mp`` (the JAX package's
+#: tests name the model axis of a raw ``Mesh(devs, ("dp", "mp"))`` so,
+#: Wide&Deep's sharded tables) is the port's ``tp``
+AXIS_ALIASES = {"mp": "tp"}
 
 _current_mesh = None
 _card = [None]          # this rank's card, set by init_parallel_env
@@ -583,8 +587,11 @@ def partition_spec(mesh, spec, shape=None):
     package does: unknown axes replicate, and (when ``shape`` is given)
     an axis that does not divide its dim drops; a dim sharded jointly
     over several axes keeps the known ones and must divide by the
-    product of their sizes."""
-    spec = tuple(spec or ())
+    product of their sizes. An alias (``AXIS_ALIASES``: ``mp``) names
+    its axis."""
+    spec = tuple(tuple(AXIS_ALIASES.get(x, x) for x in a)
+                 if isinstance(a, (tuple, list)) else AXIS_ALIASES.get(a, a)
+                 for a in (spec or ()))
     if shape is not None:
         spec = spec[:len(shape)] + (None,) * (len(shape) - len(spec))
     out = []

@@ -22,12 +22,20 @@ holds this rank's chunk of its sequence dim, and on which dim:
   operands gathered where their split letter is not the output's first
   split one (plain attention's scores are ``[B, n, S/sp, S]``);
   ``flash_attention`` reads K and V gathered (K1 with the local queries
-  against the whole keys and key bias; causal raises
-  ``NotImplementedError``: the kernels take no query offset). Any op
+  against the whole keys and key bias). A causal one reads Q gathered
+  too and runs as on one card (the kernels' causal mask counts query
+  positions from 0, so a rank's chunk of queries cannot be masked
+  against the whole keys), and the rank keeps its chunk of the output
+  (``sp_split``), so the rest of the block stays split. Any op
   without a rule reads its split inputs gathered (``sp_gather``): the
   MLM and NSP heads after the encoder, the loss, and a ``pipeline`` op,
   whose stage every sp rank runs whole (``parallel.pp``; the stage
   sub-block is not rewritten).
+- **Recompute** (``RecomputeOptimizer``): a ``recompute_barrier`` passes
+  each input's split to its output (a split hidden state stays split),
+  the re-emitted segment's ops go through the rules above, and the grad
+  op of a recomputed op is rewritten with the re-emitted op, whose
+  values it reads.
 - **Dropout** in the split region draws the mask of the whole tensor at
   the rank's dp fold and keeps its chunk (attr ``sp_chunk``), so an sp
   run with dropout equals the one-rank run of the same rows; in the
@@ -65,7 +73,7 @@ import collections
 import numpy as np
 
 from ..framework.core import OP_ROLE_KEY, OpRole, Operator
-from .tp import _op_key
+from .tp import RECOMPUTED, _grad_key, _op_key
 
 EMPTY = "@EMPTY@"
 SP_ATTRS = {"ring_id": 0, "axis_name": "sp"}
@@ -459,21 +467,37 @@ class _Rewriter:
 
     def rule_flash_attention(self, op):
         q = op.input("Q")[0]
-        if op.attrs.get("causal", False):
-            raise not_ported(
-                "a causal flash_attention under sp_shard: the kernels take "
-                "no query offset (the rank's queries start at s * S/sp)")
         if q not in self.split:
             return self.rule_gather(op)
         if self.split[q] != 2:
             self.fail(op, "queries split on a dim other than the sequence")
-        for slot in ("K", "V", "Bias"):
+        causal = op.attrs.get("causal", False)
+        for slot in ("Q", "K", "V", "Bias") if causal else \
+                ("K", "V", "Bias"):
             if op.inputs.get(slot):
                 self.as_whole(op, slot, 0)
         if op.inputs.get("Bias"):
             self.replicated(op, "Bias", 0)
         out = op.output("Out")[0]
-        self.keep(op, {out: 2})
+        if not causal:
+            self.keep(op, {out: 2})
+            return
+        # the whole sequence as on one card, then the rank's chunk of out
+        whole = self.new_var(out, out, "WHOLE")
+        op.outputs = dict(op.outputs, Out=[whole])
+        self.keep(op, {})
+        conv = self.emit("sp_split", {"X": [whole]}, {"Out": [out]},
+                         dict(SP_ATTRS, nranks=self.sp, dim=2),
+                         op.attrs.get(OP_ROLE_KEY, OpRole.Forward))
+        self.report["sp_split"] += 1
+        self.changed.add(self.key)
+        self.mark(out, 2)
+        self.record().outs[out] = (whole, conv)
+
+    def rule_recompute_barrier(self, op):
+        """The identity of each pair: ``Out[i]`` holds ``X[i]``'s chunk."""
+        self.keep(op, {y: self.split[x] for x, y in zip(
+            op.input("X"), op.output("Out")) if x in self.split})
 
     def rule_sp_attention(self, op):
         q = op.input("Q")[0]
@@ -511,7 +535,14 @@ class _Rewriter:
     # -- grad ops -------------------------------------------------------
     def grad(self, op):
         fwd = op.attrs["__fwd_op__"]
-        key = _op_key(fwd["type"], fwd["outputs"])
+        key = _grad_key(fwd, self.fwd_index)
+        if key != _op_key(fwd["type"], fwd["outputs"]):
+            # a recomputed op's grad: its forward as re-emitted, on the
+            # names the grad op reads
+            fwd = dict(fwd, inputs={s: list(op.inputs.get(s, ns))
+                                    for s, ns in fwd["inputs"].items()},
+                       outputs={s: [n + RECOMPUTED for n in ns]
+                                for s, ns in fwd["outputs"].items()})
         new = self.fwd_index.get(key)
         rec = self.records.get(key)
         touched = any(n in self.split for n in op.input_arg_names)
@@ -553,7 +584,7 @@ class _Rewriter:
                 local, conv = rec.outs[n]
                 g_local = self.new_var(g, local, "GRAD")
                 self.grad_of(conv, local, g, g_local, role)
-                self.split[g_local] = self.split[local]
+                self.track(g_local, local)
                 gs[i] = g_local
         self.out.append(op)
         after = []
@@ -603,11 +634,12 @@ class _Rewriter:
                 continue
             for slot, names in op.attrs["__fwd_op__"]["inputs"].items():
                 gs = op.outputs.get(slot + "@GRAD") or []
-                self.grads_of.update(n for n, g in zip(names, gs)
-                                     if g != EMPTY)
+                # the forward's names and the ones the grad op reads (a
+                # recomputed segment's)
+                for read in (names, op.inputs.get(slot) or ()):
+                    self.grads_of.update(n for n, g in zip(read, gs)
+                                         if g != EMPTY)
         for op in list(self.block.ops):
-            if op.type == "recompute_barrier":
-                raise not_ported("recompute (RecomputeOptimizer)")
             if "__fwd_op__" in op.attrs:
                 self.grad(op)
             else:

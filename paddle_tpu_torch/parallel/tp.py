@@ -14,7 +14,11 @@ them and inserts the collectives. The port runs one process per card, so
   grad sums the ranks' partial input grads), a row-split one sums its
   partial product with ``mp_allreduce_sum`` before the bias;
 - a lookup in a vocab-split table becomes ``c_embedding`` (the ids of the
-  rank's rows) and ``mp_allreduce_sum``; a ``matmul`` against it (the
+  rank's rows) and ``mp_allreduce_sum``; an ``is_sparse`` one's grad is
+  a ``SelectedRows`` over the shard's local rows whose ids outside the
+  shard are invalid slots (``framework.selected_rows``), so a lazy
+  update touches exactly the shard's rows the batch names; a ``matmul``
+  against it (the
   tied head) gives the rank's vocab columns, gathered at once by
   ``c_concat``;
 - every op between them runs on the rank's part: the pass tracks which
@@ -22,8 +26,17 @@ them and inserts the collectives. The port runs one process per card, so
   ``reshape`` shapes to the local sizes (a head count becomes the
   rank's head count); a ``transpose``, an elementwise op, ``einsum``,
   ``flash_attention`` (whole heads a rank) and the elementwise
-  optimizers follow the split. An op it has no rule for raises
+  optimizers follow the split; ``lamb`` and ``lars_momentum`` on a split
+  parameter sum their per-parameter sums of squares over the tp ranks
+  (attr ``norm_axis``) before the square root, so the trust ratio is the
+  whole parameter's. An op it has no rule for raises
   ``NotImplementedError`` rather than compute on a part as on a whole;
+- a recomputed segment (``RecomputeOptimizer``) is forward ops on new
+  names: its ``recompute_barrier`` passes each input's split to its
+  output, the re-emitted ops go through the rules above (a re-emitted
+  column-split ``mul`` reads through its own ``c_identity``), and the
+  grad op of a recomputed op is rewritten with the re-emitted op (it
+  reads the recomputed values, not the forward's);
 - a ``pipeline`` op is a replicated region (``parallel.pp``): a split
   input is gathered whole before it by ``c_concat``, its stage runs
   whole on every tp rank and its output is whole.
@@ -178,6 +191,19 @@ def _freeze(v):
 
 def _op_key(type_, outputs):
     return (type_, _freeze(outputs))
+
+
+RECOMPUTED = "@RECOMPUTE"
+
+
+def _grad_key(fwd, index):
+    """The key of the op a grad op (forward op dict ``fwd``) differentiates
+    as the rewrite ran it: the re-emitted op of a recomputed segment
+    (outputs ``<name>@RECOMPUTE``, ``framework.backward``) where ``index``
+    holds one, whose values the grad op reads, else the forward op."""
+    rc = _op_key(fwd["type"], {s: [n + RECOMPUTED for n in ns]
+                               for s, ns in fwd["outputs"].items()})
+    return rc if rc in index else _op_key(fwd["type"], fwd["outputs"])
 
 
 class _Record:
@@ -398,6 +424,24 @@ class _Rewriter:
                 outs[n] = sp
         self.keep(op, outs)
 
+    def rule_lamb(self, op):
+        """A layer-adaptive update of a split parameter: elementwise as
+        the Adam moments are, its sums of squares summed over the tp
+        ranks inside the op (one all-reduce) before the square root."""
+        self.rule_optimizer(op)
+        op.attrs["norm_axis"] = "tp"
+
+    rule_lars_momentum = rule_lamb
+
+    def rule_recompute_barrier(self, op):
+        """The identity of each pair: ``Out[i]`` holds ``X[i]``'s part."""
+        outs = {}
+        for x, y in zip(op.input("X"), op.output("Out")):
+            self.var(y).shape = self.var(x).shape
+            if x in self.split:
+                outs[y] = self.split[x]
+        self.keep(op, outs)
+
     def rule_squared_l2_norm(self, op):
         # the local sum of squares, summed over the tp ranks
         self.partial_out(op, "Out")
@@ -472,8 +516,6 @@ class _Rewriter:
         w = op.input("W")[0]
         if self.split[w] != (0, 1):
             self.fail(op, "a table split other than on its rows")
-        if op.attrs.get("is_sparse", False):
-            self.fail(op, "is_sparse (SelectedRows) grads")
         if any(n in self.split for n in op.input("Ids")):
             self.fail(op, "split ids")
         op.type = "c_embedding"
@@ -629,7 +671,7 @@ class _Rewriter:
     # -- grad ops -------------------------------------------------------
     def grad(self, op):
         fwd = op.attrs["__fwd_op__"]
-        key = _op_key(fwd["type"], fwd["outputs"])
+        key = _grad_key(fwd, self.fwd_index)
         rec = self.records.get(key)
         new = self.fwd_index.get(key)
         touched = any(n in self.split for n in op.input_arg_names)
@@ -714,13 +756,31 @@ class _Rewriter:
                     self.split.pop(g, None)
         self.out.extend(after)
 
+    def fill_shapes(self):
+        """Infer the shapes of vars declared without one (a global norm
+        clip's scalars), so the rules can place what reads them; an op
+        whose inference fails is named in the error."""
+        from ..framework.registry import get_op_def, infer_op_shapes
+        for op in self.block.ops:
+            outs = [n for n in op.output_arg_names
+                    if self.block.has_var(n) and self.var(n).shape is None]
+            if not outs or "__fwd_op__" in op.attrs or \
+                    get_op_def(op.type).infer_shape is False or any(
+                        not self.block.has_var(n) or self.var(n).shape is None
+                        for n in op.input_arg_names):
+                continue
+            try:
+                infer_op_shapes(self.block, op)
+            except RuntimeError as e:
+                raise not_ported(f"op {op.type!r}: the shapes of {outs} "
+                                 f"cannot be inferred ({e})") from e
+
     def run(self):
         self.plan()
         if not self.layouts:
             return {}
+        self.fill_shapes()
         for op in list(self.block.ops):
-            if op.type == "recompute_barrier":
-                raise not_ported("recompute (RecomputeOptimizer)")
             if op.type != "pipeline" and (
                     op.attrs.get("sub_block") is not None or
                     op.attrs.get("sub_block_true") is not None):

@@ -11,6 +11,14 @@ the JAX dygraph's single-process steps on the global batch (the JAX
 ``apply_collective_grads`` is the identity there); the mean of the
 ranks' losses is within rtol 2e-4 of the JAX losses. In a world of 1 the
 wrapper changes nothing, as the JAX package's.
+
+The same launch runs a model over a sparse ``Embedding`` (64 x 8, into
+a ``Linear``) under ``DataParallel``, 3 Adam steps, held to the JAX
+dygraph's global-batch steps the same way (both packages' dygraph
+``Embedding`` gives a dense grad whatever ``is_sparse`` says); then a
+``SelectedRows`` grad set on a parameter, which
+``apply_collective_grads`` all-gathers: every rank holds every rank's
+rows and values in rank order.
 """
 import copy
 import functools
@@ -66,14 +74,39 @@ def _jax_steps():
     return start, losses, final
 
 
+@functools.lru_cache(maxsize=1)
+def _jax_emb_steps():
+    """(start weights, losses, final weights) of the JAX dygraph sparse
+    Embedding model's 3 Adam steps on the global batches."""
+    with jdy.guard():
+        jdylayers.set_init_seed(29)
+        model = R.dy_emb(jdy)
+        start = {k: np.array(v) for k, v in model.state_dict().items()}
+        opt = jfluid.optimizer.Adam(0.01, parameter_list=model.parameters())
+        losses = []
+        for ids, y in R.dy_emb_feeds():
+            loss = jfluid.layers.mean(jfluid.layers.square(
+                jfluid.layers.elementwise_sub(model(jdy.to_variable(ids)),
+                                              jdy.to_variable(y))))
+            loss.backward()
+            opt.minimize(loss)
+            model.clear_gradients()
+            losses.append(float(np.ravel(loss.numpy())[0]))
+        final = {k: np.array(v) for k, v in model.state_dict().items()}
+    return start, losses, final
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("dy"))
     start, losses, final = _jax_steps()
-    proc = launch(tmp, ["dy_mlp"],
-                  {"dy_mlp": save_start(tmp, "dy_mlp", start)})
+    estart, elosses, efinal = _jax_emb_steps()
+    proc = launch(tmp, ["dy_mlp", "dy_sparse"],
+                  {"dy_mlp": save_start(tmp, "dy_mlp", start),
+                   "dy_emb": save_start(tmp, "dy_emb", estart)})
     assert proc.returncode == 0, proc.stderr.decode()[-4000:]
-    return {"tmp": tmp, "losses": losses, "final": final}
+    return {"tmp": tmp, "losses": losses, "final": final,
+            "emb_losses": elosses, "emb_final": efinal}
 
 
 @pytest.mark.parametrize("mode", ["eager", "jit"])
@@ -86,6 +119,30 @@ def test_data_parallel_mlp_matches_jax_global_batch(world, mode):
                         tol=1e-4)
     mean = np.mean([a[f"{mode}/losses"] for a, _ in ranks], axis=0)
     np.testing.assert_allclose(mean, world["losses"], rtol=2e-4, atol=1e-6)
+
+
+def test_data_parallel_sparse_embedding_matches_jax_global_batch(world):
+    ranks = read(world["tmp"], "dy_sparse")
+    keys = [k for k in ranks[0][0] if k != "losses"
+            and not k.startswith("sr/")]
+    assert_ranks_bitwise(ranks, keys)
+    assert_params_close({k: ranks[0][0][k] for k in keys},
+                        world["emb_final"], tol=1e-4)
+    mean = np.mean([a["losses"] for a, _ in ranks], axis=0)
+    np.testing.assert_allclose(mean, world["emb_losses"], rtol=2e-4,
+                               atol=1e-6)
+
+
+def test_data_parallel_all_gathers_a_selected_rows_grad(world):
+    """Rank r's rows r and 10 + r with values r + 1: after
+    ``apply_collective_grads`` every rank holds all of them in rank
+    order (what the sparse update sums)."""
+    want_rows = np.array([x for r in range(4) for x in (r, 10 + r)])
+    want_vals = np.repeat(np.arange(1, 5, dtype=np.float32), 2)[:, None] \
+        * np.ones((1, 8), np.float32)
+    for arrays, _ in read(world["tmp"], "dy_sparse"):
+        np.testing.assert_array_equal(arrays["sr/rows"], want_rows)
+        np.testing.assert_array_equal(arrays["sr/values"], want_vals)
 
 
 def test_data_parallel_in_a_world_of_one_matches_jax():

@@ -260,6 +260,66 @@ def test_gate_rejects_a_program_without_the_sync():
                for v in ei.value.violations)
 
 
+def _wd_program(passes):
+    """A small Wide&Deep (2 slots, embed 4, sparse tables) after
+    ``passes``: {"sync": hier_grad_sync, then dp_grad_allreduce over the
+    joint data axis, as ``with_data_parallel`` compiles it at dcn_dp 2 x
+    dp 2; "hier": hier_grad_sync alone}."""
+    from paddle_tpu_torch.models import widedeep
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(main, startup):
+        out = widedeep.wide_deep(dense_dim=3, num_slots=2, vocab_size=16,
+                                 embed_dim=4, hidden_sizes=(8,))
+        tfluid.optimizer.AdamOptimizer(1e-2).minimize(out["loss"])
+    chain = [get_pass("hier_grad_sync")]
+    if passes == "sync":
+        chain.append(get_pass("dp_grad_allreduce", nranks=4,
+                              axis_name="dcn_dp+dp"))
+    return apply_passes(main.clone(), chain)
+
+
+@pytest.mark.parametrize("hierarchical", [True, False])
+def test_gate_prices_the_sparse_grads_all_gather(hierarchical):
+    """Wide&Deep at dcn_dp 2 x dp 2: each sparse table grad is synced
+    once, by its all-gather over ``dcn_dp+dp``, whose ledger row holds
+    every rank's ids (int64 rows and fp32 values, sized from the feed
+    shapes); the all-gather moves the same bytes on the flat path, so
+    it sits on both sides of the byte test."""
+    prog = _wd_program("sync")
+    mesh = Mesh(2, dcn_dp=2)
+    b = 5
+    feeds = {f"C{i}": (b, 1) for i in range(2)}
+    rep = dcn.hier_sync_report(prog, mesh, hierarchical=hierarchical,
+                               feed_shapes=feeds)
+    per_rank = 2 * b * ((8 + 4 * 4) + (8 + 4))
+    row = rep["rows"]["all-gather@dcn_dp+dp"]
+    assert (row["count"], row["group_size"]) == (4, 4)
+    assert row["payload_bytes"] == 4 * per_rank
+    assert rep["sparse_cross_slice_wire_bytes"] == 0.75 * 4 * per_rank
+    np.testing.assert_allclose(
+        rep["flat_estimate_wire_bytes"],
+        1.5 * rep["grad_bytes"] + rep["sparse_cross_slice_wire_bytes"])
+    if hierarchical:
+        assert rep["violations"] == []
+        assert dcn.check_hier_sync(prog, mesh, feed_shapes=feeds)
+    else:
+        # the flat path's dense all-reduce is what the gate flags
+        assert rep["violations"] and all(
+            "1/2 shard" in v or "do not beat" in v
+            for v in rep["violations"])
+
+
+def test_gate_flags_a_sparse_grad_without_its_all_gather():
+    """hier_grad_sync leaves the sparse grads to dp_grad_allreduce: a
+    program without that pass reads each table's grad unsynced."""
+    with pytest.raises(resilience.HierarchicalCommsError) as ei:
+        dcn.check_hier_sync(_wd_program("hier"), Mesh(2, dcn_dp=2))
+    unsynced = sorted(v.split(":")[0] for v in ei.value.violations
+                      if "unsynced" in v)
+    assert unsynced == sorted(f"{t}_{i}.w@GRAD" for i in range(2)
+                              for t in ("embedding", "wide_embedding"))
+
+
 # ---------------------------------------------------------------------------
 # the SliceSupervisor's control loop in a world of 1 (fake clock)
 

@@ -30,7 +30,22 @@ it is that run):
 - ranks whose startups had other seeds end equal (the first run
   broadcasts rank 0's state);
 - a NaN in one rank's rows rolls the step back on every rank;
-- ``SelectedRows`` grads under data parallelism raise;
+- ``SelectedRows`` grads under data parallelism and sharded embedding
+  tables: Wide&Deep at ``tests/test_models.py::test_widedeep_sharded_tables``'s
+  shape, 3 Adam steps at dp 4 and at dp 2 x mp 2 (``table_dist_attr=
+  ("mp", None)``, ``mp`` the port's ``tp``), plain and lazy, against
+  the JAX package's run of the same program on its CPU mesh (dp 4, and
+  a raw ``Mesh(devs, ("dp", "mp"))``): every parameter within 1e-5 of
+  the model's max |ref|, every Adam moment within 1e-3 of its own (and
+  at dcn_dp 2 x dp 2: the dense grads' ``hier_allreduce``, the sparse
+  ones all-gathered over the joint data axis), the
+  mean of the dp ranks' losses within rtol 3e-4, every rank's gathered
+  state bitwise rank 0's; one ``c_allgather_selected_rows`` a table,
+  the lookups ``c_embedding`` over a 32-row shard under mp; lazy Adam
+  leaves each row no step names bitwise as it started, and a shard
+  whose rows no later step names (every id of steps 2 and 3 in the
+  other shard) bitwise as step 1 left it; the dp 2 x mp 2 save loads
+  whole in the JAX package and at one card;
 - a rank that raises mid-step ends the launch non-zero within 60 s.
 """
 import json
@@ -53,7 +68,7 @@ REPO = os.path.dirname(HERE)
 N = 4
 SCENARIOS = ["bn", "resnet", "run_steps", "parallel_executor",
              "collectives", "ckpt", "ckpt_fault", "seeds", "nonfinite",
-             "dataset"]
+             "dataset", "wd"]
 JAX_RNG = "@RNG_KEY@"
 
 
@@ -106,12 +121,57 @@ def save_start(tmp, name, arrays):
     return path
 
 
+def jax_wd_run(axes, lazy, dist, kind, seed=7):
+    """The JAX package's Wide&Deep run of ``R.WD_CASES``' case on its CPU
+    mesh (``axes`` {"dp": 4}: ``MeshConfig(dp=4)``; {"dp": 2, "tp": 2}:
+    a raw ``Mesh(devs, ("dp", "mp"))``, as its test builds it), fed the
+    global batches: (losses, final arrays, step 1's arrays). Beside
+    ``dcn_dp`` it is the one-device run: the JAX package's multi-slice
+    grad sync fails on a ``SelectedRows`` grad (a ``ValueError`` from
+    broadcasting its values against the table), where the port
+    all-gathers it over the joint data axis."""
+    import jax
+    from jax.sharding import Mesh
+    from paddle_tpu.models import widedeep as jwd
+    from paddle_tpu.parallel.compiler import CompiledProgram
+    from paddle_tpu.parallel.mesh import MeshConfig, make_mesh
+    main, startup = jfluid.Program(), jfluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with jfluid.unique_name.guard(), jfluid.program_guard(main, startup):
+        loss = R.wide_deep(jfluid, jwd, lazy, dist)
+    exe, scope = jfluid.Executor(), jfluid.Scope()
+    exe.run(startup, scope=scope)
+    if "tp" in axes:
+        mesh = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                    ("dp", "mp"))
+    elif "dcn_dp" in axes:
+        mesh = None
+    else:
+        mesh = make_mesh(MeshConfig(**axes))
+    prog = main if mesh is None else CompiledProgram(
+        main).with_data_parallel(loss_name=loss.name, mesh=mesh)
+    losses, step1 = [], None
+    for f in R.wd_feeds(jwd, kind):
+        losses.append(float(np.ravel(exe.run(prog, feed=f,
+                                             fetch_list=[loss],
+                                             scope=scope)[0])[0]))
+        if step1 is None:
+            step1 = {n: np.array(v) for n, v in scope.items()
+                     if n != JAX_RNG}
+    final = {n: np.array(v) for n, v in scope.items() if n != JAX_RNG}
+    return losses, final, step1, main
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("dp"))
+    from paddle_tpu.models import widedeep as jwd
     refs = {"bn": jax_run(R.bn_classifier, R.classifier_feeds()),
-            "resnet": jax_run(R.narrow_resnet, R.image_feeds())}
+            "resnet": jax_run(R.narrow_resnet, R.image_feeds()),
+            "wd": jax_run(lambda fl: R.wide_deep(fl, jwd), [])}
     start = {k: save_start(tmp, k, v[0]) for k, v in refs.items()}
+    refs["wd_cases"] = {name: jax_wd_run(axes, lazy, dist, kind)
+                        for name, axes, lazy, dist, kind, _ in R.WD_CASES}
     t0 = time.perf_counter()
     proc = launch(tmp, SCENARIOS, start)
     assert proc.returncode == 0, proc.stderr.decode()[-4000:]
@@ -305,16 +365,117 @@ def test_nonfinite_on_one_rank_rolls_back_every_rank(world):
     assert_ranks_bitwise(ranks)
 
 
-def test_selected_rows_grads_raise_under_data_parallelism():
-    fluid = tfluid
-    main, startup = fluid.Program(), fluid.Program()
-    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        ids = fluid.data("ids", [-1, 1], "int64")
-        emb = fluid.layers.embedding(ids, size=[50, 8], is_sparse=True)
-        loss = fluid.layers.mean(emb)
-        fluid.optimizer.SGD(0.1).minimize(loss)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
-        fluid.CompiledProgram(main).with_data_parallel(loss_name=loss.name)
+def _wd_ids(feeds, slot):
+    return np.unique(np.concatenate([f[f"C{slot}"].ravel() for f in feeds]))
+
+
+@pytest.mark.parametrize("case", R.WD_CASES, ids=[c[0] for c in R.WD_CASES])
+def test_selected_rows_grads_raise_under_data_parallelism(world, case):
+    """Once a refusal (``SelectedRows`` grads under data parallelism),
+    now the parity case: Wide&Deep's sparse tables at dp 4 and dp 2 x
+    mp 2 against the JAX package's run on its mesh."""
+    from paddle_tpu.models import widedeep as jwd
+    name, axes, lazy, dist, kind, how = case
+    jlosses, jfinal, jstep1, jmain = world["refs"]["wd_cases"][name]
+    ranks = read(world["tmp"], "wd")
+    ref = {k[len(name) + 1:]: v for k, v in ranks[0][0].items()
+           if k.startswith(name + "/") and "/step1/" not in k}
+    for r, (arrays, _) in enumerate(ranks[1:], 1):
+        for k, v in ref.items():
+            if k != "losses":       # each dp rank's rows' mean
+                assert np.array_equal(arrays[f"{name}/{k}"], v), (r, k)
+    params = [p.name for p in jmain.all_parameters()]
+    top = max(float(np.abs(jfinal[n]).max()) for n in params)
+    for n in params:
+        err = float(np.abs(ref[n].astype(np.float64) - jfinal[n]).max())
+        assert err / top <= 1e-5, f"{name} {n}: {err / top:.3g}"
+    moments = [k for k in jfinal if "_moment" in k]
+    assert len(moments) == 2 * len(params)
+    for k in moments:
+        assert _rel(ref[k], jfinal[k]) <= 1e-3, (name, k)
+    by_dp = {}
+    for arrays, flags in ranks:
+        by_dp.setdefault(flags[name]["data"], arrays[f"{name}/losses"])
+    np.testing.assert_allclose(np.mean(list(by_dp.values()), axis=0),
+                               jlosses, rtol=3e-4, atol=1e-6)
+    slots = R.WD["num_slots"]
+    vocab = R.WD["vocab_size"]
+    sharded = "tp" in axes
+    if how == "steps":
+        # the captured steps passed the multi-slice gate, whose ledger
+        # holds each table's all-gather over the joint data axis: every
+        # rank's ids as int64 rows and fp32 values (deep and wide)
+        b = R.WD_B // N
+        per_rank = slots * b * ((8 + 4 * R.WD["embed_dim"]) + (8 + 4))
+        for _, flags in ranks:
+            gate = flags[f"{name}/gate"]
+            assert gate["violations"] == []
+            row = gate["rows"]["all-gather@dcn_dp+dp"]
+            assert (row["count"], row["payload_bytes"]) == \
+                (2 * slots, N * per_rank)
+            assert gate["sparse"] == 0.75 * N * per_rank
+            assert gate["cross"] < gate["flat"]
+    for _, flags in ranks:
+        mine = flags[name]
+        assert mine["allgathers"] == 2 * slots
+        if "dcn_dp" in axes:
+            # the dense grads' hier_allreduce; the sparse ones all-gathered
+            assert mine["hier"] == len(params) - 2 * slots
+        assert mine["c_embedding"] == (2 * slots if sharded else 0)
+        rows = vocab // 2 if sharded else vocab
+        assert mine["table_local"] == [rows, R.WD["embed_dim"]]
+        assert mine["moment_local"] == [rows, R.WD["embed_dim"]]
+    if lazy:
+        # a row no step names keeps its start value and zero moments
+        start = world["refs"]["wd"][0]
+        feeds = R.wd_feeds(jwd, kind)
+        for i in range(slots):
+            untouched = np.setdiff1d(np.arange(vocab), _wd_ids(feeds, i))
+            assert untouched.size
+            for t in (f"embedding_{i}.w", f"wide_embedding_{i}.w"):
+                assert np.array_equal(ref[t][untouched], start[t][untouched])
+                for m in ("moment1", "moment2"):
+                    mom = next(k for k in ref if k.startswith(f"{t}_{m}"))
+                    assert not ref[mom][untouched].any(), (t, m)
+    if kind == "oob":
+        # the second shard's rows: no id of steps 2 and 3 is in them
+        half = vocab // 2
+        step1 = {k[len(name) + 7:]: v for k, v in ranks[0][0].items()
+                 if k.startswith(name + "/step1/")}
+        for i in range(slots):
+            for t in (f"embedding_{i}.w", f"wide_embedding_{i}.w"):
+                for k in [t] + [k for k in ref if k.startswith(t + "_moment")]:
+                    assert step1[k][half:].any() or "moment" not in k
+                    assert np.array_equal(ref[k][half:], step1[k][half:]), k
+                    assert np.array_equal(jfinal[k][half:],
+                                          jstep1[k][half:]), k
+
+
+def test_widedeep_sharded_save_loads_at_one_card_and_in_jax(world):
+    """The dp 2 x mp 2 save holds every table whole: the JAX package and a
+    port program at one card load it to the gathered state."""
+    from paddle_tpu.models import widedeep as jwd
+    from paddle_tpu_torch.models import widedeep as twd
+    ranks = read(world["tmp"], "wd")
+    ckpt = ranks[0][1]["ckpt"]
+    want = {k[len("dp2mp2/"):]: v for k, v in ranks[0][0].items()
+            if k.startswith("dp2mp2/") and "/step1/" not in k}
+    for fl, wd, place in ((jfluid, jwd, None),
+                          (tfluid, twd, tfluid.CPUPlace())):
+        main, startup = fl.Program(), fl.Program()
+        with fl.unique_name.guard(), fl.program_guard(main, startup):
+            R.wide_deep(fl, wd)
+        exe = fl.Executor(place) if place is not None else fl.Executor()
+        scope = fl.Scope()
+        exe.run(startup, scope=scope)
+        fl.io.load_persistables(exe, ckpt, main_program=main, scope=scope)
+        for v in main.list_vars():
+            if v.persistable and v.name in want:
+                got = scope.find_var(v.name)
+                got = got.numpy() if hasattr(got, "numpy") else \
+                    np.asarray(got)
+                assert got.shape == want[v.name].shape, v.name
+                assert np.array_equal(got, want[v.name]), v.name
 
 
 def test_rank_raising_mid_step_ends_the_launch(tmp_path):

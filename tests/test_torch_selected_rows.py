@@ -19,6 +19,13 @@ package, on the CPU (the cases of ``tests/test_selected_rows.py`` and
   duplicates may run in another order).
 - ``fuse_optimizer`` leaves the sparse-grad updates per-param and fuses
   the dense ones, as the JAX pass does (the same optimized op types).
+- A table's shard (``c_embedding``'s sparse grad over the shard's rows,
+  the ids outside it invalid slots) under lazy Adam, from nonzero
+  moments: every shard row no in-shard id names keeps its param and
+  moments bitwise, and the shard equals the JAX lazy Adam's update of
+  the whole table at those rows (rtol 1e-5, atol 1e-7); the invalid
+  slots add nothing through ``coalesce``, ``to_dense`` and sparse
+  ``sgd``.
 """
 import numpy as np
 import pytest
@@ -322,3 +329,68 @@ def test_sparse_grad_stays_unfused():
         [op.type for op in jopt.global_block().ops]
     sgd = [op for op in topt.global_block().ops if op.type == "sgd"]
     assert [op.inputs["Param"] for op in sgd] == [["embedding_0.w_0"]]
+
+
+def test_shard_lazy_adam_drops_ids_outside_the_shard():
+    """The out-of-shard ids of a row-split table's sparse grad, on their
+    own: dropped, not a zero grad on a clamped row (which would decay
+    that row's moments under lazy Adam)."""
+    rng = np.random.default_rng(12)
+    vocab, d, lo = 40, 4, 20                  # this shard: rows [20, 40)
+    w = rng.standard_normal((vocab, d)).astype(np.float32)
+    m1 = rng.standard_normal((vocab, d)).astype(np.float32) * 0.1
+    m2 = rng.uniform(0.01, 0.1, (vocab, d)).astype(np.float32)
+    ids = np.array([3, 25, 25, 0, 39, 7, 31, 19, 25, 0], np.int64)
+    g = rng.standard_normal((ids.size, d)).astype(np.float32)
+    attrs = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+             "lazy_mode": True}
+    b1p = np.full((vocab, d), 0.9 ** 3, np.float32)
+    b2p = np.full((vocab, d), 0.999 ** 3, np.float32)
+    lr = np.array([0.05], np.float32)
+    # the port: c_embedding's grad over the shard, then lazy Adam on it
+    fwd = {"type": "c_embedding", "inputs": {"Ids": ["ids"], "W": ["w"]},
+           "outputs": {"Out": ["out"]},
+           "attrs": {"start_index": lo, "is_sparse": True}}
+    t = torch.from_numpy
+    sr = _lower("torch", "c_embedding_grad",
+                {"Ids": [t(ids[:, None])], "W": [t(w[lo:].copy())],
+                 "Out@GRAD": [t(g)]},
+                {"__fwd_op__": fwd})["W@GRAD"][0]
+    assert tsr.is_selected_rows(sr) and sr.values.shape == (ids.size, d)
+    inside = (ids >= lo) & (ids < vocab)
+    np.testing.assert_array_equal(sr.valid.numpy(), inside)
+    assert (sr.rows.numpy() >= 0).all() and (sr.rows.numpy() < lo).all()
+    got = _lower("torch", "adam", {
+        "Param": [t(w[lo:].copy())], "Grad": [sr],
+        "LearningRate": [t(lr)], "Moment1": [t(m1[lo:].copy())],
+        "Moment2": [t(m2[lo:].copy())], "Beta1Pow": [t(b1p[lo:].copy())],
+        "Beta2Pow": [t(b2p[lo:].copy())]}, attrs)
+    # the JAX package's lazy Adam of the whole table on the whole grad
+    want = _lower("jax", "adam", {
+        "Param": [jnp.asarray(w)], "Grad": [jsr.SelectedRows(
+            jnp.asarray(ids, jnp.int32), jnp.asarray(g))],
+        "LearningRate": [jnp.asarray(lr)], "Moment1": [jnp.asarray(m1)],
+        "Moment2": [jnp.asarray(m2)], "Beta1Pow": [jnp.asarray(b1p)],
+        "Beta2Pow": [jnp.asarray(b2p)]}, attrs)
+    named = np.unique(ids[inside]) - lo
+    untouched = np.setdiff1d(np.arange(vocab - lo), named)
+    for slot, start in (("ParamOut", w), ("Moment1Out", m1),
+                        ("Moment2Out", m2)):
+        mine = got[slot].numpy()
+        np.testing.assert_array_equal(mine[untouched], start[lo:][untouched])
+        assert not np.array_equal(mine[named], start[lo:][named]), slot
+        np.testing.assert_allclose(mine, np.asarray(want[slot])[lo:], **TOL)
+    # the invalid slots add nothing where the grad is summed
+    dense = np.zeros((vocab - lo, d), np.float32)
+    np.add.at(dense, ids[inside] - lo, g[inside])
+    np.testing.assert_allclose(tsr.to_dense(sr, (vocab - lo, d)).numpy(),
+                               dense, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(
+        tsr.to_dense(tsr.coalesce(sr), (vocab - lo, d)).numpy(), dense,
+        rtol=1e-6, atol=1e-6)
+    moved = _lower("torch", "sgd", {"Param": [t(w[lo:].copy())],
+                                    "Grad": [sr], "LearningRate": [t(lr)]})
+    np.testing.assert_allclose(moved["ParamOut"].numpy(),
+                               w[lo:] - lr[0] * dense, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(moved["ParamOut"].numpy()[untouched],
+                                  w[lo:][untouched])

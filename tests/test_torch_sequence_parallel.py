@@ -30,7 +30,13 @@ single-device run on the whole batch):
   every parameter within 1e-5 of the model's max |ref| of it and of the
   port's one-rank run;
 - dropout 0.1 at sp 4 equals the one-rank run of the same rows: the
-  split region's masks are chunks of the whole tensor's draw.
+  split region's masks are chunks of the whole tensor's draw;
+- Queue 3's faults at dp 2 x sp 2, against the JAX package's
+  one-device run of the same program at the same tolerances: BERT-tiny
+  under ``RecomputeOptimizer(Adam)`` with its layer checkpoints (einsum
+  and flash attention), and with ``causal=True`` on every
+  ``flash_attention`` op (with and without recompute), whose queries the
+  rewrite reads gathered.
 
 The no-launch cases: the ``sp_shard`` program through
 ``verify_program`` (with and after ``tp_shard``), the mesh's
@@ -56,7 +62,7 @@ import torch_sp_runner as R
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 N = 4
-SCENARIOS = ["ops", "long_seq", "bert", "dropout"]
+SCENARIOS = ["ops", "long_seq", "bert", "dropout", "faults"]
 JAX_RNG = "@RNG_KEY@"
 
 
@@ -104,8 +110,8 @@ def jax_op_case(mech, bias, causal, bias_grad):
         scope=scope)]
 
 
-def _bert_build(mech):
-    return lambda fl: R.build_bert(fl, jbert, R.BERT["B"], mech)
+def _bert_build(mech, **kw):
+    return lambda fl: R.build_bert(fl, jbert, R.BERT["B"], mech, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -136,7 +142,10 @@ def world(tmp_path_factory):
                 "long_seq": jax_train(R.long_seq_model, [R.long_seq_feed()],
                                       seed=1)[0],
                 "bert": {m: jax_train(_bert_build(m),
-                                      R.bert_feeds(jbert)) for m in R.MECHS}}
+                                      R.bert_feeds(jbert)) for m in R.MECHS},
+                "faults": {name: jax_train(_bert_build(m, **kw),
+                                           R.bert_feeds(jbert))
+                           for name, m, kw in R.FAULT_CASES}}
         _, err = proc.communicate(timeout=240)
     finally:
         if proc.poll() is None:
@@ -239,6 +248,33 @@ def test_bert_sp_shard_matches_single_device(world, mech, grid):
                                rtol=3e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("case", R.FAULT_CASES,
+                         ids=[c[0] for c in R.FAULT_CASES])
+def test_sp_recompute_and_causal_flash_match_jax(world, case):
+    name, mech, kw = case
+    jlosses, jfinal, jmain = world["refs"]["faults"][name]
+    names = [p.name for p in jmain.all_parameters()]
+    per_dp = {}
+    ranks = read(world["tmp"], "faults")
+    plain = {n: ranks[0][0][f"{name}/plain/{n}"] for n in names}
+    tol = 5e-5 if kw.get("causal") else 1e-5
+    for r, (arrays, flags) in enumerate(ranks):
+        got = {k: arrays[f"{name}/{k}"] for k in names}
+        assert _max_err(got, plain, names) <= 1e-5, (r, name)
+        assert _max_err(got, jfinal, names) <= tol, (r, name)
+        mine = flags[name]
+        per_dp.setdefault(mine["coords"]["dp"], arrays[f"{name}/losses"])
+        assert mine["report"]["sp_split"] >= 1
+        if kw.get("recompute"):
+            assert mine["barriers"] > 0
+        if kw.get("causal"):
+            # the causal op reads the whole queries, as on one card
+            assert mine["flash_q_gathered"] and all(
+                mine["flash_q_gathered"]), mine
+    mean = np.mean([per_dp[d] for d in range(2)], axis=0)
+    np.testing.assert_allclose(mean, jlosses, rtol=3e-4, atol=1e-6)
+
+
 def test_dropout_masks_are_chunks_of_the_whole_draw(world):
     ranks = read(world["tmp"], "dropout")
     for r, (arrays, flags) in enumerate(ranks):
@@ -315,12 +351,37 @@ def test_sp_shard_program_passes_the_verifier(mech, tp):
 
 
 def test_causal_flash_under_sp_raises():
+    """Once a refusal (the kernels take no query offset), now the gather
+    route: a causal ``flash_attention`` under ``sp_shard`` reads Q, K and
+    V gathered, runs on the whole sequence as on one card, and the rank
+    keeps its chunk of the output by ``sp_split``; the program passes
+    the verifier on both ranks."""
+    from paddle_tpu_torch.framework.analysis import verify_program
     from paddle_tpu_torch.framework.passes import apply_passes, get_pass
     from paddle_tpu_torch.parallel.mesh import Mesh
-    main, _ = _bert_program("flash", causal_flash=True)
-    with pytest.raises(NotImplementedError, match="query offset"):
-        apply_passes(main.clone(), [get_pass("sp_shard", mesh=Mesh(1, 1, 2),
-                                             sp_rank=0)])
+    main, loss = _bert_program("flash", causal_flash=True)
+    cfg = R.bert_cfg(tbert, "flash")
+    for r in range(2):
+        prog = main.clone()
+        apply_passes(prog, [get_pass("sp_shard", mesh=Mesh(1, 1, 2),
+                                     sp_rank=r)])
+        verify_program(prog, fetch_names=[loss.name], check_shapes=True)
+        gb = prog.global_block()
+        made = {n: o for o in gb.ops for n in o.output_arg_names}
+        flash = [o for o in gb.ops if o.type == "flash_attention"]
+        assert len(flash) == cfg.num_layers
+        for o in flash:
+            assert o.attrs["causal"]
+            for slot in "QKV":
+                assert made[o.input(slot)[0]].type == "sp_gather", slot
+            assert gb.var(o.input("Q")[0]).shape[2] == 16
+            chunk = next(c for c in gb.ops if c.type == "sp_split"
+                         and c.input("X") == o.output("Out"))
+            assert gb.var(chunk.output("Out")[0]).shape[2] == 8
+        grads = [o for o in gb.ops if o.type == "flash_attention_grad"]
+        assert len(grads) == cfg.num_layers
+        assert sum(o.type == "sp_split_grad" for o in gb.ops) >= \
+            cfg.num_layers
 
 
 def test_mesh_puts_tp_innermost_then_sp():

@@ -21,6 +21,14 @@ holds the JAX package's own tp run to it:
   (JAX ``test_tp_param_actually_sharded``);
 - dropout on: the parameters that tp does not split are bitwise equal
   across the ranks of a tp group;
+- BERT-tiny under ``RecomputeOptimizer(Adam)`` with its layer
+  checkpoints, under ``LambOptimizer`` and under
+  ``LarsMomentumOptimizer`` (the JAX package runs all three at tp 2 x
+  dp 2 and matches its one device): the same parameter and loss
+  tolerances against the JAX single-device run, a ``recompute_barrier``
+  in the rewritten program, and each split parameter's ``lamb`` /
+  ``lars_momentum`` taking its norms over ``tp`` (``norm_axis``) while a
+  replicated one's takes none;
 - a save under tp, a load into a fresh scope and two more steps bitwise
   the uninterrupted run (JAX ``tests/test_io.py:202``), and the saved
   directory loads in the JAX package and in a port run at tp 1 to the
@@ -63,7 +71,9 @@ import torch_tp_runner as R
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 N = 4
-SCENARIOS = ["bert", "gpt", "dropout", "ckpt", "generate", "dp_after_tp"]
+OPTS = ["recompute", "lamb", "lars"]
+SCENARIOS = ["bert", "gpt", "dropout", "ckpt", "generate",
+             "dp_after_tp"] + OPTS
 JAX_RNG = "@RNG_KEY@"
 
 
@@ -132,6 +142,11 @@ def world(tmp_path_factory):
                                               tp=False),
                        R.gpt_feeds(jgpt)),
     }
+    for opt in OPTS:
+        refs[f"bert_{opt}"] = jax_run(
+            lambda fl, opt=opt: R.build_bert(fl, jbert, R.BERT["B"],
+                                             tp=False, opt=opt),
+            R.bert_feeds(jbert))
     refs["gen"] = jax_tiny_gpt()
     start = {}
     for k, v in refs.items():
@@ -182,6 +197,37 @@ def test_tp_training_matches_jax_single_device(world, model):
     np.testing.assert_allclose(mean, losses, rtol=3e-4, atol=1e-6)
     # the ranks of one tp group fetch the same loss
     assert np.array_equal(ranks[0][0]["losses"], ranks[1][0]["losses"])
+
+
+@pytest.mark.parametrize("opt", OPTS)
+def test_tp_recompute_lamb_lars_match_jax_single_device(world, opt):
+    """Queue 3's tp faults: recompute, LAMB and LARS under tp 2 x dp 2
+    against the JAX package's one-device run of the same program."""
+    ranks = read(world["tmp"], opt)
+    _, losses, final, jmain = world["refs"][f"bert_{opt}"]
+    ref = ranks[0][0]
+    for r, (arrays, _) in enumerate(ranks[1:], 1):
+        for k in final:
+            assert np.array_equal(arrays[k], ref[k]), (r, k)
+    names = _params(jmain)
+    top = max(float(np.abs(final[n]).max()) for n in names)
+    for name in names:
+        err = float(np.abs(ref[name].astype(np.float64)
+                           - final[name]).max()) / top
+        assert err <= 1e-5, f"{opt} {name}: {err:.3g} of the model's max"
+    mean = np.mean([ranks[0][0]["losses"], ranks[2][0]["losses"]], axis=0)
+    np.testing.assert_allclose(mean, losses, rtol=3e-4, atol=1e-6)
+    assert np.array_equal(ranks[0][0]["losses"], ranks[1][0]["losses"])
+    flags = ranks[0][1]
+    if opt == "recompute":
+        assert flags["barriers"] > 0
+        # each re-emitted segment's column-split matmuls read through
+        # their own c_identity, as the forward's do
+        cfg = R.bert_cfg(tbert)
+        assert flags["report"]["c_identity"] > 2 * cfg.num_layers + 1
+    else:
+        axes = flags["norm_axes"]
+        assert "tp" in axes and None in axes, axes
 
 
 def test_tp_shards_the_parameters_and_their_moments(world):

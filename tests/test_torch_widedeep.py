@@ -4,7 +4,8 @@ package, on the CPU, at ``tests/test_models.py``'s small shape: dense 4,
 
 - The main and startup programs equal the JAX package's
   (``to_dict()``: op types, attrs, var names and shapes), Adam plain and
-  lazy; ``table_dist_attr`` raises ``NotImplementedError``.
+  lazy; with ``table_dist_attr=("mp", None)`` too, every table and its
+  Adam moments carrying the annotation as in the JAX package.
 - ``params_from_jax`` carries the JAX startup's 20 parameters across
   bit for bit and raises on a missing or mis-shaped one.
 - Three Adam steps on one batch from the JAX startup's values, plain
@@ -39,10 +40,10 @@ CFG = dict(dense_dim=4, num_slots=6, vocab_size=50, embed_dim=8,
 B, STEPS = 32, 3
 
 
-def build(fluid, wd, lazy, batch_size=B):
+def build(fluid, wd, lazy, batch_size=B, **kw):
     main, startup = fluid.Program(), fluid.Program()
     with fluid.unique_name.guard(), fluid.program_guard(main, startup):
-        out = wd.wide_deep(batch_size=batch_size, **CFG)
+        out = wd.wide_deep(batch_size=batch_size, **CFG, **kw)
         fluid.optimizer.AdamOptimizer(1e-2, lazy_mode=lazy).minimize(
             out["loss"])
     return main, startup, out
@@ -54,11 +55,11 @@ def feeds(n):
                              rng=rng) for _ in range(n)]
 
 
-def jax_dict(program):
+def jax_dict(program, annotated=False):
     d = program.to_dict()
     for blk in d["blocks"]:
         for v in blk["vars"].values():
-            assert v["dist_attr"] is None
+            assert annotated or v["dist_attr"] is None
     return d
 
 
@@ -107,9 +108,18 @@ def test_programs_equal_jax(lazy):
     adams = [op for op in tmain.global_block().ops if op.type == "adam"]
     assert len(adams) == 20 and all(op.attrs["lazy_mode"] == lazy
                                     for op in adams)
-    with pytest.raises(NotImplementedError, match="table_dist_attr"):
-        with tfluid.program_guard(tfluid.Program(), tfluid.Program()):
-            twd.wide_deep(table_dist_attr=("mp", None), **CFG)
+    # the sharded tables' program, annotations included
+    jmain, jstart, _ = build(jfluid, jwd, lazy, table_dist_attr=("mp", None))
+    tmain, tstart, _ = build(tfluid, twd, lazy, table_dist_attr=("mp", None))
+    assert tmain.to_dict() == jax_dict(jmain, annotated=True)
+    assert tstart.to_dict() == jax_dict(jstart, annotated=True)
+    annotated = {n for n, v in tmain.to_dict()["blocks"][0]["vars"].items()
+                 if v["dist_attr"]}
+    for i in range(6):
+        for t in (f"embedding_{i}.w", f"wide_embedding_{i}.w"):
+            assert tuple(tmain.global_block().var(t).dist_attr) == \
+                ("mp", None)
+            assert any(n.startswith(t + "_moment1") for n in annotated), t
 
 
 def test_params_from_jax_carries_the_startup_across(trained):

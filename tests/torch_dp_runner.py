@@ -96,6 +96,51 @@ def bert_tiny(fluid, bert):
     return out
 
 
+# Wide&Deep at tests/test_models.py::test_widedeep_sharded_tables's shape
+WD = {"dense_dim": 4, "num_slots": 4, "vocab_size": 64, "embed_dim": 8,
+      "hidden_sizes": (16,)}
+WD_B = 16
+# (name, mesh axes, lazy Adam, table_dist_attr, feeds, how the steps
+# run: "run" one exe.run each, "steps" one exe.run_steps of all, captured
+# behind the multi-slice gate); "oob": after a first step over the whole
+# vocabulary, every id of steps 2 and 3 lies in the first half, so the
+# second mp shard sees only ids outside it; "dcn2dp2": two slices of two,
+# the sparse grads all-gathered over the joint data axis (hier_grad_sync
+# leaves them to dp_grad_allreduce)
+WD_CASES = (("dp4", {"dp": 4}, False, None, "full", "run"),
+            ("dp4_lazy", {"dp": 4}, True, None, "full", "run"),
+            ("dp2mp2", {"dp": 2, "tp": 2}, False, ("mp", None), "full", "run"),
+            ("dp2mp2_lazy", {"dp": 2, "tp": 2}, True, ("mp", None), "full",
+             "run"),
+            ("oob_lazy", {"dp": 2, "tp": 2}, True, ("mp", None), "oob", "run"),
+            ("dcn2dp2", {"dcn_dp": 2, "dp": 2}, False, None, "full", "run"),
+            ("dcn2dp2_steps", {"dcn_dp": 2, "dp": 2}, False, None, "full",
+             "steps"))
+
+
+def wide_deep(fluid, wd, lazy=False, dist=None):
+    """``wide_deep`` at ``WD`` (tables sharded by ``dist``), Adam at 1e-2
+    (lazy or not)."""
+    out = wd.wide_deep(table_dist_attr=dist, **WD)
+    fluid.optimizer.AdamOptimizer(1e-2, lazy_mode=lazy).minimize(
+        out["loss"])
+    return out["loss"]
+
+
+def wd_feeds(wd, kind="full", steps=STEPS, seed=30):
+    out = []
+    for i in range(steps):
+        f = wd.random_batch(WD_B, WD["dense_dim"], WD["num_slots"],
+                            WD["vocab_size"],
+                            rng=np.random.default_rng(seed + i))
+        if kind == "oob" and i:
+            for j in range(WD["num_slots"]):
+                f[f"C{j}"] = f[f"C{j}"] % (WD["vocab_size"] // 2)
+            f["label"] = (f["C0"] % 2).astype(np.int64)
+        out.append(f)
+    return out
+
+
 # ----------------------------------------------------------------- feeds
 
 def classifier_feeds(steps=STEPS, seed=0):
@@ -615,6 +660,135 @@ def dy_feeds(steps=STEPS):
     return [(rng.standard_normal((B_GLOBAL, 6)).astype("float32"),
              (rng.standard_normal((B_GLOBAL, 3)) * 0.5).astype("float32"))
             for _ in range(steps)]
+
+
+def sc_wd(c):
+    """Wide&Deep under each of ``WD_CASES``, 3 steps on the rank's rows
+    of the global batches: the gathered state, the losses, the ops the
+    rewrite made, the rank's table shard shape; "oob_lazy" also keeps
+    the gathered state after step 1; "dp2mp2" saves the trained model
+    (gathered) for the test to load at one card and in the JAX
+    package."""
+    from paddle_tpu_torch.models import widedeep
+    from paddle_tpu_torch.parallel import mesh
+    from paddle_tpu_torch.parallel.tp import gathered
+    fluid = c.fluid
+    out, flags = {}, {}
+
+    def whole(main, scope):
+        with gathered(scope):
+            return {v.name: np.array(scope.find_var(v.name).numpy())
+                    for v in main.list_vars() if v.persistable
+                    and hasattr(scope.find_var(v.name), "numpy")}
+
+    for name, axes, lazy, dist, kind, how in WD_CASES:
+        grid = mesh.make_mesh(mesh.MeshConfig(**axes))
+        # the data coordinate over dcn_dp x dp (dcn-major)
+        d, n = grid.coords()[mesh.DATA_AXIS], grid.dcn_dp * grid.dp
+        main, startup, loss = c.build(wide_deep, widedeep, lazy, dist)
+        exe, scope = c.scope(startup, "wd")
+        comp = fluid.CompiledProgram(main).with_data_parallel(
+            loss_name=loss.name, mesh=grid)
+        feeds = [rows(f, d, n) for f in wd_feeds(widedeep, kind)]
+        losses = []
+        if how == "steps":
+            fused, = exe.run_steps(comp, feed=feeds, fetch_list=[loss],
+                                   scope=scope)
+            losses = [float(v) for v in np.asarray(fused).reshape(-1)]
+            rep = comp.hier_report
+            flags[f"{name}/gate"] = {
+                "violations": rep["violations"], "rows": rep["rows"],
+                "sparse": rep["sparse_cross_slice_wire_bytes"],
+                "cross": rep["cross_slice_wire_bytes"],
+                "flat": rep["flat_estimate_wire_bytes"]}
+        for i, f in enumerate(feeds if how == "run" else ()):
+            losses.append(float(np.ravel(exe.run(
+                comp, feed=f, fetch_list=[loss], scope=scope)[0])[0]))
+            if name == "oob_lazy" and i == 0:
+                for k, v in whole(main, scope).items():
+                    out[f"{name}/step1/{k}"] = v
+        for k, v in whole(main, scope).items():
+            out[f"{name}/{k}"] = v
+        out[f"{name}/losses"] = np.array(losses)
+        types = [o.type for o in comp.program.global_block().ops]
+        flags[name] = {
+            "coords": grid.coords(), "data": d,
+            "hier": types.count("hier_allreduce"),
+            "allgathers": types.count("c_allgather_selected_rows"),
+            "c_embedding": types.count("c_embedding"),
+            "table_local": list(scope.find_var("embedding_0.w").shape),
+            "moment_local": list(scope.find_var(next(
+                v.name for v in main.list_vars()
+                if v.name.startswith("embedding_0.w_moment1"))).shape)}
+        if name == "dp2mp2":
+            ckpt = os.path.join(c.args["out"], "wd_ckpt")
+            fluid.io.save_persistables(exe, ckpt, main_program=main,
+                                       scope=scope)
+            flags["ckpt"] = ckpt
+    return out, flags
+
+
+def dy_emb(dy):
+    """A sparse ``Embedding`` (64 x 8) summed over each row's ids into a
+    ``Linear`` to one output."""
+    class EmbMLP(dy.Layer):
+        def __init__(self):
+            super().__init__()
+            self.emb = dy.Embedding([64, 8], is_sparse=True)
+            self.fc = dy.Linear(8, 1)
+
+        def forward(self, ids):
+            return self.fc(self.emb(ids))
+    return EmbMLP()
+
+
+def dy_emb_feeds(steps=STEPS):
+    rng = np.random.default_rng(19)
+    return [(rng.integers(0, 64, (B_GLOBAL,)).astype("int64"),
+             rng.standard_normal((B_GLOBAL, 1)).astype("float32"))
+            for _ in range(steps)]
+
+
+def sc_dy_sparse(c):
+    """The sparse-Embedding model under DataParallel, 3 Adam steps (its
+    grads are dense in both packages: dygraph ``Embedding`` ignores
+    ``is_sparse``, as the JAX package's does); then a ``SelectedRows``
+    grad set on a parameter, all-gathered by ``apply_collective_grads``
+    (rank r's rows r and 10 + r, values r + 1)."""
+    import torch
+    fluid = c.fluid
+    from paddle_tpu_torch import dygraph as dy
+    from paddle_tpu_torch.framework.selected_rows import SelectedRows
+    from paddle_tpu_torch.models import layer_params_from_jax
+    out = {}
+    with dy.guard(c.place):
+        model = dy_emb(dy)
+        layer_params_from_jax(model, c.start("dy_emb"))
+        model = dy.DataParallel(model, dy.prepare_context())
+        opt = fluid.optimizer.Adam(0.01, parameter_list=model.parameters())
+        losses = []
+        b = B_GLOBAL // c.n
+        sl = slice(c.rank * b, (c.rank + 1) * b)
+        for ids, y in dy_emb_feeds():
+            loss = fluid.layers.mean(fluid.layers.square(
+                fluid.layers.elementwise_sub(
+                    model(dy.to_variable(ids[sl])), dy.to_variable(y[sl]))))
+            loss = model.scale_loss(loss)
+            loss.backward()
+            model.apply_collective_grads()
+            opt.minimize(loss)
+            model.clear_gradients()
+            losses.append(float(loss.numpy().reshape(-1)[0]) * c.n)
+        out["losses"] = np.array(losses)
+        for k, v in model.state_dict().items():
+            out[k] = np.array(v)
+        p = model.parameters()[0]
+        p._grad = SelectedRows(torch.tensor([c.rank, 10 + c.rank]),
+                               torch.full((2, 8), float(c.rank + 1)))
+        model.apply_collective_grads()
+        out["sr/rows"] = p._grad.rows.numpy()
+        out["sr/values"] = p._grad.values.numpy()
+    return out, {}
 
 
 def sc_dy_mlp(c):

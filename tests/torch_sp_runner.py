@@ -124,15 +124,26 @@ def bert_cfg(bert, mech, dropout=0.0):
 
 
 def build_bert(fluid, bert, rows, mech, sp_shard=True, tp=False,
-               dropout=0.0):
+               dropout=0.0, recompute=False, causal=False):
     """BERT-tiny pretraining at ``rows`` sequences, the hidden state
-    pinned to ("dp", "sp", None), Adam at 1e-3."""
+    pinned to ("dp", "sp", None), Adam at 1e-3 (under
+    ``RecomputeOptimizer`` with the layer checkpoints with
+    ``recompute``); ``causal`` sets ``causal=True`` on every
+    ``flash_attention`` op."""
     cfg = bert_cfg(bert, mech, dropout)
     out = bert.bert_pretrain(cfg, rows, BERT["S"], BERT["P"],
                              sp_shard=sp_shard)
     if tp:
         bert.apply_tp_sharding(out["loss"].block.program, cfg)
-    fluid.optimizer.AdamOptimizer(1e-3).minimize(out["loss"])
+    if causal:
+        for op in out["loss"].block.ops:
+            if op.type == "flash_attention":
+                op.attrs["causal"] = True
+    opt = fluid.optimizer.AdamOptimizer(1e-3)
+    if recompute:
+        opt = fluid.optimizer.RecomputeOptimizer(opt)
+        opt._set_checkpoints(out["checkpoints"])
+    opt.minimize(out["loss"])
     return out["loss"]
 
 
@@ -263,12 +274,13 @@ def _whole_params(c, main, scope):
                 for p in main.all_parameters()}
 
 
-def _train_bert(c, mech, grid_name, dropout=0.0, steps=BERT["steps"]):
+def _train_bert(c, mech, grid_name, dropout=0.0, steps=BERT["steps"],
+                **kw):
     grid = c.grid(grid_name)
     d, n = grid.coords()["dp"], grid.dp
     main, startup, loss = c.program(
         build_bert, c.bert, BERT["B"] // n, mech, tp=grid.tp > 1,
-        dropout=dropout)
+        dropout=dropout, **kw)
     exe, scope = c.scope(startup, "bert")
     prog = c.fluid.CompiledProgram(main).with_data_parallel(
         loss_name=loss.name, mesh=grid)
@@ -279,10 +291,10 @@ def _train_bert(c, mech, grid_name, dropout=0.0, steps=BERT["steps"]):
     return main, prog, scope, losses
 
 
-def _plain_bert(c, mech, dropout=0.0, steps=BERT["steps"]):
+def _plain_bert(c, mech, dropout=0.0, steps=BERT["steps"], **kw):
     """The port's one-rank run of the whole batch (no mesh)."""
     main, startup, loss = c.program(build_bert, c.bert, BERT["B"], mech,
-                                    dropout=dropout)
+                                    dropout=dropout, **kw)
     exe, scope = c.scope(startup, "bert")
     losses = [float(np.ravel(exe.run(main, feed=f, fetch_list=[loss],
                                      scope=scope)[0])[0])
@@ -310,6 +322,40 @@ def sc_bert(c):
             for k, v in params.items():
                 out[f"{tag}/plain/{k}"] = v
             out[f"{tag}/plain/losses"] = np.array(losses)
+    return out, flags
+
+
+# Queue 3's sp faults: (name, mechanism, build keywords), each at dp 2 x
+# sp 2 against the JAX package's one-device run of the same program
+FAULT_CASES = (("recompute_einsum", None, {"recompute": True}),
+               ("recompute_flash", "flash", {"recompute": True}),
+               ("causal_flash", "flash", {"causal": True}),
+               ("causal_flash_recompute", "flash",
+                {"causal": True, "recompute": True}))
+
+
+def sc_faults(c):
+    """Each of ``FAULT_CASES`` at dp 2 x sp 2, 3 Adam steps; rank 0 also
+    runs the one-rank program of the whole batch."""
+    out, flags = {}, {}
+    for name, mech, kw in FAULT_CASES:
+        if c.rank == 0:
+            params, losses = _plain_bert(c, mech, **kw)
+            for k, v in params.items():
+                out[f"{name}/plain/{k}"] = v
+        main, prog, scope, losses = _train_bert(c, mech, "dp2sp2", **kw)
+        for k, v in _whole_params(c, main, scope).items():
+            out[f"{name}/{k}"] = v
+        out[f"{name}/losses"] = np.array(losses)
+        ops = prog.program.global_block().ops
+        types = [o.type for o in ops]
+        flags[name] = {"coords": c.grid("dp2sp2").coords(),
+                       "report": getattr(prog.program, "_sp_report", {}),
+                       "barriers": types.count("recompute_barrier"),
+                       "flash_q_gathered": [
+                           o.input("Q")[0].split("@SP_")[-1].startswith(
+                               "GATHER") for o in ops
+                           if o.type == "flash_attention"]}
     return out, flags
 
 

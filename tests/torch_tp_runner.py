@@ -41,14 +41,30 @@ def gpt_cfg(gpt, dropout=0.0):
     return cfg
 
 
-def build_bert(fluid, bert, rows, dropout=0.0, tp=True):
+def optimizer(fluid, opt, checkpoints=None):
+    """``opt``'s optimizer: "adam" (1e-3), "recompute" (that Adam under
+    ``RecomputeOptimizer`` with the model's layer checkpoints), "lamb"
+    (1e-3, under a global-norm clip at 1.0, as bert_lamb trains) or
+    "lars" (0.01, momentum 0.9)."""
+    O = fluid.optimizer
+    if opt == "recompute":
+        rc = O.RecomputeOptimizer(O.AdamOptimizer(1e-3))
+        rc._set_checkpoints(checkpoints)
+        return rc
+    return {"adam": lambda: O.AdamOptimizer(1e-3),
+            "lamb": lambda: O.LambOptimizer(
+                1e-3, grad_clip=fluid.clip.GradientClipByGlobalNorm(1.0)),
+            "lars": lambda: O.LarsMomentumOptimizer(0.01, 0.9)}[opt]()
+
+
+def build_bert(fluid, bert, rows, dropout=0.0, tp=True, opt="adam"):
     """BERT-tiny pretraining at ``rows`` sequences, annotated for tp,
-    Adam at 1e-3."""
+    under ``opt`` (:func:`optimizer`)."""
     cfg = bert_cfg(bert, dropout)
     out = bert.bert_pretrain(cfg, rows, BERT["S"], BERT["P"])
     if tp:
         bert.apply_tp_sharding(out["loss"].block.program, cfg)
-    fluid.optimizer.AdamOptimizer(1e-3).minimize(out["loss"])
+    optimizer(fluid, opt, out["checkpoints"]).minimize(out["loss"])
     return out["loss"]
 
 
@@ -154,14 +170,14 @@ def local_state(main, scope):
             and hasattr(scope.find_var(v.name), "numpy")}
 
 
-def train(c, kind, steps=STEPS, dropout=0.0):
+def train(c, kind, steps=STEPS, dropout=0.0, opt="adam"):
     bert = kind == "bert"
     build = build_bert if bert else build_gpt
     model = c.bert if bert else c.gpt
-    kw = {"dropout": dropout} if bert else {}
+    kw = {"dropout": dropout, "opt": opt} if bert else {}
     main, startup, loss = c.program(build, model, BERT["B"] // 2
                                     if bert else GPT["B"] // 2, **kw)
-    exe, scope = c.scope(startup, kind)
+    exe, scope = c.scope(startup, kind if opt == "adam" else f"bert_{opt}")
     prog = c.compiled(main, loss)
     feeds = (bert_feeds if bert else gpt_feeds)(model, steps)
     split = bert_rows if bert else gpt_rows
@@ -188,6 +204,26 @@ def sc_gpt(c):
     out.update(local_state(main, scope))
     out["losses"] = np.array(losses)
     return out, {}
+
+
+def _sc_opt(opt):
+    def sc(c):
+        """BERT-tiny under ``opt`` at dp 2 x tp 2, 3 steps: the gathered
+        state, the losses and the ops the rewrite made."""
+        main, prog, exe, scope, losses, _ = train(c, "bert", opt=opt)
+        out = whole_state(c, main, scope)
+        out["losses"] = np.array(losses)
+        ops = prog.program.global_block().ops
+        types = [o.type for o in ops]
+        return out, {"report": prog.program._tp_report,
+                     "barriers": types.count("recompute_barrier"),
+                     "norm_axes": [o.attrs.get("norm_axis") for o in ops
+                                   if o.type in ("lamb", "lars_momentum")]}
+    return sc
+
+
+sc_recompute, sc_lamb, sc_lars = (_sc_opt(o) for o in
+                                  ("recompute", "lamb", "lars"))
 
 
 def sc_dropout(c):
